@@ -117,9 +117,17 @@ def test_cpu_call_runs_plain_version_without_launching():
 
 
 def test_dropout_is_not_ported():
+    """The attention wrapper's own dropout arguments: a rate above 0 needs a
+    seed and drops, rate 0 reads no seed. There is no separate dropout to
+    port: tests/test_torch_port_dropout.py holds the dropped values."""
     qkv, _, _ = _inputs(13, False, False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TFA.fused_qkv_attention(_t(qkv), None, None, None, SCALE, H, 0.1)
+    seed = torch.tensor([7], dtype=torch.int64)
+    kept = TFA.fused_qkv_attention(_t(qkv), None, None, None, SCALE, H, 0.0)
+    dropped = TFA.fused_qkv_attention(_t(qkv), None, None, seed, SCALE, H, 0.1)
+    assert dropped.shape == kept.shape and not torch.equal(dropped, kept)
+    assert torch.equal(TFA.fused_qkv_attention(_t(qkv), None, None, seed, SCALE, H, 0.0), kept)
 
 
 def test_kernel_launch_rejects_non_cuda_tensors():

@@ -128,7 +128,7 @@ def test_evaluate_matches_jax():
                       [(JA.normalize(JA.to_float(jnp.asarray(x)), mean, std), y)
                        for x, y in zip(u8, labels)])
 
-    model = load_flax_params(VisionTransformer(TViTConfig(**overrides)), params)
+    model = load_flax_params(VisionTransformer(TViTConfig(**overrides), device="cpu"), params)
     batches = ((TA.normalize(TA.to_float(torch.from_numpy(x)), mean, std), torch.from_numpy(y))
                for x, y in zip(u8, labels))
     out = evaluate(model, batches, forward=make_eval_forward(model))
@@ -148,10 +148,15 @@ def _run(code_or_args, env=None):
 def test_port_never_imports_jax():
     proc = _run(
         "import sys\n"
-        "import uncertainty_vit_tpu_torch.evals.classification\n"
-        "import uncertainty_vit_tpu_torch.models.vit\n"
-        "import uncertainty_vit_tpu_torch.ops.augment\n"
-        "import uncertainty_vit_tpu_torch.utils.checkpoint\n"
+        "import importlib, pkgutil\n"
+        "import uncertainty_vit_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for wanted in ('core.device', 'ops.philox', 'ops.dropout', 'evals.mc_dropout',\n"
+        "               'evals.ensembles', 'evals.collect', 'evals.classification',\n"
+        "               'models.vit', 'ops.augment', 'utils.checkpoint'):\n"
+        "    assert pkg.__name__ + '.' + wanted in names, wanted\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'uncertainty_vit_tpu')]\n"
         "assert not bad, bad\n"

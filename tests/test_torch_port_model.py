@@ -93,7 +93,8 @@ def test_vit_logits_match_jax(case):
 
     prev, TFA.BOUNDED_SCORES = TFA.BOUNDED_SCORES, bounded
     try:
-        model = load_flax_params(VisionTransformer(TViTConfig(**overrides)), params).eval()
+        model = load_flax_params(VisionTransformer(TViTConfig(**overrides), device="cpu"),
+                                 params).eval()
         with torch.no_grad():
             out = model(torch.from_numpy(images))
     finally:
@@ -109,9 +110,9 @@ def test_plain_attention_config_matches_fused_path():
     cfg = TViTConfig(**BASE, use_shared_rel_pos_bias=True)
     images = _images()
     _, params = _jax_model_and_params(ViTConfig(**BASE, use_shared_rel_pos_bias=True), images)
-    fused = load_flax_params(VisionTransformer(cfg), params).eval()
+    fused = load_flax_params(VisionTransformer(cfg, device="cpu"), params).eval()
     plain_cfg = cfg.replace(use_flash_attention=False)
-    plain = load_flax_params(VisionTransformer(plain_cfg), params).eval()
+    plain = load_flax_params(VisionTransformer(plain_cfg, device="cpu"), params).eval()
     with torch.no_grad():
         x = torch.from_numpy(images)
         np.testing.assert_allclose(fused(x).numpy(), plain(x).numpy(), rtol=RTOL, atol=ATOL)
@@ -122,7 +123,8 @@ def test_load_flax_params_keys_match_export(case):
     overrides = dict(BASE, **CASES[case])
     _, params = _jax_model_and_params(ViTConfig(**overrides), _images())
     exported = export_torch_state_dict(params)
-    model = load_flax_params(VisionTransformer(TViTConfig(**overrides)), params)  # strict
+    model = load_flax_params(VisionTransformer(TViTConfig(**overrides), device="cpu"),
+                             params)  # strict
     sd = model.state_dict()
     assert set(sd) == set(exported)
     for k, v in exported.items():
@@ -135,7 +137,7 @@ def test_load_flax_params_rejects_unknown_params():
     _, params = _jax_model_and_params(ViTConfig(**BASE), _images())
     params = dict(params, sngp_extra={"kernel": np.zeros((2, 2), np.float32)})
     with pytest.raises(KeyError):
-        load_flax_params(VisionTransformer(TViTConfig(**BASE)), params)
+        load_flax_params(VisionTransformer(TViTConfig(**BASE), device="cpu"), params)
 
 
 def test_attention_module_matches_jax():
@@ -152,7 +154,7 @@ def test_attention_module_matches_jax():
     p = _numpy_params(shapes, seed=4)
     ref = np.asarray(jmod.apply({"params": p}, jnp.asarray(x), jnp.asarray(shared)))
 
-    mod = Attention(dim, heads, window_size=window, layer_id=2)
+    mod = Attention(dim, heads, window_size=window, layer_id=2, device="cpu")
     mod.load_state_dict({
         "qkv.weight": torch.from_numpy(p["qkv_kernel"].T.copy()),
         "q_bias": torch.from_numpy(p["q_bias"]),
@@ -168,9 +170,11 @@ def test_attention_module_matches_jax():
 
 def test_port_init_is_seeded_and_follows_reference_scales():
     cfg = TViTConfig(**BASE, use_shared_rel_pos_bias=True)
-    a = VisionTransformer(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
-    b = VisionTransformer(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
-    c = VisionTransformer(cfg, generator=torch.Generator().manual_seed(1)).state_dict()
+    def build(seed):
+        return VisionTransformer(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(seed)).state_dict()
+
+    a, b, c = build(0), build(0), build(1)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["blocks.0.attn.qkv.weight"], c["blocks.0.attn.qkv.weight"])
 

@@ -79,7 +79,7 @@ def _small(seed=0, batch=4):
     jmodel = JViT(cfg=cfg)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.asarray(images))["params"]
     params = _numpy_params(shapes, seed)
-    model = load_flax_params(VisionTransformer(TViTConfig(**SMALL)), params)
+    model = load_flax_params(VisionTransformer(TViTConfig(**SMALL), device="cpu"), params)
     return jmodel, params, model, images, labels
 
 
@@ -280,7 +280,7 @@ def test_drop_path_mask_follows_the_generator_seed():
 
 def test_model_forward_draws_drop_path_from_its_generator():
     cfg = TViTConfig(**dict(SMALL, drop_path_rate=0.5))
-    model = VisionTransformer(cfg, generator=torch.Generator().manual_seed(0)).train()
+    model = VisionTransformer(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).train()
     x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         a = model(x, generator=torch.Generator().manual_seed(5))
@@ -360,7 +360,7 @@ def test_train_step_with_mixup_and_drop_path_is_seeded():
     cfg = TViTConfig(**dict(SMALL, drop_path_rate=0.1))
 
     def run(seed):
-        model = VisionTransformer(cfg, generator=torch.Generator().manual_seed(0))
+        model = VisionTransformer(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
         opt = TO.make_optimizer(model, layer_decay=0.65, depth=cfg.depth)
         step = TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(num_classes=10),
                                            TS.cosine_schedule(4e-3, 1e-6, 100, warmup_steps=5))

@@ -9,6 +9,9 @@
 //   t   = (g v^T) * p,  c = rowsum(t),  ds = t - p * c
 //   dq  = ds_c k * scale,  dk = ds_c^T q * scale   (ds_c: ds in the input dtype)
 //   dbias[h] += ds                             (f32, summed over the batch)
+// With attention dropout the forward's keep mask is replayed (:298-301):
+// p_d = p * keep * 1/(1 - rate) takes p's place in dv and in t, while ds
+// keeps the undropped p in p * c.
 // q and v carry the optional q/v bias, added in the input dtype as the
 // forward adds it. dq|dk|dv are written packed into [B, N, 3C] in the input
 // dtype (the TPU kernel's `single_out` layout, :255-262).
@@ -50,11 +53,26 @@
 // along rows; dbias takes the ds pairs as 8-byte atomics.
 // Tail rows (N = 197 or 50 is no multiple of 16) are zero-filled in shared
 // memory, so 0 * garbage cannot make NaN, and their p is forced to 0.
+// Dropout replay: the TPU reseeds its generator per program, so forward and
+// backward must share a batch block to see one mask (:426-438). Here pass A,
+// pass B and the key-major phase 2 each tile the scores their own way, and
+// the forward kernel a fourth, so the keep bit of (image, head, row, column)
+// is a function of the seed and that position alone (csrc/philox.cuh); every
+// pass recomputes it where it recomputes p. A thread pair shares each 2 x 2
+// block of the mask in the query-major and in the key-major fragment alike
+// (philox::fragment_bits), so each pass pays one Philox call per four
+// entries: three passes, ~3 x 18.6M calls at B=160, integer work of the
+// order of the kernel's tensor-core time. The replay is a separate
+// instantiation (kDrop), so the rate-0 kernel keeps its registers and time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -207,12 +225,14 @@ __device__ __forceinline__ void store_rows_bf16(bf16* out, const float (&acc)[kD
   }
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                    const float* __restrict__ bias_t, const float* __restrict__ qv_bias,
                    const float* __restrict__ lse, const bf16* __restrict__ gout,
                    bf16* __restrict__ dqkv, float* __restrict__ dbias, int n, int ldb,
-                   int num_heads, float scale) {
+                   int num_heads, float scale, const long long* __restrict__ seed,
+                   uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n_pad = (n + kRows - 1) / kRows * kRows;
   bf16* ms = reinterpret_cast<bf16*>(smem);  // [n_pad][kLd]: K, then Q
@@ -239,6 +259,25 @@ attention_bwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   bf16* xs = stage + warp * 2 * kRows * kLd;  // this warp's own rows: Q, then K
   bf16* ys = xs + kRows * kLd;                 // and G, then V
   const int n_blocks = n_pad / kRows;
+  philox::Key pkey{0u, 0u};
+  if constexpr (kDrop) pkey = philox::load_key(seed);
+  const uint32_t bh = uint32_t(b) * num_heads + h;
+  // pd = p * keep * 1/(1 - rate) for a 16 x 16 fragment pair whose first
+  // fragment row is a_lo and first column c0 (query-major), or whose rows
+  // are keys and columns queries (kTransposed)
+  auto dropped = [&](auto transposed, float (&pd)[2][4], const float (&p)[2][4], int a_lo,
+                     int c0) {
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      uint32_t bits[4];
+      philox::fragment_bits<decltype(transposed)::value>(pkey, bh, a_lo, c0 + nb * 8 + 2 * t,
+                                                         bits);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pd[nb][e] = p[nb][e] * philox::keep_scale(bits[e], threshold, inv_keep);
+      }
+    }
+  };
 
   // Bias pairs of the 16 x 16 tile at (r0, c0) of b ([n][ldb], ldb even):
   // bv[nb][i] holds columns c0 + nb*8 + 2t, +1 of row r0 + g + 8i, 0 where
@@ -302,6 +341,7 @@ attention_bwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       mma_abt(s, qf, ms, k0);
       mma_abt(dp, gf, ns, k0);
       probs(s, bcur, k0);
+      if constexpr (kDrop) dropped(std::false_type{}, s, s, rows[0], k0);  // t = dp * p_d
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
@@ -323,10 +363,18 @@ attention_bwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       mma_abt(s, qf, ms, k0);
       mma_abt(dp, gf, ns, k0);
       probs(s, bcur, k0);
+      float pd[2][4];
+      if constexpr (kDrop) dropped(std::false_type{}, pd, s, rows[0], k0);
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dp[nb][e] = s[nb][e] * (dp[nb][e] - csum[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kDrop) {  // ds = p_d * dp - p * c
+            dp[nb][e] = pd[nb][e] * dp[nb][e] - s[nb][e] * csum[e >> 1];
+          } else {
+            dp[nb][e] = s[nb][e] * (dp[nb][e] - csum[e >> 1]);
+          }
+        }
         // ds of columns 2t, 2t+1 in one 8-byte atomic; a pair starting at
         // n - 1 adds 0 into the padding column
 #pragma unroll
@@ -381,7 +429,20 @@ attention_bwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
           const float v = fmaf(bias_at(bcur, nb, e), kLog2e, s[nb][e] * sl2) - lse_s[qr];
           const float p = (key < n && qr < n) ? exp2f(v) : 0.0f;
           s[nb][e] = p;
-          dp[nb][e] = p * (dp[nb][e] - c_s[qr]);
+          if constexpr (!kDrop) dp[nb][e] = p * (dp[nb][e] - c_s[qr]);
+        }
+      }
+      if constexpr (kDrop) {  // dv takes p_d; ds = p_d * dp - p * c
+        float pd[2][4];
+        dropped(std::true_type{}, pd, s, keys[0], q0);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qr = q0 + nb * 8 + 2 * t + (e & 1);
+            dp[nb][e] = pd[nb][e] * dp[nb][e] - s[nb][e] * c_s[qr];
+            s[nb][e] = pd[nb][e];
+          }
         }
       }
       mma_ab(dv, s, ns, q0);
@@ -402,12 +463,14 @@ size_t smem_bf16(int n) {
 // f32: FMA loops, one warp per row
 // ---------------------------------------------------------------------------
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
                   const float* __restrict__ bias_t, const float* __restrict__ qv_bias,
                   const float* __restrict__ lse, const float* __restrict__ gout,
                   float* __restrict__ dqkv, float* __restrict__ dbias, int n, int ldb,
-                  int num_heads, float scale) {
+                  int num_heads, float scale, const long long* __restrict__ seed,
+                  uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ms = reinterpret_cast<float*>(smem);  // [n][kLdF]: K, then Q
   float* ns = ms + n * kLdF;                   // [n][kLdF]: V, then G
@@ -430,6 +493,12 @@ attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
   const float* bias_h = bias ? bias + size_t(h) * n * ldb : nullptr;
   const float* bias_th = bias_t ? bias_t + size_t(h) * n * ldb : nullptr;
   float* dbias_h = dbias ? dbias + size_t(h) * n * ldb : nullptr;
+  philox::Key pkey{0u, 0u};
+  if constexpr (kDrop) pkey = philox::load_key(seed);
+  const uint32_t bh = uint32_t(b) * num_heads + h;
+  auto keep_at = [&](int row, int col) {
+    return philox::keep_scale(philox::attention_bits(pkey, bh, row, col), threshold, inv_keep);
+  };
 
   auto row_of = [&](const float* src, int cols, int col0, int row, const float* qvb, float* dst) {
     const float* p = src + (size_t(b) * n + row) * cols + col0;
@@ -457,15 +526,20 @@ attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
       float s = dot_rows(ms, j, xr) * scale;
       if (bias_h != nullptr) s += bias_h[size_t(i) * ldb + j];
       const float p = expf(s - lse_s[i]);
-      const float dp = dot_rows(ns, j, yr);
+      float dp = dot_rows(ns, j, yr);
       pw[j] = p;
+      if constexpr (kDrop) {  // dw holds t = dp * p_d
+        dp *= p * keep_at(i, j);
+        csum += dp;
+      } else {
+        csum += p * dp;
+      }
       dw[j] = dp;
-      csum += p * dp;
     }
     csum = warp_sum(csum);
     if (lane == 0) c_s[i] = csum;
     for (int j = lane; j < n; j += 32) {
-      const float ds = pw[j] * (dw[j] - csum);
+      const float ds = kDrop ? dw[j] - pw[j] * csum : pw[j] * (dw[j] - csum);
       dw[j] = ds;
       if (dbias_h != nullptr) atomicAdd(dbias_h + size_t(i) * ldb + j, ds);
     }
@@ -492,8 +566,14 @@ attention_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
       float s = dot_rows(ms, i, xr) * scale;
       if (bias_th != nullptr) s += bias_th[size_t(j) * ldb + i];
       const float p = expf(s - lse_s[i]);
-      pw[i] = p;
-      dw[i] = p * (dot_rows(ns, i, yr) - c_s[i]);
+      if constexpr (kDrop) {  // dv takes p_d; ds = p_d * dp - p * c
+        const float pd = p * keep_at(i, j);
+        pw[i] = pd;
+        dw[i] = pd * dot_rows(ns, i, yr) - p * c_s[i];
+      } else {
+        pw[i] = p;
+        dw[i] = p * (dot_rows(ns, i, yr) - c_s[i]);
+      }
     }
     __syncwarp();
     float* dst = dqkv + (size_t(b) * n + j) * c3 + hc;
@@ -519,7 +599,8 @@ template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, const void* qkv, const float* bias,
                    const float* bias_t, const float* qv_bias, const float* lse, const void* g,
                    void* dqkv, float* dbias, int batch, int n, int ldb, int num_heads,
-                   float scale, cudaStream_t stream) {
+                   float scale, const long long* seed, uint32_t threshold, float inv_keep,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -527,7 +608,7 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* qkv, const float* bia
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), bias, bias_t, qv_bias,
                                            lse, static_cast<const T*>(g),
                                            static_cast<T*>(dqkv), dbias, n, ldb, num_heads,
-                                           scale);
+                                           scale, seed, threshold, inv_keep);
   return cudaGetLastError();
 }
 
@@ -540,11 +621,14 @@ extern "C" {
 // transpose (bias_t[h][key][query]) are [H, N, ldb] f32 with an even pitch
 // ldb >= N, zero in the padding; both null without a bias. dbias ([H, N,
 // ldb] f32, zeroed by the caller) may be null and is then not computed.
-// Returns the launch's cudaError_t.
+// seed (one int64 in device memory, the forward's) null means no dropout;
+// otherwise threshold and inv_keep are the forward's. Returns the launch's
+// cudaError_t.
 int uvit_flash_attention_bwd(const void* qkv, const void* bias, const void* bias_t,
                              const void* qv_bias, const void* lse, const void* g, void* dqkv,
-                             void* dbias, int batch, int n, int ldb, int num_heads, int dtype,
-                             float scale, void* stream) {
+                             void* dbias, const void* seed, int batch, int n, int ldb,
+                             int num_heads, int dtype, float scale, unsigned int threshold,
+                             float inv_keep, void* stream) {
   if (n < 1 || n > kMaxN || ldb < n || ldb % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* bs = static_cast<const float*>(bias);
   const float* bst = static_cast<const float*>(bias_t);
@@ -552,13 +636,23 @@ int uvit_flash_attention_bwd(const void* qkv, const void* bias, const void* bias
   const float* l = static_cast<const float*>(lse);
   float* db = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* sd = static_cast<const long long*>(seed);
+  const bool drop = sd != nullptr;
   if (dtype == 0) {
-    return launch<bf16>(attention_bwd_bf16, smem_bf16(n), qkv, bs, bst, qvb, l, g, dqkv, db, batch,
-                        n, ldb, num_heads, scale, st);
+    return drop ? launch<bf16>(attention_bwd_bf16<true>, smem_bf16(n), qkv, bs, bst, qvb, l, g,
+                               dqkv, db, batch, n, ldb, num_heads, scale, sd, threshold, inv_keep,
+                               st)
+                : launch<bf16>(attention_bwd_bf16<false>, smem_bf16(n), qkv, bs, bst, qvb, l, g,
+                               dqkv, db, batch, n, ldb, num_heads, scale, sd, threshold, inv_keep,
+                               st);
   }
   if (dtype == 1) {
-    return launch<float>(attention_bwd_f32, smem_f32(n), qkv, bs, bst, qvb, l, g, dqkv, db,
-                         batch, n, ldb, num_heads, scale, st);
+    return drop ? launch<float>(attention_bwd_f32<true>, smem_f32(n), qkv, bs, bst, qvb, l, g,
+                                dqkv, db, batch, n, ldb, num_heads, scale, sd, threshold,
+                                inv_keep, st)
+                : launch<float>(attention_bwd_f32<false>, smem_f32(n), qkv, bs, bst, qvb, l, g,
+                                dqkv, db, batch, n, ldb, num_heads, scale, sd, threshold,
+                                inv_keep, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

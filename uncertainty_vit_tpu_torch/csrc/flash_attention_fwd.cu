@@ -6,8 +6,11 @@
 //   s   = scale * q k^T (f32 accumulation) + bias[h]
 //   e   = exp(s - rowmax)            exact mode
 //       = exp(s)                     bounded mode (BOUNDED_SCORES, :74-78)
+//   e   = e * keep * 1/(1 - rate)    with dropout (`_dropout_mask`, :156-162,
+//                                    applied at :233-234), after the row sum
 //   out = (e @ v) * (1 / rowsum(e))  stored in the head's columns of [B, N, C]
-//   lse = log rowsum(exp(s))         optional, f32 [B, H, N]
+//   lse = log rowsum(exp(s))         optional, f32 [B, H, N]: of the
+//                                    undropped softmax
 // with an optional q/v bias added to the q and v slabs in the input dtype
 // (`_qv_biased`, :182-185). e is rounded to the input dtype before the
 // product with v, as the TPU kernel does.
@@ -36,11 +39,26 @@
 //     bank conflicts.
 //   f32: plain FMA loops over shared-memory tiles, so that f32 stays f32
 //     (no TF32); scores and the output go through per-warp f32 tiles.
+// Dropout: the TPU seeds its generator per program (:202), so its mask
+// follows its batch block and head group, and its backward must tile alike
+// (:426-438). Here the keep bit of entry (image, head, row, column) is a
+// function of the seed and that position alone (csrc/philox.cuh), so this
+// kernel's k/v tiling, the backward's two phases and the plain PyTorch
+// version all draw one mask. Each tile's e is multiplied by the scaled keep
+// mask after it has entered the running row sum, never before. In bf16 a
+// thread and its neighbour four lanes on share two 2 x 2 blocks of the mask,
+// compute one each and exchange halves: one Philox call per four entries.
+// At B=1024 that is still 119M calls, ~6 G integer operations beside
+// 0.12 TFLOP of tensor-core work, so dropout is bounded by the integer
+// pipes, not by memory. The dropout path is a separate instantiation
+// (kDrop): with rate 0 the kernel is the same code as without the feature.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -166,10 +184,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 constexpr size_t kSmemBf16 = size_t(5) * kTile * Ld<bf16>::v * sizeof(bf16);
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                    const float* __restrict__ qv_bias, bf16* __restrict__ out,
-                   float* __restrict__ lse, int n, int num_heads, float scale, int bounded) {
+                   float* __restrict__ lse, int n, int num_heads, float scale, int bounded,
+                   const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
   constexpr int ld = Ld<bf16>::v;
   constexpr int kTileElems = kTile * ld;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -188,6 +208,9 @@ attention_fwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   const int c3 = 3 * c;
   const int hc = h * kD;
   const float* qvb_v = qv_bias ? qv_bias + 2 * c + hc : nullptr;
+  philox::Key pkey{0u, 0u};
+  if constexpr (kDrop) pkey = philox::load_key(seed);
+  const uint32_t bh = uint32_t(b) * num_heads + h;
 
   // k/v tile rows [k0, k0 + kTile) → stage, 8 chunks of 16 B per row
   auto load_kv = [&](int stage, int k0) {
@@ -304,6 +327,15 @@ attention_fwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
         l_r[e >> 1] += p;
       }
     }
+    if constexpr (kDrop) {  // after the row sum: the lse is the undropped softmax's
+#pragma unroll
+      for (int nb = 0; nb < kTile / 8; ++nb) {
+        uint32_t bits[4];
+        philox::fragment_bits<false>(pkey, bh, rows[0], k0 + nb * 8 + 2 * t, bits);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] *= philox::keep_scale(bits[e], threshold, inv_keep);
+      }
+    }
 
     // o += e v: the C fragments of two key blocks are the A fragment of
     // one 16-key step
@@ -399,10 +431,12 @@ __device__ __forceinline__ void warp_pv_f32(float* o, const float* p, const floa
   }
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
                   const float* __restrict__ qv_bias, float* __restrict__ out,
-                  float* __restrict__ lse, int n, int num_heads, float scale, int bounded) {
+                  float* __restrict__ lse, int n, int num_heads, float scale, int bounded,
+                  const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -412,6 +446,9 @@ attention_fwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
   const int c = num_heads * kD;
   const int c3 = 3 * c;
   const int hc = h * kD;
+  philox::Key pkey{0u, 0u};
+  if constexpr (kDrop) pkey = philox::load_key(seed);
+  const uint32_t bh = uint32_t(b) * num_heads + h;
 
   float* s_w = reinterpret_cast<float*>(smem) + warp * 2 * kRows * kLdS;
   float* o_w = s_w + kRows * kLdS;
@@ -468,6 +505,10 @@ attention_fwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
         o_w[r * kLdS + lane] *= alpha;
         o_w[r * kLdS + lane + 32] *= alpha;
       }
+      if constexpr (kDrop) {  // after the row sum
+        e0 *= philox::keep_scale(philox::attention_bits(pkey, bh, row, c0), threshold, inv_keep);
+        e1 *= philox::keep_scale(philox::attention_bits(pkey, bh, row, c1), threshold, inv_keep);
+      }
       p_w[r * kLdF + lane] = e0;
       p_w[r * kLdF + lane + 32] = e1;
     }
@@ -494,14 +535,15 @@ attention_fwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, const void* qkv, const float* bias,
                    const float* qv_bias, void* out, float* lse, int batch, int n,
-                   int num_heads, float scale, int bounded, cudaStream_t stream) {
+                   int num_heads, float scale, int bounded, const long long* seed,
+                   uint32_t threshold, float inv_keep, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, num_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), bias, qv_bias,
                                            static_cast<T*>(out), lse, n, num_heads, scale,
-                                           bounded);
+                                           bounded, seed, threshold, inv_keep);
   return cudaGetLastError();
 }
 
@@ -510,21 +552,30 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* qkv, const float* bia
 extern "C" {
 
 // dtype: 0 = bf16, 1 = f32. bias ([H, N, N] f32), qv_bias ([3, C] f32) and
-// lse ([B, H, N] f32) may be null. Returns the launch's cudaError_t.
+// lse ([B, H, N] f32) may be null. seed (one int64 in device memory) null
+// means no dropout; otherwise threshold = min(int(rate * 2^32), 2^32 - 1)
+// and inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
 int uvit_flash_attention_fwd(const void* qkv, const void* bias, const void* qv_bias,
-                             void* out, void* lse, int batch, int n, int num_heads,
-                             int dtype, float scale, int bounded, void* stream) {
+                             void* out, void* lse, const void* seed, int batch, int n,
+                             int num_heads, int dtype, float scale, int bounded,
+                             unsigned int threshold, float inv_keep, void* stream) {
   const float* b = static_cast<const float*>(bias);
   const float* qvb = static_cast<const float*>(qv_bias);
   float* l = static_cast<float*>(lse);
+  const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool drop = sd != nullptr;
   if (dtype == 0) {
-    return launch<bf16>(attention_fwd_bf16, kSmemBf16, qkv, b, qvb, out, l, batch, n,
-                        num_heads, scale, bounded, st);
+    return drop ? launch<bf16>(attention_fwd_bf16<true>, kSmemBf16, qkv, b, qvb, out, l, batch, n,
+                               num_heads, scale, bounded, sd, threshold, inv_keep, st)
+                : launch<bf16>(attention_fwd_bf16<false>, kSmemBf16, qkv, b, qvb, out, l, batch,
+                               n, num_heads, scale, bounded, sd, threshold, inv_keep, st);
   }
   if (dtype == 1) {
-    return launch<float>(attention_fwd_f32, kSmemF32, qkv, b, qvb, out, l, batch, n,
-                         num_heads, scale, bounded, st);
+    return drop ? launch<float>(attention_fwd_f32<true>, kSmemF32, qkv, b, qvb, out, l, batch, n,
+                                num_heads, scale, bounded, sd, threshold, inv_keep, st)
+                : launch<float>(attention_fwd_f32<false>, kSmemF32, qkv, b, qvb, out, l, batch,
+                                n, num_heads, scale, bounded, sd, threshold, inv_keep, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,14 @@ the same: images NHWC, a compute dtype that is an argument (bfloat16 on the
 card), parameters float32 under the reference's torch names and shapes, so
 that ``utils.checkpoint.load_flax_params`` loads the JAX params with
 ``strict=True``. Every module initializes its parameters from an explicit
-``torch.Generator`` on its ``device``.
+``torch.Generator`` on its ``device``; ``device=None`` is the current CUDA
+device (``core.device``), never the CPU.
+
+A forward's randomness is switched per call: ``deterministic=None`` follows
+the module's train/eval mode, True or False overrides it, as the
+reference's modules take ``deterministic`` per call (the split-trunk
+MC-dropout forward runs some blocks with dropout and some without in one
+pass).
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncertainty_vit_tpu_torch.core import init as I
-from uncertainty_vit_tpu_torch.ops import relpos
+from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
+from uncertainty_vit_tpu_torch.ops import philox, relpos
 from uncertainty_vit_tpu_torch.ops.attention import naive_attention
+from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
 from uncertainty_vit_tpu_torch.ops.flash_attention import fused_qkv_attention
 
 
@@ -58,6 +67,29 @@ def dropout(
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
+def site_dropout(
+    x: torch.Tensor, rate: float, active: bool,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The dropout of the attention-projection and MLP-fc2 sites (``_dropout``
+    of the reference's models/layers.py:66-77). When no gradient is wanted
+    (the MC-dropout evaluation) it is the fused kernel K8,
+    ``ops.dropout.fused_dropout``, seeded from ``generator``; under grad
+    mode it is ``dropout``: K8 is forward only, as in the reference."""
+    if not active or rate == 0.0:
+        return x
+    if torch.is_grad_enabled():
+        return dropout(x, rate, True, generator)
+    seed = philox.draw_seed(_require_generator(generator, "dropout"), x.device)
+    return fused_dropout(x.contiguous(), rate, seed)
+
+
+def _active(module: nn.Module, deterministic: Optional[bool]) -> bool:
+    """Whether a forward draws: the call's ``deterministic`` when given, else
+    the module's train mode."""
+    return module.training if deterministic is None else not deterministic
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm computed in f32 with f32 params; the result is f32 (as
     flax's LayerNorm promotes a bf16 input against its f32 params)."""
@@ -75,6 +107,7 @@ class _Params(nn.Module):
     def __init__(self, weight_shape, weight_init: I.Init, bias_shape=None,
                  bias_init: I.Init = I.zeros, *, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = _param(weight_shape, weight_init, device, generator)
         self.bias = None if bias_shape is None else _param(bias_shape, bias_init, device, generator)
 
@@ -88,6 +121,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int = 16, in_chans: int = 3, embed_dim: int = 768,
                  dtype: torch.dtype = torch.float32, *, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.patch_size, self.embed_dim, self.dtype = patch_size, embed_dim, dtype
         fan_in = in_chans * patch_size * patch_size
         self.proj = _Params(
@@ -140,6 +174,7 @@ class Mlp(nn.Module):
                  layer_id: int = 0, init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  dtype: torch.dtype = torch.float32, *, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         tn = I.trunc_normal(init_std, init_trunc_abs)
         self.drop, self.dtype = drop, dtype
         self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, device=device, generator=generator)
@@ -147,11 +182,12 @@ class Mlp(nn.Module):
                                    device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None) -> torch.Tensor:
         x = self.fc1(x)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
         x = self.fc2(x, out_scale)
-        return dropout(x, self.drop, self.training, generator)
+        return site_dropout(x, self.drop, _active(self, deterministic), generator)
 
 
 def _register_relpos_index(module: nn.Module, window_size: Tuple[int, int], device) -> None:
@@ -174,6 +210,7 @@ class RelativePositionBias(nn.Module):
 
     def __init__(self, window_size: Tuple[int, int], num_heads: int, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         nrd = relpos.num_relative_distance(window_size)
         self.relative_position_bias_table = _param((nrd, num_heads), I.zeros, device, None)
         _register_relpos_index(self, window_size, device)
@@ -190,8 +227,9 @@ class Attention(nn.Module):
     and the key bias is structurally zero. The q|0|v bias is added with the
     qkv matmul, outside the attention kernel (models/layers.py:296-314).
     ``use_flash=True`` routes through ``fused_qkv_attention`` (the kernel on
-    a CUDA tensor, its plain version on CPU); ``use_flash=False`` takes
-    ``naive_attention``."""
+    a CUDA tensor, its plain version on CPU), attention dropout included,
+    from a seed drawn from the forward's generator; ``use_flash=False``
+    takes ``naive_attention``."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
@@ -200,6 +238,7 @@ class Attention(nn.Module):
                  init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  use_flash: bool = True, *, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
         all_head_dim = head_dim * num_heads
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -224,7 +263,9 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 out_scale: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None) -> torch.Tensor:
+        active = _active(self, deterministic)
         b, n, _ = x.shape
         qkv_bias = None
         if self.q_bias is not None:
@@ -238,16 +279,22 @@ class Attention(nn.Module):
         if rel_pos_bias is not None:
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
 
-        drop = self.attn_drop if self.training else 0.0
+        drop = self.attn_drop if active else 0.0
         if self.use_flash:
-            out = fused_qkv_attention(qkv, bias, None, None, self.scale, self.num_heads, drop)
+            # the seed of the in-kernel mask, as the reference draws it from
+            # the "dropout" rng (models/layers.py:344-349)
+            seed = None
+            if drop > 0.0:
+                seed = philox.draw_seed(_require_generator(generator, "attention dropout"),
+                                        x.device)
+            out = fused_qkv_attention(qkv, bias, None, seed, self.scale, self.num_heads, drop)
         else:
             q, k, v = qkv.reshape(b, n, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
             out = naive_attention(q, k, v, self.scale, bias, dropout_rate=self.attn_drop,
-                                  generator=generator, deterministic=not self.training)
+                                  generator=generator, deterministic=not active)
             out = out.transpose(1, 2).reshape(b, n, -1)
         out = self.proj(out, out_scale)
-        return dropout(out, self.proj_drop, self.training, generator)
+        return site_dropout(out, self.proj_drop, active, generator)
 
 
 class Block(nn.Module):
@@ -268,6 +315,7 @@ class Block(nn.Module):
         super().__init__()
         if variant != "softmax":
             raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
+        device = resolve_device(device)
         self.dtype, self.drop_path_rate = dtype, drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.attn = Attention(
@@ -287,16 +335,19 @@ class Block(nn.Module):
             self.gamma_1 = self.gamma_2 = None
 
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``generator`` supplies every draw of a training forward: the
-        drop-path masks (one per sample) and any dropout masks."""
+        """``generator`` supplies every draw of a forward that draws: the
+        drop-path masks (one per sample) and the dropout masks or seeds."""
+        active = _active(self, deterministic)
         attn_out = self.attn(layer_norm(self.norm1, x).to(self.dtype), rel_pos_bias,
-                             out_scale=self.gamma_1, generator=generator)
-        x = x + drop_path(attn_out, self.drop_path_rate, self.training, generator)
+                             out_scale=self.gamma_1, generator=generator,
+                             deterministic=not active)
+        x = x + drop_path(attn_out, self.drop_path_rate, active, generator)
         fc_feature = drop_path(
             self.mlp(layer_norm(self.norm2, x).to(self.dtype), out_scale=self.gamma_2,
-                     generator=generator),
-            self.drop_path_rate, self.training, generator,
+                     generator=generator, deterministic=not active),
+            self.drop_path_rate, active, generator,
         )
         return x + fc_feature, fc_feature

@@ -9,7 +9,7 @@ which is where ``export_torch_state_dict`` of the JAX package puts them.
 
 Not ported yet (they raise): the SNGP and heteroscedastic heads, the
 spectral-norm fc_norm, attention variants other than softmax, the int8
-trunk, masking and the split-trunk MC-dropout forward.
+trunk and masking.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ import torch.nn.functional as F
 
 from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.config import ViTConfig
+from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.layers import (
-    Block, PatchEmbed, RelativePositionBias, _param, _Params, dropout, layer_norm,
+    Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, dropout, layer_norm,
 )
 
 
@@ -33,11 +34,18 @@ class ViTBackbone(nn.Module):
 
     ``forward`` returns (x, layer_xs, fc_features): the final tokens and the
     per-layer block outputs / post-MLP residuals (learn_layer_weights reads
-    the former)."""
+    the former). ``device=None`` builds on the current CUDA device.
+
+    ``mc_samples > 0`` is the split-trunk MC-dropout forward (models/
+    vit.py:56-61, 136-139, 170-171 of the reference): blocks [0, mc_split)
+    run once without dropout, the batch is tiled K× and blocks [mc_split,
+    depth) run with dropout. Exact MC-dropout when the shared blocks carry
+    no dropout of their own (``cfg.dropout_from_block >= mc_split``)."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         if cfg.quant != "none" or cfg.has_masking:
             raise NotImplementedError("the int8 trunk and token masking are not ported yet")
         self.cfg, self.dtype = cfg, dtype
@@ -71,21 +79,28 @@ class ViTBackbone(nn.Module):
             for i in range(cfg.depth)
         )
 
-    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None
+    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+        active = _active(self, deterministic)
         x = self.patch_embed(images.to(self.dtype))
         b, _, c = x.shape
         x = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, c), x], dim=1)
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(self.dtype)
-        x = dropout(x, self.pos_drop, self.training, generator)
+        x = dropout(x, self.pos_drop, active, generator)
         rel_pos_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
         layer_xs: List[torch.Tensor] = []
         fc_features: List[torch.Tensor] = []
-        for blk in self.blocks:
-            x, fc = blk(x, rel_pos_bias, generator)
+        for i, blk in enumerate(self.blocks):
+            if mc_samples > 0 and i == mc_split:
+                x = x.repeat(mc_samples, 1, 1)
+            block_deterministic = not active if mc_samples == 0 else i < mc_split
+            x, fc = blk(x, rel_pos_bias, generator, deterministic=block_deterministic)
             layer_xs.append(x)
             fc_features.append(fc)
+        if mc_samples > 0 and mc_split >= len(self.blocks):
+            x = x.repeat(mc_samples, 1, 1)
         return x, layer_xs, fc_features
 
 
@@ -97,6 +112,7 @@ class VisionTransformer(ViTBackbone):
                  device=None, generator: Optional[torch.Generator] = None):
         if cfg.head_type != "linear" or cfg.sngp_fc_norm:
             raise NotImplementedError("only the linear head is ported yet")
+        device = resolve_device(device)
         super().__init__(cfg, dtype, device=device, generator=generator)
         c = cfg.embed_dim
         self.layer_log_weights = (
@@ -119,13 +135,22 @@ class VisionTransformer(ViTBackbone):
             (cfg.num_classes,), device=device, generator=generator,
         )
 
-    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None
+    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
                 ) -> torch.Tensor:
-        """images [B, H, W, C] → f32 logits. In train mode every random draw
-        (drop-path, dropout) comes from ``generator``, on the images' device."""
-        x, layer_xs, _ = super().forward(images, generator)
+        """images [B, H, W, C] → f32 logits [B, classes], or [K, B, classes]
+        with ``mc_samples=K`` (the split-trunk MC-dropout forward, see
+        ``ViTBackbone``). Every random draw (drop-path, dropout masks and
+        seeds) comes from ``generator``, on the images' device; a forward
+        draws in train mode, or as ``deterministic`` says when given."""
+        if mc_samples > 0:
+            assert not self.cfg.learn_layer_weights, "mc split incompatible with layer weights"
+        x, layer_xs, _ = super().forward(images, generator, deterministic, mc_samples, mc_split)
         feat = self._pool(x, layer_xs)
-        return F.linear(feat.float(), self.head.weight, self.head.bias)
+        logits = F.linear(feat.float(), self.head.weight, self.head.bias)
+        if mc_samples > 0:
+            logits = logits.reshape(mc_samples, images.shape[0], -1)
+        return logits
 
     def _pool(self, x: torch.Tensor, layer_xs: List[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` under the checkout (listed in
-.gitignore) at first use. The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing here
+.gitignore) at first use. The hash covers the source, every header
+``csrc/*.cuh`` (the kernels share ``philox.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here
 runs at import time: the CPU tests import every module of the package on a
 host without nvcc or a card.
 """
@@ -19,7 +21,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -45,11 +49,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _digest(src: Path) -> str:
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same source and flags
-    exists; returns the library's path."""
+    """Compile csrc/<name>.cu unless a library of the same source, headers
+    and flags exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = _digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
@@ -85,3 +97,28 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def typed(name: str, argtypes: Sequence) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu with its entry point ``uvit_<name>``
+    (returning the launch's cudaError_t) and ``uvit_cuda_error_string``
+    typed."""
+    lib = load(name)
+    fn = getattr(lib, f"uvit_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.uvit_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.uvit_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.uvit_cuda_error_string(err).decode()} ({err})"
+        )
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
