@@ -448,9 +448,20 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_kernel_sources_share_the_generator_header():
-    for name in ("dropout", "flash_attention_fwd", "flash_attention_bwd"):
+    attention = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_stream_fwd",
+                 "flash_attention_stream_bwd")
+    for name in ("dropout",) + attention:
         assert '#include "philox.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     assert (_native.CSRC / "philox.cuh").exists()
+    # the four attention kernels share their fragment and copy helpers too
+    for name in attention:
+        assert '#include "attention_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
+    headers = {p.name for p in _native.CSRC.glob("*.cuh")}
+    assert headers == {"philox.cuh", "attention_common.cuh"}
+    # every header enters every library's hash
+    digest = _native._digest(_native.CSRC / "dropout.cu")
+    assert len(digest) == 16 and sorted(p.stem for p in _native.CSRC.glob("*.cu")) == sorted(
+        ("dropout",) + attention)
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@ at the model tolerance of tests/test_torch_parity.py:30.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -153,7 +154,8 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for wanted in ('core.device', 'ops.philox', 'ops.dropout', 'evals.mc_dropout',\n"
         "               'evals.ensembles', 'evals.collect', 'evals.classification',\n"
-        "               'models.vit', 'ops.augment', 'utils.checkpoint'):\n"
+        "               'models.vit', 'ops.augment', 'utils.checkpoint', 'ops.flash_attention',\n"
+        "               'ops._native', 'train.engine_finetune', 'train.optim'):\n"
         "    assert pkg.__name__ + '.' + wanted in names, wanted\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -162,6 +164,16 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
     )
     assert proc.returncode == 0, proc.stderr
+    # the scripts that drive the port on the card, and every source of the
+    # package (the large-N route's included), name no module of JAX or of the
+    # JAX package
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|uncertainty_vit_tpu)\b(?!_)",
+                         re.MULTILINE)
+    sources = [Path(REPO) / "chip_smoke.py", *sorted((Path(REPO) / "tools").glob("torch_port_*.py")),
+               *sorted((Path(REPO) / "uncertainty_vit_tpu_torch").rglob("*.py"))]
+    assert Path(REPO) / "uncertainty_vit_tpu_torch" / "ops" / "flash_attention.py" in sources
+    for path in sources:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -65,39 +65,17 @@
 // order of the kernel's tensor-core time. The replay is a separate
 // instantiation (kDrop), so the rate-0 kernel keeps its registers and time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <type_traits>
 
+#include "attention_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;        // head dim (ViT-B and ViT-L)
 constexpr int kMaxN = 256;    // the wrapper raises above this
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;     // rows a warp owns at a time (bf16) = mma M
-constexpr int kLd = kD + 8;   // bf16 smem row: 144 B, ldmatrix conflict-free
-constexpr int kLdF = kD + 1;  // f32 smem row: 65 words, column reads conflict-free
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Copy rows [row0, row0 + rows) of one head's slab (column col0 of the
 // packed [B, N, cols] tensor) into shared memory rows of `ld` elements,
@@ -135,76 +113,6 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, const fl
 // ---------------------------------------------------------------------------
 // bf16: mma.sync m16n8k16, register-resident p, ds and accumulators
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments (16 rows x 64) of a warp's staged rows, for the 4 k-steps.
-__device__ __forceinline__ void load_a_frags(const bf16* rows, uint32_t (&f)[kD / 16][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldsm_x4(smem_u32(rows + r * kLd + kk * 16 + (lane >> 4) * 8), f[kk]);
-  }
-}
-
-// s[2][4] = a (16 x 64) . m[row0 .. row0 + 16)^T: two 8-column blocks.
-__device__ __forceinline__ void mma_abt(float (&s)[2][4], const uint32_t (&a)[kD / 16][4],
-                                        const bf16* m, int row0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb) {
-    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.0f;
-#pragma unroll
-    for (int kp = 0; kp < kD / 32; ++kp) {
-      uint32_t kb[4];
-      ldsm_x4(smem_u32(m + (row0 + nb * 8 + (lane & 7)) * kLd + kp * 32 + (lane >> 3) * 8), kb);
-      mma_bf16(s[nb], a[2 * kp], kb[0], kb[1]);
-      mma_bf16(s[nb], a[2 * kp + 1], kb[2], kb[3]);
-    }
-  }
-}
-
-// acc (16 x 64) += x (16 x 16, the packed C fragments) . m[row0 .. row0 + 16)
-__device__ __forceinline__ void mma_ab(float (&acc)[kD / 8][4], const float (&x)[2][4],
-                                       const bf16* m, int row0) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t pa[4] = {pack_bf16(x[0][0], x[0][1]), pack_bf16(x[0][2], x[0][3]),
-                          pack_bf16(x[1][0], x[1][1]), pack_bf16(x[1][2], x[1][3])};
-#pragma unroll
-  for (int dp = 0; dp < kD / 16; ++dp) {
-    uint32_t vb[4];
-    const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldsm_x4_trans(smem_u32(m + r * kLd + dp * 16 + (lane >> 4) * 8), vb);
-    mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-    mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-  }
-}
 
 // Stores a warp's 16 x 64 f32 accumulator, times `mul`, as bf16 into the
 // packed [B, N, 3C] rows row0 + g and row0 + g + 8 at column col0.

@@ -53,24 +53,15 @@
 // pipes, not by memory. The dropout path is a separate instantiation
 // (kDrop): with rate 0 the kernel is the same code as without the feature.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
+#include "attention_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;        // head dim (ViT-B and ViT-L)
 constexpr int kTile = 64;     // q rows per block and k/v rows per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kTile / kWarps;  // q rows per warp
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Leading dimension (elements) of the shared-memory tiles: bf16 rows of
 // 144 B keep 16-byte stores and make the 8 rows an ldmatrix reads fall in
@@ -79,34 +70,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <typename T> struct Ld;
 template <> struct Ld<bf16> { static constexpr int v = kD + 8; };
 template <> struct Ld<float> { static constexpr int v = kD + 1; };
-constexpr int kLdS = kD + 4;  // per-warp f32 score/output tiles (f32 kernel)
-
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Adds the section's bias row to 16 bytes of one slab row, in the input
-// dtype (`_qv_biased`).
-template <typename T>
-__device__ __forceinline__ void add_qv_bias(T* e, const float* qvb_row) {
-  constexpr int kVec = 16 / sizeof(T);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) e[j] = from_f32<T>(to_f32(e[j]) + to_f32(from_f32<T>(qvb_row[j])));
-}
 
 // Copy rows [row0, row0 + kTile) of one head's q, k or v slab into shared
 // memory with plain loads, zero-filling rows >= n and adding the section's
@@ -140,47 +103,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* qkv, const float* qvb
 // ---------------------------------------------------------------------------
 // bf16: mma.sync m16n8k16, register-resident scores and output
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global → shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 constexpr size_t kSmemBf16 = size_t(5) * kTile * Ld<bf16>::v * sizeof(bf16);
 
@@ -382,7 +304,6 @@ attention_fwd_bf16(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 // f32: FMA loops, per-warp f32 score and output tiles in shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int kLdF = Ld<float>::v;
 constexpr size_t kSmemF32 =
     size_t(kWarps) * 2 * kRows * kLdS * sizeof(float) +
     size_t(3 * kTile + kWarps * kRows) * kLdF * sizeof(float);

@@ -1,8 +1,11 @@
-"""Fused multi-head attention over packed qkv: forward (K1) and backward (K2).
+"""Fused multi-head attention over packed qkv: forward (K1, K3) and backward
+(K2, K4).
 
 Counterpart of ``fused_qkv_attention`` in uncertainty_vit_tpu/ops/
 flash_attention.py (:1369-1424: the ``jax.custom_vjp`` over ``_fwd_kernel``
-:188-241 and ``_bwd_kernel`` :244-326). Inputs are
+:188-241 and ``_bwd_kernel`` :244-326, and for large N over
+``_stream_fwd_kernel`` :668-716 and the two streaming backward kernels
+:744-852, picked by ``_route`` :1361-1366). Inputs are
 the fused qkv activations [B, N, 3C] straight out of the qkv matmul (q|k|v
 concatenated, heads interleaved as C = H·D); the per-head slabs are cut
 inside the kernel, so no [B, H, N, D] copies and no [B, H, N, N] scores
@@ -11,23 +14,31 @@ reach device memory.
 - On a CPU tensor the call runs ``fused_qkv_attention_plain`` (forward)
   and ``fused_qkv_attention_bwd_plain`` (backward), the same math in plain
   PyTorch.
-- On a CUDA tensor the forward launches the Hopper kernel of
-  ``csrc/flash_attention_fwd.cu`` and adds one to
-  ``fused_qkv_attention.launches``; the backward launches
-  ``csrc/flash_attention_bwd.cu`` and adds one to
-  ``fused_qkv_attention_bwd.launches``. Either raises on what its kernel
-  does not take. There is no fallback.
+- On a CUDA tensor ``route(N)`` picks the kernels. Up to ``BWD_MAX_N``
+  tokens ("fused"): the forward launches ``csrc/flash_attention_fwd.cu``
+  (K1) and adds one to ``fused_qkv_attention.launches``; the backward
+  launches ``csrc/flash_attention_bwd.cu`` (K2), which holds a whole
+  (image, head) in shared memory, and adds one to
+  ``fused_qkv_attention_bwd.launches``. Above it ("stream"; N = 577 and
+  1025 at the 384 and 512 presets): the forward launches
+  ``csrc/flash_attention_stream_fwd.cu`` (K3) and adds one to
+  ``fused_qkv_attention.stream_launches``; the backward launches the two
+  kernels of ``csrc/flash_attention_stream_bwd.cu`` (K4) back to back and
+  adds one to ``fused_qkv_attention_bwd.stream_launches``. One threshold
+  serves forward and backward. Either raises on what its kernel does not
+  take. There is no fallback.
 
 When grad mode is on and an input requires grad, the call goes through
 ``_FusedQKVAttention`` (a ``torch.autograd.Function``): its forward is K1
-with the row log-sum-exp, its backward K2, which rebuilds the
+or K3 with the row log-sum-exp, its backward K2 or K4, which rebuild the
 probabilities from that lse. Otherwise only the forward runs.
 
 Attention dropout (``dropout_rate > 0``) runs inside both kernels
 (``_dropout_mask`` :156-162, applied at :233-234 and replayed at :298-301):
 the keep mask is a pure function of the seed and of each entry's (image,
 head, row, column) (``ops/philox.py``), so K2 replays K1's mask whatever
-tiles either uses, and the plain versions draw the very same mask. The
+tiles either uses (K3 and K4's two kernels likewise), and the plain
+versions draw the very same mask. The
 reference's TPU kernels seed a hardware generator per program instead, so
 against it only distributions compare.
 """
@@ -49,12 +60,21 @@ from uncertainty_vit_tpu_torch.ops import _native, philox
 BOUNDED_SCORES = False
 # The kernel's only head width (ViT-B and ViT-L).
 KERNEL_HEAD_DIM = 64
-# The backward kernel keeps a whole (image, head) of two of q/k/v/g in
-# shared memory: it takes N up to this (ViT 224 and below; N=577/1025 are
-# the streaming kernels' shapes).
+# The fused backward kernel keeps a whole (image, head) of two of q/k/v/g in
+# shared memory: it takes N up to this (ViT 224 and below). Above it the
+# streaming kernels run, forward and backward alike (N=577/1025).
 BWD_MAX_N = 256
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def route(n: int) -> str:
+    """The kernels a call with N = n tokens takes on the card: "fused" (K1
+    forward, K2 backward) up to ``BWD_MAX_N``, "stream" (K3, K4) above it.
+    The threshold is the card's (K2's shared memory), not the TPU's VMEM
+    budget (``_route``, :1361-1366), and is the same for forward and
+    backward, so a saved lse always meets the backward that expects it."""
+    return "fused" if n <= BWD_MAX_N else "stream"
 
 
 def fused_qkv_attention_plain(
@@ -128,6 +148,40 @@ def reduce_qv_bias_grad(dqkv: torch.Tensor) -> torch.Tensor:
     return dqvb * torch.tensor([1.0, 0.0, 1.0], device=dqkv.device)[:, None]
 
 
+def _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
+    """What every backward kernel recomputes from the saved lse (``_bwd_kernel``
+    :291-303, ``_stream_recompute_tile`` :719-741), for whole rows: the f32
+    head slabs q, k, g [B, H, N, D] (q and v with the q/v bias added in the
+    input dtype), p = exp(s − lse), p_d = p·mask (p itself without dropout)
+    and t = (g vᵀ)·p_d. Products take the (exactly upcast) operands in f32."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    dt = qkv.dtype
+    q, k, v = qkv.split(c, dim=-1)
+    if qv_bias is not None:
+        q = q + qv_bias[0].to(dt)
+        v = v + qv_bias[2].to(dt)
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, d).transpose(1, 2).float()
+
+    q, k, v, gh = heads(q), heads(k), heads(v), heads(g.to(dt))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse.float()[..., None])
+    p_d = p * _keep_scale(seed, dropout_rate, b, num_heads, n, image0) if dropout_rate > 0.0 else p
+    t = torch.matmul(gh, v.transpose(-1, -2)) * p_d
+    return q, k, gh, p, p_d, t
+
+
+def _tokens(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, N, D] f32 → [B, N, H·D] in dtype."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d).to(dtype)
+
+
 def fused_qkv_attention_bwd_plain(
     qkv: torch.Tensor,
     bias: Optional[torch.Tensor],
@@ -152,41 +206,89 @@ def fused_qkv_attention_bwd_plain(
     ds = t − p·c with the undropped p; dq = ds_c·k·scale and dk =
     ds_cᵀ·q·scale with ds_c = ds cast to the input dtype; dbias = Σ_b ds in
     f32. Products take the (exactly upcast) operands in f32."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
     dt = qkv.dtype
-    q, k, v = qkv.split(c, dim=-1)
-    if qv_bias is not None:
-        q = q + qv_bias[0].to(dt)
-        v = v + qv_bias[2].to(dt)
-
-    def heads(t):
-        return t.reshape(b, n, num_heads, d).transpose(1, 2).float()
-
-    q, k, v, gh = heads(q), heads(k), heads(v), heads(g.to(dt))
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.exp(s - lse.float()[..., None])
-    p_d = p * _keep_scale(seed, dropout_rate, b, num_heads, n, image0) if dropout_rate > 0.0 else p
+    q, k, gh, p, p_d, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
+                                     dropout_rate, image0)
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
-    t = torch.matmul(gh, v.transpose(-1, -2)) * p_d
     ds = t - p * t.sum(dim=-1, keepdim=True)
     ds_c = ds.to(dt).float()
     dq = torch.matmul(ds_c, k) * scale
     dk = torch.matmul(ds_c.transpose(-1, -2), q) * scale
-
-    def tokens(t):
-        return t.transpose(1, 2).reshape(b, n, c).to(dt)
-
-    dqkv = torch.cat([tokens(dq), tokens(dk), tokens(dv)], dim=-1)
+    dqkv = torch.cat([_tokens(dq, dt), _tokens(dk, dt), _tokens(dv, dt)], dim=-1)
     dbias = ds.sum(dim=0) if bias is not None else None
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
     return dqkv, dbias, dqvb
 
 
-_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+def stream_bwd_dq_plain(
+    qkv: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    image0: int = 0,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of the streaming backward's first kernel
+    (``_stream_bwd_dq_kernel``, :744-790): returns (dq [B, N, C] in
+    qkv.dtype, dbias [H, N, N] f32 summed over the batch or None, c
+    [B, H, N] f32). c = rowsum(t) are the row sums of the softmax vjp,
+    which the second kernel cannot form (it never sees a whole row) and
+    takes from here; ds = t − p·c, dq = ds_c·k·scale with ds_c = ds rounded
+    to the input dtype. ``image0`` as in the forward's plain version."""
+    _, k, _, p, _, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
+                                  dropout_rate, image0)
+    c = t.sum(dim=-1)
+    ds = t - p * c[..., None]
+    dq = torch.matmul(ds.to(qkv.dtype).float(), k) * scale
+    return _tokens(dq, qkv.dtype), ds.sum(dim=0) if bias is not None else None, c
+
+
+def stream_bwd_dkv_plain(
+    qkv: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    lse: torch.Tensor,
+    c: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    *,
+    seed: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    image0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the streaming backward's second kernel
+    (``_stream_bwd_dkv_kernel``, :793-852): returns (dk, dv), each [B, N, C]
+    in qkv.dtype, from the lse and the first kernel's row sums c. dk =
+    ds_cᵀ·q·scale and dv = p_dᵀ·g (p_d and ds rounded to the input dtype)
+    are summed over all query rows in f32 and cast once at the end
+    (:1032-1033)."""
+    dt = qkv.dtype
+    q, _, gh, p, p_d, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
+                                     dropout_rate, image0)
+    ds = t - p * c.float()[..., None]
+    dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), q) * scale
+    dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
+    return _tokens(dk, dt), _tokens(dv, dt)
+
+
+def _stream_bwd_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate):
+    """The two plain halves put together as the streaming route returns them."""
+    dq, dbias, c = stream_bwd_dq_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed,
+                                       dropout_rate=dropout_rate)
+    dk, dv = stream_bwd_dkv_plain(qkv, bias, qv_bias, lse, c, g, scale, num_heads, seed=seed,
+                                  dropout_rate=dropout_rate)
+    dqkv = torch.cat([dq, dk, dv], dim=-1)
+    return dqkv, dbias, reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
+
+
+_P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
+                      ctypes.c_longlong)
 # C signatures: pointers, then the ints, the scale and the dropout
 # threshold and 1/(1 − rate), then the stream
 _ARGTYPES = {
@@ -196,6 +298,12 @@ _ARGTYPES = {
     # qkv, bias, bias_t, qv_bias, lse, g, dqkv, dbias, seed; batch, n, ldb, num_heads,
     # dtype, scale, threshold, inv_keep; stream
     "flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_F, _U, _F, _P],
+    # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, n, num_heads, dtype;
+    # scale, bounded, threshold, inv_keep; stream
+    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 4 + [_F, _I, _U, _F, _P],
+    # q, k, v, g, bias, bias_t, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg,
+    # lddq, lddkv; batch, n, ldb, num_heads, dtype; scale, threshold, inv_keep; stream
+    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 5 + [_I] * 5 + [_F, _U, _F, _P],
 }
 _ptr = _native.ptr
 
@@ -268,12 +376,73 @@ def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
     return out, lse
 
 
-def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
-                seed=None, dropout_rate=0.0):
+def _launch_stream(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
+                   seed=None, dropout_rate=0.0):
+    """K3: the streaming forward on packed qkv."""
     b, n, c = _check_qkv(qkv, num_heads)
+    _check_aux("bias", bias, (num_heads, n, n), qkv.device)
+    _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
     seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
-    if n > BWD_MAX_N:
-        raise ValueError(f"the attention backward kernel takes N <= {BWD_MAX_N}, got {n}")
+
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device) \
+        if want_lse else None
+    lib = _lib("flash_attention_stream_fwd")
+    # the packed layout as three base pointers and one row pitch
+    q, slab = qkv.data_ptr(), c * qkv.element_size()
+    with torch.cuda.device(qkv.device):
+        err = lib.uvit_flash_attention_stream_fwd(
+            q, q + slab, q + 2 * slab, _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse),
+            seed_ptr, 3 * c, 3 * c, c, b, n, num_heads, _DTYPES[qkv.dtype], float(scale), int(bounded_scores), threshold, inv_keep,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _native.raise_on(lib, err, "streaming attention forward")
+    fused_qkv_attention.stream_launches += 1
+    return out, lse
+
+
+# The last bias whose padded copies were built: (the bias, its version, the
+# stream they were built on, the copies). Holding the bias keeps its storage
+# from being handed to another tensor, so (data_ptr, version) names its values
+# for as long as it sits here.
+_padded_bias_cache: Optional[Tuple[torch.Tensor, int, int,
+                                   Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+def _padded_bias(bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[H, N, ldb] f32 copies of the bias and of its transpose with an even
+    row pitch ldb = N + N % 2, zero in the padding: the backward kernels read
+    bias pairs as 8-byte loads along rows in both their query-major and their
+    key-major pass. With a shared rel-pos bias every block of a model passes
+    the same tensor, so the copies (2 x 67 MB at N=1025) are built once per
+    step, not once per layer: the last pair is kept and reused while the
+    same storage at the same version is passed again on the same stream (a
+    call on another stream builds its own, ordered after that stream's work).
+    The kept pair and the bias stay allocated until another bias arrives. A
+    write that bypasses the version counter (through ``bias.data``) is not
+    seen; the models never write a bias in place."""
+    global _padded_bias_cache
+    version = None if bias.is_inference() else bias._version
+    stream = torch.cuda.current_stream(bias.device).cuda_stream if bias.is_cuda else 0
+    hit = _padded_bias_cache
+    if hit is not None and version is not None and hit[1] == version and hit[2] == stream \
+            and hit[0].data_ptr() == bias.data_ptr() and hit[0].shape == bias.shape \
+            and hit[0].device == bias.device:
+        return hit[3]
+    h, n, _ = bias.shape
+    shape = (h, n, n + n % 2)
+    bias_p = torch.zeros(shape, dtype=torch.float32, device=bias.device)
+    bias_t = torch.zeros(shape, dtype=torch.float32, device=bias.device)
+    bias_p[..., :n] = bias
+    bias_t[..., :n] = bias.transpose(1, 2)
+    _padded_bias_cache = None if version is None else (bias.detach(), version, stream,
+                                                       (bias_p, bias_t))
+    return bias_p, bias_t
+
+
+def _check_bwd(qkv, bias, qv_bias, lse, g, num_heads) -> Tuple[int, int, int]:
+    """Checks what both backward kernels require; returns (B, N, C)."""
+    b, n, c = _check_qkv(qkv, num_heads)
     _check_aux("bias", bias, (num_heads, n, n), qkv.device)
     _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
     _check_aux("lse", lse, (b, num_heads, n), qkv.device)
@@ -282,22 +451,55 @@ def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
         raise ValueError(f"g must be a contiguous, 16-byte aligned {qkv.dtype} tensor of "
                          f"shape {(b, n, c)} on {qkv.device}; got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
+    return b, n, c
 
-    dqkv = torch.empty_like(qkv)
-    # The kernel reads bias pairs as 8-byte loads, from [H, N, ldb] copies of
-    # the bias and of its transpose with an even pitch ldb (1.9 MB each at
-    # ViT-B/16 224), and adds each image's ds pairs into a zeroed dbias of the
-    # same pitch with 8-byte f32 atomics.
+
+def _bwd_buffers(qkv, bias, num_heads, n, want_dbias):
+    """(dqkv, ldb, bias_p, bias_t, dbias) as both backward kernels take them:
+    the padded bias copies, and a zeroed dbias of the same pitch into which
+    the kernels add each image's ds pairs with 8-byte f32 atomics."""
     ldb = n + n % 2
     bias_p = bias_t = dbias = None
     if bias is not None:
-        shape = (num_heads, n, ldb)
-        bias_p = torch.zeros(shape, dtype=torch.float32, device=qkv.device)
-        bias_t = torch.zeros(shape, dtype=torch.float32, device=qkv.device)
-        bias_p[..., :n] = bias
-        bias_t[..., :n] = bias.transpose(1, 2)
+        bias_p, bias_t = _padded_bias(bias)
         if want_dbias:
-            dbias = torch.zeros(shape, dtype=torch.float32, device=qkv.device)
+            dbias = torch.zeros((num_heads, n, ldb), dtype=torch.float32, device=qkv.device)
+    return torch.empty_like(qkv), ldb, bias_p, bias_t, dbias
+
+
+def _launch_stream_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
+                       seed=None, dropout_rate=0.0):
+    """K4: the streaming backward's two kernels on packed qkv and dqkv."""
+    b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
+    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
+    dqkv, ldb, bias_p, bias_t, dbias = _bwd_buffers(qkv, bias, num_heads, n, want_dbias)
+    # the row sums of the softmax vjp, written by kernel 1 and read by kernel 2
+    rowsum = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    lib = _lib("flash_attention_stream_bwd")
+    slab = c * qkv.element_size()
+    q, dq = qkv.data_ptr(), dqkv.data_ptr()
+    with torch.cuda.device(qkv.device):
+        err = lib.uvit_flash_attention_stream_bwd(
+            q, q + slab, q + 2 * slab, g.data_ptr(), _ptr(bias_p), _ptr(bias_t), _ptr(qv_bias),
+            lse.data_ptr(), rowsum.data_ptr(), dq, dq + slab, dq + 2 * slab, _ptr(dbias),
+            seed_ptr, 3 * c, 3 * c, c, 3 * c, 3 * c, b, n, ldb, num_heads, _DTYPES[qkv.dtype],
+            float(scale), threshold, inv_keep,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _native.raise_on(lib, err, "streaming attention backward")
+    fused_qkv_attention_bwd.stream_launches += 1
+    dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
+    return dqkv, None if dbias is None else dbias[..., :n].contiguous(), dqvb
+
+
+def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
+                seed=None, dropout_rate=0.0):
+    """K2: the fused backward, N <= ``BWD_MAX_N``."""
+    b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
+    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
+    if n > BWD_MAX_N:
+        raise ValueError(f"the attention backward kernel takes N <= {BWD_MAX_N}, got {n}")
+    dqkv, ldb, bias_p, bias_t, dbias = _bwd_buffers(qkv, bias, num_heads, n, want_dbias)
     lib = _lib("flash_attention_bwd")
     with torch.cuda.device(qkv.device):
         err = lib.uvit_flash_attention_bwd(
@@ -333,19 +535,27 @@ def fused_qkv_attention_bwd(
     [B, N, 3C] in qkv.dtype, dbias [H, N, N] f32 summed over the batch,
     dqvb [3, C] f32 with the k row zero); dbias is None without a bias or
     when ``want_dbias`` is False, dqvb None without a q/v bias."""
+    stream = route(qkv.shape[1]) == "stream"
     if qkv.device.type == "cpu":
         if dropout_rate > 0.0:
             philox.check_seed(seed, qkv.device)
-        dqkv, dbias, dqvb = fused_qkv_attention_bwd_plain(
-            qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed, dropout_rate=dropout_rate)
+        if stream:
+            dqkv, dbias, dqvb = _stream_bwd_plain(qkv, bias, qv_bias, lse, g, scale, num_heads,
+                                                  seed, dropout_rate)
+        else:
+            dqkv, dbias, dqvb = fused_qkv_attention_bwd_plain(
+                qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed,
+                dropout_rate=dropout_rate)
         return dqkv, dbias if want_dbias else None, dqvb
-    return _launch_bwd(qkv, bias, qv_bias, lse, g.contiguous(), scale, num_heads, want_dbias,
-                       seed, dropout_rate)
+    launch = _launch_stream_bwd if stream else _launch_bwd
+    return launch(qkv, bias, qv_bias, lse, g.contiguous(), scale, num_heads, want_dbias, seed,
+                  dropout_rate)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
-    """K1 with the row lse forward, K2 backward (the ``jax.custom_vjp`` of
-    :1369-1424). The lse output is not differentiable. The seed and the
+    """K1 or K3 with the row lse forward, K2 or K4 backward, by ``route(N)``
+    (the ``jax.custom_vjp`` of :1369-1424 over ``_dispatch_fwd`` /
+    ``_dispatch_bwd``, :1378-1406). The lse output is not differentiable. The seed and the
     rate are saved, and the backward replays the forward's dropout mask."""
 
     @staticmethod
@@ -368,14 +578,21 @@ class _FusedQKVAttention(torch.autograd.Function):
 
 
 def _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate):
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    """The plain version for a CPU tensor (the streaming forward computes
+    the same function, so it is ``stream_fwd_plain`` too); for a CUDA tensor
+    the kernel ``route(N)`` names."""
     if qkv.device.type == "cpu":
         if dropout_rate > 0.0:
             philox.check_seed(seed, qkv.device)
         return fused_qkv_attention_plain(qkv, bias, qv_bias, scale, num_heads,
                                          bounded_scores=bounded, seed=seed,
                                          dropout_rate=dropout_rate)
-    return _launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate)
+    launch = _launch_stream if route(qkv.shape[1]) == "stream" else _launch
+    return launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate)
+
+
+# K3 computes the function K1 computes: one plain version serves both.
+stream_fwd_plain = fused_qkv_attention_plain
 
 
 def fused_qkv_attention(
@@ -401,7 +618,7 @@ def fused_qkv_attention(
     Returns out [B, N, C] in qkv.dtype, and with ``want_lse`` also the row
     log-sum-exp [B, H, N] f32 of the undropped softmax. ``bounded_scores``
     defaults to the module's BOUNDED_SCORES. Under grad mode with an input
-    that requires grad, the output carries the K2 backward."""
+    that requires grad, the output carries the K2 or K4 backward."""
     bounded = BOUNDED_SCORES if bounded_scores is None else bool(bounded_scores)
     dropout_rate = float(dropout_rate)
     if dropout_rate <= 0.0:
@@ -417,5 +634,9 @@ def fused_qkv_attention(
 
 
 # Kernel launches since the last reset (a run sets them to 0 to count its own).
+# ``launches`` counts K1 and K2, ``stream_launches`` K3 and K4 (one per call
+# of K4's pair of kernels).
 fused_qkv_attention.launches = 0
 fused_qkv_attention_bwd.launches = 0
+fused_qkv_attention.stream_launches = 0
+fused_qkv_attention_bwd.stream_launches = 0

@@ -1,10 +1,17 @@
-"""JAX param tree → the port's state_dict.
+"""JAX param tree → the port's state_dict, and a state_dict of one
+resolution → a model of another.
 
 Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
 :562-578), for the parameters of the ported VisionTransformer. The port's
 modules use the reference's torch names and layouts, so the mapped dict
 loads with ``strict=True``.
+
+The cross-resolution surgery a 384 or 512 finetune starts from
+(``interpolate_pos_embed`` :215-231, ``interpolate_rel_pos_table`` :234-278,
+applied in ``import_torch_params`` :320-323) is ``resize_state_dict``:
+numpy in, numpy out for the two interpolations. Reading ``.pth`` files and
+the head-mismatch rules belong to the CLI.
 """
 
 from __future__ import annotations
@@ -102,3 +109,122 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     nested dicts of numpy arrays) into the port's model, strictly."""
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     return model
+
+
+def _torch_bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Row-stochastic (out_size, in_size) matrix reproducing
+    torch.nn.functional.interpolate(mode='bicubic', align_corners=False,
+    antialias=False) along one axis: half-pixel source centers, 4-tap cubic
+    convolution with A=-0.75, border-clamped taps."""
+    a = -0.75
+
+    def kernel(x):
+        ax = np.abs(x)
+        return np.where(
+            ax <= 1.0,
+            ((a + 2.0) * ax - (a + 3.0)) * ax * ax + 1.0,
+            np.where(ax < 2.0, a * (((ax - 5.0) * ax + 8.0) * ax - 4.0), 0.0),
+        )
+
+    scale = in_size / out_size
+    i = np.arange(out_size)
+    center = (i + 0.5) * scale - 0.5
+    i0 = np.floor(center).astype(np.int64)
+    t = center - i0
+    w_mat = np.zeros((out_size, in_size), np.float64)
+    for k in range(-1, 3):
+        w = kernel(k - t)
+        idx = np.clip(i0 + k, 0, in_size - 1)
+        np.add.at(w_mat, (i, idx), w)
+    return w_mat
+
+
+def interpolate_pos_embed(pos: np.ndarray, dst_num_patches: int) -> np.ndarray:
+    """Bicubic abs-pos-embed interpolation (run_class_finetuning.py:496-518):
+    pos [1, extra + S², C] → [1, extra + dst_num_patches, C]. The cls slot
+    passes through; the patch grid is resized with torch's bicubic semantics
+    (A=-0.75, align_corners=False)."""
+    num_extra = pos.shape[1] - int(round((pos.shape[1] - 1) ** 0.5)) ** 2
+    src_size = int(round((pos.shape[1] - num_extra) ** 0.5))
+    dst_size = int(round(dst_num_patches**0.5))
+    if src_size == dst_size:
+        return pos
+    extra = pos[:, :num_extra]
+    grid = pos[:, num_extra:].reshape(src_size, src_size, -1).astype(np.float64)
+    w = _torch_bicubic_weights(src_size, dst_size)
+    resized = np.einsum("yh,hwc,xw->yxc", w, grid, w)
+    resized = resized.reshape(1, dst_size * dst_size, -1).astype(pos.dtype)
+    return np.concatenate([extra, resized], axis=1)
+
+
+def interpolate_rel_pos_table(table: np.ndarray, dst_num_pos: int) -> np.ndarray:
+    """Geometric-progression rel-pos-table resize
+    (run_class_finetuning.py:433-494): table [(2S−1)² + 3, H] → [dst_num_pos,
+    H]. Source coordinates are laid out with geometrically increasing
+    spacing, targets on the integer grid, one cubic spline
+    (``RectBivariateSpline(kx=3, ky=3)``) per head; the three cls entries
+    pass through."""
+    from scipy import interpolate
+
+    src_num_pos, num_heads = table.shape
+    num_extra = 3
+    src_size = int((src_num_pos - num_extra) ** 0.5)
+    dst_size = int((dst_num_pos - num_extra) ** 0.5)
+    if src_size == dst_size:
+        return table
+
+    extra = table[-num_extra:, :]
+    body = table[:-num_extra, :]
+
+    def gp_sum(a, r, n):
+        return a * (1.0 - r**n) / (1.0 - r)
+
+    left, right = 1.01, 1.5
+    while right - left > 1e-6:
+        q = (left + right) / 2.0
+        if gp_sum(1, q, src_size // 2) > dst_size // 2:
+            right = q
+        else:
+            left = q
+
+    dis, cur = [], 1.0
+    for i in range(src_size // 2):
+        dis.append(cur)
+        cur += q ** (i + 1)
+    r_ids = [-v for v in reversed(dis)]
+    x = np.array(r_ids + [0] + dis)
+    t = dst_size // 2.0
+    dx = np.arange(-t, t + 0.1, 1.0)
+
+    heads = []
+    for i in range(num_heads):
+        z = body[:, i].reshape(src_size, src_size).astype(np.float64)
+        f = interpolate.RectBivariateSpline(x, x, z, kx=3, ky=3)
+        heads.append(f(dx, dx).reshape(-1, 1))
+    new_body = np.concatenate(heads, axis=-1).astype(table.dtype)
+    return np.concatenate([new_body, extra], axis=0)
+
+
+def resize_state_dict(state_dict: Mapping[str, torch.Tensor], model: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """A port state_dict of one resolution → one that ``model`` (same widths,
+    another image size) loads strictly: ``pos_embed`` when present and every
+    ``relative_position_bias_table`` (the shared one or the per-block ones)
+    whose shape differs from the model's are interpolated; everything else
+    passes through. ``relative_position_index`` entries are dropped: the
+    model rebuilds its index buffers from its own window."""
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        if "relative_position_index" in key:
+            continue
+        want = target.get(key)
+        if want is not None and tuple(value.shape) != tuple(want.shape):
+            array = value.detach().cpu().numpy()
+            if key == "pos_embed":
+                array = interpolate_pos_embed(array, want.shape[1] - 1)
+            elif key.endswith("relative_position_bias_table"):
+                array = interpolate_rel_pos_table(array, want.shape[0])
+            value = torch.from_numpy(np.ascontiguousarray(array)).to(value.device)
+        out[key] = value
+    return out
