@@ -111,6 +111,36 @@ kernels from the sources in this checkout, then:
            attention on its plain versions; one K=2 MC forward of batch 4 with
            attention dropout 0.1 likewise. Prints img/s and peak memory as
            information.
+  phase 10 holds the quantizing int8 matmul (K6) against its plain PyTorch
+           version (the same rounding bits from the same seed): bf16 and f32,
+           round-to-nearest and stochastic, with and without bias, at every
+           (K, N) of ViT-B's and ViT-L's trunk and their dgrad transposes, M in
+           {8, 197, 1000}, NaN planted around x; f32 within 1e-6 relative and
+           bf16 within an ulp (equal to the bit is what is expected and
+           printed); then holds and times it at the train step's M = 31,520
+           (bf16; forward with bias, dgrad stochastic) for qkv, proj, fc1 and
+           fc2 beside the plain version, F.linear in bf16 (what the int8 layer
+           replaces) and torch._int_mm between plain quantize and dequantize
+           passes (the library yardstick).
+  phase 11 holds the int8 wgrad (K7: two kernels behind one call) against its
+           plain version over the same shapes: the int32 sums equal, and
+           bit-identical between two runs, NaN planted around x and g; then
+           holds and times it at M = 31,520 (wgrad() with its column-scale
+           passes, and K7's two kernels alone) beside the plain version, the
+           bf16 product and torch._int_mm between plain quantize, transpose
+           and dequantize passes.
+  phase 12 the int8 slice: full-width, full-depth ViT-B/16 224 with
+           quant="int8", otherwise phase 2's and phase 4's models. evaluate()
+           over 4 batches of 128 (K6 48 launches per forward, K1 12, K7 none;
+           logits against the same forward with K6 on its plain version); 3
+           finetune train steps at batch 160 (per step K6 96, K7 48, K1 and K2
+           12; every parameter finite and moved); one step held against the
+           same step with K6 and K7 on their plain versions. Prints img/s
+           beside the bf16 trunk's from the same turns, the int8 step's loss
+           beside the bf16 step's on the same batch, and peak memory.
+  phase 13 a 2-deep beit_huge_patch16_224 (head_dim 80, which the attention
+           kernels do not take): one forward against the same weights in f32
+           and one train step, on the plain attention, K1 to K4 never launched.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -166,7 +196,13 @@ EULER_RTOL = 1e-3
 # least time the card could take is the larger of bytes / memory rate and
 # operations / peak rate for their type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# Phase 10: K6 against its plain version. Both quantize every entry alike (the
+# same rounding bits), the int32 sums are exact, and the dequantizing products
+# and the bias add are rounded one by one in the same order, so the results
+# should be equal; the bound allows the last rounding of the output type (an
+# f32 ulp; half a bf16 ulp, 2^-8, either way).
+QMM_REL_TOL = {"bfloat16": 2.0**-7, "float32": 1e-6}
 # The streaming kernels' token counts: right above K2's limit, and the 384 and
 # 512 presets' (both 1 mod 64: one valid row in the last q tile and one valid
 # column in the last k/v tile).
@@ -276,7 +312,8 @@ def build_kernels(_native) -> None:
         print(f"  nvcc {name}: {secs:.1f} s", flush=True)
         for entry, spills, used in re.findall(
                 r"Function properties for (\S+)\n\s*(.*?)\nptxas info\s*: (Used \d+ registers)", log):
-            short = re.search(r"\d+((?:attention|dropout|stream)_\w+?E)E*v", entry)
+            short = re.search(r"\d+((?:attention|dropout|stream|quant\w*|wgrad)_\w+?E)E*v",
+                              entry)
             print(f"    {short.group(1) if short else entry}: {used}, {spills}", flush=True)
 
 
@@ -1291,18 +1328,10 @@ def phase8(torch, FA, dev):
         g = torch.randn(2, n, c, generator=gen, device=dev).to(dtype)
         bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
 
-        def fenced(t):
-            buf = torch.full((t.numel() + 256,), float("nan"), dtype=t.dtype, device=dev)
-            view = buf[128:128 + t.numel()].view(t.shape)
-            view.copy_(t)
-            check(view.data_ptr() % 16 == 0 and torch.isnan(buf[:128].float()).all().item()
-                  and torch.isnan(buf[-128:].float()).all().item(), "the NaN fence is not there")
-            return view
-
         out, lse = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=False,
                                           want_lse=True)
         got = FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h)
-        f_qkv, f_g, f_lse = fenced(qkv), fenced(g), fenced(lse)
+        f_qkv, f_g, f_lse = fenced(torch, qkv), fenced(torch, g), fenced(torch, lse)
         f_out, f_lse_out = FA.fused_qkv_attention(f_qkv, bias, None, None, scale, h,
                                                   bounded_scores=False, want_lse=True)
         f_got = FA.fused_qkv_attention_bwd(f_qkv, bias, None, f_lse, f_g, scale, h)
@@ -1612,6 +1641,497 @@ def phase9(torch, FA, dev):
     return launches
 
 
+# The trunk's dense layers as (K, N) = (in, out): ViT-B's qkv, proj, fc1, fc2
+# and ViT-L's. The forward runs (K, N), the dgrad (N, K).
+TRUNK_B = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
+TRUNK_L = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+# Tokens of the ViT-B/16 224 train step at batch 160 (ragged against 64: 492 * 64 + 32)
+# and of its eval forward at batch 128 (394 * 64).
+M_TRAIN = 160 * 197
+M_EVAL = 128 * 197
+
+
+def fenced(torch, t):
+    """A copy of t with NaN planted right before and right behind it."""
+    buf = torch.full((t.numel() + 256,), float("nan"), dtype=t.dtype, device=t.device)
+    view = buf[128:128 + t.numel()].view(t.shape)
+    view.copy_(t)
+    check(view.data_ptr() % 16 == 0 and torch.isnan(buf[:128].float()).all().item()
+          and torch.isnan(buf[-128:].float()).all().item(), "the NaN fence is not there")
+    return view
+
+
+def quant_shapes():
+    """Every (K, N) the int8 kernels meet in ViT-B and ViT-L, forward and
+    dgrad, once each."""
+    shapes = []
+    for k, n in list(TRUNK_B.values()) + list(TRUNK_L.values()):
+        for pair in ((k, n), (n, k)):
+            if pair not in shapes:
+                shapes.append(pair)
+    return shapes
+
+
+def phase10(torch, dev):
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    seed = torch.tensor([0x0123456789ABCDEF], dtype=torch.int64, device=dev)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    unequal = n_cases = 0
+
+    def held(tag, x, wq, ws, bias, sr, dtype):
+        nonlocal unequal, n_cases
+        name = str(dtype)[6:]
+        before = TQ.qmm.launches
+        got = TQ.qmm(x, wq, ws, bias, seed, sr, dtype)
+        check(TQ.qmm.launches == before + 1, "qmm did not launch K6 once")
+        ref = TQ.qmm_plain(x, wq, ws, bias, seed, sr, dtype)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == ref.shape, f"K6 dtype/shape ({tag})")
+        check(torch.isfinite(got.float()).all().item(), f"K6 output is not finite ({tag})")
+        rel = ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)).max().item()
+        rel = 0.0 if torch.equal(got, ref) else rel
+        worst[name] = max(worst[name], rel)
+        unequal += int(not torch.equal(got, ref))
+        n_cases += 1
+        check(rel <= QMM_REL_TOL[name], f"K6 disagrees with its plain version ({tag}: worst "
+              f"relative difference {rel:.3e} > {QMM_REL_TOL[name]})")
+        return (got.float() - ref.float()).abs().max().item()
+
+    worst_abs = 0.0
+    for dtype, (k, n) in itertools.product((torch.bfloat16, torch.float32), quant_shapes()):
+        w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+        wq, ws = TQ.quantize_cols(w.t())
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        for m in (8, 197, 1000):  # 1000 = 15 * 64 + 40: ragged against every row tile
+            x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(dtype))
+            for sr, has_bias in itertools.product((False, True), (True, False)):
+                tag = f"{str(dtype)[6:]} M={m} K={k} N={n} sr={sr:d} bias={has_bias:d}"
+                worst_abs = max(worst_abs, held(tag, x, wq, ws, bias if has_bias else None, sr,
+                                                dtype))
+        del w, wq
+    print(f"  K6: {n_cases} cases (bf16/f32 x {len(quant_shapes())} shapes x M 8/197/1000 x "
+          f"nearest/stochastic x bias/none, NaN planted around x): {unequal} not equal to the "
+          f"bit, worst relative difference bf16 {worst['bfloat16']:.3e} / f32 "
+          f"{worst['float32']:.3e}", flush=True)
+    # the dgrad's second int8 copy of a weight is transposed once by the wrapper
+    w = torch.randn(768, 2304, generator=gen, device=dev) * 0.05
+    wq, ws = TQ.quantize_cols(w)  # [K, N] row-major: not the kernel's layout
+    x = torch.randn(197, 768, generator=gen, device=dev).to(torch.bfloat16)
+    check(not wq.t().is_contiguous(), "the test weight already lies as the kernel reads it")
+    worst_abs = max(worst_abs, held("transposed copy", x, wq, ws, None, True, torch.bfloat16))
+    for bad_x, bad_w in ((x.to(torch.float16), wq), (x[:4], wq), (x[:, :600], wq[:600])):
+        try:
+            TQ.qmm(bad_x, bad_w, ws, None, seed, False, torch.bfloat16)
+            check(False, "K6 took a tensor it does not support")
+        except ValueError:
+            pass
+    del w, wq, x
+
+    # the train step's shapes: M = 31,520, bf16; forward (nearest, bias) and
+    # dgrad (stochastic, K and N swapped, no bias)
+    def int_mm_library(x, wq_t, ws, bias):
+        """The library yardstick: torch._int_mm between plain PyTorch passes
+        that quantize the rows and dequantize the result (nearest rounding).
+        Timed here and used nowhere in the port."""
+        xf = x.float()
+        amax = xf.abs().amax(dim=1, keepdim=True)
+        xq = torch.round(xf * (127.0 / amax.clamp_min(1e-30))).to(torch.int8)
+        y = torch._int_mm(xq, wq_t.t()).float() * (amax * (1.0 / 127.0)) * ws
+        return (y if bias is None else y + bias).to(x.dtype)
+
+    times, main, eval_ms = {}, None, {}
+    for layer, (k_in, n_out) in TRUNK_B.items():
+        for what, (k, n), sr in (("forward", (k_in, n_out), False), ("dgrad", (n_out, k_in), True)):
+            x = fenced(torch, torch.randn(M_TRAIN, k, generator=gen, device=dev)
+                       .to(torch.bfloat16))
+            w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+            wq, ws = TQ.quantize_cols(w.t())
+            wb = w.to(torch.bfloat16)
+            bias = None if sr else torch.randn(n, generator=gen, device=dev) * 0.1
+            bias_b = None if bias is None else bias.to(torch.bfloat16)
+            tag = f"{layer} {what} M={M_TRAIN} K={k} N={n}"
+            worst_abs = max(worst_abs, held(tag, x, wq, ws, bias, sr, torch.bfloat16))
+            if what == "forward":  # evaluate() gives K6 the same layers at batch 128
+                x_eval = fenced(torch, x[:M_EVAL])
+                worst_abs = max(worst_abs, held(f"{layer} forward M={M_EVAL} K={k} N={n}",
+                                                x_eval, wq, ws, bias, False, torch.bfloat16))
+                eval_ms[layer] = cuda_ms(
+                    lambda: TQ.qmm(x_eval, wq, ws, bias, seed, False, torch.bfloat16), 5)
+                del x_eval
+            fns = {"plain": lambda: TQ.qmm_plain(x, wq, ws, bias, seed, sr, torch.bfloat16),
+                   "kernel": lambda: TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16),
+                   "bf16 F.linear": lambda: torch.nn.functional.linear(x, wb, bias_b),
+                   "library": lambda: int_mm_library(x, wq.t(), ws, bias)}
+            best, runs = in_turns(fns, 5)
+            bound_ms, bound_by = bound(nbytes(x, wq, ws, bias) + M_TRAIN * n * 2,
+                                        2.0 * M_TRAIN * k * n, "int8")
+            print(f"  K6 {tag} bf16, ms per call: {runs}; bound {bound_ms:.4f} ms ({bound_by})",
+                  flush=True)
+            times[f"{layer} {what}"] = {**{name: best[name] for name in fns},
+                                        "bound": bound_ms}
+            if (layer, what) == ("qkv", "forward"):
+                main = {"ms": best["kernel"], "plain_ms": best["plain"],
+                        "library_ms": best["library"], "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+            del x, w, wq, wb
+    print(f"  K6 at evaluate()'s shapes (M={M_EVAL}, bf16, nearest, bias): {n_cases} cases so "
+          f"far, {unequal} not equal to the bit; ms per call: "
+          + ", ".join(f"{layer} {t:.4f}" for layer, t in eval_ms.items()), flush=True)
+    times.update({f"{layer} forward M={M_EVAL}": {"kernel": t} for layer, t in eval_ms.items()})
+    return {"max_abs_err": worst_abs, **main, "other_ms": times}
+
+
+def phase11(torch, dev):
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64, device=dev)
+    n_cases = 0
+
+    def held(tag, x, g):
+        nonlocal n_cases
+        sx, sg = TQ._col_scales(x), TQ._col_scales(g)
+        inv_x, inv_g = sx.reciprocal(), sg.reciprocal()
+        before = TQ.wgrad.launches
+        acc = TQ.wgrad_acc(x, g, inv_x, inv_g, seed)
+        check(TQ.wgrad.launches == before + 1, "wgrad_acc did not launch K7 once")
+        ref = TQ.wgrad_acc_plain(x, g, inv_x, inv_g, seed)
+        again = TQ.wgrad_acc(x, g, inv_x, inv_g, seed)
+        dw, dw_ref = TQ.wgrad(x, g, seed), TQ.wgrad_plain(x, g, seed)
+        torch.cuda.synchronize()
+        check(acc.dtype == torch.int32 and acc.shape == ref.shape and acc.t().is_contiguous(),
+              f"K7's sums are not an int32 [K, N] view of an [N, K] buffer ({tag})")
+        diff = (acc.long() - ref.long()).abs().max().item()
+        check(torch.equal(acc, ref), f"K7's int32 sums differ from the plain version's ({tag}: "
+              f"by up to {diff})")
+        check(torch.equal(acc, again), f"K7's sums differ between two runs ({tag})")
+        check(torch.equal(dw, dw_ref), f"wgrad() differs from wgrad_plain() ({tag})")
+        check(not torch.equal(dw, TQ.wgrad(x, g, seed + 1)), f"K7 ignores its seed ({tag})")
+        n_cases += 1
+        return (dw - dw_ref).abs().max().item()
+
+    for dtype, (k, n) in itertools.product((torch.bfloat16, torch.float32), quant_shapes()):
+        for m in (8, 197, 1000):
+            x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(dtype))
+            g = fenced(torch, (torch.randn(m, n, generator=gen, device=dev) * 0.01).to(dtype))
+            held(f"{str(dtype)[6:]} M={m} K={k} N={n}", x, g)
+    print(f"  K7: {n_cases} cases (bf16/f32 x {len(quant_shapes())} shapes x M 8/197/1000, NaN "
+          f"planted around x and g): int32 sums equal to the plain version's and bit-identical "
+          f"between two runs", flush=True)
+    try:
+        TQ.wgrad(torch.zeros(4, 128, device=dev), torch.zeros(4, 128, device=dev), seed)
+        check(False, "K7 took M=4")
+    except ValueError:
+        pass
+
+    def int_mm_library(x, g):
+        """The library yardstick: torch._int_mm between plain PyTorch passes
+        that take the column scales, quantize both operands (to nearest),
+        transpose x's copy and dequantize the result. Timed here and used
+        nowhere in the port."""
+        sx, sg = TQ._col_scales(x), TQ._col_scales(g)
+        xq_t = torch.round(x.float() / sx).to(torch.int8).t().contiguous()
+        gq = torch.round(g.float() / sg).to(torch.int8)
+        return torch._int_mm(xq_t, gq).float() * sx.reshape(-1, 1) * sg
+
+    times, main, worst = {}, None, 0.0
+    for layer, (k, n) in TRUNK_B.items():
+        x = fenced(torch, torch.randn(M_TRAIN, k, generator=gen, device=dev).to(torch.bfloat16))
+        g = fenced(torch, (torch.randn(M_TRAIN, n, generator=gen, device=dev) * 0.01)
+                   .to(torch.bfloat16))
+        tag = f"{layer} M={M_TRAIN} K={k} N={n}"
+        worst = max(worst, held(tag, x, g))
+        sx, sg = TQ._col_scales(x), TQ._col_scales(g)
+        inv_x, inv_g = sx.reciprocal(), sg.reciprocal()
+        fns = {"plain": lambda: TQ.wgrad_plain(x, g, seed),
+               "kernel": lambda: TQ.wgrad(x, g, seed),
+               "launcher alone": lambda: TQ.wgrad_acc(x, g, inv_x, inv_g, seed),
+               "bf16 x.T @ g": lambda: x.t() @ g,
+               "library": lambda: int_mm_library(x, g)}
+        best, runs = in_turns(fns, 5)
+        bound_ms, bound_by = bound(nbytes(x, g, inv_x, inv_g) + k * n * 4,
+                                    2.0 * M_TRAIN * k * n, "int8")
+        print(f"  K7 {tag} bf16, ms per call (\"kernel\" is wgrad() with its column-scale and "
+              f"dequantizing passes, \"launcher alone\" K7's two kernels): {runs}; bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        times[layer] = {**{name: best[name] for name in fns}, "bound": bound_ms}
+        if layer == "qkv":
+            main = {"ms": best["kernel"], "plain_ms": best["plain"],
+                    "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by}
+        del x, g
+    return {"max_abs_err": worst, **main, "other_ms": times}
+
+
+@contextlib.contextmanager
+def quant_on_plain(TQ):
+    """Inside, ``qmm`` and ``wgrad`` compute with their plain versions on the
+    card too (same seeds and so the same rounding bits) and launch neither K6
+    nor K7: the reference that the int8 model on the kernels is held against.
+    Only this script does so; the package never takes a plain version for a
+    CUDA tensor."""
+    qmm, wgrad = TQ.qmm, TQ.wgrad
+    TQ.qmm, TQ.wgrad = TQ.qmm_plain, TQ.wgrad_plain
+    try:
+        yield
+    finally:
+        TQ.qmm, TQ.wgrad = qmm, wgrad
+
+
+def phase12(torch, FA, dev, k6_ms, k7_ms):
+    """k6_ms, k7_ms: phase 10's and phase 11's times per layer at the train
+    step's shapes, for the account of where the int8 step's time goes."""
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.evals.classification import evaluate, make_eval_forward
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
+    )
+    from uncertainty_vit_tpu_torch.train.engine_finetune import (
+        FinetuneHParams, init_finetune_state, make_finetune_train_step,
+    )
+    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
+    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
+
+    FA.BOUNDED_SCORES = True  # as phases 2 and 4
+    cfg = get_preset("beit_base_patch16_224", use_shared_rel_pos_bias=True, init_values=0.1,
+                     quant="int8")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    qmm, wgrad = TQ.qmm, TQ.wgrad  # the counting wrappers, also inside quant_on_plain()
+
+    def counts():
+        return {**attention_counts(FA), "K6": qmm.launches, "K7": wgrad.launches}
+
+    def reset():
+        reset_attention_counts(FA)
+        qmm.launches = wgrad.launches = 0
+
+    # --- evaluate(): phase 2's model and batches with the int8 trunk
+    model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
+    trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+    # a wider head than the init's 0.02, so that the logits stand clear of
+    # the int8 noise floor they are compared at
+    trunc_normal(0.1, 2.0)(model.head.weight, gen)
+    bf16_model = VisionTransformer(cfg.replace(quant="none"), dtype=torch.bfloat16, device=dev,
+                                   generator=gen)
+    bf16_model.load_state_dict(model.state_dict())
+    bs, nb = 128, 4
+    images = [torch.randint(0, 256, (bs, 224, 224, 3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(nb)]
+    labels = [torch.randint(0, cfg.num_classes, (bs,), generator=gen, device=dev)
+              for _ in range(nb)]
+
+    def batches():
+        for u8, lbl in zip(images, labels):
+            yield normalize(to_float(u8), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD), lbl
+
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    metrics = evaluate(model, batches())  # no generator: evaluation draws nothing
+    torch.cuda.synchronize()
+    launches["int8_evaluate"] = counts()
+    peak_eval = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  evaluate(): launches {launches['int8_evaluate']}; {json.dumps(metrics)}",
+          flush=True)
+    check(launches["int8_evaluate"] == {"K1": cfg.depth * nb, "K2": 0, "K3": 0, "K4": 0,
+                                        "K6": 4 * cfg.depth * nb, "K7": 0},
+          f"evaluate() launched {launches['int8_evaluate']}, expected K6 {4 * cfg.depth} and K1 "
+          f"{cfg.depth} per forward")
+    check(all(math.isfinite(v) for v in metrics.values()), "non-finite metric")
+    fwd, bf16_fwd = make_eval_forward(model), make_eval_forward(bf16_model)
+    x0 = next(batches())[0]
+    logits = fwd(x0)
+    check(tuple(logits.shape) == (bs, cfg.num_classes) and logits.dtype == torch.float32
+          and torch.isfinite(logits).all().item(), "int8 logits are not finite f32 [128, 1000]")
+    with quant_on_plain(TQ):
+        before = counts()
+        ref = fwd(x0)
+        check(counts()["K6"] == before["K6"], "the plain reference forward launched K6")
+    diff = (logits - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    exact = bf16_fwd(x0)
+    print(f"  logits K6 vs its plain version: max|diff|={diff:.3e}, max|logit|={scale:.3e}, "
+          f"ratio {diff / scale:.3e} (bound {LOGIT_REL_BOUND}); int8 vs bf16 trunk on the same "
+          f"weights: ratio {(logits - exact).abs().max().item() / exact.abs().max().item():.3e}",
+          flush=True)
+    check(diff <= LOGIT_REL_BOUND * scale, "int8 logits disagree with the plain versions'")
+    best, runs = in_turns({"bf16": lambda: bf16_fwd(x0), "int8": lambda: fwd(x0)}, 5)
+    eval_rates = {name: [bs * 1000.0 / ms for ms in v] for name, v in runs.items()}
+    print(f"  eval forward img/s at batch {bs} (information only): int8 {eval_rates['int8']}, "
+          f"bf16 trunk {eval_rates['bf16']}; peak memory of evaluate() {peak_eval:.2f} GiB",
+          flush=True)
+    del model, bf16_model, images, logits, ref, exact
+
+    # --- the finetune train step: phase 4's step with the int8 trunk
+    tcfg = cfg.replace(drop_path_rate=0.1)
+    bs = 160
+    x = torch.randn(bs, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (bs,), generator=gen, device=dev)
+    hp = FinetuneHParams(num_classes=cfg.num_classes)
+    lr = cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500)
+
+    def build(state_dict=None, **overrides):
+        m = VisionTransformer(tcfg.replace(**overrides), dtype=torch.bfloat16, device=dev,
+                              generator=gen)
+        if state_dict is None:
+            trunc_normal(0.2, 2.0)(m.rel_pos_bias.relative_position_bias_table, gen)
+        else:
+            m.load_state_dict(state_dict)
+        opt = make_optimizer(m, weight_decay=0.05, layer_decay=0.65, depth=tcfg.depth)
+        state = init_finetune_state(m, opt)
+        state.step = 1  # the warm-up's learning rate is 0 at update 0
+        return m, state, make_finetune_train_step(m, opt, hp, lr)
+
+    def gens(seed):
+        return (torch.Generator(device=dev).manual_seed(seed), torch.Generator().manual_seed(seed))
+
+    tmodel, state, step = build()
+    init = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
+    n_steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ms = [step(state, x, y, *gens(11 + i)) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    launches["int8_train_step"] = counts()
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {n_steps} steps at batch {bs}: launches {launches['int8_train_step']}; " + "; ".join(
+        f"loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}" for m in ms),
+        flush=True)
+    d = cfg.depth * n_steps
+    check(launches["int8_train_step"] == {"K1": d, "K2": d, "K3": 0, "K4": 0, "K6": 8 * d,
+                                          "K7": 4 * d},
+          f"{n_steps} int8 train steps launched {launches['int8_train_step']}, expected per "
+          f"step K6 {8 * cfg.depth}, K7 {4 * cfg.depth}, K1 and K2 {cfg.depth}")
+    check(all(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+              for m in ms), "non-finite loss or grad norm")
+    moved = 0
+    for k, v in tmodel.state_dict().items():
+        check(torch.isfinite(v).all().item(), f"non-finite parameter {k}")
+        moved += int(not torch.equal(v, init[k]))
+    check(moved == len(init), f"only {moved} of {len(init)} parameter tensors changed")
+
+    # one step from the same weights and seeds: kernels, their plain versions
+    # (the same rounding bits), and the bf16 trunk on the same batch
+    _, st_k, step_k = build(init)
+    m_k = step_k(st_k, x, y, *gens(30))
+    del st_k, step_k
+    _, st_p, step_p = build(init)
+    before = counts()
+    with quant_on_plain(TQ):
+        m_p = step_p(st_p, x, y, *gens(30))
+    torch.cuda.synchronize()
+    check(counts()["K6"] == before["K6"] and counts()["K7"] == before["K7"],
+          "the plain reference step launched K6 or K7")
+    del st_p, step_p
+    _, st_b, step_b = build(init, quant="none")
+    m_b = step_b(st_b, x, y, *gens(30))
+    loss_k, loss_p, loss_b = (float(m["loss"]) for m in (m_k, m_p, m_b))
+    gn_k, gn_p, gn_b = (float(m["grad_norm"]) for m in (m_k, m_p, m_b))
+    print(f"  one step, K6/K7 vs their plain versions vs the bf16 trunk: loss {loss_k:.6f} / "
+          f"{loss_p:.6f} / {loss_b:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f} / {gn_b:.6f}",
+          flush=True)
+    check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+          "the int8 step's loss disagrees with the plain versions'")
+    check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+          "the int8 step's grad norm disagrees with the plain versions'")
+
+    rates = {"int8": [], "bf16": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        st, fn = (state, step) if name == "int8" else (st_b, step_b)
+        g = gens(20)
+        rates[name].append(bs * 1000.0 / cuda_ms(lambda: fn(st, x, y, *g), 5))
+    print(f"  train step img/s at batch {bs} (information only): int8 {rates['int8']}, bf16 "
+          f"trunk {rates['bf16']}; peak memory of the {n_steps} int8 steps {peak_train:.2f} GiB",
+          flush=True)
+
+    # where the int8 step's time goes: this run's kernel times at the step's
+    # shapes times their launches per step, and the weight passes timed here
+    # (per layer: the forward's quantize_cols, the dgrad's and its transposed
+    # int8 copy, the layer-scale fold left out)
+    def weight_passes(w):
+        TQ.quantize_cols(w.t())
+        TQ.quantize_cols(w)[0].t().contiguous()
+
+    w_ms = sum(cuda_ms(lambda w=torch.randn(n, k, generator=gen, device=dev): weight_passes(w),
+                       10) for k, n in TRUNK_B.values())
+    step_ms = bs * 1000.0 / max(rates["int8"])
+    parts = {
+        "K6 forward": sum(k6_ms[f"{layer} forward"]["kernel"] for layer in TRUNK_B),
+        "K6 dgrad": sum(k6_ms[f"{layer} dgrad"]["kernel"] for layer in TRUNK_B),
+        "K7's two kernels": sum(k7_ms[layer]["launcher alone"] for layer in TRUNK_B),
+        "wgrad()'s column-scale and dequantizing passes": sum(
+            k7_ms[layer]["kernel"] - k7_ms[layer]["launcher alone"] for layer in TRUNK_B),
+        "weight passes": w_ms,
+    }
+    parts = {name: cfg.depth * ms for name, ms in parts.items()}
+    parts["the rest (attention, LayerNorm, GELU, casts, optimizer, host)"] = \
+        step_ms - sum(parts.values())
+    bf16_gemms = 3 * cfg.depth * sum(k6_ms[f"{layer} forward"]["bf16 F.linear"]
+                                     for layer in TRUNK_B)
+    print(f"  the int8 step's {step_ms:.1f} ms by this run's kernel times x launches per step: "
+          + "; ".join(f"{name} {ms:.1f}" for name, ms in parts.items())
+          + f"; the bf16 matmuls they replace ~{bf16_gemms:.1f} (3 x 12 x F.linear at the "
+          f"forward shapes)", flush=True)
+    return launches
+
+
+def phase13(torch, FA, dev):
+    """A head width the attention kernels do not take (80: the
+    beit_huge_patch16_224 preset) runs on the plain attention, as in the
+    reference."""
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.train.engine_finetune import (
+        FinetuneHParams, init_finetune_state, make_finetune_train_step,
+    )
+    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
+    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
+
+    cfg = get_preset("beit_huge_patch16_224", use_shared_rel_pos_bias=True, init_values=0.1,
+                     depth=2)
+    check(cfg.head_dim == 80, f"the huge preset has head_dim {cfg.head_dim}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
+    trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+    trunc_normal(0.1, 2.0)(model.head.weight, gen)
+    f32_model = VisionTransformer(cfg.replace(use_flash_attention=False), dtype=torch.float32,
+                                  device=dev, generator=gen)
+    f32_model.load_state_dict(model.state_dict())
+    x = torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (8,), generator=gen, device=dev)
+    reset_attention_counts(FA)
+    model.eval()
+    f32_model.eval()
+    with torch.no_grad():
+        logits, ref = model(x), f32_model(x)
+    diff, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
+    print(f"  2-deep beit_huge_patch16_224 (width {cfg.embed_dim}, head_dim 80): logits bf16 vs "
+          f"f32 on the plain attention: max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio "
+          f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND})", flush=True)
+    check(torch.isfinite(logits).all().item() and diff <= LOGIT_REL_BOUND * scale,
+          "the head_dim-80 logits disagree with the f32 model's")
+    opt = make_optimizer(model, weight_decay=0.05, layer_decay=0.65, depth=cfg.depth)
+    state = init_finetune_state(model, opt)
+    state.step = 1
+    step = make_finetune_train_step(model, opt, FinetuneHParams(num_classes=cfg.num_classes),
+                                    cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500))
+    m = step(state, x, y, torch.Generator(device=dev).manual_seed(1),
+             torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    print(f"  one train step: loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}; "
+          f"attention launches {attention_counts(FA)}", flush=True)
+    check(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"])),
+          "non-finite loss or grad norm at head_dim 80")
+    check(attention_counts(FA) == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+          "a head_dim-80 model launched an attention kernel")
+
+
 def main() -> int:
     import torch
 
@@ -1660,6 +2180,11 @@ def main() -> int:
                  torch, FA, dev)
     large = run(9, "ViT-L/16 512 evaluate(), finetune train steps, MC forward", phase9, torch,
                 FA, dev)
+    res[10] = run(10, "K6 against its plain version, nearest and stochastic", phase10, torch, dev)
+    res[11] = run(11, "K7 against its plain version", phase11, torch, dev)
+    int8 = run(12, "ViT-B/16 224 with the int8 trunk: evaluate() and finetune train steps",
+               phase12, torch, FA, dev, res[10]["other_ms"], res[11]["other_ms"])
+    run(13, "a head_dim-80 model on the plain attention", phase13, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -1670,10 +2195,15 @@ def main() -> int:
     # and phase 9's ViT-L/16 512 paths ("large_"): evaluate() over 2 batches, 3
     # train steps, 1 step at batch 2, 1 step with attention dropout, one K=2
     # forward with attention dropout
+    # and phase 12's int8 paths: evaluate() over 4 batches, 3 train steps
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
-                **{path: n["K1"] for path, n in mc.items()}}
-    k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"]}
+                **{path: n["K1"] for path, n in mc.items()},
+                **{path: n["K1"] for path, n in int8.items()}}
+    k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
+                "int8_train_step": int8["int8_train_step"]["K2"]}
+    k6_paths = {path: n["K6"] for path, n in int8.items()}
+    k7_paths = {path: n["K7"] for path, n in int8.items() if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in mc.items() if n["K8"]}
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}
@@ -1698,6 +2228,12 @@ def main() -> int:
         {"name": "dropout", "route": "cuda", "source": pkg + "dropout.cu",
          "replaces": "uncertainty_vit_tpu/ops/dropout.py:43",
          "launches": sum(k8_paths.values()), "launches_by_path": k8_paths, **res[5]},
+        {"name": "quant_fwd", "route": "cuda", "source": pkg + "quant_fwd.cu",
+         "replaces": "uncertainty_vit_tpu/ops/quant.py:128",
+         "launches": sum(k6_paths.values()), "launches_by_path": k6_paths, **res[10]},
+        {"name": "quant_wgrad", "route": "cuda", "source": pkg + "quant_wgrad.cu",
+         "replaces": "uncertainty_vit_tpu/ops/quant.py:216",
+         "launches": sum(k7_paths.values()), "launches_by_path": k7_paths, **res[11]},
     ]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")

@@ -113,6 +113,57 @@ def test_same_seed_same_mask_other_seed_other_mask():
                            .reshape(-1))
 
 
+def _philox_python(counter, key):
+    """Philox4x32-10 on Python integers: an independent statement of the
+    function, checked against the Random123 vectors above."""
+    c, k = list(counter), list(key)
+    for _ in range(10):
+        p0, p1 = P.M0 * c[0], P.M1 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & 0xFFFFFFFF, (p0 >> 32) ^ c[3] ^ k[1], p0 & 0xFFFFFFFF]
+        k = [(k[0] + P.W0) & 0xFFFFFFFF, (k[1] + P.W1) & 0xFFFFFFFF]
+    return tuple(c)
+
+
+# Known answers of the rounding stream for the seed 0x0123456789ABCDEF: entry
+# (row, col) is word col & 3 of counter (col >> 2, row, 0, STREAM_QUANT).
+QUANT_KAT = {(0, 0): 0x46C5FD35, (0, 5): 0xAC58CDE7, (7, 6): 0xFE87916C,
+             (31519, 3071): 0xD6509C44, (131071, 2303): 0x45B1AB21}
+
+
+@pytest.mark.parametrize("entry", sorted(QUANT_KAT))
+def test_quant_stream_known_answer_vectors(entry):
+    row, col = entry
+    seed = _seed(0x0123456789ABCDEF)
+    assert _philox_python(KAT["pi"][0], KAT["pi"][1]) == KAT["pi"][2]
+    words = _philox_python((col >> 2, row, 0, P.STREAM_QUANT), (0x89ABCDEF, 0x01234567))
+    assert words[col & 3] == QUANT_KAT[entry]
+    bits = P.quant_bits(seed, 1, 1, row0=row, col0=col)
+    assert int(bits[0, 0]) == QUANT_KAT[entry]
+    u = P.quant_uniform(seed, 1, 1, row0=row, col0=col)
+    assert u.dtype == torch.float32 and float(u[0, 0]) == (QUANT_KAT[entry] >> 8) / 2.0**24
+
+
+def test_quant_bits_of_a_tile_are_the_tile_of_the_bits():
+    """An entry's rounding bits depend on its (row, column), not on the tile
+    that rounds it; the stream differs from the two dropout streams, and the
+    uniforms fill [0, 1) evenly."""
+    whole = P.quant_bits(_seed(), 37, 53)
+    assert whole.shape == (37, 53) and int(whole.min()) >= 0 and int(whole.max()) < 2**32
+    for row0, col0, r, c in ((0, 0, 37, 53), (5, 3, 8, 9), (36, 52, 1, 1), (1, 4, 30, 4)):
+        assert torch.equal(P.quant_bits(_seed(), r, c, row0=row0, col0=col0),
+                           whole[row0:row0 + r, col0:col0 + c])
+    assert not torch.equal(whole, P.quant_bits(_seed(2), 37, 53))
+    assert not torch.equal(P.quant_bits(_seed(), 1, 4).reshape(-1), P.dropout_bits(_seed(), 4))
+    u = P.quant_uniform(_seed(3), 512, 512).double()
+    n = u.numel()
+    assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+    assert abs(float(u.mean()) - 0.5) <= 4 * np.sqrt(1 / 12 / n)
+    assert abs(float(u.var()) - 1 / 12) <= 4 * np.sqrt(1 / 180 / n)
+    k = u - 0.5
+    for a, b in ((k[:, 1:], k[:, :-1]), (k[1:], k[:-1])):
+        assert abs(float((a * b).mean()) * 12) <= 4 / np.sqrt(a.numel())
+
+
 @pytest.mark.parametrize("rate", [0.05, 0.1, 0.3, 0.5])
 @pytest.mark.parametrize("stream", ["dropout", "attention"])
 def test_kept_fraction_within_4_sigma(stream, rate):
@@ -450,18 +501,22 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 def test_kernel_sources_share_the_generator_header():
     attention = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_stream_fwd",
                  "flash_attention_stream_bwd")
-    for name in ("dropout",) + attention:
+    quant = ("quant_fwd", "quant_wgrad")
+    for name in ("dropout",) + attention + quant:
         assert '#include "philox.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     assert (_native.CSRC / "philox.cuh").exists()
-    # the four attention kernels share their fragment and copy helpers too
+    # the four attention kernels share their fragment and copy helpers too,
+    # the two int8 kernels their roundings and their mma wrapper
     for name in attention:
         assert '#include "attention_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
+    for name in quant:
+        assert '#include "quant_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     headers = {p.name for p in _native.CSRC.glob("*.cuh")}
-    assert headers == {"philox.cuh", "attention_common.cuh"}
+    assert headers == {"philox.cuh", "attention_common.cuh", "quant_common.cuh"}
     # every header enters every library's hash
     digest = _native._digest(_native.CSRC / "dropout.cu")
     assert len(digest) == 16 and sorted(p.stem for p in _native.CSRC.glob("*.cu")) == sorted(
-        ("dropout",) + attention)
+        ("dropout",) + attention + quant)
 
 
 @pytest.mark.cuda

@@ -155,7 +155,7 @@ def test_port_never_imports_jax():
         "for wanted in ('core.device', 'ops.philox', 'ops.dropout', 'evals.mc_dropout',\n"
         "               'evals.ensembles', 'evals.collect', 'evals.classification',\n"
         "               'models.vit', 'ops.augment', 'utils.checkpoint', 'ops.flash_attention',\n"
-        "               'ops._native', 'train.engine_finetune', 'train.optim'):\n"
+        "               'ops._native', 'ops.quant', 'train.engine_finetune', 'train.optim'):\n"
         "    assert pkg.__name__ + '.' + wanted in names, wanted\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -172,6 +172,7 @@ def test_port_never_imports_jax():
     sources = [Path(REPO) / "chip_smoke.py", *sorted((Path(REPO) / "tools").glob("torch_port_*.py")),
                *sorted((Path(REPO) / "uncertainty_vit_tpu_torch").rglob("*.py"))]
     assert Path(REPO) / "uncertainty_vit_tpu_torch" / "ops" / "flash_attention.py" in sources
+    assert Path(REPO) / "uncertainty_vit_tpu_torch" / "ops" / "quant.py" in sources
     for path in sources:
         assert not pattern.search(path.read_text()), path
 

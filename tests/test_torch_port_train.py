@@ -33,6 +33,7 @@ from uncertainty_vit_tpu_torch.core.config import ViTConfig as TViTConfig
 from uncertainty_vit_tpu_torch.models.layers import drop_path
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
+from uncertainty_vit_tpu_torch.ops.attention import naive_attention
 from uncertainty_vit_tpu_torch.ops import losses as TL
 from uncertainty_vit_tpu_torch.ops import mixup as TM
 from uncertainty_vit_tpu_torch.train import engine_finetune as TE
@@ -289,6 +290,29 @@ def test_model_forward_draws_drop_path_from_its_generator():
         with pytest.raises(ValueError):
             model(x)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_plain_attention_draws_its_dropout_mask_from_its_generator():
+    """``naive_attention`` with dropout raises without a generator; through
+    the model two generators of one seed give equal outputs and the global
+    generator's state is untouched."""
+    q = torch.randn(2, 2, 5, 16, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError):
+        naive_attention(q, q, q, 0.25, dropout_rate=0.5, deterministic=False)
+    naive_attention(q, q, q, 0.25, dropout_rate=0.5, deterministic=True)  # draws nothing
+
+    cfg = TViTConfig(**dict(SMALL, use_flash_attention=False, attn_drop_rate=0.5))
+    model = VisionTransformer(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).train()
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    before = torch.get_rng_state()
+    with torch.no_grad():
+        a = model(x, generator=torch.Generator().manual_seed(5))
+        b = model(x, generator=torch.Generator().manual_seed(5))
+        c = model(x, generator=torch.Generator().manual_seed(6))
+        with pytest.raises(ValueError):
+            model(x)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(torch.get_rng_state(), before)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's ViT-B/16 224 finetune train step on one card.
 
-    python3 tools/torch_port_profile_train.py [--plain]
+    python3 tools/torch_port_profile_train.py [--plain] [--quant int8]
 
 Builds the train step as chip_smoke.py phase 4 does (bench.py's
 configuration: shared rel-pos bias, layer scale 0.1, drop-path 0.1, batch
@@ -13,7 +13,8 @@ Prints the card, the step time, the device busy share (summed kernel time
 over the window's wall time), the CUDA time by operator and a coarse split
 by kernel class, and writes the Chrome trace to
 chiprun_out/profile_train_step.json. ``--plain`` profiles the plain
-attention path instead of the K1/K2 kernels. Needs a CUDA card.
+attention path instead of the K1/K2 kernels; ``--quant int8`` the step with
+the int8 trunk (K6 and K7). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ BATCH, STEPS = 160, 3
 CLASSES = (
     ("attention_fwd", "K1 attention forward"),
     ("attention_bwd", "K2 attention backward"),
+    ("quant_fwd_kernel", "K6 int8 matmul (forward, dgrad)"),
+    ("quantize_transpose", "K7 quantize-transpose"), ("wgrad_mm", "K7 int32 product"),
     ("gemm", "GEMMs (cuBLAS)"), ("nvjet", "GEMMs (cuBLAS)"), ("sm90_xmma", "GEMMs (cuBLAS)"),
     ("cutlass", "GEMMs (cuBLAS)"),
     ("layer_norm", "LayerNorm fwd/bwd"), ("LayerNorm", "LayerNorm fwd/bwd"),
@@ -48,6 +51,7 @@ CLASSES = (
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--quant", choices=("none", "int8"), default="none")
     args = ap.parse_args()
 
     import torch
@@ -75,7 +79,8 @@ def main() -> int:
     FA.BOUNDED_SCORES = True
     dev = torch.device("cuda", 0)
     cfg = get_preset("beit_base_patch16_224", use_shared_rel_pos_bias=True,
-                     drop_path_rate=0.1, init_values=0.1, use_flash_attention=not args.plain)
+                     drop_path_rate=0.1, init_values=0.1, use_flash_attention=not args.plain,
+                     quant=args.quant)
     gen = torch.Generator(device=dev).manual_seed(2)
     model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
     trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
@@ -105,13 +110,17 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     prof.export_chrome_trace("chiprun_out/profile_train_step.json")
 
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # kernels and copies only: an optimizer's ``record_function`` range is
+    # mirrored onto the device timeline and would count its kernels twice
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and not e.is_user_annotation]
     total_us = sum(e.time_range.elapsed_us() for e in events)
     by_class = {}
     for e in events:
         cls = next((c for frag, c in CLASSES if frag in e.name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + e.time_range.elapsed_us()
-    print(f"path: {'plain attention' if args.plain else 'K1/K2 kernels'}, batch {BATCH}", flush=True)
+    print(f"path: {'plain attention' if args.plain else 'K1/K2 kernels'}, quant {args.quant}, "
+          f"batch {BATCH}", flush=True)
     print(f"step {step_ms:.2f} ms unprofiled ({BATCH * 1000 / step_ms:.1f} img/s); "
           f"profiled window {wall_ms:.1f} ms for {STEPS} steps, "
           f"CUDA kernel time {total_us / 1000:.1f} ms, busy share {total_us / 1000 / wall_ms:.3f}",

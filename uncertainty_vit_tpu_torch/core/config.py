@@ -112,9 +112,10 @@ class ViTConfig:
     use_flash_attention: bool = True
 
     # Quantized trunk matmuls: 'none' | 'int8' (AQT-style dynamic int8 for
-    # qkv/proj/fc1/fc2 — fwd, dgrad and wgrad all run on the MXU's 2× int8
-    # path; see ops/quant.py). No reference counterpart (its fastest mode
-    # was DeepSpeed fp16, run_class_finetuning.py:583-594).
+    # qkv/proj/fc1/fc2 — fwd, dgrad and wgrad all run on the int8 tensor
+    # cores; see uncertainty_vit_tpu_torch/ops/quant.py). No reference
+    # counterpart (its fastest mode was DeepSpeed fp16,
+    # run_class_finetuning.py:583-594).
     quant: str = "none"
 
     @property

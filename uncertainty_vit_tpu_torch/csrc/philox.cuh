@@ -1,4 +1,5 @@
-// Counter-based random bits for the in-kernel dropout masks, for Hopper.
+// Counter-based random bits for the in-kernel dropout masks and the
+// stochastic rounding of the int8 kernels, for Hopper.
 //
 // Replaces the TPU core's hardware generator as the three dropout kernels
 // use it: `pltpu.prng_seed` / `pltpu.prng_random_bits` in `_dropout_mask`
@@ -23,6 +24,13 @@
 //              covers a 2 x 2 block of the (query row, key column) mask, the
 //              shape that both the query-major and the key-major mma.sync
 //              accumulator fragments hold in one thread pair.
+//   rounding:  entry (row, col) of an [M, N] matrix takes counter
+//              (col >> 2, row, 0, kStreamQuant), word col & 3: one call covers
+//              four neighbouring columns of one row, what a thread that
+//              quantizes 8 or 16 bytes of a row holds. The uniform is the top
+//              24 bits times 2^-24, in [0, 1), as `_sr_uniform`
+//              (uncertainty_vit_tpu/ops/quant.py:94-99) makes it from the TPU's
+//              generator, which is seeded per program (:130-132, :221-223).
 // The same function in plain PyTorch, exact to the bit, is
 // uncertainty_vit_tpu_torch/ops/philox.py; each kernel's plain version draws
 // its mask there.
@@ -43,7 +51,7 @@ namespace philox {
 
 constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
 constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-constexpr uint32_t kStreamDropout = 0u, kStreamAttention = 1u;
+constexpr uint32_t kStreamDropout = 0u, kStreamAttention = 1u, kStreamQuant = 2u;
 
 struct Key {
   uint32_t k0, k1;
@@ -81,6 +89,17 @@ __device__ __forceinline__ float keep_scale(uint32_t bits, uint32_t threshold, f
 __device__ __forceinline__ uint4 dropout_words(Key key, unsigned long long group) {
   return philox4x32_10(static_cast<uint32_t>(group), static_cast<uint32_t>(group >> 32), 0u,
                        kStreamDropout, key);
+}
+
+// The four words of entries (row, 4 * group .. 4 * group + 3) of a matrix
+// (stochastic rounding).
+__device__ __forceinline__ uint4 quant_words(Key key, uint32_t row, uint32_t group) {
+  return philox4x32_10(group, row, 0u, kStreamQuant, key);
+}
+
+// The [0, 1) uniform of 32 random bits: the top 24 times 2^-24, exact in f32.
+__device__ __forceinline__ float uniform24(uint32_t bits) {
+  return __uint2float_rn(bits >> 8) * (1.0f / 16777216.0f);
 }
 
 // The 2 x 2 block of the attention mask that holds (row, col): x = (even

@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.ops import philox, relpos
+from uncertainty_vit_tpu_torch.ops import quant as quant_ops
 from uncertainty_vit_tpu_torch.ops.attention import naive_attention
 from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
-from uncertainty_vit_tpu_torch.ops.flash_attention import fused_qkv_attention
+from uncertainty_vit_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIM, fused_qkv_attention
 
 
 def _require_generator(generator: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -82,6 +83,29 @@ def site_dropout(
         return dropout(x, rate, True, generator)
     seed = philox.draw_seed(_require_generator(generator, "dropout"), x.device)
     return fused_dropout(x.contiguous(), rate, seed)
+
+
+def _use_quant(quant: str, x: torch.Tensor, features: int) -> bool:
+    """Whether a dense layer of x's shape with ``features`` outputs is an
+    int8 matmul: the flag, and the shapes ``quant.supported`` admits
+    (``_use_quant`` of the reference's models/layers.py:51-63, which does not
+    look at ``deterministic``: evaluation runs the int8 forward too). The
+    reference's backend test has no counterpart: ``ops.quant``'s wrappers
+    take the kernel or its plain version by the tensor's device."""
+    if quant != "int8":
+        return False
+    return quant_ops.supported(x.numel() // x.shape[-1], x.shape[-1], features)
+
+
+def _quant_seed(x: torch.Tensor, active: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The seed of one int8 layer's stochastic gradient rounding: drawn from
+    the forward's generator when the forward draws, a fixed zero otherwise
+    (``_quant_seed`` of the reference's models/layers.py:80-87)."""
+    if active:
+        return philox.draw_seed(_require_generator(generator, "int8 stochastic rounding"),
+                                x.device)
+    return torch.zeros(1, dtype=torch.int64, device=x.device)
 
 
 def _active(module: nn.Module, deterministic: Optional[bool]) -> bool:
@@ -144,18 +168,28 @@ class _ScaledOutDense(_Params):
     """Linear whose weight/bias are premultiplied by an optional per-output
     scale — the layer-scale fold of models/layers.py:146-174:
     γ ⊙ (x Wᵀ + b) = x (γ·W)ᵀ + γ⊙b, exactly, at the cost of scaling the
-    weight instead of the [B, N, C] activations."""
+    weight instead of the [B, N, C] activations. With ``quant="int8"`` and a
+    supported shape the matmul is ``ops.quant.int8_dense`` on the f32 weight
+    after the fold (both are diagonal rescalings before the quantization,
+    :164-174); the fold stays an autograd node, so γ gets its gradient."""
 
     def __init__(self, in_features: int, out_features: int, weight_init: I.Init,
-                 *, device=None, generator=None):
+                 quant: str = "none", *, device=None, generator=None):
         super().__init__((out_features, in_features), weight_init, (out_features,),
                          device=device, generator=generator)
+        self.quant = quant
 
-    def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                active: bool = False) -> torch.Tensor:
+        """``active`` says whether the forward draws (then the int8 layer's
+        rounding seed comes from ``generator``)."""
         w, b = self.weight, self.bias
         if scale is not None:
             w = w * scale[:, None]
             b = b * scale
+        if _use_quant(self.quant, x, w.shape[0]):
+            return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator))
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
 
@@ -172,22 +206,25 @@ class Mlp(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, drop: float = 0.0,
                  layer_id: int = 0, init_std: float = 0.02, init_trunc_abs: float = 2.0,
-                 dtype: torch.dtype = torch.float32, *, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, quant: str = "none", *,
+                 device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         tn = I.trunc_normal(init_std, init_trunc_abs)
         self.drop, self.dtype = drop, dtype
-        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, device=device, generator=generator)
-        self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id),
+        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, device=device,
+                                   generator=generator)
+        self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id), quant,
                                    device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None) -> torch.Tensor:
-        x = self.fc1(x)
+        active = _active(self, deterministic)
+        x = self.fc1(x, None, generator, active)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
-        x = self.fc2(x, out_scale)
-        return site_dropout(x, self.drop, _active(self, deterministic), generator)
+        x = self.fc2(x, out_scale, generator, active)
+        return site_dropout(x, self.drop, active, generator)
 
 
 def _register_relpos_index(module: nn.Module, window_size: Tuple[int, int], device) -> None:
@@ -225,25 +262,29 @@ class Attention(nn.Module):
 
     The qkv Linear has no bias; q_bias and v_bias are separate parameters
     and the key bias is structurally zero. The q|0|v bias is added with the
-    qkv matmul, outside the attention kernel (models/layers.py:296-314).
-    ``use_flash=True`` routes through ``fused_qkv_attention`` (the kernel on
-    a CUDA tensor, its plain version on CPU), attention dropout included,
-    from a seed drawn from the forward's generator; ``use_flash=False``
-    takes ``naive_attention``."""
+    qkv matmul, outside the attention kernel (models/layers.py:296-314): by
+    ``F.linear``, or in the int8 kernel's f32 epilogue with ``quant="int8"``.
+    ``use_flash=True`` with a head width the attention kernels take
+    (``KERNEL_HEAD_DIM``) routes through ``fused_qkv_attention`` (the kernel
+    on a CUDA tensor, its plain version on CPU), attention dropout included,
+    from a seed drawn from the forward's generator; ``use_flash=False`` or
+    another head width takes ``naive_attention``, as the reference's
+    ``use_kernel`` decides (:332-338)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, window_size: Optional[Tuple[int, int]] = None,
                  attn_head_dim: Optional[int] = None, layer_id: int = 0,
                  init_std: float = 0.02, init_trunc_abs: float = 2.0,
-                 use_flash: bool = True, *, device=None, generator=None):
+                 use_flash: bool = True, quant: str = "none", *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
         all_head_dim = head_dim * num_heads
         self.num_heads, self.head_dim = num_heads, head_dim
         self.scale = qk_scale or head_dim**-0.5
-        self.attn_drop, self.proj_drop, self.use_flash = attn_drop, proj_drop, use_flash
+        self.attn_drop, self.proj_drop, self.quant = attn_drop, proj_drop, quant
+        self.use_kernel = use_flash and head_dim == KERNEL_HEAD_DIM
         tn = I.trunc_normal(init_std, init_trunc_abs)
 
         self.qkv = _Params((all_head_dim * 3, dim), tn, device=device, generator=generator)
@@ -258,7 +299,7 @@ class Attention(nn.Module):
             _register_relpos_index(self, window_size, device)
         else:
             self.relative_position_bias_table = None
-        self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id),
+        self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id), quant,
                                     device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
@@ -270,8 +311,12 @@ class Attention(nn.Module):
         qkv_bias = None
         if self.q_bias is not None:
             qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
-            qkv_bias = qkv_bias.to(x.dtype)
-        qkv = F.linear(x, self.qkv.weight.to(x.dtype), qkv_bias)
+        if _use_quant(self.quant, x, self.qkv.weight.shape[0]):
+            qkv = quant_ops.int8_dense(x, self.qkv.weight, qkv_bias,
+                                       _quant_seed(x, active, generator))
+        else:
+            qkv = F.linear(x, self.qkv.weight.to(x.dtype),
+                           None if qkv_bias is None else qkv_bias.to(x.dtype))
 
         bias = None
         if self.relative_position_bias_table is not None:
@@ -280,7 +325,7 @@ class Attention(nn.Module):
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
 
         drop = self.attn_drop if active else 0.0
-        if self.use_flash:
+        if self.use_kernel:
             # the seed of the in-kernel mask, as the reference draws it from
             # the "dropout" rng (models/layers.py:344-349)
             seed = None
@@ -293,7 +338,7 @@ class Attention(nn.Module):
             out = naive_attention(q, k, v, self.scale, bias, dropout_rate=self.attn_drop,
                                   generator=generator, deterministic=not active)
             out = out.transpose(1, 2).reshape(b, n, -1)
-        out = self.proj(out, out_scale)
+        out = self.proj(out, out_scale, generator, active)
         return site_dropout(out, self.proj_drop, active, generator)
 
 
@@ -311,7 +356,8 @@ class Block(nn.Module):
                  attn_head_dim: Optional[int] = None, variant: str = "softmax",
                  layer_id: int = 1, init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  layer_norm_eps: float = 1e-6, use_flash: bool = True,
-                 dtype: torch.dtype = torch.float32, *, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, quant: str = "none", *,
+                 device=None, generator=None):
         super().__init__()
         if variant != "softmax":
             raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
@@ -322,12 +368,12 @@ class Block(nn.Module):
             dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale, attn_drop=attn_drop,
             proj_drop=drop, window_size=window_size, attn_head_dim=attn_head_dim,
             layer_id=layer_id, init_std=init_std, init_trunc_abs=init_trunc_abs,
-            use_flash=use_flash, device=device, generator=generator,
+            use_flash=use_flash, quant=quant, device=device, generator=generator,
         )
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, layer_id=layer_id,
                        init_std=init_std, init_trunc_abs=init_trunc_abs, dtype=dtype,
-                       device=device, generator=generator)
+                       quant=quant, device=device, generator=generator)
         if init_values is not None and init_values > 0:
             self.gamma_1 = _param((dim,), I.constant(init_values), device, generator)
             self.gamma_2 = _param((dim,), I.constant(init_values), device, generator)

@@ -8,8 +8,11 @@ names (``cls_token``, ``blocks.0.attn.qkv.weight``, ``fc_norm.weight``, ...),
 which is where ``export_torch_state_dict`` of the JAX package puts them.
 
 Not ported yet (they raise): the SNGP and heteroscedastic heads, the
-spectral-norm fc_norm, attention variants other than softmax, the int8
-trunk and masking.
+spectral-norm fc_norm, attention variants other than softmax and masking.
+``cfg.quant="int8"`` runs the trunk's dense layers through
+``ops.quant.int8_dense`` on [B, N, C] activations; the reference's flat
+[B·N, C] trunk (models/vit.py:118-135) works around layout copies of its
+compiler and computes the same.
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ class ViTBackbone(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.quant != "none" or cfg.has_masking:
-            raise NotImplementedError("the int8 trunk and token masking are not ported yet")
+        if cfg.has_masking:
+            raise NotImplementedError("token masking is not ported yet")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
         self.cfg, self.dtype = cfg, dtype
         tn = I.trunc_normal(cfg.init_std, cfg.init_trunc_abs)
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, cfg.embed_dim, dtype,
@@ -73,7 +78,7 @@ class ViTBackbone(nn.Module):
                 window_size=cfg.grid_size if cfg.use_rel_pos_bias else None,
                 variant=cfg.attn_variant, layer_id=i + 1, init_std=cfg.init_std,
                 init_trunc_abs=cfg.init_trunc_abs, layer_norm_eps=cfg.layer_norm_eps,
-                use_flash=cfg.use_flash_attention, dtype=dtype,
+                use_flash=cfg.use_flash_attention, dtype=dtype, quant=cfg.quant,
                 device=device, generator=generator,
             )
             for i in range(cfg.depth)

@@ -50,11 +50,15 @@ def naive_attention(
     """Unfused attention: the correctness reference.
 
     q, k, v: [B, H, N, D]. bias: broadcastable to [B, H, N, N]. Returns
-    [B, H, N, D] in v.dtype. Probabilities are computed in float32."""
+    [B, H, N, D] in v.dtype. Probabilities are computed in float32. The
+    dropout mask comes from ``generator``, never from the global one."""
     if variant != "softmax":
         raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
     probs = softmax_probs(attention_scores(q, k, scale, bias))
     if dropout_rate > 0.0 and not deterministic:
+        if generator is None:
+            raise ValueError("attention dropout draws from an explicit torch.Generator; "
+                             "pass generator=")
         u = torch.rand(probs.shape, generator=generator, device=probs.device)
         keep = u < 1.0 - dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)

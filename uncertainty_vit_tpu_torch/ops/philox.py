@@ -1,4 +1,4 @@
-"""The dropout kernels' random bits in plain PyTorch, exact to the bit.
+"""The kernels' random bits in plain PyTorch, exact to the bit.
 
 ``csrc/philox.cuh`` makes a dropout mask a pure function of (seed, position):
 Philox4x32-10 keyed on the 64-bit seed, with the position as the counter.
@@ -9,7 +9,11 @@ attention backward replays the forward's mask whatever tiles either uses.
 - dropout (``ops/dropout.py``): counter (i >> 2 low, i >> 2 high, 0,
   STREAM_DROPOUT), word i & 3, for the flat element index i;
 - attention (``ops/flash_attention.py``): counter (col >> 1, row >> 1,
-  image · H + head, STREAM_ATTENTION), word 2 · (row & 1) + (col & 1).
+  image · H + head, STREAM_ATTENTION), word 2 · (row & 1) + (col & 1);
+- stochastic rounding (``ops/quant.py``): entry (row, col) of an [M, N]
+  matrix takes counter (col >> 2, row, 0, STREAM_QUANT), word col & 3, and
+  its uniform is (bits >> 8) · 2⁻²⁴ in f32, in [0, 1): the top 24 bits, as
+  ``_sr_uniform`` of uncertainty_vit_tpu/ops/quant.py:94-99 makes it.
 
 ``keep = bits >= min(int(rate · 2³²), 2³² − 1)`` and kept values are scaled
 by 1/(1 − rate), the thresholding of the reference's TPU kernels
@@ -32,7 +36,7 @@ import torch
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
-STREAM_DROPOUT, STREAM_ATTENTION = 0, 1
+STREAM_DROPOUT, STREAM_ATTENTION, STREAM_QUANT = 0, 1, 2
 _MASK32 = 0xFFFFFFFF
 
 
@@ -119,6 +123,29 @@ def attention_bits(seed: torch.Tensor, batch: int, num_heads: int, rows: int, co
     full = blocks.permute(0, 1, 3, 2, 4).reshape(bh_n, 2 * rb_n, 2 * cb_n)
     r, c = row0 - 2 * rb0, col0 - 2 * cb0
     return full[:, r:r + rows, c:c + cols].reshape(batch, num_heads, rows, cols)
+
+
+def quant_bits(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0
+               ) -> torch.Tensor:
+    """The rounding bits of entries (row0 + r, col0 + c) of a matrix, r < rows,
+    c < cols, as int64 [rows, cols] on the seed's device: a function of the
+    seed and of (row, col) only, whatever tile or thread rounds the entry."""
+    dev = seed.device
+    g0, g1 = col0 >> 2, (col0 + cols + 3) >> 2
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=dev)[:, None]
+    group = torch.arange(g0, g1, dtype=torch.int64, device=dev)[None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    words = philox4x32(group, row, zero, zero + STREAM_QUANT, *_key(seed))
+    full = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(rows, 4 * (g1 - g0))
+    start = col0 - 4 * g0
+    return full[:, start:start + cols]
+
+
+def quant_uniform(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0
+                  ) -> torch.Tensor:
+    """The [0, 1) uniforms of stochastic rounding, f32 [rows, cols]: the top
+    24 of each entry's ``quant_bits`` times 2⁻²⁴ (exact in f32)."""
+    return (quant_bits(seed, rows, cols, row0=row0, col0=col0) >> 8).float() * (1.0 / (1 << 24))
 
 
 def keep_scale(bits: torch.Tensor, rate: float) -> torch.Tensor:
