@@ -141,6 +141,29 @@ kernels from the sources in this checkout, then:
   phase 13 a 2-deep beit_huge_patch16_224 (head_dim 80, which the attention
            kernels do not take): one forward against the same weights in f32
            and one train step, on the plain attention, K1 to K4 never launched.
+  phase 14 holds the cross attention of sequence-parallel attention (K5: K3's
+           and K4's entries given Nq query rows against Nk keys) against its
+           plain versions at Nq in {1, 63, 257, 513}, Nk in {65, 577, 1025},
+           B=2, H=16, bf16 and f32, over bias / none, q/v bias / none and
+           bounded / exact softmax (K1's and K2's bounds; dq and dkv
+           bit-identical between two runs); plants NaN around q, kv, g and the
+           lse; holds the S shards of K5 together against K3's output and
+           K4's dqkv, dbias and dqvb of the whole sequence at N = 577 and 1025
+           for S = 2 and 4; then times one shard at B=8, N=1025 for S = 2
+           (Nq = 513) and 4 (Nq = 257), forward with the lse and backward,
+           beside K3 and K4 of the whole sequence, the plain versions and the
+           library call (scaled_dot_product_attention with the bias as its
+           mask, and autograd's backward of it).
+  phase 15 the sequence-parallel slice: phase 9's ViT-L/16 512 on phase 9's
+           weights with its tokens split over S = 2 gloo ranks that share the
+           one card (rows 0-512 and 513-1024; k/v gathered through host
+           memory): evaluate() over one batch of 16 and 2 train steps at batch
+           8, per rank K5 24 launches per forward and 24 backward per step,
+           K1-K4 none; logits equal on both ranks and within phase 2's bound
+           of the unsharded model's on the same batch, the first step's loss
+           and grad norm within phase 4's bounds of the unsharded step's.
+           Prints each rank's rates and peak memory as information: two ranks
+           on one card over gloo are not a throughput of sequence parallelism.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -188,6 +211,13 @@ GRAD_REL_BOUND = 1e-4
 # bf16 blocks and differ only in where the attention rounds to bf16.
 LOSS_REL_BOUND = 1e-2
 GRAD_NORM_REL_BOUND = 5e-2
+# Phase 15: each parameter's gradient norm after the sharded step's group sum
+# against the unsharded step's (same weights, batch and seeds). The sharded
+# backward sums two bf16 shares of each k/v cotangent where K4 rounds one f32
+# sum, so a leaf's norm moves by a few bf16 roundings (read on an H100: the
+# worst of 369 leaves, cls_token, 6.7e-4, the median 1.4e-5); a gradient left
+# unsummed or summed twice moves it by tens of percent.
+LEAF_GRAD_REL_BOUND = 5e-3
 # The Euler identity <df/dv, v> = 2f of f = sum(out^2) holds to f32 rounding
 # when the backward replays the forward's dropout mask and breaks at the
 # percent level when it does not (tests/test_flash_attention.py:102-123).
@@ -1252,6 +1282,30 @@ def phase7(torch, FA, dev):
                                               "with lse", "dropout 0.1", "K1")}}
 
 
+def held_bwd(torch, kernel, tag, got, ref, tol):
+    """got = (dq, dk, dv, dbias, dqvb) of a streaming backward (K4 or K5),
+    ref the same of its plain versions; each part against its bound in
+    ``tol`` relative to max|plain|. Returns (the largest absolute error of
+    dq, dk and dv, a summary)."""
+    names = ("dq", "dk", "dv", "dbias", "dqvb")
+    check((got[3] is None) == (ref[3] is None), f"{kernel} dbias presence differs ({tag})")
+    msg, abs_err = [], 0.0
+    for name, a, r in zip(names, got, ref):
+        if a is None:
+            continue
+        check(torch.isfinite(a.float()).all().item(), f"{kernel} {name} is not finite ({tag})")
+        rel = _rel_err(a, r)
+        if name in ("dq", "dk", "dv"):
+            abs_err = max(abs_err, (a.float() - r.float()).abs().max().item())
+        msg.append(f"{name} rel={rel:.3e}")
+        bound_ = tol["dqkv" if name in ("dq", "dk", "dv") else name]
+        check(rel <= bound_, f"{kernel} {name} disagrees with its plain version ({tag}: rel "
+              f"{rel:.3e} > {bound_})")
+    if got[4] is not None:
+        check(torch.all(got[4][1] == 0).item(), f"{kernel} dqvb has a nonzero k row ({tag})")
+    return abs_err, ", ".join(msg)
+
+
 def phase8(torch, FA, dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     h, c, scale = 16, 1024, 64**-0.5
@@ -1260,29 +1314,11 @@ def phase8(torch, FA, dev):
 
     def held(tag, got, ref, tol):
         """got = (dqkv, dbias, dqvb) of the routed call, ref = (dq, dk, dv,
-        dbias) of the two plain versions; each part against its bound
-        relative to max|plain|. Returns the largest absolute error of dqkv."""
+        dbias, c) of the two plain versions (``plain_bwd_sliced``)."""
         dqkv, dbias, dqvb = got
-        cc = dqkv.shape[-1] // 3
-        parts = {"dq": (dqkv[..., :cc], ref[0], tol["dqkv"]),
-                 "dk": (dqkv[..., cc:2 * cc], ref[1], tol["dqkv"]),
-                 "dv": (dqkv[..., 2 * cc:], ref[2], tol["dqkv"])}
-        check((dbias is None) == (ref[3] is None), f"K4 dbias presence differs from plain ({tag})")
-        if dbias is not None:
-            parts["dbias"] = (dbias, ref[3], tol["dbias"])
-        if dqvb is not None:
-            parts["dqvb"] = (dqvb, FA.reduce_qv_bias_grad(torch.cat(ref[:3], dim=-1)), tol["dqvb"])
-            check(torch.all(dqvb[1] == 0).item(), f"K4 dqvb has a nonzero k row ({tag})")
-        msg, abs_err = [], 0.0
-        for name, (a, r, bound_) in parts.items():
-            check(torch.isfinite(a.float()).all().item(), f"K4 {name} is not finite ({tag})")
-            rel = _rel_err(a, r)
-            if name in ("dq", "dk", "dv"):
-                abs_err = max(abs_err, (a.float() - r.float()).abs().max().item())
-            msg.append(f"{name} rel={rel:.3e}")
-            check(rel <= bound_, f"K4 {name} disagrees with its plain version ({tag}: rel "
-                  f"{rel:.3e} > {bound_})")
-        return abs_err, ", ".join(msg)
+        ref_dqvb = FA.reduce_qv_bias_grad(torch.cat(ref[:3], dim=-1)) if dqvb is not None else None
+        return held_bwd(torch, "K4", tag, (*dqkv.chunk(3, dim=-1), dbias, dqvb),
+                        (*ref[:4], ref_dqvb), tol)
 
     for dtype, n in itertools.product((torch.bfloat16, torch.float32), BIG_N):
         name = str(dtype)[6:]
@@ -1430,6 +1466,54 @@ def phase8(torch, FA, dev):
                                               "dropout 0.05")}}
 
 
+def host_ms(torch, fn) -> float:
+    """ms of one call of fn on the host clock, the device synchronized before
+    and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def large_512_model(torch, dev, init, group=None, train=False, **overrides):
+    """Phase 9's ViT-L/16 512 (shared rel-pos bias, layer scale 0.1, bf16 on
+    f32 parameters, config ``overrides``) on the state ``init``, its tokens
+    split over ``group`` when one is given: (model, None, None) for
+    evaluation; for training, with drop-path 0.1, (model, state, step) with
+    phase 9's step (batch mixup, AdamW with layer decay 0.75 and weight decay
+    0.05 on a cosine LR), the state halfway up the warm-up (lr 2e-3: at its
+    start lr times block 0's layer-decay scale 0.75^24 is below half an ulp
+    of a LayerNorm weight of 1, and those weights would not move)."""
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.train.engine_finetune import (
+        FinetuneHParams, init_finetune_state, make_finetune_train_step,
+    )
+    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
+    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
+
+    cfg = get_preset("beit_large_patch16_512", use_shared_rel_pos_bias=True, init_values=0.1,
+                     drop_path_rate=0.1 if train else 0.0, **overrides)
+    model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, seq_group=group,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    model.load_state_dict(init)
+    if not train:
+        return model, None, None
+    opt = make_optimizer(model, weight_decay=0.05, layer_decay=0.75, depth=cfg.depth)
+    state = init_finetune_state(model, opt)
+    state.step = 250
+    step = make_finetune_train_step(model, opt, FinetuneHParams(num_classes=cfg.num_classes),
+                                    cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500))
+    return model, state, step
+
+
+def large_512_gens(torch, dev, seed):
+    """(the device generator of drop-path, the CPU generator of mixup) of a
+    step, both from ``seed``."""
+    return torch.Generator(device=dev).manual_seed(seed), torch.Generator().manual_seed(seed)
+
+
 def phase9(torch, FA, dev):
     from uncertainty_vit_tpu_torch.core.config import get_preset
     from uncertainty_vit_tpu_torch.core.init import trunc_normal
@@ -1441,11 +1525,6 @@ def phase9(torch, FA, dev):
     from uncertainty_vit_tpu_torch.ops.augment import (
         IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
     )
-    from uncertainty_vit_tpu_torch.train.engine_finetune import (
-        FinetuneHParams, init_finetune_state, make_finetune_train_step,
-    )
-    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
-    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
     from uncertainty_vit_tpu_torch.utils.checkpoint import resize_state_dict
 
     FA.BOUNDED_SCORES = True  # as cli/finetune.py trains and evaluates
@@ -1534,23 +1613,11 @@ def phase9(torch, FA, dev):
     del logits, ref, images
 
     # --- the finetune train step
-    hp = FinetuneHParams(num_classes=cfg.num_classes)
-    lr = cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500)
-
     def build(**overrides):
-        m = VisionTransformer(cfg.replace(drop_path_rate=0.1, **overrides), dtype=torch.bfloat16,
-                              device=dev, generator=gen)
-        m.load_state_dict(init)
-        opt = make_optimizer(m, weight_decay=0.05, layer_decay=0.75, depth=cfg.depth)
-        state = init_finetune_state(m, opt)
-        # halfway up the warm-up (lr 2e-3): at its start lr times block 0's
-        # layer-decay scale 0.75^24 is below half an ulp of a LayerNorm weight
-        # of 1, and those weights would not move
-        state.step = 250
-        return m, state, make_finetune_train_step(m, opt, hp, lr)
+        return large_512_model(torch, dev, init, train=True, **overrides)
 
     def gens(seed):
-        return (torch.Generator(device=dev).manual_seed(seed), torch.Generator().manual_seed(seed))
+        return large_512_gens(torch, dev, seed)
 
     def step_counts(depth_steps):
         return {"K1": 0, "K2": 0, "K3": depth_steps, "K4": depth_steps, "K8": 0}
@@ -1638,7 +1705,7 @@ def phase9(torch, FA, dev):
     check(diff <= LOGIT_REL_BOUND * a_ref.abs().max().item(),
           "the L/512 attention-dropout forward disagrees with the plain attention of the "
           "same masks")
-    return launches
+    return launches, init
 
 
 # The trunk's dense layers as (K, N) = (in, out): ViT-B's qkv, proj, fc1, fc2
@@ -2132,6 +2199,480 @@ def phase13(torch, FA, dev):
           "a head_dim-80 model launched an attention kernel")
 
 
+# K5's query and key counts on the card: one query row, a tile-ragged 63, and
+# the shards of N = 1025 at S = 4 (257) and S = 2 (513); 65, 577 and 1025 keys
+# (1 mod 64: one valid key in the last k/v tile).
+CROSS_NQ = (1, 63, 257, 513)
+CROSS_NK = (65, 577, 1025)
+
+
+def cross_parts(got):
+    """(dq, dk, dv, dbias, dqvb) of K5's backward (dq, dkv, dbias, dqvb)."""
+    dq, dkv, dbias, dqvb = got
+    return (dq, *dkv.chunk(2, dim=-1), dbias, dqvb)
+
+
+def cross_plain_bwd(torch, FA, q, kv, bias, qvb, lse, g, scale, h, step=2):
+    """K5's two plain versions `step` images at a time: (dq, dk, dv, dbias,
+    dqvb)."""
+    c = q.shape[-1]
+    dq, dkv, dbias = [], [], None
+    for i in range(0, q.shape[0], step):
+        sl = slice(i, i + step)
+        dq_i, db_i, c_i = FA.cross_bwd_dq_plain(q[sl], kv[sl], bias, qvb, lse[sl], g[sl], scale, h)
+        dkv.append(FA.cross_bwd_dkv_plain(q[sl], kv[sl], bias, qvb, lse[sl], c_i, g[sl], scale, h))
+        dq.append(dq_i)
+        if db_i is not None:
+            dbias = db_i if dbias is None else dbias + db_i
+    dq, dkv = torch.cat(dq), torch.cat(dkv)
+    dqvb = FA.cross_qv_bias_grad(dq, dkv) if qvb is not None else None
+    return dq, dkv[..., :c], dkv[..., c:], dbias, dqvb
+
+
+def cross_counts(FA) -> dict:
+    return {"K5": FA.cross_qkv_attention.launches, "K5_bwd": FA.cross_qkv_attention_bwd.launches}
+
+
+def reset_cross_counts(FA) -> None:
+    FA.cross_qkv_attention.launches = FA.cross_qkv_attention_bwd.launches = 0
+
+
+def phase14(torch, FA, dev):
+    gen = torch.Generator(device=dev).manual_seed(14)
+    h, c, scale = 16, 1024, 64**-0.5
+    worst, n_cases = 0.0, 0
+    for dtype, nq, nk in itertools.product((torch.bfloat16, torch.float32), CROSS_NQ, CROSS_NK):
+        name = str(dtype)[6:]
+        q = torch.randn(2, nq, c, generator=gen, device=dev).to(dtype)
+        kv = torch.randn(2, nk, 2 * c, generator=gen, device=dev).to(dtype)
+        g = torch.randn(2, nq, c, generator=gen, device=dev).to(dtype)
+        bias = torch.randn(h, nq, nk, generator=gen, device=dev) * 0.5
+        qvb = torch.randn(3, c, generator=gen, device=dev) * 0.3
+        qvb[1] = 0.0
+        for has_bias, has_qvb, bounded in itertools.product((True, False), repeat=3):
+            b_ = bias if has_bias else None
+            q_ = qvb if has_qvb else None
+            tag = (f"{name} Nq={nq} Nk={nk} bias={has_bias:d} qv_bias={has_qvb:d} "
+                   f"bounded={bounded:d}")
+            before, before_s = cross_counts(FA), attention_counts(FA)
+            out, lse = FA.cross_qkv_attention(q, kv, b_, q_, scale, h, bounded_scores=bounded,
+                                              want_lse=True)
+            out_only = FA.cross_qkv_attention(q, kv, b_, q_, scale, h, bounded_scores=bounded)
+            got = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h)
+            again = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h)
+            after = cross_counts(FA)
+            check(after["K5"] == before["K5"] + 2 and after["K5_bwd"] == before["K5_bwd"] + 2
+                  and attention_counts(FA) == before_s,
+                  f"K5 was not launched twice each way, or K1-K4 were ({tag})")
+            ref, ref_lse = FA.cross_fwd_plain(q, kv, b_, q_, scale, h, bounded_scores=bounded)
+            ref_bwd = cross_plain_bwd(torch, FA, q, kv, b_, q_, lse, g, scale, h)
+            torch.cuda.synchronize()
+            tol = OUT_TOL[name]
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            check(torch.isfinite(out.float()).all().item() and out.shape == q.shape
+                  and out.dtype == dtype, f"K5 output is not finite [2, Nq, C] ({tag})")
+            check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+                  f"K5 output disagrees with the plain version ({tag}: {err:.3e})")
+            check(lse_err <= LSE_ATOL, f"K5 lse disagrees with the plain version ({tag})")
+            check(torch.equal(out, out_only), f"K5 output depends on want_lse ({tag})")
+            check(got[0].dtype == dtype and got[0].shape == q.shape and got[1].shape == kv.shape,
+                  f"K5 dq / dkv dtype or shape ({tag})")
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"K5's dq or dkv differs between two runs ({tag})")
+            abs_err, msg = held_bwd(torch, "K5", tag, cross_parts(got), ref_bwd, BWD_TOL[name])
+            worst, n_cases = max(worst, err, abs_err), n_cases + 1
+            if has_bias and has_qvb and not bounded:
+                print(f"  K5 {tag}: max|out-plain|={err:.3e} max|lse-plain|={lse_err:.3e}; "
+                      f"{msg}", flush=True)
+        del q, kv, g, bias, out, lse, got, again, ref, ref_bwd
+    print(f"  K5: {n_cases} cases within K1's and K2's bounds, dq and dkv bit-identical between "
+          f"two runs, worst max|plain diff| {worst:.3e}", flush=True)
+    check(FA.cross_qkv_attention(torch.randn(1, 1, c, device=dev), torch.randn(1, 1, 2 * c,
+                                 device=dev), None, None, scale, h).shape == (1, 1, c),
+          "K5 at one query row and one key")
+
+    # NaN planted right before and right behind q, kv, g and the lse changes
+    # no bit of out, lse, dq or dkv
+    for dtype, (nq, nk) in itertools.product((torch.bfloat16, torch.float32),
+                                             ((63, 577), (513, 1025))):
+        q = torch.randn(2, nq, c, generator=gen, device=dev).to(dtype)
+        kv = torch.randn(2, nk, 2 * c, generator=gen, device=dev).to(dtype)
+        g = torch.randn(2, nq, c, generator=gen, device=dev).to(dtype)
+        bias = torch.randn(h, nq, nk, generator=gen, device=dev) * 0.5
+        out, lse = FA.cross_qkv_attention(q, kv, bias, None, scale, h, bounded_scores=False,
+                                          want_lse=True)
+        got = FA.cross_qkv_attention_bwd(q, kv, bias, None, lse, g, scale, h)
+        f_q, f_kv, f_g, f_lse = (fenced(torch, t) for t in (q, kv, g, lse))
+        f_out, f_lse_out = FA.cross_qkv_attention(f_q, f_kv, bias, None, scale, h,
+                                                  bounded_scores=False, want_lse=True)
+        f_got = FA.cross_qkv_attention_bwd(f_q, f_kv, bias, None, f_lse, f_g, scale, h)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype)[6:]} Nq={nq} Nk={nk}"
+        check(torch.equal(out, f_out) and torch.equal(lse, f_lse_out),
+              f"K5 reads behind the end of q or kv ({tag})")
+        check(torch.equal(got[0], f_got[0]) and torch.equal(got[1], f_got[1])
+              and torch.isfinite(f_got[2]).all().item(),
+              f"K5's backward reads behind the end of q, kv, g or lse ({tag})")
+        print(f"  K5 {tag}: NaN planted around q, kv, g and lse changes no bit of out, lse, dq "
+              f"and dkv", flush=True)
+        del q, kv, g, bias, got, f_got, f_q, f_kv, f_g
+
+    # the S shards of K5 together against K3 and K4 of the whole sequence
+    for dtype, n, s in itertools.product((torch.bfloat16, torch.float32), (577, 1025), (2, 4)):
+        name = str(dtype)[6:]
+        qkv = torch.randn(2, n, 3 * c, generator=gen, device=dev).to(dtype)
+        g = torch.randn(2, n, c, generator=gen, device=dev).to(dtype)
+        bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
+        qvb = torch.randn(3, c, generator=gen, device=dev) * 0.3
+        qvb[1] = 0.0
+        out, lse = FA.fused_qkv_attention(qkv, bias, qvb, None, scale, h, bounded_scores=True,
+                                          want_lse=True)
+        dqkv, dbias, dqvb = FA.fused_qkv_attention_bwd(qkv, bias, qvb, lse, g, scale, h)
+        kv = qkv[..., c:].contiguous()
+        outs, dqs, dkv, dbias_rows, dqvb_sum = [], [], 0.0, [], 0.0
+        m = -(-n // s)
+        for r in range(s):
+            rows = slice(r * m, min((r + 1) * m, n))
+            q_r, b_r = qkv[:, rows, :c].contiguous(), bias[:, rows].contiguous()
+            o_r, l_r = FA.cross_qkv_attention(q_r, kv, b_r, qvb, scale, h, bounded_scores=True,
+                                              want_lse=True)
+            dq_r, dkv_r, db_r, dqvb_r = FA.cross_qkv_attention_bwd(
+                q_r, kv, b_r, qvb, l_r, g[:, rows].contiguous(), scale, h)
+            outs.append(o_r), dqs.append(dq_r), dbias_rows.append(db_r)
+            dkv, dqvb_sum = dkv + dkv_r.float(), dqvb_sum + dqvb_r
+        torch.cuda.synchronize()
+        tag = f"{name} N={n} S={s}"
+        o = torch.cat(outs, dim=1)
+        err = (o.float() - out.float()).abs().max().item()
+        check(torch.allclose(o.float(), out.float(), atol=OUT_TOL[name], rtol=OUT_TOL[name]),
+              f"K5's shards disagree with K3's output ({tag}: {err:.3e})")
+        tol = BWD_TOL[name]
+        parts = {"dq": (torch.cat(dqs, dim=1), dqkv[..., :c], tol["dqkv"]),
+                 "dkv": (dkv, dqkv[..., c:], tol["dqkv"]),
+                 "dbias": (torch.cat(dbias_rows, dim=1), dbias, tol["dbias"]),
+                 "dqvb": (dqvb_sum, dqvb, tol["dqvb"])}
+        msg = []
+        for part, (a, ref, bound_) in parts.items():
+            rel = _rel_err(a, ref)
+            msg.append(f"{part} rel={rel:.3e}")
+            check(rel <= bound_, f"K5's shards disagree with K4's {part} ({tag}: {rel:.3e})")
+        worst = max(worst, err)
+        print(f"  K5's {s} shards vs K3/K4 of the whole sequence, {tag}: max|out-K3|={err:.3e}; "
+              + ", ".join(msg), flush=True)
+        del qkv, g, bias, out, lse, dqkv, dbias, kv, outs, dqs, dkv, dbias_rows
+
+    # at every shape phase 15's path gives K5 (bf16, a bias, the q/v bias,
+    # bounded; Nk = 1025): evaluate() at B=16 (no lse) and the train step at
+    # B=8 (the lse and the backward), on rank 0's 513 query rows and rank 1's
+    # 512 (whole 64-row tiles, no query tail); the plain versions 4 images
+    # (forward) and 2 images (backward) at a time
+    n = 1025
+    for bsz, nq, train in ((16, 513, False), (16, 512, False), (8, 513, True), (8, 512, True)):
+        q = torch.randn(bsz, nq, c, generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn(bsz, n, 2 * c, generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn(h, nq, n, generator=gen, device=dev) * 0.5
+        qvb = torch.randn(3, c, generator=gen, device=dev) * 0.3
+        qvb[1] = 0.0
+        before = cross_counts(FA)
+        if train:
+            g = torch.randn(bsz, nq, c, generator=gen, device=dev).to(torch.bfloat16)
+            out, lse = FA.cross_qkv_attention(q, kv, bias, qvb, scale, h, bounded_scores=True,
+                                              want_lse=True)
+            got = FA.cross_qkv_attention_bwd(q, kv, bias, qvb, lse, g, scale, h)
+        else:
+            out = FA.cross_qkv_attention(q, kv, bias, qvb, scale, h, bounded_scores=True)
+        after = cross_counts(FA)
+        check(after["K5"] == before["K5"] + 1
+              and after["K5_bwd"] == before["K5_bwd"] + int(train), "K5 was not launched")
+        refs = [FA.cross_fwd_plain(q[i:i + 4], kv[i:i + 4], bias, qvb, scale, h,
+                                   bounded_scores=True) for i in range(0, bsz, 4)]
+        ref = torch.cat([r[0] for r in refs])
+        torch.cuda.synchronize()
+        tag = f"phase 15's {'train step' if train else 'evaluate()'} B={bsz} Nq={nq} Nk={n}"
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.isfinite(out.float()).all().item() and out.shape == q.shape,
+              f"K5 output is not finite [B, Nq, C] ({tag})")
+        check(torch.allclose(out.float(), ref.float(), atol=OUT_TOL["bfloat16"],
+                             rtol=OUT_TOL["bfloat16"]),
+              f"K5 output disagrees with the plain version ({tag}: {err:.3e})")
+        msg = ""
+        if train:
+            lse_err = (lse - torch.cat([r[1] for r in refs])).abs().max().item()
+            check(lse_err <= LSE_ATOL, f"K5 lse disagrees with the plain version ({tag})")
+            abs_err, msg = held_bwd(torch, "K5", tag, cross_parts(got), cross_plain_bwd(
+                torch, FA, q, kv, bias, qvb, lse, g, scale, h), BWD_TOL["bfloat16"])
+            worst = max(worst, abs_err)
+            msg = f" max|lse-plain|={lse_err:.3e}; {msg}"
+        worst = max(worst, err)
+        print(f"  K5 at {tag}: max|out-plain|={err:.3e}{msg}", flush=True)
+        del q, kv, bias, out, refs, ref
+        if train:
+            del lse, got, g
+
+    # one shard at the ViT-L/16 512 train shape (B=8, N=1025, H=16, bf16, bias,
+    # bounded, the lse kept) for S = 2 (Nq = 513) and S = 4 (Nq = 257), beside
+    # K3 (with the lse) and K4 of the whole sequence, the plain versions and
+    # one library call (scaled_dot_product_attention with the bias as a float
+    # mask, forward, and autograd's backward of it)
+    bsz, n = 8, 1025
+    qkv = torch.randn(bsz, n, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
+    g_full = torch.randn(bsz, n, c, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
+    kv = qkv[..., c:].contiguous()
+    _, lse_full = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=True,
+                                         want_lse=True)
+    fns, shards = {}, {}
+    for s in (2, 4):
+        nq = -(-n // s)
+        q = qkv[:, :nq, :c].contiguous()
+        b_r = bias[:, :nq].contiguous()
+        g = g_full[:, :nq].contiguous()
+        _, lse = FA.cross_qkv_attention(q, kv, b_r, None, scale, h, bounded_scores=True,
+                                        want_lse=True)
+        k_h = kv[..., :c].view(bsz, n, h, 64).transpose(1, 2)
+        v_h = kv[..., c:].view(bsz, n, h, 64).transpose(1, 2)
+        q_leaf = q.view(bsz, nq, h, 64).transpose(1, 2).detach().requires_grad_()
+        kv_leaves = (k_h.detach().requires_grad_(), v_h.detach().requires_grad_())
+        mask_leaf = b_r.to(torch.bfloat16).requires_grad_()
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            q_leaf, *kv_leaves, attn_mask=mask_leaf, scale=scale)
+        g_h = g.view(bsz, nq, h, 64).transpose(1, 2)
+        shards[s] = (q, b_r, g, lse, lib_out)
+        fns[f"S={s} forward"] = (lambda q=q, b_r=b_r: FA.cross_qkv_attention(
+            q, kv, b_r, None, scale, h, bounded_scores=True, want_lse=True))
+        fns[f"S={s} backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse: FA.cross_qkv_attention_bwd(
+            q, kv, b_r, None, lse, g, scale, h))
+        fns[f"S={s} plain forward"] = (lambda q=q, b_r=b_r: torch.cat([FA.cross_fwd_plain(
+            q[i:i + 4], kv[i:i + 4], b_r, None, scale, h, bounded_scores=True)[0]
+            for i in range(0, bsz, 4)]))
+        fns[f"S={s} plain backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse: cross_plain_bwd(
+            torch, FA, q, kv, b_r, None, lse, g, scale, h))
+        fns[f"S={s} library forward"] = (
+            lambda q=q, mask=mask_leaf.detach(): torch.nn.functional.scaled_dot_product_attention(
+                q.view(bsz, -1, h, 64).transpose(1, 2), k_h, v_h, attn_mask=mask, scale=scale))
+        fns[f"S={s} library backward"] = (
+            lambda lib_out=lib_out, q_leaf=q_leaf, kv_leaves=kv_leaves, mask_leaf=mask_leaf,
+            g_h=g_h: torch.autograd.grad(lib_out, (q_leaf, *kv_leaves, mask_leaf), g_h,
+                                         retain_graph=True))
+        got = fns[f"S={s} forward"]()[0].float()
+        ref = fns[f"S={s} plain forward"]().float()
+        err = (got - ref).abs().max().item()
+        check(torch.allclose(got, ref, atol=OUT_TOL["bfloat16"], rtol=OUT_TOL["bfloat16"]),
+              f"K5 disagrees with the plain version at the timed S={s} shard ({err:.3e})")
+        abs_err, msg = held_bwd(torch, "K5", f"timed S={s}", cross_parts(fns[f"S={s} backward"]()),
+                                fns[f"S={s} plain backward"](), BWD_TOL["bfloat16"])
+        worst = max(worst, err, abs_err)
+        print(f"  K5 at the S={s} shard B={bsz} Nq={nq} Nk={n}: max|out-plain|={err:.3e}; {msg}",
+              flush=True)
+    fns["K3 whole, with lse"] = lambda: FA.fused_qkv_attention(
+        qkv, bias, None, None, scale, h, bounded_scores=True, want_lse=True)
+    fns["K4 whole"] = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse_full, g_full, scale,
+                                                         h)
+    best, runs = in_turns(fns, 5)
+    print(f"  K5 one shard at B={bsz} N={n} H={h} D=64 bf16 (bias, bounded; the backward reuses "
+          f"the padded bias copies of the call before), ms per call: {runs}", flush=True)
+    q, b_r, g, lse, _ = shards[2]
+    nq = q.shape[1]
+    bound_ms, bound_by = bound(nbytes(q, kv, b_r) + nbytes(q, lse)  # forward: out, lse
+                               + nbytes(q, kv, g, lse, b_r) + nbytes(q, kv, b_r),  # backward
+                               14.0 * bsz * h * nq * n * 64, "bfloat16")
+    # "ms" and the others are forward + backward of the S = 2 shard
+    return {"max_abs_err": worst, "ms": best["S=2 forward"] + best["S=2 backward"],
+            "plain_ms": best["S=2 plain forward"] + best["S=2 plain backward"],
+            "library_ms": best["S=2 library forward"] + best["S=2 library backward"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "other_ms": dict(best)}
+
+
+def leaf_grad_norms(torch, model) -> dict:
+    """Each parameter's gradient norm (f32), by name."""
+    names, grads = zip(*((k, p.grad) for k, p in model.named_parameters()))
+    return dict(zip(names, torch.stack([g.float().norm() for g in grads]).cpu().tolist()))
+
+
+def seq2_rank(group, path):
+    """One rank of phase 15: ViT-L/16 512 with its tokens split over the
+    group, on the one card. Returns what the parent holds and prints."""
+    import torch
+
+    from uncertainty_vit_tpu_torch.evals.classification import evaluate, make_eval_forward
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
+    )
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    FA.BOUNDED_SCORES = True
+    saved = torch.load(path, map_location=dev)
+    u8, labels = saved["eval_images"], saved["eval_labels"]
+    x = normalize(to_float(u8), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)
+    model, _, _ = large_512_model(torch, dev, saved["init"], group)
+    out = {"rows": group.rows(model.cfg.num_patches + 1)}
+
+    def counts():
+        return {**attention_counts(FA), **cross_counts(FA)}
+
+    def reset():
+        reset_attention_counts(FA)
+        reset_cross_counts(FA)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    out["metrics"] = evaluate(model, iter([(x, labels)]))
+    torch.cuda.synchronize()
+    out["evaluate"] = counts()
+    out["peak_eval_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    fwd = make_eval_forward(model)
+    out["logits"] = fwd(x).cpu()
+    out["eval_ms"] = [host_ms(torch, lambda: fwd(x)) for _ in range(2)]
+    del model, fwd
+
+    tmodel, state, step = large_512_model(torch, dev, saved["init"], group, train=True)
+    xt, yt = saved["train_x"], saved["train_y"]
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ms = []
+    for i in range(2):
+        ms.append(step(state, xt, yt, *large_512_gens(torch, dev, 11 + i)))
+        if i == 0:  # the gradients after the group's sum, before step 2
+            out["grad_norms"] = leaf_grad_norms(torch, tmodel)
+    torch.cuda.synchronize()
+    out["train_step"] = counts()
+    out["peak_train_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["steps"] = [(float(m["loss"]), float(m["grad_norm"])) for m in ms]
+    out["finite"] = all(torch.isfinite(v).all().item() for v in tmodel.state_dict().values())
+    out["step_ms"] = [host_ms(torch, lambda: step(state, xt, yt, *large_512_gens(torch, dev, 20)))
+                      for _ in range(2)]
+
+    # the path's collectives, the least ms of 3 calls after one: a layer's k/v
+    # gather in evaluate() at batch 16, its backward (an all-reduce of the
+    # cotangent and a slice) at the train step's batch 8, and one 256 MB
+    # bucket of the gradient sum
+    n, c = tmodel.cfg.num_patches + 1, tmodel.cfg.embed_dim
+    del tmodel, state, step
+    rows, bs_eval = out["rows"][1] - out["rows"][0], x.shape[0]
+    kv_eval = torch.randn(bs_eval, rows, 2 * c, device=dev).to(torch.bfloat16)
+    kv_train = torch.randn(xt.shape[0], rows, 2 * c, device=dev).to(torch.bfloat16)
+    kv_train.requires_grad_()
+    gathered = seq.gather_tokens(kv_train, group, n)
+    cot = torch.randn_like(gathered)
+    bucket = torch.zeros(1 << 26, device=dev, requires_grad=True)
+    bucket.grad = torch.ones_like(bucket)
+
+    def least_ms(fn):
+        return min([host_ms(torch, fn) for _ in range(4)][1:])
+
+    out["collective_ms"] = {
+        f"k/v gather [{bs_eval}, {rows}, {2 * c}] bf16": least_ms(
+            lambda: seq.gather_tokens(kv_eval, group, n)),
+        f"its backward [{xt.shape[0]}, {n}, {2 * c}] bf16": least_ms(
+            lambda: torch.autograd.grad(gathered, kv_train, cot, retain_graph=True)),
+        "gradient sum, one bucket of 2^26 f32": least_ms(
+            lambda: seq.all_reduce_grads([bucket], group)),
+    }
+    return out
+
+
+def phase15(torch, FA, dev, init):
+    """ViT-L/16 512 token-sharded over two gloo ranks that share the card,
+    against the same model unsharded in this process."""
+    import tempfile
+
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
+    )
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    FA.BOUNDED_SCORES = True
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bs, bs_t = 16, 8
+    saved = {
+        "init": init,
+        "eval_images": torch.randint(0, 256, (bs, 512, 512, 3), generator=gen, device=dev,
+                                     dtype=torch.uint8),
+        "eval_labels": torch.randint(0, 1000, (bs,), generator=gen, device=dev),
+        "train_x": torch.randn(bs_t, 512, 512, 3, generator=gen, device=dev),
+        "train_y": torch.randint(0, 1000, (bs_t,), generator=gen, device=dev),
+    }
+    # the unsharded model on the same batch, weights and generator seeds
+    model, _, _ = large_512_model(torch, dev, init)
+    x = normalize(to_float(saved["eval_images"]), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)
+    ref_logits = make_eval_forward(model)(x)
+    del model
+    tmodel, state, step = large_512_model(torch, dev, init, train=True)
+    m = step(state, saved["train_x"], saved["train_y"], *large_512_gens(torch, dev, 11))
+    ref_loss, ref_gn = float(m["loss"]), float(m["grad_norm"])
+    ref_norms = leaf_grad_norms(torch, tmodel)
+    del tmodel, state, step, m
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase15.pt")
+        torch.save(saved, path)
+        del saved
+        t0 = time.perf_counter()
+        ranks = seq.run_ranks(seq2_rank, 2, path, timeout=900.0)
+        secs = time.perf_counter() - t0
+    depth = 24
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: token rows {res['rows']}; evaluate() launches {res['evaluate']}, "
+              f"{json.dumps(res['metrics'])}; 2 train steps launches {res['train_step']}; "
+              + "; ".join(f"loss {l:.6f} grad_norm {gn:.6f}" for l, gn in res["steps"]),
+              flush=True)
+        check(res["evaluate"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": depth, "K5_bwd": 0},
+              f"rank {r}'s evaluate() launched {res['evaluate']}, expected K5 {depth} only")
+        check(res["train_step"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 2 * depth,
+                                    "K5_bwd": 2 * depth},
+              f"rank {r}'s 2 train steps launched {res['train_step']}, expected K5 {depth} "
+              f"each way per step only")
+        check(all(math.isfinite(v) for v in res["metrics"].values()), "non-finite metric")
+        check(res["finite"] and all(math.isfinite(l) and math.isfinite(gn)
+                                    for l, gn in res["steps"]),
+              f"rank {r}'s train steps left a non-finite loss, grad norm or parameter")
+    a, b = ranks[0], ranks[1]
+    check(torch.equal(a["logits"], b["logits"]), "the two ranks' logits differ")
+    check(a["steps"] == b["steps"], "the two ranks' losses or grad norms differ")
+    ref = ref_logits.cpu()
+    diff, scale = (a["logits"] - ref).abs().max().item(), ref.abs().max().item()
+    loss, gn = a["steps"][0]
+    print(f"  sharded vs unsharded: logits max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio "
+          f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND}); step 1 loss {loss:.6f} / {ref_loss:.6f}, "
+          f"grad norm {gn:.6f} / {ref_gn:.6f}", flush=True)
+    check(a["logits"].shape == (bs, 1000) and diff <= LOGIT_REL_BOUND * scale,
+          "the sharded L/512 logits disagree with the unsharded model's")
+    check(abs(loss - ref_loss) <= LOSS_REL_BOUND * abs(ref_loss),
+          "the sharded L/512 step's loss disagrees with the unsharded step's")
+    check(abs(gn - ref_gn) <= GRAD_NORM_REL_BOUND * abs(ref_gn),
+          "the sharded L/512 step's grad norm disagrees with the unsharded step's")
+    # every leaf's gradient: equal on the two ranks after the group's sum (a
+    # leaf left unsummed keeps each rank's own share), and its norm against the
+    # unsharded step's (a leaf summed twice doubles)
+    check(list(a["grad_norms"]) == list(ref_norms) and a["grad_norms"] == b["grad_norms"],
+          "the two ranks' gradients differ after the group's sum")
+    rel = {k: abs(a["grad_norms"][k] - v) / v if v > 0 else float(a["grad_norms"][k] != 0)
+           for k, v in ref_norms.items()}
+    worst_leaf = max(rel, key=rel.get)
+    print(f"  step 1's gradients: equal on both ranks; worst leaf {worst_leaf}: norm "
+          f"{a['grad_norms'][worst_leaf]:.6e} / {ref_norms[worst_leaf]:.6e} unsharded, relative "
+          f"difference {rel[worst_leaf]:.3e} (bound {LEAF_GRAD_REL_BOUND}); the "
+          f"{len(rel)} leaves' median {sorted(rel.values())[len(rel) // 2]:.3e}", flush=True)
+    check(rel[worst_leaf] <= LEAF_GRAD_REL_BOUND,
+          f"the sharded L/512 step's gradient of {worst_leaf} disagrees with the unsharded step's")
+    for r, res in enumerate(ranks):
+        print(f"  rank {r} (information only: two ranks share one card and gather through host "
+              f"memory over gloo): eval forward at batch {bs} "
+              f"{[bs * 1000 / ms for ms in res['eval_ms']]} img/s, train step at batch {bs_t} "
+              f"{[bs_t * 1000 / ms for ms in res['step_ms']]} img/s; peak memory evaluate() "
+              f"{res['peak_eval_gib']:.2f} GiB, train {res['peak_train_gib']:.2f} GiB; "
+              f"collectives, ms each: {json.dumps(res['collective_ms'])}", flush=True)
+    print(f"  the two ranks ran {secs:.1f} s from start to end", flush=True)
+    return {path: {k: sum(r[path][k] for r in ranks) for k in ("K5", "K5_bwd")}
+            for path in ("evaluate", "train_step")}
+
+
 def main() -> int:
     import torch
 
@@ -2178,13 +2719,18 @@ def main() -> int:
                  dev)
     res[8] = run(8, "K4 against its plain versions, without and with the mask replay", phase8,
                  torch, FA, dev)
-    large = run(9, "ViT-L/16 512 evaluate(), finetune train steps, MC forward", phase9, torch,
-                FA, dev)
+    large, init_512 = run(9, "ViT-L/16 512 evaluate(), finetune train steps, MC forward", phase9,
+                          torch, FA, dev)
     res[10] = run(10, "K6 against its plain version, nearest and stochastic", phase10, torch, dev)
     res[11] = run(11, "K7 against its plain version", phase11, torch, dev)
     int8 = run(12, "ViT-B/16 224 with the int8 trunk: evaluate() and finetune train steps",
                phase12, torch, FA, dev, res[10]["other_ms"], res[11]["other_ms"])
     run(13, "a head_dim-80 model on the plain attention", phase13, torch, FA, dev)
+    res[14] = run(14, "K5 against its plain version and its shards against K3/K4", phase14,
+                  torch, FA, dev)
+    seq2 = run(15, "ViT-L/16 512 over two gloo ranks sharing the card: evaluate(), train steps",
+               phase15, torch, FA, dev, init_512)
+    del init_512
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -2209,6 +2755,10 @@ def main() -> int:
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}
     for n_ in large.values():
         check(n_["K1"] == 0 and n_["K2"] == 0, "a ViT-L/16 512 path launched K1 or K2")
+    # phase 15's paths ("seq2_large_": ViT-L/16 512 over two ranks), summed
+    # over the ranks: evaluate() over one batch, 2 train steps; K5's forward
+    # and backward launches together
+    k5_paths = {f"seq2_large_{path}": n["K5"] + n["K5_bwd"] for path, n in seq2.items()}
     pkg = "uncertainty_vit_tpu_torch/csrc/"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": pkg + "flash_attention_fwd.cu",
@@ -2234,6 +2784,12 @@ def main() -> int:
         {"name": "quant_wgrad", "route": "cuda", "source": pkg + "quant_wgrad.cu",
          "replaces": "uncertainty_vit_tpu/ops/quant.py:216",
          "launches": sum(k7_paths.values()), "launches_by_path": k7_paths, **res[11]},
+        {"name": "flash_attention_cross", "route": "cuda",
+         "source": pkg + "flash_attention_stream_fwd.cu",
+         "sources": [pkg + "flash_attention_stream_fwd.cu", pkg + "flash_attention_stream_bwd.cu"],
+         "replaces": "uncertainty_vit_tpu/ops/flash_attention.py:1136",
+         "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
+         "launches_by_kernel": {f"seq2_large_{path}": n for path, n in seq2.items()}, **res[14]},
     ]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")

@@ -6,8 +6,11 @@
 // :744-790 and :793-852; tile algebra `_stream_recompute_tile` :719-741),
 // reached through `_stream_bwd_impl` (:967-1039) from the custom VJP of
 // `fused_qkv_attention` when `_route` picks the streaming route (N = 1025 at
-// ViT-L/16 512). Per (image, head), from the forward's row log-sum-exp and
-// the output cotangent g:
+// ViT-L/16 512) (K4), and through `_cross_bwd_impl` (:1179-1250, the same two
+// bodies) from the custom VJP of `cross_qkv_attention` (K5): Nq query rows of
+// one sequence-parallel shard against all Nk gathered keys (Nq = Nk = N for
+// packed qkv). Per (image, head), from the forward's row log-sum-exp and the
+// output cotangent g:
 //   p   = exp(scale * q k^T + bias[h] - lse)   (no max or row-sum recompute)
 //   p_d = p * keep * 1/(1 - rate)              (the forward's mask replayed;
 //                                               p_d = p without dropout)
@@ -34,10 +37,11 @@
 //     cannot form c. So kernel 1 (query-major: a block owns 128 query rows of
 //     one (image, head), each warp 16 of them, and streams k/v in 64-row
 //     tiles, twice: pass A for c, pass B for ds, dq and dbias) writes c =
-//     rowsum(t), in f32 as the TPU kernels compute it, to a [B, H, N] buffer
-//     that kernel 2 reads beside the lse.
+//     rowsum(t), in f32 as the TPU kernels compute it, to a [B, H, Nq] buffer
+//     that kernel 2 reads beside the lse. Kernel 2's blocks own keys and walk
+//     all Nq query rows.
 //   - dbias sums over the batch and blocks run in no order: each block adds
-//     its ds pairs into a zeroed [H, N, ldb] f32 buffer with 8-byte atomics,
+//     its ds pairs into a zeroed [H, Nq, ldb] f32 buffer with 8-byte atomics,
 //     as the fused backward does. Measured on an H100 at B=8 the atomics,
 //     the buffer's memset and its unpadding copy cost 0.21 ms of 1.56; the
 //     alternative, a block that owns a (head, q tile, k tile) and loops over
@@ -52,9 +56,10 @@
 //   - dk and dv accumulate over all query tiles in f32 registers and are
 //     rounded once at the store (:845-852, :1032-1033).
 //   - Ragged tails feed sums here (:815-839): N = 577 and 1025 are 1 mod 64.
-//     Rows >= N of q, k, v and g are zero-filled in shared memory and never
-//     read from device memory, and p is forced to 0 outside N x N, so nothing
-//     behind a tensor's end reaches dk += ds^T q or dv += p_d^T g.
+//     Rows >= Nq of q and g and >= Nk of k and v are zero-filled in shared
+//     memory and never read from device memory, and p is forced to 0 outside
+//     Nq x Nk, so nothing behind a tensor's end reaches dk += ds^T q or
+//     dv += p_d^T g.
 //   - q, k, v, g and dq, dk, dv go through separate base pointers and row
 //     pitches, as the TPU kernels read q, k and v through separate refs
 //     (:1046-1052); the packed [B, N, 3C] layout is one choice of pointers.
@@ -64,7 +69,8 @@
 //     at 128 registers, two blocks per SM.
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row tiles.
 // The bias is read in column pairs from a copy with an even row pitch ldb,
-// and in kernel 2 from a transposed copy, so both kernels read along rows.
+// and in kernel 2 from a transposed copy of even pitch ldbt, so both kernels
+// read along rows.
 // The mask replay is philox::fragment_bits, query-major in kernel 1 and
 // key-major in kernel 2, in separate instantiations (kDrop).
 
@@ -85,23 +91,23 @@ struct BwdArgs {
   const void *q, *k, *v, *g;  // each at column 0 of head 0 in row 0 of image 0
   void *dq, *dk, *dv;
   long long ldq, ldkv, ldg, lddq, lddkv;  // row pitches, elements
-  const float* bias;     // [H, N, ldb] or null
-  const float* bias_t;   // its transpose, [H, N(key), ldb], or null
+  const float* bias;     // [H, Nq, ldb] or null
+  const float* bias_t;   // its transpose, [H, Nk, ldbt], or null
   const float* qv_bias;  // [3, C] or null
-  const float* lse;      // [B, H, N]
-  float* c;              // [B, H, N]: written by kernel 1, read by kernel 2
-  float* dbias;          // [H, N, ldb], zeroed by the caller, or null
+  const float* lse;      // [B, H, Nq]
+  float* c;              // [B, H, Nq]: written by kernel 1, read by kernel 2
+  float* dbias;          // [H, Nq, ldb], zeroed by the caller, or null
   const long long* seed;
-  int n, ldb, num_heads;
+  int nq, nk, ldb, ldbt, num_heads;
   float scale, inv_keep;
   uint32_t threshold;
 };
 
-// Bias pairs of the 16 x 16 tile at (r0, c0) of bm ([n][ldb], ldb even):
+// Bias pairs of the 16 x 16 tile at (r0, c0) of bm ([rows][ldb], ldb even):
 // bv[nb][i] holds columns c0 + nb*8 + 2t, +1 of row r0 + g + 8i, 0 where the
-// pair starts outside the n x n bias.
-__device__ __forceinline__ void load_bias(float2 (&bv)[2][2], const float* bm, int n, int ldb,
-                                          int r0, int c0) {
+// pair starts outside the rows x cols bias.
+__device__ __forceinline__ void load_bias(float2 (&bv)[2][2], const float* bm, int rows, int cols,
+                                          int ldb, int r0, int c0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -109,7 +115,7 @@ __device__ __forceinline__ void load_bias(float2 (&bv)[2][2], const float* bm, i
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + g + 8 * i, col = c0 + nb * 8 + 2 * t;
-      bv[nb][i] = (bm != nullptr && r < n && col < n)
+      bv[nb][i] = (bm != nullptr && r < rows && col < cols)
                       ? __ldg(reinterpret_cast<const float2*>(bm + size_t(r) * ldb + col))
                       : make_float2(0.0f, 0.0f);
     }
@@ -192,30 +198,30 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
   const int t = lane & 3;
   int b, tile, h;
   block_coords(b, tile, h);
-  const int n = a.n, ldb = a.ldb;
+  const int nq = a.nq, nk = a.nk, ldb = a.ldb;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
   const int r0 = tile * kOwnB + warp * 16;  // this warp's first query row
-  // a warp whose 16 rows all lie beyond N only helps with the copies (with
+  // a warp whose 16 rows all lie beyond Nq only helps with the copies (with
   // 128-row tiles at N = 1025 that is a ninth of all warps)
-  const bool active = r0 < n;
-  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * n * a.ldq + hc;
-  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * n * a.ldkv + hc;
-  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * n * a.ldkv + hc;
-  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * n * a.ldg + hc;
+  const bool active = r0 < nq;
+  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * nq * a.ldq + hc;
+  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * nk * a.ldkv + hc;
+  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * nk * a.ldkv + hc;
+  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_h = a.bias ? a.bias + size_t(h) * n * ldb : nullptr;
-  float* dbias_h = a.dbias ? a.dbias + size_t(h) * n * ldb : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * n;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * ldb : nullptr;
+  float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * ldb : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
   auto load_kv = [&](int stage, int k0) {
-    cp_async_tile64(ks + stage * kTileElems, k_img, a.ldkv, n, k0, threadIdx.x, kThreadsB);
-    cp_async_tile64(vs + stage * kTileElems, v_img, a.ldkv, n, k0, threadIdx.x, kThreadsB);
+    cp_async_tile64(ks + stage * kTileElems, k_img, a.ldkv, nk, k0, threadIdx.x, kThreadsB);
+    cp_async_tile64(vs + stage * kTileElems, v_img, a.ldkv, nk, k0, threadIdx.x, kThreadsB);
   };
   load_kv(0, 0);
   cp_async_commit();
@@ -223,8 +229,8 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
   // this warp's 16 query rows of q (+ q bias) and g, as A fragments
   bf16* xs = stage_w + warp * 2 * 16 * kLd;
   bf16* ys = xs + 16 * kLd;
-  load_slab_rows<bf16>(xs, kLd, q_img, a.ldq, qvb_q, n, r0, 16, lane, 32);
-  load_slab_rows<bf16>(ys, kLd, g_img, a.ldg, nullptr, n, r0, 16, lane, 32);
+  load_slab_rows<bf16>(xs, kLd, q_img, a.ldq, qvb_q, nq, r0, 16, lane, 32);
+  load_slab_rows<bf16>(ys, kLd, g_img, a.ldg, nullptr, nq, r0, 16, lane, 32);
   __syncwarp();
   uint32_t qf[kD / 16][4], gf[kD / 16][4];
   load_a_frags(xs, qf);
@@ -232,14 +238,14 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
   const int rows[2] = {r0 + g, r0 + g + 8};
   float lrow[2];  // log2 units
 #pragma unroll
-  for (int i = 0; i < 2; ++i) lrow[i] = rows[i] < n ? a.lse[bhn + rows[i]] * kLog2e : 0.0f;
+  for (int i = 0; i < 2; ++i) lrow[i] = rows[i] < nq ? a.lse[bhn + rows[i]] * kLog2e : 0.0f;
 
   float csum[2] = {0.0f, 0.0f};
   float dq[kD / 8][4];
 #pragma unroll
   for (int i = 0; i < kD / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
 
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_tiles = (nk + kTile - 1) / kTile;
   for (int it = 0; it < 2 * n_tiles; ++it) {  // pass A over the tiles, then pass B
     const bool pass_b = it >= n_tiles;
     const int stage = it & 1;
@@ -253,7 +259,9 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
       cp_async_wait<0>();
     }
     // each thread biases the v chunks it copied
-    if (qvb_v != nullptr) bias_tile64(vs + stage * kTileElems, qvb_v, n, k0, threadIdx.x, kThreadsB);
+    if (qvb_v != nullptr) {
+      bias_tile64(vs + stage * kTileElems, qvb_v, nk, k0, threadIdx.x, kThreadsB);
+    }
     __syncthreads();
     const bf16* kst = ks + stage * kTileElems;
     const bf16* vst = vs + stage * kTileElems;
@@ -264,14 +272,14 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
         for (int i = 0; i < 2; ++i) {
           csum[i] += __shfl_xor_sync(0xffffffffu, csum[i], 1);
           csum[i] += __shfl_xor_sync(0xffffffffu, csum[i], 2);
-          if (t == 0 && rows[i] < n) a.c[bhn + rows[i]] = csum[i];
+          if (t == 0 && rows[i] < nq) a.c[bhn + rows[i]] = csum[i];
         }
       }
 #pragma unroll 1
       for (int kc = 0; kc < kTile / 16; ++kc) {
         const int k16 = k0 + kc * 16;
         float2 bcur[2][2];
-        load_bias(bcur, bias_h, n, ldb, r0, k16);
+        load_bias(bcur, bias_h, nq, nk, ldb, r0, k16);
         float s[2][4], dp[2][4];
         mma_abt(s, qf, kst, kc * 16);
         mma_abt(dp, gf, vst, kc * 16);
@@ -282,7 +290,7 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
           for (int e = 0; e < 4; ++e) {
             const int key = k16 + nb * 8 + 2 * t + (e & 1);
             const float v = fmaf(bias_at(bcur, nb, e), kLog2e, s[nb][e] * sl2) - lrow[e >> 1];
-            s[nb][e] = (key < n && rows[e >> 1] < n) ? exp2f(v) : 0.0f;
+            s[nb][e] = (key < nk && rows[e >> 1] < nq) ? exp2f(v) : 0.0f;
           }
         }
         if (!pass_b) {  // c += rowsum(p_d * (g v^T))
@@ -305,11 +313,11 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
               }
             }
             // ds of columns 2t, 2t+1 in one 8-byte atomic; a pair starting at
-            // n - 1 adds 0 into the padding column
+            // Nk - 1 adds 0 into the padding column
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               const int key = k16 + nb * 8 + 2 * t;
-              if (dbias_h != nullptr && key < n && rows[i] < n) {
+              if (dbias_h != nullptr && key < nk && rows[i] < nq) {
                 atomicAdd(reinterpret_cast<float2*>(dbias_h + size_t(rows[i]) * ldb + key),
                           make_float2(dp[nb][2 * i], dp[nb][2 * i + 1]));
               }
@@ -322,8 +330,8 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   if (active) {
-    store_rows_bf16(static_cast<bf16*>(a.dq) + size_t(b) * n * a.lddq + hc, a.lddq, dq, a.scale, n,
-                    r0);
+    store_rows_bf16(static_cast<bf16*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, dq, a.scale,
+                    nq, r0);
   }
 }
 
@@ -347,19 +355,19 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
   const int t = lane & 3;
   int b, tile, h;
   block_coords(b, tile, h);
-  const int n = a.n, ldb = a.ldb;
+  const int nq = a.nq, nk = a.nk, ldbt = a.ldbt;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
   const int j0 = tile * kOwnB + warp * 16;  // this warp's first key row
-  const bool active = j0 < n;
-  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * n * a.ldq + hc;
-  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * n * a.ldkv + hc;
-  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * n * a.ldkv + hc;
-  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * n * a.ldg + hc;
+  const bool active = j0 < nk;
+  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * nq * a.ldq + hc;
+  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * nk * a.ldkv + hc;
+  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * nk * a.ldkv + hc;
+  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * n * ldb : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * n;
+  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * nk * ldbt : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
@@ -367,12 +375,12 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
 
   // q and g rows [q0, q0 + kTile) by cp.async, their lse and c by plain loads
   auto load_qg = [&](int stage, int q0) {
-    cp_async_tile64(qs + stage * kTileElems, q_img, a.ldq, n, q0, threadIdx.x, kThreadsB);
-    cp_async_tile64(gs + stage * kTileElems, g_img, a.ldg, n, q0, threadIdx.x, kThreadsB);
+    cp_async_tile64(qs + stage * kTileElems, q_img, a.ldq, nq, q0, threadIdx.x, kThreadsB);
+    cp_async_tile64(gs + stage * kTileElems, g_img, a.ldg, nq, q0, threadIdx.x, kThreadsB);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
-      lse_s[stage * kTile + threadIdx.x] = row < n ? a.lse[bhn + row] * kLog2e : 0.0f;
-      c_s[stage * kTile + threadIdx.x] = row < n ? a.c[bhn + row] : 0.0f;
+      lse_s[stage * kTile + threadIdx.x] = row < nq ? a.lse[bhn + row] * kLog2e : 0.0f;
+      c_s[stage * kTile + threadIdx.x] = row < nq ? a.c[bhn + row] : 0.0f;
     }
   };
   load_qg(0, 0);
@@ -381,8 +389,8 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
   // this warp's 16 key rows of k and v (+ v bias), as A fragments
   bf16* xs = stage_w + warp * 2 * 16 * kLd;
   bf16* ys = xs + 16 * kLd;
-  load_slab_rows<bf16>(xs, kLd, k_img, a.ldkv, nullptr, n, j0, 16, lane, 32);
-  load_slab_rows<bf16>(ys, kLd, v_img, a.ldkv, qvb_v, n, j0, 16, lane, 32);
+  load_slab_rows<bf16>(xs, kLd, k_img, a.ldkv, nullptr, nk, j0, 16, lane, 32);
+  load_slab_rows<bf16>(ys, kLd, v_img, a.ldkv, qvb_v, nk, j0, 16, lane, 32);
   __syncwarp();
   uint32_t kf[kD / 16][4], vf[kD / 16][4];
   load_a_frags(xs, kf);
@@ -396,7 +404,7 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
     dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.0f;
   }
 
-  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_tiles = (nq + kTile - 1) / kTile;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     const int q0 = it * kTile;
@@ -408,7 +416,9 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
       cp_async_wait<0>();
     }
     // each thread biases the q chunks it copied
-    if (qvb_q != nullptr) bias_tile64(qs + stage * kTileElems, qvb_q, n, q0, threadIdx.x, kThreadsB);
+    if (qvb_q != nullptr) {
+      bias_tile64(qs + stage * kTileElems, qvb_q, nq, q0, threadIdx.x, kThreadsB);
+    }
     __syncthreads();
     const bf16* qst = qs + stage * kTileElems;
     const bf16* gst = gs + stage * kTileElems;
@@ -422,7 +432,7 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
         // transposed tiles: element (nb, e) is key keys[e >> 1], query
         // q16 + nb*8 + 2t + (e & 1); its bias is bias_t[key][query]
         float2 bcur[2][2];
-        load_bias(bcur, bias_th, n, ldb, j0, q16);
+        load_bias(bcur, bias_th, nk, nq, ldbt, j0, q16);
         float s[2][4], dp[2][4];
         mma_abt(s, kf, qst, qc * 16);
         mma_abt(dp, vf, gst, qc * 16);
@@ -432,7 +442,7 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
           for (int e = 0; e < 4; ++e) {
             const int ql = qc * 16 + nb * 8 + 2 * t + (e & 1);  // query within the tile
             const float v = fmaf(bias_at(bcur, nb, e), kLog2e, s[nb][e] * sl2) - lse_t[ql];
-            const float p = (keys[e >> 1] < n && q0 + ql < n) ? exp2f(v) : 0.0f;
+            const float p = (keys[e >> 1] < nk && q0 + ql < nq) ? exp2f(v) : 0.0f;
             s[nb][e] = p;
             if constexpr (!kDrop) dp[nb][e] = p * (dp[nb][e] - c_t[ql]);
           }
@@ -457,10 +467,10 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArg
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   if (active) {  // the f32 sums over all query rows, rounded once
-    store_rows_bf16(static_cast<bf16*>(a.dk) + size_t(b) * n * a.lddkv + hc, a.lddkv, dk, a.scale,
-                    n, j0);
-    store_rows_bf16(static_cast<bf16*>(a.dv) + size_t(b) * n * a.lddkv + hc, a.lddkv, dv, 1.0f, n,
-                    j0);
+    store_rows_bf16(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale,
+                    nk, j0);
+    store_rows_bf16(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f,
+                    nk, j0);
   }
 }
 
@@ -480,21 +490,21 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   const int lane = threadIdx.x & 31;
   int b, tile, h;
   block_coords(b, tile, h);
-  const int n = a.n, ldb = a.ldb;
+  const int nq = a.nq, nk = a.nk, ldb = a.ldb;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
   const int q0 = tile * kOwnF;
   const int r0 = q0 + warp * kRowsF;
-  const bool active = r0 < n;
-  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * n * a.ldq + hc;
-  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * n * a.ldkv + hc;
-  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * n * a.ldkv + hc;
-  const float* g_img = static_cast<const float*>(a.g) + size_t(b) * n * a.ldg + hc;
+  const bool active = r0 < nq;
+  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
+  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * nk * a.ldkv + hc;
+  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * nk * a.ldkv + hc;
+  const float* g_img = static_cast<const float*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_h = a.bias ? a.bias + size_t(h) * n * ldb : nullptr;
-  float* dbias_h = a.dbias ? a.dbias + size_t(h) * n * ldb : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * n;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * ldb : nullptr;
+  float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * ldb : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
@@ -509,22 +519,22 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   const float* q_w = qs + warp * kRowsF * kLdF;
   const float* g_w = gs + warp * kRowsF * kLdF;
 
-  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, n, q0, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, n, q0, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, nq, q0, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, nq, q0, kOwnF, threadIdx.x, kThreadsF);
   for (int i = lane; i < kRowsF * kLdS; i += 32) o_w[i] = 0.0f;
 
   float lrow[kRowsF], csum[kRowsF];
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) {
-    lrow[r] = r0 + r < n ? a.lse[bhn + r0 + r] : 0.0f;
+    lrow[r] = r0 + r < nq ? a.lse[bhn + r0 + r] : 0.0f;
     csum[r] = 0.0f;  // pass A: this lane's share; pass B: the row's c
   }
 
   for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < n; k0 += kTile) {
+    for (int k0 = 0; k0 < nk; k0 += kTile) {
       __syncthreads();  // every warp is done with the previous k/v tile
-      load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, n, k0, kTile, threadIdx.x, kThreadsF);
-      load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, n, k0, kTile, threadIdx.x, kThreadsF);
+      load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, k0, kTile, threadIdx.x, kThreadsF);
+      load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, nk, k0, kTile, threadIdx.x, kThreadsF);
       __syncthreads();
       if (!active) continue;
 
@@ -538,7 +548,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
         for (int half = 0; half < 2; ++half) {
           const int j = lane + 32 * half;
           const int col = k0 + j;
-          const bool valid = row < n && col < n;
+          const bool valid = row < nq && col < nk;
           float s = s_w[r * kLdS + j] * a.scale;
           if (bias_h != nullptr && valid) s += bias_h[size_t(row) * ldb + col];
           const float p = valid ? expf(s - lrow[r]) : 0.0f;
@@ -567,13 +577,13 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
 #pragma unroll
       for (int r = 0; r < kRowsF; ++r) {
         csum[r] = warp_sum(csum[r]);
-        if (lane == 0 && r0 + r < n) a.c[bhn + r0 + r] = csum[r];
+        if (lane == 0 && r0 + r < nq) a.c[bhn + r0 + r] = csum[r];
       }
     }
   }
   if (active) {
-    store_rows_f32(static_cast<float*>(a.dq) + size_t(b) * n * a.lddq + hc, a.lddq, o_w, a.scale,
-                   n, r0);
+    store_rows_f32(static_cast<float*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, o_w, a.scale,
+                   nq, r0);
   }
 }
 
@@ -584,20 +594,20 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const int lane = threadIdx.x & 31;
   int b, tile, h;
   block_coords(b, tile, h);
-  const int n = a.n, ldb = a.ldb;
+  const int nq = a.nq, nk = a.nk, ldbt = a.ldbt;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
   const int jb = tile * kOwnF;
   const int j0 = jb + warp * kRowsF;  // this warp's first key row
-  const bool active = j0 < n;
-  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * n * a.ldq + hc;
-  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * n * a.ldkv + hc;
-  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * n * a.ldkv + hc;
-  const float* g_img = static_cast<const float*>(a.g) + size_t(b) * n * a.ldg + hc;
+  const bool active = j0 < nk;
+  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
+  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * nk * a.ldkv + hc;
+  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * nk * a.ldkv + hc;
+  const float* g_img = static_cast<const float*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * n * ldb : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * n;
+  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * nk * ldbt : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
@@ -615,18 +625,18 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const float* k_w = ks + warp * kRowsF * kLdF;
   const float* v_w = vs + warp * kRowsF * kLdF;
 
-  load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, n, jb, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, n, jb, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, jb, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, nk, jb, kOwnF, threadIdx.x, kThreadsF);
   for (int i = lane; i < 2 * kRowsF * kLdS; i += 32) dk_w[i] = 0.0f;  // dk_w and dv_w
 
-  for (int q0 = 0; q0 < n; q0 += kTile) {
+  for (int q0 = 0; q0 < nq; q0 += kTile) {
     __syncthreads();  // every warp is done with the previous q/g tile
-    load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, n, q0, kTile, threadIdx.x, kThreadsF);
-    load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, n, q0, kTile, threadIdx.x, kThreadsF);
+    load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, nq, q0, kTile, threadIdx.x, kThreadsF);
+    load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, nq, q0, kTile, threadIdx.x, kThreadsF);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < n ? a.lse[bhn + row] : 0.0f;
-      c_s[threadIdx.x] = row < n ? a.c[bhn + row] : 0.0f;
+      lse_s[threadIdx.x] = row < nq ? a.lse[bhn + row] : 0.0f;
+      c_s[threadIdx.x] = row < nq ? a.c[bhn + row] : 0.0f;
     }
     __syncthreads();
     if (!active) continue;
@@ -641,9 +651,9 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
       for (int half = 0; half < 2; ++half) {
         const int i = lane + 32 * half;
         const int query = q0 + i;
-        const bool valid = key < n && query < n;
+        const bool valid = key < nk && query < nq;
         float s = s_w[r * kLdS + i] * a.scale;
-        if (bias_th != nullptr && valid) s += bias_th[size_t(key) * ldb + query];
+        if (bias_th != nullptr && valid) s += bias_th[size_t(key) * ldbt + query];
         const float p = valid ? expf(s - lse_s[i]) : 0.0f;
         float pd = p;
         if constexpr (kDrop) {
@@ -660,14 +670,15 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
     __syncwarp();
   }
   if (active) {
-    store_rows_f32(static_cast<float*>(a.dk) + size_t(b) * n * a.lddkv + hc, a.lddkv, dk_w,
-                   a.scale, n, j0);
-    store_rows_f32(static_cast<float*>(a.dv) + size_t(b) * n * a.lddkv + hc, a.lddkv, dv_w, 1.0f,
-                   n, j0);
+    store_rows_f32(static_cast<float*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk_w,
+                   a.scale, nk, j0);
+    store_rows_f32(static_cast<float*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv_w, 1.0f,
+                   nk, j0);
   }
 }
 
-// Kernel 1 then kernel 2 on one stream.
+// Kernel 1 (blocks over the Nq query rows) then kernel 2 (over the Nk keys)
+// on one stream.
 template <typename K1, typename K2>
 cudaError_t launch(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t smem_dq,
                    size_t smem_dkv, const BwdArgs& a, int batch, cudaStream_t stream) {
@@ -677,11 +688,12 @@ cudaError_t launch(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t sme
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkv));
   if (err != cudaSuccess) return err;
-  const dim3 grid = block_grid(batch, (a.n + own - 1) / own, a.num_heads);
-  dq_kernel<<<grid, threads, smem_dq, stream>>>(a);
+  dq_kernel<<<block_grid(batch, (a.nq + own - 1) / own, a.num_heads), threads, smem_dq, stream>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<grid, threads, smem_dkv, stream>>>(a);
+  dkv_kernel<<<block_grid(batch, (a.nk + own - 1) / own, a.num_heads), threads, smem_dkv,
+               stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -691,13 +703,16 @@ extern "C" {
 
 // dtype: 0 = bf16, 1 = f32. q, k, v, g and dq, dk, dv point at column 0 of
 // head 0 in row 0 of image 0; rows lie ldq, ldkv (k and v), ldg, lddq, lddkv
-// (dk and dv) elements apart and an image is n consecutive rows. For packed
-// qkv and dqkv [B, N, 3C]: k = qkv + C, v = qkv + 2C, all pitches 3C; g is
-// [B, N, C]. lse [B, H, N] f32 from the forward; c [B, H, N] f32 scratch (the
-// row sums kernel 1 hands to kernel 2). bias and its transpose
-// (bias_t[h][key][query]) are [H, N, ldb] f32 with an even pitch ldb >= N,
-// zero in the padding; both null without a bias. dbias ([H, N, ldb] f32,
-// zeroed by the caller) may be null and is then not computed. qv_bias ([3, C]
+// (dk and dv) elements apart, and an image is nq consecutive rows of q, g and
+// dq and nk of k, v, dk and dv. For packed qkv and dqkv [B, N, 3C]: k = qkv +
+// C, v = qkv + 2C, all pitches 3C, nq = nk = N; g is [B, N, C]. For q and dq
+// [B, Nq, C] and packed kv and dkv [B, Nk, 2C]: ldq = lddq = C, ldkv = lddkv =
+// 2C. lse [B, H, Nq] f32 from the forward; c [B, H, Nq] f32 scratch (the row
+// sums kernel 1 hands to kernel 2). bias is [H, Nq, ldb] f32 with an even
+// pitch ldb >= Nk and its transpose (bias_t[h][key][query]) [H, Nk, ldbt] with
+// an even pitch ldbt >= Nq, zero in the padding; both null without a bias.
+// dbias ([H, Nq, ldb] f32, zeroed by the caller) may be null and is then not
+// computed. qv_bias ([3, C]
 // f32) may be null. seed (one int64 in device memory, the forward's) null
 // means no dropout; otherwise threshold and inv_keep are the forward's.
 // Returns the first failing launch's cudaError_t.
@@ -706,11 +721,12 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
                                     const void* lse, void* c, void* dq, void* dk, void* dv,
                                     void* dbias, const void* seed, long long ldq, long long ldkv,
                                     long long ldg, long long lddq, long long lddkv, int batch,
-                                    int n, int ldb, int num_heads, int dtype,
+                                    int nq, int nk, int ldb, int ldbt, int num_heads, int dtype,
                                     float scale, unsigned int threshold, float inv_keep,
                                     void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || ldb < n || ldb % 2 != 0 || num_heads < 1 ||
-      num_heads > 65535 || (n + 63) / 64 > 65535) {
+  if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || ldb < nk || ldb % 2 != 0 || ldbt < nq ||
+      ldbt % 2 != 0 || num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 ||
+      (nk + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdArgs a;
@@ -724,7 +740,7 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
   a.c = static_cast<float*>(c);
   a.dbias = static_cast<float*>(dbias);
   a.seed = static_cast<const long long*>(seed);
-  a.n = n, a.ldb = ldb, a.num_heads = num_heads;
+  a.nq = nq, a.nk = nk, a.ldb = ldb, a.ldbt = ldbt, a.num_heads = num_heads;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = a.seed != nullptr;

@@ -3,14 +3,18 @@
 // Replaces the TPU kernel `_stream_fwd_kernel` (uncertainty_vit_tpu/ops/
 // flash_attention.py:668-716), reached through `_stream_fwd_impl` (:922-964)
 // from `fused_qkv_attention` (:1369) when `_route` (:1361-1366) picks the
-// streaming route (N = 1025 at ViT-L/16 512). Per (image, head) it computes
-// what the fused forward computes:
+// streaming route (N = 1025 at ViT-L/16 512) (K3), and through
+// `_cross_fwd_impl` (:1136-1176) from `cross_qkv_attention` (:1253) (K5),
+// the local computation of sequence-parallel attention: the Nq query rows of
+// one shard against all Nk gathered keys. Per (image, head) it computes what
+// the fused forward computes, over Nq query rows and Nk keys (Nq = Nk = N for
+// packed qkv):
 //   s   = scale * q k^T (f32 accumulation) + bias[h]
 //   e   = exp(s - rowmax)            exact mode
 //       = exp(s)                     bounded mode (BOUNDED_SCORES)
 //   e   = e * keep * 1/(1 - rate)    with dropout, after the row sum
 //   out = (e @ v) * (1 / rowsum(e))
-//   lse = log rowsum(exp(s))         optional, f32 [B, H, N], of the
+//   lse = log rowsum(exp(s))         optional, f32 [B, H, Nq], of the
 //                                    undropped softmax
 // with an optional q/v bias added to q and v in the input dtype, and e
 // rounded to the input dtype before the product with v.
@@ -45,9 +49,10 @@
 //   - N = 577 and 1025 are 1 mod 64: the last q tile holds one valid row and
 //     the last k/v tile one valid column. Tail rows are zero-filled in shared
 //     memory and never read from device memory, tail columns get e = 0, and
-//     rows beyond N are never stored. (In the bf16 kernel, skipping the warps
-//     whose rows all lie beyond N cost more than it saved: the branch around
-//     the unrolled tile loop slowed every block.)
+//     rows beyond Nq are never stored: query rows are tested against Nq and
+//     keys against Nk. (In the bf16 kernel, skipping the warps whose rows all
+//     lie beyond Nq cost more than it saved: the branch around the unrolled
+//     tile loop slowed every block.)
 //   bf16: mma.sync m16n8k16 fed by ldmatrix; q fragments, scores and the
 //     output accumulator in registers; k/v tiles double-buffered by cp.async.
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row q tiles.
@@ -77,8 +82,9 @@ __global__ void __launch_bounds__(kWarpsQ * 32)
 stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int ldq, int ldkv, const float* __restrict__ bias,
                 const float* __restrict__ qv_bias, bf16* __restrict__ out, int ldo,
-                float* __restrict__ lse, int n, int num_heads, float scale, int bounded,
-                const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
+                float* __restrict__ lse, int nq, int nk, int num_heads, float scale,
+                int bounded, const long long* __restrict__ seed, uint32_t threshold,
+                float inv_keep) {
   constexpr int kThreads = kWarpsQ * 32;
   constexpr int kTileQ = kWarpsQ * 16;
   constexpr int kTileElems = kTileK * kLd;
@@ -106,8 +112,8 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = threadIdx.x; i < kTileK * 8; i += kThreads) {
       const int r = i >> 3, ch = (i & 7) * 8;
       const int row = k0 + r;
-      const bool ok = row < n;
-      const size_t at = (size_t(b) * n + (ok ? row : 0)) * ldkv + hc + ch;
+      const bool ok = row < nk;
+      const size_t at = (size_t(b) * nk + (ok ? row : 0)) * ldkv + hc + ch;
       const int off = stage * kTileElems + r * kLd + ch;
       cp_async16(smem_u32(ks + off), k + at, ok ? 16 : 0);
       cp_async16(smem_u32(vs + off), v + at, ok ? 16 : 0);
@@ -116,8 +122,8 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_kv(0, 0);
   cp_async_commit();
-  load_slab_rows<bf16>(qs, kLd, q + size_t(b) * n * ldq + hc, ldq, qv_bias ? qv_bias + hc : nullptr,
-                       n, q0, kTileQ, threadIdx.x, kThreads);
+  load_slab_rows<bf16>(qs, kLd, q + size_t(b) * nq * ldq + hc, ldq,
+                       qv_bias ? qv_bias + hc : nullptr, nq, q0, kTileQ, threadIdx.x, kThreads);
   __syncthreads();
 
   // q fragments (A operand) for the 4 k-steps of D = 64
@@ -131,8 +137,8 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l_r[2] = {0.0f, 0.0f};            // this thread's share of the row sums
   const float sl2 = scale * kLog2e;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float* bias_h = bias ? bias + size_t(h) * n * n : nullptr;
-  const int n_tiles = (n + kTileK - 1) / kTileK;
+  const float* bias_h = bias ? bias + size_t(h) * nq * nk : nullptr;
+  const int n_tiles = (nk + kTileK - 1) / kTileK;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int stage = j & 1;
@@ -147,7 +153,7 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qvb_v != nullptr) {  // each thread biases the v chunks it copied
       for (int i = threadIdx.x; i < kTileK * 8; i += kThreads) {
         const int r = i >> 3, ch = (i & 7) * 8;
-        if (k0 + r < n) add_qv_bias(vs + stage * kTileElems + r * kLd + ch, qvb_v + ch);
+        if (k0 + r < nk) add_qv_bias(vs + stage * kTileElems + r * kLd + ch, qvb_v + ch);
       }
     }
     __syncthreads();
@@ -178,10 +184,10 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int key = k0 + nb * 8 + 2 * t + (e & 1);
         const int row = rows[e >> 1];
         float sv = s[nb][e] * sl2;
-        if (bias_h != nullptr && key < n && row < n) {
-          sv = fmaf(bias_h[size_t(row) * n + key], kLog2e, sv);
+        if (bias_h != nullptr && key < nk && row < nq) {
+          sv = fmaf(bias_h[size_t(row) * nk + key], kLog2e, sv);
         }
-        sv = key < n ? sv : -INFINITY;
+        sv = key < nk ? sv : -INFINITY;
         s[nb][e] = sv;
         mx[e >> 1] = fmaxf(mx[e >> 1], sv);
       }
@@ -249,9 +255,9 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = rows[i];
-    if (row >= n) continue;
+    if (row >= nq) continue;
     const float inv = 1.0f / l;
-    bf16* dst = out + (size_t(b) * n + row) * ldo + hc + 2 * t;
+    bf16* dst = out + (size_t(b) * nq + row) * ldo + hc + 2 * t;
 #pragma unroll
     for (int db = 0; db < kD / 8; ++db) {
       *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
@@ -259,7 +265,7 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (lse != nullptr && t == 0) {
       // log sum exp(s) = m - log(1 / sum exp(s - m)); m = 0 when bounded
-      lse[(size_t(b) * num_heads + h) * n + row] = (bounded ? 0.0f : m_r[i] * kLn2) - logf(inv);
+      lse[(size_t(b) * num_heads + h) * nq + row] = (bounded ? 0.0f : m_r[i] * kLn2) - logf(inv);
     }
   }
 }
@@ -278,11 +284,11 @@ struct FwdArgs {
   const void *q, *k, *v;   // each at column 0 of head 0 in row 0 of image 0
   void* out;
   int ldq, ldkv, ldo;      // row pitches, elements
-  const float* bias;       // [H, N, N] or null
+  const float* bias;       // [H, Nq, Nk] or null
   const float* qv_bias;    // [3, C] or null
-  float* lse;              // [B, H, N] or null
+  float* lse;              // [B, H, Nq] or null
   const long long* seed;
-  int n, num_heads, bounded;
+  int nq, nk, num_heads, bounded;
   float scale, inv_keep;
   uint32_t threshold;
 };
@@ -295,12 +301,12 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   int b, qt, h;
   block_coords(b, qt, h);
   const int q0 = qt * kTileQF;
-  const int n = a.n;
+  const int nq = a.nq, nk = a.nk;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
-  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * n * a.ldq + hc;
-  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * n * a.ldkv + hc;
-  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * n * a.ldkv + hc;
+  const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
+  const float* k_img = static_cast<const float*>(a.k) + size_t(b) * nk * a.ldkv + hc;
+  const float* v_img = static_cast<const float*>(a.v) + size_t(b) * nk * a.ldkv + hc;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
@@ -313,24 +319,24 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   float* vs = ks + kTileK * kLdF;
   const float* q_w = qs + warp * kRowsF * kLdF;
 
-  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, a.qv_bias ? a.qv_bias + hc : nullptr, n, q0,
+  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, a.qv_bias ? a.qv_bias + hc : nullptr, nq, q0,
                         kTileQF, threadIdx.x, kThreadsF);
   for (int i = lane; i < kRowsF * kLdS; i += 32) o_w[i] = 0.0f;
 
-  const bool active = q0 + warp * kRowsF < n;
+  const bool active = q0 + warp * kRowsF < nq;
   float m[kRowsF], l[kRowsF];
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.0f;
   }
-  const float* bias_h = a.bias ? a.bias + size_t(h) * n * n : nullptr;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
 
-  for (int k0 = 0; k0 < n; k0 += kTileK) {
+  for (int k0 = 0; k0 < nk; k0 += kTileK) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, n, k0, kTileK, threadIdx.x, kThreadsF);
+    load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, k0, kTileK, threadIdx.x, kThreadsF);
     load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr,
-                          n, k0, kTileK, threadIdx.x, kThreadsF);
+                          nk, k0, kTileK, threadIdx.x, kThreadsF);
     __syncthreads();
     if (!active) continue;
 
@@ -338,15 +344,15 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
     __syncwarp();
 
     const int c0 = k0 + lane, c1 = k0 + lane + 32;
-    const bool v0 = c0 < n, v1 = c1 < n;
+    const bool v0 = c0 < nk, v1 = c1 < nk;
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
       const int row = q0 + warp * kRowsF + r;
       float s0 = s_w[r * kLdS + lane] * a.scale;
       float s1 = s_w[r * kLdS + lane + 32] * a.scale;
-      if (bias_h != nullptr && row < n) {
-        if (v0) s0 += bias_h[size_t(row) * n + c0];
-        if (v1) s1 += bias_h[size_t(row) * n + c1];
+      if (bias_h != nullptr && row < nq) {
+        if (v0) s0 += bias_h[size_t(row) * nk + c0];
+        if (v1) s1 += bias_h[size_t(row) * nk + c1];
       }
       float e0, e1;
       if (a.bounded) {
@@ -379,17 +385,17 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   }
 
   if (!active) return;
-  float* out_img = static_cast<float*>(a.out) + size_t(b) * n * a.ldo + hc;
+  float* out_img = static_cast<float*>(a.out) + size_t(b) * nq * a.ldo + hc;
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) {
     const int row = q0 + warp * kRowsF + r;
-    if (row < n) {
+    if (row < nq) {
       const float inv = 1.0f / l[r];
       float* dst = out_img + size_t(row) * a.ldo;
       dst[lane] = o_w[r * kLdS + lane] * inv;
       dst[lane + 32] = o_w[r * kLdS + lane + 32] * inv;
       if (a.lse != nullptr && lane == 0) {
-        a.lse[(size_t(b) * a.num_heads + h) * n + row] = (a.bounded ? 0.0f : m[r]) - logf(inv);
+        a.lse[(size_t(b) * a.num_heads + h) * nq + row] = (a.bounded ? 0.0f : m[r]) - logf(inv);
       }
     }
   }
@@ -401,10 +407,10 @@ cudaError_t launch_bf16(const FwdArgs& a, int batch, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBf16));
   if (err != cudaSuccess) return err;
-  const dim3 grid = block_grid(batch, (a.n + kWarpsQ * 16 - 1) / (kWarpsQ * 16), a.num_heads);
+  const dim3 grid = block_grid(batch, (a.nq + kWarpsQ * 16 - 1) / (kWarpsQ * 16), a.num_heads);
   kernel<<<grid, kWarpsQ * 32, kSmemBf16, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      a.ldq, a.ldkv, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.n,
+      a.ldq, a.ldkv, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.nq, a.nk,
       a.num_heads, a.scale, a.bounded, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
@@ -415,7 +421,7 @@ cudaError_t launch_f32(const FwdArgs& a, int batch, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemF32));
   if (err != cudaSuccess) return err;
-  kernel<<<block_grid(batch, (a.n + kTileQF - 1) / kTileQF, a.num_heads), kThreadsF, kSmemF32,
+  kernel<<<block_grid(batch, (a.nq + kTileQF - 1) / kTileQF, a.num_heads), kThreadsF, kSmemF32,
            stream>>>(a);
   return cudaGetLastError();
 }
@@ -425,19 +431,21 @@ cudaError_t launch_f32(const FwdArgs& a, int batch, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = bf16, 1 = f32. q, k, v point at column 0 of head 0 in row 0 of
-// image 0; rows lie ldq (q) and ldkv (k, v) elements apart and an image is n
-// consecutive rows; out likewise with ldo. For packed qkv [B, N, 3C]: q =
-// qkv, k = qkv + C, v = qkv + 2C, ldq = ldkv = 3C. bias ([H, N, N] f32),
-// qv_bias ([3, C] f32) and lse ([B, H, N] f32) may be null. seed (one int64 in
+// image 0; rows lie ldq (q) and ldkv (k, v) elements apart, and an image is nq
+// consecutive rows of q and nk of k and v; out likewise with ldo and nq. For
+// packed qkv [B, N, 3C]: q = qkv, k = qkv + C, v = qkv + 2C, ldq = ldkv = 3C,
+// nq = nk = N; for q [B, Nq, C] and packed kv [B, Nk, 2C]: k = kv, v = kv + C,
+// ldq = C, ldkv = 2C. bias ([H, Nq, Nk] f32), qv_bias ([3, C] f32) and lse
+// ([B, H, Nq] f32) may be null. seed (one int64 in
 // device memory) null means no dropout; otherwise threshold = min(int(rate * 2^32),
 // 2^32 - 1) and inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
 int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* qv_bias, void* out, void* lse,
                                     const void* seed, long long ldq, long long ldkv,
-                                    long long ldo, int batch, int n, int num_heads, int dtype,
-                                    float scale, int bounded, unsigned int threshold,
+                                    long long ldo, int batch, int nq, int nk, int num_heads,
+                                    int dtype, float scale, int bounded, unsigned int threshold,
                                     float inv_keep, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || (n + 63) / 64 > 65535 || num_heads < 1 ||
+  if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || (nq + 63) / 64 > 65535 || num_heads < 1 ||
       num_heads > 65535 || ldq > 0x7fffffffLL || ldkv > 0x7fffffffLL || ldo > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -448,7 +456,7 @@ int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
   a.qv_bias = static_cast<const float*>(qv_bias);
   a.lse = static_cast<float*>(lse);
   a.seed = static_cast<const long long*>(seed);
-  a.n = n, a.num_heads = num_heads, a.bounded = bounded;
+  a.nq = nq, a.nk = nk, a.num_heads = num_heads, a.bounded = bounded;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = a.seed != nullptr;

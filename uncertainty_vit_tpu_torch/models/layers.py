@@ -14,6 +14,12 @@ the module's train/eval mode, True or False overrides it, as the
 reference's modules take ``deterministic`` per call (the split-trunk
 MC-dropout forward runs some blocks with dropout and some without in one
 pass).
+
+Under sequence parallelism (``seq_shard``, a ``parallel.seq.SeqShard``; the
+reference's ``seq_mesh``) a block sees only this rank's token rows. Its
+draws are those of the unsharded model: a dropout mask is drawn for all n
+tokens and this rank's rows kept, a drop-path mask per image (the same on
+every rank, from generators of one seed).
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ from uncertainty_vit_tpu_torch.ops import philox, relpos
 from uncertainty_vit_tpu_torch.ops import quant as quant_ops
 from uncertainty_vit_tpu_torch.ops.attention import naive_attention
 from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
-from uncertainty_vit_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIM, fused_qkv_attention
+from uncertainty_vit_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIM, fused_qkv_attention, seq_sharded_qkv_attention,
+)
+from uncertainty_vit_tpu_torch.parallel import seq
 
 
 def _require_generator(generator: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -59,28 +68,41 @@ def drop_path(
 def dropout(
     x: torch.Tensor, rate: float, training: bool,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[seq.SeqShard] = None,
 ) -> torch.Tensor:
-    """Inverted dropout with its mask from ``generator`` (flax nn.Dropout)."""
+    """Inverted dropout with its mask from ``generator`` (flax nn.Dropout).
+    With ``shard``, x [B, rows, ...] holds its rows of n tokens: the mask is
+    drawn for [B, n, ...] and those rows kept."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=_require_generator(generator, "dropout"), device=x.device)
+    gen = _require_generator(generator, "dropout")
+    if shard is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        u = torch.rand((x.shape[0], shard.n) + x.shape[2:], generator=gen, device=x.device)
+        u = u[:, shard.start:shard.stop]
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
 def site_dropout(
     x: torch.Tensor, rate: float, active: bool,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[seq.SeqShard] = None,
 ) -> torch.Tensor:
     """The dropout of the attention-projection and MLP-fc2 sites (``_dropout``
     of the reference's models/layers.py:66-77). When no gradient is wanted
     (the MC-dropout evaluation) it is the fused kernel K8,
     ``ops.dropout.fused_dropout``, seeded from ``generator``; under grad
-    mode it is ``dropout``: K8 is forward only, as in the reference."""
+    mode it is ``dropout``: K8 is forward only, as in the reference. K8's
+    mask follows the position in x, so under a ``shard`` it is not
+    ported."""
     if not active or rate == 0.0:
         return x
     if torch.is_grad_enabled():
-        return dropout(x, rate, True, generator)
+        return dropout(x, rate, True, generator, shard)
+    if shard is not None:
+        raise NotImplementedError("MC-dropout under a seq group is not ported yet")
     seed = philox.draw_seed(_require_generator(generator, "dropout"), x.device)
     return fused_dropout(x.contiguous(), rate, seed)
 
@@ -206,12 +228,12 @@ class Mlp(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, drop: float = 0.0,
                  layer_id: int = 0, init_std: float = 0.02, init_trunc_abs: float = 2.0,
-                 dtype: torch.dtype = torch.float32, quant: str = "none", *,
-                 device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, quant: str = "none",
+                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         tn = I.trunc_normal(init_std, init_trunc_abs)
-        self.drop, self.dtype = drop, dtype
+        self.drop, self.dtype, self.seq_shard = drop, dtype, seq_shard
         self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, device=device,
                                    generator=generator)
         self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id), quant,
@@ -224,7 +246,7 @@ class Mlp(nn.Module):
         x = self.fc1(x, None, generator, active)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
         x = self.fc2(x, out_scale, generator, active)
-        return site_dropout(x, self.drop, active, generator)
+        return site_dropout(x, self.drop, active, generator, self.seq_shard)
 
 
 def _register_relpos_index(module: nn.Module, window_size: Tuple[int, int], device) -> None:
@@ -235,15 +257,21 @@ def _register_relpos_index(module: nn.Module, window_size: Tuple[int, int], devi
 
 
 def _table_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """[nrd, H] table gathered by the [N, N] index → contiguous [H, N, N]."""
-    n = index.shape[0]
-    return table[index.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1).contiguous()
+    """[nrd, H] table gathered by the [Nq, N] index (all rows of the [N, N]
+    one, or a shard's) → contiguous [H, Nq, N]."""
+    nq, n = index.shape
+    return table[index.reshape(-1)].reshape(nq, n, -1).permute(2, 0, 1).contiguous()
+
+
+def _query_rows(shard: Optional[seq.SeqShard]) -> slice:
+    return slice(None) if shard is None else slice(shard.start, shard.stop)
 
 
 class RelativePositionBias(nn.Module):
     """Shared-across-blocks rel-pos bias table (modeling_finetune.py:328-364).
 
-    Returns [num_heads, N+1, N+1] f32; zero-initialized like the reference."""
+    Returns [num_heads, N+1, N+1] f32, or only the query rows ``rows`` of it;
+    zero-initialized like the reference."""
 
     def __init__(self, window_size: Tuple[int, int], num_heads: int, *, device=None):
         super().__init__()
@@ -252,8 +280,8 @@ class RelativePositionBias(nn.Module):
         self.relative_position_bias_table = _param((nrd, num_heads), I.zeros, device, None)
         _register_relpos_index(self, window_size, device)
 
-    def forward(self) -> torch.Tensor:
-        return _table_bias(self.relative_position_bias_table, self.relative_position_index)
+    def forward(self, rows: slice = slice(None)) -> torch.Tensor:
+        return _table_bias(self.relative_position_bias_table, self.relative_position_index[rows])
 
 
 class Attention(nn.Module):
@@ -269,14 +297,22 @@ class Attention(nn.Module):
     on a CUDA tensor, its plain version on CPU), attention dropout included,
     from a seed drawn from the forward's generator; ``use_flash=False`` or
     another head width takes ``naive_attention``, as the reference's
-    ``use_kernel`` decides (:332-338)."""
+    ``use_kernel`` decides (:332-338).
+
+    With ``seq_shard`` x holds this rank's query rows and a ``rel_pos_bias``
+    those rows of the bias; the kernel route runs
+    ``seq_sharded_qkv_attention`` (:352-366; attention dropout raises in
+    training, as in the reference), the plain route gathers k/v through the
+    same ``seq.gather_tokens`` and runs ``naive_attention`` on the local
+    rows (the reference runs it replicated)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, window_size: Optional[Tuple[int, int]] = None,
                  attn_head_dim: Optional[int] = None, layer_id: int = 0,
                  init_std: float = 0.02, init_trunc_abs: float = 2.0,
-                 use_flash: bool = True, quant: str = "none", *, device=None, generator=None):
+                 use_flash: bool = True, quant: str = "none",
+                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
@@ -284,6 +320,7 @@ class Attention(nn.Module):
         self.num_heads, self.head_dim = num_heads, head_dim
         self.scale = qk_scale or head_dim**-0.5
         self.attn_drop, self.proj_drop, self.quant = attn_drop, proj_drop, quant
+        self.seq_shard = seq_shard
         self.use_kernel = use_flash and head_dim == KERNEL_HEAD_DIM
         tn = I.trunc_normal(init_std, init_trunc_abs)
 
@@ -318,14 +355,22 @@ class Attention(nn.Module):
             qkv = F.linear(x, self.qkv.weight.to(x.dtype),
                            None if qkv_bias is None else qkv_bias.to(x.dtype))
 
+        shard = self.seq_shard
         bias = None
         if self.relative_position_bias_table is not None:
-            bias = _table_bias(self.relative_position_bias_table, self.relative_position_index)
+            bias = _table_bias(self.relative_position_bias_table,
+                               self.relative_position_index[_query_rows(shard)])
         if rel_pos_bias is not None:
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
 
         drop = self.attn_drop if active else 0.0
-        if self.use_kernel:
+        if self.use_kernel and shard is not None:
+            if drop > 0.0:
+                raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel "
+                                 "dropout seeds are not defined across re-sharded grids)")
+            out = seq_sharded_qkv_attention(qkv, bias, None, self.scale, self.num_heads,
+                                            shard.group, shard.n)
+        elif self.use_kernel:
             # the seed of the in-kernel mask, as the reference draws it from
             # the "dropout" rng (models/layers.py:344-349)
             seed = None
@@ -334,12 +379,21 @@ class Attention(nn.Module):
                                         x.device)
             out = fused_qkv_attention(qkv, bias, None, seed, self.scale, self.num_heads, drop)
         else:
-            q, k, v = qkv.reshape(b, n, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
-            out = naive_attention(q, k, v, self.scale, bias, dropout_rate=self.attn_drop,
-                                  generator=generator, deterministic=not active)
+            c = qkv.shape[-1] // 3
+            kv = qkv[..., c:] if shard is None else seq.gather_tokens(qkv[..., c:], shard.group,
+                                                                     shard.n)
+
+            def heads(t):  # [B, rows, j·H·D] → [B, j·H, rows, D]
+                return t.reshape(b, t.shape[1], -1, self.head_dim).transpose(1, 2)
+
+            k, v = heads(kv).split(self.num_heads, dim=1)
+            out = naive_attention(heads(qkv[..., :c]), k, v, self.scale, bias,
+                                  dropout_rate=self.attn_drop, generator=generator,
+                                  deterministic=not active,
+                                  query_rows=None if shard is None else (shard.start, shard.n))
             out = out.transpose(1, 2).reshape(b, n, -1)
         out = self.proj(out, out_scale, generator, active)
-        return site_dropout(out, self.proj_drop, active, generator)
+        return site_dropout(out, self.proj_drop, active, generator, shard)
 
 
 class Block(nn.Module):
@@ -356,8 +410,8 @@ class Block(nn.Module):
                  attn_head_dim: Optional[int] = None, variant: str = "softmax",
                  layer_id: int = 1, init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  layer_norm_eps: float = 1e-6, use_flash: bool = True,
-                 dtype: torch.dtype = torch.float32, quant: str = "none", *,
-                 device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, quant: str = "none",
+                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
         super().__init__()
         if variant != "softmax":
             raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
@@ -368,12 +422,13 @@ class Block(nn.Module):
             dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale, attn_drop=attn_drop,
             proj_drop=drop, window_size=window_size, attn_head_dim=attn_head_dim,
             layer_id=layer_id, init_std=init_std, init_trunc_abs=init_trunc_abs,
-            use_flash=use_flash, quant=quant, device=device, generator=generator,
+            use_flash=use_flash, quant=quant, seq_shard=seq_shard, device=device,
+            generator=generator,
         )
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, layer_id=layer_id,
                        init_std=init_std, init_trunc_abs=init_trunc_abs, dtype=dtype,
-                       quant=quant, device=device, generator=generator)
+                       quant=quant, seq_shard=seq_shard, device=device, generator=generator)
         if init_values is not None and init_values > 0:
             self.gamma_1 = _param((dim,), I.constant(init_values), device, generator)
             self.gamma_2 = _param((dim,), I.constant(init_values), device, generator)

@@ -13,6 +13,14 @@ spectral-norm fc_norm, attention variants other than softmax and masking.
 ``ops.quant.int8_dense`` on [B, N, C] activations; the reference's flat
 [B·N, C] trunk (models/vit.py:118-135) works around layout copies of its
 compiler and computes the same.
+
+``seq_group`` (a ``parallel.seq.SeqGroup``; the reference's ``seq_mesh``,
+:41-45, 73-87, 184-185) splits the tokens over the ranks of a group: each
+rank embeds the whole image, keeps its token rows ``seq_group.rows(N)`` and
+runs the blocks on them (the attention gathers k/v over the group); the
+pooling sums over the group, and the head runs on every rank alike, so the
+logits come out equal on every rank. The train step sums the gradients of
+``token_parameters()`` over the group.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.config import ViTConfig
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.layers import (
-    Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, dropout, layer_norm,
+    Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, _query_rows, dropout,
+    layer_norm,
 )
+from uncertainty_vit_tpu_torch.parallel import seq
 
 
 class ViTBackbone(nn.Module):
@@ -46,14 +56,17 @@ class ViTBackbone(nn.Module):
     no dropout of their own (``cfg.dropout_from_block >= mc_split``)."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 seq_group: Optional[seq.SeqGroup] = None):
         super().__init__()
         device = resolve_device(device)
         if cfg.has_masking:
             raise NotImplementedError("token masking is not ported yet")
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.seq_group = cfg, dtype, seq_group
+        # this rank's token rows under a seq group
+        self.seq_shard = None if seq_group is None else seq_group.shard(cfg.num_patches + 1)
         tn = I.trunc_normal(cfg.init_std, cfg.init_trunc_abs)
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, cfg.embed_dim, dtype,
                                       device=device, generator=generator)
@@ -79,22 +92,39 @@ class ViTBackbone(nn.Module):
                 variant=cfg.attn_variant, layer_id=i + 1, init_std=cfg.init_std,
                 init_trunc_abs=cfg.init_trunc_abs, layer_norm_eps=cfg.layer_norm_eps,
                 use_flash=cfg.use_flash_attention, dtype=dtype, quant=cfg.quant,
-                device=device, generator=generator,
+                seq_shard=self.seq_shard, device=device, generator=generator,
             )
             for i in range(cfg.depth)
         )
+        # every parameter registered so far acts on token rows; those a
+        # subclass adds after this (the pooled feature's norm, the head) do not
+        self._token_names = frozenset(name for name, _ in self.named_parameters())
+
+    def token_parameters(self) -> List[nn.Parameter]:
+        """The parameters the backbone registers (embedding, rel-pos tables,
+        blocks), used before the pooling. Under a seq group each rank's
+        gradient of them covers only its token rows; those of the norm and
+        head after the pooling are whole on every rank."""
+        return [p for name, p in self.named_parameters() if name in self._token_names]
 
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
         active = _active(self, deterministic)
+        shard = self.seq_shard
+        if shard is not None and mc_samples > 0:
+            raise NotImplementedError("MC-dropout under a seq group is not ported yet")
         x = self.patch_embed(images.to(self.dtype))
         b, _, c = x.shape
         x = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, c), x], dim=1)
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(self.dtype)
         x = dropout(x, self.pos_drop, active, generator)
-        rel_pos_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
+        if shard is not None:  # this rank's token rows
+            x = x[:, shard.start:shard.stop].contiguous()
+        # the shared bias of this rank's query rows: one tensor for every block
+        rel_pos_bias = (self.rel_pos_bias(_query_rows(shard)) if self.rel_pos_bias is not None
+                        else None)
         layer_xs: List[torch.Tensor] = []
         fc_features: List[torch.Tensor] = []
         for i, blk in enumerate(self.blocks):
@@ -114,11 +144,12 @@ class VisionTransformer(ViTBackbone):
     pooled feature → linear head. Images are NHWC; logits are float32."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 seq_group: Optional[seq.SeqGroup] = None):
         if cfg.head_type != "linear" or cfg.sngp_fc_norm:
             raise NotImplementedError("only the linear head is ported yet")
         device = resolve_device(device)
-        super().__init__(cfg, dtype, device=device, generator=generator)
+        super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group)
         c = cfg.embed_dim
         self.layer_log_weights = (
             _param((cfg.depth,), I.zeros, device, generator) if cfg.learn_layer_weights else None
@@ -157,12 +188,33 @@ class VisionTransformer(ViTBackbone):
             logits = logits.reshape(mc_samples, images.shape[0], -1)
         return logits
 
+    def _patch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of the patch tokens (all but token 0). Under a seq group:
+        the f32 sum of this rank's patch rows, summed over the group, over
+        N − 1, in x's dtype."""
+        shard = self.seq_shard
+        if shard is None:
+            return x[:, 1:].mean(dim=1)
+        rows = x[:, 1:] if shard.start == 0 else x
+        total = seq.all_reduce_sum(rows.sum(dim=1, dtype=torch.float32), shard.group)
+        return (total / (shard.n - 1)).to(x.dtype)
+
+    def _token0(self, x: torch.Tensor) -> torch.Tensor:
+        """Token 0 (cls): rank 0's, handed to every rank of a seq group."""
+        shard = self.seq_shard
+        if shard is None:
+            return x[:, 0]
+        # elsewhere the sum of no rows: zero, but a function of x, so that every
+        # rank's backward runs through its blocks and meets the same collectives
+        t = x[:, :1 if shard.start == 0 else 0].sum(dim=1, dtype=torch.float32)
+        return seq.all_reduce_sum(t, shard.group).to(x.dtype)
+
     def _pool(self, x: torch.Tensor, layer_xs: List[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         if cfg.learn_layer_weights:
             # softmax-weighted combination of per-layer pooled features
             # (modeling_finetune.py:499-510)
-            pooled = [lx[:, 1:].mean(dim=1) if cfg.use_mean_pooling else lx[:, 0]
+            pooled = [self._patch_mean(lx) if cfg.use_mean_pooling else self._token0(lx)
                       for lx in layer_xs]
             if cfg.layernorm_before_combine:
                 pooled = [F.layer_norm(p.float(), p.shape[-1:], eps=1e-5) for p in pooled]
@@ -170,7 +222,7 @@ class VisionTransformer(ViTBackbone):
             weights = torch.softmax(self.layer_log_weights, dim=0).to(stacked.dtype)
             return torch.einsum("bcd,d->bc", stacked, weights)
         if cfg.use_mean_pooling:
-            t = x[:, 1:].mean(dim=1)
+            t = self._patch_mean(x)
             if self.fc_norm is None:  # remove_final_norm (run_class_finetuning.py:524-527)
                 return t
             y = layer_norm(self.fc_norm, t)
@@ -178,5 +230,6 @@ class VisionTransformer(ViTBackbone):
             # flax's LayerNorm does with nothing f32 to promote against
             return y if self.fc_norm.elementwise_affine else y.to(t.dtype)
         if self.norm is None:
-            return x[:, 0]
-        return layer_norm(self.norm, x)[:, 0]
+            return self._token0(x)
+        # LayerNorm acts per token: norm(x)[:, 0] is norm(x[:, 0])
+        return layer_norm(self.norm, self._token0(x))

@@ -9,7 +9,7 @@ and sinkformer variants are not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +24,8 @@ def attention_scores(
     scale: float,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """[B, H, N, D] q/k → [B, H, N, N] f32 scores with optional bias add.
+    """[B, H, Nq, D] q, [B, H, Nk, D] k → [B, H, Nq, Nk] f32 scores with
+    optional bias add.
 
     q is scaled in its own dtype; the product of the (exactly upcast)
     operands is taken in f32, as the reference's
@@ -46,12 +47,16 @@ def naive_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    query_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Unfused attention: the correctness reference.
 
-    q, k, v: [B, H, N, D]. bias: broadcastable to [B, H, N, N]. Returns
-    [B, H, N, D] in v.dtype. Probabilities are computed in float32. The
-    dropout mask comes from ``generator``, never from the global one."""
+    q: [B, H, Nq, D], k, v: [B, H, Nk, D] (Nq = Nk = N in self-attention).
+    bias: broadcastable to [B, H, Nq, Nk]. Returns [B, H, Nq, D] in v.dtype.
+    Probabilities are computed in float32. The dropout mask comes from
+    ``generator``, never from the global one; with ``query_rows`` = (start,
+    n), q holds rows [start, start + Nq) of n queries, and the mask is drawn
+    for all n rows and those kept, as the unsharded attention draws it."""
     if variant != "softmax":
         raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
     probs = softmax_probs(attention_scores(q, k, scale, bias))
@@ -59,7 +64,13 @@ def naive_attention(
         if generator is None:
             raise ValueError("attention dropout draws from an explicit torch.Generator; "
                              "pass generator=")
-        u = torch.rand(probs.shape, generator=generator, device=probs.device)
+        b, h, nq, nk = probs.shape
+        if query_rows is None:
+            u = torch.rand(probs.shape, generator=generator, device=probs.device)
+        else:
+            start, n = query_rows
+            u = torch.rand((b, h, n, nk), generator=generator,
+                           device=probs.device)[:, :, start:start + nq]
         keep = u < 1.0 - dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())

@@ -1,5 +1,6 @@
 """Fused multi-head attention over packed qkv: forward (K1, K3) and backward
-(K2, K4).
+(K2, K4); attention of local query rows against gathered keys (K5), and the
+sequence-parallel attention built on it.
 
 Counterpart of ``fused_qkv_attention`` in uncertainty_vit_tpu/ops/
 flash_attention.py (:1369-1424: the ``jax.custom_vjp`` over ``_fwd_kernel``
@@ -33,6 +34,17 @@ When grad mode is on and an input requires grad, the call goes through
 or K3 with the row log-sum-exp, its backward K2 or K4, which rebuild the
 probabilities from that lse. Otherwise only the forward runs.
 
+``cross_qkv_attention`` (:1253-1288) is the local computation of token-
+(sequence-)parallel attention: q [B, Nq, C], one shard's query rows, against
+packed kv [B, Nk, 2C], all keys gathered. Its kernels are K3's and K4's own
+entries given two token counts (K5, as ``_cross_fwd_impl`` :1136 and
+``_cross_bwd_impl`` :1179 point the streaming bodies at two arrays), counted
+on ``cross_qkv_attention.launches`` and ``cross_qkv_attention_bwd.launches``;
+on a CPU tensor ``cross_fwd_plain`` / ``cross_bwd_dq_plain`` /
+``cross_bwd_dkv_plain`` run, the same plain functions as K3's and K4's.
+``seq_sharded_qkv_attention`` (:1291-1358) gathers k/v over a
+``parallel.seq.SeqGroup`` and runs it.
+
 Attention dropout (``dropout_rate > 0``) runs inside both kernels
 (``_dropout_mask`` :156-162, applied at :233-234 and replayed at :298-301):
 the keep mask is a pure function of the seed and of each entry's (image,
@@ -51,6 +63,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from uncertainty_vit_tpu_torch.ops import _native, philox
+from uncertainty_vit_tpu_torch.parallel import seq
 
 # Skip the softmax max pass: exp(s)/Σexp(s) equals the max-subtracted
 # softmax whenever exp(s) does not overflow f32 (|s| ≲ 88). Safe for trained
@@ -100,19 +113,37 @@ def fused_qkv_attention_plain(
     ``seed``, after the row sum (the lse is the undropped softmax's); they
     are rounded to the input dtype before the product with v; the output
     scaled by 1/Σe."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    dt = qkv.dtype
-    q, k, v = qkv.split(c, dim=-1)
-    if qv_bias is not None:
-        q = q + qv_bias[0].to(dt)
-        v = v + qv_bias[2].to(dt)
+    return _attention_plain(*_split_qkv(qkv), bias, qv_bias, scale, num_heads, bounded_scores,
+                            seed, dropout_rate, image0)
 
-    def heads(t):
-        return t.reshape(b, n, num_heads, d).transpose(1, 2).float()
 
-    q, k, v = heads(q), heads(k), heads(v)
+def _split_qkv(qkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return qkv.split(qkv.shape[-1] // 3, dim=-1)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, N, H·D] → [B, H, N, D] f32."""
+    b, n, c = t.shape
+    return t.reshape(b, n, num_heads, c // num_heads).transpose(1, 2).float()
+
+
+def _qv_biased(q, v, qv_bias):
+    """q and v with the q/v bias rows added in their dtype."""
+    if qv_bias is None:
+        return q, v
+    return q + qv_bias[0].to(q.dtype), v + qv_bias[2].to(v.dtype)
+
+
+def _attention_plain(q, k, v, bias, qv_bias, scale, num_heads, bounded_scores, seed,
+                     dropout_rate, image0):
+    """The forward's plain version on q [B, Nq, C] and k, v [B, Nk, C]:
+    (out [B, Nq, C], lse [B, H, Nq] f32). One function for K1, K3 (Nq = Nk)
+    and K5."""
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    dt = q.dtype
+    q, v = _qv_biased(q, v, qv_bias)
+    q, k, v = _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
@@ -126,16 +157,16 @@ def fused_qkv_attention_plain(
         r = 1.0 / e.sum(dim=-1, keepdim=True)
         lse = m - torch.log(r)
     if dropout_rate > 0.0:
-        e = e * _keep_scale(seed, dropout_rate, b, num_heads, n, image0)
+        e = e * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, image0)
     out = torch.matmul(e.to(dt).float(), v) * r
-    return out.transpose(1, 2).reshape(b, n, c).to(dt), lse[..., 0]
+    return out.transpose(1, 2).reshape(b, nq, c).to(dt), lse[..., 0]
 
 
-def _keep_scale(seed: torch.Tensor, rate: float, b: int, num_heads: int, n: int,
+def _keep_scale(seed: torch.Tensor, rate: float, b: int, num_heads: int, nq: int, nk: int,
                 image0: int = 0) -> torch.Tensor:
-    """[B, H, N, N] f32: 1/(1 − rate) where the attention entry of images
+    """[B, H, Nq, Nk] f32: 1/(1 − rate) where the attention entry of images
     [image0, image0 + B) is kept, 0 where it is dropped."""
-    bits = philox.attention_bits(seed, b, num_heads, n, n, image0=image0)
+    bits = philox.attention_bits(seed, b, num_heads, nq, nk, image0=image0)
     return philox.keep_scale(bits, rate)
 
 
@@ -148,30 +179,25 @@ def reduce_qv_bias_grad(dqkv: torch.Tensor) -> torch.Tensor:
     return dqvb * torch.tensor([1.0, 0.0, 1.0], device=dqkv.device)[:, None]
 
 
-def _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
+def _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
     """What every backward kernel recomputes from the saved lse (``_bwd_kernel``
-    :291-303, ``_stream_recompute_tile`` :719-741), for whole rows: the f32
-    head slabs q, k, g [B, H, N, D] (q and v with the q/v bias added in the
-    input dtype), p = exp(s − lse), p_d = p·mask (p itself without dropout)
-    and t = (g vᵀ)·p_d. Products take the (exactly upcast) operands in f32."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    dt = qkv.dtype
-    q, k, v = qkv.split(c, dim=-1)
-    if qv_bias is not None:
-        q = q + qv_bias[0].to(dt)
-        v = v + qv_bias[2].to(dt)
-
-    def heads(t):
-        return t.reshape(b, n, num_heads, d).transpose(1, 2).float()
-
-    q, k, v, gh = heads(q), heads(k), heads(v), heads(g.to(dt))
+    :291-303, ``_stream_recompute_tile`` :719-741), for whole rows of q
+    [B, Nq, C] against k, v [B, Nk, C]: the f32 head slabs q, g [B, H, Nq, D]
+    and k [B, H, Nk, D] (q and v with the q/v bias added in the input dtype),
+    p = exp(s − lse), p_d = p·mask (p itself without dropout) and t =
+    (g vᵀ)·p_d. Products take the (exactly upcast) operands in f32."""
+    b, nq, _ = q.shape
+    nk = k.shape[1]
+    dt = q.dtype
+    q, v = _qv_biased(q, v, qv_bias)
+    q, k, v, gh = (_heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
+                   _heads(g.to(dt), num_heads))
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
     p = torch.exp(s - lse.float()[..., None])
-    p_d = p * _keep_scale(seed, dropout_rate, b, num_heads, n, image0) if dropout_rate > 0.0 else p
+    p_d = (p * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, image0)
+           if dropout_rate > 0.0 else p)
     t = torch.matmul(gh, v.transpose(-1, -2)) * p_d
     return q, k, gh, p, p_d, t
 
@@ -207,8 +233,8 @@ def fused_qkv_attention_bwd_plain(
     ds_cᵀ·q·scale with ds_c = ds cast to the input dtype; dbias = Σ_b ds in
     f32. Products take the (exactly upcast) operands in f32."""
     dt = qkv.dtype
-    q, k, gh, p, p_d, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
-                                     dropout_rate, image0)
+    q, k, gh, p, p_d, t = _recompute(*_split_qkv(qkv), bias, qv_bias, lse, g, scale, num_heads,
+                                     seed, dropout_rate, image0)
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
     ds = t - p * t.sum(dim=-1, keepdim=True)
     ds_c = ds.to(dt).float()
@@ -240,12 +266,19 @@ def stream_bwd_dq_plain(
     which the second kernel cannot form (it never sees a whole row) and
     takes from here; ds = t − p·c, dq = ds_c·k·scale with ds_c = ds rounded
     to the input dtype. ``image0`` as in the forward's plain version."""
-    _, k, _, p, _, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
-                                  dropout_rate, image0)
+    return _bwd_dq_plain(*_split_qkv(qkv), bias, qv_bias, lse, g, scale, num_heads, seed,
+                         dropout_rate, image0)
+
+
+def _bwd_dq_plain(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
+    """The first backward kernel's plain version on q [B, Nq, C] and k, v
+    [B, Nk, C]: (dq [B, Nq, C], dbias [H, Nq, Nk] or None, c [B, H, Nq])."""
+    _, kh, _, p, _, t = _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed,
+                                   dropout_rate, image0)
     c = t.sum(dim=-1)
     ds = t - p * c[..., None]
-    dq = torch.matmul(ds.to(qkv.dtype).float(), k) * scale
-    return _tokens(dq, qkv.dtype), ds.sum(dim=0) if bias is not None else None, c
+    dq = torch.matmul(ds.to(q.dtype).float(), kh) * scale
+    return _tokens(dq, q.dtype), ds.sum(dim=0) if bias is not None else None, c
 
 
 def stream_bwd_dkv_plain(
@@ -268,11 +301,19 @@ def stream_bwd_dkv_plain(
     ds_cᵀ·q·scale and dv = p_dᵀ·g (p_d and ds rounded to the input dtype)
     are summed over all query rows in f32 and cast once at the end
     (:1032-1033)."""
-    dt = qkv.dtype
-    q, _, gh, p, p_d, t = _recompute(qkv, bias, qv_bias, lse, g, scale, num_heads, seed,
-                                     dropout_rate, image0)
+    return _bwd_dkv_plain(*_split_qkv(qkv), bias, qv_bias, lse, c, g, scale, num_heads, seed,
+                          dropout_rate, image0)
+
+
+def _bwd_dkv_plain(q, k, v, bias, qv_bias, lse, c, g, scale, num_heads, seed, dropout_rate,
+                   image0):
+    """The second backward kernel's plain version on q [B, Nq, C] and k, v
+    [B, Nk, C]: (dk, dv), each [B, Nk, C]."""
+    dt = q.dtype
+    qh, _, gh, p, p_d, t = _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed,
+                                      dropout_rate, image0)
     ds = t - p * c.float()[..., None]
-    dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), q) * scale
+    dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), qh) * scale
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
     return _tokens(dk, dt), _tokens(dv, dt)
 
@@ -287,6 +328,51 @@ def _stream_bwd_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, seed, dropou
     return dqkv, dbias, reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
 
 
+def cross_fwd_plain(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    scale: float,
+    num_heads: int,
+    *,
+    bounded_scores: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5's forward: q [B, Nq, C] against packed kv
+    [B, Nk, 2C] (k|v); returns (out [B, Nq, C] in q.dtype, lse [B, H, Nq]
+    f32). The function K3 computes, with the query and key counts apart."""
+    k, v = kv.split(q.shape[-1], dim=-1)
+    return _attention_plain(q, k, v, bias, qv_bias, scale, num_heads, bounded_scores, None, 0.0,
+                            0)
+
+
+def cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of K5's first backward kernel: (dq [B, Nq, C] in
+    q.dtype, dbias [H, Nq, Nk] f32 summed over the batch or None, c
+    [B, H, Nq] f32), as ``stream_bwd_dq_plain``."""
+    k, v = kv.split(q.shape[-1], dim=-1)
+    return _bwd_dq_plain(q, k, v, bias, qv_bias, lse, g, scale, num_heads, None, 0.0, 0)
+
+
+def cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads) -> torch.Tensor:
+    """Plain PyTorch version of K5's second backward kernel: dkv [B, Nk, 2C]
+    (dk|dv) in q.dtype from the lse and the first kernel's row sums c, as
+    ``stream_bwd_dkv_plain``: dk and dv summed over all Nq query rows in f32
+    and cast once (:1234, :1241-1242)."""
+    k, v = kv.split(q.shape[-1], dim=-1)
+    return torch.cat(_bwd_dkv_plain(q, k, v, bias, qv_bias, lse, c, g, scale, num_heads, None,
+                                    0.0, 0), dim=-1)
+
+
+def cross_qv_bias_grad(dq: torch.Tensor, dkv: torch.Tensor) -> torch.Tensor:
+    """d(q/v bias) [3, C] f32 of the cross attention: the q row the f32 sum
+    of dq, the v row that of dkv's v half, the k row zero (:1243-1249)."""
+    c = dq.shape[-1]
+    dqb = dq.float().sum(dim=(0, 1))
+    return torch.stack([dqb, torch.zeros_like(dqb), dkv[..., c:].float().sum(dim=(0, 1))])
+
+
 _P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
                       ctypes.c_longlong)
 # C signatures: pointers, then the ints, the scale and the dropout
@@ -298,12 +384,13 @@ _ARGTYPES = {
     # qkv, bias, bias_t, qv_bias, lse, g, dqkv, dbias, seed; batch, n, ldb, num_heads,
     # dtype, scale, threshold, inv_keep; stream
     "flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_F, _U, _F, _P],
-    # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, n, num_heads, dtype;
-    # scale, bounded, threshold, inv_keep; stream
-    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 4 + [_F, _I, _U, _F, _P],
+    # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, nq, nk, num_heads,
+    # dtype; scale, bounded, threshold, inv_keep; stream
+    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 5 + [_F, _I, _U, _F, _P],
     # q, k, v, g, bias, bias_t, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg,
-    # lddq, lddkv; batch, n, ldb, num_heads, dtype; scale, threshold, inv_keep; stream
-    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 5 + [_I] * 5 + [_F, _U, _F, _P],
+    # lddq, lddkv; batch, nq, nk, ldb, ldbt, num_heads, dtype; scale, threshold, inv_keep;
+    # stream
+    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 5 + [_I] * 7 + [_F, _U, _F, _P],
 }
 _ptr = _native.ptr
 
@@ -336,22 +423,50 @@ def _check_aux(name: str, t: Optional[torch.Tensor], shape, device) -> None:
         )
 
 
-def _check_qkv(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int]:
-    """Checks what both kernels require of qkv; returns (B, N, C)."""
-    if not qkv.is_cuda:
-        raise ValueError(f"the attention kernel runs on CUDA tensors, got {qkv.device}")
-    if qkv.dtype not in _DTYPES:
-        raise ValueError(f"qkv must be bfloat16 or float32, got {qkv.dtype}")
-    if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads) != 0:
-        raise ValueError(f"qkv must be [B, N, 3·H·D] with H={num_heads}, got {tuple(qkv.shape)}")
-    b, n, c3 = qkv.shape
-    c = c3 // 3
+def _check_tokens(name: str, x: torch.Tensor, sections: int, num_heads: int
+                  ) -> Tuple[int, int, int]:
+    """Checks what the kernels require of activations [B, N, sections·H·D]
+    (packed qkv: 3; kv: 2; q: 1); returns (B, N, C = H·D)."""
+    if not x.is_cuda:
+        raise ValueError(f"the attention kernel runs on CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name} must be bfloat16 or float32, got {x.dtype}")
+    if x.dim() != 3 or x.shape[-1] % (sections * num_heads) != 0:
+        raise ValueError(f"{name} must be [B, N, {sections}·H·D] with H={num_heads}, "
+                         f"got {tuple(x.shape)}")
+    b, n, cs = x.shape
+    c = cs // sections
     head_dim = c // num_heads
     if head_dim != KERNEL_HEAD_DIM:
         raise ValueError(f"the attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {head_dim}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16 != 0:
-        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     return b, n, c
+
+
+def _check_qkv(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int]:
+    """Checks what both kernels require of qkv; returns (B, N, C)."""
+    return _check_tokens("qkv", qkv, 3, num_heads)
+
+
+def _check_cross(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
+    """Checks what K5 requires of q [B, Nq, C] and kv [B, Nk, 2C]; returns
+    (B, Nq, Nk, C)."""
+    b, nq, c = _check_tokens("q", q, 1, num_heads)
+    bk, nk, ck = _check_tokens("kv", kv, 2, num_heads)
+    if (bk, ck) != (b, c) or kv.dtype != q.dtype or kv.device != q.device:
+        raise ValueError(f"kv must be [{b}, Nk, {2 * c}] {q.dtype} on {q.device} beside q "
+                         f"{tuple(q.shape)}; got {kv.dtype} {tuple(kv.shape)} on {kv.device}")
+    return b, nq, nk, c
+
+
+def _check_g(g: torch.Tensor, like: torch.Tensor, shape) -> None:
+    """g, the output's cotangent: ``shape`` in like's dtype on its device."""
+    if g.device != like.device or g.dtype != like.dtype or tuple(g.shape) != shape \
+            or not g.is_contiguous() or g.data_ptr() % 16 != 0:
+        raise ValueError(f"g must be a contiguous, 16-byte aligned {like.dtype} tensor of "
+                         f"shape {shape} on {like.device}; got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
 
 
 def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
@@ -376,28 +491,53 @@ def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
     return out, lse
 
 
+def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_heads, bounded,
+                want_lse, dropout, what):
+    """The streaming forward's entry on q, k, v given as base pointers
+    ``qkv_ptrs`` with row pitches ``pitches`` = (ldq, ldkv) and Nq query rows
+    against Nk keys, for the tensor x they lie in: (out [B, Nq, C], lse
+    [B, H, Nq] or None). ``dropout`` is ``_dropout_args``'s triple."""
+    out = torch.empty((b, nq, c), dtype=x.dtype, device=x.device)
+    lse = torch.empty((b, num_heads, nq), dtype=torch.float32, device=x.device) \
+        if want_lse else None
+    seed_ptr, threshold, inv_keep = dropout
+    lib = _lib("flash_attention_stream_fwd")
+    with torch.cuda.device(x.device):
+        err = lib.uvit_flash_attention_stream_fwd(
+            *qkv_ptrs, _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse), seed_ptr, *pitches,
+            c, b, nq, nk, num_heads, _DTYPES[x.dtype], float(scale), int(bounded), threshold,
+            inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _native.raise_on(lib, err, what)
+    return out, lse
+
+
 def _launch_stream(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
                    seed=None, dropout_rate=0.0):
     """K3: the streaming forward on packed qkv."""
     b, n, c = _check_qkv(qkv, num_heads)
     _check_aux("bias", bias, (num_heads, n, n), qkv.device)
     _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
-    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
-
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device) \
-        if want_lse else None
-    lib = _lib("flash_attention_stream_fwd")
+    dropout = _dropout_args(seed, dropout_rate, qkv.device)
     # the packed layout as three base pointers and one row pitch
     q, slab = qkv.data_ptr(), c * qkv.element_size()
-    with torch.cuda.device(qkv.device):
-        err = lib.uvit_flash_attention_stream_fwd(
-            q, q + slab, q + 2 * slab, _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse),
-            seed_ptr, 3 * c, 3 * c, c, b, n, num_heads, _DTYPES[qkv.dtype], float(scale), int(bounded_scores), threshold, inv_keep,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _native.raise_on(lib, err, "streaming attention forward")
+    out, lse = _stream_fwd(qkv, (q, q + slab, q + 2 * slab), (3 * c, 3 * c), b, n, n, c, bias,
+                           qv_bias, scale, num_heads, bounded_scores, want_lse, dropout,
+                           "streaming attention forward")
     fused_qkv_attention.stream_launches += 1
+    return out, lse
+
+
+def _launch_cross(q, kv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse):
+    """K5: the streaming forward on q [B, Nq, C] and packed kv [B, Nk, 2C]."""
+    b, nq, nk, c = _check_cross(q, kv, num_heads)
+    _check_aux("bias", bias, (num_heads, nq, nk), q.device)
+    _check_aux("qv_bias", qv_bias, (3, c), q.device)
+    k = kv.data_ptr()
+    out, lse = _stream_fwd(q, (q.data_ptr(), k, k + c * kv.element_size()), (c, 2 * c), b, nq,
+                           nk, c, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
+                           (None, 0, 1.0), "cross attention forward")
+    cross_qkv_attention.launches += 1
     return out, lse
 
 
@@ -410,17 +550,18 @@ _padded_bias_cache: Optional[Tuple[torch.Tensor, int, int,
 
 
 def _padded_bias(bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[H, N, ldb] f32 copies of the bias and of its transpose with an even
-    row pitch ldb = N + N % 2, zero in the padding: the backward kernels read
-    bias pairs as 8-byte loads along rows in both their query-major and their
-    key-major pass. With a shared rel-pos bias every block of a model passes
-    the same tensor, so the copies (2 x 67 MB at N=1025) are built once per
-    step, not once per layer: the last pair is kept and reused while the
-    same storage at the same version is passed again on the same stream (a
-    call on another stream builds its own, ordered after that stream's work).
-    The kept pair and the bias stay allocated until another bias arrives. A
-    write that bypasses the version counter (through ``bias.data``) is not
-    seen; the models never write a bias in place."""
+    """f32 copies of the bias [H, Nq, Nk] and of its transpose with even row
+    pitches: [H, Nq, ldb] with ldb = Nk + Nk % 2 and [H, Nk, ldbt] with ldbt =
+    Nq + Nq % 2, zero in the padding: the backward kernels read bias pairs as
+    8-byte loads along rows in both their query-major and their key-major
+    pass. With a shared rel-pos bias every block of a model passes the same
+    tensor, so the copies (2 x 67 MB at N=1025) are built once per step, not
+    once per layer: the last pair is kept and reused while the same storage at
+    the same version is passed again on the same stream (a call on another
+    stream builds its own, ordered after that stream's work). The kept pair
+    and the bias stay allocated until another bias arrives. A write that
+    bypasses the version counter (through ``bias.data``) is not seen; the
+    models never write a bias in place."""
     global _padded_bias_cache
     version = None if bias.is_inference() else bias._version
     stream = torch.cuda.current_stream(bias.device).cuda_stream if bias.is_cuda else 0
@@ -429,12 +570,11 @@ def _padded_bias(bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             and hit[0].data_ptr() == bias.data_ptr() and hit[0].shape == bias.shape \
             and hit[0].device == bias.device:
         return hit[3]
-    h, n, _ = bias.shape
-    shape = (h, n, n + n % 2)
-    bias_p = torch.zeros(shape, dtype=torch.float32, device=bias.device)
-    bias_t = torch.zeros(shape, dtype=torch.float32, device=bias.device)
-    bias_p[..., :n] = bias
-    bias_t[..., :n] = bias.transpose(1, 2)
+    h, nq, nk = bias.shape
+    bias_p = torch.zeros((h, nq, nk + nk % 2), dtype=torch.float32, device=bias.device)
+    bias_t = torch.zeros((h, nk, nq + nq % 2), dtype=torch.float32, device=bias.device)
+    bias_p[..., :nk] = bias
+    bias_t[..., :nq] = bias.transpose(1, 2)
     _padded_bias_cache = None if version is None else (bias.detach(), version, stream,
                                                        (bias_p, bias_t))
     return bias_p, bias_t
@@ -446,50 +586,81 @@ def _check_bwd(qkv, bias, qv_bias, lse, g, num_heads) -> Tuple[int, int, int]:
     _check_aux("bias", bias, (num_heads, n, n), qkv.device)
     _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
     _check_aux("lse", lse, (b, num_heads, n), qkv.device)
-    if g.device != qkv.device or g.dtype != qkv.dtype or tuple(g.shape) != (b, n, c) \
-            or not g.is_contiguous() or g.data_ptr() % 16 != 0:
-        raise ValueError(f"g must be a contiguous, 16-byte aligned {qkv.dtype} tensor of "
-                         f"shape {(b, n, c)} on {qkv.device}; got {g.dtype} "
-                         f"{tuple(g.shape)} on {g.device}")
+    _check_g(g, qkv, (b, n, c))
     return b, n, c
 
 
-def _bwd_buffers(qkv, bias, num_heads, n, want_dbias):
-    """(dqkv, ldb, bias_p, bias_t, dbias) as both backward kernels take them:
-    the padded bias copies, and a zeroed dbias of the same pitch into which
-    the kernels add each image's ds pairs with 8-byte f32 atomics."""
-    ldb = n + n % 2
+def _bias_buffers(bias, num_heads, nq, nk, want_dbias, device):
+    """(ldb, ldbt, bias_p, bias_t, dbias) as the backward kernels take them:
+    the padded bias copies and their pitches, and a zeroed [H, Nq, ldb]
+    dbias into which the kernels add each image's ds pairs with 8-byte f32
+    atomics."""
     bias_p = bias_t = dbias = None
     if bias is not None:
         bias_p, bias_t = _padded_bias(bias)
         if want_dbias:
-            dbias = torch.zeros((num_heads, n, ldb), dtype=torch.float32, device=qkv.device)
-    return torch.empty_like(qkv), ldb, bias_p, bias_t, dbias
+            dbias = torch.zeros(bias_p.shape, dtype=torch.float32, device=device)
+    return nk + nk % 2, nq + nq % 2, bias_p, bias_t, dbias
+
+
+def _stream_bwd(x, ptrs, pitches, b, nq, nk, bias, qv_bias, lse, scale, num_heads, want_dbias,
+                dropout, what):
+    """The streaming backward's two kernels on q, k, v, g and dq, dk, dv
+    given as base pointers ``ptrs`` with row pitches ``pitches`` = (ldq,
+    ldkv, ldg, lddq, lddkv), Nq query rows against Nk keys, for the tensor x
+    they lie in. Returns dbias [H, Nq, Nk] or None."""
+    ldb, ldbt, bias_p, bias_t, dbias = _bias_buffers(bias, num_heads, nq, nk, want_dbias,
+                                                     x.device)
+    # the row sums of the softmax vjp, written by kernel 1 and read by kernel 2
+    rowsum = torch.empty((b, num_heads, nq), dtype=torch.float32, device=x.device)
+    q, k, v, g, dq, dk, dv = ptrs
+    seed_ptr, threshold, inv_keep = dropout
+    lib = _lib("flash_attention_stream_bwd")
+    with torch.cuda.device(x.device):
+        err = lib.uvit_flash_attention_stream_bwd(
+            q, k, v, g, _ptr(bias_p), _ptr(bias_t), _ptr(qv_bias), lse.data_ptr(),
+            rowsum.data_ptr(), dq, dk, dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb,
+            ldbt, num_heads, _DTYPES[x.dtype], float(scale), threshold, inv_keep,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _native.raise_on(lib, err, what)
+    return None if dbias is None else dbias[..., :nk].contiguous()
 
 
 def _launch_stream_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
                        seed=None, dropout_rate=0.0):
     """K4: the streaming backward's two kernels on packed qkv and dqkv."""
     b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
-    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
-    dqkv, ldb, bias_p, bias_t, dbias = _bwd_buffers(qkv, bias, num_heads, n, want_dbias)
-    # the row sums of the softmax vjp, written by kernel 1 and read by kernel 2
-    rowsum = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
-    lib = _lib("flash_attention_stream_bwd")
+    dropout = _dropout_args(seed, dropout_rate, qkv.device)
+    dqkv = torch.empty_like(qkv)
     slab = c * qkv.element_size()
     q, dq = qkv.data_ptr(), dqkv.data_ptr()
-    with torch.cuda.device(qkv.device):
-        err = lib.uvit_flash_attention_stream_bwd(
-            q, q + slab, q + 2 * slab, g.data_ptr(), _ptr(bias_p), _ptr(bias_t), _ptr(qv_bias),
-            lse.data_ptr(), rowsum.data_ptr(), dq, dq + slab, dq + 2 * slab, _ptr(dbias),
-            seed_ptr, 3 * c, 3 * c, c, 3 * c, 3 * c, b, n, ldb, num_heads, _DTYPES[qkv.dtype],
-            float(scale), threshold, inv_keep,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _native.raise_on(lib, err, "streaming attention backward")
+    dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), dq, dq + slab,
+                              dq + 2 * slab), (3 * c, 3 * c, c, 3 * c, 3 * c), b, n, n, bias,
+                        qv_bias, lse, scale, num_heads, want_dbias, dropout,
+                        "streaming attention backward")
     fused_qkv_attention_bwd.stream_launches += 1
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
-    return dqkv, None if dbias is None else dbias[..., :n].contiguous(), dqvb
+    return dqkv, dbias, dqvb
+
+
+def _launch_cross_bwd(q, kv, bias, qv_bias, lse, g, scale, num_heads, want_dbias):
+    """K5's backward: the streaming backward's two kernels on q, kv, dq and
+    dkv."""
+    b, nq, nk, c = _check_cross(q, kv, num_heads)
+    _check_aux("bias", bias, (num_heads, nq, nk), q.device)
+    _check_aux("qv_bias", qv_bias, (3, c), q.device)
+    _check_aux("lse", lse, (b, num_heads, nq), q.device)
+    _check_g(g, q, (b, nq, c))
+    dq, dkv = torch.empty_like(q), torch.empty_like(kv)
+    slab = c * kv.element_size()
+    k, dk = kv.data_ptr(), dkv.data_ptr()
+    dbias = _stream_bwd(q, (q.data_ptr(), k, k + slab, g.data_ptr(), dq.data_ptr(), dk,
+                            dk + slab), (c, 2 * c, c, c, 2 * c), b, nq, nk, bias, qv_bias, lse,
+                        scale, num_heads, want_dbias, (None, 0, 1.0), "cross attention backward")
+    cross_qkv_attention_bwd.launches += 1
+    dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
+    return dq, dkv, dbias, dqvb
 
 
 def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
@@ -499,7 +670,8 @@ def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
     seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
     if n > BWD_MAX_N:
         raise ValueError(f"the attention backward kernel takes N <= {BWD_MAX_N}, got {n}")
-    dqkv, ldb, bias_p, bias_t, dbias = _bwd_buffers(qkv, bias, num_heads, n, want_dbias)
+    dqkv = torch.empty_like(qkv)
+    ldb, _, bias_p, bias_t, dbias = _bias_buffers(bias, num_heads, n, n, want_dbias, qkv.device)
     lib = _lib("flash_attention_bwd")
     with torch.cuda.device(qkv.device):
         err = lib.uvit_flash_attention_bwd(
@@ -633,10 +805,134 @@ def fused_qkv_attention(
     return (out, lse) if want_lse else out
 
 
+def cross_qkv_attention_bwd(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    scale: float,
+    num_heads: int,
+    *,
+    want_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Backward of ``cross_qkv_attention`` from its row log-sum-exp.
+
+    q, kv, bias and qv_bias as given to the forward; lse [B, H, Nq] f32 from
+    it; g [B, Nq, C] the output's cotangent, in q.dtype. Returns (dq
+    [B, Nq, C], dkv [B, Nk, 2C], both in q.dtype, dbias [H, Nq, Nk] f32
+    summed over the batch, dqvb [3, C] f32 with the k row zero); dbias is
+    None without a bias or when ``want_dbias`` is False, dqvb None without a
+    q/v bias. On a CUDA tensor K5's backward (K4's two kernels) runs."""
+    if q.device.type == "cpu":
+        dq, dbias, c = cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads)
+        dkv = cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads)
+        dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
+        return dq, dkv, dbias if want_dbias else None, dqvb
+    return _launch_cross_bwd(q, kv, bias, qv_bias, lse, g.contiguous(), scale, num_heads,
+                             want_dbias)
+
+
+class _CrossQKVAttention(torch.autograd.Function):
+    """K5 forward with the row lse, K5 backward (the ``jax.custom_vjp`` of
+    :1253-1288). The lse output is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, kv, bias, qv_bias, scale, num_heads, bounded):
+        out, lse = _cross_forward(q, kv, bias, qv_bias, scale, num_heads, bounded, True)
+        ctx.save_for_backward(q, kv, bias, qv_bias, lse)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, kv, bias, qv_bias, lse = ctx.saved_tensors
+        dq, dkv, dbias, dqvb = cross_qkv_attention_bwd(
+            q, kv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads,
+            want_dbias=ctx.needs_input_grad[2])
+        return dq, dkv, dbias, dqvb, None, None, None
+
+
+def _cross_forward(q, kv, bias, qv_bias, scale, num_heads, bounded, want_lse):
+    """The plain version for a CPU tensor, K5 for a CUDA tensor."""
+    if q.device.type == "cpu":
+        return cross_fwd_plain(q, kv, bias, qv_bias, scale, num_heads, bounded_scores=bounded)
+    return _launch_cross(q, kv, bias, qv_bias, scale, num_heads, bounded, want_lse)
+
+
+def cross_qkv_attention(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    scale: float,
+    num_heads: int,
+    dropout_rate: float = 0.0,
+    *,
+    bounded_scores: Optional[bool] = None,
+    want_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Attention of q [B, Nq, C] against packed kv [B, Nk, 2C] (k|v).
+
+    The local computation of token- (sequence-)parallel attention: q rows are
+    one shard, kv the gathered whole. bias: [H, Nq, Nk] f32 (the shard's
+    query rows) or None; qv_bias: [3, C] f32 (the k row unused) added to q
+    and v in the input dtype, or None. Returns out [B, Nq, C] in q.dtype,
+    and with ``want_lse`` also the row log-sum-exp [B, H, Nq] f32.
+    ``dropout_rate`` must be 0, as in the reference (:1263): its in-kernel
+    mask is not defined across re-sharded grids. ``bounded_scores``
+    defaults to the module's BOUNDED_SCORES. Under grad mode with an input
+    that requires grad, the output carries K5's backward."""
+    if dropout_rate != 0.0:
+        raise ValueError("seq-sharded attention requires attn_drop=0, got dropout_rate "
+                         f"{dropout_rate}")
+    bounded = BOUNDED_SCORES if bounded_scores is None else bool(bounded_scores)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, kv, bias, qv_bias)):
+        out, lse = _CrossQKVAttention.apply(q, kv, bias, qv_bias, scale, num_heads, bounded)
+    else:
+        out, lse = _cross_forward(q, kv, bias, qv_bias, scale, num_heads, bounded, want_lse)
+    return (out, lse) if want_lse else out
+
+
+def seq_sharded_qkv_attention(
+    qkv_local: torch.Tensor,
+    bias_rows: Optional[torch.Tensor],
+    qv_bias: Optional[torch.Tensor],
+    scale: float,
+    num_heads: int,
+    group: seq.SeqGroup,
+    n: int,
+) -> torch.Tensor:
+    """Token- (sequence-)sharded fused attention over ``group``
+    (:1291-1358).
+
+    qkv_local [B, Nq, 3C] holds this rank's query rows ``group.rows(n)`` of
+    the n tokens; bias_rows [H, Nq, n] f32 the bias of those rows, or None.
+    Each rank gathers k/v over the group (``seq.gather_tokens``: padded to
+    ceil(n / S) rows for the gather and cut back to the n real keys, so no
+    key mask and no dense [H, n_pad, n_pad] bias is built) and runs
+    ``cross_qkv_attention`` on its query rows; dk/dv go back through the
+    gather's backward, a reduce-scatter. Returns out [B, Nq, C]. With one
+    rank it is ``fused_qkv_attention`` (:1322-1324)."""
+    if group.size == 1:
+        return fused_qkv_attention(qkv_local, bias_rows, qv_bias, None, scale, num_heads)
+    c = qkv_local.shape[-1] // 3
+    kv = seq.gather_tokens(qkv_local[..., c:], group, n)
+    return cross_qkv_attention(qkv_local[..., :c].contiguous(), kv, bias_rows, qv_bias, scale,
+                               num_heads)
+
+
 # Kernel launches since the last reset (a run sets them to 0 to count its own).
 # ``launches`` counts K1 and K2, ``stream_launches`` K3 and K4 (one per call
-# of K4's pair of kernels).
+# of K4's pair of kernels), ``cross_qkv_attention.launches`` and
+# ``cross_qkv_attention_bwd.launches`` K5's forward and backward (one per call
+# of its pair of kernels).
 fused_qkv_attention.launches = 0
 fused_qkv_attention_bwd.launches = 0
 fused_qkv_attention.stream_launches = 0
 fused_qkv_attention_bwd.stream_launches = 0
+cross_qkv_attention.launches = 0
+cross_qkv_attention_bwd.launches = 0

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
+from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.ema import ema_on_update_boundary, ema_update
 from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
@@ -95,7 +96,14 @@ def make_finetune_train_step(
     dropout masks; ``mix_generator`` (a CPU generator keeps its six scalar
     draws free of device syncs) draws mixup. lr and wd are read at the
     update index, as the optax schedules count updates. ``wd_schedule``
-    defaults to the optimizer's constant weight decay."""
+    defaults to the optimizer's constant weight decay.
+
+    A model built with a ``seq_group`` holds each image's tokens split over
+    the group's ranks: every rank calls the step on the same batch with
+    generators of the same seeds, and after the backward the gradients of
+    ``model.token_parameters()`` are summed over the group before the
+    optimizer reads them, what GSPMD does for the reference's step
+    (tests/test_seq_parallel.py:58-92)."""
     if hp.update_freq != 1:
         raise NotImplementedError("gradient accumulation (update_freq > 1) is not ported yet")
     if hp.masked_position_prob > 0:
@@ -113,6 +121,8 @@ def make_finetune_train_step(
         loss = L.soft_target_cross_entropy(logits, targets)
         optimizer.zero_grad()
         loss.backward()
+        if getattr(model, "seq_group", None) is not None:
+            seq.all_reduce_grads(model.token_parameters(), model.seq_group)
         lr = lr_schedule(state.step)
         grad_norm = optimizer.step(lr, wd_schedule(state.step))
         if state.model_ema is not None:
