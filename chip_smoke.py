@@ -81,22 +81,26 @@ kernels from the sources in this checkout, then:
            tolerances; the lse with dropout bit-equal to the rate-0 lse); then
            holds and times it at the ViT-L/16 512 eval shape (B=16, N=1025,
            bf16, bias, bounded) and, with the lse, at the train step's B=8;
-           also timed without bias, with the lse and with dropout 0.1, in turns
+           also timed without bias, with the q/v bias, with the lse and with
+           dropout 0.1, in turns
            with K1 at the same shape, one scaled_dot_product_attention call
            and the plain version (4 images at a time).
   phase 8  holds the split streaming backward (K4: two kernels behind one
-           call), through the routed call, against its two plain versions over
-           the same grid of cases (dq, dk, dv, dbias and dqvb each against
-           K2's bound relative to max|plain|; dqkv bit-identical between two
-           runs); plants NaN right before and behind qkv, g and the lse at
-           N=577 and 1025 and checks that no bit of out, lse or dqkv changes;
+           call; the row sums formed from the forward's output, which the
+           backward now takes), through the routed call, against its two
+           plain versions over the same grid of cases, once with the row
+           sums recomputed as rowsum(t) (the function, as the JAX kernels
+           form it) and once formed from the same output (dq, dk, dv, dbias
+           and dqvb each against K2's bound relative to max|plain|; dqkv
+           bit-identical between two runs); plants NaN right before and behind qkv, g, the output and
+           the lse at N=577 and 1025 and checks that no bit of out, lse or
+           dqkv changes;
            checks the Function's gradient (K3 + K4, f32) against autograd of
            the plain forward, and the Euler identity at rate 0.3 and its
            failure from another seed; then holds and times K4 at the ViT-L/16
            512 train shape (B=8, N=1025, bf16, bias) with rate 0 and 0.05,
-           without dbias and with the padded bias copies built anew in every
-           call, beside autograd's backward of scaled_dot_product_attention
-           and the plain versions.
+           without dbias and with the q/v bias, beside autograd's backward of
+           scaled_dot_product_attention and the plain versions.
   phase 9  the large-N slice: a full-width, full-depth ViT-L/16 512
            (beit_large_patch16_512: width 1024, depth 24, 16 heads, N=1025,
            shared rel-pos bias, layer scale 0.1, bf16 compute on f32 params)
@@ -145,10 +149,13 @@ kernels from the sources in this checkout, then:
            and K4's entries given Nq query rows against Nk keys) against its
            plain versions at Nq in {1, 63, 257, 513}, Nk in {65, 577, 1025},
            B=2, H=16, bf16 and f32, over bias / none, q/v bias / none and
-           bounded / exact softmax (K1's and K2's bounds; dq and dkv
-           bit-identical between two runs); plants NaN around q, kv, g and the
-           lse; holds the S shards of K5 together against K3's output and
-           K4's dqkv, dbias and dqvb of the whole sequence at N = 577 and 1025
+           bounded / exact softmax (K1's and K2's bounds, the backward
+           against the plain versions with the row sums recomputed and with
+           them formed from the output, as phase 8; dq and dkv bit-identical
+           between two runs); plants NaN around q, kv, g, the
+           output and the lse; holds the S shards of K5 together against K3's
+           output and K4's dqkv, dbias and dqvb of the whole sequence at N =
+           577 and 1025
            for S = 2 and 4; then times one shard at B=8, N=1025 for S = 2
            (Nq = 513) and 4 (Nq = 257), forward with the lse and backward,
            beside K3 and K4 of the whole sequence, the plain versions and the
@@ -295,7 +302,7 @@ def attention_on_plain(torch, FA):
                  for i in range(0, qkv.shape[0], step)]
         return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts])
 
-    def plain_bwd(qkv, bias, qv_bias, lse, g, scale, h, *, want_dbias=True, seed=None,
+    def plain_bwd(qkv, bias, qv_bias, lse, g, scale, h, *, out=None, want_dbias=True, seed=None,
                   dropout_rate=0.0):
         dqkv, dbias, dqvb = FA.fused_qkv_attention_bwd_plain(
             qkv, bias, qv_bias, lse, g, scale, h, seed=seed, dropout_rate=dropout_rate)
@@ -1156,14 +1163,18 @@ def plain_fwd_sliced(torch, FA, qkv, bias, qvb, scale, h, bounded, seed, rate, s
     return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts])
 
 
-def plain_bwd_sliced(torch, FA, qkv, bias, qvb, lse, g, scale, h, seed, rate, step=2):
-    """K4's two plain versions `step` images at a time: (dq, dk, dv, dbias
-    summed over the slices, c)."""
+def plain_bwd_sliced(torch, FA, qkv, bias, qvb, lse, out, g, scale, h, seed, rate, step=2):
+    """K4's two plain versions `step` images at a time, the row sums formed
+    from the forward's output `out` as the kernel forms them, or with `out`
+    None recomputed as rowsum(t) over the keys, as the fused plain backward
+    and the JAX kernels form them: (dq, dk, dv, dbias summed over the
+    slices, c)."""
     dq, dk, dv, cs, dbias = [], [], [], [], None
     for i in range(0, qkv.shape[0], step):
         sl = slice(i, i + step)
         dq_i, db_i, c_i = FA.stream_bwd_dq_plain(qkv[sl], bias, qvb, lse[sl], g[sl], scale, h,
-                                                 seed=seed, dropout_rate=rate, image0=i)
+                                                 out=None if out is None else out[sl], seed=seed,
+                                                 dropout_rate=rate, image0=i)
         dk_i, dv_i = FA.stream_bwd_dkv_plain(qkv[sl], bias, qvb, lse[sl], c_i, g[sl], scale, h,
                                              seed=seed, dropout_rate=rate, image0=i)
         dq.append(dq_i), dk.append(dk_i), dv.append(dv_i), cs.append(c_i)
@@ -1226,6 +1237,7 @@ def phase7(torch, FA, dev):
     qkv = torch.randn(bsz, n, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
     bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
     bias_cast = bias.to(torch.bfloat16)
+    qvb = torch.randn(3, c, generator=gen, device=dev) * 0.3
     fns = {
         "plain": lambda: plain_fwd_sliced(torch, FA, qkv, bias, None, scale, h, True, None, 0.0),
         "kernel": lambda: FA.fused_qkv_attention(qkv, bias, None, None, scale, h,
@@ -1234,6 +1246,8 @@ def phase7(torch, FA, dev):
             qkv[:train_bsz], bias, None, None, scale, h, bounded_scores=True, want_lse=True),
         "no bias": lambda: FA.fused_qkv_attention(qkv, None, None, None, scale, h,
                                                   bounded_scores=True),
+        "with q/v bias": lambda: FA.fused_qkv_attention(qkv, bias, qvb, None, scale, h,
+                                                        bounded_scores=True),
         "with lse": lambda: FA.fused_qkv_attention(qkv, bias, None, None, scale, h,
                                                    bounded_scores=True, want_lse=True),
         "dropout 0.1": lambda: FA.fused_qkv_attention(qkv, bias, None, seed, scale, h, 0.1,
@@ -1279,7 +1293,18 @@ def phase7(torch, FA, dev):
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
             "other_ms": {k: best[k] for k in (f"train B={train_bsz} with lse", "no bias",
-                                              "with lse", "dropout 0.1", "K1")}}
+                                              "with q/v bias", "with lse", "dropout 0.1", "K1")}}
+
+
+def held_bwd_both(torch, kernel, tag, got, refs, tol):
+    """``held_bwd`` against each of the two plain references in ``refs``:
+    first the row sums recomputed as rowsum(t) (the function, as the JAX
+    kernels form it), then the row sums formed from the forward's output
+    (g·o, as the kernel forms them). Returns the larger absolute error and
+    the first reference's summary."""
+    first = held_bwd(torch, kernel, f"{tag}, c recomputed", got, refs[0], tol)
+    second = held_bwd(torch, kernel, f"{tag}, c from the output", got, refs[1], tol)
+    return max(first[0], second[0]), first[1]
 
 
 def held_bwd(torch, kernel, tag, got, ref, tol):
@@ -1312,13 +1337,18 @@ def phase8(torch, FA, dev):
     seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
 
-    def held(tag, got, ref, tol):
-        """got = (dqkv, dbias, dqvb) of the routed call, ref = (dq, dk, dv,
-        dbias, c) of the two plain versions (``plain_bwd_sliced``)."""
+    def held(tag, got, qkv, b_, q_, lse, out, g, sd, rate, tol):
+        """got = (dqkv, dbias, dqvb) of the routed call, held against the two
+        plain versions (``plain_bwd_sliced``) with the row sums recomputed
+        and with them formed from the forward's output ``out``."""
         dqkv, dbias, dqvb = got
-        ref_dqvb = FA.reduce_qv_bias_grad(torch.cat(ref[:3], dim=-1)) if dqvb is not None else None
-        return held_bwd(torch, "K4", tag, (*dqkv.chunk(3, dim=-1), dbias, dqvb),
-                        (*ref[:4], ref_dqvb), tol)
+        refs = []
+        for o in (None, out):
+            ref = plain_bwd_sliced(torch, FA, qkv, b_, q_, lse, o, g, scale, h, sd, rate)
+            ref_dqvb = (FA.reduce_qv_bias_grad(torch.cat(ref[:3], dim=-1)) if dqvb is not None
+                        else None)
+            refs.append((*ref[:4], ref_dqvb))
+        return held_bwd_both(torch, "K4", tag, (*dqkv.chunk(3, dim=-1), dbias, dqvb), refs, tol)
 
     for dtype, n in itertools.product((torch.bfloat16, torch.float32), BIG_N):
         name = str(dtype)[6:]
@@ -1333,32 +1363,31 @@ def phase8(torch, FA, dev):
             b_ = bias if has_bias else None
             q_ = qvb if has_qvb else None
             sd = seed if rate > 0.0 else None
-            _, lse = FA.fused_qkv_attention(qkv, b_, q_, sd, scale, h, rate,
-                                            bounded_scores=bounded, want_lse=True)
+            out, lse = FA.fused_qkv_attention(qkv, b_, q_, sd, scale, h, rate,
+                                              bounded_scores=bounded, want_lse=True)
             before = attention_counts(FA)
-            got = FA.fused_qkv_attention_bwd(qkv, b_, q_, lse, g, scale, h, seed=sd,
+            got = FA.fused_qkv_attention_bwd(qkv, b_, q_, lse, g, scale, h, out=out, seed=sd,
                                              dropout_rate=rate)
             after = attention_counts(FA)
             check(after["K4"] == before["K4"] + 1 and after["K2"] == before["K2"],
                   f"the routed backward at N={n} did not launch K4 once and K2 never")
-            ref = plain_bwd_sliced(torch, FA, qkv, b_, q_, lse, g, scale, h, sd, rate)
-            torch.cuda.synchronize()
             tag = (f"{name} N={n} bias={has_bias:d} qv_bias={has_qvb:d} bounded={bounded:d} "
                    f"dropout {rate}")
             check(got[0].dtype == dtype and got[0].shape == qkv.shape, "K4 dqkv dtype/shape")
-            abs_err, msg = held(tag, got, ref, tol)
+            abs_err, msg = held(tag, got, qkv, b_, q_, lse, out, g, sd, rate, tol)
             worst, n_cases = max(worst, abs_err), n_cases + 1
             if has_bias and has_qvb:
                 print(f"  K4 {tag}: {msg}", flush=True)
-            again = FA.fused_qkv_attention_bwd(qkv, b_, q_, lse, g, scale, h, seed=sd,
+            again = FA.fused_qkv_attention_bwd(qkv, b_, q_, lse, g, scale, h, out=out, seed=sd,
                                                dropout_rate=rate)
             check(torch.equal(got[0], again[0]), f"K4's dqkv differs between two runs ({tag})")
-        del qkv, g, bias, got, again, ref
-    print(f"  K4: {n_cases} cases within K2's bounds, dqkv bit-identical between two runs, "
+        del qkv, g, bias, out, got, again
+    print(f"  K4: {n_cases} cases within K2's bounds of both plain versions (the row sums "
+          f"recomputed, and formed from the output), dqkv bit-identical between two runs, "
           f"worst max|dqkv-plain| {worst:.3e}", flush=True)
 
     # ragged tails feed dk and dv: the same call with NaN planted right before
-    # and right behind qkv, g and the lse gives the same bits
+    # and right behind qkv, g, the output and the lse gives the same bits
     for dtype, n in itertools.product((torch.bfloat16, torch.float32), (577, 1025)):
         qkv = torch.randn(2, n, 3 * c, generator=gen, device=dev).to(dtype)
         g = torch.randn(2, n, c, generator=gen, device=dev).to(dtype)
@@ -1366,19 +1395,20 @@ def phase8(torch, FA, dev):
 
         out, lse = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=False,
                                           want_lse=True)
-        got = FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h)
+        got = FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h, out=out)
         f_qkv, f_g, f_lse = fenced(torch, qkv), fenced(torch, g), fenced(torch, lse)
         f_out, f_lse_out = FA.fused_qkv_attention(f_qkv, bias, None, None, scale, h,
                                                   bounded_scores=False, want_lse=True)
-        f_got = FA.fused_qkv_attention_bwd(f_qkv, bias, None, f_lse, f_g, scale, h)
+        f_got = FA.fused_qkv_attention_bwd(f_qkv, bias, None, f_lse, f_g, scale, h,
+                                           out=fenced(torch, out))
         torch.cuda.synchronize()
         check(torch.equal(out, f_out) and torch.equal(lse, f_lse_out),
               f"K3 reads behind the end of qkv ({str(dtype)[6:]} N={n})")
         check(torch.isfinite(f_got[0].float()).all().item() and torch.equal(got[0], f_got[0]),
-              f"K4 reads behind the end of qkv, g or lse ({str(dtype)[6:]} N={n})")
+              f"K4 reads behind the end of qkv, g, out or lse ({str(dtype)[6:]} N={n})")
         check(torch.isfinite(f_got[1]).all().item(), "K4's dbias is not finite behind a NaN fence")
-        print(f"  K3/K4 {str(dtype)[6:]} N={n}: NaN planted around qkv, g and lse changes no bit "
-              f"of out, lse and dqkv", flush=True)
+        print(f"  K3/K4 {str(dtype)[6:]} N={n}: NaN planted around qkv, g, out and lse changes no "
+              f"bit of out, lse and dqkv", flush=True)
         del qkv, g, bias, got, f_got, f_qkv, f_g
 
     # the Function through the streaming route (K3 + K4, f32) against autograd
@@ -1416,7 +1446,7 @@ def phase8(torch, FA, dev):
         rel = abs(inner - 2.0 * f.item()) / (2.0 * f.item())
         out2, lse = FA.fused_qkv_attention(data, None, None, seed, scale, h, 0.3,
                                            bounded_scores=False, want_lse=True)
-        wrong = FA.fused_qkv_attention_bwd(data, None, None, lse, 2.0 * out2, scale, h,
+        wrong = FA.fused_qkv_attention_bwd(data, None, None, lse, 2.0 * out2, scale, h, out=out2,
                                            seed=seed + 1, dropout_rate=0.3)[0]
         inner_wrong = (wrong[..., 2 * c:].double() * data[..., 2 * c:].double()).sum().item()
         rel_wrong = abs(inner_wrong - 2.0 * f.item()) / (2.0 * f.item())
@@ -1432,21 +1462,27 @@ def phase8(torch, FA, dev):
     qkv = torch.randn(bsz, n, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
     g = torch.randn(bsz, n, c, generator=gen, device=dev).to(torch.bfloat16)
     bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
-    _, lse = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=True,
-                                    want_lse=True)
-    kern = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h)
-    no_dbias = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h,
+    out, lse = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=True,
+                                      want_lse=True)
+    out_d = FA.fused_qkv_attention(qkv, bias, None, seed, scale, h, 0.05, bounded_scores=True)
+    qvb = torch.randn(3, c, generator=gen, device=dev) * 0.3
+    out_q, lse_q = FA.fused_qkv_attention(qkv, bias, qvb, None, scale, h, bounded_scores=True,
+                                          want_lse=True)
+    kern = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h, out=out)
+    no_dbias = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h, out=out,
                                                   want_dbias=False)
-    drop = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h, seed=seed,
-                                              dropout_rate=0.05)
-    plain = lambda: plain_bwd_sliced(torch, FA, qkv, bias, None, lse, g, scale, h, None, 0.0)
-    for what, k_fn, rate in (("", kern, 0.0), (" dropout 0.05", drop, 0.05)):
-        ref = plain_bwd_sliced(torch, FA, qkv, bias, None, lse, g, scale, h,
-                               seed if rate else None, rate)
-        abs_err, msg = held(f"B={bsz} N={n}{what}", k_fn(), ref, BWD_TOL["bfloat16"])
+    drop = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse, g, scale, h, out=out_d,
+                                              seed=seed, dropout_rate=0.05)
+    with_qvb = lambda: FA.fused_qkv_attention_bwd(qkv, bias, qvb, lse_q, g, scale, h, out=out_q)
+    plain = lambda: plain_bwd_sliced(torch, FA, qkv, bias, None, lse, out, g, scale, h, None,
+                                     0.0)
+    for what, k_fn, rate, o in (("", kern, 0.0, out), (" dropout 0.05", drop, 0.05, out_d)):
+        abs_err, msg = held(f"B={bsz} N={n}{what}", k_fn(), qkv, bias, None, lse, o, g,
+                            seed if rate else None, rate, BWD_TOL["bfloat16"])
         worst = max(worst, abs_err)
         print(f"  K4 bfloat16 B={bsz} N={n} bias=1{what}: {msg}", flush=True)
-        del ref
+    # the function's own traffic: the output the kernel reads for its row
+    # sums is this design's, not the function's
     bound_ms, bound_by = bound(nbytes(qkv, g, lse, bias) + nbytes(qkv, bias),
                                10.0 * bsz * h * n * n * 64, "bfloat16")
     # the library yardstick: autograd's backward of one
@@ -1456,14 +1492,11 @@ def phase8(torch, FA, dev):
     lib_out = sdpa_packed(torch, leaf, bias_leaf, scale, h)
     lib = lambda: torch.autograd.grad(lib_out, (leaf, bias_leaf), g, retain_graph=True)
     best, runs = in_turns({"plain": plain, "kernel": kern, "no dbias": no_dbias,
-                           "bias copies rebuilt": bias_copies_rebuilt(FA, kern),
-                           "dropout 0.05": drop, "library": lib}, 5)
-    print(f"  K4 at B={bsz} N={n} H={h} D=64 bf16 (bias; \"kernel\" reuses the padded bias copies "
-          f"of the call before, as 23 of a step's 24 layers do), ms per call: {runs}", flush=True)
+                           "with q/v bias": with_qvb, "dropout 0.05": drop, "library": lib}, 5)
+    print(f"  K4 at B={bsz} N={n} H={h} D=64 bf16 (bias), ms per call: {runs}", flush=True)
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "other_ms": {k: best[k] for k in ("no dbias", "bias copies rebuilt",
-                                              "dropout 0.05")}}
+            "other_ms": {k: best[k] for k in ("no dbias", "with q/v bias", "dropout 0.05")}}
 
 
 def host_ms(torch, fn) -> float:
@@ -2212,14 +2245,16 @@ def cross_parts(got):
     return (dq, *dkv.chunk(2, dim=-1), dbias, dqvb)
 
 
-def cross_plain_bwd(torch, FA, q, kv, bias, qvb, lse, g, scale, h, step=2):
-    """K5's two plain versions `step` images at a time: (dq, dk, dv, dbias,
-    dqvb)."""
+def cross_plain_bwd(torch, FA, q, kv, bias, qvb, lse, out, g, scale, h, step=2):
+    """K5's two plain versions `step` images at a time, the row sums formed
+    from the forward's output `out`, or with `out` None recomputed as
+    rowsum(t) over the keys: (dq, dk, dv, dbias, dqvb)."""
     c = q.shape[-1]
     dq, dkv, dbias = [], [], None
     for i in range(0, q.shape[0], step):
         sl = slice(i, i + step)
-        dq_i, db_i, c_i = FA.cross_bwd_dq_plain(q[sl], kv[sl], bias, qvb, lse[sl], g[sl], scale, h)
+        dq_i, db_i, c_i = FA.cross_bwd_dq_plain(q[sl], kv[sl], bias, qvb, lse[sl], g[sl], scale, h,
+                                                out=None if out is None else out[sl])
         dkv.append(FA.cross_bwd_dkv_plain(q[sl], kv[sl], bias, qvb, lse[sl], c_i, g[sl], scale, h))
         dq.append(dq_i)
         if db_i is not None:
@@ -2227,6 +2262,12 @@ def cross_plain_bwd(torch, FA, q, kv, bias, qvb, lse, g, scale, h, step=2):
     dq, dkv = torch.cat(dq), torch.cat(dkv)
     dqvb = FA.cross_qv_bias_grad(dq, dkv) if qvb is not None else None
     return dq, dkv[..., :c], dkv[..., c:], dbias, dqvb
+
+
+def cross_plain_bwd_both(torch, FA, q, kv, bias, qvb, lse, out, g, scale, h):
+    """``cross_plain_bwd`` with the row sums recomputed, then formed from
+    ``out``: the two references of ``held_bwd_both``."""
+    return [cross_plain_bwd(torch, FA, q, kv, bias, qvb, lse, o, g, scale, h) for o in (None, out)]
 
 
 def cross_counts(FA) -> dict:
@@ -2258,14 +2299,14 @@ def phase14(torch, FA, dev):
             out, lse = FA.cross_qkv_attention(q, kv, b_, q_, scale, h, bounded_scores=bounded,
                                               want_lse=True)
             out_only = FA.cross_qkv_attention(q, kv, b_, q_, scale, h, bounded_scores=bounded)
-            got = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h)
-            again = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h)
+            got = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h, out=out)
+            again = FA.cross_qkv_attention_bwd(q, kv, b_, q_, lse, g, scale, h, out=out)
             after = cross_counts(FA)
             check(after["K5"] == before["K5"] + 2 and after["K5_bwd"] == before["K5_bwd"] + 2
                   and attention_counts(FA) == before_s,
                   f"K5 was not launched twice each way, or K1-K4 were ({tag})")
             ref, ref_lse = FA.cross_fwd_plain(q, kv, b_, q_, scale, h, bounded_scores=bounded)
-            ref_bwd = cross_plain_bwd(torch, FA, q, kv, b_, q_, lse, g, scale, h)
+            ref_bwd = cross_plain_bwd_both(torch, FA, q, kv, b_, q_, lse, out, g, scale, h)
             torch.cuda.synchronize()
             tol = OUT_TOL[name]
             err = (out.float() - ref.float()).abs().max().item()
@@ -2280,20 +2321,22 @@ def phase14(torch, FA, dev):
                   f"K5 dq / dkv dtype or shape ({tag})")
             check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
                   f"K5's dq or dkv differs between two runs ({tag})")
-            abs_err, msg = held_bwd(torch, "K5", tag, cross_parts(got), ref_bwd, BWD_TOL[name])
+            abs_err, msg = held_bwd_both(torch, "K5", tag, cross_parts(got), ref_bwd,
+                                         BWD_TOL[name])
             worst, n_cases = max(worst, err, abs_err), n_cases + 1
             if has_bias and has_qvb and not bounded:
                 print(f"  K5 {tag}: max|out-plain|={err:.3e} max|lse-plain|={lse_err:.3e}; "
                       f"{msg}", flush=True)
         del q, kv, g, bias, out, lse, got, again, ref, ref_bwd
-    print(f"  K5: {n_cases} cases within K1's and K2's bounds, dq and dkv bit-identical between "
-          f"two runs, worst max|plain diff| {worst:.3e}", flush=True)
+    print(f"  K5: {n_cases} cases within K1's and K2's bounds (the backward of both plain "
+          f"versions: the row sums recomputed, and formed from the output), dq and dkv "
+          f"bit-identical between two runs, worst max|plain diff| {worst:.3e}", flush=True)
     check(FA.cross_qkv_attention(torch.randn(1, 1, c, device=dev), torch.randn(1, 1, 2 * c,
                                  device=dev), None, None, scale, h).shape == (1, 1, c),
           "K5 at one query row and one key")
 
-    # NaN planted right before and right behind q, kv, g and the lse changes
-    # no bit of out, lse, dq or dkv
+    # NaN planted right before and right behind q, kv, g, the output and the
+    # lse changes no bit of out, lse, dq or dkv
     for dtype, (nq, nk) in itertools.product((torch.bfloat16, torch.float32),
                                              ((63, 577), (513, 1025))):
         q = torch.randn(2, nq, c, generator=gen, device=dev).to(dtype)
@@ -2302,20 +2345,21 @@ def phase14(torch, FA, dev):
         bias = torch.randn(h, nq, nk, generator=gen, device=dev) * 0.5
         out, lse = FA.cross_qkv_attention(q, kv, bias, None, scale, h, bounded_scores=False,
                                           want_lse=True)
-        got = FA.cross_qkv_attention_bwd(q, kv, bias, None, lse, g, scale, h)
+        got = FA.cross_qkv_attention_bwd(q, kv, bias, None, lse, g, scale, h, out=out)
         f_q, f_kv, f_g, f_lse = (fenced(torch, t) for t in (q, kv, g, lse))
         f_out, f_lse_out = FA.cross_qkv_attention(f_q, f_kv, bias, None, scale, h,
                                                   bounded_scores=False, want_lse=True)
-        f_got = FA.cross_qkv_attention_bwd(f_q, f_kv, bias, None, f_lse, f_g, scale, h)
+        f_got = FA.cross_qkv_attention_bwd(f_q, f_kv, bias, None, f_lse, f_g, scale, h,
+                                           out=fenced(torch, out))
         torch.cuda.synchronize()
         tag = f"{str(dtype)[6:]} Nq={nq} Nk={nk}"
         check(torch.equal(out, f_out) and torch.equal(lse, f_lse_out),
               f"K5 reads behind the end of q or kv ({tag})")
         check(torch.equal(got[0], f_got[0]) and torch.equal(got[1], f_got[1])
               and torch.isfinite(f_got[2]).all().item(),
-              f"K5's backward reads behind the end of q, kv, g or lse ({tag})")
-        print(f"  K5 {tag}: NaN planted around q, kv, g and lse changes no bit of out, lse, dq "
-              f"and dkv", flush=True)
+              f"K5's backward reads behind the end of q, kv, g, out or lse ({tag})")
+        print(f"  K5 {tag}: NaN planted around q, kv, g, out and lse changes no bit of out, lse, "
+              f"dq and dkv", flush=True)
         del q, kv, g, bias, got, f_got, f_q, f_kv, f_g
 
     # the S shards of K5 together against K3 and K4 of the whole sequence
@@ -2328,7 +2372,7 @@ def phase14(torch, FA, dev):
         qvb[1] = 0.0
         out, lse = FA.fused_qkv_attention(qkv, bias, qvb, None, scale, h, bounded_scores=True,
                                           want_lse=True)
-        dqkv, dbias, dqvb = FA.fused_qkv_attention_bwd(qkv, bias, qvb, lse, g, scale, h)
+        dqkv, dbias, dqvb = FA.fused_qkv_attention_bwd(qkv, bias, qvb, lse, g, scale, h, out=out)
         kv = qkv[..., c:].contiguous()
         outs, dqs, dkv, dbias_rows, dqvb_sum = [], [], 0.0, [], 0.0
         m = -(-n // s)
@@ -2338,7 +2382,7 @@ def phase14(torch, FA, dev):
             o_r, l_r = FA.cross_qkv_attention(q_r, kv, b_r, qvb, scale, h, bounded_scores=True,
                                               want_lse=True)
             dq_r, dkv_r, db_r, dqvb_r = FA.cross_qkv_attention_bwd(
-                q_r, kv, b_r, qvb, l_r, g[:, rows].contiguous(), scale, h)
+                q_r, kv, b_r, qvb, l_r, g[:, rows].contiguous(), scale, h, out=o_r)
             outs.append(o_r), dqs.append(dq_r), dbias_rows.append(db_r)
             dkv, dqvb_sum = dkv + dkv_r.float(), dqvb_sum + dqvb_r
         torch.cuda.synchronize()
@@ -2379,7 +2423,7 @@ def phase14(torch, FA, dev):
             g = torch.randn(bsz, nq, c, generator=gen, device=dev).to(torch.bfloat16)
             out, lse = FA.cross_qkv_attention(q, kv, bias, qvb, scale, h, bounded_scores=True,
                                               want_lse=True)
-            got = FA.cross_qkv_attention_bwd(q, kv, bias, qvb, lse, g, scale, h)
+            got = FA.cross_qkv_attention_bwd(q, kv, bias, qvb, lse, g, scale, h, out=out)
         else:
             out = FA.cross_qkv_attention(q, kv, bias, qvb, scale, h, bounded_scores=True)
         after = cross_counts(FA)
@@ -2400,8 +2444,8 @@ def phase14(torch, FA, dev):
         if train:
             lse_err = (lse - torch.cat([r[1] for r in refs])).abs().max().item()
             check(lse_err <= LSE_ATOL, f"K5 lse disagrees with the plain version ({tag})")
-            abs_err, msg = held_bwd(torch, "K5", tag, cross_parts(got), cross_plain_bwd(
-                torch, FA, q, kv, bias, qvb, lse, g, scale, h), BWD_TOL["bfloat16"])
+            abs_err, msg = held_bwd_both(torch, "K5", tag, cross_parts(got), cross_plain_bwd_both(
+                torch, FA, q, kv, bias, qvb, lse, out, g, scale, h), BWD_TOL["bfloat16"])
             worst = max(worst, abs_err)
             msg = f" max|lse-plain|={lse_err:.3e}; {msg}"
         worst = max(worst, err)
@@ -2420,16 +2464,16 @@ def phase14(torch, FA, dev):
     g_full = torch.randn(bsz, n, c, generator=gen, device=dev).to(torch.bfloat16)
     bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
     kv = qkv[..., c:].contiguous()
-    _, lse_full = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=True,
-                                         want_lse=True)
+    out_full, lse_full = FA.fused_qkv_attention(qkv, bias, None, None, scale, h,
+                                                bounded_scores=True, want_lse=True)
     fns, shards = {}, {}
     for s in (2, 4):
         nq = -(-n // s)
         q = qkv[:, :nq, :c].contiguous()
         b_r = bias[:, :nq].contiguous()
         g = g_full[:, :nq].contiguous()
-        _, lse = FA.cross_qkv_attention(q, kv, b_r, None, scale, h, bounded_scores=True,
-                                        want_lse=True)
+        out, lse = FA.cross_qkv_attention(q, kv, b_r, None, scale, h, bounded_scores=True,
+                                          want_lse=True)
         k_h = kv[..., :c].view(bsz, n, h, 64).transpose(1, 2)
         v_h = kv[..., c:].view(bsz, n, h, 64).transpose(1, 2)
         q_leaf = q.view(bsz, nq, h, 64).transpose(1, 2).detach().requires_grad_()
@@ -2438,16 +2482,17 @@ def phase14(torch, FA, dev):
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             q_leaf, *kv_leaves, attn_mask=mask_leaf, scale=scale)
         g_h = g.view(bsz, nq, h, 64).transpose(1, 2)
-        shards[s] = (q, b_r, g, lse, lib_out)
+        shards[s] = (q, b_r, g, lse, out, lib_out)
         fns[f"S={s} forward"] = (lambda q=q, b_r=b_r: FA.cross_qkv_attention(
             q, kv, b_r, None, scale, h, bounded_scores=True, want_lse=True))
-        fns[f"S={s} backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse: FA.cross_qkv_attention_bwd(
-            q, kv, b_r, None, lse, g, scale, h))
+        fns[f"S={s} backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse, out=out:
+                                  FA.cross_qkv_attention_bwd(q, kv, b_r, None, lse, g, scale, h,
+                                                             out=out))
         fns[f"S={s} plain forward"] = (lambda q=q, b_r=b_r: torch.cat([FA.cross_fwd_plain(
             q[i:i + 4], kv[i:i + 4], b_r, None, scale, h, bounded_scores=True)[0]
             for i in range(0, bsz, 4)]))
-        fns[f"S={s} plain backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse: cross_plain_bwd(
-            torch, FA, q, kv, b_r, None, lse, g, scale, h))
+        fns[f"S={s} plain backward"] = (lambda q=q, b_r=b_r, g=g, lse=lse, out=out: cross_plain_bwd(
+            torch, FA, q, kv, b_r, None, lse, out, g, scale, h))
         fns[f"S={s} library forward"] = (
             lambda q=q, mask=mask_leaf.detach(): torch.nn.functional.scaled_dot_product_attention(
                 q.view(bsz, -1, h, 64).transpose(1, 2), k_h, v_h, attn_mask=mask, scale=scale))
@@ -2460,20 +2505,24 @@ def phase14(torch, FA, dev):
         err = (got - ref).abs().max().item()
         check(torch.allclose(got, ref, atol=OUT_TOL["bfloat16"], rtol=OUT_TOL["bfloat16"]),
               f"K5 disagrees with the plain version at the timed S={s} shard ({err:.3e})")
-        abs_err, msg = held_bwd(torch, "K5", f"timed S={s}", cross_parts(fns[f"S={s} backward"]()),
-                                fns[f"S={s} plain backward"](), BWD_TOL["bfloat16"])
+        abs_err, msg = held_bwd_both(
+            torch, "K5", f"timed S={s}", cross_parts(fns[f"S={s} backward"]()),
+            cross_plain_bwd_both(torch, FA, q, kv, b_r, None, lse, out, g, scale, h),
+            BWD_TOL["bfloat16"])
         worst = max(worst, err, abs_err)
         print(f"  K5 at the S={s} shard B={bsz} Nq={nq} Nk={n}: max|out-plain|={err:.3e}; {msg}",
               flush=True)
     fns["K3 whole, with lse"] = lambda: FA.fused_qkv_attention(
         qkv, bias, None, None, scale, h, bounded_scores=True, want_lse=True)
     fns["K4 whole"] = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse_full, g_full, scale,
-                                                         h)
+                                                         h, out=out_full)
     best, runs = in_turns(fns, 5)
-    print(f"  K5 one shard at B={bsz} N={n} H={h} D=64 bf16 (bias, bounded; the backward reuses "
-          f"the padded bias copies of the call before), ms per call: {runs}", flush=True)
-    q, b_r, g, lse, _ = shards[2]
+    print(f"  K5 one shard at B={bsz} N={n} H={h} D=64 bf16 (bias, bounded), ms per call: {runs}",
+          flush=True)
+    q, b_r, g, lse, out, _ = shards[2]
     nq = q.shape[1]
+    # the function's own traffic: the backward's read of the output (for the
+    # row sums) is this design's, not the function's
     bound_ms, bound_by = bound(nbytes(q, kv, b_r) + nbytes(q, lse)  # forward: out, lse
                                + nbytes(q, kv, g, lse, b_r) + nbytes(q, kv, b_r),  # backward
                                14.0 * bsz * h * nq * n * 64, "bfloat16")

@@ -161,11 +161,12 @@ def test_plain_halves_from_jax_lse_match_jax_stream_kernels(stream_routes, bound
     FA.BOUNDED_SCORES = bounded
     seed = jnp.zeros((1,), jnp.int32)
     j = [_j(x) for x in (qkv, bias, qvb, g)]
-    _, lse = FA._stream_fwd_impl(j[0], j[1], j[2], seed, SCALE, H, 0.0, want_lse=True)
+    out, lse = FA._stream_fwd_impl(j[0], j[1], j[2], seed, SCALE, H, 0.0, want_lse=True)
     dqkv, dbias, dqvb = FA._stream_bwd_impl(j[0], j[1], j[2], seed, lse, j[3], SCALE, H, 0.0)
     lse_bhn = _t(np.array(lse).transpose(0, 1, 3, 2).reshape(B, H, N))
     t = [_t(x) for x in (qkv, bias, qvb)]
-    dq, got_dbias, c = TFA.stream_bwd_dq_plain(*t, lse_bhn, _t(g), SCALE, H)
+    dq, got_dbias, c = TFA.stream_bwd_dq_plain(*t, lse_bhn, _t(g), SCALE, H,
+                                               out=_t(np.array(out)))
     dk, dv = TFA.stream_bwd_dkv_plain(*t, lse_bhn, c, _t(g), SCALE, H)
     assert tuple(c.shape) == (B, H, N) and c.dtype == torch.float32
     ref = np.asarray(dqkv)
@@ -181,11 +182,16 @@ def test_plain_halves_from_jax_lse_match_jax_stream_kernels(stream_routes, bound
 def test_plain_halves_match_the_fused_plain_backward(dtype, rate):
     """The two halves compute the function ``fused_qkv_attention_bwd_plain``
     computes: the same products on the same rounded operands, the row sums
-    handed from the first half to the second."""
+    handed from the first half to the second. Without the forward's output
+    the first half sums t over the keys as the fused backward does, and the
+    halves equal it to the bit; given the output it forms the row sums as
+    g·o, and dq and dbias then differ from it only by those sums' rounding
+    (f32: 1e-5; bf16: o rounded to bf16, K2's bound)."""
     qkv, bias, qvb, g = _inputs(seed=4, n=50)
     qkv_t, g_t = _t(qkv).to(dtype), _t(g).to(dtype)
     seed = _seed() if rate > 0 else None
-    _, lse = TFA.stream_fwd_plain(qkv_t, _t(bias), _t(qvb), SCALE, H, bounded_scores=False)
+    out, lse = TFA.stream_fwd_plain(qkv_t, _t(bias), _t(qvb), SCALE, H, bounded_scores=False,
+                                    seed=seed, dropout_rate=rate)
     ref = TFA.fused_qkv_attention_bwd_plain(qkv_t, _t(bias), _t(qvb), lse, g_t, SCALE, H,
                                             seed=seed, dropout_rate=rate)
     dq, dbias, c = TFA.stream_bwd_dq_plain(qkv_t, _t(bias), _t(qvb), lse, g_t, SCALE, H,
@@ -195,9 +201,18 @@ def test_plain_halves_match_the_fused_plain_backward(dtype, rate):
     assert dq.dtype == dk.dtype == dv.dtype == dtype and dbias.dtype == torch.float32
     torch.testing.assert_close(torch.cat([dq, dk, dv], dim=-1), ref[0], rtol=0, atol=0)
     torch.testing.assert_close(dbias, ref[1], rtol=1e-6, atol=1e-6)
+    # the row sums from the output, as the CUDA kernels form them
+    dq, dbias, c = TFA.stream_bwd_dq_plain(qkv_t, _t(bias), _t(qvb), lse, g_t, SCALE, H, out=out,
+                                           seed=seed, dropout_rate=rate)
+    dk, dv = TFA.stream_bwd_dkv_plain(qkv_t, _t(bias), _t(qvb), lse, c, g_t, SCALE, H,
+                                      seed=seed, dropout_rate=rate)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, r in ((dq, ref[0][..., :C]), (dk, ref[0][..., C:2 * C]), (dv, ref[0][..., 2 * C:]),
+                   (dbias, ref[1])):
+        assert (got.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
     # a batch slice of either half is the slice of the batch (its mask by image0)
     dq1, _, c1 = TFA.stream_bwd_dq_plain(qkv_t[1:], _t(bias), _t(qvb), lse[1:], g_t[1:], SCALE, H,
-                                         seed=seed, dropout_rate=rate, image0=1)
+                                         out=out[1:], seed=seed, dropout_rate=rate, image0=1)
     dk1, dv1 = TFA.stream_bwd_dkv_plain(qkv_t[1:], _t(bias), _t(qvb), lse[1:], c1, g_t[1:], SCALE,
                                         H, seed=seed, dropout_rate=rate, image0=1)
     for a, r in ((dq1, dq[1:]), (dk1, dk[1:]), (dv1, dv[1:]), (c1, c[1:])):
@@ -230,7 +245,7 @@ def test_stream_route_backward_replays_the_forward_mask(stream_routes):
     assert abs(inner - 2.0 * f.item()) <= 1e-5 * 2.0 * f.item()
     out2, lse = TFA.fused_qkv_attention(data, None, None, _seed(), SCALE, H, 0.3,
                                         bounded_scores=False, want_lse=True)
-    wrong = TFA.fused_qkv_attention_bwd(data, None, None, lse, 2.0 * out2, SCALE, H,
+    wrong = TFA.fused_qkv_attention_bwd(data, None, None, lse, 2.0 * out2, SCALE, H, out=out2,
                                         seed=_seed(99), dropout_rate=0.3)[0]
     inner_wrong = (wrong[..., 2 * C:].double() * data[..., 2 * C:].double()).sum().item()
     assert abs(inner_wrong - 2.0 * f.item()) > 1e-3 * 2.0 * f.item()
@@ -265,7 +280,8 @@ def test_stream_launchers_reject_non_cuda_tensors():
     with pytest.raises(ValueError):
         TFA._launch_stream(_t(qkv), _t(bias), None, SCALE, H, False, True)
     with pytest.raises(ValueError):
-        TFA._launch_stream_bwd(_t(qkv), _t(bias), None, torch.zeros(B, H, N), _t(g), SCALE, H, True)
+        TFA._launch_stream_bwd(_t(qkv), _t(bias), None, torch.zeros(B, H, N), _t(g), _t(g), SCALE,
+                               H, True)
 
 
 def test_padded_bias_copies_are_reused_only_for_the_same_values():
@@ -300,11 +316,11 @@ def test_stream_kernels_match_plain_on_card(cuda_device, dtype, n):
     fwd, bwd = TFA.fused_qkv_attention.stream_launches, TFA.fused_qkv_attention_bwd.stream_launches
     out, lse = TFA.fused_qkv_attention(qkv_t, bias_t, qvb_t, None, SCALE, H,
                                        bounded_scores=False, want_lse=True)
-    got = TFA.fused_qkv_attention_bwd(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
+    got = TFA.fused_qkv_attention_bwd(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H, out=out)
     assert TFA.fused_qkv_attention.stream_launches == fwd + 1
     assert TFA.fused_qkv_attention_bwd.stream_launches == bwd + 1
     ref_out, _ = TFA.stream_fwd_plain(qkv_t, bias_t, qvb_t, SCALE, H, bounded_scores=False)
-    dq, dbias, c = TFA.stream_bwd_dq_plain(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
+    dq, dbias, c = TFA.stream_bwd_dq_plain(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H, out=out)
     dk, dv = TFA.stream_bwd_dkv_plain(qkv_t, bias_t, qvb_t, lse, c, g_t, SCALE, H)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)

@@ -111,10 +111,11 @@ def test_cross_function_grads_equal_autograd_of_plain():
     TFA.cross_fwd_plain(*plain, SCALE, H, bounded_scores=False)[0].backward(_t(g))
     for a, b in zip(leaves, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
-    _, lse = TFA.cross_fwd_plain(_t(q), _t(kv), _t(bias), _t(qvb), SCALE, H,
-                                 bounded_scores=False)
+    out, lse = TFA.cross_fwd_plain(_t(q), _t(kv), _t(bias), _t(qvb), SCALE, H,
+                                   bounded_scores=False)
     dq, dkv, dbias, dqvb = TFA.cross_qkv_attention_bwd(_t(q), _t(kv), _t(bias), _t(qvb), lse,
-                                                       _t(g), SCALE, H, want_dbias=False)
+                                                       _t(g), SCALE, H, out=out,
+                                                       want_dbias=False)
     assert dbias is None and torch.equal(dq, leaves[0].grad) and torch.equal(dkv, leaves[1].grad)
     assert torch.equal(dqvb, TFA.cross_qv_bias_grad(dq, dkv))
 
@@ -134,8 +135,8 @@ def test_cross_plain_halves_are_the_packed_plain_versions(with_qvb):
     out, lse = TFA.cross_fwd_plain(q, kv, bias, qvb, SCALE, H, bounded_scores=False)
     ref_out, ref_lse = TFA.stream_fwd_plain(qkv, bias, qvb, SCALE, H, bounded_scores=False)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
-    dq, dbias, c = TFA.cross_bwd_dq_plain(q, kv, bias, qvb, lse, g, SCALE, H)
-    ref_dq, ref_dbias, ref_c = TFA.stream_bwd_dq_plain(qkv, bias, qvb, lse, g, SCALE, H)
+    dq, dbias, c = TFA.cross_bwd_dq_plain(q, kv, bias, qvb, lse, g, SCALE, H, out=out)
+    ref_dq, ref_dbias, ref_c = TFA.stream_bwd_dq_plain(qkv, bias, qvb, lse, g, SCALE, H, out=out)
     assert torch.equal(dq, ref_dq) and torch.equal(dbias, ref_dbias) and torch.equal(c, ref_c)
     dkv = TFA.cross_bwd_dkv_plain(q, kv, bias, qvb, lse, c, g, SCALE, H)
     dk, dv = TFA.stream_bwd_dkv_plain(qkv, bias, qvb, lse, c, g, SCALE, H)
@@ -154,14 +155,15 @@ def test_cross_launchers_reject_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TFA._launch_cross(_t(q), _t(kv), _t(bias), None, SCALE, H, False, True)
     with pytest.raises(ValueError, match="CUDA"):
-        TFA._launch_cross_bwd(_t(q), _t(kv), _t(bias), None, torch.zeros(B, H, 7), _t(g), SCALE,
-                              H, True)
+        TFA._launch_cross_bwd(_t(q), _t(kv), _t(bias), None, torch.zeros(B, H, 7), _t(g), _t(g),
+                              SCALE, H, True)
 
 
 @pytest.mark.parametrize("nq,nk", [(7, 13), (8, 13), (7, 12)])
 def test_padded_bias_copies_take_both_counts(nq, nk):
     """[H, Nq, Nk + Nk % 2] and the transpose [H, Nk, Nq + Nq % 2], zero in
-    the padding: the pitches K5's backward kernels are given."""
+    the padding (the copies K2 reads; K5's kernels read the bias as it
+    stands)."""
     bias = torch.from_numpy(_inputs(nq, nk)[2])
     bias_p, bias_t = TFA._padded_bias(bias)
     assert tuple(bias_p.shape) == (H, nq, nk + nk % 2)
@@ -188,11 +190,13 @@ def test_cross_kernels_match_plain_on_card(cuda_device, dtype, nq, nk):
     fwd, bwd = TFA.cross_qkv_attention.launches, TFA.cross_qkv_attention_bwd.launches
     out, lse = TFA.cross_qkv_attention(q_t, kv_t, bias_t, qvb_t, SCALE, H, bounded_scores=False,
                                        want_lse=True)
-    dq, dkv, dbias, _ = TFA.cross_qkv_attention_bwd(q_t, kv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
+    dq, dkv, dbias, _ = TFA.cross_qkv_attention_bwd(q_t, kv_t, bias_t, qvb_t, lse, g_t, SCALE, H,
+                                                    out=out)
     assert TFA.cross_qkv_attention.launches == fwd + 1
     assert TFA.cross_qkv_attention_bwd.launches == bwd + 1
     ref_out, _ = TFA.cross_fwd_plain(q_t, kv_t, bias_t, qvb_t, SCALE, H, bounded_scores=False)
-    ref_dq, ref_dbias, c = TFA.cross_bwd_dq_plain(q_t, kv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
+    ref_dq, ref_dbias, c = TFA.cross_bwd_dq_plain(q_t, kv_t, bias_t, qvb_t, lse, g_t, SCALE, H,
+                                                  out=out)
     ref_dkv = TFA.cross_bwd_dkv_plain(q_t, kv_t, bias_t, qvb_t, lse, c, g_t, SCALE, H)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)

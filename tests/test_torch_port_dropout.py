@@ -511,8 +511,12 @@ def test_kernel_sources_share_the_generator_header():
         assert '#include "attention_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     for name in quant:
         assert '#include "quant_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
+    # the two streaming kernels share their TMA, mbarrier and wgmma pieces
+    for name in ("flash_attention_stream_fwd", "flash_attention_stream_bwd"):
+        assert '#include "hopper_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     headers = {p.name for p in _native.CSRC.glob("*.cuh")}
-    assert headers == {"philox.cuh", "attention_common.cuh", "quant_common.cuh"}
+    assert headers == {"philox.cuh", "attention_common.cuh", "quant_common.cuh",
+                       "hopper_common.cuh"}
     # every header enters every library's hash
     digest = _native._digest(_native.CSRC / "dropout.cu")
     assert len(digest) == 16 and sorted(p.stem for p in _native.CSRC.glob("*.cu")) == sorted(

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's ViT-B/16 224 finetune train step on one card.
+"""Profile the PyTorch port's finetune train step on one card.
 
     python3 tools/torch_port_profile_train.py [--plain] [--quant int8]
+        [--model beit_large_patch16_512]
 
 Builds the train step as chip_smoke.py phase 4 does (bench.py's
-configuration: shared rel-pos bias, layer scale 0.1, drop-path 0.1, batch
-mixup, AdamW with layer decay 0.65, bounded-scores softmax, bf16 compute on
-f32 params, seeded random weights and images) at batch 160, runs 3 warm-up
-steps, times 3 steps, then records 3 more under torch.profiler (CPU and CUDA
-activities).
+configuration: ViT-B/16 224, shared rel-pos bias, layer scale 0.1,
+drop-path 0.1, batch mixup, AdamW with layer decay 0.65, bounded-scores
+softmax, bf16 compute on f32 params, seeded random weights and images) at
+batch 160, or with ``--model beit_large_patch16_512`` phase 9's step (ViT-L/16
+512, N = 1025: layer decay 0.75, batch 8, K3 and K4 24 launches a step),
+runs 3 warm-up steps, times 3 steps, then records 3 more under
+torch.profiler (CPU and CUDA activities).
 Prints the card, the step time, the device busy share (summed kernel time
 over the window's wall time), the CUDA time by operator and a coarse split
 by kernel class, and writes the Chrome trace to
-chiprun_out/profile_train_step.json. ``--plain`` profiles the plain
+chiprun_out/profile_train_step_<model>.json. ``--plain`` profiles the plain
 attention path instead of the K1/K2 kernels; ``--quant int8`` the step with
 the int8 trunk (K6 and K7). Needs a CUDA card.
 """
@@ -28,9 +31,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-BATCH, STEPS = 160, 3
+STEPS = 3
+# model → (batch, layer decay, image side)
+MODELS = {"beit_base_patch16_224": (160, 0.65, 224), "beit_large_patch16_512": (8, 0.75, 512)}
 # kernel-name fragments → class, first match wins
 CLASSES = (
+    ("stream_fwd", "K3 streaming attention forward"),
+    ("stream_bwd_dq", "K4 kernel 1 (dq, dbias)"), ("stream_bwd_dkv", "K4 kernel 2 (dk, dv)"),
     ("attention_fwd", "K1 attention forward"),
     ("attention_bwd", "K2 attention backward"),
     ("quant_fwd_kernel", "K6 int8 matmul (forward, dgrad)"),
@@ -52,7 +59,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--model", choices=sorted(MODELS), default="beit_base_patch16_224")
     args = ap.parse_args()
+    batch, layer_decay, side = MODELS[args.model]
 
     import torch
 
@@ -78,18 +87,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     FA.BOUNDED_SCORES = True
     dev = torch.device("cuda", 0)
-    cfg = get_preset("beit_base_patch16_224", use_shared_rel_pos_bias=True,
+    cfg = get_preset(args.model, use_shared_rel_pos_bias=True,
                      drop_path_rate=0.1, init_values=0.1, use_flash_attention=not args.plain,
                      quant=args.quant)
     gen = torch.Generator(device=dev).manual_seed(2)
     model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
     trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
-    opt = make_optimizer(model, weight_decay=0.05, layer_decay=0.65, depth=cfg.depth)
+    opt = make_optimizer(model, weight_decay=0.05, layer_decay=layer_decay, depth=cfg.depth)
     step = make_finetune_train_step(model, opt, FinetuneHParams(num_classes=cfg.num_classes),
                                     cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500))
     state = init_finetune_state(model, opt)
-    images = torch.randn(BATCH, 224, 224, 3, generator=gen, device=dev)
-    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=gen, device=dev)
+    images = torch.randn(batch, side, side, 3, generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=dev)
     g_dev, g_cpu = torch.Generator(device=dev).manual_seed(3), torch.Generator().manual_seed(3)
 
     for _ in range(3):
@@ -108,7 +117,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace("chiprun_out/profile_train_step.json")
+    prof.export_chrome_trace(f"chiprun_out/profile_train_step_{args.model}.json")
 
     # kernels and copies only: an optimizer's ``record_function`` range is
     # mirrored onto the device timeline and would count its kernels twice
@@ -119,9 +128,9 @@ def main() -> int:
     for e in events:
         cls = next((c for frag, c in CLASSES if frag in e.name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + e.time_range.elapsed_us()
-    print(f"path: {'plain attention' if args.plain else 'K1/K2 kernels'}, quant {args.quant}, "
-          f"batch {BATCH}", flush=True)
-    print(f"step {step_ms:.2f} ms unprofiled ({BATCH * 1000 / step_ms:.1f} img/s); "
+    print(f"{args.model}, path: {'plain attention' if args.plain else 'attention kernels'}, "
+          f"quant {args.quant}, batch {batch}", flush=True)
+    print(f"step {step_ms:.2f} ms unprofiled ({batch * 1000 / step_ms:.1f} img/s); "
           f"profiled window {wall_ms:.1f} ms for {STEPS} steps, "
           f"CUDA kernel time {total_us / 1000:.1f} ms, busy share {total_us / 1000 / wall_ms:.3f}",
           flush=True)

@@ -1,9 +1,11 @@
 // Device code shared by the four attention kernels (the fused forward and
 // backward, the streaming forward and the split streaming backward): type
-// conversions, warp reductions, the q/v bias add, cp.async, ldmatrix and
-// mma.sync m16n8k16 wrappers, and the 16-row fragment products that keep p
-// and ds in registers. Everything here is inlined into its caller; nothing
-// is launched from this file.
+// conversions, warp reductions, the q/v bias add, cp.async (and the
+// streaming kernels' 4-byte copy of a bias tile), ldmatrix and mma.sync
+// m16n8k16 wrappers, the 16-row fragment products that keep p and ds in
+// registers, and the FMA kernels' f32 tile products. Everything here is
+// inlined into its caller; nothing is launched from this file. The streaming
+// kernels' Hopper pieces (TMA, mbarriers, wgmma) are in hopper_common.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t): an accumulator
 // holds rows g and g + 8, columns 2t and 2t + 1 of each 8-column block, so
@@ -62,6 +64,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16-byte async copy global → shared; src_bytes = 0 zero-fills.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+// 4-byte async copy global → shared (for f32 rows whose pitch is no
+// multiple of 16 bytes); src_bytes = 0 zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -170,26 +178,29 @@ __device__ __forceinline__ void load_slab_rows(T* dst, int ld, const T* src, siz
   }
 }
 
-// 64 rows x 64 bf16 of one head's slab, rows [row0, row0 + 64), into a
-// shared tile with cp.async (8 chunks of 16 B per row); rows >= n are
-// zero-filled and never read.
-__device__ __forceinline__ void cp_async_tile64(bf16* dst, const bf16* src, size_t ld_src, int n,
-                                                int row0, int tid, int nthreads) {
-  for (int i = tid; i < 64 * 8; i += nthreads) {
-    const int r = i >> 3, ch = (i & 7) * 8;
-    const int row = row0 + r;
-    const bool ok = row < n;
-    cp_async16(smem_u32(dst + r * kLd + ch), src + size_t(ok ? row : 0) * ld_src + ch, ok ? 16 : 0);
-  }
-}
-
-// Adds a q/v bias row, in bf16, to the chunks of a tile that this thread
-// copied with cp_async_tile64 (after its cp.async group has landed).
-__device__ __forceinline__ void bias_tile64(bf16* dst, const float* bias_row, int n, int row0,
-                                            int tid, int nthreads) {
-  for (int i = tid; i < 64 * 8; i += nthreads) {
-    const int r = i >> 3, ch = (i & 7) * 8;
-    if (row0 + r < n) add_qv_bias(dst + r * kLd + ch, bias_row + ch);
+// Rows [r0, r0 + rows) x columns [c0, c0 + 64) of one head's f32 bias
+// (`bias_h` [nr][nc], pitch nc) into a shared tile of `ld` words per row
+// with 4-byte cp.async (the model's bias rows lie 4 * N bytes apart, N odd:
+// no wider copy can read them as they stand). Thread `tid` of `nthreads` (a
+// multiple of 64) copies column tid % 64 of every (nthreads / 64)-th row, so
+// a warp copies 32 neighbouring columns of one row, and its addresses only
+// step. Entries outside nr x nc are neither read nor written: the tile keeps
+// whatever it held there, and every reader masks those rows and columns.
+__device__ __forceinline__ void cp_async_bias_tile(float* dst, int ld, const float* bias_h, int nr,
+                                                   int nc, int r0, int rows, int c0, int tid,
+                                                   int nthreads) {
+  const int col = tid & 63, step = nthreads >> 6;
+  if (c0 + col >= nc) return;
+  const int r_end = min(rows, nr - r0);
+  const float* src = bias_h + size_t(r0 + (tid >> 6)) * nc + c0 + col;
+  uint32_t d = smem_u32(dst + (tid >> 6) * ld + col);
+  const size_t src_step = size_t(step) * nc;
+  const uint32_t dst_step = uint32_t(step * ld) * sizeof(float);
+#pragma unroll 4
+  for (int r = tid >> 6; r < r_end; r += step) {
+    cp_async4(d, src, 4);
+    src += src_step;
+    d += dst_step;
   }
 }
 

@@ -9,139 +9,110 @@
 // ViT-L/16 512) (K4), and through `_cross_bwd_impl` (:1179-1250, the same two
 // bodies) from the custom VJP of `cross_qkv_attention` (K5): Nq query rows of
 // one sequence-parallel shard against all Nk gathered keys (Nq = Nk = N for
-// packed qkv). Per (image, head), from the forward's row log-sum-exp and the
-// output cotangent g:
+// packed qkv). Per (image, head), from the forward's row log-sum-exp, its
+// output o and the output cotangent g:
 //   p   = exp(scale * q k^T + bias[h] - lse)   (no max or row-sum recompute)
 //   p_d = p * keep * 1/(1 - rate)              (the forward's mask replayed;
 //                                               p_d = p without dropout)
-//   t   = (g v^T) * p_d,  c = rowsum(t),  ds = t - p * c
+//   c   = rowsum(p_d * (g v^T)) = g . o        (o = p_d v: no pass over the keys)
+//   ds  = p_d * (g v^T) - p * c
 //   dq  = ds_c k * scale                       kernel 1 (ds_c: ds in the input dtype)
 //   dbias[h] += ds                             kernel 1 (f32, summed over the batch)
 //   dk  = ds_c^T q * scale,  dv = p_d^T g      kernel 2 (summed over all query
 //                                               rows in f32, rounded once)
-// q and v carry the optional q/v bias, added in the input dtype.
+// q and v carry the optional q/v bias, added in the input dtype (in the
+// bf16 kernels in shared memory: to the resident tiles by the consumers,
+// to each streamed tile by the producer warpgroup before it hands the
+// stage over). The TPU kernels recompute c from whole rows; c from o is the
+// same function (FlashAttention-2's arrangement), formed in f32 from o as
+// the forward rounded it.
 //
-// What bounds it on an H100: at the ViT-L/16 512 train shape (B=8, N=1025,
-// H=16, D=64, bf16) the five products the math needs are 10*B*H*N^2*D =
-// 86 GFLOP, ~0.087 ms of tensor-core time at 989 TFLOP/s, against ~250 MB of
-// qkv, g, dqkv, bias and dbias, ~0.075 ms at 3.35 TB/s: the floor is the
-// tensor cores. This design runs ten products (the scores and g v^T are
-// recomputed in pass A, pass B and kernel 2), 3 x 134M exponentials, 67M
-// 8-byte f32 atomics into dbias and three walks of the 67 MB bias, so it is
-// bounded by its recomputation and by the atomics, not by device memory.
+// What bounds it on an H100 (80GB HBM3, 700 W): at the ViT-L/16 512 train
+// shape (B=8, N=1025, H=16, D=64, bf16) the five products the math needs are
+// 10*B*H*N^2*D = 86 GFLOP, ~0.087 ms of tensor-core time at 989 TFLOP/s,
+// against ~250 MB of qkv, g, o, dqkv, bias and dbias, ~0.075 ms at 3.35
+// TB/s: the floor is the tensor cores. This design runs seven products (s and
+// g v^T in both kernels), 2 x 134M exponentials, 34M 16-byte f32 atomics
+// into dbias and two walks of the 67 MB bias through L2 per image.
 //
 // Design. What the TPU gets free and the card does not:
 //   - The row sum c crosses the two kernels. On the TPU both kernels hold
 //     whole rows and each recomputes c. Here kernel 2 is key-major: a block
-//     owns 128 keys and streams the queries, never sees a whole row, and
-//     cannot form c. So kernel 1 (query-major: a block owns 128 query rows of
-//     one (image, head), each warp 16 of them, and streams k/v in 64-row
-//     tiles, twice: pass A for c, pass B for ds, dq and dbias) writes c =
-//     rowsum(t), in f32 as the TPU kernels compute it, to a [B, H, Nq] buffer
-//     that kernel 2 reads beside the lse. Kernel 2's blocks own keys and walk
-//     all Nq query rows.
+//     owns 128 keys and streams the queries, never sees a whole row. Kernel 1
+//     (query-major: a block owns 128 query rows of one (image, head) and
+//     streams k/v in 64-row tiles, once) forms c = g . o for its rows before
+//     its first tile, uses it for ds, and writes it to a [B, H, Nq] buffer
+//     that kernel 2 reads beside the lse. The earlier mma.sync kernel 1
+//     streamed k/v twice (a pass for c, a pass for ds): ten products where
+//     seven do.
 //   - dbias sums over the batch and blocks run in no order: each block adds
-//     its ds pairs into a zeroed [H, Nq, ldb] f32 buffer with 8-byte atomics,
-//     as the fused backward does. Measured on an H100 at B=8 the atomics,
-//     the buffer's memset and its unpadding copy cost 0.21 ms of 1.56; the
-//     alternative, a block that owns a (head, q tile, k tile) and loops over
-//     the batch with ds in registers, would make dq the sum that crosses
-//     blocks and was not built. The bits of dbias vary from run to run; dq,
-//     dk and dv do not.
+//     its ds into a zeroed [H, Nq, ldb] f32 buffer, four columns in one
+//     16-byte atomic after a shuffle between neighbouring threads (measured
+//     0.728 ms for K4 against 0.763 with 8-byte atomics of pairs). The bits
+//     of dbias vary from run to run; dq, dk and dv do not.
 //   - Block order (attention_common.cuh): (tile, image, head), so the tiles
 //     of one (image, head) share the slabs they stream and the images of one
 //     head share its bias in L2, and the adds to one dbias strip stay within
-//     a head; measured 1.56 ms against 1.62 with the image fastest and 1.93
-//     in the fused forward's order.
+//     a head.
 //   - dk and dv accumulate over all query tiles in f32 registers and are
 //     rounded once at the store (:845-852, :1032-1033).
 //   - Ragged tails feed sums here (:815-839): N = 577 and 1025 are 1 mod 64.
-//     Rows >= Nq of q and g and >= Nk of k and v are zero-filled in shared
-//     memory and never read from device memory, and p is forced to 0 outside
-//     Nq x Nk, so nothing behind a tensor's end reaches dk += ds^T q or
+//     Rows >= Nq of q and g and >= Nk of k and v arrive as zeros from TMA
+//     (per-image tensor maps), and p is forced to 0 outside Nq x Nk in a tile
+//     on the edge, so nothing behind a tensor's end reaches dk += ds^T q or
 //     dv += p_d^T g.
-//   - q, k, v, g and dq, dk, dv go through separate base pointers and row
+//   - q, k, v, g, o and dq, dk, dv go through separate base pointers and row
 //     pitches, as the TPU kernels read q, k and v through separate refs
 //     (:1046-1052); the packed [B, N, 3C] layout is one choice of pointers.
-//   bf16: mma.sync m16n8k16 fed by ldmatrix; the streamed tiles are
-//     double-buffered by cp.async; p and ds stay in registers (the C fragment
-//     of a 16-column product, packed, is the A fragment of the next). 8 warps
-//     at 128 registers, two blocks per SM.
-//   f32: FMA loops over shared-memory tiles (no TF32), 64-row tiles.
-// The bias is read in column pairs from a copy with an even row pitch ldb,
-// and in kernel 2 from a transposed copy of even pitch ldbt, so both kernels
-// read along rows.
+//   bf16 (sm_90a): one producer warpgroup and two consumer warpgroups of 64
+//     rows a block, one block an SM, a three-stage ring. The producer's
+//     first thread loads the resident tiles (kernel 1: q and g; kernel 2: k
+//     and v) and each streamed tile (k/v; q/g) by TMA; its 128 threads copy
+//     the f32 bias tile beside them with 4-byte cp.async (the bias rows lie
+//     4100 bytes apart at N = 1025) and, in kernel 2, the tile's lse and c.
+//     Every product is wgmma m64n64k16: kernel 1 s = q k^T and dp = g v^T
+//     from shared memory, dq += ds k with ds packed to bf16 in registers as
+//     the A operand and k read through the transpose; kernel 2 s^T = k q^T
+//     and dp^T = v g^T, then dv += p_d^T g and dk += ds^T q, p_d^T and ds^T
+//     in registers. Kernel 2 reads its bias tile transposed, from shared
+//     memory (a column per fragment row, pitch 132 words: conflict-free):
+//     no transposed copy of the bias exists. Measured on an H100 80GB HBM3
+//     at 700 W, B=8 (tools/torch_port_stream_ab.py): 0.73 ms against 1.56
+//     for the earlier mma.sync pair.
+//     Not kept: a two-stage ring (0.75 against 0.73), the bias by TMA from a
+//     16-byte-pitched copy (0.89 against 0.78; see PERF.md); the q/v bias
+//     added by the consumers between the products, or in a copy of qkv
+//     made by the caller (see PERF.md).
+//   f32: FMA loops over shared-memory tiles (no TF32), 64-row tiles; kernel
+//     1 still forms c by a pass over the keys and does not read o.
 // The mask replay is philox::fragment_bits, query-major in kernel 1 and
 // key-major in kernel 2, in separate instantiations (kDrop).
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kTile = 64;              // rows of a streamed tile
-constexpr int kWarpsB = 8;             // bf16: warps per block, 16 rows each
-constexpr int kThreadsB = kWarpsB * 32;
-constexpr int kOwnB = kWarpsB * 16;    // rows a bf16 block owns
 constexpr int kWarpsF = 4;             // f32
 constexpr int kThreadsF = kWarpsF * 32;
 constexpr int kOwnF = kWarpsF * kRowsF;
 
 struct BwdArgs {
-  const void *q, *k, *v, *g;  // each at column 0 of head 0 in row 0 of image 0
+  const void *q, *k, *v, *g, *o;  // each at column 0 of head 0 in row 0 of image 0
   void *dq, *dk, *dv;
-  long long ldq, ldkv, ldg, lddq, lddkv;  // row pitches, elements
-  const float* bias;     // [H, Nq, ldb] or null
-  const float* bias_t;   // its transpose, [H, Nk, ldbt], or null
+  long long ldq, ldkv, ldg, ldo, lddq, lddkv;  // row pitches, elements
+  const float* bias;     // [H, Nq, Nk] or null
   const float* qv_bias;  // [3, C] or null
   const float* lse;      // [B, H, Nq]
   float* c;              // [B, H, Nq]: written by kernel 1, read by kernel 2
-  float* dbias;          // [H, Nq, ldb], zeroed by the caller, or null
+  float* dbias;          // [H, Nq, ldb] (ldb a multiple of 4), zeroed by the caller, or null
   const long long* seed;
-  int nq, nk, ldb, ldbt, num_heads;
+  int nq, nk, ldb, num_heads;
   float scale, inv_keep;
   uint32_t threshold;
 };
-
-// Bias pairs of the 16 x 16 tile at (r0, c0) of bm ([rows][ldb], ldb even):
-// bv[nb][i] holds columns c0 + nb*8 + 2t, +1 of row r0 + g + 8i, 0 where the
-// pair starts outside the rows x cols bias.
-__device__ __forceinline__ void load_bias(float2 (&bv)[2][2], const float* bm, int rows, int cols,
-                                          int ldb, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + g + 8 * i, col = c0 + nb * 8 + 2 * t;
-      bv[nb][i] = (bm != nullptr && r < rows && col < cols)
-                      ? __ldg(reinterpret_cast<const float2*>(bm + size_t(r) * ldb + col))
-                      : make_float2(0.0f, 0.0f);
-    }
-  }
-}
-__device__ __forceinline__ float bias_at(const float2 (&bv)[2][2], int nb, int e) {
-  const float2 v = bv[nb][e >> 1];
-  return (e & 1) ? v.y : v.x;
-}
-
-// pd = p * keep * 1/(1 - rate) for a 16 x 16 fragment pair whose first
-// fragment row is a_lo and first column c0 (query-major), or whose rows are
-// keys and columns queries (kTransposed).
-template <bool kTransposed>
-__device__ __forceinline__ void dropped(float (&pd)[2][4], const float (&p)[2][4],
-                                        philox::Key key, uint32_t bh, int a_lo, int c0,
-                                        uint32_t threshold, float inv_keep) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb) {
-    uint32_t bits[4];
-    philox::fragment_bits<kTransposed>(key, bh, a_lo, c0 + nb * 8 + 2 * t, bits);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) pd[nb][e] = p[nb][e] * philox::keep_scale(bits[e], threshold, inv_keep);
-  }
-}
 
 // Stores a warp's 16 x 64 f32 accumulator, times `mul`, as bf16 into rows
 // row0 + g and row0 + g + 8 of one head's slab (`dst` at the head's first
@@ -177,162 +148,283 @@ __device__ __forceinline__ void store_rows_f32(float* dst, size_t ld, const floa
   }
 }
 
-constexpr size_t kSmemB = size_t(4 * kTile + kWarpsB * 2 * 16) * kLd * sizeof(bf16);
-constexpr size_t kSmemDkvB = kSmemB + size_t(4 * kTile) * sizeof(float);
+// ---------------------------------------------------------------------------
+// bf16: one producer warpgroup (TMA for the resident and the streamed tiles,
+// 4-byte cp.async for the bias, lse and c tiles) and kWg consumer
+// warpgroups of 64 rows each (wgmma for every product, p and ds in
+// registers)
+// ---------------------------------------------------------------------------
+
+constexpr int kWg = 2;                // consumer warpgroups: a block owns 64 * kWg rows
+constexpr int kStages = 3;            // ring depth
+constexpr int kThreadsW = (kWg + 1) * 128;
+constexpr uint32_t kTileBytes = 64 * 64 * sizeof(bf16);  // one 64 x 64 bf16 TMA box
+constexpr uint32_t kResidentBytes = 2 * kWg * kTileBytes;  // kernel 1: q, g; kernel 2: k, v
+// kernel 1's bias tile: [64 kWg query rows][64 keys], pitch 72 words (float2
+// reads in fragment order conflict-free); kernel 2's: [64 query rows][64 kWg
+// keys], pitch 64 kWg + 4 words, read transposed (a column per fragment row:
+// the 2t * pitch + g offsets of a warp hit 32 distinct banks)
+constexpr int kLdBiasQ = kTile + 8;
+constexpr int kLdBiasK = 64 * kWg + 4;
+constexpr uint32_t kRound = 1024;
+constexpr uint32_t round_up(uint32_t x) { return (x + kRound - 1) / kRound * kRound; }
+constexpr uint32_t kStageDq = round_up(2 * kTileBytes + 64 * kWg * kLdBiasQ * sizeof(float));
+constexpr uint32_t kStageDkv =
+    round_up(2 * kTileBytes + (64 * kLdBiasK + 2 * 64) * sizeof(float));  // + lse, c
+constexpr size_t smem_bytes(uint32_t stage) {
+  return kResidentBytes + kStages * stage + (3 * kStages + 1) * sizeof(uint64_t) + 1024;
+}
+
+// The block's barriers after its tiles: full[], empty[], landed[] (with a
+// q/v bias: a streamed pair in, the bias not yet added) and one for the
+// resident tiles; the base rounded up to 1024 bytes for the swizzled tiles.
+struct Ring {
+  unsigned char* smem;
+  uint64_t *full, *empty, *landed, *resident;
+};
+__device__ __forceinline__ Ring ring_init(unsigned char* smem_raw, uint32_t stage,
+                                          uint32_t full_count) {
+  Ring r;
+  r.smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  r.full = reinterpret_cast<uint64_t*>(r.smem + kResidentBytes + kStages * stage);
+  r.empty = r.full + kStages;
+  r.landed = r.empty + kStages;
+  r.resident = r.landed + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&r.full[s], full_count);
+      mbar_init(&r.empty[s], kWg * 128);
+      mbar_init(&r.landed[s], 1);
+    }
+    mbar_init(r.resident, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// Stores a warpgroup accumulator (its warp's 16 rows of 64), times `mul`,
+// as bf16 rows row0 + g and row0 + g + 8 (row0: the warp's first row).
+__device__ __forceinline__ void store_acc_bf16(bf16* dst, size_t ld, const float (&acc)[32],
+                                               float mul, int n, int row0) {
+  store_rows_bf16(dst, ld, reinterpret_cast<const float(&)[kD / 8][4]>(acc), mul, n, row0);
+}
 
 // ---------------------------------------------------------------------------
-// kernel 1, bf16: c, dq, dbias. Query-major; k/v streamed twice.
+// kernel 1, bf16: c, dq, dbias. Query-major; k/v streamed once.
 // ---------------------------------------------------------------------------
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs a) {
-  constexpr int kTileElems = kTile * kLd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [2][kTile][kLd]
-  bf16* vs = ks + 2 * kTileElems;            // [2][kTile][kLd]
-  bf16* stage_w = vs + 2 * kTileElems;       // per warp [2][16][kLd]
+__global__ void __launch_bounds__(kThreadsW, 1)
+stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const float* bias_h = a.bias ? a.bias + size_t(blockIdx.z) * a.nq * a.nk : nullptr;
+  const Ring ring = ring_init(smem_raw, kStageDq, bias_h != nullptr ? 129 : 1);
+  unsigned char* smem = ring.smem;  // q tiles [kWg], g tiles [kWg], then the ring
+  const int wg = threadIdx.x >> 7;
+  int b, tile, h;
+  block_coords(b, tile, h);
+  const int nq = a.nq, nk = a.nk;
+  const int hc = h * kD;
+  const int q0 = tile * 64 * kWg;
+  const int n_tiles = (nk + kTile - 1) / kTile;
 
-  const int warp = threadIdx.x >> 5;
+  if (wg == kWg) {  // producer
+    const int ptid = threadIdx.x - kWg * 128;
+    const float* qvb_v = a.qv_bias != nullptr ? a.qv_bias + 2 * a.num_heads * kD + hc : nullptr;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(ring.resident, kResidentBytes);
+      for (int w = 0; w < kWg; ++w) {
+        tma_load_tile(smem + w * kTileBytes, &tm_q, ring.resident, hc, q0 + 64 * w, b);
+        tma_load_tile(smem + (kWg + w) * kTileBytes, &tm_g, ring.resident, hc, q0 + 64 * w, b);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      unsigned char* st = smem + kResidentBytes + s * kStageDq;
+      mbar_wait(&ring.empty[s], ((j / kStages) & 1) ^ 1);
+      if (ptid == 0) {
+        // with a q/v bias the pair lands for the hand-over first
+        uint64_t* bar = qvb_v != nullptr ? &ring.landed[s] : &ring.full[s];
+        mbar_arrive_expect_tx(bar, 2 * kTileBytes);
+        tma_load_tile(st, &tm_k, bar, hc, j * kTile, b);
+        tma_load_tile(st + kTileBytes, &tm_v, bar, hc, j * kTile, b);
+      }
+      if (bias_h != nullptr) {
+        cp_async_bias_tile(reinterpret_cast<float*>(st + 2 * kTileBytes), kLdBiasQ, bias_h, nq, nk,
+                           q0, 64 * kWg, j * kTile, ptid, 128);
+        mbar_arrive_cp_async(&ring.full[s]);
+      }
+      if (qvb_v != nullptr) {
+        hand_over_biased(st + kTileBytes, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_v,
+                         ptid);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  int b, tile, h;
-  block_coords(b, tile, h);
-  const int nq = a.nq, nk = a.nk, ldb = a.ldb;
-  const int c = a.num_heads * kD;
-  const int hc = h * kD;
-  const int r0 = tile * kOwnB + warp * 16;  // this warp's first query row
-  // a warp whose 16 rows all lie beyond Nq only helps with the copies (with
-  // 128-row tiles at N = 1025 that is a ninth of all warps)
-  const bool active = r0 < nq;
-  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * nq * a.ldq + hc;
-  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * nk * a.ldkv + hc;
-  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * nk * a.ldkv + hc;
-  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * nq * a.ldg + hc;
-  const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
-  const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * ldb : nullptr;
-  float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * ldb : nullptr;
+  const int r_local = wg * 64 + warp * 16 + g;
+  const int rows[2] = {q0 + r_local, q0 + r_local + 8};
   const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
+  float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * a.ldb : nullptr;
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  auto load_kv = [&](int stage, int k0) {
-    cp_async_tile64(ks + stage * kTileElems, k_img, a.ldkv, nk, k0, threadIdx.x, kThreadsB);
-    cp_async_tile64(vs + stage * kTileElems, v_img, a.ldkv, nk, k0, threadIdx.x, kThreadsB);
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // this warp's 16 query rows of q (+ q bias) and g, as A fragments
-  bf16* xs = stage_w + warp * 2 * 16 * kLd;
-  bf16* ys = xs + 16 * kLd;
-  load_slab_rows<bf16>(xs, kLd, q_img, a.ldq, qvb_q, nq, r0, 16, lane, 32);
-  load_slab_rows<bf16>(ys, kLd, g_img, a.ldg, nullptr, nq, r0, 16, lane, 32);
-  __syncwarp();
-  uint32_t qf[kD / 16][4], gf[kD / 16][4];
-  load_a_frags(xs, qf);
-  load_a_frags(ys, gf);
-  const int rows[2] = {r0 + g, r0 + g + 8};
-  float lrow[2];  // log2 units
+  // lse (log2 units) and c = rowsum(p_d * (g v^T)) = g . out (out = p_d v)
+  // of this thread's two rows: the four threads of a row sum 16 columns
+  // each in f32
+  float lrow[2], csum[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) lrow[i] = rows[i] < nq ? a.lse[bhn + rows[i]] * kLog2e : 0.0f;
-
-  float csum[2] = {0.0f, 0.0f};
-  float dq[kD / 8][4];
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
+    float part = 0.0f;
+    lrow[i] = 0.0f;
+    if (row < nq) {
+      lrow[i] = a.lse[bhn + row] * kLog2e;
+      const size_t img_row = size_t(b) * nq + row;
+      const bf16* grow = static_cast<const bf16*>(a.g) + img_row * a.ldg + hc + 16 * t;
+      const bf16* orow = static_cast<const bf16*>(a.o) + img_row * a.ldo + hc + 16 * t;
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
-
-  const int n_tiles = (nk + kTile - 1) / kTile;
-  for (int it = 0; it < 2 * n_tiles; ++it) {  // pass A over the tiles, then pass B
-    const bool pass_b = it >= n_tiles;
-    const int stage = it & 1;
-    const int k0 = (pass_b ? it - n_tiles : it) * kTile;
-    if (it + 1 < 2 * n_tiles) {
-      const int next = it + 1 >= n_tiles ? it + 1 - n_tiles : it + 1;
-      load_kv(stage ^ 1, next * kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // each thread biases the v chunks it copied
-    if (qvb_v != nullptr) {
-      bias_tile64(vs + stage * kTileElems, qvb_v, nk, k0, threadIdx.x, kThreadsB);
-    }
-    __syncthreads();
-    const bf16* kst = ks + stage * kTileElems;
-    const bf16* vst = vs + stage * kTileElems;
-
-    if (active) {
-      if (it == n_tiles) {  // pass A is done: c = rowsum(t), kept for pass B and kernel 2
+      for (int ch = 0; ch < 2; ++ch) {
+        const uint4 gu = *reinterpret_cast<const uint4*>(grow + 8 * ch);
+        const uint4 ou = *reinterpret_cast<const uint4*>(orow + 8 * ch);
+        const bf16* ge = reinterpret_cast<const bf16*>(&gu);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ou);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          csum[i] += __shfl_xor_sync(0xffffffffu, csum[i], 1);
-          csum[i] += __shfl_xor_sync(0xffffffffu, csum[i], 2);
-          if (t == 0 && rows[i] < nq) a.c[bhn + rows[i]] = csum[i];
-        }
+        for (int e = 0; e < 8; ++e) part = fmaf(to_f32(ge[e]), to_f32(oe[e]), part);
       }
-#pragma unroll 1
-      for (int kc = 0; kc < kTile / 16; ++kc) {
-        const int k16 = k0 + kc * 16;
-        float2 bcur[2][2];
-        load_bias(bcur, bias_h, nq, nk, ldb, r0, k16);
-        float s[2][4], dp[2][4];
-        mma_abt(s, qf, kst, kc * 16);
-        mma_abt(dp, gf, vst, kc * 16);
-        // fragment element (nb, e) is row rows[e >> 1], key k16 + nb*8 + 2t + (e & 1)
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    csum[i] = part;
+    if (t == 0 && row < nq) a.c[bhn + row] = part;
+  }
+
+  const uint64_t d_q = desc_sw128(smem + wg * kTileBytes);
+  const uint64_t d_g = desc_sw128(smem + (kWg + wg) * kTileBytes);
+  float dq[32];
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  mbar_wait(ring.resident, 0);
+  if (a.qv_bias != nullptr) {  // the q/v bias's q row, in bf16, on this warpgroup's q tile
+    add_qv_bias_sw128(smem + wg * kTileBytes, qv_bias_chunk(a.qv_bias + hc, threadIdx.x & 127),
+                      threadIdx.x & 127);
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kTile;
+    unsigned char* st = smem + kResidentBytes + s * kStageDq;
+    mbar_wait(&ring.full[s], (j / kStages) & 1);
+    const uint64_t d_k = desc_sw128(st);
+    const uint64_t d_v = desc_sw128(st + kTileBytes);
+
+    // s = q k^T and dp = g v^T (64 rows x 64 keys each)
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k16 + nb * 8 + 2 * t + (e & 1);
-            const float v = fmaf(bias_at(bcur, nb, e), kLog2e, s[nb][e] * sl2) - lrow[e >> 1];
-            s[nb][e] = (key < nk && rows[e >> 1] < nq) ? exp2f(v) : 0.0f;
-          }
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss<0>(sc, desc_add(d_q, 32 * kk), desc_add(d_k, 32 * kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss<0>(dp, desc_add(d_g, 32 * kk), desc_add(d_v, 32 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(sc);
+    wgmma_hold(dp);
+
+    // p = exp(s + bias - lse); element 4 nb + e is row rows[e >> 1], key
+    // k0 + nb*8 + 2t + (e & 1). The bias tile holds stale words outside
+    // Nq x Nk: p is zeroed there (only a tile on the edge has such entries).
+    const float* bst =
+        reinterpret_cast<const float*>(st + 2 * kTileBytes) + r_local * kLdBiasQ + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float2 bv = make_float2(0.0f, 0.0f);
+        if (bias_h != nullptr) {
+          bv = *reinterpret_cast<const float2*>(bst + i * 8 * kLdBiasQ + nb * 8);
         }
-        if (!pass_b) {  // c += rowsum(p_d * (g v^T))
-          if constexpr (kDrop) dropped<false>(s, s, pkey, bh, rows[0], k16, a.threshold, a.inv_keep);
+        sc[4 * nb + 2 * i] = exp2_approx(fmaf(bv.x, kLog2e, sc[4 * nb + 2 * i] * sl2) - lrow[i]);
+        sc[4 * nb + 2 * i + 1] =
+            exp2_approx(fmaf(bv.y, kLog2e, sc[4 * nb + 2 * i + 1] * sl2) - lrow[i]);
+      }
+    }
+    const bool edge = k0 + kTile > nk || q0 + 64 * kWg > nq;
+    if (edge) {
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
+      for (int e = 0; e < 32; ++e) {
+        if (k0 + (e >> 2) * 8 + 2 * t + (e & 1) >= nk || rows[(e >> 1) & 1] >= nq) sc[e] = 0.0f;
+      }
+    }
+    // ds = p_d dp - p c (p_d = p without dropout), and its batch sum into dbias
 #pragma unroll
-            for (int e = 0; e < 4; ++e) csum[e >> 1] += s[nb][e] * dp[nb][e];
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+      uint32_t bits[4];
+      if constexpr (kDrop) {
+        philox::fragment_bits<false>(pkey, bh, rows[0], k0 + nb * 8 + 2 * t, bits);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = sc[4 * nb + e];
+        if constexpr (kDrop) {
+          const float pd = p * philox::keep_scale(bits[e], a.threshold, a.inv_keep);
+          dp[4 * nb + e] = pd * dp[4 * nb + e] - p * csum[e >> 1];
         } else {
-          float pd[2][4];
-          if constexpr (kDrop) dropped<false>(pd, s, pkey, bh, rows[0], k16, a.threshold, a.inv_keep);
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if constexpr (kDrop) {  // ds = p_d * dp - p * c
-                dp[nb][e] = pd[nb][e] * dp[nb][e] - s[nb][e] * csum[e >> 1];
-              } else {
-                dp[nb][e] = s[nb][e] * (dp[nb][e] - csum[e >> 1]);
-              }
-            }
-            // ds of columns 2t, 2t+1 in one 8-byte atomic; a pair starting at
-            // Nk - 1 adds 0 into the padding column
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const int key = k16 + nb * 8 + 2 * t;
-              if (dbias_h != nullptr && key < nk && rows[i] < nq) {
-                atomicAdd(reinterpret_cast<float2*>(dbias_h + size_t(rows[i]) * ldb + key),
-                          make_float2(dp[nb][2 * i], dp[nb][2 * i + 1]));
-              }
-            }
-          }
-          mma_ab(dq, dp, kst, kc * 16);
+          dp[4 * nb + e] = p * (dp[4 * nb + e] - csum[e >> 1]);
+        }
+      }
+      // ds into dbias, four columns in one 16-byte atomic: a thread of even
+      // t takes its neighbour's pair of row g beside its own (columns 2t ..
+      // 2t + 3), one of odd t its neighbour's pair of row g + 8 (2t - 2 ..
+      // 2t + 1). A group running past Nk adds 0 into the padding columns.
+      if (dbias_h != nullptr) {
+        const bool odd = t & 1;
+        const float send0 = odd ? dp[4 * nb] : dp[4 * nb + 2];
+        const float send1 = odd ? dp[4 * nb + 1] : dp[4 * nb + 3];
+        const float recv0 = __shfl_xor_sync(0xffffffffu, send0, 1);
+        const float recv1 = __shfl_xor_sync(0xffffffffu, send1, 1);
+        const int row = rows[odd ? 1 : 0];
+        const int key = k0 + nb * 8 + 2 * (t & 2);
+        const float4 v = odd ? make_float4(recv0, recv1, dp[4 * nb + 2], dp[4 * nb + 3])
+                             : make_float4(dp[4 * nb], dp[4 * nb + 1], recv0, recv1);
+        if (!edge || (key < nk && row < nq)) {
+          atomicAdd(reinterpret_cast<float4*>(dbias_h + size_t(row) * a.ldb + key), v);
         }
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+
+    // dq += ds k (ds rounded to bf16; k read MN-major)
+    uint32_t da[kTile / 16][4];
+    pack_a(da, dp);
+    wgmma_hold(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dq, da[kk], desc_add(d_k, 2048 * kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(dq);
+    wgmma_hold(da);
+    mbar_arrive(&ring.empty[s]);
   }
-  if (active) {
-    store_rows_bf16(static_cast<bf16*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, dq, a.scale,
-                    nq, r0);
-  }
+  store_acc_bf16(static_cast<bf16*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, dq, a.scale, nq,
+                 q0 + wg * 64 + warp * 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,138 +432,187 @@ __global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dq_bf16(const BwdArgs
 // ---------------------------------------------------------------------------
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreadsB, 2) stream_bwd_dkv_bf16(const BwdArgs a) {
-  constexpr int kTileElems = kTile * kLd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [2][kTile][kLd]
-  bf16* gs = qs + 2 * kTileElems;            // [2][kTile][kLd]
-  bf16* stage_w = gs + 2 * kTileElems;       // per warp [2][16][kLd]
-  float* lse_s = reinterpret_cast<float*>(stage_w + kWarpsB * 2 * 16 * kLd);  // [2][kTile], log2
-  float* c_s = lse_s + 2 * kTile;                                             // [2][kTile]
+__global__ void __launch_bounds__(kThreadsW, 1)
+stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // every producer thread arrives once a stage: its lse / c and bias copies
+  const Ring ring = ring_init(smem_raw, kStageDkv, 129);
+  unsigned char* smem = ring.smem;  // k tiles [kWg], v tiles [kWg], then the ring
+  const int wg = threadIdx.x >> 7;
+  int b, tile, h;
+  block_coords(b, tile, h);
+  const int nq = a.nq, nk = a.nk;
+  const int hc = h * kD;
+  const int jb = tile * 64 * kWg;  // the block's first key
+  const int n_tiles = (nq + kTile - 1) / kTile;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
+  constexpr uint32_t kBiasOff = 2 * kTileBytes;
+  constexpr uint32_t kLseOff = kBiasOff + 64 * kLdBiasK * sizeof(float);
 
-  const int warp = threadIdx.x >> 5;
+  if (wg == kWg) {  // producer
+    const int ptid = threadIdx.x - kWg * 128;
+    const float* qvb_q = a.qv_bias != nullptr ? a.qv_bias + hc : nullptr;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(ring.resident, kResidentBytes);
+      for (int w = 0; w < kWg; ++w) {
+        tma_load_tile(smem + w * kTileBytes, &tm_k, ring.resident, hc, jb + 64 * w, b);
+        tma_load_tile(smem + (kWg + w) * kTileBytes, &tm_v, ring.resident, hc, jb + 64 * w, b);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int q0 = j * kTile;
+      unsigned char* st = smem + kResidentBytes + s * kStageDkv;
+      mbar_wait(&ring.empty[s], ((j / kStages) & 1) ^ 1);
+      if (ptid == 0) {
+        // with a q/v bias the pair lands for the hand-over first
+        uint64_t* bar = qvb_q != nullptr ? &ring.landed[s] : &ring.full[s];
+        mbar_arrive_expect_tx(bar, 2 * kTileBytes);
+        tma_load_tile(st, &tm_q, bar, hc, q0, b);
+        tma_load_tile(st + kTileBytes, &tm_g, bar, hc, q0, b);
+      }
+      if (bias_h != nullptr) {
+#pragma unroll
+        for (int w = 0; w < kWg; ++w) {
+          cp_async_bias_tile(reinterpret_cast<float*>(st + kBiasOff) + 64 * w, kLdBiasK, bias_h, nq,
+                             nk, q0, 64, jb + 64 * w, ptid, 128);
+        }
+      }
+      {  // lse (threads 0-63) and c (64-127) of the tile's rows, zero past Nq
+        const int r = ptid & 63, row = q0 + r;
+        const bool ok = row < nq;
+        const float* src = (ptid < 64 ? a.lse : a.c) + bhn + (ok ? row : 0);
+        cp_async4(smem_u32(reinterpret_cast<float*>(st + kLseOff) + ptid), src, ok ? 4 : 0);
+      }
+      mbar_arrive_cp_async(&ring.full[s]);
+      if (qvb_q != nullptr) {
+        hand_over_biased(st, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_q, ptid);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumer warpgroup wg: keys jb + 64 wg + [0, 64)
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  int b, tile, h;
-  block_coords(b, tile, h);
-  const int nq = a.nq, nk = a.nk, ldbt = a.ldbt;
-  const int c = a.num_heads * kD;
-  const int hc = h * kD;
-  const int j0 = tile * kOwnB + warp * 16;  // this warp's first key row
-  const bool active = j0 < nk;
-  const bf16* q_img = static_cast<const bf16*>(a.q) + size_t(b) * nq * a.ldq + hc;
-  const bf16* k_img = static_cast<const bf16*>(a.k) + size_t(b) * nk * a.ldkv + hc;
-  const bf16* v_img = static_cast<const bf16*>(a.v) + size_t(b) * nk * a.ldkv + hc;
-  const bf16* g_img = static_cast<const bf16*>(a.g) + size_t(b) * nq * a.ldg + hc;
-  const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
-  const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * nk * ldbt : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
+  const int k_local = wg * 64 + warp * 16 + g;
+  const int keys[2] = {jb + k_local, jb + k_local + 8};
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  // q and g rows [q0, q0 + kTile) by cp.async, their lse and c by plain loads
-  auto load_qg = [&](int stage, int q0) {
-    cp_async_tile64(qs + stage * kTileElems, q_img, a.ldq, nq, q0, threadIdx.x, kThreadsB);
-    cp_async_tile64(gs + stage * kTileElems, g_img, a.ldg, nq, q0, threadIdx.x, kThreadsB);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      lse_s[stage * kTile + threadIdx.x] = row < nq ? a.lse[bhn + row] * kLog2e : 0.0f;
-      c_s[stage * kTile + threadIdx.x] = row < nq ? a.c[bhn + row] : 0.0f;
-    }
-  };
-  load_qg(0, 0);
-  cp_async_commit();
-
-  // this warp's 16 key rows of k and v (+ v bias), as A fragments
-  bf16* xs = stage_w + warp * 2 * 16 * kLd;
-  bf16* ys = xs + 16 * kLd;
-  load_slab_rows<bf16>(xs, kLd, k_img, a.ldkv, nullptr, nk, j0, 16, lane, 32);
-  load_slab_rows<bf16>(ys, kLd, v_img, a.ldkv, qvb_v, nk, j0, 16, lane, 32);
-  __syncwarp();
-  uint32_t kf[kD / 16][4], vf[kD / 16][4];
-  load_a_frags(xs, kf);
-  load_a_frags(ys, vf);
-  const int keys[2] = {j0 + g, j0 + g + 8};
-
-  float dk[kD / 8][4], dv[kD / 8][4];
+  const uint64_t d_k = desc_sw128(smem + wg * kTileBytes);
+  const uint64_t d_v = desc_sw128(smem + (kWg + wg) * kTileBytes);
+  float dk[32], dv[32];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.0f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.0f;
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  mbar_wait(ring.resident, 0);
+  if (a.qv_bias != nullptr) {  // the q/v bias's v row, in bf16, on this warpgroup's v tile
+    add_qv_bias_sw128(smem + (kWg + wg) * kTileBytes,
+                      qv_bias_chunk(a.qv_bias + 2 * a.num_heads * kD + hc, threadIdx.x & 127),
+                      threadIdx.x & 127);
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
   }
 
-  const int n_tiles = (nq + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int q0 = it * kTile;
-    if (it + 1 < n_tiles) {
-      load_qg(stage ^ 1, q0 + kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // each thread biases the q chunks it copied
-    if (qvb_q != nullptr) {
-      bias_tile64(qs + stage * kTileElems, qvb_q, nq, q0, threadIdx.x, kThreadsB);
-    }
-    __syncthreads();
-    const bf16* qst = qs + stage * kTileElems;
-    const bf16* gst = gs + stage * kTileElems;
-    const float* lse_t = lse_s + stage * kTile;
-    const float* c_t = c_s + stage * kTile;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int q0 = j * kTile;
+    unsigned char* st = smem + kResidentBytes + s * kStageDkv;
+    mbar_wait(&ring.full[s], (j / kStages) & 1);
+    const uint64_t d_qt = desc_sw128(st);
+    const uint64_t d_gt = desc_sw128(st + kTileBytes);
 
-    if (active) {
-#pragma unroll 1
-      for (int qc = 0; qc < kTile / 16; ++qc) {
-        const int q16 = q0 + qc * 16;
-        // transposed tiles: element (nb, e) is key keys[e >> 1], query
-        // q16 + nb*8 + 2t + (e & 1); its bias is bias_t[key][query]
-        float2 bcur[2][2];
-        load_bias(bcur, bias_th, nk, nq, ldbt, j0, q16);
-        float s[2][4], dp[2][4];
-        mma_abt(s, kf, qst, qc * 16);
-        mma_abt(dp, vf, gst, qc * 16);
+    // s^T = k q^T and dp^T = v g^T (64 keys x 64 queries each)
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss<0>(sc, desc_add(d_k, 32 * kk), desc_add(d_qt, 32 * kk), kk > 0);
+    }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ql = qc * 16 + nb * 8 + 2 * t + (e & 1);  // query within the tile
-            const float v = fmaf(bias_at(bcur, nb, e), kLog2e, s[nb][e] * sl2) - lse_t[ql];
-            const float p = (keys[e >> 1] < nk && q0 + ql < nq) ? exp2f(v) : 0.0f;
-            s[nb][e] = p;
-            if constexpr (!kDrop) dp[nb][e] = p * (dp[nb][e] - c_t[ql]);
-          }
-        }
-        if constexpr (kDrop) {  // dv takes p_d; ds = p_d * dp - p * c
-          float pd[2][4];
-          dropped<true>(pd, s, pkey, bh, keys[0], q16, a.threshold, a.inv_keep);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss<0>(dp, desc_add(d_v, 32 * kk), desc_add(d_gt, 32 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(sc);
+    wgmma_hold(dp);
+
+    // p = exp(s + bias - lse): element 4 nb + e is key keys[e >> 1], query
+    // q0 + nb*8 + 2t + (e & 1); its bias is bias[query][key], a column of the
+    // tile. The bias tile holds stale words outside Nq x Nk: p is zeroed
+    // there (only a tile on the edge has such entries).
+    const float* bst = reinterpret_cast<const float*>(st + kBiasOff) + k_local;
+    const float* lse_t = reinterpret_cast<const float*>(st + kLseOff);
+    const float* c_t = lse_t + 64;
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
+    for (int e = 0; e < 32; ++e) {
+      const int ql = (e >> 2) * 8 + 2 * t + (e & 1);  // query within the tile
+      const float bv = bias_h != nullptr ? bst[ql * kLdBiasK + ((e >> 1) & 1) * 8] : 0.0f;
+      sc[e] = exp2_approx(fmaf(bv, kLog2e, sc[e] * sl2) - lse_t[ql] * kLog2e);
+    }
+    if (q0 + kTile > nq || jb + 64 * kWg > nk) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int ql = qc * 16 + nb * 8 + 2 * t + (e & 1);
-              dp[nb][e] = pd[nb][e] * dp[nb][e] - s[nb][e] * c_t[ql];
-              s[nb][e] = pd[nb][e];
-            }
-          }
-        }
-        mma_ab(dv, s, gst, qc * 16);
-        mma_ab(dk, dp, qst, qc * 16);
+      for (int e = 0; e < 32; ++e) {
+        if (q0 + (e >> 2) * 8 + 2 * t + (e & 1) >= nq || keys[(e >> 1) & 1] >= nk) sc[e] = 0.0f;
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    // ds = p_d dp - p c; dv takes p_d (p without dropout)
+#pragma unroll
+    for (int nb = 0; nb < kTile / 8; ++nb) {
+      uint32_t bits[4];
+      if constexpr (kDrop) {
+        philox::fragment_bits<true>(pkey, bh, keys[0], q0 + nb * 8 + 2 * t, bits);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c_q = c_t[nb * 8 + 2 * t + (e & 1)];
+        const float p = sc[4 * nb + e];
+        if constexpr (kDrop) {
+          const float pd = p * philox::keep_scale(bits[e], a.threshold, a.inv_keep);
+          dp[4 * nb + e] = pd * dp[4 * nb + e] - p * c_q;
+          sc[4 * nb + e] = pd;
+        } else {
+          dp[4 * nb + e] = p * (dp[4 * nb + e] - c_q);
+        }
+      }
+    }
+
+    // dv += p_d^T g and dk += ds^T q (p_d and ds rounded to bf16; g and q
+    // read MN-major)
+    uint32_t pa[kTile / 16][4], da[kTile / 16][4];
+    pack_a(pa, sc);
+    pack_a(da, dp);
+    wgmma_hold(dv);
+    wgmma_hold(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dv, pa[kk], desc_add(d_gt, 2048 * kk));
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dk, da[kk], desc_add(d_qt, 2048 * kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(dv);
+    wgmma_hold(dk);
+    wgmma_hold(pa);
+    wgmma_hold(da);
+    mbar_arrive(&ring.empty[s]);
   }
-  if (active) {  // the f32 sums over all query rows, rounded once
-    store_rows_bf16(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale,
-                    nk, j0);
-    store_rows_bf16(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f,
-                    nk, j0);
-  }
+  // the f32 sums over all query rows, rounded once
+  const int row0 = jb + wg * 64 + warp * 16;
+  store_acc_bf16(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale, nk,
+                 row0);
+  store_acc_bf16(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f, nk,
+                 row0);
 }
 
 // ---------------------------------------------------------------------------
@@ -502,7 +643,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   const float* g_img = static_cast<const float*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * ldb : nullptr;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
   float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * ldb : nullptr;
   const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
@@ -550,7 +691,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
           const int col = k0 + j;
           const bool valid = row < nq && col < nk;
           float s = s_w[r * kLdS + j] * a.scale;
-          if (bias_h != nullptr && valid) s += bias_h[size_t(row) * ldb + col];
+          if (bias_h != nullptr && valid) s += bias_h[size_t(row) * nk + col];
           const float p = valid ? expf(s - lrow[r]) : 0.0f;
           float pd = p;
           if constexpr (kDrop) {
@@ -594,7 +735,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const int lane = threadIdx.x & 31;
   int b, tile, h;
   block_coords(b, tile, h);
-  const int nq = a.nq, nk = a.nk, ldbt = a.ldbt;
+  const int nq = a.nq, nk = a.nk;
   const int c = a.num_heads * kD;
   const int hc = h * kD;
   const int jb = tile * kOwnF;
@@ -606,7 +747,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const float* g_img = static_cast<const float*>(a.g) + size_t(b) * nq * a.ldg + hc;
   const float* qvb_q = a.qv_bias ? a.qv_bias + hc : nullptr;
   const float* qvb_v = a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr;
-  const float* bias_th = a.bias_t ? a.bias_t + size_t(h) * nk * ldbt : nullptr;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
   const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
@@ -653,7 +794,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
         const int query = q0 + i;
         const bool valid = key < nk && query < nq;
         float s = s_w[r * kLdS + i] * a.scale;
-        if (bias_th != nullptr && valid) s += bias_th[size_t(key) * ldbt + query];
+        if (bias_h != nullptr && valid) s += bias_h[size_t(query) * nk + key];
         const float p = valid ? expf(s - lse_s[i]) : 0.0f;
         float pd = p;
         if constexpr (kDrop) {
@@ -697,58 +838,85 @@ cudaError_t launch(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t sme
   return cudaGetLastError();
 }
 
+// The bf16 pair: the tensor maps of q, k, v and g (per image, 64-row
+// boxes), then kernel 1 over the Nq query rows and kernel 2 over the Nk
+// keys, 64 * kWg rows a block, on one stream.
+template <typename K1, typename K2>
+cudaError_t launch_bf16(K1 dq_kernel, K2 dkv_kernel, const BwdArgs& a, int batch,
+                        cudaStream_t stream) {
+  const int c = a.num_heads * kD;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g;
+  if (!token_map(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
+      !token_map(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
+      !token_map(&tm_v, a.v, c, a.ldkv, a.nk, batch) ||
+      !token_map(&tm_g, a.g, c, a.ldg, a.nq, batch)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem_dq = smem_bytes(kStageDq), smem_dkv = smem_bytes(kStageDkv);
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_dq));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_dkv));
+  if (err != cudaSuccess) return err;
+  const int own = 64 * kWg;
+  dq_kernel<<<block_grid(batch, (a.nq + own - 1) / own, a.num_heads), kThreadsW, smem_dq,
+              stream>>>(tm_q, tm_k, tm_v, tm_g, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<block_grid(batch, (a.nk + own - 1) / own, a.num_heads), kThreadsW, smem_dkv,
+               stream>>>(tm_q, tm_k, tm_v, tm_g, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. q, k, v, g and dq, dk, dv point at column 0 of
-// head 0 in row 0 of image 0; rows lie ldq, ldkv (k and v), ldg, lddq, lddkv
-// (dk and dv) elements apart, and an image is nq consecutive rows of q, g and
-// dq and nk of k, v, dk and dv. For packed qkv and dqkv [B, N, 3C]: k = qkv +
-// C, v = qkv + 2C, all pitches 3C, nq = nk = N; g is [B, N, C]. For q and dq
-// [B, Nq, C] and packed kv and dkv [B, Nk, 2C]: ldq = lddq = C, ldkv = lddkv =
-// 2C. lse [B, H, Nq] f32 from the forward; c [B, H, Nq] f32 scratch (the row
-// sums kernel 1 hands to kernel 2). bias is [H, Nq, ldb] f32 with an even
-// pitch ldb >= Nk and its transpose (bias_t[h][key][query]) [H, Nk, ldbt] with
-// an even pitch ldbt >= Nq, zero in the padding; both null without a bias.
-// dbias ([H, Nq, ldb] f32, zeroed by the caller) may be null and is then not
-// computed. qv_bias ([3, C]
-// f32) may be null. seed (one int64 in device memory, the forward's) null
-// means no dropout; otherwise threshold and inv_keep are the forward's.
-// Returns the first failing launch's cudaError_t.
+// dtype: 0 = bf16, 1 = f32. q, k, v, g, o and dq, dk, dv point at column 0
+// of head 0 in row 0 of image 0; rows lie ldq, ldkv (k and v), ldg, ldo,
+// lddq, lddkv (dk and dv) elements apart, and an image is nq consecutive rows
+// of q, g, o and dq and nk of k, v, dk and dv. For packed qkv and dqkv
+// [B, N, 3C]: k = qkv + C, v = qkv + 2C, all pitches 3C, nq = nk = N; g and o
+// (the forward's output) are [B, N, C]. For q and dq [B, Nq, C] and packed kv
+// and dkv [B, Nk, 2C]: ldq = lddq = C, ldkv = lddkv = 2C. lse [B, H, Nq] f32
+// from the forward; c [B, H, Nq] f32 scratch (the row sums kernel 1 forms
+// from g and o and hands to kernel 2; the f32 kernel 1 forms them by a pass
+// over the keys and does not read o). bias is [H, Nq, Nk] f32 or null.
+// dbias ([H, Nq, ldb] f32 with a pitch ldb >= Nk, a multiple of 4, zeroed by the
+// caller) may be null and is then not computed. qv_bias ([3, C] f32) may be
+// null. seed (one int64 in device memory, the forward's) null means no
+// dropout; otherwise threshold and inv_keep are the forward's. Returns the
+// first failing launch's cudaError_t.
 int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v, const void* g,
-                                    const void* bias, const void* bias_t, const void* qv_bias,
+                                    const void* o, const void* bias, const void* qv_bias,
                                     const void* lse, void* c, void* dq, void* dk, void* dv,
                                     void* dbias, const void* seed, long long ldq, long long ldkv,
-                                    long long ldg, long long lddq, long long lddkv, int batch,
-                                    int nq, int nk, int ldb, int ldbt, int num_heads, int dtype,
+                                    long long ldg, long long ldo, long long lddq, long long lddkv,
+                                    int batch, int nq, int nk, int ldb, int num_heads, int dtype,
                                     float scale, unsigned int threshold, float inv_keep,
                                     void* stream) {
-  if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || ldb < nk || ldb % 2 != 0 || ldbt < nq ||
-      ldbt % 2 != 0 || num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 ||
-      (nk + 63) / 64 > 65535) {
+  if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || ldb < nk || ldb % 4 != 0 ||
+      num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 || (nk + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdArgs a;
-  a.q = q, a.k = k, a.v = v, a.g = g;
+  a.q = q, a.k = k, a.v = v, a.g = g, a.o = o;
   a.dq = dq, a.dk = dk, a.dv = dv;
-  a.ldq = ldq, a.ldkv = ldkv, a.ldg = ldg, a.lddq = lddq, a.lddkv = lddkv;
+  a.ldq = ldq, a.ldkv = ldkv, a.ldg = ldg, a.ldo = ldo, a.lddq = lddq, a.lddkv = lddkv;
   a.bias = static_cast<const float*>(bias);
-  a.bias_t = static_cast<const float*>(bias_t);
   a.qv_bias = static_cast<const float*>(qv_bias);
   a.lse = static_cast<const float*>(lse);
   a.c = static_cast<float*>(c);
   a.dbias = static_cast<float*>(dbias);
   a.seed = static_cast<const long long*>(seed);
-  a.nq = nq, a.nk = nk, a.ldb = ldb, a.ldbt = ldbt, a.num_heads = num_heads;
+  a.nq = nq, a.nk = nk, a.ldb = ldb, a.num_heads = num_heads;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = a.seed != nullptr;
   if (dtype == 0) {
-    return drop ? launch(stream_bwd_dq_bf16<true>, stream_bwd_dkv_bf16<true>, kThreadsB, kOwnB,
-                         kSmemB, kSmemDkvB, a, batch, st)
-                : launch(stream_bwd_dq_bf16<false>, stream_bwd_dkv_bf16<false>, kThreadsB, kOwnB,
-                         kSmemB, kSmemDkvB, a, batch, st);
+    return drop ? launch_bf16(stream_bwd_dq_bf16<true>, stream_bwd_dkv_bf16<true>, a, batch, st)
+                : launch_bf16(stream_bwd_dq_bf16<false>, stream_bwd_dkv_bf16<false>, a, batch, st);
   }
   if (dtype == 1) {
     return drop ? launch(stream_bwd_dq_f32<true>, stream_bwd_dkv_f32<true>, kThreadsF, kOwnF,

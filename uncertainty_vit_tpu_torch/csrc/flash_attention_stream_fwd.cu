@@ -19,205 +19,247 @@
 // with an optional q/v bias added to q and v in the input dtype, and e
 // rounded to the input dtype before the product with v.
 //
-// What bounds it on an H100: at ViT-L/16 512 (B=16, N=1025, H=16, D=64,
-// bf16) one call does 4*B*H*N^2*D = 69 GFLOP, ~0.070 ms of tensor-core time
-// at 989 TFLOP/s, against 101 MB of qkv, 34 MB of output and 67 MB of bias:
-// ~0.060 ms at 3.35 TB/s. So the floor is the tensor cores, and what this
-// design must keep off the memory system is the bias: 67 MB of f32, more than
-// the 50 MB L2, that every image needs in full.
+// What bounds it on an H100 (80GB HBM3, 700 W): at ViT-L/16 512 (B=16,
+// N=1025, H=16, D=64, bf16) one call does 4*B*H*N^2*D = 69 GFLOP, ~0.070 ms
+// of tensor-core time at 989 TFLOP/s, against 101 MB of qkv, 34 MB of
+// output and 67 MB of bias: ~0.060 ms at 3.35 TB/s. So the floor is the
+// tensor cores. Short of it sit the softmax's instructions between the two
+// products and the bias: 67 MB of f32, more than the 50 MB L2, that every
+// image needs in full, 1.07 GB through L2 at B=16.
 //
 // Design (the TPU's head groups, its q-tile plan and its per-tile seeds have
 // no meaning here). The TPU holds whole rows: a q tile against resident k/v,
-// one exact softmax. A 64-row q tile against 1025 keys does not fit
-// a block's registers, so k/v stream through shared memory in 64-row tiles
-// with a running row max and sum in f32 (bounded mode: no max), as in the
-// fused forward, whose inner loop this kernel shares. What differs:
-//   - Block order (attention_common.cuh). The fused forward's grid is (q
-//     tile, head, image), q tile fastest: every image walks all 67 MB of bias
-//     before the next begins, so at batch 16 the bias is read from device
-//     memory sixteen times. Here the order is (q tile, image, head): the 17 q
-//     tiles of one (image, head) run together and share its k/v in L2, and
-//     the 16 images of a head follow each other and share the head's 4.2 MB
-//     of bias there. Measured on an H100 at B=16 this order took 0.70 ms,
-//     (image, q tile, head) 0.72 and the fused forward's order 0.80.
-//   - The q tile is 64 rows: 4 warps of 16 rows each. A 128-row tile would
-//     re-read a head's k/v (262 KB) half as often, but measured it lost (1.13
-//     ms against 0.70): at 138 registers only one 8-warp block fits an SM.
+// one exact softmax. Here k/v stream through shared memory in 64-row tiles
+// with a running row max and sum in f32 (bounded mode: no max).
+//   bf16 (sm_90a): one producer warpgroup and one consumer warpgroup of 64
+//     query rows a block, two blocks an SM. The producer's first thread
+//     loads the q tile and each k/v tile by TMA (per-image 3-D tensor maps,
+//     64-row boxes in the 128-byte swizzle: rows past Nq or Nk of an image
+//     arrive as zeros, never the next image's), and all its 128 threads copy
+//     the f32 bias tile of (q tile, k tile) beside them with 4-byte cp.async
+//     (the bias rows lie 4100 bytes apart at N = 1025: neither a 16-byte
+//     copy nor TMA can read them as they stand), arriving on the stage's
+//     mbarrier when it lands; a two-stage ring. The consumer runs s = q k^T
+//     as four wgmma m64n64k16 from shared memory, the softmax on the
+//     accumulator in registers (the bias read in fragment order from a
+//     72-word pitch, conflict-free; 2^x on the special-function unit; keys
+//     past Nk masked in the last tile only), then o += p v with p packed to
+//     bf16 in registers as wgmma's A operand and v read through the
+//     descriptor's transpose. Measured on an H100 80GB HBM3 at 700 W, B=16
+//     (tools/torch_port_stream_ab.py): 0.330 ms against 0.700 for the
+//     earlier mma.sync kernel, 0.231 without a bias. Not kept: two consumer
+//     warpgroups (128-row tiles, one block an SM) 0.402; a three-stage ring
+//     0.331 (no gain); the bias by TMA from a 16-byte-pitched copy 0.352
+//     against 0.331 (see PERF.md).
+//   - Block order (attention_common.cuh): (q tile, image, head), so the q
+//     tiles of one (image, head) share its k/v in L2 and the images of one
+//     head share its 4.2 MB of bias there.
 //   - q, k, v and the output are read and written through separate base
 //     pointers and row pitches; the packed [B, N, 3C] layout is one choice
-//     of pointers.
+//     of pointers. The q/v bias, when given, is added in bf16 in shared
+//     memory: to the q tile by the consumer, once; to each v tile by the
+//     producer warpgroup, which has TMA land it on a barrier of its own and
+//     hands the stage over after the add. (The models add the bias in the
+//     qkv projection and pass none.)
 //   - N = 577 and 1025 are 1 mod 64: the last q tile holds one valid row and
-//     the last k/v tile one valid column. Tail rows are zero-filled in shared
-//     memory and never read from device memory, tail columns get e = 0, and
-//     rows beyond Nq are never stored: query rows are tested against Nq and
-//     keys against Nk. (In the bf16 kernel, skipping the warps whose rows all
-//     lie beyond Nq cost more than it saved: the branch around the unrolled
-//     tile loop slowed every block.)
-//   bf16: mma.sync m16n8k16 fed by ldmatrix; q fragments, scores and the
-//     output accumulator in registers; k/v tiles double-buffered by cp.async.
+//     the last k/v tile one valid column. Rows beyond Nq are computed on
+//     zeros (and stale bias words) and never stored; keys beyond Nk get
+//     e = 0.
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row q tiles.
-// What is left on the table: the bias is still read with scalar 4-byte loads
-// whose latency the warps wait out (0.70 ms with the bias, 0.32 ms without).
 // Dropout: the keep bit of (image * H + head, row, column) from
 // csrc/philox.cuh, a function of the seed and the position alone, so this
 // kernel, the streaming backward's two kernels and the plain PyTorch version
-// draw one mask. A separate instantiation (kDrop).
+// draw one mask: a wgmma m64n64 accumulator gives each thread the pairs an
+// mma.sync m16n8 tile does, so philox::fragment_bits serves unchanged. A
+// separate instantiation (kDrop).
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kTileK = 64;  // k/v rows per tile
-constexpr int kWarpsQ = 4;  // bf16: warps per block, 16 query rows each
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, register-resident scores and output
+// bf16: one producer warpgroup (TMA for q and the k/v tiles, 4-byte cp.async
+// for the bias tiles) and one consumer warpgroup of 64 query rows (wgmma for
+// both products, the softmax in registers)
 // ---------------------------------------------------------------------------
 
-constexpr size_t kSmemBf16 = size_t(kWarpsQ * 16 + 4 * kTileK) * kLd * sizeof(bf16);
+constexpr int kStages = 2;            // k/v/bias ring depth
+constexpr int kLdBias = kTileK + 8;   // f32 bias tile row: float2 reads conflict-free
+constexpr uint32_t kTileBytes = 64 * 64 * sizeof(bf16);  // one 64 x 64 bf16 TMA box
+constexpr uint32_t kBiasBytes = 64 * kLdBias * sizeof(float);
+constexpr uint32_t kStageBytes = 2 * kTileBytes + kBiasBytes;  // k, v, bias
+static_assert(kStageBytes % 1024 == 0, "a stage must keep the next one 1024-byte aligned");
+constexpr uint32_t kRingOff = kTileBytes;                        // after the q tile
+// then the barriers: full[], empty[], landed[], q
+constexpr uint32_t kBarOff = kRingOff + kStages * kStageBytes;
+constexpr size_t kSmemBf16 = kBarOff + (3 * kStages + 1) * sizeof(uint64_t) + 1024;  // + alignment
+constexpr int kThreadsBf16 = 2 * 128;
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kWarpsQ * 32)
-stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, int ldq, int ldkv, const float* __restrict__ bias,
+__global__ void __launch_bounds__(kThreadsBf16, 2)
+stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
                 const float* __restrict__ qv_bias, bf16* __restrict__ out, int ldo,
-                float* __restrict__ lse, int nq, int nk, int num_heads, float scale,
-                int bounded, const long long* __restrict__ seed, uint32_t threshold,
-                float inv_keep) {
-  constexpr int kThreads = kWarpsQ * 32;
-  constexpr int kTileQ = kWarpsQ * 16;
-  constexpr int kTileElems = kTileK * kLd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [kTileQ][kLd]
-  bf16* ks = qs + kTileQ * kLd;              // [2][kTileK][kLd]
-  bf16* vs = ks + 2 * kTileElems;            // [2][kTileK][kLd]
+                float* __restrict__ lse, int nq, int nk, int num_heads, float scale, int bounded,
+                const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* landed = empty + kStages;  // with a q/v bias: a k/v pair in, the bias not yet added
+  uint64_t* q_full = landed + kStages;
 
+  int b, qt, h;
+  block_coords(b, qt, h);
+  const int q0 = qt * 64;
+  const int hc = h * kD;
+  const float* bias_h = bias ? bias + size_t(h) * nq * nk : nullptr;
+  const int n_tiles = (nk + kTileK - 1) / kTileK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the expect_tx arrival (with a q/v bias: the hand-over's arrival),
+      // and with a bias one cp.async arrival from each producer thread
+      mbar_init(&full[s], bias_h != nullptr ? 129 : 1);
+      mbar_init(&empty[s], 128);
+      mbar_init(&landed[s], 1);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer
+    const int ptid = threadIdx.x - 128;
+    const float* qvb_v = qv_bias != nullptr ? qv_bias + 2 * num_heads * kD + hc : nullptr;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(q_full, kTileBytes);
+      tma_load_tile(smem, &tm_q, q_full, hc, q0, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      unsigned char* st = smem + kRingOff + s * kStageBytes;
+      mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+      if (ptid == 0) {
+        // with a q/v bias the pair lands for the hand-over first
+        uint64_t* bar = qvb_v != nullptr ? &landed[s] : &full[s];
+        mbar_arrive_expect_tx(bar, 2 * kTileBytes);
+        tma_load_tile(st, &tm_k, bar, hc, j * kTileK, b);
+        tma_load_tile(st + kTileBytes, &tm_v, bar, hc, j * kTileK, b);
+      }
+      if (bias_h != nullptr) {
+        cp_async_bias_tile(reinterpret_cast<float*>(st + 2 * kTileBytes), kLdBias, bias_h, nq, nk,
+                           q0, 64, j * kTileK, ptid, 128);
+        mbar_arrive_cp_async(&full[s]);
+      }
+      if (qvb_v != nullptr) {
+        hand_over_biased(st + kTileBytes, &landed[s], (j / kStages) & 1, &full[s], qvb_v, ptid);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumer warpgroup: query rows q0 + [0, 64)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  int b, qt, h;
-  block_coords(b, qt, h);
-  const int q0 = qt * kTileQ;
-  const int c = num_heads * kD;
-  const int hc = h * kD;
-  const float* qvb_v = qv_bias ? qv_bias + 2 * c + hc : nullptr;
   philox::Key pkey{0u, 0u};
   if constexpr (kDrop) pkey = philox::load_key(seed);
   const uint32_t bh = uint32_t(b) * num_heads + h;
+  const int r_local = warp * 16 + g;  // this thread's first row in the q tile
+  const int rows[2] = {q0 + r_local, q0 + r_local + 8};
+  const uint64_t dq = desc_sw128(smem);
 
-  // k/v tile rows [k0, k0 + kTileK) -> stage, 8 chunks of 16 B per row
-  auto load_kv = [&](int stage, int k0) {
-    for (int i = threadIdx.x; i < kTileK * 8; i += kThreads) {
-      const int r = i >> 3, ch = (i & 7) * 8;
-      const int row = k0 + r;
-      const bool ok = row < nk;
-      const size_t at = (size_t(b) * nk + (ok ? row : 0)) * ldkv + hc + ch;
-      const int off = stage * kTileElems + r * kLd + ch;
-      cp_async16(smem_u32(ks + off), k + at, ok ? 16 : 0);
-      cp_async16(smem_u32(vs + off), v + at, ok ? 16 : 0);
-    }
-  };
-
-  load_kv(0, 0);
-  cp_async_commit();
-  load_slab_rows<bf16>(qs, kLd, q + size_t(b) * nq * ldq + hc, ldq,
-                       qv_bias ? qv_bias + hc : nullptr, nq, q0, kTileQ, threadIdx.x, kThreads);
-  __syncthreads();
-
-  // q fragments (A operand) for the 4 k-steps of D = 64
-  uint32_t qf[kD / 16][4];
-  load_a_frags(qs + warp * 16 * kLd, qf);
-
-  float o[kD / 8][4];
+  float o[32];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
   float m_r[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
   float l_r[2] = {0.0f, 0.0f};            // this thread's share of the row sums
   const float sl2 = scale * kLog2e;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float* bias_h = bias ? bias + size_t(h) * nq * nk : nullptr;
-  const int n_tiles = (nk + kTileK - 1) / kTileK;
+  mbar_wait(q_full, 0);
+  if (qv_bias != nullptr) {  // the q/v bias's q row, in bf16 in shared memory
+    add_qv_bias_sw128(smem, qv_bias_chunk(qv_bias + hc, threadIdx.x), threadIdx.x);
+    fence_proxy_async();
+    named_barrier(2, 128);
+  }
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
+    const int s = j % kStages;
     const int k0 = j * kTileK;
-    if (j + 1 < n_tiles) {
-      load_kv(stage ^ 1, k0 + kTileK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (qvb_v != nullptr) {  // each thread biases the v chunks it copied
-      for (int i = threadIdx.x; i < kTileK * 8; i += kThreads) {
-        const int r = i >> 3, ch = (i & 7) * 8;
-        if (k0 + r < nk) add_qv_bias(vs + stage * kTileElems + r * kLd + ch, qvb_v + ch);
-      }
-    }
-    __syncthreads();
-    const bf16* kst = ks + stage * kTileElems;
-    const bf16* vst = vs + stage * kTileElems;
+    unsigned char* st = smem + kRingOff + s * kStageBytes;
+    mbar_wait(&full[s], (j / kStages) & 1);
 
-    // s = q k^T for this warp's 16 rows x 64 keys: 8 key blocks of 8
-    float s[kTileK / 8][4];
+    // s = q k^T (64 rows x 64 keys), 4 steps of 16 deep
+    float sc[32];
+    const uint64_t dk = desc_sw128(st);
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < kTileK / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.0f;
-#pragma unroll
-      for (int kp = 0; kp < kD / 32; ++kp) {
-        uint32_t kb[4];
-        ldsm_x4(smem_u32(kst + (nb * 8 + (lane & 7)) * kLd + kp * 32 + (lane >> 3) * 8), kb);
-        mma_bf16(s[nb], qf[2 * kp], kb[0], kb[1]);
-        mma_bf16(s[nb], qf[2 * kp + 1], kb[2], kb[3]);
-      }
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss<0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(sc);
 
-    // scale, bias, mask (log2 units); fragment element (nb, e) is row
-    // rows[e >> 1], key k0 + nb*8 + 2t + (e & 1)
-    float mx[2] = {-INFINITY, -INFINITY};
+    // scale and bias (log2 units); element 4 nb + e is row rows[e >> 1], key
+    // k0 + nb*8 + 2t + (e & 1). The bias tile holds stale words outside
+    // Nq x Nk: keys past Nk are masked here (in the last tile only), rows
+    // past Nq are never stored.
+    const float* bst =
+        reinterpret_cast<const float*>(st + 2 * kTileBytes) + r_local * kLdBias + 2 * t;
+    if (bias_h != nullptr) {
 #pragma unroll
-    for (int nb = 0; nb < kTileK / 8; ++nb) {
+      for (int nb = 0; nb < kTileK / 8; ++nb) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nb * 8 + 2 * t + (e & 1);
-        const int row = rows[e >> 1];
-        float sv = s[nb][e] * sl2;
-        if (bias_h != nullptr && key < nk && row < nq) {
-          sv = fmaf(bias_h[size_t(row) * nk + key], kLog2e, sv);
+        for (int i = 0; i < 2; ++i) {
+          const float2 bv = *reinterpret_cast<const float2*>(bst + i * 8 * kLdBias + nb * 8);
+          sc[4 * nb + 2 * i] = fmaf(bv.x, kLog2e, sc[4 * nb + 2 * i] * sl2);
+          sc[4 * nb + 2 * i + 1] = fmaf(bv.y, kLog2e, sc[4 * nb + 2 * i + 1] * sl2);
         }
-        sv = key < nk ? sv : -INFINITY;
-        s[nb][e] = sv;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= sl2;
+    }
+    if (k0 + kTileK > nk) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        if (k0 + (e >> 2) * 8 + 2 * t + (e & 1) >= nk) sc[e] = -INFINITY;
       }
     }
     float sub[2] = {0.0f, 0.0f};
     if (!bounded) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
         const float m_new = fmaxf(m_r[i], mx[i]);
-        const float alpha = exp2f(m_r[i] - m_new);  // 0 on the first tile
+        const float alpha = exp2_approx(m_r[i] - m_new);  // 0 on the first tile
         m_r[i] = m_new;
         sub[i] = m_new;
         l_r[i] *= alpha;
 #pragma unroll
         for (int db = 0; db < kD / 8; ++db) {
-          o[db][2 * i] *= alpha;
-          o[db][2 * i + 1] *= alpha;
+          o[4 * db + 2 * i] *= alpha;
+          o[4 * db + 2 * i + 1] *= alpha;
         }
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < kTileK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nb][e] - sub[e >> 1]);  // masked: exp2(-inf) = 0
-        s[nb][e] = p;
-        l_r[e >> 1] += p;
-      }
+    for (int e = 0; e < 32; ++e) {
+      const float p = exp2_approx(sc[e] - sub[(e >> 1) & 1]);  // masked: 2^-inf = 0
+      sc[e] = p;
+      l_r[(e >> 1) & 1] += p;
     }
     if constexpr (kDrop) {  // after the row sum: the lse is the undropped softmax's
 #pragma unroll
@@ -225,28 +267,26 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bits[4];
         philox::fragment_bits<false>(pkey, bh, rows[0], k0 + nb * 8 + 2 * t, bits);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] *= philox::keep_scale(bits[e], threshold, inv_keep);
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * nb + e] *= philox::keep_scale(bits[e], threshold, inv_keep);
+        }
       }
     }
 
-    // o += e v: the C fragments of two key blocks are the A fragment of
-    // one 16-key step
+    // o += p v: the accumulator's 8-key blocks 2kk and 2kk + 1, packed, are
+    // the A operand of step kk; v is read MN-major
+    const uint64_t dv = desc_sw128(st + kTileBytes);
+    uint32_t pa[kTileK / 16][4];
+    pack_a(pa, sc);
+    wgmma_hold(o);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t vb[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldsm_x4_trans(smem_u32(vst + key * kLd + dp * 16 + (lane >> 4) * 8), vb);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    for (int kk = 0; kk < kTileK / 16; ++kk) wgmma_rs<1>(o, pa[kk], desc_add(dv, 2048 * kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    wgmma_hold(o);
+    wgmma_hold(pa);
+    mbar_arrive(&empty[s]);  // the consumer is done with stage s
   }
 
 #pragma unroll
@@ -261,7 +301,7 @@ stream_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int db = 0; db < kD / 8; ++db) {
       *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
-          __floats2bfloat162_rn(o[db][2 * i] * inv, o[db][2 * i + 1] * inv);
+          __floats2bfloat162_rn(o[4 * db + 2 * i] * inv, o[4 * db + 2 * i + 1] * inv);
     }
     if (lse != nullptr && t == 0) {
       // log sum exp(s) = m - log(1 / sum exp(s - m)); m = 0 when bounded
@@ -403,14 +443,20 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
 
 template <bool kDrop>
 cudaError_t launch_bf16(const FwdArgs& a, int batch, cudaStream_t stream) {
+  const int c = a.num_heads * kD;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!token_map(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
+      !token_map(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
+      !token_map(&tm_v, a.v, c, a.ldkv, a.nk, batch)) {
+    return cudaErrorInvalidValue;
+  }
   auto kernel = stream_fwd_bf16<kDrop>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBf16));
   if (err != cudaSuccess) return err;
-  const dim3 grid = block_grid(batch, (a.nq + kWarpsQ * 16 - 1) / (kWarpsQ * 16), a.num_heads);
-  kernel<<<grid, kWarpsQ * 32, kSmemBf16, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      a.ldq, a.ldkv, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.nq, a.nk,
+  const dim3 grid = block_grid(batch, (a.nq + 63) / 64, a.num_heads);
+  kernel<<<grid, kThreadsBf16, kSmemBf16, stream>>>(
+      tm_q, tm_k, tm_v, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.nq, a.nk,
       a.num_heads, a.scale, a.bounded, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }

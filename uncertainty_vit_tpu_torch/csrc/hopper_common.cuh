@@ -1,0 +1,317 @@
+// Hopper (sm_90a) building blocks of the streaming attention kernels: TMA
+// tensor maps and loads, mbarriers, named barriers and the async-proxy
+// fence, the q/v bias added to a swizzled tile, and warpgroup matrix
+// products (wgmma) on shared-memory tiles in the 128-byte swizzle.
+// Everything here is inlined into its caller; nothing is launched from this
+// file.
+//
+// A tile is 64 rows of one head's 64 bf16 (128 bytes a row), written by TMA
+// with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lands at chunk c
+// ^ (r % 8), rows 128 bytes apart, so 8 rows make one 1024-byte swizzle
+// atom. wgmma reads such a tile through a descriptor of the same swizzle
+// whose stride between 8-row groups (SBO) is 1024 bytes:
+//   - K-major (the 64 contiguous elements are the product's depth: q or k
+//     in s = q k^T): step kk of 16 deep starts 32 * kk bytes in;
+//   - MN-major (the 64 contiguous elements are the output's columns: v in
+//     o += p v): step kk starts 16 rows, 2048 * kk bytes, in.
+// The accumulator of wgmma m64n64 gives warp w of the warpgroup rows 16w + g
+// and 16w + g + 8 (lane = 4g + t), columns 8n + 2t and 8n + 2t + 1 in
+// d[4n .. 4n + 3], as an mma.sync m16n8 tile does; two neighbouring
+// 8-column blocks, packed to bf16, are the register A operand of the next
+// product's 16-deep step.
+
+#pragma once
+
+#include "attention_common.cuh"  // bf16, pack_bf16
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library links against the runtime alone.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The tensor map of one section of a token tensor: `base` at column 0 of
+// head 0 in row 0 of image 0, `width` bf16 columns of it (C = H * 64), rows
+// `ld` elements apart, `n` rows an image, `batch` images; a box of 64 rows
+// by one head's 64 columns. Rows past n of an image lie outside the map's
+// second dimension and arrive as zeros: a tile never reads the next image.
+inline bool token_map(CUtensorMap* map, const void* base, int width, long long ld, int n,
+                      int batch) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0 || (ld * 2) % 16 != 0) {
+    return false;
+  }
+  const cuuint64_t dims[3] = {cuuint64_t(width), cuuint64_t(n), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(ld) * 2, cuuint64_t(ld) * 2 * cuuint64_t(n)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// device: mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// Makes the initialized barriers visible to the async proxy (TMA); the
+// caller then synchronizes the block.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also announces `bytes` of TMA traffic for this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// One arrival, made when every cp.async this thread issued before it has
+// landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// Waits until the phase of the given parity has completed (parity 1 on a
+// fresh barrier passes at once: the phase before its first).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The 64 x 64 box at (column c0, row r0, image img) of `map` into `dst`
+// (1024-byte aligned), completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int c0, int r0, int img) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(r0), "r"(img)
+      : "memory");
+}
+
+// A barrier over `count` threads (a multiple of 32) of the block that meet
+// at `id` (1 to 15; 0 is __syncthreads's).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory before the async
+// proxy's later accesses (wgmma's operand reads, TMA's writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One thread's share of a q/v bias row (one head's 64 f32 columns) for
+// add_qv_bias_sw128, rounded to bf16 as `_qv_biased` rounds it and packed in
+// pairs: the 8 columns of every 16-byte chunk that thread `tid` of 128 adds
+// to. They are fixed: chunk i of a tile lies in row i / 8 at logical chunk
+// (i % 8) ^ (row % 8), and both stay as i steps by 128.
+struct QvBiasChunk {
+  uint32_t bf2[4];
+};
+__device__ __forceinline__ QvBiasChunk qv_bias_chunk(const float* bias_row, int tid) {
+  const float* b = bias_row + ((tid & 7) ^ ((tid >> 3) & 7)) * 8;
+  QvBiasChunk c;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c.bf2[j] = pack_bf16(b[2 * j], b[2 * j + 1]);
+  return c;
+}
+
+// Adds a thread's QvBiasChunk to its four 16-byte chunks (tid, tid + 128,
+// ...) of a 64 x 64 bf16 tile in the 128-byte swizzle, in place: each sum
+// in f32, rounded once to bf16 (`add_qv_bias`). The caller then calls
+// fence_proxy_async and meets every thread that reads the tile at a barrier
+// before a wgmma reads it.
+__device__ __forceinline__ void add_qv_bias_sw128(unsigned char* tile, const QvBiasChunk& c,
+                                                  int tid) {
+#pragma unroll
+  for (int i = tid; i < 64 * 8; i += 128) {
+    uint4* chunk = reinterpret_cast<uint4*>(tile + 16 * i);
+    uint4 u = *chunk;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t hi_mask = 0xFFFF0000u;
+      w[j] = pack_bf16(__uint_as_float(w[j] << 16) + __uint_as_float(c.bf2[j] << 16),
+                       __uint_as_float(w[j] & hi_mask) + __uint_as_float(c.bf2[j] & hi_mask));
+    }
+    *chunk = u;
+  }
+}
+
+// A producer warpgroup's hand-over of a streamed tile that takes the q/v
+// bias, right after it issued the tile's loads: waits until TMA has landed
+// the tile (on `landed`, in the phase of `parity`), adds the bias row in
+// place with all 128 producer threads (`ptid`), orders the writes before
+// the consumers' wgmma, meets the other producer threads at named barrier
+// 1 (the producer's; consumer warpgroup w meets its own at 2 + w) and makes
+// the stage's one arrival on `full` that is not a cp.async one. The
+// consumers only wait on `full`.
+__device__ __forceinline__ void hand_over_biased(unsigned char* tile, uint64_t* landed,
+                                                 uint32_t parity, uint64_t* full,
+                                                 const float* bias_row, int ptid) {
+  mbar_wait(landed, parity);
+  add_qv_bias_sw128(tile, qv_bias_chunk(bias_row, ptid), ptid);
+  fence_proxy_async();
+  named_barrier(1, 128);
+  if (ptid == 0) mbar_arrive(full);
+}
+
+// 2^x by the special function unit alone (one instruction; subnormal
+// results flush to 0, 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// The descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned
+// rows groups, SBO 1024 bytes; LBO unused by these layouts).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+// The same descriptor `bytes` further on (a multiple of 16).
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins the accumulator's registers at this point of the program, so that
+// no read or write of them moves across the wgmma issue or wait around it.
+__device__ __forceinline__ void wgmma_hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A operands, which wgmma reads after its issue: they
+// stay live, in place, until the wait.
+__device__ __forceinline__ void wgmma_hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// An accumulator (64 rows x 64) as the register A operands of the next
+// product's four 16-deep steps: its 8-column blocks 2kk and 2kk + 1, packed
+// to bf16, are step kk (rows g and g + 8, depth 2t, 2t + 1 and 2t + 8, 2t + 9).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A B, A and B both read from shared
+// memory through their descriptors (A K-major); kTransB = 0 reads B K-major
+// (B^T's rows contiguous: d = A . M^T for M [64][K] in shared memory), 1
+// MN-major (d = A . M for M [K][64]).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// d (64 x 64, f32) += A B with A (64 x 16 bf16) in registers, in the
+// m16n8k16 A-fragment layout per warp (rows 16 * warp + g, + 8 of the
+// warpgroup's 64), and B read from shared memory; kTransB as for wgmma_ss.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+}  // namespace

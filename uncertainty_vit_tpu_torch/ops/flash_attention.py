@@ -32,7 +32,9 @@ reach device memory.
 When grad mode is on and an input requires grad, the call goes through
 ``_FusedQKVAttention`` (a ``torch.autograd.Function``): its forward is K1
 or K3 with the row log-sum-exp, its backward K2 or K4, which rebuild the
-probabilities from that lse. Otherwise only the forward runs.
+probabilities from that lse; K4 also takes the forward's output, from which
+it forms the row sums of the softmax vjp (``rowsum_from_out``). Otherwise
+only the forward runs.
 
 ``cross_qkv_attention`` (:1253-1288) is the local computation of token-
 (sequence-)parallel attention: q [B, Nq, C], one shard's query rows, against
@@ -255,6 +257,7 @@ def stream_bwd_dq_plain(
     scale: float,
     num_heads: int,
     *,
+    out: Optional[torch.Tensor] = None,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     image0: int = 0,
@@ -262,20 +265,35 @@ def stream_bwd_dq_plain(
     """Plain PyTorch version of the streaming backward's first kernel
     (``_stream_bwd_dq_kernel``, :744-790): returns (dq [B, N, C] in
     qkv.dtype, dbias [H, N, N] f32 summed over the batch or None, c
-    [B, H, N] f32). c = rowsum(t) are the row sums of the softmax vjp,
-    which the second kernel cannot form (it never sees a whole row) and
-    takes from here; ds = t − p·c, dq = ds_c·k·scale with ds_c = ds rounded
-    to the input dtype. ``image0`` as in the forward's plain version."""
-    return _bwd_dq_plain(*_split_qkv(qkv), bias, qv_bias, lse, g, scale, num_heads, seed,
+    [B, H, N] f32). c, the row sums of the softmax vjp, which the second
+    kernel cannot form (it never sees a whole row) and takes from here, is
+    formed from the forward's output ``out`` [B, N, C] as the CUDA kernel
+    forms it (``rowsum_from_out``), or without ``out`` as rowsum(t) over the
+    keys, as the JAX kernel and ``fused_qkv_attention_bwd_plain`` form it;
+    ds = t − p·c, dq = ds_c·k·scale with ds_c = ds rounded to the input
+    dtype. ``image0`` as in the forward's plain version."""
+    return _bwd_dq_plain(*_split_qkv(qkv), bias, qv_bias, lse, out, g, scale, num_heads, seed,
                          dropout_rate, image0)
 
 
-def _bwd_dq_plain(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
+def rowsum_from_out(out: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """c [B, H, Nq] f32, the row sums of the softmax vjp, from the forward's
+    output out [B, Nq, C] and its cotangent g: c_i = Σ_j p_d,ij (g_i·v_j) =
+    g_i·o_i, since o = p_d v (dropout included). The streaming backward's
+    kernels form c so, in f32 from out as the forward rounded it, and need
+    no pass over the keys for it; the JAX kernels recompute rowsum(t) from
+    whole rows (``_stream_recompute_tile``, :719-741), the same function."""
+    return (_heads(g.to(out.dtype), num_heads) * _heads(out, num_heads)).sum(dim=-1)
+
+
+def _bwd_dq_plain(q, k, v, bias, qv_bias, lse, out, g, scale, num_heads, seed, dropout_rate,
+                  image0):
     """The first backward kernel's plain version on q [B, Nq, C] and k, v
-    [B, Nk, C]: (dq [B, Nq, C], dbias [H, Nq, Nk] or None, c [B, H, Nq])."""
+    [B, Nk, C]: (dq [B, Nq, C], dbias [H, Nq, Nk] or None, c [B, H, Nq]),
+    c from ``out`` or, when it is None, recomputed as rowsum(t)."""
     _, kh, _, p, _, t = _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed,
                                    dropout_rate, image0)
-    c = t.sum(dim=-1)
+    c = t.sum(dim=-1) if out is None else rowsum_from_out(out, g, num_heads)
     ds = t - p * c[..., None]
     dq = torch.matmul(ds.to(q.dtype).float(), kh) * scale
     return _tokens(dq, q.dtype), ds.sum(dim=0) if bias is not None else None, c
@@ -318,10 +336,10 @@ def _bwd_dkv_plain(q, k, v, bias, qv_bias, lse, c, g, scale, num_heads, seed, dr
     return _tokens(dk, dt), _tokens(dv, dt)
 
 
-def _stream_bwd_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate):
+def _stream_bwd_plain(qkv, bias, qv_bias, lse, out, g, scale, num_heads, seed, dropout_rate):
     """The two plain halves put together as the streaming route returns them."""
-    dq, dbias, c = stream_bwd_dq_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed,
-                                       dropout_rate=dropout_rate)
+    dq, dbias, c = stream_bwd_dq_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, out=out,
+                                       seed=seed, dropout_rate=dropout_rate)
     dk, dv = stream_bwd_dkv_plain(qkv, bias, qv_bias, lse, c, g, scale, num_heads, seed=seed,
                                   dropout_rate=dropout_rate)
     dqkv = torch.cat([dq, dk, dv], dim=-1)
@@ -346,13 +364,14 @@ def cross_fwd_plain(
                             0)
 
 
-def cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads
+def cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads, *, out=None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of K5's first backward kernel: (dq [B, Nq, C] in
     q.dtype, dbias [H, Nq, Nk] f32 summed over the batch or None, c
-    [B, H, Nq] f32), as ``stream_bwd_dq_plain``."""
+    [B, H, Nq] f32, formed from the forward's output ``out`` or, without
+    it, recomputed as rowsum(t)), as ``stream_bwd_dq_plain``."""
     k, v = kv.split(q.shape[-1], dim=-1)
-    return _bwd_dq_plain(q, k, v, bias, qv_bias, lse, g, scale, num_heads, None, 0.0, 0)
+    return _bwd_dq_plain(q, k, v, bias, qv_bias, lse, out, g, scale, num_heads, None, 0.0, 0)
 
 
 def cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads) -> torch.Tensor:
@@ -387,10 +406,9 @@ _ARGTYPES = {
     # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, nq, nk, num_heads,
     # dtype; scale, bounded, threshold, inv_keep; stream
     "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 5 + [_F, _I, _U, _F, _P],
-    # q, k, v, g, bias, bias_t, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg,
-    # lddq, lddkv; batch, nq, nk, ldb, ldbt, num_heads, dtype; scale, threshold, inv_keep;
-    # stream
-    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 5 + [_I] * 7 + [_F, _U, _F, _P],
+    # q, k, v, g, out, bias, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg, ldo,
+    # lddq, lddkv; batch, nq, nk, ldb, num_heads, dtype; scale, threshold, inv_keep; stream
+    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 6 + [_I] * 6 + [_F, _U, _F, _P],
 }
 _ptr = _native.ptr
 
@@ -550,18 +568,19 @@ _padded_bias_cache: Optional[Tuple[torch.Tensor, int, int,
 
 
 def _padded_bias(bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 copies of the bias [H, Nq, Nk] and of its transpose with even row
-    pitches: [H, Nq, ldb] with ldb = Nk + Nk % 2 and [H, Nk, ldbt] with ldbt =
-    Nq + Nq % 2, zero in the padding: the backward kernels read bias pairs as
-    8-byte loads along rows in both their query-major and their key-major
-    pass. With a shared rel-pos bias every block of a model passes the same
-    tensor, so the copies (2 x 67 MB at N=1025) are built once per step, not
-    once per layer: the last pair is kept and reused while the same storage at
-    the same version is passed again on the same stream (a call on another
-    stream builds its own, ordered after that stream's work). The kept pair
-    and the bias stay allocated until another bias arrives. A write that
-    bypasses the version counter (through ``bias.data``) is not seen; the
-    models never write a bias in place."""
+    """K2's f32 copies of the bias [H, N, N] and of its transpose with an
+    even row pitch: [H, N, ldb] with ldb = N + N % 2, zero in the padding:
+    the fused backward reads bias pairs as 8-byte loads along rows in both
+    its query-major and its key-major phase. With a shared rel-pos bias every
+    block of a model passes the same tensor, so the copies (2 x 1.9 MB at
+    ViT-B/16 224) are built once per step, not once per layer: the last pair
+    is kept and reused while the same storage at the same version is passed
+    again on the same stream (a call on another stream builds its own,
+    ordered after that stream's work). The kept pair and the bias stay
+    allocated until another bias arrives. A write that bypasses the version
+    counter (through ``bias.data``) is not seen; the models never write a
+    bias in place. The streaming kernels (K3, K4, K5) read the bias as it
+    stands and need no copy."""
     global _padded_bias_cache
     version = None if bias.is_inference() else bias._version
     stream = torch.cuda.current_stream(bias.device).cuda_stream if bias.is_cuda else 0
@@ -591,60 +610,62 @@ def _check_bwd(qkv, bias, qv_bias, lse, g, num_heads) -> Tuple[int, int, int]:
 
 
 def _bias_buffers(bias, num_heads, nq, nk, want_dbias, device):
-    """(ldb, ldbt, bias_p, bias_t, dbias) as the backward kernels take them:
-    the padded bias copies and their pitches, and a zeroed [H, Nq, ldb]
-    dbias into which the kernels add each image's ds pairs with 8-byte f32
-    atomics."""
-    bias_p = bias_t = dbias = None
-    if bias is not None:
-        bias_p, bias_t = _padded_bias(bias)
-        if want_dbias:
-            dbias = torch.zeros(bias_p.shape, dtype=torch.float32, device=device)
-    return nk + nk % 2, nq + nq % 2, bias_p, bias_t, dbias
+    """(ldb, dbias) as the streaming backward takes them: a zeroed
+    [H, Nq, ldb] f32 dbias with the pitch ldb = Nk rounded up to a multiple
+    of 4, into which kernel 1 adds each image's ds four columns at a time
+    with 16-byte f32 atomics, or None. The kernels read the bias itself as it
+    stands, through shared memory (kernel 2 transposed there): no copy of
+    it, and no transposed copy, is built."""
+    ldb = -(-nk // 4) * 4
+    dbias = None
+    if bias is not None and want_dbias:
+        dbias = torch.zeros((num_heads, nq, ldb), dtype=torch.float32, device=device)
+    return ldb, dbias
 
 
 def _stream_bwd(x, ptrs, pitches, b, nq, nk, bias, qv_bias, lse, scale, num_heads, want_dbias,
                 dropout, what):
-    """The streaming backward's two kernels on q, k, v, g and dq, dk, dv
-    given as base pointers ``ptrs`` with row pitches ``pitches`` = (ldq,
-    ldkv, ldg, lddq, lddkv), Nq query rows against Nk keys, for the tensor x
-    they lie in. Returns dbias [H, Nq, Nk] or None."""
-    ldb, ldbt, bias_p, bias_t, dbias = _bias_buffers(bias, num_heads, nq, nk, want_dbias,
-                                                     x.device)
+    """The streaming backward's two kernels on q, k, v, g, the forward's
+    output o and dq, dk, dv given as base pointers ``ptrs`` with row pitches
+    ``pitches`` = (ldq, ldkv, ldg, ldo, lddq, lddkv), Nq query rows against
+    Nk keys, for the tensor x they lie in. Returns dbias [H, Nq, Nk] or
+    None."""
+    ldb, dbias = _bias_buffers(bias, num_heads, nq, nk, want_dbias, x.device)
     # the row sums of the softmax vjp, written by kernel 1 and read by kernel 2
     rowsum = torch.empty((b, num_heads, nq), dtype=torch.float32, device=x.device)
-    q, k, v, g, dq, dk, dv = ptrs
+    q, k, v, g, o, dq, dk, dv = ptrs
     seed_ptr, threshold, inv_keep = dropout
     lib = _lib("flash_attention_stream_bwd")
     with torch.cuda.device(x.device):
         err = lib.uvit_flash_attention_stream_bwd(
-            q, k, v, g, _ptr(bias_p), _ptr(bias_t), _ptr(qv_bias), lse.data_ptr(),
-            rowsum.data_ptr(), dq, dk, dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb,
-            ldbt, num_heads, _DTYPES[x.dtype], float(scale), threshold, inv_keep,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            q, k, v, g, o, _ptr(bias), _ptr(qv_bias), lse.data_ptr(), rowsum.data_ptr(), dq, dk,
+            dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb, num_heads, _DTYPES[x.dtype],
+            float(scale), threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, what)
-    return None if dbias is None else dbias[..., :nk].contiguous()
+    # the sums without their padding column: a view, not a copy
+    return None if dbias is None else dbias[..., :nk]
 
 
-def _launch_stream_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
+def _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
                        seed=None, dropout_rate=0.0):
     """K4: the streaming backward's two kernels on packed qkv and dqkv."""
     b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
+    _check_g(out, qkv, (b, n, c))
     dropout = _dropout_args(seed, dropout_rate, qkv.device)
     dqkv = torch.empty_like(qkv)
     slab = c * qkv.element_size()
     q, dq = qkv.data_ptr(), dqkv.data_ptr()
-    dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), dq, dq + slab,
-                              dq + 2 * slab), (3 * c, 3 * c, c, 3 * c, 3 * c), b, n, n, bias,
-                        qv_bias, lse, scale, num_heads, want_dbias, dropout,
+    dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), out.data_ptr(), dq,
+                              dq + slab, dq + 2 * slab), (3 * c, 3 * c, c, c, 3 * c, 3 * c), b, n,
+                        n, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout,
                         "streaming attention backward")
     fused_qkv_attention_bwd.stream_launches += 1
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
     return dqkv, dbias, dqvb
 
 
-def _launch_cross_bwd(q, kv, bias, qv_bias, lse, g, scale, num_heads, want_dbias):
+def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias):
     """K5's backward: the streaming backward's two kernels on q, kv, dq and
     dkv."""
     b, nq, nk, c = _check_cross(q, kv, num_heads)
@@ -652,12 +673,14 @@ def _launch_cross_bwd(q, kv, bias, qv_bias, lse, g, scale, num_heads, want_dbias
     _check_aux("qv_bias", qv_bias, (3, c), q.device)
     _check_aux("lse", lse, (b, num_heads, nq), q.device)
     _check_g(g, q, (b, nq, c))
+    _check_g(out, q, (b, nq, c))
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
     slab = c * kv.element_size()
     k, dk = kv.data_ptr(), dkv.data_ptr()
-    dbias = _stream_bwd(q, (q.data_ptr(), k, k + slab, g.data_ptr(), dq.data_ptr(), dk,
-                            dk + slab), (c, 2 * c, c, c, 2 * c), b, nq, nk, bias, qv_bias, lse,
-                        scale, num_heads, want_dbias, (None, 0, 1.0), "cross attention backward")
+    dbias = _stream_bwd(q, (q.data_ptr(), k, k + slab, g.data_ptr(), out.data_ptr(),
+                            dq.data_ptr(), dk, dk + slab), (c, 2 * c, c, c, c, 2 * c), b, nq, nk,
+                        bias, qv_bias, lse, scale, num_heads, want_dbias, (None, 0, 1.0),
+                        "cross attention backward")
     cross_qkv_attention_bwd.launches += 1
     dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
     return dq, dkv, dbias, dqvb
@@ -671,7 +694,12 @@ def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
     if n > BWD_MAX_N:
         raise ValueError(f"the attention backward kernel takes N <= {BWD_MAX_N}, got {n}")
     dqkv = torch.empty_like(qkv)
-    ldb, _, bias_p, bias_t, dbias = _bias_buffers(bias, num_heads, n, n, want_dbias, qkv.device)
+    bias_p = bias_t = dbias = None
+    if bias is not None:
+        bias_p, bias_t = _padded_bias(bias)
+        if want_dbias:
+            dbias = torch.zeros(bias_p.shape, dtype=torch.float32, device=qkv.device)
+    ldb = n + n % 2
     lib = _lib("flash_attention_bwd")
     with torch.cuda.device(qkv.device):
         err = lib.uvit_flash_attention_bwd(
@@ -695,6 +723,7 @@ def fused_qkv_attention_bwd(
     scale: float,
     num_heads: int,
     *,
+    out: Optional[torch.Tensor] = None,
     want_dbias: bool = True,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
@@ -703,47 +732,56 @@ def fused_qkv_attention_bwd(
 
     qkv, bias, qv_bias, seed and dropout_rate as given to the forward (the
     dropout mask is replayed from the seed); lse [B, H, N] f32 from it; g
-    [B, N, C] the output's cotangent, in qkv.dtype. Returns (dqkv
+    [B, N, C] the output's cotangent, in qkv.dtype; out [B, N, C] the
+    forward's output, which the streaming route (N > ``BWD_MAX_N``) needs
+    for the row sums of the softmax vjp (``rowsum_from_out``) and raises
+    without; the fused route does not read it. Returns (dqkv
     [B, N, 3C] in qkv.dtype, dbias [H, N, N] f32 summed over the batch,
     dqvb [3, C] f32 with the k row zero); dbias is None without a bias or
     when ``want_dbias`` is False, dqvb None without a q/v bias."""
     stream = route(qkv.shape[1]) == "stream"
+    if stream and out is None:
+        raise ValueError("the streaming backward (N > BWD_MAX_N) needs the forward's output out")
     if qkv.device.type == "cpu":
         if dropout_rate > 0.0:
             philox.check_seed(seed, qkv.device)
         if stream:
-            dqkv, dbias, dqvb = _stream_bwd_plain(qkv, bias, qv_bias, lse, g, scale, num_heads,
-                                                  seed, dropout_rate)
+            dqkv, dbias, dqvb = _stream_bwd_plain(qkv, bias, qv_bias, lse, out, g, scale,
+                                                  num_heads, seed, dropout_rate)
         else:
             dqkv, dbias, dqvb = fused_qkv_attention_bwd_plain(
                 qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed,
                 dropout_rate=dropout_rate)
         return dqkv, dbias if want_dbias else None, dqvb
-    launch = _launch_stream_bwd if stream else _launch_bwd
-    return launch(qkv, bias, qv_bias, lse, g.contiguous(), scale, num_heads, want_dbias, seed,
-                  dropout_rate)
+    if stream:
+        return _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads,
+                                  want_dbias, seed, dropout_rate)
+    return _launch_bwd(qkv, bias, qv_bias, lse, g.contiguous(), scale, num_heads, want_dbias,
+                       seed, dropout_rate)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
     """K1 or K3 with the row lse forward, K2 or K4 backward, by ``route(N)``
     (the ``jax.custom_vjp`` of :1369-1424 over ``_dispatch_fwd`` /
     ``_dispatch_bwd``, :1378-1406). The lse output is not differentiable. The seed and the
-    rate are saved, and the backward replays the forward's dropout mask."""
+    rate are saved, and the backward replays the forward's dropout mask. The
+    output is saved too, for the streaming backward's row sums; the model's
+    proj layer saves the same tensor, so it costs no memory there."""
 
     @staticmethod
     def forward(ctx, qkv, bias, qv_bias, scale, num_heads, bounded, seed, dropout_rate):
         out, lse = _forward(qkv, bias, qv_bias, scale, num_heads, bounded, True, seed,
                             dropout_rate)
-        ctx.save_for_backward(qkv, bias, qv_bias, lse, seed)
+        ctx.save_for_backward(qkv, bias, qv_bias, lse, seed, out)
         ctx.scale, ctx.num_heads, ctx.dropout_rate = scale, num_heads, dropout_rate
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, _g_lse):
-        qkv, bias, qv_bias, lse, seed = ctx.saved_tensors
+        qkv, bias, qv_bias, lse, seed, out = ctx.saved_tensors
         dqkv, dbias, dqvb = fused_qkv_attention_bwd(
-            qkv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads,
+            qkv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads, out=out,
             want_dbias=ctx.needs_input_grad[1], seed=seed, dropout_rate=ctx.dropout_rate,
         )
         return dqkv, dbias, dqvb, None, None, None, None, None
@@ -815,42 +853,45 @@ def cross_qkv_attention_bwd(
     scale: float,
     num_heads: int,
     *,
+    out: torch.Tensor,
     want_dbias: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Backward of ``cross_qkv_attention`` from its row log-sum-exp.
 
-    q, kv, bias and qv_bias as given to the forward; lse [B, H, Nq] f32 from
+    q, kv, bias and qv_bias as given to the forward; lse [B, H, Nq] f32 and
+    out [B, Nq, C] (the output, for the row sums of the softmax vjp) from
     it; g [B, Nq, C] the output's cotangent, in q.dtype. Returns (dq
     [B, Nq, C], dkv [B, Nk, 2C], both in q.dtype, dbias [H, Nq, Nk] f32
     summed over the batch, dqvb [3, C] f32 with the k row zero); dbias is
     None without a bias or when ``want_dbias`` is False, dqvb None without a
     q/v bias. On a CUDA tensor K5's backward (K4's two kernels) runs."""
     if q.device.type == "cpu":
-        dq, dbias, c = cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads)
+        dq, dbias, c = cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads, out=out)
         dkv = cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads)
         dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
         return dq, dkv, dbias if want_dbias else None, dqvb
-    return _launch_cross_bwd(q, kv, bias, qv_bias, lse, g.contiguous(), scale, num_heads,
+    return _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads,
                              want_dbias)
 
 
 class _CrossQKVAttention(torch.autograd.Function):
     """K5 forward with the row lse, K5 backward (the ``jax.custom_vjp`` of
-    :1253-1288). The lse output is not differentiable."""
+    :1253-1288). The lse output is not differentiable; the output is saved
+    for the backward's row sums."""
 
     @staticmethod
     def forward(ctx, q, kv, bias, qv_bias, scale, num_heads, bounded):
         out, lse = _cross_forward(q, kv, bias, qv_bias, scale, num_heads, bounded, True)
-        ctx.save_for_backward(q, kv, bias, qv_bias, lse)
+        ctx.save_for_backward(q, kv, bias, qv_bias, lse, out)
         ctx.scale, ctx.num_heads = scale, num_heads
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, _g_lse):
-        q, kv, bias, qv_bias, lse = ctx.saved_tensors
+        q, kv, bias, qv_bias, lse, out = ctx.saved_tensors
         dq, dkv, dbias, dqvb = cross_qkv_attention_bwd(
-            q, kv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads,
+            q, kv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads, out=out,
             want_dbias=ctx.needs_input_grad[2])
         return dq, dkv, dbias, dqvb, None, None, None
 
