@@ -100,12 +100,12 @@ def test_plain_backward_from_jax_lse_matches_jax_kernel(bounded):
     FA.BOUNDED_SCORES = bounded
     seed = jnp.zeros((1,), jnp.int32)
     j = [jnp.asarray(x) for x in (qkv, bias, qvb, g)]
-    _, lse = FA._fwd_impl(j[0], j[1], j[2], seed, SCALE, H, 0.0, want_lse=True)
+    out, lse = FA._fwd_impl(j[0], j[1], j[2], seed, SCALE, H, 0.0, want_lse=True)
     ref = FA._bwd_impl(j[0], j[1], j[2], seed, lse, j[3], SCALE, H, 0.0)
     lse_bhn = np.array(lse).transpose(0, 1, 3, 2).reshape(B, H, n)
     got = TFA.fused_qkv_attention_bwd(
         *(torch.from_numpy(x) for x in (qkv, bias, qvb)), torch.from_numpy(lse_bhn),
-        torch.from_numpy(g), SCALE, H)
+        torch.from_numpy(g), SCALE, H, out=torch.from_numpy(np.array(out)))
     for name, a, r in zip(("dqkv", "dbias", "dqvb"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL, err_msg=name)
 
@@ -129,10 +129,12 @@ def test_bf16_plain_backward_rounds_like_the_kernel():
     qkv, bias, qvb, g = _inputs(50, True, True, seed=6)
     t = {k: torch.from_numpy(v) for k, v in dict(qkv=qkv, bias=bias, qvb=qvb, g=g).items()}
     q16, g16 = t["qkv"].to(torch.bfloat16), t["g"].to(torch.bfloat16)
-    _, lse = TFA.fused_qkv_attention_plain(q16, t["bias"], t["qvb"], SCALE, H,
-                                           bounded_scores=False)
-    dqkv, dbias, dqvb = TFA.fused_qkv_attention_bwd(q16, t["bias"], t["qvb"], lse, g16, SCALE, H)
-    ref = TFA.fused_qkv_attention_bwd(q16.float(), t["bias"], t["qvb"], lse, g16.float(), SCALE, H)
+    out, lse = TFA.fused_qkv_attention_plain(q16, t["bias"], t["qvb"], SCALE, H,
+                                             bounded_scores=False)
+    dqkv, dbias, dqvb = TFA.fused_qkv_attention_bwd(q16, t["bias"], t["qvb"], lse, g16, SCALE, H,
+                                                    out=out)
+    ref = TFA.fused_qkv_attention_bwd(q16.float(), t["bias"], t["qvb"], lse, g16.float(), SCALE, H,
+                                      out=out.float())
     assert dqkv.dtype == torch.bfloat16 and dbias.dtype == dqvb.dtype == torch.float32
     for a, r in zip((dqkv, dbias, dqvb), ref):
         np.testing.assert_allclose(a.float().numpy(), r.numpy(), rtol=3e-2, atol=3e-2)
@@ -155,7 +157,7 @@ def test_backward_launch_rejects_non_cuda_tensors():
     lse = torch.zeros(B, H, 13)
     with pytest.raises(ValueError):
         TFA._launch_bwd(torch.from_numpy(qkv), torch.from_numpy(bias), None, lse,
-                        torch.from_numpy(g), SCALE, H, True)
+                        torch.from_numpy(g), torch.from_numpy(g), SCALE, H, True)
 
 
 @pytest.fixture
@@ -172,10 +174,10 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype):
     qkv_t = torch.from_numpy(qkv).to(cuda_device, dtype)
     g_t = torch.from_numpy(g).to(cuda_device, dtype)
     bias_t, qvb_t = (torch.from_numpy(x).to(cuda_device) for x in (bias, qvb))
-    _, lse = TFA.fused_qkv_attention(qkv_t, bias_t, qvb_t, None, SCALE, H,
-                                     bounded_scores=False, want_lse=True)
+    out, lse = TFA.fused_qkv_attention(qkv_t, bias_t, qvb_t, None, SCALE, H,
+                                       bounded_scores=False, want_lse=True)
     launches = TFA.fused_qkv_attention_bwd.launches
-    got = TFA.fused_qkv_attention_bwd(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
+    got = TFA.fused_qkv_attention_bwd(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H, out=out)
     ref = TFA.fused_qkv_attention_bwd_plain(qkv_t, bias_t, qvb_t, lse, g_t, SCALE, H)
     assert TFA.fused_qkv_attention_bwd.launches == launches + 1
     tol = 1e-4 if dtype == torch.float32 else 2e-2

@@ -284,21 +284,6 @@ def test_stream_launchers_reject_non_cuda_tensors():
                                H, True)
 
 
-def test_padded_bias_copies_are_reused_only_for_the_same_values():
-    bias = torch.from_numpy(_inputs()[1])
-    p1, t1 = TFA._padded_bias(bias)
-    assert tuple(p1.shape) == (H, N, N + 1) and torch.equal(p1[..., :N], bias)
-    assert torch.equal(t1[..., :N], bias.transpose(1, 2))
-    assert torch.all(p1[..., N:] == 0) and torch.all(t1[..., N:] == 0)
-    assert TFA._padded_bias(bias)[0] is p1  # the same tensor, unchanged: the same copies
-    assert TFA._padded_bias(bias.view(H, N, N))[0] is p1  # another view of the same storage
-    bias.mul_(2.0)  # an in-place update makes new copies
-    p2, _ = TFA._padded_bias(bias)
-    assert p2 is not p1 and torch.equal(p2[..., :N], bias)
-    other = bias.clone()
-    assert TFA._padded_bias(other)[0] is not p2
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

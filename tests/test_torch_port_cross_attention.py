@@ -159,20 +159,6 @@ def test_cross_launchers_reject_non_cuda_tensors():
                               SCALE, H, True)
 
 
-@pytest.mark.parametrize("nq,nk", [(7, 13), (8, 13), (7, 12)])
-def test_padded_bias_copies_take_both_counts(nq, nk):
-    """[H, Nq, Nk + Nk % 2] and the transpose [H, Nk, Nq + Nq % 2], zero in
-    the padding (the copies K2 reads; K5's kernels read the bias as it
-    stands)."""
-    bias = torch.from_numpy(_inputs(nq, nk)[2])
-    bias_p, bias_t = TFA._padded_bias(bias)
-    assert tuple(bias_p.shape) == (H, nq, nk + nk % 2)
-    assert tuple(bias_t.shape) == (H, nk, nq + nq % 2)
-    assert torch.equal(bias_p[..., :nk], bias) and torch.equal(bias_t[..., :nq],
-                                                               bias.transpose(1, 2))
-    assert torch.all(bias_p[..., nk:] == 0) and torch.all(bias_t[..., nq:] == 0)
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -351,11 +351,11 @@ def test_dropout_backward_replays_forward_mask():
     np.testing.assert_allclose(inner, 2.0 * f, rtol=1e-3)
 
     out, lse = TFA.fused_qkv_attention(qkv, None, None, _seed(7), SCALE, H, rate, want_lse=True)
-    wrong = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, 2.0 * out, SCALE, H,
+    wrong = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, 2.0 * out, SCALE, H, out=out,
                                         seed=_seed(8), dropout_rate=rate)[0]
     inner_wrong = float((wrong[..., 2 * C:] * qkv[..., 2 * C:]).sum())
     assert abs(inner_wrong - 2.0 * f) > 1e-2 * 2.0 * f
-    right = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, 2.0 * out, SCALE, H,
+    right = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, 2.0 * out, SCALE, H, out=out,
                                         seed=_seed(7), dropout_rate=rate)[0]
     assert torch.equal(right, leaf.grad)
 
@@ -499,20 +499,19 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_kernel_sources_share_the_generator_header():
-    attention = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_stream_fwd",
-                 "flash_attention_stream_bwd")
+    attention = ("flash_attention_stream_fwd", "flash_attention_stream_bwd")
     quant = ("quant_fwd", "quant_wgrad")
     for name in ("dropout",) + attention + quant:
         assert '#include "philox.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     assert (_native.CSRC / "philox.cuh").exists()
-    # the four attention kernels share their fragment and copy helpers too,
-    # the two int8 kernels their roundings and their mma wrapper
+    # the attention kernels share their fragment and copy helpers too, the
+    # two int8 kernels their roundings and their mma wrapper
     for name in attention:
         assert '#include "attention_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     for name in quant:
         assert '#include "quant_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
-    # the two streaming kernels share their TMA, mbarrier and wgmma pieces
-    for name in ("flash_attention_stream_fwd", "flash_attention_stream_bwd"):
+    # the attention kernels share their TMA, mbarrier and wgmma pieces
+    for name in attention:
         assert '#include "hopper_common.cuh"' in (_native.CSRC / f"{name}.cu").read_text()
     headers = {p.name for p in _native.CSRC.glob("*.cuh")}
     assert headers == {"philox.cuh", "attention_common.cuh", "quant_common.cuh",
@@ -549,7 +548,7 @@ def test_attention_dropout_kernels_match_plain_on_the_card():
                                            seed=seed, dropout_rate=0.3)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-4)
     g = torch.randn(2, 50, 128, device=dev)
-    got = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, g, 0.125, 2, seed=seed,
+    got = TFA.fused_qkv_attention_bwd(qkv, None, None, lse, g, 0.125, 2, out=out, seed=seed,
                                       dropout_rate=0.3)[0]
     want = TFA.fused_qkv_attention_bwd_plain(qkv, None, None, lse, g, 0.125, 2, seed=seed,
                                              dropout_rate=0.3)[0]

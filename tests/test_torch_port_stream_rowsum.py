@@ -1,5 +1,5 @@
-"""PyTorch port: the streaming backward's row sums c formed from the
-forward's output, and the bias buffers it builds.
+"""PyTorch port: the backward's row sums c formed from the forward's
+output, on the streaming and the fused route, and the bias buffers it builds.
 
 The first backward kernel of K4 / K5 forms c_i = Σ_j p_d,ij (g_i·v_j) as
 g_i·o_i from the forward's output o = p_d v (``rowsum_from_out``), where the
@@ -63,6 +63,61 @@ def test_rowsum_from_out_equals_the_recomputed_rowsum(with_bias, with_qvb, bound
         assert torch.equal(c, got)
 
 
+# the fused route's plain backward given the output against the recomputed
+# row sums: f32 to the rounding of c, bf16 to its rounding of the output
+FUSED_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [197, 50, 256])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bounded", [False, True], ids=["exact", "bounded"])
+@pytest.mark.parametrize("with_qvb", [False, True], ids=["no_qvb", "qvb"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+def test_fused_backward_with_the_output_equals_the_recomputed_rowsum(with_bias, with_qvb,
+                                                                     bounded, rate, n, dtype):
+    """``fused_qkv_attention_bwd_plain`` given the forward's output (c = g·o,
+    as the kernels form it) against the same call without it (c =
+    rowsum(t), as the JAX kernel forms it): dqkv, dbias and dqvb within
+    FUSED_REL of the recomputed ones' largest entry."""
+    rs = np.random.RandomState(n)
+    qkv = torch.from_numpy(rs.randn(B, n, 3 * C).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rs.randn(B, n, C).astype(np.float32)).to(dtype)
+    bias = torch.from_numpy((rs.randn(H, n, n) * 0.5).astype(np.float32)) if with_bias else None
+    qvb = None
+    if with_qvb:
+        qvb = torch.from_numpy((rs.randn(3, C) * 0.3).astype(np.float32))
+        qvb[1] = 0.0
+    seed = _seed() if rate > 0.0 else None
+    out, lse = TFA.fused_qkv_attention_plain(qkv, bias, qvb, SCALE, H, bounded_scores=bounded,
+                                             seed=seed, dropout_rate=rate)
+    got = TFA.fused_qkv_attention_bwd_plain(qkv, bias, qvb, lse, g, SCALE, H, out=out, seed=seed,
+                                            dropout_rate=rate)
+    want = TFA.fused_qkv_attention_bwd_plain(qkv, bias, qvb, lse, g, SCALE, H, seed=seed,
+                                             dropout_rate=rate)
+    assert got[0].dtype == dtype and got[0].shape == qkv.shape
+    for name, a, r in zip(("dqkv", "dbias", "dqvb"), got, want):
+        assert (a is None) == (r is None), name
+        if a is None:
+            continue
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= FUSED_REL[dtype] * r.float().abs().max().item(), (name, err)
+    # the public entry hands the output on as given
+    routed = TFA.fused_qkv_attention_bwd(qkv, bias, qvb, lse, g, SCALE, H, out=out, seed=seed,
+                                         dropout_rate=rate)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(routed, got))
+
+
+@pytest.mark.parametrize("n", [13, 197, TFA.BWD_MAX_N])
+def test_fused_backward_needs_the_output(n):
+    rs = np.random.RandomState(2)
+    qkv = torch.from_numpy(rs.randn(1, n, 3 * C).astype(np.float32))
+    g = torch.from_numpy(rs.randn(1, n, C).astype(np.float32))
+    assert TFA.route(n) == "fused"
+    with pytest.raises(ValueError, match="output"):
+        TFA.fused_qkv_attention_bwd(qkv, None, None, torch.zeros(1, H, n), g, SCALE, H)
+
+
 def test_streaming_backward_needs_the_output():
     rs = np.random.RandomState(1)
     n = TFA.BWD_MAX_N + 1
@@ -76,16 +131,14 @@ def test_streaming_backward_needs_the_output():
 @pytest.mark.parametrize("want_dbias", [False, True])
 @pytest.mark.parametrize("nq,nk", [(7, 13), (8, 8), (1025, 1025)])
 def test_bias_buffers_build_no_copy_of_the_bias(nq, nk, want_dbias):
-    """The streaming backward reads the bias through shared memory (the
-    key-major kernel transposed there): ``_bias_buffers`` builds only the
-    zeroed dbias with its pitch (a multiple of 4: 16-byte atomics), no padded
-    and no transposed copy, and leaves K2's cache of copies alone."""
+    """The backward reads the bias through shared memory (the key-major
+    kernel transposed there): ``_bias_buffers`` builds only the zeroed dbias
+    with its pitch (a multiple of 4: 16-byte atomics), no padded and no
+    transposed copy."""
     bias = torch.zeros(H, nq, nk)
-    before = TFA._padded_bias_cache
     got = TFA._bias_buffers(bias, H, nq, nk, want_dbias, bias.device)
     ldb, dbias = got
     assert len(got) == 2 and ldb >= nk and ldb % 4 == 0 and ldb - nk < 4
-    assert TFA._padded_bias_cache is before
     if want_dbias:
         assert tuple(dbias.shape) == (H, nq, ldb) and dbias.dtype == torch.float32
         assert torch.count_nonzero(dbias).item() == 0

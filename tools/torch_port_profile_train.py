@@ -36,10 +36,12 @@ STEPS = 3
 MODELS = {"beit_base_patch16_224": (160, 0.65, 224), "beit_large_patch16_512": (8, 0.75, 512)}
 # kernel-name fragments → class, first match wins
 CLASSES = (
-    ("stream_fwd", "K3 streaming attention forward"),
-    ("stream_bwd_dq", "K4 kernel 1 (dq, dbias)"), ("stream_bwd_dkv", "K4 kernel 2 (dk, dv)"),
+    ("stream_fwd", "K1 / K3 streaming forward"),
+    # the streaming kernels are K1 and K2 at N <= 256, K3 and K4 above
+    ("stream_bwd_dq", "K2 / K4 kernel 1 (dq, dbias)"),
+    ("stream_bwd_dkv", "K2 / K4 kernel 2 (dk, dv)"),
     ("attention_fwd", "K1 attention forward"),
-    ("attention_bwd", "K2 attention backward"),
+    ("attention_bwd", "K2 attention backward (the earlier fused kernel)"),
     ("quant_fwd_kernel", "K6 int8 matmul (forward, dgrad)"),
     ("quantize_transpose", "K7 quantize-transpose"), ("wgrad_mm", "K7 int32 product"),
     ("gemm", "GEMMs (cuBLAS)"), ("nvjet", "GEMMs (cuBLAS)"), ("sm90_xmma", "GEMMs (cuBLAS)"),

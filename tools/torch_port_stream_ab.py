@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""K3, K4 and K5 (the streaming attention kernels) of two checkouts, on one card.
+"""The attention kernels K1 to K5 of two checkouts, on one card.
 
     python3 tools/torch_port_stream_ab.py OTHER_CHECKOUT
 
 Runs the kernels of OTHER_CHECKOUT and of this checkout in turns (other,
 this, this, other), each turn a process of its own that imports
-``uncertainty_vit_tpu_torch`` from its checkout and builds its kernels there,
-at the ViT-L/16 512 shapes of ``chip_smoke.py`` phases 7, 8 and 14 (N = 1025,
-H = 16, bf16, bias, bounded softmax): K3 at B = 16, K3 with the lse at B = 8,
-K4 at B = 8, and one K5 shard of B = 8 at S = 2 (Nq = 513) and S = 4 (Nq =
-257), forward with the lse plus backward, beside the library call for the
-S = 2 shard (scaled_dot_product_attention with the bias as a bf16 mask, and
+``uncertainty_vit_tpu_torch`` from its checkout and builds its kernels there.
+At the ViT-B/16 224 shapes of ``chip_smoke.py`` phases 1 and 3 (N = 197,
+H = 12, bf16, bias, bounded softmax): the fused forward K1 at B = 128, at
+B = 160 with the lse (the train step's), at B = 1024 (the folded MC-dropout
+batch) with dropout 0 and 0.1; the fused backward K2 at B = 160 with dropout
+0 and 0.05; and beside them, as the yardstick a design for N <= 256 must
+beat, the streaming kernels' entries (``_launch_stream``,
+``_launch_stream_bwd``) called at the same shapes ("stream at ..."). At the
+ViT-L/16 512 shapes of phases 7, 8 and 14 (N = 1025, H = 16): the streaming
+forward K3 at B = 16, K3 with the lse at B = 8, the streaming backward K4 at
+B = 8, and one K5 shard of B = 8 at S = 2 (Nq = 513) and S = 4 (Nq = 257),
+forward with the lse plus backward, beside the library call for the S = 2
+shard (scaled_dot_product_attention with the bias as a bf16 mask, and
 autograd's backward of it). Each turn prints its ms per call (CUDA events,
-the least of 3 runs of 20 calls after 3 warm-ups) and a digest of K3's
-output and lse, K4's dqkv and the S = 2 shard's out, dq and dkv on the same
-seeded inputs (dbias, summed by atomics in a run-dependent order, is not
-digested), and saves those tensors under build/stream_ab/.
+the least of 3 runs of 20 calls after 3 warm-ups) and a digest of K1's
+output and lse, K2's dqkv, K3's output and lse, K4's dqkv and the S = 2
+shard's out, dq and dkv on the same seeded inputs (dbias, summed by atomics
+in a run-dependent order, is not digested), and saves those tensors under
+build/stream_ab/.
 
 The digests of one checkout's two turns must be equal (each checkout is
 deterministic); the two checkouts may differ in their bits (a redesign sums
@@ -79,6 +87,7 @@ def _time_here(root: str, save_as: str) -> dict:
         return FA.cross_qkv_attention_bwd(q, kv, bias, None, lse, g, scale, h, **extra)
 
     dev = torch.device("cuda", 0)
+    fns, saved = _vit_b_224(torch, FA, dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     h, c, n, scale = 16, 1024, 1025, 64**-0.5
     qkv = torch.randn(16, n, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
@@ -90,14 +99,14 @@ def _time_here(root: str, save_as: str) -> dict:
     out, lse = FA.fused_qkv_attention(train, bias, None, None, scale, h, bounded_scores=True,
                                       want_lse=True)
     dqkv = bwd(train, bias, lse, out, g)[0]
-    fns = {
+    fns.update({
         "K3 B=16": lambda: FA.fused_qkv_attention(qkv, bias, None, None, scale, h,
                                                   bounded_scores=True),
         "K3 B=8 with lse": lambda: FA.fused_qkv_attention(train, bias, None, None, scale, h,
                                                           bounded_scores=True, want_lse=True),
         "K4 B=8": lambda: bwd(train, bias, lse, out, g),
-    }
-    saved = {"K3 out": out16, "K3 lse": lse, "K4 dqkv": dqkv}
+    })
+    saved.update({"K3 out": out16, "K3 lse": lse, "K4 dqkv": dqkv})
     for s in (2, 4):
         nq = -(-n // s)
         q, b_r, g_r = train[:, :nq, :c].contiguous(), bias[:, :nq].contiguous(), g[:, :nq]
@@ -131,9 +140,47 @@ def _time_here(root: str, save_as: str) -> dict:
     os.makedirs(SAVE_DIR, exist_ok=True)
     torch.save({k: v.cpu() for k, v in saved.items()}, os.path.join(SAVE_DIR, save_as))
     return {"ms": ms, "digest": _digest(torch, saved.values()), "saved": save_as,
-            "launches": [FA.fused_qkv_attention.stream_launches,
+            "launches": [FA.fused_qkv_attention.launches, FA.fused_qkv_attention_bwd.launches,
+                         FA.fused_qkv_attention.stream_launches,
                          FA.fused_qkv_attention_bwd.stream_launches,
                          FA.cross_qkv_attention.launches, FA.cross_qkv_attention_bwd.launches]}
+
+
+def _vit_b_224(torch, FA, dev):
+    """K1 and K2 at the ViT-B/16 224 shapes, and the streaming entries at the
+    same shapes: (the functions to time, the tensors to digest)."""
+    gen = torch.Generator(device=dev).manual_seed(224)
+    h, c, n, scale = 12, 768, 197, 64**-0.5
+    seed = torch.tensor([0x0123456789ABCDEF], dtype=torch.int64, device=dev)
+    big = torch.randn(1024, n, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(h, n, n, generator=gen, device=dev) * 0.5
+    g = torch.randn(160, n, c, generator=gen, device=dev).to(torch.bfloat16)
+    ev, train = big[:128], big[:160]
+    out, lse = FA.fused_qkv_attention(train, bias, None, None, scale, h, bounded_scores=True,
+                                      want_lse=True)
+    out_d = FA.fused_qkv_attention(train, bias, None, seed, scale, h, 0.05, bounded_scores=True)
+    fwd = lambda x, **kw: (lambda: FA.fused_qkv_attention(  # noqa: E731
+        x, bias, None, kw.get("seed"), scale, h, kw.get("rate", 0.0), bounded_scores=True,
+        want_lse=kw.get("lse", False)))
+    stream = lambda x, **kw: (lambda: FA._launch_stream(  # noqa: E731
+        x, bias, None, scale, h, True, kw.get("lse", False), kw.get("seed"), kw.get("rate", 0.0)))
+    fns = {}
+    for what, x, kw in (("B=128", ev, {}), ("B=160 with lse", train, {"lse": True}),
+                        ("B=1024", big, {}),
+                        ("B=1024 dropout 0.1", big, {"seed": seed, "rate": 0.1})):
+        fns[f"K1 {what}"] = fwd(x, **kw)
+        fns[f"stream at K1 {what}"] = stream(x, **kw)
+    bwd = lambda **kw: (lambda: FA.fused_qkv_attention_bwd(  # noqa: E731
+        train, bias, None, lse, g, scale, h, out=kw.get("out", out), seed=kw.get("seed"),
+        dropout_rate=kw.get("rate", 0.0)))
+    fns["K2 B=160"] = bwd()
+    fns["K2 B=160 dropout 0.05"] = bwd(out=out_d, seed=seed, rate=0.05)
+    fns["stream at K2 B=160"] = lambda: FA._launch_stream_bwd(train, bias, None, lse, out, g,
+                                                              scale, h, True)
+    fns["stream at K2 B=160 dropout 0.05"] = lambda: FA._launch_stream_bwd(
+        train, bias, None, lse, out_d, g, scale, h, True, seed, 0.05)
+    saved = {"K1 out": fwd(ev)(), "K1 lse": lse, "K2 dqkv": bwd()()[0]}
+    return fns, saved
 
 
 def _compare(this_file: str, other_file: str) -> dict:

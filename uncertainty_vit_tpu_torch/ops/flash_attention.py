@@ -15,26 +15,24 @@ reach device memory.
 - On a CPU tensor the call runs ``fused_qkv_attention_plain`` (forward)
   and ``fused_qkv_attention_bwd_plain`` (backward), the same math in plain
   PyTorch.
-- On a CUDA tensor ``route(N)`` picks the kernels. Up to ``BWD_MAX_N``
-  tokens ("fused"): the forward launches ``csrc/flash_attention_fwd.cu``
-  (K1) and adds one to ``fused_qkv_attention.launches``; the backward
-  launches ``csrc/flash_attention_bwd.cu`` (K2), which holds a whole
-  (image, head) in shared memory, and adds one to
-  ``fused_qkv_attention_bwd.launches``. Above it ("stream"; N = 577 and
-  1025 at the 384 and 512 presets): the forward launches
-  ``csrc/flash_attention_stream_fwd.cu`` (K3) and adds one to
-  ``fused_qkv_attention.stream_launches``; the backward launches the two
-  kernels of ``csrc/flash_attention_stream_bwd.cu`` (K4) back to back and
-  adds one to ``fused_qkv_attention_bwd.stream_launches``. One threshold
-  serves forward and backward. Either raises on what its kernel does not
-  take. There is no fallback.
+- On a CUDA tensor ``route(N)`` picks the route, and both routes run the
+  kernels of ``csrc/flash_attention_stream_fwd.cu`` (forward) and
+  ``csrc/flash_attention_stream_bwd.cu`` (backward: two kernels back to
+  back). Up to ``BWD_MAX_N`` tokens ("fused"; N = 197 at ViT-B/16 224) the
+  forward is K1 and adds one to ``fused_qkv_attention.launches``, the
+  backward K2 and adds one to ``fused_qkv_attention_bwd.launches``; above
+  it ("stream"; N = 577 and 1025 at the 384 and 512 presets) they are K3
+  and K4 and add one to ``fused_qkv_attention.stream_launches`` and
+  ``fused_qkv_attention_bwd.stream_launches``. One threshold serves forward
+  and backward. Either raises on what its kernel does not take. There is
+  no fallback.
 
 When grad mode is on and an input requires grad, the call goes through
 ``_FusedQKVAttention`` (a ``torch.autograd.Function``): its forward is K1
 or K3 with the row log-sum-exp, its backward K2 or K4, which rebuild the
-probabilities from that lse; K4 also takes the forward's output, from which
-it forms the row sums of the softmax vjp (``rowsum_from_out``). Otherwise
-only the forward runs.
+probabilities from that lse and take the forward's output, from which they
+form the row sums of the softmax vjp (``rowsum_from_out``). Otherwise only
+the forward runs.
 
 ``cross_qkv_attention`` (:1253-1288) is the local computation of token-
 (sequence-)parallel attention: q [B, Nq, C], one shard's query rows, against
@@ -75,20 +73,22 @@ from uncertainty_vit_tpu_torch.parallel import seq
 BOUNDED_SCORES = False
 # The kernel's only head width (ViT-B and ViT-L).
 KERNEL_HEAD_DIM = 64
-# The fused backward kernel keeps a whole (image, head) of two of q/k/v/g in
-# shared memory: it takes N up to this (ViT 224 and below). Above it the
-# streaming kernels run, forward and backward alike (N=577/1025).
+# The fused route (K1, K2: the TPU's whole-row kernels) takes N up to this
+# (ViT 224 and below), the streaming route (K3, K4) above it (N=577/1025),
+# forward and backward alike. On the card both routes run the streaming
+# kernels, whose 64-row tiles need no whole row: the fused route's launchers
+# raise above it.
 BWD_MAX_N = 256
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def route(n: int) -> str:
-    """The kernels a call with N = n tokens takes on the card: "fused" (K1
+    """The route a call with N = n tokens takes on the card: "fused" (K1
     forward, K2 backward) up to ``BWD_MAX_N``, "stream" (K3, K4) above it.
-    The threshold is the card's (K2's shared memory), not the TPU's VMEM
-    budget (``_route``, :1361-1366), and is the same for forward and
-    backward, so a saved lse always meets the backward that expects it."""
+    The threshold is fixed, not the TPU's VMEM budget (``_route``,
+    :1361-1366), and is the same for forward and backward, so a saved lse
+    always meets the backward that expects it."""
     return "fused" if n <= BWD_MAX_N else "stream"
 
 
@@ -219,6 +219,7 @@ def fused_qkv_attention_bwd_plain(
     scale: float,
     num_heads: int,
     *,
+    out: Optional[torch.Tensor] = None,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     image0: int = 0,
@@ -230,15 +231,19 @@ def fused_qkv_attention_bwd_plain(
     Mirrors ``_bwd_kernel`` (:291-326): p = exp(s − lse) from the saved
     row log-sum-exp (no max or row-sum recompute); p_d = p·mask, the
     forward's keep mask replayed from ``seed`` (p_d = p without dropout);
-    dv = p_dᵀg with p_d cast to g's dtype; t = (g vᵀ)·p_d, c = rowsum(t),
-    ds = t − p·c with the undropped p; dq = ds_c·k·scale and dk =
-    ds_cᵀ·q·scale with ds_c = ds cast to the input dtype; dbias = Σ_b ds in
-    f32. Products take the (exactly upcast) operands in f32."""
+    dv = p_dᵀg with p_d cast to g's dtype; t = (g vᵀ)·p_d; c, the row sums
+    of the softmax vjp, formed from the forward's output ``out`` [B, N, C]
+    as the CUDA kernels form them (``rowsum_from_out``), or without ``out``
+    as rowsum(t), as the JAX kernel forms them; ds = t − p·c with the
+    undropped p; dq = ds_c·k·scale and dk = ds_cᵀ·q·scale with ds_c = ds
+    cast to the input dtype; dbias = Σ_b ds in f32. Products take the
+    (exactly upcast) operands in f32."""
     dt = qkv.dtype
     q, k, gh, p, p_d, t = _recompute(*_split_qkv(qkv), bias, qv_bias, lse, g, scale, num_heads,
                                      seed, dropout_rate, image0)
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
-    ds = t - p * t.sum(dim=-1, keepdim=True)
+    c = t.sum(dim=-1) if out is None else rowsum_from_out(out, g, num_heads)
+    ds = t - p * c[..., None]
     ds_c = ds.to(dt).float()
     dq = torch.matmul(ds_c, k) * scale
     dk = torch.matmul(ds_c.transpose(-1, -2), q) * scale
@@ -397,12 +402,6 @@ _P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ui
 # C signatures: pointers, then the ints, the scale and the dropout
 # threshold and 1/(1 − rate), then the stream
 _ARGTYPES = {
-    # qkv, bias, qv_bias, out, lse, seed; batch, n, num_heads, dtype, scale, bounded,
-    # threshold, inv_keep; stream
-    "flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _U, _F, _P],
-    # qkv, bias, bias_t, qv_bias, lse, g, dqkv, dbias, seed; batch, n, ldb, num_heads,
-    # dtype, scale, threshold, inv_keep; stream
-    "flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_F, _U, _F, _P],
     # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, nq, nk, num_heads,
     # dtype; scale, bounded, threshold, inv_keep; stream
     "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 5 + [_F, _I, _U, _F, _P],
@@ -487,28 +486,6 @@ def _check_g(g: torch.Tensor, like: torch.Tensor, shape) -> None:
                          f"{tuple(g.shape)} on {g.device}")
 
 
-def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
-            seed=None, dropout_rate=0.0):
-    b, n, c = _check_qkv(qkv, num_heads)
-    _check_aux("bias", bias, (num_heads, n, n), qkv.device)
-    _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
-    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
-
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device) \
-        if want_lse else None
-    lib = _lib("flash_attention_fwd")
-    with torch.cuda.device(qkv.device):
-        err = lib.uvit_flash_attention_fwd(
-            qkv.data_ptr(), _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse), seed_ptr,
-            b, n, num_heads, _DTYPES[qkv.dtype], float(scale), int(bounded_scores),
-            threshold, inv_keep, torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _native.raise_on(lib, err, "attention forward")
-    fused_qkv_attention.launches += 1
-    return out, lse
-
-
 def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_heads, bounded,
                 want_lse, dropout, what):
     """The streaming forward's entry on q, k, v given as base pointers
@@ -530,20 +507,39 @@ def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_he
     return out, lse
 
 
-def _launch_stream(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
-                   seed=None, dropout_rate=0.0):
-    """K3: the streaming forward on packed qkv."""
+def _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
+                dropout_rate, what):
+    """The streaming forward on packed qkv: (out, lse or None)."""
     b, n, c = _check_qkv(qkv, num_heads)
     _check_aux("bias", bias, (num_heads, n, n), qkv.device)
     _check_aux("qv_bias", qv_bias, (3, c), qkv.device)
     dropout = _dropout_args(seed, dropout_rate, qkv.device)
     # the packed layout as three base pointers and one row pitch
     q, slab = qkv.data_ptr(), c * qkv.element_size()
-    out, lse = _stream_fwd(qkv, (q, q + slab, q + 2 * slab), (3 * c, 3 * c), b, n, n, c, bias,
-                           qv_bias, scale, num_heads, bounded_scores, want_lse, dropout,
-                           "streaming attention forward")
+    return _stream_fwd(qkv, (q, q + slab, q + 2 * slab), (3 * c, 3 * c), b, n, n, c, bias,
+                       qv_bias, scale, num_heads, bounded_scores, want_lse, dropout, what)
+
+
+def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
+            seed=None, dropout_rate=0.0):
+    """K1: the fused forward, N <= ``BWD_MAX_N``: the streaming forward's
+    kernel, whose 64-row q tiles walk all N keys in four tiles at most."""
+    if qkv.shape[1] > BWD_MAX_N:
+        raise ValueError(f"the fused attention forward kernel takes N <= {BWD_MAX_N}, "
+                         f"got {qkv.shape[1]}")
+    got = _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
+                      dropout_rate, "attention forward")
+    fused_qkv_attention.launches += 1
+    return got
+
+
+def _launch_stream(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
+                   seed=None, dropout_rate=0.0):
+    """K3: the streaming forward on packed qkv."""
+    got = _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
+                      dropout_rate, "streaming attention forward")
     fused_qkv_attention.stream_launches += 1
-    return out, lse
+    return got
 
 
 def _launch_cross(q, kv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse):
@@ -557,46 +553,6 @@ def _launch_cross(q, kv, bias, qv_bias, scale, num_heads, bounded_scores, want_l
                            (None, 0, 1.0), "cross attention forward")
     cross_qkv_attention.launches += 1
     return out, lse
-
-
-# The last bias whose padded copies were built: (the bias, its version, the
-# stream they were built on, the copies). Holding the bias keeps its storage
-# from being handed to another tensor, so (data_ptr, version) names its values
-# for as long as it sits here.
-_padded_bias_cache: Optional[Tuple[torch.Tensor, int, int,
-                                   Tuple[torch.Tensor, torch.Tensor]]] = None
-
-
-def _padded_bias(bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2's f32 copies of the bias [H, N, N] and of its transpose with an
-    even row pitch: [H, N, ldb] with ldb = N + N % 2, zero in the padding:
-    the fused backward reads bias pairs as 8-byte loads along rows in both
-    its query-major and its key-major phase. With a shared rel-pos bias every
-    block of a model passes the same tensor, so the copies (2 x 1.9 MB at
-    ViT-B/16 224) are built once per step, not once per layer: the last pair
-    is kept and reused while the same storage at the same version is passed
-    again on the same stream (a call on another stream builds its own,
-    ordered after that stream's work). The kept pair and the bias stay
-    allocated until another bias arrives. A write that bypasses the version
-    counter (through ``bias.data``) is not seen; the models never write a
-    bias in place. The streaming kernels (K3, K4, K5) read the bias as it
-    stands and need no copy."""
-    global _padded_bias_cache
-    version = None if bias.is_inference() else bias._version
-    stream = torch.cuda.current_stream(bias.device).cuda_stream if bias.is_cuda else 0
-    hit = _padded_bias_cache
-    if hit is not None and version is not None and hit[1] == version and hit[2] == stream \
-            and hit[0].data_ptr() == bias.data_ptr() and hit[0].shape == bias.shape \
-            and hit[0].device == bias.device:
-        return hit[3]
-    h, nq, nk = bias.shape
-    bias_p = torch.zeros((h, nq, nk + nk % 2), dtype=torch.float32, device=bias.device)
-    bias_t = torch.zeros((h, nk, nq + nq % 2), dtype=torch.float32, device=bias.device)
-    bias_p[..., :nk] = bias
-    bias_t[..., :nq] = bias.transpose(1, 2)
-    _padded_bias_cache = None if version is None else (bias.detach(), version, stream,
-                                                       (bias_p, bias_t))
-    return bias_p, bias_t
 
 
 def _check_bwd(qkv, bias, qv_bias, lse, g, num_heads) -> Tuple[int, int, int]:
@@ -647,9 +603,10 @@ def _stream_bwd(x, ptrs, pitches, b, nq, nk, bias, qv_bias, lse, scale, num_head
     return None if dbias is None else dbias[..., :nk]
 
 
-def _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
-                       seed=None, dropout_rate=0.0):
-    """K4: the streaming backward's two kernels on packed qkv and dqkv."""
+def _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
+                dropout_rate, what):
+    """The streaming backward's two kernels on packed qkv and dqkv: (dqkv,
+    dbias, dqvb)."""
     b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
     _check_g(out, qkv, (b, n, c))
     dropout = _dropout_args(seed, dropout_rate, qkv.device)
@@ -658,11 +615,18 @@ def _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_d
     q, dq = qkv.data_ptr(), dqkv.data_ptr()
     dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), out.data_ptr(), dq,
                               dq + slab, dq + 2 * slab), (3 * c, 3 * c, c, c, 3 * c, 3 * c), b, n,
-                        n, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout,
-                        "streaming attention backward")
-    fused_qkv_attention_bwd.stream_launches += 1
+                        n, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout, what)
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
     return dqkv, dbias, dqvb
+
+
+def _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
+                       seed=None, dropout_rate=0.0):
+    """K4: the streaming backward's two kernels on packed qkv and dqkv."""
+    got = _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
+                      dropout_rate, "streaming attention backward")
+    fused_qkv_attention_bwd.stream_launches += 1
+    return got
 
 
 def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias):
@@ -686,32 +650,18 @@ def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_
     return dq, dkv, dbias, dqvb
 
 
-def _launch_bwd(qkv, bias, qv_bias, lse, g, scale, num_heads, want_dbias,
+def _launch_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
                 seed=None, dropout_rate=0.0):
-    """K2: the fused backward, N <= ``BWD_MAX_N``."""
-    b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
-    seed_ptr, threshold, inv_keep = _dropout_args(seed, dropout_rate, qkv.device)
-    if n > BWD_MAX_N:
-        raise ValueError(f"the attention backward kernel takes N <= {BWD_MAX_N}, got {n}")
-    dqkv = torch.empty_like(qkv)
-    bias_p = bias_t = dbias = None
-    if bias is not None:
-        bias_p, bias_t = _padded_bias(bias)
-        if want_dbias:
-            dbias = torch.zeros(bias_p.shape, dtype=torch.float32, device=qkv.device)
-    ldb = n + n % 2
-    lib = _lib("flash_attention_bwd")
-    with torch.cuda.device(qkv.device):
-        err = lib.uvit_flash_attention_bwd(
-            qkv.data_ptr(), _ptr(bias_p), _ptr(bias_t), _ptr(qv_bias), lse.data_ptr(),
-            g.data_ptr(), dqkv.data_ptr(), _ptr(dbias), seed_ptr, b, n, ldb, num_heads,
-            _DTYPES[qkv.dtype], float(scale), threshold, inv_keep,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _native.raise_on(lib, err, "attention backward")
+    """K2: the fused backward, N <= ``BWD_MAX_N``: the streaming backward's
+    two kernels, whose 128-row blocks walk all N keys (kernel 1) or all N
+    queries (kernel 2) in four tiles at most."""
+    if qkv.shape[1] > BWD_MAX_N:
+        raise ValueError(f"the fused attention backward kernel takes N <= {BWD_MAX_N}, "
+                         f"got {qkv.shape[1]}")
+    got = _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
+                      dropout_rate, "attention backward")
     fused_qkv_attention_bwd.launches += 1
-    dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
-    return dqkv, None if dbias is None else dbias[..., :n].contiguous(), dqvb
+    return got
 
 
 def fused_qkv_attention_bwd(
@@ -733,15 +683,15 @@ def fused_qkv_attention_bwd(
     qkv, bias, qv_bias, seed and dropout_rate as given to the forward (the
     dropout mask is replayed from the seed); lse [B, H, N] f32 from it; g
     [B, N, C] the output's cotangent, in qkv.dtype; out [B, N, C] the
-    forward's output, which the streaming route (N > ``BWD_MAX_N``) needs
-    for the row sums of the softmax vjp (``rowsum_from_out``) and raises
-    without; the fused route does not read it. Returns (dqkv
-    [B, N, 3C] in qkv.dtype, dbias [H, N, N] f32 summed over the batch,
-    dqvb [3, C] f32 with the k row zero); dbias is None without a bias or
-    when ``want_dbias`` is False, dqvb None without a q/v bias."""
+    forward's output, from which both routes form the row sums of the
+    softmax vjp (``rowsum_from_out``): required, the call raises without it.
+    Returns (dqkv [B, N, 3C] in qkv.dtype, dbias [H, N, N] f32 summed over
+    the batch, dqvb [3, C] f32 with the k row zero); dbias is None without a
+    bias or when ``want_dbias`` is False, dqvb None without a q/v bias."""
+    if out is None:
+        raise ValueError("the attention backward needs the forward's output out (the row sums "
+                         "of the softmax vjp are formed from it)")
     stream = route(qkv.shape[1]) == "stream"
-    if stream and out is None:
-        raise ValueError("the streaming backward (N > BWD_MAX_N) needs the forward's output out")
     if qkv.device.type == "cpu":
         if dropout_rate > 0.0:
             philox.check_seed(seed, qkv.device)
@@ -750,14 +700,12 @@ def fused_qkv_attention_bwd(
                                                   num_heads, seed, dropout_rate)
         else:
             dqkv, dbias, dqvb = fused_qkv_attention_bwd_plain(
-                qkv, bias, qv_bias, lse, g, scale, num_heads, seed=seed,
+                qkv, bias, qv_bias, lse, g, scale, num_heads, out=out, seed=seed,
                 dropout_rate=dropout_rate)
         return dqkv, dbias if want_dbias else None, dqvb
-    if stream:
-        return _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads,
-                                  want_dbias, seed, dropout_rate)
-    return _launch_bwd(qkv, bias, qv_bias, lse, g.contiguous(), scale, num_heads, want_dbias,
-                       seed, dropout_rate)
+    launch = _launch_stream_bwd if stream else _launch_bwd
+    return launch(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads, want_dbias,
+                  seed, dropout_rate)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
@@ -765,8 +713,8 @@ class _FusedQKVAttention(torch.autograd.Function):
     (the ``jax.custom_vjp`` of :1369-1424 over ``_dispatch_fwd`` /
     ``_dispatch_bwd``, :1378-1406). The lse output is not differentiable. The seed and the
     rate are saved, and the backward replays the forward's dropout mask. The
-    output is saved too, for the streaming backward's row sums; the model's
-    proj layer saves the same tensor, so it costs no memory there."""
+    output is saved too, for the backward's row sums; the model's proj layer
+    saves the same tensor, so it costs no memory there."""
 
     @staticmethod
     def forward(ctx, qkv, bias, qv_bias, scale, num_heads, bounded, seed, dropout_rate):
