@@ -15,8 +15,7 @@ kernels from the sources in this checkout, then:
            version's, which draws the same mask from the same seed, and
            checks that the lse is the undropped softmax's and that with zero
            scores and v = 1 the kernel's output is the plain version's to the
-           bit (each row's kept count); K1's own launcher must raise at
-           N=257, where the routed call goes to K3. Then holds and times it
+           bit (each row's kept count). Then holds and times it
            at the ViT-B/16 224 eval shape (B=128, N=197, bf16, bias,
            bounded), at the train step's B=160 with the lse and at the
            MC-dropout shape (B=1024), with rate 0 and rate 0.1, beside the
@@ -45,11 +44,12 @@ kernels from the sources in this checkout, then:
            and g = 1 K2's dv is the plain version's to the bit (the same
            mask); the Euler identity <df/dv, v> = 2f of f = sum(out^2)
            through the Function at rate 0.3, and that it fails when the
-           backward is given another seed than the forward; K2's own
-           launcher must raise at N=577. Then holds K2 with rate 0 and 0.05
-           against both plain backwards at the ViT-B/16 224 train shape
-           (B=160, N=197, bf16, bias) and times them there, and without
-           dbias, beside autograd's backward of scaled_dot_product_attention.
+           backward is given another seed than the forward; that the route
+           changes from K1/K2 to K3/K4 right above N=256. Then holds K2 with
+           rate 0 and 0.05 against both plain backwards at the ViT-B/16 224
+           train shape (B=160, N=197, bf16, bias) and times them there, and
+           without dbias, beside autograd's backward of
+           scaled_dot_product_attention.
   phase 4  runs full-width ViT-B/16 224 finetune train steps as bench.py
            configures them (batch 160, drop-path 0.1, layer decay 0.65, AdamW
            with weight decay 0.05 on a cosine LR, batch mixup, bounded-scores
@@ -60,8 +60,7 @@ kernels from the sources in this checkout, then:
            train-step rate of both, and takes one step with attention dropout
            0.05 (the mask drawn in K1 and replayed in K2), held against the
            same step with the attention on its plain versions, which draw the
-           same masks from the same seeds. K2's own launcher must raise at
-           N=577, where the routed call goes to K4.
+           same masks from the same seeds.
   phase 5  holds the fused dropout kernel (K8) against its plain PyTorch
            version to the bit, in bf16 and f32, at rates 0.1 and 0.5, on
            [8*197, 768], [3, 50, 64], a ragged [1001] and a misaligned view;
@@ -444,14 +443,6 @@ def phase1(torch, FA, dev):
         check(False, "K1 took a dropout rate without a seed")
     except ValueError:
         pass
-    # K1's own launcher stops at its limit; the routed call goes to K3 there
-    # (phase 7 holds it against the plain version from N=257 on)
-    try:
-        FA._launch(torch.zeros(1, BIG_N[0], 3 * c, device=dev, dtype=torch.bfloat16), None, None,
-                   scale, h, True, False)
-        check(False, f"K1 took N={BIG_N[0]}, above its limit")
-    except ValueError:
-        pass
 
     # the ViT-B/16 224 shapes, N=197, bias, bounded scores: the eval batch
     # B=128, the train step's B=160 with the lse, and the MC-dropout batch
@@ -754,15 +745,6 @@ def phase3(torch, FA, dev):
         check(rel <= EULER_RTOL, "K2 does not replay K1's dropout mask")
         check(rel_wrong > EULER_RTOL, "the Euler identity does not tell a wrong mask")
 
-    # K2's own launcher stops at its limit; the routed call goes to K4 there
-    # (phase 8 holds it against the plain version at N=577)
-    try:
-        big = torch.zeros(1, 577, 3 * c, device=dev, dtype=torch.bfloat16)
-        FA._launch_bwd(big, None, None, torch.zeros(1, h, 577, device=dev),
-                       big[..., :c].contiguous(), big[..., :c].contiguous(), scale, h, True)
-        check(False, "K2 took N=577, above its limit")
-    except ValueError:
-        pass
     check(FA.route(BIG_N[0] - 1) == "fused" and FA.route(BIG_N[0]) == "stream",
           "the route does not change kernels right above K2's limit")
 

@@ -274,14 +274,16 @@ def test_stream_route_dropout_against_jax_in_distribution(stream_routes):
         assert abs(rows.var() / var - 1.0) <= 0.25
 
 
-def test_stream_launchers_reject_non_cuda_tensors():
-    """The launch paths never fall back to the plain versions."""
+def test_stream_launchers_reject_non_cuda_tensors(stream_routes):
+    """The launch paths never fall back to the plain versions (on the
+    streaming route, as K3 and K4 are launched)."""
     qkv, bias, _, g = _inputs(with_qvb=False)
+    assert TFA.route(N) == "stream"
     with pytest.raises(ValueError):
-        TFA._launch_stream(_t(qkv), _t(bias), None, SCALE, H, False, True)
+        TFA._launch(_t(qkv), _t(bias), None, SCALE, H, False, True)
     with pytest.raises(ValueError):
-        TFA._launch_stream_bwd(_t(qkv), _t(bias), None, torch.zeros(B, H, N), _t(g), _t(g), SCALE,
-                               H, True)
+        TFA._launch_bwd(_t(qkv), _t(bias), None, torch.zeros(B, H, N), _t(g), _t(g), SCALE, H,
+                        True)
 
 
 @pytest.fixture

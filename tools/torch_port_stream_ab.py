@@ -11,8 +11,9 @@ H = 12, bf16, bias, bounded softmax): the fused forward K1 at B = 128, at
 B = 160 with the lse (the train step's), at B = 1024 (the folded MC-dropout
 batch) with dropout 0 and 0.1; the fused backward K2 at B = 160 with dropout
 0 and 0.05; and beside them, as the yardstick a design for N <= 256 must
-beat, the streaming kernels' entries (``_launch_stream``,
-``_launch_stream_bwd``) called at the same shapes ("stream at ..."). At the
+beat, the streaming kernels' entries called at the same shapes ("stream at
+...": ``_packed_fwd`` and ``_packed_bwd``, uncounted, or in a checkout from
+before K1 and K2 ran them, ``_launch_stream`` and ``_launch_stream_bwd``). At the
 ViT-L/16 512 shapes of phases 7, 8 and 14 (N = 1025, H = 16): the streaming
 forward K3 at B = 16, K3 with the lse at B = 8, the streaming backward K4 at
 B = 8, and one K5 shard of B = 8 at S = 2 (Nq = 513) and S = 4 (Nq = 257),
@@ -162,7 +163,12 @@ def _vit_b_224(torch, FA, dev):
     fwd = lambda x, **kw: (lambda: FA.fused_qkv_attention(  # noqa: E731
         x, bias, None, kw.get("seed"), scale, h, kw.get("rate", 0.0), bounded_scores=True,
         want_lse=kw.get("lse", False)))
-    stream = lambda x, **kw: (lambda: FA._launch_stream(  # noqa: E731
+    if hasattr(FA, "_packed_bwd"):  # the streaming entries, uncounted
+        stream_fwd = lambda *args: FA._packed_fwd(*args, "stream")  # noqa: E731
+        stream_bwd = lambda *args: FA._packed_bwd(*args, "stream")  # noqa: E731
+    else:  # a checkout from before K1 and K2 ran the streaming kernels
+        stream_fwd, stream_bwd = FA._launch_stream, FA._launch_stream_bwd
+    stream = lambda x, **kw: (lambda: stream_fwd(  # noqa: E731
         x, bias, None, scale, h, True, kw.get("lse", False), kw.get("seed"), kw.get("rate", 0.0)))
     fns = {}
     for what, x, kw in (("B=128", ev, {}), ("B=160 with lse", train, {"lse": True}),
@@ -175,9 +181,9 @@ def _vit_b_224(torch, FA, dev):
         dropout_rate=kw.get("rate", 0.0)))
     fns["K2 B=160"] = bwd()
     fns["K2 B=160 dropout 0.05"] = bwd(out=out_d, seed=seed, rate=0.05)
-    fns["stream at K2 B=160"] = lambda: FA._launch_stream_bwd(train, bias, None, lse, out, g,
-                                                              scale, h, True)
-    fns["stream at K2 B=160 dropout 0.05"] = lambda: FA._launch_stream_bwd(
+    fns["stream at K2 B=160"] = lambda: stream_bwd(train, bias, None, lse, out, g, scale, h,
+                                                   True, None, 0.0)
+    fns["stream at K2 B=160 dropout 0.05"] = lambda: stream_bwd(
         train, bias, None, lse, out_d, g, scale, h, True, seed, 0.05)
     saved = {"K1 out": fwd(ev)(), "K1 lse": lse, "K2 dqkv": bwd()()[0]}
     return fns, saved

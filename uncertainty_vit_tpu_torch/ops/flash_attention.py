@@ -76,8 +76,8 @@ KERNEL_HEAD_DIM = 64
 # The fused route (K1, K2: the TPU's whole-row kernels) takes N up to this
 # (ViT 224 and below), the streaming route (K3, K4) above it (N=577/1025),
 # forward and backward alike. On the card both routes run the streaming
-# kernels, whose 64-row tiles need no whole row: the fused route's launchers
-# raise above it.
+# kernels, whose 64-row tiles need no whole row; the route decides which
+# counter a launch adds to.
 BWD_MAX_N = 256
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -522,23 +522,16 @@ def _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, 
 
 def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
             seed=None, dropout_rate=0.0):
-    """K1: the fused forward, N <= ``BWD_MAX_N``: the streaming forward's
-    kernel, whose 64-row q tiles walk all N keys in four tiles at most."""
-    if qkv.shape[1] > BWD_MAX_N:
-        raise ValueError(f"the fused attention forward kernel takes N <= {BWD_MAX_N}, "
-                         f"got {qkv.shape[1]}")
+    """K1 (``route(N)`` "fused") or K3 ("stream"): the streaming forward's
+    kernel on packed qkv, counted on ``fused_qkv_attention.launches`` or
+    ``.stream_launches``."""
+    fused = route(qkv.shape[1]) == "fused"
     got = _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
                       dropout_rate, "attention forward")
-    fused_qkv_attention.launches += 1
-    return got
-
-
-def _launch_stream(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
-                   seed=None, dropout_rate=0.0):
-    """K3: the streaming forward on packed qkv."""
-    got = _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
-                      dropout_rate, "streaming attention forward")
-    fused_qkv_attention.stream_launches += 1
+    if fused:
+        fused_qkv_attention.launches += 1
+    else:
+        fused_qkv_attention.stream_launches += 1
     return got
 
 
@@ -620,15 +613,6 @@ def _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, s
     return dqkv, dbias, dqvb
 
 
-def _launch_stream_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
-                       seed=None, dropout_rate=0.0):
-    """K4: the streaming backward's two kernels on packed qkv and dqkv."""
-    got = _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
-                      dropout_rate, "streaming attention backward")
-    fused_qkv_attention_bwd.stream_launches += 1
-    return got
-
-
 def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias):
     """K5's backward: the streaming backward's two kernels on q, kv, dq and
     dkv."""
@@ -652,15 +636,16 @@ def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_
 
 def _launch_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
                 seed=None, dropout_rate=0.0):
-    """K2: the fused backward, N <= ``BWD_MAX_N``: the streaming backward's
-    two kernels, whose 128-row blocks walk all N keys (kernel 1) or all N
-    queries (kernel 2) in four tiles at most."""
-    if qkv.shape[1] > BWD_MAX_N:
-        raise ValueError(f"the fused attention backward kernel takes N <= {BWD_MAX_N}, "
-                         f"got {qkv.shape[1]}")
+    """K2 (``route(N)`` "fused") or K4 ("stream"): the streaming backward's
+    two kernels on packed qkv and dqkv, counted on
+    ``fused_qkv_attention_bwd.launches`` or ``.stream_launches``."""
+    fused = route(qkv.shape[1]) == "fused"
     got = _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
                       dropout_rate, "attention backward")
-    fused_qkv_attention_bwd.launches += 1
+    if fused:
+        fused_qkv_attention_bwd.launches += 1
+    else:
+        fused_qkv_attention_bwd.stream_launches += 1
     return got
 
 
@@ -703,9 +688,8 @@ def fused_qkv_attention_bwd(
                 qkv, bias, qv_bias, lse, g, scale, num_heads, out=out, seed=seed,
                 dropout_rate=dropout_rate)
         return dqkv, dbias if want_dbias else None, dqvb
-    launch = _launch_stream_bwd if stream else _launch_bwd
-    return launch(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads, want_dbias,
-                  seed, dropout_rate)
+    return _launch_bwd(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads,
+                       want_dbias, seed, dropout_rate)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
@@ -745,8 +729,7 @@ def _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, drop
         return fused_qkv_attention_plain(qkv, bias, qv_bias, scale, num_heads,
                                          bounded_scores=bounded, seed=seed,
                                          dropout_rate=dropout_rate)
-    launch = _launch_stream if route(qkv.shape[1]) == "stream" else _launch
-    return launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate)
+    return _launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate)
 
 
 # K3 computes the function K1 computes: one plain version serves both.
