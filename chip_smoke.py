@@ -128,18 +128,24 @@ kernels from the sources in this checkout, then:
            (K, N) of ViT-B's and ViT-L's trunk and their dgrad transposes, M in
            {8, 197, 1000}, NaN planted around x; f32 within 1e-6 relative and
            bf16 within an ulp (equal to the bit is what is expected and
-           printed); then holds and times it at the train step's M = 31,520
-           (bf16; forward with bias, dgrad stochastic) for qkv, proj, fc1 and
-           fc2 beside the plain version, F.linear in bf16 (what the int8 layer
-           replaces) and torch._int_mm between plain quantize and dequantize
-           passes (the library yardstick).
+           printed); the same at K = 5120 and 6400 (past every trunk), and at
+           M = 3333, K = 5120, N = 1280, where the persistent walk wraps and
+           ends on a ragged row tile; then holds and times it at the train
+           step's M = 31,520 (bf16; forward with bias, dgrad stochastic) for
+           qkv, proj, fc1 and fc2 beside the plain version, F.linear in bf16
+           (what the int8 layer replaces), torch._int_mm between plain
+           quantize and dequantize passes (the library yardstick) and
+           torch._int_mm alone on operands quantized beforehand, with K6's two
+           kernels timed apart (torch.profiler).
   phase 11 holds the int8 wgrad (K7: two kernels behind one call) against its
            plain version over the same shapes: the int32 sums equal, and
            bit-identical between two runs, NaN planted around x and g; then
            holds and times it at M = 31,520 (wgrad() with its column-scale
-           passes, and K7's two kernels alone) beside the plain version, the
-           bf16 product and torch._int_mm between plain quantize, transpose
-           and dequantize passes.
+           passes, and K7's two kernels alone, also apart) beside the plain
+           version, the bf16 product, torch._int_mm between plain quantize,
+           transpose and dequantize passes, and torch._int_mm alone on
+           operands quantized beforehand (both with the tokens contiguous,
+           as K7's product reads them).
   phase 12 the int8 slice: full-width, full-depth ViT-B/16 224 with
            quant="int8", otherwise phase 2's and phase 4's models. evaluate()
            over 4 batches of 128 (K6 48 launches per forward, K1 12, K7 none;
@@ -339,6 +345,25 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_split(torch, fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel that fn launches, by a short name
+    (torch.profiler over `calls` calls after one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and not e.is_user_annotation:
+            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name).split("(")[0]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1000.0 / calls
+    return split
+
+
 def build_kernels(_native) -> None:
     """Builds every csrc/*.cu at once and prints nvcc's seconds and ptxas's
     registers and spills per kernel instantiation (<..., kDrop or kVector>)."""
@@ -349,7 +374,7 @@ def build_kernels(_native) -> None:
         print(f"  nvcc {name}: {secs:.1f} s", flush=True)
         for entry, spills, used in re.findall(
                 r"Function properties for (\S+)\n\s*(.*?)\nptxas info\s*: (Used \d+ registers)", log):
-            short = re.search(r"\d+((?:attention|dropout|stream|quant\w*|wgrad)_\w+?E)E*v",
+            short = re.search(r"\d+((?:attention|dropout|stream|quant\w*|wgrad|qmm)_\w+?E)E*v",
                               entry)
             print(f"    {short.group(1) if short else entry}: {used}, {spills}", flush=True)
 
@@ -1739,6 +1764,9 @@ def phase9(torch, FA, dev):
 # and ViT-L's. The forward runs (K, N), the dgrad (N, K).
 TRUNK_B = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
 TRUNK_L = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+# (K, N) past every trunk: beit_huge_patch16_224's fc2 contraction, and one
+# past the 6,272 that K6 took before it streamed the contraction.
+WIDE_K = ((5120, 1280), (6400, 384))
 # Tokens of the ViT-B/16 224 train step at batch 160 (ragged against 64: 492 * 64 + 32)
 # and of its eval forward at batch 128 (394 * 64).
 M_TRAIN = 160 * 197
@@ -1809,6 +1837,31 @@ def phase10(torch, dev):
           f"nearest/stochastic x bias/none, NaN planted around x): {unequal} not equal to the "
           f"bit, worst relative difference bf16 {worst['bfloat16']:.3e} / f32 "
           f"{worst['float32']:.3e}", flush=True)
+    # contractions wider than any trunk's (the reference admits every multiple
+    # of 128), and a walk of the persistent tiles that wraps with a ragged
+    # last row tile (3333 = 26 * 128 + 5 rows; 27 x 5 tiles of 128 x 256)
+    before = (n_cases, unequal)
+    for dtype, (k, n), m in itertools.product((torch.bfloat16, torch.float32), WIDE_K,
+                                              (8, 197, 1000)):
+        w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+        wq, ws = TQ.quantize_cols(w.t())
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(dtype))
+        for sr, has_bias in itertools.product((False, True), (True, False)):
+            tag = f"{str(dtype)[6:]} M={m} K={k} N={n} sr={sr:d} bias={has_bias:d}"
+            worst_abs = max(worst_abs, held(tag, x, wq, ws, bias if has_bias else None, sr,
+                                            dtype))
+    k, n, m = 5120, 1280, 3333
+    w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+    wq, ws = TQ.quantize_cols(w.t())
+    bias = torch.randn(n, generator=gen, device=dev) * 0.1
+    x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
+    for sr in (False, True):
+        worst_abs = max(worst_abs, held(f"ragged walk M={m} K={k} N={n} sr={sr:d}", x, wq, ws,
+                                        None if sr else bias, sr, torch.bfloat16))
+    print(f"  K6 at K = {', '.join(str(k) for k, _ in WIDE_K)} (bf16/f32 x M 8/197/1000 x "
+          f"nearest/stochastic x bias/none) and M={m} K={k} N={n}: {n_cases - before[0]} cases, "
+          f"{unequal - before[1]} not equal to the bit", flush=True)
     # the dgrad's second int8 copy of a weight is transposed once by the wrapper
     w = torch.randn(768, 2304, generator=gen, device=dev) * 0.05
     wq, ws = TQ.quantize_cols(w)  # [K, N] row-major: not the kernel's layout
@@ -1854,22 +1907,25 @@ def phase10(torch, dev):
                 eval_ms[layer] = cuda_ms(
                     lambda: TQ.qmm(x_eval, wq, ws, bias, seed, False, torch.bfloat16), 5)
                 del x_eval
+            xq = TQ.quantize_rows(x, seed, sr)[0]
             fns = {"plain": lambda: TQ.qmm_plain(x, wq, ws, bias, seed, sr, torch.bfloat16),
                    "kernel": lambda: TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16),
                    "bf16 F.linear": lambda: torch.nn.functional.linear(x, wb, bias_b),
-                   "library": lambda: int_mm_library(x, wq.t(), ws, bias)}
+                   "library": lambda: int_mm_library(x, wq.t(), ws, bias),
+                   "torch._int_mm alone": lambda: torch._int_mm(xq, wq)}
             best, runs = in_turns(fns, 5)
+            split = kernel_split(torch, fns["kernel"])
             bound_ms, bound_by = bound(nbytes(x, wq, ws, bias) + M_TRAIN * n * 2,
                                         2.0 * M_TRAIN * k * n, "int8")
-            print(f"  K6 {tag} bf16, ms per call: {runs}; bound {bound_ms:.4f} ms ({bound_by})",
-                  flush=True)
+            print(f"  K6 {tag} bf16, ms per call: {runs}; K6's two kernels apart: "
+                  f"{json.dumps(split)}; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
             times[f"{layer} {what}"] = {**{name: best[name] for name in fns},
-                                        "bound": bound_ms}
+                                        "bound": bound_ms, "kernels": split}
             if (layer, what) == ("qkv", "forward"):
                 main = {"ms": best["kernel"], "plain_ms": best["plain"],
                         "library_ms": best["library"], "bound_ms": bound_ms,
-                        "bound_by": bound_by}
-            del x, w, wq, wb
+                        "bound_by": bound_by, "int_mm_ms": best["torch._int_mm alone"]}
+            del x, w, wq, wb, xq
     print(f"  K6 at evaluate()'s shapes (M={M_EVAL}, bf16, nearest, bias): {n_cases} cases so "
           f"far, {unequal} not equal to the bit; ms per call: "
           + ", ".join(f"{layer} {t:.4f}" for layer, t in eval_ms.items()), flush=True)
@@ -1923,11 +1979,13 @@ def phase11(torch, dev):
     def int_mm_library(x, g):
         """The library yardstick: torch._int_mm between plain PyTorch passes
         that take the column scales, quantize both operands (to nearest),
-        transpose x's copy and dequantize the result. Timed here and used
-        nowhere in the port."""
+        transpose both copies (the tokens contiguous in each, as the kernel's
+        operands lie: int8 products take both operands with the contraction
+        contiguous) and dequantize the result. Timed here and used nowhere
+        in the port."""
         sx, sg = TQ._col_scales(x), TQ._col_scales(g)
         xq_t = torch.round(x.float() / sx).to(torch.int8).t().contiguous()
-        gq = torch.round(g.float() / sg).to(torch.int8)
+        gq = torch.round(g.float() / sg).to(torch.int8).t().contiguous().t()
         return torch._int_mm(xq_t, gq).float() * sx.reshape(-1, 1) * sg
 
     times, main, worst = {}, None, 0.0
@@ -1939,22 +1997,30 @@ def phase11(torch, dev):
         worst = max(worst, held(tag, x, g))
         sx, sg = TQ._col_scales(x), TQ._col_scales(g)
         inv_x, inv_g = sx.reciprocal(), sg.reciprocal()
+        # both copies with the tokens contiguous, as K7's product reads them
+        xq_t = torch.round(x.float() * inv_x).to(torch.int8).t().contiguous()
+        gq = torch.round(g.float() * inv_g).to(torch.int8).t().contiguous().t()
         fns = {"plain": lambda: TQ.wgrad_plain(x, g, seed),
                "kernel": lambda: TQ.wgrad(x, g, seed),
                "launcher alone": lambda: TQ.wgrad_acc(x, g, inv_x, inv_g, seed),
                "bf16 x.T @ g": lambda: x.t() @ g,
-               "library": lambda: int_mm_library(x, g)}
+               "library": lambda: int_mm_library(x, g),
+               "torch._int_mm alone": lambda: torch._int_mm(xq_t, gq)}
         best, runs = in_turns(fns, 5)
+        split = kernel_split(torch, fns["launcher alone"])
         bound_ms, bound_by = bound(nbytes(x, g, inv_x, inv_g) + k * n * 4,
                                     2.0 * M_TRAIN * k * n, "int8")
         print(f"  K7 {tag} bf16, ms per call (\"kernel\" is wgrad() with its column-scale and "
-              f"dequantizing passes, \"launcher alone\" K7's two kernels): {runs}; bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-        times[layer] = {**{name: best[name] for name in fns}, "bound": bound_ms}
+              f"dequantizing passes, \"launcher alone\" K7's two kernels): {runs}; the "
+              f"launcher's kernels apart: {json.dumps(split)}; bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        times[layer] = {**{name: best[name] for name in fns}, "bound": bound_ms,
+                        "kernels": split}
         if layer == "qkv":
             main = {"ms": best["kernel"], "plain_ms": best["plain"],
-                    "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by}
-        del x, g
+                    "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
+                    "int_mm_ms": best["torch._int_mm alone"]}
+        del x, g, xq_t, gq
     return {"max_abs_err": worst, **main, "other_ms": times}
 
 

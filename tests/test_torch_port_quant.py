@@ -112,6 +112,30 @@ def test_int8_dense_forward_matches_jax_kernel(m, with_bias):
     assert np.abs(out.numpy() - exact).max() / np.abs(exact).max() < 0.02
 
 
+@pytest.mark.parametrize("k", [4096, 6400])
+@pytest.mark.parametrize("through", ["qmm_plain", "int8_dense"])
+def test_wide_contraction_matches_jax_kernel(k, through):
+    """Contractions wider than any trunk's (the reference admits every
+    multiple of 128; 6400 is past the 6,272 that K6 once took): the plain
+    version and the layer's forward against the JAX kernel in interpret
+    mode, f32, nearest rounding, at the tolerance of the test above."""
+    rs = np.random.RandomState(k)
+    x = rs.randn(16, k).astype(np.float32)
+    w = (rs.randn(k, 128) * 0.05).astype(np.float32)
+    b = (rs.randn(128) * 0.1).astype(np.float32)
+    if through == "qmm_plain":
+        jwq, jws = Q.quantize_cols(jnp.asarray(w))
+        ref = np.asarray(Q._qmm(jnp.asarray(x), jwq, jws, jnp.asarray(b), _jseed(), False,
+                                jnp.float32))
+        wq, ws = TQ.quantize_cols(_t(w))
+        out = TQ.qmm_plain(_t(x), wq, ws, _t(b), None, False, torch.float32)
+    else:
+        ref = np.asarray(Q.int8_dense(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), _jseed()))
+        out = TQ.int8_dense(_t(x), _t(w.T), _t(b), _seed(0))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (16, 128)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
 def test_int8_dense_forward_3d_and_bf16():
     rs = np.random.RandomState(2)
     x = rs.randn(2, 32, 128).astype(np.float32)
@@ -509,7 +533,7 @@ def test_full_width_int8_preset_builds_on_meta():
     for batch in (128, 160):
         m = batch * (cfg.num_patches + 1)
         for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
-            assert TQ.supported(m, k, n) and TQ.supported(m, n, k) and k <= TQ.MAX_K
+            assert TQ.supported(m, k, n) and TQ.supported(m, n, k)
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +599,22 @@ def test_qmm_kernel_matches_plain_on_card(cuda_device, sr):
     x = torch.randn(197, 768, generator=g, device=cuda_device).to(torch.bfloat16)
     wq, ws = TQ.quantize_cols(torch.randn(2304, 768, generator=g, device=cuda_device).t() * 0.05)
     bias = torch.randn(2304, generator=g, device=cuda_device)
+    seed = _seed(9).to(cuda_device)
+    before = TQ.qmm.launches
+    out = TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16)
+    assert TQ.qmm.launches == before + 1
+    assert torch.equal(out, TQ.qmm_plain(x, wq, ws, bias, seed, sr, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [False, True], ids=["nearest", "stochastic"])
+def test_qmm_kernel_takes_a_wide_contraction_on_card(cuda_device, sr):
+    """K = 6400, past the 6,272 that K6 took before it streamed the
+    contraction; 384 output columns leave half a 256-column tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(197, 6400, generator=g, device=cuda_device).to(torch.bfloat16)
+    wq, ws = TQ.quantize_cols(torch.randn(384, 6400, generator=g, device=cuda_device).t() * 0.05)
+    bias = torch.randn(384, generator=g, device=cuda_device)
     seed = _seed(9).to(cuda_device)
     before = TQ.qmm.launches
     out = TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16)

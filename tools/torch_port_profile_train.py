@@ -42,8 +42,11 @@ CLASSES = (
     ("stream_bwd_dkv", "K2 / K4 kernel 2 (dk, dv)"),
     ("attention_fwd", "K1 attention forward"),
     ("attention_bwd", "K2 attention backward (the earlier fused kernel)"),
-    ("quant_fwd_kernel", "K6 int8 matmul (forward, dgrad)"),
-    ("quantize_transpose", "K7 quantize-transpose"), ("wgrad_mm", "K7 int32 product"),
+    ("quantize_rows", "K6 row quantize (forward, dgrad)"),
+    ("qmm_s8", "K6 int8 product (forward, dgrad)"),
+    ("quant_fwd_kernel", "K6 int8 matmul (forward, dgrad; the mma.sync kernel of PR 6)"),
+    ("quantize_transpose", "K7 quantize-transpose"), ("wgrad_s8", "K7 int32 product"),
+    ("wgrad_mm", "K7 int32 product (the mma.sync kernel of PR 6)"),
     ("gemm", "GEMMs (cuBLAS)"), ("nvjet", "GEMMs (cuBLAS)"), ("sm90_xmma", "GEMMs (cuBLAS)"),
     ("cutlass", "GEMMs (cuBLAS)"),
     ("layer_norm", "LayerNorm fwd/bwd"), ("LayerNorm", "LayerNorm fwd/bwd"),

@@ -17,26 +17,39 @@
 // tokens at batch 160, bf16 in and out) qkv is 111.5 GOP and 195 MB, fc1 and
 // fc2 148.7 GOP and 245 MB: about the same time by operations at the int8
 // peak (0.056, 0.075 ms) and by bytes (0.058, 0.073 ms); proj (37.2 GOP,
-// 97 MB) is bound by bytes (0.029 ms).
+// 97 MB) is bound by bytes (0.029 ms). The int8 copy of x that this design
+// writes and reads back adds 2 M K bytes (0.015 ms at qkv).
 //
-// Design. A row's scale needs the whole row before its first value can be
-// quantized, and quantizing costs some eight instructions an entry (about
-// thirty with the rounding bits), against 1/32 of a tensor-core instruction
-// an entry and 128 output columns. So a block quantizes its rows ONCE: it
-// owns BM whole rows of x (64 up to K = 3072, 32 up to 6272), keeps them as
-// int8 in shared memory (a warp per BM / 8 rows, all
-// of them in flight together: one pass for the maxima, a second, served by
-// the caches, that quantizes) and then walks over ALL output columns, 128 at
-// a time, streaming [128 x 128] weight tiles (whole 128-byte lines of every
-// row; [128 x 64] where the deeper tile does not fit beside the rows, at
-// K = 3072) through a ring of three cp.async stages with one barrier per
-// tile. The weight is stored with the contraction contiguous ([N, K], a
-// torch weight as it lies), so the mma.sync m16n8k32 operands come straight
-// from shared memory by ldmatrix; row pitches of 16 bytes over K and over
-// the tile's depth keep those loads free of bank conflicts. Eight warps
-// split the tile 2 x 4 (1 x 8 below 64 rows). Rows behind M are zeros in
-// shared memory and are never written. The product runs at about a sixth of
-// the card's int8 peak; wgmma, TMA and persistence are a later change.
+// Design: two kernels behind one call.
+//   1. `quantize_rows_kernel` (memory-bound): a warp per row reads the row
+//      once into registers (3, 6 or 12 16-byte vectors a lane, as the row
+//      needs, up to K = 3072 in bf16; the rest of a wider row is read again,
+//      from L1/L2), takes its absolute maximum, and writes the row's int8
+//      copy xq [M, K] and its scale amax / 127 [M] into scratch the wrapper
+//      allocates. The rows are quantized once, whatever the output's width.
+//      Registers held for nothing cost blocks an SM: 12 vectors at K = 768
+//      took 0.041 ms against 3's 0.027 on an H100.
+//   2. `qmm_s8_kernel`: the s8 product core of quant_common.cuh over xq and
+//      the weight's int8 copy as it lies ([N, K], the contraction
+//      contiguous: both operands K-major, which 8-bit wgmma requires), 128 x
+//      256 output tiles, TMA-fed wgmma m64n256k32 from a four-stage ring,
+//      the depth streamed, so K has no limit of its own. Blocks run in
+//      clusters of two (two row tiles that share one column tile's weight
+//      rows, multicast) and are persistent (one an SM): the clusters walk
+//      the (row pair, column tile) grid with the column tile fastest, so
+//      that the blocks in flight share a few bands of xq rows and the whole
+//      weight in L2. The producer warp copies each tile's column scales,
+//      bias and row scales into shared memory and runs on into the next
+//      tile's stages while the consumers dequantize this one's accumulator:
+//      float(acc) * row scale * ws (+ bias), one rounding, a warp's 16 rows
+//      a 128-byte chunk of columns at a time through shared memory, so that
+//      each store writes whole 128-byte row segments. The product runs at
+//      about nine tenths of the int8 peak; the epilogue does not overlap it
+//      and takes some 40% of a tile at K = 768 (stored from the fragments,
+//      16 bytes a row, it took longer than the product; its factors read
+//      from global memory with 128 accumulator registers live, a third
+//      longer). Rows past M are masked; TMA brings them, and columns past N,
+//      as zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,262 +60,236 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 128;             // output columns per tile
-constexpr int kPad = 16;             // behind a resident row of K bytes and a weight tile's row
-constexpr int kStages = 3;
-constexpr int kMaxSmem = 232448;     // 227 KB
+constexpr int kRowThreads = 256;  // a warp per row
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 
-template <int BM>
-struct Tiling {
-  static constexpr int kWarpsM = BM >= 64 ? 2 : 1;
-  static constexpr int kWarpsN = kWarps / kWarpsM;
-  static constexpr int kWM = BM / kWarpsM;
-  static constexpr int kWN = kBN / kWarpsN;
-  static constexpr int kMI = kWM / 16;
-  static constexpr int kNI = kWN / 8;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
+template <typename T>
+__device__ __forceinline__ float vec_amax(const uint4& v) {
+  const T* e = reinterpret_cast<const T*>(&v);
+  float a = 0.0f;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int j = 0; j < Vec16<T>::kN; ++j) a = fmaxf(a, fabsf(to_f32(e[j])));
+  return a;
 }
 
-// BM resident rows, kStages weight tiles [128 x bk bytes], BM row scales.
-inline size_t smem_bytes(int bm, int k, int bk) {
-  return size_t(bm) * (k + kPad) + size_t(kStages) * kBN * (bk + kPad) +
-         size_t(bm) * sizeof(float);
-}
-
-// The walk over the weight's [128 x BK] tiles: column tile `nt`, contraction
-// chunk `kc`, the chunk fastest.
-struct TileWalk {
-  int nt, kc;
-  __device__ __forceinline__ void next(int kchunks) {
-    if (++kc == kchunks) kc = 0, ++nt;
-  }
-};
-
-// One tile of the [N, K] weight into a stage.
-template <int BK>
-__device__ __forceinline__ void load_w_tile(int8_t* stage, const int8_t* wq, int k, TileWalk at,
-                                            int tid) {
-  constexpr int kSegs = BK / 16;
-  const int8_t* src = wq + size_t(at.nt) * kBN * k + at.kc * BK;
-  for (int i = tid; i < kBN * kSegs; i += kThreads) {
-    const int r = i / kSegs, seg = (i % kSegs) * 16;
-    cp_async16(smem_u32(stage + r * (BK + kPad) + seg), src + size_t(r) * k + seg);
-  }
-}
-
-template <typename T, int BM, int BK>
-__global__ void __launch_bounds__(kThreads)
-quant_fwd_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
-                    const float* __restrict__ ws, const float* __restrict__ bias,
-                    const long long* __restrict__ seed, void* __restrict__ y, int m, int k, int n,
-                    int y_is_f32) {
-  using TL = Tiling<BM>;
+// 16 bytes of row `row` from column c on, quantized into dst.
+template <typename T, bool kSR>
+__device__ __forceinline__ void quantize_vec(const uint4& v, int8_t* dst, float inv,
+                                             philox::Key key, int row, int c) {
   constexpr int kVec = Vec16<T>::kN;
-  constexpr int kWPitch = BK + kPad, kWTile = kBN * kWPitch;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pitch = k + kPad;
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);
-  int8_t* wt = xq + size_t(BM) * pitch;
-  float* row_scale = reinterpret_cast<float*>(wt + kStages * kWTile);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * BM;
-  const int kchunks = k / BK, total = kchunks * (n / kBN);
-
-  // the first weight tiles travel while the rows are quantized (a group is
-  // committed per tile, empty where there is none, so that the count of
-  // groups in flight is the same for every tile)
-  TileWalk loading{0, 0};
+  const T* e = reinterpret_cast<const T*>(&v);
+  uint32_t w[kVec / 4];
 #pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (p < total) load_w_tile<BK>(wt + p * kWTile, wq, k, loading, tid);
-    cp_async_commit();
-    loading.next(kchunks);
+  for (int j = 0; j < kVec; j += 4) {
+    int q[4];
+    if constexpr (kSR) {
+      const uint4 u = philox::quant_words(key, uint32_t(row), uint32_t((c + j) >> 2));
+      q[0] = quant_sr(to_f32(e[j + 0]), inv, philox::uniform24(u.x));
+      q[1] = quant_sr(to_f32(e[j + 1]), inv, philox::uniform24(u.y));
+      q[2] = quant_sr(to_f32(e[j + 2]), inv, philox::uniform24(u.z));
+      q[3] = quant_sr(to_f32(e[j + 3]), inv, philox::uniform24(u.w));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = quant_rn(to_f32(e[j + i]), inv);
+    }
+    w[j / 4] = pack_s8x4(q[0], q[1], q[2], q[3]);
   }
+  if constexpr (kVec == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  }
+}
 
-  // ---- phase 1: BM whole rows of x -> int8 in shared memory. A warp owns
-  // BM / 8 neighbouring rows and walks them together, so that a lane has one
-  // 16-byte load of every row in flight at once: the pass is bound by
-  // latency, not by bytes. Rows behind M read the last row and store zeros.
-  constexpr int kRows = BM / kWarps;
-  const bool sr = seed != nullptr;
+// x [m, k] -> xq int8 [m, k] and row_scale f32 [m] (= amax / 127). A lane
+// keeps kHeld 16-byte vectors of its row in registers, no more than the row
+// needs: registers held for nothing cost blocks an SM, and loads in flight.
+template <typename T, bool kSR, int kHeld>
+__global__ void __launch_bounds__(kRowThreads)
+quantize_rows_kernel(const T* __restrict__ x, const long long* __restrict__ seed,
+                     int8_t* __restrict__ xq, float* __restrict__ row_scale, int m, int k) {
+  constexpr int kVec = Vec16<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const T* src = x + size_t(row) * k;
+  int8_t* dst = xq + size_t(row) * k;
+  // every load of the held part is in flight at once: the pass is bound by
+  // latency unless a lane keeps several 16-byte loads outstanding
+  uint4 v[kHeld];
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int c = (i * 32 + lane) * kVec;
+    if (c < k) {
+      v[i] = *reinterpret_cast<const uint4*>(src + c);
+      amax = fmaxf(amax, vec_amax<T>(v[i]));
+    }
+  }
+  for (int c = (kHeld * 32 + lane) * kVec; c < k; c += 32 * kVec) {
+    amax = fmaxf(amax, vec_amax<T>(*reinterpret_cast<const uint4*>(src + c)));
+  }
+  amax = warp_max(amax);
+  const float inv = __fdiv_rn(127.0f, fmaxf(amax, 1e-30f));
+  if (lane == 0) row_scale[row] = __fmul_rn(amax, kInv127);
   philox::Key key{0u, 0u};
-  if (sr) key = philox::load_key(seed);
-  const int r0 = warp * kRows;
-  const T* src[kRows];
-  float amax[kRows];
+  if constexpr (kSR) key = philox::load_key(seed);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    src[i] = x + size_t(min(row0 + r0 + i, m - 1)) * k;
-    amax[i] = 0.0f;
+  for (int i = 0; i < kHeld; ++i) {
+    const int c = (i * 32 + lane) * kVec;
+    if (c < k) quantize_vec<T, kSR>(v[i], dst + c, inv, key, row, c);
   }
-  for (int c = lane * kVec; c < k; c += 32 * kVec) {
-    uint4 v[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) v[i] = *reinterpret_cast<const uint4*>(src[i] + c);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const T* e = reinterpret_cast<const T*>(&v[i]);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) amax[i] = fmaxf(amax[i], fabsf(to_f32(e[j])));
-    }
+  for (int c = (kHeld * 32 + lane) * kVec; c < k; c += 32 * kVec) {
+    quantize_vec<T, kSR>(*reinterpret_cast<const uint4*>(src + c), dst + c, inv, key, row, c);
   }
-  float inv[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    amax[i] = warp_max(amax[i]);
-    const bool valid = row0 + r0 + i < m;
-    inv[i] = valid ? __fdiv_rn(127.0f, fmaxf(amax[i], 1e-30f)) : 0.0f;
-    if (lane == 0) row_scale[r0 + i] = valid ? __fmul_rn(amax[i], kInv127) : 0.0f;
-  }
-  for (int c = lane * kVec; c < k; c += 32 * kVec) {
-    uint4 v[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) v[i] = *reinterpret_cast<const uint4*>(src[i] + c);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const T* e = reinterpret_cast<const T*>(&v[i]);
-      const int row = row0 + r0 + i;
-      int q[kVec];
-      if (row >= m) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) q[j] = 0;
-      } else if (sr) {
-#pragma unroll
-        for (int j = 0; j < kVec; j += 4) {
-          const uint4 w = philox::quant_words(key, uint32_t(row), uint32_t((c + j) >> 2));
-          q[j + 0] = quant_sr(to_f32(e[j + 0]), inv[i], philox::uniform24(w.x));
-          q[j + 1] = quant_sr(to_f32(e[j + 1]), inv[i], philox::uniform24(w.y));
-          q[j + 2] = quant_sr(to_f32(e[j + 2]), inv[i], philox::uniform24(w.z));
-          q[j + 3] = quant_sr(to_f32(e[j + 3]), inv[i], philox::uniform24(w.w));
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) q[j] = quant_rn(to_f32(e[j]), inv[i]);
+}
+
+// y [m, n] = dequant(xq [m, k] . wq [n, k]^T) (+ bias), persistent over
+// pairs of 128 x 256 output tiles (two row tiles, one column tile), one pair
+// a cluster.
+template <bool kF32Out>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+qmm_s8_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+              const float* __restrict__ row_scale, const float* __restrict__ ws,
+              const float* __restrict__ bias, void* __restrict__ y, int m, int k, int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const S8Ring ring = s8_ring(smem_raw);
+  const uint32_t rank = cluster_rank();
+  const int tiles_n = (n + kTileB - 1) / kTileB;
+  const int pairs = cluster_rows((m + kTileA - 1) / kTileA) * tiles_n;
+  const int chunks = k / kDepth;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int it = 0;
+
+  if (warp == kConsumerWarps) {  // the producer
+    for (int p = cluster, q = 0; p < pairs; p += clusters, ++q) {
+      // the whole warp copies the tile's dequantizing factors, its lane 0
+      // then has TMA bring the tile's stages
+      const int r0 = (p / tiles_n * kCluster + rank) * kTileA, c0 = p % tiles_n * kTileB;
+      float* sc = ring.scales + (q & 1) * kScaleFloats;
+      mbar_wait(&ring.sc_empty[q & 1], ((q >> 1) & 1) ^ 1);
+      for (int i = lane; i < kTileB; i += 32) {
+        sc[i] = c0 + i < n ? ws[c0 + i] : 0.0f;
+        sc[kTileB + i] = c0 + i < n && bias != nullptr ? bias[c0 + i] : 0.0f;
       }
-      int8_t* dst = xq + size_t(r0 + i) * pitch + c;
-#pragma unroll
-      for (int j = 0; j < kVec; j += 4)
-        *reinterpret_cast<uint32_t*>(dst + j) = pack_s8x4(q[j], q[j + 1], q[j + 2], q[j + 3]);
-    }
-  }
-
-  // ---- phase 2: all output columns, 128 at a time
-  const int wm = (warp / TL::kWarpsN) * TL::kWM;
-  const int wn = (warp % TL::kWarpsN) * TL::kWN;
-  const int g = lane >> 2, t = lane & 3;
-  int acc[TL::kMI][TL::kNI][4];
-#pragma unroll
-  for (int mi = 0; mi < TL::kMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < TL::kNI; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-
-  TileWalk at{0, 0};
-  for (int it = 0, stage = 0; it < total; ++it, stage = stage + 1 == kStages ? 0 : stage + 1) {
-    cp_async_wait<kStages - 2>();  // all but the newest groups: tile `it` has landed
-    // tile `it` is there for every warp (the first time, the rows too), and
-    // every warp is done with tile `it - 1`, whose stage is loaded next
-    __syncthreads();
-    if (it + kStages - 1 < total) {
-      load_w_tile<BK>(wt + (stage >= 1 ? stage - 1 : kStages - 1) * kWTile, wq, k, loading, tid);
-      loading.next(kchunks);
-    }
-    cp_async_commit();
-    const int8_t* wtile = wt + stage * kWTile;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t a[TL::kMI][4];
-#pragma unroll
-      for (int mi = 0; mi < TL::kMI; ++mi)
-        load_a_frag(xq, pitch, wm + mi * 16, at.kc * BK + ks * 32, a[mi]);
-#pragma unroll
-      for (int ni = 0; ni < TL::kNI; ni += 2) {
-        uint32_t b[4];
-        load_b_frags(wtile, kWPitch, wn + ni * 8, ks * 32, b);
-#pragma unroll
-        for (int mi = 0; mi < TL::kMI; ++mi) {
-          mma_s8(acc[mi][ni], a[mi], b[0], b[1]);
-          mma_s8(acc[mi][ni + 1], a[mi], b[2], b[3]);
+      for (int i = lane; i < kTileA; i += 32) {
+        sc[2 * kTileB + i] = r0 + i < m ? row_scale[r0 + i] : 0.0f;
+      }
+      mbar_arrive(&ring.sc_full[q & 1]);
+      if (lane == 0) {
+        for (int c = 0; c < chunks; ++c, ++it) {
+          s8_load(ring, it, &map_x, &map_w, c * kDepth, r0, c0, rank);
         }
       }
+      __syncwarp();
     }
-    if (at.kc == kchunks - 1) {
-      // epilogue of this column tile: dequantize, bias, one rounding, store
-      const int col0 = at.nt * kBN + wn + 2 * t;
+  } else {
+    constexpr int kE = kF32Out ? 4 : 2;  // bytes of an output value
+    constexpr int kPitch = kF32Out ? kPitch4 : kPitch2;
+    constexpr int kCols = 128 / kE;  // columns of a staged chunk
+    const int wg = warp >> 2, g = lane >> 2, tq = lane & 3;
+    unsigned char* stage = ring.epi + warp * kEpiBytes;
+    int acc[128];
 #pragma unroll
-      for (int ni = 0; ni < TL::kNI; ++ni) {
-        const int col = col0 + ni * 8;
-        const float s0 = ws[col], s1 = ws[col + 1];
-        float b0 = 0.0f, b1 = 0.0f;
-        if (bias != nullptr) b0 = bias[col], b1 = bias[col + 1];
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    for (int p = cluster, q = 0; p < pairs; p += clusters, ++q) {
+      s8_mma(acc, ring, it, chunks, wg);
+      // this warp's 16 rows, dequantized a chunk of columns at a time into
+      // its staging area, then stored a whole 128-byte row segment per 8 lanes
+      const int r_in = wg * 64 + (warp & 3) * 16;  // the warp's first row in the tile
+      const int w0 = (p / tiles_n * kCluster + rank) * kTileA + r_in;
+      const float* sc_tile = ring.scales + (q & 1) * kScaleFloats;
+      mbar_wait(&ring.sc_full[q & 1], (q >> 1) & 1);
+      float sa[2];
 #pragma unroll
-        for (int mi = 0; mi < TL::kMI; ++mi) {
+      for (int h = 0; h < 2; ++h) sa[h] = sc_tile[2 * kTileB + r_in + g + 8 * h];
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = wm + mi * 16 + g + 8 * half;
-            const int row = row0 + r;
-            if (row < m) {
-              const float sa = row_scale[r];
-              float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * half]), sa), s0);
-              float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * half + 1]), sa), s1);
-              if (bias != nullptr) v0 = __fadd_rn(v0, b0), v1 = __fadd_rn(v1, b1);
-              const size_t at = size_t(row) * n + col;
-              if (y_is_f32) {
-                *reinterpret_cast<float2*>(static_cast<float*>(y) + at) = make_float2(v0, v1);
+      for (int cc = 0; cc < kTileB / kCols; ++cc) {
+        const int c0 = p % tiles_n * kTileB + cc * kCols;
+        if (c0 < n) {  // n is a multiple of 128: a chunk lies wholly inside or outside
+#pragma unroll
+          for (int jj = 0; jj < kCols / 8; ++jj) {
+            const int j = cc * (kCols / 8) + jj;
+            const int col = cc * kCols + 8 * jj + 2 * tq;  // in the tile
+            const float2 sc = *reinterpret_cast<const float2*>(sc_tile + col);
+            const float2 bc = *reinterpret_cast<const float2*>(sc_tile + kTileB + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sa[h]), sc.x);
+              float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sa[h]), sc.y);
+              if (bias != nullptr) v0 = __fadd_rn(v0, bc.x), v1 = __fadd_rn(v1, bc.y);
+              unsigned char* at = stage + (g + 8 * h) * kPitch + (8 * jj + 2 * tq) * kE;
+              if constexpr (kF32Out) {
+                *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
               } else {
-                *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(y) + at) =
-                    __floats2bfloat162_rn(v0, v1);
+                *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(v0, v1);
               }
             }
-            acc[mi][ni][2 * half] = acc[mi][ni][2 * half + 1] = 0;
           }
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 4 * i + (lane >> 3);
+            const uint4 v = *reinterpret_cast<const uint4*>(stage + r * kPitch + (lane & 7) * 16);
+            if (w0 + r < m) {
+              *reinterpret_cast<uint4*>(static_cast<unsigned char*>(y) +
+                                        (size_t(w0 + r) * n + c0) * kE + (lane & 7) * 16) = v;
+            }
+          }
+          __syncwarp();
         }
       }
+      if (lane == 0) mbar_arrive(&ring.sc_empty[q & 1]);
     }
-    at.next(kchunks);
   }
+  cluster_sync();  // no block leaves while its peer may still signal its barriers
 }
 
-template <typename T, int BM, int BK>
-cudaError_t launch(const void* x, const int8_t* wq, const float* ws, const float* bias,
-                   const long long* seed, void* y, int m, int k, int n, int y_is_f32,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, k, BK);
-  auto kernel = quant_fwd_kernel<T, BM, BK>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((m + BM - 1) / BM), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), wq, ws, bias, seed, y, m, k, n, y_is_f32);
+template <typename T, int kHeld>
+cudaError_t quantize_rows_held(const void* x, const long long* seed, int8_t* xq, float* row_scale,
+                               int m, int k, cudaStream_t stream) {
+  const int blocks = (m + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  if (seed != nullptr) {
+    quantize_rows_kernel<T, true, kHeld><<<blocks, kRowThreads, 0, stream>>>(
+        static_cast<const T*>(x), seed, xq, row_scale, m, k);
+  } else {
+    quantize_rows_kernel<T, false, kHeld><<<blocks, kRowThreads, 0, stream>>>(
+        static_cast<const T*>(x), nullptr, xq, row_scale, m, k);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int BM, typename... Args>
-cudaError_t launch_depth(bool deep, Args... args) {
-  return deep ? launch<T, BM, 128>(args...) : launch<T, BM, 64>(args...);
+// Rows of up to 768 (bf16) or 384 (f32) entries held in 3 vectors a lane,
+// twice that in 6, and 12 for every wider row (the rest read twice).
+template <typename T>
+cudaError_t quantize_rows(const void* x, const long long* seed, int8_t* xq, float* row_scale,
+                          int m, int k, cudaStream_t stream) {
+  constexpr int kLane = 32 * Vec16<T>::kN;  // entries a warp's vector covers
+  if (k <= 3 * kLane) return quantize_rows_held<T, 3>(x, seed, xq, row_scale, m, k, stream);
+  if (k <= 6 * kLane) return quantize_rows_held<T, 6>(x, seed, xq, row_scale, m, k, stream);
+  return quantize_rows_held<T, 12>(x, seed, xq, row_scale, m, k, stream);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const int8_t* wq, const float* ws, const float* bias,
-                     const long long* seed, void* y, int m, int k, int n, int y_is_f32,
-                     cudaStream_t stream) {
-  // the most rows whose int8 copy fits beside the weight stages, then the
-  // deeper weight tile where that fits too
-  const int bm = smem_bytes(64, k, 64) <= size_t(kMaxSmem) ? 64 : 32;
-  if (smem_bytes(bm, k, 64) > size_t(kMaxSmem)) return cudaErrorInvalidValue;
-  const bool deep = smem_bytes(bm, k, 128) <= size_t(kMaxSmem);
-  if (bm == 64)
-    return launch_depth<T, 64>(deep, x, wq, ws, bias, seed, y, m, k, n, y_is_f32, stream);
-  return launch_depth<T, 32>(deep, x, wq, ws, bias, seed, y, m, k, n, y_is_f32, stream);
+cudaError_t launch(const void* x, const int8_t* wq, const float* ws, const float* bias,
+                   const long long* seed, void* y, int8_t* xq, float* row_scale, int m, int k,
+                   int n, int y_is_f32, cudaStream_t stream) {
+  cudaError_t err = quantize_rows<T>(x, seed, xq, row_scale, m, k, stream);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap map_x, map_w;
+  if (!s8_map(&map_x, xq, k, m, kTileA) || !s8_map(&map_w, wq, k, n, kTileB / 2)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = y_is_f32 ? qmm_s8_kernel<true> : qmm_s8_kernel<false>;
+  static int resident[2][kMaxDevices] = {};
+  const int most = resident_clusters(kernel, resident[y_is_f32 ? 1 : 0]);
+  const int pairs = cluster_rows((m + kTileA - 1) / kTileA) * ((n + kTileB - 1) / kTileB);
+  err = launch_clusters(kernel, pairs < most ? pairs : most, stream, map_x, map_w, row_scale,
+                        ws, bias, y, m, k, n);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -310,13 +297,14 @@ cudaError_t dispatch(const void* x, const int8_t* wq, const float* ws, const flo
 extern "C" {
 
 // x [m, k] (x_dtype: 0 = bf16, 1 = f32), contiguous and 16-byte aligned; wq
-// int8 [n, k] (the contraction contiguous); ws f32 [n]; bias f32 [n] or
-// null; seed one int64 in device memory when sr, else unused; y [m, n]
-// (y_dtype likewise). k and n are multiples of 128. Returns the launch's
-// cudaError_t.
+// int8 [n, k] (the contraction contiguous), 16-byte aligned; ws f32 [n];
+// bias f32 [n] or null; seed one int64 in device memory when sr, else
+// unused; y [m, n] (y_dtype likewise); xq int8 [m, k] (16-byte aligned) and
+// row_scale f32 [m] scratch. k and n are multiples of 128. Returns the
+// launches' cudaError_t.
 int uvit_quant_fwd(const void* x, const void* wq, const void* ws, const void* bias,
-                      const void* seed, void* y, int m, int k, int n, int x_dtype, int y_dtype,
-                      int sr, void* stream) {
+                   const void* seed, void* y, void* xq, void* row_scale, int m, int k, int n,
+                   int x_dtype, int y_dtype, int sr, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || k % 128 != 0 || n % 128 != 0 || (sr && seed == nullptr) ||
       y_dtype < 0 || y_dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -324,9 +312,11 @@ int uvit_quant_fwd(const void* x, const void* wq, const void* ws, const void* bi
   const float* s = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);
   const long long* sd = sr ? static_cast<const long long*>(seed) : nullptr;
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* rs = static_cast<float*>(row_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return dispatch<bf16>(x, w, s, b, sd, y, m, k, n, y_dtype, st);
-  if (x_dtype == 1) return dispatch<float>(x, w, s, b, sd, y, m, k, n, y_dtype, st);
+  if (x_dtype == 0) return launch<bf16>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, st);
+  if (x_dtype == 1) return launch<float>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,25 +21,27 @@
 // (0.030 ms, bytes).
 //
 // Design: two kernels behind one call. The contraction runs over the
-// tokens, which are contiguous in neither x nor g, and mma.sync wants both
-// int8 operands with the contraction contiguous (ldmatrix.trans moves 16-bit
-// units, not bytes). A block that quantized its own operand tiles would draw
-// the rounding bits of g anew for every 128 columns of x (K / 128 = 6 to 24
-// times at some 25 integer operations an entry), far more than the product
-// itself costs. So
+// tokens, which are contiguous in neither x nor g, and 8-bit wgmma takes
+// both operands only K-major (the contraction contiguous: it has no
+// transposed operand for 8-bit types). A block that quantized its own
+// operand tiles would draw the rounding bits of g anew for every 256
+// columns of x, far more than the product itself costs. So
 //   1. `quantize_transpose_kernel` reads a [64 tokens x 64 columns] tile,
-//      quantizes each entry once, turns the tile in shared memory and writes
-//      int8 copies xq [K, M'] and gq [N, M'] with the tokens contiguous (M'
-//      = M rounded up to 128, the tail zeros): one byte written and read back
-//      per entry, against two or four read;
-//   2. `wgrad_mm_kernel` is then a plain int8 product acc[N, K] = gq . xq^T:
-//      [128 x 128] tiles, [128 x 128] operand tiles (whole 128-byte lines
-//      of every row) through a ring of three cp.async stages with one
-//      barrier per chunk, eight warps 2 x 4 with 64 x 32 each, the mma.sync
-//      m16n8k32 operands straight from shared memory by ldmatrix. dw has at
-//      most 18 x 6 tiles, too few for 132 SMs, so the tokens are split over
-//      blockIdx.z and each block adds its share with int32 atomics: exact
-//      and free of order, so two runs give the same bits.
+//      quantizes each entry once, turns the tile in registers and shared
+//      memory (words of 4 tokens; byte stores met eight to a bank) and
+//      writes int8 copies xq [K, M'] and gq [N, M'] with the tokens
+//      contiguous (M' = M rounded up to 128, the tail zeros): one byte
+//      written and read back per entry, against two or four read;
+//   2. `wgrad_s8_kernel` is then a plain int8 product acc[N, K] = gq . xq^T
+//      on the s8 product core of quant_common.cuh: 128 x 256 tiles of acc in
+//      clusters of two (two gq row tiles sharing one xq row tile,
+//      multicast), TMA-fed wgmma m64n256k32, 128 tokens a stage. acc has 18
+//      to 72 such tiles at ViT-B, too few for 132 SMs, so the tokens are
+//      split over persistent clusters as `launch` says, and each adds its
+//      partial sums into acc with int32 atomics, a warp's 16 rows 32 columns
+//      at a time through shared memory so that each atomic instruction
+//      covers a whole 128-byte row segment: exact and free of order, so two
+//      runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,13 +54,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kQT = 64;              // tile edge of the quantize-transpose kernel
-constexpr int kQPitch = kQT + 16;    // its shared row (tokens), bytes
-constexpr int kTile = 128;           // output tile edge of the product
-constexpr int kChunk = 128;          // tokens per stage
-constexpr int kPitch = kChunk + 16;  // operand tile row, bytes
-constexpr int kOperand = kTile * kPitch;
-constexpr int kStage = 2 * kOperand;
-constexpr int kStages = 3;
+constexpr int kQWords = kQT / 4 + 1;  // its shared row (one column's tokens), 32-bit words
 
 __device__ __forceinline__ void load4(const bf16* p, float (&f)[4]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
@@ -72,130 +68,119 @@ __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
 }
 
 // src [m, c] -> dst int8 [c, m_pad], entry (row, col) scaled by inv[col] and
-// rounded to nearest (kSR false) or stochastically from the seed.
+// rounded to nearest (kSR false) or stochastically from the seed. A thread
+// quantizes 4 tokens x 4 columns of the block's 64 x 64 tile and turns them
+// in registers: each of its columns' 4 tokens is one 32-bit word of the
+// transposed tile, whose rows (one column's 64 tokens) lie 17 words apart,
+// so that the warp's word stores and loads meet at most two to a bank.
 template <typename T, bool kSR>
 __global__ void __launch_bounds__(kThreads)
 quantize_transpose_kernel(const T* __restrict__ src, const float* __restrict__ inv,
                           const long long* __restrict__ seed, int8_t* __restrict__ dst, int m,
                           int m_pad, int c) {
-  __shared__ __align__(16) int8_t tile[kQT * kQPitch];
+  __shared__ uint32_t tile[kQT * kQWords];
   const int c0 = blockIdx.x * kQT, m0 = blockIdx.y * kQT;
   const int tid = threadIdx.x;
   const int cq = (tid & 15) * 4;  // this thread's four columns of the tile
+  const int tq = (tid >> 4) * 4;  // and four tokens
   float iv[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) iv[j] = inv[c0 + cq + j];
   philox::Key key{0u, 0u};
   if (kSR) key = philox::load_key(seed);
+  int q[4][4] = {};  // [token][column]
 #pragma unroll
-  for (int p = 0; p < kQT / 16; ++p) {
-    const int r = p * 16 + (tid >> 4);
-    const int row = m0 + r;
-    int q[4] = {0, 0, 0, 0};
+  for (int p = 0; p < 4; ++p) {
+    const int row = m0 + tq + p;
     if (row < m) {
       float f[4];
       load4(src + size_t(row) * c + c0 + cq, f);
       if (kSR) {
         const uint4 w = philox::quant_words(key, uint32_t(row), uint32_t((c0 + cq) >> 2));
-        q[0] = quant_sr(f[0], iv[0], philox::uniform24(w.x));
-        q[1] = quant_sr(f[1], iv[1], philox::uniform24(w.y));
-        q[2] = quant_sr(f[2], iv[2], philox::uniform24(w.z));
-        q[3] = quant_sr(f[3], iv[3], philox::uniform24(w.w));
+        q[p][0] = quant_sr(f[0], iv[0], philox::uniform24(w.x));
+        q[p][1] = quant_sr(f[1], iv[1], philox::uniform24(w.y));
+        q[p][2] = quant_sr(f[2], iv[2], philox::uniform24(w.z));
+        q[p][3] = quant_sr(f[3], iv[3], philox::uniform24(w.w));
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) q[j] = quant_rn(f[j], iv[j]);
+        for (int j = 0; j < 4; ++j) q[p][j] = quant_rn(f[j], iv[j]);
       }
     }
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) tile[(cq + j) * kQPitch + r] = static_cast<int8_t>(q[j]);
+  for (int j = 0; j < 4; ++j) {
+    tile[(cq + j) * kQWords + tq / 4] = pack_s8x4(q[0][j], q[1][j], q[2][j], q[3][j]);
   }
   __syncthreads();
-  const int col = tid >> 2, seg = (tid & 3) * 16;
-  *reinterpret_cast<uint4*>(dst + size_t(c0 + col) * m_pad + m0 + seg) =
-      *reinterpret_cast<const uint4*>(tile + col * kQPitch + seg);
+  const int col = tid >> 2, w0 = (tid & 3) * 4;  // a quarter of one column's tokens
+  const uint32_t* from = tile + col * kQWords + w0;
+  *reinterpret_cast<uint4*>(dst + size_t(c0 + col) * m_pad + m0 + 4 * w0) =
+      make_uint4(from[0], from[1], from[2], from[3]);
 }
 
-// One chunk of tokens of both operand tiles into a stage.
-__device__ __forceinline__ void load_chunk(int8_t* stage, const int8_t* a, const int8_t* b,
-                                           int m_pad, int chunk, int tid) {
-  for (int i = tid; i < 2 * kTile * (kChunk / 16); i += kThreads) {
-    constexpr int kSegs = kChunk / 16;
-    const int which = i / (kTile * kSegs), r = (i / kSegs) % kTile, seg = (i % kSegs) * 16;
-    const int8_t* src = (which ? b : a) + size_t(r) * m_pad + size_t(chunk) * kChunk + seg;
-    cp_async16(smem_u32(stage + which * kOperand + r * kPitch + seg), src);
-  }
-}
+// acc [n, k] += gq [n, m_pad] . xq [k, m_pad]^T, persistent over the work
+// items (token split, pair of 128 x 256 tiles: two gq row tiles against one
+// xq row tile), the split slowest, one item a cluster at a time.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+wgrad_s8_kernel(const __grid_constant__ CUtensorMap map_g,
+                const __grid_constant__ CUtensorMap map_x, int* __restrict__ acc, int n, int k,
+                int chunks, int split) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const S8Ring ring = s8_ring(smem_raw);
+  const uint32_t rank = cluster_rank();
+  const int tiles_k = (k + kTileB - 1) / kTileB;
+  const int pairs = cluster_rows(n / kTileA) * tiles_k, items = pairs * split;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int it = 0;
 
-// out[ra, rb] += a [ra, m_pad] . b [rb, m_pad]^T over this block's chunks.
-__global__ void __launch_bounds__(kThreads)
-wgrad_mm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b, int* __restrict__ out,
-                int m_pad, int rb, int chunks_per_split) {
-  extern __shared__ __align__(16) int8_t stages[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int a0 = blockIdx.y * kTile, b0 = blockIdx.x * kTile;
-  const int nchunks = m_pad / kChunk;
-  const int begin = blockIdx.z * chunks_per_split;
-  const int end = min(nchunks, begin + chunks_per_split);
-  if (begin >= end) return;
-  const int8_t* at = a + size_t(a0) * m_pad;
-  const int8_t* bt = b + size_t(b0) * m_pad;
-
-  constexpr int kMI = 4, kNI = 4;  // a warp's 64 x 32
-  const int wa = (warp >> 2) * 64, wb = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  int acc[kMI][kNI][4];
+  if (warp == kConsumerWarps) {  // the producer
+    if (lane == 0) {
+      for (int i = cluster; i < items; i += clusters) {
+        const int p = i % pairs, s = i / pairs;
+        const int r0 = (p / tiles_k * kCluster + rank) * kTileA;
+        for (int c = s * chunks / split; c < (s + 1) * chunks / split; ++c, ++it) {
+          s8_load(ring, it, &map_g, &map_x, c * kDepth, r0, p % tiles_k * kTileB, rank);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = warp >> 2, g = lane >> 2, tq = lane & 3;
+    unsigned char* stage = ring.epi + warp * kEpiBytes;
+    int d[128];
 #pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
+    for (int i = 0; i < 128; ++i) d[i] = 0;
+    for (int i = cluster; i < items; i += clusters) {
+      const int p = i % pairs, s = i / pairs;
+      s8_mma(d, ring, it, (s + 1) * chunks / split - s * chunks / split, wg);
+      // this warp's 16 rows, 32 columns at a time through its staging area,
+      // then one atomic add a lane: a whole 128-byte row segment per warp
+      const int w0 = (p / tiles_k * kCluster + rank) * kTileA + wg * 64 + (warp & 3) * 16;
 #pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-
-  // a group is committed per chunk, empty where there is none, so that the
-  // count of groups in flight is the same for every chunk
+      for (int cc = 0; cc < kTileB / 32; ++cc) {
+        const int c0 = p % tiles_k * kTileB + cc * 32;
+        if (c0 < k && w0 < n) {  // k and n are multiples of 128: all inside or all outside
 #pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (begin + p < end) load_chunk(stages + p * kStage, at, bt, m_pad, begin + p, tid);
-    cp_async_commit();
-  }
-  for (int ch = begin, s = 0; ch < end; ++ch, s = s + 1 == kStages ? 0 : s + 1) {
-    cp_async_wait<kStages - 2>();  // all but the newest groups: chunk `ch` has landed
-    // chunk `ch` is there for every warp, and every warp is done with chunk
-    // `ch - 1`, whose stage is loaded next
-    __syncthreads();
-    if (ch + kStages - 1 < end)
-      load_chunk(stages + (s >= 1 ? s - 1 : kStages - 1) * kStage, at, bt, m_pad,
-                 ch + kStages - 1, tid);
-    cp_async_commit();
-    const int8_t* as = stages + s * kStage;
-    const int8_t* bs = as + kOperand;
+          for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-    for (int ks = 0; ks < kChunk / 32; ++ks) {
-      uint32_t af[kMI][4];
+            for (int h = 0; h < 2; ++h) {
+              *reinterpret_cast<int2*>(stage + (g + 8 * h) * kPitch4 + (8 * jj + 2 * tq) * 4) =
+                  make_int2(d[4 * (4 * cc + jj) + 2 * h], d[4 * (4 * cc + jj) + 2 * h + 1]);
+            }
+          }
+          __syncwarp();
 #pragma unroll
-      for (int mi = 0; mi < kMI; ++mi) load_a_frag(as, kPitch, wa + mi * 16, ks * 32, af[mi]);
-#pragma unroll
-      for (int ni = 0; ni < kNI; ni += 2) {
-        uint32_t bf[4];
-        load_b_frags(bs, kPitch, wb + ni * 8, ks * 32, bf);
-#pragma unroll
-        for (int mi = 0; mi < kMI; ++mi) {
-          mma_s8(acc[mi][ni], af[mi], bf[0], bf[1]);
-          mma_s8(acc[mi][ni + 1], af[mi], bf[2], bf[3]);
+          for (int r = 0; r < 16; ++r) {
+            atomicAdd(acc + size_t(w0 + r) * k + c0 + lane,
+                      *reinterpret_cast<const int*>(stage + r * kPitch4 + lane * 4));
+          }
+          __syncwarp();
         }
       }
     }
   }
-
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = a0 + wa + mi * 16 + g + 8 * (e >> 1);
-        const int col = b0 + wb + ni * 8 + 2 * t + (e & 1);
-        atomicAdd(out + size_t(row) * rb + col, acc[mi][ni][e]);
-      }
+  cluster_sync();  // no block leaves while its peer may still signal its barriers
 }
 
 template <typename T>
@@ -212,32 +197,36 @@ cudaError_t launch(const void* x, const void* g, const float* inv_x, const float
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // Two blocks stand on an SM, and the blocks run in waves of that many. The
-  // tokens are split so that the last wave ends soonest: every wave lasts a
-  // block's share of the chunks, and every split adds a tile's 16,384
-  // atomics, which cost about 1/80 of a chunk's time (fitted to the sweep of
-  // tools/torch_port_wgrad_split.py on an H100; a split above 32 never won).
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int tiles = (n / kTile) * (k / kTile), nchunks = m_pad / kChunk, slots = 2 * sms;
+  CUtensorMap map_g, map_x;
+  if (!s8_map(&map_g, gq, m_pad, n, kTileA) || !s8_map(&map_x, xq, m_pad, k, kTileB / 2)) {
+    return cudaErrorInvalidValue;
+  }
+  static int resident[kMaxDevices] = {};
+  const int most = resident_clusters(wgrad_s8_kernel, resident);
+  // The tokens of every tile pair are split S ways, and the clusters take
+  // the (split, pair) items in waves, the split slowest, so that the blocks
+  // in flight read the same tokens (a stream-K share-out, one block an SM
+  // taking an equal run of the (tile, chunk) sequence, lost up to 10% to L2
+  // misses on an H100). A wave lasts an item's chunks and ends with every
+  // block adding its 128 x 256 sums with atomics, which cost about kFlush
+  // chunks while all blocks add at once (fitted to the sweep of
+  // tools/torch_port_wgrad_split.py on an H100).
+  constexpr int kFlush = 12;
+  const int chunks = m_pad / kDepth;
+  const int pairs = cluster_rows(n / kTileA) * ((k + kTileB - 1) / kTileB);
   int split = 1;
   long best = 0;
-  for (int s = 1; s <= nchunks && s <= 32; ++s) {
-    const long waves = (long(tiles) * s + slots - 1) / slots;
-    const long cost = waves * ((nchunks + s - 1) / s) * 80 + long(s) * tiles;
+  for (int s = 1; s <= chunks && s <= 32; ++s) {
+    const long cost = long((pairs * s + most - 1) / most) * ((chunks + s - 1) / s + kFlush);
     if (s == 1 || cost < best) best = cost, split = s;
   }
 #ifdef UVIT_WGRAD_SPLIT  // a fixed split: tools/torch_port_wgrad_split.py times one build per value
-  split = UVIT_WGRAD_SPLIT < nchunks ? UVIT_WGRAD_SPLIT : nchunks;
+  split = UVIT_WGRAD_SPLIT < chunks ? UVIT_WGRAD_SPLIT : chunks;
 #endif
-  const int per_split = (nchunks + split - 1) / split;
-  split = (nchunks + per_split - 1) / per_split;
-  constexpr int kSmem = kStages * kStage;
-  err = cudaFuncSetAttribute(wgrad_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const int items = pairs * split;
+  err = launch_clusters(wgrad_s8_kernel, items < most ? items : most, stream, map_g, map_x, acc,
+                        n, k, chunks, split);
   if (err != cudaSuccess) return err;
-  wgrad_mm_kernel<<<dim3(k / kTile, n / kTile, split), kThreads, kSmem, stream>>>(
-      gq, xq, acc, m_pad, k, per_split);
   return cudaGetLastError();
 }
 
@@ -253,7 +242,7 @@ extern "C" {
 int uvit_quant_wgrad(const void* x, const void* g, const void* inv_x, const void* inv_g,
                      const void* seed, void* xq, void* gq, void* acc, int m, int m_pad, int k,
                      int n, int dtype, void* stream) {
-  if (m <= 0 || m_pad < m || m_pad % kChunk != 0 || k <= 0 || n <= 0 || k % 128 != 0 ||
+  if (m <= 0 || m_pad < m || m_pad % kDepth != 0 || k <= 0 || n <= 0 || k % 128 != 0 ||
       n % 128 != 0 || seed == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* ix = static_cast<const float*>(inv_x);

@@ -14,13 +14,14 @@ stochastically, ``floor(v + u)`` with u in [0, 1), so that dgrad and wgrad
 stay unbiased. Weights stay f32 masters and are quantized in every call.
 
 - On a CPU tensor ``qmm`` and ``wgrad`` run ``qmm_plain`` / ``wgrad_plain``.
-- On a CUDA tensor ``qmm`` launches ``csrc/quant_fwd.cu`` (K6: the rows of
-  x are quantized inside the kernel, the product is int8 x int8 -> int32 on
-  the tensor cores, dequantized and biased in f32 and rounded once to the
-  output type) and adds one to ``qmm.launches``; ``wgrad`` launches the two
-  kernels of ``csrc/quant_wgrad.cu`` (K7: quantize-and-transpose, then the
-  int32 product over the tokens) and adds one to ``wgrad.launches``. Either
-  raises on what its kernel does not take. There is no fallback.
+- On a CUDA tensor ``qmm`` launches the two kernels of ``csrc/quant_fwd.cu``
+  (K6: the rows of x quantized once into an int8 copy, then the product
+  int8 x int8 -> int32 on the tensor cores, dequantized and biased in f32
+  and rounded once to the output type) and adds one to ``qmm.launches``;
+  ``wgrad`` launches the two kernels of ``csrc/quant_wgrad.cu`` (K7:
+  quantize-and-transpose, then the int32 product over the tokens) and adds
+  one to ``wgrad.launches``. Either raises on what its kernel does not
+  take. There is no fallback.
 
 The rounding uniforms are a function of (seed, row, column) of the rounded
 matrix (``ops/philox.py``), so the kernels and their plain versions round
@@ -58,14 +59,11 @@ from uncertainty_vit_tpu_torch.ops import _native, philox
 # stays below 2^31 only for M <= 133,152. The cap is the power of two below
 # (uncertainty_vit_tpu/ops/quant.py:66-70); above it the layer is bf16.
 _MAX_M_INT32_ACC = 131_072
-# K6 keeps a tile of whole int8 rows in shared memory: 32 rows (its smallest
-# tile) of at most this many entries fit beside its weight tiles.
-MAX_K = 6_272
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, wq, ws, bias, seed, y; m, k, n, x dtype, y dtype, sr; stream
-_QMM_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]
+# x, wq, ws, bias, seed, y, xq, row scale; m, k, n, x dtype, y dtype, sr; stream
+_QMM_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 # x, g, inv_x, inv_g, seed, xq, gq, acc; m, m_pad, k, n, dtype; stream
 _WGRAD_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
 # Token rows are padded with zeros to a multiple of this in K7's int8 copies.
@@ -185,14 +183,14 @@ def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype) -> torch.Tensor:
     m, k = x.shape
     n = wq.shape[1]
     _check_supported(m, k, n)
-    if k > MAX_K:
-        raise ValueError(f"the int8 matmul kernel takes K <= {MAX_K}, got {k}")
     if out_dtype not in _DTYPES:
         raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
     if wq.dtype != torch.int8 or tuple(wq.shape) != (k, n) or wq.device != x.device:
         raise ValueError(f"wq must be int8 [{k}, {n}] on {x.device}, got {wq.dtype} "
                          f"{tuple(wq.shape)} on {wq.device}")
     wq_t = wq.t().contiguous()  # [N, K]: the contraction contiguous; no copy if it is so
+    if wq_t.data_ptr() % 16 != 0:  # TMA reads it from a 16-byte aligned base
+        wq_t = wq_t.clone()
     ws = ws.reshape(-1).float().contiguous()
     if ws.numel() != n or ws.device != x.device:
         raise ValueError(f"ws must hold {n} scales on {x.device}")
@@ -203,12 +201,16 @@ def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype) -> torch.Tensor:
     if sr:
         philox.check_seed(seed, x.device)
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    # the first kernel's int8 rows and their scales, which the second reads
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    row_scale = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = _native.typed("quant_fwd", _QMM_ARGTYPES)
     with torch.cuda.device(x.device):
         err = lib.uvit_quant_fwd(
             x.data_ptr(), wq_t.data_ptr(), ws.data_ptr(), _native.ptr(bias),
-            seed.data_ptr() if sr else None, y.data_ptr(), m, k, n, _DTYPES[x.dtype],
-            _DTYPES[out_dtype], int(sr), torch.cuda.current_stream(x.device).cuda_stream,
+            seed.data_ptr() if sr else None, y.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
+            m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], int(sr),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, "int8 matmul")
     qmm.launches += 1
