@@ -184,6 +184,23 @@ kernels from the sources in this checkout, then:
            and grad norm within phase 4's bounds of the unsharded step's.
            Prints each rank's rates and peak memory as information: two ranks
            on one card over gloo are not a throughput of sequence parallelism.
+  phase 16 the finetune driver from images: cli.finetune.main on the card
+           over a CIFAR-100 test pickle of 1024 seeded 32x32 images and .pth
+           files of phase 2's ViT-B/16 224 (100 classes) written here. --eval
+           at batch 128 (the 32 -> 224 eval transform on the card): K1 96
+           launches and no other kernel, its logits within phase 2's bound of
+           the plain attention's on the same transformed images, its printed
+           metrics equal to a CPU recomputation from those logits, the
+           transform within 1e-5 of the CPU's. Over the first 256 images:
+           --mc_dropout (K=8, split and dropout from block 9; K1 24, K8 12),
+           --ensembles of two .pth (K1 48; each member's and the mean's
+           printed metrics equal to a CPU recomputation from that member's
+           logits on the same batches) and --quant int8 (K1 24, K6 96; its
+           printed metrics equal to a CPU recomputation from its logits, and
+           those logits within phase 2's bound of the same model's on qmm's
+           plain version). Prints the --eval rate from images beside phase 2's forward, the
+           card's busy share in one torch.profiler trace of the eval, and
+           whether the native IO library was built.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -2782,6 +2799,298 @@ def phase15(torch, FA, dev, init):
             for path in ("evaluate", "train_step")}
 
 
+def kernel_counts(FA, TQ, DO) -> dict:
+    """Every kernel's launches since the last reset_kernel_counts."""
+    return {**attention_counts(FA), **cross_counts(FA), "K6": TQ.qmm.launches,
+            "K7": TQ.wgrad.launches, "K8": DO.fused_dropout.launches}
+
+
+def reset_kernel_counts(FA, TQ, DO) -> None:
+    reset_attention_counts(FA)
+    reset_cross_counts(FA)
+    TQ.qmm.launches = TQ.wgrad.launches = DO.fused_dropout.launches = 0
+
+
+def write_cifar100_test(root: str, images, labels) -> None:
+    """A cifar-100-python/test pickle of uint8 NHWC images (the (N, 3072)
+    rows of the CIFAR layout)."""
+    import pickle
+
+    base = os.path.join(root, "cifar-100-python")
+    os.makedirs(base, exist_ok=True)
+    with open(os.path.join(base, "test"), "wb") as f:
+        pickle.dump({b"data": images.transpose(0, 3, 1, 2).reshape(len(images), -1),
+                     b"fine_labels": [int(v) for v in labels]}, f)
+
+
+def phase16(torch, FA, dev, det_ms_per_128):
+    """The finetune driver's evaluation from images on the card:
+    cli.finetune.main under --eval, --mc_dropout, --ensembles and
+    --quant int8, from CIFAR-100 pickles and .pth files written here.
+    det_ms_per_128: phase 2's forward at batch 128, for the rate beside."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import eval_transform_batch
+    from uncertainty_vit_tpu_torch.utils import native
+    from uncertainty_vit_tpu_torch.utils.checkpoint import (import_torch_state_dict,
+                                                          load_torch_state_dict)
+
+    n_images, n_small, bs, depth = 1024, 256, 128, 12
+    rs = np.random.RandomState(16)
+    images = rs.randint(0, 256, (n_images, 32, 32, 3), dtype=np.uint8)
+    labels = np.arange(n_images) % 100
+    # the driver's model for these flags: phase 2's ViT-B/16 224 (shared
+    # rel-pos table, layer scale 0.1, no absolute position embedding as the
+    # flags default) with a 100-class head; the rel-pos table at std 0.2 and
+    # the head at 0.5, so that the bias is not zero and the logits stand apart
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+
+    def write_pth(path, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
+        trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+        trunc_normal(0.5, 2.0)(model.head.weight, gen)
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, path)
+
+    def held_metrics(got, logits, lab, what):
+        """The driver's printed metrics against the same metrics of these
+        logits on the CPU (evaluate() adds "loss", evaluate_ensemble() does
+        not)."""
+        on_cpu = {k: float(v) for k, v in M.classification_metrics(
+            torch.from_numpy(logits), torch.from_numpy(lab)).items()}
+        if "loss" in got:
+            on_cpu["loss"] = on_cpu["nll"]
+        check(sorted(got) == sorted(on_cpu), f"{what} metric keys {sorted(got)}")
+        for k, v in on_cpu.items():
+            check(abs(got[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+                  f"{what} metric {k}: printed {got[k]}, recomputed on the CPU {v}")
+
+    bounded = FA.BOUNDED_SCORES
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            full, small = os.path.join(tmp, "full"), os.path.join(tmp, "small")
+            write_cifar100_test(full, images, labels)
+            write_cifar100_test(small, images[:n_small], labels[:n_small])
+            a, b = os.path.join(tmp, "a.pth"), os.path.join(tmp, "b.pth")
+            write_pth(a, 160)
+            write_pth(b, 161)
+
+            def args_of(root, *extra):
+                return FT.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", root, "--batch_size", str(bs),
+                    "--num_workers", "8", "--finetune", a, "--output_dir",
+                    os.path.join(tmp, "out"), "--eval", *extra])
+
+            # --- --eval over 1024 images: one warm-up run, then the counted run
+            args = args_of(full)
+            FT.main(args)
+            reset_kernel_counts(FA, TQ, DO)
+            t0 = time.perf_counter()
+            res = FT.main(args)["eval"]
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            paths = {"cli_evaluate": kernel_counts(FA, TQ, DO)}
+            print(f"  --eval ({n_images} images): launches {paths['cli_evaluate']}", flush=True)
+            want = {k: 0 for k in paths["cli_evaluate"]}
+            check(paths["cli_evaluate"] == dict(want, K1=depth * n_images // bs),
+                  f"--eval launched {paths['cli_evaluate']}, expected K1 "
+                  f"{depth * n_images // bs} only")
+
+            # the same model and batches through the driver's own pieces: the
+            # logits behind the printed metrics, and the plain attention's
+            model, _ = FT.build_model(args, 100, dev)
+            FT.load_variables(args, model)
+            loader, _ = B.build_loaders(args, is_train=False)
+            logits, lab = collect_logits(make_eval_forward(model),
+                                         FT._eval_batches(loader, args, dev))
+            plain = VisionTransformer(cfg.replace(use_flash_attention=False), dtype=torch.bfloat16,
+                                      device=dev)
+            plain.load_state_dict(model.state_dict())
+            ref, _ = collect_logits(make_eval_forward(plain), FT._eval_batches(loader, args, dev))
+            del plain
+            check(logits.shape == (n_images, 100) and np.isfinite(logits).all(),
+                  f"logits {logits.shape}, finite {np.isfinite(logits).all()}")
+            check(np.array_equal(lab, labels), "the loader's labels are not the split's")
+            diff, scale = float(np.abs(logits - ref).max()), float(np.abs(ref).max())
+            print(f"  --eval logits vs the plain attention's on the same transformed images: "
+                  f"max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio {diff / scale:.3e} "
+                  f"(bound {LOGIT_REL_BOUND})", flush=True)
+            check(diff <= LOGIT_REL_BOUND * scale,
+                  "the driver's logits disagree with the plain-attention model's")
+            held_metrics(res, logits, lab, "--eval")
+            first = torch.from_numpy(images[:bs])
+            on_card = eval_transform_batch(first.to(dev), 224, 224 / 256).cpu()
+            cpu = eval_transform_batch(first, 224, 224 / 256)
+            tdiff = (on_card - cpu).abs().max().item()
+            print(f"  eval transform 32 -> 224 on the card vs on the CPU: max|diff|={tdiff:.3e} "
+                  f"(bound 1e-5)", flush=True)
+            check(tuple(on_card.shape) == (bs, 224, 224, 3) and tdiff <= 1e-5,
+                  "the eval transform on the card disagrees with the CPU's")
+
+            # --- the rate from images (information only)
+            host = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                for _batch in loader:
+                    pass
+                host.append((time.perf_counter() - t0) * 1000)
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                FT.run_eval_dispatch(args, model, loader, 100)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            # its two parts: the logits (loader, copies, transform, forwards,
+            # readback), then the metrics of all of them on the card
+            t0 = time.perf_counter()
+            collected = collect_logits(make_eval_forward(model),
+                                       FT._eval_batches(loader, args, dev))
+            collect_ms = (time.perf_counter() - t0) * 1000
+            t0 = time.perf_counter()
+            on_card = M.classification_metrics(*(torch.from_numpy(a).to(dev) for a in collected))
+            check(all(math.isfinite(float(v)) for v in on_card.values()), "non-finite metric")
+            metrics_ms = (time.perf_counter() - t0) * 1000
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                FT.run_eval_dispatch(args, model, loader, 100)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1000
+            events = [e for e in prof.events()
+                      if e.device_type.name == "CUDA" and not e.is_user_annotation]
+            busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1000
+            by_kernel = {}
+            for e in events:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
+                by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            # where the card idles: before its first kernel, between its
+            # first and last (the union of kernel intervals), after its last
+            cpu = [e.time_range for e in prof.events() if e.device_type.name == "CPU"]
+            spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+            idle = {"before": 0.0, "between": 0.0, "after": 0.0}
+            if spans and cpu:
+                idle["before"] = (spans[0][0] - min(r.start for r in cpu)) / 1000
+                idle["after"] = (max(r.end for r in cpu) - max(e for _, e in spans)) / 1000
+                reach = spans[0][1]
+                for start, end in spans[1:]:
+                    idle["between"] += max(start - reach, 0) / 1000
+                    reach = max(reach, end)
+            print(f"  native IO library available: {native.available()}"
+                  + ("" if native.available() else f" ({native.BUILD_ERROR}); the loader "
+                     "stacks with numpy"), flush=True)
+            print(f"  --eval from images (information only): run_eval_dispatch over {n_images} "
+                  f"images {[round(w * 1000, 2) for w in walls]} ms = "
+                  f"{[n_images / w for w in walls]} img/s; of it the logits {collect_ms:.2f} ms "
+                  f"and their metrics {metrics_ms:.2f} ms; main() incl. model build and .pth "
+                  f"import {main_s * 1000:.1f} ms; the loader alone {host} ms; phase 2's "
+                  f"forward at batch {bs}: {bs * 1000 / det_ms_per_128:.1f} img/s", flush=True)
+            print(f"  profiled run_eval_dispatch: wall {wall_ms:.2f} ms, CUDA kernel and copy "
+                  f"time {busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}; the card idle "
+                  f"(ms) {json.dumps({k: round(v, 2) for k, v in idle.items()})} its first "
+                  f"kernel, between, after its last; top kernels (ms): "
+                  + json.dumps({k: round(v / 1000, 3) for k, v in top}), flush=True)
+            del model, loader
+
+            # --- --mc_dropout over 256 images: split at block 9, dropout from 9
+            split = 9
+            reset_kernel_counts(FA, TQ, DO)
+            res = FT.main(args_of(small, "--mc_dropout", "--mc_dropout_forwards", "8",
+                                  "--mc_dropout_split_at", str(split), "--drop", "0.1",
+                                  "--dropout_from_block", str(split)))["mc_dropout"]
+            torch.cuda.synchronize()
+            paths["cli_mc_dropout"] = kernel_counts(FA, TQ, DO)
+            nb = n_small // bs
+            expect = dict(want, K1=depth * nb, K8=2 * (depth - split) * nb)
+            print(f"  --mc_dropout: launches {paths['cli_mc_dropout']}", flush=True)
+            check(paths["cli_mc_dropout"] == expect,
+                  f"--mc_dropout launched {paths['cli_mc_dropout']}, expected {expect}")
+            check(all(math.isfinite(v) for v in res.values()), "non-finite MC metric")
+
+            # --- --ensembles of a.pth and b.pth over 256 images
+            reset_kernel_counts(FA, TQ, DO)
+            res = FT.main(args_of(small, "--ensembles", "--ensemble_checkpoints", a, b))
+            torch.cuda.synchronize()
+            paths["cli_ensemble"] = kernel_counts(FA, TQ, DO)
+            expect = dict(want, K1=2 * depth * nb)
+            print(f"  --ensembles: launches {paths['cli_ensemble']}", flush=True)
+            check(paths["cli_ensemble"] == expect,
+                  f"--ensembles launched {paths['cli_ensemble']}, expected {expect}")
+            members = res["ensembles"]["members"]
+            check(len(members) == 2 and members[0] != members[1]
+                  and all(math.isfinite(v) for m in members + [res["ensembles"]["ensemble"]]
+                          for v in m.values()), "ensemble metrics")
+            # each member on its own through the same batches: its logits'
+            # metrics, and those of the mean logits, recomputed on the CPU
+            sargs = args_of(small)
+            model, _ = FT.build_model(sargs, 100, dev)
+            loader, _ = B.build_loaders(sargs, is_train=False)
+            member_logits = []
+            for path in (a, b):
+                state, _, _ = import_torch_state_dict(load_torch_state_dict(path),
+                                                      model.state_dict())
+                model.load_state_dict(state)
+                lg, lab = collect_logits(make_eval_forward(model),
+                                         FT._eval_batches(loader, sargs, dev))
+                member_logits.append(lg)
+            check(np.array_equal(lab, labels[:n_small]), "the loader's labels are not the split's")
+            for got, lg in zip(members + [res["ensembles"]["ensemble"]],
+                               member_logits + [np.mean(member_logits, axis=0)]):
+                held_metrics(got, lg, lab, "--ensembles")
+            print(f"  --ensembles metrics equal to the CPU's from each member's own logits and "
+                  f"their mean (rtol {METRIC_RTOL}, atol {METRIC_ATOL})", flush=True)
+            del model
+
+            # --- --quant int8 over 256 images
+            reset_kernel_counts(FA, TQ, DO)
+            res = FT.main(args_of(small, "--quant", "int8"))["eval"]
+            torch.cuda.synchronize()
+            paths["cli_int8_evaluate"] = kernel_counts(FA, TQ, DO)
+            expect = dict(want, K1=depth * nb, K6=4 * depth * nb)
+            print(f"  --quant int8: launches {paths['cli_int8_evaluate']}", flush=True)
+            check(paths["cli_int8_evaluate"] == expect,
+                  f"--quant int8 launched {paths['cli_int8_evaluate']}, expected {expect}")
+            check(all(math.isfinite(v) for v in res.values()), "non-finite int8 metric")
+            # the same int8 model on the same batches: the logits behind the
+            # printed metrics, and K6's against its plain version's (phase 12)
+            qargs = args_of(small, "--quant", "int8")
+            model, _ = FT.build_model(qargs, 100, dev)
+            FT.load_variables(qargs, model)
+            loader, _ = B.build_loaders(qargs, is_train=False)
+            logits, lab = collect_logits(make_eval_forward(model),
+                                         FT._eval_batches(loader, qargs, dev))
+            held_metrics(res, logits, lab, "--quant int8")
+            k6, before = TQ.qmm, TQ.qmm.launches
+            with quant_on_plain(TQ):
+                ref, _ = collect_logits(make_eval_forward(model),
+                                        FT._eval_batches(loader, qargs, dev))
+            check(k6.launches == before, "the plain reference forward launched K6")
+            diff, scale = float(np.abs(logits - ref).max()), float(np.abs(ref).max())
+            print(f"  --quant int8 logits vs the same model on qmm's plain version: "
+                  f"max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio {diff / scale:.3e} "
+                  f"(bound {LOGIT_REL_BOUND})", flush=True)
+            check(diff <= LOGIT_REL_BOUND * scale,
+                  "the driver's int8 logits disagree with qmm's plain version's")
+            del model
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2840,6 +3149,8 @@ def main() -> int:
     seq2 = run(15, "ViT-L/16 512 over two gloo ranks sharing the card: evaluate(), train steps",
                phase15, torch, FA, dev, init_512)
     del init_512
+    cli = run(16, "the finetune driver from images: --eval, --mc_dropout, --ensembles, "
+                  "--quant int8", phase16, torch, FA, dev, det_ms)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -2851,15 +3162,18 @@ def main() -> int:
     # train steps, 1 step at batch 2, 1 step with attention dropout, one K=2
     # forward with attention dropout
     # and phase 12's int8 paths: evaluate() over 4 batches, 3 train steps
+    # and phase 16's driver runs ("cli_"): --eval over 1024 images, and
+    # --mc_dropout, --ensembles and --quant int8 over 256
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
-                **{path: n["K1"] for path, n in int8.items()}}
+                **{path: n["K1"] for path, n in int8.items()},
+                **{path: n["K1"] for path, n in cli.items()}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
                 "int8_train_step": int8["int8_train_step"]["K2"]}
-    k6_paths = {path: n["K6"] for path, n in int8.items()}
+    k6_paths = {path: n["K6"] for path, n in {**int8, **cli}.items() if n["K6"]}
     k7_paths = {path: n["K7"] for path, n in int8.items() if n["K7"]}
-    k8_paths = {path: n["K8"] for path, n in mc.items() if n["K8"]}
+    k8_paths = {path: n["K8"] for path, n in {**mc, **cli}.items() if n["K8"]}
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}
     for n_ in large.values():

@@ -155,7 +155,9 @@ def test_port_never_imports_jax():
         "for wanted in ('core.device', 'ops.philox', 'ops.dropout', 'evals.mc_dropout',\n"
         "               'evals.ensembles', 'evals.collect', 'evals.classification',\n"
         "               'models.vit', 'ops.augment', 'utils.checkpoint', 'ops.flash_attention',\n"
-        "               'ops._native', 'ops.quant', 'train.engine_finetune', 'train.optim'):\n"
+        "               'ops._native', 'ops.quant', 'train.engine_finetune', 'train.optim',\n"
+        "               'cli.common', 'cli.builders', 'cli.finetune', 'data.datasets',\n"
+        "               'data.registry', 'data.pipeline', 'models.registry', 'utils.native'):\n"
         "    assert pkg.__name__ + '.' + wanted in names, wanted\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

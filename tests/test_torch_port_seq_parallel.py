@@ -26,8 +26,10 @@ import torch
 import torch.distributed as dist
 
 from uncertainty_vit_tpu_torch.core.config import ViTConfig as TViTConfig
+from uncertainty_vit_tpu_torch.models import layers as TL
 from uncertainty_vit_tpu_torch.models.vit import ViTBackbone, VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
+from uncertainty_vit_tpu_torch.ops import quant as TQ
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train import engine_finetune as TE
 from uncertainty_vit_tpu_torch.train import optim as TO
@@ -55,6 +57,10 @@ VARIANTS = [
     ("layer_weights", dict(learn_layer_weights=True)),
 ]
 HP = dict(num_classes=5, mixup_active=False, label_smoothing=0.1)
+# The int8 trunk's token cap during the cap case: the global trunk of the
+# batch (4 images x 5 tokens = 20 rows) lies above it, each rank's rows (3 and
+# 2 tokens: 12 and 8) within [8, cap], where ``quant.supported`` admits them.
+INT8_CAP = 12
 LR, WD, LAYER_DECAY = 1e-3, 0.05, 0.75
 
 
@@ -138,6 +144,28 @@ def _port_runs(cfg_kw, state, images, labels, group=None):
             "grads": {k: p.grad.numpy().copy() for k, p in model.named_parameters()}}
 
 
+def _int8_layers(state, images, group=None, cap=None):
+    """(int8 matmuls, eval logits) of one forward of MODEL with the int8
+    trunk, sharded under ``group``; with ``cap`` the trunk's token limit
+    lowered to it. Counts the calls of int8_dense's plain version."""
+    calls = []
+    plain, prev_cap = TQ.qmm_plain, TQ._MAX_M_INT32_ACC
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[0])
+        return plain(*args, **kwargs)
+
+    TQ.qmm_plain = counted
+    TQ._MAX_M_INT32_ACC = prev_cap if cap is None else cap
+    try:
+        model = _port_model(dict(MODEL, quant="int8"), state, group).eval()
+        with torch.no_grad():
+            logits = model(torch.from_numpy(images)).numpy()
+    finally:
+        TQ.qmm_plain, TQ._MAX_M_INT32_ACC = plain, prev_cap
+    return len(calls), logits
+
+
 def _sharded_attention(group, n, qkv, bias, qvb, g):
     """This rank's out, dqkv and dbias rows and its share of dqvb."""
     start, stop = group.rows(n)
@@ -164,6 +192,8 @@ def _rank_cases(group, data):
     g2 = groups[2]
     images, labels = data["batch"]
     out["jax_model"] = _port_runs(MODEL, data["jax_state"], images, labels, g2)
+    out["int8"] = {cap: _int8_layers(data["jax_state"], images, g2, cap)
+                   for cap in (None, INT8_CAP)}
     for name, overrides in VARIANTS:
         out[name] = _port_runs(dict(MODEL, **overrides), data["variant_states"][name], images,
                                labels, g2)
@@ -347,3 +377,44 @@ def test_sharded_attention_dropout_raises_in_training(sharded):
     with torch.no_grad():
         want = ref(torch.from_numpy(data["batch"][0])).numpy()
     np.testing.assert_allclose(results[0]["attn_drop_eval"], want, rtol=FWD_RTOL, atol=FWD_ATOL)
+
+
+# (batch, whether the reference's trunk of ViT-L/16 512 is int8): B·1025 rows
+# against the cap of 131,072
+F3_CASES = [(64, True), (128, False), (256, False)]
+
+
+@pytest.mark.parametrize("batch,want", F3_CASES)
+def test_int8_decision_under_a_seq_group_is_the_global_trunks(batch, want):
+    """ViT-L/16 512 (N = 1025, width 1024, MLP 4096) with S = 2: each rank
+    decides every dense layer as the JAX rule decides on the global [B·N, C]
+    trunk (``ops/quant.py:supported`` of the JAX package), though its own
+    rows (513 and 512 per image) alone would fall under the cap at B = 128
+    and, on rank 1 only, at B = 256."""
+    from uncertainty_vit_tpu.ops import quant as JQ
+
+    n, c, hidden = 1025, 1024, 4096
+    layers = [(c, 3 * c), (c, c), (c, hidden), (hidden, c)]  # qkv, proj, fc1, fc2: (K, N)
+    for rank in range(2):
+        shard = seq.SeqGroup(rank, 2).shard(n)
+        for k, features in layers:
+            x = torch.empty(batch, shard.stop - shard.start, k, device="meta")
+            got = TL._use_quant("int8", x, features, shard)
+            assert got == JQ.supported(batch * n, k, features) == want, (rank, k, features)
+
+
+def test_sharded_int8_trunk_runs_the_unsharded_layers(sharded):
+    """The two-rank int8 model runs in int8 exactly the layers the unsharded
+    port runs: all 8 (qkv, proj, fc1, fc2 of 2 blocks) at the real cap, none
+    with the cap lowered below the global trunk's 20 rows though each rank's
+    rows fit under it. The logits of both ranks are equal and match the
+    unsharded int8 model's."""
+    data, _, results = sharded
+    images, _ = data["batch"]
+    for cap, layers in ((None, 2 * 4), (INT8_CAP, 0)):
+        want_calls, want = _int8_layers(data["jax_state"], images, cap=cap)
+        assert want_calls == layers, cap
+        got = [r["int8"][cap] for r in results[:2]]
+        assert [g[0] for g in got] == [layers, layers], cap
+        assert np.array_equal(got[0][1], got[1][1]), cap
+        np.testing.assert_allclose(got[0][1], want, rtol=FWD_RTOL, atol=FWD_ATOL, err_msg=str(cap))

@@ -8,13 +8,23 @@ CUDA kernel written for Hopper (sm_90a) under ``csrc/``, built with nvcc at
 first use. On CPU tensors every kernel wrapper runs its plain PyTorch
 version.
 
-Ported so far (the deterministic evaluation path):
-    core/    ViTConfig and presets; initializers on torch.Generators
-    ops/     rel-pos index, plain attention, the fused attention forward
-             (kernel K1), image normalization
-    models/  ViT layers and the VisionTransformer with the linear head
-    utils/   JAX param tree -> port state_dict
-    evals/   calibration metrics, logit collection, evaluate()
+Ported so far (ROADMAP.md has the slices):
+    core/      ViTConfig and presets; initializers on torch.Generators; the
+               default device (the card)
+    ops/       rel-pos index, plain attention, the attention kernels K1-K5,
+               the int8 matmuls K6 / K7, the fused dropout K8, Philox bits,
+               mixup, losses, the eval transform
+    models/    ViT layers, the VisionTransformer with the linear head, the
+               registry's finetune family
+    parallel/  sequence parallelism over torch.distributed
+    train/     the finetune train step, AdamW with layer decay, schedules, EMA
+    evals/     calibration metrics, logit collection, evaluate(), MC-dropout
+               and ensembles
+    data/      datasets, their registry, the batch loader, device prefetch
+    utils/     JAX params and reference .pth files -> port state_dict; the
+               native host IO library
+    cli/       the finetune driver's evaluation (python -m
+               uncertainty_vit_tpu_torch.cli.finetune --eval ...)
 
 This package imports torch and never jax.
 """

@@ -1,0 +1,306 @@
+"""Supervised finetune / evaluation driver: counterpart of
+uncertainty_vit_tpu/cli/finetune.py, which replaces the reference's
+run_class_finetuning.py.
+
+    python -m uncertainty_vit_tpu_torch.cli.finetune --eval \
+        [--mc_dropout | --ensembles --ensemble_checkpoints A.pth B.pth] \
+        --finetune CKPT.pth --data_set CIFAR100 --data_path DIR ...
+
+Ported: the evaluation from images (``--eval``): the split's loader, uint8
+batches onto the device, the eval resize and crop there, then plain
+evaluation, ``--mc_dropout`` or ``--ensembles`` (run_class_finetuning.py:
+638-677), printing the JAX driver's JSON dict. ``main`` takes ``device``
+(the card by default; the tests pass "cpu"); the JAX driver has no such
+flag, and neither has this one.
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
+that ports it: training (no ``--eval``) and ``--seq_parallel`` (slice 7b),
+``--corrupted_data`` / ``--perturbed_data``, ``--laplace``,
+``--temp_scaling`` and ``--visualize_embedding`` (slice 8), ``--stochastic``
+(slice 11), the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, and a
+``--finetune`` or ensemble member that is not a ``.pth``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, Dict, List
+
+import torch
+
+from uncertainty_vit_tpu_torch.cli import builders as B
+from uncertainty_vit_tpu_torch.cli.common import setup
+from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
+from uncertainty_vit_tpu_torch.data.pipeline import device_prefetch
+from uncertainty_vit_tpu_torch.evals import classification as E
+from uncertainty_vit_tpu_torch.evals.collect import per_call_generator
+from uncertainty_vit_tpu_torch.evals.ensembles import stack_params
+from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
+from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+from uncertainty_vit_tpu_torch.ops.augment import (
+    IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD,
+    eval_transform_batch, normalize, to_float,
+)
+from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+# eval dispatches still to port: flag → (what, where the ROADMAP ports it)
+NOT_PORTED_EVALS = {
+    "corrupted_data": ("the corruption benchmark (-C)", "item 16, slice 8"),
+    "perturbed_data": ("the perturbation benchmark (-P)", "item 16, slice 8"),
+    "laplace": ("the last-layer Laplace posterior", "item 16, slice 8"),
+    "temp_scaling": ("temperature scaling", "item 16, slice 8"),
+}
+
+
+def get_args_parser():
+    p = argparse.ArgumentParser("finetuning / evaluation", add_help=True)
+    B.add_model_args(p)
+    B.add_opt_args(p, lr=4e-3)
+    B.add_data_args(p)
+    B.add_io_args(p)
+    g = p.add_argument_group("finetune")
+    g.add_argument("--nb_classes", type=int, default=0, help="0 = infer from dataset")
+    g.add_argument("--seq_parallel", type=int, default=1,
+                   help="context-parallel factor: split the tokens of each "
+                        "image over that many ranks (384/512 scaling); not "
+                        "ported to this driver yet (slice 7b)")
+    g.add_argument("--mixup", type=float, default=0.8)
+    g.add_argument("--cutmix", type=float, default=1.0)
+    g.add_argument("--mixup_prob", type=float, default=1.0)
+    g.add_argument("--mixup_switch_prob", type=float, default=0.5)
+    g.add_argument("--smoothing", type=float, default=0.1)
+    g.add_argument("--model_ema", action="store_true")
+    g.add_argument("--model_ema_decay", type=float, default=0.9999)
+    g.add_argument("--masked_position_prob", type=float, default=0.0)
+    g.add_argument("--target_layer", type=int, default=-1,
+                   help="truncate blocks to [:N+1] (run_class_finetuning.py:520-522)")
+    g.add_argument("--remove_final_norm", action="store_true")
+    g.add_argument("--disable_eval_during_finetuning", action="store_true")
+    g.add_argument("--dual_finetune", action="store_true",
+                   help="keep the checkpoint head/norms verbatim on import "
+                        "(run_class_finetuning.py:408-418 skips the "
+                        "shape-mismatch head drop)")
+    g.add_argument("--reinit_final_norm", action="store_true",
+                   help="drop norm/fc_norm from the imported checkpoint "
+                        "(run_class_finetuning.py:413-417)")
+    g.add_argument("--laplace", action="store_true",
+                   help="last-layer KFAC Laplace on the linear head, fit on "
+                        "the train split with marginal-likelihood prior "
+                        "tuning (the reference's intended dispatch, "
+                        "run_class_finetuning.py:651-656, is dead there — "
+                        "its laplace import is commented out at :40; this "
+                        "is a native implementation, evals/laplace.py)")
+    g.add_argument("--laplace_link", choices=["probit", "mc"], default="probit",
+                   help="Laplace predictive link approximation")
+    g.add_argument("--temp_scaling", action="store_true",
+                   help="post-hoc temperature scaling (Guo et al. 2017) — a "
+                        "calibration baseline the reference's metric suite "
+                        "measures against but never provides "
+                        "(evals/calibration.py)")
+    g.add_argument("--temp_scaling_split", choices=["eval", "train", "heldout"],
+                   default="eval",
+                   help="where to fit T*: 'eval' fits the one scalar on the "
+                        "reported split (standard when no held-out "
+                        "calibration set exists; negligible leak), 'heldout' "
+                        "carves --temp_scaling_heldout_frac of eval for the "
+                        "fit and reports on the remainder (Guo et al. "
+                        "protocol, leak-free), 'train' matches the Laplace "
+                        "protocol (sound only for underfit models — "
+                        "near-zero train NLL gives T*~1)")
+    g.add_argument("--temp_scaling_heldout_frac", type=float, default=0.1,
+                   help="fraction of the eval split carved out as the T* fit "
+                        "set under --temp_scaling_split heldout")
+    g.add_argument("--lambda_finetuning", type=float, default=1e-4)
+    g.add_argument("--lambda_pvn", type=float, default=1e-4)
+    e = p.add_argument_group("evaluation")
+    e.add_argument("--eval", action="store_true")
+    e.add_argument("--mc_dropout", action="store_true")
+    e.add_argument("--mc_dropout_forwards", type=int, default=8)
+    e.add_argument("--mc_dropout_split_at", type=int, default=0,
+                   help="share blocks [0, s) across the K samples (one "
+                        "deterministic trunk pass). EXACT MC-dropout when "
+                        "--dropout_from_block >= s; otherwise a documented "
+                        "last-layers approximation. Meets the K=8 <= 4x "
+                        "cost target at s >= 8 (depth 12)")
+    e.add_argument("--visualize_embedding", action="store_true",
+                   help="dump val-set pooled features as TensorBoard-"
+                        "projector TSVs + a PCA scatter, then exit "
+                        "(run_class_finetuning.py:634-637)")
+    e.add_argument("--ensembles", action="store_true")
+    e.add_argument("--ensemble_checkpoints", type=str, nargs="*", default=[])
+    e.add_argument("--corrupted_data", action="store_true")
+    e.add_argument("--perturbed_data", action="store_true")
+    e.add_argument("--corruption_data_path", type=str, default=None)
+    e.add_argument("--perturbation_data_path", type=str, default=None)
+    e.add_argument("--wnids_path", type=str, default=None,
+                   help="wnids.txt for TinyImageNet-C class ids (defaults: "
+                        "corruption root, then a sibling clean TinyImageNet dir)")
+    return p
+
+
+def build_model(args, nb_classes: int, device=None):
+    """(model, config) of the flags, its parameters drawn from a generator
+    seeded with ``--seed`` on ``device`` (the card by default)."""
+    cfg = B.model_config_from_args(args, nb_classes)
+    if getattr(args, "masked_position_prob", 0.0) > 0:
+        raise B.not_ported("masked_position_prob", "token masking", "item 13, slice 7b")
+    if getattr(args, "target_layer", -1) != -1 and not args.learn_layer_weights:
+        cfg = cfg.replace(depth=args.target_layer + 1)
+    if getattr(args, "remove_final_norm", False):
+        cfg = cfg.replace(remove_final_norm=True)
+    if getattr(args, "seq_parallel", 1) > 1:
+        raise B.not_ported("seq_parallel", "the sequence-parallel driver "
+                           "(parallel/seq.py:run_ranks)", "slice 7b")
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen), cfg
+
+
+def _eval_prep(images_u8, args, device: torch.device) -> torch.Tensor:
+    """One uint8 batch on ``device``, through the eval transform: resize and
+    centre crop when its size is not --input_size, else normalize only."""
+    x = torch.as_tensor(images_u8).to(device)
+    crop_pct = args.crop_pct or (224 / 256 if args.input_size < 384 else 1.0)
+    if x.shape[1] != args.input_size:
+        return eval_transform_batch(x, args.input_size, crop_pct,
+                                    args.imagenet_default_mean_and_std)
+    mean = IMAGENET_DEFAULT_MEAN if args.imagenet_default_mean_and_std else IMAGENET_INCEPTION_MEAN
+    std = IMAGENET_DEFAULT_STD if args.imagenet_default_mean_and_std else IMAGENET_INCEPTION_STD
+    return normalize(to_float(x), mean, std)
+
+
+def _eval_batches(loader, args, device: torch.device):
+    """Yield (normalized images, labels) on ``device``, each batch copied
+    there ahead of its use (``device_prefetch``)."""
+    for batch in device_prefetch(loader, device):
+        yield _eval_prep(batch[0], args, device), batch[-1]
+
+
+def _require_pth(path: str, what: str) -> None:
+    if not path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{what} {path!r}: the port reads torch .pth checkpoints only; an orbax checkpoint "
+            "of the JAX package cannot be read, and the port's own checkpoints come with "
+            "save/resume in the next slice (ROADMAP.md slice 7b)")
+
+
+def load_variables(args, model: VisionTransformer) -> List[str]:
+    """Load --finetune into ``model`` (the surgery of run_class_finetuning.py:
+    400-540, ``utils.checkpoint.import_torch_state_dict``) after stripping
+    --model_prefix and, with --reinit_final_norm, dropping the final norms
+    (:413-417). Returns the model's keys the checkpoint did not fill."""
+    missing: List[str] = []
+    if args.finetune:
+        _require_pth(args.finetune, "--finetune")
+        sd = C.load_torch_state_dict(args.finetune)
+        prefix = getattr(args, "model_prefix", "")
+        if prefix:
+            sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+        if getattr(args, "reinit_final_norm", False):
+            sd = {k: v for k, v in sd.items()
+                  if k not in ("norm.weight", "norm.bias", "fc_norm.weight", "fc_norm.bias")}
+        state, missing, unused = C.import_torch_state_dict(
+            sd, model.state_dict(), keep_mismatched_head=getattr(args, "dual_finetune", False))
+        model.load_state_dict(state, strict=True)
+        print(f"imported {args.finetune}: {len(missing)} missing, {len(unused)} unused",
+              flush=True)
+    return missing
+
+
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _mc_eval_model(model: VisionTransformer) -> VisionTransformer:
+    """The eval model with stochastic depth off for MC-dropout: the
+    reference's enable_dropout turns only the dropouts on
+    (uncertainty_evaluations.py:35-39), so the evaluation must not inherit
+    the training --drop_path rate. Same weights, a second module."""
+    mc = VisionTransformer(model.cfg.replace(drop_path_rate=0.0), model.dtype,
+                           device=_device_of(model))
+    mc.load_state_dict(model.state_dict(), strict=True)
+    return mc
+
+
+def _load_ensemble_members(args, model: VisionTransformer) -> List[Dict[str, torch.Tensor]]:
+    """--ensemble_checkpoints → one state dict per member, each imported over
+    the model's state (replaces the reference's path templates,
+    engine_for_finetuning.py:234-242)."""
+    members = []
+    for path in args.ensemble_checkpoints:
+        _require_pth(path, "ensemble member")
+        state, _, _ = C.import_torch_state_dict(C.load_torch_state_dict(path), model.state_dict())
+        members.append(state)
+    return members
+
+
+def _mc_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor], torch.Tensor]:
+    """images → the MC-dropout mean logits, each call's masks from a fresh
+    generator of the stream --seed starts (the reference redraws the masks
+    on every forward, uncertainty_evaluations.py:479-534). For the -C / -P
+    dispatches of slice 8."""
+    mc = make_mc_dropout_mean_forward(_mc_eval_model(model), args.mc_dropout_forwards,
+                                      split_at=args.mc_dropout_split_at)
+    fresh = per_call_generator(args.seed, _device_of(model))
+    return lambda imgs: mc(imgs, fresh())
+
+
+def _default_eval_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The deterministic eval forward (the heteroscedastic head's per-call
+    draws are not ported and raise)."""
+    return E.make_eval_forward(model, het=args.het_layer)
+
+
+def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: int) -> Dict:
+    """--eval dispatch (run_class_finetuning.py:638-677): MC-dropout, the
+    ensemble or the plain evaluation; prints and returns the results."""
+    for flag, (what, where) in NOT_PORTED_EVALS.items():
+        if getattr(args, flag, False):
+            raise B.not_ported(flag, what, where)
+    device = _device_of(model)
+    batches = lambda: _eval_batches(val_loader, args, device)
+    results = {}
+    if args.mc_dropout:
+        results["mc_dropout"] = E.evaluate_mc_dropout(
+            _mc_eval_model(model), batches(), num_samples=args.mc_dropout_forwards,
+            split_at=args.mc_dropout_split_at,
+        )
+    elif args.ensembles:
+        results["ensembles"] = E.evaluate_ensemble(
+            model, stack_params(_load_ensemble_members(args, model)), batches())
+    else:
+        results["eval"] = E.evaluate(model, batches(), forward=_default_eval_forward(args, model),
+                                     het=args.het_layer)
+    print(json.dumps(results, indent=2, default=float), flush=True)
+    return results
+
+
+def main(args, device=None):
+    """Run the driver on ``device`` (the card unless the caller asks for the
+    CPU). Evaluation only: returns the results dict."""
+    # bounded-scores attention by default: finetuning starts from a trained
+    # backbone (cli/common.py)
+    setup(bounded_scores_default=True)
+    B.validate_aug_args(args)
+    if args.visualize_embedding:
+        raise B.not_ported("visualize_embedding", "the embedding dump (utils/embeddings.py)",
+                           "item 16, slice 8")
+    if not args.eval:
+        raise NotImplementedError("training (no --eval) is not ported yet: the train loop "
+                                  "comes with ROADMAP.md slice 7b")
+    if args.device != "cuda":
+        raise NotImplementedError(
+            f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
+            "main(args, device='cpu'), for tests")
+    device = resolve_device(device)
+    print(f"device: {device}", flush=True)
+    val_loader, nb_classes = B.build_loaders(args, is_train=False)
+    nb_classes = args.nb_classes or nb_classes
+    model, _ = build_model(args, nb_classes, device)
+    load_variables(args, model)
+    return run_eval_dispatch(args, model, val_loader, nb_classes)
+
+
+if __name__ == "__main__":
+    main(get_args_parser().parse_args())

@@ -107,16 +107,21 @@ def site_dropout(
     return fused_dropout(x.contiguous(), rate, seed)
 
 
-def _use_quant(quant: str, x: torch.Tensor, features: int) -> bool:
+def _use_quant(quant: str, x: torch.Tensor, features: int,
+               shard: Optional[seq.SeqShard] = None) -> bool:
     """Whether a dense layer of x's shape with ``features`` outputs is an
     int8 matmul: the flag, and the shapes ``quant.supported`` admits
     (``_use_quant`` of the reference's models/layers.py:51-63, which does not
     look at ``deterministic``: evaluation runs the int8 forward too). The
-    reference's backend test has no counterpart: ``ops.quant``'s wrappers
-    take the kernel or its plain version by the tensor's device."""
+    reference decides on its whole [B·N, C] trunk, so under a ``shard``
+    (x [B, rows, C] of n tokens) the token count is B·n, the same on every
+    rank, not this rank's rows. The reference's backend test has no
+    counterpart: ``ops.quant``'s wrappers take the kernel or its plain
+    version by the tensor's device."""
     if quant != "int8":
         return False
-    return quant_ops.supported(x.numel() // x.shape[-1], x.shape[-1], features)
+    m = x.numel() // x.shape[-1] if shard is None else x.shape[0] * shard.n
+    return quant_ops.supported(m, x.shape[-1], features)
 
 
 def _quant_seed(x: torch.Tensor, active: bool,
@@ -196,10 +201,11 @@ class _ScaledOutDense(_Params):
     :164-174); the fold stays an autograd node, so γ gets its gradient."""
 
     def __init__(self, in_features: int, out_features: int, weight_init: I.Init,
-                 quant: str = "none", *, device=None, generator=None):
+                 quant: str = "none", seq_shard: Optional[seq.SeqShard] = None, *,
+                 device=None, generator=None):
         super().__init__((out_features, in_features), weight_init, (out_features,),
                          device=device, generator=generator)
-        self.quant = quant
+        self.quant, self.seq_shard = quant, seq_shard
 
     def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -210,7 +216,7 @@ class _ScaledOutDense(_Params):
         if scale is not None:
             w = w * scale[:, None]
             b = b * scale
-        if _use_quant(self.quant, x, w.shape[0]):
+        if _use_quant(self.quant, x, w.shape[0], self.seq_shard):
             return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator))
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
@@ -234,10 +240,10 @@ class Mlp(nn.Module):
         device = resolve_device(device)
         tn = I.trunc_normal(init_std, init_trunc_abs)
         self.drop, self.dtype, self.seq_shard = drop, dtype, seq_shard
-        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, device=device,
+        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, seq_shard, device=device,
                                    generator=generator)
         self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id), quant,
-                                   device=device, generator=generator)
+                                   seq_shard, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -337,7 +343,7 @@ class Attention(nn.Module):
         else:
             self.relative_position_bias_table = None
         self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id), quant,
-                                    device=device, generator=generator)
+                                    seq_shard, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 out_scale: Optional[torch.Tensor] = None,
@@ -348,7 +354,7 @@ class Attention(nn.Module):
         qkv_bias = None
         if self.q_bias is not None:
             qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
-        if _use_quant(self.quant, x, self.qkv.weight.shape[0]):
+        if _use_quant(self.quant, x, self.qkv.weight.shape[0], self.seq_shard):
             qkv = quant_ops.int8_dense(x, self.qkv.weight, qkv_bias,
                                        _quant_seed(x, active, generator))
         else:

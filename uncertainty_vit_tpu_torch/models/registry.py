@@ -1,0 +1,75 @@
+"""timm-style model factory: counterpart of uncertainty_vit_tpu/models/
+registry.py (``create_model`` :43-81), over the reference's registry names
+(modeling_finetune.py:1221-1275, modeling_cyclical.py:282-363,
+modeling_pretrain.py:139-166).
+
+``create_model(name, family=...)`` returns (module, config). The
+``finetune`` family, the ``VisionTransformer`` with the linear head, is
+ported; the other families raise with the ROADMAP slice that ports them.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional, Tuple
+
+import torch
+
+from uncertainty_vit_tpu_torch.core.config import ViTConfig, get_preset
+from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+
+MODEL_NAMES = (
+    "beit_base_patch16_224", "beit_base_patch16_384",
+    "beit_large_patch16_224", "beit_large_patch16_384",
+    "beit_large_patch16_512", "beit_huge_patch16_224",
+    "beit_base_patch16_224_8k_vocab", "beit_large_patch16_224_8k_vocab",
+    "dist_beit_base_patch16_224",
+    "beit_base_joint_patch16_224",
+)
+
+# family → where the ROADMAP ports it
+_NOT_PORTED_FAMILIES = {
+    "dist": "the dist (mean+covariance) models: item 19, slice 11",
+    "cyclical": "the cyclical (data2vec) pretraining model: item 17, slice 9",
+    "mim": "the BEiT MIM model: item 18, slice 10",
+    "joint": "the joint MIM model: item 18, slice 10",
+}
+
+
+def _base_preset(name: str) -> ViTConfig:
+    m = re.search(r"beit_(base|large|huge)_(?:joint_)?patch16_(\d+)", name)
+    if not m:
+        raise ValueError(f"unknown model name: {name}")
+    return get_preset(f"beit_{m.group(1)}_patch16_{m.group(2)}")
+
+
+def create_model(
+    name: str,
+    family: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+    **overrides,
+) -> Tuple[VisionTransformer, ViTConfig]:
+    """(module, config) of a registry name. ``family`` defaults by name:
+    *_8k_vocab → mim, *_joint_* → joint, else finetune; dist_* names select
+    the mean+covariance model. ``device=None`` builds on the card."""
+    if family is None:
+        if name.endswith("_8k_vocab"):
+            family = "mim"
+        elif "_joint_" in name:
+            family = "joint"
+        else:
+            family = "finetune"
+    if family not in ("finetune", *_NOT_PORTED_FAMILIES):
+        raise ValueError(f"unknown family: {family}")
+    cfg = _base_preset(name)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    if name.startswith("dist_"):
+        family = "dist"
+    if family != "finetune":
+        raise NotImplementedError(f"{name} ({family}): {_NOT_PORTED_FAMILIES[family]} "
+                                  "is not ported yet (ROADMAP.md)")
+    return VisionTransformer(cfg, dtype, device=device, generator=generator), cfg

@@ -1,5 +1,5 @@
-"""JAX param tree → the port's state_dict, and a state_dict of one
-resolution → a model of another.
+"""JAX param tree → the port's state_dict, a state_dict of one resolution →
+a model of another, and the import of a reference ``.pth``.
 
 Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
@@ -10,14 +10,19 @@ loads with ``strict=True``.
 The cross-resolution surgery a 384 or 512 finetune starts from
 (``interpolate_pos_embed`` :215-231, ``interpolate_rel_pos_table`` :234-278,
 applied in ``import_torch_params`` :320-323) is ``resize_state_dict``:
-numpy in, numpy out for the two interpolations. Reading ``.pth`` files and
-the head-mismatch rules belong to the CLI.
+numpy in, numpy out for the two interpolations.
+
+``load_torch_state_dict`` (:76-87) reads a reference ``.pth``, and
+``import_torch_state_dict`` applies the rules of ``import_torch_params``
+(:281-342) to a model's state_dict under its own (torch) keys. Saving and
+resuming the port's own checkpoints is not ported yet (the JAX package
+writes orbax checkpoints, :30-73).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,14 +210,26 @@ def interpolate_rel_pos_table(table: np.ndarray, dst_num_pos: int) -> np.ndarray
     return np.concatenate([new_body, extra], axis=0)
 
 
+def resize_entry(key: str, array: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """One checkpoint entry carried to a model's ``shape`` at another
+    resolution: ``pos_embed`` and every ``relative_position_bias_table``
+    (the shared one or a per-block one) are interpolated when their shape
+    differs; anything else comes back as it was."""
+    if tuple(array.shape) == tuple(shape):
+        return array
+    if key == "pos_embed":
+        return interpolate_pos_embed(array, shape[1] - 1)
+    if key.endswith("relative_position_bias_table"):
+        return interpolate_rel_pos_table(array, shape[0])
+    return array
+
+
 def resize_state_dict(state_dict: Mapping[str, torch.Tensor], model: nn.Module
                       ) -> Dict[str, torch.Tensor]:
     """A port state_dict of one resolution → one that ``model`` (same widths,
-    another image size) loads strictly: ``pos_embed`` when present and every
-    ``relative_position_bias_table`` (the shared one or the per-block ones)
-    whose shape differs from the model's are interpolated; everything else
-    passes through. ``relative_position_index`` entries are dropped: the
-    model rebuilds its index buffers from its own window."""
+    another image size) loads strictly: each entry through ``resize_entry``.
+    ``relative_position_index`` entries are dropped: the model rebuilds its
+    index buffers from its own window."""
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for key, value in state_dict.items():
@@ -220,11 +237,81 @@ def resize_state_dict(state_dict: Mapping[str, torch.Tensor], model: nn.Module
             continue
         want = target.get(key)
         if want is not None and tuple(value.shape) != tuple(want.shape):
-            array = value.detach().cpu().numpy()
-            if key == "pos_embed":
-                array = interpolate_pos_embed(array, want.shape[1] - 1)
-            elif key.endswith("relative_position_bias_table"):
-                array = interpolate_rel_pos_table(array, want.shape[0])
+            array = resize_entry(key, value.detach().cpu().numpy(), tuple(want.shape))
             value = torch.from_numpy(np.ascontiguousarray(array)).to(value.device)
         out[key] = value
     return out
+
+
+SHARED_REL_POS_TABLE = "rel_pos_bias.relative_position_bias_table"
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` as {key: CPU tensor}, from its ``model`` or
+    ``module`` container when it has one (run_class_finetuning.py:400-406).
+    ``weights_only=False``, as the JAX package loads it: the reference's
+    files carry an argparse Namespace beside the weights, so load only files
+    you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("model", "module"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in ckpt.items()}
+
+
+def _numpy(value: Any) -> np.ndarray:
+    """A checkpoint entry as a numpy array (a bf16 tensor, which numpy has
+    no type for, as f32)."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    return np.asarray(value)
+
+
+def import_torch_state_dict(
+    state_dict: Mapping[str, Any],
+    template: Mapping[str, torch.Tensor],
+    keep_mismatched_head: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], List[str], List[str]]:
+    """Fill a model's state_dict (``template``) from a reference state_dict.
+
+    Returns (state, missing, unused): ``state`` loads into the model
+    strictly, with the template's entry where the checkpoint has none;
+    ``missing`` are the template's keys left so, ``unused`` the checkpoint's
+    keys nothing took. The rules of ``import_torch_params``:
+    ``relative_position_index`` entries are dropped; a per-block
+    ``relative_position_bias_table`` the checkpoint lacks is taken from its
+    shared table (run_class_finetuning.py:419-426); ``pos_embed`` and the
+    rel-pos tables are interpolated to the template's resolution
+    (``resize_entry``, as ``resize_state_dict`` does); any other
+    shape mismatch (a head of another class count) keeps the template's
+    entry (:409-412), unless ``keep_mismatched_head``
+    (``--dual_finetune``), which raises instead."""
+    sd = {k: v for k, v in state_dict.items() if "relative_position_index" not in k}
+    state: Dict[str, torch.Tensor] = {}
+    missing: List[str] = []
+    used = set()
+    for key, want in template.items():
+        source = key
+        if (source not in sd and key.startswith("blocks.")
+                and key.endswith("relative_position_bias_table")
+                and SHARED_REL_POS_TABLE in sd):
+            source = SHARED_REL_POS_TABLE
+        value = None
+        if source in sd:
+            used.add(source)
+            value = resize_entry(key, _numpy(sd[source]), tuple(want.shape))
+            if value.shape != tuple(want.shape):
+                if keep_mismatched_head:
+                    raise ValueError(f"--dual_finetune: checkpoint {source} shape {value.shape} "
+                                     f"!= model {tuple(want.shape)}")
+                value = None
+        if value is None:
+            missing.append(key)
+            state[key] = want
+        else:
+            state[key] = torch.as_tensor(np.ascontiguousarray(value), dtype=want.dtype
+                                         ).to(want.device)
+    return state, missing, [k for k in sd if k not in used]
