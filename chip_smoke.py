@@ -201,6 +201,26 @@ kernels from the sources in this checkout, then:
            plain version). Prints the --eval rate from images beside phase 2's forward, the
            card's busy share in one torch.profiler trace of the eval, and
            whether the native IO library was built.
+  phase 17 the finetune driver's training from images: cli.finetune.main
+           without --eval over CIFAR-100 pickles of 1280 train and 256 test
+           seeded 32x32 images, from a .pth of phase 16's ViT-B/16 224, at
+           batch 160, 2 epochs of 4 steps, layer decay 0.65, drop-path 0.1
+           and the driver's default train transform (random resized crop,
+           flip, RandAugment rand-m9-mstd0.5-inc1, erasing 0.25) and mixup /
+           cutmix / smoothing: K1 and K2 12 launches a step, K1 12 an eval
+           forward, no other kernel; finite losses; log.txt's two records
+           with test_acc1 and test_ece; checkpoint-0, -1 and -best.pth. The
+           driver's step 0 against the same run's step 0 on the plain
+           attention (phase 4's bounds). The train transform on the card
+           against the CPU's on the same draws (the crop within 1e-5; the
+           whole within its level-flip bounds, AUG_*). The same command with
+           --epochs 3 auto-resumes at epoch 2: its model and AdamW moments
+           equal checkpoint-1.pth's to the bit, its step is 8 and its first
+           lr the schedule's at update 8. An int8 epoch of 2 steps: K6 96 and
+           K7 48 a step. Prints the driver's train rate from images beside
+           phase 4's step-only rate, the transform's ms per batch (CUDA
+           events), each epoch's evaluation time, and the card's busy share
+           and idle time in a torch.profiler trace of two driver steps.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -277,6 +297,25 @@ FUSED_N = (197, 50, 256)
 # 512 presets' (both 1 mod 64: one valid row in the last q tile and one valid
 # column in the last k/v tile).
 BIG_N = (257, 577, 1025)
+# Phase 17: the train transform on the card against the CPU's, on the same
+# draws. The crop (on [0, 1]): the card forms a tap's position start + (i +
+# 0.5)·step − 0.5 with a fused multiply-add, the CPU does not, so the
+# position, and with it the fraction the cubic weights take, may differ by an
+# ulp of the position (2^-19 below 32, the CIFAR side); the interpolation's
+# slope is at most 1.25 over values in [0, 1], so each axis may move by
+# ~2.4e-6 and the two together by ~5e-6, plus the products' own rounding
+# (read on an H100: 7.3e-6). RandAugment casts to bf16 and reads 256-level
+# tables, so a value within that difference of a bf16 or level edge lands on
+# the other side: one bf16 ulp (2^-8, 0.0175 after normalizing) or the
+# neighbouring table entry, a step of the op's slope / 255 (0.033 after
+# normalizing for the enhance ops) and up to the whole range at the solarize
+# threshold or a posterize / equalize step. The edges lie >= 2^-9 apart and
+# the two crops ~1e-5 apart at most, so about 1e-4 of the elements may move
+# (read on an H100: 2.5e-4 beyond 1e-4, 7.5e-7 beyond two bf16 ulps);
+# several times that means another op.
+AUG_CROP_ATOL = 2e-5
+AUG_NEAR_ATOL, AUG_NEAR_SHARE = 1e-4, 2e-3
+AUG_FLIP_ATOL, AUG_FLIP_SHARE = 2 * 2.0**-8 / 0.224, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -953,7 +992,7 @@ def phase4(torch, FA, dev):
           "the attention-dropout step's loss disagrees with the plain versions'")
     check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
           "the attention-dropout step's grad norm disagrees with the plain versions'")
-    return launches, drop_launches
+    return launches, drop_launches, rates
 
 
 def phase5(torch, dev):
@@ -2811,16 +2850,54 @@ def reset_kernel_counts(FA, TQ, DO) -> None:
     TQ.qmm.launches = TQ.wgrad.launches = DO.fused_dropout.launches = 0
 
 
-def write_cifar100_test(root: str, images, labels) -> None:
-    """A cifar-100-python/test pickle of uint8 NHWC images (the (N, 3072)
+def write_cifar100(root: str, images, labels, split: str = "test") -> None:
+    """A cifar-100-python/{split} pickle of uint8 NHWC images (the (N, 3072)
     rows of the CIFAR layout)."""
     import pickle
 
     base = os.path.join(root, "cifar-100-python")
     os.makedirs(base, exist_ok=True)
-    with open(os.path.join(base, "test"), "wb") as f:
+    with open(os.path.join(base, split), "wb") as f:
         pickle.dump({b"data": images.transpose(0, 3, 1, 2).reshape(len(images), -1),
                      b"fine_labels": [int(v) for v in labels]}, f)
+
+
+def write_vitb_pth(torch, dev, cfg, path: str, seed: int) -> None:
+    """A .pth ({"model": state_dict}) of a seeded ViT-B/16 224 of config cfg:
+    the rel-pos table at std 0.2 and the head at 0.5, so that the bias is not
+    zero and the logits stand apart."""
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
+    trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+    trunc_normal(0.5, 2.0)(model.head.weight, gen)
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, path)
+
+
+def trace_summary(prof) -> tuple:
+    """(kernel and copy ms, the card's idle ms before its first kernel,
+    between kernels (the union of their intervals) and after its last,
+    the top 8 kernels by ms) of a torch.profiler trace."""
+    events = [e for e in prof.events() if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1000
+    by_kernel = {}
+    for e in events:
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    cpu = [e.time_range for e in prof.events() if e.device_type.name == "CPU"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    idle = {"before": 0.0, "between": 0.0, "after": 0.0}
+    if spans and cpu:
+        idle["before"] = (spans[0][0] - min(r.start for r in cpu)) / 1000
+        idle["after"] = (max(r.end for r in cpu) - max(e for _, e in spans)) / 1000
+        reach = spans[0][1]
+        for start, end in spans[1:]:
+            idle["between"] += max(start - reach, 0) / 1000
+            reach = max(reach, end)
+    return busy_ms, idle, {k: round(v / 1000, 3) for k, v in top}
 
 
 def phase16(torch, FA, dev, det_ms_per_128):
@@ -2836,7 +2913,6 @@ def phase16(torch, FA, dev, det_ms_per_128):
     from uncertainty_vit_tpu_torch.cli import builders as B
     from uncertainty_vit_tpu_torch.cli import finetune as FT
     from uncertainty_vit_tpu_torch.core.config import get_preset
-    from uncertainty_vit_tpu_torch.core.init import trunc_normal
     from uncertainty_vit_tpu_torch.evals import metrics as M
     from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
     from uncertainty_vit_tpu_torch.evals.collect import collect_logits
@@ -2859,13 +2935,6 @@ def phase16(torch, FA, dev, det_ms_per_128):
     cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
                      use_abs_pos_emb=False, init_values=0.1)
 
-    def write_pth(path, seed):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
-        trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
-        trunc_normal(0.5, 2.0)(model.head.weight, gen)
-        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, path)
-
     def held_metrics(got, logits, lab, what):
         """The driver's printed metrics against the same metrics of these
         logits on the CPU (evaluate() adds "loss", evaluate_ensemble() does
@@ -2883,11 +2952,11 @@ def phase16(torch, FA, dev, det_ms_per_128):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             full, small = os.path.join(tmp, "full"), os.path.join(tmp, "small")
-            write_cifar100_test(full, images, labels)
-            write_cifar100_test(small, images[:n_small], labels[:n_small])
+            write_cifar100(full, images, labels)
+            write_cifar100(small, images[:n_small], labels[:n_small])
             a, b = os.path.join(tmp, "a.pth"), os.path.join(tmp, "b.pth")
-            write_pth(a, 160)
-            write_pth(b, 161)
+            write_vitb_pth(torch, dev, cfg, a, 160)
+            write_vitb_pth(torch, dev, cfg, b, 161)
 
             def args_of(root, *extra):
                 return FT.get_args_parser().parse_args([
@@ -2970,26 +3039,7 @@ def phase16(torch, FA, dev, det_ms_per_128):
                 FT.run_eval_dispatch(args, model, loader, 100)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1000
-            events = [e for e in prof.events()
-                      if e.device_type.name == "CUDA" and not e.is_user_annotation]
-            busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1000
-            by_kernel = {}
-            for e in events:
-                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
-                by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us()
-            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-            # where the card idles: before its first kernel, between its
-            # first and last (the union of kernel intervals), after its last
-            cpu = [e.time_range for e in prof.events() if e.device_type.name == "CPU"]
-            spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-            idle = {"before": 0.0, "between": 0.0, "after": 0.0}
-            if spans and cpu:
-                idle["before"] = (spans[0][0] - min(r.start for r in cpu)) / 1000
-                idle["after"] = (max(r.end for r in cpu) - max(e for _, e in spans)) / 1000
-                reach = spans[0][1]
-                for start, end in spans[1:]:
-                    idle["between"] += max(start - reach, 0) / 1000
-                    reach = max(reach, end)
+            busy_ms, idle, top = trace_summary(prof)
             print(f"  native IO library available: {native.available()}"
                   + ("" if native.available() else f" ({native.BUILD_ERROR}); the loader "
                      "stacks with numpy"), flush=True)
@@ -3002,8 +3052,8 @@ def phase16(torch, FA, dev, det_ms_per_128):
             print(f"  profiled run_eval_dispatch: wall {wall_ms:.2f} ms, CUDA kernel and copy "
                   f"time {busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}; the card idle "
                   f"(ms) {json.dumps({k: round(v, 2) for k, v in idle.items()})} its first "
-                  f"kernel, between, after its last; top kernels (ms): "
-                  + json.dumps({k: round(v / 1000, 3) for k, v in top}), flush=True)
+                  f"kernel, between, after its last; top kernels (ms): " + json.dumps(top),
+                  flush=True)
             del model, loader
 
             # --- --mc_dropout over 256 images: split at block 9, dropout from 9
@@ -3091,6 +3141,332 @@ def phase16(torch, FA, dev, det_ms_per_128):
     return paths
 
 
+def phase17(torch, FA, dev, step_rates):
+    """The finetune driver's training from images on the card:
+    cli.finetune.main without --eval from CIFAR-100 pickles and a ViT-B/16
+    224 .pth written here (two epochs, a resumed third, a first step on the
+    plain attention, an int8 epoch), and the train transform against the
+    CPU's. step_rates: phase 4's step-only img/s, for the rate beside."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.ops import augment as A
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops import randaugment as RA
+    from uncertainty_vit_tpu_torch.train.engine_finetune import step_generators
+
+    n_train, n_test, bs, depth, spe = 1280, 256, 160, 12, 4
+    eval_fwd = -(-n_test // bs)  # forwards per evaluation: 160 + 96
+    rs = np.random.RandomState(17)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+
+    # what the driver does, seen through its own entry points: each call of
+    # its train step (metrics, host clock, launches), each evaluation (ms,
+    # launches), the state auto_load restored; a profiler over chosen steps
+    steps, evals, resumed, profiled = [], [], [], {}
+    make_step, evaluate, auto_load = FT.make_finetune_train_step, FT.E.evaluate, FT.C.auto_load
+
+    def recording_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def recorded(state, *args):
+            if profiled.get("start") == state.step:
+                torch.cuda.synchronize()
+                profiled["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                profiled["prof"].start()
+                profiled["t"] = time.perf_counter()
+            if profiled.get("stop") == state.step:
+                torch.cuda.synchronize()
+                profiled["wall_ms"] = (time.perf_counter() - profiled["t"]) * 1000
+                profiled["prof"].stop()
+            # inside attention_on_plain the attention wrappers are plain
+            # functions, which count nothing
+            counted = hasattr(FA.fused_qkv_attention_bwd, "launches")
+            before = kernel_counts(FA, TQ, DO) if counted else None
+            t = time.perf_counter()
+            # one warm step (transform, mixup, forward, backward, AdamW)
+            # with any host synchronization an error
+            checked = profiled.get("sync_check") == state.step
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = step(state, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            profiled["sync_checked"] = profiled.get("sync_checked", False) or checked
+            after = kernel_counts(FA, TQ, DO) if counted else None
+            steps.append({"step": state.step - 1, "t": t, "metrics": m,
+                          "launches": counted and {k: after[k] - before[k] for k in after}})
+            return m
+
+        return recorded
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        before = kernel_counts(FA, TQ, DO)
+        t = time.perf_counter()
+        out = evaluate(*a, **k)
+        torch.cuda.synchronize()
+        after = kernel_counts(FA, TQ, DO)
+        evals.append({"t": t, "ms": (time.perf_counter() - t) * 1000,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    def recording_auto_load(output_dir, state):
+        state, epoch = auto_load(output_dir, state)
+        resumed.append({"epoch": epoch, "step": state.step,
+                        "model": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                        "optimizer": {i: {k: v.clone() for k, v in st.items()} for i, st in
+                                      state.optimizer.state_dict()["state"].items()}})
+        return state, epoch
+
+    def finite_metrics(records, what):
+        for r in records:
+            for k in ("loss", "grad_norm"):
+                check(math.isfinite(float(r["metrics"][k])),
+                      f"{what}: step {r['step']} {k} {float(r['metrics'][k])}")
+
+    bounded = FA.BOUNDED_SCORES
+    FT.make_finetune_train_step, FT.E.evaluate, FT.C.auto_load = (
+        recording_make_step, timed_evaluate, recording_auto_load)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+            pth = os.path.join(tmp, "vitb.pth")
+            write_vitb_pth(torch, dev, cfg, pth, 170)
+            out = os.path.join(tmp, "out")
+
+            def args_of(out_dir, *extra):
+                return FT.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                    "--num_workers", "8", "--finetune", pth, "--output_dir", out_dir,
+                    "--steps_per_epoch", str(spe), "--save_ckpt_freq", "1",
+                    "--layer_decay", "0.65", "--drop_path", "0.1", *extra])
+
+            # --- the main path: two epochs of 4 steps, each with its evaluation
+            args = args_of(out, "--epochs", "2")
+            profiled["sync_check"] = spe + 2
+            reset_kernel_counts(FA, TQ, DO)
+            t0 = time.perf_counter()
+            state = FT.main(args)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            paths = {"cli_train": kernel_counts(FA, TQ, DO)}
+            want = {k: 0 for k in paths["cli_train"]}
+            n_steps = 2 * spe
+            print(f"  train 2 epochs x {spe} steps at batch {bs}: launches {paths['cli_train']}",
+                  flush=True)
+            expect = dict(want, K1=depth * (n_steps + 2 * eval_fwd), K2=depth * n_steps)
+            check(paths["cli_train"] == expect,
+                  f"the train run launched {paths['cli_train']}, expected {expect}")
+            run1, eval1 = list(steps), list(evals)
+            check(len(run1) == n_steps and state.step == n_steps,
+                  f"{len(run1)} step calls, state step {state.step}")
+            for r in run1:
+                check(r["launches"] == dict(want, K1=depth, K2=depth),
+                      f"step {r['step']} launched {r['launches']}")
+            for e in eval1:
+                check(e["launches"] == dict(want, K1=depth * eval_fwd),
+                      f"an evaluation launched {e['launches']}")
+            finite_metrics(run1, "train")
+            check(profiled.pop("sync_checked", False), "the step under sync debug mode did not run")
+            print(f"  step {profiled.pop('sync_check')} ran with torch.cuda.set_sync_debug_mode("
+                  f"'error'): no host synchronization inside the driver's step", flush=True)
+            with open(os.path.join(out, "log.txt")) as f:
+                log = [json.loads(line) for line in f]
+            check([r["epoch"] for r in log] == [0, 1]
+                  and all("test_acc1" in r and "test_ece" in r and math.isfinite(r["train_loss"])
+                          for r in log), f"log.txt: {log}")
+            for name in ("checkpoint-0.pth", "checkpoint-1.pth", "checkpoint-best.pth"):
+                check(os.path.isfile(os.path.join(out, name)), f"{name} was not written")
+            print("  losses " + ", ".join(f"{float(r['metrics']['loss']):.4f}" for r in run1)
+                  + "; lr " + ", ".join(f"{r['metrics']['lr']:.3e}" for r in run1)
+                  + f"; log.txt test_acc1 {[r['test_acc1'] for r in log]}, test_ece "
+                  f"{[round(r['test_ece'], 4) for r in log]}", flush=True)
+            del state
+            # the rate: the host clock from an epoch's first step call to the
+            # end of its last step (the card synchronized before its evaluation)
+            rates = [spe * bs / (eval1[e]["t"] - run1[e * spe]["t"]) for e in range(2)]
+            print(f"  driver train rate from images (information only; host clock over an "
+                  f"epoch's {spe} steps, evaluation apart): {rates} img/s (epoch 0 includes the "
+                  f"first call's warm-up); phase 4's step-only rate in this call: "
+                  f"kernel {step_rates['kernel']}, plain attention {step_rates['plain']} img/s; "
+                  f"each epoch's evaluation of {n_test} images {[round(e['ms'], 2) for e in eval1]}"
+                  f" ms; main() with model build, .pth import and checkpoints {main_s:.2f} s",
+                  flush=True)
+
+            # --- the first step on the plain attention: the same flags, so the
+            # same state, first batch and per-step generators
+            steps.clear()
+            reset_kernel_counts(FA, TQ, DO)
+            with attention_on_plain(torch, FA):
+                FT.main(args_of(os.path.join(tmp, "plain"), "--epochs", "1", "--steps_per_epoch",
+                                "1", "--disable_eval_during_finetuning", "--no_save_ckpt",
+                                "--no_auto_resume"))
+            torch.cuda.synchronize()
+            check(kernel_counts(FA, TQ, DO) == want, "the plain-attention run launched a kernel")
+            m_k, m_p = run1[0]["metrics"], steps[0]["metrics"]
+            loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+            gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+            print(f"  driver's step 0, kernels vs plain attention: loss {loss_k:.6f} / "
+                  f"{loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+            check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+                  "the driver's first loss disagrees with the plain attention's")
+            check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+                  "the driver's first grad norm disagrees with the plain attention's")
+
+            # --- the train transform on the card against the CPU's, on the
+            # driver's first batch with the draws of its step 0
+            loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True)
+            loader.set_epoch(0)
+            first = next(iter(loader))[0]
+            aa = FT._aa_kwargs(args)
+            flags = dict(color_jitter_strength=args.color_jitter, reprob=args.reprob,
+                         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
+                         interpolation=B.interp_method(args.train_interpolation),
+                         re_mode=args.remode, re_count=args.recount, **aa)
+            draw_flags = {k: flags[k] for k in ("color_jitter_strength", "reprob",
+                                                "auto_augment", "re_mode", "re_count")}
+            draws = A.draw_finetune_train_augment(step_generators(args.seed, 0, dev).augment, bs,
+                                                  224, **draw_flags)
+            u8 = torch.from_numpy(first).to(dev)
+            on_card = A.finetune_train_augment_batch(draws, u8, 224, **flags).cpu()
+            cpu_draws = draws.to("cpu")
+            on_cpu = A.finetune_train_augment_batch(cpu_draws, torch.from_numpy(first), 224, **flags)
+
+            def crop(d, x):
+                return A.random_hflip_batch(d.flip_u, A.random_resized_crop_batch(
+                    d.rrc, A.to_planar(x), 224, method=flags["interpolation"]))
+
+            planar = crop(draws, u8)
+            crop_diff = (planar.cpu() - crop(cpu_draws, torch.from_numpy(first))).abs().max().item()
+            diff = (on_card - on_cpu).abs()
+            near = (diff > AUG_NEAR_ATOL).float().mean().item()
+            flips = (diff > AUG_FLIP_ATOL).float().mean().item()
+            print(f"  train transform {tuple(first.shape)} -> {tuple(on_card.shape)}, card vs CPU "
+                  f"on the same draws: crop and flip max|diff| {crop_diff:.3e} (bound "
+                  f"{AUG_CROP_ATOL}); whole transform max|diff| {diff.max().item():.3e}, share "
+                  f"beyond {AUG_NEAR_ATOL} {near:.2e} (bound {AUG_NEAR_SHARE}), beyond two bf16 "
+                  f"ulps {AUG_FLIP_ATOL:.4f} {flips:.2e} (bound {AUG_FLIP_SHARE})", flush=True)
+            check(tuple(on_card.shape) == (bs, 224, 224, 3) and bool(torch.isfinite(on_card).all()),
+                  "the train transform's output")
+            check(crop_diff <= AUG_CROP_ATOL, "the crop on the card disagrees with the CPU's")
+            check(near <= AUG_NEAR_SHARE and flips <= AUG_FLIP_SHARE,
+                  "the train transform on the card disagrees with the CPU's")
+            # its time at the driver's batch: draws and transform, and its parts
+            aug_fn = A.make_finetune_train_augment(224, **flags)
+            g = torch.Generator(device=dev).manual_seed(5)
+            times = {
+                "aug_fn": cuda_ms(lambda: aug_fn(g, u8), 10),
+                "draws": cuda_ms(lambda: A.draw_finetune_train_augment(g, bs, 224, **draw_flags),
+                                 10),
+                "crop_flip": cuda_ms(lambda: crop(draws, u8), 10),
+                "rand_augment": cuda_ms(lambda: RA.rand_augment_batch(
+                    draws.rand_augment, planar, magnitude=aa["aa_magnitude"],
+                    magnitude_std=aa["aa_magnitude_std"]), 10),
+                "erasing": cuda_ms(lambda: A.random_erasing_batch(
+                    draws.erasing, planar, prob=args.reprob, mode=args.remode,
+                    count=args.recount), 10),
+            }
+            print(f"  train transform ms per batch of {bs} (CUDA events, information only): "
+                  + json.dumps({k: round(v, 3) for k, v in times.items()}), flush=True)
+            del planar, on_card, on_cpu, draws, cpu_draws
+
+            # --- --epochs 3 on the same directory: auto-resumes at epoch 2 from
+            # checkpoint-1.pth; steps 9 and 10 profiled
+            steps.clear()
+            evals.clear()
+            resumed.clear()  # run 1's auto_load found nothing
+            profiled.update(start=2 * spe + 1, stop=2 * spe + 3)
+            args3 = args_of(out, "--epochs", "3")
+            reset_kernel_counts(FA, TQ, DO)
+            state = FT.main(args3)
+            torch.cuda.synchronize()
+            paths["cli_train_resume"] = kernel_counts(FA, TQ, DO)
+            expect = dict(want, K1=depth * (spe + eval_fwd), K2=depth * spe)
+            check(paths["cli_train_resume"] == expect,
+                  f"the resumed run launched {paths['cli_train_resume']}, expected {expect}")
+            check(len(resumed) == 1 and resumed[0]["epoch"] == 2 and resumed[0]["step"] == n_steps,
+                  f"auto-resume: {[(r['epoch'], r['step']) for r in resumed]}")
+            blob = torch.load(os.path.join(out, "checkpoint-1.pth"), map_location=dev,
+                              weights_only=False)
+            check(blob["step"] == n_steps and blob["epoch"] == 1, "checkpoint-1.pth's step, epoch")
+            got = resumed[0]
+            check(got["model"].keys() == blob["model"].keys()
+                  and all(torch.equal(got["model"][k], v) for k, v in blob["model"].items()),
+                  "the resumed model is not checkpoint-1.pth's")
+            saved = blob["optimizer"]["state"]
+            check(got["optimizer"].keys() == saved.keys()
+                  and all(torch.equal(got["optimizer"][i][k], v.to(got["optimizer"][i][k].device))
+                          for i, st in saved.items() for k, v in st.items()),
+                  "the resumed AdamW moments are not checkpoint-1.pth's")
+            lr3, _, _ = B.build_lr_schedules(args3, spe)
+            check(steps[0]["step"] == n_steps and steps[0]["metrics"]["lr"] == lr3(n_steps),
+                  f"the resumed run's first step {steps[0]['step']} lr {steps[0]['metrics']['lr']}"
+                  f", the schedule's at update {n_steps} {lr3(n_steps)}")
+            n_opt = sum(len(st) for st in saved.values())
+            print(f"  --epochs 3 resumed at epoch {got['epoch']}, step {got['step']}: "
+                  f"{len(got['model'])} model tensors and {n_opt} AdamW tensors equal to "
+                  f"checkpoint-1.pth's, first lr {steps[0]['metrics']['lr']:.6e} = the schedule's "
+                  f"at update {n_steps}; launches {paths['cli_train_resume']}", flush=True)
+            finite_metrics(steps, "resumed")
+            with open(os.path.join(out, "log.txt")) as f:
+                check([json.loads(line)["epoch"] for line in f] == [0, 1, 2], "log.txt epochs")
+            del state, blob, got
+            prof = profiled.pop("prof")
+            busy_ms, idle, top = trace_summary(prof)
+            wall_ms = profiled["wall_ms"]
+            rate3 = spe * bs / (evals[0]["t"] - steps[0]["t"])
+            print(f"  profiled driver steps {profiled['start']} and {profiled['start'] + 1} (the "
+                  f"card synchronized at both ends, the loader, transform, readback and host "
+                  f"between): wall {wall_ms:.2f} ms, CUDA kernel and copy time {busy_ms:.2f} ms, "
+                  f"busy share {busy_ms / wall_ms:.3f}; the card idle (ms) "
+                  f"{json.dumps({k: round(v, 2) for k, v in idle.items()})} before its first "
+                  f"kernel, between, after its last; top kernels (ms): {json.dumps(top)}; this "
+                  f"epoch's rate with the profiler on {rate3:.1f} img/s, without it (epoch 1 "
+                  f"above) {rates[1]:.1f}: the trace's device time a step against the unprofiled "
+                  f"step, {busy_ms / 2:.2f} / {bs * 1000 / rates[1]:.2f} ms = "
+                  f"{busy_ms / 2 * rates[1] / (bs * 1000):.3f}", flush=True)
+
+            # --- --quant int8: one epoch of 2 steps and its evaluation
+            steps.clear()
+            evals.clear()
+            reset_kernel_counts(FA, TQ, DO)
+            state = FT.main(args_of(os.path.join(tmp, "int8"), "--quant", "int8", "--epochs", "1",
+                                    "--steps_per_epoch", "2", "--no_save_ckpt",
+                                    "--no_auto_resume"))
+            torch.cuda.synchronize()
+            paths["cli_train_int8"] = kernel_counts(FA, TQ, DO)
+            print(f"  --quant int8, 2 steps: launches {paths['cli_train_int8']}; losses "
+                  + ", ".join(f"{float(r['metrics']['loss']):.4f}" for r in steps), flush=True)
+            for r in steps:
+                check(r["launches"] == dict(want, K1=depth, K2=depth, K6=8 * depth, K7=4 * depth),
+                      f"int8 step {r['step']} launched {r['launches']}")
+            expect = dict(want, K1=depth * (2 + eval_fwd), K2=depth * 2,
+                          K6=8 * depth * 2 + 4 * depth * eval_fwd, K7=4 * depth * 2)
+            check(len(steps) == 2 and paths["cli_train_int8"] == expect,
+                  f"the int8 run launched {paths['cli_train_int8']}, expected {expect}")
+            finite_metrics(steps, "int8")
+            del state
+    finally:
+        FT.make_finetune_train_step, FT.E.evaluate, FT.C.auto_load = make_step, evaluate, auto_load
+        if "prof" in profiled:
+            profiled.pop("prof").stop()
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3127,7 +3503,8 @@ def main() -> int:
     eval_launches, det_ms = run(2, "ViT-B/16 224 evaluate()", phase2, torch, FA, dev)
     res[3] = run(3, "K2 against its plain version, without and with the mask replay",
                  phase3, torch, FA, dev)
-    train, train_drop = run(4, "ViT-B/16 224 finetune train steps", phase4, torch, FA, dev)
+    train, train_drop, step_rates = run(4, "ViT-B/16 224 finetune train steps", phase4, torch,
+                                        FA, dev)
     res[5] = run(5, "K8 against its plain version", phase5, torch, dev)
     res[6] = run(6, "ViT-B/16 224 evaluate_mc_dropout()", phase6, torch, FA, dev, det_ms)
     check(FA.fused_qkv_attention.stream_launches == 0
@@ -3151,6 +3528,9 @@ def main() -> int:
     del init_512
     cli = run(16, "the finetune driver from images: --eval, --mc_dropout, --ensembles, "
                   "--quant int8", phase16, torch, FA, dev, det_ms)
+    cli_train = run(17, "the finetune driver's training from images: two epochs, a resumed "
+                        "third, a step on the plain attention, an int8 epoch", phase17, torch, FA,
+                    dev, step_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -3163,16 +3543,20 @@ def main() -> int:
     # forward with attention dropout
     # and phase 12's int8 paths: evaluate() over 4 batches, 3 train steps
     # and phase 16's driver runs ("cli_"): --eval over 1024 images, and
-    # --mc_dropout, --ensembles and --quant int8 over 256
+    # --mc_dropout, --ensembles and --quant int8 over 256; and phase 17's
+    # ("cli_train"): two epochs of 4 steps and their evaluations, the third
+    # epoch resumed, and an int8 epoch of 2 steps
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
                 **{path: n["K1"] for path, n in int8.items()},
-                **{path: n["K1"] for path, n in cli.items()}}
+                **{path: n["K1"] for path, n in cli.items()},
+                **{path: n["K1"] for path, n in cli_train.items()}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
-                "int8_train_step": int8["int8_train_step"]["K2"]}
-    k6_paths = {path: n["K6"] for path, n in {**int8, **cli}.items() if n["K6"]}
-    k7_paths = {path: n["K7"] for path, n in int8.items() if n["K7"]}
+                "int8_train_step": int8["int8_train_step"]["K2"],
+                **{path: n["K2"] for path, n in cli_train.items()}}
+    k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train}.items() if n["K6"]}
+    k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train}.items() if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in {**mc, **cli}.items() if n["K8"]}
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}

@@ -255,14 +255,20 @@ def test_unported_flags_raise(files, extra):
 
 
 def test_training_and_orbax_checkpoints_raise(files):
-    """Without --eval the driver would train (the next slice); a --finetune
-    that is not a .pth is an orbax checkpoint of the JAX package."""
+    """Without --eval the driver trains (tests/test_torch_port_cli_train.py):
+    a train flag of the next slice raises there, naming it. A --finetune or
+    --resume that is not a .pth is an orbax checkpoint of the JAX package."""
     argv = _argv(files)
     argv.remove("--eval")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
-        with pytest.raises(NotImplementedError, match="train loop"):
-            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu")
+        with pytest.raises(NotImplementedError, match="update_freq.*slice 7c"):
+            TFT.main(TFT.get_args_parser().parse_args(argv + ["--update_freq", "2"]),
+                     device="cpu")
+        with pytest.raises(NotImplementedError, match=r"--resume .*\.pth"):
+            TFT.main(TFT.get_args_parser().parse_args(
+                argv + ["--resume", files["root"] + "/checkpoint-3", "--epochs", "1"]),
+                device="cpu")
         argv = _argv(files)
         argv[argv.index("--finetune") + 1] = files["root"] + "/checkpoint-best"
         with pytest.raises(NotImplementedError, match=r"\.pth"):

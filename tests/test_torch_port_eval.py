@@ -157,7 +157,8 @@ def test_port_never_imports_jax():
         "               'models.vit', 'ops.augment', 'utils.checkpoint', 'ops.flash_attention',\n"
         "               'ops._native', 'ops.quant', 'train.engine_finetune', 'train.optim',\n"
         "               'cli.common', 'cli.builders', 'cli.finetune', 'data.datasets',\n"
-        "               'data.registry', 'data.pipeline', 'models.registry', 'utils.native'):\n"
+        "               'data.registry', 'data.pipeline', 'models.registry', 'utils.native',\n"
+        "               'ops.randaugment', 'utils.logging', 'train.schedules', 'train.ema'):\n"
         "    assert pkg.__name__ + '.' + wanted in names, wanted\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

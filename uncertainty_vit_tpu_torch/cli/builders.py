@@ -3,27 +3,29 @@
 Counterpart of uncertainty_vit_tpu/cli/builders.py: the argument groups
 (:25-213) with every flag name of the JAX package (which keeps the
 reference's names, run_class_finetuning.py:49-259), so that a recipe parses
-unchanged; ``model_config_from_args`` (:216-254), ``build_loaders``
-(:304-361), ``interp_method``, ``mixup_active``, ``validate_aug_args``,
-``compute_dtype`` and ``check_finite_or_die``.
+unchanged; ``model_config_from_args`` (:216-254), ``build_lr_schedules`` and
+``build_optimizer`` (:257-301), ``build_loaders`` (:304-361),
+``interp_method``, ``mixup_active``, ``validate_aug_args``, ``compute_dtype``
+and ``check_finite_or_die``.
 
 A parsed flag whose feature the port does not have yet raises
 ``NotImplementedError`` here with the ROADMAP item that ports it; none is
-ignored. The schedules and the optimizer (``build_lr_schedules``,
-``build_optimizer``) come with the train loop (ROADMAP.md slice 7b).
+ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from uncertainty_vit_tpu_torch.core.config import PRESETS, ViTConfig, get_preset
 from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader, host_shard
 from uncertainty_vit_tpu_torch.data.registry import build_dataset
+from uncertainty_vit_tpu_torch.train import schedules
+from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW, make_optimizer
 
 # flag → (what it turns on, where the ROADMAP ports it); a set flag raises
 NOT_PORTED_MODEL_FLAGS = {
@@ -252,6 +254,48 @@ def model_config_from_args(args, num_classes: int) -> ViTConfig:
         learn_layer_weights=args.learn_layer_weights,
         layernorm_before_combine=args.layernorm_before_combine,
         linear_classifier=args.linear_classifier,
+    )
+
+
+def build_lr_schedules(args, steps_per_epoch: int
+                       ) -> Tuple[schedules.Schedule, Optional[schedules.Schedule], int]:
+    """(lr schedule, weight-decay schedule or None, total updates). The
+    schedules count optimizer updates, not mini-batches, as the reference
+    steps its schedule arrays per update (run_class_finetuning.py:556-562):
+    --warmup_steps, else --warmup_epochs of updates; --tri_phase_schedule
+    '(warmup_perc, decay_perc)' in place of the cosine; a cosine weight
+    decay to --weight_decay_end when that differs from --weight_decay."""
+    update_freq = max(1, getattr(args, "update_freq", 1))
+    total = args.epochs * steps_per_epoch // update_freq
+    warmup = (args.warmup_steps if args.warmup_steps > 0
+              else args.warmup_epochs * steps_per_epoch // update_freq)
+    if args.tri_phase_schedule:
+        w, d = ast.literal_eval(args.tri_phase_schedule)
+        lr = schedules.tri_phase_schedule(args.lr, args.min_lr, total, w, d,
+                                          start_warmup_value=args.warmup_lr)
+    else:
+        lr = schedules.cosine_schedule(args.lr, args.min_lr, total, warmup,
+                                       start_warmup_value=args.warmup_lr)
+    wd_end = args.weight_decay_end
+    wd = None
+    if wd_end is not None and wd_end != args.weight_decay:
+        wd = schedules.cosine_schedule(args.weight_decay, wd_end, total, 0)
+    return lr, wd, total
+
+
+def build_optimizer(args, model: torch.nn.Module, depth: int) -> LayerDecayAdamW:
+    """AdamW over the model's parameters with the flags' weight decay (not
+    on pos_embed, cls_token, ≤ 1-D parameters, nor, with
+    --disable_weight_decay_on_rel_pos_bias, the rel-pos tables), clip,
+    betas, eps and --layer_decay (below 1: per-layer lr scales). Another
+    --opt raises."""
+    skip = ["pos_embed", "cls_token"]
+    if getattr(args, "disable_weight_decay_on_rel_pos_bias", False):
+        skip.append("relative_position_bias_table")
+    return make_optimizer(
+        model, opt_name=args.opt, skip_names=tuple(skip), weight_decay=args.weight_decay,
+        clip_grad=args.clip_grad, betas=tuple(args.opt_betas), eps=args.opt_eps,
+        layer_decay=args.layer_decay if args.layer_decay < 1.0 else None, depth=depth,
     )
 
 

@@ -2,28 +2,40 @@
 uncertainty_vit_tpu/cli/finetune.py, which replaces the reference's
 run_class_finetuning.py.
 
+    python -m uncertainty_vit_tpu_torch.cli.finetune \
+        --finetune CKPT.pth --data_set CIFAR100 --data_path DIR --output_dir OUT ...
     python -m uncertainty_vit_tpu_torch.cli.finetune --eval \
         [--mc_dropout | --ensembles --ensemble_checkpoints A.pth B.pth] \
         --finetune CKPT.pth --data_set CIFAR100 --data_path DIR ...
 
-Ported: the evaluation from images (``--eval``): the split's loader, uint8
-batches onto the device, the eval resize and crop there, then plain
-evaluation, ``--mc_dropout`` or ``--ensembles`` (run_class_finetuning.py:
-638-677), printing the JAX driver's JSON dict. ``main`` takes ``device``
-(the card by default; the tests pass "cpu"); the JAX driver has no such
-flag, and neither has this one.
+Ported: the train loop (``main`` without ``--eval``, JAX :580-790): the
+train split's uint8 batches onto the device, the train transform there
+(random resized crop, flip, RandAugment or colour jitter, erasing), batch
+mixup, AdamW with layer decay and its schedules, --linear_classifier
+freezing, --finetune / --resume / --auto_resume / --start_epoch, the 2-deep
+deferred readback of the metrics with the NaN abort, each epoch's
+evaluation, log.txt and checkpoint-{N,best}.pth. The evaluation from images
+(``--eval``): the split's loader, uint8 batches onto the device, the eval
+resize and crop there, then plain evaluation, ``--mc_dropout`` or
+``--ensembles`` (run_class_finetuning.py:638-677), printing the JAX
+driver's JSON dict. ``main`` takes ``device`` (the card by default; the
+tests pass "cpu"); the JAX driver has no such flag, and neither has this
+one.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: training (no ``--eval``) and ``--seq_parallel`` (slice 7b),
+that ports it: ``--seq_parallel`` > 1, ``--update_freq`` > 1, mixup modes
+elem / pair, ``--cutmix_minmax`` and ``--masked_position_prob`` (slice 7c),
 ``--corrupted_data`` / ``--perturbed_data``, ``--laplace``,
 ``--temp_scaling`` and ``--visualize_embedding`` (slice 8), ``--stochastic``
-(slice 11), the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, and a
-``--finetune`` or ensemble member that is not a ``.pth``.
+(slice 11), the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer
+other than adamw, and a ``--finetune``, ``--resume`` or ensemble member that
+is not a ``.pth``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 from typing import Callable, Dict, List
 
@@ -34,15 +46,20 @@ from uncertainty_vit_tpu_torch.cli.common import setup
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.data.pipeline import device_prefetch
 from uncertainty_vit_tpu_torch.evals import classification as E
-from uncertainty_vit_tpu_torch.evals.collect import per_call_generator
+from uncertainty_vit_tpu_torch.evals.collect import _finish, _start_readback, per_call_generator
 from uncertainty_vit_tpu_torch.evals.ensembles import stack_params
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops.augment import (
     IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD,
-    eval_transform_batch, normalize, to_float,
+    eval_transform_batch, make_finetune_train_augment, normalize, to_float,
 )
+from uncertainty_vit_tpu_torch.train.engine_finetune import (
+    FinetuneHParams, init_finetune_state, make_finetune_train_step, step_generators,
+)
+from uncertainty_vit_tpu_torch.train.optim import freeze_all_except
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
 # eval dispatches still to port: flag → (what, where the ROADMAP ports it)
 NOT_PORTED_EVALS = {
@@ -64,7 +81,7 @@ def get_args_parser():
     g.add_argument("--seq_parallel", type=int, default=1,
                    help="context-parallel factor: split the tokens of each "
                         "image over that many ranks (384/512 scaling); not "
-                        "ported to this driver yet (slice 7b)")
+                        "ported to this driver yet (slice 7c)")
     g.add_argument("--mixup", type=float, default=0.8)
     g.add_argument("--cutmix", type=float, default=1.0)
     g.add_argument("--mixup_prob", type=float, default=1.0)
@@ -139,19 +156,66 @@ def get_args_parser():
     return p
 
 
+def _aa_kwargs(args) -> Dict:
+    """Parse a 'rand-mM-mstdS[-inc1]' --aa policy (run_class_finetuning.py's
+    default) into finetune_train_augment_batch's keywords; {} when off.
+
+    Unknown or unsupported tokens raise: a recipe's typo ('n3', 'p0.5')
+    must not become a silent change of the augmentation. The on-device
+    RandAugment has timm's two increasing-severity rounds built in, so 'n2'
+    and 'inc1' are accepted and change nothing, and every other timm knob
+    is refused."""
+    aa = getattr(args, "aa", None)
+    if not aa or aa in ("None", "none"):
+        return {}
+    parts = aa.split("-")
+    if parts[0] != "rand":
+        raise ValueError(
+            f"--aa policy {aa!r} not supported: only timm 'rand-...' "
+            "configs map onto the on-device RandAugment "
+            "(ops/randaugment.py); 'original'/'augmix' policies are not "
+            "carried"
+        )
+
+    def bad(part):
+        return ValueError(
+            f"unsupported --aa token {part!r} in {aa!r}: the on-device "
+            "RandAugment supports m<mag>, mstd<std>, inc1, n2 "
+            "(two rounds and increasing severity are baked in)"
+        )
+
+    mag, mstd = 9.0, 0.5
+    for part in parts[1:]:
+        if part.startswith("mstd"):
+            try:
+                mstd = float(part[4:])
+            except ValueError:
+                raise bad(part) from None
+        elif part in ("inc1", "n2"):
+            pass
+        elif part.startswith("m") and part[1:].replace(".", "").isdigit():
+            try:
+                mag = float(part[1:])
+            except ValueError:  # 'm1.2.3' passes the isdigit gate
+                raise bad(part) from None
+        else:
+            raise bad(part)
+    return {"auto_augment": True, "aa_magnitude": mag, "aa_magnitude_std": mstd}
+
+
 def build_model(args, nb_classes: int, device=None):
     """(model, config) of the flags, its parameters drawn from a generator
     seeded with ``--seed`` on ``device`` (the card by default)."""
     cfg = B.model_config_from_args(args, nb_classes)
     if getattr(args, "masked_position_prob", 0.0) > 0:
-        raise B.not_ported("masked_position_prob", "token masking", "item 13, slice 7b")
+        raise B.not_ported("masked_position_prob", "token masking", "item 13, slice 7c")
     if getattr(args, "target_layer", -1) != -1 and not args.learn_layer_weights:
         cfg = cfg.replace(depth=args.target_layer + 1)
     if getattr(args, "remove_final_norm", False):
         cfg = cfg.replace(remove_final_norm=True)
     if getattr(args, "seq_parallel", 1) > 1:
         raise B.not_ported("seq_parallel", "the sequence-parallel driver "
-                           "(parallel/seq.py:run_ranks)", "slice 7b")
+                           "(parallel/seq.py:run_ranks)", "slice 7c")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen), cfg
@@ -180,9 +244,9 @@ def _eval_batches(loader, args, device: torch.device):
 def _require_pth(path: str, what: str) -> None:
     if not path.endswith((".pth", ".pt")):
         raise NotImplementedError(
-            f"{what} {path!r}: the port reads torch .pth checkpoints only; an orbax checkpoint "
-            "of the JAX package cannot be read, and the port's own checkpoints come with "
-            "save/resume in the next slice (ROADMAP.md slice 7b)")
+            f"{what} {path!r}: the port reads torch .pth checkpoints only (its own are "
+            "checkpoint-N.pth files since ROADMAP.md slice 7b); an orbax checkpoint of the JAX "
+            "package cannot be read")
 
 
 def load_variables(args, model: VisionTransformer) -> List[str]:
@@ -276,9 +340,153 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     return results
 
 
+def _check_train_flags(args) -> None:
+    """The train loop's flags that are not ported yet raise (slice 7c)."""
+    if getattr(args, "seq_parallel", 1) > 1:
+        raise B.not_ported("seq_parallel", "the sequence-parallel train loop "
+                           "(parallel/seq.py:run_ranks)", "slice 7c")
+    if args.update_freq > 1:
+        raise B.not_ported("update_freq", "gradient accumulation", "item 13, slice 7c")
+    if args.mixup_mode != "batch":
+        raise B.not_ported("mixup_mode", f"mixup mode {args.mixup_mode!r}", "item 13, slice 7c")
+    if args.cutmix_minmax:
+        raise B.not_ported("cutmix_minmax", "the cutmix box bounds", "item 13, slice 7c")
+
+
+def _start_metrics_readback(metrics: Dict[str, object]):
+    """Queue the copy of a step's tensor metrics to the host behind the step
+    (one stacked tensor); returns what ``_finish_metrics`` reads."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    values = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+    return metrics, keys, _start_readback(values)
+
+
+def _finish_metrics(pending) -> Dict[str, float]:
+    """Wait for a step's metrics (only for that step, not the ones queued
+    after it); float values in the step's key order."""
+    metrics, keys, readback = pending
+    values = dict(zip(keys, _finish(readback).tolist()))
+    return {k: values[k] if k in values else float(v) for k, v in metrics.items()}
+
+
+def train(args, device: torch.device, val_loader, nb_classes: int):
+    """The train loop (JAX cli/finetune.py:580-790, non-stochastic): epochs
+    of augmented steps from the train split, each followed by an evaluation,
+    log.txt and checkpoints. Returns the train state."""
+    model, cfg = build_model(args, nb_classes, device)
+    train_loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True)
+    steps_per_epoch = args.steps_per_epoch or len(train_loader)
+    lr_schedule, wd_schedule, _ = B.build_lr_schedules(args, steps_per_epoch)
+    missing = load_variables(args, model)
+    optimizer = B.build_optimizer(args, model, cfg.depth)
+    if args.linear_classifier and args.finetune:
+        # linear-probe freezing (run_class_finetuning.py:529-538): train only
+        # what the checkpoint did not provide (the fresh head)
+        trainable = missing or ["head"]
+        print(f"linear probe: trainable params = {trainable}", flush=True)
+        freeze_all_except(optimizer, trainable)
+    hp = FinetuneHParams(
+        num_classes=nb_classes, mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+        mixup_prob=args.mixup_prob, mixup_switch_prob=args.mixup_switch_prob,
+        label_smoothing=args.smoothing, mixup_active=B.mixup_active(args),
+        mixup_mode=args.mixup_mode,
+        cutmix_minmax=tuple(args.cutmix_minmax) if args.cutmix_minmax else None,
+        masked_position_prob=args.masked_position_prob, model_ema_decay=args.model_ema_decay,
+        head_type=cfg.head_type, update_freq=max(1, args.update_freq),
+    )
+    # the EMA starts from the imported weights, as the reference creates its
+    # ModelEma after the checkpoint surgery (run_class_finetuning.py:545-553)
+    state = init_finetune_state(model, optimizer, use_model_ema=args.model_ema)
+    aug_fn = make_finetune_train_augment(
+        args.input_size, color_jitter_strength=args.color_jitter, reprob=args.reprob,
+        imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
+        interpolation=B.interp_method(args.train_interpolation), re_mode=args.remode,
+        re_count=args.recount, **_aa_kwargs(args))
+    train_step = make_finetune_train_step(model, optimizer, hp, lr_schedule, wd_schedule,
+                                          aug_fn=aug_fn)
+
+    start_epoch = args.start_epoch
+    if args.auto_resume and not args.resume:
+        # the reference's auto_load moves start_epoch only when it found a
+        # checkpoint (utils.py:487-545); --start_epoch wins otherwise
+        state, resumed_epoch = C.auto_load(args.output_dir, state)
+        start_epoch = max(start_epoch, resumed_epoch)
+    elif args.resume:
+        _require_pth(args.resume, "--resume")
+        C.restore_checkpoint(args.resume, state)
+    if start_epoch and state.step == 0:
+        # a fresh start at a later epoch: the schedules go on from the
+        # reference's it = epoch * steps_per_epoch
+        state.step = start_epoch * steps_per_epoch
+
+    tb = TensorboardLogger(args.log_dir or args.output_dir)
+    jsonl = JsonlLogger(args.output_dir)
+    best_acc = -1.0
+    eval_forward = E.make_eval_forward(model, het=args.het_layer)
+
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        logger = MetricLogger()
+        # the host reads step i's metrics back after it has queued steps
+        # i + 1 and i + 2 (the JAX driver's 2-deep window): the card is not
+        # left idle behind a readback, and a NaN stops the run within two
+        # steps (engine_for_finetuning.py:101-103), reported at its global
+        # step
+        pending: "collections.deque" = collections.deque()
+        step_base = state.step
+
+        def drain_one():
+            m, global_step = pending.popleft()
+            m = _finish_metrics(m)
+            B.check_finite_or_die(m["loss"], global_step)
+            logger.update(**m)
+            tb.update(head="loss", loss=m["loss"])
+            tb.set_step()
+
+        for step, batch in enumerate(logger.log_every(device_prefetch(train_loader, device), 10,
+                                                      f"Epoch: [{epoch}]")):
+            if step >= steps_per_epoch:
+                break
+            images_u8, labels = batch[0], batch[-1]
+            # letterboxed batches carry each image's valid extent
+            # (--decode_letterbox), so that the crop covers the whole image
+            valid_hw = batch[1] if len(batch) == 3 else None
+            gens = step_generators(args.seed, state.step, device)
+            metrics = train_step(state, images_u8, labels, gens.model, gens.mix, gens.augment,
+                                 valid_hw)
+            pending.append((_start_metrics_readback(metrics), step_base + step))
+            while len(pending) > 2:
+                drain_one()
+        while pending:
+            drain_one()
+
+        test = None
+        if not args.disable_eval_during_finetuning:
+            test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
+                              het=args.het_layer)
+        record = {"epoch": epoch, **{f"train_{k}": v for k, v in logger.epoch_summary().items()}}
+        if test is not None:
+            print(f"epoch {epoch}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in sorted(test.items())), flush=True)
+            if test["acc1"] > best_acc:
+                best_acc = test["acc1"]
+                if args.save_ckpt and args.output_dir:
+                    C.save_checkpoint(args.output_dir, "best", state, epoch)
+            record.update({f"test_{k}": v for k, v in test.items()})
+            record["best_acc1"] = best_acc
+        jsonl.write(record)
+        if args.save_ckpt and args.output_dir and (
+                (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
+            C.save_checkpoint(args.output_dir, epoch, state, epoch)
+        tb.flush()
+    print(f"done. best acc1 {best_acc:.3f}", flush=True)
+    return state
+
+
 def main(args, device=None):
     """Run the driver on ``device`` (the card unless the caller asks for the
-    CPU). Evaluation only: returns the results dict."""
+    CPU): with --eval the evaluation, returning its results dict; else the
+    train loop, returning the train state."""
     # bounded-scores attention by default: finetuning starts from a trained
     # backbone (cli/common.py)
     setup(bounded_scores_default=True)
@@ -286,17 +494,18 @@ def main(args, device=None):
     if args.visualize_embedding:
         raise B.not_ported("visualize_embedding", "the embedding dump (utils/embeddings.py)",
                            "item 16, slice 8")
-    if not args.eval:
-        raise NotImplementedError("training (no --eval) is not ported yet: the train loop "
-                                  "comes with ROADMAP.md slice 7b")
     if args.device != "cuda":
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
+    if not args.eval:
+        _check_train_flags(args)
     device = resolve_device(device)
     print(f"device: {device}", flush=True)
     val_loader, nb_classes = B.build_loaders(args, is_train=False)
     nb_classes = args.nb_classes or nb_classes
+    if not args.eval:
+        return train(args, device, val_loader, nb_classes)
     model, _ = build_model(args, nb_classes, device)
     load_variables(args, model)
     return run_eval_dispatch(args, model, val_loader, nb_classes)

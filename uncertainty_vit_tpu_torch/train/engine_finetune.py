@@ -2,11 +2,14 @@
 
 Counterpart of uncertainty_vit_tpu/train/engine_finetune.py:25-182
 (engine_for_finetuning.py:46-220 of the reference) for the linear head:
-mixup/cutmix on the device → a bf16 forward on f32 parameters in train mode
-→ soft-target CE in f32 → backward (through the attention kernels K1/K2 on
-the card) → AdamW with layer decay → optional EMA. Every random draw comes
-from a generator the caller passes. Gradient accumulation, token masking
-and the SNGP / heteroscedastic heads are not ported yet (they raise).
+optionally the train augmentation of a uint8 batch on the device (``aug_fn``)
+→ mixup/cutmix on the device → a bf16 forward on f32 parameters in train
+mode → soft-target CE in f32 → backward (through the attention kernels K1/K2
+on the card) → AdamW with layer decay → optional EMA. Every random draw comes
+from a generator the caller passes; ``step_generators`` makes them from
+(seed, step), as the JAX step folds the step into its key, so that a resumed
+run draws what an uninterrupted one draws. Gradient accumulation, token
+masking and the SNGP / heteroscedastic heads are not ported yet (they raise).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -81,22 +85,50 @@ def _targets(hp: FinetuneHParams, images: torch.Tensor, labels: torch.Tensor,
     return images, F.one_hot(labels, hp.num_classes).float()
 
 
+@dataclasses.dataclass
+class StepGenerators:
+    """One train step's generators: the model's draws (drop-path, dropout,
+    int8 rounding) and the augmentation's on the device, mixup's six scalars
+    on the CPU (drawn there without a device sync)."""
+
+    model: torch.Generator
+    augment: torch.Generator
+    mix: torch.Generator
+
+
+def step_generators(seed: int, step: int, device) -> StepGenerators:
+    """The generators of train step ``step`` of a run seeded with ``seed``:
+    a function of (seed, step) only (the JAX step's fold_in(rng, step))."""
+    seeds = np.random.SeedSequence([seed, step]).generate_state(3, np.uint64)
+    seeds = [int(s) & (2**63 - 1) for s in seeds]
+    device = torch.device(device)
+    return StepGenerators(torch.Generator(device=device).manual_seed(seeds[0]),
+                          torch.Generator(device=device).manual_seed(seeds[1]),
+                          torch.Generator().manual_seed(seeds[2]))
+
+
 def make_finetune_train_step(
     model: nn.Module,
     optimizer: LayerDecayAdamW,
     hp: FinetuneHParams,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
+    aug_fn: Optional[Callable[..., torch.Tensor]] = None,
 ) -> Callable[..., Dict[str, object]]:
-    """Returns step(state, images, labels, generator, mix_generator=None) →
-    metrics {"loss", "class_acc", "grad_norm", "lr"}; the state (model,
-    optimizer, EMA, step) is updated in place.
+    """Returns step(state, images, labels, generator, mix_generator=None,
+    aug_generator=None, valid_hw=None) → metrics {"loss", "class_acc",
+    "grad_norm", "lr"}; the state (model, optimizer, EMA, step) is updated
+    in place.
 
     ``generator`` lies on the model's device and draws the drop-path and
     dropout masks; ``mix_generator`` (a CPU generator keeps its six scalar
-    draws free of device syncs) draws mixup. lr and wd are read at the
+    draws free of device syncs) draws mixup. With ``aug_fn`` the images are
+    the raw uint8 batch on the device, and aug_fn(aug_generator, images,
+    valid_hw) makes the normalized f32 images first (JAX :88-90; valid_hw:
+    the letterboxed extents, [B, 2], or None). lr and wd are read at the
     update index, as the optax schedules count updates. ``wd_schedule``
-    defaults to the optimizer's constant weight decay.
+    defaults to the optimizer's constant weight decay. Nothing in the step
+    reads a value back to the host.
 
     A model built with a ``seq_group`` holds each image's tokens split over
     the group's ranks: every rank calls the step on the same batch with
@@ -113,8 +145,13 @@ def make_finetune_train_step(
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
 
     def step(state: FinetuneState, images: torch.Tensor, labels: torch.Tensor,
-             generator: torch.Generator, mix_generator: Optional[torch.Generator] = None
-             ) -> Dict[str, object]:
+             generator: torch.Generator, mix_generator: Optional[torch.Generator] = None,
+             aug_generator: Optional[torch.Generator] = None,
+             valid_hw: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        if aug_fn is not None:
+            if aug_generator is None:
+                raise ValueError("the train augmentation draws from an explicit aug_generator")
+            images = aug_fn(aug_generator, images, valid_hw)
         images, targets = _targets(hp, images, labels, mix_generator)
         model.train()
         logits = model(images, generator=generator)

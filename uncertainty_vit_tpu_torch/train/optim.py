@@ -2,8 +2,9 @@
 
 Counterpart of the ``opt_name="adamw"`` core of uncertainty_vit_tpu/train/
 optim.py (``vit_layer_id`` :24-43, ``layer_decay_scales`` :46-55,
-``weight_decay_mask`` :58-70, ``make_optimizer`` :485-617, ``global_norm``
-:697-700), read for the port's torch parameter names. The optax chain
+``weight_decay_mask`` :58-70, ``make_optimizer`` :485-617,
+``freeze_all_except`` :668-694, ``global_norm`` :697-700), read for the
+port's torch parameter names. The optax chain
 
     clip_by_global_norm → scale_by_adam → + wd(step)·p (decayed params)
     → × lr_scale → × (−lr(step))
@@ -11,13 +12,16 @@ optim.py (``vit_layer_id`` :24-43, ``layer_decay_scales`` :46-55,
 is a ``torch.optim.AdamW`` with one param group per (lr_scale, decayed)
 pair: each step the group's lr is lr(step)·lr_scale and its weight decay
 wd(step) (0 where undecayed), and AdamW's p ← p − lr·wd·p − lr·adam(g) is the
-same update. The other optimizers and gradient accumulation are not ported
-yet (they raise).
+same update. Linear-probe freezing zeroes the final update of the frozen
+parameters, as the JAX package's wrapper does: their gradients still enter
+the global norm, its clip and Adam's moments, and a frozen group's lr is 0
+(p·(1 − 0·wd) − 0·adam(g) leaves p as it was). The other optimizers and
+gradient accumulation are not ported yet (they raise).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,8 +62,9 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class LayerDecayAdamW:
-    """``torch.optim.AdamW`` over one param group per (lr_scale, decayed),
-    with optional global-norm clipping of the gradients before Adam.
+    """``torch.optim.AdamW`` over one param group per (lr_scale, decayed,
+    trainable), with optional global-norm clipping of the gradients before
+    Adam.
 
     ``step(lr, wd)`` applies one update at this step's schedule values and
     returns the gradients' global norm before clipping."""
@@ -69,18 +74,24 @@ class LayerDecayAdamW:
                  eps: float = 1e-8, layer_decay: Optional[float] = None, depth: int = 12,
                  skip_names: Sequence[str] = ("pos_embed", "cls_token")):
         self.weight_decay, self.clip_grad = weight_decay, clip_grad
+        self._betas, self._eps = betas, eps
         scales = (layer_decay_scales(model, layer_decay, depth)
                   if layer_decay is not None and layer_decay < 1.0 else None)
         decayed = weight_decay_mask(model, skip_names)
-        groups: Dict[Tuple[float, bool], list] = {}
-        for name, p in model.named_parameters():
-            if p.requires_grad:
-                key = (scales[name] if scales else 1.0, bool(weight_decay) and decayed[name])
-                groups.setdefault(key, []).append(p)
+        self._named = [(name, p) for name, p in model.named_parameters() if p.requires_grad]
+        self._keys = {name: (scales[name] if scales else 1.0,
+                             bool(weight_decay) and decayed[name]) for name, _ in self._named}
+        self._group(lambda name: True)
+
+    def _group(self, trainable: Callable[[str], bool]) -> None:
+        groups: Dict[Tuple[float, bool, bool], list] = {}
+        for name, p in self._named:
+            groups.setdefault(self._keys[name] + (trainable(name),), []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
         self.optimizer = torch.optim.AdamW(
-            [{"params": ps, "lr_scale": s, "decayed": d} for (s, d), ps in groups.items()],
-            lr=0.0, betas=betas, eps=eps, weight_decay=0.0,
+            [{"params": ps, "lr_scale": s, "decayed": d, "trainable": t}
+             for (s, d, t), ps in groups.items()],
+            lr=0.0, betas=self._betas, eps=self._eps, weight_decay=0.0,
         )
 
     def zero_grad(self) -> None:
@@ -95,10 +106,30 @@ class LayerDecayAdamW:
             coef = torch.where(norm < self.clip_grad, 1.0, self.clip_grad / norm)
             torch._foreach_mul_(grads, coef)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
-            group["weight_decay"] = wd if group["decayed"] else 0.0
+            group["lr"] = lr * group["lr_scale"] if group["trainable"] else 0.0
+            group["weight_decay"] = wd if group["decayed"] and group["trainable"] else 0.0
         self.optimizer.step()
         return norm
+
+    def state_dict(self) -> dict:
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state)
+
+
+def freeze_all_except(optimizer: LayerDecayAdamW, trainable_paths: Sequence[str]
+                      ) -> LayerDecayAdamW:
+    """Linear-probe freezing (run_class_finetuning.py:529-538): only the
+    parameters whose name contains one of ``trainable_paths`` (typically the
+    head the checkpoint did not provide) move. The others keep their
+    gradients in the norm, the clip and Adam's moments; their update is
+    zeroed, as the JAX package zeroes the final update. Call before the
+    first step."""
+    if optimizer.optimizer.state:
+        raise RuntimeError("freeze_all_except regroups the parameters: call it before a step")
+    optimizer._group(lambda name: any(t in name for t in trainable_paths))
+    return optimizer
 
 
 def make_optimizer(model: nn.Module, *, opt_name: str = "adamw", **kwargs) -> LayerDecayAdamW:

@@ -1,10 +1,10 @@
 """Per-step LR / weight-decay schedules (utils.py:408-425 of the reference).
 
 Counterpart of uncertainty_vit_tpu/train/schedules.py (``cosine_schedule``
-:13-35, ``constant_schedule`` :64-69). A schedule is a plain step → float
-function; the train step reads it on the host and writes the value into the
-optimizer's param groups. The tri-phase and EMA-decay schedules are not
-ported yet.
+:13-35, ``tri_phase_schedule`` :38-61, ``constant_schedule`` :64-69). A
+schedule is a plain step → float function; the train step reads it on the
+host and writes the value into the optimizer's param groups. The EMA-decay
+schedule of the cyclical pretraining is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,34 @@ def cosine_schedule(
         i = step - warmup_steps
         return final_value + 0.5 * (base_value - final_value) * (
             1.0 + math.cos(math.pi * i / decay_steps))
+
+    return schedule
+
+
+def tri_phase_schedule(
+    base_value: float,
+    final_value: float,
+    total_steps: int,
+    warmup_perc: float = 0.05,
+    decay_perc: float = 0.05,
+    start_warmup_value: float = 0.0,
+) -> Schedule:
+    """utils.py:427-459: linear warmup over the first warmup_perc of the
+    steps, hold at base, linear decay to final over the last decay_perc."""
+    if warmup_perc + decay_perc > 1:
+        raise ValueError(f"tri-phase warmup {warmup_perc} + decay {decay_perc} exceeds 1")
+    warmup_steps = int(warmup_perc * total_steps)
+    decay_steps = int(decay_perc * total_steps)
+    hold_end = total_steps - decay_steps
+    warm_denom = max(warmup_steps - 1, 1)
+    decay_denom = max(decay_steps - 1, 1)
+
+    def schedule(step: int) -> float:
+        if step >= hold_end:
+            return base_value + (step - hold_end) * (final_value - base_value) / decay_denom
+        if step < warmup_steps:
+            return start_warmup_value + step * (base_value - start_warmup_value) / warm_denom
+        return base_value
 
     return schedule
 

@@ -14,13 +14,21 @@ numpy in, numpy out for the two interpolations.
 
 ``load_torch_state_dict`` (:76-87) reads a reference ``.pth``, and
 ``import_torch_state_dict`` applies the rules of ``import_torch_params``
-(:281-342) to a model's state_dict under its own (torch) keys. Saving and
-resuming the port's own checkpoints is not ported yet (the JAX package
-writes orbax checkpoints, :30-73).
+(:281-342) to a model's state_dict under its own (torch) keys.
+
+The port's own checkpoints (``save_checkpoint``, ``latest_checkpoint``,
+``restore_checkpoint``, ``auto_load``; the JAX package's orbax checkpoints,
+:26-73, and the reference's save_model / auto_load_model, utils.py:462-545)
+are ``torch.save`` files named as the reference BEiT names them,
+``checkpoint-{epoch}.pth`` and ``checkpoint-best.pth``, holding
+{"model", "optimizer", "step", "epoch", "model_ema"}. "model" is the state
+dict under the reference's torch names, so ``load_torch_state_dict`` and
+--finetune read a port checkpoint as they read a reference ``.pth``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
@@ -315,3 +323,68 @@ def import_torch_state_dict(
             state[key] = torch.as_tensor(np.ascontiguousarray(value), dtype=want.dtype
                                          ).to(want.device)
     return state, missing, [k for k in sd if k not in used]
+
+
+# ---------------------------------------------------------------------------
+# The port's own checkpoints
+# ---------------------------------------------------------------------------
+
+_NUMBERED = re.compile(r"checkpoint-(\d+)\.pth")
+
+
+def checkpoint_path(output_dir: str, tag) -> str:
+    return os.path.join(os.path.abspath(output_dir), f"checkpoint-{tag}.pth")
+
+
+def save_checkpoint(output_dir: str, tag, state, epoch: int) -> str:
+    """Write a train state (``train.engine_finetune.FinetuneState``: model,
+    optimizer, step, EMA) after ``epoch`` to output_dir/checkpoint-{tag}.pth
+    (an epoch number or "best"); the file appears whole or not at all."""
+    path = checkpoint_path(output_dir, tag)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    def cpu(tensors):
+        return None if tensors is None else {k: v.detach().cpu() for k, v in tensors.items()}
+
+    blob = {"model": cpu(state.model.state_dict()), "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "epoch": int(epoch), "model_ema": cpu(state.model_ema)}
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_checkpoint(output_dir: str) -> Optional[Tuple[int, str]]:
+    """(N, path) of the highest checkpoint-N.pth in output_dir, or None
+    (utils.py:493-503)."""
+    if not os.path.isdir(output_dir):
+        return None
+    best = None
+    for name in os.listdir(output_dir):
+        m = _NUMBERED.fullmatch(name)
+        if m and (best is None or int(m.group(1)) > best[0]):
+            best = (int(m.group(1)), os.path.join(output_dir, name))
+    return best
+
+
+def restore_checkpoint(path: str, state):
+    """Load a port checkpoint into ``state`` in place: the model strictly,
+    the optimizer's moments and counts, the step and the EMA. Returns it."""
+    device = next(state.model.parameters()).device
+    blob = torch.load(path, map_location=device, weights_only=False)
+    state.model.load_state_dict(blob["model"], strict=True)
+    state.optimizer.load_state_dict(blob["optimizer"])
+    state.step = int(blob["step"])
+    if blob.get("model_ema") is not None:
+        state.model_ema = {k: v.to(device) for k, v in blob["model_ema"].items()}
+    return state
+
+
+def auto_load(output_dir: str, state) -> Tuple[Any, int]:
+    """Resume from the highest checkpoint-N.pth: (state, N + 1), or
+    (state, 0) untouched when there is none."""
+    found = latest_checkpoint(output_dir)
+    if found is None:
+        return state, 0
+    epoch, path = found
+    print(f"resuming from {path}", flush=True)
+    return restore_checkpoint(path, state), epoch + 1
