@@ -221,6 +221,28 @@ kernels from the sources in this checkout, then:
            phase 4's step-only rate, the transform's ms per batch (CUDA
            events), each epoch's evaluation time, and the card's busy share
            and idle time in a torch.profiler trace of two driver steps.
+  phase 18 the finetune driver's slice 7c at 384 over seeded 32x32 CIFAR-100
+           pickles (128 train, 64 test) from a .pth of phase 16's ViT-B/16
+           224: (a) beit_base_patch16_384 --input_size 384 at batch 32,
+           --update_freq 2, --masked_position_prob 0.1, --mixup_mode elem
+           with --cutmix_minmax 0.2 0.8: 4 mini-steps (2 updates) and an
+           evaluation of 64 images, K3 and K4 12 launches a mini-step, K3 12
+           an eval forward, no other kernel; the parameters unchanged after
+           mini-step 0 and moved after mini-step 1, lr at the update index;
+           mini-step 0 within phase 4's bounds of the plain attention's; a
+           warm mini-step under torch.cuda.set_sync_debug_mode("error"); a
+           2-step --mixup_mode pair epoch; the elem and pair mixes on the card
+           within 1e-6 of the CPU's on the same draws. (b) the same without
+           mixup over two gloo ranks sharing the card (cli.finetune.run_rank,
+           as main runs it under --seq_parallel 2): 2 steps at batch 8 and
+           --eval over 64 images, K5 12 a forward and 12 a backward on each
+           rank, K1-K4 none; step 0's loss within phase 4's bound and each
+           leaf's gradient norm within phase 15's of the unsharded driver's
+           step 0; the ranks' parameters equal; log.txt of one rank. (c)
+           beit_large_patch16_384 --eval from a ViT-L/16 224 .pth over 64
+           images at batch 16: K3 24 a forward, logits within phase 2's bound
+           of the plain attention's. Prints the rates and times as
+           information.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -3467,6 +3489,380 @@ def phase17(torch, FA, dev, step_rates):
     return paths
 
 
+# Phase 18: the elem and pair mixes on the card against the CPU's on the same
+# draws: the same f32 products of the same operands, in the same order.
+MIX_ATOL = 1e-6
+
+
+@contextlib.contextmanager
+def watched_driver(torch, FT, counts, sync_step=None):
+    """Inside, each call of the driver's train step and evaluate() is
+    recorded (host clock, launches by ``counts()``, metrics; the first
+    step's gradient norms by leaf; whether the first two steps moved the
+    parameters), and the step of state step ``sync_step`` runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    rec = {"steps": [], "evals": [], "sync_checked": False}
+    make_step, evaluate = FT.make_finetune_train_step, FT.E.evaluate
+
+    def recording_make_step(model, *a, **k):
+        step = make_step(model, *a, **k)
+
+        def recorded(state, *args):
+            i = len(rec["steps"])
+            before = counts()
+            params = ([p.detach().clone() for p in model.parameters()] if i < 2 else None)
+            checked = state.step == sync_step
+            t = time.perf_counter()
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = step(state, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            rec["sync_checked"] = rec["sync_checked"] or checked
+            after = counts()
+            r = {"step": state.step - 1, "t": t, "metrics": m,
+                 "launches": {k: after[k] - before[k] for k in after}}
+            if i == 0:  # the mini-step's own gradients, after any group sum
+                r["grad_norms"] = leaf_grad_norms(torch, model)
+            if params is not None:
+                r["moved"] = any(not torch.equal(p, q) for p, q in zip(params, model.parameters()))
+            rec["steps"].append(r)
+            rec["model"] = model
+            return m
+
+        return recorded
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        before = counts()
+        t = time.perf_counter()
+        out = evaluate(*a, **k)
+        torch.cuda.synchronize()
+        after = counts()
+        rec["evals"].append({"t": t, "ms": (time.perf_counter() - t) * 1000,
+                             "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    FT.make_finetune_train_step, FT.E.evaluate = recording_make_step, timed_evaluate
+    try:
+        yield rec
+    finally:
+        FT.make_finetune_train_step, FT.E.evaluate = make_step, evaluate
+
+
+def cli7c_seq_rank(group, device, train_argv, eval_argv):
+    """One rank of phase 18b: the driver's body (``cli.finetune.run_rank``, what
+    ``main`` runs on each rank under --seq_parallel) trains, then evaluates,
+    with this rank's half of the tokens on the one card. Returns its
+    launches, its steps' losses, grad norms and host times, step 0's leaf
+    gradient norms and a digest of its parameters."""
+    import torch
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+
+    def counts():
+        return {**attention_counts(FA), **cross_counts(FA)}
+
+    def reset():
+        reset_attention_counts(FA)
+        reset_cross_counts(FA)
+
+    out = {}
+    with watched_driver(torch, FT, counts) as rec:
+        reset()
+        FT.run_rank(group, FT.get_args_parser().parse_args(train_argv), device)
+        torch.cuda.synchronize()
+        out["train"] = counts()
+        steps = rec["steps"]
+        out["steps"] = [(float(r["metrics"]["loss"]), float(r["metrics"]["grad_norm"]))
+                        for r in steps]
+        out["step_launches"] = [r["launches"] for r in steps]
+        out["grad_norms"] = steps[0]["grad_norms"]
+        out["step_ms"] = [(b["t"] - a["t"]) * 1000 for a, b in zip(steps, steps[1:])]
+        out["digest"] = [float(p.detach().double().sum()) for p in rec["model"].parameters()]
+        del rec["model"]
+        reset()
+        t = time.perf_counter()
+        FT.run_rank(group, FT.get_args_parser().parse_args(eval_argv), device)
+        torch.cuda.synchronize()
+        out["eval_s"] = time.perf_counter() - t
+        out["evaluate"] = counts()
+    return out
+
+
+def phase18(torch, FA, dev, step_rates):
+    """Slice 7c's driver on the card: ViT-B/16 384 trained from a 224 .pth
+    with gradient accumulation, token masking and elem / pair mixup on
+    cutmix_minmax boxes (18a), the same over two gloo ranks (18b), and
+    ViT-L/16 384 evaluated (18c). step_rates: phase 4's step-only img/s."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import mixup as TM
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    n_train, n_test, bs, depth, spe, n_tok = 128, 64, 32, 12, 4, 577
+    rs = np.random.RandomState(18)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+    base = dict(num_classes=100, use_shared_rel_pos_bias=True, use_abs_pos_emb=False,
+                init_values=0.1)
+
+    def counts():
+        # inside attention_on_plain the attention wrappers are plain
+        # functions, which count nothing
+        return kernel_counts(FA, TQ, DO) if hasattr(FA.fused_qkv_attention_bwd, "launches") else {}
+
+    def card():
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+
+    want = {k: 0 for k in counts()}
+    paths = {}
+    bounded = FA.BOUNDED_SCORES
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+            pth = os.path.join(tmp, "vitb224.pth")
+            write_vitb_pth(torch, dev, get_preset("beit_base_patch16_224", **base), pth, 180)
+
+            def argv(out_dir, *extra, model="beit_base_patch16_384", finetune=pth):
+                return ["--model", model, "--input_size", "384", "--data_set", "CIFAR100",
+                        "--data_path", tmp, "--num_workers", "8", "--finetune", finetune,
+                        "--output_dir", os.path.join(tmp, out_dir), "--layer_decay", "0.65",
+                        "--drop_path", "0.1", "--warmup_epochs", "0", "--no_auto_resume", *extra]
+
+            flags_7c = ["--update_freq", "2", "--masked_position_prob", "0.1"]
+            mix = ["--mixup_mode", "elem", "--cutmix_minmax", "0.2", "0.8"]
+
+            # --- 18a: one epoch of 4 mini-steps (2 updates) and its evaluation
+            args = FT.get_args_parser().parse_args(argv(
+                "a", "--batch_size", str(bs), "--epochs", "1", "--steps_per_epoch", str(spe),
+                "--no_save_ckpt", *flags_7c, *mix))
+            with watched_driver(torch, FT, counts, sync_step=3) as rec:
+                reset_kernel_counts(FA, TQ, DO)
+                t0 = time.perf_counter()
+                state = FT.main(args)
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+                paths["cli7c_train"] = counts()
+                run, evals = list(rec["steps"]), list(rec["evals"])
+                rec.pop("model")
+                del state
+            print(f"  18a ViT-B/16 384 from a 224 .pth, {spe} mini-steps at batch {bs}, "
+                  f"--update_freq 2, --masked_position_prob 0.1, elem mixup on cutmix_minmax "
+                  f"(0.2, 0.8) boxes: launches {paths['cli7c_train']}", flush=True)
+            eval_fwd = n_test // bs
+            expect = dict(want, K3=depth * (spe + eval_fwd), K4=depth * spe)
+            check(paths["cli7c_train"] == expect,
+                  f"18a launched {paths['cli7c_train']}, expected {expect}")
+            check(len(run) == spe and len(evals) == 1, f"{len(run)} steps, {len(evals)} evals")
+            for r in run:
+                check(r["launches"] == dict(want, K3=depth, K4=depth),
+                      f"18a mini-step {r['step']} launched {r['launches']}")
+                check(all(math.isfinite(float(r["metrics"][k])) for k in ("loss", "grad_norm")),
+                      f"18a mini-step {r['step']}: {r['metrics']}")
+            check(evals[0]["launches"] == dict(want, K3=depth * eval_fwd),
+                  f"18a's evaluation launched {evals[0]['launches']}")
+            check(not run[0]["moved"] and run[1]["moved"],
+                  f"the parameters moved after mini-step 0: {run[0]['moved']}, after "
+                  f"mini-step 1: {run[1]['moved']} (expected unchanged, then changed)")
+            lr, _, _ = B.build_lr_schedules(args, spe)
+            check([r["metrics"]["lr"] for r in run] == [lr(i // 2) for i in range(spe)],
+                  "18a's lr is not read at the update index")
+            check(rec["sync_checked"], "the step under sync debug mode did not run")
+            print(f"  mini-step 0 left the parameters as they were, mini-step 1 moved them; "
+                  f"mini-step 3 ran with torch.cuda.set_sync_debug_mode('error'); losses "
+                  + ", ".join(f"{float(r['metrics']['loss']):.4f}" for r in run)
+                  + "; grad norms " + ", ".join(f"{float(r['metrics']['grad_norm']):.4f}"
+                                                 for r in run), flush=True)
+            rate = (spe - 1) * bs / (evals[0]["t"] - run[1]["t"])
+            print(f"  18a rate (information only; {card()}; host clock from mini-step 1 to the "
+                  f"end of mini-step 3): {rate:.1f} img/s, {rate * n_tok:.0f} tokens/s; phase 4's "
+                  f"ViT-B/16 224 step alone in this call: "
+                  f"{[round(r * 197) for r in step_rates['kernel']]} tokens/s; its evaluation "
+                  f"of {n_test} images {evals[0]['ms']:.2f} ms; main() {main_s:.2f} s",
+                  flush=True)
+
+            # mini-step 0 on the plain attention: the same flags, state and draws
+            with watched_driver(torch, FT, counts) as rec:
+                reset_kernel_counts(FA, TQ, DO)
+                with attention_on_plain(torch, FA):
+                    FT.main(FT.get_args_parser().parse_args(argv(
+                        "plain", "--batch_size", str(bs), "--epochs", "1", "--steps_per_epoch",
+                        "1", "--no_save_ckpt", "--disable_eval_during_finetuning", *flags_7c,
+                        *mix)))
+                torch.cuda.synchronize()
+                check(counts() == want, "the plain-attention run launched a kernel")
+                m_p = rec["steps"][0]["metrics"]
+                rec.pop("model")
+            m_k = run[0]["metrics"]
+            loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+            gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+            print(f"  18a mini-step 0, kernels vs plain attention: loss {loss_k:.6f} / "
+                  f"{loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+            check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+                  "18a's first loss disagrees with the plain attention's")
+            check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+                  "18a's first grad norm disagrees with the plain attention's")
+
+            # then a 2-step --mixup_mode pair epoch
+            with watched_driver(torch, FT, counts) as rec:
+                reset_kernel_counts(FA, TQ, DO)
+                FT.main(FT.get_args_parser().parse_args(argv(
+                    "pair", "--batch_size", str(bs), "--epochs", "1", "--steps_per_epoch", "2",
+                    "--no_save_ckpt", "--disable_eval_during_finetuning", *flags_7c,
+                    "--mixup_mode", "pair", "--cutmix_minmax", "0.2", "0.8")))
+                torch.cuda.synchronize()
+                paths["cli7c_train_pair"] = counts()
+                pair_steps = rec["steps"]
+                rec.pop("model")
+            print(f"  18a --mixup_mode pair, 2 mini-steps: launches "
+                  f"{paths['cli7c_train_pair']}; losses "
+                  + ", ".join(f"{float(r['metrics']['loss']):.4f}" for r in pair_steps),
+                  flush=True)
+            check(paths["cli7c_train_pair"] == dict(want, K3=2 * depth, K4=2 * depth),
+                  f"the pair epoch launched {paths['cli7c_train_pair']}")
+            check(all(math.isfinite(float(r["metrics"]["loss"])) for r in pair_steps),
+                  "the pair epoch's losses")
+
+            # the elem and pair mixes on the card against the CPU's, same draws
+            gen = torch.Generator(device=dev).manual_seed(181)
+            x = torch.randn(bs, 384, 384, 3, generator=gen, device=dev)
+            y = torch.randint(0, 100, (bs,), generator=gen, device=dev)
+            mix_ms = {}
+            for mode in ("elem", "pair"):
+                count = bs if mode == "elem" else bs // 2
+                draws = TM.draw_mixup_elem(torch.Generator().manual_seed(182), count, 384, 384,
+                                           0.8, 1.0, 1.0, 0.5, (0.2, 0.8))
+                if mode == "pair":
+                    draws = draws.mirrored()
+                on_card = TM.mix_elem(x, y, 100, 0.1, draws)
+                on_cpu = TM.mix_elem(x.cpu(), y.cpu(), 100, 0.1, draws)
+                diffs = [(a.cpu() - b).abs().max().item() for a, b in zip(on_card, on_cpu)]
+                mix_ms[mode] = cuda_ms(lambda: TM.mix_elem(x, y, 100, 0.1, draws), 10)
+                print(f"  {mode} mix [{bs}, 384, 384, 3] on the card vs the CPU on the same "
+                      f"draws: images max|diff| {diffs[0]:.3e}, targets {diffs[1]:.3e} (bound "
+                      f"{MIX_ATOL}); {mix_ms[mode]:.3f} ms on the card (CUDA events)", flush=True)
+                check(max(diffs) <= MIX_ATOL,
+                      f"the {mode} mix on the card disagrees with the CPU's")
+            del x, y, on_card, on_cpu
+
+            # --- 18b: the same over two gloo ranks sharing the card, without mixup
+            bs_seq = 8
+            seq_flags = ["--batch_size", str(bs_seq), "--mixup", "0", "--cutmix", "0", *flags_7c]
+            train_argv = argv("seq", *seq_flags, "--epochs", "1", "--steps_per_epoch", "2",
+                              "--disable_eval_during_finetuning", "--save_ckpt_freq", "1",
+                              "--seq_parallel", "2")
+            eval_argv = argv("seq_eval", "--batch_size", str(bs_seq), "--eval",
+                             "--seq_parallel", "2")
+            # the unsharded driver's step 0 on the same batch and draws
+            with watched_driver(torch, FT, counts) as rec:
+                FT.main(FT.get_args_parser().parse_args(argv(
+                    "ref", *seq_flags, "--epochs", "1", "--steps_per_epoch", "1",
+                    "--disable_eval_during_finetuning", "--no_save_ckpt")))
+                ref = rec["steps"][0]
+                rec.pop("model")
+            ref_loss, ref_norms = float(ref["metrics"]["loss"]), ref["grad_norms"]
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = seq.run_ranks(cli7c_seq_rank, 2, str(dev), train_argv, eval_argv,
+                                  timeout=600.0)
+            secs = time.perf_counter() - t0
+            for r, res in enumerate(ranks):
+                print(f"  18b rank {r}: train launches {res['train']}, --eval launches "
+                      f"{res['evaluate']}; losses, grad norms {res['steps']}", flush=True)
+                check(res["train"] == dict(K1=0, K2=0, K3=0, K4=0, K5=2 * depth,
+                                           K5_bwd=2 * depth),
+                      f"18b rank {r}'s 2 steps launched {res['train']}")
+                fwd = n_test // bs_seq
+                check(res["evaluate"] == dict(K1=0, K2=0, K3=0, K4=0, K5=depth * fwd, K5_bwd=0),
+                      f"18b rank {r}'s --eval launched {res['evaluate']}")
+                check(all(math.isfinite(l) and math.isfinite(g) for l, g in res["steps"]),
+                      f"18b rank {r}'s losses")
+            a, b = ranks
+            check(a["steps"] == b["steps"] and a["grad_norms"] == b["grad_norms"],
+                  "the two ranks' losses or gradients differ")
+            check(a["digest"] == b["digest"], "the two ranks' parameters differ after the steps")
+            loss = a["steps"][0][0]
+            rel = {k: abs(a["grad_norms"][k] - v) / v if v > 0 else float(a["grad_norms"][k] != 0)
+                   for k, v in ref_norms.items()}
+            worst = max(rel, key=rel.get)
+            print(f"  18b step 0 vs the unsharded driver's: loss {loss:.6f} / {ref_loss:.6f}; "
+                  f"worst leaf {worst} relative {rel[worst]:.3e} (bound {LEAF_GRAD_REL_BOUND}), "
+                  f"median {sorted(rel.values())[len(rel) // 2]:.3e} of {len(rel)}; parameters "
+                  f"equal on both ranks after the steps", flush=True)
+            check(list(a["grad_norms"]) == list(ref_norms), "18b's leaves")
+            check(abs(loss - ref_loss) <= LOSS_REL_BOUND * abs(ref_loss),
+                  "18b's step 0 loss disagrees with the unsharded driver's")
+            check(rel[worst] <= LEAF_GRAD_REL_BOUND,
+                  f"18b's gradient of {worst} disagrees with the unsharded driver's")
+            out_seq = os.path.join(tmp, "seq")
+            with open(os.path.join(out_seq, "log.txt")) as f:
+                log = [json.loads(line) for line in f]
+            check([r["epoch"] for r in log] == [0], f"18b's log.txt: {log} (one rank writes)")
+            check({"checkpoint-0.pth"} <= set(os.listdir(out_seq)), "18b's checkpoint-0.pth")
+            check(not os.path.exists(os.path.join(tmp, "seq_eval", "log.txt")),
+                  "--eval wrote a log")
+            paths["cli7c_seq2_train"] = {k: a["train"][k] + b["train"][k] for k in a["train"]}
+            paths["cli7c_seq2_evaluate"] = {k: a["evaluate"][k] + b["evaluate"][k]
+                                            for k in a["evaluate"]}
+            print(f"  18b (information only: two ranks share one card over gloo; {card()}) "
+                  f"step ms {[round(ms, 2) for ms in a['step_ms']]} on rank 0 at batch {bs_seq}; "
+                  f"--eval of {n_test} images {a['eval_s']:.2f} s; the ranks ran {secs:.1f} s from "
+                  f"start to end", flush=True)
+
+            # --- 18c: ViT-L/16 384 --eval from a ViT-L/16 224 .pth at batch 16
+            lpth = os.path.join(tmp, "vitl224.pth")
+            write_vitb_pth(torch, dev, get_preset("beit_large_patch16_224", **base), lpth, 183)
+            largs = FT.get_args_parser().parse_args(argv(
+                "large", "--batch_size", "16", "--eval", model="beit_large_patch16_384",
+                finetune=lpth))
+            reset_kernel_counts(FA, TQ, DO)
+            t0 = time.perf_counter()
+            res = FT.main(largs)["eval"]
+            torch.cuda.synchronize()
+            large_s = time.perf_counter() - t0
+            paths["cli7c_large_evaluate"] = counts()
+            check(paths["cli7c_large_evaluate"] == dict(want, K3=24 * n_test // 16),
+                  f"18c launched {paths['cli7c_large_evaluate']}")
+            check(all(math.isfinite(v) for v in res.values()), f"18c's metrics {res}")
+            model, cfg = FT.build_model(largs, 100, dev)
+            FT.load_variables(largs, model)
+            loader, _ = B.build_loaders(largs, is_train=False)
+            first = [next(iter(FT._eval_batches(loader, largs, dev)))]
+            logits, _ = collect_logits(make_eval_forward(model), first)
+            plain = VisionTransformer(cfg.replace(use_flash_attention=False),
+                                      dtype=torch.bfloat16, device=dev)
+            plain.load_state_dict(model.state_dict())
+            ref_logits, _ = collect_logits(make_eval_forward(plain), first)
+            del plain, model
+            diff, scale = float(np.abs(logits - ref_logits).max()), float(np.abs(ref_logits).max())
+            print(f"  18c ViT-L/16 384 --eval over {n_test} images at batch 16 ({card()}): "
+                  f"launches {paths['cli7c_large_evaluate']}; {json.dumps(res)}; logits vs the "
+                  f"plain attention's: max|diff| {diff:.3e}, max|logit| {scale:.3e}, ratio "
+                  f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND}); main() {large_s:.2f} s",
+                  flush=True)
+            check(logits.shape == (16, 100) and diff <= LOGIT_REL_BOUND * scale,
+                  "18c's logits disagree with the plain attention's")
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3531,6 +3927,9 @@ def main() -> int:
     cli_train = run(17, "the finetune driver's training from images: two epochs, a resumed "
                         "third, a step on the plain attention, an int8 epoch", phase17, torch, FA,
                     dev, step_rates)
+    cli7c = run(18, "the finetune driver's slice 7c at 384: accumulation, masking, elem / pair "
+                    "mixup; over two gloo ranks; ViT-L/16 384 --eval", phase18, torch, FA, dev,
+                step_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -3558,14 +3957,22 @@ def main() -> int:
     k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train}.items() if n["K6"]}
     k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train}.items() if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in {**mc, **cli}.items() if n["K8"]}
+    # and phase 18's ("cli7c_"): ViT-B/16 384 trained (4 mini-steps and an
+    # evaluation of 2 batches; 2 pair mini-steps), ViT-L/16 384 evaluated
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}
+    k3_paths.update({path: n["K3"] for path, n in cli7c.items() if n["K3"]})
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}
+    k4_paths.update({path: n["K4"] for path, n in cli7c.items() if n["K4"]})
     for n_ in large.values():
         check(n_["K1"] == 0 and n_["K2"] == 0, "a ViT-L/16 512 path launched K1 or K2")
     # phase 15's paths ("seq2_large_": ViT-L/16 512 over two ranks), summed
     # over the ranks: evaluate() over one batch, 2 train steps; K5's forward
     # and backward launches together
     k5_paths = {f"seq2_large_{path}": n["K5"] + n["K5_bwd"] for path, n in seq2.items()}
+    # and phase 18b's ViT-B/16 384 over two ranks: 2 driver steps, --eval
+    # over 8 batches, summed over the ranks
+    seq7c = {path: n for path, n in cli7c.items() if n["K5"]}
+    k5_paths.update({path: n["K5"] + n["K5_bwd"] for path, n in seq7c.items()})
     pkg = "uncertainty_vit_tpu_torch/csrc/"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -3598,7 +4005,9 @@ def main() -> int:
          "sources": [pkg + "flash_attention_stream_fwd.cu", pkg + "flash_attention_stream_bwd.cu"],
          "replaces": "uncertainty_vit_tpu/ops/flash_attention.py:1136",
          "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
-         "launches_by_kernel": {f"seq2_large_{path}": n for path, n in seq2.items()}, **res[14]},
+         "launches_by_kernel": {**{f"seq2_large_{path}": n for path, n in seq2.items()},
+                                **{path: {k: n[k] for k in ("K5", "K5_bwd")}
+                                   for path, n in seq7c.items()}}, **res[14]},
     ]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")

@@ -235,8 +235,8 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
 
 NOT_PORTED = [
     ["--sngp"], ["--gp_layer"], ["--het_layer"], ["--stochastic"], ["--sinkformer"],
-    ["--gumbel_softmax"], ["--h_sto_trans"], ["--seq_parallel", "2"],
-    ["--masked_position_prob", "0.1"], ["--corrupted_data"], ["--perturbed_data"],
+    ["--gumbel_softmax"], ["--h_sto_trans"], ["--seq_parallel", "2", "--mc_dropout"],
+    ["--corrupted_data"], ["--perturbed_data"],
     ["--laplace"], ["--temp_scaling"], ["--visualize_embedding"],
     ["--ensembles", "--ensemble_checkpoints", "member_dir"],
 ]
@@ -256,15 +256,16 @@ def test_unported_flags_raise(files, extra):
 
 def test_training_and_orbax_checkpoints_raise(files):
     """Without --eval the driver trains (tests/test_torch_port_cli_train.py):
-    a train flag of the next slice raises there, naming it. A --finetune or
-    --resume that is not a .pth is an orbax checkpoint of the JAX package."""
+    attention dropout under --seq_parallel raises there before any rank
+    starts, with the JAX package's words. A --finetune or --resume that is
+    not a .pth is an orbax checkpoint of the JAX package."""
     argv = _argv(files)
     argv.remove("--eval")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
-        with pytest.raises(NotImplementedError, match="update_freq.*slice 7c"):
-            TFT.main(TFT.get_args_parser().parse_args(argv + ["--update_freq", "2"]),
-                     device="cpu")
+        with pytest.raises(ValueError, match="sequence-parallel attention requires attn_drop=0"):
+            TFT.main(TFT.get_args_parser().parse_args(
+                argv + ["--seq_parallel", "2", "--attn_drop_rate", "0.1"]), device="cpu")
         with pytest.raises(NotImplementedError, match=r"--resume .*\.pth"):
             TFT.main(TFT.get_args_parser().parse_args(
                 argv + ["--resume", files["root"] + "/checkpoint-3", "--epochs", "1"]),

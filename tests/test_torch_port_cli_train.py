@@ -384,18 +384,6 @@ def test_finetune_reads_the_ports_own_checkpoint(root, tmp_path):
         assert abs(v - logged[f"test_{k}"]) <= 1e-6 * max(abs(v), 1.0), k
 
 
-SLICE_7C = [["--seq_parallel", "2"], ["--update_freq", "2"], ["--mixup_mode", "elem"],
-            ["--mixup_mode", "pair"], ["--cutmix_minmax", "0.2", "0.8"],
-            ["--masked_position_prob", "0.1"]]
-
-
-@pytest.mark.parametrize("extra", SLICE_7C, ids=lambda e: "_".join(e).lstrip("-"))
-def test_slice_7c_flags_raise(root, tmp_path, extra):
-    """The train loop's flags that wait for slice 7c raise, naming it."""
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        _run(root, tmp_path / "x", "--epochs", "1", *extra)
-
-
 def test_loggers_match_jax(tmp_path, monkeypatch, capsys):
     """SmoothedValue / MetricLogger (numbers, epoch summary and the lines
     log_every prints, on the same clock) and JsonlLogger (the same lines)

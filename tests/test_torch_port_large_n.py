@@ -275,7 +275,11 @@ def test_deep_model_train_step_matches_jax_engine(stream_routes):
 
 
 def test_update_freq_above_1_still_raises():
+    """Gradient accumulation is the optimizer's (tests/test_torch_port_cli_7c.py):
+    a step asking for update_freq 2 of an optimizer built for 1 still raises."""
     model = VisionTransformer(TViTConfig(**dict(DEEP, depth=1)), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="update_freq"):
         TE.make_finetune_train_step(model, TO.make_optimizer(model),
                                     TE.FinetuneHParams(update_freq=2), TS.constant_schedule(1e-3))
+    TE.make_finetune_train_step(model, TO.make_optimizer(model, update_freq=2),
+                                TE.FinetuneHParams(update_freq=2), TS.constant_schedule(1e-3))

@@ -154,11 +154,18 @@ def test_one_hot_smooth_matches_jax():
 
 
 def test_unported_mixup_modes_raise():
+    """The elem and pair modes and cutmix_minmax are ported
+    (tests/test_torch_port_mixup_elem.py); a mode the JAX package does not
+    know raises as it does there, and a minmax of another length too."""
     x, y = torch.zeros(2, 8, 8, 3), torch.zeros(2, dtype=torch.long)
     gen = torch.Generator()
-    for kw in (dict(mode="elem"), dict(mode="pair"), dict(cutmix_minmax=(0.2, 0.8))):
-        with pytest.raises(NotImplementedError):
+    for kw, match in ((dict(mode="other"), "unknown mixup mode"),
+                      (dict(cutmix_minmax=(0.2, 0.5, 0.8)), r"\(min, max\)")):
+        with pytest.raises(ValueError, match=match):
             TM.mixup_cutmix(gen, x, y, 10, **kw)
+        with pytest.raises(ValueError, match=match):
+            JM.mixup_cutmix(jax.random.PRNGKey(0), jnp.asarray(x.numpy()),
+                            jnp.asarray(y.numpy()), 10, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -403,10 +410,15 @@ def test_train_step_with_mixup_and_drop_path_is_seeded():
 
 
 def test_unported_engine_options_raise():
+    """The SNGP head is not ported; gradient accumulation and token masking
+    are (tests/test_torch_port_cli_7c.py) and refuse an optimizer of
+    another update_freq or a model without a mask token."""
     _, _, model, _, _ = _small()
     opt = TO.make_optimizer(model)
     lr = TS.constant_schedule(1e-3)
-    for hp in (TE.FinetuneHParams(update_freq=2), TE.FinetuneHParams(head_type="sngp"),
-               TE.FinetuneHParams(masked_position_prob=0.1)):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(head_type="sngp"), lr)
+    for hp, match in ((TE.FinetuneHParams(update_freq=2), "update_freq"),
+                      (TE.FinetuneHParams(masked_position_prob=0.1), "has_masking")):
+        with pytest.raises(ValueError, match=match):
             TE.make_finetune_train_step(model, opt, hp, lr)

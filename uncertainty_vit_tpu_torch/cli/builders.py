@@ -287,8 +287,9 @@ def build_optimizer(args, model: torch.nn.Module, depth: int) -> LayerDecayAdamW
     """AdamW over the model's parameters with the flags' weight decay (not
     on pos_embed, cls_token, ≤ 1-D parameters, nor, with
     --disable_weight_decay_on_rel_pos_bias, the rel-pos tables), clip,
-    betas, eps and --layer_decay (below 1: per-layer lr scales). Another
-    --opt raises."""
+    betas, eps, --layer_decay (below 1: per-layer lr scales) and
+    --update_freq (the mini-steps accumulated per update). Another --opt
+    raises."""
     skip = ["pos_embed", "cls_token"]
     if getattr(args, "disable_weight_decay_on_rel_pos_bias", False):
         skip.append("relative_position_bias_table")
@@ -296,20 +297,24 @@ def build_optimizer(args, model: torch.nn.Module, depth: int) -> LayerDecayAdamW
         model, opt_name=args.opt, skip_names=tuple(skip), weight_decay=args.weight_decay,
         clip_grad=args.clip_grad, betas=tuple(args.opt_betas), eps=args.opt_eps,
         layer_decay=args.layer_decay if args.layer_decay < 1.0 else None, depth=depth,
+        update_freq=max(1, args.update_freq),
     )
 
 
 def build_loaders(
     args, is_train: bool, triplet: bool = False, letterbox_ok: bool = False,
     pad_shards: bool | None = None, shuffle: bool | None = None,
-    drop_last: bool | None = None,
+    drop_last: bool | None = None, host: Optional[Tuple[int, int]] = None,
 ) -> Tuple[BatchLoader, int]:
     """(loader, class count) of a split. letterbox_ok: only callers whose
     augmentation consumes the per-sample valid extents may enable
     --decode_letterbox; everywhere else the letterboxed canvas would be
     treated as fully valid, so the flag raises there. Each process loads
-    its shard (``host_shard``). The JAX package's forced shard padding under
-    --seq_parallel comes with the sequence-parallel driver (slice 7b)."""
+    its shard: ``host`` = (host_id, num_hosts), by default ``host_shard()``'s.
+    The sequence-parallel driver passes (0, 1): its ranks split the tokens
+    of the same batches. The JAX package's forced shard padding under
+    --seq_parallel applies where a data axis spans processes, which the
+    port does not have yet (ROADMAP.md item 21)."""
     letterbox_requested = getattr(args, "decode_letterbox", False)
     if letterbox_requested and is_train and not letterbox_ok:
         raise ValueError(
@@ -331,7 +336,7 @@ def build_loaders(
         data_set_filter_file=getattr(args, "data_set_filter_file", None) if is_train else None,
         seed=args.seed,
     )
-    host_id, num_hosts = host_shard()
+    host_id, num_hosts = host or host_shard()
     loader = BatchLoader(
         dataset, args.batch_size,
         shuffle=is_train if shuffle is None else shuffle, seed=args.seed,

@@ -10,34 +10,42 @@ run_class_finetuning.py.
 
 Ported: the train loop (``main`` without ``--eval``, JAX :580-790): the
 train split's uint8 batches onto the device, the train transform there
-(random resized crop, flip, RandAugment or colour jitter, erasing), batch
-mixup, AdamW with layer decay and its schedules, --linear_classifier
+(random resized crop, flip, RandAugment or colour jitter, erasing), mixup
+in batch, elem or pair mode (with ``--cutmix_minmax``), on-the-fly token
+masking (``--masked_position_prob``), AdamW with layer decay and its
+schedules, gradient accumulation (``--update_freq``), --linear_classifier
 freezing, --finetune / --resume / --auto_resume / --start_epoch, the 2-deep
 deferred readback of the metrics with the NaN abort, each epoch's
 evaluation, log.txt and checkpoint-{N,best}.pth. The evaluation from images
 (``--eval``): the split's loader, uint8 batches onto the device, the eval
 resize and crop there, then plain evaluation, ``--mc_dropout`` or
 ``--ensembles`` (run_class_finetuning.py:638-677), printing the JAX
-driver's JSON dict. ``main`` takes ``device`` (the card by default; the
-tests pass "cpu"); the JAX driver has no such flag, and neither has this
-one.
+driver's JSON dict. ``--seq_parallel S`` (JAX :185-197, context
+parallelism for 384/512 inputs) runs either on S ranks (``run_rank``
+through ``parallel.seq.run_ranks``, one gloo group) that share ``device``,
+each holding a slice of every image's tokens and reading the same batches;
+rank 0 alone prints, writes log.txt and the checkpoints, and returns its
+result. ``main`` takes ``device`` (the card by default; the tests pass
+"cpu"); the JAX driver has no such flag, and neither has this one.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: ``--seq_parallel`` > 1, ``--update_freq`` > 1, mixup modes
-elem / pair, ``--cutmix_minmax`` and ``--masked_position_prob`` (slice 7c),
-``--corrupted_data`` / ``--perturbed_data``, ``--laplace``,
+that ports it: ``--corrupted_data`` / ``--perturbed_data``, ``--laplace``,
 ``--temp_scaling`` and ``--visualize_embedding`` (slice 8), ``--stochastic``
-(slice 11), the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer
-other than adamw, and a ``--finetune``, ``--resume`` or ensemble member that
-is not a ``.pth``.
+(slice 11), ``--mc_dropout`` under ``--seq_parallel`` (item 21), the flags
+of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer other than adamw, and
+a ``--finetune``, ``--resume`` or ensemble member that is not a ``.pth``.
+Attention dropout in training under ``--seq_parallel`` raises
+``ValueError``, as the JAX package's attention does.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
-from typing import Callable, Dict, List
+import os
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -54,6 +62,7 @@ from uncertainty_vit_tpu_torch.ops.augment import (
     IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD,
     eval_transform_batch, make_finetune_train_augment, normalize, to_float,
 )
+from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.engine_finetune import (
     FinetuneHParams, init_finetune_state, make_finetune_train_step, step_generators,
 )
@@ -80,8 +89,8 @@ def get_args_parser():
     g.add_argument("--nb_classes", type=int, default=0, help="0 = infer from dataset")
     g.add_argument("--seq_parallel", type=int, default=1,
                    help="context-parallel factor: split the tokens of each "
-                        "image over that many ranks (384/512 scaling); not "
-                        "ported to this driver yet (slice 7c)")
+                        "image over that many ranks (384/512 scaling), gloo "
+                        "ranks sharing the one card")
     g.add_argument("--mixup", type=float, default=0.8)
     g.add_argument("--cutmix", type=float, default=1.0)
     g.add_argument("--mixup_prob", type=float, default=1.0)
@@ -203,22 +212,22 @@ def _aa_kwargs(args) -> Dict:
     return {"auto_augment": True, "aa_magnitude": mag, "aa_magnitude_std": mstd}
 
 
-def build_model(args, nb_classes: int, device=None):
+def build_model(args, nb_classes: int, device=None, seq_group: Optional[seq.SeqGroup] = None):
     """(model, config) of the flags, its parameters drawn from a generator
-    seeded with ``--seed`` on ``device`` (the card by default)."""
+    seeded with ``--seed`` on ``device`` (the card by default); with
+    ``seq_group`` (``--seq_parallel``) this rank's share of the tokens."""
     cfg = B.model_config_from_args(args, nb_classes)
     if getattr(args, "masked_position_prob", 0.0) > 0:
-        raise B.not_ported("masked_position_prob", "token masking", "item 13, slice 7c")
+        cfg = cfg.replace(has_masking=True)
     if getattr(args, "target_layer", -1) != -1 and not args.learn_layer_weights:
         cfg = cfg.replace(depth=args.target_layer + 1)
     if getattr(args, "remove_final_norm", False):
         cfg = cfg.replace(remove_final_norm=True)
-    if getattr(args, "seq_parallel", 1) > 1:
-        raise B.not_ported("seq_parallel", "the sequence-parallel driver "
-                           "(parallel/seq.py:run_ranks)", "slice 7c")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen), cfg
+    model = VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen,
+                              seq_group=seq_group)
+    return model, cfg
 
 
 def _eval_prep(images_u8, args, device: torch.device) -> torch.Tensor:
@@ -340,17 +349,16 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     return results
 
 
-def _check_train_flags(args) -> None:
-    """The train loop's flags that are not ported yet raise (slice 7c)."""
-    if getattr(args, "seq_parallel", 1) > 1:
-        raise B.not_ported("seq_parallel", "the sequence-parallel train loop "
-                           "(parallel/seq.py:run_ranks)", "slice 7c")
-    if args.update_freq > 1:
-        raise B.not_ported("update_freq", "gradient accumulation", "item 13, slice 7c")
-    if args.mixup_mode != "batch":
-        raise B.not_ported("mixup_mode", f"mixup mode {args.mixup_mode!r}", "item 13, slice 7c")
-    if args.cutmix_minmax:
-        raise B.not_ported("cutmix_minmax", "the cutmix box bounds", "item 13, slice 7c")
+def _check_seq_flags(args) -> None:
+    """What --seq_parallel does not run raises before the ranks start: the
+    MC-dropout evaluation (not ported under a seq group) and attention
+    dropout in training (the JAX package's attention refuses it,
+    models/layers.py:353-358)."""
+    if args.eval and args.mc_dropout:
+        raise B.not_ported("mc_dropout", "MC-dropout under --seq_parallel", "item 21")
+    if not args.eval and args.attn_drop_rate > 0:
+        raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel dropout "
+                         "seeds are not defined across re-sharded grids)")
 
 
 def _start_metrics_readback(metrics: Dict[str, object]):
@@ -369,12 +377,17 @@ def _finish_metrics(pending) -> Dict[str, float]:
     return {k: values[k] if k in values else float(v) for k, v in metrics.items()}
 
 
-def train(args, device: torch.device, val_loader, nb_classes: int):
+def train(args, device: torch.device, val_loader, nb_classes: int,
+          seq_group: Optional[seq.SeqGroup] = None):
     """The train loop (JAX cli/finetune.py:580-790, non-stochastic): epochs
     of augmented steps from the train split, each followed by an evaluation,
-    log.txt and checkpoints. Returns the train state."""
-    model, cfg = build_model(args, nb_classes, device)
-    train_loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True)
+    log.txt and checkpoints. Returns the train state. Under ``seq_group``
+    every rank runs it on the same batches and draws; rank 0 alone writes
+    the files, and the ranks' parameters are held equal after each epoch."""
+    model, cfg = build_model(args, nb_classes, device, seq_group)
+    writes = seq_group is None or seq_group.rank == 0
+    train_loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True,
+                                      host=None if seq_group is None else (0, 1))
     steps_per_epoch = args.steps_per_epoch or len(train_loader)
     lr_schedule, wd_schedule, _ = B.build_lr_schedules(args, steps_per_epoch)
     missing = load_variables(args, model)
@@ -419,8 +432,9 @@ def train(args, device: torch.device, val_loader, nb_classes: int):
         # reference's it = epoch * steps_per_epoch
         state.step = start_epoch * steps_per_epoch
 
-    tb = TensorboardLogger(args.log_dir or args.output_dir)
-    jsonl = JsonlLogger(args.output_dir)
+    save_ckpt = args.save_ckpt and args.output_dir and writes
+    tb = TensorboardLogger(args.log_dir or args.output_dir if writes else None)
+    jsonl = JsonlLogger(args.output_dir) if writes else None
     best_acc = -1.0
     eval_forward = E.make_eval_forward(model, het=args.het_layer)
 
@@ -460,6 +474,8 @@ def train(args, device: torch.device, val_loader, nb_classes: int):
         while pending:
             drain_one()
 
+        if seq_group is not None:
+            seq.check_equal_on_ranks(model.parameters(), seq_group, "the parameters")
         test = None
         if not args.disable_eval_during_finetuning:
             test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
@@ -470,23 +486,53 @@ def train(args, device: torch.device, val_loader, nb_classes: int):
                 f"{k}={v:.4f}" for k, v in sorted(test.items())), flush=True)
             if test["acc1"] > best_acc:
                 best_acc = test["acc1"]
-                if args.save_ckpt and args.output_dir:
+                if save_ckpt:
                     C.save_checkpoint(args.output_dir, "best", state, epoch)
             record.update({f"test_{k}": v for k, v in test.items()})
             record["best_acc1"] = best_acc
-        jsonl.write(record)
-        if args.save_ckpt and args.output_dir and (
-                (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
+        if jsonl is not None:
+            jsonl.write(record)
+        if save_ckpt and ((epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
             C.save_checkpoint(args.output_dir, epoch, state, epoch)
         tb.flush()
     print(f"done. best acc1 {best_acc:.3f}", flush=True)
     return state
 
 
+def _run(args, device: torch.device, seq_group: Optional[seq.SeqGroup] = None):
+    """The driver's body on one process (one rank under ``seq_group``)."""
+    print(f"device: {device}", flush=True)
+    host = None if seq_group is None else (0, 1)
+    val_loader, nb_classes = B.build_loaders(args, is_train=False, host=host)
+    nb_classes = args.nb_classes or nb_classes
+    if not args.eval:
+        return train(args, device, val_loader, nb_classes, seq_group)
+    model, _ = build_model(args, nb_classes, device, seq_group)
+    load_variables(args, model)
+    return run_eval_dispatch(args, model, val_loader, nb_classes)
+
+
+def run_rank(group: seq.SeqGroup, args, device: str):
+    """One rank of --seq_parallel (``parallel.seq.run_ranks`` calls it in
+    each process of the group): the driver's body on ``device`` with this
+    rank's share of the tokens. Rank 0 prints and returns its result; the
+    others print nothing and return None."""
+    setup(bounded_scores_default=True)
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if group.rank == 0:
+        return _run(args, device, group)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        _run(args, device, group)
+    return None
+
+
 def main(args, device=None):
     """Run the driver on ``device`` (the card unless the caller asks for the
     CPU): with --eval the evaluation, returning its results dict; else the
-    train loop, returning the train state."""
+    train loop, returning the train state. --seq_parallel S runs it on S
+    ranks sharing ``device`` and returns rank 0's."""
     # bounded-scores attention by default: finetuning starts from a trained
     # backbone (cli/common.py)
     setup(bounded_scores_default=True)
@@ -498,17 +544,11 @@ def main(args, device=None):
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
-    if not args.eval:
-        _check_train_flags(args)
     device = resolve_device(device)
-    print(f"device: {device}", flush=True)
-    val_loader, nb_classes = B.build_loaders(args, is_train=False)
-    nb_classes = args.nb_classes or nb_classes
-    if not args.eval:
-        return train(args, device, val_loader, nb_classes)
-    model, _ = build_model(args, nb_classes, device)
-    load_variables(args, model)
-    return run_eval_dispatch(args, model, val_loader, nb_classes)
+    if args.seq_parallel > 1:
+        _check_seq_flags(args)
+        return seq.run_ranks(run_rank, args.seq_parallel, args, str(device))[0]
+    return _run(args, device)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,13 @@ so that its parameters sit at the top level under the reference's torch
 names (``cls_token``, ``blocks.0.attn.qkv.weight``, ``fc_norm.weight``, ...),
 which is where ``export_torch_state_dict`` of the JAX package puts them.
 
+``cfg.has_masking`` registers the ``mask_token`` of on-the-fly token
+masking (the reference's finetune masking, modeling_finetune.py:482-486):
+``forward(..., bool_masked_pos=...)`` blends it into the masked patch
+tokens in training; the evaluation ignores the mask.
+
 Not ported yet (they raise): the SNGP and heteroscedastic heads, the
-spectral-norm fc_norm, attention variants other than softmax and masking.
+spectral-norm fc_norm, attention variants other than softmax.
 ``cfg.quant="int8"`` runs the trunk's dense layers through
 ``ops.quant.int8_dense`` on [B, N, C] activations; the reference's flat
 [B·N, C] trunk (models/vit.py:118-135) works around layout copies of its
@@ -60,8 +65,6 @@ class ViTBackbone(nn.Module):
                  seq_group: Optional[seq.SeqGroup] = None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.has_masking:
-            raise NotImplementedError("token masking is not ported yet")
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
         self.cfg, self.dtype, self.seq_group = cfg, dtype, seq_group
@@ -96,6 +99,11 @@ class ViTBackbone(nn.Module):
             )
             for i in range(cfg.depth)
         )
+        # drawn after the blocks, so that the backbone's other parameters are
+        # drawn as without masking; it acts on token rows (JAX
+        # models/vit.py:91-92)
+        self.mask_token = (_param((1, 1, cfg.embed_dim), tn, device, generator)
+                           if cfg.has_masking else None)
         # every parameter registered so far acts on token rows; those a
         # subclass adds after this (the pooled feature's norm, the head) do not
         self._token_names = frozenset(name for name, _ in self.named_parameters())
@@ -109,13 +117,19 @@ class ViTBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
+                bool_masked_pos: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
         active = _active(self, deterministic)
         shard = self.seq_shard
         if shard is not None and mc_samples > 0:
             raise NotImplementedError("MC-dropout under a seq group is not ported yet")
         x = self.patch_embed(images.to(self.dtype))
-        b, _, c = x.shape
+        b, n, c = x.shape
+        if self.mask_token is not None and bool_masked_pos is not None and active:
+            # masked patches become the mask token (w = 1), only in training
+            # (mask_only_when_training, JAX models/vit.py:93-98)
+            w = bool_masked_pos.reshape(b, n, 1).to(self.dtype)
+            x = x * (1.0 - w) + self.mask_token.to(self.dtype) * w
         x = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, c), x], dim=1)
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(self.dtype)
@@ -173,15 +187,19 @@ class VisionTransformer(ViTBackbone):
 
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
+                bool_masked_pos: Optional[torch.Tensor] = None,
                 ) -> torch.Tensor:
         """images [B, H, W, C] → f32 logits [B, classes], or [K, B, classes]
         with ``mc_samples=K`` (the split-trunk MC-dropout forward, see
         ``ViTBackbone``). Every random draw (drop-path, dropout masks and
         seeds) comes from ``generator``, on the images' device; a forward
-        draws in train mode, or as ``deterministic`` says when given."""
+        draws in train mode, or as ``deterministic`` says when given.
+        ``bool_masked_pos`` [B, num_patches] (1 = masked) applies where the
+        forward draws, with ``cfg.has_masking``."""
         if mc_samples > 0:
             assert not self.cfg.learn_layer_weights, "mc split incompatible with layer weights"
-        x, layer_xs, _ = super().forward(images, generator, deterministic, mc_samples, mc_split)
+        x, layer_xs, _ = super().forward(images, generator, deterministic, mc_samples, mc_split,
+                                         bool_masked_pos)
         feat = self._pool(x, layer_xs)
         logits = F.linear(feat.float(), self.head.weight, self.head.bias)
         if mc_samples > 0:

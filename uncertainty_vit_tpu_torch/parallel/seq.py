@@ -7,7 +7,8 @@ group, and the ranks meet only in the attention's k/v all-gather
 the gradient sum of the train step. Where JAX lets GSPMD place those
 collectives, the port names them: ``gather_tokens`` (its backward the
 reduce-scatter), ``all_reduce_sum`` (the pooling, identity backward) and
-``all_reduce_grads``.
+``all_reduce_grads``; ``check_equal_on_ranks`` holds the ranks' copies of
+what must agree (the driver's parameters after each epoch).
 
 The collectives run on any backend ``torch.distributed`` was started with.
 On one card the ranks share it over gloo, whose process group carries CUDA
@@ -26,7 +27,7 @@ import queue as queue_lib
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -146,6 +147,19 @@ def all_reduce_grads(params: Sequence[torch.Tensor], group: SeqGroup) -> None:
         for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
             g.copy_(part.view_as(g))
         i = j
+
+
+def check_equal_on_ranks(tensors: Iterable[torch.Tensor], group: SeqGroup, what: str) -> None:
+    """Raises unless every rank holds the same values: each tensor's f64 sum
+    of its elements and of their squares, gathered and compared exactly."""
+    t = [x.detach().double() for x in tensors]
+    digest = torch.stack([torch.stack([x.sum() for x in t]),
+                          torch.stack([(x * x).sum() for x in t])])
+    parts = [torch.empty_like(digest) for _ in range(group.size)]
+    dist.all_gather(parts, digest, group=group.group)
+    differ = [r for r, p in enumerate(parts) if not torch.equal(p, parts[0])]
+    if differ:
+        raise RuntimeError(f"{what} differ between rank 0 and ranks {differ} of the seq group")
 
 
 def _rank_main(fn, rank, size, init_method, args, results, timeout):

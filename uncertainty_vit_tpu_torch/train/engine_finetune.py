@@ -4,12 +4,14 @@ Counterpart of uncertainty_vit_tpu/train/engine_finetune.py:25-182
 (engine_for_finetuning.py:46-220 of the reference) for the linear head:
 optionally the train augmentation of a uint8 batch on the device (``aug_fn``)
 → mixup/cutmix on the device → a bf16 forward on f32 parameters in train
-mode → soft-target CE in f32 → backward (through the attention kernels K1/K2
-on the card) → AdamW with layer decay → optional EMA. Every random draw comes
-from a generator the caller passes; ``step_generators`` makes them from
-(seed, step), as the JAX step folds the step into its key, so that a resumed
-run draws what an uninterrupted one draws. Gradient accumulation, token
-masking and the SNGP / heteroscedastic heads are not ported yet (they raise).
+mode, optionally with on-the-fly token masking → soft-target CE in f32 →
+backward (through the attention kernels on the card) → AdamW with layer
+decay, optionally accumulating ``update_freq`` mini-steps' gradients per
+update (optax.MultiSteps) → optional EMA on the update boundaries. Every
+random draw comes from a generator the caller passes; ``step_generators``
+makes them from (seed, step), as the JAX step folds the step into its key,
+so that a resumed run draws what an uninterrupted one draws. The SNGP /
+heteroscedastic heads are not ported yet (they raise).
 """
 
 from __future__ import annotations
@@ -45,16 +47,20 @@ class FinetuneHParams:
     cutmix_minmax: Optional[Tuple[float, float]] = None
     # criterion when mixup is off: 'smooth' | 'ce'
     criterion: str = "smooth"
+    # on-the-fly token masking (engine_for_finetuning.py:80-82)
     masked_position_prob: float = 0.0
     model_ema_decay: float = 0.9999
     head_type: str = "linear"
+    # gradient accumulation: the optimizer's; the EMA and the schedules count
+    # updates (engine_for_finetuning.py:66, 110-127)
     update_freq: int = 1
 
 
 @dataclasses.dataclass
 class FinetuneState:
-    """The model (f32 parameters), its optimizer, the number of updates
-    taken, and an optional EMA copy of the parameters."""
+    """The model (f32 parameters), its optimizer, the number of mini-steps
+    taken (updates × update_freq), and an optional EMA copy of the
+    parameters."""
 
     model: nn.Module
     optimizer: LayerDecayAdamW
@@ -125,10 +131,16 @@ def make_finetune_train_step(
     draws free of device syncs) draws mixup. With ``aug_fn`` the images are
     the raw uint8 batch on the device, and aug_fn(aug_generator, images,
     valid_hw) makes the normalized f32 images first (JAX :88-90; valid_hw:
-    the letterboxed extents, [B, 2], or None). lr and wd are read at the
-    update index, as the optax schedules count updates. ``wd_schedule``
-    defaults to the optimizer's constant weight decay. Nothing in the step
-    reads a value back to the host.
+    the letterboxed extents, [B, 2], or None). With
+    ``hp.masked_position_prob`` > 0 the step draws a Bernoulli mask
+    [B, num_patches] from ``generator`` after mixup (JAX :105-109) and the
+    model blends its mask token into those patches. With ``hp.update_freq``
+    k > 1 (the optimizer's own) the parameters move on every k-th call only,
+    from the mean of the k calls' gradients; each call reports its own
+    gradient's norm. lr and wd are read at the update index, step // k, as
+    the optax schedules count updates. ``wd_schedule`` defaults to the
+    optimizer's constant weight decay. Nothing in the step reads a value
+    back to the host.
 
     A model built with a ``seq_group`` holds each image's tokens split over
     the group's ranks: every rank calls the step on the same batch with
@@ -136,10 +148,11 @@ def make_finetune_train_step(
     ``model.token_parameters()`` are summed over the group before the
     optimizer reads them, what GSPMD does for the reference's step
     (tests/test_seq_parallel.py:58-92)."""
-    if hp.update_freq != 1:
-        raise NotImplementedError("gradient accumulation (update_freq > 1) is not ported yet")
-    if hp.masked_position_prob > 0:
-        raise NotImplementedError("on-the-fly token masking is not ported yet")
+    if hp.update_freq != optimizer.update_freq:
+        raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
+                         f"{optimizer.update_freq}")
+    if hp.masked_position_prob > 0 and getattr(model, "mask_token", None) is None:
+        raise ValueError("masked_position_prob > 0 needs a model with cfg.has_masking")
     if hp.head_type != "linear":
         raise NotImplementedError(f"head_type {hp.head_type!r} is not ported yet")
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
@@ -153,15 +166,21 @@ def make_finetune_train_step(
                 raise ValueError("the train augmentation draws from an explicit aug_generator")
             images = aug_fn(aug_generator, images, valid_hw)
         images, targets = _targets(hp, images, labels, mix_generator)
+        bool_masked_pos = None
+        if hp.masked_position_prob > 0:
+            shape = (images.shape[0], model.cfg.num_patches)
+            bool_masked_pos = (torch.rand(shape, generator=generator, device=images.device)
+                               < hp.masked_position_prob).float()
         model.train()
-        logits = model(images, generator=generator)
+        logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos)
         loss = L.soft_target_cross_entropy(logits, targets)
         optimizer.zero_grad()
         loss.backward()
         if getattr(model, "seq_group", None) is not None:
             seq.all_reduce_grads(model.token_parameters(), model.seq_group)
-        lr = lr_schedule(state.step)
-        grad_norm = optimizer.step(lr, wd_schedule(state.step))
+        update = state.step // hp.update_freq
+        lr = lr_schedule(update)
+        grad_norm = optimizer.step(lr, wd_schedule(update))
         if state.model_ema is not None:
             state.model_ema = ema_on_update_boundary(
                 lambda: ema_update(state.model_ema, dict(model.named_parameters()),

@@ -15,13 +15,20 @@ wd(step) (0 where undecayed), and AdamW's p ← p − lr·wd·p − lr·adam(g) 
 same update. Linear-probe freezing zeroes the final update of the frozen
 parameters, as the JAX package's wrapper does: their gradients still enter
 the global norm, its clip and Adam's moments, and a frozen group's lr is 0
-(p·(1 − 0·wd) − 0·adam(g) leaves p as it was). The other optimizers and
-gradient accumulation are not ported yet (they raise).
+(p·(1 − 0·wd) − 0·adam(g) leaves p as it was).
+
+Gradient accumulation (``update_freq`` k > 1) is optax.MultiSteps around
+that chain, as the JAX package wraps it (:608-616): each call keeps an f32
+running mean of the gradients it is given, acc ← acc + (g − acc)/(n + 1),
+and leaves the parameters as they are; the k-th call hands the mean to
+the clip and AdamW (whose count, and the schedules' update index, advance
+once per update) and starts the mean afresh. The other optimizers are not
+ported yet (they raise).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -64,17 +71,25 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 class LayerDecayAdamW:
     """``torch.optim.AdamW`` over one param group per (lr_scale, decayed,
     trainable), with optional global-norm clipping of the gradients before
-    Adam.
+    Adam, and optional accumulation of ``update_freq`` calls' gradients.
 
-    ``step(lr, wd)`` applies one update at this step's schedule values and
-    returns the gradients' global norm before clipping."""
+    ``step(lr, wd)`` takes one mini-step's gradients and returns their global
+    norm; it applies an update at this update's schedule values where an
+    accumulation window ends (every call when ``update_freq`` is 1), with
+    the clip on the norm of the window's mean gradient."""
 
     def __init__(self, model: nn.Module, *, weight_decay: float = 0.05,
                  clip_grad: Optional[float] = None, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, layer_decay: Optional[float] = None, depth: int = 12,
-                 skip_names: Sequence[str] = ("pos_embed", "cls_token")):
+                 skip_names: Sequence[str] = ("pos_embed", "cls_token"), update_freq: int = 1):
+        if update_freq < 1:
+            raise ValueError(f"update_freq must be >= 1, got {update_freq}")
         self.weight_decay, self.clip_grad = weight_decay, clip_grad
         self._betas, self._eps = betas, eps
+        # MultiStepsState: the calls taken in this window, and the window's
+        # mean gradient (f32, in self.params' order; None before the first)
+        self.update_freq, self.mini_step = update_freq, 0
+        self._acc: Optional[List[torch.Tensor]] = None
         scales = (layer_decay_scales(model, layer_decay, depth)
                   if layer_decay is not None and layer_decay < 1.0 else None)
         decayed = weight_decay_mask(model, skip_names)
@@ -101,21 +116,60 @@ class LayerDecayAdamW:
     def step(self, lr: float, wd: float) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = global_norm(grads)
+        if self.update_freq > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            # optax.MultiSteps' running mean; a parameter without a gradient
+            # adds a zero
+            g = [p.grad.float() if p.grad is not None else torch.zeros_like(a)
+                 for p, a in zip(self.params, self._acc)]
+            delta = torch._foreach_sub(g, self._acc)
+            torch._foreach_div_(delta, self.mini_step + 1)
+            torch._foreach_add_(self._acc, delta)
+            boundary = self.mini_step == self.update_freq - 1
+            self.mini_step = (self.mini_step + 1) % self.update_freq
+            if not boundary:
+                return norm
+            for p, a in zip(self.params, self._acc):
+                p.grad = a
+            grads = self._acc
+            clip_norm = global_norm(grads)
+        else:
+            clip_norm = norm
         if self.clip_grad is not None and self.clip_grad > 0:
             # optax.clip_by_global_norm: g · max/‖g‖ where ‖g‖ ≥ max
-            coef = torch.where(norm < self.clip_grad, 1.0, self.clip_grad / norm)
+            coef = torch.where(clip_norm < self.clip_grad, 1.0, self.clip_grad / clip_norm)
             torch._foreach_mul_(grads, coef)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"] if group["trainable"] else 0.0
             group["weight_decay"] = wd if group["decayed"] and group["trainable"] else 0.0
         self.optimizer.step()
+        if self._acc is not None:
+            for p in self.params:
+                p.grad = None
+            torch._foreach_zero_(self._acc)
         return norm
 
     def state_dict(self) -> dict:
-        return self.optimizer.state_dict()
+        """AdamW's state dict; with accumulation also the window's count and
+        mean gradient (``"multi_steps"``)."""
+        state = self.optimizer.state_dict()
+        if self.update_freq > 1:
+            state["multi_steps"] = {"mini_step": self.mini_step, "acc": self._acc}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        multi = state.pop("multi_steps", None)
+        if (multi is None) != (self.update_freq == 1):
+            raise ValueError(f"the optimizer state was saved with{'' if multi else 'out'} "
+                             f"gradient accumulation; this run's update_freq is "
+                             f"{self.update_freq}")
         self.optimizer.load_state_dict(state)
+        if multi is not None:
+            self.mini_step = int(multi["mini_step"])
+            self._acc = (None if multi["acc"] is None else
+                         [a.to(p.device, torch.float32) for a, p in zip(multi["acc"], self.params)])
 
 
 def freeze_all_except(optimizer: LayerDecayAdamW, trainable_paths: Sequence[str]
@@ -126,7 +180,7 @@ def freeze_all_except(optimizer: LayerDecayAdamW, trainable_paths: Sequence[str]
     gradients in the norm, the clip and Adam's moments; their update is
     zeroed, as the JAX package zeroes the final update. Call before the
     first step."""
-    if optimizer.optimizer.state:
+    if optimizer.optimizer.state or optimizer._acc is not None:
         raise RuntimeError("freeze_all_except regroups the parameters: call it before a step")
     optimizer._group(lambda name: any(t in name for t in trainable_paths))
     return optimizer

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_TOP = {"cls_token", "pos_embed", "layer_log_weights"}
+_TOP = {"cls_token", "mask_token", "pos_embed", "layer_log_weights"}
 
 
 def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:

@@ -128,16 +128,19 @@ class MetricLogger:
 
 class TensorboardLogger:
     """Step-keeping TensorBoard writer (utils.py:180-201); does nothing when
-    torch.utils.tensorboard cannot be imported."""
+    torch.utils.tensorboard cannot be imported or ``log_dir`` is None."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str]):
+        self.writer = None
+        self.step = 0
+        if log_dir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
             self.writer = SummaryWriter(log_dir=log_dir)
         except Exception:
             self.writer = None
-        self.step = 0
 
     def set_step(self, step: Optional[int] = None):
         self.step = step if step is not None else self.step + 1
