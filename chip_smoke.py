@@ -243,6 +243,36 @@ kernels from the sources in this checkout, then:
            images at batch 16: K3 24 a forward, logits within phase 2's bound
            of the plain attention's. Prints the rates and times as
            information.
+  phase 19 slice 8 through the driver, phase 16's ViT-B/16 224 (100 classes)
+           from its .pth over seeded 32x32 CIFAR-100 images: (a) --sngp
+           training at batch 160, an epoch of 4 steps and its evaluation of
+           256 images (K1 and K2 12 a step, K1 12 an eval forward), step 0
+           within phase 4's bounds of the plain attention's, the precision
+           matrix within 1e-4 (of its largest entry) of a float64 CPU
+           recomputation from the pooled features the card produced, |u| =
+           |v| = 1 and the spectral estimate of the normalised fc_norm weight
+           <= 0.95; then --sngp_cov_momentum 0 --epochs 2 auto-resumes from
+           checkpoint-0.pth: the matrix is ridge·I before the first resumed
+           step and ridge·I + the float64 sum of the 2 steps after. (b)
+           --het_layer: 2 train steps, then --eval over 1024 images at batch
+           128 (K1 96): the logits equal between two runs of a seed and not
+           between seeds, the printed metrics equal to the CPU's from them;
+           prints its rate and --sngp's beside the plain --eval's, in turns.
+           (c) from the .pth over 256 images labelled by the model (80%
+           right): --temp_scaling on each split (T* as good a minimizer of
+           the CPU's NLL on the card's logits as the CPU's own fit;
+           the metrics at T* equal to the CPU's), --laplace probit and mc
+           fitted on 1024 train images (the factors and the predictive
+           against a float64 CPU recomputation from the card's features;
+           the printed metrics equal to the CPU's, the mc link's from the
+           card's softmax probabilities, as its tied k/32 probabilities
+           round apart between card and CPU; prints the fit's ms),
+           --corrupted_data over 3 distortions of 320 images
+           plain, --mc_dropout and --laplace, --perturbed_data over 2
+           perturbations of 16 videos x 8 frames plain and --mc_dropout
+           (each printed number equal to the CPU's from the card's logits,
+           K1 12 a forward, K8 24 a forward under --mc_dropout), and
+           --visualize_embedding (the TSVs the card's pooled features).
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -3863,6 +3893,631 @@ def phase18(torch, FA, dev, step_rates):
     return paths
 
 
+# Phase 19: the SNGP precision matrix after the driver's steps against a
+# float64 CPU recomputation from the pooled features the card produced (the
+# card forms φ and φᵀφ in f32 from the same features and parameters), relative
+# to its largest entry; the spectral estimate σ = u·(W_n v) of the normalised
+# fc_norm weight against the bound 0.95 (exactly 0.95 when it rescaled, in
+# f64 from the f32 buffers).
+PRECISION_REL_BOUND = 1e-4
+SIGMA_ATOL = 1e-5
+# The Laplace fit and predictive on the card against a float64 CPU
+# recomputation from the card's features: the factor sums A = Σ φ̃φ̃ᵀ and
+# G = Σ diag(p) − ppᵀ (through the card's eigendecompositions, relative to
+# their largest entries: f32 sums of 256 terms) and the predictive
+# log-probabilities on the card's factors (the mc draw depends on the
+# eigenvectors, and an f32 eigh moves the small eigenvalues of G and of a
+# rank-deficient A by ~1e-7 of the largest, which a float64 refit does not
+# share: its difference is printed, not bounded).
+LAPLACE_FACTOR_RTOL = 1e-5
+LAPLACE_ATOL = 1e-4
+# The mc link's draws f + Q_G(√s ⊙ ε) reach |f| ~ 1e3 where the prior
+# precision is small (s of the G eigenvector 1/√C is |φ̃|²/τ; it shifts every
+# class alike and cancels in the softmax, not in f32): the log-probabilities
+# are held within LAPLACE_ATOL plus 2^-17 (64 f32 ulps) of the largest draw.
+LAPLACE_MC_DRAW_RTOL = 2.0**-17
+# T*: a point of fit_temperature's final grid; where the fit set's NLL is flat
+# at its minimum, the card's f32 curve and the CPU's may pick other points.
+# The card's T* must then be as good a minimizer on the CPU: its NLL there
+# within TEMP_NLL_RTOL of the NLL at the CPU's own T*.
+TEMP_NLL_RTOL = 1e-5
+
+
+def laplace_f64(np, feats_fit, logits_fit, feats, logits, tau, link, eps=None, factors=None):
+    """The last-layer KFAC Laplace predictive in float64 on the CPU: the fit
+    (A = Σ φ̃φ̃ᵀ, G = Σ diag(p) − ppᵀ, their eigendecompositions) unless
+    ``factors`` = (q_a, a, q_g, g, n) are given, then the GLM predictive's
+    log-probabilities at prior precision tau, link probit or mc (draws eps
+    [S, B, C])."""
+    def aug(f):
+        f = np.asarray(f, np.float64)
+        return np.concatenate([f, np.ones((len(f), 1))], axis=1)
+
+    def log_softmax(x):
+        x = x - x.max(axis=-1, keepdims=True)
+        return x - np.log(np.exp(x).sum(axis=-1, keepdims=True))
+
+    if factors is None:
+        phi = aug(feats_fit)
+        p = np.exp(log_softmax(np.asarray(logits_fit, np.float64)))
+        a, q_a = np.linalg.eigh(phi.T @ phi)
+        g, q_g = np.linalg.eigh(np.diag(p.sum(0)) - p.T @ p)
+        factors = (q_a, np.clip(a, 0, None), q_g, np.clip(g, 0, None), len(phi))
+    q_a, a, q_g, g, n = (np.asarray(f, np.float64) if i < 4 else f for i, f in enumerate(factors))
+    s = (aug(feats) @ q_a) ** 2 @ (1.0 / (np.outer(g, a) / n + tau)).T
+    logits = np.asarray(logits, np.float64)
+    if link == "probit":
+        var = s @ (q_g ** 2).T
+        return log_softmax(logits / np.sqrt(1.0 + math.pi / 8.0 * var))
+    draws = logits[None] + (np.sqrt(s)[None] * np.asarray(eps, np.float64)) @ q_g.T
+    lp = log_softmax(draws)
+    m = lp.max(axis=0)
+    return m + np.log(np.exp(lp - m).sum(axis=0)) - math.log(len(lp))
+
+
+def phase19(torch, FA, dev):
+    """Slice 8 through the finetune driver on the card, ViT-B/16 224 at full
+    width and depth with a 100-class head from its .pth, over seeded 32x32
+    CIFAR-100 images: (a) --sngp training, (b) --het_layer training and
+    evaluation, (c) the post-hoc evaluations (--temp_scaling, --laplace,
+    --corrupted_data, --perturbed_data, --visualize_embedding). Returns the
+    launches of each path."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.data import datasets as D
+    from uncertainty_vit_tpu_torch.evals import calibration as CAL
+    from uncertainty_vit_tpu_torch.evals import laplace as LA
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals import robustness as R
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits, per_call_generator
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import eval_transform_batch
+
+    depth, bs_train, bs, spe = 12, 160, 128, 4
+    # the post-hoc fits take more images than the pooled feature's 768 + 1
+    # dimensions: below that the Laplace factor A is singular, the mc link's
+    # draws saturate into one-hot softmaxes, and their ties make the AUROC
+    # depend on the device's rounding
+    n_train, n_test, n_big, n_fit = 640, 256, 1024, 1024
+    n_c, n_vid, n_frames = 5 * 64, 16, 8
+    distortions, perturbations = ("gaussian_noise", "frost", "pixelate"), ("shot_noise", "tilt")
+    rs = np.random.RandomState(19)
+
+    def u8(n, *shape):
+        return rs.randint(0, 256, (n,) + shape, dtype=np.uint8)
+
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+    width = cfg.embed_dim
+
+    def counts():
+        # inside attention_on_plain the attention wrappers are plain
+        # functions, which count nothing
+        return kernel_counts(FA, TQ, DO) if hasattr(FA.fused_qkv_attention_bwd, "launches") else {}
+
+    want = {k: 0 for k in counts()}
+    paths = {}
+
+    def counted(path, expect, fn, *a, **k):
+        """fn(*a, **k) with the counts set to 0 before and read after, held
+        to ``expect`` (the kernels not named: 0)."""
+        reset_kernel_counts(FA, TQ, DO)
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        paths[path] = counts()
+        exp = dict(want, **expect)
+        print(f"  {path}: launches {paths[path]}", flush=True)
+        check(paths[path] == exp, f"{path} launched {paths[path]}, expected {exp}")
+        return out
+
+    def held_metrics(got, logits, labels, what, extra=(), probs=None, skip=()):
+        """Printed metrics against the same metrics of these logits
+        recomputed on the CPU; with ``probs`` the CPU's metrics read those
+        softmax probabilities in place of their own. Keys in ``skip`` are
+        not compared."""
+        softmax = M.softmax_probs
+        if probs is not None:
+            M.softmax_probs = lambda _: probs
+        try:
+            ref = {k: float(v) for k, v in M.classification_metrics(
+                torch.from_numpy(np.asarray(logits, np.float32)),
+                torch.from_numpy(np.asarray(labels))).items()}
+        finally:
+            M.softmax_probs = softmax
+        ref["loss"] = ref["nll"]
+        keys = sorted(set(got) - set(extra))
+        check(keys == sorted(ref), f"{what} metric keys {keys}")
+        for k, v in ref.items():
+            if k not in skip:
+                check(abs(got[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+                      f"{what} metric {k}: printed {got[k]}, recomputed on the CPU {v}")
+        return ref
+
+    def card():
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+
+    bounded, perturbation_list = FA.BOUNDED_SCORES, R.PERTURBATIONS
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            d_train, d_eval, d_big = (os.path.join(tmp, n) for n in ("train", "eval", "big"))
+            write_cifar100(d_train, u8(n_train, 32, 32, 3), np.arange(n_train) % 100, "train")
+            write_cifar100(d_train, u8(n_test, 32, 32, 3), np.arange(n_test) % 100, "test")
+            write_cifar100(d_big, u8(n_big, 32, 32, 3), np.arange(n_big) % 100, "test")
+            croot, proot = os.path.join(tmp, "cifar-c"), os.path.join(tmp, "cifar-p")
+            os.makedirs(croot)
+            os.makedirs(proot)
+            # 5 severities x 64 images each in the file's order; the
+            # 10,000-rows-a-severity layout (load_cifar_c) reads them all as
+            # severity 1
+            np.save(os.path.join(croot, "labels.npy"), np.arange(n_c) % 100)
+            for name in distortions:
+                np.save(os.path.join(croot, f"{name}.npy"), u8(n_c, 32, 32, 3))
+            for name in perturbations:
+                np.save(os.path.join(proot, f"{name}.npy"), u8(n_vid, n_frames, 32, 32, 3))
+            pth = os.path.join(tmp, "vitb.pth")
+            write_vitb_pth(torch, dev, cfg, pth, 190)
+            # the post-hoc evaluations' split: labels the .pth's own class for
+            # four images in five and another class for the fifth, so that it
+            # is right about 80% of the time and T* and the Laplace prior
+            # fall inside their grids (random labels would drive T* to the
+            # grid's top)
+            fit_u8, test_u8 = u8(n_fit, 32, 32, 3), u8(n_test, 32, 32, 3)
+            vit = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev)
+            vit.load_state_dict(torch.load(pth, map_location=dev, weights_only=False)["model"])
+            for split, x in (("train", fit_u8), ("test", test_u8)):
+                fwd = make_eval_forward(vit)
+                pred = torch.cat([fwd(eval_transform_batch(torch.from_numpy(x[i:i + bs]).to(dev),
+                                                           224, 224 / 256)).argmax(-1)
+                                  for i in range(0, len(x), bs)]).cpu().numpy()
+                wrong = (pred + 1 + np.arange(len(x)) % 99) % 100
+                write_cifar100(d_eval, x, np.where(np.arange(len(x)) % 5 == 4, wrong, pred), split)
+            del vit
+
+            def args_of(root, out, *extra):
+                return FT.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", root, "--num_workers", "8",
+                    "--finetune", pth, "--output_dir", os.path.join(tmp, out), *extra])
+
+            def train_args(out, *extra):
+                return args_of(d_train, out, "--batch_size", str(bs_train), "--save_ckpt_freq",
+                               "1", "--layer_decay", "0.65", "--drop_path", "0.1", *extra)
+
+            def eval_args(root, *extra):
+                return args_of(root, "eval_out", "--batch_size", str(bs), "--eval", *extra)
+
+            # ---------------- 19a: --sngp training ----------------
+            t19 = time.perf_counter()
+            # each SNGP head forward that updates the precision matrix: its
+            # input, its input norm's parameters and the matrix it found
+            records = []
+            make_step = FT.make_finetune_train_step
+
+            def hooking_make_step(model, *a, **k):
+                def record(mod, args, kwargs):
+                    if kwargs.get("update_cov"):
+                        ln = mod._gp_input_normalize_layer
+                        records.append((args[0].detach().float().clone(), ln.weight.detach().clone(),
+                                        ln.bias.detach().clone(),
+                                        mod.precision_matrix.detach().clone()))
+
+                model.head.register_forward_pre_hook(record, with_kwargs=True)
+                return make_step(model, *a, **k)
+
+            FT.make_finetune_train_step = hooking_make_step
+            try:
+                with watched_driver(torch, FT, counts) as rec:
+                    state = counted(
+                        "cli8_sngp_train", {"K1": depth * (spe + 2), "K2": depth * spe}, FT.main,
+                        train_args("sngp", "--sngp", "--epochs", "1", "--steps_per_epoch",
+                                   str(spe)))
+                    steps1 = list(rec["steps"])
+                    rec.pop("model")
+                for r in steps1:
+                    check(r["launches"] == dict(want, K1=depth, K2=depth),
+                          f"SNGP step {r['step']} launched {r['launches']}")
+                    check(math.isfinite(float(r["metrics"]["loss"])), "SNGP loss")
+                model = state.model
+                head = model.head
+                check(len(records) == spe, f"{len(records)} SNGP head updates, expected {spe}")
+                ridge = 1e-3 * np.eye(width)
+                check(np.array_equal(records[0][3].cpu().numpy(), ridge.astype(np.float32)),
+                      "the SNGP precision matrix did not start at ridge·I")
+                wrf = head._random_feature.weight.double().cpu().numpy()
+                brf = head._random_feature.bias.double().cpu().numpy()
+
+                def phi64(feat, w, b):
+                    x = feat.double().cpu().numpy()
+                    x = (x - x.mean(1, keepdims=True)) / np.sqrt(x.var(1, keepdims=True) + 1e-12)
+                    x = x * w.double().cpu().numpy() + b.double().cpu().numpy()
+                    return np.cos(x @ wrf.T + brf)
+
+                p64 = ridge.copy()
+                for feat, w, b, _ in records:
+                    phi = phi64(feat, w, b)
+                    p64 = 0.999 * p64 + 0.001 * (phi.T @ phi) / len(phi)
+                p_card = head.precision_matrix.double().cpu().numpy()
+                perr = float(np.abs(p_card - p64).max())
+                print(f"  19a precision matrix after {spe} steps vs a float64 CPU recomputation "
+                      f"from the card's pooled features: max|diff| {perr:.3e}, max|P| "
+                      f"{np.abs(p64).max():.3e} (bound {PRECISION_REL_BOUND} of it)", flush=True)
+                check(perr <= PRECISION_REL_BOUND * np.abs(p64).max(),
+                      "the SNGP precision matrix disagrees with the CPU's recomputation")
+                sn = model.fc_norm
+                u, v, w = sn.weight_u.double(), sn.weight_v.double(), sn.weight_orig.double()
+                w_n = w * min(1.0, 0.95 / float(u @ (w @ v)))  # the weight the forward applies
+                sigma = float(u @ (w_n @ v))
+                true_sigma = float(torch.linalg.matrix_norm(w_n, 2))
+                print(f"  19a spectral fc_norm: |u| {float(u.norm()):.7f}, |v| {float(v.norm()):.7f}"
+                      f", sigma = u.(W_n v) {sigma:.7f} (bound 0.95 + {SIGMA_ATOL}); the "
+                      f"normalised weight's largest singular value {true_sigma:.5f} (information: "
+                      f"{spe} power iterations from a random start)", flush=True)
+                check(abs(float(u.norm()) - 1) <= 1e-6 and abs(float(v.norm()) - 1) <= 1e-6,
+                      "u or v is not of unit norm")
+                check(sigma <= 0.95 + SIGMA_ATOL, f"sigma {sigma} above the bound")
+                blob = torch.load(os.path.join(tmp, "sngp", "checkpoint-0.pth"),
+                                  map_location="cpu", weights_only=False)
+                check(all(torch.equal(v_.cpu(), blob["model"][k])
+                          for k, v_ in model.state_dict().items()),
+                      "checkpoint-0.pth is not the trained model's state")
+                del state, model, head, sn
+
+                # step 0 on the plain attention: the same flags, state and draws
+                with watched_driver(torch, FT, counts) as rec:
+                    reset_kernel_counts(FA, TQ, DO)
+                    with attention_on_plain(torch, FA):
+                        FT.main(train_args("sngp_plain", "--sngp", "--epochs", "1",
+                                           "--steps_per_epoch", "1", "--no_save_ckpt",
+                                           "--disable_eval_during_finetuning", "--no_auto_resume"))
+                    torch.cuda.synchronize()
+                    check(counts() == want, "the plain-attention run launched a kernel")
+                    m_p = rec["steps"][0]["metrics"]
+                    rec.pop("model")
+                m_k = steps1[0]["metrics"]
+                loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+                gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+                print(f"  19a step 0, kernels vs plain attention: loss {loss_k:.6f} / "
+                      f"{loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+                check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+                      "19a's first loss disagrees with the plain attention's")
+                check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+                      "19a's first grad norm disagrees with the plain attention's")
+
+                # --sngp_cov_momentum 0, --epochs 2: auto-resumes from
+                # checkpoint-0.pth and restarts the precision matrix at epoch 1
+                records.clear()
+                state = counted(
+                    "cli8_sngp_exact_resume", {"K1": depth * (2 + 2), "K2": depth * 2}, FT.main,
+                    train_args("sngp", "--sngp", "--epochs", "2", "--steps_per_epoch", "2",
+                               "--sngp_cov_momentum", "0"))
+                head = state.model.head
+                check(state.step == spe + 2 and len(records) == 2, f"resumed state step "
+                      f"{state.step}, {len(records)} head updates")
+                # the precision matrix the first resumed step found: ridge·I
+                # (checkpoint-0.pth's was not), then the exact sum
+                check(np.array_equal(records[0][3].cpu().numpy(), ridge.astype(np.float32)),
+                      "the precision matrix was not reset at the start of epoch 1")
+                p64 = ridge.copy()
+                for feat, w, b, _ in records:
+                    phi = phi64(feat, w, b)
+                    p64 = p64 + phi.T @ phi
+                p_card = head.precision_matrix.double().cpu().numpy()
+                perr = float(np.abs(p_card - p64).max())
+                saved = blob["model"]["head.precision_matrix"].double().numpy()
+                print(f"  19a exact accumulation after the reset: max|diff| {perr:.3e} against "
+                      f"ridge·I + the float64 sum over the 2 resumed steps (max|P| "
+                      f"{np.abs(p64).max():.3e}); checkpoint-0.pth's matrix differed from "
+                      f"ridge·I by {np.abs(saved - ridge).max():.3e}", flush=True)
+                check(perr <= PRECISION_REL_BOUND * np.abs(p64).max(),
+                      "the exact SNGP precision matrix disagrees with ridge·I + the CPU's sum")
+                check(np.abs(saved - ridge).max() > 0 and records[0][0].shape == (bs_train, width),
+                      "checkpoint-0.pth's precision matrix, the head's input")
+                del state, head, blob
+            finally:
+                FT.make_finetune_train_step = make_step
+            records.clear()
+            print(f"  19a took {time.perf_counter() - t19:.1f} s", flush=True)
+
+            # ---------------- 19b: --het_layer ----------------
+            t19 = time.perf_counter()
+            with watched_driver(torch, FT, counts) as rec:
+                counted("cli8_het_train", {"K1": depth * 2, "K2": depth * 2}, FT.main,
+                        train_args("het", "--het_layer", "--epochs", "1", "--steps_per_epoch", "2",
+                                   "--no_save_ckpt", "--disable_eval_during_finetuning"))
+                het_losses = [float(r["metrics"]["loss"]) for r in rec["steps"]]
+                rec.pop("model")
+            check(len(het_losses) == 2 and all(math.isfinite(x) for x in het_losses),
+                  f"het losses {het_losses}")
+            hargs = eval_args(d_big, "--het_layer")
+            res = counted("cli8_het_evaluate", {"K1": depth * n_big // bs}, FT.main, hargs)["eval"]
+            model, _ = FT.build_model(hargs, 100, dev)
+            FT.load_variables(hargs, model)
+            loader, _ = B.build_loaders(hargs, is_train=False)
+
+            def het_logits(seed):
+                fwd, fresh = make_eval_forward(model, het=True), per_call_generator(seed, dev)
+                return collect_logits(lambda x: fwd(x, fresh()), FT._eval_batches(loader, hargs,
+                                                                                  dev))
+
+            (l0, lab), (l0b, _), (l1, _) = het_logits(0), het_logits(0), het_logits(1)
+            check(np.array_equal(l0, l0b), "the het logits differ between two runs of one seed")
+            check(not np.array_equal(l0, l1), "the het logits are equal under two seeds")
+            check(l0.shape == (n_big, 100) and np.isfinite(l0).all() and (l0 <= 0).all(),
+                  "the het log-probabilities")
+            held_metrics(res, l0, lab, "--het_layer --eval")
+            print(f"  19b het logits: equal between two runs of seed 0, max|diff| to seed 1 "
+                  f"{np.abs(l0 - l1).max():.3e}; printed metrics equal to the CPU's from them; "
+                  f"train losses {het_losses}", flush=True)
+            # the rates of run_eval_dispatch over the same 1024 images, in turns
+            sargs, pargs = eval_args(d_big, "--sngp"), eval_args(d_big)
+            models = {"het": (hargs, model)}
+            for name, a in (("sngp", sargs), ("plain", pargs)):
+                m, _ = FT.build_model(a, 100, dev)
+                FT.load_variables(a, m)
+                models[name] = (a, m)
+            walls = {k: [] for k in models}
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                for name in ("plain", "het", "sngp", "sngp", "het", "plain"):
+                    a, m = models[name]
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    FT.run_eval_dispatch(a, m, loader, 100)
+                    torch.cuda.synchronize()
+                    walls[name].append(time.perf_counter() - t)
+            rates = {k: [round(n_big / w, 1) for w in v] for k, v in walls.items()}
+            print(f"  19b --eval from images over {n_big} images at batch {bs} (information only;"
+                  f" {card()}; run_eval_dispatch, in turns): img/s {json.dumps(rates)}", flush=True)
+            del model, models, loader
+            print(f"  19b took {time.perf_counter() - t19:.1f} s", flush=True)
+
+            # ---------------- 19c: the post-hoc evaluations ----------------
+            t19 = time.perf_counter()
+            nb, nfit = n_test // bs, n_fit // bs
+            pargs = eval_args(d_eval)
+            model, _ = FT.build_model(pargs, 100, dev)
+            FT.load_variables(pargs, model)
+            loader, _ = B.build_loaders(pargs, is_train=False)
+            logits, lab = collect_logits(make_eval_forward(model), FT._eval_batches(loader, pargs,
+                                                                                    dev))
+            fit_logits, fit_lab = collect_logits(make_eval_forward(model), FT._eval_batches(
+                FT._fit_loader(pargs), pargs, dev))
+
+            # --temp_scaling on each split
+            for split, extra, n_fwd in (("eval", [], nb), ("train", [], nb + nfit),
+                                        ("heldout", ["--temp_scaling_heldout_frac", "0.25"], nb)):
+                res = counted(f"cli8_temp_{split}", {"K1": depth * n_fwd}, FT.main, eval_args(
+                    d_eval, "--temp_scaling", "--temp_scaling_split", split, *extra))
+                res = res["temp_scaling"]
+                rep_l, rep_y, fl, fy = logits, lab, logits, lab
+                if split == "train":
+                    fl, fy = fit_logits, fit_lab
+                elif split == "heldout":
+                    fi, ri = CAL.heldout_split(n_test, 0.25, pargs.seed)
+                    fl, fy, rep_l, rep_y = logits[fi], lab[fi], logits[ri], lab[ri]
+                t_cpu = CAL.fit_temperature(fl, fy, device="cpu")
+                t = res["temperature"]
+                nll = [float(CAL.nll_at_temperature(torch.from_numpy(fl), torch.from_numpy(fy),
+                                                    x)) for x in (t, t_cpu)]
+                print(f"  --temp_scaling split {split}: T* {t} on the card, {t_cpu} by the CPU's "
+                      f"fit on the card's logits; the CPU's NLL at them {nll[0]:.7f} / "
+                      f"{nll[1]:.7f} (bound {TEMP_NLL_RTOL} relative)", flush=True)
+                check(0.05 < t < 20 and nll[0] - nll[1] <= TEMP_NLL_RTOL * nll[1],
+                      f"T* {t} does not minimize the CPU's NLL as its own fit {t_cpu} does")
+                held_metrics(res, rep_l / t, rep_y, f"--temp_scaling {split}",
+                             extra=("temperature", "heldout_fit_samples"))
+
+            # --laplace, probit and mc, fitted on the 1024 train images
+            ffwd = LA.make_feature_forward(model)
+            fit_batches = list(FT._eval_batches(FT._fit_loader(pargs), pargs, dev))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fit_out = [ffwd(x) for x, _ in fit_batches]
+            head_params = {"weight": model.head.weight.detach(), "bias": model.head.bias.detach()}
+            la = LA.fit_last_layer_laplace(lambda i: fit_out[i], head_params,
+                                           [(i, y) for i, (_, y) in enumerate(fit_batches)])
+            fit_ms = (time.perf_counter() - t) * 1000
+            a_sum = sum(LA._augment(f).t() @ LA._augment(f) for _, f in fit_out)
+            eigh_ms = cuda_ms(lambda: torch.linalg.eigh(a_sum), 5)
+            la = LA.optimize_prior_precision(la)
+            feats_fit = torch.cat([f for _, f in fit_out]).float().cpu().numpy()
+            logits_fit = torch.cat([lg for lg, _ in fit_out]).float().cpu().numpy()
+            eval_batches = list(FT._eval_batches(loader, pargs, dev))
+            eval_out = [ffwd(x) for x, _ in eval_batches]
+            feats = torch.cat([f for _, f in eval_out]).float().cpu().numpy()
+            elog = torch.cat([lg for lg, _ in eval_out]).float().cpu().numpy()
+            print(f"  --laplace fit on the card (information only; {card()}): features and "
+                  f"factor sums over {n_fit} images {fit_ms:.2f} ms (host clock, synchronized), "
+                  f"eigh of A [{width + 1}, {width + 1}] {eigh_ms:.3f} ms (CUDA events); prior precision "
+                  f"{la.prior_precision:g}", flush=True)
+            phi = np.concatenate([feats_fit.astype(np.float64), np.ones((n_fit, 1))], axis=1)
+            p = torch.softmax(torch.from_numpy(logits_fit).double(), -1).numpy()
+            factors = (la.q_a.cpu(), la.a.cpu(), la.q_g.cpu(), la.g.cpu(), la.n)
+            for what, exact, q, lam in (("A", phi.T @ phi, la.q_a, la.a),
+                                        ("G", np.diag(p.sum(0)) - p.T @ p, la.q_g, la.g)):
+                q, lam = q.double().cpu().numpy(), lam.double().cpu().numpy()
+                ferr = float(np.abs(q @ np.diag(lam) @ q.T - exact).max())
+                print(f"  --laplace factor {what} {exact.shape}: Q diag(λ) Qᵀ from the card vs the "
+                      f"float64 sum from its features: max|diff| {ferr:.3e}, max|{what}| "
+                      f"{np.abs(exact).max():.3e} (bound {LAPLACE_FACTOR_RTOL} of it)", flush=True)
+                check(ferr <= LAPLACE_FACTOR_RTOL * np.abs(exact).max(),
+                      f"the Laplace factor {what} disagrees with the float64 sum")
+            for link in ("probit", "mc"):
+                res = counted(f"cli8_laplace_{link}", {"K1": depth * (nfit + nb)}, FT.main,
+                              eval_args(d_eval, "--laplace", "--laplace_link", link))["laplace"]
+                check(res["prior_precision"] == la.prior_precision, "the driver's prior precision")
+                fresh = per_call_generator(pargs.seed, dev)
+                preds, ref, draw_max = [], [], 0.0
+                for lg, f in eval_out:
+                    eps = LA.draw_mc_eps(fresh(), 32, *lg.shape) if link == "mc" else None
+                    preds.append(LA.predictive_log_probs(la, lg, f, link, eps=eps).cpu().numpy())
+                    if link == "mc":
+                        s = LA.functional_variance(la, f)
+                        draws = lg.float()[None] + (s.sqrt()[None] * eps) @ la.q_g.t()
+                        draw_max = max(draw_max, float(draws.abs().max()))
+                    ref.append(laplace_f64(
+                        np, None, None, f.float().cpu().numpy(), lg.float().cpu().numpy(),
+                        la.prior_precision, link, factors=factors,
+                        eps=None if eps is None else eps.cpu().numpy()))
+                pred, ref = np.concatenate(preds), np.concatenate(ref)
+                perr = float(np.abs(pred - ref).max())
+                refit = ""
+                if link == "probit":
+                    refit = float(np.abs(pred - laplace_f64(
+                        np, feats_fit, logits_fit, feats, elog, la.prior_precision, "probit")).max())
+                    refit = f"; against a whole float64 refit (information) {refit:.3e}"
+                bound = LAPLACE_ATOL + LAPLACE_MC_DRAW_RTOL * draw_max
+                print(f"  --laplace {link}: the card's predictive log-probs vs a float64 CPU "
+                      f"recomputation on its factors from its features: max|diff| {perr:.3e} "
+                      f"(bound {bound:.3e}" + (f"; largest draw {draw_max:.1f}" if draw_max else "")
+                      + f"){refit}", flush=True)
+                check(perr <= bound, f"the {link} Laplace predictive disagrees")
+                if link == "probit":
+                    held_metrics(res, pred, lab, f"--laplace {link}", extra=("prior_precision",))
+                    continue
+                # the mc link's probabilities are sums of nearly one-hot
+                # softmaxes, k/32 apart: many ties, which the card's and the
+                # CPU's softmax round apart differently. The metrics that
+                # take the argmax of the probabilities (ECE, MCE, OE) or rank
+                # them (AUROC, the adaptive TACE / ACE) move with them; so
+                # every metric is recomputed on the CPU from the card's
+                # softmax probabilities, and every other metric also from
+                # the CPU's own softmax
+                tie_ranked = ("ece", "mce", "oe", "auroc", "tace", "ace")
+                on_cpu = held_metrics(res, pred, lab, f"--laplace {link}",
+                                      extra=("prior_precision",), skip=tie_ranked)
+                card_p = M.softmax_probs(torch.from_numpy(pred).to(dev)).cpu()
+                held_metrics(res, pred, lab, f"--laplace {link} (the card's probabilities)",
+                             extra=("prior_precision",), probs=card_p)
+                tied = float(np.mean([len(np.unique(r)) for r in np.round(
+                    np.exp(pred) * 32, 3)]))
+                print(f"  --laplace mc: printed metrics equal to the CPU's recomputation from the "
+                      f"card's softmax probabilities, and, but for {', '.join(tie_ranked)}, from "
+                      f"the CPU's own; from the CPU's own: " + ", ".join(
+                          f"{k} {on_cpu[k]:.6f} / {res[k]:.6f}" for k in tie_ranked)
+                      + f" (CPU / printed); distinct values of 32·p a row {tied:.1f} of 100",
+                      flush=True)
+
+            # --corrupted_data: plain, --mc_dropout, --laplace
+            mc_flags = ["--mc_dropout", "--drop", "0.1"]
+            c_fwd = -(-n_c // bs) * len(distortions)
+            for mode, extra, expect in (
+                    ("", [], {"K1": depth * c_fwd}),
+                    ("_mc", mc_flags, {"K1": depth * c_fwd, "K8": 2 * depth * c_fwd}),
+                    ("_laplace", ["--laplace"], {"K1": depth * (c_fwd + nfit)})):
+                cargs = eval_args(d_eval, "--corrupted_data", "--corruption_data_path", croot,
+                                  *extra)
+                timed = []
+                harness = R.evaluate_corruption
+
+                def timed_harness(*a, **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = harness(*a, **k)
+                    torch.cuda.synchronize()
+                    timed.append(time.perf_counter() - t)
+                    return out
+
+                R.evaluate_corruption = timed_harness
+                try:
+                    res = counted(f"cli8_corrupted{mode}", expect, FT.main, cargs)["corruption"]
+                finally:
+                    R.evaluate_corruption = harness
+                c_s = timed[0]
+                cmodel, _ = FT.build_model(cargs, 100, dev)
+                FT.load_variables(cargs, cmodel)
+                if mode == "_mc":
+                    fwd = FT._mc_mean_forward(cargs, cmodel)
+                elif mode == "_laplace":
+                    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                        _, lffwd, lpred = FT._fit_laplace(cargs, cmodel)
+                    fwd = lambda x: lpred(*lffwd(x))  # noqa: E731
+                else:
+                    fwd = make_eval_forward(cmodel)
+                for name in distortions:
+                    ds = D.load_cifar_c(croot, name, 1)
+                    batches = [(eval_transform_batch(torch.from_numpy(ds.images[i:i + bs]).to(dev),
+                                                     224, 224 / 256), ds.labels[i:i + bs])
+                               for i in range(0, len(ds), bs)]
+                    lg, y = collect_logits(fwd, batches)
+                    acc = float(100.0 * np.mean(lg.argmax(1) == y))
+                    got = res["per_distortion"][name]["acc1"]
+                    check(abs(got - acc) <= 1e-3 and len(y) == n_c,
+                          f"-C{mode} {name}: printed acc1 {got}, from the card's logits {acc}")
+                accs = [res["per_distortion"][d]["acc1"] for d in distortions]
+                check(abs(res["mean_acc"] - np.mean(accs)) <= 1e-9
+                      and abs(res["mce_unnormalized"] - np.mean([(100 - a) / 100 for a in accs]))
+                      <= 1e-9, f"-C{mode} summary")
+                print(f"  --corrupted_data{mode.replace('_', ' --')}: acc1 {accs} equal to the "
+                      f"CPU's from the card's logits; {len(distortions) * n_c} images through "
+                      f"evaluate_corruption in {c_s * 1000:.1f} ms = "
+                      f"{len(distortions) * n_c / c_s:.1f} img/s (information only; {card()}"
+                      f"{'; after the Laplace fit' if mode == '_laplace' else ''})", flush=True)
+                del cmodel
+
+            # --perturbed_data: plain and --mc_dropout, the harness's list cut
+            # to the two perturbations written here
+            R.PERTURBATIONS = perturbations
+            p_fwd = len(perturbations) * -(-n_vid // (bs // n_frames))
+            for mode, extra, expect in (("", [], {"K1": depth * p_fwd}),
+                                        ("_mc", mc_flags, {"K1": depth * p_fwd,
+                                                           "K8": 2 * depth * p_fwd})):
+                pa = eval_args(d_eval, "--perturbed_data", "--perturbation_data_path", proot,
+                               *extra)
+                res = counted(f"cli8_perturbed{mode}", expect, FT.main, pa)["perturbation"]
+                pmodel, _ = FT.build_model(pa, 100, dev)
+                FT.load_variables(pa, pmodel)
+                fwd = FT._mc_mean_forward(pa, pmodel) if mode else make_eval_forward(pmodel)
+                for name in perturbations:
+                    vids = D.load_cifar_p(proot, name)
+                    frames = torch.from_numpy(vids.reshape(-1, 32, 32, 3)).to(dev)
+                    lg = np.concatenate([fwd(R.process_p_frames(frames[i:i + bs], 224)).float()
+                                         .cpu().numpy() for i in range(0, len(frames), bs)])
+                    lg = lg.reshape(n_vid, n_frames, 100)
+                    noise = "noise" in name
+                    ranks = [np.stack([R._rankdata_ordinal_desc(f) for f in v]) for v in lg]
+                    ref = {"flip_prob": R.flip_prob([v.argmax(1) for v in lg], noise),
+                           "zipf": R.ranking_dist(ranks, noise, "zipf", 100),
+                           "top5": R.ranking_dist(ranks, noise, "top5", 100)}
+                    got = res["per_perturbation"][name]
+                    check(got == ref, f"-P{mode} {name}: printed {got}, from the card's logits "
+                                      f"{ref}")
+                print(f"  --perturbed_data{mode.replace('_', ' --')}: {json.dumps(res)} equal to "
+                      f"the CPU's from the card's logits", flush=True)
+                del pmodel
+            R.PERTURBATIONS = perturbation_list
+
+            # --visualize_embedding over the 256 test images
+            ea = eval_args(d_eval, "--visualize_embedding")
+            out = counted("cli8_embedding", {"K1": depth * nb}, FT.main, ea)
+            tsv = np.loadtxt(os.path.join(out, "embeddings.tsv"))
+            tsv_lab = np.loadtxt(os.path.join(out, "embeddings_labels.tsv"))
+            with torch.inference_mode():
+                model.eval()
+                ref = np.concatenate([model.forward_features(x).float().cpu().numpy()
+                                      for x, _ in eval_batches])
+            eerr = float(np.abs(tsv - ref).max())
+            print(f"  --visualize_embedding: {tsv.shape} features, max|tsv - the card's pooled "
+                  f"features| {eerr:.2e} (written at 6 decimals); png written: "
+                  f"{os.path.exists(os.path.join(out, 'embeddings_pca.png'))}", flush=True)
+            check(tsv.shape == (n_test, width) and eerr <= 1e-6
+                  and np.array_equal(tsv_lab, lab), "the embedding TSVs")
+            del model, loader, la, fit_out, eval_out, fit_batches, eval_batches
+            print(f"  19c took {time.perf_counter() - t19:.1f} s", flush=True)
+    finally:
+        FA.BOUNDED_SCORES, R.PERTURBATIONS = bounded, perturbation_list
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3930,6 +4585,9 @@ def main() -> int:
     cli7c = run(18, "the finetune driver's slice 7c at 384: accumulation, masking, elem / pair "
                     "mixup; over two gloo ranks; ViT-L/16 384 --eval", phase18, torch, FA, dev,
                 step_rates)
+    cli8 = run(19, "slice 8 through the driver: --sngp and --het_layer training and evaluation; "
+                   "--temp_scaling, --laplace, --corrupted_data, --perturbed_data, "
+                   "--visualize_embedding", phase19, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -3945,18 +4603,22 @@ def main() -> int:
     # --mc_dropout, --ensembles and --quant int8 over 256; and phase 17's
     # ("cli_train"): two epochs of 4 steps and their evaluations, the third
     # epoch resumed, and an int8 epoch of 2 steps
+    # and phase 19's ("cli8_"): the --sngp, exact-accumulation and --het_layer
+    # training runs, the --het_layer evaluation, and the post-hoc evaluations
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
                 **{path: n["K1"] for path, n in int8.items()},
                 **{path: n["K1"] for path, n in cli.items()},
-                **{path: n["K1"] for path, n in cli_train.items()}}
+                **{path: n["K1"] for path, n in cli_train.items()},
+                **{path: n["K1"] for path, n in cli8.items()}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
                 "int8_train_step": int8["int8_train_step"]["K2"],
-                **{path: n["K2"] for path, n in cli_train.items()}}
+                **{path: n["K2"] for path, n in cli_train.items()},
+                **{path: n["K2"] for path, n in cli8.items() if n["K2"]}}
     k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train}.items() if n["K6"]}
     k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train}.items() if n["K7"]}
-    k8_paths = {path: n["K8"] for path, n in {**mc, **cli}.items() if n["K8"]}
+    k8_paths = {path: n["K8"] for path, n in {**mc, **cli, **cli8}.items() if n["K8"]}
     # and phase 18's ("cli7c_"): ViT-B/16 384 trained (4 mini-steps and an
     # evaluation of 2 batches; 2 pair mini-steps), ViT-L/16 384 evaluated
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}

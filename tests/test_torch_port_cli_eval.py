@@ -233,24 +233,34 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
         TFT.load_variables(targs, TFT.build_model(targs, 100, device="cpu")[0])
 
 
+# the heads and the post-hoc evaluations under --seq_parallel: ROADMAP.md item 21
+SEQ_NOT_PORTED = ["--sngp", "--gp_layer", "--het_layer", "--corrupted_data", "--perturbed_data",
+                  "--laplace", "--temp_scaling", "--visualize_embedding"]
 NOT_PORTED = [
-    ["--sngp"], ["--gp_layer"], ["--het_layer"], ["--stochastic"], ["--sinkformer"],
+    ["--stochastic"], ["--sinkformer"],
     ["--gumbel_softmax"], ["--h_sto_trans"], ["--seq_parallel", "2", "--mc_dropout"],
-    ["--corrupted_data"], ["--perturbed_data"],
-    ["--laplace"], ["--temp_scaling"], ["--visualize_embedding"],
+    *[["--seq_parallel", "2", flag] for flag in SEQ_NOT_PORTED],
     ["--ensembles", "--ensemble_checkpoints", "member_dir"],
 ]
 
 
-@pytest.mark.parametrize("extra", NOT_PORTED, ids=lambda e: e[0].lstrip("-") + (
-    "_orbax" if e[0] == "--ensembles" else ""))
+def _case_id(extra):
+    if extra[0] == "--seq_parallel" and extra[2] != "--mc_dropout":
+        return "seq_parallel_" + extra[2].lstrip("-")
+    return extra[0].lstrip("-") + ("_orbax" if extra[0] == "--ensembles" else "")
+
+
+@pytest.mark.parametrize("extra", NOT_PORTED, ids=_case_id)
 def test_unported_flags_raise(files, extra):
     """Every flag whose feature is not ported raises NotImplementedError
-    naming where the ROADMAP ports it; none is silently ignored."""
+    naming where the ROADMAP ports it; none is silently ignored. Under
+    --seq_parallel the heads and the post-hoc evaluations raise before the
+    ranks start, naming item 21."""
     args = TFT.get_args_parser().parse_args(_argv(files, *extra))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        match = "ROADMAP.md item 21" if extra[0] == "--seq_parallel" else "ROADMAP.md"
+        with pytest.raises(NotImplementedError, match=match):
             TFT.main(args, device="cpu")
 
 

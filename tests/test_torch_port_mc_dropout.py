@@ -333,11 +333,3 @@ def test_collect_logits_runs_on_the_pipelined_window():
     assert order == [0, 1, 2, 3]
     np.testing.assert_array_equal(labels, [0, 0, 1, 1, 2, 2, 3, 3])
     np.testing.assert_array_equal(logits[:, 0], [0, 0, 2, 2, 4, 4, 6, 6])
-
-
-def test_het_eval_branch_is_not_ported_yet():
-    _, _, model = _pair()
-    with pytest.raises(NotImplementedError):
-        TE.make_eval_forward(model, het=True)
-    with pytest.raises(NotImplementedError):
-        TE.evaluate(model, [], het=True)

@@ -410,14 +410,15 @@ def test_train_step_with_mixup_and_drop_path_is_seeded():
 
 
 def test_unported_engine_options_raise():
-    """The SNGP head is not ported; gradient accumulation and token masking
-    are (tests/test_torch_port_cli_7c.py) and refuse an optimizer of
+    """Every head type is ported (tests/test_torch_port_heads.py); one that
+    does not exist raises. Gradient accumulation and token masking are
+    ported (tests/test_torch_port_cli_7c.py) and refuse an optimizer of
     another update_freq or a model without a mask token."""
     _, _, model, _, _ = _small()
     opt = TO.make_optimizer(model)
     lr = TS.constant_schedule(1e-3)
-    with pytest.raises(NotImplementedError):
-        TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(head_type="sngp"), lr)
+    with pytest.raises(ValueError, match="unknown head_type"):
+        TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(head_type="gp"), lr)
     for hp, match in ((TE.FinetuneHParams(update_freq=2), "update_freq"),
                       (TE.FinetuneHParams(masked_position_prob=0.1), "has_masking")):
         with pytest.raises(ValueError, match=match):

@@ -29,9 +29,6 @@ from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW, make_optimize
 
 # flag → (what it turns on, where the ROADMAP ports it); a set flag raises
 NOT_PORTED_MODEL_FLAGS = {
-    "sngp": ("the spectral-norm fc_norm and the SNGP head", "item 15, slice 8"),
-    "gp_layer": ("the SNGP head", "item 15, slice 8"),
-    "het_layer": ("the heteroscedastic head", "item 15, slice 8"),
     "stochastic": ("the dist (mean+covariance) model family", "item 19, slice 11"),
     "sinkformer": ("the sinkformer attention", "item 20, slice 12"),
     "gumbel_softmax": ("the Gumbel-softmax attention", "item 20, slice 12"),
@@ -229,11 +226,20 @@ def add_io_args(p: argparse.ArgumentParser):
 
 
 def model_config_from_args(args, num_classes: int) -> ViTConfig:
-    """The ViTConfig of the parsed flags (linear head, softmax attention);
-    raises for a flag of NOT_PORTED_MODEL_FLAGS."""
+    """The ViTConfig of the parsed flags (softmax attention); raises for a
+    flag of NOT_PORTED_MODEL_FLAGS. The head (JAX :216-249): --het_layer the
+    heteroscedastic head; --gp_layer or --sngp the SNGP head (the
+    reference's intended head, which its linear head overwrites), --sngp
+    also with the spectral-norm fc_norm; --sngp_cov_momentum the precision
+    matrix's momentum."""
     for flag, (what, where) in NOT_PORTED_MODEL_FLAGS.items():
         if getattr(args, flag, False):
             raise not_ported(flag, what, where)
+    head_type = "linear"
+    if args.het_layer:
+        head_type = "het"
+    elif args.gp_layer or args.sngp:
+        head_type = "sngp"
     return get_preset(
         args.model,
         img_size=args.input_size,
@@ -249,6 +255,9 @@ def model_config_from_args(args, num_classes: int) -> ViTConfig:
         use_rel_pos_bias=args.per_block_rel_pos_bias,
         use_shared_rel_pos_bias=args.rel_pos_bias,
         quant=getattr(args, "quant", "none"),
+        head_type=head_type,
+        sngp_fc_norm=args.sngp,
+        sngp_momentum=getattr(args, "sngp_cov_momentum", 0.999),
         use_mean_pooling=args.use_mean_pooling and not args.use_cls,
         init_scale=args.init_scale,
         learn_layer_weights=args.learn_layer_weights,

@@ -18,9 +18,19 @@ freezing, --finetune / --resume / --auto_resume / --start_epoch, the 2-deep
 deferred readback of the metrics with the NaN abort, each epoch's
 evaluation, log.txt and checkpoint-{N,best}.pth. The evaluation from images
 (``--eval``): the split's loader, uint8 batches onto the device, the eval
-resize and crop there, then plain evaluation, ``--mc_dropout`` or
-``--ensembles`` (run_class_finetuning.py:638-677), printing the JAX
-driver's JSON dict. ``--seq_parallel S`` (JAX :185-197, context
+resize and crop there, then the dispatch of run_class_finetuning.py:638-677
+(JAX :374-549): plain evaluation, ``--mc_dropout``, ``--ensembles``, the
+corruption (``--corrupted_data``: CIFAR-C ``.npy`` files or a
+TinyImageNet-C tree) and perturbation (``--perturbed_data``: CIFAR-P)
+benchmarks, the last-layer Laplace posterior (``--laplace``, probit or mc
+link) and temperature scaling (``--temp_scaling`` fitted on the eval,
+train or a held-out split), printing the JAX driver's JSON dict;
+``--visualize_embedding`` writes the pooled features' TSVs and exits
+(JAX :564-574). The heads (``--sngp``, ``--gp_layer``, ``--het_layer``) train
+and evaluate: the SNGP precision matrix restarts at each epoch under
+``--sngp_cov_momentum`` ≤ 0, and the heteroscedastic head draws its noise
+from the step's fourth generator in training and from a fresh generator a
+batch in evaluation. ``--seq_parallel S`` (JAX :185-197, context
 parallelism for 384/512 inputs) runs either on S ranks (``run_rank``
 through ``parallel.seq.run_ranks``, one gloo group) that share ``device``,
 each holding a slice of every image's tokens and reading the same batches;
@@ -29,12 +39,11 @@ result. ``main`` takes ``device`` (the card by default; the tests pass
 "cpu"); the JAX driver has no such flag, and neither has this one.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: ``--corrupted_data`` / ``--perturbed_data``, ``--laplace``,
-``--temp_scaling`` and ``--visualize_embedding`` (slice 8), ``--stochastic``
-(slice 11), ``--mc_dropout`` under ``--seq_parallel`` (item 21), the flags
-of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer other than adamw, and
-a ``--finetune``, ``--resume`` or ensemble member that is not a ``.pth``.
-Attention dropout in training under ``--seq_parallel`` raises
+that ports it: ``--stochastic`` (slice 11); under ``--seq_parallel``
+(item 21) ``--mc_dropout``, the head flags and the post-hoc evaluations;
+the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer other than
+adamw, and a ``--finetune``, ``--resume`` or ensemble member that is not a
+``.pth``. Attention dropout in training under ``--seq_parallel`` raises
 ``ValueError``, as the JAX package's attention does.
 """
 
@@ -52,11 +61,18 @@ import torch
 from uncertainty_vit_tpu_torch.cli import builders as B
 from uncertainty_vit_tpu_torch.cli.common import setup
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
-from uncertainty_vit_tpu_torch.data.pipeline import device_prefetch
+from uncertainty_vit_tpu_torch.data import datasets as D
+from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader, device_prefetch
+from uncertainty_vit_tpu_torch.evals import calibration as CAL
 from uncertainty_vit_tpu_torch.evals import classification as E
+from uncertainty_vit_tpu_torch.evals import laplace as LA
+from uncertainty_vit_tpu_torch.evals import robustness as R
 from uncertainty_vit_tpu_torch.evals.collect import _finish, _start_readback, per_call_generator
-from uncertainty_vit_tpu_torch.evals.ensembles import stack_params
+from uncertainty_vit_tpu_torch.evals.ensembles import (
+    ensemble_mean_logits, make_ensemble_forward, stack_params,
+)
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
+from uncertainty_vit_tpu_torch.models.registry import sngp_reset_cov
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops.augment import (
     IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD,
@@ -68,14 +84,20 @@ from uncertainty_vit_tpu_torch.train.engine_finetune import (
 )
 from uncertainty_vit_tpu_torch.train.optim import freeze_all_except
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from uncertainty_vit_tpu_torch.utils.embeddings import visualize_embedding
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
-# eval dispatches still to port: flag → (what, where the ROADMAP ports it)
-NOT_PORTED_EVALS = {
-    "corrupted_data": ("the corruption benchmark (-C)", "item 16, slice 8"),
-    "perturbed_data": ("the perturbation benchmark (-P)", "item 16, slice 8"),
-    "laplace": ("the last-layer Laplace posterior", "item 16, slice 8"),
-    "temp_scaling": ("temperature scaling", "item 16, slice 8"),
+# what --seq_parallel does not run yet: flag → what it turns on (ROADMAP.md item 21)
+NOT_PORTED_UNDER_SEQ = {
+    "mc_dropout": "MC-dropout",
+    "sngp": "the SNGP head with the spectral-norm fc_norm",
+    "gp_layer": "the SNGP head",
+    "het_layer": "the heteroscedastic head",
+    "corrupted_data": "the corruption benchmark (-C)",
+    "perturbed_data": "the perturbation benchmark (-P)",
+    "laplace": "the last-layer Laplace posterior",
+    "temp_scaling": "temperature scaling",
+    "visualize_embedding": "the embedding dump",
 }
 
 
@@ -262,7 +284,11 @@ def load_variables(args, model: VisionTransformer) -> List[str]:
     """Load --finetune into ``model`` (the surgery of run_class_finetuning.py:
     400-540, ``utils.checkpoint.import_torch_state_dict``) after stripping
     --model_prefix and, with --reinit_final_norm, dropping the final norms
-    (:413-417). Returns the model's keys the checkpoint did not fill."""
+    (:413-417). Returns the model's parameters the checkpoint did not fill
+    (its buffers, such as the SNGP head's random features and precision
+    matrix, are counted apart, as the JAX driver counts its params alone;
+    a checkpoint's ``fc_norm.weight_u`` / ``weight_v`` fill the spectral
+    fc_norm's, as JAX ``import_torch_spectral_stats`` does)."""
     missing: List[str] = []
     if args.finetune:
         _require_pth(args.finetune, "--finetune")
@@ -276,6 +302,8 @@ def load_variables(args, model: VisionTransformer) -> List[str]:
         state, missing, unused = C.import_torch_state_dict(
             sd, model.state_dict(), keep_mismatched_head=getattr(args, "dual_finetune", False))
         model.load_state_dict(state, strict=True)
+        params = dict(model.named_parameters())
+        missing = [k for k in missing if k in params]
         print(f"imported {args.finetune}: {len(missing)} missing, {len(unused)} unused",
               flush=True)
     return missing
@@ -312,7 +340,7 @@ def _mc_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor],
     """images → the MC-dropout mean logits, each call's masks from a fresh
     generator of the stream --seed starts (the reference redraws the masks
     on every forward, uncertainty_evaluations.py:479-534). For the -C / -P
-    dispatches of slice 8."""
+    dispatches."""
     mc = make_mc_dropout_mean_forward(_mc_eval_model(model), args.mc_dropout_forwards,
                                       split_at=args.mc_dropout_split_at)
     fresh = per_call_generator(args.seed, _device_of(model))
@@ -320,20 +348,156 @@ def _mc_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor],
 
 
 def _default_eval_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The deterministic eval forward (the heteroscedastic head's per-call
-    draws are not ported and raise)."""
-    return E.make_eval_forward(model, het=args.het_layer)
+    """The deterministic eval forward for the -C / -P and temperature
+    dispatches; with --het_layer each call draws the head's noise from a
+    fresh generator of the --seed stream (JAX :311-321)."""
+    if args.het_layer:
+        fwd = E.make_eval_forward(model, het=True)
+        fresh = per_call_generator(args.seed, _device_of(model))
+        return lambda imgs: fwd(imgs, fresh())
+    return E.make_eval_forward(model)
+
+
+def _ensemble_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor], torch.Tensor]:
+    """images → the members' mean logits (ensembles_c_evaluate /
+    ensembles_p_evaluate, uncertainty_evaluations.py:393-476, 724-737)."""
+    stacked = stack_params(_load_ensemble_members(args, model))
+    efwd = make_ensemble_forward(model)
+    return lambda imgs: ensemble_mean_logits(efwd(stacked, imgs))
+
+
+def _fit_loader(args):
+    """The train split for the post-hoc fits (Laplace, temperature): the
+    whole split through the eval transform, unshuffled, no tail dropped,
+    unpadded; the letterboxed decode is a train-augmentation matter, so it
+    is off (JAX :324-336)."""
+    fit_args = argparse.Namespace(**{**vars(args), "decode_letterbox": False})
+    loader, _ = B.build_loaders(fit_args, is_train=True, shuffle=False, drop_last=False,
+                                pad_shards=False)
+    return loader
+
+
+def _fit_laplace(args, model: VisionTransformer):
+    """Fit the last-layer KFAC Laplace posterior on the train split and tune
+    its prior (JAX :338-371). Returns (posterior, images → (logits,
+    features), (logits, features) → predictive log-probabilities, the mc
+    link drawing from a fresh generator of the --seed stream a call)."""
+    if model.cfg.head_type != "linear":
+        raise ValueError("--laplace needs the linear head (last-layer Laplace); "
+                         f"head_type={model.cfg.head_type!r} is itself an uncertainty method")
+    device = _device_of(model)
+    ffwd = LA.make_feature_forward(model)
+    la = LA.fit_last_layer_laplace(
+        ffwd, {"weight": model.head.weight.detach(), "bias": model.head.bias.detach()},
+        _eval_batches(_fit_loader(args), args, device))
+    la = LA.optimize_prior_precision(la)
+    print(f"laplace: fit on {la.n} samples, prior precision {la.prior_precision:g}", flush=True)
+    fresh = per_call_generator(args.seed, device)
+
+    def pred(logits: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return LA.predictive_log_probs(la, logits, feats, link=args.laplace_link,
+                                           generator=fresh())
+
+    return la, ffwd, pred
+
+
+def _check_eval_flags(args) -> None:
+    """The combinations the JAX driver refuses, with its words (JAX
+    :380-400)."""
+    if args.laplace and (args.perturbed_data or args.ensembles or args.stochastic
+                         or args.mc_dropout):
+        raise ValueError("--laplace composes with the clean eval and --corrupted_data "
+                         "only; mc/ensembles/stochastic/-P combinations are not carried")
+    if args.temp_scaling and (args.laplace or args.corrupted_data or args.perturbed_data
+                              or args.ensembles or args.stochastic or args.mc_dropout):
+        raise ValueError("--temp_scaling supports the clean eval path only (and is "
+                         "itself a calibrator — combining with --laplace is ambiguous)")
+
+
+def _corruption_eval(args, model: VisionTransformer) -> Dict:
+    """--corrupted_data (JAX :402-464): per distortion and severity, the
+    corrupted images through the eval transform and the chosen forward;
+    distortions without data are skipped."""
+    device = _device_of(model)
+    if args.mc_dropout:
+        fwd = _mc_mean_forward(args, model)
+    elif args.laplace:
+        # the Laplace predictive's log-probabilities serve as logits
+        _, ffwd, pred = _fit_laplace(args, model)
+        fwd = lambda imgs: pred(*ffwd(imgs))  # noqa: E731
+    elif args.ensembles:
+        fwd = _ensemble_mean_forward(args, model)
+    else:
+        fwd = _default_eval_forward(args, model)
+    croot = args.corruption_data_path or args.data_path
+    cifar = args.data_set.startswith("CIFAR")
+    available = tuple(
+        d for d in R.DISTORTIONS
+        if (os.path.exists(os.path.join(croot, f"{d}.npy")) if cifar
+            else os.path.isdir(os.path.join(croot, d))))
+    skipped = set(R.DISTORTIONS) - set(available)
+    if skipped:
+        print(f"skipping distortions with no data: {sorted(skipped)}", flush=True)
+    crop_pct = args.crop_pct or (224 / 256 if args.input_size < 384 else 1.0)
+
+    def loader_factory(name: str):
+        for severity in range(1, 6):
+            if cifar:
+                ds = D.load_cifar_c(croot, name, severity)
+                for i in range(0, len(ds), args.batch_size):
+                    imgs = torch.from_numpy(ds.images[i:i + args.batch_size]).to(device)
+                    # the clean evaluation's transform (datasets.py:251-260)
+                    yield (eval_transform_batch(imgs, args.input_size, crop_pct,
+                                                args.imagenet_default_mean_and_std),
+                           ds.labels[i:i + args.batch_size])
+            else:  # the TinyImageNet-C layout
+                ds = D.TinyImageNetC(croot, name, severity, wnids_path=args.wnids_path,
+                                     decode_size=args.input_size)
+                yield from _eval_batches(
+                    BatchLoader(ds, args.batch_size, shuffle=False,
+                                num_workers=args.num_workers, drop_last=False), args, device)
+
+    return R.evaluate_corruption(fwd, loader_factory, distortions=available)
+
+
+def _perturbation_eval(args, model: VisionTransformer, nb_classes: int) -> Dict:
+    """--perturbed_data (JAX :466-497): CIFAR-P videos, as many whole videos
+    a batch as fit in --batch_size frames, through the chosen forward."""
+    if args.mc_dropout:
+        fwd = _mc_mean_forward(args, model)
+    elif args.ensembles:
+        fwd = _ensemble_mean_forward(args, model)
+    else:
+        fwd = _default_eval_forward(args, model)
+    proot = args.perturbation_data_path or args.data_path
+
+    def video_loader(name: str):
+        vids = D.load_cifar_p(proot, name)
+        per = max(args.batch_size // max(vids.shape[1], 1), 1)
+        for i in range(0, len(vids), per):
+            yield vids[i:i + per]
+
+    return R.evaluate_perturbation(fwd, video_loader, nb_classes, perturbations=R.PERTURBATIONS,
+                                   frame_size=args.input_size, device=_device_of(model))
 
 
 def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: int) -> Dict:
-    """--eval dispatch (run_class_finetuning.py:638-677): MC-dropout, the
-    ensemble or the plain evaluation; prints and returns the results."""
-    for flag, (what, where) in NOT_PORTED_EVALS.items():
-        if getattr(args, flag, False):
-            raise B.not_ported(flag, what, where)
+    """--eval dispatch (run_class_finetuning.py:638-677, JAX :374-548): -C,
+    -P, MC-dropout, the ensemble, the Laplace posterior, temperature
+    scaling or the plain evaluation; prints and returns the results."""
+    _check_eval_flags(args)
     device = _device_of(model)
-    batches = lambda: _eval_batches(val_loader, args, device)
+    batches = lambda: _eval_batches(val_loader, args, device)  # noqa: E731
     results = {}
+    if args.corrupted_data:
+        results["corruption"] = _corruption_eval(args, model)
+        print(json.dumps(results["corruption"], indent=2), flush=True)
+        return results
+    if args.perturbed_data:
+        results["perturbation"] = _perturbation_eval(args, model, nb_classes)
+        print(json.dumps(results["perturbation"], indent=2), flush=True)
+        return results
     if args.mc_dropout:
         results["mc_dropout"] = E.evaluate_mc_dropout(
             _mc_eval_model(model), batches(), num_samples=args.mc_dropout_forwards,
@@ -342,20 +506,34 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     elif args.ensembles:
         results["ensembles"] = E.evaluate_ensemble(
             model, stack_params(_load_ensemble_members(args, model)), batches())
+    elif args.laplace:
+        la, ffwd, _ = _fit_laplace(args, model)
+        results["laplace"] = LA.evaluate_laplace(la, ffwd, batches(), link=args.laplace_link,
+                                                 seed=args.seed)
+    elif args.temp_scaling:
+        fit_batches = (_eval_batches(_fit_loader(args), args, device)
+                       if args.temp_scaling_split == "train" else None)
+        results["temp_scaling"] = CAL.evaluate_temperature_scaled(
+            _default_eval_forward(args, model), batches(), fit_batches=fit_batches,
+            heldout_frac=(args.temp_scaling_heldout_frac
+                          if args.temp_scaling_split == "heldout" else None),
+            heldout_seed=args.seed, device=device)
+        print(f"temperature scaling: T* = {results['temp_scaling']['temperature']:.4f}",
+              flush=True)
     else:
-        results["eval"] = E.evaluate(model, batches(), forward=_default_eval_forward(args, model),
-                                     het=args.het_layer)
+        results["eval"] = E.evaluate(model, batches(), het=args.het_layer, seed=args.seed)
     print(json.dumps(results, indent=2, default=float), flush=True)
     return results
 
 
 def _check_seq_flags(args) -> None:
     """What --seq_parallel does not run raises before the ranks start: the
-    MC-dropout evaluation (not ported under a seq group) and attention
-    dropout in training (the JAX package's attention refuses it,
-    models/layers.py:353-358)."""
-    if args.eval and args.mc_dropout:
-        raise B.not_ported("mc_dropout", "MC-dropout under --seq_parallel", "item 21")
+    MC-dropout evaluation, the uncertainty heads and the post-hoc
+    evaluations (ROADMAP.md item 21), and attention dropout in training
+    (the JAX package's attention refuses it, models/layers.py:353-358)."""
+    for flag, what in NOT_PORTED_UNDER_SEQ.items():
+        if getattr(args, flag, False) and (args.eval or flag != "mc_dropout"):
+            raise B.not_ported(flag, f"{what} under --seq_parallel", "item 21")
     if not args.eval and args.attn_drop_rate > 0:
         raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel dropout "
                          "seeds are not defined across re-sharded grids)")
@@ -440,6 +618,10 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
 
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
+        if cfg.head_type == "sngp" and cfg.sngp_momentum <= 0:
+            # exact accumulation: the precision matrix restarts each epoch
+            # (SNGP.reset_cov, modeling_finetune.py:596-616; JAX :686-698)
+            sngp_reset_cov(model, cfg.sngp_ridge_penalty)
         logger = MetricLogger()
         # the host reads step i's metrics back after it has queued steps
         # i + 1 and i + 2 (the JAX driver's 2-deep window): the card is not
@@ -465,9 +647,9 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
             # letterboxed batches carry each image's valid extent
             # (--decode_letterbox), so that the crop covers the whole image
             valid_hw = batch[1] if len(batch) == 3 else None
-            gens = step_generators(args.seed, state.step, device)
+            gens = step_generators(args.seed, state.step, device, het=cfg.head_type == "het")
             metrics = train_step(state, images_u8, labels, gens.model, gens.mix, gens.augment,
-                                 valid_hw)
+                                 valid_hw, gens.mc)
             pending.append((_start_metrics_readback(metrics), step_base + step))
             while len(pending) > 2:
                 drain_one()
@@ -479,7 +661,7 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         test = None
         if not args.disable_eval_during_finetuning:
             test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
-                              het=args.het_layer)
+                              het=args.het_layer, seed=args.seed + epoch)
         record = {"epoch": epoch, **{f"train_{k}": v for k, v in logger.epoch_summary().items()}}
         if test is not None:
             print(f"epoch {epoch}: " + ", ".join(
@@ -505,6 +687,14 @@ def _run(args, device: torch.device, seq_group: Optional[seq.SeqGroup] = None):
     host = None if seq_group is None else (0, 1)
     val_loader, nb_classes = B.build_loaders(args, is_train=False, host=host)
     nb_classes = args.nb_classes or nb_classes
+    if args.visualize_embedding:
+        # the reference's dispatch: dump the embeddings and exit (:634-637)
+        model, _ = build_model(args, nb_classes, device, seq_group)
+        load_variables(args, model)
+        out = visualize_embedding(model, _eval_batches(val_loader, args, device),
+                                  args.output_dir or ".")
+        print(f"embeddings written to {out}", flush=True)
+        return out
     if not args.eval:
         return train(args, device, val_loader, nb_classes, seq_group)
     model, _ = build_model(args, nb_classes, device, seq_group)
@@ -537,9 +727,6 @@ def main(args, device=None):
     # backbone (cli/common.py)
     setup(bounded_scores_default=True)
     B.validate_aug_args(args)
-    if args.visualize_embedding:
-        raise B.not_ported("visualize_embedding", "the embedding dump (utils/embeddings.py)",
-                           "item 16, slice 8")
     if args.device != "cuda":
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+HEAD_TYPES = ("linear", "sngp", "het", "none")
+
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:

@@ -10,9 +10,11 @@ transform runs on the device downstream (``ops/augment.py``):
     dataset_folder.py:164-171; PIL imported when an image is decoded, the
     native JPEG decoder of ``utils/native.py`` for whole batches)
   - TinyImageNet-200 (wnids / val_annotations parsing, tin.py:32-90)
+  - TinyImageNet-C (tin.py:169-259) and the CIFAR-C / -P ``.npy`` tensors
+    (``load_cifar_c``, ``load_cifar_p``)
 
-Not ported yet: TinyImageNet-C, CIFAR-C / -P (``ROADMAP.md`` item 16) and
-the triplet wrapper of the stochastic finetune (item 19).
+Not ported yet: the triplet wrapper of the stochastic finetune
+(``ROADMAP.md`` item 19).
 """
 
 from __future__ import annotations
@@ -309,3 +311,75 @@ class TinyImageNet(ImageFolder):
                             (os.path.join(root, "val", "images", fn), class_to_idx[wnid])
                         )
         self.labels = np.asarray([s[1] for s in self.samples])
+
+
+class TinyImageNetC(ImageFolder):
+    """TinyImageNet-C: <root>/<distortion>/<severity>/<wnid>/*.JPEG
+    (tin.py:169-259; JAX datasets.py:316-388). Class ids follow the sorted
+    wnids of ``_find_wnids``, so that they line up with the finetuned head."""
+
+    def __init__(self, root: str, distortion: str, severity: int,
+                 wnids_path: Optional[str] = None, decode_size: Optional[int] = None):
+        self.root = root
+        self.decode_size = decode_size
+        # the JAX class leaves this unset, so its decode at a decode_size
+        # fails on the attribute (every image counts as corrupt)
+        self.letterbox = False
+        base = os.path.join(root, distortion, str(severity))
+        self.classes = sorted(self._find_wnids(root, wnids_path, base))
+        class_to_idx = {c: i for i, c in enumerate(self.classes)}
+        self.samples = []
+        for wnid in sorted(os.listdir(base)):
+            if wnid not in class_to_idx:
+                continue
+            cdir = os.path.join(base, wnid)
+            for fn in sorted(os.listdir(cdir)):
+                if fn.lower().endswith(IMG_EXTENSIONS):
+                    self.samples.append((os.path.join(cdir, fn), class_to_idx[wnid]))
+        self.labels = np.asarray([s[1] for s in self.samples])
+
+    @staticmethod
+    def _find_wnids(root: str, wnids_path: Optional[str], severity_dir: str) -> List[str]:
+        """The class ids, from the first that exists of: an explicit
+        --wnids_path (which must exist), the corruption root's wnids.txt, a
+        sibling clean TinyImageNet directory's (the reference hard-codes
+        one, tin.py:175-176). With none, raise: class ids derived from the
+        directory listing can silently misalign with the head's order."""
+        if wnids_path:
+            with open(wnids_path) as f:
+                return [line.strip() for line in f if line.strip()]
+        candidates = [os.path.join(root, "wnids.txt")]
+        parent = os.path.dirname(os.path.abspath(root))
+        for sib in ("tiny-imagenet-200", "tiny-imagenet", "tiny_imagenet"):
+            candidates.append(os.path.join(parent, sib, "wnids.txt"))
+        for cand in candidates:
+            if os.path.exists(cand):
+                with open(cand) as f:
+                    return [line.strip() for line in f if line.strip()]
+        raise FileNotFoundError(
+            "TinyImageNet-C class ids need a wnids.txt to align with the "
+            "finetuned head's class order, but none was found (searched: "
+            + ", ".join(candidates)
+            + "). Pass --wnids_path pointing at the clean TinyImageNet-200 "
+            "wnids.txt (the reference hard-codes that path, tin.py:175-176)."
+        )
+
+
+# ---------------------------------------------------------------------------
+# Corruption / perturbation tensors (JAX datasets.py:389-401)
+# ---------------------------------------------------------------------------
+
+def load_cifar_c(root: str, distortion: str, severity: int) -> ArrayDataset:
+    """CIFAR-10/100-C: <root>/<distortion>.npy [50000, 32, 32, 3] (5
+    severities × 10k) and <root>/labels.npy; severity s is rows
+    [(s − 1)·10000, s·10000)."""
+    data = np.load(os.path.join(root, f"{distortion}.npy"))
+    labels = np.load(os.path.join(root, "labels.npy"))
+    lo, hi = (severity - 1) * 10000, severity * 10000
+    return ArrayDataset(data[lo:hi], labels[lo:hi])
+
+
+def load_cifar_p(root: str, perturbation: str) -> np.ndarray:
+    """CIFAR-P: <root>/<perturbation>.npy, uint8 videos [N, T, 32, 32, 3]
+    (uncertainty_evaluations.py:784-799)."""
+    return np.load(os.path.join(root, f"{perturbation}.npy"))

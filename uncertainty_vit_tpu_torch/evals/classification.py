@@ -4,8 +4,11 @@ Counterpart of uncertainty_vit_tpu/evals/classification.py (:33-134):
 batches stream through one forward, logits accumulate on the host behind a
 readback window, and every metric is computed once, globally, on the
 model's device. A torch model holds its own parameters, so ``evaluate`` and
-``evaluate_mc_dropout`` take no separate variables. The heteroscedastic
-head's branch (``het=True``) is not ported yet and raises.
+``evaluate_mc_dropout`` take no separate variables. With ``het=True`` (the
+heteroscedastic head) every batch draws the head's MC noise from a fresh
+generator of the stream ``evaluate``'s seed starts (JAX :33-77: a fresh
+'mc' key per call, as the reference resamples its noise in every forward,
+modeling_finetune.py:1145-1146).
 """
 
 from __future__ import annotations
@@ -24,12 +27,18 @@ from uncertainty_vit_tpu_torch.evals.ensembles import ensemble_mean_logits, make
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
 
 
-def make_eval_forward(model: nn.Module, het: bool = False
-                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_eval_forward(model: nn.Module, het: bool = False) -> Callable[..., torch.Tensor]:
     """images → logits with the model in eval mode, under inference_mode.
-    Build once and reuse across epochs."""
+    het=True: (images, generator) → logits, the heteroscedastic head's noise
+    drawn from ``generator`` (on the images' device). Build once and reuse
+    across epochs."""
     if het:
-        raise NotImplementedError("the heteroscedastic head's eval forward is not ported yet")
+        def het_forward(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+            model.eval()
+            with torch.inference_mode():
+                return model(images, mc_generator=generator)
+
+        return het_forward
 
     def forward(images: torch.Tensor) -> torch.Tensor:
         model.eval()
@@ -42,13 +51,19 @@ def make_eval_forward(model: nn.Module, het: bool = False
 def evaluate(
     model: nn.Module,
     batches: Iterable,
-    forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    forward: Optional[Callable[..., torch.Tensor]] = None,
     het: bool = False,
+    seed: int = 0,
 ) -> Dict[str, float]:
     """Deterministic eval: acc1/5 + the full calibration suite on the global
     logits. ``batches`` yields (images, ..., labels) with images already on
-    the model's device; pass ``forward`` from make_eval_forward to reuse it."""
+    the model's device; pass ``forward`` from make_eval_forward (built with
+    the same ``het``) to reuse it. het=True gives each batch a fresh
+    generator of the stream ``seed`` starts (the JAX package's ``rng``)."""
     fwd = forward if forward is not None else make_eval_forward(model, het=het)
+    if het:
+        fresh = per_call_generator(seed, next(model.parameters()).device)
+        call, fwd = fwd, lambda images: call(images, fresh())
     logits, labels = collect_logits(fwd, batches)
     out = _metrics(model, logits, labels)
     out["loss"] = out["nll"]  # CE == NLL for hard labels

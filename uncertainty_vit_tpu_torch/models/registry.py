@@ -4,8 +4,10 @@ registry.py (``create_model`` :43-81), over the reference's registry names
 modeling_pretrain.py:139-166).
 
 ``create_model(name, family=...)`` returns (module, config). The
-``finetune`` family, the ``VisionTransformer`` with the linear head, is
+``finetune`` family, the ``VisionTransformer`` with any of its heads
+(``head_type=`` and the other config fields pass through as overrides), is
 ported; the other families raise with the ROADMAP slice that ports them.
+``sngp_reset_cov`` (:84-95) restarts the SNGP head's precision matrix.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from uncertainty_vit_tpu_torch.core.config import ViTConfig, get_preset
+from uncertainty_vit_tpu_torch.models.heads import SNGPHead
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 
 MODEL_NAMES = (
@@ -73,3 +76,16 @@ def create_model(
         raise NotImplementedError(f"{name} ({family}): {_NOT_PORTED_FAMILIES[family]} "
                                   "is not ported yet (ROADMAP.md)")
     return VisionTransformer(cfg, dtype, device=device, generator=generator), cfg
+
+
+def sngp_reset_cov(model: torch.nn.Module, ridge_penalty: float = 1e-3) -> torch.nn.Module:
+    """Reset the GP precision matrix of every SNGP head in ``model`` to
+    ridge·I (SNGP.reset_cov, modeling_finetune.py:596-597), in place; call
+    between epochs under exact (momentum ≤ 0) accumulation. Returns the
+    model."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, SNGPHead):
+                p = module.precision_matrix
+                p.copy_(ridge_penalty * torch.eye(p.shape[0], dtype=p.dtype, device=p.device))
+    return model

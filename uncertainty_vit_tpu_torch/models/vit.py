@@ -12,8 +12,12 @@ masking (the reference's finetune masking, modeling_finetune.py:482-486):
 ``forward(..., bool_masked_pos=...)`` blends it into the masked patch
 tokens in training; the evaluation ignores the mask.
 
-Not ported yet (they raise): the SNGP and heteroscedastic heads, the
-spectral-norm fc_norm, attention variants other than softmax.
+``cfg.head_type`` picks the classifier (JAX :274-308): the linear head,
+the SNGP head, the heteroscedastic MC-softmax head (``models/heads.py``) or
+none (the pooled feature comes out); ``cfg.sngp_fc_norm`` puts the
+spectral-norm ``SpectralNormDense`` in fc_norm's place under mean pooling
+(JAX :254-261). Not ported yet (they raise): attention variants other than
+softmax.
 ``cfg.quant="int8"`` runs the trunk's dense layers through
 ``ops.quant.int8_dense`` on [B, N, C] activations; the reference's flat
 [B·N, C] trunk (models/vit.py:118-135) works around layout copies of its
@@ -30,7 +34,7 @@ logits come out equal on every rank. The train step sums the gradients of
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,8 +42,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncertainty_vit_tpu_torch.core import init as I
-from uncertainty_vit_tpu_torch.core.config import ViTConfig
+from uncertainty_vit_tpu_torch.core.config import HEAD_TYPES, ViTConfig
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
+from uncertainty_vit_tpu_torch.models.heads import MCSoftmaxDenseFA, SNGPHead, SpectralNormDense
 from uncertainty_vit_tpu_torch.models.layers import (
     Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, _query_rows, dropout,
     layer_norm,
@@ -155,13 +160,14 @@ class ViTBackbone(nn.Module):
 
 class VisionTransformer(ViTBackbone):
     """Supervised/finetune ViT (modeling_finetune.py:367-523): backbone →
-    pooled feature → linear head. Images are NHWC; logits are float32."""
+    pooled feature → head (``cfg.head_type``). Images are NHWC; logits are
+    float32."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
                  device=None, generator: Optional[torch.Generator] = None,
                  seq_group: Optional[seq.SeqGroup] = None):
-        if cfg.head_type != "linear" or cfg.sngp_fc_norm:
-            raise NotImplementedError("only the linear head is ported yet")
+        if cfg.head_type not in HEAD_TYPES:
+            raise ValueError(f"unknown head_type: {cfg.head_type}")
         device = resolve_device(device)
         super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group)
         c = cfg.embed_dim
@@ -170,41 +176,97 @@ class VisionTransformer(ViTBackbone):
         )
         final_norm = not cfg.learn_layer_weights and not cfg.remove_final_norm
         # mean pooling → fc_norm (no affine under linear_classifier,
-        # modeling_finetune.py:412); cls token → norm, then token 0 (:411, 517)
-        self.fc_norm = (
-            nn.LayerNorm(c, eps=cfg.layer_norm_eps, elementwise_affine=not cfg.linear_classifier,
-                         device=device)
-            if final_norm and cfg.use_mean_pooling else None
-        )
+        # modeling_finetune.py:412; spectral_norm(BertLinear) under --sngp,
+        # :413-414); cls token → norm, then token 0 (:411, 517)
+        self.fc_norm = None
+        if final_norm and cfg.use_mean_pooling:
+            self.fc_norm = (
+                SpectralNormDense(c, c, dtype=dtype, device=device, generator=generator)
+                if cfg.sngp_fc_norm else
+                nn.LayerNorm(c, eps=cfg.layer_norm_eps,
+                             elementwise_affine=not cfg.linear_classifier, device=device))
         self.norm = (
             nn.LayerNorm(c, eps=cfg.layer_norm_eps, device=device)
             if final_norm and not cfg.use_mean_pooling else None
         )
-        self.head = _Params(
-            (cfg.num_classes, c), I.scaled(I.trunc_normal(0.02, 2.0), cfg.init_scale),
-            (cfg.num_classes,), device=device, generator=generator,
-        )
+        self.head = None
+        if cfg.head_type == "linear":
+            self.head = _Params(
+                (cfg.num_classes, c), I.scaled(I.trunc_normal(0.02, 2.0), cfg.init_scale),
+                (cfg.num_classes,), device=device, generator=generator,
+            )
+        elif cfg.head_type == "sngp":
+            self.head = SNGPHead(c, cfg.sngp_num_inducing or c, cfg.num_classes,
+                                 momentum=cfg.sngp_momentum,
+                                 ridge_penalty=cfg.sngp_ridge_penalty, device=device,
+                                 generator=generator)
+        elif cfg.head_type == "het":
+            self.head = MCSoftmaxDenseFA(
+                c, cfg.num_classes, num_factors=cfg.het_num_factors,
+                temperature=cfg.het_temperature, train_mc_samples=cfg.het_train_mc_samples,
+                test_mc_samples=cfg.het_test_mc_samples, device=device, generator=generator)
 
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
-                bool_masked_pos: Optional[torch.Tensor] = None,
-                ) -> torch.Tensor:
+                bool_masked_pos: Optional[torch.Tensor] = None, *,
+                update_sngp_cov: bool = False, return_gp_cov: bool = False,
+                return_features: bool = False, mc_generator: Optional[torch.Generator] = None,
+                het_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """images [B, H, W, C] → f32 logits [B, classes], or [K, B, classes]
         with ``mc_samples=K`` (the split-trunk MC-dropout forward, see
         ``ViTBackbone``). Every random draw (drop-path, dropout masks and
         seeds) comes from ``generator``, on the images' device; a forward
         draws in train mode, or as ``deterministic`` says when given.
         ``bool_masked_pos`` [B, num_patches] (1 = masked) applies where the
-        forward draws, with ``cfg.has_masking``."""
+        forward draws, with ``cfg.has_masking``.
+
+        The heads' options (JAX :188-227): ``update_sngp_cov`` updates the
+        SNGP precision matrix, and the spectral fc_norm's (u, v) where the
+        forward also draws; ``return_gp_cov`` returns (logits, GP
+        covariance) from the SNGP head; ``return_features`` returns (logits,
+        the pooled feature the head takes). The heteroscedastic head draws
+        its noise from ``mc_generator`` (or takes ``het_noise``); it runs
+        on its train sample count when ``update_sngp_cov`` is set, as the
+        JAX model's ``training=update_sngp_cov`` does."""
+        cfg = self.cfg
         if mc_samples > 0:
-            assert not self.cfg.learn_layer_weights, "mc split incompatible with layer weights"
+            assert not cfg.learn_layer_weights, "mc split incompatible with layer weights"
+            assert not return_features, "return_features incompatible with mc_samples"
+        feat = self.forward_features(images, generator, deterministic, mc_samples, mc_split,
+                                     bool_masked_pos, update_sngp_cov=update_sngp_cov)
+        out = self._head(feat, update_sngp_cov, return_gp_cov, mc_generator, het_noise)
+        if return_features:
+            return out, feat
+        if mc_samples > 0:
+            b = images.shape[0]
+            if isinstance(out, tuple):
+                return tuple(t.reshape(mc_samples, b, *t.shape[1:]) for t in out)
+            return out.reshape(mc_samples, b, *out.shape[1:])
+        return out
+
+    def forward_features(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         deterministic: Optional[bool] = None, mc_samples: int = 0,
+                         mc_split: int = 0, bool_masked_pos: Optional[torch.Tensor] = None, *,
+                         update_sngp_cov: bool = False) -> torch.Tensor:
+        """The pooled feature the head takes (what ``forward`` returns beside
+        the logits with ``return_features``), without running the head."""
         x, layer_xs, _ = super().forward(images, generator, deterministic, mc_samples, mc_split,
                                          bool_masked_pos)
-        feat = self._pool(x, layer_xs)
-        logits = F.linear(feat.float(), self.head.weight, self.head.bias)
-        if mc_samples > 0:
-            logits = logits.reshape(mc_samples, images.shape[0], -1)
-        return logits
+        return self._pool(x, layer_xs, update_sngp_cov and _active(self, deterministic))
+
+    def _head(self, feat: torch.Tensor, update_sngp_cov: bool, return_gp_cov: bool,
+              mc_generator: Optional[torch.Generator],
+              het_noise: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+        head_type = self.cfg.head_type
+        if head_type == "none":
+            return feat
+        if head_type == "linear":
+            return F.linear(feat.float(), self.head.weight, self.head.bias)
+        if head_type == "sngp":
+            return self.head(feat, update_cov=update_sngp_cov, return_gp_cov=return_gp_cov)
+        return self.head(feat.float(), training=update_sngp_cov, generator=mc_generator,
+                         noise=het_noise)
 
     def _patch_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of the patch tokens (all but token 0). Under a seq group:
@@ -227,7 +289,8 @@ class VisionTransformer(ViTBackbone):
         t = x[:, :1 if shard.start == 0 else 0].sum(dim=1, dtype=torch.float32)
         return seq.all_reduce_sum(t, shard.group).to(x.dtype)
 
-    def _pool(self, x: torch.Tensor, layer_xs: List[torch.Tensor]) -> torch.Tensor:
+    def _pool(self, x: torch.Tensor, layer_xs: List[torch.Tensor],
+              update_spectral: bool = False) -> torch.Tensor:
         cfg = self.cfg
         if cfg.learn_layer_weights:
             # softmax-weighted combination of per-layer pooled features
@@ -243,6 +306,8 @@ class VisionTransformer(ViTBackbone):
             t = self._patch_mean(x)
             if self.fc_norm is None:  # remove_final_norm (run_class_finetuning.py:524-527)
                 return t
+            if isinstance(self.fc_norm, SpectralNormDense):
+                return self.fc_norm(t, update=update_spectral)
             y = layer_norm(self.fc_norm, t)
             # without affine params the result keeps the input dtype, as
             # flax's LayerNorm does with nothing f32 to promote against

@@ -1,7 +1,7 @@
-"""Supervised finetune engine: the train step and the eval step.
+"""Supervised finetune engine: the train step.
 
 Counterpart of uncertainty_vit_tpu/train/engine_finetune.py:25-182
-(engine_for_finetuning.py:46-220 of the reference) for the linear head:
+(engine_for_finetuning.py:46-220 of the reference):
 optionally the train augmentation of a uint8 batch on the device (``aug_fn``)
 → mixup/cutmix on the device → a bf16 forward on f32 parameters in train
 mode, optionally with on-the-fly token masking → soft-target CE in f32 →
@@ -10,8 +10,14 @@ decay, optionally accumulating ``update_freq`` mini-steps' gradients per
 update (optax.MultiSteps) → optional EMA on the update boundaries. Every
 random draw comes from a generator the caller passes; ``step_generators``
 makes them from (seed, step), as the JAX step folds the step into its key,
-so that a resumed run draws what an uninterrupted one draws. The SNGP /
-heteroscedastic heads are not ported yet (they raise).
+so that a resumed run draws what an uninterrupted one draws.
+
+Every head type runs (JAX :84-158): the SNGP head's step updates its
+precision matrix, and the spectral fc_norm's (u, v), inside the forward,
+once per mini-step; the heteroscedastic head draws its MC noise from a
+fourth generator (``StepGenerators.mc``, made for that head only). The EMA
+covers the parameters
+only, not those buffers (JAX :143-148).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+from uncertainty_vit_tpu_torch.core.config import HEAD_TYPES
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
 from uncertainty_vit_tpu_torch.parallel import seq
@@ -95,22 +101,29 @@ def _targets(hp: FinetuneHParams, images: torch.Tensor, labels: torch.Tensor,
 class StepGenerators:
     """One train step's generators: the model's draws (drop-path, dropout,
     int8 rounding) and the augmentation's on the device, mixup's six scalars
-    on the CPU (drawn there without a device sync)."""
+    on the CPU (drawn there without a device sync), and, for the
+    heteroscedastic head only, its MC noise on the device (the JAX step's
+    r_mc)."""
 
     model: torch.Generator
     augment: torch.Generator
     mix: torch.Generator
+    mc: Optional[torch.Generator] = None
 
 
-def step_generators(seed: int, step: int, device) -> StepGenerators:
+def step_generators(seed: int, step: int, device, het: bool = False) -> StepGenerators:
     """The generators of train step ``step`` of a run seeded with ``seed``:
-    a function of (seed, step) only (the JAX step's fold_in(rng, step))."""
-    seeds = np.random.SeedSequence([seed, step]).generate_state(3, np.uint64)
+    a function of (seed, step) only (the JAX step's fold_in(rng, step)),
+    with ``mc`` for a heteroscedastic head (``het``). The first three seeds
+    are those of the three-generator stream before the fourth was added, so
+    the other draws of a step did not change."""
+    seeds = np.random.SeedSequence([seed, step]).generate_state(4, np.uint64)
     seeds = [int(s) & (2**63 - 1) for s in seeds]
     device = torch.device(device)
     return StepGenerators(torch.Generator(device=device).manual_seed(seeds[0]),
                           torch.Generator(device=device).manual_seed(seeds[1]),
-                          torch.Generator().manual_seed(seeds[2]))
+                          torch.Generator().manual_seed(seeds[2]),
+                          torch.Generator(device=device).manual_seed(seeds[3]) if het else None)
 
 
 def make_finetune_train_step(
@@ -122,9 +135,9 @@ def make_finetune_train_step(
     aug_fn: Optional[Callable[..., torch.Tensor]] = None,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, labels, generator, mix_generator=None,
-    aug_generator=None, valid_hw=None) → metrics {"loss", "class_acc",
-    "grad_norm", "lr"}; the state (model, optimizer, EMA, step) is updated
-    in place.
+    aug_generator=None, valid_hw=None, mc_generator=None) → metrics
+    {"loss", "class_acc", "grad_norm", "lr"}; the state (model, optimizer,
+    EMA, step) is updated in place.
 
     ``generator`` lies on the model's device and draws the drop-path and
     dropout masks; ``mix_generator`` (a CPU generator keeps its six scalar
@@ -147,20 +160,28 @@ def make_finetune_train_step(
     generators of the same seeds, and after the backward the gradients of
     ``model.token_parameters()`` are summed over the group before the
     optimizer reads them, what GSPMD does for the reference's step
-    (tests/test_seq_parallel.py:58-92)."""
+    (tests/test_seq_parallel.py:58-92).
+
+    ``hp.head_type`` "sngp": the forward runs with ``update_sngp_cov``, so
+    the precision matrix and the spectral fc_norm's (u, v) move once per
+    call. "het": the head's noise comes from ``mc_generator`` (required),
+    at its test sample count, as the JAX step passes
+    ``training=update_sngp_cov`` (False for this head) to it."""
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
     if hp.masked_position_prob > 0 and getattr(model, "mask_token", None) is None:
         raise ValueError("masked_position_prob > 0 needs a model with cfg.has_masking")
-    if hp.head_type != "linear":
-        raise NotImplementedError(f"head_type {hp.head_type!r} is not ported yet")
+    if hp.head_type not in HEAD_TYPES:
+        raise ValueError(f"unknown head_type: {hp.head_type}")
+    use_sngp = hp.head_type == "sngp"
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
 
     def step(state: FinetuneState, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator, mix_generator: Optional[torch.Generator] = None,
              aug_generator: Optional[torch.Generator] = None,
-             valid_hw: Optional[torch.Tensor] = None) -> Dict[str, object]:
+             valid_hw: Optional[torch.Tensor] = None,
+             mc_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         if aug_fn is not None:
             if aug_generator is None:
                 raise ValueError("the train augmentation draws from an explicit aug_generator")
@@ -172,7 +193,8 @@ def make_finetune_train_step(
             bool_masked_pos = (torch.rand(shape, generator=generator, device=images.device)
                                < hp.masked_position_prob).float()
         model.train()
-        logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos)
+        logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos,
+                       update_sngp_cov=use_sngp, mc_generator=mc_generator)
         loss = L.soft_target_cross_entropy(logits, targets)
         optimizer.zero_grad()
         loss.backward()
@@ -193,11 +215,3 @@ def make_finetune_train_step(
         return {"loss": loss.detach(), "class_acc": acc, "grad_norm": grad_norm, "lr": lr}
 
     return step
-
-
-def make_eval_step(model: nn.Module, head_type: str = "linear"
-                   ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Deterministic eval forward: images → logits."""
-    if head_type != "linear":
-        raise NotImplementedError(f"head_type {head_type!r} is not ported yet")
-    return make_eval_forward(model)

@@ -3,9 +3,12 @@ a model of another, and the import of a reference ``.pth``.
 
 Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
-:562-578), for the parameters of the ported VisionTransformer. The port's
-modules use the reference's torch names and layouts, so the mapped dict
-loads with ``strict=True``.
+:562-578), for the parameters and buffers of the ported VisionTransformer,
+its uncertainty heads included. The port's modules use the reference's
+torch names and layouts, so the mapped dict loads with ``strict=True``.
+Each leaf has a key of its own: the JAX package's mapping sends the SNGP
+head's two input-norm vectors both to ``head.bias`` and its output layer
+to ``head.weight`` (ROADMAP.md §3).
 
 The cross-resolution surgery a 384 or 512 finetune starts from
 (``interpolate_pos_embed`` :215-231, ``interpolate_rel_pos_table`` :234-278,
@@ -14,7 +17,10 @@ numpy in, numpy out for the two interpolations.
 
 ``load_torch_state_dict`` (:76-87) reads a reference ``.pth``, and
 ``import_torch_state_dict`` applies the rules of ``import_torch_params``
-(:281-342) to a model's state_dict under its own (torch) keys.
+(:281-342) to a model's state_dict under its own (torch) keys; the
+spectral fc_norm's ``fc_norm.weight_u`` / ``fc_norm.weight_v`` are
+entries like any other, which ``import_torch_spectral_stats`` (:345-370)
+takes in the JAX package.
 
 The port's own checkpoints (``save_checkpoint``, ``latest_checkpoint``,
 ``restore_checkpoint``, ``auto_load``; the JAX package's orbax checkpoints,
@@ -70,9 +76,43 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
             return _dense(pre + f"mlp.{rest[1]}", name)
         return None
     if parts[0] == "head":
-        return _dense("head", name)
+        return _head_key(parts[1:])
     if parts[0] in ("norm", "fc_norm"):
         return f"{parts[0]}.{'weight' if name == 'scale' else 'bias'}", "id"
+    if parts[0] == "fc_norm_sn":
+        # spectral_norm(BertLinear) in fc_norm's place (--sngp,
+        # modeling_finetune.py:413-414) under the torch hook's names, its
+        # power-iteration vectors ('spectral_stats') beside the weight
+        return {"kernel": ("fc_norm.weight_orig", "linear_w"), "bias": ("fc_norm.bias", "id"),
+                "u": ("fc_norm.weight_u", "id"), "v": ("fc_norm.weight_v", "id")}.get(name)
+    return None
+
+
+# the SNGP head's leaves (params, 'sngp_frozen', 'sngp_state') → the
+# reference SNGP module's names (modeling_finetune.py:525-638)
+_SNGP_KEYS = {
+    ("input_norm", "scale"): ("_gp_input_normalize_layer.weight", "id"),
+    ("input_norm", "bias"): ("_gp_input_normalize_layer.bias", "id"),
+    ("output_layer", "kernel"): ("_gp_output_layer.weight", "linear_w"),
+    ("rf_kernel",): ("_random_feature.weight", "linear_w"),
+    ("rf_bias",): ("_random_feature.bias", "id"),
+    ("precision_matrix",): ("precision_matrix", "id"),
+}
+
+
+def _head_key(rest: List[str]) -> Optional[Tuple[str, str]]:
+    """The head's leaves under "head.": the linear head's kernel / bias, the
+    SNGP head's (``_SNGP_KEYS``) and the heteroscedastic head's three dense
+    layers (``loc_layer``, ``scale_layer``, ``diag_layer``). Every leaf has
+    a key of its own (the JAX package's export maps several of them onto
+    head.weight / head.bias)."""
+    if len(rest) == 1 and rest[0] in ("kernel", "bias"):
+        return _dense("head", rest[0])
+    found = _SNGP_KEYS.get(tuple(rest))
+    if found is not None:
+        return "head." + found[0], found[1]
+    if len(rest) == 2 and rest[0] in ("loc_layer", "scale_layer", "diag_layer"):
+        return _dense(f"head.{rest[0]}", rest[1])
     return None
 
 
@@ -117,10 +157,19 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+def load_flax_params(model: nn.Module, params: Mapping,
+                     collections: Optional[Mapping] = None) -> nn.Module:
     """Load a JAX VisionTransformer's params (``variables["params"]``, as
-    nested dicts of numpy arrays) into the port's model, strictly."""
-    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    nested dicts of numpy arrays) into the port's model, strictly.
+    ``collections`` holds the model's other variable collections
+    ('spectral_stats', 'sngp_frozen', 'sngp_state' of the SNGP model; a
+    whole ``variables`` dict may be passed, its "params" are skipped): they
+    fill the buffers of the same leaves."""
+    state = flax_to_state_dict(params)
+    for name, tree in (collections or {}).items():
+        if name != "params":
+            state.update(flax_to_state_dict(tree))
+    model.load_state_dict(state, strict=True)
     return model
 
 
