@@ -273,6 +273,32 @@ kernels from the sources in this checkout, then:
            (each printed number equal to the CPU's from the card's logits,
            K1 12 a forward, K8 24 a forward under --mc_dropout), and
            --visualize_embedding (the TSVs the card's pooled features).
+  phase 20 the cyclical (data2vec) pretraining driver, cli.pretrain_cyclical,
+           over 1024 seeded 32x32 CIFAR-100 images at the recipe's flags
+           (BASELINE.md:34: beit_base_patch16_224 at batch 128, lr 2e-3, mask
+           120, EMA 0.9998 from 0.999, clip 3.0, drop-path 0.25, attention
+           dropout 0.05, target layers 6-11), from random seeded weights: (a)
+           2 epochs of 4 steps, BOUNDED_SCORES left on before main() (as phase
+           4 and the finetune driver leave it): K1 24 (the teacher's 12
+           without the lse, the student's 12 with it and its dropout) and K2
+           12 a step, no other kernel, the exact softmax in every step; finite
+           losses; log.txt's records under the JAX driver's keys; each step's
+           masks the host op's from the step's CPU generator; the teacher
+           after steps 0 and 1 the EMA rule on float64 copies within 1e-6; a step
+           under torch.cuda.set_sync_debug_mode("error"); step 0 against the
+           same run on the plain attention (phase 4's bounds); the pretrain
+           transform on the card against the CPU's on the same draws (phase
+           17's AUG_* bounds); --epochs 3 auto-resumes at epoch 2 with the
+           student, teacher and AdamW moments of checkpoint-1.pth. Prints the
+           rate beside phase 4's, a step's parts (transform, teacher and
+           targets, student forward and backward, AdamW, EMA: CUDA events; the
+           masks on the host) and a torch.profiler trace of two resumed steps
+           (busy share, idle time, top kernels). (b) --gp_layer, 2 steps: the SNGP lm_head's
+           precision matrix within 1e-4 (of its largest entry) of a float64
+           recomputation from its [B·N, C] inputs. (c) the last checkpoint
+           through cli.finetune --finetune --eval over 256 images (K1 24): the
+           missing and unused keys those of import_torch_state_dict on the
+           CPU (fc_norm and the head; mask_token, norm and lm_head).
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -4518,6 +4544,473 @@ def phase19(torch, FA, dev):
     return paths
 
 
+
+# Phase 20: the cyclical teacher after a step against the EMA rule applied to
+# copies of the teacher and the updated student in float64: the card's f32
+# update rounds each product and the sum once (~6e-8 relative).
+EMA_REL_BOUND = 1e-6
+
+
+def phase20(torch, FA, dev, step_rates):
+    """The cyclical (data2vec) pretraining driver on the card:
+    cli.pretrain_cyclical.main at the recipe's flags over seeded 32x32
+    CIFAR-100 images (20a: two epochs, a step on the plain attention, a
+    resumed third epoch; 20b: --gp_layer; 20c: the last checkpoint through
+    cli.finetune --eval). step_rates: phase 4's step-only img/s, for the
+    rate beside. Returns the launches of each path."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.cli import pretrain_cyclical as PC
+    from uncertainty_vit_tpu_torch.ops import augment as A
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import masking as M
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.train import engine_cyclical as EC
+    from uncertainty_vit_tpu_torch.train.ema import cyclical_ema_decay, cyclical_ema_step
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+    n_train, n_test, bs, depth, spe = 1024, 256, 128, 12, 4
+    rs = np.random.RandomState(20)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+
+    def counts():
+        # inside attention_on_plain the attention wrappers are plain
+        # functions, which count nothing
+        return kernel_counts(FA, TQ, DO) if hasattr(FA.fused_qkv_attention_bwd, "launches") else {}
+
+    want = {k: 0 for k in counts()}
+    per_step = dict(want, K1=2 * depth, K2=depth)
+    paths = {}
+    # what the driver does, seen through its own entry points: each call of
+    # its train step (host clock, launches, masks, the softmax mode; around
+    # step 0 the teacher and the student), each epoch's log record (host
+    # clock), the state auto_load restored, lm_head's inputs under --gp_layer
+    steps, writes, resumed, lm_inputs = [], [], [], []
+    watch = {"sync_check": None, "ema_check": False, "gp": False, "prof_start": None,
+             "prof_stop": None}
+    make_step, auto_load, jsonl = PC.make_cyclical_train_step, PC.C.auto_load, PC.JsonlLogger
+    import_sd = C.import_torch_state_dict
+
+    def recording_make_step(model, *a, **k):
+        step = make_step(model, *a, **k)
+        if watch["gp"]:
+            def record(mod, args, kwargs):
+                if kwargs.get("update_cov"):
+                    ln = mod._gp_input_normalize_layer
+                    lm_inputs.append((args[0].detach().float().clone(), ln.weight.detach().clone(),
+                                      ln.bias.detach().clone()))
+
+            model.lm_head.register_forward_pre_hook(record, with_kwargs=True)
+
+        def recorded(state, images, masks, *rest):
+            if state.step in (watch["prof_start"], watch["prof_stop"]):
+                torch.cuda.synchronize()
+                if state.step == watch["prof_start"]:
+                    watch["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA])
+                    watch["prof"].start()
+                    watch["prof_t"] = time.perf_counter()
+                else:
+                    watch["prof_ms"] = (time.perf_counter() - watch["prof_t"]) * 1000
+                    watch["prof"].stop()
+            r = {"step": state.step, "bounded": FA.BOUNDED_SCORES, "masks": masks.clone()}
+            if watch["ema_check"] and state.step < 2:
+                r["teacher_before"] = {k: v.detach().clone() for k, v in state.model_ema.items()}
+            before = counts()
+            checked = state.step == watch["sync_check"]
+            r["t"] = time.perf_counter()
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = step(state, images, masks, *rest)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            r["sync_checked"] = checked
+            after = counts()
+            r.update(metrics=m, launches={k: after[k] - before[k] for k in after})
+            if "teacher_before" in r:
+                r["student"] = {k: p.detach().clone() for k, p in model.named_parameters()}
+                r["teacher"] = {k: v.detach().clone() for k, v in state.model_ema.items()}
+            steps.append(r)
+            return m
+
+        return recorded
+
+    class TimedJsonl(jsonl):
+        def write(self, record):
+            writes.append(time.perf_counter())
+            super().write(record)
+
+    def recording_auto_load(output_dir, state):
+        state, epoch = auto_load(output_dir, state)
+        resumed.append({"epoch": epoch, "step": state.step,
+                        "model": {k: v.detach().clone()
+                                  for k, v in state.model.state_dict().items()},
+                        "teacher": {k: v.detach().clone() for k, v in state.model_ema.items()},
+                        "optimizer": {i: {k: v.clone() for k, v in st.items()} for i, st in
+                                      state.optimizer.state_dict()["state"].items()}})
+        return state, epoch
+
+    def counted(path, expect, fn, *a, **k):
+        reset_kernel_counts(FA, TQ, DO)
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        paths[path] = counts()
+        exp = dict(want, **expect)
+        print(f"  {path}: launches {paths[path]}", flush=True)
+        check(paths[path] == exp, f"{path} launched {paths[path]}, expected {exp}")
+        return out
+
+    def finite(records, what):
+        for r in records:
+            for k in ("loss", "loss_cyc", "grad_norm"):
+                check(math.isfinite(float(r["metrics"][k])),
+                      f"{what}: step {r['step']} {k} {float(r['metrics'][k])}")
+
+    bounded = FA.BOUNDED_SCORES
+    PC.make_cyclical_train_step, PC.C.auto_load, PC.JsonlLogger = (
+        recording_make_step, recording_auto_load, TimedJsonl)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+            out = os.path.join(tmp, "out")
+
+            def args_of(out_dir, *extra):
+                # the recipe (BASELINE.md:34) at its per-GPU batch
+                return PC.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                    "--num_workers", "8", "--output_dir", out_dir, "--steps_per_epoch", str(spe),
+                    "--save_ckpt_freq", "2", "--lr", "2e-3", "--warmup_epochs", "1",
+                    "--num_mask_patches", "120", "--ema_decay", "0.9998",
+                    "--ema_decay_init", "0.999", "--clip_grad", "3.0", "--drop_path", "0.25",
+                    "--attn_drop_rate", "0.05", "--target_layers", "[6,7,8,9,10,11]",
+                    "--layer_scale_init_value", "0.1", *extra])
+
+            # ---------------- 20a: two epochs of 4 steps ----------------
+            t20 = time.perf_counter()
+            args = args_of(out, "--epochs", "2")
+            watch.update(sync_check=spe + 1, ema_check=True)
+            FA.BOUNDED_SCORES = True  # as phase 4 and the finetune driver left it
+            t0 = time.perf_counter()
+            state = counted("cli9_train", {"K1": 2 * depth * 2 * spe, "K2": depth * 2 * spe},
+                            PC.main, args)
+            main_s = time.perf_counter() - t0
+            watch.update(sync_check=None, ema_check=False)
+            run1, writes1 = list(steps), list(writes)
+            check(len(run1) == 2 * spe and state.step == 2 * spe,
+                  f"{len(run1)} step calls, state step {state.step}")
+            for r in run1:
+                check(r["launches"] == per_step, f"step {r['step']} launched {r['launches']}")
+                check(r["bounded"] is False, f"step {r['step']} ran the bounded softmax")
+            check(not FA.BOUNDED_SCORES, "the driver left BOUNDED_SCORES on")
+            finite(run1, "train")
+            check(any(r["sync_checked"] for r in run1),
+                  "the step under sync debug mode did not run")
+            # the masks each step received: the host op's on the draws of the
+            # step's CPU generator
+            host_ms = []
+            for r in run1:
+                t = time.perf_counter()
+                host = M.make_blockwise_masks(EC.mask_generator(args.seed, r["step"]), bs,
+                                              (14, 14), 120, 16)
+                host_ms.append((time.perf_counter() - t) * 1000)
+                check(torch.equal(r["masks"], torch.from_numpy(host).to(dev)),
+                      f"step {r['step']}'s masks are not the host op's")
+            counts_m = [float(r["metrics"]["mask_count"]) for r in run1]
+            check(all(0 < c <= 120 for c in counts_m), f"mask counts {counts_m}")
+            with open(os.path.join(out, "log.txt")) as f:
+                log = [json.loads(line) for line in f]
+            keys = {"epoch"} | {f"train_{k}" for k in ("loss", "loss_cyc", "loss_var0",
+                                                         "grad_norm", "mask_count", "lr")}
+            check([r["epoch"] for r in log] == [0, 1] and all(set(r) == keys for r in log),
+                  f"log.txt: {log}")
+            check(os.path.isfile(os.path.join(out, "checkpoint-1.pth")),
+                  "checkpoint-1.pth was not written")
+            print("  losses " + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in run1)
+                  + "; grad norms " + ", ".join(f"{float(r['metrics']['grad_norm']):.4f}"
+                                               for r in run1)
+                  + f"; mask counts {counts_m}; every step K1 {2 * depth} (teacher and student), "
+                  f"K2 {depth}, the exact softmax though BOUNDED_SCORES was on before main()",
+                  flush=True)
+            print(f"  step {spe + 1} ran with torch.cuda.set_sync_debug_mode('error'): no host "
+                  f"synchronization inside the driver's step; the masks of all {len(run1)} steps "
+                  f"equal the host op's from the step's CPU generator", flush=True)
+
+            # the teacher after steps 0 and 1 (the warm-up's lr is 0 at step 0,
+            # so the student moves from step 1 on): the EMA rule on copies, in
+            # float64
+            for r in run1[:2]:
+                d = cyclical_ema_decay(r["step"], args.ema_decay, args.ema_decay_init,
+                                       args.ema_start_at)
+                worst, moved = 0.0, 0.0
+                for k, e0 in r["teacher_before"].items():
+                    exp = e0.double() * d + r["student"][k].double() * (1.0 - d)
+                    err = float((r["teacher"][k].double() - exp).abs().max())
+                    worst = max(worst, err / max(float(exp.abs().max()), 1e-30))
+                    moved = max(moved, float((r["teacher"][k] - e0).abs().max()))
+                print(f"  teacher after step {r['step']} against d·e + (1 - d)·m on copies in "
+                      f"float64 (d = {d!r}): worst tensor's max|diff| / max|expected| "
+                      f"{worst:.3e} (bound {EMA_REL_BOUND}); it moved by up to {moved:.3e}",
+                      flush=True)
+                check(worst <= EMA_REL_BOUND,
+                      f"the teacher after step {r['step']} is not the EMA rule's")
+            check(moved > 0, "the teacher did not move at step 1")
+            for r in run1:
+                for k in ("teacher_before", "student", "teacher"):
+                    r.pop(k, None)
+            rates = [spe * bs / (writes1[e] - run1[e * spe]["t"]) for e in range(2)]
+            print(f"  driver pretrain rate from images (information only; host clock from an "
+                  f"epoch's first step call to its log record, the readback of its last step "
+                  f"included): {rates} img/s (epoch 0 includes the first call's warm-up); "
+                  f"phase 4's finetune step-only rate in this call: kernel "
+                  f"{step_rates['kernel']} img/s; main() with model build and checkpoint "
+                  f"{main_s:.2f} s", flush=True)
+
+            # --- step 0 on the plain attention: same flags, state, batch, masks
+            # and per-step generators
+            steps.clear()
+            reset_kernel_counts(FA, TQ, DO)
+            with attention_on_plain(torch, FA):
+                PC.main(args_of(os.path.join(tmp, "plain"), "--epochs", "1", "--steps_per_epoch",
+                                "1", "--no_save_ckpt", "--no_auto_resume"))
+            torch.cuda.synchronize()
+            check(kernel_counts(FA, TQ, DO) == want, "the plain-attention run launched a kernel")
+            m_k, m_p = run1[0]["metrics"], steps[0]["metrics"]
+            loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+            gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+            print(f"  driver's step 0, kernels vs plain attention: loss {loss_k:.6f} / "
+                  f"{loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+            check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+                  "the driver's first loss disagrees with the plain attention's")
+            check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+                  "the driver's first grad norm disagrees with the plain attention's")
+            check(torch.equal(steps[0]["masks"], run1[0]["masks"]), "the plain run's masks")
+
+            # --- the pretrain transform on the card against the CPU's, on the
+            # driver's first batch with the draws of its step 0
+            loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True)
+            loader.set_epoch(0)
+            first = next(iter(loader))[0]
+            draws = A.draw_pretrain_augment(EC.step_generators(args.seed, 0, dev).augment, bs)
+            u8 = torch.from_numpy(first).to(dev)
+            on_card = A.pretrain_augment_batch(draws, u8, 224).cpu()
+            cpu_draws = draws.to("cpu")
+            on_cpu = A.pretrain_augment_batch(cpu_draws, torch.from_numpy(first), 224)
+
+            def crop(d_, x):
+                jit = A.color_jitter_batch(d_.color_jitter, A.to_planar(x))
+                return A.random_resized_crop_batch(d_.rrc, A.random_hflip_batch(d_.flip_u, jit),
+                                                   224)
+
+            crop_diff = (crop(draws, u8).cpu() - crop(cpu_draws, torch.from_numpy(first))
+                         ).abs().max().item()
+            diff = (on_card - on_cpu).abs()
+            near = (diff > AUG_NEAR_ATOL).float().mean().item()
+            flips = (diff > AUG_FLIP_ATOL).float().mean().item()
+            print(f"  pretrain transform {tuple(first.shape)} -> {tuple(on_card.shape)}, card vs "
+                  f"CPU on the same draws: jitter, flip and crop max|diff| {crop_diff:.3e} "
+                  f"(bound {AUG_CROP_ATOL}); whole transform max|diff| {diff.max().item():.3e}, "
+                  f"share beyond {AUG_NEAR_ATOL} {near:.2e} (bound {AUG_NEAR_SHARE}), beyond "
+                  f"{AUG_FLIP_ATOL:.4f} {flips:.2e} (bound {AUG_FLIP_SHARE})", flush=True)
+            check(tuple(on_card.shape) == (bs, 224, 224, 3) and bool(torch.isfinite(on_card).all()),
+                  "the pretrain transform's output")
+            check(crop_diff <= AUG_CROP_ATOL, "the crop on the card disagrees with the CPU's")
+            check(near <= AUG_NEAR_SHARE and flips <= AUG_FLIP_SHARE,
+                  "the pretrain transform on the card disagrees with the CPU's")
+            del on_card, on_cpu, draws, cpu_draws
+
+            # --- --epochs 3 on the same directory: auto-resumes at epoch 2 from
+            # checkpoint-1.pth; steps 9 and 10 profiled
+            steps.clear()
+            args3 = args_of(out, "--epochs", "3")
+            watch.update(prof_start=2 * spe + 1, prof_stop=2 * spe + 3)
+            state = counted("cli9_train_resume", {"K1": 2 * depth * spe, "K2": depth * spe},
+                            PC.main, args3)
+            watch.update(prof_start=None, prof_stop=None)
+            check(len(resumed) == 2 and resumed[0]["epoch"] == 0 and resumed[1]["epoch"] == 2
+                  and resumed[1]["step"] == 2 * spe,
+                  f"auto-resume: {[(r['epoch'], r['step']) for r in resumed]}")
+            blob = torch.load(os.path.join(out, "checkpoint-1.pth"), map_location=dev,
+                              weights_only=False)
+            got = resumed[1]
+            check(blob["step"] == 2 * spe and blob["epoch"] == 1, "checkpoint-1.pth's step, epoch")
+            check(got["model"].keys() == blob["model"].keys()
+                  and all(torch.equal(got["model"][k], v) for k, v in blob["model"].items()),
+                  "the resumed student is not checkpoint-1.pth's")
+            check(got["teacher"].keys() == blob["model_ema"].keys()
+                  and all(torch.equal(got["teacher"][k], v) for k, v in blob["model_ema"].items()),
+                  "the resumed teacher is not checkpoint-1.pth's")
+            saved = blob["optimizer"]["state"]
+            check(got["optimizer"].keys() == saved.keys()
+                  and all(torch.equal(got["optimizer"][i][k], v.to(got["optimizer"][i][k].device))
+                          for i, st in saved.items() for k, v in st.items()),
+                  "the resumed AdamW moments are not checkpoint-1.pth's")
+            lr3, _, _ = B.build_lr_schedules(args3, spe)
+            check(steps[0]["step"] == 2 * spe and steps[0]["metrics"]["lr"] == lr3(2 * spe),
+                  f"the resumed run's first step {steps[0]['step']} lr {steps[0]['metrics']['lr']}")
+            finite(steps, "resumed")
+            for r in steps:
+                check(r["launches"] == per_step, f"resumed step {r['step']} launched "
+                                                 f"{r['launches']}")
+            n_opt = sum(len(st) for st in saved.values())
+            print(f"  --epochs 3 resumed at epoch {got['epoch']}, step {got['step']}: "
+                  f"{len(got['model'])} student, {len(got['teacher'])} teacher and {n_opt} AdamW "
+                  f"tensors equal to checkpoint-1.pth's; first lr {steps[0]['metrics']['lr']:.6e}"
+                  f" = the schedule's at update {2 * spe}", flush=True)
+            del blob, got
+            resumed.clear()
+            busy_ms, idle, top = trace_summary(watch.pop("prof"))
+            print(f"  profiled driver steps {2 * spe + 1} and {2 * spe + 2} (the card synchronized "
+                  f"at both ends, the loader, masks, copies, readback and host between): wall "
+                  f"{watch['prof_ms']:.2f} ms, CUDA kernel and copy time {busy_ms:.2f} ms, busy "
+                  f"share {busy_ms / watch['prof_ms']:.3f}; the card idle (ms) "
+                  f"{json.dumps({k: round(v, 2) for k, v in idle.items()})} before its first "
+                  f"kernel, between, after its last; top kernels (ms): {json.dumps(top)}",
+                  flush=True)
+
+            # --- where a step's time goes, by part (CUDA events; the host op's
+            # masks by the host clock), on the resumed run's state and batch
+            model, teacher, opt = state.model, state.teacher, state.optimizer
+            hp = PC.hparams(args3, spe)
+            gens = EC.step_generators(args.seed, 99, dev)
+            aug_fn = A.make_pretrain_augment(224)
+            images = aug_fn(gens.augment, u8)
+            masks = torch.from_numpy(M.make_blockwise_masks(EC.mask_generator(0, 99), bs)).to(dev)
+
+            def teacher_targets():
+                with torch.no_grad():
+                    return EC.build_targets(teacher(images, None, deterministic=True,
+                                                    layer_results="end"), hp)
+
+            targets = teacher_targets()
+
+            def student_fwd_bwd():
+                model.train()
+                out_ = model(images, masks, generator=gens.model).float()
+                loss = ((out_ - targets) ** 2 * masks[..., None]).mean()
+                opt.zero_grad()
+                loss.backward()
+
+            student_fwd_bwd()
+            ema_t = {k: v.detach().clone() for k, v in state.model_ema.items()}
+            params = dict(model.named_parameters())
+            parts = {
+                "transform": cuda_ms(lambda: aug_fn(gens.augment, u8), 10),
+                "teacher_forward_targets": cuda_ms(teacher_targets, 10),
+                "student_forward_backward": cuda_ms(student_fwd_bwd, 10),
+                "adamw_clip": cuda_ms(lambda: opt.step(1e-3, 0.05), 10),
+                "ema": cuda_ms(lambda: cyclical_ema_step(ema_t, params, 0, 0.9998, 0.999, 0), 10),
+            }
+            # the clipped AdamW's many small launches outpace nothing when
+            # called alone: its kernels' own time, from a trace
+            parts["adamw_clip_kernels"] = sum(
+                kernel_split(torch, lambda: opt.step(1e-3, 0.05), 5).values())
+            t = time.perf_counter()
+            for i in range(10):
+                M.make_blockwise_masks(EC.mask_generator(0, i), bs)
+            parts["masks_host"] = (time.perf_counter() - t) * 100
+            step_ms = bs * 1000 / rates[1]
+            print(f"  a step's parts at batch {bs}, ms (CUDA events; masks_host by the host "
+                  f"clock, made a batch ahead on the host): "
+                  f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}; their device sum "
+                  f"{sum(v for k, v in parts.items() if k not in ('masks_host', 'adamw_clip')):.2f}"
+                  f" ms (AdamW by its kernels) against the "
+                  f"driver's {step_ms:.2f} ms a step (epoch 1); the masks of the {len(host_ms)} "
+                  f"steps on the host {[round(v, 2) for v in host_ms]} ms", flush=True)
+            del state, model, teacher, opt, ema_t, params, images, targets
+            print(f"  20a took {time.perf_counter() - t20:.1f} s", flush=True)
+
+            # ---------------- 20b: --gp_layer, 2 steps ----------------
+            t20 = time.perf_counter()
+            steps.clear()
+            watch["gp"] = True
+            state = counted("cli9_gp_train", {"K1": 2 * depth * 2, "K2": depth * 2}, PC.main,
+                            args_of(os.path.join(tmp, "gp"), "--gp_layer", "--epochs", "1",
+                                    "--steps_per_epoch", "2", "--no_save_ckpt",
+                                    "--no_auto_resume"))
+            watch["gp"] = False
+            finite(steps, "--gp_layer")
+            head = state.model.lm_head
+            width = state.model.cfg.embed_dim
+            check(len(lm_inputs) == 2 and lm_inputs[0][0].shape == (bs * 196, width),
+                  f"{len(lm_inputs)} lm_head updates")
+            ridge = 1e-3 * np.eye(width)
+            wrf = head._random_feature.weight.double().cpu().numpy()
+            brf = head._random_feature.bias.double().cpu().numpy()
+            p64 = ridge.copy()
+            for feat, w, b in lm_inputs:
+                x = feat.double().cpu().numpy()
+                x = (x - x.mean(1, keepdims=True)) / np.sqrt(x.var(1, keepdims=True) + 1e-12)
+                x = x * w.double().cpu().numpy() + b.double().cpu().numpy()
+                phi = np.cos(x @ wrf.T + brf)
+                p64 = 0.999 * p64 + 0.001 * (phi.T @ phi) / len(phi)
+            perr = float(np.abs(head.precision_matrix.double().cpu().numpy() - p64).max())
+            losses = [round(float(r["metrics"]["loss"]), 5) for r in steps]
+            print(f"  20b --gp_layer: losses {losses}"
+                  f"; the precision matrix after 2 steps vs a float64 CPU recomputation from "
+                  f"lm_head's [B·N, C] = {tuple(lm_inputs[0][0].shape)} inputs: max|diff| "
+                  f"{perr:.3e}, max|P| {np.abs(p64).max():.3e} (bound {PRECISION_REL_BOUND} of it)",
+                  flush=True)
+            check(perr <= PRECISION_REL_BOUND * np.abs(p64).max(),
+                  "the SNGP lm_head's precision matrix disagrees with the CPU's recomputation")
+            for r in steps:
+                check(r["launches"] == per_step, f"--gp_layer step launched {r['launches']}")
+            lm_inputs.clear()
+            del state, head
+            print(f"  20b took {time.perf_counter() - t20:.1f} s", flush=True)
+
+            # ---------------- 20c: the hand-off to the finetune driver ----------
+            t20 = time.perf_counter()
+            imports = []
+
+            def recording_import(sd, template, *a, **k):
+                result = import_sd(sd, template, *a, **k)
+                imports.append({"sd": sd, "template": {k_: v.detach().cpu()
+                                                       for k_, v in template.items()},
+                                "result": result})
+                return result
+
+            pth = os.path.join(out, "checkpoint-2.pth")
+            C.import_torch_state_dict = recording_import
+            try:
+                res = counted("cli9_finetune_eval", {"K1": depth * 2}, FT.main,
+                              FT.get_args_parser().parse_args([
+                                  "--model", "beit_base_patch16_224", "--input_size", "224",
+                                  "--data_set", "CIFAR100", "--data_path", tmp, "--num_workers",
+                                  "8", "--batch_size", str(bs), "--finetune", pth, "--eval",
+                                  "--output_dir", os.path.join(tmp, "ft")]))
+            finally:
+                C.import_torch_state_dict = import_sd
+            check(len(imports) == 1, f"{len(imports)} imports")
+            _, missing, unused = imports[0]["result"]
+            _, cpu_missing, cpu_unused = import_sd(C.load_torch_state_dict(pth),
+                                                   imports[0]["template"])
+            print(f"  20c checkpoint-2.pth through cli.finetune --finetune --eval over {n_test} "
+                  f"images: missing {missing}, unused {unused}; acc1 "
+                  f"{res['eval']['acc1']:.3f}", flush=True)
+            check(missing == cpu_missing and unused == cpu_unused,
+                  f"the card's import gave missing {missing}, unused {unused}; the CPU's "
+                  f"{cpu_missing}, {cpu_unused}")
+            check(sorted(missing) == ["fc_norm.bias", "fc_norm.weight", "head.bias", "head.weight"]
+                  and sorted(unused) == ["lm_head.bias", "lm_head.weight", "mask_token",
+                                         "norm.bias", "norm.weight"], "the hand-off's keys")
+            print(f"  20c took {time.perf_counter() - t20:.1f} s", flush=True)
+    finally:
+        PC.make_cyclical_train_step, PC.C.auto_load, PC.JsonlLogger = make_step, auto_load, jsonl
+        C.import_torch_state_dict = import_sd
+        if "prof" in watch:
+            watch.pop("prof").stop()
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
 def main() -> int:
     import torch
 
@@ -4588,6 +5081,9 @@ def main() -> int:
     cli8 = run(19, "slice 8 through the driver: --sngp and --het_layer training and evaluation; "
                    "--temp_scaling, --laplace, --corrupted_data, --perturbed_data, "
                    "--visualize_embedding", phase19, torch, FA, dev)
+    cli9 = run(20, "the cyclical pretraining driver: two epochs at the recipe's flags, a step on "
+                   "the plain attention, a resumed third; --gp_layer; the hand-off to "
+                   "cli.finetune", phase20, torch, FA, dev, step_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -4605,17 +5101,22 @@ def main() -> int:
     # epoch resumed, and an int8 epoch of 2 steps
     # and phase 19's ("cli8_"): the --sngp, exact-accumulation and --het_layer
     # training runs, the --het_layer evaluation, and the post-hoc evaluations
+    # and phase 20's ("cli9_"): the cyclical driver's two epochs of 4 steps,
+    # its resumed third, its --gp_layer epoch of 2, and the finetune driver's
+    # --eval of the last checkpoint
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
                 **{path: n["K1"] for path, n in int8.items()},
                 **{path: n["K1"] for path, n in cli.items()},
                 **{path: n["K1"] for path, n in cli_train.items()},
-                **{path: n["K1"] for path, n in cli8.items()}}
+                **{path: n["K1"] for path, n in cli8.items()},
+                **{path: n["K1"] for path, n in cli9.items()}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
                 "int8_train_step": int8["int8_train_step"]["K2"],
                 **{path: n["K2"] for path, n in cli_train.items()},
-                **{path: n["K2"] for path, n in cli8.items() if n["K2"]}}
+                **{path: n["K2"] for path, n in cli8.items() if n["K2"]},
+                **{path: n["K2"] for path, n in cli9.items() if n["K2"]}}
     k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train}.items() if n["K6"]}
     k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train}.items() if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in {**mc, **cli, **cli8}.items() if n["K8"]}

@@ -35,6 +35,7 @@ from uncertainty_vit_tpu_torch.cli import finetune as TFT
 from uncertainty_vit_tpu_torch.core.config import get_preset
 from uncertainty_vit_tpu_torch.core.init import trunc_normal
 from uncertainty_vit_tpu_torch.models import registry as TREG
+from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
 from uncertainty_vit_tpu_torch.utils.checkpoint import _torch_key_for, flax_to_state_dict
@@ -348,18 +349,22 @@ def test_mc_mean_forward_draws_fresh_masks(files):
 
 
 def test_create_model_matches_jax():
-    """The registry's finetune family, its config equal to the JAX
-    registry's (a 1-deep ViT-B/16 224 to keep it cheap); the other families
-    raise."""
+    """The registry's finetune and cyclical families, their configs equal to
+    the JAX registry's (a 1-deep ViT-B/16 224 to keep it cheap); the dist,
+    MIM and joint families raise."""
     model, cfg = TREG.create_model("beit_base_patch16_224", depth=1, num_classes=10,
                                    device="cpu")
     _, jcfg = JREG.create_model("beit_base_patch16_224", depth=1, num_classes=10)
     assert isinstance(model, VisionTransformer) and len(model.blocks) == 1
     assert _fields(cfg) == _fields(jcfg)
+    model, cfg = TREG.create_model("beit_base_patch16_224", "cyclical", depth=1, device="cpu")
+    _, jcfg = JREG.create_model("beit_base_patch16_224", "cyclical", depth=1)
+    assert isinstance(model, CyclicalViT) and len(model.blocks) == 1
+    assert _fields(cfg) == _fields(jcfg) and cfg.head_type == "none"
     for name, family in (("dist_beit_base_patch16_224", None),
+                         ("dist_beit_base_patch16_224", "cyclical"),
                          ("beit_base_patch16_224_8k_vocab", None),
-                         ("beit_base_joint_patch16_224", None),
-                         ("beit_base_patch16_224", "cyclical")):
+                         ("beit_base_joint_patch16_224", None)):
         with pytest.raises(NotImplementedError, match="slice"):
             TREG.create_model(name, family, device="cpu")
     with pytest.raises(ValueError):

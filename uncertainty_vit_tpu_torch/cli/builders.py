@@ -1,7 +1,7 @@
 """Shared CLI plumbing: argparse groups, the model config and the loaders.
 
 Counterpart of uncertainty_vit_tpu/cli/builders.py: the argument groups
-(:25-213) with every flag name of the JAX package (which keeps the
+(:25-213, ``add_mask_args`` :184-191) with every flag name of the JAX package (which keeps the
 reference's names, run_class_finetuning.py:49-259), so that a recipe parses
 unchanged; ``model_config_from_args`` (:216-254), ``build_lr_schedules`` and
 ``build_optimizer`` (:257-301), ``build_loaders`` (:304-361),
@@ -198,6 +198,15 @@ def add_data_args(p: argparse.ArgumentParser):
                            "fp16 (no loss scaling)")
     noop.add_argument("--model_ema_force_cpu", action="store_true",
                       help="the EMA lives beside the model")
+    return g
+
+
+def add_mask_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("masking")
+    g.add_argument("--num_mask_patches", type=int, default=120)
+    g.add_argument("--min_mask_patches_per_block", type=int, default=16)
+    g.add_argument("--max_mask_patches_per_block", type=int, default=None)
+    g.add_argument("--mask_dropout_prob", type=float, default=-1.0)
     return g
 
 

@@ -167,18 +167,26 @@ class PatchEmbed(nn.Module):
     """Patchifier → [B, N, C] (modeling_finetune.py:304-325), NHWC input.
 
     The stride-p conv is computed as space-to-depth + matmul, as the JAX
-    module does; the parameter keeps torch's conv layout [C, in, p, p]."""
+    module does; the parameter keeps torch's conv layout [C, in, p, p].
+    ``weight_init`` "torch" is torch's Conv2d default (the finetune zoo);
+    ("trunc", std) the cyclical zoo's: the weight trunc_normal(std) bounded
+    at ±std, the bias zero (JAX models/layers.py:120-133,
+    modeling_cyclical.py:158-161)."""
 
     def __init__(self, patch_size: int = 16, in_chans: int = 3, embed_dim: int = 768,
-                 dtype: torch.dtype = torch.float32, *, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, weight_init="torch", *, device=None,
+                 generator=None):
         super().__init__()
         device = resolve_device(device)
         self.patch_size, self.embed_dim, self.dtype = patch_size, embed_dim, dtype
         fan_in = in_chans * patch_size * patch_size
-        self.proj = _Params(
-            (embed_dim, in_chans, patch_size, patch_size), I.torch_linear_default(fan_in),
-            (embed_dim,), I.torch_linear_default(fan_in), device=device, generator=generator,
-        )
+        if weight_init == "torch":
+            w_init = b_init = I.torch_linear_default(fan_in)
+        else:
+            _, std = weight_init
+            w_init, b_init = I.trunc_normal(std, std), I.zeros
+        self.proj = _Params((embed_dim, in_chans, patch_size, patch_size), w_init, (embed_dim,),
+                            b_init, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.patch_size

@@ -5,8 +5,10 @@ modeling_pretrain.py:139-166).
 
 ``create_model(name, family=...)`` returns (module, config). The
 ``finetune`` family, the ``VisionTransformer`` with any of its heads
-(``head_type=`` and the other config fields pass through as overrides), is
-ported; the other families raise with the ROADMAP slice that ports them.
+(``head_type=`` and the other config fields pass through as overrides), and
+the ``cyclical`` family, ``CyclicalViT`` with ``head_type="none"`` (JAX
+:73-75), are ported; the other families raise with the ROADMAP slice that
+ports them.
 ``sngp_reset_cov`` (:84-95) restarts the SNGP head's precision matrix.
 """
 
@@ -18,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from uncertainty_vit_tpu_torch.core.config import ViTConfig, get_preset
+from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
 from uncertainty_vit_tpu_torch.models.heads import SNGPHead
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 
@@ -33,7 +36,6 @@ MODEL_NAMES = (
 # family → where the ROADMAP ports it
 _NOT_PORTED_FAMILIES = {
     "dist": "the dist (mean+covariance) models: item 19, slice 11",
-    "cyclical": "the cyclical (data2vec) pretraining model: item 17, slice 9",
     "mim": "the BEiT MIM model: item 18, slice 10",
     "joint": "the joint MIM model: item 18, slice 10",
 }
@@ -54,7 +56,7 @@ def create_model(
     device=None,
     generator: Optional[torch.Generator] = None,
     **overrides,
-) -> Tuple[VisionTransformer, ViTConfig]:
+) -> Tuple[torch.nn.Module, ViTConfig]:
     """(module, config) of a registry name. ``family`` defaults by name:
     *_8k_vocab → mim, *_joint_* → joint, else finetune; dist_* names select
     the mean+covariance model. ``device=None`` builds on the card."""
@@ -65,16 +67,19 @@ def create_model(
             family = "joint"
         else:
             family = "finetune"
-    if family not in ("finetune", *_NOT_PORTED_FAMILIES):
+    if family not in ("finetune", "cyclical", *_NOT_PORTED_FAMILIES):
         raise ValueError(f"unknown family: {family}")
     cfg = _base_preset(name)
     if overrides:
         cfg = cfg.replace(**overrides)
     if name.startswith("dist_"):
         family = "dist"
-    if family != "finetune":
+    if family in _NOT_PORTED_FAMILIES:
         raise NotImplementedError(f"{name} ({family}): {_NOT_PORTED_FAMILIES[family]} "
                                   "is not ported yet (ROADMAP.md)")
+    if family == "cyclical":
+        cfg = cfg.replace(head_type="none")
+        return CyclicalViT(cfg, dtype, device=device, generator=generator), cfg
     return VisionTransformer(cfg, dtype, device=device, generator=generator), cfg
 
 

@@ -56,8 +56,16 @@ class ViTBackbone(nn.Module):
     """Patch embed → [cls] + tokens (+ pos embed) → blocks.
 
     ``forward`` returns (x, layer_xs, fc_features): the final tokens and the
-    per-layer block outputs / post-MLP residuals (learn_layer_weights reads
-    the former). ``device=None`` builds on the current CUDA device.
+    per-layer block outputs / post-MLP residuals (learn_layer_weights and
+    the cyclical teacher's targets read them). ``device=None`` builds on the
+    current CUDA device.
+
+    The JAX backbone's knobs (:35-40): ``has_mask_token`` (default
+    ``cfg.has_masking``) registers the mask token; with
+    ``mask_only_when_training`` (the finetune rule) a forward blends it in
+    only where it draws, without it (the cyclical student) whenever it is
+    given ``bool_masked_pos``; ``patch_embed_init`` is ``PatchEmbed``'s
+    ``weight_init``.
 
     ``mc_samples > 0`` is the split-trunk MC-dropout forward (models/
     vit.py:56-61, 136-139, 170-171 of the reference): blocks [0, mc_split)
@@ -67,17 +75,20 @@ class ViTBackbone(nn.Module):
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
                  device=None, generator: Optional[torch.Generator] = None,
-                 seq_group: Optional[seq.SeqGroup] = None):
+                 seq_group: Optional[seq.SeqGroup] = None,
+                 has_mask_token: Optional[bool] = None, mask_only_when_training: bool = True,
+                 patch_embed_init="torch"):
         super().__init__()
         device = resolve_device(device)
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
         self.cfg, self.dtype, self.seq_group = cfg, dtype, seq_group
+        self.mask_only_when_training = mask_only_when_training
         # this rank's token rows under a seq group
         self.seq_shard = None if seq_group is None else seq_group.shard(cfg.num_patches + 1)
         tn = I.trunc_normal(cfg.init_std, cfg.init_trunc_abs)
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, cfg.embed_dim, dtype,
-                                      device=device, generator=generator)
+                                      patch_embed_init, device=device, generator=generator)
         self.cls_token = _param((1, 1, cfg.embed_dim), tn, device, generator)
         self.pos_embed = (
             _param((1, cfg.num_patches + 1, cfg.embed_dim), tn, device, generator)
@@ -107,8 +118,10 @@ class ViTBackbone(nn.Module):
         # drawn after the blocks, so that the backbone's other parameters are
         # drawn as without masking; it acts on token rows (JAX
         # models/vit.py:91-92)
+        if has_mask_token is None:
+            has_mask_token = cfg.has_masking
         self.mask_token = (_param((1, 1, cfg.embed_dim), tn, device, generator)
-                           if cfg.has_masking else None)
+                           if has_mask_token else None)
         # every parameter registered so far acts on token rows; those a
         # subclass adds after this (the pooled feature's norm, the head) do not
         self._token_names = frozenset(name for name, _ in self.named_parameters())
@@ -130,9 +143,11 @@ class ViTBackbone(nn.Module):
             raise NotImplementedError("MC-dropout under a seq group is not ported yet")
         x = self.patch_embed(images.to(self.dtype))
         b, n, c = x.shape
-        if self.mask_token is not None and bool_masked_pos is not None and active:
-            # masked patches become the mask token (w = 1), only in training
-            # (mask_only_when_training, JAX models/vit.py:93-98)
+        if (self.mask_token is not None and bool_masked_pos is not None
+                and (active or not self.mask_only_when_training)):
+            # masked patches become the mask token (w = 1): the finetune
+            # model only in training, the cyclical student whenever it is
+            # given a mask (mask_only_when_training, JAX models/vit.py:93-98)
             w = bool_masked_pos.reshape(b, n, 1).to(self.dtype)
             x = x * (1.0 - w) + self.mask_token.to(self.dtype) * w
         x = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, c), x], dim=1)

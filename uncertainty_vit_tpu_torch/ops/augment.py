@@ -1,5 +1,5 @@
-"""Image augmentation on the device: the finetune train transform and the
-eval transform.
+"""Image augmentation on the device: the finetune and pretrain train
+transforms and the eval transform.
 
 Counterpart of uncertainty_vit_tpu/ops/augment.py. The train half, on planar
 [B, C, H, W] f32 in [0, 1]: ``to_planar`` / ``from_planar`` /
@@ -348,11 +348,13 @@ def color_jitter_batch(draws: ColorJitterDraws, imgs: torch.Tensor, brightness: 
 
     f = (factor(draws.fb_u, brightness), factor(draws.fc_u, contrast),
          factor(draws.fs_u, saturation))
-    orders = _on_device(JITTER_ORDERS, imgs.device, torch.int64)
-    order = torch.as_tensor(draws.order, device=imgs.device)
+    # the batch's order as a row gathered on the device: indexing with a 0-d
+    # tensor would read it back to the host
+    order = torch.as_tensor(draws.order, device=imgs.device).reshape(1)
+    ops = _on_device(JITTER_ORDERS, imgs.device, torch.int64).index_select(0, order)[0]
     x = imgs
     for position in range(3):
-        op = orders[order, position]
+        op = ops[position]
         gray = _gray_planar(x)
         m = torch.where(op == 1, gray.mean(dim=(2, 3), keepdim=True), gray)
         m = torch.where(op == 0, torch.zeros_like(m), m)
@@ -439,6 +441,18 @@ def _erase_one(draws: EraseDraws, imgs: torch.Tensor, apply: torch.Tensor,
 
 # --- the finetune train transform --------------------------------------------
 
+def _moved(v, device):
+    """Draws (a tensor, a list, a dataclass of them) on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, list):
+        return [_moved(x, device) for x in v]
+    if dataclasses.is_dataclass(v):
+        return type(v)(**{f.name: _moved(getattr(v, f.name), device)
+                          for f in dataclasses.fields(v)})
+    return v
+
+
 @dataclasses.dataclass
 class TrainAugmentDraws:
     """All draws of one batch of ``finetune_train_augment_batch``: the crop,
@@ -454,16 +468,7 @@ class TrainAugmentDraws:
     def to(self, device) -> "TrainAugmentDraws":
         """The same draws on ``device`` (to hold the card's result against
         the CPU's)."""
-        def move(v):
-            if isinstance(v, torch.Tensor):
-                return v.to(device)
-            if isinstance(v, list):
-                return [move(x) for x in v]
-            if dataclasses.is_dataclass(v):
-                return type(v)(**{f.name: move(getattr(v, f.name)) for f in dataclasses.fields(v)})
-            return v
-
-        return move(self)
+        return _moved(self, device)
 
 
 def draw_finetune_train_augment(generator: torch.Generator, b: int, out_size: int,
@@ -540,5 +545,110 @@ def make_finetune_train_augment(out_size: int, **flags) -> Callable[..., torch.T
                                             **draw_flags)
         return finetune_train_augment_batch(draws, images_u8, out_size, valid_hw=valid_hw,
                                             **flags)
+
+    return aug_fn
+
+
+# --- the pretrain transform --------------------------------------------------
+
+@dataclasses.dataclass
+class PretrainAugmentDraws:
+    """All draws of one batch of ``pretrain_augment_batch`` at its
+    aug_level: the colour jitter (levels 4 / -1), the flip (2, 3, 4, -1) and
+    the crop (3, 4, -1); None where the level takes none."""
+
+    color_jitter: Optional[ColorJitterDraws] = None
+    flip_u: Optional[torch.Tensor] = None
+    rrc: Optional[RRCDraws] = None
+
+    def to(self, device) -> "PretrainAugmentDraws":
+        """The same draws on ``device``."""
+        return _moved(self, device)
+
+
+def draw_pretrain_augment(generator: torch.Generator, b: int, aug_level: int = -1
+                          ) -> PretrainAugmentDraws:
+    """The draws ``pretrain_augment_batch`` takes for a batch of b images."""
+    return PretrainAugmentDraws(
+        draw_color_jitter(generator, b) if aug_level in (4, -1) else None,
+        draw_hflip(generator, b) if aug_level in (2, 3, 4, -1) else None,
+        draw_rrc(generator, b) if aug_level in (3, 4, -1) else None)
+
+
+def pretrain_augment_batch(draws: PretrainAugmentDraws, images_u8: torch.Tensor,
+                           out_size: int = 224, aug_level: int = -1,
+                           imagenet_default_mean_and_std: bool = True,
+                           color_jitter_strength: float = 0.4,
+                           valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The DataAugmentationForBEiT ladder (datasets.py:38-84): aug_level 0
+    centre crop, 1 resize the shorter side to out/0.875 and centre crop, 2
+    also the flip, 3 flip and random resized crop, 4 / -1 (the default)
+    colour jitter, flip and random resized crop. uint8 [B, H, W, C] →
+    normalized f32 [B, out, out, C] (a view of a planar tensor).
+
+    valid_hw [B, 2] (letterboxed extents, --decode_letterbox): the crop
+    stays inside each sample's valid region, which lies at the canvas's top
+    left, so the flip comes after the crop (the JAX package's documented
+    order: the same distribution as flip-then-crop, with no zero fill
+    mirrored into view), and levels 0–2 take one centred square box of side
+    min(out, shorter) (level 0) or 0.875·shorter over the valid extent,
+    resampled to out."""
+    mean = IMAGENET_DEFAULT_MEAN if imagenet_default_mean_and_std else IMAGENET_INCEPTION_MEAN
+    std = IMAGENET_DEFAULT_STD if imagenet_default_mean_and_std else IMAGENET_INCEPTION_STD
+    imgs = to_planar(images_u8)
+    flips = aug_level in (2, 3, 4, -1)
+    rrc = aug_level in (3, 4, -1)
+    if aug_level in (4, -1):
+        imgs = color_jitter_batch(draws.color_jitter, imgs, color_jitter_strength,
+                                  color_jitter_strength, color_jitter_strength)
+    if valid_hw is not None:
+        if rrc:
+            out = random_resized_crop_batch(draws.rrc, imgs, out_size, valid_hw=valid_hw)
+        else:
+            vh = valid_hw[:, 0].to(torch.float32)
+            vw = valid_hw[:, 1].to(torch.float32)
+            shorter = torch.minimum(vh, vw)
+            side = (torch.clamp_max(shorter, float(out_size)) if aug_level == 0
+                    else 0.875 * shorter)
+            sidei = torch.round(side).to(torch.int32)
+            top = ((vh - side) / 2.0).to(torch.int32)
+            left = ((vw - side) / 2.0).to(torch.int32)
+            out = crop_and_resize_batch(imgs, top, left, sidei, sidei,
+                                        (out_size, out_size)).clamp(0.0, 1.0)
+        if flips:
+            out = random_hflip_batch(draws.flip_u, out)
+        return normalize(from_planar(out), mean, std)
+    if flips:
+        imgs = random_hflip_batch(draws.flip_u, imgs)
+    if rrc:
+        imgs = random_resized_crop_batch(draws.rrc, imgs, out_size)
+    elif aug_level == 0:
+        h, w = imgs.shape[2], imgs.shape[3]
+        top, left = (h - out_size) // 2, (w - out_size) // 2
+        imgs = imgs[:, :, top:top + out_size, left:left + out_size]
+    else:  # levels 1, 2: the shorter side to out/0.875, then the centre crop
+        b, _, h, w = imgs.shape
+        size = int(out_size / 0.875)
+        nh = size if h <= w else int(round(size * h / w))
+        nw = int(round(size * w / h)) if h <= w else size
+        zeros = torch.zeros((b,), dtype=torch.int32, device=imgs.device)
+        imgs = _batched_resample_planar(imgs, 2, nh, zeros, torch.full_like(zeros, h), "bicubic")
+        imgs = _batched_resample_planar(imgs, 3, nw, zeros, torch.full_like(zeros, w), "bicubic")
+        top, left = (nh - out_size) // 2, (nw - out_size) // 2
+        imgs = imgs[:, :, top:top + out_size, left:left + out_size].clamp(0.0, 1.0)
+    return normalize(from_planar(imgs), mean, std)
+
+
+def make_pretrain_augment(out_size: int, aug_level: int = -1, **flags
+                          ) -> Callable[..., torch.Tensor]:
+    """aug_fn(generator, images_u8, valid_hw) of the cyclical train step:
+    the draws of ``pretrain_augment_batch`` at ``aug_level`` from
+    ``generator``, then the transform with ``flags``."""
+
+    def aug_fn(generator: torch.Generator, images_u8: torch.Tensor,
+               valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        draws = draw_pretrain_augment(generator, images_u8.shape[0], aug_level)
+        return pretrain_augment_batch(draws, images_u8, out_size, aug_level, valid_hw=valid_hw,
+                                      **flags)
 
     return aug_fn

@@ -1,13 +1,46 @@
-"""Classification criteria (run_class_finetuning.py:617-623).
+"""The data2vec regression losses (engine_for_cyclical.py:132-163) and the
+classification criteria (run_class_finetuning.py:617-623).
 
-Counterpart of uncertainty_vit_tpu/ops/losses.py:75-95. Every loss takes
-the log-softmax in float32. The regression, MIM and Wasserstein losses are
-not ported yet.
+Counterpart of uncertainty_vit_tpu/ops/losses.py:25-95. The regression
+losses take a [B, N] weight mask in place of the reference's gather of the
+masked tokens, as the JAX package does: the same value for these means.
+Every loss computes in float32. The MIM and Wasserstein losses are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
+    """Elementwise F.smooth_l1_loss (the Huber form with ``beta``)."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def masked_regression_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                           beta: float = 2.0, l2: bool = False) -> torch.Tensor:
+    """Mean smooth-L1 (or squared error with ``l2``) over the masked
+    positions: pred, target [B, N, C], mask [B, N] in {0, 1}."""
+    pred, target = pred.float(), target.float()
+    elem = (pred - target) ** 2 if l2 else smooth_l1(pred, target, beta)
+    w = mask.float()[..., None]
+    denom = torch.clamp_min(w.sum() * pred.shape[-1], 1.0)
+    return (elem * w).sum() / denom
+
+
+def masked_variance_hinge(pred: torch.Tensor, mask: torch.Tensor, margin: float = 0.5,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """VICReg-style hinge on the per-channel std over the masked rows:
+    z = sqrt(unbiased var + eps), loss = mean(relu(margin − z))."""
+    x = pred.float().reshape(-1, pred.shape[-1])
+    w = mask.float().reshape(-1, 1)
+    n = torch.clamp_min(w.sum(), 2.0)
+    mean = (x * w).sum(0) / n
+    var = ((x - mean) ** 2 * w).sum(0) / (n - 1.0)
+    z = torch.sqrt(var + eps)
+    return torch.relu(margin - z).sum() / z.shape[0]
 
 
 def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:

@@ -111,14 +111,20 @@ class StepGenerators:
     mc: Optional[torch.Generator] = None
 
 
-def step_generators(seed: int, step: int, device, het: bool = False) -> StepGenerators:
-    """The generators of train step ``step`` of a run seeded with ``seed``:
-    a function of (seed, step) only (the JAX step's fold_in(rng, step)),
-    with ``mc`` for a heteroscedastic head (``het``). The first three seeds
-    are those of the three-generator stream before the fourth was added, so
-    the other draws of a step did not change."""
+def step_seeds(seed: int, step: int) -> list:
+    """Four generator seeds of train step ``step`` of a run seeded with
+    ``seed``: a function of (seed, step) only (the JAX step's
+    fold_in(rng, step))."""
     seeds = np.random.SeedSequence([seed, step]).generate_state(4, np.uint64)
-    seeds = [int(s) & (2**63 - 1) for s in seeds]
+    return [int(s) & (2**63 - 1) for s in seeds]
+
+
+def step_generators(seed: int, step: int, device, het: bool = False) -> StepGenerators:
+    """The generators of train step ``step`` of a run seeded with ``seed``
+    (``step_seeds``), with ``mc`` for a heteroscedastic head (``het``). The
+    first three seeds are those of the three-generator stream before the
+    fourth was added, so the other draws of a step did not change."""
+    seeds = step_seeds(seed, step)
     device = torch.device(device)
     return StepGenerators(torch.Generator(device=device).manual_seed(seeds[0]),
                           torch.Generator(device=device).manual_seed(seeds[1]),

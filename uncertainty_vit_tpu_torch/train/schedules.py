@@ -1,16 +1,17 @@
 """Per-step LR / weight-decay schedules (utils.py:408-425 of the reference).
 
 Counterpart of uncertainty_vit_tpu/train/schedules.py (``cosine_schedule``
-:13-35, ``tri_phase_schedule`` :38-61, ``constant_schedule`` :64-69). A
+:13-35, ``tri_phase_schedule`` :38-61, ``constant_schedule`` :64-69, ``ema_decay_schedule`` :71-82). A
 schedule is a plain step → float function; the train step reads it on the
-host and writes the value into the optimizer's param groups. The EMA-decay
-schedule of the cyclical pretraining is not ported yet.
+host and writes the value into the optimizer's param groups.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Callable
+
+import numpy as np
 
 Schedule = Callable[[int], float]
 
@@ -69,5 +70,21 @@ def constant_schedule(value: float) -> Schedule:
     def schedule(step: int) -> float:
         del step
         return float(value)
+
+    return schedule
+
+
+def ema_decay_schedule(decay: float, decay_init: float, ema_start_at: int) -> Schedule:
+    """The EMA teacher's decay (engine_for_cyclical.py:55-56): linear from
+    decay_init to decay over ema_start_at steps, then decay; in float32, as
+    the JAX schedule computes it."""
+
+    def schedule(step: int) -> float:
+        d = np.float32(decay)
+        if ema_start_at <= 0 or step >= ema_start_at:
+            return float(d)
+        warm = (np.float32(decay_init)
+                + np.float32(step) * np.float32(decay - decay_init) / np.float32(ema_start_at))
+        return float(warm)
 
     return schedule

@@ -4,7 +4,8 @@ a model of another, and the import of a reference ``.pth``.
 Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
 :562-578), for the parameters and buffers of the ported VisionTransformer,
-its uncertainty heads included. The port's modules use the reference's
+its uncertainty heads included, and of the cyclical model (its ``lm_head``,
+linear or SNGP). The port's modules use the reference's
 torch names and layouts, so the mapped dict loads with ``strict=True``.
 Each leaf has a key of its own: the JAX package's mapping sends the SNGP
 head's two input-norm vectors both to ``head.bias`` and its output layer
@@ -27,9 +28,11 @@ The port's own checkpoints (``save_checkpoint``, ``latest_checkpoint``,
 :26-73, and the reference's save_model / auto_load_model, utils.py:462-545)
 are ``torch.save`` files named as the reference BEiT names them,
 ``checkpoint-{epoch}.pth`` and ``checkpoint-best.pth``, holding
-{"model", "optimizer", "step", "epoch", "model_ema"}. "model" is the state
-dict under the reference's torch names, so ``load_torch_state_dict`` and
---finetune read a port checkpoint as they read a reference ``.pth``.
+{"model", "optimizer", "step", "epoch", "model_ema"}; the cyclical state's
+EMA teacher is its "model_ema" (``train.engine_cyclical.CyclicalState``).
+"model" is the state dict under the reference's torch names, so
+``load_torch_state_dict`` and --finetune read a port checkpoint as they
+read a reference ``.pth``.
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
         if rest[0] == "mlp" and rest[1] in ("fc1", "fc2"):
             return _dense(pre + f"mlp.{rest[1]}", name)
         return None
-    if parts[0] == "head":
-        return _head_key(parts[1:])
+    if parts[0] in ("head", "lm_head"):
+        return _head_key(parts[0], parts[1:])
     if parts[0] in ("norm", "fc_norm"):
         return f"{parts[0]}.{'weight' if name == 'scale' else 'bias'}", "id"
     if parts[0] == "fc_norm_sn":
@@ -100,19 +103,20 @@ _SNGP_KEYS = {
 }
 
 
-def _head_key(rest: List[str]) -> Optional[Tuple[str, str]]:
-    """The head's leaves under "head.": the linear head's kernel / bias, the
-    SNGP head's (``_SNGP_KEYS``) and the heteroscedastic head's three dense
-    layers (``loc_layer``, ``scale_layer``, ``diag_layer``). Every leaf has
-    a key of its own (the JAX package's export maps several of them onto
-    head.weight / head.bias)."""
+def _head_key(head: str, rest: List[str]) -> Optional[Tuple[str, str]]:
+    """The leaves of a head ("head", or the cyclical model's "lm_head"),
+    under its name: the linear layer's kernel / bias, the SNGP head's
+    (``_SNGP_KEYS``) and the heteroscedastic head's three dense layers
+    (``loc_layer``, ``scale_layer``, ``diag_layer``). Every leaf has a key
+    of its own (the JAX package's export maps several of them onto
+    head.weight / head.bias, and has no key for lm_head)."""
     if len(rest) == 1 and rest[0] in ("kernel", "bias"):
-        return _dense("head", rest[0])
+        return _dense(head, rest[0])
     found = _SNGP_KEYS.get(tuple(rest))
     if found is not None:
-        return "head." + found[0], found[1]
+        return f"{head}.{found[0]}", found[1]
     if len(rest) == 2 and rest[0] in ("loc_layer", "scale_layer", "diag_layer"):
-        return _dense(f"head.{rest[0]}", rest[1])
+        return _dense(f"{head}.{rest[0]}", rest[1])
     return None
 
 
@@ -386,8 +390,9 @@ def checkpoint_path(output_dir: str, tag) -> str:
 
 
 def save_checkpoint(output_dir: str, tag, state, epoch: int) -> str:
-    """Write a train state (``train.engine_finetune.FinetuneState``: model,
-    optimizer, step, EMA) after ``epoch`` to output_dir/checkpoint-{tag}.pth
+    """Write a train state (``train.engine_finetune.FinetuneState`` or
+    ``train.engine_cyclical.CyclicalState``: model, optimizer, step, EMA or
+    teacher) after ``epoch`` to output_dir/checkpoint-{tag}.pth
     (an epoch number or "best"); the file appears whole or not at all."""
     path = checkpoint_path(output_dir, tag)
     os.makedirs(os.path.dirname(path), exist_ok=True)
