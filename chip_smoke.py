@@ -298,7 +298,37 @@ kernels from the sources in this checkout, then:
            recomputation from its [B·N, C] inputs. (c) the last checkpoint
            through cli.finetune --finetune --eval over 256 images (K1 24): the
            missing and unused keys those of import_torch_state_dict on the
-           CPU (fc_norm and the head; mask_token, norm and lm_head).
+           CPU (fc_norm and the head; mask_token, norm and lm_head). (d) one
+           --quant int8 step: K6 144 (the teacher's forward quantizes too,
+           48; the student's forward and dgrad 96), K7 48.
+  phase 21 the BEiT pretraining drivers over 1024 seeded 32x32 CIFAR-100
+           images: (a) cli.train_dvae at 112, vocab 8192, codebook 512, 3
+           layers, hidden 64, batch 128, 4 steps: step 0's loss within 1e-4
+           of a float64 recomputation on the card (same weights, images,
+           Gumbel draws), a step under sync debug mode, no kernel launched,
+           and with TF32 on before main() every forward and backward of the
+           step's first and last convolutions without it;
+           (b) cli.pretrain_beit at the MIM recipe (BASELINE.md:36,
+           RECIPES.md:54-65: beit_base_patch16_224_8k_vocab at batch 128, lr
+           1.5e-3, warm-up 10 epochs, mask 75, the tokenizer view at 112, clip
+           3.0) with the full-width DALL-E tokenizer (n_hid 256, vocab 8192)
+           from seeded weights pickled through stand-in dall_e classes: 2
+           epochs of 4 steps (K1 12 / K2 12 a step, no other kernel, the exact
+           softmax, the masks the host op's, a step under sync debug mode),
+           step 0 against the plain attention, 32 views' tokens against a
+           float64 copy of the tokenizer (a token may differ only where the
+           float64 top-two gap is below twice the largest logit error), the two
+           views against the CPU's, a resumed third epoch equal to
+           checkpoint-1.pth, a step's parts by CUDA events (the tokenizer also
+           under TF32 and bf16, information only; with TF32 on in the process
+           its own call runs without it), an int8 step (K6 96, K7
+           48); (c) cli.pretrain_joint at phase 20's recipe plus
+           --vae_loss_weight 30 with (a)'s tokenizer: 2 epochs of 4 steps (K1
+           24 / K2 12 a step), the teacher after steps 0 and 1 the EMA rule in
+           float64, beit_weight 1 then 29/30, step 0 against the plain
+           attention; (d) (b)'s checkpoint-2.pth through cli.finetune
+           --finetune --eval (K1 24): the keys import_torch_state_dict gives
+           on the CPU. Prints the rates beside phases 4 and 20.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -4967,6 +4997,20 @@ def phase20(torch, FA, dev, step_rates):
             del state, head
             print(f"  20b took {time.perf_counter() - t20:.1f} s", flush=True)
 
+            # ---------------- 20d: one --quant int8 step ----------------
+            # the teacher's forward quantizes too (JAX models/layers.py:51-63):
+            # K6 48 for it, 48 for the student's forward and 48 for its dgrad
+            t20 = time.perf_counter()
+            steps.clear()
+            counted("cli9_int8_train", {"K1": 2 * depth, "K2": depth, "K6": 12 * depth,
+                                        "K7": 4 * depth}, PC.main,
+                    args_of(os.path.join(tmp, "int8"), "--quant", "int8", "--epochs", "1",
+                            "--steps_per_epoch", "1", "--no_save_ckpt", "--no_auto_resume"))
+            finite(steps, "--quant int8")
+            print(f"  20d --quant int8 step: loss {float(steps[0]['metrics']['loss']):.5f}, grad "
+                  f"norm {float(steps[0]['metrics']['grad_norm']):.4f}; took "
+                  f"{time.perf_counter() - t20:.1f} s", flush=True)
+
             # ---------------- 20c: the hand-off to the finetune driver ----------
             t20 = time.perf_counter()
             imports = []
@@ -5009,7 +5053,778 @@ def phase20(torch, FA, dev, step_rates):
         if "prof" in watch:
             watch.pop("prof").stop()
         FA.BOUNDED_SCORES = bounded
+    return paths, rates
+
+
+# Phase 21: the dVAE step's loss against a float64 recomputation on the card
+# (the same weights, images and Gumbel draws): the f32 forward rounds each
+# conv, the codebook product and the softmax over 8192 tokens, ~1e-6
+# relative; the card's convolutions run without TF32 (the tokenizer's own
+# precision), which would cost ~1e-3.
+DVAE_LOSS_REL_BOUND = 1e-4
+# an f32 token may differ from the float64 one only where the float64 top-two
+# gap is below twice the largest |f32 − f64| logit difference of the batch
+# (two logits each off by at most that much can swap)
+TOKEN_GAP_FACTOR = 2.0
+# phase 21's images, test images, batch, depth, steps an epoch and codebook
+# size (a CPU rehearsal may shrink them)
+PHASE21_SIZES = (1024, 256, 128, 12, 4, 8192)
+
+
+def _save_dalle_pickles(torch, vae, directory):
+    """Write a ``models.dalle_vae.DalleVAE``'s encoder and decoder as
+    OpenAI's pickles are laid out: ``encoder.pkl`` / ``decoder.pkl`` in
+    ``directory``, each a pickled module object of the classes
+    ``dall_e.encoder.Encoder`` (``EncoderBlock``), ``dall_e.decoder.Decoder``
+    (``DecoderBlock``) and ``dall_e.utils.Conv2d``, stand-ins registered for
+    the write and removed after it (``sys.modules`` is left as it was), for
+    the driver's ``load_dalle_pickle_state_dict`` to read back."""
+    import copy
+    import types
+
+    from uncertainty_vit_tpu_torch.models import dalle_vae as DV
+
+    names = ("dall_e", "dall_e.utils", "dall_e.encoder", "dall_e.decoder")
+    modules = {name: types.ModuleType(name) for name in names}
+
+    def stand_in(module, name):
+        cls = type(name, (torch.nn.Module,), {"__module__": module, "__qualname__": name})
+        setattr(modules[module], name, cls)
+        return cls
+
+    conv = stand_in("dall_e.utils", "Conv2d")
+    saved = {name: sys.modules.get(name) for name in names}
+    try:
+        sys.modules.update(modules)
+        for part, top, block in (("encoder", "Encoder", "EncoderBlock"),
+                                 ("decoder", "Decoder", "DecoderBlock")):
+            top_cls, block_cls = stand_in(f"dall_e.{part}", top), stand_in(f"dall_e.{part}", block)
+            obj = copy.deepcopy(getattr(vae, part)).cpu()
+            for m in obj.modules():
+                if isinstance(m, DV.Conv2d):
+                    m.__class__ = conv
+                elif isinstance(m, DV._Block):
+                    m.__class__ = block_cls
+            obj.__class__ = top_cls
+            torch.save(obj, os.path.join(directory, f"{part}.pkl"))
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def _tokens_against_f64(torch, vae, views, what):
+    """The f32 tokens of ``views`` against a float64 copy of the tokenizer on
+    the card: (mismatches, near ties, largest |f32 − f64| logit) after
+    checking that every mismatch lies within the stated gap."""
+    import copy
+
+    from uncertainty_vit_tpu_torch.models.dvae import f32_scope
+
+    with torch.no_grad():
+        tok32 = vae.get_codebook_indices(views)
+        enc = vae.encode_logits if hasattr(vae, "encode_logits") else vae.encoder
+        with f32_scope():
+            logits32 = enc(views).float()
+        vae64 = copy.deepcopy(vae).double()
+        enc64 = vae64.encode_logits if hasattr(vae64, "encode_logits") else vae64.encoder
+        logits64 = enc64(views.double())
+        del vae64
+    err = float((logits32.double() - logits64).abs().max())
+    top2 = logits64.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).reshape(tok32.shape)
+    tok64 = logits64.argmax(dim=-1).reshape(tok32.shape)
+    mismatch = tok32 != tok64
+    near = gap <= TOKEN_GAP_FACTOR * err
+    n_bad = int((mismatch & ~near).sum())
+    print(f"  {what}: {tok32.numel()} f32 tokens against a float64 copy of the tokenizer on the "
+          f"card: {int(mismatch.sum())} differ, all where the float64 top-two gap <= "
+          f"{TOKEN_GAP_FACTOR}·max|f32 − f64| = {TOKEN_GAP_FACTOR * err:.3e} ({int(near.sum())} "
+          f"such near ties, {n_bad} mismatches outside them); smallest gap "
+          f"{float(gap.min()):.3e}; {len(torch.unique(tok32))} distinct tokens", flush=True)
+    check(n_bad == 0, f"{what}: {n_bad} f32 tokens differ from float64 beyond the gap bound")
+    return int(mismatch.sum()), int(near.sum()), err
+
+
+def phase21(torch, FA, dev, step_rates, cyclical_rates):
+    """The BEiT pretraining drivers and the dVAE trainer on the card over
+    seeded 32x32 CIFAR-100 images (21a cli.train_dvae; 21b cli.pretrain_beit
+    at the MIM recipe with the full-width DALL-E tokenizer from seeded
+    pickles; 21c cli.pretrain_joint with 21a's tokenizer; 21d 21b's last
+    checkpoint through cli.finetune --eval). step_rates: phase 4's; and
+    cyclical_rates: phase 20's driver rates, for the rates beside. Returns
+    the launches of each path."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.cli import pretrain_beit as PB
+    from uncertainty_vit_tpu_torch.cli import pretrain_cyclical as PC
+    from uncertainty_vit_tpu_torch.cli import pretrain_joint as PJ
+    from uncertainty_vit_tpu_torch.cli import train_dvae as TD
+    from uncertainty_vit_tpu_torch.models.dalle_vae import DalleVAE
+    from uncertainty_vit_tpu_torch.models.dvae import DiscreteVAE
+    from uncertainty_vit_tpu_torch.models.layers import layer_norm
+    from uncertainty_vit_tpu_torch.ops import augment as A
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import losses as L
+    from uncertainty_vit_tpu_torch.ops import masking as M
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.train import engine_cyclical as EC
+    from uncertainty_vit_tpu_torch.train import engine_mim as EM
+    from uncertainty_vit_tpu_torch.train.ema import cyclical_ema_decay
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+    n_train, n_test, bs, depth, spe, vocab = PHASE21_SIZES
+    rs = np.random.RandomState(21)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+
+    def counts():
+        # inside attention_on_plain the attention wrappers are plain
+        # functions, which count nothing
+        return kernel_counts(FA, TQ, DO) if hasattr(FA.fused_qkv_attention_bwd, "launches") else {}
+
+    want = {k: 0 for k in counts()}
+    paths = {}
+    # what the drivers do, seen through their own entry points: each call of
+    # a train step (host clock, CUDA events, launches, masks, the softmax
+    # mode, the views it made, the teacher around steps 0 and 1), each
+    # epoch's log record, the state auto_load restored, the tokenizer built
+    steps, writes, resumed, built = [], [], [], []
+    watch = {"sync_check": None, "ema_check": False, "gumbel": None, "dvae_flags": []}
+    saved_attrs = {(TD, "make_dvae_train_step"): TD.make_dvae_train_step,
+                   (TD, "draw_gumbel"): TD.draw_gumbel, (TD, "build_model"): TD.build_model,
+                   (PB, "make_mim_train_step"): PB.make_mim_train_step,
+                   (PJ, "make_joint_train_step"): PJ.make_joint_train_step,
+                   (PC, "JsonlLogger"): PC.JsonlLogger, (C, "auto_load"): C.auto_load,
+                   (B, "build_discrete_vae"): B.build_discrete_vae}
+    import_sd = C.import_torch_state_dict
+
+    def timed_call(step, state, model, r, *args):
+        """Run one driver step, recording its launches, host clock and CUDA
+        events; the step under sync debug mode when watch says so."""
+        r.update(step=state.step, bounded=FA.BOUNDED_SCORES)
+        if watch["ema_check"] and state.step < 2:
+            r["teacher_before"] = {k: v.detach().clone() for k, v in state.model_ema.items()}
+        before = counts()
+        checked = state.step == watch["sync_check"]
+        r["t"] = time.perf_counter()
+        r["events"] = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        r["events"][0].record()
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = step(state, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        r["events"][1].record()
+        after = counts()
+        r.update(metrics=m, sync_checked=checked, launches={k: after[k] - before[k] for k in after})
+        if "teacher_before" in r:
+            r["student"] = {k: p.detach().clone() for k, p in model.named_parameters()}
+            r["teacher"] = {k: v.detach().clone() for k, v in state.model_ema.items()}
+        steps.append(r)
+        return m
+
+    def recording_dvae_step(model, optimizer, args, lr):
+        step = saved_attrs[(TD, "make_dvae_train_step")](model, optimizer, args, lr)
+
+        def recorded(state, images, generator):
+            r = {}
+            if state.step == 0:
+                r.update(images=images.detach().clone(),
+                         weights={k: v.detach().clone() for k, v in model.state_dict().items()},
+                         tau=TD.temperature_schedule(0, args.temperature_start,
+                                                     args.temperature_end,
+                                                     args.temperature_anneal_steps))
+                watch["gumbel"] = r
+            return timed_call(step, state, model, r, images, generator)
+
+        return recorded
+
+    def tf32_flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def recording_dvae_model(args, device=None):
+        # the TF32 flags in force at the dVAE's first and last convolutions,
+        # in the forward and (a hook on their outputs' gradients) the backward
+        model = saved_attrs[(TD, "build_model")](args, device)
+
+        def record(module, inputs, out):
+            watch["dvae_flags"].append(("forward", tf32_flags()))
+            out.register_hook(lambda grad: watch["dvae_flags"].append(("backward", tf32_flags())))
+
+        for m in (model.encoder[0], model.decoder[-1]):
+            m.register_forward_hook(record)
+        return model
+
+    def recording_gumbel(generator, shape):
+        g = saved_attrs[(TD, "draw_gumbel")](generator, shape)
+        if watch["gumbel"] is not None and "gumbel" not in watch["gumbel"]:
+            watch["gumbel"]["gumbel"] = g.clone()
+        return g
+
+    def views_recorder(aug_fn, r_box):
+        def aug(generator, images, valid_hw=None):
+            out = aug_fn(generator, images, valid_hw)
+            if r_box and "views" not in r_box[0]:
+                r_box[0]["views"] = (out[0].detach().clone(), out[1].detach().clone())
+            return out
+        return aug
+
+    def recording_mim_step(model, tokenizer, optimizer, lr, wd, aug_fn):
+        box = []
+        step = saved_attrs[(PB, "make_mim_train_step")](model, tokenizer, optimizer, lr, wd,
+                                                         views_recorder(aug_fn, box))
+
+        def recorded(state, images, masks, *rest):
+            r = {"masks": masks.clone()}
+            box[:] = [r] if state.step == 0 else []
+            return timed_call(step, state, model, r, images, masks, *rest)
+
+        return recorded
+
+    def recording_joint_step(model, tokenizer, optimizer, hp, lr, wd, aug_fn):
+        step = saved_attrs[(PJ, "make_joint_train_step")](model, tokenizer, optimizer, hp, lr, wd,
+                                                           aug_fn)
+
+        def recorded(state, images, masks, epoch, *rest):
+            return timed_call(step, state, model, {"masks": masks.clone(), "epoch": epoch},
+                              images, masks, epoch, *rest)
+
+        return recorded
+
+    class TimedJsonl(saved_attrs[(PC, "JsonlLogger")]):
+        def write(self, record):
+            writes.append(time.perf_counter())
+            super().write(record)
+
+    def recording_auto_load(output_dir, state):
+        state, epoch = saved_attrs[(C, "auto_load")](output_dir, state)
+        resumed.append({"epoch": epoch, "step": state.step,
+                        "model": {k: v.detach().clone()
+                                  for k, v in state.model.state_dict().items()},
+                        "teacher": (None if state.model_ema is None else
+                                    {k: v.detach().clone() for k, v in state.model_ema.items()}),
+                        "optimizer": {i: {k: v.clone() for k, v in st.items()} for i, st in
+                                      state.optimizer.state_dict()["state"].items()}})
+        return state, epoch
+
+    def recording_build(*a, **k):
+        built.append(saved_attrs[(B, "build_discrete_vae")](*a, **k))
+        return built[-1]
+
+    def counted(path, expect, fn, *a, **k):
+        reset_kernel_counts(FA, TQ, DO)
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        paths[path] = counts()
+        exp = dict(want, **expect)
+        print(f"  {path}: launches {paths[path]}", flush=True)
+        check(paths[path] == exp, f"{path} launched {paths[path]}, expected {exp}")
+        return out
+
+    def finite(records, what, keys=("loss", "grad_norm")):
+        for r in records:
+            for k in keys:
+                check(math.isfinite(float(r["metrics"][k])),
+                      f"{what}: step {r['step']} {k} {float(r['metrics'][k])}")
+
+    def ms_of(r):
+        return r["events"][0].elapsed_time(r["events"][1])
+
+    def check_resume(got, blob, spe_done, what):
+        check(got["step"] == spe_done and blob["step"] == spe_done, f"{what}: resumed step")
+        check(got["model"].keys() == blob["model"].keys()
+              and all(torch.equal(got["model"][k], v) for k, v in blob["model"].items()),
+              f"{what}: the resumed student is not the checkpoint's")
+        check((got["teacher"] is None) == (blob["model_ema"] is None)
+              and (got["teacher"] is None
+                   or all(torch.equal(got["teacher"][k], v) for k, v in blob["model_ema"].items())),
+              f"{what}: the resumed teacher is not the checkpoint's")
+        saved = blob["optimizer"]["state"]
+        check(got["optimizer"].keys() == saved.keys()
+              and all(torch.equal(got["optimizer"][i][k], v.to(got["optimizer"][i][k].device))
+                      for i, st in saved.items() for k, v in st.items()),
+              f"{what}: the resumed AdamW moments are not the checkpoint's")
+        return sum(len(st) for st in saved.values())
+
+    def step0_against_plain(main, args, run0, what):
+        steps.clear()
+        reset_kernel_counts(FA, TQ, DO)
+        with attention_on_plain(torch, FA):
+            main(args)
+        torch.cuda.synchronize()
+        check(kernel_counts(FA, TQ, DO) == want, f"{what}: the plain-attention run launched a "
+                                                 "kernel")
+        m_k, m_p = run0["metrics"], steps[0]["metrics"]
+        loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+        gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+        print(f"  {what} step 0, kernels vs plain attention: loss {loss_k:.6f} / {loss_p:.6f}, "
+              f"grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+        check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+              f"{what}: the first loss disagrees with the plain attention's")
+        check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+              f"{what}: the first grad norm disagrees with the plain attention's")
+        check(torch.equal(steps[0]["masks"], run0["masks"]), f"{what}: the plain run's masks")
+
+    def rates_of(run, n_epochs):
+        return [spe * bs / (writes[e] - run[e * spe]["t"]) for e in range(n_epochs)]
+
+    bounded = FA.BOUNDED_SCORES
+    TD.make_dvae_train_step, TD.draw_gumbel, TD.build_model = (recording_dvae_step,
+                                                               recording_gumbel,
+                                                               recording_dvae_model)
+    PB.make_mim_train_step, PJ.make_joint_train_step, PC.JsonlLogger = (
+        recording_mim_step, recording_joint_step, TimedJsonl)
+    C.auto_load, B.build_discrete_vae = recording_auto_load, recording_build
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+
+            # ---------------- 21a: the dVAE trainer, 4 steps ----------------
+            t21 = time.perf_counter()
+            dvae_out = os.path.join(tmp, "dvae")
+            args_a = TD.get_args_parser().parse_args([
+                "--data_set", "CIFAR100", "--data_path", tmp, "--input_size", "112",
+                "--vocab_size", str(vocab), "--codebook_dim", "512", "--dvae_num_layers", "3",
+                "--dvae_hidden_dim", "64", "--batch_size", str(bs), "--num_workers", "8",
+                "--epochs", "1", "--steps_per_epoch", str(spe), "--output_dir", dvae_out])
+            watch.update(sync_check=spe - 1, dvae_flags=[])
+            # TF32 on in cuDNN and cuBLAS, as a process may have it: the
+            # trainer's step runs its forward and backward without it
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                state = counted("cli10_dvae_train", {}, TD.main, args_a)
+                flags_after = tf32_flags()
+            finally:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            watch.update(sync_check=None)
+            flags_seen = list(watch["dvae_flags"])
+            check([k for k, _ in flags_seen] == ["forward", "forward", "backward", "backward"] * spe
+                  and all(f == (False, False) for _, f in flags_seen)
+                  and flags_after == (True, True),
+                  f"21a: with TF32 on before main() the step's convolutions saw {flags_seen} and "
+                  f"main() left {flags_after}")
+            run_a = list(steps)
+            check(len(run_a) == spe and state.step == spe, f"21a: {len(run_a)} step calls")
+            check(any(r["sync_checked"] for r in run_a), "21a: the sync-checked step did not run")
+            finite(run_a, "21a", ("loss", "recon_loss", "kl", "perplexity"))
+            r0 = run_a[0]
+            m64 = DiscreteVAE(112, vocab, 512, 3, 64, device=dev).double()
+            m64.load_state_dict(r0["weights"])
+            with torch.no_grad():
+                x = r0["images"].double()
+                recon, logits = m64(x, r0["tau"], r0["gumbel"].double())
+                logp = torch.log_softmax(logits, dim=-1)
+                kl = math.log(vocab) + torch.mean(torch.sum(torch.exp(logp) * logp, dim=-1))
+                loss64 = float(torch.mean((recon - x) ** 2) + args_a.kl_weight * kl)
+            del m64, recon, logits, logp
+            loss0 = float(r0["metrics"]["loss"])
+            rel = abs(loss0 - loss64) / abs(loss64)
+            step_ms = [ms_of(r) for r in run_a]
+            print(f"  21a dVAE at 112, vocab {vocab}, codebook 512, 3 layers, hidden 64, batch "
+                  f"{bs}: ms a step (CUDA events) {[round(v, 3) for v in step_ms]}; perplexity "
+                  f"{[round(float(r['metrics']['perplexity']), 2) for r in run_a]}, used fraction "
+                  f"{[round(float(r['metrics']['codebook_used_frac']), 4) for r in run_a]}; step 0 "
+                  f"loss {loss0:.7f} against {loss64:.7f} in float64 on the card (same weights, "
+                  f"images, Gumbel draws, tau {r0['tau']}): relative {rel:.2e} (bound "
+                  f"{DVAE_LOSS_REL_BOUND}); step {spe - 1} under sync debug mode; TF32 on in "
+                  f"cuDNN and cuBLAS before main(), off at all {len(flags_seen)} forward and "
+                  f"backward hooks of the first and last convolutions, on again after", flush=True)
+            check(rel <= DVAE_LOSS_REL_BOUND, "21a: step 0's loss disagrees with float64")
+            dvae_pth = os.path.join(dvae_out, "checkpoint-dvae-weights.pth")
+            check(os.path.isfile(dvae_pth) and os.path.isfile(
+                os.path.join(dvae_out, "checkpoint-0.pth")), "21a: the checkpoints")
+            with open(os.path.join(dvae_out, "log.txt")) as f:
+                log_a = [json.loads(line) for line in f]
+            check(len(log_a) == 1 and set(log_a[0]) == {"epoch"} | {
+                f"train_{k}" for k in ("loss", "recon_loss", "kl", "perplexity",
+                                       "codebook_used_frac", "temperature")}, f"21a log {log_a}")
+            # where a dVAE step's time goes: its kernels over 3 steps after one
+            # (torch.profiler), on the trained state and step 0's images
+            dvae_step = saved_attrs[(TD, "make_dvae_train_step")](
+                state.model, state.optimizer, args_a, lambda _: args_a.min_lr)
+            gen_a = torch.Generator(device=dev).manual_seed(7)
+            split = kernel_split(torch, lambda: dvae_step(state, r0["images"], gen_a), 3)
+            top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+            print(f"  21a a dVAE step's kernels (torch.profiler, 3 steps after one): "
+                  f"{sum(split.values()):.2f} ms a step; top (ms): "
+                  f"{json.dumps({k[:60]: round(v, 3) for k, v in top})}", flush=True)
+            del state, run_a, r0, dvae_step
+            steps.clear()
+            watch["gumbel"] = None
+            print(f"  21a took {time.perf_counter() - t21:.1f} s", flush=True)
+
+            # ---------------- 21b: BEiT MIM, DALL-E tokenizer ----------------
+            t21 = time.perf_counter()
+            dalle_dir = os.path.join(tmp, "dalle")
+            os.makedirs(dalle_dir)
+            src = DalleVAE(112, vocab, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(21))
+            t0 = time.perf_counter()
+            _save_dalle_pickles(torch, src, dalle_dir)
+            n_src = sum(p.numel() for p in src.parameters())
+            print(f"  full-width DALL-E tokenizer (n_hid 256, vocab {vocab}, {n_src / 1e6:.1f}M "
+                  f"parameters, seeded) pickled through stand-in dall_e.* classes in "
+                  f"{time.perf_counter() - t0:.1f} s: "
+                  f"{[os.path.getsize(os.path.join(dalle_dir, f)) >> 20 for f in ('encoder.pkl', 'decoder.pkl')]} MiB",
+                  flush=True)
+            out_b = os.path.join(tmp, "mim")
+
+            def args_b(out_dir, *extra):
+                # the MIM recipe (BASELINE.md:36, RECIPES.md:54-65) at its
+                # per-GPU batch
+                return PB.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224_8k_vocab", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                    "--num_workers", "8", "--output_dir", out_dir, "--steps_per_epoch", str(spe),
+                    "--save_ckpt_freq", "2", "--lr", "1.5e-3", "--warmup_epochs", "10",
+                    "--num_mask_patches", "75", "--second_input_size", "112",
+                    "--vocab_size", str(vocab), "--clip_grad", "3.0", "--discrete_vae_type", "dall-e",
+                    "--discrete_vae_weight_path", dalle_dir, *extra])
+
+            per_mim = dict(want, K1=depth, K2=depth)
+            watch.update(sync_check=spe + 1)
+            FA.BOUNDED_SCORES = True  # as phase 4 and the finetune driver left it
+            writes.clear()
+            t0 = time.perf_counter()
+            state = counted("cli10_mim_train", {"K1": depth * 2 * spe, "K2": depth * 2 * spe},
+                            PB.main, args_b(out_b, "--epochs", "2"))
+            main_s = time.perf_counter() - t0
+            watch.update(sync_check=None)
+            run_b = list(steps)
+            vae = built[-1]
+            check(isinstance(vae, DalleVAE)
+                  and all(torch.equal(v, src.state_dict()[k]) for k, v in vae.state_dict().items()),
+                  "21b: the driver's tokenizer is not the pickles' DALL-E network")
+            del src
+            check(len(run_b) == 2 * spe and state.step == 2 * spe, f"21b: {len(run_b)} steps")
+            for r in run_b:
+                check(r["launches"] == per_mim, f"21b step {r['step']} launched {r['launches']}")
+                check(r["bounded"] is False, f"21b step {r['step']} ran the bounded softmax")
+            check(not FA.BOUNDED_SCORES, "21b: the driver left BOUNDED_SCORES on")
+            finite(run_b, "21b", ("loss", "mlm_acc", "grad_norm"))
+            check(any(r["sync_checked"] for r in run_b), "21b: the sync-checked step did not run")
+            for r in run_b:
+                host = M.make_blockwise_masks(EC.mask_generator(0, r["step"]), bs, (14, 14), 75, 16)
+                check(torch.equal(r["masks"], torch.from_numpy(host).to(dev)),
+                      f"21b step {r['step']}'s masks are not the host op's")
+            with open(os.path.join(out_b, "log.txt")) as f:
+                log_b = [json.loads(line) for line in f]
+            check([r["epoch"] for r in log_b] == [0, 1] and all(
+                set(r) == {"epoch", "loss", "mlm_acc", "grad_norm", "lr"} for r in log_b),
+                f"21b log.txt: {log_b}")
+            rates_b = rates_of(run_b, 2)
+            print("  21b losses " + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in run_b)
+                  + "; mlm_acc " + ", ".join(f"{float(r['metrics']['mlm_acc']):.4f}" for r in run_b)
+                  + "; grad norms " + ", ".join(f"{float(r['metrics']['grad_norm']):.4f}"
+                                               for r in run_b)
+                  + f"; every step K1 {depth}, K2 {depth}, no other kernel, the exact softmax "
+                  f"though BOUNDED_SCORES was on before main(); step {spe + 1} under sync debug "
+                  f"mode; the masks of all {len(run_b)} steps the host op's", flush=True)
+            print(f"  21b driver MIM rate from images (information only; host clock from an "
+                  f"epoch's first step call to its log record): {rates_b} img/s (epoch 0 "
+                  f"includes the first call's warm-up); ms a step (CUDA events, queue time "
+                  f"included) {[round(ms_of(r), 2) for r in run_b]}; phase 4's finetune "
+                  f"step-only rate in this call: kernel {step_rates['kernel']} img/s; main() "
+                  f"with model builds, pickles and checkpoint {main_s:.2f} s", flush=True)
+            views = run_b[0]["views"]
+            _tokens_against_f64(torch, vae, views[1][:32], "21b DALL-E tokens of step 0's view")
+
+            # --- step 0 on the plain attention
+            step0_against_plain(PB.main, args_b(os.path.join(tmp, "mim_plain"), "--epochs", "1",
+                                                 "--steps_per_epoch", "1", "--no_save_ckpt",
+                                                 "--no_auto_resume"), run_b[0], "21b")
+
+            # --- the two views on the card against the CPU's, on the driver's
+            # first batch with the draws of its step 0
+            loader, _ = B.build_loaders(args_b(out_b), is_train=True, letterbox_ok=True)
+            loader.set_epoch(0)
+            first = next(iter(loader))[0]
+            draws = A.draw_pretrain_two_view(EC.step_generators(0, 0, dev).augment, bs)
+            u8 = torch.from_numpy(first).to(dev)
+            kw = dict(second_interpolation="bicubic")
+            card = A.pretrain_two_view_batch(draws, u8, 224, 112, discrete_vae_type="none", **kw)
+            cpu = A.pretrain_two_view_batch(draws.to("cpu"), torch.from_numpy(first), 224, 112,
+                                            discrete_vae_type="none", **kw)
+            crop_diff = (card[1].cpu() - cpu[1]).abs().max().item()
+            diff = (card[0].cpu() - cpu[0]).abs()
+            near = (diff > AUG_NEAR_ATOL).float().mean().item()
+            flips = (diff > AUG_FLIP_ATOL).float().mean().item()
+            same = A.pretrain_two_view_batch(draws, u8, 224, 112, discrete_vae_type="dall-e", **kw)
+            check(torch.equal(same[0], views[0]) and torch.equal(same[1], views[1]),
+                  "21b: the driver's step-0 views are not the transform's on its draws")
+            print(f"  21b two views {tuple(first.shape)} -> {tuple(card[0].shape)} and "
+                  f"{tuple(card[1].shape)}, card vs CPU on the same draws: the tokenizer view "
+                  f"(jitter, flip, crop, in [0, 1]) max|diff| {crop_diff:.3e} (bound "
+                  f"{AUG_CROP_ATOL}); the student view max|diff| {diff.max().item():.3e}, share "
+                  f"beyond {AUG_NEAR_ATOL} {near:.2e} (bound {AUG_NEAR_SHARE}), beyond "
+                  f"{AUG_FLIP_ATOL:.4f} {flips:.2e} (bound {AUG_FLIP_SHARE}); the driver's step-0 "
+                  f"views equal the transform's on its draws", flush=True)
+            check(crop_diff <= AUG_CROP_ATOL, "21b: the tokenizer view on the card disagrees")
+            check(near <= AUG_NEAR_SHARE and flips <= AUG_FLIP_SHARE,
+                  "21b: the student view on the card disagrees with the CPU's")
+            del card, cpu, same, draws
+
+            # --- --epochs 3 auto-resumes at epoch 2 from checkpoint-1.pth
+            steps.clear()
+            resumed.clear()
+            args3 = args_b(out_b, "--epochs", "3")
+            state = counted("cli10_mim_train_resume", {"K1": depth * spe, "K2": depth * spe},
+                            PB.main, args3)
+            check(len(resumed) == 1 and resumed[0]["epoch"] == 2, "21b: auto-resume")
+            blob = torch.load(os.path.join(out_b, "checkpoint-1.pth"), map_location=dev,
+                              weights_only=False)
+            n_opt = check_resume(resumed[0], blob, 2 * spe, "21b")
+            lr3, _, _ = B.build_lr_schedules(args3, spe)
+            check(steps[0]["step"] == 2 * spe and steps[0]["metrics"]["lr"] == lr3(2 * spe),
+                  "21b: the resumed run's first lr")
+            finite(steps, "21b resumed", ("loss", "mlm_acc", "grad_norm"))
+            print(f"  21b --epochs 3 resumed at epoch 2, step {2 * spe}: "
+                  f"{len(resumed[0]['model'])} student and {n_opt} AdamW tensors equal to "
+                  f"checkpoint-1.pth's (no teacher); first lr {steps[0]['metrics']['lr']:.6e}",
+                  flush=True)
+            del blob
+            resumed.clear()
+
+            # --- where a MIM step's time goes, by part (CUDA events; the masks
+            # by the host clock), on the resumed run's state and a batch
+            model, opt = state.model, state.optimizer
+            gens = EC.step_generators(0, 99, dev)
+            aug_fn = PB.two_view_augment(args3)
+            images, vae_images = aug_fn(gens.augment, u8)
+            masks = torch.from_numpy(M.make_blockwise_masks(EC.mask_generator(0, 99), bs,
+                                                            (14, 14), 75, 16)).to(dev)
+            tokens = vae.get_codebook_indices(vae_images)
+
+            def student_fwd_bwd():
+                model.train()
+                loss, _ = L.masked_mim_cross_entropy(model(images, masks, generator=gens.model),
+                                                     tokens, masks)
+                opt.zero_grad()
+                loss.backward()
+
+            with torch.no_grad():
+                trunk, _, _ = super(type(model), model).forward(images, gens.model, False,
+                                                                 bool_masked_pos=masks)
+            trunk = trunk.detach().requires_grad_(True)
+            head_params = [model.norm.weight, model.norm.bias, model.lm_head.weight,
+                           model.lm_head.bias]
+
+            def head_and_loss():
+                x = layer_norm(model.norm, trunk)[:, 1:]
+                logits = torch.nn.functional.linear(x.to(model.dtype),
+                                                    model.lm_head.weight.to(model.dtype),
+                                                    model.lm_head.bias.to(model.dtype)).float()
+                loss, _ = L.masked_mim_cross_entropy(logits, tokens, masks)
+                torch.autograd.grad(loss, [trunk] + head_params)
+
+            student_fwd_bwd()
+            parts = {
+                "transform": cuda_ms(lambda: aug_fn(gens.augment, u8), 10),
+                "tokenizer_f32": cuda_ms(lambda: vae.get_codebook_indices(vae_images), 5),
+                "student_forward_backward": cuda_ms(student_fwd_bwd, 5),
+                "head_and_loss_fwd_bwd": cuda_ms(head_and_loss, 10),
+                "adamw_clip": cuda_ms(lambda: opt.step(1e-3, 0.05), 10),
+            }
+            parts["adamw_clip_kernels"] = sum(
+                kernel_split(torch, lambda: opt.step(1e-3, 0.05), 5).values())
+            t = time.perf_counter()
+            for i in range(10):
+                M.make_blockwise_masks(EC.mask_generator(0, i), bs, (14, 14), 75, 16)
+            parts["masks_host"] = (time.perf_counter() - t) * 100
+            # the tokenizer in other precisions, alone (information only: the
+            # drivers keep f32): its encoder under flags of the smoke's own
+            cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+            def tokens_in(prec):
+                cudnn.allow_tf32 = matmul.allow_tf32 = prec == "tf32"
+                try:
+                    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                                         enabled=prec == "bfloat16"):
+                        return vae.encoder.logits_nchw(vae_images).argmax(dim=1).reshape(bs, -1)
+                finally:
+                    cudnn.allow_tf32 = matmul.allow_tf32 = False
+
+            agree = {}
+            for prec in ("tf32", "bfloat16"):
+                parts[f"tokenizer_{prec}"] = cuda_ms(lambda: tokens_in(prec), 5)
+                agree[prec] = (tokens_in(prec) == tokens).float().mean().item()
+            # with TF32 on in the process, the driver's tokenizer call still
+            # runs its convolutions without it
+            seen = []
+            hook = vae.encoder.blocks.input.register_forward_hook(
+                lambda *_: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
+            cudnn.allow_tf32 = matmul.allow_tf32 = True
+            try:
+                own = vae.get_codebook_indices(vae_images)
+                after = (cudnn.allow_tf32, matmul.allow_tf32)
+            finally:
+                cudnn.allow_tf32 = matmul.allow_tf32 = False
+                hook.remove()
+            check(seen == [(False, False)] and after == (True, True),
+                  f"21b: with TF32 on in the process the tokenizer ran under {seen} and left "
+                  f"{after}")
+            step_ms = bs * 1000 / rates_b[1]
+            dev_sum = sum(parts[k] for k in ("transform", "tokenizer_f32",
+                                             "student_forward_backward", "adamw_clip_kernels"))
+            print(f"  21b a MIM step's parts at batch {bs}, ms (CUDA events; masks_host by the "
+                  f"host clock, made a batch ahead on the host; head_and_loss_fwd_bwd is norm, "
+                  f"lm_head and the cross-entropy over [{bs}, 196, {vocab}] with their backward, "
+                  f"inside student_forward_backward): "
+                  f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}; transform + "
+                  f"tokenizer + student + AdamW kernels {dev_sum:.2f} ms against the driver's "
+                  f"{step_ms:.2f} ms a step (epoch 1); token agreement with f32 under tf32 "
+                  f"{agree['tf32']:.5f}, under bfloat16 {agree['bfloat16']:.5f}; with TF32 on in "
+                  f"the process the driver's tokenizer call ran its convolutions without it, "
+                  f"tokens equal to f32's: {bool(torch.equal(own, tokens))}", flush=True)
+            del state, model, opt, trunk, tokens, own, images, vae_images, views
+
+            # --- one int8 driver step (K6 and K7 as phase 12 counts them)
+            steps.clear()
+            counted("cli10_mim_int8_train", {"K1": depth, "K2": depth, "K6": 8 * depth,
+                                             "K7": 4 * depth},
+                    PB.main, args_b(os.path.join(tmp, "mim_int8"), "--quant", "int8", "--epochs",
+                                    "1", "--steps_per_epoch", "1", "--no_save_ckpt",
+                                    "--no_auto_resume"))
+            finite(steps, "21b int8", ("loss", "grad_norm"))
+            print(f"  21b --quant int8 step: loss {float(steps[0]['metrics']['loss']):.5f}, grad "
+                  f"norm {float(steps[0]['metrics']['grad_norm']):.4f}", flush=True)
+            del vae
+            built.clear()
+            print(f"  21b took {time.perf_counter() - t21:.1f} s", flush=True)
+
+            # ---------------- 21c: joint cyclical+BEiT, 21a's tokenizer ----------
+            t21 = time.perf_counter()
+            steps.clear()
+            writes.clear()
+            out_c = os.path.join(tmp, "joint")
+
+            def args_c(out_dir, *extra):
+                # phase 20's cyclical recipe plus --vae_loss_weight 30
+                return PJ.get_args_parser().parse_args([
+                    "--model", "beit_base_patch16_224", "--input_size", "224",
+                    "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                    "--num_workers", "8", "--output_dir", out_dir, "--steps_per_epoch", str(spe),
+                    "--save_ckpt_freq", "2", "--lr", "2e-3", "--warmup_epochs", "1",
+                    "--num_mask_patches", "120", "--ema_decay", "0.9998",
+                    "--ema_decay_init", "0.999", "--clip_grad", "3.0", "--drop_path", "0.25",
+                    "--attn_drop_rate", "0.05", "--target_layers", "[6,7,8,9,10,11]",
+                    "--layer_scale_init_value", "0.1", "--vae_loss_weight", "30",
+                    "--second_input_size", "112", "--vocab_size", str(vocab),
+                    "--discrete_vae_type", "customized", "--discrete_vae_weight_path", dvae_pth,
+                    *extra])
+
+            watch.update(ema_check=True)
+            args_c2 = args_c(out_c, "--epochs", "2")
+            FA.BOUNDED_SCORES = True
+            state = counted("cli10_joint_train", {"K1": 2 * depth * 2 * spe,
+                                                  "K2": depth * 2 * spe}, PJ.main, args_c2)
+            watch.update(ema_check=False)
+            run_c = list(steps)
+            ref = torch.load(dvae_pth, weights_only=False)["model"]
+            vae = built[-1]
+            check(isinstance(vae, DiscreteVAE) and all(
+                torch.equal(v.cpu(), ref[k]) for k, v in vae.state_dict().items()),
+                "21c: the driver's tokenizer is not 21a's exported weights")
+            per_joint = dict(want, K1=2 * depth, K2=depth)
+            for r in run_c:
+                check(r["launches"] == per_joint, f"21c step {r['step']} launched {r['launches']}")
+                check(r["bounded"] is False, f"21c step {r['step']} ran the bounded softmax")
+            finite(run_c, "21c", ("loss", "loss_cyc", "loss_beit", "grad_norm"))
+            ws = [r["metrics"]["beit_weight"] for r in run_c]
+            check(ws == [1.0] * spe + [EM.beit_weight(1, 30)] * spe
+                  and abs(ws[-1] - 29 / 30) < 1e-7, f"21c beit_weight {ws}")
+            for r in run_c[:2]:
+                d = cyclical_ema_decay(r["step"], args_c2.ema_decay, args_c2.ema_decay_init,
+                                       args_c2.ema_start_at)
+                worst, moved = 0.0, 0.0
+                for k, e0 in r["teacher_before"].items():
+                    exp = e0.double() * d + r["student"][k].double() * (1.0 - d)
+                    err = float((r["teacher"][k].double() - exp).abs().max())
+                    worst = max(worst, err / max(float(exp.abs().max()), 1e-30))
+                    moved = max(moved, float((r["teacher"][k] - e0).abs().max()))
+                print(f"  21c teacher after step {r['step']} against d·e + (1 - d)·m on copies in "
+                      f"float64 (d = {d!r}): worst tensor's max|diff| / max|expected| "
+                      f"{worst:.3e} (bound {EMA_REL_BOUND}); it moved by up to {moved:.3e}",
+                      flush=True)
+                check(worst <= EMA_REL_BOUND, f"21c: the teacher after step {r['step']}")
+            check(moved > 0, "21c: the teacher did not move at step 1")
+            for r in run_c:
+                for k in ("teacher_before", "student", "teacher"):
+                    r.pop(k, None)
+            rates_c = rates_of(run_c, 2)
+            print("  21c losses " + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in run_c)
+                  + "; loss_cyc " + ", ".join(f"{float(r['metrics']['loss_cyc']):.5f}"
+                                            for r in run_c)
+                  + "; loss_beit " + ", ".join(f"{float(r['metrics']['loss_beit']):.5f}"
+                                             for r in run_c)
+                  + f"; beit_weight {ws}; every step K1 {2 * depth}, K2 {depth}, the exact "
+                  f"softmax", flush=True)
+            print(f"  21c driver joint rate from images (information only): {rates_c} img/s; ms "
+                  f"a step (CUDA events) {[round(ms_of(r), 2) for r in run_c]}; phase 20's "
+                  f"cyclical driver rate in this call {cyclical_rates} img/s", flush=True)
+            _tokens_against_f64(torch, vae, torch.rand(32, 112, 112, 3, device=dev,
+                                                       generator=torch.Generator(
+                                                           device=dev).manual_seed(5)),
+                                "21c in-repo dVAE tokens")
+            step0_against_plain(PJ.main, args_c(os.path.join(tmp, "joint_plain"), "--epochs", "1",
+                                                "--steps_per_epoch", "1", "--no_save_ckpt",
+                                                "--no_auto_resume"), run_c[0], "21c")
+            del state, vae, ref
+            built.clear()
+            print(f"  21c took {time.perf_counter() - t21:.1f} s", flush=True)
+
+            # ---------------- 21d: the hand-off to the finetune driver ----------
+            t21 = time.perf_counter()
+            imports = []
+
+            def recording_import(sd, template, *a, **k):
+                result = import_sd(sd, template, *a, **k)
+                imports.append({"template": {k_: v.detach().cpu() for k_, v in template.items()},
+                                "result": result})
+                return result
+
+            pth = os.path.join(out_b, "checkpoint-2.pth")
+            C.import_torch_state_dict = recording_import
+            try:
+                res = counted("cli10_finetune_eval", {"K1": depth * 2}, FT.main,
+                              FT.get_args_parser().parse_args([
+                                  "--model", "beit_base_patch16_224", "--input_size", "224",
+                                  "--data_set", "CIFAR100", "--data_path", tmp, "--num_workers",
+                                  "8", "--batch_size", str(bs), "--finetune", pth, "--eval",
+                                  "--output_dir", os.path.join(tmp, "ft")]))
+            finally:
+                C.import_torch_state_dict = import_sd
+            check(len(imports) == 1, f"21d: {len(imports)} imports")
+            _, missing, unused = imports[0]["result"]
+            _, cpu_missing, cpu_unused = import_sd(C.load_torch_state_dict(pth),
+                                                   imports[0]["template"])
+            print(f"  21d 21b's checkpoint-2.pth through cli.finetune --finetune --eval over "
+                  f"{n_test} images: missing {missing}, unused {unused}; acc1 "
+                  f"{res['eval']['acc1']:.3f}", flush=True)
+            check(missing == cpu_missing and unused == cpu_unused,
+                  f"21d: the card's import gave {missing}, {unused}; the CPU's {cpu_missing}, "
+                  f"{cpu_unused}")
+            check(sorted(missing) == ["fc_norm.bias", "fc_norm.weight", "head.bias", "head.weight"]
+                  and sorted(unused) == ["lm_head.bias", "lm_head.weight", "mask_token",
+                                         "norm.bias", "norm.weight"], "21d: the hand-off's keys")
+            print(f"  21d took {time.perf_counter() - t21:.1f} s", flush=True)
+    finally:
+        for (module, name), value in saved_attrs.items():
+            setattr(module, name, value)
+        C.import_torch_state_dict = import_sd
+        FA.BOUNDED_SCORES = bounded
     return paths
+
 
 def main() -> int:
     import torch
@@ -5081,9 +5896,14 @@ def main() -> int:
     cli8 = run(19, "slice 8 through the driver: --sngp and --het_layer training and evaluation; "
                    "--temp_scaling, --laplace, --corrupted_data, --perturbed_data, "
                    "--visualize_embedding", phase19, torch, FA, dev)
-    cli9 = run(20, "the cyclical pretraining driver: two epochs at the recipe's flags, a step on "
-                   "the plain attention, a resumed third; --gp_layer; the hand-off to "
-                   "cli.finetune", phase20, torch, FA, dev, step_rates)
+    cli9, cyclical_rates = run(20, "the cyclical pretraining driver: two epochs at the recipe's "
+                                   "flags, a step on the plain attention, a resumed third; "
+                                   "--gp_layer; the hand-off to cli.finetune; an int8 step",
+                               phase20, torch, FA, dev, step_rates)
+    cli10 = run(21, "the BEiT pretraining drivers: the dVAE trainer, MIM with the DALL-E "
+                    "tokenizer (two epochs, a step on the plain attention, a resumed third, an "
+                    "int8 step), joint cyclical+BEiT, the hand-off to cli.finetune", phase21,
+                torch, FA, dev, step_rates, cyclical_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -5102,8 +5922,11 @@ def main() -> int:
     # and phase 19's ("cli8_"): the --sngp, exact-accumulation and --het_layer
     # training runs, the --het_layer evaluation, and the post-hoc evaluations
     # and phase 20's ("cli9_"): the cyclical driver's two epochs of 4 steps,
-    # its resumed third, its --gp_layer epoch of 2, and the finetune driver's
-    # --eval of the last checkpoint
+    # its resumed third, its --gp_layer epoch of 2, the finetune driver's
+    # --eval of the last checkpoint and an int8 step; and phase 21's
+    # ("cli10_"): the MIM driver's two epochs of 4 steps, its resumed third
+    # and an int8 step, the joint driver's two epochs, the finetune driver's
+    # --eval of the MIM checkpoint (the dVAE trainer launches none)
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
@@ -5111,14 +5934,18 @@ def main() -> int:
                 **{path: n["K1"] for path, n in cli.items()},
                 **{path: n["K1"] for path, n in cli_train.items()},
                 **{path: n["K1"] for path, n in cli8.items()},
-                **{path: n["K1"] for path, n in cli9.items()}}
+                **{path: n["K1"] for path, n in cli9.items()},
+                **{path: n["K1"] for path, n in cli10.items() if n["K1"]}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
                 "int8_train_step": int8["int8_train_step"]["K2"],
                 **{path: n["K2"] for path, n in cli_train.items()},
                 **{path: n["K2"] for path, n in cli8.items() if n["K2"]},
-                **{path: n["K2"] for path, n in cli9.items() if n["K2"]}}
-    k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train}.items() if n["K6"]}
-    k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train}.items() if n["K7"]}
+                **{path: n["K2"] for path, n in cli9.items() if n["K2"]},
+                **{path: n["K2"] for path, n in cli10.items() if n["K2"]}}
+    k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train, **cli9, **cli10}.items()
+                if n["K6"]}
+    k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train, **cli9, **cli10}.items()
+                if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in {**mc, **cli, **cli8}.items() if n["K8"]}
     # and phase 18's ("cli7c_"): ViT-B/16 384 trained (4 mini-steps and an
     # evaluation of 2 batches; 2 pair mini-steps), ViT-L/16 384 evaluated

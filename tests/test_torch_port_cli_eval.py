@@ -36,6 +36,7 @@ from uncertainty_vit_tpu_torch.core.config import get_preset
 from uncertainty_vit_tpu_torch.core.init import trunc_normal
 from uncertainty_vit_tpu_torch.models import registry as TREG
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
+from uncertainty_vit_tpu_torch.models.mim import JointViT, MIMViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
 from uncertainty_vit_tpu_torch.utils.checkpoint import _torch_key_for, flax_to_state_dict
@@ -349,9 +350,10 @@ def test_mc_mean_forward_draws_fresh_masks(files):
 
 
 def test_create_model_matches_jax():
-    """The registry's finetune and cyclical families, their configs equal to
-    the JAX registry's (a 1-deep ViT-B/16 224 to keep it cheap); the dist,
-    MIM and joint families raise."""
+    """The registry's finetune, cyclical, MIM and joint families, their
+    configs equal to the JAX registry's (a 1-deep ViT-B/16 224 to keep it
+    cheap; the MIM and joint models on the meta device); the dist family
+    raises."""
     model, cfg = TREG.create_model("beit_base_patch16_224", depth=1, num_classes=10,
                                    device="cpu")
     _, jcfg = JREG.create_model("beit_base_patch16_224", depth=1, num_classes=10)
@@ -361,10 +363,14 @@ def test_create_model_matches_jax():
     _, jcfg = JREG.create_model("beit_base_patch16_224", "cyclical", depth=1)
     assert isinstance(model, CyclicalViT) and len(model.blocks) == 1
     assert _fields(cfg) == _fields(jcfg) and cfg.head_type == "none"
+    for name, cls in (("beit_base_patch16_224_8k_vocab", MIMViT),
+                      ("beit_base_joint_patch16_224", JointViT)):
+        model, cfg = TREG.create_model(name, depth=1, device="meta")
+        _, jcfg = JREG.create_model(name, depth=1)
+        assert isinstance(model, cls) and len(model.blocks) == 1
+        assert _fields(cfg) == _fields(jcfg) and cfg.head_type == "none"
     for name, family in (("dist_beit_base_patch16_224", None),
-                         ("dist_beit_base_patch16_224", "cyclical"),
-                         ("beit_base_patch16_224_8k_vocab", None),
-                         ("beit_base_joint_patch16_224", None)):
+                         ("dist_beit_base_patch16_224", "cyclical")):
         with pytest.raises(NotImplementedError, match="slice"):
             TREG.create_model(name, family, device="cpu")
     with pytest.raises(ValueError):

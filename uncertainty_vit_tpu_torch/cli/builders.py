@@ -5,8 +5,8 @@ Counterpart of uncertainty_vit_tpu/cli/builders.py: the argument groups
 reference's names, run_class_finetuning.py:49-259), so that a recipe parses
 unchanged; ``model_config_from_args`` (:216-254), ``build_lr_schedules`` and
 ``build_optimizer`` (:257-301), ``build_loaders`` (:304-361),
-``interp_method``, ``mixup_active``, ``validate_aug_args``, ``compute_dtype``
-and ``check_finite_or_die``.
+``interp_method``, ``mixup_active``, ``validate_aug_args``, ``compute_dtype``,
+``build_discrete_vae`` (:414-458) and ``check_finite_or_die``.
 
 A parsed flag whose feature the port does not have yet raises
 ``NotImplementedError`` here with the ROADMAP item that ports it; none is
@@ -40,9 +40,13 @@ def not_ported(flag: str, what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"--{flag}: {what} is not ported yet (ROADMAP.md {where})")
 
 
-def add_model_args(p: argparse.ArgumentParser):
+def add_model_args(p: argparse.ArgumentParser, extra_models: Tuple[str, ...] = ()):
+    """The model flags; ``extra_models``: registry names (``models.registry.
+    MODEL_NAMES``) --model also takes, each the architecture of its preset
+    (``registry.preset_name``)."""
     g = p.add_argument_group("model")
-    g.add_argument("--model", default="beit_base_patch16_224", choices=sorted(PRESETS))
+    g.add_argument("--model", default="beit_base_patch16_224",
+                   choices=sorted(PRESETS) + list(extra_models))
     g.add_argument("--input_size", default=224, type=int)
     g.add_argument("--drop", type=float, default=0.0)
     g.add_argument("--attn_drop_rate", type=float, default=0.0)
@@ -249,8 +253,10 @@ def model_config_from_args(args, num_classes: int) -> ViTConfig:
         head_type = "het"
     elif args.gp_layer or args.sngp:
         head_type = "sngp"
+    from uncertainty_vit_tpu_torch.models.registry import preset_name
+
     return get_preset(
-        args.model,
+        preset_name(args.model),
         img_size=args.input_size,
         num_classes=num_classes,
         drop_rate=args.drop,
@@ -414,6 +420,51 @@ def validate_aug_args(args) -> None:
 
 def compute_dtype(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def build_discrete_vae(args, generator: Optional[torch.Generator] = None, device=None
+                       ) -> torch.nn.Module:
+    """The pretrainers' frozen tokenizer, the reference's create_d_vae
+    dispatch (utils.py:548-573), on ``device``, its parameters drawn from
+    ``generator`` (a generator on that device) unless a file fills them.
+
+    "dall-e": ``DalleVAE(second_input_size, vocab_size)``, filled from
+    ``encoder.pkl`` and ``decoder.pkl`` in the --discrete_vae_weight_path
+    directory (``utils.checkpoint.load_dalle_pickle_state_dict``); a
+    parameter they leave uncovered raises. "customized" / "none": the in-repo
+    ``DiscreteVAE`` (codebook 512, --dvae_num_layers, --dvae_hidden_dim),
+    filled from the .pth at --discrete_vae_weight_path: the dVAE trainer's
+    ``checkpoint-dvae-weights.pth`` or a reference DiscreteVAE state dict
+    (the same keys), strictly. The JAX package's orbax directories are not
+    read. The tokenizer is frozen and in eval mode."""
+    import os
+
+    from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
+    from uncertainty_vit_tpu_torch.models.dalle_vae import DalleVAE
+    from uncertainty_vit_tpu_torch.models.dvae import DiscreteVAE
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+    device = resolve_device(device)
+    path = args.discrete_vae_weight_path
+    if args.discrete_vae_type == "dall-e":
+        vae = DalleVAE(image_size=args.second_input_size, vocab_size=args.vocab_size,
+                       device=device, generator=generator)
+        if path:
+            for part in ("encoder", "decoder"):
+                sd = C.load_dalle_pickle_state_dict(os.path.join(path, f"{part}.pkl"))
+                getattr(vae, part).load_state_dict(sd, strict=True)
+    else:
+        vae = DiscreteVAE(image_size=args.second_input_size, num_tokens=args.vocab_size,
+                          num_layers=args.dvae_num_layers, hidden_dim=args.dvae_hidden_dim,
+                          device=device, generator=generator)
+        if path:
+            if not path.endswith((".pth", ".pt")):
+                raise NotImplementedError(
+                    f"--discrete_vae_weight_path {path!r}: the port reads a DiscreteVAE .pth "
+                    "(cli.train_dvae's checkpoint-dvae-weights.pth or a reference state dict); "
+                    "an orbax checkpoint of the JAX package cannot be read")
+            vae.load_state_dict(C.load_torch_state_dict(path), strict=True)
+    return vae.eval().requires_grad_(False)
 
 
 def check_finite_or_die(loss_value: float, step) -> None:

@@ -38,7 +38,7 @@ from __future__ import annotations
 import argparse
 import ast
 import collections
-from typing import Iterator
+from typing import Callable, Dict, Iterator
 
 import torch
 
@@ -179,6 +179,60 @@ class MaskedBatches:
             yield (*batch, masks)
 
 
+def train_epochs(args, state, loader, steps_per_epoch: int, grid, device, start_epoch: int,
+                 run_step: Callable[..., Dict[str, object]], tb_heads: Dict[str, tuple],
+                 log_prefix: str = "") -> None:
+    """The epochs of a pretraining driver (this one's, the BEiT ones' and
+    the dVAE trainer's): each step's uint8 batch, with its host masks
+    (``MaskedBatches``) over the patch grid ``grid`` unless that is None,
+    through ``run_step(epoch, state, images_u8, masks, generators,
+    valid_hw)`` (masks None without a grid), its metrics read back 2 steps
+    behind (the JAX driver's 2-deep window; a NaN stops the run within two
+    steps, reported at its global step), a log.txt record an epoch (its
+    metric names after ``log_prefix``), checkpoints. ``tb_heads``:
+    TensorBoard head → metric names; none, and no TensorBoard writer."""
+    tb = TensorboardLogger((args.log_dir or args.output_dir) if tb_heads else None)
+    jsonl = JsonlLogger(args.output_dir)
+    masked = grid is not None
+    for epoch in range(start_epoch, args.epochs):
+        loader.set_epoch(epoch)
+        logger = MetricLogger()
+        pending: "collections.deque" = collections.deque()
+        step_base = state.step
+
+        def drain_one():
+            m, global_step = pending.popleft()
+            m = _finish_metrics(m)
+            B.check_finite_or_die(m["loss"], global_step)
+            logger.update(**m)
+            for head, names in tb_heads.items():
+                tb.update(head=head, **{k: m[k] for k in names})
+            tb.set_step()
+
+        batches = device_prefetch(
+            MaskedBatches(loader, args, step_base, grid) if masked else loader, device)
+        for step, batch in enumerate(logger.log_every(batches, 10, f"Epoch: [{epoch}]")):
+            if step >= steps_per_epoch:
+                break
+            images_u8, masks = batch[0], (batch[-1] if masked else None)
+            # letterboxed batches carry each image's valid extent
+            # (--decode_letterbox), so that the crop covers the whole image
+            valid_hw = batch[1] if len(batch) == 3 + masked else None
+            gens = step_generators(args.seed, state.step, device)
+            metrics = run_step(epoch, state, images_u8, masks, gens, valid_hw)
+            pending.append((_start_metrics_readback(metrics), step_base + step))
+            while len(pending) > 2:
+                drain_one()
+        while pending:
+            drain_one()
+        jsonl.write({"epoch": epoch,
+                     **{f"{log_prefix}{k}": v for k, v in logger.epoch_summary().items()}})
+        if args.save_ckpt and args.output_dir and (
+                (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
+            C.save_checkpoint(args.output_dir, epoch, state, epoch)
+        tb.flush()
+
+
 def main(args, device=None):
     """Pretrain on ``device`` (the card unless the caller asks for the CPU);
     returns the train state (``train.engine_cyclical.CyclicalState``)."""
@@ -226,49 +280,12 @@ def main(args, device=None):
         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
         color_jitter_strength=args.color_jitter)
     train_step = make_cyclical_train_step(model, optimizer, hp, lr_schedule, wd_schedule, aug_fn)
-    tb = TensorboardLogger(args.log_dir or args.output_dir)
-    jsonl = JsonlLogger(args.output_dir)
 
-    for epoch in range(start_epoch, args.epochs):
-        loader.set_epoch(epoch)
-        logger = MetricLogger()
-        # the host reads step i's metrics back after it has queued steps i + 1
-        # and i + 2 (the JAX driver's 2-deep window); a NaN stops the run
-        # within two steps, reported at its global step
-        pending: "collections.deque" = collections.deque()
-        step_base = state.step
+    def run_step(epoch, state, images_u8, masks, gens, valid_hw):
+        return train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw)
 
-        def drain_one():
-            m, global_step = pending.popleft()
-            m = _finish_metrics(m)
-            B.check_finite_or_die(m["loss"], global_step)
-            logger.update(**m)
-            tb.update(head="loss", loss=m["loss"])
-            tb.update(head="opt", lr=m["lr"], grad_norm=m["grad_norm"])
-            tb.set_step()
-
-        batches = device_prefetch(MaskedBatches(loader, args, step_base, cfg.grid_size), device)
-        for step, batch in enumerate(logger.log_every(batches, 10, f"Epoch: [{epoch}]")):
-            if step >= steps_per_epoch:
-                break
-            images_u8, masks = batch[0], batch[-1]
-            # letterboxed batches carry each image's valid extent
-            # (--decode_letterbox), so that the crop covers the whole image
-            valid_hw = batch[1] if len(batch) == 4 else None
-            gens = step_generators(args.seed, state.step, device)
-            metrics = train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw)
-            pending.append((_start_metrics_readback(metrics), step_base + step))
-            while len(pending) > 2:
-                drain_one()
-        while pending:
-            drain_one()
-
-        jsonl.write({"epoch": epoch,
-                     **{f"train_{k}": v for k, v in logger.epoch_summary().items()}})
-        if args.save_ckpt and args.output_dir and (
-                (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs):
-            C.save_checkpoint(args.output_dir, epoch, state, epoch)
-        tb.flush()
+    train_epochs(args, state, loader, steps_per_epoch, cfg.grid_size, device, start_epoch,
+                 run_step, {"loss": ("loss",), "opt": ("lr", "grad_norm")}, log_prefix="train_")
     print("done.", flush=True)
     return state
 

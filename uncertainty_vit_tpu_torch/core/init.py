@@ -6,7 +6,9 @@ given ``torch.Generator`` (which must live on the tensor's device) and
 returns it. The reference initializes Linear/LayerNorm with timm
 ``trunc_normal_(std=.02)`` (absolute truncation at ±2.0), the cyclical zoo
 with ``trunc_normal_(std, a=-std, b=std)``, and leaves the patch-embed conv
-at torch defaults (U(±1/sqrt(fan_in)) for weight and bias).
+at torch defaults (U(±1/sqrt(fan_in)) for weight and bias). The image
+tokenizers take flax's defaults, as the JAX package builds them: a conv's
+``lecun_normal`` kernel, an embedding's ``normal(1/sqrt(features))``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,29 @@ def torch_linear_default(fan_in: int) -> Init:
     def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with torch.no_grad():
             return t.uniform_(-bound, bound, generator=generator)
+
+    return init
+
+
+def lecun_normal(fan_in: int) -> Init:
+    """flax's default kernel init, variance_scaling(1, "fan_in",
+    "truncated_normal"): N(0, s) truncated to ±2s, with s = sqrt(1/fan_in)
+    / 0.8796 (the std of a standard normal truncated to ±2), so that the
+    truncated draw has variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                               generator=generator)
+
+    return init
+
+
+def normal(std: float) -> Init:
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        with torch.no_grad():
+            return t.normal_(0.0, std, generator=generator)
 
     return init
 

@@ -5,10 +5,11 @@ modeling_pretrain.py:139-166).
 
 ``create_model(name, family=...)`` returns (module, config). The
 ``finetune`` family, the ``VisionTransformer`` with any of its heads
-(``head_type=`` and the other config fields pass through as overrides), and
-the ``cyclical`` family, ``CyclicalViT`` with ``head_type="none"`` (JAX
-:73-75), are ported; the other families raise with the ROADMAP slice that
-ports them.
+(``head_type=`` and the other config fields pass through as overrides), the
+``cyclical`` family, ``CyclicalViT``, and the ``mim`` and ``joint``
+families, ``MIMViT`` and ``JointViT`` over ``vocab_size`` codebook tokens,
+each with ``head_type="none"`` (JAX :70-78), are ported; the dist family
+raises with the ROADMAP slice that ports it.
 ``sngp_reset_cov`` (:84-95) restarts the SNGP head's precision matrix.
 """
 
@@ -19,9 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from uncertainty_vit_tpu_torch.core.config import ViTConfig, get_preset
+from uncertainty_vit_tpu_torch.core.config import PRESETS, ViTConfig, get_preset
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
 from uncertainty_vit_tpu_torch.models.heads import SNGPHead
+from uncertainty_vit_tpu_torch.models.mim import JointViT, MIMViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 
 MODEL_NAMES = (
@@ -36,22 +38,29 @@ MODEL_NAMES = (
 # family → where the ROADMAP ports it
 _NOT_PORTED_FAMILIES = {
     "dist": "the dist (mean+covariance) models: item 19, slice 11",
-    "mim": "the BEiT MIM model: item 18, slice 10",
-    "joint": "the joint MIM model: item 18, slice 10",
 }
 
 
-def _base_preset(name: str) -> ViTConfig:
+def preset_name(name: str) -> str:
+    """The ``core.config`` preset of a registry name: the *_8k_vocab, joint
+    and dist_* names are the architectures of beit_{size}_patch16_{res}."""
+    if name in PRESETS:
+        return name
     m = re.search(r"beit_(base|large|huge)_(?:joint_)?patch16_(\d+)", name)
     if not m:
         raise ValueError(f"unknown model name: {name}")
-    return get_preset(f"beit_{m.group(1)}_patch16_{m.group(2)}")
+    return f"beit_{m.group(1)}_patch16_{m.group(2)}"
+
+
+def _base_preset(name: str) -> ViTConfig:
+    return get_preset(preset_name(name))
 
 
 def create_model(
     name: str,
     family: Optional[str] = None,
     dtype: torch.dtype = torch.float32,
+    vocab_size: int = 8192,
     *,
     device=None,
     generator: Optional[torch.Generator] = None,
@@ -67,7 +76,7 @@ def create_model(
             family = "joint"
         else:
             family = "finetune"
-    if family not in ("finetune", "cyclical", *_NOT_PORTED_FAMILIES):
+    if family not in ("finetune", "cyclical", "mim", "joint", *_NOT_PORTED_FAMILIES):
         raise ValueError(f"unknown family: {family}")
     cfg = _base_preset(name)
     if overrides:
@@ -80,6 +89,10 @@ def create_model(
     if family == "cyclical":
         cfg = cfg.replace(head_type="none")
         return CyclicalViT(cfg, dtype, device=device, generator=generator), cfg
+    if family in ("mim", "joint"):
+        cfg = cfg.replace(head_type="none")
+        cls = MIMViT if family == "mim" else JointViT
+        return cls(cfg, dtype, vocab_size=vocab_size, device=device, generator=generator), cfg
     return VisionTransformer(cfg, dtype, device=device, generator=generator), cfg
 
 

@@ -8,7 +8,9 @@ Counterpart of uncertainty_vit_tpu/ops/augment.py. The train half, on planar
 ``_batched_resample_planar`` :430, ``crop_and_resize_batch`` :468,
 ``random_resized_crop_batch`` :479), ``color_jitter_batch`` (:377),
 ``random_hflip_batch`` (:424), ``random_erasing_batch`` (:508, ``_erase_one``
-:535) and ``finetune_train_augment_batch`` (:675-727). Each random op is
+:535), ``finetune_train_augment_batch`` (:675-727), the pretrain ladder
+and BEiT's two-view ``pretrain_two_view_batch`` (:728-800, with
+``map_pixels`` / ``unmap_pixels`` :35-47). Each random op is
 split in two: ``draw_*`` takes its raw values (uniforms in [0, 1), normals,
 integers) from an explicit ``torch.Generator`` on that generator's device,
 and the op applies given draws, so that the tests can hand it the JAX
@@ -53,6 +55,21 @@ IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
 IMAGENET_INCEPTION_MEAN = (0.5, 0.5, 0.5)
 IMAGENET_INCEPTION_STD = (0.5, 0.5, 0.5)
+
+
+DALLE_LOGIT_LAPLACE_EPS = 0.1
+
+
+def map_pixels(x: torch.Tensor) -> torch.Tensor:
+    """The DALL-E tokenizer's input map (1 − 2ε)·x + ε (dall_e.map_pixels,
+    which the reference applies to the tokenizer view, datasets.py:86-102)."""
+    return (1.0 - 2.0 * DALLE_LOGIT_LAPLACE_EPS) * x + DALLE_LOGIT_LAPLACE_EPS
+
+
+def unmap_pixels(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``map_pixels``, clipped to [0, 1]."""
+    return torch.clamp((x - DALLE_LOGIT_LAPLACE_EPS) / (1.0 - 2.0 * DALLE_LOGIT_LAPLACE_EPS),
+                       0.0, 1.0)
 
 
 def to_float(images_u8: torch.Tensor) -> torch.Tensor:
@@ -650,5 +667,97 @@ def make_pretrain_augment(out_size: int, aug_level: int = -1, **flags
         draws = draw_pretrain_augment(generator, images_u8.shape[0], aug_level)
         return pretrain_augment_batch(draws, images_u8, out_size, aug_level, valid_hw=valid_hw,
                                       **flags)
+
+    return aug_fn
+
+
+# --- the BEiT two-view transform ----------------------------------------------
+
+DISCRETE_VAE_TYPES = ("none", "dall-e", "customized")
+
+
+@dataclasses.dataclass
+class TwoViewDraws:
+    """All draws of one batch of ``pretrain_two_view_batch``: the colour
+    jitter, the flip (one per sample, shared by both views) and the crop
+    (one box per sample, shared by both views)."""
+
+    color_jitter: ColorJitterDraws
+    flip_u: torch.Tensor
+    rrc: RRCDraws
+
+    def to(self, device) -> "TwoViewDraws":
+        """The same draws on ``device``."""
+        return _moved(self, device)
+
+
+def draw_pretrain_two_view(generator: torch.Generator, b: int) -> TwoViewDraws:
+    """The draws ``pretrain_two_view_batch`` takes for a batch of b images."""
+    return TwoViewDraws(draw_color_jitter(generator, b), draw_hflip(generator, b),
+                        draw_rrc(generator, b))
+
+
+def pretrain_two_view_batch(draws: TwoViewDraws, images_u8: torch.Tensor, out_size: int = 224,
+                            second_size: int = 112,
+                            imagenet_default_mean_and_std: bool = True,
+                            color_jitter_strength: float = 0.4, discrete_vae_type: str = "none",
+                            second_interpolation: str = "bicubic",
+                            valid_hw: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DataAugmentationForBEiT's two-picture path (datasets.py:70-118;
+    JAX ops/augment.py:728-800): colour jitter and the flip on the common
+    image, then one random resized crop box a sample over (0.08, 1) and
+    (3/4, 4/3), resampled at ``out_size`` (bicubic) and at ``second_size``
+    (``second_interpolation``; the reference's lanczos default runs as
+    bicubic, ``cli.builders.interp_method``), each clipped to [0, 1]
+    (RandomResizedCropAndInterpolationWithTwoPic, transforms.py:164-183).
+    The student view is normalized; the tokenizer view by
+    ``discrete_vae_type``: "none" stays in [0, 1], "dall-e" goes through
+    ``map_pixels``, "customized" is Inception-normalized. uint8 [B, H, W, C]
+    → (f32 [B, out, out, C], f32 [B, second, second, C]).
+
+    valid_hw [B, 2] (letterboxed extents, --decode_letterbox): the box stays
+    inside each sample's valid region and the flip, one draw for both
+    views, comes after the crop (see ``pretrain_augment_batch``)."""
+    if discrete_vae_type not in DISCRETE_VAE_TYPES:
+        raise ValueError(f"discrete_vae_type must be one of {DISCRETE_VAE_TYPES}, "
+                         f"got {discrete_vae_type!r}")
+    mean = IMAGENET_DEFAULT_MEAN if imagenet_default_mean_and_std else IMAGENET_INCEPTION_MEAN
+    std = IMAGENET_DEFAULT_STD if imagenet_default_mean_and_std else IMAGENET_INCEPTION_STD
+    imgs = to_planar(images_u8)
+    imgs = color_jitter_batch(draws.color_jitter, imgs, color_jitter_strength,
+                              color_jitter_strength, color_jitter_strength)
+    if valid_hw is None:
+        imgs = random_hflip_batch(draws.flip_u, imgs)
+        h, w = imgs.shape[2], imgs.shape[3]
+    else:
+        h, w = valid_hw[:, 0], valid_hw[:, 1]
+    top, left, ch, cw = _rrc_params(draws.rrc, h, w, (0.08, 1.0), (3.0 / 4.0, 4.0 / 3.0))
+    first = crop_and_resize_batch(imgs, top, left, ch, cw, (out_size, out_size)).clamp(0.0, 1.0)
+    second = crop_and_resize_batch(imgs, top, left, ch, cw, (second_size, second_size),
+                                   second_interpolation).clamp(0.0, 1.0)
+    if valid_hw is not None:
+        first = random_hflip_batch(draws.flip_u, first)
+        second = random_hflip_batch(draws.flip_u, second)
+    first = normalize(from_planar(first), mean, std)
+    second = from_planar(second)
+    if discrete_vae_type == "dall-e":
+        second = map_pixels(second)
+    elif discrete_vae_type == "customized":
+        second = normalize(second, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD)
+    return first, second
+
+
+def make_pretrain_two_view(out_size: int, second_size: int, **flags
+                           ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """aug_fn(generator, images_u8, valid_hw) of the MIM and joint train
+    steps: the draws of ``pretrain_two_view_batch`` from ``generator``, then
+    the transform with ``flags``."""
+
+    def aug_fn(generator: torch.Generator, images_u8: torch.Tensor,
+               valid_hw: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        draws = draw_pretrain_two_view(generator, images_u8.shape[0])
+        return pretrain_two_view_batch(draws, images_u8, out_size, second_size,
+                                       valid_hw=valid_hw, **flags)
 
     return aug_fn

@@ -4,7 +4,8 @@ classification criteria (run_class_finetuning.py:617-623).
 Counterpart of uncertainty_vit_tpu/ops/losses.py:25-95. The regression
 losses take a [B, N] weight mask in place of the reference's gather of the
 masked tokens, as the JAX package does: the same value for these means.
-Every loss computes in float32. The MIM and Wasserstein losses are not
+Every loss computes in float32. ``masked_mim_cross_entropy`` (:96-112) is
+BEiT's masked codebook cross-entropy. The Wasserstein losses are not
 ported yet.
 """
 
@@ -62,3 +63,20 @@ def label_smoothing_cross_entropy(
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.mean(logp.gather(-1, labels[:, None]))
+
+
+def masked_mim_cross_entropy(logits: torch.Tensor, token_ids: torch.Tensor,
+                             mask: torch.Tensor) -> tuple:
+    """BEiT's MIM loss (engine_for_pretraining.py:50-57) and its MLM
+    accuracy (:74): the cross-entropy of f32 log-softmax over the codebook
+    vocabulary, and argmax == token, each weighted by the mask over
+    max(Σmask, 1). logits [B, N, V]; token_ids [B, N] int; mask [B, N] in
+    {0, 1}. Returns (loss, acc) as 0-d device tensors (nothing is read back)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ids = token_ids.long()[..., None]
+    nll = -logp.gather(-1, ids)[..., 0]
+    w = mask.float()
+    denom = torch.clamp_min(w.sum(), 1.0)
+    loss = (nll * w).sum() / denom
+    correct = (logits.argmax(dim=-1) == ids[..., 0]).float()
+    return loss, (correct * w).sum() / denom

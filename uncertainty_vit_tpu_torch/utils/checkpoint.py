@@ -4,8 +4,11 @@ a model of another, and the import of a reference ``.pth``.
 Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
 :562-578), for the parameters and buffers of the ported VisionTransformer,
-its uncertainty heads included, and of the cyclical model (its ``lm_head``,
-linear or SNGP). The port's modules use the reference's
+its uncertainty heads included, of the cyclical model (its ``lm_head``,
+linear or SNGP), of the MIM and joint models (``lm_head``, ``lm_head.0`` /
+``lm_head.2``, ``beit_head``) and of the two image tokenizers (the
+DiscreteVAE's Sequential layout, :372-409, its transposed convs' kernels
+unflipped; dall_e's ``w`` / ``b``, :450-465). The port's modules use the reference's
 torch names and layouts, so the mapped dict loads with ``strict=True``.
 Each leaf has a key of its own: the JAX package's mapping sends the SNGP
 head's two input-norm vectors both to ``head.bias`` and its output layer
@@ -16,7 +19,8 @@ The cross-resolution surgery a 384 or 512 finetune starts from
 applied in ``import_torch_params`` :320-323) is ``resize_state_dict``:
 numpy in, numpy out for the two interpolations.
 
-``load_torch_state_dict`` (:76-87) reads a reference ``.pth``, and
+``load_dalle_pickle_state_dict`` (:521-559) reads OpenAI's dall_e
+pickles without their package. ``load_torch_state_dict`` (:76-87) reads a reference ``.pth``, and
 ``import_torch_state_dict`` applies the rules of ``import_torch_params``
 (:281-342) to a model's state_dict under its own (torch) keys; the
 spectral fc_norm's ``fc_norm.weight_u`` / ``fc_norm.weight_v`` are
@@ -30,7 +34,8 @@ are ``torch.save`` files named as the reference BEiT names them,
 ``checkpoint-{epoch}.pth`` and ``checkpoint-best.pth``, holding
 {"model", "optimizer", "step", "epoch", "model_ema"}; the cyclical state's
 EMA teacher is its "model_ema" (``train.engine_cyclical.CyclicalState``).
-"model" is the state dict under the reference's torch names, so
+``save_weights`` writes a model's weights alone (the dVAE trainer's
+``checkpoint-dvae-weights.pth``). "model" is the state dict under the reference's torch names, so
 ``load_torch_state_dict`` and --finetune read a port checkpoint as they
 read a reference ``.pth``.
 """
@@ -80,6 +85,9 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
         return None
     if parts[0] in ("head", "lm_head"):
         return _head_key(parts[0], parts[1:])
+    if parts[0] in _JOINT_HEADS:
+        # the MIM / joint heads (JAX :163-171)
+        return _dense(_JOINT_HEADS[parts[0]], name)
     if parts[0] in ("norm", "fc_norm"):
         return f"{parts[0]}.{'weight' if name == 'scale' else 'bias'}", "id"
     if parts[0] == "fc_norm_sn":
@@ -90,6 +98,10 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
                 "u": ("fc_norm.weight_u", "id"), "v": ("fc_norm.weight_v", "id")}.get(name)
     return None
 
+
+# the joint model's heads (models/mim.py: lm_head is Sequential(fc1, GELU, fc2))
+_JOINT_HEADS = {"beit_head": "beit_head", "lm_head_fc1": "lm_head.0",
+                "lm_head_fc2": "lm_head.2"}
 
 # the SNGP head's leaves (params, 'sngp_frozen', 'sngp_state') → the
 # reference SNGP module's names (modeling_finetune.py:525-638)
@@ -161,6 +173,75 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _dvae_key_for(path: Tuple[str, ...], num_layers: int) -> Tuple[str, str]:
+    """A JAX DiscreteVAE param path → (torch key, transform) in the
+    reference's Sequential layout (JAX :372-409); transform 'conv_w' (HWIO →
+    OIHW), 'deconv_w' (TorchConvTranspose's pre-flipped HWIO kernel → torch
+    ConvTranspose2d's [in, out, kh, kw]) or 'id'."""
+    head, name = path[0], path[-1]
+    if head == "codebook":
+        return "codebook.weight", "id"
+    tname = "weight" if name == "kernel" else "bias"
+    for side, prefix in (("enc", "encoder"), ("dec", "decoder")):
+        m = re.fullmatch(rf"{side}_conv_(\d+)", head)
+        if m:
+            kernel = "conv_w" if side == "enc" else "deconv_w"
+            return f"{prefix}.{2 * int(m.group(1))}.0.{tname}", kernel if name == "kernel" else "id"
+        m = re.fullmatch(rf"{side}_res_(\d+)", head)
+        if m:
+            slot = {"conv1": 0, "conv2": 2, "conv3": 4}[path[1]]
+            return (f"{prefix}.{2 * int(m.group(1)) + 1}.net.{slot}.{tname}",
+                    "conv_w" if name == "kernel" else "id")
+        if head == f"{side}_head":
+            return f"{prefix}.{2 * num_layers}.{tname}", "conv_w" if name == "kernel" else "id"
+    raise KeyError(f"no DiscreteVAE parameter for JAX param {'/'.join(path)}")
+
+
+def _dalle_key_for(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """A JAX DalleEncoder / DalleDecoder param path → (dall_e key, transform)
+    (JAX :450-465): ``w`` OIHW, ``b``."""
+    suffix, tf = ("w", "conv_w") if path[-1] == "kernel" else ("b", "id")
+    mod = path[0]
+    if mod == "input_conv":
+        return f"blocks.input.{suffix}", tf
+    if mod == "output_conv":
+        return f"blocks.output.conv.{suffix}", tf
+    m = re.fullmatch(r"group_(\d+)_block_(\d+)", mod)
+    if m is None:
+        raise KeyError(f"no dall_e parameter for JAX param {'/'.join(path)}")
+    inner = "id_path" if path[1] == "id_conv" else f"res_path.{path[1]}"
+    return f"blocks.group_{m.group(1)}.block_{m.group(2)}.{inner}.{suffix}", tf
+
+
+def _tokenizer_state_dict(model: nn.Module, params: Mapping) -> Optional[Dict[str, torch.Tensor]]:
+    """A JAX tokenizer's params as the port's tokenizer's state dict, or None
+    when ``model`` is no tokenizer."""
+    from uncertainty_vit_tpu_torch.models.dalle_vae import DalleDecoder, DalleEncoder, DalleVAE
+    from uncertainty_vit_tpu_torch.models.dvae import DiscreteVAE
+
+    if isinstance(model, DiscreteVAE):
+        def key_for(path):
+            return _dvae_key_for(path, model.num_layers)
+    elif isinstance(model, DalleVAE):
+        def key_for(path):  # encoder/... and decoder/... subtrees
+            key, tf = _dalle_key_for(path[1:])
+            return f"{path[0]}.{key}", tf
+    elif isinstance(model, (DalleEncoder, DalleDecoder)):
+        key_for = _dalle_key_for
+    else:
+        return None
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        key, tf = key_for(path)
+        v = np.asarray(leaf, dtype=np.float32)
+        if tf == "conv_w":
+            v = v.transpose(3, 2, 0, 1)
+        elif tf == "deconv_w":  # the inverse of v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+        out[key] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
 def load_flax_params(model: nn.Module, params: Mapping,
                      collections: Optional[Mapping] = None) -> nn.Module:
     """Load a JAX VisionTransformer's params (``variables["params"]``, as
@@ -168,7 +249,13 @@ def load_flax_params(model: nn.Module, params: Mapping,
     ``collections`` holds the model's other variable collections
     ('spectral_stats', 'sngp_frozen', 'sngp_state' of the SNGP model; a
     whole ``variables`` dict may be passed, its "params" are skipped): they
-    fill the buffers of the same leaves."""
+    fill the buffers of the same leaves. The image tokenizers (a
+    ``models.dvae.DiscreteVAE``, a ``models.dalle_vae.DalleVAE`` or its
+    encoder or decoder) take their JAX counterparts' params the same way."""
+    state = _tokenizer_state_dict(model, params)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+        return model
     state = flax_to_state_dict(params)
     for name, tree in (collections or {}).items():
         if name != "params":
@@ -378,6 +465,40 @@ def import_torch_state_dict(
     return state, missing, [k for k in sd if k not in used]
 
 
+def load_dalle_pickle_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of an OpenAI dall_e ``encoder.pkl`` / ``decoder.pkl``
+    (a pickled module) without the dall_e package (JAX :521-559): stand-in
+    ``nn.Module`` classes under the ``dall_e.*`` module paths the pickle
+    names let it rebuild the object graph. ``sys.modules`` is left as it
+    was found, whether the load succeeds or fails; a ``dall_e`` module that
+    is installed is used as it is. ``weights_only=False``: load only files
+    you trust."""
+    import sys
+    import types
+
+    stand_ins = {"dall_e": (), "dall_e.utils": ("Conv2d",),
+                 "dall_e.encoder": ("Encoder", "EncoderBlock"),
+                 "dall_e.decoder": ("Decoder", "DecoderBlock")}
+    saved = {name: sys.modules.get(name) for name in stand_ins}
+    try:
+        for name, classes in stand_ins.items():
+            if saved[name] is None:
+                module = types.ModuleType(name)
+                for cls in classes:
+                    setattr(module, cls, type(cls, (nn.Module,), {}))
+                sys.modules[name] = module
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    return {k: v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in sd.items()}
+
+
 # ---------------------------------------------------------------------------
 # The port's own checkpoints
 # ---------------------------------------------------------------------------
@@ -390,9 +511,11 @@ def checkpoint_path(output_dir: str, tag) -> str:
 
 
 def save_checkpoint(output_dir: str, tag, state, epoch: int) -> str:
-    """Write a train state (``train.engine_finetune.FinetuneState`` or
-    ``train.engine_cyclical.CyclicalState``: model, optimizer, step, EMA or
-    teacher) after ``epoch`` to output_dir/checkpoint-{tag}.pth
+    """Write a train state (``train.engine_finetune.FinetuneState``,
+    the MIM pretrainer's and the dVAE trainer's too, or
+    ``train.engine_cyclical.CyclicalState``, the joint pretrainer's too:
+    model, optimizer, step, and the EMA or teacher where it has one) after ``epoch`` to
+    output_dir/checkpoint-{tag}.pth
     (an epoch number or "best"); the file appears whole or not at all."""
     path = checkpoint_path(output_dir, tag)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -403,6 +526,19 @@ def save_checkpoint(output_dir: str, tag, state, epoch: int) -> str:
             "step": int(state.step), "epoch": int(epoch), "model_ema": cpu(state.model_ema)}
     tmp = path + ".tmp"
     torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_weights(output_dir: str, tag, model: nn.Module) -> str:
+    """Write a model's weights alone, {"model": state_dict}, to
+    output_dir/checkpoint-{tag}.pth (the dVAE trainer's
+    ``checkpoint-dvae-weights.pth``, which the pretrainers read through
+    --discrete_vae_weight_path); ``load_torch_state_dict`` reads it."""
+    path = checkpoint_path(output_dir, tag)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, tmp)
     os.replace(tmp, path)
     return path
 
