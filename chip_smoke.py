@@ -329,6 +329,25 @@ kernels from the sources in this checkout, then:
            attention; (d) (b)'s checkpoint-2.pth through cli.finetune
            --finetune --eval (K1 24): the keys import_torch_state_dict gives
            on the CPU. Prints the rates beside phases 4 and 20.
+  phase 22 the dist (mean+covariance) model through the drivers over 1024
+           seeded 32x32 CIFAR-100 images from seeded weights, K1-K8 never
+           launched: (a) cli.finetune --stochastic training of
+           dist_beit_base_patch16_224 at the finetune recipe (RECIPES.md:35-45:
+           batch 128, lr 4e-3, layer decay 0.65, drop-path 0.2, mixup 0.8,
+           cutmix 1.0, weight decay 0) from a seeded .pth, 2 epochs of 4
+           triplet steps and their evaluations: finite losses, log.txt,
+           checkpoints, a step under sync debug mode; step 0's loss, CE,
+           Wasserstein term and grad norm on a sub-batch of 32 (the driver's
+           weights, transforms, mixup and draws) in bf16 and f32 against a
+           float64 copy (DIST_* bounds); the distance's two products at
+           [128, 12, 197, 64] against float64 with TF32 on in the process;
+           step ms by CUDA events, the rate, peak memory. (b) --eval
+           --stochastic of its checkpoint: dist_eval's metrics and the rate.
+           (c) cli.pretrain_cyclical --stochastic at the cyclical recipe
+           (phase 20's, layer scale 1e-4, --post_target_layer_norm,
+           lambda_pretraining 1e-5), an epoch of 4 steps: the teacher's mean
+           and cov targets and step 0's terms on a sub-batch against float64;
+           the rate beside phase 20's.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -5826,6 +5845,459 @@ def phase21(torch, FA, dev, step_rates, cyclical_rates):
     return paths
 
 
+# Phase 22: the dist (mean+covariance) model's step 0 on a sub-batch,
+# against a float64 copy of the model on the card (the same weights, inputs
+# and drop-path / dropout draws): the bf16 step within phase 4's loss and
+# grad-norm bounds, its Wasserstein term (max-normalized sums over the
+# batch, a small difference of bf16 distances) within 5e-2; an f32 copy
+# within 1e-4 (loss, terms) and 1e-3 (grad norm, f32 sums over 1e8
+# products). The teacher's targets (layer-normed, O(1)): bf16 within 5e-2,
+# f32 within 1e-4 (max abs). The attention's distance products at
+# [128, 12, 197, 64] in f32 with TF32 requested by the process: within 1e-5
+# of float64 relative to the largest distance (TF32 would give ~1e-3).
+DIST_SUB = 32
+DIST_WASS_REL_BOUND = 5e-2
+DIST_F32_REL_BOUND = 1e-4
+DIST_F32_GRAD_NORM_REL_BOUND = 1e-3
+DIST_TARGET_ATOL = {"bfloat16": 5e-2, "float32": 1e-4}
+DIST_DISTANCE_REL_BOUND = 1e-5
+
+
+def dist_copies(torch, snapshot, cls, cfg, dev):
+    """{dtype name: a copy of the model of ``snapshot``'s weights} in bf16
+    (the drivers' compute dtype), f32 and float64 (parameters in float64)."""
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32),
+                        ("float64", torch.float64)):
+        m = cls(cfg, dtype, device=dev)
+        m.load_state_dict(snapshot, strict=True)
+        out[name] = m.double() if dtype == torch.float64 else m
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase22(torch, FA, dev, step_rates, cyclical_rates):
+    """The dist (mean+covariance) model through the drivers on the card
+    (22a cli.finetune --stochastic training at the finetune recipe, 22b
+    --eval --stochastic of its checkpoint, 22c cli.pretrain_cyclical
+    --stochastic at the cyclical recipe), over seeded 32x32 CIFAR-100
+    images from seeded weights: no kernel of the port launched; step 0 on a
+    sub-batch against a float64 copy; a step under sync debug mode; the
+    distance's products against float64; rates beside phases 4 and 20.
+    Returns the launches of each path."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.cli import pretrain_cyclical as PC
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.evals import metrics as EM
+    from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT, DistVisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import losses as L
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
+    from uncertainty_vit_tpu_torch.train import engine_cyclical as EC
+    from uncertainty_vit_tpu_torch.train.engine_finetune import step_generators, step_seeds
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+    n_train, n_test, bs, spe = 1024, 256, 128, 4
+    rs = np.random.RandomState(22)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+    zero = {k: 0 for k in kernel_counts(FA, TQ, DO)}
+    paths = {}
+
+    # what the drivers do, seen through their entry points: each call of a
+    # train step (launches, CUDA events, metrics; at step 0 the weights and
+    # the batch; one step under sync debug mode), each evaluation, each import
+    steps, evals, imports, captured = [], [], [], {}
+    watch = {"sync_check": None}
+    make_ft, make_cyc = FT.make_dist_finetune_train_step, PC.make_cyclical_train_step
+    evaluate_dist, import_sd = FT.E.evaluate_dist, C.import_torch_state_dict
+
+    def recording(make):
+        def make_step(model, *a, **k):
+            step = make(model, *a, **k)
+            captured["make"] = (a, k)
+            captured["model"] = (type(model), model.cfg)
+
+            def recorded(state, *args):
+                if state.step == 0:
+                    captured["snapshot"] = {n: v.detach().clone()
+                                            for n, v in model.state_dict().items()}
+                    captured["args"] = [x.clone() if isinstance(x, torch.Tensor) else x
+                                        for x in args]
+                before = kernel_counts(FA, TQ, DO)
+                checked = state.step == watch["sync_check"]
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                r = {"step": state.step, "t": time.perf_counter(), "sync_checked": checked}
+                start.record()
+                if checked:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m = step(state, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                end.record()
+                after = kernel_counts(FA, TQ, DO)
+                r.update(metrics=m, events=(start, end),
+                         launches={n: after[n] - before[n] for n in after})
+                steps.append(r)
+                return m
+
+            return recorded
+
+        return make_step
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = evaluate_dist(*a, **k)
+        torch.cuda.synchronize()
+        evals.append({"t": t, "ms": (time.perf_counter() - t) * 1000, "out": out})
+        return out
+
+    def recording_import(sd, template, *a, **k):
+        result = import_sd(sd, template, *a, **k)
+        imports.append(result[1:])
+        return result
+
+    def counted(path, fn, *a, **k):
+        reset_kernel_counts(FA, TQ, DO)
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        paths[path] = kernel_counts(FA, TQ, DO)
+        print(f"  {path}: launches {paths[path]}", flush=True)
+        check(paths[path] == zero, f"{path} launched a kernel of the port: {paths[path]}")
+        return out
+
+    def finite(records, keys, what):
+        for r in records:
+            for k in keys:
+                check(math.isfinite(float(r["metrics"][k])),
+                      f"{what}: step {r['step']} {k} {float(r['metrics'][k])}")
+            check(r["launches"] == zero, f"{what}: step {r['step']} launched {r['launches']}")
+
+    def step_ms(records):
+        return [round(r["events"][0].elapsed_time(r["events"][1]), 2) for r in records]
+
+    def against_f64(got, want, what, bounds):
+        for k, b in bounds.items():
+            err = _rel(got[k], want[k])
+            print(f"    {what} {k}: {got[k]:.8g} vs float64 {want[k]:.8g}, relative {err:.3e} "
+                  f"(bound {b})", flush=True)
+            check(err <= b, f"{what}'s {k} disagrees with the float64 copy's")
+
+    FT.make_dist_finetune_train_step = recording(make_ft)
+    PC.make_cyclical_train_step = recording(make_cyc)
+    FT.E.evaluate_dist, C.import_torch_state_dict = timed_evaluate, recording_import
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+            pth = os.path.join(tmp, "dist.pth")
+            gen = torch.Generator(device=dev).manual_seed(220)
+            seeded = DistVisionTransformer(cfg, torch.bfloat16, device=dev, generator=gen)
+            trunc_normal(0.2, 2.0)(seeded.rel_pos_bias.relative_position_bias_table, gen)
+            trunc_normal(0.5, 2.0)(seeded.head.weight, gen)
+            n_params = sum(p.numel() for p in seeded.parameters())
+            torch.save({"model": {k: v.cpu() for k, v in seeded.state_dict().items()}}, pth)
+            del seeded
+            out = os.path.join(tmp, "out")
+
+            # ---------------- 22a: --stochastic training ----------------
+            t22 = time.perf_counter()
+            # the finetune recipe (RECIPES.md:35-45) plus --stochastic, 2
+            # epochs of 4 steps at its per-GPU batch
+            args = FT.get_args_parser().parse_args([
+                "--model", "dist_beit_base_patch16_224", "--stochastic", "--input_size", "224",
+                "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                "--num_workers", "8", "--finetune", pth, "--output_dir", out,
+                "--steps_per_epoch", str(spe), "--epochs", "2", "--save_ckpt_freq", "2",
+                "--lr", "4e-3", "--update_freq", "1", "--warmup_epochs", "10",
+                "--layer_decay", "0.65", "--drop_path", "0.2", "--drop", "0.0",
+                "--weight_decay", "0.0", "--mixup", "0.8", "--cutmix", "1.0",
+                "--nb_classes", "100", "--target_layer", "-1"])
+            watch["sync_check"] = 1
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = counted("cli11_dist_train", FT.main, args)
+            main_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            watch["sync_check"] = None
+            run1, eval1 = list(steps), list(evals)
+            keys = ("loss", "ce_loss", "wasserstein_loss", "grad_norm")
+            check(len(run1) == 2 * spe and state.step == 2 * spe,
+                  f"{len(run1)} step calls, state step {state.step}")
+            finite(run1, keys, "--stochastic training")
+            check(any(r["sync_checked"] for r in run1), "the step under sync debug mode did not run")
+            check(len(imports) == 1 and imports[0] == ([], []),
+                  f"the .pth import's missing / unused: {imports}")
+            with open(os.path.join(out, "log.txt")) as f:
+                log = [json.loads(line) for line in f]
+            check([r["epoch"] for r in log] == [0, 1]
+                  and all("train_wasserstein_loss" in r and "test_acc1" in r
+                          and "test_loss" not in r for r in log), f"log.txt: {log}")
+            for name in ("checkpoint-1.pth", "checkpoint-best.pth"):
+                check(os.path.isfile(os.path.join(out, name)), f"{name} was not written")
+            torch.cuda.synchronize()
+            rates = [spe * bs / (eval1[e]["t"] - run1[e * spe]["t"]) for e in range(2)]
+            ms = step_ms(run1)
+            print("  losses " + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in run1)
+                  + "; CE " + ", ".join(f"{float(r['metrics']['ce_loss']):.5f}" for r in run1)
+                  + "; Wasserstein " + ", ".join(f"{float(r['metrics']['wasserstein_loss']):.4e}"
+                                                 for r in run1)
+                  + "; grad norms " + ", ".join(f"{float(r['metrics']['grad_norm']):.4f}"
+                                               for r in run1), flush=True)
+            print(f"  {n_params} parameters; a step by CUDA events (host call to the end of its "
+                  f"work; epoch 0's first includes the warm-up) {ms} ms; driver rate from images "
+                  f"(information only; host clock over an epoch's {spe} steps) {rates} img/s; "
+                  f"phase 4's finetune step-only rate in this call {step_rates['kernel']} img/s; "
+                  f"each epoch's evaluation of {n_test} images "
+                  f"{[round(e['ms'], 2) for e in eval1]} ms; peak memory at batch {bs} "
+                  f"{peak_gb:.2f} GiB; main() {main_s:.2f} s; step 1 ran under "
+                  f"set_sync_debug_mode('error')", flush=True)
+
+            # step 0 on a sub-batch against float64: the driver's weights
+            # before step 0, the first DIST_SUB images of its batch through
+            # its own transforms and mixup, the draws of its generators
+            (_, hp, *_), hooks = captured["make"]
+            aug_fn, prep_fn = hooks["aug_fn"], hooks["prep_fn"]
+            images_u8, pos_u8, neg_u8, labels = captured["args"][:4]
+            snapshot = captured.pop("snapshot")
+            gens = step_generators(args.seed, 0, dev)
+            sub = slice(0, DIST_SUB)
+            images = aug_fn(gens.augment, images_u8[sub], None)
+            pos, neg = prep_fn(pos_u8[sub]), prep_fn(neg_u8[sub])
+            images, targets = mixup_cutmix(gens.mix, images, labels[sub], hp.num_classes,
+                                           hp.mixup_alpha, hp.cutmix_alpha, hp.mixup_prob,
+                                           hp.mixup_switch_prob, hp.label_smoothing,
+                                           mode=hp.mixup_mode, cutmix_minmax=hp.cutmix_minmax)
+            model_seed = step_seeds(args.seed, 0)[0]  # the step's model generator
+            model_cls, model_cfg = captured.pop("model")
+
+            def finetune_terms(model):
+                acc = L.at_least_f32(model.dtype)
+                g = torch.Generator(device=dev).manual_seed(model_seed)
+                model.train()
+                mean, cov, logits = model(images, generator=g)
+                ce = torch.mean(torch.sum(-targets.to(acc) * torch.log_softmax(
+                    logits.to(acc), dim=-1), dim=-1))
+                with torch.no_grad():
+                    pm, pc, _ = model(pos, deterministic=True)
+                    nm, nc, _ = model(neg, deterministic=True)
+                w = L.wasserstein_finetune_loss(*(t.to(acc) for t in (mean, cov, pm, pc, nm, nc)),
+                                                hp.lambda_finetuning, hp.lambda_pvn)
+                loss = ce + w
+                loss.backward()
+                gn = torch.sqrt(sum((p.grad.to(acc) ** 2).sum() for p in model.parameters()
+                                    if p.grad is not None))
+                return {"loss": float(loss), "ce_loss": float(ce),
+                        "wasserstein_loss": float(w), "grad_norm": float(gn)}
+
+            del state
+            results = {}
+            for name, model in dist_copies(torch, snapshot, model_cls, model_cfg, dev).items():
+                results[name] = finetune_terms(model)
+                del model
+                torch.cuda.empty_cache()
+            print(f"  22a step 0 on a sub-batch of {DIST_SUB} (the driver's weights, transforms, "
+                  f"mixup and draws) against a float64 copy on the card:", flush=True)
+            against_f64(results["bfloat16"], results["float64"], "bf16 (the driver's dtype)",
+                        {"loss": LOSS_REL_BOUND, "ce_loss": LOSS_REL_BOUND,
+                         "wasserstein_loss": DIST_WASS_REL_BOUND,
+                         "grad_norm": GRAD_NORM_REL_BOUND})
+            against_f64(results["float32"], results["float64"], "f32",
+                        {"loss": DIST_F32_REL_BOUND, "ce_loss": DIST_F32_REL_BOUND,
+                         "wasserstein_loss": DIST_F32_REL_BOUND,
+                         "grad_norm": DIST_F32_GRAD_NORM_REL_BOUND})
+            check(results["float64"]["wasserstein_loss"] > 0, "a zero Wasserstein term")
+
+            # the attention's distance products at the model's shape, TF32
+            # requested by the process: float32 all the same
+            dg = torch.Generator(device=dev).manual_seed(221)
+            qkc = [torch.randn(bs, 12, 197, 64, device=dev, generator=dg) * s
+                   for s in (0.125, 1.0, 1.0, 1.0)]
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                d32 = L.wasserstein_distance_matmul(*qkc)
+                m1 = torch.sigmoid(qkc[0])
+                tf32_err = float(((m1 @ m1.transpose(-1, -2)).double()
+                                  - m1.double() @ m1.double().transpose(-1, -2)).abs().max())
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+            d64 = L.wasserstein_distance_matmul(*(t.double() for t in qkc))
+            derr = float((d32.double() - d64).abs().max() / d64.abs().max())
+            dist_ms = cuda_ms(lambda: L.wasserstein_distance_matmul(*qkc), 5)
+            print(f"  the distance at [{bs}, 12, 197, 64] with TF32 on in the process: "
+                  f"max|f32 - float64| / max|float64| {derr:.3e} (bound "
+                  f"{DIST_DISTANCE_REL_BOUND}); one product under TF32 would differ by up to "
+                  f"{tf32_err:.3e} (information); the distance's forward {dist_ms:.3f} ms",
+                  flush=True)
+            check(derr <= DIST_DISTANCE_REL_BOUND, "the distance's products are not float32's")
+            del qkc, d32, d64, m1
+            print(f"  22a took {time.perf_counter() - t22:.1f} s", flush=True)
+
+            # ---------------- 22b: --eval --stochastic ----------------
+            t22 = time.perf_counter()
+            evals.clear()
+            imports.clear()
+            res = counted("cli11_dist_eval", FT.main, FT.get_args_parser().parse_args([
+                "--model", "dist_beit_base_patch16_224", "--stochastic", "--eval",
+                "--input_size", "224", "--data_set", "CIFAR100", "--data_path", tmp,
+                "--batch_size", str(bs), "--num_workers", "8", "--nb_classes", "100",
+                "--finetune", os.path.join(out, "checkpoint-1.pth"),
+                "--output_dir", os.path.join(tmp, "eval")]))
+            metrics = res["dist_eval"]
+            check(set(metrics) == set(EM.classification_metrics(
+                torch.zeros(2, 3), torch.zeros(2, dtype=torch.int64)))
+                and all(math.isfinite(v) for v in metrics.values()), f"dist_eval: {metrics}")
+            check(imports == [([], [])], f"checkpoint-1.pth's import: {imports}")
+            eval_rate = n_test * 1000 / evals[0]["ms"]
+            print(f"  22b --eval --stochastic of checkpoint-1.pth over {n_test} images: "
+                  f"{eval_rate:.1f} img/s (host clock around the evaluation, the transform "
+                  f"included); dist_eval {json.dumps({k: round(v, 5) for k, v in metrics.items()})}"
+                  f"; took {time.perf_counter() - t22:.1f} s", flush=True)
+
+            # ---------------- 22c: cli.pretrain_cyclical --stochastic ------------
+            t22 = time.perf_counter()
+            steps.clear()
+            captured.clear()
+            pargs = PC.get_args_parser().parse_args([
+                "--model", "beit_base_patch16_224", "--stochastic", "--input_size", "224",
+                "--data_set", "CIFAR100", "--data_path", tmp, "--batch_size", str(bs),
+                "--num_workers", "8", "--output_dir", os.path.join(tmp, "pre"),
+                "--steps_per_epoch", str(spe), "--epochs", "1", "--no_save_ckpt",
+                "--num_mask_patches", "120", "--target_layers", "[6,7,8,9,10,11]",
+                "--ema_decay", "0.9998", "--ema_start_at", "0", "--ema_decay_init", "0.999",
+                "--lr", "2e-3", "--warmup_epochs", "10", "--clip_grad", "3.0",
+                "--drop_path", "0.25", "--layer_scale_init_value", "1e-4",
+                "--layer_results", "end", "--max_mask_patches_per_block", "196",
+                "--min_mask_patches_per_block", "16", "--l1_beta", "2.0",
+                "--weight_decay", "0.05", "--imagenet_default_mean_and_std", "True",
+                "--loss_scale", "-1", "--mask_dropout_prob", "-1.0",
+                "--post_target_layer_norm", "--attn_drop_rate", "0.05",
+                "--lambda_pretraining", "1e-5"])
+            watch["sync_check"] = 1
+            t0 = time.perf_counter()
+            pstate = counted("cli11_cyclical_train", PC.main, pargs)
+            main_s = time.perf_counter() - t0
+            watch["sync_check"] = None
+            check(len(steps) == spe and pstate.step == spe, f"{len(steps)} cyclical steps")
+            finite(steps, ("loss", "loss_cyc", "grad_norm"), "--stochastic pretraining")
+            check(any(r["sync_checked"] for r in steps), "no cyclical step under sync debug mode")
+            check(isinstance(pstate.model, DistCyclicalViT)
+                  and isinstance(pstate.teacher, DistCyclicalViT), "the cyclical models")
+            torch.cuda.synchronize()
+            cms = step_ms(steps)
+            with open(os.path.join(tmp, "pre", "log.txt")) as f:
+                plog = [json.loads(line) for line in f]
+            check(len(plog) == 1 and "train_loss" in plog[0], f"the cyclical log.txt: {plog}")
+            # the host clock from step 1's call to main()'s return (the card
+            # synchronized): steps 1-3, the first call's warm-up left out
+            prate = (spe - 1) * bs / (t0 + main_s - steps[1]["t"])
+            print("  losses " + ", ".join(f"{float(r['metrics']['loss']):.6f}" for r in steps)
+                  + "; loss_cyc " + ", ".join(f"{float(r['metrics']['loss_cyc']):.6f}"
+                                              for r in steps)
+                  + f"; a step by CUDA events {cms} ms (step 0 includes the warm-up); "
+                  f"{bs * 1000 / min(cms[1:]):.1f} img/s at the fastest step; steps 1-{spe - 1} "
+                  f"to main()'s return by the host clock {prate:.1f} img/s (information only, "
+                  f"an upper bound on their time) beside phase 20's driver rates "
+                  f"{cyclical_rates}; main() {main_s:.2f} s", flush=True)
+
+            # step 0 on a sub-batch against float64: the teacher's targets
+            # (mean through the whole pipeline, cov through the layer norms)
+            # and the student's loss terms and gradient norm
+            (_, chp, *rest), _ = captured["make"]
+            aug_fn = rest[2]
+            images_u8, masks = captured["args"][:2]
+            snapshot = captured.pop("snapshot")
+            gens = EC.step_generators(pargs.seed, 0, dev)
+            images = aug_fn(gens.augment, images_u8[sub], None)
+            mask = masks[sub].float()
+            check(not (chp.target_batch_norm or chp.target_instance_norm
+                       or chp.post_target_instance_norm) and chp.mask_dropout_prob <= 0,
+                  "the recipe's targets take the layer norms only")
+            cseed = step_seeds(pargs.seed, 0)[0]
+            model_cls, model_cfg = captured.pop("model")
+
+            def ln(x):
+                var, mu = torch.var_mean(x, dim=-1, correction=0, keepdim=True)
+                return (x - mu) / torch.sqrt(var + 1e-5)
+
+            def cyclical_terms(model):
+                acc = L.at_least_f32(model.dtype)
+                with torch.no_grad():
+                    mean_z, cov_z = model(images, None, deterministic=True, layer_results="end")
+
+                    def targets_of(zs):
+                        vals = [ln(zs[i].to(acc)) for i in chp.target_layers]
+                        return ln(sum(vals) / len(vals))
+
+                    tm, tc = targets_of(mean_z), targets_of(cov_z)
+                g = torch.Generator(device=dev).manual_seed(cseed)
+                model.train()
+                out_m, out_c = (t.to(acc) for t in model(images, mask, generator=g))
+                diff = (out_m - tm).abs()
+                elem = torch.where(diff < chp.l1_beta, 0.5 * diff * diff / chp.l1_beta,
+                                   diff - 0.5 * chp.l1_beta)
+                loss_cyc = (elem * mask[..., None]).sum() / (mask.sum() * elem.shape[-1])
+                c = out_m.shape[-1]
+                w = L.wasserstein_pretrain_loss(out_m.reshape(-1, c), out_c.reshape(-1, c),
+                                                tm.reshape(-1, c), tc.reshape(-1, c),
+                                                chp.lambda_pretraining, mask=mask)
+                loss = loss_cyc + w
+                loss.backward()
+                gn = torch.sqrt(sum((p.grad.to(acc) ** 2).sum() for p in model.parameters()
+                                    if p.grad is not None))
+                return ({"loss": float(loss), "loss_cyc": float(loss_cyc),
+                         "wasserstein": float(w), "grad_norm": float(gn)},
+                        tm.double(), tc.double())
+
+            del pstate
+            cres = {}
+            for name, model in dist_copies(torch, snapshot, model_cls, model_cfg, dev).items():
+                cres[name] = cyclical_terms(model)
+                del model
+                torch.cuda.empty_cache()
+            print(f"  22c step 0 on a sub-batch of {DIST_SUB} against a float64 copy on the card "
+                  f"(the teacher is the student's copy at step 0):", flush=True)
+            want, tm64, tc64 = cres["float64"]
+            for name in ("bfloat16", "float32"):
+                got, tm, tc = cres[name]
+                for what, t, t64 in (("mean", tm, tm64), ("cov", tc, tc64)):
+                    err = float((t - t64).abs().max())
+                    print(f"    {name} teacher's {what} targets: max|diff| from float64 "
+                          f"{err:.3e} (bound {DIST_TARGET_ATOL[name]}; max|target| "
+                          f"{float(t64.abs().max()):.3f})", flush=True)
+                    check(err <= DIST_TARGET_ATOL[name],
+                          f"the {name} teacher's {what} targets disagree with float64")
+            against_f64(cres["bfloat16"][0], want, "bf16 (the driver's dtype)",
+                        {"loss": LOSS_REL_BOUND, "loss_cyc": LOSS_REL_BOUND,
+                         "wasserstein": DIST_WASS_REL_BOUND, "grad_norm": GRAD_NORM_REL_BOUND})
+            against_f64(cres["float32"][0], want, "f32",
+                        {"loss": DIST_F32_REL_BOUND, "loss_cyc": DIST_F32_REL_BOUND,
+                         "wasserstein": DIST_F32_REL_BOUND,
+                         "grad_norm": DIST_F32_GRAD_NORM_REL_BOUND})
+            check(want["wasserstein"] > 0, "a zero Wasserstein pretraining term")
+            print(f"  22c took {time.perf_counter() - t22:.1f} s", flush=True)
+    finally:
+        FT.make_dist_finetune_train_step, PC.make_cyclical_train_step = make_ft, make_cyc
+        FT.E.evaluate_dist, C.import_torch_state_dict = evaluate_dist, import_sd
+        torch.cuda.set_sync_debug_mode(0)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5904,6 +6376,9 @@ def main() -> int:
                     "tokenizer (two epochs, a step on the plain attention, a resumed third, an "
                     "int8 step), joint cyclical+BEiT, the hand-off to cli.finetune", phase21,
                 torch, FA, dev, step_rates, cyclical_rates)
+    cli11 = run(22, "the dist (mean+covariance) model through the drivers: --stochastic "
+                    "training, --eval --stochastic, cyclical --stochastic; step 0 against "
+                    "float64", phase22, torch, FA, dev, step_rates, cyclical_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -5927,6 +6402,9 @@ def main() -> int:
     # ("cli10_"): the MIM driver's two epochs of 4 steps, its resumed third
     # and an int8 step, the joint driver's two epochs, the finetune driver's
     # --eval of the MIM checkpoint (the dVAE trainer launches none)
+    # and phase 22's ("cli11_"): the dist model's training, evaluation and
+    # cyclical pretraining, which launch no kernel of the port
+    dist_paths = {path: dict(n) for path, n in cli11.items()}
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
@@ -5935,24 +6413,30 @@ def main() -> int:
                 **{path: n["K1"] for path, n in cli_train.items()},
                 **{path: n["K1"] for path, n in cli8.items()},
                 **{path: n["K1"] for path, n in cli9.items()},
-                **{path: n["K1"] for path, n in cli10.items() if n["K1"]}}
+                **{path: n["K1"] for path, n in cli10.items() if n["K1"]},
+                **{path: n["K1"] for path, n in dist_paths.items()}}
     k2_paths = {"train_step": train["bwd"], "train_step_attn_drop": train_drop["bwd"],
                 "int8_train_step": int8["int8_train_step"]["K2"],
                 **{path: n["K2"] for path, n in cli_train.items()},
                 **{path: n["K2"] for path, n in cli8.items() if n["K2"]},
                 **{path: n["K2"] for path, n in cli9.items() if n["K2"]},
-                **{path: n["K2"] for path, n in cli10.items() if n["K2"]}}
+                **{path: n["K2"] for path, n in cli10.items() if n["K2"]},
+                **{path: n["K2"] for path, n in dist_paths.items()}}
     k6_paths = {path: n["K6"] for path, n in {**int8, **cli, **cli_train, **cli9, **cli10}.items()
                 if n["K6"]}
     k7_paths = {path: n["K7"] for path, n in {**int8, **cli_train, **cli9, **cli10}.items()
                 if n["K7"]}
     k8_paths = {path: n["K8"] for path, n in {**mc, **cli, **cli8}.items() if n["K8"]}
+    for kpaths, key in ((k6_paths, "K6"), (k7_paths, "K7"), (k8_paths, "K8")):
+        kpaths.update({path: n[key] for path, n in dist_paths.items()})
     # and phase 18's ("cli7c_"): ViT-B/16 384 trained (4 mini-steps and an
     # evaluation of 2 batches; 2 pair mini-steps), ViT-L/16 384 evaluated
     k3_paths = {f"large_{path}": n["K3"] for path, n in large.items()}
     k3_paths.update({path: n["K3"] for path, n in cli7c.items() if n["K3"]})
     k4_paths = {f"large_{path}": n["K4"] for path, n in large.items() if n["K4"]}
     k4_paths.update({path: n["K4"] for path, n in cli7c.items() if n["K4"]})
+    k3_paths.update({path: n["K3"] for path, n in dist_paths.items()})
+    k4_paths.update({path: n["K4"] for path, n in dist_paths.items()})
     for n_ in large.values():
         check(n_["K1"] == 0 and n_["K2"] == 0, "a ViT-L/16 512 path launched K1 or K2")
     # phase 15's paths ("seq2_large_": ViT-L/16 512 over two ranks), summed
@@ -5963,6 +6447,7 @@ def main() -> int:
     # over 8 batches, summed over the ranks
     seq7c = {path: n for path, n in cli7c.items() if n["K5"]}
     k5_paths.update({path: n["K5"] + n["K5_bwd"] for path, n in seq7c.items()})
+    k5_paths.update({path: n["K5"] + n["K5_bwd"] for path, n in dist_paths.items()})
     pkg = "uncertainty_vit_tpu_torch/csrc/"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",

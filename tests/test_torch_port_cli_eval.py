@@ -29,6 +29,8 @@ import torch
 import uncertainty_vit_tpu.ops.flash_attention as JFA
 from uncertainty_vit_tpu.cli import finetune as JFT
 from uncertainty_vit_tpu.models import registry as JREG
+from uncertainty_vit_tpu.models.dist_vit import DistCyclicalViT as JDistCyclical
+from uncertainty_vit_tpu.models.dist_vit import DistVisionTransformer as JDistViT
 from uncertainty_vit_tpu_torch.cli import builders as TB
 from uncertainty_vit_tpu_torch.cli import common as TCOMMON
 from uncertainty_vit_tpu_torch.cli import finetune as TFT
@@ -36,6 +38,7 @@ from uncertainty_vit_tpu_torch.core.config import get_preset
 from uncertainty_vit_tpu_torch.core.init import trunc_normal
 from uncertainty_vit_tpu_torch.models import registry as TREG
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
+from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT, DistVisionTransformer
 from uncertainty_vit_tpu_torch.models.mim import JointViT, MIMViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
@@ -239,7 +242,7 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
 SEQ_NOT_PORTED = ["--sngp", "--gp_layer", "--het_layer", "--corrupted_data", "--perturbed_data",
                   "--laplace", "--temp_scaling", "--visualize_embedding"]
 NOT_PORTED = [
-    ["--stochastic"], ["--sinkformer"],
+    ["--sinkformer"],
     ["--gumbel_softmax"], ["--h_sto_trans"], ["--seq_parallel", "2", "--mc_dropout"],
     *[["--seq_parallel", "2", flag] for flag in SEQ_NOT_PORTED],
     ["--ensembles", "--ensemble_checkpoints", "member_dir"],
@@ -352,8 +355,9 @@ def test_mc_mean_forward_draws_fresh_masks(files):
 def test_create_model_matches_jax():
     """The registry's finetune, cyclical, MIM and joint families, their
     configs equal to the JAX registry's (a 1-deep ViT-B/16 224 to keep it
-    cheap; the MIM and joint models on the meta device); the dist family
-    raises."""
+    cheap; the MIM, joint and dist models on the meta device); a dist_*
+    name builds the dist models in the finetune and cyclical families, as
+    the JAX registry does."""
     model, cfg = TREG.create_model("beit_base_patch16_224", depth=1, num_classes=10,
                                    device="cpu")
     _, jcfg = JREG.create_model("beit_base_patch16_224", depth=1, num_classes=10)
@@ -369,10 +373,13 @@ def test_create_model_matches_jax():
         _, jcfg = JREG.create_model(name, depth=1)
         assert isinstance(model, cls) and len(model.blocks) == 1
         assert _fields(cfg) == _fields(jcfg) and cfg.head_type == "none"
-    for name, family in (("dist_beit_base_patch16_224", None),
-                         ("dist_beit_base_patch16_224", "cyclical")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TREG.create_model(name, family, device="cpu")
+    for family, cls, jcls in ((None, DistVisionTransformer, JDistViT),
+                              ("cyclical", DistCyclicalViT, JDistCyclical)):
+        model, cfg = TREG.create_model("dist_beit_base_patch16_224", family, depth=1,
+                                       device="meta")
+        jmodel, jcfg = JREG.create_model("dist_beit_base_patch16_224", family, depth=1)
+        assert isinstance(model, cls) and isinstance(jmodel, jcls) and len(model.blocks) == 1
+        assert _fields(cfg) == _fields(jcfg)
     with pytest.raises(ValueError):
         TREG.create_model("vit_tiny", device="cpu")
 

@@ -217,9 +217,8 @@ def test_masks_are_the_host_ops_from_the_step_generator(root, tmp_path, monkeypa
         np.testing.assert_array_equal(masks.numpy(), want)
 
 
-@pytest.mark.parametrize("extra,match", [(["--stochastic"], "slice 11"),
-                                         (["--opt", "adahessian"], "slice 12")],
-                         ids=["stochastic", "adahessian"])
+@pytest.mark.parametrize("extra,match", [(["--opt", "adahessian"], "slice 12")],
+                         ids=["adahessian"])
 def test_unported_flags_raise(root, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         _run(root, tmp_path, "--epochs", "1", *extra)

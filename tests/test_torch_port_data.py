@@ -98,8 +98,13 @@ def test_build_dataset_equals_jax(cifar_root, data_set, is_train, ratio):
 
 
 def test_build_dataset_refuses_what_is_not_ported(cifar_root):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TR.build_dataset(True, "CIFAR100", cifar_root, triplet=True)
+    """An unknown data set raises; triplet=True, ported now, wraps the
+    dataset in the triplet dataset as JAX's does (its negatives are held
+    in tests/test_torch_port_dist.py)."""
+    got, _ = TR.build_dataset(True, "CIFAR100", cifar_root, triplet=True, seed=1)
+    want, _ = JR.build_dataset(True, "CIFAR100", cifar_root, triplet=True, seed=1)
+    assert isinstance(got, TD.TripletDataset) and isinstance(want, JD.TripletDataset)
+    _same_dataset(got, want)
     with pytest.raises(ValueError, match="unknown data_set"):
         TR.build_dataset(False, "MNIST", cifar_root)
 

@@ -386,10 +386,11 @@ def test_pretrain_beit_reads_dall_e_pickles(root, tmp_path, monkeypatch):
     (PB, ["--resume", "x.pth"], ValueError, "--auto_resume"),
     (PB, ["--finetune", "x.pth"], ValueError, "--auto_resume"),
     (PJ, ["--mask_dropout_prob", "0.2"], ValueError, "mask dropout"),
-    (PB, ["--stochastic"], NotImplementedError, "slice 11"),
+    (PB, ["--stochastic"], ValueError, "not read by this driver"),
+    (PJ, ["--stochastic"], ValueError, "not read by this driver"),
     (PB, ["--discrete_vae_weight_path", "dvae_dir"], NotImplementedError, "orbax"),
 ], ids=["beit_adahessian", "joint_adahessian", "beit_resume", "beit_finetune",
-        "joint_mask_dropout", "beit_stochastic", "beit_orbax_dir"])
+        "joint_mask_dropout", "beit_stochastic", "joint_stochastic", "beit_orbax_dir"])
 def test_unported_and_unknown_flags_raise(root, tmp_path, module, extra, error, match):
     with pytest.raises(error, match=match):
         _quiet(module.main, _pre_args(module.get_args_parser(), root, tmp_path, "--epochs", "1",

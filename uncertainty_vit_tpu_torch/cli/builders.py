@@ -29,15 +29,41 @@ from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW, make_optimize
 
 # flag → (what it turns on, where the ROADMAP ports it); a set flag raises
 NOT_PORTED_MODEL_FLAGS = {
-    "stochastic": ("the dist (mean+covariance) model family", "item 19, slice 11"),
     "sinkformer": ("the sinkformer attention", "item 20, slice 12"),
     "gumbel_softmax": ("the Gumbel-softmax attention", "item 20, slice 12"),
     "h_sto_trans": ("the dual stochastic attention", "item 20, slice 12"),
 }
 
 
+INIT_SCALE = 0.001  # --init_scale's default (run_class_finetuning.py:357)
+
+# the model flags the dist (mean+covariance) model does not read: flag →
+# whether it is set. The JAX drivers ignore each under --stochastic
+# (ROADMAP.md §3); ``refuse_unread`` raises for them
+DIST_UNREAD = {
+    "quant": lambda a: a.quant != "none",
+    "abs_pos_emb": lambda a: a.abs_pos_emb,
+    "per_block_rel_pos_bias": lambda a: a.per_block_rel_pos_bias,
+    "dropout_from_block": lambda a: a.dropout_from_block != 0,
+    "sngp": lambda a: a.sngp,
+    "het_layer": lambda a: a.het_layer,
+    "sinkformer": lambda a: a.sinkformer,
+    "gumbel_softmax": lambda a: a.gumbel_softmax,
+    "h_sto_trans": lambda a: a.h_sto_trans,
+}
+
+
 def not_ported(flag: str, what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"--{flag}: {what} is not ported yet (ROADMAP.md {where})")
+
+
+def refuse_unread(args, unread) -> None:
+    """Under --stochastic: ValueError for the first set flag of ``unread``
+    (flag → whether it is set), which the dist model does not read."""
+    for flag, is_set in unread.items():
+        if is_set(args):
+            raise ValueError(f"--{flag} with --stochastic: the dist (mean+covariance) model "
+                             "does not read it (the JAX driver ignores it there)")
 
 
 def add_model_args(p: argparse.ArgumentParser, extra_models: Tuple[str, ...] = ()):
@@ -73,7 +99,7 @@ def add_model_args(p: argparse.ArgumentParser, extra_models: Tuple[str, ...] = (
                    dest="rel_pos_bias",
                    help="reference-style negative of --rel_pos_bias")
     g.add_argument("--abs_pos_emb", default=False, type=ast.literal_eval)
-    g.add_argument("--init_scale", type=float, default=0.001,
+    g.add_argument("--init_scale", type=float, default=INIT_SCALE,
                    help="head init multiplier (run_class_finetuning.py:357)")
     g.add_argument("--use_mean_pooling", default=True, type=ast.literal_eval)
     g.add_argument("--use_cls", action="store_true",
@@ -90,7 +116,8 @@ def add_model_args(p: argparse.ArgumentParser, extra_models: Tuple[str, ...] = (
                         "reset (reset_cov, modeling_finetune.py:596-616)")
     g.add_argument("--het_layer", action="store_true")
     g.add_argument("--stochastic", action="store_true",
-                   help="use the dist (mean+covariance) model family")
+                   help="use the dist (mean+covariance) model family (the finetune and "
+                        "cyclical drivers)")
     g.add_argument("--learn_layer_weights", action="store_true")
     g.add_argument("--layernorm_before_combine", action="store_true")
     g.add_argument("--linear_classifier", action="store_true")

@@ -7,6 +7,8 @@ run_class_finetuning.py.
     python -m uncertainty_vit_tpu_torch.cli.finetune --eval \
         [--mc_dropout | --ensembles --ensemble_checkpoints A.pth B.pth] \
         --finetune CKPT.pth --data_set CIFAR100 --data_path DIR ...
+    python -m uncertainty_vit_tpu_torch.cli.finetune --stochastic \
+        --model dist_beit_base_patch16_224 --finetune CKPT.pth ... [--eval]
 
 Ported: the train loop (``main`` without ``--eval``, JAX :580-790): the
 train split's uint8 batches onto the device, the train transform there
@@ -38,8 +40,31 @@ rank 0 alone prints, writes log.txt and the checkpoints, and returns its
 result. ``main`` takes ``device`` (the card by default; the tests pass
 "cpu"); the JAX driver has no such flag, and neither has this one.
 
+``--stochastic`` selects the dist (mean+covariance) model (JAX :193-196,
+``models.dist_vit.DistVisionTransformer``; ``--model`` also takes
+``dist_beit_base_patch16_224``, which needs the flag): training reads
+triplet batches (``data.datasets.TripletDataset``: the anchor through the
+train transform and mixup, pos and neg through the eval transform, all on
+the device; ``--decode_letterbox`` raises) into
+``train.engine_finetune_dist``'s step, and each epoch's evaluation is the
+metrics of the logits (``evals.classification.evaluate_dist``; the best
+checkpoint by acc1); ``--eval`` gives ``results["dist_eval"]``, and
+``--corrupted_data`` / ``--perturbed_data`` take the logits of its
+deterministic forward. What the dist model does not read raises
+``ValueError`` under the flag (``DIST_UNREAD``: the JAX driver ignores
+each, ROADMAP.md §3): ``--model_ema``, ``--quant int8``,
+``--masked_position_prob``, the heads (``--sngp``, ``--gp_layer``,
+``--het_layer``), ``--learn_layer_weights``, ``--layernorm_before_combine``,
+``--remove_final_norm``, ``--abs_pos_emb``, ``--per_block_rel_pos_bias``,
+``--dropout_from_block``, the attention variants (``--sinkformer``,
+``--gumbel_softmax``, ``--h_sto_trans``), an ``--init_scale`` other than
+0.001 (the dist head is drawn unscaled), and the dispatches that would run
+another model (``--mc_dropout``, ``--ensembles``,
+``--visualize_embedding``, ``--laplace``, ``--temp_scaling``);
+``--seq_parallel`` raises as in JAX.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: ``--stochastic`` (slice 11); under ``--seq_parallel``
+that ports it: under ``--seq_parallel``
 (item 21) ``--mc_dropout``, the head flags and the post-hoc evaluations;
 the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer other than
 adamw, and a ``--finetune``, ``--resume`` or ensemble member that is not a
@@ -72,6 +97,7 @@ from uncertainty_vit_tpu_torch.evals.ensembles import (
     ensemble_mean_logits, make_ensemble_forward, stack_params,
 )
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
+from uncertainty_vit_tpu_torch.models.dist_vit import DistVisionTransformer
 from uncertainty_vit_tpu_torch.models.registry import sngp_reset_cov
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops.augment import (
@@ -81,6 +107,9 @@ from uncertainty_vit_tpu_torch.ops.augment import (
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.engine_finetune import (
     FinetuneHParams, init_finetune_state, make_finetune_train_step, step_generators,
+)
+from uncertainty_vit_tpu_torch.train.engine_finetune_dist import (
+    DistFinetuneHParams, make_dist_finetune_train_step,
 )
 from uncertainty_vit_tpu_torch.train.optim import freeze_all_except
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
@@ -100,10 +129,32 @@ NOT_PORTED_UNDER_SEQ = {
     "visualize_embedding": "the embedding dump",
 }
 
+DIST_MODELS = ("dist_beit_base_patch16_224",)
+
+# what the dist model (--stochastic) does not read, or the dispatches that
+# would run another model on its weights, beside builders.DIST_UNREAD: flag
+# → whether it is set. The JAX driver ignores each under --stochastic
+# (ROADMAP.md §3); here each raises
+DIST_UNREAD = {
+    **B.DIST_UNREAD,
+    "model_ema": lambda a: a.model_ema,
+    "masked_position_prob": lambda a: a.masked_position_prob > 0,
+    "gp_layer": lambda a: a.gp_layer,
+    "learn_layer_weights": lambda a: a.learn_layer_weights,
+    "layernorm_before_combine": lambda a: a.layernorm_before_combine,
+    "remove_final_norm": lambda a: a.remove_final_norm,
+    "init_scale": lambda a: a.init_scale != B.INIT_SCALE,
+    "mc_dropout": lambda a: a.mc_dropout,
+    "ensembles": lambda a: a.ensembles,
+    "visualize_embedding": lambda a: a.visualize_embedding,
+    "laplace": lambda a: a.laplace,
+    "temp_scaling": lambda a: a.temp_scaling,
+}
+
 
 def get_args_parser():
     p = argparse.ArgumentParser("finetuning / evaluation", add_help=True)
-    B.add_model_args(p)
+    B.add_model_args(p, DIST_MODELS)
     B.add_opt_args(p, lr=4e-3)
     B.add_data_args(p)
     B.add_io_args(p)
@@ -237,7 +288,8 @@ def _aa_kwargs(args) -> Dict:
 def build_model(args, nb_classes: int, device=None, seq_group: Optional[seq.SeqGroup] = None):
     """(model, config) of the flags, its parameters drawn from a generator
     seeded with ``--seed`` on ``device`` (the card by default); with
-    ``seq_group`` (``--seq_parallel``) this rank's share of the tokens."""
+    ``seq_group`` (``--seq_parallel``) this rank's share of the tokens.
+    --stochastic: the ``DistVisionTransformer`` of the same config."""
     cfg = B.model_config_from_args(args, nb_classes)
     if getattr(args, "masked_position_prob", 0.0) > 0:
         cfg = cfg.replace(has_masking=True)
@@ -247,6 +299,9 @@ def build_model(args, nb_classes: int, device=None, seq_group: Optional[seq.SeqG
         cfg = cfg.replace(remove_final_norm=True)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.stochastic:
+        return DistVisionTransformer(cfg, B.compute_dtype(args), device=device,
+                                     generator=gen), cfg
     model = VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen,
                               seq_group=seq_group)
     return model, cfg
@@ -420,7 +475,10 @@ def _corruption_eval(args, model: VisionTransformer) -> Dict:
     corrupted images through the eval transform and the chosen forward;
     distortions without data are skipped."""
     device = _device_of(model)
-    if args.mc_dropout:
+    if args.stochastic:
+        # the logits of the dist model's deterministic forward (JAX :403-404)
+        fwd = E.make_dist_eval_forward(model)
+    elif args.mc_dropout:
         fwd = _mc_mean_forward(args, model)
     elif args.laplace:
         # the Laplace predictive's log-probabilities serve as logits
@@ -464,7 +522,9 @@ def _corruption_eval(args, model: VisionTransformer) -> Dict:
 def _perturbation_eval(args, model: VisionTransformer, nb_classes: int) -> Dict:
     """--perturbed_data (JAX :466-497): CIFAR-P videos, as many whole videos
     a batch as fit in --batch_size frames, through the chosen forward."""
-    if args.mc_dropout:
+    if args.stochastic:
+        fwd = E.make_dist_eval_forward(model)
+    elif args.mc_dropout:
         fwd = _mc_mean_forward(args, model)
     elif args.ensembles:
         fwd = _ensemble_mean_forward(args, model)
@@ -484,8 +544,9 @@ def _perturbation_eval(args, model: VisionTransformer, nb_classes: int) -> Dict:
 
 def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: int) -> Dict:
     """--eval dispatch (run_class_finetuning.py:638-677, JAX :374-548): -C,
-    -P, MC-dropout, the ensemble, the Laplace posterior, temperature
-    scaling or the plain evaluation; prints and returns the results."""
+    -P, MC-dropout, the ensemble, the dist model's evaluation, the Laplace
+    posterior, temperature scaling or the plain evaluation; prints and
+    returns the results."""
     _check_eval_flags(args)
     device = _device_of(model)
     batches = lambda: _eval_batches(val_loader, args, device)  # noqa: E731
@@ -506,6 +567,8 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     elif args.ensembles:
         results["ensembles"] = E.evaluate_ensemble(
             model, stack_params(_load_ensemble_members(args, model)), batches())
+    elif args.stochastic:
+        results["dist_eval"] = E.evaluate_dist(model, batches())
     elif args.laplace:
         la, ffwd, _ = _fit_laplace(args, model)
         results["laplace"] = LA.evaluate_laplace(la, ffwd, batches(), link=args.laplace_link,
@@ -557,14 +620,17 @@ def _finish_metrics(pending) -> Dict[str, float]:
 
 def train(args, device: torch.device, val_loader, nb_classes: int,
           seq_group: Optional[seq.SeqGroup] = None):
-    """The train loop (JAX cli/finetune.py:580-790, non-stochastic): epochs
-    of augmented steps from the train split, each followed by an evaluation,
-    log.txt and checkpoints. Returns the train state. Under ``seq_group``
-    every rank runs it on the same batches and draws; rank 0 alone writes
-    the files, and the ranks' parameters are held equal after each epoch."""
+    """The train loop (JAX cli/finetune.py:580-790): epochs of augmented
+    steps from the train split, each followed by an evaluation, log.txt and
+    checkpoints. Returns the train state. Under ``seq_group`` every rank
+    runs it on the same batches and draws; rank 0 alone writes the files,
+    and the ranks' parameters are held equal after each epoch. Under
+    --stochastic the batches are triplets and the step the dist model's."""
     model, cfg = build_model(args, nb_classes, device, seq_group)
     writes = seq_group is None or seq_group.rank == 0
-    train_loader, _ = B.build_loaders(args, is_train=True, letterbox_ok=True,
+    triplet = args.stochastic
+    train_loader, _ = B.build_loaders(args, is_train=True, triplet=triplet,
+                                      letterbox_ok=not triplet,
                                       host=None if seq_group is None else (0, 1))
     steps_per_epoch = args.steps_per_epoch or len(train_loader)
     lr_schedule, wd_schedule, _ = B.build_lr_schedules(args, steps_per_epoch)
@@ -576,15 +642,6 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         trainable = missing or ["head"]
         print(f"linear probe: trainable params = {trainable}", flush=True)
         freeze_all_except(optimizer, trainable)
-    hp = FinetuneHParams(
-        num_classes=nb_classes, mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
-        mixup_prob=args.mixup_prob, mixup_switch_prob=args.mixup_switch_prob,
-        label_smoothing=args.smoothing, mixup_active=B.mixup_active(args),
-        mixup_mode=args.mixup_mode,
-        cutmix_minmax=tuple(args.cutmix_minmax) if args.cutmix_minmax else None,
-        masked_position_prob=args.masked_position_prob, model_ema_decay=args.model_ema_decay,
-        head_type=cfg.head_type, update_freq=max(1, args.update_freq),
-    )
     # the EMA starts from the imported weights, as the reference creates its
     # ModelEma after the checkpoint surgery (run_class_finetuning.py:545-553)
     state = init_finetune_state(model, optimizer, use_model_ema=args.model_ema)
@@ -593,8 +650,27 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
         interpolation=B.interp_method(args.train_interpolation), re_mode=args.remode,
         re_count=args.recount, **_aa_kwargs(args))
-    train_step = make_finetune_train_step(model, optimizer, hp, lr_schedule, wd_schedule,
-                                          aug_fn=aug_fn)
+    mix = dict(num_classes=nb_classes, mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+               mixup_prob=args.mixup_prob, mixup_switch_prob=args.mixup_switch_prob,
+               label_smoothing=args.smoothing, mixup_active=B.mixup_active(args),
+               mixup_mode=args.mixup_mode,
+               cutmix_minmax=tuple(args.cutmix_minmax) if args.cutmix_minmax else None,
+               update_freq=max(1, args.update_freq))
+    if triplet:
+        # the anchor's train transform and the pos / neg eval transform run
+        # inside the step, on the device (JAX :612-631)
+        hp = DistFinetuneHParams(**mix, lambda_finetuning=args.lambda_finetuning,
+                                 lambda_pvn=args.lambda_pvn)
+        train_step = make_dist_finetune_train_step(
+            model, optimizer, hp, lr_schedule, wd_schedule, aug_fn=aug_fn,
+            prep_fn=lambda x: _eval_prep(x, args, device))
+        eval_forward = E.make_dist_eval_forward(model)
+    else:
+        hp = FinetuneHParams(**mix, masked_position_prob=args.masked_position_prob,
+                             model_ema_decay=args.model_ema_decay, head_type=cfg.head_type)
+        train_step = make_finetune_train_step(model, optimizer, hp, lr_schedule, wd_schedule,
+                                              aug_fn=aug_fn)
+        eval_forward = E.make_eval_forward(model, het=args.het_layer)
 
     start_epoch = args.start_epoch
     if args.auto_resume and not args.resume:
@@ -614,7 +690,6 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
     tb = TensorboardLogger(args.log_dir or args.output_dir if writes else None)
     jsonl = JsonlLogger(args.output_dir) if writes else None
     best_acc = -1.0
-    eval_forward = E.make_eval_forward(model, het=args.het_layer)
 
     for epoch in range(start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
@@ -643,13 +718,18 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
                                                       f"Epoch: [{epoch}]")):
             if step >= steps_per_epoch:
                 break
-            images_u8, labels = batch[0], batch[-1]
-            # letterboxed batches carry each image's valid extent
-            # (--decode_letterbox), so that the crop covers the whole image
-            valid_hw = batch[1] if len(batch) == 3 else None
             gens = step_generators(args.seed, state.step, device, het=cfg.head_type == "het")
-            metrics = train_step(state, images_u8, labels, gens.model, gens.mix, gens.augment,
-                                 valid_hw, gens.mc)
+            if triplet:
+                images_u8, pos_u8, neg_u8, labels = batch
+                metrics = train_step(state, images_u8, pos_u8, neg_u8, labels, gens.model,
+                                     gens.mix, gens.augment)
+            else:
+                images_u8, labels = batch[0], batch[-1]
+                # letterboxed batches carry each image's valid extent
+                # (--decode_letterbox), so that the crop covers the whole image
+                valid_hw = batch[1] if len(batch) == 3 else None
+                metrics = train_step(state, images_u8, labels, gens.model, gens.mix,
+                                     gens.augment, valid_hw, gens.mc)
             pending.append((_start_metrics_readback(metrics), step_base + step))
             while len(pending) > 2:
                 drain_one()
@@ -659,7 +739,12 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         if seq_group is not None:
             seq.check_equal_on_ranks(model.parameters(), seq_group, "the parameters")
         test = None
-        if not args.disable_eval_during_finetuning:
+        if args.disable_eval_during_finetuning:
+            pass
+        elif triplet:
+            test = E.evaluate_dist(model, _eval_batches(val_loader, args, device),
+                                   forward=eval_forward)
+        else:
             test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
                               het=args.het_layer, seed=args.seed + epoch)
         record = {"epoch": epoch, **{f"train_{k}": v for k, v in logger.epoch_summary().items()}}
@@ -679,6 +764,18 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         tb.flush()
     print(f"done. best acc1 {best_acc:.3f}", flush=True)
     return state
+
+
+def _check_dist_flags(args) -> None:
+    """--stochastic: each set flag of ``DIST_UNREAD`` raises ValueError; a
+    dist_* --model without the flag raises too (it names the dist
+    architecture, which the flag selects)."""
+    if not args.stochastic:
+        if args.model in DIST_MODELS:
+            raise ValueError(f"--model {args.model} is the dist (mean+covariance) model: "
+                             "pass --stochastic")
+        return
+    B.refuse_unread(args, DIST_UNREAD)
 
 
 def _run(args, device: torch.device, seq_group: Optional[seq.SeqGroup] = None):
@@ -731,8 +828,11 @@ def main(args, device=None):
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
+    _check_dist_flags(args)
     device = resolve_device(device)
     if args.seq_parallel > 1:
+        if args.stochastic:
+            raise ValueError("--seq_parallel is not wired for --stochastic")
         _check_seq_flags(args)
         return seq.run_ranks(run_rank, args.seq_parallel, args, str(device))[0]
     return _run(args, device)

@@ -29,7 +29,8 @@ driver's keys (the step's metric names, no prefix); ``checkpoint-N.pth`` is
 written every ``--save_ckpt_freq`` epochs and at the end. ``main`` takes
 ``device`` (the card by default; the tests pass "cpu"). An optimizer that
 needs the Hessian (adahessian, slice 12) and the flags of
-``builders.NOT_PORTED_MODEL_FLAGS`` raise.
+``builders.NOT_PORTED_MODEL_FLAGS`` raise; so does ``--stochastic``
+(``ValueError``), which the JAX driver parses and ignores.
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ def check_args(args, what: str) -> None:
     if args.mask_dropout_prob > 0:
         raise ValueError(f"--mask_dropout_prob: the {what} step takes no mask dropout, as the "
                          "JAX step takes none")
+    if args.stochastic:
+        raise ValueError(f"--stochastic: not read by this driver (the {what} model has no dist "
+                         "variant; the JAX driver parses the flag and ignores it)")
 
 
 def build_model(args, device=None):

@@ -5,7 +5,7 @@ reference's run_cyclical.py.
     python -m uncertainty_vit_tpu_torch.cli.pretrain_cyclical \
         --model beit_base_patch16_224 --data_set CIFAR100 --data_path DIR \
         --batch_size 128 --lr 2e-3 --num_mask_patches 120 --clip_grad 3.0 \
-        --drop_path 0.25 --attn_drop_rate 0.05 --output_dir OUT ...
+        --drop_path 0.25 --attn_drop_rate 0.05 --output_dir OUT [--stochastic] ...
 
 The recipe (README.md:11-25 of the reference): ViT-B, 800 epochs, global
 batch 2048 (16 × 128), lr 2e-3, mask 120, EMA 0.9998 from 0.999, clip 3.0,
@@ -27,10 +27,18 @@ gets a record an epoch under the JAX driver's keys; ``checkpoint-N.pth``
 is written every ``--save_ckpt_freq`` epochs and at the end. ``main``
 takes ``device`` (the card by default; the tests pass "cpu").
 
+``--stochastic`` pretrains the dist (mean+covariance) model (JAX :94-101,
+``models.dist_vit.DistCyclicalViT``, student and teacher) with the
+Wasserstein term weighted by ``--lambda_pretraining``; with it
+``--gp_layer`` raises ``ValueError`` (JAX's words), and so do the flags the
+dist model does not read, which the JAX driver ignores there
+(``DIST_UNREAD``: ``--quant int8``, ``--abs_pos_emb``,
+``--per_block_rel_pos_bias``, ``--dropout_from_block``, ``--sngp``,
+``--het_layer``, the attention variants, ``--layer_results fc``).
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: ``--stochastic`` (the dist cyclical model, slice 11), an
-optimizer that needs the Hessian (adahessian, slice 12), and the flags of
-``builders.NOT_PORTED_MODEL_FLAGS``.
+that ports it: an optimizer that needs the Hessian (adahessian, slice 12),
+and the flags of ``builders.NOT_PORTED_MODEL_FLAGS``.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from uncertainty_vit_tpu_torch.cli.finetune import (
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.data.pipeline import device_prefetch
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
+from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT
 from uncertainty_vit_tpu_torch.ops import masking as M
 from uncertainty_vit_tpu_torch.ops.augment import make_pretrain_augment
 from uncertainty_vit_tpu_torch.train.engine_cyclical import (
@@ -97,19 +106,34 @@ def get_args_parser():
     g.add_argument("--target_instance_norm", action="store_true")
     g.add_argument("--post_target_instance_norm", action="store_true")
     g.add_argument("--post_target_layer_norm", action="store_true")
-    # the dist (--stochastic) model's loss weight, parsed with the flag it
-    # serves, which raises (slice 11)
+    # the weight of the dist (--stochastic) model's Wasserstein term
     g.add_argument("--lambda_pretraining", type=float, default=1e-5)
     return p
 
 
+# what the dist model does not read, beside builders.DIST_UNREAD: its
+# teacher keeps no post-MLP residuals (the JAX model returns the block
+# outputs for "fc")
+DIST_UNREAD = {**B.DIST_UNREAD, "layer_results": lambda a: a.layer_results != "end"}
+
+
 def build_model(args, device=None):
     """(student, config) of the flags: ``CyclicalViT`` with ``head_type``
-    "none", an SNGP ``lm_head`` under --gp_layer, its parameters drawn from
-    a generator seeded with --seed on ``device``."""
+    "none", an SNGP ``lm_head`` under --gp_layer, or under --stochastic
+    ``DistCyclicalViT``; its parameters drawn from a generator seeded with
+    --seed on ``device``."""
+    if args.stochastic:
+        if args.gp_layer:
+            raise ValueError(
+                "--gp_layer is only supported by the non-stochastic cyclical model "
+                "(modeling_cyclical.py:133); the dist variant has no SNGP lm_head in the "
+                "reference (modeling_cyclical_dist.py).")
+        B.refuse_unread(args, DIST_UNREAD)
     cfg = B.model_config_from_args(args, num_classes=0).replace(head_type="none")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.stochastic:
+        return DistCyclicalViT(cfg, B.compute_dtype(args), device=device, generator=gen), cfg
     model = CyclicalViT(cfg, B.compute_dtype(args), gp_layer=args.gp_layer, device=device,
                         generator=gen)
     return model, cfg
@@ -140,7 +164,8 @@ def hparams(args, steps_per_epoch: int) -> CyclicalHParams:
         post_target_instance_norm=args.post_target_instance_norm,
         post_target_layer_norm=args.post_target_layer_norm,
         ema_decay=args.ema_decay, ema_decay_init=args.ema_decay_init, ema_start_at=ema_start_at,
-        start_lr_decay_at_step=start_lr_decay_at_step, gp_layer=args.gp_layer,
+        start_lr_decay_at_step=start_lr_decay_at_step, stochastic=args.stochastic,
+        lambda_pretraining=args.lambda_pretraining, gp_layer=args.gp_layer,
         update_freq=max(1, args.update_freq),
     )
 

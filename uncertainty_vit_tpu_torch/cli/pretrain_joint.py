@@ -19,7 +19,8 @@ cyclical teacher kept as ``CyclicalState.teacher`` and saved as
 "model_ema". ``--seed_model`` (an alias of ``--finetune``) seeds the
 student from a ``.pth`` before the teacher's copy and before
 ``--auto_resume``, the JAX driver's order (:61-110). ``main`` takes
-``device`` (the card by default; the tests pass "cpu").
+``device`` (the card by default; the tests pass "cpu"). ``--stochastic``,
+which the JAX driver parses and ignores, raises ``ValueError``.
 """
 
 from __future__ import annotations

@@ -12,9 +12,8 @@ transform runs on the device downstream (``ops/augment.py``):
   - TinyImageNet-200 (wnids / val_annotations parsing, tin.py:32-90)
   - TinyImageNet-C (tin.py:169-259) and the CIFAR-C / -P ``.npy`` tensors
     (``load_cifar_c``, ``load_cifar_p``)
-
-Not ported yet: the triplet wrapper of the stochastic finetune
-(``ROADMAP.md`` item 19).
+  - the triplet wrapper of the stochastic (dist) finetune (``TripletDataset``,
+    dist_datasets.py:31-44, 143-148)
 """
 
 from __future__ import annotations
@@ -383,3 +382,44 @@ def load_cifar_p(root: str, perturbation: str) -> np.ndarray:
     """CIFAR-P: <root>/<perturbation>.npy, uint8 videos [N, T, 32, 32, 3]
     (uncertainty_evaluations.py:784-799)."""
     return np.load(os.path.join(root, f"{perturbation}.npy"))
+
+
+# ---------------------------------------------------------------------------
+# The triplet wrapper of the stochastic finetune (JAX datasets.py:408-429)
+# ---------------------------------------------------------------------------
+
+class TripletDataset:
+    """(img, pos_img, neg_img, label): pos is the same image (the eval
+    transform applies to it on the device), neg an image of another class
+    drawn from ``random.Random(seed)`` (dist_datasets.py:31-44, 143-148). The
+    index of every other class's items is built once. The draws follow the
+    order of the calls, so a loader with worker threads interleaves them as
+    its threads run, as the JAX package's does.
+
+    ``set_epoch`` (which ``BatchLoader.set_epoch`` calls) restarts the
+    stream: at epoch 0 it is ``random.Random(seed)``, the JAX dataset's, and
+    at epoch e > 0 one seeded from (seed, e), so that a run resumed at an
+    epoch draws the negatives an uninterrupted run draws there (the JAX
+    dataset's one stream restarts from its seed at a resume, ROADMAP.md
+    §3)."""
+
+    def __init__(self, base, seed: int = 0):
+        self.base = base
+        self.seed = seed
+        self.labels = np.asarray(base.labels)
+        self.rng = random.Random(seed)
+        self._by_label = {int(c): np.where(self.labels != c)[0] for c in np.unique(self.labels)}
+
+    def set_epoch(self, epoch: int) -> None:
+        seed = self.seed if epoch == 0 else int(
+            np.random.SeedSequence([self.seed, epoch]).generate_state(1, np.uint64)[0])
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx: int):
+        img, label = self.base[idx]
+        others = self._by_label[int(label)]
+        neg_img, _ = self.base[int(others[self.rng.randrange(len(others))])]
+        return img, img.copy(), neg_img, label

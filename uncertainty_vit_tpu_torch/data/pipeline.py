@@ -68,7 +68,11 @@ class BatchLoader:
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
+        """The epoch's shuffle; a dataset with a ``set_epoch`` of its own (the
+        triplet dataset's negatives) is told too."""
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)

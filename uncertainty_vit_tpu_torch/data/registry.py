@@ -37,13 +37,10 @@ def build_dataset(
 ) -> Tuple[object, int]:
     """data_set ∈ CIFAR100 | CIFAR10 | SVHN | tiny_IMNET | IMNET |
     image_folder. ``semi_supervised_ratio`` keeps the SSL labeled split of
-    the CIFAR100 train set (dist_datasets.py:227-235). ``triplet=True``, the
-    stochastic finetune's (img, pos, neg, label) dataset, is not ported yet
-    and raises."""
-    if triplet:
-        raise NotImplementedError(
-            "the triplet dataset of the stochastic finetune is not ported yet "
-            "(ROADMAP.md item 19, slice 11)")
+    the CIFAR100 train set (dist_datasets.py:227-235). ``triplet=True`` wraps
+    the dataset, after that split, in the stochastic finetune's (img, pos,
+    neg, label) ``TripletDataset`` (dist_datasets.build_dataset), seeded
+    with ``seed``."""
     if data_set.startswith("CIFAR100"):
         ds = D.load_cifar(data_path, cifar100=True, train=is_train)
         nb = 100
@@ -78,4 +75,6 @@ def build_dataset(
         nb = len(ds.classes) if data_set == "image_folder" else 1000
     else:
         raise ValueError(f"unknown data_set: {data_set}")
+    if triplet:
+        ds = D.TripletDataset(ds, seed=seed)
     return ds, nb

@@ -8,7 +8,9 @@ model's device. A torch model holds its own parameters, so ``evaluate`` and
 heteroscedastic head) every batch draws the head's MC noise from a fresh
 generator of the stream ``evaluate``'s seed starts (JAX :33-77: a fresh
 'mc' key per call, as the reference resamples its noise in every forward,
-modeling_finetune.py:1145-1146).
+modeling_finetune.py:1145-1146). ``evaluate_dist`` is the dist
+(mean+covariance) model's evaluation, the metrics of its logits (the JAX
+driver's ``dist_eval``, cli/finetune.py:509-518).
 """
 
 from __future__ import annotations
@@ -46,6 +48,29 @@ def make_eval_forward(model: nn.Module, het: bool = False) -> Callable[..., torc
             return model(images)
 
     return forward
+
+
+def make_dist_eval_forward(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """images → the dist model's logits, output [2] of its forward, in eval
+    mode under inference_mode (engine_for_finetuning_dist.dist_evaluate
+    :441-495; JAX engine_finetune_dist.py:150-157)."""
+
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        with torch.inference_mode():
+            return model(images)[2]
+
+    return forward
+
+
+def evaluate_dist(model: nn.Module, batches: Iterable,
+                  forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                  ) -> Dict[str, float]:
+    """The dist model's evaluation: ``metrics.classification_metrics`` of its
+    logits over ``batches`` (no "loss" key, as the JAX driver's dict has
+    none). ``forward``: one from ``make_dist_eval_forward``, to reuse it."""
+    logits, labels = collect_logits(forward or make_dist_eval_forward(model), batches)
+    return _metrics(model, logits, labels)
 
 
 def evaluate(

@@ -40,6 +40,7 @@ from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
 from uncertainty_vit_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIM, fused_qkv_attention, seq_sharded_qkv_attention,
 )
+from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
 from uncertainty_vit_tpu_torch.parallel import seq
 
 
@@ -143,8 +144,10 @@ def _active(module: nn.Module, deterministic: Optional[bool]) -> bool:
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm computed in f32 with f32 params; the result is f32 (as
-    flax's LayerNorm promotes a bf16 input against its f32 params)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    flax's LayerNorm promotes a bf16 input against its f32 params). A
+    float64 input (a float64 copy of a model) stays float64."""
+    return F.layer_norm(x.to(at_least_f32(x.dtype)), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps)
 
 
 def _param(shape, init: I.Init, device, generator) -> nn.Parameter:

@@ -3,13 +3,14 @@ registry.py (``create_model`` :43-81), over the reference's registry names
 (modeling_finetune.py:1221-1275, modeling_cyclical.py:282-363,
 modeling_pretrain.py:139-166).
 
-``create_model(name, family=...)`` returns (module, config). The
+``create_model(name, family=...)`` returns (module, config): the
 ``finetune`` family, the ``VisionTransformer`` with any of its heads
 (``head_type=`` and the other config fields pass through as overrides), the
 ``cyclical`` family, ``CyclicalViT``, and the ``mim`` and ``joint``
 families, ``MIMViT`` and ``JointViT`` over ``vocab_size`` codebook tokens,
-each with ``head_type="none"`` (JAX :70-78), are ported; the dist family
-raises with the ROADMAP slice that ports it.
+each with ``head_type="none"`` (JAX :70-78). A dist_* name builds the
+mean+covariance model in the finetune (``DistVisionTransformer``) and the
+cyclical (``DistCyclicalViT``) family, as JAX :64-69 does.
 ``sngp_reset_cov`` (:84-95) restarts the SNGP head's precision matrix.
 """
 
@@ -22,6 +23,7 @@ import torch
 
 from uncertainty_vit_tpu_torch.core.config import PRESETS, ViTConfig, get_preset
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
+from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT, DistVisionTransformer
 from uncertainty_vit_tpu_torch.models.heads import SNGPHead
 from uncertainty_vit_tpu_torch.models.mim import JointViT, MIMViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
@@ -34,12 +36,6 @@ MODEL_NAMES = (
     "dist_beit_base_patch16_224",
     "beit_base_joint_patch16_224",
 )
-
-# family → where the ROADMAP ports it
-_NOT_PORTED_FAMILIES = {
-    "dist": "the dist (mean+covariance) models: item 19, slice 11",
-}
-
 
 def preset_name(name: str) -> str:
     """The ``core.config`` preset of a registry name: the *_8k_vocab, joint
@@ -68,7 +64,9 @@ def create_model(
 ) -> Tuple[torch.nn.Module, ViTConfig]:
     """(module, config) of a registry name. ``family`` defaults by name:
     *_8k_vocab → mim, *_joint_* → joint, else finetune; dist_* names select
-    the mean+covariance model. ``device=None`` builds on the card."""
+    the mean+covariance model of the finetune and cyclical families.
+    ``device=None`` builds on the card."""
+    is_dist = name.startswith("dist_")
     if family is None:
         if name.endswith("_8k_vocab"):
             family = "mim"
@@ -76,24 +74,21 @@ def create_model(
             family = "joint"
         else:
             family = "finetune"
-    if family not in ("finetune", "cyclical", "mim", "joint", *_NOT_PORTED_FAMILIES):
+    if family not in ("finetune", "cyclical", "mim", "joint"):
         raise ValueError(f"unknown family: {family}")
     cfg = _base_preset(name)
     if overrides:
         cfg = cfg.replace(**overrides)
-    if name.startswith("dist_"):
-        family = "dist"
-    if family in _NOT_PORTED_FAMILIES:
-        raise NotImplementedError(f"{name} ({family}): {_NOT_PORTED_FAMILIES[family]} "
-                                  "is not ported yet (ROADMAP.md)")
     if family == "cyclical":
         cfg = cfg.replace(head_type="none")
-        return CyclicalViT(cfg, dtype, device=device, generator=generator), cfg
+        cls = DistCyclicalViT if is_dist else CyclicalViT
+        return cls(cfg, dtype, device=device, generator=generator), cfg
     if family in ("mim", "joint"):
         cfg = cfg.replace(head_type="none")
         cls = MIMViT if family == "mim" else JointViT
         return cls(cfg, dtype, vocab_size=vocab_size, device=device, generator=generator), cfg
-    return VisionTransformer(cfg, dtype, device=device, generator=generator), cfg
+    cls = DistVisionTransformer if is_dist else VisionTransformer
+    return cls(cfg, dtype, device=device, generator=generator), cfg
 
 
 def sngp_reset_cov(model: torch.nn.Module, ridge_penalty: float = 1e-3) -> torch.nn.Module:

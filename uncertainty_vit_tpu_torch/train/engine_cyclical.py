@@ -18,8 +18,14 @@ precision matrix once a mini-step.
 The teacher is a second ``CyclicalViT`` whose parameters are the EMA
 tensors: it is not in the optimizer, its parameters need no gradient, and
 it holds none of the student's storage. Nothing in the step reads a value
-back to the host. The stochastic (dist) variant is not ported yet (slice
-11: the driver's --stochastic raises).
+back to the host.
+
+``stochastic`` is the dist variant (JAX :61-63, 167-183, 200-224): student
+and teacher are ``models.dist_vit.DistCyclicalViT``; the teacher's mean
+layers make the targets through the whole pipeline, its cov layers the cov
+targets through the layer-norm stages only (no batch or instance norm);
+the loss adds λ_pretraining × ``wasserstein_pretrain_loss`` over the
+flattened rows at the masked positions, before ``loss_scale``.
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ class CyclicalHParams:
     ema_decay_init: float = 0.999
     ema_start_at: int = 0
     start_lr_decay_at_step: int = -1
+    # the stochastic (dist) variant
+    stochastic: bool = False
+    lambda_pretraining: float = 1e-5
     # the SNGP lm_head (--gp_layer, modeling_cyclical.py:133)
     gp_layer: bool = False
     # gradient accumulation: the optimizer's; the EMA's warm-up, its
@@ -177,6 +186,8 @@ def make_cyclical_train_step(
     wd and the EMA's decay are read at the update index, step //
     update_freq; the EMA runs where an update ends. ``model`` is
     ``state.model``."""
+    if hp.stochastic and hp.gp_layer:
+        raise ValueError("the dist cyclical model has no SNGP lm_head (gp_layer)")
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
@@ -196,14 +207,32 @@ def make_cyclical_train_step(
         # the teacher: EMA weights, all tokens, all layers, no gradient
         # (engine_for_cyclical.py:68-88)
         with torch.no_grad():
-            targets = build_targets(state.teacher(images, None, deterministic=True,
-                                                  layer_results=hp.layer_results), hp)
+            teacher_out = state.teacher(images, None, deterministic=True,
+                                        layer_results=hp.layer_results)
+            if hp.stochastic:
+                mean_layers, cov_layers = teacher_out
+                targets = build_targets(mean_layers, hp)
+                # the cov targets take only the layer-norm stages
+                # (engine_for_cyclical.py:73-86)
+                cov_targets = build_targets(cov_layers, dataclasses.replace(
+                    hp, target_batch_norm=False, target_instance_norm=False,
+                    post_target_instance_norm=False))
+            else:
+                targets = build_targets(teacher_out, hp)
         model.train()
-        out = model(images, mask, generator=generator, update_sngp_cov=hp.gp_layer).float()
+        if hp.stochastic:
+            out, cov_out = (t.float() for t in model(images, mask, generator=generator))
+        else:
+            out = model(images, mask, generator=generator, update_sngp_cov=hp.gp_layer).float()
         loss_cyc = L.masked_regression_loss(out, targets, mask, beta=hp.l1_beta, l2=hp.l2_loss)
         loss_var0 = (L.masked_variance_hinge(out, mask, hp.var_margin0) if hp.var_w0 > 0
                      else torch.zeros((), device=out.device))
         loss = loss_cyc + loss_var0 * hp.var_w0
+        if hp.stochastic:
+            c = out.shape[-1]
+            loss = loss + L.wasserstein_pretrain_loss(
+                out.reshape(-1, c), cov_out.reshape(-1, c), targets.reshape(-1, c),
+                cov_targets.reshape(-1, c), hp.lambda_pretraining, mask=mask)
         if hp.loss_scale != -1:
             loss = loss * hp.loss_scale
         optimizer.zero_grad()

@@ -114,15 +114,19 @@ class LayerDecayAdamW:
 
     @torch.no_grad()
     def step(self, lr: float, wd: float) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for p in self.params:
+            if p.grad is None:
+                # a parameter the loss does not read (the dist model's
+                # cov_qkv): its JAX gradient is zeros, which Adam's moments,
+                # its count and the decoupled weight decay still see
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if self.update_freq > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-            # optax.MultiSteps' running mean; a parameter without a gradient
-            # adds a zero
-            g = [p.grad.float() if p.grad is not None else torch.zeros_like(a)
-                 for p, a in zip(self.params, self._acc)]
+            # optax.MultiSteps' running mean
+            g = [p.grad.float() for p in self.params]
             delta = torch._foreach_sub(g, self._acc)
             torch._foreach_div_(delta, self.mini_step + 1)
             torch._foreach_add_(self._acc, delta)

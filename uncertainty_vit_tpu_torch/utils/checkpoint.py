@@ -5,14 +5,17 @@ Counterpart of the torch-layout mapping in uncertainty_vit_tpu/utils/
 checkpoint.py (``_torch_key_for`` :89-175, ``export_torch_state_dict``
 :562-578), for the parameters and buffers of the ported VisionTransformer,
 its uncertainty heads included, of the cyclical model (its ``lm_head``,
-linear or SNGP), of the MIM and joint models (``lm_head``, ``lm_head.0`` /
+linear or SNGP), of the dist models (the cov stream's ``cov_*`` leaves:
+``cov_patch_embed``, ``cov_cls_token``, ``cov_mask_token``, each block's
+``attn.cov_qkv`` / ``cov_q_bias`` / ``cov_v_bias`` / ``cov_proj``,
+``cov_lm_head``), of the MIM and joint models (``lm_head``, ``lm_head.0`` /
 ``lm_head.2``, ``beit_head``) and of the two image tokenizers (the
 DiscreteVAE's Sequential layout, :372-409, its transposed convs' kernels
-unflipped; dall_e's ``w`` / ``b``, :450-465). The port's modules use the reference's
-torch names and layouts, so the mapped dict loads with ``strict=True``.
-Each leaf has a key of its own: the JAX package's mapping sends the SNGP
-head's two input-norm vectors both to ``head.bias`` and its output layer
-to ``head.weight`` (ROADMAP.md §3).
+unflipped; dall_e's ``w`` / ``b``, :450-465). The port's modules use the
+reference's torch names and layouts, so the mapped dict loads with
+``strict=True``. Each leaf has a key of its own: the JAX package's mapping
+sends the SNGP head's two input-norm vectors both to ``head.bias`` and its
+output layer to ``head.weight`` (ROADMAP.md §3).
 
 The cross-resolution surgery a 384 or 512 finetune starts from
 (``interpolate_pos_embed`` :215-231, ``interpolate_rel_pos_table`` :234-278,
@@ -50,7 +53,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_TOP = {"cls_token", "mask_token", "pos_embed", "layer_log_weights"}
+_TOP = {"cls_token", "mask_token", "pos_embed", "layer_log_weights", "cov_cls_token",
+        "cov_mask_token"}
 
 
 def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
@@ -60,9 +64,9 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
     name = parts[-1]
     if len(parts) == 1 and name in _TOP:
         return name, "id"
-    if parts[0] == "patch_embed":
-        return ("patch_embed.proj.weight", "conv_w") if name == "kernel" \
-            else ("patch_embed.proj.bias", "id")
+    if parts[0] in ("patch_embed", "cov_patch_embed"):
+        return (f"{parts[0]}.proj.weight", "conv_w") if name == "kernel" \
+            else (f"{parts[0]}.proj.bias", "id")
     if parts[0] == "rel_pos_bias":
         return "rel_pos_bias.relative_position_bias_table", "id"
     m = re.fullmatch(r"blocks_(\d+)", parts[0])
@@ -74,19 +78,21 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
         if rest[0] in ("gamma_1", "gamma_2"):
             return pre + rest[0], "id"
         if rest[0] == "attn":
-            if rest[1] == "qkv_kernel":
-                return pre + "attn.qkv.weight", "linear_w"
-            if rest[1] in ("q_bias", "v_bias", "relative_position_bias_table"):
+            if rest[1] in ("qkv_kernel", "cov_qkv_kernel"):
+                return pre + f"attn.{rest[1][:-len('_kernel')]}.weight", "linear_w"
+            if rest[1] in ("q_bias", "v_bias", "cov_q_bias", "cov_v_bias",
+                           "relative_position_bias_table"):
                 return pre + f"attn.{rest[1]}", "id"
-            if rest[1] == "proj":
-                return _dense(pre + "attn.proj", name)
+            if rest[1] in ("proj", "cov_proj"):
+                return _dense(pre + f"attn.{rest[1]}", name)
         if rest[0] == "mlp" and rest[1] in ("fc1", "fc2"):
             return _dense(pre + f"mlp.{rest[1]}", name)
         return None
     if parts[0] in ("head", "lm_head"):
         return _head_key(parts[0], parts[1:])
     if parts[0] in _JOINT_HEADS:
-        # the MIM / joint heads (JAX :163-171)
+        # the MIM / joint heads and the dist cyclical model's cov head (JAX
+        # :163-171)
         return _dense(_JOINT_HEADS[parts[0]], name)
     if parts[0] in ("norm", "fc_norm"):
         return f"{parts[0]}.{'weight' if name == 'scale' else 'bias'}", "id"
@@ -101,7 +107,7 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
 
 # the joint model's heads (models/mim.py: lm_head is Sequential(fc1, GELU, fc2))
 _JOINT_HEADS = {"beit_head": "beit_head", "lm_head_fc1": "lm_head.0",
-                "lm_head_fc2": "lm_head.2"}
+                "lm_head_fc2": "lm_head.2", "cov_lm_head": "cov_lm_head"}
 
 # the SNGP head's leaves (params, 'sngp_frozen', 'sngp_state') → the
 # reference SNGP module's names (modeling_finetune.py:525-638)
