@@ -348,6 +348,29 @@ kernels from the sources in this checkout, then:
            lambda_pretraining 1e-5), an epoch of 4 steps: the teacher's mean
            and cov targets and step 0's terms on a sub-batch against float64;
            the rate beside phase 20's.
+  phase 23 slice 12 through cli.finetune from a seeded ViT-B/16 224 .pth over
+           seeded 32x32 CIFAR-100 images: (a) --sinkformer, --gumbel_softmax,
+           --h_sto_trans: 2 train steps at batch 32 (K1-K8 0 launches, the
+           second under sync debug mode) and --eval over 64 images; the
+           trained weights' logits of 4 images in f32 and bf16 against a
+           float64 copy on the same Gumbel noise (VARIANT_LOGIT_REL_BOUND),
+           the dual_sto block 0's two hard draws: their scores against the
+           float64 copy's (VARIANT_LOGIT_REL_BOUND of max|scores|), the
+           argmax where the top-two gap exceeds HARD_GAP_FACTOR times that
+           error, on most positions; (b) 3 updates of every --opt
+           (PHASE23_OPTS; lamb also at --update_freq 2) at batch 32, K1 12 /
+           K2 12 a step, each update against a float64 recomputation of the
+           same transform on the same gradients and state
+           (OPT_UPDATE_REL_BOUND), adafactor's second epoch resumed from the
+           straight run's checkpoint-0.pth (RESUME_REL_BOUND); (c) --opt
+           adahessian, 3 steps at batch 64 under a slow warm-up (lr 0, then
+           base/29, then 2·base/29) through cli.finetune (and with --quant
+           int8: K6 96, K7 48 a step), cli.pretrain_cyclical (attention
+           dropout 0.05: K1 24, K2 12) and --stochastic (none): every loss
+           finite, the last after a nonzero update; no kernel inside the
+           Hessian pass, the third step's pass by CUDA events, the peak
+           memory, the update alone; z . Hz of an f32 model on 4 images
+           against a float64 copy with the same z (HVP_REL_BOUND).
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -5297,10 +5320,10 @@ def phase21(torch, FA, dev, step_rates, cyclical_rates):
             return out
         return aug
 
-    def recording_mim_step(model, tokenizer, optimizer, lr, wd, aug_fn):
+    def recording_mim_step(model, tokenizer, optimizer, lr, wd, aug_fn, **kw):
         box = []
         step = saved_attrs[(PB, "make_mim_train_step")](model, tokenizer, optimizer, lr, wd,
-                                                         views_recorder(aug_fn, box))
+                                                         views_recorder(aug_fn, box), **kw)
 
         def recorded(state, images, masks, *rest):
             r = {"masks": masks.clone()}
@@ -5309,9 +5332,9 @@ def phase21(torch, FA, dev, step_rates, cyclical_rates):
 
         return recorded
 
-    def recording_joint_step(model, tokenizer, optimizer, hp, lr, wd, aug_fn):
+    def recording_joint_step(model, tokenizer, optimizer, hp, lr, wd, aug_fn, **kw):
         step = saved_attrs[(PJ, "make_joint_train_step")](model, tokenizer, optimizer, hp, lr, wd,
-                                                           aug_fn)
+                                                           aug_fn, **kw)
 
         def recorded(state, images, masks, epoch, *rest):
             return timed_call(step, state, model, {"masks": masks.clone(), "epoch": epoch},
@@ -6298,6 +6321,495 @@ def phase22(torch, FA, dev, step_rates, cyclical_rates):
     return paths
 
 
+# phase 23: the attention variants and the optimizer tail
+VARIANT_LOGIT_REL_BOUND = 5e-2
+# a hard Gumbel draw's argmax is held where the float64 copy's top-two gap
+# of (scores + g)/tau exceeds this times the largest difference between the
+# two runs' (scores + g)/tau; below it a flip is a rounding tie, not a fault
+HARD_GAP_FACTOR = 4.0
+OPT_UPDATE_REL_BOUND = 1e-5
+HVP_REL_BOUND = 1e-4
+RESUME_REL_BOUND = 1e-3
+# (variants' batch, optimizers' batch, AdaHessian batch, float64 sub-batch)
+PHASE23_SIZES = (32, 32, 64, 4)
+PHASE23_OPTS = ("adam", "nadam", "radam", "adadelta", "novograd", "rmsprop", "rmsproptf", "sgd",
+                "momentum", "lamb", "lars", "adafactor", "adamp", "sgdp", "adahessian",
+                "lookahead_adamp")
+
+
+def phase23(torch, FA, dev, step_rates):
+    """Slice 12 through the drivers at full width (ViT-B/16 224 from a
+    seeded .pth over seeded 32x32 CIFAR-100 images): (a) cli.finetune with
+    each attention variant, 2 train steps and --eval; (b) three updates of
+    every --opt through cli.finetune, each against a float64 recomputation
+    of the same transform on the same gradients, one name at --update_freq
+    2, a resumed run; (c) one AdaHessian step through cli.finetune (and
+    under --quant int8), cli.pretrain_cyclical and --stochastic, its parts
+    by CUDA events, and z ⊙ Hz against float64. Returns the launches of
+    each path."""
+    import copy
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.cli import pretrain_cyclical as PC
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.models import layers as LY
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import attention as TA
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import losses as L
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.train import optim as TO
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+
+    bs_v, bs_o, bs_h, sub = PHASE23_SIZES
+    depth, n_test = 12, 64
+    n_train = max(bs_v, bs_o, bs_h) * 8
+    rs = np.random.RandomState(23)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+    zero = {k: 0 for k in kernel_counts(FA, TQ, DO)}
+    paths, steps, evals, passes, opt_holds = {}, [], [], [], []
+    watch = {"sync": None, "opt": None, "keep_model": False}
+    saved = {"ft": FT.make_finetune_train_step, "dist": FT.make_dist_finetune_train_step,
+             "cyc": PC.make_cyclical_train_step, "eval": FT.E.evaluate,
+             "build_ft": FT.B.build_optimizer, "hvp": TO.hutchinson_hessian_diag}
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def recording(make):
+        def make_step(model, *a, **k):
+            step = make(model, *a, **k)
+
+            def recorded(state, *args, **kw):
+                before = kernel_counts(FA, TQ, DO)
+                checked = len(steps) == watch["sync"]
+                start, end = events()
+                torch.cuda.reset_peak_memory_stats()
+                start.record()
+                if checked:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m = step(state, *args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                end.record()
+                after = kernel_counts(FA, TQ, DO)
+                steps.append({"model": model if watch["keep_model"] else None,
+                              "metrics": m, "events": (start, end),
+                              "sync": checked, "peak": torch.cuda.max_memory_allocated(),
+                              "launches": {n: after[n] - before[n] for n in after}})
+                return m
+
+            return recorded
+
+        return make_step
+
+    def timed_evaluate(*a, **k):
+        before = kernel_counts(FA, TQ, DO)
+        start, end = events()
+        start.record()
+        out = saved["eval"](*a, **k)
+        end.record()
+        after = kernel_counts(FA, TQ, DO)
+        evals.append({"out": out, "events": (start, end),
+                      "launches": {n: after[n] - before[n] for n in after}})
+        return out
+
+    def timed_hvp(loss_fn, params, generator):
+        before = kernel_counts(FA, TQ, DO)
+        start, end = events()
+        start.record()
+        d = saved["hvp"](loss_fn, params, generator)
+        end.record()
+        after = kernel_counts(FA, TQ, DO)
+        passes.append({"events": (start, end), "launches": {n: after[n] - before[n]
+                                                              for n in after}})
+        return d
+
+    def ms(rec):
+        torch.cuda.synchronize()
+        return rec["events"][0].elapsed_time(rec["events"][1])
+
+    def held_build(args, model, depth_):
+        """build_optimizer, and each update of it against a float64
+        recomputation: a float64 copy of the model and of the optimizer's
+        state before the update, the same gradients (and Hessian estimate)
+        cast up, the same transform."""
+        opt = saved["build_ft"](args, model, depth_)
+        if watch["opt"] is None:
+            return opt
+        shadow = saved["build_ft"](args, copy.deepcopy(model).double(), depth_)
+        chain = isinstance(opt, TO.ChainOptimizer)
+        step, upd = opt.step, {}
+
+        def capture(key, apply_):
+            def captured(params, updates):
+                upd[key] = [u.detach().double().clone() for u in updates]
+                if apply_ is not None:
+                    apply_(params, updates)
+            return captured
+
+        def held_step(lr, wd, hessian=None):
+            if opt.update_freq > 1 and opt.mini_step != opt.update_freq - 1:
+                return step(lr, wd, hessian=hessian)
+            shadow.load_state_dict(copy.deepcopy(opt.state_dict()))
+            with torch.no_grad():
+                for ps, p in zip(shadow.params, opt.params):
+                    ps.copy_(p)
+                    ps.grad = (torch.zeros_like(ps) if p.grad is None else p.grad.double())
+            before = [p.detach().double().clone() for p in opt.params]
+            if chain:
+                opt._apply = capture("f32", type(opt)._apply.__get__(opt))
+                shadow._apply = capture("f64", None)
+            norm = step(lr, wd, hessian=hessian)
+            shadow.step(lr, wd, hessian=None if hessian is None
+                        else [h.double() for h in hessian])
+            if not chain:  # torch AdamW: its update as the f32 parameters took it
+                upd["f32"] = [p.detach().double() - b for p, b in zip(opt.params, before)]
+                upd["f64"] = [ps.detach() - b for ps, b in zip(shadow.params, before)]
+            diff = math.sqrt(sum(float((a - b).square().sum())
+                                 for a, b in zip(upd["f32"], upd["f64"])))
+            size = math.sqrt(sum(float(b.square().sum()) for b in upd["f64"]))
+            # AdamW's update read back from the f32 parameters carries their
+            # rounding, half an ulp each
+            slack = 0.0 if chain else math.sqrt(sum(
+                float((torch.finfo(torch.float32).eps * p.detach().double().abs() / 2)
+                      .square().sum()) for p in opt.params))
+            opt_holds.append({"opt": watch["opt"], "rel": diff / size, "slack": slack / size})
+            check(diff <= OPT_UPDATE_REL_BOUND * size + slack,
+                  f"--opt {watch['opt']}: update {len(opt_holds)} is {diff / size:.3e} of its "
+                  f"norm from the float64 recomputation (slack {slack / size:.3e})")
+            return norm
+
+        opt.step = held_step
+        return opt
+
+    FT.make_finetune_train_step = recording(saved["ft"])
+    FT.make_dist_finetune_train_step = recording(saved["dist"])
+    PC.make_cyclical_train_step = recording(saved["cyc"])
+    FT.E.evaluate, FT.B.build_optimizer, TO.hutchinson_hessian_diag = (
+        timed_evaluate, held_build, timed_hvp)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, test_images, np.arange(n_test) % 100, "test")
+            pth = os.path.join(tmp, "vitb.pth")
+            write_vitb_pth(torch, dev, cfg, pth, 230)
+
+            def args_of(out, bs, *extra, module=FT):
+                common = ["--input_size", "224", "--data_set", "CIFAR100", "--data_path", tmp,
+                          "--batch_size", str(bs), "--num_workers", "4", "--output_dir", out]
+                if module is FT:
+                    common += ["--model", "beit_base_patch16_224", "--layer_decay", "0.65",
+                               "--drop_path", "0.1", "--warmup_epochs", "0",
+                               "--disable_eval_during_finetuning", "--nb_classes", "100"]
+                return module.get_args_parser().parse_args(common + list(extra))
+
+            def counted(path, fn, *a):
+                # the runs before hold their models and optimizers in
+                # reference cycles (the held optimizer's wrapped step): free them
+                gc.collect()
+                torch.cuda.empty_cache()
+                reset_kernel_counts(FA, TQ, DO)
+                first = len(steps)
+                out = fn(*a)
+                torch.cuda.synchronize()
+                paths[path] = kernel_counts(FA, TQ, DO)
+                print(f"  {path}: launches {paths[path]}", flush=True)
+                return out, steps[first:]
+
+            # --- 23a: the attention variants -------------------------------
+            print("  23a: the attention variants", flush=True)
+            x = torch.randn(sub * 2, 224, 224, 3, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(231))
+            for flag in ("--sinkformer", "--gumbel_softmax", "--h_sto_trans"):
+                name = flag.lstrip("-")
+                watch["sync"], watch["keep_model"] = len(steps) + 1, True
+                state, run = counted(f"cli12_{name}_train", FT.main, args_of(
+                    os.path.join(tmp, name), bs_v, flag, "--finetune", pth, "--epochs", "1",
+                    "--steps_per_epoch", "2", "--no_save_ckpt"))
+                check(len(run) == 2 and all(r["launches"] == zero for r in run),
+                      f"{flag}: the steps launched {[r['launches'] for r in run]}: the variant "
+                      "layers take no kernel of the port")
+                check(run[1]["sync"], f"{flag}: the step under sync debug mode did not run")
+                for r in run:
+                    for k in ("loss", "grad_norm"):
+                        check(math.isfinite(float(r["metrics"][k])), f"{flag}: {k} not finite")
+                watch["keep_model"] = False
+                step_ms = [ms(r) for r in run]
+                n_eval = len(evals)
+                out, _ = counted(f"cli12_{name}_eval", FT.main, args_of(
+                    os.path.join(tmp, name + "_eval"), 32, flag, "--eval", "--finetune", pth))
+                check(paths[f"cli12_{name}_eval"] == zero and len(evals) == n_eval + 1,
+                      f"{flag} --eval launched {paths[f'cli12_{name}_eval']}")
+                check(all(math.isfinite(v) for v in out["eval"].values()),
+                      f"{flag} --eval: {out['eval']}")
+                eval_ms = ms(evals[-1])
+                print(f"    {flag}: steps {[round(t, 2) for t in step_ms]} ms, "
+                      f"{bs_v * 1000 / step_ms[1]:.1f} img/s (phase 4's {step_rates['kernel']} at "
+                      f"160 on the kernels); --eval of {n_test} images {eval_ms:.1f} ms, "
+                      f"{n_test * 1000 / eval_ms:.1f} img/s; acc1 {out['eval']['acc1']:.4f}; "
+                      f"a step under sync debug mode", flush=True)
+                # the trained model's eval logits against a float64 copy on
+                # the same Gumbel noise (the same generator seed)
+                model = run[-1]["model"]
+                copies = {}
+                for dtype in (torch.float32, torch.float64):
+                    copies[dtype] = VisionTransformer(model.cfg, dtype=dtype, device=dev)
+                    copies[dtype].load_state_dict(model.state_dict(), strict=True)
+                m64 = copies[torch.float64].double()
+                record = {}
+
+                def recording_probs(scores, generator=None, tau=1.0, hard=False, dim=-1,
+                                    noise=None, _orig=TA.gumbel_softmax_probs):
+                    if noise is None:
+                        noise = TA.draw_gumbel(scores.shape, generator, scores.device)
+                    calls = record.setdefault(record["run"], [])
+                    if len(calls) < 2:  # block 0's draws: (scores + g)/tau, scores/tau
+                        calls.append(((scores.double() + noise.double()) / tau,
+                                      scores.double() / tau))
+                    return _orig(scores, generator, tau, hard, dim, noise)
+
+                LY.gumbel_softmax_probs = recording_probs
+                try:
+                    with torch.no_grad():
+                        record["run"] = "bf16"
+                        got = model.eval()(x[:sub], gumbel_generator=torch.Generator(
+                            device=dev).manual_seed(232))
+                        record["run"] = "f32"
+                        got32 = copies[torch.float32].eval()(
+                            x[:sub], gumbel_generator=torch.Generator(device=dev).manual_seed(232))
+                        record["run"] = "f64"
+                        want = m64.eval()(x[:sub].double(), gumbel_generator=torch.Generator(
+                            device=dev).manual_seed(232))
+                finally:
+                    LY.gumbel_softmax_probs = TA.gumbel_softmax_probs
+                check(bool(torch.isfinite(got).all()), f"{flag}: non-finite logits")
+                if name != "h_sto_trans":
+                    # the variant in f32 against float64 (held), and the
+                    # driver's bf16 compute beside it
+                    err = float((got32.double() - want).abs().max() / want.abs().max())
+                    err_bf16 = float((got.double() - want).abs().max() / want.abs().max())
+                    print(f"    {flag}: the trained weights' logits of {sub} images in f32 "
+                          f"{err:.3e} of max|logit| from the float64 copy on the same noise "
+                          f"(bound {VARIANT_LOGIT_REL_BOUND}); in the driver's bf16 "
+                          f"{err_bf16:.3e}", flush=True)
+                    check(err <= VARIANT_LOGIT_REL_BOUND and err_bf16 <= VARIANT_LOGIT_REL_BOUND,
+                          f"{flag}: the logits are {err:.3e} (f32), {err_bf16:.3e} (bf16) of "
+                          "max|logit| from float64")
+                    continue
+                # block 0's two hard draws: the keys onto the codebook
+                # [B, N, H, C], then the weights [B, H, N, N]. Both runs add
+                # the same f32 noise, so (scores + g)/tau differs between them
+                # by the scores' error alone, held within the variants' bound
+                # of max|scores|/tau. A key whose first draw flipped changes
+                # its image-head's whole second draw, so the second is held
+                # on the image-heads without one
+                ((z0, s0), (z1, s1)), ((w0, v0), (w1, v1)) = record["bf16"], record["f64"]
+                flipped = z0.argmax(-1) != w0.argmax(-1)  # [B, N, H]
+                clean = ~flipped.any(dim=1)  # [B, H]
+                rows = [(z0, w0, v0, torch.ones_like(flipped)),
+                        (z1, w1, v1, clean[:, :, None].expand(z1.shape[:-1]))]
+                for i, (z, z64, s64, valid) in enumerate(rows):
+                    top2 = z64.topk(2, dim=-1).values
+                    gap = top2[..., 0] - top2[..., 1]
+                    err = float((z - z64).abs().amax(-1)[valid].max())
+                    scale = float(s64.abs().amax(-1)[valid].max())
+                    decided = (gap > HARD_GAP_FACTOR * err) & valid
+                    same = z.argmax(-1) == z64.argmax(-1)
+                    n_held, n_all = int(valid.sum()), z.numel() // z.shape[-1]
+                    print(f"    {flag}: block 0 draw {i}: scores/tau {err:.3e} from the float64 "
+                          f"copy's, {err / scale:.3e} of their max {scale:.3e} (bound "
+                          f"{VARIANT_LOGIT_REL_BOUND}); argmax equal on "
+                          f"{int((same & decided).sum())} of {int(decided.sum())} positions whose "
+                          f"float64 top-two gap exceeds {HARD_GAP_FACTOR} x {err:.3e} (of "
+                          f"{n_held} held, {n_all} in all); {int((~same).sum())} flips in all",
+                          flush=True)
+                    check(err <= VARIANT_LOGIT_REL_BOUND * scale,
+                          f"{flag}: draw {i}'s scores are {err / scale:.3e} of their max from "
+                          "float64")
+                    check(bool(same[decided].all()),
+                          f"{flag}: a hard draw's argmax differs from float64 beyond its gap")
+                    check(2 * n_held > n_all and 2 * int(decided.sum()) > n_held,
+                          f"{flag}: draw {i} decided {int(decided.sum())} of {n_held} held "
+                          f"positions ({n_all} in all): not most")
+                run[-1]["model"] = None
+                del m64, copies, model, state
+
+            # --- 23b: every --opt ------------------------------------------
+            print("  23b: every --opt through cli.finetune, each update against float64",
+                  flush=True)
+            for opt_name, uf in [(n, 1) for n in PHASE23_OPTS] + [("lamb", 2)]:
+                watch["opt"] = opt_name
+                tag = opt_name + ("_uf2" if uf > 1 else "")
+                n0 = len(opt_holds)
+                _, run = counted(f"cli12_opt_{tag}", FT.main, args_of(
+                    os.path.join(tmp, "opt_" + tag), bs_o, "--opt", opt_name, "--finetune", pth,
+                    "--epochs", "1", "--steps_per_epoch", str(3 * uf), "--update_freq", str(uf),
+                    "--clip_grad", "1.0", "--weight_decay_end", "0.1", "--no_save_ckpt"))
+                check(len(run) == 3 * uf and len(opt_holds) - n0 == 3,
+                      f"--opt {tag}: {len(run)} steps, {len(opt_holds) - n0} updates held")
+                for r in run:
+                    check(r["launches"] == dict(zero, K1=depth, K2=depth),
+                          f"--opt {tag}: a step launched {r['launches']}")
+                    check(math.isfinite(float(r["metrics"]["loss"])), f"--opt {tag}: loss")
+                rels = [f"{h['rel']:.2e}" for h in opt_holds[n0:]]
+                print(f"    --opt {tag}: K1 12 / K2 12 a step; the 3 updates {rels} of their "
+                      f"norm from float64; {[round(ms(r), 1) for r in run]} ms a step", flush=True)
+            watch["opt"] = None
+            # a resumed run equal to the straight one: the second epoch again
+            # from the straight run's checkpoint-0.pth (the same --epochs, so
+            # the same schedules)
+            resumed_args = ["--opt", "adafactor", "--finetune", pth, "--steps_per_epoch", "2",
+                            "--save_ckpt_freq", "1", "--epochs", "2"]
+            straight, _ = counted("cli12_opt_adafactor_straight", FT.main, args_of(
+                os.path.join(tmp, "straight"), bs_o, *resumed_args))
+            os.makedirs(os.path.join(tmp, "resumed"))
+            os.replace(os.path.join(tmp, "straight", "checkpoint-0.pth"),
+                       os.path.join(tmp, "resumed", "checkpoint-0.pth"))
+            again, _ = counted("cli12_opt_adafactor_resume", FT.main, args_of(
+                os.path.join(tmp, "resumed"), bs_o, *resumed_args))
+            check(again.step == straight.step == 4, f"steps {again.step}, {straight.step}")
+            # the shared rel-pos table's gradient is a scatter-add (atomics),
+            # so the two runs may part in its last bits and carry that on; a
+            # lost or wrong optimizer state moves the parameters by the size
+            # of the epoch's own update
+            ckpt = C.load_torch_state_dict(os.path.join(tmp, "resumed", "checkpoint-0.pth"))
+            diff = moved = 0.0
+            equal = 0
+            for k, v in straight.model.state_dict().items():
+                w = again.model.state_dict()[k]
+                equal += int(torch.equal(v, w))
+                diff += float((v.double() - w.double()).square().sum())
+                moved += float((v.double() - ckpt[k].to(dev).double()).square().sum())
+            rel = math.sqrt(diff / moved)
+            print(f"    --opt adafactor: the second epoch auto-resumed from the straight run's "
+                  f"checkpoint-0.pth: {equal} of {len(ckpt)} tensors equal to the bit, the rest "
+                  f"{rel:.3e} of the epoch's update from it (bound {RESUME_REL_BOUND})",
+                  flush=True)
+            check(rel <= RESUME_REL_BOUND, "the resumed run parts from the straight one")
+            del straight, again, ckpt
+
+            # --- 23c: AdaHessian -------------------------------------------
+            print(f"  23c: one AdaHessian step at batch {bs_h} through each engine", flush=True)
+
+            def hessian_step(path, want, module, *argv):
+                """Three AdaHessian steps through a driver; the third (warm)
+                one timed, its loss read after the second step's update.
+                The lr warms up over ten epochs of three steps (base·k/29 at
+                step k), as the recipes warm up over thousands: the first
+                update is at lr 0, the second at base/29. AdaHessian's
+                update is lr·g/(|D| + eps): from seeded weights, the full
+                lr at a near-zero D sent the next loss to NaN."""
+                n_pass = len(passes)
+                _, run = counted(path, module.main, args_of(
+                    os.path.join(tmp, path), bs_h, "--opt", "adahessian", "--epochs", "1",
+                    "--steps_per_epoch", "3", "--no_save_ckpt", "--warmup_epochs", "10", *argv,
+                    module=module))
+                check(len(run) == 3 and len(passes) == n_pass + 3,
+                      f"{path}: {len(run)} steps, {len(passes) - n_pass} Hessian passes")
+                for r, p in zip(run, passes[n_pass:]):
+                    check(p["launches"] == zero,
+                          f"{path}: the Hessian pass launched {p['launches']}")
+                    check(r["launches"] == dict(zero, **want),
+                          f"{path}: the step launched {r['launches']}, expected {want}")
+                    check(math.isfinite(float(r["metrics"]["loss"])), f"{path}: loss not finite")
+                lrs = [float(r["metrics"]["lr"]) for r in run]
+                check(lrs[1] > 0, f"{path}: the lrs {lrs} leave no nonzero update before the "
+                      "last loss")
+                r, p = run[-1], passes[-1]
+                total, hvp = ms(r), ms(p)
+                print(f"    {path}: lrs {lrs}, losses "
+                      f"{[round(float(q['metrics']['loss']), 5) for q in run]} (the last after "
+                      f"an update at lr {lrs[1]:.3e}); the third step {total:.2f} ms = Hessian "
+                      f"pass {hvp:.2f} + the rest {total - hvp:.2f} (transform, mixup, gradient, "
+                      f"update; the first two {ms(run[0]):.2f}, {ms(run[1]):.2f}); peak "
+                      f"{r['peak'] / 2**30:.2f} GiB; kernels {r['launches']} a step in its own "
+                      "gradient, none in the pass", flush=True)
+                return total, hvp
+
+            timing = {}
+            timing["finetune"] = hessian_step(
+                "cli12_adahessian", {"K1": depth, "K2": depth}, FT, "--finetune", pth)
+            timing["int8"] = hessian_step(
+                "cli12_adahessian_int8", {"K1": depth, "K2": depth, "K6": 8 * depth,
+                                          "K7": 4 * depth}, FT, "--finetune", pth,
+                "--quant", "int8")
+            timing["cyclical"] = hessian_step(
+                "cli12_adahessian_cyclical", {"K1": 2 * depth, "K2": depth}, PC,
+                "--model", "beit_base_patch16_224", "--num_mask_patches", "120",
+                "--target_layers", "[6,7,8,9,10,11]", "--ema_decay", "0.9998",
+                "--ema_start_at", "0", "--ema_decay_init", "0.999", "--lr", "2e-3",
+                "--warmup_epochs", "10", "--clip_grad", "3.0", "--drop_path", "0.25",
+                "--layer_scale_init_value", "0.1", "--layer_results", "end",
+                "--max_mask_patches_per_block", "196", "--min_mask_patches_per_block", "16",
+                "--attn_drop_rate", "0.05")
+            timing["stochastic"] = hessian_step(
+                "cli12_adahessian_stochastic", {}, FT, "--stochastic", "--model",
+                "dist_beit_base_patch16_224", "--drop", "0.0")
+            # the update's share, alone: the adahessian chain over ViT-B's
+            # parameters on the gradient and estimate of one step
+            model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(233))
+            opt = TO.make_optimizer(model, opt_name="adahessian", weight_decay=0.05,
+                                    layer_decay=0.65, depth=depth)
+            grads = [torch.randn_like(p) * 1e-3 for p in opt.params]
+            hess = [torch.randn_like(p) for p in opt.params]
+
+            def update():
+                for p, g in zip(opt.params, grads):
+                    p.grad = g
+                opt.step(1e-4, 0.05, hessian=hess)
+
+            update_ms = cuda_ms(update, 5)
+            print(f"    the adahessian update alone (86.6 M parameters): {update_ms:.3f} ms; "
+                  f"the finetune step's gradient therefore "
+                  f"{timing['finetune'][0] - timing['finetune'][1] - update_ms:.2f} ms",
+                  flush=True)
+            del model, opt, grads, hess
+            # z ⊙ Hz of an f32 step on a sub-batch against a float64 copy
+            # with the same z (the same generator seed)
+            m32 = VisionTransformer(cfg, dtype=torch.float32, device=dev)
+            state, _, _ = C.import_torch_state_dict(C.load_torch_state_dict(pth),
+                                                    m32.state_dict())
+            m32.load_state_dict(state, strict=True)
+            m64 = VisionTransformer(cfg, dtype=torch.float64, device=dev)
+            m64.load_state_dict(m32.state_dict(), strict=True)
+            m64.double()
+            xs = x[:sub]
+            target = torch.nn.functional.one_hot(torch.arange(sub, device=dev) % 100,
+                                                 100).float()
+
+            def estimate(model, dtype):
+                def loss():
+                    return L.soft_target_cross_entropy(model.eval()(xs.to(dtype)),
+                                                       target.to(dtype))
+                return saved["hvp"](loss, list(model.parameters()),
+                                    torch.Generator(device=dev).manual_seed(234))
+
+            d32, d64 = estimate(m32, torch.float32), estimate(m64, torch.float64)
+            diff = math.sqrt(sum(float((a.double() - b).square().sum()) for a, b in zip(d32, d64)))
+            size = math.sqrt(sum(float(b.square().sum()) for b in d64))
+            print(f"    z . Hz of an f32 step on {sub} images: {diff / size:.3e} of its norm from "
+                  f"the float64 copy's (bound {HVP_REL_BOUND})", flush=True)
+            check(diff <= HVP_REL_BOUND * size, "z . Hz disagrees with the float64 copy's")
+            del m32, m64, d32, d64
+    finally:
+        FT.make_finetune_train_step = saved["ft"]
+        FT.make_dist_finetune_train_step = saved["dist"]
+        PC.make_cyclical_train_step = saved["cyc"]
+        FT.E.evaluate, FT.B.build_optimizer, TO.hutchinson_hessian_diag = (
+            saved["eval"], saved["build_ft"], saved["hvp"])
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6379,6 +6891,9 @@ def main() -> int:
     cli11 = run(22, "the dist (mean+covariance) model through the drivers: --stochastic "
                     "training, --eval --stochastic, cyclical --stochastic; step 0 against "
                     "float64", phase22, torch, FA, dev, step_rates, cyclical_rates)
+    cli12 = run(23, "slice 12 through the drivers: the attention variants, every --opt against "
+                    "float64, AdaHessian through each engine", phase23, torch, FA, dev,
+                step_rates)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -6404,7 +6919,9 @@ def main() -> int:
     # --eval of the MIM checkpoint (the dVAE trainer launches none)
     # and phase 22's ("cli11_"): the dist model's training, evaluation and
     # cyclical pretraining, which launch no kernel of the port
-    dist_paths = {path: dict(n) for path, n in cli11.items()}
+    # and phase 23's ("cli12_"): the variants' training and --eval (no kernel
+    # in their layers), every --opt's 3 updates, the AdaHessian steps
+    dist_paths = {path: dict(n) for path, n in {**cli11, **cli12}.items()}
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},

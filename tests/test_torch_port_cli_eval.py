@@ -17,7 +17,6 @@ another order; tests/test_torch_port_eval.py holds the metrics alone at
 set, are restored afterwards.
 """
 
-import argparse
 import json
 import math
 import pickle
@@ -31,7 +30,6 @@ from uncertainty_vit_tpu.cli import finetune as JFT
 from uncertainty_vit_tpu.models import registry as JREG
 from uncertainty_vit_tpu.models.dist_vit import DistCyclicalViT as JDistCyclical
 from uncertainty_vit_tpu.models.dist_vit import DistVisionTransformer as JDistViT
-from uncertainty_vit_tpu_torch.cli import builders as TB
 from uncertainty_vit_tpu_torch.cli import common as TCOMMON
 from uncertainty_vit_tpu_torch.cli import finetune as TFT
 from uncertainty_vit_tpu_torch.core.config import get_preset
@@ -238,12 +236,13 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
         TFT.load_variables(targs, TFT.build_model(targs, 100, device="cpu")[0])
 
 
-# the heads and the post-hoc evaluations under --seq_parallel: ROADMAP.md item 21
+# the heads, the post-hoc evaluations and the attention variants under
+# --seq_parallel: ROADMAP.md item 21
 SEQ_NOT_PORTED = ["--sngp", "--gp_layer", "--het_layer", "--corrupted_data", "--perturbed_data",
-                  "--laplace", "--temp_scaling", "--visualize_embedding"]
+                  "--laplace", "--temp_scaling", "--visualize_embedding", "--sinkformer",
+                  "--gumbel_softmax", "--h_sto_trans"]
 NOT_PORTED = [
-    ["--sinkformer"],
-    ["--gumbel_softmax"], ["--h_sto_trans"], ["--seq_parallel", "2", "--mc_dropout"],
+    ["--seq_parallel", "2", "--mc_dropout"],
     *[["--seq_parallel", "2", flag] for flag in SEQ_NOT_PORTED],
     ["--ensembles", "--ensemble_checkpoints", "member_dir"],
 ]
@@ -382,16 +381,6 @@ def test_create_model_matches_jax():
         assert _fields(cfg) == _fields(jcfg)
     with pytest.raises(ValueError):
         TREG.create_model("vit_tiny", device="cpu")
-
-
-def test_builders_refuse_unported_model_flags():
-    """model_config_from_args raises for each flag of NOT_PORTED_MODEL_FLAGS."""
-    parser = argparse.ArgumentParser()
-    TB.add_model_args(parser)
-    for flag in TB.NOT_PORTED_MODEL_FLAGS:
-        args = parser.parse_args([f"--{flag}"])
-        with pytest.raises(NotImplementedError, match=f"--{flag}"):
-            TB.model_config_from_args(args, 10)
 
 
 def test_driver_runs_as_a_module():

@@ -50,6 +50,7 @@ from uncertainty_vit_tpu_torch.train import engine_finetune as TE
 from uncertainty_vit_tpu_torch.train.optim import freeze_all_except
 from uncertainty_vit_tpu_torch.utils import checkpoint as TC
 from uncertainty_vit_tpu_torch.utils import logging as TL
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 UPDATE_RTOL = 1e-5
 N_TRAIN, N_TEST, BATCH = 64, 32, 16

@@ -217,13 +217,6 @@ def test_masks_are_the_host_ops_from_the_step_generator(root, tmp_path, monkeypa
         np.testing.assert_array_equal(masks.numpy(), want)
 
 
-@pytest.mark.parametrize("extra,match", [(["--opt", "adahessian"], "slice 12")],
-                         ids=["adahessian"])
-def test_unported_flags_raise(root, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _run(root, tmp_path, "--epochs", "1", *extra)
-
-
 def test_handoff_to_finetune_matches_jax(root, tmp_path, capsys):
     """A pretraining checkpoint-0.pth through cli.finetune --finetune: the
     missing and unused keys JAX's import gives on the same state dict, the

@@ -42,6 +42,7 @@ from uncertainty_vit_tpu_torch.models import registry as TREG
 from uncertainty_vit_tpu_torch.ops import losses as TL
 from uncertainty_vit_tpu_torch.train import optim as TO
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 TINY = dict(img_size=32, patch_size=16, embed_dim=16, depth=2, num_heads=2, num_classes=5,
             init_values=0.1, use_shared_rel_pos_bias=True, use_abs_pos_emb=False,

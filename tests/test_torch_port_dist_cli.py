@@ -47,6 +47,7 @@ from uncertainty_vit_tpu_torch.evals import robustness as TR
 from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT, DistVisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 N_TRAIN, N_TEST, BATCH = 48, 32, 16
 METRIC_ATOL = 1e-4

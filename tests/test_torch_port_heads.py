@@ -37,6 +37,7 @@ from uncertainty_vit_tpu_torch.train import engine_finetune as TE
 from uncertainty_vit_tpu_torch.train import optim as TO
 from uncertainty_vit_tpu_torch.train import schedules as TS
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 # the model of these tests: 2 blocks of width 64 at 32x32, the plain attention
 SMALL = dict(img_size=32, patch_size=16, embed_dim=64, depth=2, num_heads=1, num_classes=10,

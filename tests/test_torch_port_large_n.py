@@ -222,7 +222,8 @@ def test_deep_model_eval_logits_match_jax(stream_routes):
     jmodel, params, images, _ = _jax_model(DEEP, seed=1)
     model = TC.load_flax_params(VisionTransformer(TViTConfig(**DEEP), device="cpu"), params)
     assert FA._route(2, 64, 17) == "stream" and TFA.route(17) == "stream"
-    ref = jmodel.apply({"params": params}, jnp.asarray(images))
+    # jitted: the interpret-mode kernels run eagerly otherwise, op by op
+    ref = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(images))
     with torch.no_grad():
         out = model.eval()(torch.from_numpy(images))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
@@ -253,7 +254,7 @@ def test_deep_model_train_step_matches_jax_engine(stream_routes):
                                     "droppath": jax.random.PRNGKey(2)})
         return JL.soft_target_cross_entropy(logits, targets)
 
-    jgrads = TC.flax_to_state_dict(jax.grad(loss_fn)(params))
+    jgrads = TC.flax_to_state_dict(jax.jit(jax.grad(loss_fn))(params))
 
     opt = TO.make_optimizer(model, weight_decay=0.05, layer_decay=0.75, depth=24)
     tstate = TE.init_finetune_state(model, opt)

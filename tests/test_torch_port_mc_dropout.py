@@ -33,6 +33,7 @@ from uncertainty_vit_tpu_torch.evals import mc_dropout as TMC
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
 from uncertainty_vit_tpu_torch.utils.checkpoint import flax_to_state_dict, load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 DEPTH = 3
 BASE = dict(img_size=32, patch_size=16, embed_dim=128, depth=DEPTH, num_heads=2, num_classes=10,

@@ -43,6 +43,7 @@ from uncertainty_vit_tpu_torch.models import dvae as TD
 from uncertainty_vit_tpu_torch.ops import augment as TA
 from uncertainty_vit_tpu_torch.ops import losses as TL
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 FWD = dict(rtol=2e-4, atol=2e-5)
 DVAE = dict(image_size=32, num_tokens=64, codebook_dim=12, num_layers=2, hidden_dim=8)

@@ -57,6 +57,7 @@ from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
 from uncertainty_vit_tpu_torch.ops import masking as TM
 from uncertainty_vit_tpu_torch.train.engine_cyclical import mask_generator
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 N_TRAIN, BATCH = 48, 8
 TOKENIZER = ["--vocab_size", "64", "--dvae_num_layers", "2", "--dvae_hidden_dim", "8"]
@@ -381,15 +382,13 @@ def test_pretrain_beit_reads_dall_e_pickles(root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("module,extra,error,match", [
-    (PB, ["--opt", "adahessian"], NotImplementedError, "slice 12"),
-    (PJ, ["--opt", "adahessian"], NotImplementedError, "slice 12"),
     (PB, ["--resume", "x.pth"], ValueError, "--auto_resume"),
     (PB, ["--finetune", "x.pth"], ValueError, "--auto_resume"),
     (PJ, ["--mask_dropout_prob", "0.2"], ValueError, "mask dropout"),
     (PB, ["--stochastic"], ValueError, "not read by this driver"),
     (PJ, ["--stochastic"], ValueError, "not read by this driver"),
     (PB, ["--discrete_vae_weight_path", "dvae_dir"], NotImplementedError, "orbax"),
-], ids=["beit_adahessian", "joint_adahessian", "beit_resume", "beit_finetune",
+], ids=["beit_resume", "beit_finetune",
         "joint_mask_dropout", "beit_stochastic", "joint_stochastic", "beit_orbax_dir"])
 def test_unported_and_unknown_flags_raise(root, tmp_path, module, extra, error, match):
     with pytest.raises(error, match=match):

@@ -54,6 +54,7 @@ from uncertainty_vit_tpu_torch.train import engine_mim as TE
 from uncertainty_vit_tpu_torch.train import optim as TO
 from uncertainty_vit_tpu_torch.train import schedules as TS
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 SMALL = dict(img_size=32, patch_size=16, embed_dim=64, depth=2, num_heads=1, init_values=0.1,
              use_shared_rel_pos_bias=True, use_abs_pos_emb=False, head_type="none")

@@ -41,6 +41,7 @@ from uncertainty_vit_tpu_torch.train import engine_finetune as TE
 from uncertainty_vit_tpu_torch.train import optim as TO
 from uncertainty_vit_tpu_torch.train import schedules as TS
 from uncertainty_vit_tpu_torch.utils.checkpoint import flax_to_state_dict, load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 # the int8 model of tests/test_quant.py:164-168: width 128, depth 2, mlp 256
 INT8 = dict(img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2, num_classes=5,

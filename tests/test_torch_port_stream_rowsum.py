@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 B, H, D = 2, 2, 64
 C = H * D

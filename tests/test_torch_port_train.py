@@ -43,6 +43,7 @@ from uncertainty_vit_tpu_torch.train.ema import ema_on_update_boundary, ema_upda
 from uncertainty_vit_tpu_torch.utils.checkpoint import (
     flax_leaves_by_torch_key, flax_to_state_dict, load_flax_params,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 # the small model of the train-step test: depth 2, 2 heads of 64, image 32
 SMALL = dict(img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2,
@@ -256,9 +257,12 @@ def test_adamw_steps_match_optax_chain(clip):
 
 
 def test_other_optimizers_raise():
+    """Every name of the JAX make_optimizer builds
+    (tests/test_torch_port_optim_chain.py holds them); another name raises
+    ValueError, as JAX's does."""
     _, _, model, _, _ = _small()
-    with pytest.raises(NotImplementedError):
-        TO.make_optimizer(model, opt_name="lamb")
+    with pytest.raises(ValueError, match="not supported"):
+        TO.make_optimizer(model, opt_name="lambada")
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from tests.test_torch_port_randaugment import jax_round_draws
 from uncertainty_vit_tpu.ops import augment as JA
 from uncertainty_vit_tpu_torch.ops import augment as TA
+from torch_threads import one_torch_thread  # noqa: F401  (autouse, module-scoped)
 
 RESAMPLE_ATOL = 1e-5
 NORMALIZED_ATOL = 1e-4

@@ -9,8 +9,8 @@ unchanged; ``model_config_from_args`` (:216-254), ``build_lr_schedules`` and
 ``build_discrete_vae`` (:414-458) and ``check_finite_or_die``.
 
 A parsed flag whose feature the port does not have yet raises
-``NotImplementedError`` here with the ROADMAP item that ports it; none is
-ignored.
+``NotImplementedError`` where it is read, with the ROADMAP item that ports
+it; none is ignored.
 """
 
 from __future__ import annotations
@@ -25,14 +25,7 @@ from uncertainty_vit_tpu_torch.core.config import PRESETS, ViTConfig, get_preset
 from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader, host_shard
 from uncertainty_vit_tpu_torch.data.registry import build_dataset
 from uncertainty_vit_tpu_torch.train import schedules
-from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW, make_optimizer
-
-# flag → (what it turns on, where the ROADMAP ports it); a set flag raises
-NOT_PORTED_MODEL_FLAGS = {
-    "sinkformer": ("the sinkformer attention", "item 20, slice 12"),
-    "gumbel_softmax": ("the Gumbel-softmax attention", "item 20, slice 12"),
-    "h_sto_trans": ("the dual stochastic attention", "item 20, slice 12"),
-}
+from uncertainty_vit_tpu_torch.train.optim import Optimizer, make_optimizer
 
 
 INIT_SCALE = 0.001  # --init_scale's default (run_class_finetuning.py:357)
@@ -265,16 +258,25 @@ def add_io_args(p: argparse.ArgumentParser):
     return g
 
 
+def attn_variant(args) -> str:
+    """The attention variant of the parsed flags (JAX :223-229):
+    --sinkformer, else --gumbel_softmax, else --h_sto_trans (dual_sto),
+    else softmax."""
+    if args.sinkformer:
+        return "sinkformer"
+    if args.gumbel_softmax:
+        return "gumbel"
+    if args.h_sto_trans:
+        return "dual_sto"
+    return "softmax"
+
+
 def model_config_from_args(args, num_classes: int) -> ViTConfig:
-    """The ViTConfig of the parsed flags (softmax attention); raises for a
-    flag of NOT_PORTED_MODEL_FLAGS. The head (JAX :216-249): --het_layer the
-    heteroscedastic head; --gp_layer or --sngp the SNGP head (the
-    reference's intended head, which its linear head overwrites), --sngp
-    also with the spectral-norm fc_norm; --sngp_cov_momentum the precision
-    matrix's momentum."""
-    for flag, (what, where) in NOT_PORTED_MODEL_FLAGS.items():
-        if getattr(args, flag, False):
-            raise not_ported(flag, what, where)
+    """The ViTConfig of the parsed flags. The head (JAX :216-249):
+    --het_layer the heteroscedastic head; --gp_layer or --sngp the SNGP head
+    (the reference's intended head, which its linear head overwrites),
+    --sngp also with the spectral-norm fc_norm; --sngp_cov_momentum the
+    precision matrix's momentum; the attention variant ``attn_variant``."""
     head_type = "linear"
     if args.het_layer:
         head_type = "het"
@@ -297,6 +299,7 @@ def model_config_from_args(args, num_classes: int) -> ViTConfig:
         use_rel_pos_bias=args.per_block_rel_pos_bias,
         use_shared_rel_pos_bias=args.rel_pos_bias,
         quant=getattr(args, "quant", "none"),
+        attn_variant=attn_variant(args),
         head_type=head_type,
         sngp_fc_norm=args.sngp,
         sngp_momentum=getattr(args, "sngp_cov_momentum", 0.999),
@@ -334,13 +337,15 @@ def build_lr_schedules(args, steps_per_epoch: int
     return lr, wd, total
 
 
-def build_optimizer(args, model: torch.nn.Module, depth: int) -> LayerDecayAdamW:
-    """AdamW over the model's parameters with the flags' weight decay (not
-    on pos_embed, cls_token, ≤ 1-D parameters, nor, with
+def build_optimizer(args, model: torch.nn.Module, depth: int) -> Optimizer:
+    """The --opt optimizer (``train.optim.make_optimizer``: every name of
+    the JAX make_optimizer, ``fused*`` and ``lookahead_*`` too) over the
+    model's parameters with the flags' weight decay (not on pos_embed,
+    cls_token, ≤ 1-D parameters, nor, with
     --disable_weight_decay_on_rel_pos_bias, the rel-pos tables), clip,
-    betas, eps, --layer_decay (below 1: per-layer lr scales) and
-    --update_freq (the mini-steps accumulated per update). Another --opt
-    raises."""
+    betas, eps, --momentum, --layer_decay (below 1: per-layer lr scales)
+    and --update_freq (the mini-steps accumulated per update). An unknown
+    name raises ValueError."""
     skip = ["pos_embed", "cls_token"]
     if getattr(args, "disable_weight_decay_on_rel_pos_bias", False):
         skip.append("relative_position_bias_table")
@@ -348,7 +353,7 @@ def build_optimizer(args, model: torch.nn.Module, depth: int) -> LayerDecayAdamW
         model, opt_name=args.opt, skip_names=tuple(skip), weight_decay=args.weight_decay,
         clip_grad=args.clip_grad, betas=tuple(args.opt_betas), eps=args.opt_eps,
         layer_decay=args.layer_decay if args.layer_decay < 1.0 else None, depth=depth,
-        update_freq=max(1, args.update_freq),
+        update_freq=max(1, args.update_freq), momentum=args.momentum,
     )
 
 

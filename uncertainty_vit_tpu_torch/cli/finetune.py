@@ -66,8 +66,9 @@ another model (``--mc_dropout``, ``--ensembles``,
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports it: under ``--seq_parallel``
 (item 21) ``--mc_dropout``, the head flags and the post-hoc evaluations;
-the flags of ``builders.NOT_PORTED_MODEL_FLAGS``, an optimizer other than
-adamw, and a ``--finetune``, ``--resume`` or ensemble member that is not a
+the attention variants, ``--opt adahessian`` in training, and under a
+gumbel or dual_sto attention ``--laplace`` and ``--visualize_embedding``;
+and a ``--finetune``, ``--resume`` or ensemble member that is not a
 ``.pth``. Attention dropout in training under ``--seq_parallel`` raises
 ``ValueError``, as the JAX package's attention does.
 """
@@ -85,6 +86,7 @@ import torch
 
 from uncertainty_vit_tpu_torch.cli import builders as B
 from uncertainty_vit_tpu_torch.cli.common import setup
+from uncertainty_vit_tpu_torch.core.config import GUMBEL_VARIANTS, draws_gumbel
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.data import datasets as D
 from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader, device_prefetch
@@ -106,12 +108,13 @@ from uncertainty_vit_tpu_torch.ops.augment import (
 )
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.engine_finetune import (
-    FinetuneHParams, init_finetune_state, make_finetune_train_step, step_generators,
+    FinetuneHParams, init_finetune_state, make_finetune_train_step, optional_streams,
+    step_generators,
 )
 from uncertainty_vit_tpu_torch.train.engine_finetune_dist import (
     DistFinetuneHParams, make_dist_finetune_train_step,
 )
-from uncertainty_vit_tpu_torch.train.optim import freeze_all_except
+from uncertainty_vit_tpu_torch.train.optim import freeze_all_except, needs_hessian
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
 from uncertainty_vit_tpu_torch.utils.embeddings import visualize_embedding
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
@@ -126,6 +129,16 @@ NOT_PORTED_UNDER_SEQ = {
     "perturbed_data": "the perturbation benchmark (-P)",
     "laplace": "the last-layer Laplace posterior",
     "temp_scaling": "temperature scaling",
+    "visualize_embedding": "the embedding dump",
+    "sinkformer": "the sinkformer attention",
+    "gumbel_softmax": "the Gumbel-softmax attention",
+    "h_sto_trans": "the dual stochastic attention",
+}
+
+# what a model that draws Gumbel noise in every forward does not run yet:
+# their forwards take no generator (ROADMAP.md item 20's rest)
+NOT_PORTED_WITH_GUMBEL = {
+    "laplace": "the last-layer Laplace posterior",
     "visualize_embedding": "the embedding dump",
 }
 
@@ -404,10 +417,11 @@ def _mc_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor],
 
 def _default_eval_forward(args, model: VisionTransformer) -> Callable[[torch.Tensor], torch.Tensor]:
     """The deterministic eval forward for the -C / -P and temperature
-    dispatches; with --het_layer each call draws the head's noise from a
-    fresh generator of the --seed stream (JAX :311-321)."""
-    if args.het_layer:
-        fwd = E.make_eval_forward(model, het=True)
+    dispatches; with --het_layer, or a gumbel / dual_sto attention, each
+    call draws the noise from a fresh generator of the --seed stream (JAX
+    :311-321)."""
+    if E.draws_in_eval(model, args.het_layer):
+        fwd = E.make_eval_forward(model, het=args.het_layer)
         fresh = per_call_generator(args.seed, _device_of(model))
         return lambda imgs: fwd(imgs, fresh())
     return E.make_eval_forward(model)
@@ -418,6 +432,9 @@ def _ensemble_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Te
     ensembles_p_evaluate, uncertainty_evaluations.py:393-476, 724-737)."""
     stacked = stack_params(_load_ensemble_members(args, model))
     efwd = make_ensemble_forward(model)
+    if draws_gumbel(model.cfg):
+        fresh = per_call_generator(args.seed, _device_of(model))
+        return lambda imgs: ensemble_mean_logits(efwd(stacked, imgs, fresh()))
     return lambda imgs: ensemble_mean_logits(efwd(stacked, imgs))
 
 
@@ -566,7 +583,7 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
         )
     elif args.ensembles:
         results["ensembles"] = E.evaluate_ensemble(
-            model, stack_params(_load_ensemble_members(args, model)), batches())
+            model, stack_params(_load_ensemble_members(args, model)), batches(), seed=args.seed)
     elif args.stochastic:
         results["dist_eval"] = E.evaluate_dist(model, batches())
     elif args.laplace:
@@ -597,6 +614,8 @@ def _check_seq_flags(args) -> None:
     for flag, what in NOT_PORTED_UNDER_SEQ.items():
         if getattr(args, flag, False) and (args.eval or flag != "mc_dropout"):
             raise B.not_ported(flag, f"{what} under --seq_parallel", "item 21")
+    if not args.eval and needs_hessian(args.opt):
+        raise B.not_ported("opt", "the AdaHessian pass under --seq_parallel", "item 21")
     if not args.eval and args.attn_drop_rate > 0:
         raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel dropout "
                          "seeds are not defined across re-sharded grids)")
@@ -650,6 +669,8 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
         interpolation=B.interp_method(args.train_interpolation), re_mode=args.remode,
         re_count=args.recount, **_aa_kwargs(args))
+    # the AdaHessian pass (JAX :632, 655) and the Gumbel stream of the steps
+    use_hessian, gumbel = needs_hessian(args.opt), draws_gumbel(cfg)
     mix = dict(num_classes=nb_classes, mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
                mixup_prob=args.mixup_prob, mixup_switch_prob=args.mixup_switch_prob,
                label_smoothing=args.smoothing, mixup_active=B.mixup_active(args),
@@ -663,13 +684,13 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
                                  lambda_pvn=args.lambda_pvn)
         train_step = make_dist_finetune_train_step(
             model, optimizer, hp, lr_schedule, wd_schedule, aug_fn=aug_fn,
-            prep_fn=lambda x: _eval_prep(x, args, device))
+            prep_fn=lambda x: _eval_prep(x, args, device), use_hessian=use_hessian)
         eval_forward = E.make_dist_eval_forward(model)
     else:
         hp = FinetuneHParams(**mix, masked_position_prob=args.masked_position_prob,
                              model_ema_decay=args.model_ema_decay, head_type=cfg.head_type)
         train_step = make_finetune_train_step(model, optimizer, hp, lr_schedule, wd_schedule,
-                                              aug_fn=aug_fn)
+                                              aug_fn=aug_fn, use_hessian=use_hessian)
         eval_forward = E.make_eval_forward(model, het=args.het_layer)
 
     start_epoch = args.start_epoch
@@ -718,18 +739,20 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
                                                       f"Epoch: [{epoch}]")):
             if step >= steps_per_epoch:
                 break
-            gens = step_generators(args.seed, state.step, device, het=cfg.head_type == "het")
+            gens = step_generators(args.seed, state.step, device, het=cfg.head_type == "het",
+                                   gumbel=gumbel, hessian=use_hessian)
+            extra = optional_streams(gens)  # the Gumbel and Hessian streams, where drawn
             if triplet:
                 images_u8, pos_u8, neg_u8, labels = batch
                 metrics = train_step(state, images_u8, pos_u8, neg_u8, labels, gens.model,
-                                     gens.mix, gens.augment)
+                                     gens.mix, gens.augment, **extra)
             else:
                 images_u8, labels = batch[0], batch[-1]
                 # letterboxed batches carry each image's valid extent
                 # (--decode_letterbox), so that the crop covers the whole image
                 valid_hw = batch[1] if len(batch) == 3 else None
                 metrics = train_step(state, images_u8, labels, gens.model, gens.mix,
-                                     gens.augment, valid_hw, gens.mc)
+                                     gens.augment, valid_hw, gens.mc, **extra)
             pending.append((_start_metrics_readback(metrics), step_base + step))
             while len(pending) > 2:
                 drain_one()
@@ -829,6 +852,11 @@ def main(args, device=None):
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
     _check_dist_flags(args)
+    gumbel = B.attn_variant(args) in GUMBEL_VARIANTS
+    for flag, what in NOT_PORTED_WITH_GUMBEL.items():
+        if gumbel and getattr(args, flag):
+            raise B.not_ported(flag, f"{what} of a model that draws Gumbel noise",
+                               "item 20's rest")
     device = resolve_device(device)
     if args.seq_parallel > 1:
         if args.stochastic:

@@ -27,10 +27,10 @@ step from the highest ``checkpoint-N.pth`` (there is no --resume, --finetune
 or --start_epoch: they raise); log.txt gets a record an epoch under the JAX
 driver's keys (the step's metric names, no prefix); ``checkpoint-N.pth`` is
 written every ``--save_ckpt_freq`` epochs and at the end. ``main`` takes
-``device`` (the card by default; the tests pass "cpu"). An optimizer that
-needs the Hessian (adahessian, slice 12) and the flags of
-``builders.NOT_PORTED_MODEL_FLAGS`` raise; so does ``--stochastic``
-(``ValueError``), which the JAX driver parses and ignores.
+``device`` (the card by default; the tests pass "cpu"). Every --opt of the
+JAX make_optimizer runs, adahessian with its Hessian pass in the step (JAX
+:89). ``--stochastic`` raises ``ValueError``: the JAX driver parses it and
+ignores it.
 """
 
 from __future__ import annotations
@@ -46,7 +46,9 @@ from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.mim import MIMViT
 from uncertainty_vit_tpu_torch.models.registry import MODEL_NAMES
 from uncertainty_vit_tpu_torch.ops.augment import make_pretrain_two_view
+from uncertainty_vit_tpu_torch.train.engine_finetune import optional_streams
 from uncertainty_vit_tpu_torch.train.engine_mim import MIMState, make_mim_train_step
+from uncertainty_vit_tpu_torch.train.optim import needs_hessian
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
 
 
@@ -91,8 +93,6 @@ def check_args(args, what: str) -> None:
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
-    if (args.opt or "adamw").replace("fused", "").removeprefix("lookahead_") == "adahessian":
-        raise B.not_ported("opt", "the Hessian-aware optimizer (adahessian)", "item 20, slice 12")
     for flag in ("resume", "start_epoch") + (("finetune",) if what == "mim" else ()):
         if getattr(args, flag):
             raise ValueError(f"--{flag}: the {what} driver resumes through --auto_resume only, "
@@ -157,10 +157,11 @@ def main(args, device=None):
             print(f"auto-resumed from epoch {start_epoch}", flush=True)
 
     train_step = make_mim_train_step(model, tokenizer, optimizer, lr_schedule, wd_schedule,
-                                     two_view_augment(args))
+                                     two_view_augment(args), use_hessian=needs_hessian(args.opt))
 
     def run_step(epoch, state, images_u8, masks, gens, valid_hw):
-        return train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw)
+        return train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw,
+                          **optional_streams(gens))
 
     train_epochs(args, state, loader, steps_per_epoch, cfg.grid_size, device, start_epoch,
                  run_step, {"loss": ("loss", "mlm_acc"), "opt": ("lr", "grad_norm")})

@@ -36,9 +36,9 @@ dist model does not read, which the JAX driver ignores there
 ``--per_block_rel_pos_bias``, ``--dropout_from_block``, ``--sngp``,
 ``--het_layer``, the attention variants, ``--layer_results fc``).
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: an optimizer that needs the Hessian (adahessian, slice 12),
-and the flags of ``builders.NOT_PORTED_MODEL_FLAGS``.
+Every --opt of the JAX make_optimizer runs; adahessian with its Hessian
+pass in the step (``use_hessian``, JAX :194). A gumbel or dual_sto trunk
+draws from the step's Gumbel stream.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from uncertainty_vit_tpu_torch.cli.common import setup
 from uncertainty_vit_tpu_torch.cli.finetune import (
     _finish_metrics, _require_pth, _start_metrics_readback,
 )
+from uncertainty_vit_tpu_torch.core.config import draws_gumbel
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.data.pipeline import device_prefetch
 from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
@@ -65,6 +66,8 @@ from uncertainty_vit_tpu_torch.train.engine_cyclical import (
     CyclicalHParams, init_cyclical_state, make_cyclical_train_step, mask_generator,
     step_generators,
 )
+from uncertainty_vit_tpu_torch.train.engine_finetune import optional_streams
+from uncertainty_vit_tpu_torch.train.optim import needs_hessian
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
@@ -243,7 +246,10 @@ def train_epochs(args, state, loader, steps_per_epoch: int, grid, device, start_
             # letterboxed batches carry each image's valid extent
             # (--decode_letterbox), so that the crop covers the whole image
             valid_hw = batch[1] if len(batch) == 3 + masked else None
-            gens = step_generators(args.seed, state.step, device)
+            # (the dVAE trainer's model has no ViT config and draws neither)
+            gens = step_generators(args.seed, state.step, device,
+                                   gumbel=draws_gumbel(getattr(state.model, "cfg", None)),
+                                   hessian=needs_hessian(getattr(args, "opt", None)))
             metrics = run_step(epoch, state, images_u8, masks, gens, valid_hw)
             pending.append((_start_metrics_readback(metrics), step_base + step))
             while len(pending) > 2:
@@ -268,8 +274,6 @@ def main(args, device=None):
         raise NotImplementedError(
             f"--device {args.device}: the driver runs on the one card ('cuda'); the CPU is "
             "main(args, device='cpu'), for tests")
-    if (args.opt or "adamw").replace("fused", "").removeprefix("lookahead_") == "adahessian":
-        raise B.not_ported("opt", "the Hessian-aware optimizer (adahessian)", "item 20, slice 12")
     if args.seed_model and not args.finetune:
         args.finetune = args.seed_model
     device = resolve_device(device)
@@ -304,10 +308,12 @@ def main(args, device=None):
         args.input_size, args.aug_level,
         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
         color_jitter_strength=args.color_jitter)
-    train_step = make_cyclical_train_step(model, optimizer, hp, lr_schedule, wd_schedule, aug_fn)
+    train_step = make_cyclical_train_step(model, optimizer, hp, lr_schedule, wd_schedule, aug_fn,
+                                          use_hessian=needs_hessian(args.opt))
 
     def run_step(epoch, state, images_u8, masks, gens, valid_hw):
-        return train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw)
+        return train_step(state, images_u8, masks, gens.model, gens.augment, valid_hw,
+                          **optional_streams(gens))
 
     train_epochs(args, state, loader, steps_per_epoch, cfg.grid_size, device, start_epoch,
                  run_step, {"loss": ("loss",), "opt": ("lr", "grad_norm")}, log_prefix="train_")

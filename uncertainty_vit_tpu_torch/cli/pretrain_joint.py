@@ -37,7 +37,9 @@ from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.mim import JointViT
 from uncertainty_vit_tpu_torch.models.registry import MODEL_NAMES
 from uncertainty_vit_tpu_torch.train.engine_cyclical import init_cyclical_state
+from uncertainty_vit_tpu_torch.train.engine_finetune import optional_streams
 from uncertainty_vit_tpu_torch.train.engine_mim import JointHParams, make_joint_train_step
+from uncertainty_vit_tpu_torch.train.optim import needs_hessian
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
 
 # the reference's joint registry name, which --model takes beside the presets
@@ -118,10 +120,12 @@ def main(args, device=None):
             print(f"auto-resumed from epoch {start_epoch}", flush=True)
 
     train_step = make_joint_train_step(model, tokenizer, optimizer, hp, lr_schedule,
-                                       wd_schedule, PB.two_view_augment(args))
+                                       wd_schedule, PB.two_view_augment(args),
+                                       use_hessian=needs_hessian(args.opt))
 
     def run_step(epoch, state, images_u8, masks, gens, valid_hw):
-        return train_step(state, images_u8, masks, epoch, gens.model, gens.augment, valid_hw)
+        return train_step(state, images_u8, masks, epoch, gens.model, gens.augment, valid_hw,
+                          **optional_streams(gens))
 
     train_epochs(args, state, loader, steps_per_epoch, cfg.grid_size, device, start_epoch,
                  run_step, {"loss": ("loss", "loss_cyc", "loss_beit", "mlm_acc"),

@@ -170,6 +170,16 @@ PRESETS = {
 }
 
 
+# the attention variants that draw Gumbel noise in every forward
+GUMBEL_VARIANTS = ("gumbel", "dual_sto")
+
+
+def draws_gumbel(cfg) -> bool:
+    """Whether a model of ``cfg`` draws Gumbel noise in every forward, and so
+    takes a ``gumbel_generator`` (the gumbel and dual_sto attentions)."""
+    return getattr(cfg, "attn_variant", "softmax") in GUMBEL_VARIANTS
+
+
 def get_preset(name: str, **overrides) -> ViTConfig:
     cfg = PRESETS[name]
     return cfg.replace(**overrides) if overrides else cfg

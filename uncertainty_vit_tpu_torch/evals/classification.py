@@ -8,7 +8,10 @@ model's device. A torch model holds its own parameters, so ``evaluate`` and
 heteroscedastic head) every batch draws the head's MC noise from a fresh
 generator of the stream ``evaluate``'s seed starts (JAX :33-77: a fresh
 'mc' key per call, as the reference resamples its noise in every forward,
-modeling_finetune.py:1145-1146). ``evaluate_dist`` is the dist
+modeling_finetune.py:1145-1146). A gumbel or dual_sto model
+(``core.config.draws_gumbel``) draws its noise in the same way, from the
+same per-batch generator, as F.gumbel_softmax draws on every forward of the
+reference. ``evaluate_dist`` is the dist
 (mean+covariance) model's evaluation, the metrics of its logits (the JAX
 driver's ``dist_eval``, cli/finetune.py:509-518).
 """
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from uncertainty_vit_tpu_torch.core.config import draws_gumbel
 from uncertainty_vit_tpu_torch.evals import metrics as M
 from uncertainty_vit_tpu_torch.evals.collect import (
     collect_logits, per_call_generator, pipelined_pairs,
@@ -29,18 +33,28 @@ from uncertainty_vit_tpu_torch.evals.ensembles import ensemble_mean_logits, make
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
 
 
+def draws_in_eval(model: nn.Module, het: bool = False) -> bool:
+    """Whether the model's evaluation forward draws: the heteroscedastic
+    head's noise (``het``) or a gumbel / dual_sto attention's."""
+    return het or draws_gumbel(getattr(model, "cfg", None))
+
+
 def make_eval_forward(model: nn.Module, het: bool = False) -> Callable[..., torch.Tensor]:
     """images → logits with the model in eval mode, under inference_mode.
-    het=True: (images, generator) → logits, the heteroscedastic head's noise
+    When it draws (``draws_in_eval``): (images, generator) → logits, the
+    heteroscedastic head's noise (het=True) and the Gumbel attention's
     drawn from ``generator`` (on the images' device). Build once and reuse
     across epochs."""
-    if het:
-        def het_forward(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    if draws_in_eval(model, het):
+        gumbel = draws_gumbel(model.cfg)
+
+        def drawing_forward(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
             model.eval()
             with torch.inference_mode():
-                return model(images, mc_generator=generator)
+                return model(images, mc_generator=generator if het else None,
+                             gumbel_generator=generator if gumbel else None)
 
-        return het_forward
+        return drawing_forward
 
     def forward(images: torch.Tensor) -> torch.Tensor:
         model.eval()
@@ -83,10 +97,11 @@ def evaluate(
     """Deterministic eval: acc1/5 + the full calibration suite on the global
     logits. ``batches`` yields (images, ..., labels) with images already on
     the model's device; pass ``forward`` from make_eval_forward (built with
-    the same ``het``) to reuse it. het=True gives each batch a fresh
-    generator of the stream ``seed`` starts (the JAX package's ``rng``)."""
+    the same ``het``) to reuse it. A forward that draws
+    (``draws_in_eval``) gets a fresh generator for each batch, of the stream
+    ``seed`` starts (the JAX package's ``rng``)."""
     fwd = forward if forward is not None else make_eval_forward(model, het=het)
-    if het:
+    if draws_in_eval(model, het):
         fresh = per_call_generator(seed, next(model.parameters()).device)
         call, fwd = fwd, lambda images: call(images, fresh())
     logits, labels = collect_logits(fwd, batches)
@@ -133,11 +148,17 @@ def evaluate_ensemble(
     model: nn.Module,
     stacked_params: Mapping[str, torch.Tensor],
     batches: Iterable,
+    seed: int = 0,
 ) -> Dict[str, Any]:
     """Per-member metrics and the mean-logit ensemble's metrics
     (engine_for_finetuning.py:224-343). ``stacked_params`` comes from
-    ``ensembles.stack_params``, on the model's device."""
+    ``ensembles.stack_params``, on the model's device. A gumbel or dual_sto
+    model draws each batch's noise from a fresh generator of the stream
+    ``seed`` starts."""
     fwd = make_ensemble_forward(model)
+    if draws_gumbel(model.cfg):
+        fresh = per_call_generator(seed, next(model.parameters()).device)
+        call, fwd = fwd, lambda stacked, images: call(stacked, images, fresh())
     pairs = ((fwd(stacked_params, b[0]), b[-1]) for b in batches)  # [M, B, C]
     outs = list(pipelined_pairs(pairs))
     member_logits = np.concatenate([o[0] for o in outs], axis=1)

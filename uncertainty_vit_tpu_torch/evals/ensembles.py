@@ -7,12 +7,13 @@ parameter trees on a leading axis and maps one forward over it. Here the
 members' state dicts are stacked the same way and one model runs each
 member's slice through ``torch.func.functional_call``, so the members share
 one module and nothing is copied into it. The ensemble's prediction is the
-metrics of the mean member logits (:288-300).
+metrics of the mean member logits (:288-300). A gumbel or dual_sto model
+draws its noise from the forward's ``generator``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -29,17 +30,19 @@ def stack_params(member_params: Sequence[Mapping[str, torch.Tensor]]) -> Dict[st
     return {k: torch.stack([m[k] for m in member_params]) for k in keys}
 
 
-def make_ensemble_forward(model: nn.Module
-                          ) -> Callable[[Mapping[str, torch.Tensor], torch.Tensor], torch.Tensor]:
-    """Returns (stacked state dict, images) → [M, B, C] member logits, in
-    eval mode under inference_mode."""
+def make_ensemble_forward(model: nn.Module) -> Callable[..., torch.Tensor]:
+    """Returns (stacked state dict, images, generator=None) → [M, B, C]
+    member logits, in eval mode under inference_mode; the members draw
+    their Gumbel noise, one after the other, from ``generator``."""
 
-    def forward(stacked: Mapping[str, torch.Tensor], images: torch.Tensor) -> torch.Tensor:
+    def forward(stacked: Mapping[str, torch.Tensor], images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         model.eval()
         members = next(iter(stacked.values())).shape[0]
+        kwargs = {} if generator is None else {"gumbel_generator": generator}
         with torch.inference_mode():
             return torch.stack([
-                functional_call(model, {k: v[m] for k, v in stacked.items()}, (images,))
+                functional_call(model, {k: v[m] for k, v in stacked.items()}, (images,), kwargs)
                 for m in range(members)
             ])
 

@@ -27,6 +27,8 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from uncertainty_vit_tpu_torch.core.config import draws_gumbel
+
 MCForward = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
 
@@ -55,18 +57,21 @@ def make_mc_dropout_forward(
         raise ValueError("MC-dropout evaluates a model built with drop_path_rate=0 "
                          "(dropout on, stochastic depth off)")
 
+    # a gumbel or dual_sto model draws its noise from the same generator
+    gumbel = draws_gumbel(model.cfg)
+
     def forward(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         model.eval()
+        kw = dict(generator=generator, deterministic=False,
+                  gumbel_generator=generator if gumbel else None)
         with torch.inference_mode():
             if split_at > 0:
-                return model(images, generator=generator, deterministic=False,
-                             mc_samples=num_samples, mc_split=split_at)
+                return model(images, mc_samples=num_samples, mc_split=split_at, **kw)
             if fold_into_batch:
                 big = images.repeat((num_samples,) + (1,) * (images.ndim - 1))
-                logits = model(big, generator=generator, deterministic=False)
+                logits = model(big, **kw)
                 return logits.reshape(num_samples, images.shape[0], -1)
-            return torch.stack([model(images, generator=generator, deterministic=False)
-                                for _ in range(num_samples)])
+            return torch.stack([model(images, **kw) for _ in range(num_samples)])
 
     return forward
 

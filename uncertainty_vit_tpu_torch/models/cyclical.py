@@ -62,7 +62,9 @@ class CyclicalViT(ViTBackbone):
     def forward(self, images: torch.Tensor, bool_masked_pos: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, layer_results: Optional[str] = None,
-                update_sngp_cov: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
+                update_sngp_cov: bool = False,
+                gumbel_generator: Optional[torch.Generator] = None,
+                ) -> Union[torch.Tensor, List[torch.Tensor]]:
         """images [B, H, W, C]; ``bool_masked_pos`` [B, num_patches] (1 =
         masked) blends in the mask token. ``layer_results`` "end" (the
         blocks' outputs) or "fc" (their post-MLP residuals) returns the
@@ -71,11 +73,13 @@ class CyclicalViT(ViTBackbone):
         else ``lm_head`` over the normed patch tokens, [B, N, C]. Every
         draw (drop-path, dropout, attention dropout) comes from
         ``generator`` where the forward draws. ``update_sngp_cov`` updates
-        the SNGP head's precision matrix."""
+        the SNGP head's precision matrix. The gumbel and dual_sto attentions
+        draw from ``gumbel_generator``."""
         if layer_results is not None and layer_results not in LAYER_RESULTS:
             raise ValueError(f"layer_results must be one of {LAYER_RESULTS}, got {layer_results!r}")
         x, layer_xs, fc_features = super().forward(images, generator, deterministic,
-                                                   bool_masked_pos=bool_masked_pos)
+                                                   bool_masked_pos=bool_masked_pos,
+                                                   gumbel_generator=gumbel_generator)
         if layer_results is not None:
             zs = layer_xs if layer_results == "end" else fc_features
             return [z[:, 1:] for z in zs]

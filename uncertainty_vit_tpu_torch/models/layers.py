@@ -20,12 +20,21 @@ reference's ``seq_mesh``) a block sees only this rank's token rows. Its
 draws are those of the unsharded model: a dropout mask is drawn for all n
 tokens and this rank's rows kept, a drop-path mask per image (the same on
 every rank, from generators of one seed).
+
+``attn_variant`` "gumbel" and "dual_sto" draw Gumbel noise on every forward,
+evaluation included (F.gumbel_softmax of the reference), from the
+forward's ``gumbel_generator``, a stream of its own.
+
+``record_draws()`` / ``replay_draws()`` let the AdaHessian pass recompute a
+train step's loss on the same dropout and drop-path masks (the reference's
+double backward runs through the step's own graph).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,10 +44,10 @@ from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.ops import philox, relpos
 from uncertainty_vit_tpu_torch.ops import quant as quant_ops
-from uncertainty_vit_tpu_torch.ops.attention import naive_attention
+from uncertainty_vit_tpu_torch.ops.attention import VARIANTS, gumbel_softmax_probs, naive_attention
 from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
 from uncertainty_vit_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIM, fused_qkv_attention, seq_sharded_qkv_attention,
+    KERNEL_HEAD_DIM, fused_qkv_attention, in_plain_only, seq_sharded_qkv_attention,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
 from uncertainty_vit_tpu_torch.parallel import seq
@@ -49,6 +58,75 @@ def _require_generator(generator: Optional[torch.Generator], what: str) -> torch
         raise ValueError(f"{what} in training draws from an explicit torch.Generator; "
                          "pass generator= to the model's forward")
     return generator
+
+
+class DrawLog:
+    """The dropout and drop-path uniforms of one forward, in draw order
+    (``record_draws``), handed out again in that order (``replay_draws``)."""
+
+    def __init__(self) -> None:
+        self.draws: List[torch.Tensor] = []
+        self.replaying = False
+        self.next = 0
+        # the replay's own stream for what is not replayed (attention dropout)
+        self.generator: Optional[torch.Generator] = None
+
+
+_DRAW_LOG: Optional[DrawLog] = None
+
+
+@contextlib.contextmanager
+def record_draws() -> Iterator[DrawLog]:
+    """Record every dropout / drop-path uniform the forwards inside draw."""
+    global _DRAW_LOG
+    prev, _DRAW_LOG = _DRAW_LOG, DrawLog()
+    try:
+        yield _DRAW_LOG
+    finally:
+        _DRAW_LOG = prev
+
+
+@contextlib.contextmanager
+def replay_draws(log: DrawLog, generator: Optional[torch.Generator]) -> Iterator[DrawLog]:
+    """Hand the recorded uniforms out again, in order, to the forwards
+    inside; ``generator`` draws the attention-dropout masks and seeds there
+    (the one draw not replayed: the kernel route of the recorded forward
+    drew a seed where the plain route draws a whole mask, JAX
+    optim.py:297-300). Raises unless every draw is taken, each at its
+    recorded shape."""
+    global _DRAW_LOG
+    log.replaying, log.next, log.generator = True, 0, generator
+    prev, _DRAW_LOG = _DRAW_LOG, log
+    try:
+        yield log
+    finally:
+        _DRAW_LOG = prev
+        log.replaying = False
+    if log.next != len(log.draws):
+        raise RuntimeError(f"the replayed forward took {log.next} of {len(log.draws)} "
+                           "recorded draws")
+
+
+def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """u ~ U[0, 1) of ``shape`` from ``generator``: the masks of dropout and
+    drop-path, recorded or replayed under ``record_draws`` / ``replay_draws``."""
+    log = _DRAW_LOG
+    if log is not None and log.replaying:
+        if log.next >= len(log.draws) or tuple(log.draws[log.next].shape) != tuple(shape):
+            raise RuntimeError("the replayed forward draws other masks than the recorded one")
+        log.next += 1
+        return log.draws[log.next - 1]
+    u = torch.rand(shape, generator=generator, device=device)
+    if log is not None:
+        log.draws.append(u)
+    return u
+
+
+def _attention_generator(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """The generator attention dropout draws from: the forward's, or under
+    ``replay_draws`` the replay's own stream."""
+    log = _DRAW_LOG
+    return log.generator if log is not None and log.replaying else generator
 
 
 def drop_path(
@@ -62,7 +140,7 @@ def drop_path(
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    u = torch.rand(shape, generator=_require_generator(generator, "drop-path"), device=x.device)
+    u = _uniform(shape, _require_generator(generator, "drop-path"), x.device)
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
@@ -79,9 +157,9 @@ def dropout(
     keep = 1.0 - rate
     gen = _require_generator(generator, "dropout")
     if shard is None:
-        u = torch.rand(x.shape, generator=gen, device=x.device)
+        u = _uniform(x.shape, gen, x.device)
     else:
-        u = torch.rand((x.shape[0], shard.n) + x.shape[2:], generator=gen, device=x.device)
+        u = _uniform((x.shape[0], shard.n) + x.shape[2:], gen, x.device)
         u = u[:, shard.start:shard.stop]
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
@@ -95,12 +173,12 @@ def site_dropout(
     of the reference's models/layers.py:66-77). When no gradient is wanted
     (the MC-dropout evaluation) it is the fused kernel K8,
     ``ops.dropout.fused_dropout``, seeded from ``generator``; under grad
-    mode it is ``dropout``: K8 is forward only, as in the reference. K8's
-    mask follows the position in x, so under a ``shard`` it is not
-    ported."""
+    mode, or inside ``flash_attention.plain_only()``, it is ``dropout``: K8
+    is forward only, as in the reference. K8's mask follows the position in
+    x, so under a ``shard`` it is not ported."""
     if not active or rate == 0.0:
         return x
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() or in_plain_only():
         return dropout(x, rate, True, generator, shard)
     if shard is not None:
         raise NotImplementedError("MC-dropout under a seq group is not ported yet")
@@ -118,8 +196,9 @@ def _use_quant(quant: str, x: torch.Tensor, features: int,
     (x [B, rows, C] of n tokens) the token count is B·n, the same on every
     rank, not this rank's rows. The reference's backend test has no
     counterpart: ``ops.quant``'s wrappers take the kernel or its plain
-    version by the tensor's device."""
-    if quant != "int8":
+    version by the tensor's device. Inside ``flash_attention.plain_only()``
+    every dense layer is the plain one (the reference's :58-59)."""
+    if quant != "int8" or in_plain_only():
         return False
     m = x.numel() // x.shape[-1] if shard is None else x.shape[0] * shard.n
     return quant_ops.supported(m, x.shape[-1], features)
@@ -148,6 +227,14 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     float64 input (a float64 copy of a model) stays float64."""
     return F.layer_norm(x.to(at_least_f32(x.dtype)), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps)
+
+
+def _uniform_init(low: float, high: float) -> I.Init:
+    """torch.nn.init.uniform_(a=low, b=high) from the generator."""
+    def init(t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return t.uniform_(low, high, generator=generator)
+
+    return init
 
 
 def _param(shape, init: I.Init, device, generator) -> nn.Parameter:
@@ -303,18 +390,21 @@ class RelativePositionBias(nn.Module):
 
 class Attention(nn.Module):
     """MHSA with the reference's fused-qkv / no-key-bias layout
-    (modeling_finetune.py:85-188), softmax variant.
+    (modeling_finetune.py:85-188) and its probability variants
+    (``ops.attention.VARIANTS``: softmax, gumbel, sinkformer).
 
     The qkv Linear has no bias; q_bias and v_bias are separate parameters
     and the key bias is structurally zero. The q|0|v bias is added with the
     qkv matmul, outside the attention kernel (models/layers.py:296-314): by
     ``F.linear``, or in the int8 kernel's f32 epilogue with ``quant="int8"``.
-    ``use_flash=True`` with a head width the attention kernels take
-    (``KERNEL_HEAD_DIM``) routes through ``fused_qkv_attention`` (the kernel
-    on a CUDA tensor, its plain version on CPU), attention dropout included,
-    from a seed drawn from the forward's generator; ``use_flash=False`` or
-    another head width takes ``naive_attention``, as the reference's
-    ``use_kernel`` decides (:332-338).
+    ``use_kernel``, decided at each call as the reference decides it
+    (:332-338): ``use_flash=True``, the softmax variant, a head width the
+    attention kernels take (``KERNEL_HEAD_DIM``) and no
+    ``flash_attention.plain_only()`` context route through
+    ``fused_qkv_attention`` (the kernel on a CUDA tensor, its plain version
+    on CPU), attention dropout included, from a seed drawn from the
+    forward's generator; otherwise ``naive_attention`` runs, the Gumbel
+    variant's noise drawn from the forward's ``gumbel_generator``.
 
     With ``seq_shard`` x holds this rank's query rows and a ``rel_pos_bias``
     those rows of the bias; the kernel route runs
@@ -329,16 +419,20 @@ class Attention(nn.Module):
                  attn_head_dim: Optional[int] = None, layer_id: int = 0,
                  init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  use_flash: bool = True, quant: str = "none",
-                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
+                 seq_shard: Optional[seq.SeqShard] = None, variant: str = "softmax",
+                 sinkformer_eps: float = 1.0, sinkformer_iters: int = 3, *, device=None,
+                 generator=None):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown attention variant: {variant}")
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
         all_head_dim = head_dim * num_heads
         self.num_heads, self.head_dim = num_heads, head_dim
         self.scale = qk_scale or head_dim**-0.5
         self.attn_drop, self.proj_drop, self.quant = attn_drop, proj_drop, quant
-        self.seq_shard = seq_shard
-        self.use_kernel = use_flash and head_dim == KERNEL_HEAD_DIM
+        self.seq_shard, self.use_flash, self.variant = seq_shard, use_flash, variant
+        self.sinkformer_eps, self.sinkformer_iters = sinkformer_eps, sinkformer_iters
         tn = I.trunc_normal(init_std, init_trunc_abs)
 
         self.qkv = _Params((all_head_dim * 3, dim), tn, device=device, generator=generator)
@@ -356,10 +450,17 @@ class Attention(nn.Module):
         self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id), quant,
                                     seq_shard, device=device, generator=generator)
 
+    @property
+    def use_kernel(self) -> bool:
+        """Whether this call takes the attention kernels (read per call)."""
+        return (self.use_flash and self.variant == "softmax"
+                and self.head_dim == KERNEL_HEAD_DIM and not in_plain_only())
+
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 out_scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: Optional[bool] = None) -> torch.Tensor:
+                deterministic: Optional[bool] = None,
+                gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         active = _active(self, deterministic)
         b, n, _ = x.shape
         qkv_bias = None
@@ -381,13 +482,14 @@ class Attention(nn.Module):
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
 
         drop = self.attn_drop if active else 0.0
-        if self.use_kernel and shard is not None:
+        use_kernel = self.use_kernel
+        if use_kernel and shard is not None:
             if drop > 0.0:
                 raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel "
                                  "dropout seeds are not defined across re-sharded grids)")
             out = seq_sharded_qkv_attention(qkv, bias, None, self.scale, self.num_heads,
                                             shard.group, shard.n)
-        elif self.use_kernel:
+        elif use_kernel:
             # the seed of the in-kernel mask, as the reference draws it from
             # the "dropout" rng (models/layers.py:344-349)
             seed = None
@@ -405,12 +507,84 @@ class Attention(nn.Module):
 
             k, v = heads(kv).split(self.num_heads, dim=1)
             out = naive_attention(heads(qkv[..., :c]), k, v, self.scale, bias,
-                                  dropout_rate=self.attn_drop, generator=generator,
+                                  variant=self.variant, dropout_rate=self.attn_drop,
+                                  generator=_attention_generator(generator),
                                   deterministic=not active,
-                                  query_rows=None if shard is None else (shard.start, shard.n))
+                                  query_rows=None if shard is None else (shard.start, shard.n),
+                                  gumbel_generator=gumbel_generator,
+                                  sinkformer_eps=self.sinkformer_eps,
+                                  sinkformer_iters=self.sinkformer_iters)
             out = out.transpose(1, 2).reshape(b, n, -1)
         out = self.proj(out, out_scale, generator, active)
         return site_dropout(out, self.proj_drop, active, generator, shard)
+
+
+class DualStoSelfAttention(nn.Module):
+    """The "h_sto_trans" attention (modeling_finetune.py:191-260; JAX
+    models/layers.py:405-469): the keys are hard-Gumbel-quantized onto a
+    learned codebook of ``n_centroids`` centroids per head, and the
+    attention weights are a hard Gumbel-softmax over q·k_sto; both
+    temperatures are √h_size (:207-208). ``query``, ``key``, ``value`` and
+    ``proj`` are plain dense layers (``--quant int8`` does not reach them,
+    as JAX's nn.Dense) with the plain trunc_normal init and no layer-id
+    rescale; ``centroid`` is [head_dim, n_centroids], uniform on
+    [−0.5, 0.5) (:213-215). The rel-pos bias is ignored (:217-255); the
+    weights' dropout is ``prob_attn``, the output's ``prob_h``. Both Gumbel
+    draws come from the forward's ``gumbel_generator``: the keys' first,
+    then the weights'."""
+
+    def __init__(self, h_size: int, n_heads: int, prob_attn: float = 0.0, prob_h: float = 0.0,
+                 n_centroids: int = 2, init_std: float = 0.02, init_trunc_abs: float = 2.0,
+                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
+        super().__init__()
+        if seq_shard is not None:
+            raise NotImplementedError("the dual stochastic attention under a seq group is not "
+                                      "ported (the reference runs it on whole sequences)")
+        device = resolve_device(device)
+        self.h_size, self.n_heads, self.head_dim = h_size, n_heads, h_size // n_heads
+        self.prob_attn, self.prob_h = prob_attn, prob_h
+        self.tau = float(h_size) ** 0.5
+        tn = I.trunc_normal(init_std, init_trunc_abs)
+
+        def dense():
+            return _Params((h_size, h_size), tn, (h_size,), device=device, generator=generator)
+
+        self.query, self.key, self.value = dense(), dense(), dense()
+        self.centroid = _param((self.head_dim, n_centroids), _uniform_init(-0.5, 0.5), device,
+                               generator)
+        self.proj = dense()
+
+    def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
+                out_scale: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None,
+                gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``out_scale`` (the layer scale) multiplies the output, as the
+        reference's Block does for this attention (JAX :563-568)."""
+        del rel_pos_bias
+        active = _active(self, deterministic)
+        b, n, _ = x.shape
+
+        def dense(layer: _Params, t: torch.Tensor) -> torch.Tensor:
+            return F.linear(t, layer.weight.to(t.dtype), layer.bias.to(t.dtype))
+
+        def heads(t: torch.Tensor) -> torch.Tensor:  # [B, N, C] → [B, N, H, D]
+            return t.reshape(b, n, self.n_heads, self.head_dim)
+
+        qq, kk, vv = (heads(dense(layer, x)) for layer in (self.query, self.key, self.value))
+        centroid = self.centroid.to(x.dtype)
+        kk_logits = torch.einsum("bnhd,dc->bnhc", kk, centroid)
+        prob = gumbel_softmax_probs(kk_logits, gumbel_generator, tau=self.tau, hard=True)
+        sto_kk = torch.einsum("bnhc,cd->bnhd", prob, centroid.t())
+        qh, kh, vh = (t.transpose(1, 2) for t in (qq, sto_kk, vv))
+        work = at_least_f32(x.dtype)
+        interact = torch.matmul(qh.to(work), kh.to(work).transpose(-1, -2))
+        weights = gumbel_softmax_probs(interact, gumbel_generator, tau=self.tau,
+                                       hard=True).to(x.dtype)
+        weights = dropout(weights, self.prob_attn, active, generator)
+        out = torch.matmul(weights, vh).transpose(1, 2).reshape(b, n, self.h_size)
+        out = dropout(dense(self.proj, out), self.prob_h, active, generator)
+        return out if out_scale is None else out_scale.to(out.dtype) * out
 
 
 class Block(nn.Module):
@@ -428,20 +602,29 @@ class Block(nn.Module):
                  layer_id: int = 1, init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  layer_norm_eps: float = 1e-6, use_flash: bool = True,
                  dtype: torch.dtype = torch.float32, quant: str = "none",
-                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
+                 seq_shard: Optional[seq.SeqShard] = None, sinkformer_eps: float = 1.0,
+                 sinkformer_iters: int = 3, dual_sto_n_centroids: int = 2, *, device=None,
+                 generator=None):
         super().__init__()
-        if variant != "softmax":
-            raise NotImplementedError(f"attention variant {variant!r} is not ported yet")
         device = resolve_device(device)
         self.dtype, self.drop_path_rate = dtype, drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
-        self.attn = Attention(
-            dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale, attn_drop=attn_drop,
-            proj_drop=drop, window_size=window_size, attn_head_dim=attn_head_dim,
-            layer_id=layer_id, init_std=init_std, init_trunc_abs=init_trunc_abs,
-            use_flash=use_flash, quant=quant, seq_shard=seq_shard, device=device,
-            generator=generator,
-        )
+        if variant == "dual_sto":
+            # the block dispatches on the variant (JAX models/layers.py:511-527)
+            self.attn = DualStoSelfAttention(
+                dim, num_heads, prob_attn=attn_drop, prob_h=drop,
+                n_centroids=dual_sto_n_centroids, init_std=init_std,
+                init_trunc_abs=init_trunc_abs, seq_shard=seq_shard, device=device,
+                generator=generator)
+        else:
+            self.attn = Attention(
+                dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale, attn_drop=attn_drop,
+                proj_drop=drop, window_size=window_size, attn_head_dim=attn_head_dim,
+                layer_id=layer_id, init_std=init_std, init_trunc_abs=init_trunc_abs,
+                use_flash=use_flash, quant=quant, seq_shard=seq_shard, variant=variant,
+                sinkformer_eps=sinkformer_eps, sinkformer_iters=sinkformer_iters,
+                device=device, generator=generator,
+            )
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, layer_id=layer_id,
                        init_std=init_std, init_trunc_abs=init_trunc_abs, dtype=dtype,
@@ -455,13 +638,16 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None,
+                gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``generator`` supplies every draw of a forward that draws: the
-        drop-path masks (one per sample) and the dropout masks or seeds."""
+        drop-path masks (one per sample) and the dropout masks or seeds;
+        ``gumbel_generator`` the Gumbel noise of the gumbel and dual_sto
+        attentions, on every forward."""
         active = _active(self, deterministic)
         attn_out = self.attn(layer_norm(self.norm1, x).to(self.dtype), rel_pos_bias,
                              out_scale=self.gamma_1, generator=generator,
-                             deterministic=not active)
+                             deterministic=not active, gumbel_generator=gumbel_generator)
         x = x + drop_path(attn_out, self.drop_path_rate, active, generator)
         fc_feature = drop_path(
             self.mlp(layer_norm(self.norm2, x).to(self.dtype), out_scale=self.gamma_2,

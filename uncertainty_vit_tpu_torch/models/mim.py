@@ -65,12 +65,15 @@ class MIMViT(_MaskedBackbone):
 
     def forward(self, images: torch.Tensor, bool_masked_pos: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None,
-                deterministic: Optional[bool] = None) -> torch.Tensor:
+                deterministic: Optional[bool] = None,
+                gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """images [B, H, W, C]; ``bool_masked_pos`` [B, num_patches] (1 =
         masked) blends in the mask token → f32 logits [B, num_patches,
-        vocab]. Drop-path and dropout draw from ``generator``."""
+        vocab]. Drop-path and dropout draw from ``generator``, the gumbel
+        and dual_sto attentions from ``gumbel_generator``."""
         x, _, _ = super().forward(images, generator, deterministic,
-                                  bool_masked_pos=bool_masked_pos)
+                                  bool_masked_pos=bool_masked_pos,
+                                  gumbel_generator=gumbel_generator)
         x = layer_norm(self.norm, x)[:, 1:]
         return _linear(x, self.lm_head, self.dtype).float()
 
@@ -92,7 +95,8 @@ class JointViT(_MaskedBackbone):
 
     def forward(self, images: torch.Tensor, bool_masked_pos: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None,
-                deterministic: Optional[bool] = None, layer_results: Optional[str] = None
+                deterministic: Optional[bool] = None, layer_results: Optional[str] = None,
+                gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Union[List[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
         """``layer_results`` "end" (the blocks' outputs) or "fc" (their
         post-MLP residuals): the per-layer activations [B, N, C] without the
@@ -102,7 +106,8 @@ class JointViT(_MaskedBackbone):
         if layer_results is not None and layer_results not in LAYER_RESULTS:
             raise ValueError(f"layer_results must be one of {LAYER_RESULTS}, got {layer_results!r}")
         x, layer_xs, fc_features = super().forward(images, generator, deterministic,
-                                                   bool_masked_pos=bool_masked_pos)
+                                                   bool_masked_pos=bool_masked_pos,
+                                                   gumbel_generator=gumbel_generator)
         if layer_results is not None:
             zs = layer_xs if layer_results == "end" else fc_features
             return [z[:, 1:] for z in zs]

@@ -16,8 +16,11 @@ tokens in training; the evaluation ignores the mask.
 the SNGP head, the heteroscedastic MC-softmax head (``models/heads.py``) or
 none (the pooled feature comes out); ``cfg.sngp_fc_norm`` puts the
 spectral-norm ``SpectralNormDense`` in fc_norm's place under mean pooling
-(JAX :254-261). Not ported yet (they raise): attention variants other than
-softmax.
+(JAX :254-261). ``cfg.attn_variant`` picks the blocks' attention (softmax,
+gumbel, sinkformer with ``cfg.sinkformer_eps`` / ``sinkformer_iters``, or
+dual_sto with ``cfg.dual_sto_n_centroids``; JAX :148-156); gumbel and
+dual_sto draw from the forward's ``gumbel_generator`` on every forward
+(``core.config.draws_gumbel``).
 ``cfg.quant="int8"`` runs the trunk's dense layers through
 ``ops.quant.int8_dense`` on [B, N, C] activations; the reference's flat
 [B·N, C] trunk (models/vit.py:118-135) works around layout copies of its
@@ -49,6 +52,7 @@ from uncertainty_vit_tpu_torch.models.layers import (
     Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, _query_rows, dropout,
     layer_norm,
 )
+from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
 from uncertainty_vit_tpu_torch.parallel import seq
 
 
@@ -111,7 +115,10 @@ class ViTBackbone(nn.Module):
                 variant=cfg.attn_variant, layer_id=i + 1, init_std=cfg.init_std,
                 init_trunc_abs=cfg.init_trunc_abs, layer_norm_eps=cfg.layer_norm_eps,
                 use_flash=cfg.use_flash_attention, dtype=dtype, quant=cfg.quant,
-                seq_shard=self.seq_shard, device=device, generator=generator,
+                seq_shard=self.seq_shard, sinkformer_eps=cfg.sinkformer_eps,
+                sinkformer_iters=cfg.sinkformer_iters,
+                dual_sto_n_centroids=cfg.dual_sto_n_centroids, device=device,
+                generator=generator,
             )
             for i in range(cfg.depth)
         )
@@ -136,6 +143,7 @@ class ViTBackbone(nn.Module):
     def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None, mc_samples: int = 0, mc_split: int = 0,
                 bool_masked_pos: Optional[torch.Tensor] = None,
+                gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
         active = _active(self, deterministic)
         shard = self.seq_shard
@@ -165,7 +173,8 @@ class ViTBackbone(nn.Module):
             if mc_samples > 0 and i == mc_split:
                 x = x.repeat(mc_samples, 1, 1)
             block_deterministic = not active if mc_samples == 0 else i < mc_split
-            x, fc = blk(x, rel_pos_bias, generator, deterministic=block_deterministic)
+            x, fc = blk(x, rel_pos_bias, generator, deterministic=block_deterministic,
+                        gumbel_generator=gumbel_generator)
             layer_xs.append(x)
             fc_features.append(fc)
         if mc_samples > 0 and mc_split >= len(self.blocks):
@@ -227,6 +236,7 @@ class VisionTransformer(ViTBackbone):
                 update_sngp_cov: bool = False, return_gp_cov: bool = False,
                 return_features: bool = False, mc_generator: Optional[torch.Generator] = None,
                 het_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """images [B, H, W, C] → f32 logits [B, classes], or [K, B, classes]
         with ``mc_samples=K`` (the split-trunk MC-dropout forward, see
@@ -243,13 +253,15 @@ class VisionTransformer(ViTBackbone):
         the pooled feature the head takes). The heteroscedastic head draws
         its noise from ``mc_generator`` (or takes ``het_noise``); it runs
         on its train sample count when ``update_sngp_cov`` is set, as the
-        JAX model's ``training=update_sngp_cov`` does."""
+        JAX model's ``training=update_sngp_cov`` does. The gumbel and
+        dual_sto attentions draw their noise from ``gumbel_generator``."""
         cfg = self.cfg
         if mc_samples > 0:
             assert not cfg.learn_layer_weights, "mc split incompatible with layer weights"
             assert not return_features, "return_features incompatible with mc_samples"
         feat = self.forward_features(images, generator, deterministic, mc_samples, mc_split,
-                                     bool_masked_pos, update_sngp_cov=update_sngp_cov)
+                                     bool_masked_pos, update_sngp_cov=update_sngp_cov,
+                                     gumbel_generator=gumbel_generator)
         out = self._head(feat, update_sngp_cov, return_gp_cov, mc_generator, het_noise)
         if return_features:
             return out, feat
@@ -263,11 +275,12 @@ class VisionTransformer(ViTBackbone):
     def forward_features(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
                          deterministic: Optional[bool] = None, mc_samples: int = 0,
                          mc_split: int = 0, bool_masked_pos: Optional[torch.Tensor] = None, *,
-                         update_sngp_cov: bool = False) -> torch.Tensor:
+                         update_sngp_cov: bool = False,
+                         gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The pooled feature the head takes (what ``forward`` returns beside
         the logits with ``return_features``), without running the head."""
         x, layer_xs, _ = super().forward(images, generator, deterministic, mc_samples, mc_split,
-                                         bool_masked_pos)
+                                         bool_masked_pos, gumbel_generator)
         return self._pool(x, layer_xs, update_sngp_cov and _active(self, deterministic))
 
     def _head(self, feat: torch.Tensor, update_sngp_cov: bool, return_gp_cov: bool,
@@ -277,7 +290,8 @@ class VisionTransformer(ViTBackbone):
         if head_type == "none":
             return feat
         if head_type == "linear":
-            return F.linear(feat.float(), self.head.weight, self.head.bias)
+            # f32 logits (float64 for a float64 copy of the model)
+            return F.linear(feat.to(at_least_f32(feat.dtype)), self.head.weight, self.head.bias)
         if head_type == "sngp":
             return self.head(feat, update_cov=update_sngp_cov, return_gp_cov=return_gp_cov)
         return self.head(feat.float(), training=update_sngp_cov, generator=mc_generator,

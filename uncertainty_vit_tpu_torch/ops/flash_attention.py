@@ -57,13 +57,46 @@ against it only distributions compare.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 
 from uncertainty_vit_tpu_torch.ops import _native, philox
 from uncertainty_vit_tpu_torch.parallel import seq
+
+# Nesting depth of ``plain_only()``, read at call time.
+_PLAIN_ONLY = 0
+
+
+@contextlib.contextmanager
+def plain_only() -> Iterator[None]:
+    """The counterpart of ``forward_ad_safe()`` / ``FORWARD_AD_ONLY`` of the
+    reference package (ops/flash_attention.py:50-72). Inside it the models
+    take their plain attention and dense paths, whatever their flags: the
+    autograd Functions over K1-K7 have no double backward, which the
+    AdaHessian pass (``train.optim.hutchinson_hessian_diag``) takes, so the
+    kernel Functions refuse a call with grad inside it. Read at call time,
+    not when a module is built; it nests."""
+    global _PLAIN_ONLY
+    _PLAIN_ONLY += 1
+    try:
+        yield
+    finally:
+        _PLAIN_ONLY -= 1
+
+
+def in_plain_only() -> bool:
+    """Whether a ``plain_only()`` context is open."""
+    return _PLAIN_ONLY > 0
+
+
+def _refuse_in_plain_only(what: str) -> None:
+    if _PLAIN_ONLY:
+        raise RuntimeError(f"{what} inside plain_only(): the kernel's autograd Function has "
+                           "no double backward; the model takes its plain path there")
+
 
 # Skip the softmax max pass: exp(s)/Σexp(s) equals the max-subtracted
 # softmax whenever exp(s) does not overflow f32 (|s| ≲ 88). Safe for trained
@@ -766,6 +799,7 @@ def fused_qkv_attention(
         seed, dropout_rate = None, 0.0
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (qkv, bias, qv_bias)):
+        _refuse_in_plain_only("fused_qkv_attention")
         out, lse = _FusedQKVAttention.apply(qkv, bias, qv_bias, scale, num_heads, bounded,
                                             seed, dropout_rate)
     else:
@@ -863,6 +897,7 @@ def cross_qkv_attention(
     bounded = BOUNDED_SCORES if bounded_scores is None else bool(bounded_scores)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, kv, bias, qv_bias)):
+        _refuse_in_plain_only("cross_qkv_attention")
         out, lse = _CrossQKVAttention.apply(q, kv, bias, qv_bias, scale, num_heads, bounded)
     else:
         out, lse = _cross_forward(q, kv, bias, qv_bias, scale, num_heads, bounded, want_lse)

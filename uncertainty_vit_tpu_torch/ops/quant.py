@@ -54,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from uncertainty_vit_tpu_torch.ops import _native, philox
+from uncertainty_vit_tpu_torch.ops.flash_attention import _refuse_in_plain_only
 
 # The wgrad kernel sums raw int8 products in int32; |sum| <= 127 * 127 * M
 # stays below 2^31 only for M <= 133,152. The cap is the power of two below
@@ -325,5 +326,7 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     or None, added in f32 in the kernel's epilogue; seed: a one-element int64
     tensor on x's device for the gradients' stochastic rounding (dgrad uses
     it, wgrad seed + 1). y has x's dtype. Gradients flow to x, w (in w's
-    dtype) and bias (the f32 sum of the upstream gradient); seed gets none."""
+    dtype) and bias (the f32 sum of the upstream gradient); seed gets none.
+    Refused inside ``flash_attention.plain_only()`` (no double backward)."""
+    _refuse_in_plain_only("int8_dense")
     return _Int8Dense.apply(x, w, bias, seed)

@@ -26,6 +26,12 @@ layers make the targets through the whole pipeline, its cov layers the cov
 targets through the layer-norm stages only (no batch or instance norm);
 the loss adds λ_pretraining × ``wasserstein_pretrain_loss`` over the
 flattened rows at the masked positions, before ``loss_scale``.
+
+A gumbel or dual_sto trunk draws its noise (teacher first, then student)
+from the step's ``gumbel_generator``. ``use_hessian`` (adahessian; JAX
+:132, 233-235) runs the AdaHessian pass after the backward, as the
+finetune step does (``engine_finetune``): the student's loss again on the
+step's draws, inside ``flash_attention.plain_only()``.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.train.ema import cyclical_ema_step, ema_on_update_boundary
-from uncertainty_vit_tpu_torch.train.engine_finetune import step_seeds
-from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW
+from uncertainty_vit_tpu_torch.train.engine_finetune import hessian_context, step_seeds
+from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
 
@@ -114,7 +120,7 @@ class CyclicalState:
     gives the teacher's tensors, assigning it copies values into them)."""
 
     model: nn.Module
-    optimizer: LayerDecayAdamW
+    optimizer: Optimizer
     teacher: nn.Module
     step: int = 0
 
@@ -129,7 +135,7 @@ class CyclicalState:
                 p.copy_(tensors[name])
 
 
-def init_cyclical_state(model: nn.Module, optimizer: LayerDecayAdamW) -> CyclicalState:
+def init_cyclical_state(model: nn.Module, optimizer: Optimizer) -> CyclicalState:
     """The state whose teacher starts as a copy of the student's weights
     (timm ModelEmaV2 at run_cyclical.py:503)."""
     teacher = copy.deepcopy(model).requires_grad_(False)
@@ -141,11 +147,14 @@ class CyclicalGenerators:
     """One train step's generators: the student's draws (drop-path, dropout
     and attention-dropout seeds) and the mask dropout on the device, the
     pretrain transform's on the device, and the blockwise masks' on the CPU
-    (``ops.masking``, made on the host)."""
+    (``ops.masking``, made on the host); where the run needs them, the
+    Gumbel noise's and the AdaHessian pass's on the device."""
 
     model: torch.Generator
     augment: torch.Generator
     mask: torch.Generator
+    gumbel: Optional[torch.Generator] = None
+    hessian: Optional[torch.Generator] = None
 
 
 def mask_generator(seed: int, step: int) -> torch.Generator:
@@ -153,27 +162,35 @@ def mask_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(step_seeds(seed, step)[2])
 
 
-def step_generators(seed: int, step: int, device) -> CyclicalGenerators:
+def step_generators(seed: int, step: int, device, gumbel: bool = False,
+                    hessian: bool = False) -> CyclicalGenerators:
     """The generators of train step ``step`` of a run seeded with ``seed``, a
     function of (seed, step) only (``train.engine_finetune.step_seeds``), so
-    that a resumed run draws what an uninterrupted one draws."""
+    that a resumed run draws what an uninterrupted one draws; ``gumbel`` and
+    ``hessian`` add those streams (seeds 4 and 5, as the finetune step's)."""
     seeds = step_seeds(seed, step)
     device = torch.device(device)
-    return CyclicalGenerators(torch.Generator(device=device).manual_seed(seeds[0]),
-                              torch.Generator(device=device).manual_seed(seeds[1]),
-                              mask_generator(seed, step))
+
+    def on_device(i: int) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(seeds[i])
+
+    return CyclicalGenerators(on_device(0), on_device(1), mask_generator(seed, step),
+                              on_device(4) if gumbel else None,
+                              on_device(5) if hessian else None)
 
 
 def make_cyclical_train_step(
     model: nn.Module,
-    optimizer: LayerDecayAdamW,
+    optimizer: Optimizer,
     hp: CyclicalHParams,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
     aug_fn: Optional[Callable[..., torch.Tensor]] = None,
+    use_hessian: bool = False,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, bool_masked_pos, generator,
-    aug_generator=None, valid_hw=None) → metrics {"loss", "loss_cyc",
+    aug_generator=None, valid_hw=None, gumbel_generator=None,
+    hessian_generator=None) → metrics {"loss", "loss_cyc",
     "loss_var0", "grad_norm", "mask_count", "lr"}; the state (student,
     optimizer, teacher, step) is updated in place.
 
@@ -195,7 +212,9 @@ def make_cyclical_train_step(
 
     def step(state: CyclicalState, images: torch.Tensor, bool_masked_pos: torch.Tensor,
              generator: torch.Generator, aug_generator: Optional[torch.Generator] = None,
-             valid_hw: Optional[torch.Tensor] = None) -> Dict[str, object]:
+             valid_hw: Optional[torch.Tensor] = None,
+             gumbel_generator: Optional[torch.Generator] = None,
+             hessian_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         if aug_fn is not None:
             if aug_generator is None:
                 raise ValueError("the pretrain transform draws from an explicit aug_generator")
@@ -204,11 +223,13 @@ def make_cyclical_train_step(
         if hp.mask_dropout_prob > 0:
             keep = torch.rand(mask.shape, generator=generator, device=mask.device)
             mask = (keep < 1.0 - hp.mask_dropout_prob).float() * mask
+        # a Gumbel trunk's noise (the dist model has no variant and takes none)
+        gkw = {} if gumbel_generator is None else {"gumbel_generator": gumbel_generator}
         # the teacher: EMA weights, all tokens, all layers, no gradient
         # (engine_for_cyclical.py:68-88)
         with torch.no_grad():
             teacher_out = state.teacher(images, None, deterministic=True,
-                                        layer_results=hp.layer_results)
+                                        layer_results=hp.layer_results, **gkw)
             if hp.stochastic:
                 mean_layers, cov_layers = teacher_out
                 targets = build_targets(mean_layers, hp)
@@ -220,26 +241,39 @@ def make_cyclical_train_step(
             else:
                 targets = build_targets(teacher_out, hp)
         model.train()
-        if hp.stochastic:
-            out, cov_out = (t.float() for t in model(images, mask, generator=generator))
-        else:
-            out = model(images, mask, generator=generator, update_sngp_cov=hp.gp_layer).float()
-        loss_cyc = L.masked_regression_loss(out, targets, mask, beta=hp.l1_beta, l2=hp.l2_loss)
-        loss_var0 = (L.masked_variance_hinge(out, mask, hp.var_margin0) if hp.var_w0 > 0
-                     else torch.zeros((), device=out.device))
-        loss = loss_cyc + loss_var0 * hp.var_w0
-        if hp.stochastic:
-            c = out.shape[-1]
-            loss = loss + L.wasserstein_pretrain_loss(
-                out.reshape(-1, c), cov_out.reshape(-1, c), targets.reshape(-1, c),
-                cov_targets.reshape(-1, c), hp.lambda_pretraining, mask=mask)
-        if hp.loss_scale != -1:
-            loss = loss * hp.loss_scale
+
+        def loss_of():
+            if hp.stochastic:
+                out, cov_out = (t.float() for t in model(images, mask, generator=generator))
+            else:
+                out = model(images, mask, generator=generator, update_sngp_cov=hp.gp_layer,
+                            **gkw).float()
+            loss_cyc = L.masked_regression_loss(out, targets, mask, beta=hp.l1_beta,
+                                                l2=hp.l2_loss)
+            loss_var0 = (L.masked_variance_hinge(out, mask, hp.var_margin0) if hp.var_w0 > 0
+                         else torch.zeros((), device=out.device))
+            loss = loss_cyc + loss_var0 * hp.var_w0
+            if hp.stochastic:
+                c = out.shape[-1]
+                loss = loss + L.wasserstein_pretrain_loss(
+                    out.reshape(-1, c), cov_out.reshape(-1, c), targets.reshape(-1, c),
+                    cov_targets.reshape(-1, c), hp.lambda_pretraining, mask=mask)
+            if hp.loss_scale != -1:
+                loss = loss * hp.loss_scale
+            return loss, loss_cyc, loss_var0
+
+        replay = StepReplay(model, (gumbel_generator,)) if use_hessian else None
+        with hessian_context(replay):
+            loss, loss_cyc, loss_var0 = loss_of()
         optimizer.zero_grad()
         loss.backward()
+        hessian = None
+        if replay is not None:
+            hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
+                                          hessian_generator)
         update = state.step // hp.update_freq
         lr = lr_schedule(update)
-        grad_norm = optimizer.step(lr, wd_schedule(update))
+        grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         teacher = state.model_ema
         ema_on_update_boundary(
             lambda: cyclical_ema_step(teacher, dict(model.named_parameters()), update,

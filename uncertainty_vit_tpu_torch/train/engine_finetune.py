@@ -17,11 +17,20 @@ precision matrix, and the spectral fc_norm's (u, v), inside the forward,
 once per mini-step; the heteroscedastic head draws its MC noise from a
 fourth generator (``StepGenerators.mc``, made for that head only). The EMA
 covers the parameters
-only, not those buffers (JAX :143-148).
+only, not those buffers (JAX :143-148). A gumbel or dual_sto attention
+draws its noise from a fifth (``StepGenerators.gumbel``).
+
+``use_hessian`` (``optim.needs_hessian``, adahessian; JAX :71-76, 138-140):
+after the step's backward, which keeps the kernels, the Hessian pass
+recomputes the loss on the step's own draws inside
+``flash_attention.plain_only()`` (``optim.StepReplay``) and hands the
+Hutchinson estimate, from a sixth generator (``StepGenerators.hessian``),
+to the optimizer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -35,7 +44,7 @@ from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.ema import ema_on_update_boundary, ema_update
-from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW
+from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
 
@@ -69,12 +78,12 @@ class FinetuneState:
     parameters."""
 
     model: nn.Module
-    optimizer: LayerDecayAdamW
+    optimizer: Optimizer
     step: int = 0
     model_ema: Optional[Dict[str, torch.Tensor]] = None
 
 
-def init_finetune_state(model: nn.Module, optimizer: LayerDecayAdamW,
+def init_finetune_state(model: nn.Module, optimizer: Optimizer,
                         use_model_ema: bool = False) -> FinetuneState:
     ema = ({k: p.detach().clone() for k, p in model.named_parameters()}
            if use_model_ema else None)
@@ -101,47 +110,72 @@ def _targets(hp: FinetuneHParams, images: torch.Tensor, labels: torch.Tensor,
 class StepGenerators:
     """One train step's generators: the model's draws (drop-path, dropout,
     int8 rounding) and the augmentation's on the device, mixup's six scalars
-    on the CPU (drawn there without a device sync), and, for the
-    heteroscedastic head only, its MC noise on the device (the JAX step's
-    r_mc)."""
+    on the CPU (drawn there without a device sync), and on the device, where
+    the run needs them: the heteroscedastic head's MC noise (the JAX step's
+    r_mc), the Gumbel noise of a gumbel or dual_sto attention, and the
+    AdaHessian pass's draws."""
 
     model: torch.Generator
     augment: torch.Generator
     mix: torch.Generator
     mc: Optional[torch.Generator] = None
+    gumbel: Optional[torch.Generator] = None
+    hessian: Optional[torch.Generator] = None
 
 
 def step_seeds(seed: int, step: int) -> list:
-    """Four generator seeds of train step ``step`` of a run seeded with
+    """Six generator seeds of train step ``step`` of a run seeded with
     ``seed``: a function of (seed, step) only (the JAX step's
-    fold_in(rng, step))."""
-    seeds = np.random.SeedSequence([seed, step]).generate_state(4, np.uint64)
+    fold_in(rng, step)). ``generate_state`` is prefix-stable, so the first
+    four are those of the four-seed stream before the Gumbel and Hessian
+    seeds were added."""
+    seeds = np.random.SeedSequence([seed, step]).generate_state(6, np.uint64)
     return [int(s) & (2**63 - 1) for s in seeds]
 
 
-def step_generators(seed: int, step: int, device, het: bool = False) -> StepGenerators:
+def step_generators(seed: int, step: int, device, het: bool = False, gumbel: bool = False,
+                    hessian: bool = False) -> StepGenerators:
     """The generators of train step ``step`` of a run seeded with ``seed``
-    (``step_seeds``), with ``mc`` for a heteroscedastic head (``het``). The
-    first three seeds are those of the three-generator stream before the
-    fourth was added, so the other draws of a step did not change."""
+    (``step_seeds``), with ``mc`` for a heteroscedastic head (``het``),
+    ``gumbel`` for a model that draws Gumbel noise and ``hessian`` for the
+    AdaHessian pass. The first three seeds are those of the three-generator
+    stream before the others were added, so the other draws of a step did
+    not change."""
     seeds = step_seeds(seed, step)
     device = torch.device(device)
-    return StepGenerators(torch.Generator(device=device).manual_seed(seeds[0]),
-                          torch.Generator(device=device).manual_seed(seeds[1]),
-                          torch.Generator().manual_seed(seeds[2]),
-                          torch.Generator(device=device).manual_seed(seeds[3]) if het else None)
+
+    def on_device(i: int, wanted: bool = True) -> Optional[torch.Generator]:
+        return torch.Generator(device=device).manual_seed(seeds[i]) if wanted else None
+
+    return StepGenerators(on_device(0), on_device(1), torch.Generator().manual_seed(seeds[2]),
+                          on_device(3, het), on_device(4, gumbel), on_device(5, hessian))
+
+
+def optional_streams(gens) -> Dict[str, torch.Generator]:
+    """A step's keyword generators that the run draws from, of a
+    ``StepGenerators`` or the cyclical engine's: ``gumbel_generator`` and
+    ``hessian_generator`` where they are made."""
+    return {f"{k}_generator": g for k, g in (("gumbel", gens.gumbel), ("hessian", gens.hessian))
+            if g is not None}
+
+
+def hessian_context(replay: Optional[StepReplay]):
+    """The recording of a step's forward for its Hessian pass, or nothing."""
+    return contextlib.nullcontext() if replay is None else replay.recording()
 
 
 def make_finetune_train_step(
     model: nn.Module,
-    optimizer: LayerDecayAdamW,
+    optimizer: Optimizer,
     hp: FinetuneHParams,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
     aug_fn: Optional[Callable[..., torch.Tensor]] = None,
+    use_hessian: bool = False,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, labels, generator, mix_generator=None,
-    aug_generator=None, valid_hw=None, mc_generator=None) → metrics
+    aug_generator=None, valid_hw=None, mc_generator=None,
+    gumbel_generator=None, hessian_generator=None) → metrics
     {"loss", "class_acc", "grad_norm", "lr"}; the state (model, optimizer,
     EMA, step) is updated in place.
 
@@ -172,7 +206,15 @@ def make_finetune_train_step(
     the precision matrix and the spectral fc_norm's (u, v) move once per
     call. "het": the head's noise comes from ``mc_generator`` (required),
     at its test sample count, as the JAX step passes
-    ``training=update_sngp_cov`` (False for this head) to it."""
+    ``training=update_sngp_cov`` (False for this head) to it.
+
+    A gumbel or dual_sto attention draws from ``gumbel_generator``. With
+    ``use_hessian`` the step runs the AdaHessian pass (see the module's
+    docstring), its z and attention-dropout masks from
+    ``hessian_generator`` (required); not under a seq group."""
+    if use_hessian and getattr(model, "seq_group", None) is not None:
+        raise NotImplementedError("the AdaHessian pass under a seq group is not ported "
+                                  "(ROADMAP.md item 21)")
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
@@ -187,7 +229,9 @@ def make_finetune_train_step(
              generator: torch.Generator, mix_generator: Optional[torch.Generator] = None,
              aug_generator: Optional[torch.Generator] = None,
              valid_hw: Optional[torch.Tensor] = None,
-             mc_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+             mc_generator: Optional[torch.Generator] = None,
+             gumbel_generator: Optional[torch.Generator] = None,
+             hessian_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         if aug_fn is not None:
             if aug_generator is None:
                 raise ValueError("the train augmentation draws from an explicit aug_generator")
@@ -199,16 +243,27 @@ def make_finetune_train_step(
             bool_masked_pos = (torch.rand(shape, generator=generator, device=images.device)
                                < hp.masked_position_prob).float()
         model.train()
-        logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos,
-                       update_sngp_cov=use_sngp, mc_generator=mc_generator)
-        loss = L.soft_target_cross_entropy(logits, targets)
+
+        def loss_of():
+            logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos,
+                           update_sngp_cov=use_sngp, mc_generator=mc_generator,
+                           gumbel_generator=gumbel_generator)
+            return L.soft_target_cross_entropy(logits, targets), logits
+
+        replay = StepReplay(model, (gumbel_generator, mc_generator)) if use_hessian else None
+        with hessian_context(replay):
+            loss, logits = loss_of()
         optimizer.zero_grad()
         loss.backward()
         if getattr(model, "seq_group", None) is not None:
             seq.all_reduce_grads(model.token_parameters(), model.seq_group)
+        hessian = None
+        if replay is not None:
+            hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
+                                          hessian_generator)
         update = state.step // hp.update_freq
         lr = lr_schedule(update)
-        grad_norm = optimizer.step(lr, wd_schedule(update))
+        grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         if state.model_ema is not None:
             state.model_ema = ema_on_update_boundary(
                 lambda: ema_update(state.model_ema, dict(model.named_parameters()),

@@ -25,8 +25,8 @@ import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
-from uncertainty_vit_tpu_torch.train.engine_finetune import FinetuneState
-from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW
+from uncertainty_vit_tpu_torch.train.engine_finetune import FinetuneState, hessian_context
+from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
 
@@ -49,16 +49,18 @@ class DistFinetuneHParams:
 
 def make_dist_finetune_train_step(
     model: nn.Module,
-    optimizer: LayerDecayAdamW,
+    optimizer: Optimizer,
     hp: DistFinetuneHParams,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
     aug_fn: Optional[Callable[..., torch.Tensor]] = None,
     prep_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    use_hessian: bool = False,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, pos, neg, labels, generator,
-    mix_generator=None, aug_generator=None) → metrics {"loss", "ce_loss",
-    "wasserstein_loss", "class_acc", "grad_norm", "lr"}; the state
+    mix_generator=None, aug_generator=None, hessian_generator=None) →
+    metrics {"loss", "ce_loss", "wasserstein_loss", "class_acc",
+    "grad_norm", "lr"}; the state
     (``train.engine_finetune.FinetuneState``: model, optimizer, step) is
     updated in place.
 
@@ -69,7 +71,10 @@ def make_dist_finetune_train_step(
     (on the model's device) draws the anchor's drop-path and dropout masks,
     ``mix_generator`` (CPU) mixup's scalars. lr and wd are read at the
     update index, step // update_freq. ``model`` is a
-    ``models.dist_vit.DistVisionTransformer``, ``state.model``."""
+    ``models.dist_vit.DistVisionTransformer``, ``state.model``.
+    ``use_hessian`` (adahessian; JAX :57, 124-126) runs the AdaHessian pass
+    after the backward on the anchor's draws, the pos / neg embeddings held
+    as the step computed them, its z from ``hessian_generator``."""
     if (aug_fn is None) != (prep_fn is None):
         raise ValueError("aug_fn and prep_fn must be provided together: the fused step takes "
                          "raw uint8 for all three triplet streams (anchor aug + pos/neg eval "
@@ -82,7 +87,8 @@ def make_dist_finetune_train_step(
     def step(state: FinetuneState, images: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator,
              mix_generator: Optional[torch.Generator] = None,
-             aug_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+             aug_generator: Optional[torch.Generator] = None,
+             hessian_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         if aug_fn is not None:
             if aug_generator is None:
                 raise ValueError("the train augmentation draws from an explicit aug_generator")
@@ -97,21 +103,31 @@ def make_dist_finetune_train_step(
         else:
             targets = one_hot_smooth(labels, hp.num_classes, hp.label_smoothing)
         model.train()
-        mean, cov, logits = model(images, generator=generator)
-        ce = L.soft_target_cross_entropy(logits, targets)
         # the pos / neg embeddings: the same weights, deterministic, no gradient
         with torch.no_grad():
             pos_mean, pos_cov, _ = model(pos, deterministic=True)
             neg_mean, neg_cov, _ = model(neg, deterministic=True)
-        w_loss = L.wasserstein_finetune_loss(
-            mean.float(), cov.float(), pos_mean.float(), pos_cov.float(), neg_mean.float(),
-            neg_cov.float(), hp.lambda_finetuning, hp.lambda_pvn)
-        loss = ce + w_loss
+
+        def loss_of():
+            mean, cov, logits = model(images, generator=generator)
+            ce = L.soft_target_cross_entropy(logits, targets)
+            w_loss = L.wasserstein_finetune_loss(
+                mean.float(), cov.float(), pos_mean.float(), pos_cov.float(), neg_mean.float(),
+                neg_cov.float(), hp.lambda_finetuning, hp.lambda_pvn)
+            return ce + w_loss, ce, w_loss, logits
+
+        replay = StepReplay(model) if use_hessian else None
+        with hessian_context(replay):
+            loss, ce, w_loss, logits = loss_of()
         optimizer.zero_grad()
         loss.backward()
+        hessian = None
+        if replay is not None:
+            hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
+                                          hessian_generator)
         update = state.step // hp.update_freq
         lr = lr_schedule(update)
-        grad_norm = optimizer.step(lr, wd_schedule(update))
+        grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         state.step += 1
         with torch.no_grad():
             acc = (logits.argmax(-1) == targets.argmax(-1)).float().mean()

@@ -22,8 +22,10 @@ the smooth-L1 regression of the two-layer ``lm_head`` onto the targets, the
 ``beit_head``'s cross-entropy, and their mix loss_cyc·(1 − w) + loss_beit·w
 with w = max(1 − epoch / vae_loss_weight_anneal_epochs, 0) in f32, the epoch
 passed in as a number. Nothing in either step reads a value back to the
-host. The Hessian-aware optimizer is not ported (slice 12: the drivers'
---opt adahessian raises).
+host. A gumbel or dual_sto trunk draws its noise from the step's
+``gumbel_generator`` (the joint teacher first). ``use_hessian``
+(adahessian; JAX :39, 67-69, 98, 136-138) runs the AdaHessian pass after
+the backward, as the finetune step does (``engine_finetune``).
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from uncertainty_vit_tpu_torch.train.ema import cyclical_ema_step, ema_on_update
 from uncertainty_vit_tpu_torch.train.engine_cyclical import (
     CyclicalHParams, CyclicalState, build_targets,
 )
-from uncertainty_vit_tpu_torch.train.engine_finetune import FinetuneState
-from uncertainty_vit_tpu_torch.train.optim import LayerDecayAdamW
+from uncertainty_vit_tpu_torch.train.engine_finetune import FinetuneState, hessian_context
+from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
 
@@ -81,13 +83,15 @@ def _tokens(tokenizer: nn.Module, vae_images: torch.Tensor) -> torch.Tensor:
 def make_mim_train_step(
     model: nn.Module,
     tokenizer: nn.Module,
-    optimizer: LayerDecayAdamW,
+    optimizer: Optimizer,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
     aug_fn: Optional[Callable[..., Tuple[torch.Tensor, torch.Tensor]]] = None,
+    use_hessian: bool = False,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, bool_masked_pos, generator,
-    aug_generator=None, valid_hw=None) → metrics {"loss", "mlm_acc",
+    aug_generator=None, valid_hw=None, gumbel_generator=None,
+    hessian_generator=None) → metrics {"loss", "mlm_acc",
     "grad_norm", "lr"}; the state is updated in place.
 
     images: the pair (normalized student view [B, H, W, C], tokenizer view
@@ -102,18 +106,30 @@ def make_mim_train_step(
 
     def step(state: MIMState, images, bool_masked_pos: torch.Tensor,
              generator: torch.Generator, aug_generator: Optional[torch.Generator] = None,
-             valid_hw: Optional[torch.Tensor] = None) -> Dict[str, object]:
+             valid_hw: Optional[torch.Tensor] = None,
+             gumbel_generator: Optional[torch.Generator] = None,
+             hessian_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         images, vae_images = _views(aug_fn, images, aug_generator, valid_hw)
         mask = bool_masked_pos.float()
         token_ids = _tokens(tokenizer, vae_images)
         model.train()
-        logits = model(images, mask, generator=generator)
-        loss, mlm_acc = L.masked_mim_cross_entropy(logits, token_ids, mask)
+
+        def loss_of():
+            logits = model(images, mask, generator=generator, gumbel_generator=gumbel_generator)
+            return L.masked_mim_cross_entropy(logits, token_ids, mask)
+
+        replay = StepReplay(model, (gumbel_generator,)) if use_hessian else None
+        with hessian_context(replay):
+            loss, mlm_acc = loss_of()
         optimizer.zero_grad()
         loss.backward()
+        hessian = None
+        if replay is not None:
+            hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
+                                          hessian_generator)
         update = state.step // optimizer.update_freq
         lr = lr_schedule(update)
-        grad_norm = optimizer.step(lr, wd_schedule(update))
+        grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         state.step += 1
         return {"loss": loss.detach(), "mlm_acc": mlm_acc.detach(), "grad_norm": grad_norm,
                 "lr": lr}
@@ -124,14 +140,16 @@ def make_mim_train_step(
 def make_joint_train_step(
     model: nn.Module,
     tokenizer: nn.Module,
-    optimizer: LayerDecayAdamW,
+    optimizer: Optimizer,
     hp: JointHParams,
     lr_schedule: Schedule,
     wd_schedule: Optional[Schedule] = None,
     aug_fn: Optional[Callable[..., Tuple[torch.Tensor, torch.Tensor]]] = None,
+    use_hessian: bool = False,
 ) -> Callable[..., Dict[str, object]]:
     """Returns step(state, images, bool_masked_pos, epoch, generator,
-    aug_generator=None, valid_hw=None) → metrics {"loss", "loss_cyc",
+    aug_generator=None, valid_hw=None, gumbel_generator=None,
+    hessian_generator=None) → metrics {"loss", "loss_cyc",
     "loss_beit", "mlm_acc", "beit_weight", "grad_norm", "lr"}; the state
     (``train.engine_cyclical.CyclicalState``: student, optimizer, teacher,
     step) is updated in place. images, bool_masked_pos and ``generator`` as
@@ -146,25 +164,40 @@ def make_joint_train_step(
 
     def step(state: CyclicalState, images, bool_masked_pos: torch.Tensor, epoch: float,
              generator: torch.Generator, aug_generator: Optional[torch.Generator] = None,
-             valid_hw: Optional[torch.Tensor] = None) -> Dict[str, object]:
+             valid_hw: Optional[torch.Tensor] = None,
+             gumbel_generator: Optional[torch.Generator] = None,
+             hessian_generator: Optional[torch.Generator] = None) -> Dict[str, object]:
         images, vae_images = _views(aug_fn, images, aug_generator, valid_hw)
         mask = bool_masked_pos.float()
         token_ids = _tokens(tokenizer, vae_images)
         with torch.no_grad():
             targets = build_targets(state.teacher(images, None, deterministic=True,
-                                                  layer_results=hp.layer_results or "end"), hp)
+                                                  layer_results=hp.layer_results or "end",
+                                                  gumbel_generator=gumbel_generator), hp)
         w = beit_weight(epoch, hp.vae_loss_weight_anneal_epochs)
         model.train()
-        lm_out, beit_out = model(images, mask, generator=generator)
-        loss_cyc = L.masked_regression_loss(lm_out.float(), targets, mask, beta=hp.l1_beta,
-                                            l2=hp.l2_loss)
-        loss_beit, mlm_acc = L.masked_mim_cross_entropy(beit_out, token_ids, mask)
-        loss = loss_cyc * float(np.float32(1.0) - np.float32(w)) + loss_beit * w
+
+        def loss_of():
+            lm_out, beit_out = model(images, mask, generator=generator,
+                                     gumbel_generator=gumbel_generator)
+            loss_cyc = L.masked_regression_loss(lm_out.float(), targets, mask, beta=hp.l1_beta,
+                                                l2=hp.l2_loss)
+            loss_beit, mlm_acc = L.masked_mim_cross_entropy(beit_out, token_ids, mask)
+            loss = loss_cyc * float(np.float32(1.0) - np.float32(w)) + loss_beit * w
+            return loss, loss_cyc, loss_beit, mlm_acc
+
+        replay = StepReplay(model, (gumbel_generator,)) if use_hessian else None
+        with hessian_context(replay):
+            loss, loss_cyc, loss_beit, mlm_acc = loss_of()
         optimizer.zero_grad()
         loss.backward()
+        hessian = None
+        if replay is not None:
+            hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
+                                          hessian_generator)
         update = state.step // hp.update_freq
         lr = lr_schedule(update)
-        grad_norm = optimizer.step(lr, wd_schedule(update))
+        grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         teacher = state.model_ema
         ema_on_update_boundary(
             lambda: cyclical_ema_step(teacher, dict(model.named_parameters()), update,

@@ -83,8 +83,12 @@ def _torch_key_for(path: Tuple[str, ...]) -> Optional[Tuple[str, str]]:
             if rest[1] in ("q_bias", "v_bias", "cov_q_bias", "cov_v_bias",
                            "relative_position_bias_table"):
                 return pre + f"attn.{rest[1]}", "id"
-            if rest[1] in ("proj", "cov_proj"):
+            if rest[1] in ("proj", "cov_proj", "query", "key", "value"):
+                # query / key / value: the dual stochastic attention's dense
+                # layers, beside its centroid (JAX utils/checkpoint.py:137-142)
                 return _dense(pre + f"attn.{rest[1]}", name)
+            if rest[1] == "centroid":
+                return pre + "attn.centroid", "id"
         if rest[0] == "mlp" and rest[1] in ("fc1", "fc2"):
             return _dense(pre + f"mlp.{rest[1]}", name)
         return None
