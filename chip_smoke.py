@@ -371,6 +371,26 @@ kernels from the sources in this checkout, then:
            Hessian pass, the third step's pass by CUDA events, the peak
            memory, the update alone; z . Hz of an f32 model on 4 images
            against a float64 copy with the same z (HVP_REL_BOUND).
+  phase 24 the device mesh (data x seq x model) over gloo ranks that share the
+           card (parallel.mesh, parallel.dryrun), kernels built here first:
+           24a full-width, full-depth ViT-B/16 224 (shared rel-pos bias,
+           layer scale 0.1, drop-path 0.1; 12 heads, 6 a rank) on a data 2 x
+           model 2 mesh of 4 ranks at global batch PHASE24_BATCH in f32: one
+           cyclical step, one finetune step with batch mixup and the SNGP
+           head, one dist triplet step, each from the same seeded weights
+           and draws as the same step of one unsharded process on the card,
+           held to it (parallel.dryrun.compare: the loss and the
+           gradient's global norm at rtol 1e-4, the gathered parameters at
+           rtol 1e-3 / atol 1e-4 where the unsharded gradient is above
+           1e-6, within 2 lr elsewhere), the SNGP
+           precision moved, every rank's gathered parameters equal; K1 24 /
+           K2 12 (cyclical) and K1 12 / K2 12 (finetune) on each rank, none
+           (dist); 24b python -m uncertainty_vit_tpu_torch.parallel.dryrun
+           --devices 8 (the JAX dry run's 2 x 2 x 2 mesh and tiny trunk, 8
+           ranks): the same holds, K5 on every rank of the seq axis. It
+           prints the seconds of each engine's first step and of a second
+           one over gloo: ranks that share one card through host memory,
+           not a multi-card throughput.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -2873,8 +2893,7 @@ def seq2_rank(group, path):
     kv_train.requires_grad_()
     gathered = seq.gather_tokens(kv_train, group, n)
     cot = torch.randn_like(gathered)
-    bucket = torch.zeros(1 << 26, device=dev, requires_grad=True)
-    bucket.grad = torch.ones_like(bucket)
+    bucket = torch.ones(1 << 26, device=dev)
 
     def least_ms(fn):
         return min([host_ms(torch, fn) for _ in range(4)][1:])
@@ -2885,7 +2904,7 @@ def seq2_rank(group, path):
         f"its backward [{xt.shape[0]}, {n}, {2 * c}] bf16": least_ms(
             lambda: torch.autograd.grad(gathered, kv_train, cot, retain_graph=True)),
         "gradient sum, one bucket of 2^26 f32": least_ms(
-            lambda: seq.all_reduce_grads([bucket], group)),
+            lambda: seq.sum_in_place([bucket], group)),
     }
     return out
 
@@ -6810,6 +6829,78 @@ def phase23(torch, FA, dev, step_rates):
     return paths
 
 
+# phase 24: the device mesh
+PHASE24_MESH = (2, 1, 2)  # data 2 x model 2
+PHASE24_BATCH = 32
+
+
+def phase24(torch, FA, dev):
+    """24a: ViT-B/16 224 on a data 2 x model 2 mesh of 4 gloo ranks sharing
+    the card against one unsharded process; 24b: the port's dry run at
+    --devices 8. Returns the launches of each path summed over the ranks."""
+    import dataclasses
+
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.parallel import dryrun as DR
+
+    saved = FA.BOUNDED_SCORES
+    cfg = dataclasses.asdict(get_preset("beit_base_patch16_224", use_shared_rel_pos_bias=True,
+                                        init_values=0.1, drop_path_rate=0.1))
+    depth = cfg["depth"]
+    paths = {}
+    try:
+        t0 = time.perf_counter()
+        report = DR.dryrun(DR.Plan(PHASE24_MESH, cfg, PHASE24_BATCH), dev)
+        print(f"  24a took {time.perf_counter() - t0:.1f} s", flush=True)
+        want = {"cyclical": {"K1": 2 * depth, "K2": depth, "K5": 0},
+                "finetune": {"K1": depth, "K2": depth, "K5": 0},
+                "dist": {"K1": 0, "K2": 0, "K5": 0}}
+        phase24_report(report, "24a", want)
+        for engine, res in report["engines"].items():
+            paths[f"mesh_vitb_{engine}_step"] = {
+                k: sum(r[k] for r in res["launches_per_rank"]) for k in ("K1", "K2", "K5")}
+        t0 = time.perf_counter()
+        report = DR.main(["--devices", "8"])
+        print(f"  24b took {time.perf_counter() - t0:.1f} s", flush=True)
+        tiny = DR.TINY["depth"]
+        # the seq axis of 2 sends every attention of the token-sharded models to K5:
+        # a forward and its backward each a block (the cyclical teacher's forward too)
+        want = {"cyclical": {"K1": 0, "K2": 0, "K5": 3 * tiny},
+                "finetune": {"K1": 0, "K2": 0, "K5": 2 * tiny},
+                "dist": {"K1": 0, "K2": 0, "K5": 0}}
+        phase24_report(report, "24b", want)
+        for engine, res in report["engines"].items():
+            paths[f"mesh_dryrun8_{engine}_step"] = {
+                k: sum(r[k] for r in res["launches_per_rank"]) for k in ("K1", "K2", "K5")}
+    finally:
+        FA.BOUNDED_SCORES = saved
+    return paths
+
+
+def phase24_report(report, tag, want) -> None:
+    """Prints and checks one dry run's holds, launches and seconds."""
+    for engine, res in report["engines"].items():
+        print(f"  {tag} {engine}: loss {res['loss']:.6f} / unsharded {res['ref_loss']:.6f} "
+              f"(rel {res['loss_rel']:.3e}, bound {1e-4}); gradient norm {res['grad_norm']:.6f} / "
+              f"unsharded {res['ref_grad_norm']:.6f} (rel {res['grad_norm_rel']:.3e}, bound "
+              f"{1e-4}); parameters: worst excess over "
+              f"rtol 1e-3 / atol 1e-4 {res['worst_excess']:.3e} ({res['worst_param']}), "
+              f"ill-posed max |diff| {res['loose_max']:.3e} (bound 2e-3), well-posed share "
+              f"{res['well_posed_share']:.4f}", flush=True)
+        print(f"  {tag} {engine}: launches per rank {json.dumps(res['launches_per_rank'])}; "
+              f"seconds of the first / second step per rank "
+              f"{[round(x, 4) for x in res['seconds_per_rank']]} / "
+              f"{[round(x, 4) for x in res['warm_seconds_per_rank']]} over gloo (ranks sharing "
+              f"one card through host memory: not a multi-card throughput); unsharded "
+              f"{res['ref_seconds']:.4f} / {res['ref_warm_seconds']:.4f} s", flush=True)
+        check(res["ok"], f"{tag}: the sharded {engine} step disagrees with the unsharded one")
+        for r, got in enumerate(res["launches_per_rank"]):
+            check(got == want[engine], f"{tag}: rank {r}'s {engine} step launched {got}, "
+                                       f"expected {want[engine]}")
+    check(report["engines"]["finetune"]["precision_moved"] > 0,
+          f"{tag}: the SNGP precision matrix did not move")
+
+
 def main() -> int:
     import torch
 
@@ -6894,6 +6985,9 @@ def main() -> int:
     cli12 = run(23, "slice 12 through the drivers: the attention variants, every --opt against "
                     "float64, AdaHessian through each engine", phase23, torch, FA, dev,
                 step_rates)
+    mesh = run(24, "the device mesh over gloo ranks sharing the card: ViT-B/16 224 on data 2 x "
+                   "model 2 (cyclical, finetune+mixup+SNGP, dist triplet) against one process; "
+                   "the port's dryrun at --devices 8", phase24, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -6921,7 +7015,12 @@ def main() -> int:
     # cyclical pretraining, which launch no kernel of the port
     # and phase 23's ("cli12_"): the variants' training and --eval (no kernel
     # in their layers), every --opt's 3 updates, the AdaHessian steps
+    # and phase 24's ("mesh_"): one step of each engine on the 4-rank ViT-B/16
+    # mesh and on the dry run's 8 ranks, summed over the ranks
     dist_paths = {path: dict(n) for path, n in {**cli11, **cli12}.items()}
+    mesh_k = {"K1": {p: n["K1"] for p, n in mesh.items() if n["K1"]},
+              "K2": {p: n["K2"] for p, n in mesh.items() if n["K2"]},
+              "K5": {p: n["K5"] for p, n in mesh.items() if n["K5"]}}
     k1_paths = {"evaluate": eval_launches, "train_step": train["fwd"],
                 "train_step_attn_drop": train_drop["fwd"],
                 **{path: n["K1"] for path, n in mc.items()},
@@ -7001,6 +7100,9 @@ def main() -> int:
                                 **{path: {k: n[k] for k in ("K5", "K5_bwd")}
                                    for path, n in seq7c.items()}}, **res[14]},
     ]
+    for kern, key in ((kernels[0], "K1"), (kernels[1], "K2"), (kernels[7], "K5")):
+        kern["launches_by_path"].update(mesh_k[key])
+        kern["launches"] = sum(kern["launches_by_path"].values())
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(smi.stdout.strip(), flush=True)

@@ -16,7 +16,9 @@ Ported so far (ROADMAP.md has the slices):
                mixup, losses, the eval transform
     models/    ViT layers, the VisionTransformer with the linear head, the
                registry's finetune family
-    parallel/  sequence parallelism over torch.distributed
+    parallel/  the bootstrap, the data × seq × model mesh (Megatron tensor
+               parallelism, sequence parallelism, data-parallel gradients)
+               over torch.distributed, and its dry run
     train/     the finetune train step, AdamW with layer decay, schedules, EMA
     evals/     calibration metrics, logit collection, evaluate(), MC-dropout
                and ensembles

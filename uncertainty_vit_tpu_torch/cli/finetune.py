@@ -65,7 +65,10 @@ another model (``--mc_dropout``, ``--ensembles``,
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports it: under ``--seq_parallel``
-(item 21) ``--mc_dropout``, the head flags and the post-hoc evaluations;
+(item 21) ``--mc_dropout``, the head flags (``--sngp`` and ``--gp_layer``
+train: the precision update and the spectral (u, v) take the pooled
+feature, the same on every rank; their evaluation raises) and the post-hoc
+evaluations;
 the attention variants, ``--opt adahessian`` in training, and under a
 gumbel or dual_sto attention ``--laplace`` and ``--visualize_embedding``;
 and a ``--finetune``, ``--resume`` or ensemble member that is not a
@@ -120,6 +123,7 @@ from uncertainty_vit_tpu_torch.utils.embeddings import visualize_embedding
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
 # what --seq_parallel does not run yet: flag → what it turns on (ROADMAP.md item 21)
+# (--sngp and --gp_layer only under --eval: SEQ_TRAINS)
 NOT_PORTED_UNDER_SEQ = {
     "mc_dropout": "MC-dropout",
     "sngp": "the SNGP head with the spectral-norm fc_norm",
@@ -134,6 +138,8 @@ NOT_PORTED_UNDER_SEQ = {
     "gumbel_softmax": "the Gumbel-softmax attention",
     "h_sto_trans": "the dual stochastic attention",
 }
+# what trains under --seq_parallel though its evaluation there does not run yet
+SEQ_TRAINS = ("mc_dropout", "sngp", "gp_layer")
 
 # what a model that draws Gumbel noise in every forward does not run yet:
 # their forwards take no generator (ROADMAP.md item 20's rest)
@@ -612,7 +618,7 @@ def _check_seq_flags(args) -> None:
     evaluations (ROADMAP.md item 21), and attention dropout in training
     (the JAX package's attention refuses it, models/layers.py:353-358)."""
     for flag, what in NOT_PORTED_UNDER_SEQ.items():
-        if getattr(args, flag, False) and (args.eval or flag != "mc_dropout"):
+        if getattr(args, flag, False) and (args.eval or flag not in SEQ_TRAINS):
             raise B.not_ported(flag, f"{what} under --seq_parallel", "item 21")
     if not args.eval and needs_hessian(args.opt):
         raise B.not_ported("opt", "the AdaHessian pass under --seq_parallel", "item 21")

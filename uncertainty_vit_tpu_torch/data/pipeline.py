@@ -24,9 +24,13 @@ import torch
 import torch.distributed as dist
 
 
-def host_shard() -> Tuple[int, int]:
+def host_shard(mesh=None) -> Tuple[int, int]:
     """(host_id, num_hosts) of this process: its rank and the world size
-    when torch.distributed is started, else (0, 1)."""
+    when torch.distributed is started, else (0, 1). Under a
+    ``parallel.mesh.Mesh`` the ranks of one data index read the same
+    images: (its data index, the data axis's size)."""
+    if mesh is not None:
+        return mesh.index("data"), mesh.size("data")
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

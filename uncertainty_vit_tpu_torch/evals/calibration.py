@@ -12,8 +12,10 @@ log-midpoint of the final bracket.
 Fit split (the driver's --temp_scaling_split): the eval split itself by
 default, a held-out carve-out of it (``heldout_split``: a seeded numpy
 permutation, the JAX package's indices to the bit), or the train split.
-The JAX package sums each host's NLL curve over processes; the port runs
-one process (the multi-host reduction is ROADMAP.md item 21).
+Under a ``parallel.mesh.Mesh`` whose data axis splits the fit set, each
+rank's curve is weighted by its sample count and the curves and counts are
+summed over the axis, as the JAX package sums each host's
+(``_gather_weighted``, :51-61): every rank fits the same T.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from uncertainty_vit_tpu_torch.core.device import resolve
 from uncertainty_vit_tpu_torch.evals import metrics as M
 from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
 
 def nll_at_temperature(logits: torch.Tensor, labels: torch.Tensor, t) -> torch.Tensor:
@@ -33,30 +36,41 @@ def nll_at_temperature(logits: torch.Tensor, labels: torch.Tensor, t) -> torch.T
     return -lp.gather(1, labels.long()[:, None]).mean()
 
 
-def _nll_curve(logits: torch.Tensor, labels: torch.Tensor, grid: np.ndarray) -> np.ndarray:
+def _nll_curve(logits: torch.Tensor, labels: torch.Tensor, grid: np.ndarray,
+               mesh=None) -> np.ndarray:
     """The fit set's NLL at each grid temperature: every point queued, then
-    one readback of the stacked curve."""
-    return torch.stack([nll_at_temperature(logits, labels, float(t)) for t in grid]
-                       ).double().cpu().numpy()
+    one readback of the stacked curve; under ``mesh`` the count-weighted
+    mean over the data axis's shards."""
+    curve = torch.stack([nll_at_temperature(logits, labels, float(t)) for t in grid])
+    if meshlib.active(mesh, meshlib.DATA_AXIS):
+        n = labels.shape[0]
+        # an empty shard's NaN curve weighs nothing
+        total = meshlib.reduce_value(torch.cat([curve.nan_to_num(0.0) * n,
+                                                curve.new_full((1,), n)]), mesh)
+        curve = total[:-1] / total[-1]
+    return curve.double().cpu().numpy()
 
 
 def fit_temperature(logits, labels, t_min: float = 0.05, t_max: float = 20.0,
-                    grid_points: int = 64, device=None) -> float:
+                    grid_points: int = 64, device=None, mesh=None) -> float:
     """Scalar T minimizing the fit set's NLL (see the module doc). ``logits``
     and ``labels`` are tensors or host arrays; the curves are computed on
     ``device`` (the logits' own when they are a tensor, else the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU). Under ``mesh`` they are this data rank's
+    shard of the fit set (a shard may be empty, not all of them)."""
     if device is None and isinstance(logits, torch.Tensor):
         device = logits.device
     device = resolve(device)
     logits = torch.as_tensor(logits).to(device, torch.float32)
     labels = torch.as_tensor(labels).to(device)
-    if labels.shape[0] == 0:
+    if labels.shape[0] == 0 and not meshlib.active(mesh, meshlib.DATA_AXIS):
         raise ValueError("fit_temperature got an empty fit set")
     lo, hi = float(t_min), float(t_max)
     for _ in range(2):  # coarse bracket, then fine grid inside it
         grid = np.logspace(np.log10(lo), np.log10(hi), grid_points)
-        curve = _nll_curve(logits, labels, grid)
+        curve = _nll_curve(logits, labels, grid, mesh)
+        if not np.isfinite(curve).all():
+            raise ValueError("fit_temperature got an empty fit set on every rank")
         i = int(np.argmin(curve))
         lo = float(grid[max(i - 1, 0)])
         hi = float(grid[min(i + 1, grid_points - 1)])

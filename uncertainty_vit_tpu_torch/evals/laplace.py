@@ -37,6 +37,7 @@ import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.evals import metrics as M
 from uncertainty_vit_tpu_torch.evals.collect import per_call_generator, pipelined_pairs
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
 FeatureForward = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -83,14 +84,18 @@ def _accumulate(a_sum: torch.Tensor, g_sum: torch.Tensor, loglik: torch.Tensor,
 
 def fit_last_layer_laplace(feature_forward: FeatureForward,
                            head_params: Mapping[str, torch.Tensor],
-                           batches: Iterable) -> KronLaplace:
+                           batches: Iterable, mesh=None) -> KronLaplace:
     """Stream the fit set once; returns the eigendecomposed KFAC factors.
 
     feature_forward(images) → (logits [B, C], pooled features [B, D]), the
     model's forward with return_features; ``head_params`` holds the linear
     head's "weight" [C, D] and "bias" [C] (θ* for the prior term). The sums
     and ``eigh`` run on the features' device; the only readbacks are the
-    log-likelihood and ‖θ*‖² at the end."""
+    log-likelihood and ‖θ*‖² at the end. Under a ``parallel.mesh.Mesh``
+    each data rank streams its shard, and the factor sums, the
+    log-likelihood and the count are summed over the data axis (JAX
+    :117-136), so every rank fits the same posterior; an empty shard is
+    fine, an empty fit set on every rank raises."""
     weight, bias = head_params["weight"], head_params["bias"]
     c, d = weight.shape
     device = weight.device
@@ -105,6 +110,10 @@ def fit_last_layer_laplace(feature_forward: FeatureForward,
             labels = torch.as_tensor(labels).to(device, non_blocking=True)
             a_sum, g_sum, loglik = _accumulate(a_sum, g_sum, loglik, logits, feats, labels)
             n += int(labels.shape[0])
+        if meshlib.active(mesh, meshlib.DATA_AXIS):
+            a_sum, g_sum, loglik = (meshlib.reduce_value(t, mesh) for t in (a_sum, g_sum, loglik))
+            n = int(meshlib.reduce_value(torch.tensor(n, dtype=torch.float64, device=device),
+                                         mesh))
         if n == 0:
             raise ValueError("laplace fit got an empty loader")
         a, q_a = torch.linalg.eigh(a_sum)

@@ -15,11 +15,21 @@ embedding's too (modeling_cyclical.py:23-24, 158-161), and has a mask token
 that applies whenever a mask is given. As in the JAX package, ``lm_head``
 runs over all patch tokens and the loss does the masking (its documented
 divergence from the reference's gather of the masked tokens, :219-225).
+
+``mesh`` (a ``parallel.mesh.Mesh``; the JAX model's ``seq_mesh``, :42-67,
+and the mesh's param specs) runs the backbone sharded as
+``models.vit.ViTBackbone`` does. Under its seq axis a rank holds its token
+rows of every output (the cls row only on the rank that holds token 0, and
+stripped there), and every parameter acts on token rows
+(``token_parameters``); the SNGP ``lm_head`` sums its precision update over
+the data and seq axes.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Union
+
+import torch.nn as nn
 
 import torch
 import torch.nn.functional as F
@@ -44,17 +54,18 @@ class CyclicalViT(ViTBackbone):
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
                  gp_layer: bool = False, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         device = resolve_device(device)
         cfg = cfg.replace(init_std=INIT_STD, init_trunc_abs=INIT_STD)
         super().__init__(cfg, dtype, device=device, generator=generator, has_mask_token=True,
                          mask_only_when_training=False,
-                         patch_embed_init=("trunc", INIT_STD))
+                         patch_embed_init=("trunc", INIT_STD), mesh=mesh)
         c = cfg.embed_dim
         self.gp_layer = gp_layer
         self.norm = torch.nn.LayerNorm(c, eps=cfg.layer_norm_eps, device=device)
         if gp_layer:
-            self.lm_head = SNGPHead(c, c, c, device=device, generator=generator)
+            self.lm_head = SNGPHead(c, c, c, device=device, generator=generator, mesh=mesh,
+                                    axes=("data", "seq"))
         else:
             self.lm_head = _Params((c, c), I.trunc_normal(INIT_STD, INIT_STD), (c,),
                                    device=device, generator=generator)
@@ -82,10 +93,20 @@ class CyclicalViT(ViTBackbone):
                                                    gumbel_generator=gumbel_generator)
         if layer_results is not None:
             zs = layer_xs if layer_results == "end" else fc_features
-            return [z[:, 1:] for z in zs]
-        x = layer_norm(self.norm, x)[:, 1:]
+            return [self._patch_rows(z) for z in zs]
+        x = self._patch_rows(layer_norm(self.norm, x))
         if self.gp_layer:
             b, n, c = x.shape
             return self.lm_head(x.reshape(b * n, c), update_cov=update_sngp_cov).reshape(b, n, -1)
         return F.linear(x.to(self.dtype), self.lm_head.weight.to(self.dtype),
                         self.lm_head.bias.to(self.dtype))
+
+    def _patch_rows(self, z: torch.Tensor) -> torch.Tensor:
+        """The patch tokens of z: without the cls row, which under a seq
+        group only the rank holding token 0 has."""
+        shard = self.seq_shard
+        return z[:, 1:] if shard is None or shard.start == 0 else z
+
+    def token_parameters(self) -> List[nn.Parameter]:
+        """Every parameter: the norm and lm_head act on token rows too."""
+        return list(self.parameters())

@@ -28,6 +28,15 @@ the JAX modules do, or in float64 for a model built with dtype float64 and
 its parameters in float64 (``model.double()``: a reference copy, which the
 card's smoke run holds a train step against).
 
+Under a ``parallel.mesh.Mesh`` (``mesh``) the model takes its data and
+model axes (the JAX driver refuses a seq axis for it, cli/finetune.py:
+193-195; the ranks of a seq axis hold replicas): the batch is split over
+data, each forward drawing its masks for the global batch, and the model
+axis cuts ``DistAttention`` by heads (qkv, the four q / v biases and the
+rel-pos tables; proj and cov_proj row-parallel, their bias after the sum)
+and the shared MLP as ``models.layers.Mlp``. Training attention dropout
+under a model axis raises, as the ViT's does.
+
 The reference's quirks the JAX package handles are kept: drop-path on both
 streams in both layer-scale branches (modeling_finetune_dist.py:48 names a
 missing ``drop_cov``), the rel-pos bias added only where there is one
@@ -47,10 +56,11 @@ from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.config import ViTConfig
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.layers import (
-    Mlp, PatchEmbed, RelativePositionBias, _active, _fix_init, _param, _Params, drop_path,
-    dropout, layer_norm,
+    Mlp, PatchEmbed, RelativePositionBias, _active, _fix_init, _local, _model_axis, _param,
+    _Params, batch_shard, drop_path, dropout, layer_norm,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32, wasserstein_distance_matmul
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
 LAYER_RESULTS = ("end",)
 
@@ -67,10 +77,14 @@ class DistAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, layer_id: int = 0, init_std: float = 0.02,
-                 dtype: torch.dtype = torch.float32, *, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, *, mesh=None, device=None,
+                 generator=None):
         super().__init__()
         device = resolve_device(device)
         head_dim = dim // num_heads
+        self.tp = _model_axis(mesh)
+        if self.tp is not None:
+            num_heads = _local(num_heads, self.tp, "the head count")
         all_head = head_dim * num_heads
         self.num_heads, self.head_dim, self.dtype = num_heads, head_dim, dtype
         self.scale = qk_scale or head_dim**-0.5
@@ -98,12 +112,25 @@ class DistAttention(nn.Module):
         return F.linear(x, self.qkv.weight.to(self.dtype),
                         None if bias is None else bias.to(self.dtype))
 
+    def _out(self, layer: _Params, x: torch.Tensor) -> torch.Tensor:
+        """proj / cov_proj: under a model axis the partial products summed
+        over it, then the bias."""
+        if self.tp is None:
+            return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+        y = meshlib.reduce_from_model(F.linear(x, layer.weight.to(self.dtype)), self.tp)
+        return y + layer.bias.to(self.dtype)
+
     def forward(self, x: torch.Tensor, cov_x: torch.Tensor,
                 rel_pos_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         active = _active(self, deterministic)
         b, n, _ = x.shape
+        if self.tp is not None:
+            if active and self.attn_drop > 0.0:
+                raise NotImplementedError("attention dropout in training under a model axis is "
+                                          "not ported (ROADMAP.md item 21)")
+            x, cov_x = meshlib.copy_to_model(x, self.tp), meshlib.copy_to_model(cov_x, self.tp)
         qkv = self._project(x, self.q_bias, self.v_bias)
         cov_qkv = F.elu(self._project(cov_x, self.cov_q_bias, self.cov_v_bias)) + 1.0
 
@@ -122,9 +149,7 @@ class DistAttention(nn.Module):
         attn = dropout(attn, self.attn_drop, active, generator).to(self.dtype)
         mean = (attn @ v).transpose(1, 2).reshape(b, n, -1)
         cov = ((attn**2) @ cov_v).transpose(1, 2).reshape(b, n, -1)
-        mean = F.linear(mean, self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype))
-        cov = F.linear(cov, self.cov_proj.weight.to(self.dtype),
-                       self.cov_proj.bias.to(self.dtype))
+        mean, cov = self._out(self.proj, mean), self._out(self.cov_proj, cov)
         return (dropout(mean, self.proj_drop, active, generator),
                 dropout(cov, self.proj_drop, active, generator))
 
@@ -139,16 +164,18 @@ class DistBlock(nn.Module):
                  qk_scale: Optional[float] = None, drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path_rate: float = 0.0, init_values: Optional[float] = None,
                  layer_id: int = 1, init_std: float = 0.02, layer_norm_eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32, *, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, *, mesh=None, device=None,
+                 generator=None):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.drop_path_rate = dtype, drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.attn = DistAttention(dim, num_heads, qkv_bias, qk_scale, attn_drop, drop, layer_id,
-                                  init_std, dtype, device=device, generator=generator)
+                                  init_std, dtype, mesh=mesh, device=device, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, layer_id=layer_id,
-                       init_std=init_std, dtype=dtype, device=device, generator=generator)
+                       init_std=init_std, dtype=dtype, mesh=mesh, device=device,
+                       generator=generator)
         if init_values is not None and init_values > 0:
             self.gamma_1 = _param((dim,), I.constant(init_values), device, generator)
             self.gamma_2 = _param((dim,), I.constant(init_values), device, generator)
@@ -188,10 +215,11 @@ class _DistBackbone(nn.Module):
     ``DistBlock`` s. A subclass adds its norms and heads after it."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype, has_mask_tokens: bool, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         device = resolve_device(device)
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.mesh = cfg, dtype, mesh
+        tp = _model_axis(mesh)
         c = cfg.embed_dim
         tn = I.trunc_normal(0.02, 2.0)
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, c, dtype, device=device,
@@ -205,14 +233,15 @@ class _DistBackbone(nn.Module):
             self.cov_mask_token = _param((1, 1, c), tn, device, generator)
         else:
             self.mask_token = self.cov_mask_token = None
-        self.rel_pos_bias = (RelativePositionBias(cfg.grid_size, cfg.num_heads, device=device)
+        heads = cfg.num_heads if tp is None else _local(cfg.num_heads, tp, "the head count")
+        self.rel_pos_bias = (RelativePositionBias(cfg.grid_size, heads, device=device)
                              if cfg.use_shared_rel_pos_bias else None)
         dpr = np.linspace(0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
             DistBlock(c, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
                       drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate,
                       drop_path_rate=float(dpr[i]), init_values=cfg.init_values, layer_id=i + 1,
-                      layer_norm_eps=cfg.layer_norm_eps, dtype=dtype, device=device,
+                      layer_norm_eps=cfg.layer_norm_eps, dtype=dtype, mesh=mesh, device=device,
                       generator=generator)
             for i in range(cfg.depth))
 
@@ -223,6 +252,10 @@ class _DistBackbone(nn.Module):
         block's mean and cov outputs) of images [B, H, W, C]; the mask
         tokens blend into the patches ``bool_masked_pos`` marks whenever the
         model has them and a mask is given."""
+        with batch_shard(self.mesh, images.shape[0]):
+            return self._trunk(images, bool_masked_pos, generator, active, collect_layers)
+
+    def _trunk(self, images, bool_masked_pos, generator, active, collect_layers):
         images = images.to(self.dtype)
         mean_x = self.patch_embed(images)
         cov_x = self.cov_patch_embed(images)
@@ -254,9 +287,10 @@ class DistVisionTransformer(_DistBackbone):
     pooled, cov pooled, f32 logits)."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         device = resolve_device(device)
-        super().__init__(cfg, dtype, has_mask_tokens=False, device=device, generator=generator)
+        super().__init__(cfg, dtype, has_mask_tokens=False, device=device, generator=generator,
+                         mesh=mesh)
         c = cfg.embed_dim
         self.fc_norm = self.norm = None
         if cfg.use_mean_pooling:
@@ -300,9 +334,10 @@ class DistCyclicalViT(_DistBackbone):
     outputs for it)."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         device = resolve_device(device)
-        super().__init__(cfg, dtype, has_mask_tokens=True, device=device, generator=generator)
+        super().__init__(cfg, dtype, has_mask_tokens=True, device=device, generator=generator,
+                         mesh=mesh)
         c = cfg.embed_dim
         tn = I.trunc_normal(0.02, 2.0)
         self.norm = nn.LayerNorm(c, eps=cfg.layer_norm_eps, device=device)

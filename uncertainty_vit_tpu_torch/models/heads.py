@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.layers import _param
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
 MIN_SCALE_MONTE_CARLO = 1e-3  # modeling_finetune.py:641
 NORM_BOUND = 0.95  # the spectral norm's bound (sngp.py:95)
@@ -146,14 +147,22 @@ class SNGPHead(nn.Module):
     matrix (ridge·I at first) is updated by ``update_cov`` with momentum, or
     summed exactly when momentum ≤ 0 (``models.registry.sngp_reset_cov``
     restarts it); with ``return_gp_cov`` the forward also returns the
-    predictive covariance φ P⁻¹ φᵀ · ridge."""
+    predictive covariance φ P⁻¹ φᵀ · ridge.
+
+    Under a ``mesh`` the rows of x are split over ``axes`` of it (the data
+    axis, and the seq axis for the cyclical ``lm_head`` over token rows):
+    the minibatch precision φᵀφ / B is taken over the global rows, its sum
+    and B summed over those axes, so the matrix stays equal on every rank
+    (JAX :163-168 computes it on the global batch)."""
 
     def __init__(self, hidden_size: int, num_inducing: int, num_classes: int,
                  momentum: float = 0.999, ridge_penalty: float = 1e-3, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 axes: Tuple[str, ...] = ("data",)):
         super().__init__()
         device = resolve_device(device)
         self.momentum, self.ridge_penalty = momentum, ridge_penalty
+        self.mesh, self.axes = mesh, axes
         self._gp_input_normalize_layer = nn.LayerNorm(hidden_size, eps=NORM_EPS, device=device)
         self._random_feature = _RandomFeature(hidden_size, num_inducing, device=device,
                                               generator=generator)
@@ -175,9 +184,10 @@ class SNGPHead(nn.Module):
         if update_cov:
             with torch.no_grad():
                 p = phi.detach().float()
-                minibatch = p.t() @ p
+                minibatch = meshlib.reduce_value(p.t() @ p, self.mesh, self.axes)
                 if self.momentum > 0:
-                    minibatch = minibatch / p.shape[0]
+                    rows = meshlib.reduce_value(p.new_full((), p.shape[0]), self.mesh, self.axes)
+                    minibatch = minibatch / rows
                     new = self.momentum * self.precision_matrix + (1.0 - self.momentum) * minibatch
                 else:
                     new = self.precision_matrix + minibatch

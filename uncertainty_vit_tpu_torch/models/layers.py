@@ -28,6 +28,19 @@ forward's ``gumbel_generator``, a stream of its own.
 ``record_draws()`` / ``replay_draws()`` let the AdaHessian pass recompute a
 train step's loss on the same dropout and drop-path masks (the reference's
 double backward runs through the step's own graph).
+
+Under a ``parallel.mesh.Mesh`` (``mesh``) the batch is split over its data
+axis: a model's forward runs inside ``batch_shard``, so that each dropout
+and drop-path mask is drawn for the global batch and this rank's rows kept
+(the draws of the unsharded model). Its model axis cuts the trunk as
+Megatron does (the reference's tensor-parallel specs, parallel/mesh.py:
+130-148): ``Attention`` holds H/T of the heads (its qkv rows, q / v biases
+and rel-pos table columns) and runs the attention kernels on them,
+``Mlp`` H/T of fc1's outputs; proj and fc2 are row-parallel, their partial
+products summed by ``parallel.mesh.reduce_from_model`` before the bias and
+the layer scale. Under a model axis the int8 trunk, training attention
+dropout (K1's mask counter is the local head index) and the other
+attention variants raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from uncertainty_vit_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIM, fused_qkv_attention, in_plain_only, seq_sharded_qkv_attention,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.parallel import seq
 
 
@@ -73,6 +87,21 @@ class DrawLog:
 
 
 _DRAW_LOG: Optional[DrawLog] = None
+# (start, stop, total): this rank's rows of the global batch, inside batch_shard
+_BATCH_ROWS: Optional[Tuple[int, int, int]] = None
+
+
+@contextlib.contextmanager
+def batch_shard(mesh: Optional[meshlib.Mesh], rows: int) -> Iterator[None]:
+    """Inside, every dropout and drop-path mask of a forward on ``rows``
+    rows of a batch split over ``mesh``'s data axis is drawn for the global
+    batch and this rank's rows kept; nothing changes without a data axis."""
+    global _BATCH_ROWS
+    prev, _BATCH_ROWS = _BATCH_ROWS, meshlib.data_rows(mesh, rows)
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = prev
 
 
 @contextlib.contextmanager
@@ -116,7 +145,7 @@ def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
             raise RuntimeError("the replayed forward draws other masks than the recorded one")
         log.next += 1
         return log.draws[log.next - 1]
-    u = torch.rand(shape, generator=generator, device=device)
+    u = meshlib.rand_rows(shape, generator, device, _BATCH_ROWS)
     if log is not None:
         log.draws.append(u)
     return u
@@ -296,14 +325,19 @@ class _ScaledOutDense(_Params):
     weight instead of the [B, N, C] activations. With ``quant="int8"`` and a
     supported shape the matmul is ``ops.quant.int8_dense`` on the f32 weight
     after the fold (both are diagonal rescalings before the quantization,
-    :164-174); the fold stays an autograd node, so γ gets its gradient."""
+    :164-174); the fold stays an autograd node, so γ gets its gradient.
+
+    ``row_parallel`` (a mesh with a model axis): the layer holds its columns
+    of the weight; the partial products are summed over the model axis, and
+    then the bias is added and γ multiplies (γ's gradient then is whole on
+    every model rank)."""
 
     def __init__(self, in_features: int, out_features: int, weight_init: I.Init,
                  quant: str = "none", seq_shard: Optional[seq.SeqShard] = None, *,
-                 device=None, generator=None):
+                 row_parallel: Optional[meshlib.Mesh] = None, device=None, generator=None):
         super().__init__((out_features, in_features), weight_init, (out_features,),
                          device=device, generator=generator)
-        self.quant, self.seq_shard = quant, seq_shard
+        self.quant, self.seq_shard, self.row_parallel = quant, seq_shard, row_parallel
 
     def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -311,12 +345,37 @@ class _ScaledOutDense(_Params):
         """``active`` says whether the forward draws (then the int8 layer's
         rounding seed comes from ``generator``)."""
         w, b = self.weight, self.bias
+        if self.row_parallel is not None:
+            y = meshlib.reduce_from_model(F.linear(x, w.to(x.dtype)), self.row_parallel)
+            y = y + b.to(y.dtype)
+            return y if scale is None else y * scale.to(y.dtype)
         if scale is not None:
             w = w * scale[:, None]
             b = b * scale
         if _use_quant(self.quant, x, w.shape[0], self.seq_shard):
             return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator))
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
+
+
+def _model_axis(mesh: Optional[meshlib.Mesh], quant: str = "none") -> Optional[meshlib.Mesh]:
+    """``mesh`` where it has a model axis of more than one rank, else None;
+    raises for what is not ported under one."""
+    if not meshlib.active(mesh, meshlib.MODEL_AXIS):
+        return None
+    if quant != "none":
+        raise NotImplementedError("the int8 trunk under a model axis is not ported (its row "
+                                  "scales would be taken over a part of the contraction; "
+                                  "ROADMAP.md item 21)")
+    return mesh
+
+
+def _local(size: int, tp: meshlib.Mesh, what: str) -> int:
+    """This model rank's part of ``size``."""
+    parts = tp.size(meshlib.MODEL_AXIS)
+    if size % parts:
+        raise NotImplementedError(f"{what} of {size} does not split over a model axis of "
+                                  f"{parts} (ROADMAP.md item 21)")
+    return size // parts
 
 
 def _fix_init(base: I.Init, layer_id: int) -> I.Init:
@@ -328,26 +387,33 @@ class Mlp(nn.Module):
     """fc1 → GELU → fc2 → dropout (modeling_finetune.py:65-82).
 
     GELU is the tanh form under bfloat16 and exact erf otherwise, as the
-    JAX module selects (models/layers.py:201-205)."""
+    JAX module selects (models/layers.py:201-205). Under ``mesh``'s model
+    axis of T ranks fc1 holds hidden/T of its outputs and fc2 is
+    row-parallel."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, drop: float = 0.0,
                  layer_id: int = 0, init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  dtype: torch.dtype = torch.float32, quant: str = "none",
-                 seq_shard: Optional[seq.SeqShard] = None, *, device=None, generator=None):
+                 seq_shard: Optional[seq.SeqShard] = None, *,
+                 mesh: Optional[meshlib.Mesh] = None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         tn = I.trunc_normal(init_std, init_trunc_abs)
         self.drop, self.dtype, self.seq_shard = drop, dtype, seq_shard
+        self.tp = _model_axis(mesh, quant)
+        if self.tp is not None:
+            hidden_dim = _local(hidden_dim, self.tp, "the MLP's hidden width")
         self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, seq_shard, device=device,
                                    generator=generator)
         self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id), quant,
-                                   seq_shard, device=device, generator=generator)
+                                   seq_shard, row_parallel=self.tp, device=device,
+                                   generator=generator)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None) -> torch.Tensor:
         active = _active(self, deterministic)
-        x = self.fc1(x, None, generator, active)
+        x = self.fc1(meshlib.copy_to_model(x, self.tp), None, generator, active)
         x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
         x = self.fc2(x, out_scale, generator, active)
         return site_dropout(x, self.drop, active, generator, self.seq_shard)
@@ -411,7 +477,11 @@ class Attention(nn.Module):
     ``seq_sharded_qkv_attention`` (:352-366; attention dropout raises in
     training, as in the reference), the plain route gathers k/v through the
     same ``seq.gather_tokens`` and runs ``naive_attention`` on the local
-    rows (the reference runs it replicated)."""
+    rows (the reference runs it replicated).
+
+    Under ``mesh``'s model axis of T ranks the module holds H/T of the
+    heads, the same kernels run on them, and proj is row-parallel; H must
+    split over T."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
@@ -420,13 +490,19 @@ class Attention(nn.Module):
                  init_std: float = 0.02, init_trunc_abs: float = 2.0,
                  use_flash: bool = True, quant: str = "none",
                  seq_shard: Optional[seq.SeqShard] = None, variant: str = "softmax",
-                 sinkformer_eps: float = 1.0, sinkformer_iters: int = 3, *, device=None,
-                 generator=None):
+                 sinkformer_eps: float = 1.0, sinkformer_iters: int = 3, *,
+                 mesh: Optional[meshlib.Mesh] = None, device=None, generator=None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown attention variant: {variant}")
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
+        self.tp = _model_axis(mesh, quant)
+        if self.tp is not None:
+            if variant != "softmax":
+                raise NotImplementedError(f"the {variant} attention under a model axis is not "
+                                          "ported (ROADMAP.md item 21)")
+            num_heads = _local(num_heads, self.tp, "the head count")
         all_head_dim = head_dim * num_heads
         self.num_heads, self.head_dim = num_heads, head_dim
         self.scale = qk_scale or head_dim**-0.5
@@ -448,7 +524,8 @@ class Attention(nn.Module):
         else:
             self.relative_position_bias_table = None
         self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id), quant,
-                                    seq_shard, device=device, generator=generator)
+                                    seq_shard, row_parallel=self.tp, device=device,
+                                    generator=generator)
 
     @property
     def use_kernel(self) -> bool:
@@ -463,6 +540,12 @@ class Attention(nn.Module):
                 gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         active = _active(self, deterministic)
         b, n, _ = x.shape
+        if self.tp is not None:
+            if active and self.attn_drop > 0.0:
+                raise NotImplementedError("attention dropout in training under a model axis is "
+                                          "not ported (K1's mask counter is the local head "
+                                          "index; ROADMAP.md item 21)")
+            x = meshlib.copy_to_model(x, self.tp)
         qkv_bias = None
         if self.q_bias is not None:
             qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
@@ -603,11 +686,14 @@ class Block(nn.Module):
                  layer_norm_eps: float = 1e-6, use_flash: bool = True,
                  dtype: torch.dtype = torch.float32, quant: str = "none",
                  seq_shard: Optional[seq.SeqShard] = None, sinkformer_eps: float = 1.0,
-                 sinkformer_iters: int = 3, dual_sto_n_centroids: int = 2, *, device=None,
-                 generator=None):
+                 sinkformer_iters: int = 3, dual_sto_n_centroids: int = 2, *,
+                 mesh: Optional[meshlib.Mesh] = None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.drop_path_rate = dtype, drop_path_rate
+        if variant == "dual_sto" and meshlib.active(mesh, meshlib.MODEL_AXIS):
+            raise NotImplementedError("the dual stochastic attention under a model axis is not "
+                                      "ported (ROADMAP.md item 21)")
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         if variant == "dual_sto":
             # the block dispatches on the variant (JAX models/layers.py:511-527)
@@ -623,12 +709,13 @@ class Block(nn.Module):
                 layer_id=layer_id, init_std=init_std, init_trunc_abs=init_trunc_abs,
                 use_flash=use_flash, quant=quant, seq_shard=seq_shard, variant=variant,
                 sinkformer_eps=sinkformer_eps, sinkformer_iters=sinkformer_iters,
-                device=device, generator=generator,
+                mesh=mesh, device=device, generator=generator,
             )
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, layer_id=layer_id,
                        init_std=init_std, init_trunc_abs=init_trunc_abs, dtype=dtype,
-                       quant=quant, seq_shard=seq_shard, device=device, generator=generator)
+                       quant=quant, seq_shard=seq_shard, mesh=mesh, device=device,
+                       generator=generator)
         if init_values is not None and init_values > 0:
             self.gamma_1 = _param((dim,), I.constant(init_values), device, generator)
             self.gamma_2 = _param((dim,), I.constant(init_values), device, generator)

@@ -33,6 +33,17 @@ runs the blocks on them (the attention gathers k/v over the group); the
 pooling sums over the group, and the head runs on every rank alike, so the
 logits come out equal on every rank. The train step sums the gradients of
 ``token_parameters()`` over the group.
+
+``mesh`` (a ``parallel.mesh.Mesh``; the JAX step's mesh with the param
+specs of parallel/mesh.py:130-148) takes the place of ``seq_group``: its
+seq axis splits the tokens as above, its model axis cuts every block
+(``models.layers``) and the shared rel-pos table by heads, and its data
+axis splits the batch: a forward draws its masks for the global batch and
+keeps this rank's rows. A model under a model axis is built at its shard's
+shapes; its weights come from the full state dict through
+``parallel.mesh.shard_state_dict``. The SNGP head's precision update sums
+over the data axis; the heteroscedastic head and the split-trunk
+MC-dropout forward raise under a mesh.
 """
 
 from __future__ import annotations
@@ -49,10 +60,11 @@ from uncertainty_vit_tpu_torch.core.config import HEAD_TYPES, ViTConfig
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
 from uncertainty_vit_tpu_torch.models.heads import MCSoftmaxDenseFA, SNGPHead, SpectralNormDense
 from uncertainty_vit_tpu_torch.models.layers import (
-    Block, PatchEmbed, RelativePositionBias, _active, _param, _Params, _query_rows, dropout,
-    layer_norm,
+    Block, PatchEmbed, RelativePositionBias, _active, _local, _model_axis, _param, _Params,
+    _query_rows, batch_shard, dropout, layer_norm,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.parallel import seq
 
 
@@ -81,12 +93,17 @@ class ViTBackbone(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None,
                  seq_group: Optional[seq.SeqGroup] = None,
                  has_mask_token: Optional[bool] = None, mask_only_when_training: bool = True,
-                 patch_embed_init="torch"):
+                 patch_embed_init="torch", mesh: Optional[meshlib.Mesh] = None):
         super().__init__()
         device = resolve_device(device)
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {cfg.quant!r}")
-        self.cfg, self.dtype, self.seq_group = cfg, dtype, seq_group
+        if mesh is not None:
+            if seq_group is not None:
+                raise ValueError("pass a mesh or a seq_group, not both")
+            seq_group = mesh.seq_group
+        tp = _model_axis(mesh, cfg.quant)
+        self.cfg, self.dtype, self.seq_group, self.mesh = cfg, dtype, seq_group, mesh
         self.mask_only_when_training = mask_only_when_training
         # this rank's token rows under a seq group
         self.seq_shard = None if seq_group is None else seq_group.shard(cfg.num_patches + 1)
@@ -99,8 +116,9 @@ class ViTBackbone(nn.Module):
             if cfg.use_abs_pos_emb else None
         )
         self.pos_drop = cfg.drop_rate if cfg.dropout_from_block == 0 else 0.0
+        heads = cfg.num_heads if tp is None else _local(cfg.num_heads, tp, "the head count")
         self.rel_pos_bias = (
-            RelativePositionBias(cfg.grid_size, cfg.num_heads, device=device)
+            RelativePositionBias(cfg.grid_size, heads, device=device)
             if cfg.use_shared_rel_pos_bias else None
         )
         dpr = np.linspace(0, cfg.drop_path_rate, cfg.depth)
@@ -117,7 +135,7 @@ class ViTBackbone(nn.Module):
                 use_flash=cfg.use_flash_attention, dtype=dtype, quant=cfg.quant,
                 seq_shard=self.seq_shard, sinkformer_eps=cfg.sinkformer_eps,
                 sinkformer_iters=cfg.sinkformer_iters,
-                dual_sto_n_centroids=cfg.dual_sto_n_centroids, device=device,
+                dual_sto_n_centroids=cfg.dual_sto_n_centroids, mesh=mesh, device=device,
                 generator=generator,
             )
             for i in range(cfg.depth)
@@ -145,6 +163,14 @@ class ViTBackbone(nn.Module):
                 bool_masked_pos: Optional[torch.Tensor] = None,
                 gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+        if self.mesh is not None and mc_samples > 0:
+            raise NotImplementedError("MC-dropout under a mesh is not ported yet")
+        with batch_shard(self.mesh, images.shape[0]):
+            return self._trunk(images, generator, deterministic, mc_samples, mc_split,
+                               bool_masked_pos, gumbel_generator)
+
+    def _trunk(self, images, generator, deterministic, mc_samples, mc_split, bool_masked_pos,
+               gumbel_generator):
         active = _active(self, deterministic)
         shard = self.seq_shard
         if shard is not None and mc_samples > 0:
@@ -189,11 +215,16 @@ class VisionTransformer(ViTBackbone):
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32, *,
                  device=None, generator: Optional[torch.Generator] = None,
-                 seq_group: Optional[seq.SeqGroup] = None):
+                 seq_group: Optional[seq.SeqGroup] = None,
+                 mesh: Optional[meshlib.Mesh] = None):
         if cfg.head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type: {cfg.head_type}")
+        if mesh is not None and cfg.head_type == "het":
+            raise NotImplementedError("the heteroscedastic head under a mesh is not ported "
+                                      "(ROADMAP.md item 21)")
         device = resolve_device(device)
-        super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group)
+        super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group,
+                         mesh=mesh)
         c = cfg.embed_dim
         self.layer_log_weights = (
             _param((cfg.depth,), I.zeros, device, generator) if cfg.learn_layer_weights else None
@@ -223,7 +254,7 @@ class VisionTransformer(ViTBackbone):
             self.head = SNGPHead(c, cfg.sngp_num_inducing or c, cfg.num_classes,
                                  momentum=cfg.sngp_momentum,
                                  ridge_penalty=cfg.sngp_ridge_penalty, device=device,
-                                 generator=generator)
+                                 generator=generator, mesh=mesh)
         elif cfg.head_type == "het":
             self.head = MCSoftmaxDenseFA(
                 c, cfg.num_classes, num_factors=cfg.het_num_factors,

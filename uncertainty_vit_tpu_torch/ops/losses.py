@@ -14,15 +14,37 @@ and its normalizations by a maximum without a guard where it has none (0/0
 where all distances are 0). ``wasserstein_distance_matmul``'s two products
 run in float32 with TF32 off, forward and backward, whatever the process
 set: the distance m1² + m2²ᵀ − 2·m1·m2ᵀ cancels where it is small.
+
+Under a ``parallel.mesh.Mesh`` (``mesh``) the rows are split over its
+``axes`` (the data axis; the seq axis too for the token-row losses of a
+token-sharded model): every normalizer is the global batch's (the batch
+size, the mask count, the Wasserstein maxima as an all-reduce MAX whose
+gradient goes to the ranks that hold the maximum), and every rank returns
+the whole loss, its backward its own share of the gradient
+(``parallel.mesh.sum_over``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from uncertainty_vit_tpu_torch.models.dvae import f32_scope
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+
+DATA = (meshlib.DATA_AXIS,)
+
+
+def batch_mean(rows: torch.Tensor, mesh=None, axes: Sequence[str] = DATA) -> torch.Tensor:
+    """The mean of per-row values over the global batch split over ``axes``
+    (equal shards)."""
+    if mesh is None:
+        return torch.mean(rows)
+    parts = 1
+    for axis in axes:
+        parts *= mesh.size(axis)
+    return meshlib.sum_over(rows.sum(), mesh, axes) / (rows.numel() * parts)
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
@@ -32,33 +54,39 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Te
 
 
 def masked_regression_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
-                           beta: float = 2.0, l2: bool = False) -> torch.Tensor:
+                           beta: float = 2.0, l2: bool = False, mesh=None,
+                           axes: Sequence[str] = DATA) -> torch.Tensor:
     """Mean smooth-L1 (or squared error with ``l2``) over the masked
-    positions: pred, target [B, N, C], mask [B, N] in {0, 1}."""
+    positions: pred, target [B, N, C], mask [B, N] in {0, 1}; over the
+    global mask count under ``mesh``."""
     pred, target = pred.float(), target.float()
     elem = (pred - target) ** 2 if l2 else smooth_l1(pred, target, beta)
     w = mask.float()[..., None]
-    denom = torch.clamp_min(w.sum() * pred.shape[-1], 1.0)
-    return (elem * w).sum() / denom
+    denom = torch.clamp_min(meshlib.reduce_value(w.sum(), mesh, axes) * pred.shape[-1], 1.0)
+    return meshlib.sum_over((elem * w).sum(), mesh, axes) / denom
 
 
 def masked_variance_hinge(pred: torch.Tensor, mask: torch.Tensor, margin: float = 0.5,
-                          eps: float = 1e-6) -> torch.Tensor:
+                          eps: float = 1e-6, mesh=None,
+                          axes: Sequence[str] = DATA) -> torch.Tensor:
     """VICReg-style hinge on the per-channel std over the masked rows:
-    z = sqrt(unbiased var + eps), loss = mean(relu(margin − z))."""
+    z = sqrt(unbiased var + eps), loss = mean(relu(margin − z)); the rows
+    of every rank under ``mesh``."""
     x = pred.float().reshape(-1, pred.shape[-1])
     w = mask.float().reshape(-1, 1)
-    n = torch.clamp_min(w.sum(), 2.0)
-    mean = (x * w).sum(0) / n
-    var = ((x - mean) ** 2 * w).sum(0) / (n - 1.0)
+    n = torch.clamp_min(meshlib.reduce_value(w.sum(), mesh, axes), 2.0)
+    mean = meshlib.sum_over((x * w).sum(0), mesh, axes, shared=True) / n
+    var = meshlib.sum_over(((x - mean) ** 2 * w).sum(0), mesh, axes) / (n - 1.0)
     z = torch.sqrt(var + eps)
     return torch.relu(margin - z).sum() / z.shape[0]
 
 
-def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:
-    """timm SoftTargetCrossEntropy: mean over batch of −Σ t·log_softmax."""
+def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor,
+                              mesh=None) -> torch.Tensor:
+    """timm SoftTargetCrossEntropy: mean over batch of −Σ t·log_softmax
+    (the global batch under ``mesh``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return torch.mean(torch.sum(-soft_targets * logp, dim=-1))
+    return batch_mean(torch.sum(-soft_targets * logp, dim=-1), mesh)
 
 
 def label_smoothing_cross_entropy(
@@ -77,7 +105,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mim_cross_entropy(logits: torch.Tensor, token_ids: torch.Tensor,
-                             mask: torch.Tensor) -> tuple:
+                             mask: torch.Tensor, mesh=None) -> tuple:
     """BEiT's MIM loss (engine_for_pretraining.py:50-57) and its MLM
     accuracy (:74): the cross-entropy of f32 log-softmax over the codebook
     vocabulary, and argmax == token, each weighted by the mask over
@@ -87,10 +115,10 @@ def masked_mim_cross_entropy(logits: torch.Tensor, token_ids: torch.Tensor,
     ids = token_ids.long()[..., None]
     nll = -logp.gather(-1, ids)[..., 0]
     w = mask.float()
-    denom = torch.clamp_min(w.sum(), 1.0)
-    loss = (nll * w).sum() / denom
+    denom = torch.clamp_min(meshlib.reduce_value(w.sum(), mesh), 1.0)
+    loss = meshlib.sum_over((nll * w).sum(), mesh) / denom
     correct = (logits.argmax(dim=-1) == ids[..., 0]).float()
-    return loss, (correct * w).sum() / denom
+    return loss, meshlib.reduce_value((correct * w).sum(), mesh) / denom
 
 
 # ---------------------------------------------------------------------------
@@ -113,14 +141,14 @@ def wasserstein_distance(mean1: torch.Tensor, cov1: torch.Tensor, mean2: torch.T
     return ret + torch.sum((c1 - c2) ** 2, dim=-1)
 
 
-def _max_abs(x: torch.Tensor) -> torch.Tensor:
-    return torch.amax(x.abs())
+def _max_abs(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    return meshlib.global_max(x.abs(), mesh)
 
 
 def wasserstein_pretrain_loss(mean_out: torch.Tensor, cov_out: torch.Tensor,
                               pos_mean: torch.Tensor, pos_cov: torch.Tensor,
                               lambda_pretraining: float = 1e-5,
-                              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """WassersteinLoss (distloss.py:7-30): sigmoid-squash, the W2 distance,
     −log σ(−d) normalized by its maximum, summed × λ. ``mask`` (the flattened
     rows, {0, 1}) stands for the reference's gather of the masked tokens:
@@ -129,21 +157,21 @@ def wasserstein_pretrain_loss(mean_out: torch.Tensor, cov_out: torch.Tensor,
     d = wasserstein_distance(s(mean_out), s(cov_out), s(pos_mean), s(pos_cov)).reshape(-1)
     if mask is not None:
         m = mask.reshape(-1).to(d.dtype)
-        d = d / _at_least(torch.amax(d.abs() * m), 1e-24)
+        d = d / _at_least(meshlib.global_max(d.abs() * m, mesh), 1e-24)
         loss = -torch.log(torch.sigmoid(-d + 1e-24))
-        loss = loss / _at_least(torch.amax(loss.abs() * m), 1e-24)
-        return torch.sum(loss * m) * lambda_pretraining
-    d = d / _max_abs(d)
+        loss = loss / _at_least(meshlib.global_max(loss.abs() * m, mesh), 1e-24)
+        return meshlib.sum_over(torch.sum(loss * m), mesh) * lambda_pretraining
+    d = d / _max_abs(d, mesh)
     loss = -torch.log(torch.sigmoid(-d + 1e-24))
-    loss = loss / _max_abs(loss)
-    return torch.sum(loss) * lambda_pretraining
+    loss = loss / _max_abs(loss, mesh)
+    return meshlib.sum_over(torch.sum(loss), mesh) * lambda_pretraining
 
 
 def wasserstein_finetune_loss(mean_out: torch.Tensor, cov_out: torch.Tensor,
                               pos_mean: torch.Tensor, pos_cov: torch.Tensor,
                               neg_mean: torch.Tensor, neg_cov: torch.Tensor,
                               lambda_finetuning: float = 1e-4,
-                              lambda_pvn: float = 1e-4) -> torch.Tensor:
+                              lambda_pvn: float = 1e-4, mesh=None) -> torch.Tensor:
     """WassersteinLossFineTuning (distloss.py:33-70): the contrastive ranking
     term −log σ(neg − pos) plus the clamp(pos − pos_vs_neg, 0) "PVN" term,
     each normalized by its maximum."""
@@ -154,14 +182,14 @@ def wasserstein_finetune_loss(mean_out: torch.Tensor, cov_out: torch.Tensor,
     pos = wasserstein_distance(m, c, pm, pc)
     neg = wasserstein_distance(m, c, nm, nc)
     pvn = wasserstein_distance(pm, pc, nm, nc)
-    pos = pos / _max_abs(pos)
-    neg = neg / _max_abs(neg)
-    pvn = pvn / _max_abs(pvn)
+    pos = pos / _max_abs(pos, mesh)
+    neg = neg / _max_abs(neg, mesh)
+    pvn = pvn / _max_abs(pvn, mesh)
     rank = -torch.log(torch.sigmoid(neg - pos + 1e-24))
-    rank = rank / _max_abs(rank) * lambda_finetuning
+    rank = rank / _max_abs(rank, mesh) * lambda_finetuning
     pvn_loss = _at_least(pos - pvn, 0.0)
-    pvn_loss = pvn_loss / _at_least(_max_abs(pvn_loss), 1e-24) * lambda_pvn
-    return torch.sum(rank) + torch.sum(pvn_loss)
+    pvn_loss = pvn_loss / _at_least(_max_abs(pvn_loss, mesh), 1e-24) * lambda_pvn
+    return meshlib.sum_over(torch.sum(rank) + torch.sum(pvn_loss), mesh)
 
 
 def at_least_f32(dtype: torch.dtype) -> torch.dtype:

@@ -25,6 +25,13 @@ Modes (timm Mixup._mix_batch / _mix_elem / _mix_pair):
 ``cutmix_minmax`` (timm rand_bbox_minmax): the box's height and width drawn
 uniformly from [⌊dim·min⌋, ⌊dim·max⌋) and its corner so that it never
 clips; lambda from the realized area. It forces cutmix_alpha to 1.
+
+Under a ``parallel.mesh.Mesh`` whose data axis splits the batch (JAX
+:122-131, 173-181 on the global batch) every rank draws from a generator
+of the same seed for the global batch and takes its rows' draws, and the
+partner of global row i, row B−1−i, comes from the mirrored data rank
+(``parallel.mesh.flip_batch``): the images and the targets are exchanged
+over the data axis.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
 
 def one_hot_smooth(labels: torch.Tensor, num_classes: int, smoothing: float) -> torch.Tensor:
@@ -76,6 +85,10 @@ class ElemDraws:
     y2: np.ndarray
     x1: np.ndarray
     x2: np.ndarray
+
+    def rows(self, start: int, stop: int) -> "ElemDraws":
+        """The draws of samples [start, stop)."""
+        return ElemDraws(*(a[start:stop] for a in dataclasses.astuple(self)))
 
     def mirrored(self) -> "ElemDraws":
         """The pair mode's draws: these for the first half, reversed for the
@@ -217,15 +230,16 @@ def _cutmix_box(h: int, w: int, lam: float, cy: int, cx: int) -> Tuple[int, int,
 
 def mix_batch(
     images: torch.Tensor, labels: torch.Tensor, num_classes: int, label_smoothing: float,
-    draws: MixupDraws,
+    draws: MixupDraws, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply one batch's draws: images [B, H, W, C] → (mixed images, soft
-    targets [B, num_classes] f32)."""
+    targets [B, num_classes] f32); this rank's rows of the global batch
+    under ``mesh``."""
     _, h, w, _ = images.shape
     targets1 = one_hot_smooth(labels, num_classes, label_smoothing)
     if not draws.apply:
         return images, targets1
-    flipped = images.flip(0)
+    flipped = meshlib.flip_batch(images, mesh)
     if draws.use_cutmix:
         if draws.box is not None:
             y1, y2, x1, x2 = draws.box
@@ -239,7 +253,8 @@ def mix_batch(
     else:
         lam = draws.lam_mix
         mixed = images * lam + flipped * float(np.float32(1.0) - np.float32(lam))
-    targets = targets1 * lam + targets1.flip(0) * float(np.float32(1.0) - np.float32(lam))
+    targets = targets1 * lam + meshlib.flip_batch(targets1, mesh) * float(
+        np.float32(1.0) - np.float32(lam))
     return mixed.to(images.dtype), targets
 
 
@@ -256,11 +271,12 @@ def _elem_on_device(draws: ElemDraws, device: torch.device) -> torch.Tensor:
 
 def mix_elem(
     images: torch.Tensor, labels: torch.Tensor, num_classes: int, label_smoothing: float,
-    draws: ElemDraws,
+    draws: ElemDraws, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply per-sample draws (JAX ``_mix_per_elem``, mixup.py:120-133):
     images [B, H, W, C] → (mixed images, soft targets [B, num_classes] f32),
-    each sample mixed with its partner B−1−i."""
+    each sample mixed with its partner B−1−i (of the global batch, under
+    ``mesh``; ``draws`` are this rank's rows')."""
     _, h, w, _ = images.shape
     d = _elem_on_device(draws, images.device)
     apply, use_cutmix, lam = d[0] > 0, d[1] > 0, d[2]
@@ -274,11 +290,12 @@ def mix_elem(
     lam_t = torch.where(apply, lam, one)  # the targets' lambda
     # the pixels' mixup lambda: 1 for cutmix and unapplied samples
     lam_m = torch.where(apply & ~use_cutmix, lam, one)[:, None, None, None]
-    flipped = images.flip(0)
+    flipped = meshlib.flip_batch(images, mesh)
     targets1 = one_hot_smooth(labels, num_classes, label_smoothing)
     mixed = images * lam_m + flipped * (1.0 - lam_m)
     mixed = mixed * (1.0 - box)[..., None] + flipped * box[..., None]
-    targets = targets1 * lam_t[:, None] + targets1.flip(0) * (1.0 - lam_t[:, None])
+    targets = (targets1 * lam_t[:, None]
+               + meshlib.flip_batch(targets1, mesh) * (1.0 - lam_t[:, None]))
     return mixed.to(images.dtype), targets
 
 
@@ -294,22 +311,28 @@ def mixup_cutmix(
     label_smoothing: float = 0.1,
     mode: str = "batch",
     cutmix_minmax: Optional[Sequence[float]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images: [B, H, W, C]; labels: [B] int → (mixed images, soft targets),
-    with the draws from ``generator``."""
+    with the draws from ``generator``. Under ``mesh`` the batch is this
+    rank's rows of the global batch split over the data axis, and every
+    rank's ``generator`` has the same seed."""
     if cutmix_minmax is not None and len(cutmix_minmax) != 2:
         raise ValueError("cutmix_minmax must be (min, max)")
     b, h, w, _ = images.shape
+    start, stop, total = (0, b, b) if mesh is None else mesh.batch_rows(b)
     rates = (mixup_alpha, cutmix_alpha, prob, switch_prob, cutmix_minmax)
     if mode == "elem":
-        draws = draw_mixup_elem(generator, b, h, w, *rates)
-        return mix_elem(images, labels, num_classes, label_smoothing, draws)
+        draws = draw_mixup_elem(generator, total, h, w, *rates)
+        return mix_elem(images, labels, num_classes, label_smoothing, draws.rows(start, stop),
+                        mesh)
     if mode == "pair":
-        if b % 2 != 0:
+        if total % 2 != 0:
             raise ValueError("mixup_mode='pair' requires an even batch size")
-        draws = draw_mixup_elem(generator, b // 2, h, w, *rates)
-        return mix_elem(images, labels, num_classes, label_smoothing, draws.mirrored())
+        draws = draw_mixup_elem(generator, total // 2, h, w, *rates)
+        return mix_elem(images, labels, num_classes, label_smoothing,
+                        draws.mirrored().rows(start, stop), mesh)
     if mode != "batch":
         raise ValueError(f"unknown mixup mode {mode!r}")
     draws = draw_mixup_batch(generator, h, w, *rates)
-    return mix_batch(images, labels, num_classes, label_smoothing, draws)
+    return mix_batch(images, labels, num_classes, label_smoothing, draws, mesh)

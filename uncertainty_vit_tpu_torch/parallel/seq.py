@@ -7,14 +7,17 @@ group, and the ranks meet only in the attention's k/v all-gather
 the gradient sum of the train step. Where JAX lets GSPMD place those
 collectives, the port names them: ``gather_tokens`` (its backward the
 reduce-scatter), ``all_reduce_sum`` (the pooling, identity backward) and
-``all_reduce_grads``; ``check_equal_on_ranks`` holds the ranks' copies of
-what must agree (the driver's parameters after each epoch).
+``sum_in_place`` (the gradients); ``check_equal_on_ranks`` holds the
+ranks' copies of what must agree (the driver's parameters after each
+epoch).
 
 The collectives run on any backend ``torch.distributed`` was started with.
 On one card the ranks share it over gloo, whose process group carries CUDA
 tensors for ``all_gather`` and ``all_reduce`` by staging them through host
 memory; gloo has no reduce-scatter, so the gather's backward is an
-all-reduce and a slice. ``run_ranks`` starts such a group of processes.
+all-reduce and a slice. ``run_ranks`` starts such a group of processes,
+and with ``mesh=(data, seq, model)`` lays them out as a
+``parallel.mesh.Mesh``, whose seq axis is a ``SeqGroup``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ import torch.multiprocessing as mp
 
 @dataclasses.dataclass(frozen=True)
 class SeqGroup:
-    """A process group over which the tokens of each image are split: rank r
-    of S holds rows ``rows(n)`` = [r·m, min((r + 1)·m, n)) with m =
+    """A process group along one axis of ranks; on the seq axis the tokens
+    of each image are split over it: rank r of S holds rows ``rows(n)`` = [r·m, min((r + 1)·m, n)) with m =
     ceil(n / S), the reference's split of the sequence padded to a multiple
     of S (flash_attention.py:1325-1332) without the pad rows. ``group=None``
     is the default group."""
@@ -45,6 +48,9 @@ class SeqGroup:
     rank: int
     size: int
     group: Optional[Any] = None
+
+    def __deepcopy__(self, memo):  # a copy of a model shares its process group
+        return self
 
     @classmethod
     def of(cls, group: Optional[Any] = None) -> "SeqGroup":
@@ -74,6 +80,9 @@ class SeqShard:
     n: int
     start: int
     stop: int
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 class _GatherTokens(torch.autograd.Function):
@@ -120,28 +129,28 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
     """The sum of x over the ranks. The backward is the identity: every rank
     computes the same loss from the sum, so each passes its own cotangent
-    on, and the gradient sum of ``all_reduce_grads`` adds the ranks'
-    shares."""
+    on, and the gradient sum (``sum_in_place``) adds the ranks' shares."""
     return _AllReduceSum.apply(x, group)
 
 
-# Elements of one all-reduce in all_reduce_grads: bounds the flat buffer (and
+# Elements of one all-reduce in sum_in_place: bounds the flat buffer (and
 # gloo's host copy of it) at 256 MB of f32.
 _BUCKET = 1 << 26
 
 
-def all_reduce_grads(params: Sequence[torch.Tensor], group: SeqGroup) -> None:
-    """Sums the gradients of ``params`` over the ranks, in place, a bucket of
-    gradients flattened into one tensor per all-reduce. Every rank must pass
-    the same parameters with gradients of the same shapes."""
-    grads = [p.grad for p in params if p.grad is not None]
+def sum_in_place(tensors: Sequence[torch.Tensor], group: SeqGroup) -> None:
+    """Sums each tensor over the ranks, in place, a bucket of tensors
+    flattened into one tensor per all-reduce (the gradient sum of a train
+    step). Every rank must pass tensors of the same shapes, in the same
+    order."""
+    tensors = list(tensors)
     i = 0
-    while i < len(grads):
+    while i < len(tensors):
         j, size = i, 0
-        while j < len(grads) and (j == i or size + grads[j].numel() <= _BUCKET):
-            size += grads[j].numel()
+        while j < len(tensors) and (j == i or size + tensors[j].numel() <= _BUCKET):
+            size += tensors[j].numel()
             j += 1
-        bucket = grads[i:j]
+        bucket = tensors[i:j]
         flat = torch.cat([g.reshape(-1) for g in bucket])
         dist.all_reduce(flat, group=group.group)
         for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
@@ -159,15 +168,21 @@ def check_equal_on_ranks(tensors: Iterable[torch.Tensor], group: SeqGroup, what:
     dist.all_gather(parts, digest, group=group.group)
     differ = [r for r, p in enumerate(parts) if not torch.equal(p, parts[0])]
     if differ:
-        raise RuntimeError(f"{what} differ between rank 0 and ranks {differ} of the seq group")
+        raise RuntimeError(f"{what} differ between rank 0 and ranks {differ} of the group")
 
 
-def _rank_main(fn, rank, size, init_method, args, results, timeout):
+def _rank_main(fn, rank, size, init_method, args, results, timeout, mesh):
     try:
         dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=size,
                                 timeout=datetime.timedelta(seconds=timeout))
         try:
-            out = fn(SeqGroup.of(), *args)
+            if mesh is None:
+                first = SeqGroup.of()
+            else:
+                from uncertainty_vit_tpu_torch.parallel.mesh import Mesh
+
+                first = Mesh.create(*mesh)
+            out = fn(first, *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, pickle.dumps(out)))
@@ -175,20 +190,25 @@ def _rank_main(fn, rank, size, init_method, args, results, timeout):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn: Callable[..., Any], size: int, *args: Any, timeout: float = 900.0) -> List[Any]:
+def run_ranks(fn: Callable[..., Any], size: int, *args: Any, timeout: float = 900.0,
+              mesh: Optional[Tuple[int, int, int]] = None) -> List[Any]:
     """Runs ``fn(group, *args)`` in ``size`` new processes, one gloo group
     over them (a ``file://`` rendezvous in a temporary directory), and
-    returns each rank's result in rank order. ``fn`` must be importable by
+    returns each rank's result in rank order. With ``mesh`` (data, seq,
+    model), whose product is ``size``, ``fn`` takes the rank's
+    ``parallel.mesh.Mesh`` in place of the group. ``fn`` must be importable by
     name (a module-level function), and its arguments and result picklable;
     return tensors on the CPU. Raises with the failing ranks' tracebacks when
     a rank raises, dies or does not finish within ``timeout`` seconds; every
     process is stopped before it returns or raises."""
+    if mesh is not None and mesh[0] * mesh[1] * mesh[2] != size:
+        raise ValueError(f"a mesh of {tuple(mesh)} does not hold {size} ranks")
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, args=(fn, rank, size, init_method, args, results,
-                                                      timeout), daemon=True)
+                                                      timeout, mesh), daemon=True)
                  for rank in range(size)]
         for p in procs:
             p.start()

@@ -32,6 +32,15 @@ from the step's ``gumbel_generator``. ``use_hessian`` (adahessian; JAX
 :132, 233-235) runs the AdaHessian pass after the backward, as the
 finetune step does (``engine_finetune``): the student's loss again on the
 step's draws, inside ``flash_attention.plain_only()``.
+
+A student built on a ``parallel.mesh.Mesh`` (``model.mesh``; the teacher
+is its copy and sharded alike) takes this rank's rows of the global batch
+and its masks, and generators of the same seeds on every rank: the mask
+dropout draws for the global batch, the targets' batch norm takes its
+statistics over the global (B, T) and the instance norms over all of T,
+the losses divide by the global mask count, and the optimizer sums the
+gradient shares before it reads them. Under the mesh's seq axis each
+rank holds its token rows of the outputs, targets and masks.
 """
 
 from __future__ import annotations
@@ -44,8 +53,11 @@ import torch
 import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.ops import losses as L
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.train.ema import cyclical_ema_step, ema_on_update_boundary
-from uncertainty_vit_tpu_torch.train.engine_finetune import hessian_context, step_seeds
+from uncertainty_vit_tpu_torch.train.engine_finetune import (
+    hessian_context, refuse_hessian_when_sharded, step_seeds,
+)
 from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
@@ -83,30 +95,47 @@ class CyclicalHParams:
     update_freq: int = 1
 
 
-def _normalized(x: torch.Tensor, dims: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
-    """(x − mean) / sqrt(var + eps) over ``dims``, the variance biased, in f32."""
+def _normalized(x: torch.Tensor, dims: Sequence[int], eps: float = 1e-5, mesh=None,
+                axes: Sequence[str] = ()) -> torch.Tensor:
+    """(x − mean) / sqrt(var + eps) over ``dims``, the variance biased, in
+    f32; over the rows of every rank of ``axes`` of ``mesh`` (no gradient)."""
     x = x.float()
-    var, mean = torch.var_mean(x, dim=tuple(dims), correction=0, keepdim=True)
+    axes = [a for a in axes if meshlib.active(mesh, a)]
+    if not axes:
+        var, mean = torch.var_mean(x, dim=tuple(dims), correction=0, keepdim=True)
+        return (x - mean) / torch.sqrt(var + eps)
+    count = 1
+    for d in dims:
+        count *= x.shape[d]
+    n = meshlib.reduce_value(x.new_full((), count), mesh, axes)
+    mean = meshlib.reduce_value(x.sum(dim=tuple(dims), keepdim=True), mesh, axes) / n
+    var = meshlib.reduce_value(((x - mean) ** 2).sum(dim=tuple(dims), keepdim=True), mesh,
+                               axes) / n
     return (x - mean) / torch.sqrt(var + eps)
 
 
-def build_targets(layer_outputs: Sequence[torch.Tensor], hp: CyclicalHParams) -> torch.Tensor:
+def build_targets(layer_outputs: Sequence[torch.Tensor], hp: CyclicalHParams, mesh=None,
+                  token_sharded: bool = False) -> torch.Tensor:
     """The teacher's targets (engine_for_cyclical.py:90-118): the chosen
     layers [B, T, C] in f32; each batch-normed (over B and T a channel,
     F.batch_norm in [B, C, T] in training without running stats) and/or
     instance-normed (over T, F.instance_norm in [B, C, T]); each
     layer-normed over C (no affine, eps 1e-5); their mean; then optionally
-    instance- and layer-normed again. Returns [B, T, C] f32."""
+    instance- and layer-normed again. Returns [B, T, C] f32. Under ``mesh``
+    B is this rank's rows of the batch and, ``token_sharded``, T its token
+    rows: the statistics are the global (B, T)'s and all of T's."""
+    over_t = ("seq",) if token_sharded else ()
+    over_bt = ("data",) + over_t
     vals = [layer_outputs[i].float() for i in hp.target_layers]
     if hp.target_batch_norm:
-        vals = [_normalized(v, (0, 1)) for v in vals]
+        vals = [_normalized(v, (0, 1), mesh=mesh, axes=over_bt) for v in vals]
     if hp.target_instance_norm:
-        vals = [_normalized(v, (1,)) for v in vals]
+        vals = [_normalized(v, (1,), mesh=mesh, axes=over_t) for v in vals]
     if hp.target_layer_norm_last:
         vals = [_normalized(v, (-1,)) for v in vals]
     targets = sum(vals) / len(hp.target_layers)
     if hp.post_target_instance_norm:
-        targets = _normalized(targets, (1,))
+        targets = _normalized(targets, (1,), mesh=mesh, axes=over_t)
     if hp.post_target_layer_norm:
         targets = _normalized(targets, (-1,))
     return targets
@@ -208,7 +237,12 @@ def make_cyclical_train_step(
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
+    refuse_hessian_when_sharded(model, use_hessian)
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
+    mesh = getattr(model, "mesh", None)
+    shard = getattr(model, "seq_shard", None)
+    # the losses' rows: the batch's over data, and the tokens' over seq
+    axes = ("data", "seq") if shard is not None else ("data",)
 
     def step(state: CyclicalState, images: torch.Tensor, bool_masked_pos: torch.Tensor,
              generator: torch.Generator, aug_generator: Optional[torch.Generator] = None,
@@ -221,8 +255,12 @@ def make_cyclical_train_step(
             images = aug_fn(aug_generator, images, valid_hw)
         mask = bool_masked_pos.float()
         if hp.mask_dropout_prob > 0:
-            keep = torch.rand(mask.shape, generator=generator, device=mask.device)
+            keep = meshlib.rand_rows(mask.shape, generator, mask.device,
+                                     meshlib.data_rows(mesh, mask.shape[0]))
             mask = (keep < 1.0 - hp.mask_dropout_prob).float() * mask
+        # the mask of this rank's patch rows (tokens [start, stop) hold
+        # patches [start − 1, stop − 1) past the cls token)
+        rows = mask if shard is None else mask[:, max(shard.start, 1) - 1:shard.stop - 1]
         # a Gumbel trunk's noise (the dist model has no variant and takes none)
         gkw = {} if gumbel_generator is None else {"gumbel_generator": gumbel_generator}
         # the teacher: EMA weights, all tokens, all layers, no gradient
@@ -232,14 +270,14 @@ def make_cyclical_train_step(
                                         layer_results=hp.layer_results, **gkw)
             if hp.stochastic:
                 mean_layers, cov_layers = teacher_out
-                targets = build_targets(mean_layers, hp)
+                targets = build_targets(mean_layers, hp, mesh)
                 # the cov targets take only the layer-norm stages
                 # (engine_for_cyclical.py:73-86)
                 cov_targets = build_targets(cov_layers, dataclasses.replace(
                     hp, target_batch_norm=False, target_instance_norm=False,
                     post_target_instance_norm=False))
             else:
-                targets = build_targets(teacher_out, hp)
+                targets = build_targets(teacher_out, hp, mesh, shard is not None)
         model.train()
 
         def loss_of():
@@ -248,16 +286,16 @@ def make_cyclical_train_step(
             else:
                 out = model(images, mask, generator=generator, update_sngp_cov=hp.gp_layer,
                             **gkw).float()
-            loss_cyc = L.masked_regression_loss(out, targets, mask, beta=hp.l1_beta,
-                                                l2=hp.l2_loss)
-            loss_var0 = (L.masked_variance_hinge(out, mask, hp.var_margin0) if hp.var_w0 > 0
-                         else torch.zeros((), device=out.device))
+            loss_cyc = L.masked_regression_loss(out, targets, rows, beta=hp.l1_beta,
+                                                l2=hp.l2_loss, mesh=mesh, axes=axes)
+            loss_var0 = (L.masked_variance_hinge(out, rows, hp.var_margin0, mesh=mesh, axes=axes)
+                         if hp.var_w0 > 0 else torch.zeros((), device=out.device))
             loss = loss_cyc + loss_var0 * hp.var_w0
             if hp.stochastic:
                 c = out.shape[-1]
                 loss = loss + L.wasserstein_pretrain_loss(
                     out.reshape(-1, c), cov_out.reshape(-1, c), targets.reshape(-1, c),
-                    cov_targets.reshape(-1, c), hp.lambda_pretraining, mask=mask)
+                    cov_targets.reshape(-1, c), hp.lambda_pretraining, mask=rows, mesh=mesh)
             if hp.loss_scale != -1:
                 loss = loss * hp.loss_scale
             return loss, loss_cyc, loss_var0
@@ -283,6 +321,7 @@ def make_cyclical_train_step(
         state.step += 1
         return {"loss": loss.detach(), "loss_cyc": loss_cyc.detach(),
                 "loss_var0": loss_var0.detach(), "grad_norm": grad_norm,
-                "mask_count": mask.sum() / mask.shape[0], "lr": lr}
+                "mask_count": meshlib.reduce_value(mask.sum(), mesh) / (
+                    mask.shape[0] * (1 if mesh is None else mesh.size("data"))), "lr": lr}
 
     return step

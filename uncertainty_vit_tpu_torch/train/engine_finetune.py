@@ -26,6 +26,14 @@ recomputes the loss on the step's own draws inside
 ``flash_attention.plain_only()`` (``optim.StepReplay``) and hands the
 Hutchinson estimate, from a sixth generator (``StepGenerators.hessian``),
 to the optimizer.
+
+A model built on a ``parallel.mesh.Mesh`` (``model.mesh``) takes this
+rank's rows of the global batch (the data axis) and generators of the same
+seeds on every rank: mixup draws for the global batch and exchanges the
+partners over the data axis, the masking draws for the global batch, the
+loss and the accuracy are the global batch's, and the optimizer sums the
+gradient shares (``parallel.mesh.grad_reducer``) before it reads them.
+The AdaHessian pass under a mesh raises.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch.nn.functional as F
 from uncertainty_vit_tpu_torch.core.config import HEAD_TYPES
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
-from uncertainty_vit_tpu_torch.parallel import seq
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.train.ema import ema_on_update_boundary, ema_update
 from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
@@ -91,7 +99,8 @@ def init_finetune_state(model: nn.Module, optimizer: Optimizer,
 
 
 def _targets(hp: FinetuneHParams, images: torch.Tensor, labels: torch.Tensor,
-             mix_generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+             mix_generator: Optional[torch.Generator], mesh=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(images, soft targets) as the train step feeds them to the model."""
     if hp.mixup_active:
         if mix_generator is None:
@@ -99,7 +108,7 @@ def _targets(hp: FinetuneHParams, images: torch.Tensor, labels: torch.Tensor,
         return mixup_cutmix(
             mix_generator, images, labels, hp.num_classes, hp.mixup_alpha, hp.cutmix_alpha,
             hp.mixup_prob, hp.mixup_switch_prob, hp.label_smoothing,
-            mode=hp.mixup_mode, cutmix_minmax=hp.cutmix_minmax,
+            mode=hp.mixup_mode, cutmix_minmax=hp.cutmix_minmax, mesh=mesh,
         )
     if hp.label_smoothing > 0 and hp.criterion == "smooth":
         return images, one_hot_smooth(labels, hp.num_classes, hp.label_smoothing)
@@ -164,6 +173,23 @@ def hessian_context(replay: Optional[StepReplay]):
     return contextlib.nullcontext() if replay is None else replay.recording()
 
 
+def refuse_hessian_when_sharded(model: nn.Module, use_hessian: bool) -> None:
+    if use_hessian and (getattr(model, "seq_group", None) is not None
+                        or getattr(model, "mesh", None) is not None):
+        raise NotImplementedError("the AdaHessian pass under a seq group or a mesh is not "
+                                  "ported (ROADMAP.md item 21)")
+
+
+def global_accuracy(logits: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
+    """argmax(logits) == argmax(targets), the mean over the global batch."""
+    with torch.no_grad():
+        hits = (logits.argmax(-1) == targets.argmax(-1)).float()
+        if mesh is None:
+            return hits.mean()
+        return meshlib.reduce_value(hits.sum(), mesh) / (
+            hits.numel() * mesh.size(meshlib.DATA_AXIS))
+
+
 def make_finetune_train_step(
     model: nn.Module,
     optimizer: Optimizer,
@@ -190,16 +216,17 @@ def make_finetune_train_step(
     model blends its mask token into those patches. With ``hp.update_freq``
     k > 1 (the optimizer's own) the parameters move on every k-th call only,
     from the mean of the k calls' gradients; each call reports its own
-    gradient's norm. lr and wd are read at the update index, step // k, as
-    the optax schedules count updates. ``wd_schedule`` defaults to the
-    optimizer's constant weight decay. Nothing in the step reads a value
-    back to the host.
+    gradient's norm (a model on a mesh's data axis: the window mean's on
+    the k-th call, None on the others; see ``optim.LayerDecayAdamW``). lr
+    and wd are read at the update index, step // k, as the optax schedules
+    count updates. ``wd_schedule`` defaults to the optimizer's constant
+    weight decay. Nothing in the step reads a value back to the host.
 
     A model built with a ``seq_group`` holds each image's tokens split over
     the group's ranks: every rank calls the step on the same batch with
-    generators of the same seeds, and after the backward the gradients of
-    ``model.token_parameters()`` are summed over the group before the
-    optimizer reads them, what GSPMD does for the reference's step
+    generators of the same seeds, and the optimizer sums the gradients of
+    ``model.token_parameters()`` over the group before it reads them
+    (``parallel.mesh.grad_reducer``), what GSPMD does for the reference's step
     (tests/test_seq_parallel.py:58-92).
 
     ``hp.head_type`` "sngp": the forward runs with ``update_sngp_cov``, so
@@ -211,10 +238,11 @@ def make_finetune_train_step(
     A gumbel or dual_sto attention draws from ``gumbel_generator``. With
     ``use_hessian`` the step runs the AdaHessian pass (see the module's
     docstring), its z and attention-dropout masks from
-    ``hessian_generator`` (required); not under a seq group."""
-    if use_hessian and getattr(model, "seq_group", None) is not None:
-        raise NotImplementedError("the AdaHessian pass under a seq group is not ported "
-                                  "(ROADMAP.md item 21)")
+    ``hessian_generator`` (required); not under a seq group or a mesh.
+
+    A model built on a mesh takes this rank's rows of the global batch
+    (see the module's docstring)."""
+    refuse_hessian_when_sharded(model, use_hessian)
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
@@ -224,6 +252,7 @@ def make_finetune_train_step(
         raise ValueError(f"unknown head_type: {hp.head_type}")
     use_sngp = hp.head_type == "sngp"
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
+    mesh = getattr(model, "mesh", None)
 
     def step(state: FinetuneState, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator, mix_generator: Optional[torch.Generator] = None,
@@ -236,11 +265,12 @@ def make_finetune_train_step(
             if aug_generator is None:
                 raise ValueError("the train augmentation draws from an explicit aug_generator")
             images = aug_fn(aug_generator, images, valid_hw)
-        images, targets = _targets(hp, images, labels, mix_generator)
+        images, targets = _targets(hp, images, labels, mix_generator, mesh)
         bool_masked_pos = None
         if hp.masked_position_prob > 0:
             shape = (images.shape[0], model.cfg.num_patches)
-            bool_masked_pos = (torch.rand(shape, generator=generator, device=images.device)
+            bool_masked_pos = (meshlib.rand_rows(shape, generator, images.device,
+                                                 meshlib.data_rows(mesh, shape[0]))
                                < hp.masked_position_prob).float()
         model.train()
 
@@ -248,15 +278,13 @@ def make_finetune_train_step(
             logits = model(images, generator=generator, bool_masked_pos=bool_masked_pos,
                            update_sngp_cov=use_sngp, mc_generator=mc_generator,
                            gumbel_generator=gumbel_generator)
-            return L.soft_target_cross_entropy(logits, targets), logits
+            return L.soft_target_cross_entropy(logits, targets, mesh), logits
 
         replay = StepReplay(model, (gumbel_generator, mc_generator)) if use_hessian else None
         with hessian_context(replay):
             loss, logits = loss_of()
         optimizer.zero_grad()
         loss.backward()
-        if getattr(model, "seq_group", None) is not None:
-            seq.all_reduce_grads(model.token_parameters(), model.seq_group)
         hessian = None
         if replay is not None:
             hessian = replay.hessian_diag(lambda: loss_of()[0], optimizer.params,
@@ -271,8 +299,7 @@ def make_finetune_train_step(
                 state.model_ema, state.step, hp.update_freq,
             )
         state.step += 1
-        with torch.no_grad():
-            acc = (logits.argmax(-1) == targets.argmax(-1)).float().mean()
+        acc = global_accuracy(logits, targets, mesh)
         return {"loss": loss.detach(), "class_acc": acc, "grad_norm": grad_norm, "lr": lr}
 
     return step

@@ -13,6 +13,12 @@ them, :296-299; the JAX package stops their gradient) → soft-target CE
 plus ``wasserstein_finetune_loss`` in f32 → backward → AdamW with layer
 decay, accumulating ``update_freq`` mini-steps an update. Nothing in the
 step reads a value back to the host.
+
+A model built on a ``parallel.mesh.Mesh`` (``model.mesh``: data and model
+axes) takes this rank's rows of the global triplet batch: mixup as the
+finetune step's, the cross-entropy over the global batch, the Wasserstein
+maxima over every data rank (an all-reduce MAX, its gradient to the ranks
+that hold it), and the gradient shares summed by the optimizer.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.ops import losses as L
 from uncertainty_vit_tpu_torch.ops.mixup import mixup_cutmix, one_hot_smooth
-from uncertainty_vit_tpu_torch.train.engine_finetune import FinetuneState, hessian_context
+from uncertainty_vit_tpu_torch.train.engine_finetune import (
+    FinetuneState, global_accuracy, hessian_context, refuse_hessian_when_sharded,
+)
 from uncertainty_vit_tpu_torch.train.optim import Optimizer, StepReplay
 from uncertainty_vit_tpu_torch.train.schedules import Schedule, constant_schedule
 
@@ -82,7 +90,9 @@ def make_dist_finetune_train_step(
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
+    refuse_hessian_when_sharded(model, use_hessian)
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
+    mesh = getattr(model, "mesh", None)
 
     def step(state: FinetuneState, images: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator,
@@ -99,7 +109,7 @@ def make_dist_finetune_train_step(
             images, targets = mixup_cutmix(
                 mix_generator, images, labels, hp.num_classes, hp.mixup_alpha, hp.cutmix_alpha,
                 hp.mixup_prob, hp.mixup_switch_prob, hp.label_smoothing, mode=hp.mixup_mode,
-                cutmix_minmax=hp.cutmix_minmax)
+                cutmix_minmax=hp.cutmix_minmax, mesh=mesh)
         else:
             targets = one_hot_smooth(labels, hp.num_classes, hp.label_smoothing)
         model.train()
@@ -110,10 +120,10 @@ def make_dist_finetune_train_step(
 
         def loss_of():
             mean, cov, logits = model(images, generator=generator)
-            ce = L.soft_target_cross_entropy(logits, targets)
+            ce = L.soft_target_cross_entropy(logits, targets, mesh)
             w_loss = L.wasserstein_finetune_loss(
                 mean.float(), cov.float(), pos_mean.float(), pos_cov.float(), neg_mean.float(),
-                neg_cov.float(), hp.lambda_finetuning, hp.lambda_pvn)
+                neg_cov.float(), hp.lambda_finetuning, hp.lambda_pvn, mesh)
             return ce + w_loss, ce, w_loss, logits
 
         replay = StepReplay(model) if use_hessian else None
@@ -129,8 +139,7 @@ def make_dist_finetune_train_step(
         lr = lr_schedule(update)
         grad_norm = optimizer.step(lr, wd_schedule(update), hessian=hessian)
         state.step += 1
-        with torch.no_grad():
-            acc = (logits.argmax(-1) == targets.argmax(-1)).float().mean()
+        acc = global_accuracy(logits, targets, mesh)
         return {"loss": loss.detach(), "ce_loss": ce.detach(), "wasserstein_loss": w_loss.detach(),
                 "class_acc": acc, "grad_norm": grad_norm, "lr": lr}
 

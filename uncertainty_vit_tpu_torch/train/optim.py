@@ -42,11 +42,19 @@ fires); adahessian takes the Hutchinson estimate of the Hessian diagonal
 wraps the chain (sync 6, α 0.5, the slow weights in the state); ``fused*``
 names are the plain ones. ``needs_hessian`` says whether an engine must run
 the Hutchinson pass.
+
+A model built on a ``parallel.mesh.Mesh`` with a model axis holds its shard
+of the cut parameters: the global norm (the clip's and the reported one)
+sums their squares over the model axis and counts the replicated ones
+once. A transform that reads a whole tensor's norm or its factored
+statistics (lamb, lars, adamp / sgdp's projection, adafactor, novograd)
+raises under a model axis; the element-wise ones run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -57,6 +65,11 @@ import torch.nn as nn
 from uncertainty_vit_tpu_torch.models import layers
 from uncertainty_vit_tpu_torch.ops.flash_attention import plain_only
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+
+# the --opt names whose transforms read a whole tensor (its norm, its
+# factored rows and columns, its per-layer moment): not under a model axis
+WHOLE_TENSOR_OPTS = ("lamb", "lars", "adamp", "sgdp", "adafactor", "novograd")
 
 
 def vit_layer_id(name: str, num_max_layer: int) -> int:
@@ -88,10 +101,52 @@ def weight_decay_mask(model: nn.Module, skip_names: Sequence[str] = ("pos_embed"
             for k, p in model.named_parameters()}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                mesh=None) -> torch.Tensor:
     """Global L2 norm in f32, float64 for float64 tensors (get_grad_norm_,
-    utils.py:392-405)."""
-    return torch.sqrt(sum(t.to(at_least_f32(t.dtype)).pow(2).sum() for t in tensors))
+    utils.py:392-405). Under ``mesh``'s model axis the squares of the
+    ``sharded`` tensors are summed over the axis."""
+    tensors = list(tensors)
+    if sharded is None or not meshlib.active(mesh, meshlib.MODEL_AXIS):
+        return torch.sqrt(sum(t.to(at_least_f32(t.dtype)).pow(2).sum() for t in tensors))
+    squares = [t.to(at_least_f32(t.dtype)).pow(2).sum() for t in tensors]
+    zero = squares[0].new_zeros(())
+    cut = sum((q for q, s in zip(squares, sharded) if s), zero)
+    whole = sum((q for q, s in zip(squares, sharded) if not s), zero)
+    return torch.sqrt(whole + meshlib.reduce_value(cut, mesh, (meshlib.MODEL_AXIS,)))
+
+
+def _reduced_norm(opt, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A mini-step's global gradient norm, its shares first summed in place
+    (``opt._reduce``); None where the data ranks' shares wait to be summed
+    at the end of the accumulation window (``_window_sum``)."""
+    reduce = opt._reduce
+    if reduce is not None:
+        reduce.sum_tokens(grads)
+        if opt.update_freq == 1:
+            reduce.sum_data(grads)
+        elif reduce.data is not None:
+            return None
+    return opt._norm(grads)
+
+
+def _window_sum(opt, acc: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """At the end of an accumulation window: the data sum of the window's
+    mean, in place, and its global norm; None where nothing waited."""
+    if opt._reduce is None or opt._reduce.data is None:
+        return None
+    opt._reduce.sum_data(acc)
+    return opt._norm(acc)
+
+
+def _norm_of(model: nn.Module, params: Sequence[torch.Tensor]):
+    """global_norm over ``params`` of ``model``, sharded or not."""
+    mesh = getattr(model, "mesh", None)
+    if not meshlib.active(mesh, meshlib.MODEL_AXIS):
+        return global_norm
+    cut = {id(p) for n, p in model.named_parameters() if meshlib.param_spec(n) is not None}
+    flags = [id(p) in cut for p in params]
+    return functools.partial(global_norm, sharded=flags, mesh=mesh)
 
 
 class LayerDecayAdamW:
@@ -102,7 +157,15 @@ class LayerDecayAdamW:
     ``step(lr, wd)`` takes one mini-step's gradients and returns their global
     norm; it applies an update at this update's schedule values where an
     accumulation window ends (every call when ``update_freq`` is 1), with
-    the clip on the norm of the window's mean gradient."""
+    the clip on the norm of the window's mean gradient.
+
+    On a sharded model (``parallel.mesh.grad_reducer``) the step first sums
+    the ranks' gradient shares. Under accumulation on a data axis it sums
+    the data ranks' once a window, on the window's mean; a mini-step's own
+    global gradient then exists on no rank, so the step returns None where
+    the window goes on and the window mean's norm, the one the clip reads,
+    where it ends (the reference's loss scaler, too, reports a norm only
+    where it updates)."""
 
     def __init__(self, model: nn.Module, *, weight_decay: float = 0.05,
                  clip_grad: Optional[float] = None, betas: Tuple[float, float] = (0.9, 0.999),
@@ -122,6 +185,7 @@ class LayerDecayAdamW:
         self._named = [(name, p) for name, p in model.named_parameters() if p.requires_grad]
         self._keys = {name: (scales[name] if scales else 1.0,
                              bool(weight_decay) and decayed[name]) for name, _ in self._named}
+        self._model = model
         self._group(lambda name: True)
 
     def _group(self, trainable: Callable[[str], bool]) -> None:
@@ -129,6 +193,8 @@ class LayerDecayAdamW:
         for name, p in self._named:
             groups.setdefault(self._keys[name] + (trainable(name),), []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        self._norm = _norm_of(self._model, self.params)
+        self._reduce = meshlib.grad_reducer(self._model, self.params)
         self.optimizer = torch.optim.AdamW(
             [{"params": ps, "lr_scale": s, "decayed": d, "trainable": t}
              for (s, d, t), ps in groups.items()],
@@ -140,7 +206,7 @@ class LayerDecayAdamW:
 
     @torch.no_grad()
     def step(self, lr: float, wd: float, hessian: Optional[List[torch.Tensor]] = None
-             ) -> torch.Tensor:
+             ) -> Optional[torch.Tensor]:
         """``hessian`` is ignored: AdamW takes none."""
         for p in self.params:
             if p.grad is None:
@@ -149,7 +215,7 @@ class LayerDecayAdamW:
                 # its count and the decoupled weight decay still see
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = _reduced_norm(self, grads)
         if self.update_freq > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
@@ -162,10 +228,13 @@ class LayerDecayAdamW:
             self.mini_step = (self.mini_step + 1) % self.update_freq
             if not boundary:
                 return norm
+            summed = _window_sum(self, self._acc)
             for p, a in zip(self.params, self._acc):
                 p.grad = a
             grads = self._acc
-            clip_norm = global_norm(grads)
+            clip_norm = self._norm(grads) if summed is None else summed
+            if norm is None:
+                norm = clip_norm
         else:
             clip_norm = norm
         if self.clip_grad is not None and self.clip_grad > 0:
@@ -642,7 +711,8 @@ class ChainOptimizer:
     (and, for adahessian, the mean of the windows' Hessian estimates, JAX
     ``multi_steps_with_hessian`` :389-458) at this update's lr and wd, then
     the lookahead, then zeroes the update of frozen parameters
-    (``freeze_all_except``), and adds it to the parameters."""
+    (``freeze_all_except``), and adds it to the parameters. A sharded
+    model's gradient shares are summed as ``LayerDecayAdamW`` sums them."""
 
     def __init__(self, model: nn.Module, *, opt_name: str, weight_decay: float = 0.05,
                  clip_grad: Optional[float] = None, betas: Tuple[float, float] = (0.9, 0.999),
@@ -653,10 +723,16 @@ class ChainOptimizer:
             raise ValueError(f"update_freq must be >= 1, got {update_freq}")
         self.opt_name = opt_name
         name, self.lookahead = parse_opt_name(opt_name)
+        if name in WHOLE_TENSOR_OPTS and meshlib.active(getattr(model, "mesh", None),
+                                                        meshlib.MODEL_AXIS):
+            raise NotImplementedError(f"--opt {opt_name} reads whole tensors: not ported under "
+                                      "a model axis (ROADMAP.md item 21)")
         self.name, self.weight_decay, self.clip_grad = name, weight_decay, clip_grad
         self.update_freq, self.mini_step = update_freq, 0
         self._named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in self._named]
+        self._norm = _norm_of(model, self.params)
+        self._reduce = meshlib.grad_reducer(model, self.params)
         mask = weight_decay_mask(model, skip_names)
         self._decayed = [bool(weight_decay) and mask[n] for n, _ in self._named]
         self._trainable = [True] * len(self.params)
@@ -729,12 +805,13 @@ class ChainOptimizer:
         return acc
 
     @torch.no_grad()
-    def step(self, lr: float, wd: float, hessian: Optional[Tensors] = None) -> torch.Tensor:
+    def step(self, lr: float, wd: float, hessian: Optional[Tensors] = None
+             ) -> Optional[torch.Tensor]:
         if self.uses_hessian and hessian is None:
             raise ValueError("adahessian needs hessian= (the Hutchinson estimate) on every "
                              "mini-step; build the train step with use_hessian=True")
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = _reduced_norm(self, grads)
         if self.update_freq > 1:
             self._acc = self._accumulate(self._acc, grads)
             if hessian is not None:
@@ -744,10 +821,13 @@ class ChainOptimizer:
             if not boundary:
                 return norm
             grads, hessian = self._acc, self._acc_hessian
+            summed = _window_sum(self, grads)
+            if summed is not None:
+                norm = summed
         updates = [g.to(at_least_f32(g.dtype)) for g in grads]
         if self.clip_grad is not None and self.clip_grad > 0:
             # optax.clip_by_global_norm: g · max/‖g‖ where ‖g‖ ≥ max
-            clip_norm = norm if self.update_freq == 1 else global_norm(updates)
+            clip_norm = norm if self.update_freq == 1 else self._norm(updates)
             coef = torch.where(clip_norm < self.clip_grad, 1.0, self.clip_grad / clip_norm)
             updates = torch._foreach_mul(updates, coef)
         params = [p.detach() for p in self.params]

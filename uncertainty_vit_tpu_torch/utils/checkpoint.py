@@ -53,6 +53,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+from uncertainty_vit_tpu_torch.parallel.distributed import is_main_process, save_on_master
+
 _TOP = {"cls_token", "mask_token", "pos_embed", "layer_log_weights", "cov_cls_token",
         "cov_mask_token"}
 
@@ -261,7 +264,9 @@ def load_flax_params(model: nn.Module, params: Mapping,
     whole ``variables`` dict may be passed, its "params" are skipped): they
     fill the buffers of the same leaves. The image tokenizers (a
     ``models.dvae.DiscreteVAE``, a ``models.dalle_vae.DalleVAE`` or its
-    encoder or decoder) take their JAX counterparts' params the same way."""
+    encoder or decoder) take their JAX counterparts' params the same way.
+    A model built on a ``parallel.mesh.Mesh`` takes its shard of the full
+    dict (``parallel.mesh.shard_state_dict``)."""
     state = _tokenizer_state_dict(model, params)
     if state is not None:
         model.load_state_dict(state, strict=True)
@@ -270,8 +275,16 @@ def load_flax_params(model: nn.Module, params: Mapping,
     for name, tree in (collections or {}).items():
         if name != "params":
             state.update(flax_to_state_dict(tree))
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(meshlib.shard_state_dict(state, getattr(model, "mesh", None)),
+                          strict=True)
     return model
+
+
+def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's whole state dict: under a model axis of a mesh the
+    shards gathered from every model rank (every rank of the axis must
+    call it)."""
+    return meshlib.gather_state_dict(model.state_dict(), getattr(model, "mesh", None))
 
 
 def _torch_bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
@@ -526,8 +539,17 @@ def save_checkpoint(output_dir: str, tag, state, epoch: int) -> str:
     ``train.engine_cyclical.CyclicalState``, the joint pretrainer's too:
     model, optimizer, step, and the EMA or teacher where it has one) after ``epoch`` to
     output_dir/checkpoint-{tag}.pth
-    (an epoch number or "best"); the file appears whole or not at all."""
+    (an epoch number or "best"); the file appears whole or not at all.
+    Under a mesh rank 0 alone writes (its replica: the ranks of the data and
+    seq axes hold equal states); a model axis raises (its optimizer state
+    is not gathered yet, ROADMAP.md item 21)."""
+    mesh = getattr(state.model, "mesh", None)
+    if meshlib.active(mesh, meshlib.MODEL_AXIS):
+        raise NotImplementedError("a resumable checkpoint under a model axis is not ported "
+                                  "(ROADMAP.md item 21); save_weights writes the gathered model")
     path = checkpoint_path(output_dir, tag)
+    if not is_main_process():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     def cpu(tensors):
         return None if tensors is None else {k: v.detach().cpu() for k, v in tensors.items()}
@@ -544,12 +566,19 @@ def save_weights(output_dir: str, tag, model: nn.Module) -> str:
     """Write a model's weights alone, {"model": state_dict}, to
     output_dir/checkpoint-{tag}.pth (the dVAE trainer's
     ``checkpoint-dvae-weights.pth``, which the pretrainers read through
-    --discrete_vae_weight_path); ``load_torch_state_dict`` reads it."""
+    --discrete_vae_weight_path); ``load_torch_state_dict`` reads it. A
+    model on a mesh is gathered over its model axis and written by rank 0
+    (``save_on_master``)."""
     path = checkpoint_path(output_dir, tag)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, tmp)
-    os.replace(tmp, path)
+    state = full_state_dict(model)
+
+    def write():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"model": {k: v.detach().cpu() for k, v in state.items()}}, tmp)
+        os.replace(tmp, path)
+
+    save_on_master(write)
     return path
 
 
