@@ -155,9 +155,25 @@ kernels from the sources in this checkout, then:
            same step with K6 and K7 on their plain versions. Prints img/s
            beside the bf16 trunk's from the same turns, the int8 step's loss
            beside the bf16 step's on the same batch, and peak memory.
-  phase 13 a 2-deep beit_huge_patch16_224 (head_dim 80, which the attention
-           kernels do not take): one forward against the same weights in f32
-           and one train step, on the plain attention, K1 to K4 never launched.
+  phase 13 the ViT-H slice (head width 80, which the JAX package's kernels
+           take too): (a) phases 1, 3, 7, 8 and 14 at D=80, H=16 (their
+           cases, tolerances and checks; K1 timed at B=128 and K2 at the
+           train step's B=32, K3-K5 at phases 7, 8 and 14's shapes); (b) a
+           full-width, full-depth beit_huge_patch16_224 (width 1280, depth
+           32, shared rel-pos bias, layer scale 0.1, seeded weights, bf16 on
+           f32 parameters): evaluate() over 2 batches of 64 (K1 32 a forward
+           and nothing else; logits against the plain attention, metrics
+           against a CPU recomputation from the same logits), 3 finetune
+           steps at batch 32 (K1 and K2 32 a step, every parameter finite
+           and moved), one step against the plain attention and one with
+           attention dropout 0.05 against the plain versions on the same
+           masks; (c) cli.finetune --model beit_huge_patch16_224 from a
+           seeded .pth over seeded 32x32 CIFAR-100 pickles: --eval over 256
+           images at batch 64 (K1 32 a forward; logits against the plain
+           attention, printed metrics against a CPU recomputation) and a
+           train epoch of 2 steps at batch 32 with its evaluation of 64
+           images (K1 and K2 32 a step), step 0 against the plain
+           attention's. Prints the rates and peak memory as information.
   phase 14 holds the cross attention of sequence-parallel attention (K5: K3's
            and K4's entries given Nq query rows against Nk keys) against its
            plain versions at Nq in {1, 63, 257, 513}, Nk in {65, 577, 1025},
@@ -400,6 +416,7 @@ check ends the run with a non-zero exit. There is no CPU path.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -605,9 +622,12 @@ def build_kernels(_native) -> None:
             print(f"    {short.group(1) if short else entry}: {used}, {spills}", flush=True)
 
 
-def phase1(torch, FA, dev):
+def phase1(torch, FA, dev, h=12, d=64, train_b=160):
+    """K1 at head width d with h heads (ViT-B's 12 x 64 unless given): the
+    case grid, then the eval shape B=128 and the train step's B=train_b with
+    the lse; at d = 64 also the MC-dropout shape B=1024."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    h, c, scale = 12, 768, 64**-0.5
+    c, scale = h * d, d**-0.5
     worst_out = 0.0
     for dtype, n in itertools.product((torch.bfloat16, torch.float32), FUSED_N):
         tol = OUT_TOL[str(dtype).split(".")[1]]
@@ -684,7 +704,7 @@ def phase1(torch, FA, dev):
                       f"version's to the bit (the same mask)", flush=True)
             else:
                 kept = (philox.attention_bits(seed, 8, h, n, n) >= philox.threshold(rate)).sum(-1)
-                got = (out.reshape(8, n, h, 64)[..., 0] * n * (1.0 - rate)).round().long()
+                got = (out.reshape(8, n, h, d)[..., 0] * n * (1.0 - rate)).round().long()
                 check(torch.equal(got.transpose(1, 2), kept), "K1's kept count per row differs")
                 frac = kept.sum().item() / (8 * h * n * n)
                 print(f"  K1 dropout {rate} N={n}: kept counts per row equal the plain mask's; "
@@ -695,11 +715,13 @@ def phase1(torch, FA, dev):
     except ValueError:
         pass
 
-    # the ViT-B/16 224 shapes, N=197, bias, bounded scores: the eval batch
-    # B=128, the train step's B=160 with the lse, and the MC-dropout batch
-    # B=1024 (K=8 samples of batch 128 folded)
-    big = torch.randn(1024, 197, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
-    qkv, train = big[:128], big[:160]
+    # the model's shapes, N=197, bias, bounded scores: the eval batch B=128,
+    # the train step's B=train_b with the lse, and at d = 64 the MC-dropout
+    # batch B=1024 (K=8 samples of batch 128 folded)
+    mc = d == 64
+    big = torch.randn(1024 if mc else max(128, train_b), 197, 3 * c, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    qkv, train = big[:128], big[:train_b]
     bias = torch.randn(h, 197, 197, generator=gen, device=dev) * 0.5
     bias_cast = bias.to(torch.bfloat16)
     fwd = lambda x, rate=0.0, lse=False: (lambda: FA.fused_qkv_attention(  # noqa: E731
@@ -719,7 +741,7 @@ def phase1(torch, FA, dev):
     def held_k1(what, got, want):
         got, tol = got.float(), OUT_TOL["bfloat16"]
         err = (got - want.float()).abs().max().item()
-        print(f"  K1 bfloat16 {what} N=197 bias=1 bounded=1: max|out-plain|={err:.3e}",
+        print(f"  K1 bfloat16 D={d} {what} N=197 bias=1 bounded=1: max|out-plain|={err:.3e}",
               flush=True)
         check(torch.allclose(got, want.float(), atol=tol, rtol=tol),
               f"K1 at {what} disagrees with the plain version (max abs {err:.3e})")
@@ -737,39 +759,39 @@ def phase1(torch, FA, dev):
     del out, ref
     got, got_lse = fwd(train, lse=True)()
     want, want_lse = plain_sliced(train, 0.0)
-    worst_out = max(worst_out, held_k1("B=160 with the lse", got, want))
+    worst_out = max(worst_out, held_k1(f"B={train_b} with the lse", got, want))
     lse_err = (got_lse - want_lse).abs().max().item()
     check(lse_err <= LSE_ATOL, f"K1's lse disagrees at the train shape ({lse_err:.3e})")
-    # the shape the MC-dropout path gives K1 (12,288 (image, head) pairs)
-    worst_out = max(worst_out, held_k1("B=1024", fwd(big)(), plain_sliced(big, 0.0)[0]))
-    worst_drop = max(worst_drop, held_k1("B=1024 dropout 0.1", fwd(big, 0.1)(),
-                                         plain_sliced(big, 0.1)[0]))
+    if mc:  # the shape the MC-dropout path gives K1 (12,288 (image, head) pairs)
+        worst_out = max(worst_out, held_k1("B=1024", fwd(big)(), plain_sliced(big, 0.0)[0]))
+        worst_drop = max(worst_drop, held_k1("B=1024 dropout 0.1", fwd(big, 0.1)(),
+                                             plain_sliced(big, 0.1)[0]))
     del got, got_lse, want, want_lse
+    lse_key = f"B={train_b} with lse"
     best, runs = in_turns({"plain": plain, "kernel": kern, "dropout 0.1": drop,
-                           "B=160 with lse": fwd(train, lse=True), "library": lib}, 20)
-    print(f"  K1 at B=128 N=197 H=12 D=64 bf16 (bias, bounded), ms per call: {runs}", flush=True)
-    best_big, runs_big = in_turns({"kernel": fwd(big), "dropout 0.1": fwd(big, 0.1)}, 10)
+                           lse_key: fwd(train, lse=True), "library": lib}, 20)
+    print(f"  K1 at B=128 N=197 H={h} D={d} bf16 (bias, bounded), ms per call: {runs}", flush=True)
 
     def k1_bound(x, lse):
         b_ = x.shape[0]
         return bound(nbytes(x, bias) + x.numel() // 3 * 2 + (4 * b_ * h * 197 if lse else 0),
-                     4.0 * b_ * h * 197 * 197 * 64, "bfloat16")
+                     4.0 * b_ * h * 197 * 197 * d, "bfloat16")
 
     bound_ms, bound_by = k1_bound(qkv, False)
     train_bound, _ = k1_bound(train, True)
-    big_bound, _ = k1_bound(big, False)
-    print(f"  K1 at B=1024 (the MC-dropout shape), ms per call: {runs_big}; bounds: B=128 "
-          f"{bound_ms:.4f} ms, B=160 with the lse {train_bound:.4f}, B=1024 {big_bound:.4f}",
-          flush=True)
+    other = {"B=128 dropout 0.1": best["dropout 0.1"], lse_key: best[lse_key],
+             f"{lse_key} bound": train_bound}
+    if mc:
+        best_big, runs_big = in_turns({"kernel": fwd(big), "dropout 0.1": fwd(big, 0.1)}, 10)
+        big_bound, _ = k1_bound(big, False)
+        other.update({"B=1024": best_big["kernel"], "B=1024 dropout 0.1": best_big["dropout 0.1"],
+                      "B=1024 bound": big_bound})
+        print(f"  K1 at B=1024 (the MC-dropout shape), ms per call: {runs_big}", flush=True)
+    print(f"  K1 D={d} bounds: B=128 {bound_ms:.4f} ms, B={train_b} with the lse "
+          f"{train_bound:.4f}" + (f", B=1024 {big_bound:.4f}" if mc else ""), flush=True)
     return {"max_abs_err": max(worst_out, worst_drop), "ms": best["kernel"],
             "plain_ms": best["plain"], "library_ms": best["library"], "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "other_ms": {"B=128 dropout 0.1": best["dropout 0.1"],
-                         "B=160 with lse": best["B=160 with lse"],
-                         "B=160 with lse bound": train_bound,
-                         "B=1024": best_big["kernel"],
-                         "B=1024 dropout 0.1": best_big["dropout 0.1"],
-                         "B=1024 bound": big_bound}}
+            "bound_by": bound_by, "other_ms": other}
 
 
 def phase2(torch, FA, dev):
@@ -851,9 +873,11 @@ def _rel_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
 
 
-def phase3(torch, FA, dev):
+def phase3(torch, FA, dev, h=12, d=64, train_b=160):
+    """K2 at head width d with h heads (ViT-B's 12 x 64 unless given): the
+    case grid and its checks, then the train step's shape B=train_b."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    h, c, scale = 12, 768, 64**-0.5
+    c, scale = h * d, d**-0.5
     seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
 
@@ -999,10 +1023,11 @@ def phase3(torch, FA, dev):
     check(FA.route(BIG_N[0] - 1) == "fused" and FA.route(BIG_N[0]) == "stream",
           "the route does not change kernels right above K2's limit")
 
-    # train shape of ViT-B/16 224: B=160, N=197, bf16, bias, lse of a bounded
-    # forward; turns plain, kernel, kernel, plain
-    qkv = torch.randn(160, 197, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
-    g = torch.randn(160, 197, c, generator=gen, device=dev).to(torch.bfloat16)
+    # the model's train shape (ViT-B/16 224: B=160), N=197, bf16, bias, lse of
+    # a bounded forward; turns plain, kernel, kernel, plain
+    tb = train_b
+    qkv = torch.randn(tb, 197, 3 * c, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(tb, 197, c, generator=gen, device=dev).to(torch.bfloat16)
     bias = torch.randn(h, 197, 197, generator=gen, device=dev) * 0.5
     out, lse = FA.fused_qkv_attention(qkv, bias, None, None, scale, h, bounded_scores=True,
                                       want_lse=True)
@@ -1013,14 +1038,14 @@ def phase3(torch, FA, dev):
     plain = lambda: FA.fused_qkv_attention_bwd_plain(qkv, bias, None, lse, g, scale, h, out=out)
     for what, k_fn, rate, o in (("", kern, 0.0, out), (" dropout 0.05", drop, 0.05, out_d)):
         got = k_fn()
-        abs_err, msg = held(f"B=160 N=197{what}", got, qkv, bias, None, lse, o, g,
+        abs_err, msg = held(f"B={tb} N=197{what}", got, qkv, bias, None, lse, o, g,
                             seed if rate else None, rate, BWD_TOL["bfloat16"])
         worst = max(worst, abs_err)
-        check(torch.equal(got[0], k_fn()[0]), f"K2's dqkv differs between two runs at B=160{what}")
-        print(f"  K2 bfloat16 B=160 N=197 bias=1{what}: {msg}; dqkv bit-identical between two "
-              f"runs", flush=True)
+        check(torch.equal(got[0], k_fn()[0]), f"K2's dqkv differs between two runs at B={tb}{what}")
+        print(f"  K2 bfloat16 D={d} B={tb} N=197 bias=1{what}: {msg}; dqkv bit-identical between "
+              f"two runs", flush=True)
     bound_ms, bound_by = bound(nbytes(qkv, g, lse, bias) + nbytes(qkv, bias),
-                               10.0 * 160 * h * 197 * 197 * 64, "bfloat16")
+                               10.0 * tb * h * 197 * 197 * d, "bfloat16")
     del got
     # the library yardstick: autograd's backward of one
     # scaled_dot_product_attention call on the same inputs (dqkv and dbias)
@@ -1032,11 +1057,12 @@ def phase3(torch, FA, dev):
                                                   want_dbias=False)
     best, runs = in_turns({"plain": plain, "kernel": kern, "dropout 0.05": drop,
                            "no dbias": no_dbias, "library": lib}, 10)
-    print(f"  K2 at B=160 N=197 H=12 D=64 bf16 (bias), ms per call: {runs}", flush=True)
+    print(f"  K2 at B={tb} N=197 H={h} D={d} bf16 (bias), ms per call: {runs}; bound "
+          f"{bound_ms:.4f} ms", flush=True)
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "other_ms": {"B=160 dropout 0.05": best["dropout 0.05"],
-                         "B=160 no dbias": best["no dbias"]}}
+            "other_ms": {f"B={tb} dropout 0.05": best["dropout 0.05"],
+                         f"B={tb} no dbias": best["no dbias"]}}
 
 
 def phase4(torch, FA, dev):
@@ -1431,9 +1457,12 @@ def plain_bwd_sliced(torch, FA, qkv, bias, qvb, lse, out, g, scale, h, seed, rat
     return torch.cat(dq), torch.cat(dk), torch.cat(dv), dbias, torch.cat(cs)
 
 
-def phase7(torch, FA, dev):
+def phase7(torch, FA, dev, d=64):
+    """K3 at head width d (ViT-L's 64 unless given), 16 heads: the case grid,
+    then ViT-L/16 512's shapes."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    h, c, scale = 16, 1024, 64**-0.5
+    h = 16
+    c, scale = h * d, d**-0.5
     seed = torch.tensor([0x0123456789ABCDEF], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
     for dtype, n in itertools.product((torch.bfloat16, torch.float32), BIG_N):
@@ -1531,10 +1560,10 @@ def phase7(torch, FA, dev):
           "K3 with dropout disagrees with the plain version at the L/512 eval shape")
     del got, ref, ref_d
     best, runs = in_turns(fns, 10)
-    print(f"  K3 at B={bsz} N={n} H={h} D=64 bf16 (bias, bounded), ms per call: {runs}",
+    print(f"  K3 at B={bsz} N={n} H={h} D={d} bf16 (bias, bounded), ms per call: {runs}",
           flush=True)
     bound_ms, bound_by = bound(nbytes(qkv, bias) + qkv.numel() // 3 * 2,
-                               4.0 * bsz * h * n * n * 64, "bfloat16")
+                               4.0 * bsz * h * n * n * d, "bfloat16")
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
             "other_ms": {k: best[k] for k in (f"train B={train_bsz} with lse", "no bias",
@@ -1576,9 +1605,12 @@ def held_bwd(torch, kernel, tag, got, ref, tol):
     return abs_err, ", ".join(msg)
 
 
-def phase8(torch, FA, dev):
+def phase8(torch, FA, dev, d=64):
+    """K4 at head width d (ViT-L's 64 unless given), 16 heads: the case grid
+    and its checks, then ViT-L/16 512's train shape."""
     gen = torch.Generator(device=dev).manual_seed(8)
-    h, c, scale = 16, 1024, 64**-0.5
+    h = 16
+    c, scale = h * d, d**-0.5
     seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
 
@@ -1729,7 +1761,7 @@ def phase8(torch, FA, dev):
     # the function's own traffic: the output the kernel reads for its row
     # sums is this design's, not the function's
     bound_ms, bound_by = bound(nbytes(qkv, g, lse, bias) + nbytes(qkv, bias),
-                               10.0 * bsz * h * n * n * 64, "bfloat16")
+                               10.0 * bsz * h * n * n * d, "bfloat16")
     # the library yardstick: autograd's backward of one
     # scaled_dot_product_attention call on the same inputs (dqkv and dbias)
     leaf = qkv.clone().requires_grad_()
@@ -1738,7 +1770,7 @@ def phase8(torch, FA, dev):
     lib = lambda: torch.autograd.grad(lib_out, (leaf, bias_leaf), g, retain_graph=True)
     best, runs = in_turns({"plain": plain, "kernel": kern, "no dbias": no_dbias,
                            "with q/v bias": with_qvb, "dropout 0.05": drop, "library": lib}, 5)
-    print(f"  K4 at B={bsz} N={n} H={h} D=64 bf16 (bias), ms per call: {runs}", flush=True)
+    print(f"  K4 at B={bsz} N={n} H={h} D={d} bf16 (bias), ms per call: {runs}", flush=True)
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
             "other_ms": {k: best[k] for k in ("no dbias", "with q/v bias", "dropout 0.05")}}
@@ -1754,9 +1786,11 @@ def host_ms(torch, fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def large_512_model(torch, dev, init, group=None, train=False, **overrides):
-    """Phase 9's ViT-L/16 512 (shared rel-pos bias, layer scale 0.1, bf16 on
-    f32 parameters, config ``overrides``) on the state ``init``, its tokens
+def large_512_model(torch, dev, init, group=None, train=False, preset="beit_large_patch16_512",
+                    **overrides):
+    """Phase 9's ViT-L/16 512 (phase 13's ViT-H/16 224 with
+    preset="beit_huge_patch16_224"; shared rel-pos bias, layer scale 0.1,
+    bf16 on f32 parameters, config ``overrides``) on the state ``init``, its tokens
     split over ``group`` when one is given: (model, None, None) for
     evaluation; for training, with drop-path 0.1, (model, state, step) with
     phase 9's step (batch mixup, AdamW with layer decay 0.75 and weight decay
@@ -1771,7 +1805,7 @@ def large_512_model(torch, dev, init, group=None, train=False, **overrides):
     from uncertainty_vit_tpu_torch.train.optim import make_optimizer
     from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
 
-    cfg = get_preset("beit_large_patch16_512", use_shared_rel_pos_bias=True, init_values=0.1,
+    cfg = get_preset(preset, use_shared_rel_pos_bias=True, init_values=0.1,
                      drop_path_rate=0.1 if train else 0.0, **overrides)
     model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, seq_group=group,
                               generator=torch.Generator(device=dev).manual_seed(0))
@@ -2466,56 +2500,335 @@ def phase12(torch, FA, dev, k6_ms, k7_ms):
     return launches
 
 
-def phase13(torch, FA, dev):
-    """A head width the attention kernels do not take (80: the
-    beit_huge_patch16_224 preset) runs on the plain attention, as in the
-    reference."""
+def phase13(torch, FA, dev, step_rates):
+    """The ViT-H slice (head width 80): (a) K1-K5 at D = 80 through phases 1,
+    3, 7, 8 and 14 (their cases, tolerances and checks, H = 16), K1 timed at
+    B=128 and K2 at the train step's B=32; (b) the full-depth model's
+    evaluate() and train steps; (c) the finetune driver. Returns (each
+    kernel's D = 80 entry, the launches of each path)."""
+    d80 = {}
+    for key, title, fn, kw in (
+            ("K1", "phase 1's cases; B=128 and the train step's B=32", phase1,
+             dict(h=16, train_b=32)),
+            ("K2", "phase 3's cases; the train step's B=32", phase3, dict(h=16, train_b=32)),
+            ("K3", "phase 7's cases; ViT-L/16 512's shapes", phase7, {}),
+            ("K4", "phase 8's cases; ViT-L/16 512's train shape", phase8, {}),
+            ("K5", "phase 14's cases and shards; one shard at B=8, N=1025", phase14, {})):
+        print(f"  (a) {key} at head width 80: {title}", flush=True)
+        d80[key] = fn(torch, FA, dev, d=80, **kw)
+    paths = phase13_model(torch, FA, dev, step_rates)
+    paths.update(phase13_driver(torch, FA, dev))
+    return d80, paths
+
+
+def phase13_model(torch, FA, dev, step_rates):
+    """(b) A full-width, full-depth beit_huge_patch16_224 (width 1280, depth
+    32, 16 heads of 80, N = 197; shared rel-pos bias, layer scale 0.1, seeded
+    weights, bf16 on f32 parameters): evaluate() over 2 batches of 64 (K1 32
+    a forward and nothing else; logits against the plain attention's, the
+    metrics against a CPU recomputation from the same logits), 3 finetune
+    steps at batch 32 (K1 and K2 32 a step), one step against the plain
+    attention and one with attention dropout 0.05 against the plain versions
+    on the same masks (phase 4's bounds). Returns the launches of each path."""
     from uncertainty_vit_tpu_torch.core.config import get_preset
     from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import evaluate, make_eval_forward
     from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
-    from uncertainty_vit_tpu_torch.train.engine_finetune import (
-        FinetuneHParams, init_finetune_state, make_finetune_train_step,
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
     )
-    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
-    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
 
-    cfg = get_preset("beit_huge_patch16_224", use_shared_rel_pos_bias=True, init_values=0.1,
-                     depth=2)
-    check(cfg.head_dim == 80, f"the huge preset has head_dim {cfg.head_dim}")
+    FA.BOUNDED_SCORES = True  # as cli/finetune.py trains and evaluates
+    preset = "beit_huge_patch16_224"
+    cfg = get_preset(preset, use_shared_rel_pos_bias=True, init_values=0.1)
+    check((cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.head_dim) == (1280, 32, 16, 80),
+          f"{preset} is not ViT-H/16: {cfg}")
     gen = torch.Generator(device=dev).manual_seed(13)
     model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev, generator=gen)
+    # the rel-pos table at std 0.2 (the bias is not all zeros) and the head at
+    # 0.5 (the logits stand apart, so the metrics' ranks are stable)
     trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
-    trunc_normal(0.1, 2.0)(model.head.weight, gen)
-    f32_model = VisionTransformer(cfg.replace(use_flash_attention=False), dtype=torch.float32,
-                                  device=dev, generator=gen)
-    f32_model.load_state_dict(model.state_dict())
-    x = torch.randn(8, 224, 224, 3, generator=gen, device=dev)
-    y = torch.randint(0, cfg.num_classes, (8,), generator=gen, device=dev)
-    reset_attention_counts(FA)
-    model.eval()
-    f32_model.eval()
-    with torch.no_grad():
-        logits, ref = model(x), f32_model(x)
-    diff, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
-    print(f"  2-deep beit_huge_patch16_224 (width {cfg.embed_dim}, head_dim 80): logits bf16 vs "
-          f"f32 on the plain attention: max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio "
-          f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND})", flush=True)
-    check(torch.isfinite(logits).all().item() and diff <= LOGIT_REL_BOUND * scale,
-          "the head_dim-80 logits disagree with the f32 model's")
-    opt = make_optimizer(model, weight_decay=0.05, layer_decay=0.65, depth=cfg.depth)
-    state = init_finetune_state(model, opt)
-    state.step = 1
-    step = make_finetune_train_step(model, opt, FinetuneHParams(num_classes=cfg.num_classes),
-                                    cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500))
-    m = step(state, x, y, torch.Generator(device=dev).manual_seed(1),
-             torch.Generator().manual_seed(1))
+    trunc_normal(0.5, 2.0)(model.head.weight, gen)
+    check(all(blk.attn.use_kernel for blk in model.blocks),
+          "a ViT-H block does not take the attention kernels")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  (b) ViT-H/16 224: {n_params} params, depth {cfg.depth}, width {cfg.embed_dim}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, N={cfg.num_patches + 1}", flush=True)
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    none = {k: 0 for k in counts()}
+
+    # --- evaluate(): 2 batches of 64 uint8 images
+    bs, nb = 64, 2
+    images = [torch.randint(0, 256, (bs, 224, 224, 3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(nb)]
+    labels = [torch.randint(0, cfg.num_classes, (bs,), generator=gen, device=dev)
+              for _ in range(nb)]
+
+    def batches():
+        for u8, lbl in zip(images, labels):
+            yield normalize(to_float(u8), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD), lbl
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(FA, TQ, DO)
+    metrics = evaluate(model, batches())
     torch.cuda.synchronize()
-    print(f"  one train step: loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}; "
-          f"attention launches {attention_counts(FA)}", flush=True)
-    check(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"])),
-          "non-finite loss or grad norm at head_dim 80")
-    check(attention_counts(FA) == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
-          "a head_dim-80 model launched an attention kernel")
+    launches = {"huge_evaluate": counts()}
+    peak_eval = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  evaluate(): launches {launches['huge_evaluate']}; {json.dumps(metrics)}", flush=True)
+    check(launches["huge_evaluate"] == dict(none, K1=cfg.depth * nb),
+          f"evaluate() launched {launches['huge_evaluate']}, expected K1 {cfg.depth * nb} only")
+    fwd = make_eval_forward(model)
+    logits = torch.cat([fwd(x) for x, _ in batches()])
+    lab = torch.cat(labels)
+    check(tuple(logits.shape) == (bs * nb, cfg.num_classes) and logits.dtype == torch.float32
+          and torch.isfinite(logits).all().item(), "ViT-H logits are not finite f32 [128, 1000]")
+    on_cpu = {k: float(v) for k, v in M.classification_metrics(logits.cpu(), lab.cpu()).items()}
+    on_cpu["loss"] = on_cpu["nll"]
+    check(sorted(metrics) == sorted(on_cpu), f"evaluate()'s metric keys {sorted(metrics)}")
+    for k, v in on_cpu.items():
+        check(abs(metrics[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+              f"evaluate()'s {k} {metrics[k]} against the CPU's {v} from the same logits")
+    x0 = next(batches())[0]
+    with attention_on_plain(torch, FA):
+        ref = fwd(x0)
+    diff, scale = (logits[:bs] - ref).abs().max().item(), ref.abs().max().item()
+    print(f"  logits K1 vs plain attention: max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio "
+          f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND}); evaluate()'s metrics equal the CPU's "
+          f"from the same logits", flush=True)
+    check(diff <= LOGIT_REL_BOUND * scale, "ViT-H logits disagree with the plain attention")
+    def plain_fwd():
+        with attention_on_plain(torch, FA):
+            return fwd(x0)
+
+    _, runs = in_turns({"plain": plain_fwd, "kernel": lambda: fwd(x0)}, 3)
+    eval_rates = {k: [bs * 1000 / ms for ms in v] for k, v in runs.items()}
+    print(f"  eval forward img/s at batch {bs} (information only): kernel {eval_rates['kernel']}, "
+          f"plain attention {eval_rates['plain']}; peak memory of evaluate() {peak_eval:.2f} GiB",
+          flush=True)
+    del logits, ref, images, model
+
+    # --- the finetune train step at batch 32
+    def build(**overrides):
+        return large_512_model(torch, dev, init, train=True, preset=preset, **overrides)
+
+    def gens(seed):
+        return large_512_gens(torch, dev, seed)
+
+    def step_counts(depth_steps):
+        return dict(none, K1=depth_steps, K2=depth_steps)
+
+    bs_t, n_steps = 32, 3
+    x = torch.randn(bs_t, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (bs_t,), generator=gen, device=dev)
+    tmodel, state, step = build()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(FA, TQ, DO)
+    ms = [step(state, x, y, *gens(11 + i)) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    launches["huge_train_step"] = counts()
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {n_steps} steps at batch {bs_t}: launches {launches['huge_train_step']}; " + "; ".join(
+        f"loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}" for m in ms),
+        flush=True)
+    check(launches["huge_train_step"] == step_counts(cfg.depth * n_steps),
+          f"{n_steps} train steps launched {launches['huge_train_step']}")
+    check(all(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+              for m in ms), "non-finite loss or grad norm")
+    moved = 0
+    for k, v in tmodel.state_dict().items():
+        check(torch.isfinite(v).all().item(), f"non-finite parameter {k}")
+        moved += int(not torch.equal(v, init[k]))
+    check(moved == len(init), f"only {moved} of {len(init)} parameter tensors changed")
+    g = gens(20)
+    train_ms = [cuda_ms(lambda: step(state, x, y, *g), 3) for _ in range(2)]
+    print(f"  train step at batch {bs_t} (information only): "
+          f"{[bs_t * 1000 / ms for ms in train_ms]} img/s ({train_ms} ms); peak memory of the "
+          f"{n_steps} steps {peak_train:.2f} GiB; all {moved} parameter tensors changed; ViT-B/16 "
+          f"224's step in this call (phase 4, batch 160): {step_rates['kernel']} img/s", flush=True)
+    del tmodel, state, step
+
+    # one step from the same weights and seeds on the kernels and on the plain
+    # attention, and one with attention dropout 0.05 (the same masks)
+    for what, overrides, seed in (("", {}, 30), (" with attn_drop_rate=0.05",
+                                                 {"attn_drop_rate": 0.05}, 31)):
+        _, st_k, step_k = build(**overrides)
+        reset_kernel_counts(FA, TQ, DO)
+        m_k = step_k(st_k, x, y, *gens(seed))
+        torch.cuda.synchronize()
+        key = "huge_train_step_attn_drop" if overrides else "huge_train_step_held"
+        launches[key] = counts()
+        check(launches[key] == step_counts(cfg.depth), f"the step{what} launched {launches[key]}")
+        del st_k, step_k
+        _, st_p, step_p = build(**overrides)
+        with attention_on_plain(torch, FA):
+            m_p = step_p(st_p, x, y, *gens(seed))
+        torch.cuda.synchronize()
+        check(counts() == launches[key], "the plain-attention reference step launched a kernel")
+        del st_p, step_p
+        loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+        gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+        print(f"  one step at batch {bs_t}{what}, K1/K2 vs their plain versions: loss "
+              f"{loss_k:.6f} / {loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+        check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+              f"the ViT-H step's loss{what} disagrees with the plain versions'")
+        check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+              f"the ViT-H step's grad norm{what} disagrees with the plain versions'")
+    return launches
+
+
+def phase13_driver(torch, FA, dev):
+    """(c) cli.finetune.main with --model beit_huge_patch16_224 on seeded
+    32x32 CIFAR-100 pickles and a seeded ViT-H .pth (100 classes): --eval
+    over 256 images at batch 64 (K1 32 a forward and nothing else; logits
+    against the plain attention's, the printed metrics against a CPU
+    recomputation), one train epoch of 2 steps at batch 32 and its
+    evaluation of 64 images (K1 and K2 32 a step), step 0 against the same
+    run's step 0 on the plain attention (phase 4's bounds). Returns the
+    launches of each run."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    preset, depth = "beit_huge_patch16_224", 32
+    n_test, n_train, bs_e, bs_t, spe, n_test_train = 256, 64, 64, 32, 2, 64
+    rs = np.random.RandomState(13)
+    test_images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+    train_images = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8)
+    cfg = get_preset(preset, num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    bounded = FA.BOUNDED_SCORES
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ev, tr = os.path.join(tmp, "eval"), os.path.join(tmp, "train")
+            write_cifar100(ev, test_images, np.arange(n_test) % 100)
+            write_cifar100(tr, train_images, np.arange(n_train) % 100, "train")
+            write_cifar100(tr, test_images[:n_test_train], np.arange(n_test_train) % 100)
+            pth = os.path.join(tmp, "vith.pth")
+            t0 = time.perf_counter()
+            write_vitb_pth(torch, dev, cfg, pth, 130)
+            pth_s = time.perf_counter() - t0
+
+            def args_of(root, bs, *extra):
+                return FT.get_args_parser().parse_args([
+                    "--model", preset, "--input_size", "224", "--data_set", "CIFAR100",
+                    "--data_path", root, "--batch_size", str(bs), "--num_workers", "8",
+                    "--finetune", pth, "--output_dir", os.path.join(tmp, "out"), *extra])
+
+            # --- --eval over 256 images at batch 64
+            args = args_of(ev, bs_e, "--eval")
+            reset_kernel_counts(FA, TQ, DO)
+            with watched_driver(torch, FT, counts) as rec:
+                t0 = time.perf_counter()
+                res = FT.main(args)["eval"]
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+            paths = {"cli14_huge_eval": counts()}
+            none = {k: 0 for k in paths["cli14_huge_eval"]}
+            n_fwd = n_test // bs_e
+            eval_ms = rec["evals"][0]["ms"]
+            print(f"  (c) --eval ({n_test} images at batch {bs_e}): launches "
+                  f"{paths['cli14_huge_eval']}; {json.dumps(res)}; the evaluation {eval_ms:.2f} ms "
+                  f"({n_test * 1000 / eval_ms:.1f} img/s from images, information only; the first "
+                  f"batch's warm-up included), main() {eval_s:.2f} s with the model build and the "
+                  f".pth import (the .pth written in {pth_s:.2f} s)", flush=True)
+            check(paths["cli14_huge_eval"] == dict(none, K1=depth * n_fwd),
+                  f"--eval launched {paths['cli14_huge_eval']}, expected K1 {depth * n_fwd} only")
+            # the same model and batches through the driver's own pieces
+            model, _ = FT.build_model(args, 100, dev)
+            FT.load_variables(args, model)
+            loader, _ = B.build_loaders(args, is_train=False)
+            fwd = make_eval_forward(model)
+            logits, lab = collect_logits(fwd, FT._eval_batches(loader, args, dev))
+            with attention_on_plain(torch, FA):
+                ref, _ = collect_logits(fwd, FT._eval_batches(loader, args, dev))
+            del model
+            check(logits.shape == (n_test, 100) and np.isfinite(logits).all(),
+                  f"--eval logits {logits.shape}")
+            diff, scale = float(np.abs(logits - ref).max()), float(np.abs(ref).max())
+            print(f"  --eval logits vs the plain attention's on the same transformed images: "
+                  f"max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio {diff / scale:.3e} "
+                  f"(bound {LOGIT_REL_BOUND})", flush=True)
+            check(diff <= LOGIT_REL_BOUND * scale,
+                  "the driver's ViT-H logits disagree with the plain attention's")
+            on_cpu = {k: float(v) for k, v in M.classification_metrics(
+                torch.from_numpy(logits), torch.from_numpy(lab)).items()}
+            on_cpu["loss"] = on_cpu["nll"]
+            check(sorted(res) == sorted(on_cpu), f"--eval metric keys {sorted(res)}")
+            for k, v in on_cpu.items():
+                check(abs(res[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+                      f"--eval printed {k} {res[k]}, recomputed on the CPU {v}")
+
+            # --- one train epoch of 2 steps at batch 32 and its evaluation
+            train_args = ["--epochs", "1", "--steps_per_epoch", str(spe), "--no_save_ckpt",
+                          "--no_auto_resume", "--layer_decay", "0.75", "--drop_path", "0.1"]
+            reset_kernel_counts(FA, TQ, DO)
+            with watched_driver(torch, FT, counts) as rec:
+                t0 = time.perf_counter()
+                FT.main(args_of(tr, bs_t, *train_args))
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            paths["cli14_huge_train"] = counts()
+            n_eval = -(-n_test_train // bs_t)
+            print(f"  train epoch of {spe} steps at batch {bs_t} and its evaluation of "
+                  f"{n_test_train} images: launches {paths['cli14_huge_train']}; losses "
+                  + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in rec["steps"])
+                  + f"; main() {train_s:.2f} s", flush=True)
+            expect = dict(none, K1=depth * (spe + n_eval), K2=depth * spe)
+            check(paths["cli14_huge_train"] == expect,
+                  f"the train epoch launched {paths['cli14_huge_train']}, expected {expect}")
+            check(len(rec["steps"]) == spe and all(
+                r["launches"] == dict(none, K1=depth, K2=depth) for r in rec["steps"]),
+                  f"the driver's steps launched {[r['launches'] for r in rec['steps']]}")
+            # step 0 runs at the warm-up's lr 0 (--warmup_lr), step 1 above it
+            check(rec["steps"][1]["moved"], "the driver's step 1 left the parameters")
+            for r in rec["steps"]:
+                for k in ("loss", "grad_norm"):
+                    check(math.isfinite(float(r["metrics"][k])), f"step {r['step']} {k}")
+            m_k = rec["steps"][0]["metrics"]
+            # step 0 on the plain attention: the same flags, so the same
+            # state, first batch and per-step generators
+            del rec["model"]
+            gc.collect()  # the held optimizer sits in reference cycles
+            # (inside attention_on_plain the attention wrappers count nothing)
+            with watched_driver(torch, FT, dict) as rec_p:
+                with attention_on_plain(torch, FA):
+                    FT.main(args_of(tr, bs_t, *train_args[:2], "--steps_per_epoch", "1",
+                                    *train_args[4:], "--disable_eval_during_finetuning"))
+            torch.cuda.synchronize()
+            m_p = rec_p["steps"][0]["metrics"]
+            del rec_p
+            gc.collect()
+            loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+            gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+            print(f"  the driver's step 0, kernels vs plain attention: loss {loss_k:.6f} / "
+                  f"{loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+            check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+                  "the driver's ViT-H loss disagrees with the plain attention's")
+            check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+                  "the driver's ViT-H grad norm disagrees with the plain attention's")
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    return paths
 
 
 # K5's query and key counts on the card: one query row, a tile-ragged 63, and
@@ -2564,9 +2877,13 @@ def reset_cross_counts(FA) -> None:
     FA.cross_qkv_attention.launches = FA.cross_qkv_attention_bwd.launches = 0
 
 
-def phase14(torch, FA, dev):
+def phase14(torch, FA, dev, d=64):
+    """K5 at head width d (ViT-L's 64 unless given), 16 heads: the case
+    grid, its checks and the shards against K3/K4; at d = 64 the shapes
+    phase 15 gives K5; then one shard of ViT-L/16 512's train shape."""
     gen = torch.Generator(device=dev).manual_seed(14)
-    h, c, scale = 16, 1024, 64**-0.5
+    h = 16
+    c, scale = h * d, d**-0.5
     worst, n_cases = 0.0, 0
     for dtype, nq, nk in itertools.product((torch.bfloat16, torch.float32), CROSS_NQ, CROSS_NK):
         name = str(dtype)[6:]
@@ -2698,7 +3015,8 @@ def phase14(torch, FA, dev):
     # 512 (whole 64-row tiles, no query tail); the plain versions 4 images
     # (forward) and 2 images (backward) at a time
     n = 1025
-    for bsz, nq, train in ((16, 513, False), (16, 512, False), (8, 513, True), (8, 512, True)):
+    for bsz, nq, train in ((16, 513, False), (16, 512, False), (8, 513, True),
+                           (8, 512, True)) if d == 64 else ():
         q = torch.randn(bsz, nq, c, generator=gen, device=dev).to(torch.bfloat16)
         kv = torch.randn(bsz, n, 2 * c, generator=gen, device=dev).to(torch.bfloat16)
         bias = torch.randn(h, nq, n, generator=gen, device=dev) * 0.5
@@ -2760,14 +3078,14 @@ def phase14(torch, FA, dev):
         g = g_full[:, :nq].contiguous()
         out, lse = FA.cross_qkv_attention(q, kv, b_r, None, scale, h, bounded_scores=True,
                                           want_lse=True)
-        k_h = kv[..., :c].view(bsz, n, h, 64).transpose(1, 2)
-        v_h = kv[..., c:].view(bsz, n, h, 64).transpose(1, 2)
-        q_leaf = q.view(bsz, nq, h, 64).transpose(1, 2).detach().requires_grad_()
+        k_h = kv[..., :c].view(bsz, n, h, d).transpose(1, 2)
+        v_h = kv[..., c:].view(bsz, n, h, d).transpose(1, 2)
+        q_leaf = q.view(bsz, nq, h, d).transpose(1, 2).detach().requires_grad_()
         kv_leaves = (k_h.detach().requires_grad_(), v_h.detach().requires_grad_())
         mask_leaf = b_r.to(torch.bfloat16).requires_grad_()
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             q_leaf, *kv_leaves, attn_mask=mask_leaf, scale=scale)
-        g_h = g.view(bsz, nq, h, 64).transpose(1, 2)
+        g_h = g.view(bsz, nq, h, d).transpose(1, 2)
         shards[s] = (q, b_r, g, lse, out, lib_out)
         fns[f"S={s} forward"] = (lambda q=q, b_r=b_r: FA.cross_qkv_attention(
             q, kv, b_r, None, scale, h, bounded_scores=True, want_lse=True))
@@ -2781,7 +3099,7 @@ def phase14(torch, FA, dev):
             torch, FA, q, kv, b_r, None, lse, out, g, scale, h))
         fns[f"S={s} library forward"] = (
             lambda q=q, mask=mask_leaf.detach(): torch.nn.functional.scaled_dot_product_attention(
-                q.view(bsz, -1, h, 64).transpose(1, 2), k_h, v_h, attn_mask=mask, scale=scale))
+                q.view(bsz, -1, h, d).transpose(1, 2), k_h, v_h, attn_mask=mask, scale=scale))
         fns[f"S={s} library backward"] = (
             lambda lib_out=lib_out, q_leaf=q_leaf, kv_leaves=kv_leaves, mask_leaf=mask_leaf,
             g_h=g_h: torch.autograd.grad(lib_out, (q_leaf, *kv_leaves, mask_leaf), g_h,
@@ -2803,7 +3121,7 @@ def phase14(torch, FA, dev):
     fns["K4 whole"] = lambda: FA.fused_qkv_attention_bwd(qkv, bias, None, lse_full, g_full, scale,
                                                          h, out=out_full)
     best, runs = in_turns(fns, 5)
-    print(f"  K5 one shard at B={bsz} N={n} H={h} D=64 bf16 (bias, bounded), ms per call: {runs}",
+    print(f"  K5 one shard at B={bsz} N={n} H={h} D={d} bf16 (bias, bounded), ms per call: {runs}",
           flush=True)
     q, b_r, g, lse, out, _ = shards[2]
     nq = q.shape[1]
@@ -2811,7 +3129,7 @@ def phase14(torch, FA, dev):
     # row sums) is this design's, not the function's
     bound_ms, bound_by = bound(nbytes(q, kv, b_r) + nbytes(q, lse)  # forward: out, lse
                                + nbytes(q, kv, g, lse, b_r) + nbytes(q, kv, b_r),  # backward
-                               14.0 * bsz * h * nq * n * 64, "bfloat16")
+                               14.0 * bsz * h * nq * n * d, "bfloat16")
     # "ms" and the others are forward + backward of the S = 2 shard
     return {"max_abs_err": worst, "ms": best["S=2 forward"] + best["S=2 backward"],
             "plain_ms": best["S=2 plain forward"] + best["S=2 plain backward"],
@@ -3032,9 +3350,9 @@ def write_cifar100(root: str, images, labels, split: str = "test") -> None:
 
 
 def write_vitb_pth(torch, dev, cfg, path: str, seed: int) -> None:
-    """A .pth ({"model": state_dict}) of a seeded ViT-B/16 224 of config cfg:
-    the rel-pos table at std 0.2 and the head at 0.5, so that the bias is not
-    zero and the logits stand apart."""
+    """A .pth ({"model": state_dict}) of a seeded model of config cfg (ViT-B/16
+    224; ViT-H/16 224 in phase 13): the rel-pos table at std 0.2 and the head
+    at 0.5, so that the bias is not zero and the logits stand apart."""
     from uncertainty_vit_tpu_torch.core.init import trunc_normal
     from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 
@@ -6367,7 +6685,6 @@ def phase23(torch, FA, dev, step_rates):
     by CUDA events, and z ⊙ Hz against float64. Returns the launches of
     each path."""
     import copy
-    import gc
     import tempfile
 
     import numpy as np
@@ -6954,7 +7271,9 @@ def main() -> int:
     res[11] = run(11, "K7 against its plain version", phase11, torch, dev)
     int8 = run(12, "ViT-B/16 224 with the int8 trunk: evaluate() and finetune train steps",
                phase12, torch, FA, dev, res[10]["other_ms"], res[11]["other_ms"])
-    run(13, "a head_dim-80 model on the plain attention", phase13, torch, FA, dev)
+    d80, huge = run(13, "ViT-H/16 224 (head width 80) on the attention kernels: K1-K5 at D=80, "
+                        "evaluate(), finetune train steps, the finetune driver", phase13, torch,
+                    FA, dev, step_rates)
     res[14] = run(14, "K5 against its plain version and its shards against K3/K4", phase14,
                   torch, FA, dev)
     seq2 = run(15, "ViT-L/16 512 over two gloo ranks sharing the card: evaluate(), train steps",
@@ -7102,7 +7421,14 @@ def main() -> int:
     ]
     for kern, key in ((kernels[0], "K1"), (kernels[1], "K2"), (kernels[7], "K5")):
         kern["launches_by_path"].update(mesh_k[key])
+    # phase 13's ViT-H paths ("huge_", "cli14_huge_"), and each attention
+    # kernel's numbers at head width 80 ("d80": phases 1, 3, 7, 8 and 14 at
+    # D = 80, H = 16)
+    for kern, key in ((kernels[0], "K1"), (kernels[1], "K2"), (kernels[2], "K3"),
+                      (kernels[3], "K4"), (kernels[7], "K5")):
+        kern["launches_by_path"].update({p: n[key] for p, n in huge.items() if n[key]})
         kern["launches"] = sum(kern["launches_by_path"].values())
+        kern["d80"] = d80[key]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(smi.stdout.strip(), flush=True)

@@ -10,9 +10,9 @@ emulation (exact on the int32 sums) and, against the JAX package, through
 its statistics only: the TPU draws its bits from a hardware generator and
 the interpreter hashes, the port counts with Philox.
 
-A fault of the port repaired with this slice is held here too: a model whose
-head width the attention kernels do not take (head_dim 80) runs on the plain
-attention, as the reference does.
+A model of head width 80 (the beit_huge_patch16_224 preset's) is held here
+too: it takes the attention kernels, as the reference's ``kernel_supported``
+decides, and on the CPU their plain versions agree with the JAX model.
 """
 
 import math
@@ -546,13 +546,14 @@ HEAD80 = dict(img_size=32, patch_size=16, embed_dim=160, depth=2, num_heads=2, n
 
 
 def test_head_dim_80_model_runs_and_matches_jax():
-    """A head width the attention kernels do not take (80, the
-    beit_huge_patch16_224 preset's) goes to the plain attention, as the
-    reference's ``use_kernel`` decides: forward at rtol 2e-4 / atol 2e-5 and
-    one train step's loss and grad norm at rtol 1e-4 against the JAX model on
-    the same weights."""
+    """Head width 80 (the beit_huge_patch16_224 preset's) takes the attention
+    kernels (on the CPU their plain versions): forward at rtol 2e-4 / atol
+    2e-5 and one train step's loss and grad norm at rtol 1e-4 against the
+    JAX model on the same weights (at 2 heads of 80 the JAX model's head
+    group cannot fill 128 lanes, so it runs its unfused attention)."""
     jmodel, params, model, images, labels = _models(HEAD80, batch=4)
-    assert model.blocks[0].attn.head_dim == 80 and not model.blocks[0].attn.use_kernel
+    assert model.blocks[0].attn.head_dim == 80 and model.blocks[0].attn.use_kernel
+    assert not JFA.kernel_supported(2, 80, 5)
     ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(images), deterministic=True))
     model.eval()
     with torch.no_grad():

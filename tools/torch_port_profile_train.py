@@ -2,7 +2,7 @@
 """Profile the PyTorch port's finetune train step on one card.
 
     python3 tools/torch_port_profile_train.py [--plain] [--quant int8]
-        [--model beit_large_patch16_512]
+        [--model beit_large_patch16_512 | beit_huge_patch16_224]
 
 Builds the train step as chip_smoke.py phase 4 does (bench.py's
 configuration: ViT-B/16 224, shared rel-pos bias, layer scale 0.1,
@@ -10,6 +10,8 @@ drop-path 0.1, batch mixup, AdamW with layer decay 0.65, bounded-scores
 softmax, bf16 compute on f32 params, seeded random weights and images) at
 batch 160, or with ``--model beit_large_patch16_512`` phase 9's step (ViT-L/16
 512, N = 1025: layer decay 0.75, batch 8, K3 and K4 24 launches a step),
+or with ``--model beit_huge_patch16_224`` phase 13's (ViT-H/16 224, head
+width 80: layer decay 0.75, batch 32, K1 and K2 32 launches a step),
 runs 3 warm-up steps, times 3 steps, then records 3 more under
 torch.profiler (CPU and CUDA activities).
 Prints the card, the step time, the device busy share (summed kernel time
@@ -33,7 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = 3
 # model → (batch, layer decay, image side)
-MODELS = {"beit_base_patch16_224": (160, 0.65, 224), "beit_large_patch16_512": (8, 0.75, 512)}
+MODELS = {"beit_base_patch16_224": (160, 0.65, 224), "beit_large_patch16_512": (8, 0.75, 512),
+          "beit_huge_patch16_224": (32, 0.75, 224)}
 # kernel-name fragments → class, first match wins
 CLASSES = (
     ("stream_fwd", "K1 / K3 streaming forward"),

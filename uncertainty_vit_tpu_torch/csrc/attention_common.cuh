@@ -1,17 +1,12 @@
-// Device code shared by the four attention kernels (the fused forward and
-// backward, the streaming forward and the split streaming backward): type
-// conversions, warp reductions, the q/v bias add, cp.async (and the
-// streaming kernels' 4-byte copy of a bias tile), ldmatrix and mma.sync
-// m16n8k16 wrappers, the 16-row fragment products that keep p and ds in
-// registers, and the FMA kernels' f32 tile products. Everything here is
-// inlined into its caller; nothing is launched from this file. The streaming
-// kernels' Hopper pieces (TMA, mbarriers, wgmma) are in hopper_common.cuh.
+// Device code shared by the streaming attention kernels (the forward, and
+// the backward's two kernels): type conversions, warp reductions, the q/v
+// bias add, cp.async of a bias tile and of single words, and the FMA
+// kernels' f32 tile products. Everything here is inlined into its caller;
+// nothing is launched from this file. The bf16 kernels' Hopper pieces (TMA,
+// mbarriers, wgmma) are in hopper_common.cuh.
 //
-// Fragment layout of mma.sync m16n8k16 (lane = 4 * g + t): an accumulator
-// holds rows g and g + 8, columns 2t and 2t + 1 of each 8-column block, so
-// element (nb, e) of a float[.][4] tile is row g + 8 * (e >> 1), column
-// nb * 8 + 2t + (e & 1). Two neighbouring 8-column blocks, packed to bf16,
-// are the A operand of the next product's 16-deep step.
+// The head width D is a template parameter of every kernel: 64 (ViT-B,
+// ViT-L) and 80 (ViT-H) are built, and the entry points pick one at launch.
 
 #pragma once
 
@@ -24,9 +19,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;        // head dim (ViT-B and ViT-L)
-constexpr int kLd = kD + 8;   // bf16 smem row: 144 B, ldmatrix conflict-free, 16-byte stores
-constexpr int kLdF = kD + 1;  // f32 smem row: 65 words, column reads conflict-free
+// f32 shared-memory row of one head: an odd number of words (65, 81), so
+// column reads are conflict-free.
+template <int D>
+constexpr int kLdF = D + 1;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -61,42 +57,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global → shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
 // 4-byte async copy global → shared (for f32 rows whose pitch is no
 // multiple of 16 bytes); src_bytes = 0 zero-fills.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -104,60 +73,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragments (16 rows x 64) of a warp's staged rows, for the 4 k-steps.
-__device__ __forceinline__ void load_a_frags(const bf16* rows, uint32_t (&f)[kD / 16][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldsm_x4(smem_u32(rows + r * kLd + kk * 16 + (lane >> 4) * 8), f[kk]);
-  }
-}
-
-// s[2][4] = a (16 x 64) . m[row0 .. row0 + 16)^T: two 8-column blocks.
-__device__ __forceinline__ void mma_abt(float (&s)[2][4], const uint32_t (&a)[kD / 16][4],
-                                        const bf16* m, int row0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb) {
-    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.0f;
-#pragma unroll
-    for (int kp = 0; kp < kD / 32; ++kp) {
-      uint32_t kb[4];
-      ldsm_x4(smem_u32(m + (row0 + nb * 8 + (lane & 7)) * kLd + kp * 32 + (lane >> 3) * 8), kb);
-      mma_bf16(s[nb], a[2 * kp], kb[0], kb[1]);
-      mma_bf16(s[nb], a[2 * kp + 1], kb[2], kb[3]);
-    }
-  }
-}
-
-// acc (16 x 64) += x (16 x 16, the packed C fragments) . m[row0 .. row0 + 16)
-__device__ __forceinline__ void mma_ab(float (&acc)[kD / 8][4], const float (&x)[2][4],
-                                       const bf16* m, int row0) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t pa[4] = {pack_bf16(x[0][0], x[0][1]), pack_bf16(x[0][2], x[0][3]),
-                          pack_bf16(x[1][0], x[1][1]), pack_bf16(x[1][2], x[1][3])};
-#pragma unroll
-  for (int dp = 0; dp < kD / 16; ++dp) {
-    uint32_t vb[4];
-    const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldsm_x4_trans(smem_u32(m + r * kLd + dp * 16 + (lane >> 4) * 8), vb);
-    mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-    mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-  }
-}
-
-// Copy rows [row0, row0 + rows) of one head's slab into shared-memory rows of
-// `ld` elements with plain 16-byte loads, zero-filling rows >= n and adding
-// the section's q/v bias row (in T) when given. `src` points at the head's
+// Copy rows [row0, row0 + rows) of one head's slab (D columns) into
+// shared-memory rows of `ld` elements with plain 16-byte loads, zero-filling
+// rows >= n and adding the section's q/v bias row (in T) when given. `src` points at the head's
 // first column in row 0 of the image; rows lie `ld_src` elements apart, so a
 // packed [N, 3C] tensor and a separate [N, C] one are read alike.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void load_slab_rows(T* dst, int ld, const T* src, size_t ld_src,
                                                const float* bias_row, int n, int row0, int rows,
                                                int tid, int nthreads) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = kD / kVec;
+  constexpr int kPerRow = D / kVec;
   for (int i = tid; i < rows * kPerRow; i += nthreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
@@ -205,54 +131,73 @@ __device__ __forceinline__ void cp_async_bias_tile(float* dst, int ld, const flo
 }
 
 // Per-warp f32 tiles of the FMA kernels: a warp owns kRowsF rows; its score
-// and accumulator tiles have rows of kLdS words.
+// and accumulator tiles have rows of kLdS<D> words (64 keys or D columns).
 constexpr int kRowsF = 16;
-constexpr int kLdS = kD + 4;
+template <int D>
+constexpr int kLdS = D + 4;
+// The output columns a lane owns in a D-wide f32 tile: lane + 32 i for i <
+// kColsF<D> (at D = 80 the third only for lanes below 16).
+template <int D>
+constexpr int kColsF = (D + 31) / 32;
+template <int D>
+__device__ __forceinline__ bool own_col(int lane, int i) {
+  return D % 32 == 0 || lane + 32 * i < D;
+}
 
-// s[kRowsF][64] = a_w[kRowsF][kD] . m[64][kD]^T (rows of kLdF words); lane
+// s[kRowsF][64] = a_w[kRowsF][D] . m[64][D]^T (rows of kLdF<D> words); lane
 // owns columns lane and lane + 32.
+template <int D>
 __device__ __forceinline__ void warp_abt_f32(float* s, const float* aw, const float* m) {
+  constexpr int ld = kLdF<D>;
   const int lane = threadIdx.x & 31;
   float acc[kRowsF][2];
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  for (int d = 0; d < kD; ++d) {
-    const float m0 = m[lane * kLdF + d], m1 = m[(lane + 32) * kLdF + d];
+  for (int d = 0; d < D; ++d) {
+    const float m0 = m[lane * ld + d], m1 = m[(lane + 32) * ld + d];
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
-      const float a = aw[r * kLdF + d];
+      const float a = aw[r * ld + d];
       acc[r][0] = fmaf(a, m0, acc[r][0]);
       acc[r][1] = fmaf(a, m1, acc[r][1]);
     }
   }
 #pragma unroll
   for (int r = 0; r < kRowsF; ++r) {
-    s[r * kLdS + lane] = acc[r][0];
-    s[r * kLdS + lane + 32] = acc[r][1];
+    s[r * kLdS<D> + lane] = acc[r][0];
+    s[r * kLdS<D> + lane + 32] = acc[r][1];
   }
 }
 
-// o[kRowsF][kD] += x[kRowsF][64] . m[64][kD]; x has rows of kLdS words, m of
-// kLdF; lane owns output columns lane and lane + 32.
+// o[kRowsF][D] += x[kRowsF][64] . m[64][D]; x and o have rows of kLdS<D>
+// words, m of kLdF<D>; lane owns output columns lane + 32 i (own_col).
+template <int D>
 __device__ __forceinline__ void warp_ab_f32(float* o, const float* x, const float* m) {
+  constexpr int kCols = kColsF<D>;
   const int lane = threadIdx.x & 31;
-  float acc[kRowsF][2];
+  float acc[kRowsF][kCols];
 #pragma unroll
-  for (int r = 0; r < kRowsF; ++r) acc[r][0] = acc[r][1] = 0.0f;
+  for (int r = 0; r < kRowsF; ++r)
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[r][i] = 0.0f;
   for (int j = 0; j < 64; ++j) {
-    const float m0 = m[j * kLdF + lane], m1 = m[j * kLdF + lane + 32];
+    float mj[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      mj[i] = own_col<D>(lane, i) ? m[j * kLdF<D> + lane + 32 * i] : 0.0f;
+    }
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
-      const float xr = x[r * kLdS + j];
-      acc[r][0] = fmaf(xr, m0, acc[r][0]);
-      acc[r][1] = fmaf(xr, m1, acc[r][1]);
+      const float xr = x[r * kLdS<D> + j];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) acc[r][i] = fmaf(xr, mj[i], acc[r][i]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRowsF; ++r) {
-    o[r * kLdS + lane] += acc[r][0];
-    o[r * kLdS + lane + 32] += acc[r][1];
-  }
+  for (int r = 0; r < kRowsF; ++r)
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      if (own_col<D>(lane, i)) o[r * kLdS<D> + lane + 32 * i] += acc[r][i];
 }
 
 // The streaming kernels' block order: the tile is the fastest block index,

@@ -85,6 +85,14 @@
 //     made by the caller (see PERF.md).
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row tiles; kernel
 //     1 still forms c by a pass over the keys and does not read o.
+// Head widths (a template parameter D, picked at launch): 64 and 80, the
+// tiles of HeadTile<D> (hopper_common.cuh). At 80, s and dp are five k16
+// steps, one a 16-column box in the 32-byte swizzle, and dq += ds k, dv +=
+// p_d^T g and dk += ds^T q are wgmma m64n80 (k, g and q read MN-major across
+// the five boxes); the accumulators grow from 32 to 40 f32 a thread, and
+// kernel 2 spills a few words at 168 registers (PERF.md). At ViT-H's train
+// shape (B=32, N=197, H=16, D=80, bf16, a bias) the work is 10 B H N^2 D =
+// 15.9 GFLOP, ~0.016 ms, against 118 MB, ~0.035 ms: the bytes bound it.
 // The mask replay is philox::fragment_bits, query-major in kernel 1 and
 // key-major in kernel 2, in separate instantiations (kDrop).
 
@@ -114,10 +122,11 @@ struct BwdArgs {
   uint32_t threshold;
 };
 
-// Stores a warp's 16 x 64 f32 accumulator, times `mul`, as bf16 into rows
+// Stores a warp's 16 x D f32 accumulator, times `mul`, as bf16 into rows
 // row0 + g and row0 + g + 8 of one head's slab (`dst` at the head's first
 // column in row 0 of the image, rows `ld` elements apart).
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, size_t ld, const float (&acc)[kD / 8][4],
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(bf16* dst, size_t ld, const float (&acc)[D / 8][4],
                                                 float mul, int n, int row0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -127,15 +136,16 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst, size_t ld, const floa
     if (row >= n) continue;
     bf16* d = dst + size_t(row) * ld + 2 * t;
 #pragma unroll
-    for (int db = 0; db < kD / 8; ++db) {
+    for (int db = 0; db < D / 8; ++db) {
       *reinterpret_cast<__nv_bfloat162*>(d + db * 8) =
           __floats2bfloat162_rn(acc[db][2 * i] * mul, acc[db][2 * i + 1] * mul);
     }
   }
 }
 
-// A warp's 16 x 64 f32 tile (rows of kLdS words), times `mul`, into rows
+// A warp's 16 x D f32 tile (rows of kLdS<D> words), times `mul`, into rows
 // [row0, row0 + 16) of one head's f32 slab.
+template <int D>
 __device__ __forceinline__ void store_rows_f32(float* dst, size_t ld, const float* tile, float mul,
                                                int n, int row0) {
   const int lane = threadIdx.x & 31;
@@ -143,8 +153,12 @@ __device__ __forceinline__ void store_rows_f32(float* dst, size_t ld, const floa
   for (int r = 0; r < kRowsF; ++r) {
     const int row = row0 + r;
     if (row >= n) continue;
-    dst[size_t(row) * ld + lane] = tile[r * kLdS + lane] * mul;
-    dst[size_t(row) * ld + lane + 32] = tile[r * kLdS + lane + 32] * mul;
+#pragma unroll
+    for (int i = 0; i < kColsF<D>; ++i) {
+      if (own_col<D>(lane, i)) {
+        dst[size_t(row) * ld + lane + 32 * i] = tile[r * kLdS<D> + lane + 32 * i] * mul;
+      }
+    }
   }
 }
 
@@ -158,8 +172,6 @@ __device__ __forceinline__ void store_rows_f32(float* dst, size_t ld, const floa
 constexpr int kWg = 2;                // consumer warpgroups: a block owns 64 * kWg rows
 constexpr int kStages = 3;            // ring depth
 constexpr int kThreadsW = (kWg + 1) * 128;
-constexpr uint32_t kTileBytes = 64 * 64 * sizeof(bf16);  // one 64 x 64 bf16 TMA box
-constexpr uint32_t kResidentBytes = 2 * kWg * kTileBytes;  // kernel 1: q, g; kernel 2: k, v
 // kernel 1's bias tile: [64 kWg query rows][64 keys], pitch 72 words (float2
 // reads in fragment order conflict-free); kernel 2's: [64 query rows][64 kWg
 // keys], pitch 64 kWg + 4 words, read transposed (a column per fragment row:
@@ -168,12 +180,22 @@ constexpr int kLdBiasQ = kTile + 8;
 constexpr int kLdBiasK = 64 * kWg + 4;
 constexpr uint32_t kRound = 1024;
 constexpr uint32_t round_up(uint32_t x) { return (x + kRound - 1) / kRound * kRound; }
-constexpr uint32_t kStageDq = round_up(2 * kTileBytes + 64 * kWg * kLdBiasQ * sizeof(float));
-constexpr uint32_t kStageDkv =
-    round_up(2 * kTileBytes + (64 * kLdBiasK + 2 * 64) * sizeof(float));  // + lse, c
-constexpr size_t smem_bytes(uint32_t stage) {
-  return kResidentBytes + kStages * stage + (3 * kStages + 1) * sizeof(uint64_t) + 1024;
-}
+// Shared memory of head width D: the resident tiles (kernel 1: q, g; kernel
+// 2: k, v), then the ring of stages (a streamed pair of tiles, the bias tile
+// and in kernel 2 the tile's lse and c), then the barriers. At D = 80 kernel
+// 1 takes 209 KiB, kernel 2 203 KiB.
+template <int D>
+struct BwdSmem {
+  static constexpr uint32_t kTileBytes = HeadTile<D>::kBytes;
+  static constexpr uint32_t kResidentBytes = 2 * kWg * kTileBytes;
+  static constexpr uint32_t kStageDq =
+      round_up(2 * kTileBytes + 64 * kWg * kLdBiasQ * sizeof(float));
+  static constexpr uint32_t kStageDkv =
+      round_up(2 * kTileBytes + (64 * kLdBiasK + 2 * 64) * sizeof(float));  // + lse, c
+  static constexpr size_t bytes(uint32_t stage) {
+    return kResidentBytes + kStages * stage + (3 * kStages + 1) * sizeof(uint64_t) + 1024;
+  }
+};
 
 // The block's barriers after its tiles: full[], empty[], landed[] (with a
 // q/v bias: a streamed pair in, the bias not yet added) and one for the
@@ -182,11 +204,11 @@ struct Ring {
   unsigned char* smem;
   uint64_t *full, *empty, *landed, *resident;
 };
-__device__ __forceinline__ Ring ring_init(unsigned char* smem_raw, uint32_t stage,
-                                          uint32_t full_count) {
+__device__ __forceinline__ Ring ring_init(unsigned char* smem_raw, uint32_t resident,
+                                          uint32_t stage, uint32_t full_count) {
   Ring r;
   r.smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  r.full = reinterpret_cast<uint64_t*>(r.smem + kResidentBytes + kStages * stage);
+  r.full = reinterpret_cast<uint64_t*>(r.smem + resident + kStages * stage);
   r.empty = r.full + kStages;
   r.landed = r.empty + kStages;
   r.resident = r.landed + kStages;
@@ -203,43 +225,48 @@ __device__ __forceinline__ Ring ring_init(unsigned char* smem_raw, uint32_t stag
   return r;
 }
 
-// Stores a warpgroup accumulator (its warp's 16 rows of 64), times `mul`,
+// Stores a warpgroup accumulator (its warp's 16 rows of D), times `mul`,
 // as bf16 rows row0 + g and row0 + g + 8 (row0: the warp's first row).
-__device__ __forceinline__ void store_acc_bf16(bf16* dst, size_t ld, const float (&acc)[32],
+template <int D>
+__device__ __forceinline__ void store_acc_bf16(bf16* dst, size_t ld, const float (&acc)[D / 2],
                                                float mul, int n, int row0) {
-  store_rows_bf16(dst, ld, reinterpret_cast<const float(&)[kD / 8][4]>(acc), mul, n, row0);
+  store_rows_bf16<D>(dst, ld, reinterpret_cast<const float(&)[D / 8][4]>(acc), mul, n, row0);
 }
 
 // ---------------------------------------------------------------------------
 // kernel 1, bf16: c, dq, dbias. Query-major; k/v streamed once.
 // ---------------------------------------------------------------------------
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsW, 1)
 stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+  using T = HeadTile<D>;
+  using S = BwdSmem<D>;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentBytes;
+  constexpr uint32_t kStageDq = S::kStageDq;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const float* bias_h = a.bias ? a.bias + size_t(blockIdx.z) * a.nq * a.nk : nullptr;
-  const Ring ring = ring_init(smem_raw, kStageDq, bias_h != nullptr ? 129 : 1);
+  const Ring ring = ring_init(smem_raw, kResidentBytes, kStageDq, bias_h != nullptr ? 129 : 1);
   unsigned char* smem = ring.smem;  // q tiles [kWg], g tiles [kWg], then the ring
   const int wg = threadIdx.x >> 7;
   int b, tile, h;
   block_coords(b, tile, h);
   const int nq = a.nq, nk = a.nk;
-  const int hc = h * kD;
+  const int hc = h * D;
   const int q0 = tile * 64 * kWg;
   const int n_tiles = (nk + kTile - 1) / kTile;
 
   if (wg == kWg) {  // producer
     const int ptid = threadIdx.x - kWg * 128;
-    const float* qvb_v = a.qv_bias != nullptr ? a.qv_bias + 2 * a.num_heads * kD + hc : nullptr;
+    const float* qvb_v = a.qv_bias != nullptr ? a.qv_bias + 2 * a.num_heads * D + hc : nullptr;
     if (ptid == 0) {
       mbar_arrive_expect_tx(ring.resident, kResidentBytes);
       for (int w = 0; w < kWg; ++w) {
-        tma_load_tile(smem + w * kTileBytes, &tm_q, ring.resident, hc, q0 + 64 * w, b);
-        tma_load_tile(smem + (kWg + w) * kTileBytes, &tm_g, ring.resident, hc, q0 + 64 * w, b);
+        tma_load_head<D>(smem + w * kTileBytes, &tm_q, ring.resident, hc, q0 + 64 * w, b);
+        tma_load_head<D>(smem + (kWg + w) * kTileBytes, &tm_g, ring.resident, hc, q0 + 64 * w, b);
       }
     }
     for (int j = 0; j < n_tiles; ++j) {
@@ -250,8 +277,8 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
         // with a q/v bias the pair lands for the hand-over first
         uint64_t* bar = qvb_v != nullptr ? &ring.landed[s] : &ring.full[s];
         mbar_arrive_expect_tx(bar, 2 * kTileBytes);
-        tma_load_tile(st, &tm_k, bar, hc, j * kTile, b);
-        tma_load_tile(st + kTileBytes, &tm_v, bar, hc, j * kTile, b);
+        tma_load_head<D>(st, &tm_k, bar, hc, j * kTile, b);
+        tma_load_head<D>(st + kTileBytes, &tm_v, bar, hc, j * kTile, b);
       }
       if (bias_h != nullptr) {
         cp_async_bias_tile(reinterpret_cast<float*>(st + 2 * kTileBytes), kLdBiasQ, bias_h, nq, nk,
@@ -259,8 +286,8 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_cp_async(&ring.full[s]);
       }
       if (qvb_v != nullptr) {
-        hand_over_biased(st + kTileBytes, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_v,
-                         ptid);
+        hand_over_biased<D>(st + kTileBytes, &ring.landed[s], (j / kStages) & 1, &ring.full[s],
+                            qvb_v, ptid);
       }
     }
     cp_async_wait<0>();
@@ -282,8 +309,9 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
   // lse (log2 units) and c = rowsum(p_d * (g v^T)) = g . out (out = p_d v)
-  // of this thread's two rows: the four threads of a row sum 16 columns
-  // each in f32
+  // of this thread's two rows: the four threads of a row sum D / 4 columns
+  // each in f32, in 16-byte chunks of 8 (at D = 64 chunks 2t and 2t + 1, at
+  // D = 80 chunks t, t + 4 and, for t < 2, t + 8)
   float lrow[2], csum[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -293,12 +321,15 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
     if (row < nq) {
       lrow[i] = a.lse[bhn + row] * kLog2e;
       const size_t img_row = size_t(b) * nq + row;
-      const bf16* grow = static_cast<const bf16*>(a.g) + img_row * a.ldg + hc + 16 * t;
-      const bf16* orow = static_cast<const bf16*>(a.o) + img_row * a.ldo + hc + 16 * t;
+      // this thread's first chunk and the step to its next ones
+      constexpr int kFirst = D == 64 ? 2 : 1, kStep = D == 64 ? 1 : 4;
+      const bf16* grow = static_cast<const bf16*>(a.g) + img_row * a.ldg + hc + 8 * kFirst * t;
+      const bf16* orow = static_cast<const bf16*>(a.o) + img_row * a.ldo + hc + 8 * kFirst * t;
 #pragma unroll
-      for (int ch = 0; ch < 2; ++ch) {
-        const uint4 gu = *reinterpret_cast<const uint4*>(grow + 8 * ch);
-        const uint4 ou = *reinterpret_cast<const uint4*>(orow + 8 * ch);
+      for (int ch = 0; ch < (D + 31) / 32; ++ch) {
+        if (D != 64 && t + kStep * ch >= D / 8) break;
+        const uint4 gu = *reinterpret_cast<const uint4*>(grow + 8 * kStep * ch);
+        const uint4 ou = *reinterpret_cast<const uint4*>(orow + 8 * kStep * ch);
         const bf16* ge = reinterpret_cast<const bf16*>(&gu);
         const bf16* oe = reinterpret_cast<const bf16*>(&ou);
 #pragma unroll
@@ -311,15 +342,14 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
     if (t == 0 && row < nq) a.c[bhn + row] = part;
   }
 
-  const uint64_t d_q = desc_sw128(smem + wg * kTileBytes);
-  const uint64_t d_g = desc_sw128(smem + (kWg + wg) * kTileBytes);
-  float dq[32];
+  const uint64_t d_q = T::desc(smem + wg * kTileBytes);
+  const uint64_t d_g = T::desc(smem + (kWg + wg) * kTileBytes);
+  float dq[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
   mbar_wait(ring.resident, 0);
   if (a.qv_bias != nullptr) {  // the q/v bias's q row, in bf16, on this warpgroup's q tile
-    add_qv_bias_sw128(smem + wg * kTileBytes, qv_bias_chunk(a.qv_bias + hc, threadIdx.x & 127),
-                      threadIdx.x & 127);
+    T::add_qv_bias(smem + wg * kTileBytes, a.qv_bias + hc, threadIdx.x & 127);
     fence_proxy_async();
     named_barrier(2 + wg, 128);
   }
@@ -329,19 +359,19 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int k0 = j * kTile;
     unsigned char* st = smem + kResidentBytes + s * kStageDq;
     mbar_wait(&ring.full[s], (j / kStages) & 1);
-    const uint64_t d_k = desc_sw128(st);
-    const uint64_t d_v = desc_sw128(st + kTileBytes);
+    const uint64_t d_k = T::desc(st);
+    const uint64_t d_v = T::desc(st + kTileBytes);
 
     // s = q k^T and dp = g v^T (64 rows x 64 keys each)
     float sc[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      wgmma_ss<0>(sc, desc_add(d_q, 32 * kk), desc_add(d_k, 32 * kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0>(sc, T::k_step(d_q, kk), T::k_step(d_k, kk), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      wgmma_ss<0>(dp, desc_add(d_g, 32 * kk), desc_add(d_v, 32 * kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0>(dp, T::k_step(d_g, kk), T::k_step(d_v, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -410,42 +440,46 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // dq += ds k (ds rounded to bf16; k read MN-major)
+    // dq += ds k (ds rounded to bf16; k read MN-major, m64nD)
     uint32_t da[kTile / 16][4];
     pack_a(da, dp);
     wgmma_hold(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dq, da[kk], desc_add(d_k, 2048 * kk));
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dq, da[kk], T::mn_step(d_k, kk));
     wgmma_commit();
     wgmma_wait_all();
     wgmma_hold(dq);
     wgmma_hold(da);
     mbar_arrive(&ring.empty[s]);
   }
-  store_acc_bf16(static_cast<bf16*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, dq, a.scale, nq,
-                 q0 + wg * 64 + warp * 16);
+  store_acc_bf16<D>(static_cast<bf16*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, dq, a.scale,
+                    nq, q0 + wg * 64 + warp * 16);
 }
 
 // ---------------------------------------------------------------------------
 // kernel 2, bf16: dk, dv. Key-major; q/g streamed once, c and lse read.
 // ---------------------------------------------------------------------------
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsW, 1)
 stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+  using T = HeadTile<D>;
+  using S = BwdSmem<D>;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentBytes;
+  constexpr uint32_t kStageDkv = S::kStageDkv;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // every producer thread arrives once a stage: its lse / c and bias copies
-  const Ring ring = ring_init(smem_raw, kStageDkv, 129);
+  const Ring ring = ring_init(smem_raw, kResidentBytes, kStageDkv, 129);
   unsigned char* smem = ring.smem;  // k tiles [kWg], v tiles [kWg], then the ring
   const int wg = threadIdx.x >> 7;
   int b, tile, h;
   block_coords(b, tile, h);
   const int nq = a.nq, nk = a.nk;
-  const int hc = h * kD;
+  const int hc = h * D;
   const int jb = tile * 64 * kWg;  // the block's first key
   const int n_tiles = (nq + kTile - 1) / kTile;
   const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
@@ -459,8 +493,8 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     if (ptid == 0) {
       mbar_arrive_expect_tx(ring.resident, kResidentBytes);
       for (int w = 0; w < kWg; ++w) {
-        tma_load_tile(smem + w * kTileBytes, &tm_k, ring.resident, hc, jb + 64 * w, b);
-        tma_load_tile(smem + (kWg + w) * kTileBytes, &tm_v, ring.resident, hc, jb + 64 * w, b);
+        tma_load_head<D>(smem + w * kTileBytes, &tm_k, ring.resident, hc, jb + 64 * w, b);
+        tma_load_head<D>(smem + (kWg + w) * kTileBytes, &tm_v, ring.resident, hc, jb + 64 * w, b);
       }
     }
     for (int j = 0; j < n_tiles; ++j) {
@@ -472,8 +506,8 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
         // with a q/v bias the pair lands for the hand-over first
         uint64_t* bar = qvb_q != nullptr ? &ring.landed[s] : &ring.full[s];
         mbar_arrive_expect_tx(bar, 2 * kTileBytes);
-        tma_load_tile(st, &tm_q, bar, hc, q0, b);
-        tma_load_tile(st + kTileBytes, &tm_g, bar, hc, q0, b);
+        tma_load_head<D>(st, &tm_q, bar, hc, q0, b);
+        tma_load_head<D>(st + kTileBytes, &tm_g, bar, hc, q0, b);
       }
       if (bias_h != nullptr) {
 #pragma unroll
@@ -490,7 +524,7 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
       }
       mbar_arrive_cp_async(&ring.full[s]);
       if (qvb_q != nullptr) {
-        hand_over_biased(st, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_q, ptid);
+        hand_over_biased<D>(st, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_q, ptid);
       }
     }
     cp_async_wait<0>();
@@ -509,16 +543,15 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  const uint64_t d_k = desc_sw128(smem + wg * kTileBytes);
-  const uint64_t d_v = desc_sw128(smem + (kWg + wg) * kTileBytes);
-  float dk[32], dv[32];
+  const uint64_t d_k = T::desc(smem + wg * kTileBytes);
+  const uint64_t d_v = T::desc(smem + (kWg + wg) * kTileBytes);
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
   mbar_wait(ring.resident, 0);
   if (a.qv_bias != nullptr) {  // the q/v bias's v row, in bf16, on this warpgroup's v tile
-    add_qv_bias_sw128(smem + (kWg + wg) * kTileBytes,
-                      qv_bias_chunk(a.qv_bias + 2 * a.num_heads * kD + hc, threadIdx.x & 127),
-                      threadIdx.x & 127);
+    T::add_qv_bias(smem + (kWg + wg) * kTileBytes, a.qv_bias + 2 * a.num_heads * D + hc,
+                   threadIdx.x & 127);
     fence_proxy_async();
     named_barrier(2 + wg, 128);
   }
@@ -528,19 +561,19 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int q0 = j * kTile;
     unsigned char* st = smem + kResidentBytes + s * kStageDkv;
     mbar_wait(&ring.full[s], (j / kStages) & 1);
-    const uint64_t d_qt = desc_sw128(st);
-    const uint64_t d_gt = desc_sw128(st + kTileBytes);
+    const uint64_t d_qt = T::desc(st);
+    const uint64_t d_gt = T::desc(st + kTileBytes);
 
     // s^T = k q^T and dp^T = v g^T (64 keys x 64 queries each)
     float sc[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      wgmma_ss<0>(sc, desc_add(d_k, 32 * kk), desc_add(d_qt, 32 * kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0>(sc, T::k_step(d_k, kk), T::k_step(d_qt, kk), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      wgmma_ss<0>(dp, desc_add(d_v, 32 * kk), desc_add(d_gt, 32 * kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0>(dp, T::k_step(d_v, kk), T::k_step(d_gt, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -588,7 +621,7 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // dv += p_d^T g and dk += ds^T q (p_d and ds rounded to bf16; g and q
-    // read MN-major)
+    // read MN-major, m64nD)
     uint32_t pa[kTile / 16][4], da[kTile / 16][4];
     pack_a(pa, sc);
     pack_a(da, dp);
@@ -596,9 +629,9 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     wgmma_hold(dk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dv, pa[kk], desc_add(d_gt, 2048 * kk));
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dv, pa[kk], T::mn_step(d_gt, kk));
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dk, da[kk], desc_add(d_qt, 2048 * kk));
+    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dk, da[kk], T::mn_step(d_qt, kk));
     wgmma_commit();
     wgmma_wait_all();
     wgmma_hold(dv);
@@ -609,31 +642,34 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
   }
   // the f32 sums over all query rows, rounded once
   const int row0 = jb + wg * 64 + warp * 16;
-  store_acc_bf16(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale, nk,
-                 row0);
-  store_acc_bf16(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f, nk,
-                 row0);
+  store_acc_bf16<D>(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale,
+                    nk, row0);
+  store_acc_bf16<D>(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f,
+                    nk, row0);
 }
 
 // ---------------------------------------------------------------------------
 // f32: FMA loops over 64-row shared-memory tiles; a warp owns 16 rows
 // ---------------------------------------------------------------------------
 
-constexpr size_t kSmemDqF = (size_t(kWarpsF) * 3 * kRowsF * kLdS +
-                             size_t(2 * kOwnF + 2 * kTile) * kLdF) * sizeof(float);
-constexpr size_t kSmemDkvF = (size_t(kWarpsF) * 4 * kRowsF * kLdS +
-                              size_t(2 * kOwnF + 2 * kTile) * kLdF + 2 * kTile) * sizeof(float);
+template <int D>
+constexpr size_t kSmemDqF = (size_t(kWarpsF) * 3 * kRowsF * kLdS<D> +
+                             size_t(2 * kOwnF + 2 * kTile) * kLdF<D>) * sizeof(float);
+template <int D>
+constexpr size_t kSmemDkvF = (size_t(kWarpsF) * 4 * kRowsF * kLdS<D> +
+                              size_t(2 * kOwnF + 2 * kTile) * kLdF<D> + 2 * kTile) * sizeof(float);
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) {
+  constexpr int ldS = kLdS<D>, ldF = kLdF<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int b, tile, h;
   block_coords(b, tile, h);
   const int nq = a.nq, nk = a.nk, ldb = a.ldb;
-  const int c = a.num_heads * kD;
-  const int hc = h * kD;
+  const int c = a.num_heads * D;
+  const int hc = h * D;
   const int q0 = tile * kOwnF;
   const int r0 = q0 + warp * kRowsF;
   const bool active = r0 < nq;
@@ -650,19 +686,19 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * kLdS;  // scores, then ds
-  float* dp_w = s_w + kRowsF * kLdS;                                       // g v^T
-  float* o_w = dp_w + kRowsF * kLdS;                                       // dq
-  float* qs = reinterpret_cast<float*>(smem) + kWarpsF * 3 * kRowsF * kLdS;
-  float* gs = qs + kOwnF * kLdF;
-  float* ks = gs + kOwnF * kLdF;
-  float* vs = ks + kTile * kLdF;
-  const float* q_w = qs + warp * kRowsF * kLdF;
-  const float* g_w = gs + warp * kRowsF * kLdF;
+  float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * ldS;  // scores, then ds
+  float* dp_w = s_w + kRowsF * ldS;                                        // g v^T
+  float* o_w = dp_w + kRowsF * ldS;                                        // dq
+  float* qs = reinterpret_cast<float*>(smem) + kWarpsF * 3 * kRowsF * ldS;
+  float* gs = qs + kOwnF * ldF;
+  float* ks = gs + kOwnF * ldF;
+  float* vs = ks + kTile * ldF;
+  const float* q_w = qs + warp * kRowsF * ldF;
+  const float* g_w = gs + warp * kRowsF * ldF;
 
-  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, nq, q0, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, nq, q0, kOwnF, threadIdx.x, kThreadsF);
-  for (int i = lane; i < kRowsF * kLdS; i += 32) o_w[i] = 0.0f;
+  load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kOwnF, threadIdx.x, kThreadsF);
+  for (int i = lane; i < kRowsF * ldS; i += 32) o_w[i] = 0.0f;
 
   float lrow[kRowsF], csum[kRowsF];
 #pragma unroll
@@ -674,13 +710,15 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < nk; k0 += kTile) {
       __syncthreads();  // every warp is done with the previous k/v tile
-      load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, k0, kTile, threadIdx.x, kThreadsF);
-      load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, nk, k0, kTile, threadIdx.x, kThreadsF);
+      load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, k0, kTile, threadIdx.x,
+                               kThreadsF);
+      load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, qvb_v, nk, k0, kTile, threadIdx.x,
+                               kThreadsF);
       __syncthreads();
       if (!active) continue;
 
-      warp_abt_f32(s_w, q_w, ks);
-      warp_abt_f32(dp_w, g_w, vs);
+      warp_abt_f32<D>(s_w, q_w, ks);
+      warp_abt_f32<D>(dp_w, g_w, vs);
       __syncwarp();
 #pragma unroll
       for (int r = 0; r < kRowsF; ++r) {
@@ -690,7 +728,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
           const int j = lane + 32 * half;
           const int col = k0 + j;
           const bool valid = row < nq && col < nk;
-          float s = s_w[r * kLdS + j] * a.scale;
+          float s = s_w[r * ldS + j] * a.scale;
           if (bias_h != nullptr && valid) s += bias_h[size_t(row) * nk + col];
           const float p = valid ? expf(s - lrow[r]) : 0.0f;
           float pd = p;
@@ -698,19 +736,19 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
             pd *= philox::keep_scale(philox::attention_bits(pkey, bh, row, col), a.threshold,
                                      a.inv_keep);
           }
-          const float tt = pd * dp_w[r * kLdS + j];  // t = (g v^T) * p_d
+          const float tt = pd * dp_w[r * ldS + j];  // t = (g v^T) * p_d
           if (pass == 0) {
             csum[r] += tt;
           } else {
             const float ds = tt - p * csum[r];
-            s_w[r * kLdS + j] = ds;
+            s_w[r * ldS + j] = ds;
             if (dbias_h != nullptr && valid) atomicAdd(dbias_h + size_t(row) * ldb + col, ds);
           }
         }
       }
       if (pass == 1) {
         __syncwarp();
-        warp_ab_f32(o_w, s_w, ks);
+        warp_ab_f32<D>(o_w, s_w, ks);
       }
       __syncwarp();
     }
@@ -723,21 +761,22 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
     }
   }
   if (active) {
-    store_rows_f32(static_cast<float*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, o_w, a.scale,
-                   nq, r0);
+    store_rows_f32<D>(static_cast<float*>(a.dq) + size_t(b) * nq * a.lddq + hc, a.lddq, o_w,
+                      a.scale, nq, r0);
   }
 }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a) {
+  constexpr int ldS = kLdS<D>, ldF = kLdF<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int b, tile, h;
   block_coords(b, tile, h);
   const int nq = a.nq, nk = a.nk;
-  const int c = a.num_heads * kD;
-  const int hc = h * kD;
+  const int c = a.num_heads * D;
+  const int hc = h * D;
   const int jb = tile * kOwnF;
   const int j0 = jb + warp * kRowsF;  // this warp's first key row
   const bool active = j0 < nk;
@@ -753,27 +792,27 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  float* s_w = reinterpret_cast<float*>(smem) + warp * 4 * kRowsF * kLdS;  // p_d^T
-  float* dp_w = s_w + kRowsF * kLdS;                                       // v g^T, then ds^T
-  float* dk_w = dp_w + kRowsF * kLdS;
-  float* dv_w = dk_w + kRowsF * kLdS;
-  float* ks = reinterpret_cast<float*>(smem) + kWarpsF * 4 * kRowsF * kLdS;
-  float* vs = ks + kOwnF * kLdF;
-  float* qs = vs + kOwnF * kLdF;
-  float* gs = qs + kTile * kLdF;
-  float* lse_s = gs + kTile * kLdF;  // [kTile]
-  float* c_s = lse_s + kTile;        // [kTile]
-  const float* k_w = ks + warp * kRowsF * kLdF;
-  const float* v_w = vs + warp * kRowsF * kLdF;
+  float* s_w = reinterpret_cast<float*>(smem) + warp * 4 * kRowsF * ldS;  // p_d^T
+  float* dp_w = s_w + kRowsF * ldS;                                        // v g^T, then ds^T
+  float* dk_w = dp_w + kRowsF * ldS;
+  float* dv_w = dk_w + kRowsF * ldS;
+  float* ks = reinterpret_cast<float*>(smem) + kWarpsF * 4 * kRowsF * ldS;
+  float* vs = ks + kOwnF * ldF;
+  float* qs = vs + kOwnF * ldF;
+  float* gs = qs + kTile * ldF;
+  float* lse_s = gs + kTile * ldF;  // [kTile]
+  float* c_s = lse_s + kTile;       // [kTile]
+  const float* k_w = ks + warp * kRowsF * ldF;
+  const float* v_w = vs + warp * kRowsF * ldF;
 
-  load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, jb, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, qvb_v, nk, jb, kOwnF, threadIdx.x, kThreadsF);
-  for (int i = lane; i < 2 * kRowsF * kLdS; i += 32) dk_w[i] = 0.0f;  // dk_w and dv_w
+  load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, jb, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, qvb_v, nk, jb, kOwnF, threadIdx.x, kThreadsF);
+  for (int i = lane; i < 2 * kRowsF * ldS; i += 32) dk_w[i] = 0.0f;  // dk_w and dv_w
 
   for (int q0 = 0; q0 < nq; q0 += kTile) {
     __syncthreads();  // every warp is done with the previous q/g tile
-    load_slab_rows<float>(qs, kLdF, q_img, a.ldq, qvb_q, nq, q0, kTile, threadIdx.x, kThreadsF);
-    load_slab_rows<float>(gs, kLdF, g_img, a.ldg, nullptr, nq, q0, kTile, threadIdx.x, kThreadsF);
+    load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kTile, threadIdx.x, kThreadsF);
+    load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kTile, threadIdx.x, kThreadsF);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = row < nq ? a.lse[bhn + row] : 0.0f;
@@ -782,8 +821,8 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
     __syncthreads();
     if (!active) continue;
 
-    warp_abt_f32(s_w, k_w, qs);   // [key][query]
-    warp_abt_f32(dp_w, v_w, gs);
+    warp_abt_f32<D>(s_w, k_w, qs);   // [key][query]
+    warp_abt_f32<D>(dp_w, v_w, gs);
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
@@ -793,7 +832,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
         const int i = lane + 32 * half;
         const int query = q0 + i;
         const bool valid = key < nk && query < nq;
-        float s = s_w[r * kLdS + i] * a.scale;
+        float s = s_w[r * ldS + i] * a.scale;
         if (bias_h != nullptr && valid) s += bias_h[size_t(query) * nk + key];
         const float p = valid ? expf(s - lse_s[i]) : 0.0f;
         float pd = p;
@@ -801,28 +840,29 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
           pd *= philox::keep_scale(philox::attention_bits(pkey, bh, query, key), a.threshold,
                                    a.inv_keep);
         }
-        s_w[r * kLdS + i] = pd;
-        dp_w[r * kLdS + i] = pd * dp_w[r * kLdS + i] - p * c_s[i];
+        s_w[r * ldS + i] = pd;
+        dp_w[r * ldS + i] = pd * dp_w[r * ldS + i] - p * c_s[i];
       }
     }
     __syncwarp();
-    warp_ab_f32(dv_w, s_w, gs);
-    warp_ab_f32(dk_w, dp_w, qs);
+    warp_ab_f32<D>(dv_w, s_w, gs);
+    warp_ab_f32<D>(dk_w, dp_w, qs);
     __syncwarp();
   }
   if (active) {
-    store_rows_f32(static_cast<float*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk_w,
-                   a.scale, nk, j0);
-    store_rows_f32(static_cast<float*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv_w, 1.0f,
-                   nk, j0);
+    store_rows_f32<D>(static_cast<float*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk_w,
+                      a.scale, nk, j0);
+    store_rows_f32<D>(static_cast<float*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv_w,
+                      1.0f, nk, j0);
   }
 }
 
-// Kernel 1 (blocks over the Nq query rows) then kernel 2 (over the Nk keys)
-// on one stream.
-template <typename K1, typename K2>
-cudaError_t launch(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t smem_dq,
-                   size_t smem_dkv, const BwdArgs& a, int batch, cudaStream_t stream) {
+// Kernel 1 (blocks over the Nq query rows, `own` a block) then kernel 2
+// (over the Nk keys) on one stream, with the kernels' arguments `args...`.
+template <typename K1, typename K2, typename... Args>
+cudaError_t launch_pair(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t smem_dq,
+                        size_t smem_dkv, const BwdArgs& a, int batch, cudaStream_t stream,
+                        const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
@@ -830,51 +870,59 @@ cudaError_t launch(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t sme
                              static_cast<int>(smem_dkv));
   if (err != cudaSuccess) return err;
   dq_kernel<<<block_grid(batch, (a.nq + own - 1) / own, a.num_heads), threads, smem_dq, stream>>>(
-      a);
+      args...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkv_kernel<<<block_grid(batch, (a.nk + own - 1) / own, a.num_heads), threads, smem_dkv,
-               stream>>>(a);
+               stream>>>(args...);
   return cudaGetLastError();
 }
 
 // The bf16 pair: the tensor maps of q, k, v and g (per image, 64-row
-// boxes), then kernel 1 over the Nq query rows and kernel 2 over the Nk
-// keys, 64 * kWg rows a block, on one stream.
-template <typename K1, typename K2>
-cudaError_t launch_bf16(K1 dq_kernel, K2 dkv_kernel, const BwdArgs& a, int batch,
-                        cudaStream_t stream) {
-  const int c = a.num_heads * kD;
+// boxes of HeadTile<D>), then kernel 1 over the Nq query rows and kernel 2
+// over the Nk keys, 64 * kWg rows a block.
+template <int D, bool kDrop>
+cudaError_t launch_bf16(const BwdArgs& a, int batch, cudaStream_t stream) {
+  const int c = a.num_heads * D;
   CUtensorMap tm_q, tm_k, tm_v, tm_g;
-  if (!token_map(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
-      !token_map(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
-      !token_map(&tm_v, a.v, c, a.ldkv, a.nk, batch) ||
-      !token_map(&tm_g, a.g, c, a.ldg, a.nq, batch)) {
+  if (!head_map<D>(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
+      !head_map<D>(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
+      !head_map<D>(&tm_v, a.v, c, a.ldkv, a.nk, batch) ||
+      !head_map<D>(&tm_g, a.g, c, a.ldg, a.nq, batch)) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem_dq = smem_bytes(kStageDq), smem_dkv = smem_bytes(kStageDkv);
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_dq));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_dkv));
-  if (err != cudaSuccess) return err;
-  const int own = 64 * kWg;
-  dq_kernel<<<block_grid(batch, (a.nq + own - 1) / own, a.num_heads), kThreadsW, smem_dq,
-              stream>>>(tm_q, tm_k, tm_v, tm_g, a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<block_grid(batch, (a.nk + own - 1) / own, a.num_heads), kThreadsW, smem_dkv,
-               stream>>>(tm_q, tm_k, tm_v, tm_g, a);
-  return cudaGetLastError();
+  using S = BwdSmem<D>;
+  return launch_pair(stream_bwd_dq_bf16<D, kDrop>, stream_bwd_dkv_bf16<D, kDrop>, kThreadsW,
+                     64 * kWg, S::bytes(S::kStageDq), S::bytes(S::kStageDkv), a, batch, stream,
+                     tm_q, tm_k, tm_v, tm_g, a);
+}
+
+template <int D, bool kDrop>
+cudaError_t launch_f32(const BwdArgs& a, int batch, cudaStream_t stream) {
+  return launch_pair(stream_bwd_dq_f32<D, kDrop>, stream_bwd_dkv_f32<D, kDrop>, kThreadsF, kOwnF,
+                     kSmemDqF<D>, kSmemDkvF<D>, a, batch, stream, a);
+}
+
+// The instantiation of head width D, dtype (0 bf16, 1 f32) and dropout.
+template <int D>
+cudaError_t launch(const BwdArgs& a, int batch, int dtype, cudaStream_t stream) {
+  const bool drop = a.seed != nullptr;
+  if (dtype == 0) {
+    return drop ? launch_bf16<D, true>(a, batch, stream) : launch_bf16<D, false>(a, batch, stream);
+  }
+  if (dtype == 1) {
+    return drop ? launch_f32<D, true>(a, batch, stream) : launch_f32<D, false>(a, batch, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. q, k, v, g, o and dq, dk, dv point at column 0
-// of head 0 in row 0 of image 0; rows lie ldq, ldkv (k and v), ldg, ldo,
+// dtype: 0 = bf16, 1 = f32; head_dim 64 or 80 (C = num_heads * head_dim).
+// q, k, v, g, o and dq, dk, dv point at column 0 of head 0 in row 0 of
+// image 0; rows lie ldq, ldkv (k and v), ldg, ldo,
 // lddq, lddkv (dk and dv) elements apart, and an image is nq consecutive rows
 // of q, g, o and dq and nk of k, v, dk and dv. For packed qkv and dqkv
 // [B, N, 3C]: k = qkv + C, v = qkv + 2C, all pitches 3C, nq = nk = N; g and o
@@ -893,9 +941,9 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
                                     const void* lse, void* c, void* dq, void* dk, void* dv,
                                     void* dbias, const void* seed, long long ldq, long long ldkv,
                                     long long ldg, long long ldo, long long lddq, long long lddkv,
-                                    int batch, int nq, int nk, int ldb, int num_heads, int dtype,
-                                    float scale, unsigned int threshold, float inv_keep,
-                                    void* stream) {
+                                    int batch, int nq, int nk, int ldb, int num_heads,
+                                    int head_dim, int dtype, float scale, unsigned int threshold,
+                                    float inv_keep, void* stream) {
   if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || ldb < nk || ldb % 4 != 0 ||
       num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 || (nk + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -913,17 +961,8 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
   a.nq = nq, a.nk = nk, a.ldb = ldb, a.num_heads = num_heads;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool drop = a.seed != nullptr;
-  if (dtype == 0) {
-    return drop ? launch_bf16(stream_bwd_dq_bf16<true>, stream_bwd_dkv_bf16<true>, a, batch, st)
-                : launch_bf16(stream_bwd_dq_bf16<false>, stream_bwd_dkv_bf16<false>, a, batch, st);
-  }
-  if (dtype == 1) {
-    return drop ? launch(stream_bwd_dq_f32<true>, stream_bwd_dkv_f32<true>, kThreadsF, kOwnF,
-                         kSmemDqF, kSmemDkvF, a, batch, st)
-                : launch(stream_bwd_dq_f32<false>, stream_bwd_dkv_f32<false>, kThreadsF, kOwnF,
-                         kSmemDqF, kSmemDkvF, a, batch, st);
-  }
+  if (head_dim == 64) return launch<64>(a, batch, dtype, st);
+  if (head_dim == 80) return launch<80>(a, batch, dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -66,6 +66,15 @@
 //     zeros (and stale bias words) and never stored; keys beyond Nk get
 //     e = 0.
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row q tiles.
+// Head widths (a template parameter D, picked at launch): 64 (ViT-B, ViT-L)
+// and 80 (ViT-H/16: 16 heads, N = 197). At 80 a head's row is 160 bytes, more
+// than a 128-byte swizzle takes in one TMA box, so a tile is five 16-column
+// boxes in the 32-byte swizzle (hopper_common.cuh:HeadTile<80>): s = q k^T is
+// five k16 steps, one a box, and o += p v one wgmma m64n80 a step across all
+// five (the accumulator 40 f32 a thread; 38 KiB a stage, two blocks an SM
+// still). At ViT-H's eval shape (B=128, N=197, H=16, D=80, bf16, a bias) the
+// call moves 261 MB, ~0.078 ms at 3.35 TB/s, and does 25.4 GFLOP, ~0.026 ms:
+// the bytes bound it.
 // Dropout: the keep bit of (image * H + head, row, column) from
 // csrc/philox.cuh, a function of the seed and the position alone, so this
 // kernel, the streaming backward's two kernels and the plain PyTorch version
@@ -89,27 +98,36 @@ constexpr int kTileK = 64;  // k/v rows per tile
 
 constexpr int kStages = 2;            // k/v/bias ring depth
 constexpr int kLdBias = kTileK + 8;   // f32 bias tile row: float2 reads conflict-free
-constexpr uint32_t kTileBytes = 64 * 64 * sizeof(bf16);  // one 64 x 64 bf16 TMA box
 constexpr uint32_t kBiasBytes = 64 * kLdBias * sizeof(float);
-constexpr uint32_t kStageBytes = 2 * kTileBytes + kBiasBytes;  // k, v, bias
-static_assert(kStageBytes % 1024 == 0, "a stage must keep the next one 1024-byte aligned");
-constexpr uint32_t kRingOff = kTileBytes;                        // after the q tile
-// then the barriers: full[], empty[], landed[], q
-constexpr uint32_t kBarOff = kRingOff + kStages * kStageBytes;
-constexpr size_t kSmemBf16 = kBarOff + (3 * kStages + 1) * sizeof(uint64_t) + 1024;  // + alignment
+// Shared memory of head width D: the q tile, then the ring of stages (k, v,
+// bias), then the barriers full[], empty[], landed[], q. A stage is 36 KiB
+// at D = 64 and 38 KiB at D = 80.
+template <int D>
+struct FwdSmem {
+  static constexpr uint32_t kTileBytes = HeadTile<D>::kBytes;
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes + kBiasBytes;
+  static_assert(kStageBytes % 1024 == 0, "a stage must keep the next one 1024-byte aligned");
+  static constexpr uint32_t kRingOff = kTileBytes;
+  static constexpr uint32_t kBarOff = kRingOff + kStages * kStageBytes;
+  static constexpr size_t kBytes =
+      kBarOff + (3 * kStages + 1) * sizeof(uint64_t) + 1024;  // + alignment
+};
 constexpr int kThreadsBf16 = 2 * 128;
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsBf16, 2)
 stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
                 const float* __restrict__ qv_bias, bf16* __restrict__ out, int ldo,
                 float* __restrict__ lse, int nq, int nk, int num_heads, float scale, int bounded,
                 const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
+  using T = HeadTile<D>;
+  using S = FwdSmem<D>;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kStageBytes = S::kStageBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzled tiles need 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
   uint64_t* empty = full + kStages;
   uint64_t* landed = empty + kStages;  // with a q/v bias: a k/v pair in, the bias not yet added
   uint64_t* q_full = landed + kStages;
@@ -117,7 +135,7 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   int b, qt, h;
   block_coords(b, qt, h);
   const int q0 = qt * 64;
-  const int hc = h * kD;
+  const int hc = h * D;
   const float* bias_h = bias ? bias + size_t(h) * nq * nk : nullptr;
   const int n_tiles = (nk + kTileK - 1) / kTileK;
 
@@ -136,21 +154,21 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
   if (threadIdx.x >= 128) {  // producer
     const int ptid = threadIdx.x - 128;
-    const float* qvb_v = qv_bias != nullptr ? qv_bias + 2 * num_heads * kD + hc : nullptr;
+    const float* qvb_v = qv_bias != nullptr ? qv_bias + 2 * num_heads * D + hc : nullptr;
     if (ptid == 0) {
       mbar_arrive_expect_tx(q_full, kTileBytes);
-      tma_load_tile(smem, &tm_q, q_full, hc, q0, b);
+      tma_load_head<D>(smem, &tm_q, q_full, hc, q0, b);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kStages;
-      unsigned char* st = smem + kRingOff + s * kStageBytes;
+      unsigned char* st = smem + S::kRingOff + s * kStageBytes;
       mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
       if (ptid == 0) {
         // with a q/v bias the pair lands for the hand-over first
         uint64_t* bar = qvb_v != nullptr ? &landed[s] : &full[s];
         mbar_arrive_expect_tx(bar, 2 * kTileBytes);
-        tma_load_tile(st, &tm_k, bar, hc, j * kTileK, b);
-        tma_load_tile(st + kTileBytes, &tm_v, bar, hc, j * kTileK, b);
+        tma_load_head<D>(st, &tm_k, bar, hc, j * kTileK, b);
+        tma_load_head<D>(st + kTileBytes, &tm_v, bar, hc, j * kTileK, b);
       }
       if (bias_h != nullptr) {
         cp_async_bias_tile(reinterpret_cast<float*>(st + 2 * kTileBytes), kLdBias, bias_h, nq, nk,
@@ -158,7 +176,8 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         mbar_arrive_cp_async(&full[s]);
       }
       if (qvb_v != nullptr) {
-        hand_over_biased(st + kTileBytes, &landed[s], (j / kStages) & 1, &full[s], qvb_v, ptid);
+        hand_over_biased<D>(st + kTileBytes, &landed[s], (j / kStages) & 1, &full[s], qvb_v,
+                            ptid);
       }
     }
     cp_async_wait<0>();
@@ -175,17 +194,17 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const uint32_t bh = uint32_t(b) * num_heads + h;
   const int r_local = warp * 16 + g;  // this thread's first row in the q tile
   const int rows[2] = {q0 + r_local, q0 + r_local + 8};
-  const uint64_t dq = desc_sw128(smem);
+  const uint64_t dq = T::desc(smem);
 
-  float o[32];
+  float o[D / 2];  // the output accumulator: 64 rows x D
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
   float m_r[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
   float l_r[2] = {0.0f, 0.0f};            // this thread's share of the row sums
   const float sl2 = scale * kLog2e;
   mbar_wait(q_full, 0);
   if (qv_bias != nullptr) {  // the q/v bias's q row, in bf16 in shared memory
-    add_qv_bias_sw128(smem, qv_bias_chunk(qv_bias + hc, threadIdx.x), threadIdx.x);
+    T::add_qv_bias(smem, qv_bias + hc, threadIdx.x);
     fence_proxy_async();
     named_barrier(2, 128);
   }
@@ -193,16 +212,16 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     const int k0 = j * kTileK;
-    unsigned char* st = smem + kRingOff + s * kStageBytes;
+    unsigned char* st = smem + S::kRingOff + s * kStageBytes;
     mbar_wait(&full[s], (j / kStages) & 1);
 
-    // s = q k^T (64 rows x 64 keys), 4 steps of 16 deep
+    // s = q k^T (64 rows x 64 keys), D / 16 steps of 16 deep
     float sc[32];
-    const uint64_t dk = desc_sw128(st);
+    const uint64_t dk = T::desc(st);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      wgmma_ss<0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0>(sc, T::k_step(dq, kk), T::k_step(dk, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -249,7 +268,7 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         sub[i] = m_new;
         l_r[i] *= alpha;
 #pragma unroll
-        for (int db = 0; db < kD / 8; ++db) {
+        for (int db = 0; db < D / 8; ++db) {
           o[4 * db + 2 * i] *= alpha;
           o[4 * db + 2 * i + 1] *= alpha;
         }
@@ -274,14 +293,14 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     }
 
     // o += p v: the accumulator's 8-key blocks 2kk and 2kk + 1, packed, are
-    // the A operand of step kk; v is read MN-major
-    const uint64_t dv = desc_sw128(st + kTileBytes);
+    // the A operand of step kk; v is read MN-major (m64nD)
+    const uint64_t dv = T::desc(st + kTileBytes);
     uint32_t pa[kTileK / 16][4];
     pack_a(pa, sc);
     wgmma_hold(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) wgmma_rs<1>(o, pa[kk], desc_add(dv, 2048 * kk));
+    for (int kk = 0; kk < kTileK / 16; ++kk) wgmma_rs<1>(o, pa[kk], T::mn_step(dv, kk));
     wgmma_commit();
     wgmma_wait_all();
     wgmma_hold(o);
@@ -299,7 +318,7 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     const float inv = 1.0f / l;
     bf16* dst = out + (size_t(b) * nq + row) * ldo + hc + 2 * t;
 #pragma unroll
-    for (int db = 0; db < kD / 8; ++db) {
+    for (int db = 0; db < D / 8; ++db) {
       *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
           __floats2bfloat162_rn(o[4 * db + 2 * i] * inv, o[4 * db + 2 * i + 1] * inv);
     }
@@ -317,8 +336,9 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 constexpr int kWarpsF = 4;
 constexpr int kThreadsF = kWarpsF * 32;
 constexpr int kTileQF = kWarpsF * kRowsF;
-constexpr size_t kSmemF32 = (size_t(kWarpsF) * 3 * kRowsF * kLdS +
-                             size_t(kTileQF + 2 * kTileK) * kLdF) * sizeof(float);
+template <int D>
+constexpr size_t kSmemF32 = (size_t(kWarpsF) * 3 * kRowsF * kLdS<D> +
+                             size_t(kTileQF + 2 * kTileK) * kLdF<D>) * sizeof(float);
 
 struct FwdArgs {
   const void *q, *k, *v;   // each at column 0 of head 0 in row 0 of image 0
@@ -333,8 +353,9 @@ struct FwdArgs {
   uint32_t threshold;
 };
 
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
+  constexpr int ldS = kLdS<D>, ldF = kLdF<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -342,8 +363,8 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   block_coords(b, qt, h);
   const int q0 = qt * kTileQF;
   const int nq = a.nq, nk = a.nk;
-  const int c = a.num_heads * kD;
-  const int hc = h * kD;
+  const int c = a.num_heads * D;
+  const int hc = h * D;
   const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
   const float* k_img = static_cast<const float*>(a.k) + size_t(b) * nk * a.ldkv + hc;
   const float* v_img = static_cast<const float*>(a.v) + size_t(b) * nk * a.ldkv + hc;
@@ -351,17 +372,17 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   if constexpr (kDrop) pkey = philox::load_key(a.seed);
   const uint32_t bh = uint32_t(b) * a.num_heads + h;
 
-  float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * kLdS;  // scores
-  float* p_w = s_w + kRowsF * kLdS;                                        // probabilities
-  float* o_w = p_w + kRowsF * kLdS;                                        // output
-  float* qs = reinterpret_cast<float*>(smem) + kWarpsF * 3 * kRowsF * kLdS;
-  float* ks = qs + kTileQF * kLdF;
-  float* vs = ks + kTileK * kLdF;
-  const float* q_w = qs + warp * kRowsF * kLdF;
+  float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * ldS;  // scores
+  float* p_w = s_w + kRowsF * ldS;                                         // probabilities
+  float* o_w = p_w + kRowsF * ldS;                                         // output
+  float* qs = reinterpret_cast<float*>(smem) + kWarpsF * 3 * kRowsF * ldS;
+  float* ks = qs + kTileQF * ldF;
+  float* vs = ks + kTileK * ldF;
+  const float* q_w = qs + warp * kRowsF * ldF;
 
-  load_slab_rows<float>(qs, kLdF, q_img, a.ldq, a.qv_bias ? a.qv_bias + hc : nullptr, nq, q0,
-                        kTileQF, threadIdx.x, kThreadsF);
-  for (int i = lane; i < kRowsF * kLdS; i += 32) o_w[i] = 0.0f;
+  load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, a.qv_bias ? a.qv_bias + hc : nullptr, nq, q0,
+                           kTileQF, threadIdx.x, kThreadsF);
+  for (int i = lane; i < kRowsF * ldS; i += 32) o_w[i] = 0.0f;
 
   const bool active = q0 + warp * kRowsF < nq;
   float m[kRowsF], l[kRowsF];
@@ -374,13 +395,14 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
 
   for (int k0 = 0; k0 < nk; k0 += kTileK) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_slab_rows<float>(ks, kLdF, k_img, a.ldkv, nullptr, nk, k0, kTileK, threadIdx.x, kThreadsF);
-    load_slab_rows<float>(vs, kLdF, v_img, a.ldkv, a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr,
-                          nk, k0, kTileK, threadIdx.x, kThreadsF);
+    load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, k0, kTileK, threadIdx.x,
+                             kThreadsF);
+    load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, a.qv_bias ? a.qv_bias + 2 * c + hc : nullptr,
+                             nk, k0, kTileK, threadIdx.x, kThreadsF);
     __syncthreads();
     if (!active) continue;
 
-    warp_abt_f32(s_w, q_w, ks);
+    warp_abt_f32<D>(s_w, q_w, ks);
     __syncwarp();
 
     const int c0 = k0 + lane, c1 = k0 + lane + 32;
@@ -388,8 +410,8 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
 #pragma unroll
     for (int r = 0; r < kRowsF; ++r) {
       const int row = q0 + warp * kRowsF + r;
-      float s0 = s_w[r * kLdS + lane] * a.scale;
-      float s1 = s_w[r * kLdS + lane + 32] * a.scale;
+      float s0 = s_w[r * ldS + lane] * a.scale;
+      float s1 = s_w[r * ldS + lane + 32] * a.scale;
       if (bias_h != nullptr && row < nq) {
         if (v0) s0 += bias_h[size_t(row) * nk + c0];
         if (v1) s1 += bias_h[size_t(row) * nk + c1];
@@ -407,8 +429,10 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
         e1 = v1 ? expf(s1 - m_new) : 0.0f;
         l[r] = l[r] * alpha + warp_sum(e0 + e1);
         m[r] = m_new;
-        o_w[r * kLdS + lane] *= alpha;
-        o_w[r * kLdS + lane + 32] *= alpha;
+#pragma unroll
+        for (int i = 0; i < kColsF<D>; ++i) {
+          if (own_col<D>(lane, i)) o_w[r * ldS + lane + 32 * i] *= alpha;
+        }
       }
       if constexpr (kDrop) {  // after the row sum
         e0 *= philox::keep_scale(philox::attention_bits(pkey, bh, row, c0), a.threshold,
@@ -416,11 +440,11 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
         e1 *= philox::keep_scale(philox::attention_bits(pkey, bh, row, c1), a.threshold,
                                  a.inv_keep);
       }
-      p_w[r * kLdS + lane] = e0;
-      p_w[r * kLdS + lane + 32] = e1;
+      p_w[r * ldS + lane] = e0;
+      p_w[r * ldS + lane + 32] = e1;
     }
     __syncwarp();
-    warp_ab_f32(o_w, p_w, vs);
+    warp_ab_f32<D>(o_w, p_w, vs);
     __syncwarp();
   }
 
@@ -432,8 +456,10 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
     if (row < nq) {
       const float inv = 1.0f / l[r];
       float* dst = out_img + size_t(row) * a.ldo;
-      dst[lane] = o_w[r * kLdS + lane] * inv;
-      dst[lane + 32] = o_w[r * kLdS + lane + 32] * inv;
+#pragma unroll
+      for (int i = 0; i < kColsF<D>; ++i) {
+        if (own_col<D>(lane, i)) dst[lane + 32 * i] = o_w[r * ldS + lane + 32 * i] * inv;
+      }
       if (a.lse != nullptr && lane == 0) {
         a.lse[(size_t(b) * a.num_heads + h) * nq + row] = (a.bounded ? 0.0f : m[r]) - logf(inv);
       }
@@ -441,42 +467,57 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   }
 }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 cudaError_t launch_bf16(const FwdArgs& a, int batch, cudaStream_t stream) {
-  const int c = a.num_heads * kD;
+  const int c = a.num_heads * D;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!token_map(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
-      !token_map(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
-      !token_map(&tm_v, a.v, c, a.ldkv, a.nk, batch)) {
+  if (!head_map<D>(&tm_q, a.q, c, a.ldq, a.nq, batch) ||
+      !head_map<D>(&tm_k, a.k, c, a.ldkv, a.nk, batch) ||
+      !head_map<D>(&tm_v, a.v, c, a.ldkv, a.nk, batch)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = stream_fwd_bf16<kDrop>;
+  auto kernel = stream_fwd_bf16<D, kDrop>;
+  constexpr size_t smem = FwdSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBf16));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid = block_grid(batch, (a.nq + 63) / 64, a.num_heads);
-  kernel<<<grid, kThreadsBf16, kSmemBf16, stream>>>(
+  kernel<<<grid, kThreadsBf16, smem, stream>>>(
       tm_q, tm_k, tm_v, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.nq, a.nk,
       a.num_heads, a.scale, a.bounded, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
-template <bool kDrop>
+template <int D, bool kDrop>
 cudaError_t launch_f32(const FwdArgs& a, int batch, cudaStream_t stream) {
-  auto kernel = stream_fwd_f32<kDrop>;
+  auto kernel = stream_fwd_f32<D, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemF32));
+                                         static_cast<int>(kSmemF32<D>));
   if (err != cudaSuccess) return err;
-  kernel<<<block_grid(batch, (a.nq + kTileQF - 1) / kTileQF, a.num_heads), kThreadsF, kSmemF32,
-           stream>>>(a);
+  kernel<<<block_grid(batch, (a.nq + kTileQF - 1) / kTileQF, a.num_heads), kThreadsF,
+           kSmemF32<D>, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The instantiation of head width D, dtype (0 bf16, 1 f32) and dropout.
+template <int D>
+cudaError_t launch(const FwdArgs& a, int batch, int dtype, cudaStream_t stream) {
+  const bool drop = a.seed != nullptr;
+  if (dtype == 0) {
+    return drop ? launch_bf16<D, true>(a, batch, stream) : launch_bf16<D, false>(a, batch, stream);
+  }
+  if (dtype == 1) {
+    return drop ? launch_f32<D, true>(a, batch, stream) : launch_f32<D, false>(a, batch, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. q, k, v point at column 0 of head 0 in row 0 of
+// dtype: 0 = bf16, 1 = f32; head_dim 64 or 80 (C = num_heads * head_dim).
+// q, k, v point at column 0 of head 0 in row 0 of
 // image 0; rows lie ldq (q) and ldkv (k, v) elements apart, and an image is nq
 // consecutive rows of q and nk of k and v; out likewise with ldo and nq. For
 // packed qkv [B, N, 3C]: q = qkv, k = qkv + C, v = qkv + 2C, ldq = ldkv = 3C,
@@ -489,8 +530,8 @@ int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* qv_bias, void* out, void* lse,
                                     const void* seed, long long ldq, long long ldkv,
                                     long long ldo, int batch, int nq, int nk, int num_heads,
-                                    int dtype, float scale, int bounded, unsigned int threshold,
-                                    float inv_keep, void* stream) {
+                                    int head_dim, int dtype, float scale, int bounded,
+                                    unsigned int threshold, float inv_keep, void* stream) {
   if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || (nq + 63) / 64 > 65535 || num_heads < 1 ||
       num_heads > 65535 || ldq > 0x7fffffffLL || ldkv > 0x7fffffffLL || ldo > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -505,9 +546,8 @@ int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
   a.nq = nq, a.nk = nk, a.num_heads = num_heads, a.bounded = bounded;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool drop = a.seed != nullptr;
-  if (dtype == 0) return drop ? launch_bf16<true>(a, batch, st) : launch_bf16<false>(a, batch, st);
-  if (dtype == 1) return drop ? launch_f32<true>(a, batch, st) : launch_f32<false>(a, batch, st);
+  if (head_dim == 64) return launch<64>(a, batch, dtype, st);
+  if (head_dim == 80) return launch<80>(a, batch, dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,20 +1,32 @@
 // Hopper (sm_90a) building blocks of the streaming attention kernels: TMA
 // tensor maps and loads, mbarriers, named barriers and the async-proxy
-// fence, the q/v bias added to a swizzled tile, and warpgroup matrix
-// products (wgmma) on shared-memory tiles in the 128-byte swizzle.
-// Everything here is inlined into its caller; nothing is launched from this
-// file.
+// fence, the q/v bias added to a swizzled tile, warpgroup matrix products
+// (wgmma) on shared-memory tiles, and HeadTile<D>, the layout of one head's
+// 64-row tile at each head width. Everything here is inlined into its
+// caller; nothing is launched from this file.
 //
-// A tile is 64 rows of one head's 64 bf16 (128 bytes a row), written by TMA
-// with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lands at chunk c
-// ^ (r % 8), rows 128 bytes apart, so 8 rows make one 1024-byte swizzle
-// atom. wgmma reads such a tile through a descriptor of the same swizzle
-// whose stride between 8-row groups (SBO) is 1024 bytes:
+// D = 64: a tile is 64 rows of one head's 64 bf16 (128 bytes a row), one TMA
+// box written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
+// lands at chunk c ^ (r % 8), rows 128 bytes apart, so 8 rows make one
+// 1024-byte swizzle atom. wgmma reads such a tile through a descriptor of
+// the same swizzle whose stride between 8-row groups (SBO) is 1024 bytes:
 //   - K-major (the 64 contiguous elements are the product's depth: q or k
 //     in s = q k^T): step kk of 16 deep starts 32 * kk bytes in;
 //   - MN-major (the 64 contiguous elements are the output's columns: v in
 //     o += p v): step kk starts 16 rows, 2048 * kk bytes, in.
-// The accumulator of wgmma m64n64 gives warp w of the warpgroup rows 16w + g
+// D = 80: a row of one head is 160 bytes, more than a 128-byte swizzle takes
+// in a box's inner dimension. The tile is five boxes of 64 rows x 16 columns
+// (32 bytes a row, 2 KiB a box) side by side, written with
+// CU_TENSOR_MAP_SWIZZLE_32B: chunk c (0 or 1) of row r lands at c ^ ((r / 4)
+// % 2), and 8 rows make one 256-byte atom. One descriptor of that swizzle
+// (SBO 256 bytes between 8-row groups, LBO 2048 bytes between the boxes)
+// reads it both ways:
+//   - K-major: step kk of 16 deep is box kk, 2048 * kk bytes in (a box is
+//     exactly one step deep; LBO is not used);
+//   - MN-major: step kk starts 16 rows, 512 * kk bytes, into every box, and
+//     one wgmma m64n80 takes the 80 columns of all five boxes, box j at
+//     LBO * j.
+// The accumulator of wgmma m64nN gives warp w of the warpgroup rows 16w + g
 // and 16w + g + 8 (lane = 4g + t), columns 8n + 2t and 8n + 2t + 1 in
 // d[4n .. 4n + 3], as an mma.sync m16n8 tile does; two neighbouring
 // 8-column blocks, packed to bf16, are the register A operand of the next
@@ -60,22 +72,23 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The tensor map of one section of a token tensor: `base` at column 0 of
-// head 0 in row 0 of image 0, `width` bf16 columns of it (C = H * 64), rows
+// head 0 in row 0 of image 0, `width` bf16 columns of it (C = H * D), rows
 // `ld` elements apart, `n` rows an image, `batch` images; a box of 64 rows
-// by one head's 64 columns. Rows past n of an image lie outside the map's
-// second dimension and arrive as zeros: a tile never reads the next image.
+// by `box_cols` columns in `swizzle` (HeadTile<D>). Rows past n of an image
+// lie outside the map's second dimension and arrive as zeros: a tile never
+// reads the next image.
 inline bool token_map(CUtensorMap* map, const void* base, int width, long long ld, int n,
-                      int batch) {
+                      int batch, int box_cols, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0 || (ld * 2) % 16 != 0) {
     return false;
   }
   const cuuint64_t dims[3] = {cuuint64_t(width), cuuint64_t(n), cuuint64_t(batch)};
   const cuuint64_t strides[2] = {cuuint64_t(ld) * 2, cuuint64_t(ld) * 2 * cuuint64_t(n)};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -126,8 +139,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// The 64 x 64 box at (column c0, row r0, image img) of `map` into `dst`
-// (1024-byte aligned), completing `bytes` on `bar`.
+// The box at (column c0, row r0, image img) of `map` into `dst` (aligned to
+// its swizzle's atom), completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
                                               int c0, int r0, int img) {
   asm volatile(
@@ -157,52 +170,53 @@ __device__ __forceinline__ void fence_proxy_async() {
 struct QvBiasChunk {
   uint32_t bf2[4];
 };
-__device__ __forceinline__ QvBiasChunk qv_bias_chunk(const float* bias_row, int tid) {
-  const float* b = bias_row + ((tid & 7) ^ ((tid >> 3) & 7)) * 8;
+__device__ __forceinline__ QvBiasChunk qv_bias_pack(const float* b) {
   QvBiasChunk c;
 #pragma unroll
   for (int j = 0; j < 4; ++j) c.bf2[j] = pack_bf16(b[2 * j], b[2 * j + 1]);
   return c;
 }
+__device__ __forceinline__ QvBiasChunk qv_bias_chunk(const float* bias_row, int tid) {
+  return qv_bias_pack(bias_row + ((tid & 7) ^ ((tid >> 3) & 7)) * 8);
+}
+
+// Adds 8 packed bias columns to one 16-byte chunk of bf16 in shared memory,
+// in place: each sum in f32, rounded once to bf16 (`add_qv_bias`).
+__device__ __forceinline__ void add_qv_bias_to_chunk(unsigned char* p, const QvBiasChunk& c) {
+  uint4* chunk = reinterpret_cast<uint4*>(p);
+  uint4 u = *chunk;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t hi_mask = 0xFFFF0000u;
+    w[j] = pack_bf16(__uint_as_float(w[j] << 16) + __uint_as_float(c.bf2[j] << 16),
+                     __uint_as_float(w[j] & hi_mask) + __uint_as_float(c.bf2[j] & hi_mask));
+  }
+  *chunk = u;
+}
 
 // Adds a thread's QvBiasChunk to its four 16-byte chunks (tid, tid + 128,
-// ...) of a 64 x 64 bf16 tile in the 128-byte swizzle, in place: each sum
-// in f32, rounded once to bf16 (`add_qv_bias`). The caller then calls
-// fence_proxy_async and meets every thread that reads the tile at a barrier
-// before a wgmma reads it.
+// ...) of a 64 x 64 bf16 tile in the 128-byte swizzle, in place. The caller
+// then calls fence_proxy_async and meets every thread that reads the tile
+// at a barrier before a wgmma reads it.
 __device__ __forceinline__ void add_qv_bias_sw128(unsigned char* tile, const QvBiasChunk& c,
                                                   int tid) {
 #pragma unroll
-  for (int i = tid; i < 64 * 8; i += 128) {
-    uint4* chunk = reinterpret_cast<uint4*>(tile + 16 * i);
-    uint4 u = *chunk;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t hi_mask = 0xFFFF0000u;
-      w[j] = pack_bf16(__uint_as_float(w[j] << 16) + __uint_as_float(c.bf2[j] << 16),
-                       __uint_as_float(w[j] & hi_mask) + __uint_as_float(c.bf2[j] & hi_mask));
-    }
-    *chunk = u;
-  }
+  for (int i = tid; i < 64 * 8; i += 128) add_qv_bias_to_chunk(tile + 16 * i, c);
 }
 
-// A producer warpgroup's hand-over of a streamed tile that takes the q/v
-// bias, right after it issued the tile's loads: waits until TMA has landed
-// the tile (on `landed`, in the phase of `parity`), adds the bias row in
-// place with all 128 producer threads (`ptid`), orders the writes before
-// the consumers' wgmma, meets the other producer threads at named barrier
-// 1 (the producer's; consumer warpgroup w meets its own at 2 + w) and makes
-// the stage's one arrival on `full` that is not a cp.async one. The
-// consumers only wait on `full`.
-__device__ __forceinline__ void hand_over_biased(unsigned char* tile, uint64_t* landed,
-                                                 uint32_t parity, uint64_t* full,
-                                                 const float* bias_row, int ptid) {
-  mbar_wait(landed, parity);
-  add_qv_bias_sw128(tile, qv_bias_chunk(bias_row, ptid), ptid);
-  fence_proxy_async();
-  named_barrier(1, 128);
-  if (ptid == 0) mbar_arrive(full);
+// The same for the five 64 x 16 boxes of a D = 80 tile in the 32-byte
+// swizzle: thread `tid` of 128 adds to chunk tid of each box, which lies in
+// row tid / 2 at logical chunk (tid % 2) ^ ((row / 4) % 2), columns 16 * box
+// + 8 * that chunk of the head's bias row.
+__device__ __forceinline__ void add_qv_bias_sw32(unsigned char* tile, const float* bias_row,
+                                                 int tid) {
+  const int chunk = (tid & 1) ^ ((tid >> 3) & 1);
+#pragma unroll
+  for (int box = 0; box < 5; ++box) {
+    add_qv_bias_to_chunk(tile + 2048 * box + 16 * tid,
+                         qv_bias_pack(bias_row + 16 * box + 8 * chunk));
+  }
 }
 
 // 2^x by the special function unit alone (one instruction; subnormal
@@ -223,6 +237,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
+// The descriptor of a D = 80 tile at `p` in the 32-byte swizzle (256-byte
+// aligned; SBO 256 bytes between 8-row groups, LBO 2048 bytes between the
+// 16-column boxes, which only MN-major reads use).
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFFull) >> 4) | (uint64_t(2048 >> 4) << 16) | (uint64_t(256 >> 4) << 32) |
+         (3ull << 62);
+}
 // The same descriptor `bytes` further on (a multiple of 16).
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
@@ -239,9 +261,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 }
 // Pins the accumulator's registers at this point of the program, so that
 // no read or write of them moves across the wgmma issue or wait around it.
-__device__ __forceinline__ void wgmma_hold(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 // The same for register A operands, which wgmma reads after its issue: they
 // stay live, in place, until the wait.
@@ -312,6 +335,103 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// d (64 x 80, f32) += A B as wgmma_rs, with B 16 deep by 80 columns (the
+// m64n80 product of a D = 80 head's output columns).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// HeadTile<D>: one head's 64-row tile at head width D (see the top of this
+// file): its TMA boxes, its bytes, its wgmma descriptors and its q/v bias add
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct HeadTile;
+
+template <>
+struct HeadTile<64> {
+  static constexpr int kBoxCols = 64, kBoxes = 1;
+  static constexpr uint32_t kBoxBytes = 64 * 64 * sizeof(bf16), kBytes = kBoxBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  __device__ static uint64_t desc(const void* tile) { return desc_sw128(tile); }
+  __device__ static uint64_t k_step(uint64_t desc, int kk) { return desc_add(desc, 32 * kk); }
+  __device__ static uint64_t mn_step(uint64_t desc, int kk) { return desc_add(desc, 2048 * kk); }
+  __device__ static void add_qv_bias(unsigned char* tile, const float* bias_row, int tid) {
+    add_qv_bias_sw128(tile, qv_bias_chunk(bias_row, tid), tid);
+  }
+};
+
+template <>
+struct HeadTile<80> {
+  static constexpr int kBoxCols = 16, kBoxes = 5;
+  static constexpr uint32_t kBoxBytes = 64 * 16 * sizeof(bf16), kBytes = kBoxes * kBoxBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_32B;
+  __device__ static uint64_t desc(const void* tile) { return desc_sw32(tile); }
+  __device__ static uint64_t k_step(uint64_t desc, int kk) { return desc_add(desc, 2048 * kk); }
+  __device__ static uint64_t mn_step(uint64_t desc, int kk) { return desc_add(desc, 512 * kk); }
+  __device__ static void add_qv_bias(unsigned char* tile, const float* bias_row, int tid) {
+    add_qv_bias_sw32(tile, bias_row, tid);
+  }
+};
+
+// The tensor map of one section of a token tensor in HeadTile<D>'s boxes.
+template <int D>
+inline bool head_map(CUtensorMap* map, const void* base, int width, long long ld, int n,
+                     int batch) {
+  return token_map(map, base, width, ld, n, batch, HeadTile<D>::kBoxCols, HeadTile<D>::kSwizzle);
+}
+
+// One head's tile (columns c0 .. c0 + D, rows r0 .. r0 + 64 of image img)
+// into `dst` (1024-byte aligned), box by box, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void tma_load_head(unsigned char* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int c0, int r0, int img) {
+#pragma unroll
+  for (int box = 0; box < HeadTile<D>::kBoxes; ++box) {
+    tma_load_tile(dst + box * HeadTile<D>::kBoxBytes, map, bar, c0 + box * HeadTile<D>::kBoxCols,
+                  r0, img);
+  }
+}
+
+// A producer warpgroup's hand-over of a streamed tile that takes the q/v
+// bias, right after it issued the tile's loads: waits until TMA has landed
+// the tile (on `landed`, in the phase of `parity`), adds the bias row in
+// place with all 128 producer threads (`ptid`), orders the writes before
+// the consumers' wgmma, meets the other producer threads at named barrier
+// 1 (the producer's; consumer warpgroup w meets its own at 2 + w) and makes
+// the stage's one arrival on `full` that is not a cp.async one. The
+// consumers only wait on `full`.
+template <int D>
+__device__ __forceinline__ void hand_over_biased(unsigned char* tile, uint64_t* landed,
+                                                 uint32_t parity, uint64_t* full,
+                                                 const float* bias_row, int ptid) {
+  mbar_wait(landed, parity);
+  HeadTile<D>::add_qv_bias(tile, bias_row, ptid);
+  fence_proxy_async();
+  named_barrier(1, 128);
+  if (ptid == 0) mbar_arrive(full);
 }
 
 }  // namespace

@@ -60,7 +60,7 @@ from uncertainty_vit_tpu_torch.ops import quant as quant_ops
 from uncertainty_vit_tpu_torch.ops.attention import VARIANTS, gumbel_softmax_probs, naive_attention
 from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
 from uncertainty_vit_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIM, fused_qkv_attention, in_plain_only, seq_sharded_qkv_attention,
+    KERNEL_HEAD_DIMS, fused_qkv_attention, in_plain_only, seq_sharded_qkv_attention,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
 from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
@@ -465,7 +465,8 @@ class Attention(nn.Module):
     ``F.linear``, or in the int8 kernel's f32 epilogue with ``quant="int8"``.
     ``use_kernel``, decided at each call as the reference decides it
     (:332-338): ``use_flash=True``, the softmax variant, a head width the
-    attention kernels take (``KERNEL_HEAD_DIM``) and no
+    attention kernels take (``KERNEL_HEAD_DIMS``: 64 and 80, every preset's
+    width, where the reference's ``kernel_supported`` holds too) and no
     ``flash_attention.plain_only()`` context route through
     ``fused_qkv_attention`` (the kernel on a CUDA tensor, its plain version
     on CPU), attention dropout included, from a seed drawn from the
@@ -531,7 +532,7 @@ class Attention(nn.Module):
     def use_kernel(self) -> bool:
         """Whether this call takes the attention kernels (read per call)."""
         return (self.use_flash and self.variant == "softmax"
-                and self.head_dim == KERNEL_HEAD_DIM and not in_plain_only())
+                and self.head_dim in KERNEL_HEAD_DIMS and not in_plain_only())
 
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 out_scale: Optional[torch.Tensor] = None,

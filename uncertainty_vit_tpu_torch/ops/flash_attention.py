@@ -104,8 +104,8 @@ def _refuse_in_plain_only(what: str) -> None:
 # it on for training and evaluation (cli/common.py:34-44 of the reference
 # package). Read at call time when ``bounded_scores`` is not given.
 BOUNDED_SCORES = False
-# The kernel's only head width (ViT-B and ViT-L).
-KERNEL_HEAD_DIM = 64
+# The head widths the kernels are built for: ViT-B and ViT-L (64), ViT-H (80).
+KERNEL_HEAD_DIMS = (64, 80)
 # The fused route (K1, K2: the TPU's whole-row kernels) takes N up to this
 # (ViT 224 and below), the streaming route (K3, K4) above it (N=577/1025),
 # forward and backward alike. On the card both routes run the streaming
@@ -436,11 +436,12 @@ _P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ui
 # threshold and 1/(1 − rate), then the stream
 _ARGTYPES = {
     # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, nq, nk, num_heads,
-    # dtype; scale, bounded, threshold, inv_keep; stream
-    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 5 + [_F, _I, _U, _F, _P],
+    # head_dim, dtype; scale, bounded, threshold, inv_keep; stream
+    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 6 + [_F, _I, _U, _F, _P],
     # q, k, v, g, out, bias, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg, ldo,
-    # lddq, lddkv; batch, nq, nk, ldb, num_heads, dtype; scale, threshold, inv_keep; stream
-    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 6 + [_I] * 6 + [_F, _U, _F, _P],
+    # lddq, lddkv; batch, nq, nk, ldb, num_heads, head_dim, dtype; scale, threshold, inv_keep;
+    # stream
+    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 6 + [_I] * 7 + [_F, _U, _F, _P],
 }
 _ptr = _native.ptr
 
@@ -487,8 +488,9 @@ def _check_tokens(name: str, x: torch.Tensor, sections: int, num_heads: int
     b, n, cs = x.shape
     c = cs // sections
     head_dim = c // num_heads
-    if head_dim != KERNEL_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {head_dim}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head_dim {KERNEL_HEAD_DIMS[0]} or "
+                         f"{KERNEL_HEAD_DIMS[1]}, got {head_dim}")
     if not x.is_contiguous() or x.data_ptr() % 16 != 0:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     return b, n, c
@@ -533,8 +535,8 @@ def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_he
     with torch.cuda.device(x.device):
         err = lib.uvit_flash_attention_stream_fwd(
             *qkv_ptrs, _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse), seed_ptr, *pitches,
-            c, b, nq, nk, num_heads, _DTYPES[x.dtype], float(scale), int(bounded), threshold,
-            inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
+            c, b, nq, nk, num_heads, c // num_heads, _DTYPES[x.dtype], float(scale), int(bounded),
+            threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, what)
     return out, lse
@@ -605,13 +607,13 @@ def _bias_buffers(bias, num_heads, nq, nk, want_dbias, device):
     return ldb, dbias
 
 
-def _stream_bwd(x, ptrs, pitches, b, nq, nk, bias, qv_bias, lse, scale, num_heads, want_dbias,
-                dropout, what):
+def _stream_bwd(x, ptrs, pitches, b, nq, nk, c, bias, qv_bias, lse, scale, num_heads,
+                want_dbias, dropout, what):
     """The streaming backward's two kernels on q, k, v, g, the forward's
     output o and dq, dk, dv given as base pointers ``ptrs`` with row pitches
     ``pitches`` = (ldq, ldkv, ldg, ldo, lddq, lddkv), Nq query rows against
-    Nk keys, for the tensor x they lie in. Returns dbias [H, Nq, Nk] or
-    None."""
+    Nk keys of C = H·D columns, for the tensor x they lie in. Returns dbias
+    [H, Nq, Nk] or None."""
     ldb, dbias = _bias_buffers(bias, num_heads, nq, nk, want_dbias, x.device)
     # the row sums of the softmax vjp, written by kernel 1 and read by kernel 2
     rowsum = torch.empty((b, num_heads, nq), dtype=torch.float32, device=x.device)
@@ -621,8 +623,9 @@ def _stream_bwd(x, ptrs, pitches, b, nq, nk, bias, qv_bias, lse, scale, num_head
     with torch.cuda.device(x.device):
         err = lib.uvit_flash_attention_stream_bwd(
             q, k, v, g, o, _ptr(bias), _ptr(qv_bias), lse.data_ptr(), rowsum.data_ptr(), dq, dk,
-            dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb, num_heads, _DTYPES[x.dtype],
-            float(scale), threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
+            dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb, num_heads, c // num_heads,
+            _DTYPES[x.dtype], float(scale), threshold, inv_keep,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, what)
     # the sums without their padding column: a view, not a copy
@@ -641,7 +644,7 @@ def _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, s
     q, dq = qkv.data_ptr(), dqkv.data_ptr()
     dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), out.data_ptr(), dq,
                               dq + slab, dq + 2 * slab), (3 * c, 3 * c, c, c, 3 * c, 3 * c), b, n,
-                        n, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout, what)
+                        n, c, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout, what)
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
     return dqkv, dbias, dqvb
 
@@ -660,7 +663,7 @@ def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_
     k, dk = kv.data_ptr(), dkv.data_ptr()
     dbias = _stream_bwd(q, (q.data_ptr(), k, k + slab, g.data_ptr(), out.data_ptr(),
                             dq.data_ptr(), dk, dk + slab), (c, 2 * c, c, c, c, 2 * c), b, nq, nk,
-                        bias, qv_bias, lse, scale, num_heads, want_dbias, (None, 0, 1.0),
+                        c, bias, qv_bias, lse, scale, num_heads, want_dbias, (None, 0, 1.0),
                         "cross attention backward")
     cross_qkv_attention_bwd.launches += 1
     dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
