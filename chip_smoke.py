@@ -64,8 +64,15 @@ kernels from the sources in this checkout, then:
   phase 5  holds the fused dropout kernel (K8) against its plain PyTorch
            version to the bit, in bf16 and f32, at rates 0.1 and 0.5, on
            [8*197, 768], [3, 50, 64], a ragged [1001] and a misaligned view;
-           then times it at the MC-dropout shape [1024*197, 768] bf16 beside
-           the plain version and F.dropout.
+           then its row window (sequence parallelism: each rank's rows of a
+           K*B fold draw the unsharded mask's rows) over WINDOW_CASES (577
+           tokens split 289 / 288, at G = 64 phase 25's shape, 5 split 3 / 2
+           at C = 768 and at C = 5, the element path; 13 over 4 ranks; one
+           slab of 7 tokens at C = 6), against its plain version
+           and the unwindowed call's rows, to the bit; then times it at the
+           MC-dropout shape [1024*197, 768] bf16 beside the plain version,
+           F.dropout and the same bytes as a window ([1024, 197 of 394,
+           768]).
   phase 6  runs evaluate_mc_dropout() of the full-width ViT-B/16 224 with
            drop_rate 0.1 over 2 batches of 128 synthetic images, K=8 samples:
            (a) folded into one batch of 1024 at full depth and (b) with the
@@ -407,6 +414,29 @@ kernels from the sources in this checkout, then:
            prints the seconds of each engine's first step and of a second
            one over gloo: ranks that share one card through host memory,
            not a multi-card throughput.
+  phase 25 slice 15: cli.finetune --seq_parallel 2 at ViT-B/16 384
+           (beit_base_patch16_384, N = 577, from a ViT-B/16 224 .pth with a
+           100-class head; PHASE25_SIZES seeded 32x32 CIFAR-100 images) on
+           two gloo ranks sharing the card (chip_smoke.seq_eval_rank calls
+           cli.finetune.run_rank in each): an --sngp --gp_layer and a
+           --het_layer epoch of 2 steps (each writes checkpoint-0.pth), then
+           MC-dropout K=8 folded and split at 9, --sngp --gp_layer and
+           --het_layer --eval from those checkpoints, --temp_scaling,
+           --laplace, -C --mc_dropout, -P (at ViT-B/16 224: CIFAR-P frames
+           are resized to 256 before the crop, so both packages refuse -P
+           above 256) and --visualize_embedding; then each in one process
+           (and -C --mc_dropout from --seed 1). Holds the launches of every
+           run on each rank (K5 12 a forward, K5's backward 12 a step, K8 24
+           a folded forward and 6 a split one, no other kernel) and in one
+           process (K3 / K4 in K5's place, K1 for -P); every array rank 0
+           read back (logits, features, labels) against the one process's
+           (LOGIT_REL_BOUND of max|value|, PHASE25_MC_REL_BOUND where the
+           dispatch draws masks; labels equal); that the --seed 1 masks move
+           the -C logits by more than PHASE25_MC_REL_BOUND; T*
+           (PHASE25_T_LOG_BOUND) and the Laplace prior (a grid point apart);
+           each epoch's loss (LOSS_REL_BOUND); rank 0's dump. Prints the
+           seconds of each run, the MC-dropout rate on the ranks and in one
+           process, and rank 0's seconds in the k/v gathers of each run.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -1191,6 +1221,13 @@ def phase4(torch, FA, dev):
     return launches, drop_launches, rates
 
 
+# K8's row windows in phase 5: (n tokens, ranks, C, G = K·B folds); C = 5
+# takes the element path; (577, 2, 768, 64) is phase 25's fold (K·B = 8·8 at
+# ViT-B/16 384); (7, 2, 6, 1) one slab whose rows end inside a 16-byte chunk
+WINDOW_CASES = ((577, 2, 768, 16), (577, 2, 768, 64), (5, 2, 768, 6), (5, 2, 5, 6),
+                (13, 4, 768, 3), (7, 2, 6, 1))
+
+
 def phase5(torch, dev):
     from uncertainty_vit_tpu_torch.ops import dropout as DO
 
@@ -1228,21 +1265,51 @@ def phase5(torch, dev):
         except ValueError:
             pass
 
+    # the row window of sequence parallelism: each rank's rows of a K·B fold
+    # draw the unsharded mask's rows; ragged splits of 577 and 5 tokens at C =
+    # 768 (the vector path) and C = 5 (element by element)
+    for (n, s, c, g), dtype, rate in itertools.product(
+            WINDOW_CASES, (torch.bfloat16, torch.float32), (0.1, 0.5)):
+        x = torch.randn(g, n, c, generator=gen, device=dev).to(dtype)
+        whole = DO.fused_dropout(x, rate, seed)
+        for r in range(s):
+            start, stop = -(-n // s) * r, min(-(-n // s) * (r + 1), n)
+            part = x[:, start:stop].contiguous()
+            got = DO.fused_dropout(part, rate, seed, (start, n))
+            ref = DO.fused_dropout_plain(part, rate, seed, (start, n))
+            torch.cuda.synchronize()
+            worst = max(worst, (got.float() - ref.float()).abs().max().item())
+            check(torch.equal(got, ref) and torch.equal(got, whole[:, start:stop]),
+                  f"K8's window [{start}, {stop}) of {n}, C = {c}, G = {g}, {dtype}, rate {rate}: "
+                  "not its plain version's or the unsharded mask's rows")
+        print(f"  K8 window {str(dtype)[6:]} rate {rate} [{g}, {n}, {c}] over {s} ranks: equal "
+              "to the bit to its plain version and to the unsharded call's rows", flush=True)
+
     # the MC-dropout shape: K=8 samples of batch 128 folded, N=197, C=768
     x = torch.randn(1024 * 197, 768, generator=gen, device=dev).to(torch.bfloat16)
     kern = lambda: DO.fused_dropout(x, 0.1, seed)
     plain = lambda: DO.fused_dropout_plain(x, 0.1, seed)
     lib = lambda: torch.nn.functional.dropout(x, 0.1, training=True)
+    # the same bytes as rows [197, 394) of a 394-token sequence: the window's
+    # index map beside the flat index
+    xw = x.view(1024, 197, 768)
+    window = lambda: DO.fused_dropout(xw, 0.1, seed, (197, 394))
     got, ref = kern(), plain()
     worst = max(worst, (got.float() - ref.float()).abs().max().item())
     check(torch.equal(got, ref), "K8 differs from its plain version at the MC-dropout shape")
+    # the window's mask of fold g is a function of g alone: its first 64 folds
+    # against the plain version of those folds
+    got = window()
+    check(torch.equal(got[:64], DO.fused_dropout_plain(xw[:64], 0.1, seed, (197, 394))),
+          "K8's window differs from its plain version at [1024, 197 of 394, 768]")
     del got, ref
-    best, runs = in_turns({"plain": plain, "kernel": kern, "library": lib}, 10)
+    best, runs = in_turns({"plain": plain, "kernel": kern, "window": window, "library": lib}, 10)
     bound_ms, bound_by = bound(2 * nbytes(x), float(x.numel()), "float32")
     print(f"  K8 at [1024*197, 768] bf16 rate 0.1, ms per call: {runs}; bound {bound_ms:.4f} ms",
           flush=True)
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
-            "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "window_ms": best["window"]}
 
 
 def phase6(torch, FA, dev, det_ms_per_128):
@@ -4725,7 +4792,7 @@ def phase19(torch, FA, dev):
             logits, lab = collect_logits(make_eval_forward(model), FT._eval_batches(loader, pargs,
                                                                                     dev))
             fit_logits, fit_lab = collect_logits(make_eval_forward(model), FT._eval_batches(
-                FT._fit_loader(pargs), pargs, dev))
+                FT._fit_loader(pargs, model), pargs, dev))
 
             # --temp_scaling on each split
             for split, extra, n_fwd in (("eval", [], nb), ("train", [], nb + nfit),
@@ -4753,7 +4820,7 @@ def phase19(torch, FA, dev):
 
             # --laplace, probit and mc, fitted on the 1024 train images
             ffwd = LA.make_feature_forward(model)
-            fit_batches = list(FT._eval_batches(FT._fit_loader(pargs), pargs, dev))
+            fit_batches = list(FT._eval_batches(FT._fit_loader(pargs, model), pargs, dev))
             torch.cuda.synchronize()
             t = time.perf_counter()
             fit_out = [ffwd(x) for x, _ in fit_batches]
@@ -7218,6 +7285,354 @@ def phase24_report(report, tag, want) -> None:
           f"{tag}: the SNGP precision matrix did not move")
 
 
+# Phase 25: cli.finetune's evaluations under --seq_parallel 2 at ViT-B/16
+# 384. Sizes: (train images, test images, batch); the train split feeds the
+# two epochs (2 steps) and the post-hoc fits, the test split every dispatch
+PHASE25_SIZES = (16, 16, 8)
+# T* of the ranks against one process's: the fit set's logits differ within
+# LOGIT_REL_BOUND, and its NLL is flat near the minimum
+PHASE25_T_LOG_BOUND = 5e-2
+# the Laplace prior: the same or the neighbouring point of its 49-point grid
+# on [1e-4, 1e4] (an eighth of a decade and a third apart)
+PHASE25_PRIOR_LOG10_BOUND = 8.0 / 48 + 1e-9
+# the dispatches that draw masks (MC-dropout folded and split, -C with it):
+# rank 0's arrays against one process's, relative to their largest value. A
+# query row's attention is the same arithmetic in K5 as in K3 and the window
+# draws the same bits, so the H100 runs read 0; with rank 1 drawing rank 0's
+# rows (window start 0) the folded MC logits read 2.2e-3, and masks from
+# another --seed move the -C logits by 3.0e-2 (the check below requires
+# more than this bound there, so that other masks show)
+PHASE25_MC_REL_BOUND = 1e-4
+PHASE25_DRAWS = ("mc_folded", "mc_split", "corrupted_mc")
+
+
+def seq_eval_rank(group, device, cases, perturbations):
+    """One rank of phase 25: each case's driver body (``cli.finetune.run_rank``)
+    in turn with this rank's half of the tokens on the one card. Returns
+    {case: {"launches" (the counts set to 0 before the run and read after),
+    "reads" (the host arrays the evaluation read back through
+    ``evals.collect._finish``, in order: logits, features and labels), "s"
+    (host clock around the run), "mc_s" (around evaluate_mc_dropout, where
+    run), "gathers" and "gather_s" (the k/v gathers' count and host clock,
+    the card synchronized before each), "result" (rank 0's; None for a
+    training run)}}."""
+    import numpy as np
+    import torch
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.evals import collect
+    from uncertainty_vit_tpu_torch.evals import robustness as R
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    R.PERTURBATIONS = perturbations
+    gather, gathers = seq.gather_tokens, {"n": 0, "s": 0.0}
+
+    def timed_gather(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = gather(*a, **k)
+        torch.cuda.synchronize()
+        gathers["n"], gathers["s"] = gathers["n"] + 1, gathers["s"] + time.perf_counter() - t
+        return y
+
+    seq.gather_tokens = timed_gather
+    try:
+        with recorded_driver(torch, np, FT, collect) as rec:
+            out = {}
+            for name, argv, trains in cases:
+                rec["reads"], rec["mc_s"] = [], None
+                gathers["n"], gathers["s"] = 0, 0.0
+                torch.cuda.synchronize()
+                reset_kernel_counts(FA, TQ, DO)
+                t = time.perf_counter()
+                res = FT.run_rank(group, FT.get_args_parser().parse_args(argv), device)
+                torch.cuda.synchronize()
+                out[name] = {"launches": kernel_counts(FA, TQ, DO),
+                             "s": time.perf_counter() - t, "reads": rec["reads"],
+                             "mc_s": rec["mc_s"], "gathers": gathers["n"],
+                             "gather_s": gathers["s"], "result": None if trains else res}
+                del res
+                gc.collect()
+    finally:
+        seq.gather_tokens = gather
+    return out
+
+
+@contextlib.contextmanager
+def recorded_driver(torch, np, FT, collect):
+    """Inside, every host array the evaluations read back
+    (``collect._finish``) is kept in rec["reads"], and rec["mc_s"] is the host
+    clock around ``evaluate_mc_dropout``."""
+    rec = {"reads": [], "mc_s": None}
+    finish, mc_eval = collect._finish, FT.E.evaluate_mc_dropout
+
+    def recorded(pending):
+        value = finish(pending)
+        rec["reads"].append(np.array(value))
+        return value
+
+    def timed_mc(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mc_eval(*a, **k)
+        torch.cuda.synchronize()
+        rec["mc_s"] = time.perf_counter() - t
+        return out
+
+    collect._finish, FT.E.evaluate_mc_dropout = recorded, timed_mc
+    try:
+        yield rec
+    finally:
+        collect._finish, FT.E.evaluate_mc_dropout = finish, mc_eval
+
+
+def phase25(torch, FA, dev):
+    """Slice 15 on the card: ``cli.finetune --seq_parallel 2`` at ViT-B/16 384
+    (``beit_base_patch16_384``, N = 577) from a ViT-B/16 224 .pth with a
+    100-class head, over seeded 32x32 CIFAR-100 images, on two gloo ranks
+    sharing the card: an --sngp --gp_layer epoch and a --het_layer epoch of 2
+    steps each, then every evaluation of the slice (MC-dropout K=8 folded
+    and split at 9, the SNGP and het heads from the two-rank checkpoints,
+    --temp_scaling, --laplace, -C --mc_dropout, -P (at ViT-B/16 224: the
+    CIFAR-P frames are resized to 256 before their crop) and
+    --visualize_embedding); then each in one process. Holds each case's
+    launches on each rank and in
+    the one process, the arrays rank 0 read back against the one process's
+    (logits within LOGIT_REL_BOUND of max|logit|, labels equal), T*, the
+    Laplace prior, the epochs' losses, and that another --seed draws other
+    -C MC-dropout masks. Returns the launches of each path ("cli15_seq2_":
+    summed over the ranks; "cli15_": one process)."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.evals import collect
+    from uncertainty_vit_tpu_torch.evals import robustness as R
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    n_train, n_test, bs = PHASE25_SIZES
+    depth, split, k = 12, 9, 8
+    fwd = n_test // bs
+    rs = np.random.RandomState(25)
+    perturbations = ("shot_noise",)
+
+    def u8(n, *shape):
+        return rs.randint(0, 256, (n,) + shape, dtype=np.uint8)
+
+    def card():
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+
+    want = {k_: 0 for k_ in kernel_counts(FA, TQ, DO)}
+    paths = {}
+    bounded, perturbation_list = FA.BOUNDED_SCORES, R.PERTURBATIONS
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, u8(n_train, 32, 32, 3), np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, u8(n_test, 32, 32, 3), np.arange(n_test) % 100, "test")
+            croot, proot = os.path.join(tmp, "cifar-c"), os.path.join(tmp, "cifar-p")
+            os.makedirs(croot)
+            os.makedirs(proot)
+            # one batch of one distortion (all of it severity 1 in the
+            # 10,000-rows-a-severity layout), two videos of 4 frames: one batch
+            np.save(os.path.join(croot, "labels.npy"), np.arange(bs) % 100)
+            np.save(os.path.join(croot, "gaussian_noise.npy"), u8(bs, 32, 32, 3))
+            np.save(os.path.join(proot, "shot_noise.npy"), u8(2, bs // 2, 32, 32, 3))
+            pth = os.path.join(tmp, "vitb224.pth")
+            write_vitb_pth(torch, dev, get_preset(
+                "beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                use_abs_pos_emb=False, init_values=0.1), pth, 250)
+
+            def argv(s, name, *extra, train=False, size=384):
+                out = os.path.join(tmp, f"s{s}_{name}")
+                return ["--model", f"beit_base_patch16_{size}", "--input_size", str(size),
+                        "--data_set", "CIFAR100", "--data_path", tmp, "--num_workers", "8",
+                        "--batch_size", str(bs), "--finetune", pth, "--output_dir", out,
+                        *([] if train else ["--eval"]), *extra, "--seq_parallel", str(s)]
+
+            mc = ["--mc_dropout", "--mc_dropout_forwards", str(k), "--drop", "0.1"]
+            epoch = ["--epochs", "1", "--steps_per_epoch", str(n_train // bs),
+                     "--disable_eval_during_finetuning", "--save_ckpt_freq", "1",
+                     "--warmup_epochs", "0", "--layer_decay", "0.65", "--no_auto_resume"]
+            ckpt = {h: os.path.join(tmp, f"s2_{h}_train", "checkpoint-0.pth")
+                    for h in ("sngp", "het")}
+            # name → (extra flags, launches a rank: K5 for one process's K3,
+            # K5_bwd for its K4, K8 the same). -P runs at 224: its frames are
+            # resized to 256 before the crop, so above 256 both packages
+            # refuse it (ops/augment.py:eval_resize_center_crop); there one
+            # process runs K1 (N = 197), the ranks K5 on 99 / 98 rows
+            evals = {
+                "mc_folded": (mc, dict(K5=depth * fwd, K8=2 * depth * fwd)),
+                "mc_split": (mc + ["--mc_dropout_split_at", str(split), "--dropout_from_block",
+                                   str(split)],
+                             dict(K5=depth * fwd, K8=2 * (depth - split) * fwd)),
+                "sngp": (["--sngp", "--gp_layer", "--finetune", ckpt["sngp"]],
+                         dict(K5=depth * fwd)),
+                "het": (["--het_layer", "--finetune", ckpt["het"]], dict(K5=depth * fwd)),
+                "temp_scaling": (["--temp_scaling"], dict(K5=depth * fwd)),
+                "laplace": (["--laplace"], dict(K5=depth * (n_train // bs + fwd))),
+                "corrupted_mc": (["--corrupted_data", "--corruption_data_path", croot, *mc],
+                                 dict(K5=depth, K8=2 * depth)),
+                "perturbed": (["--perturbed_data", "--perturbation_data_path", proot],
+                              dict(K5=depth)),
+                "embedding": (["--visualize_embedding"], dict(K5=depth * fwd)),
+            }
+            steps = n_train // bs
+            train_launches = dict(K5=depth * steps, K5_bwd=depth * steps)
+            cases = ([(f"{h}_train", argv(2, f"{h}_train", *flags, *epoch, train=True), True)
+                      for h, flags in (("sngp", ["--sngp", "--gp_layer"]),
+                                       ("het", ["--het_layer"]))]
+                     + [(name, argv(2, name, *extra, size=224 if name == "perturbed" else 384),
+                         False) for name, (extra, _) in evals.items()])
+            expect = {f"{h}_train": train_launches for h in ("sngp", "het")}
+            expect.update({name: n for name, (_, n) in evals.items()})
+
+            # --- 25a: the two ranks
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = seq.run_ranks(seq_eval_rank, 2, str(dev), cases, perturbations,
+                                  timeout=600.0)
+            ranks_s = time.perf_counter() - t0
+            for r, res in enumerate(ranks):
+                for name, run in res.items():
+                    exp = dict(want, **expect[name])
+                    check(run["launches"] == exp,
+                          f"25a rank {r} {name} launched {run['launches']}, expected {exp}")
+                    check((run["result"] is None) == (r == 1 or name.endswith("_train")),
+                          f"25a rank {r} {name} returned {type(run['result'])}")
+            a, b = ranks
+            for name in a:
+                paths[f"cli15_seq2_{name}"] = {k_: a[name]["launches"][k_]
+                                               + b[name]["launches"][k_] for k_ in want}
+            print(f"  25a two ranks ({card()}), launches a rank "
+                  + "; ".join(f"{n}: {r['launches']}" for n, r in a.items()), flush=True)
+            print(f"  25a seconds a run (host clock, model build and .pth import included): "
+                  + ", ".join(f"{n} {r['s']:.2f}" for n, r in a.items())
+                  + f"; the ranks ran {ranks_s:.1f} s from start to end", flush=True)
+            for h in ("sngp", "het"):
+                check(os.path.exists(ckpt[h]), f"25a's {h} epoch wrote no checkpoint")
+
+            # --- 25b: one process, the same cases; the epochs without a checkpoint
+            one = {}
+            R.PERTURBATIONS = perturbations
+            with recorded_driver(torch, np, FT, collect) as rec:
+                for name, args2, trains in cases + [("corrupted_mc_seed1", argv(
+                        2, "corrupted_mc_seed1", *evals["corrupted_mc"][0], "--seed", "1"),
+                        False)]:
+                    args1 = args2[:-2] + ["--seq_parallel", "1"]
+                    args1[args1.index("--output_dir") + 1] = os.path.join(tmp, f"s1_{name}")
+                    if trains:
+                        args1 += ["--no_save_ckpt"]
+                    rec["reads"], rec["mc_s"] = [], None
+                    reset_kernel_counts(FA, TQ, DO)
+                    t = time.perf_counter()
+                    res = FT.main(FT.get_args_parser().parse_args(args1))
+                    torch.cuda.synchronize()
+                    one[name] = {"launches": kernel_counts(FA, TQ, DO),
+                                 "s": time.perf_counter() - t, "reads": rec["reads"],
+                                 "mc_s": rec["mc_s"], "result": None if trains else res}
+                    del res
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            for name, run in one.items():
+                n = expect[name.replace("_seed1", "")]
+                fwd_kernel = "K1" if name == "perturbed" else "K3"
+                exp = dict(want, K4=n.get("K5_bwd", 0), K8=n.get("K8", 0))
+                exp[fwd_kernel] = n.get("K5", 0)
+                check(run["launches"] == exp,
+                      f"25b {name} launched {run['launches']}, expected {exp}")
+                if name != "corrupted_mc_seed1":
+                    paths[f"cli15_{name}"] = run["launches"]
+
+            # --- the holds: rank 0's reads and results against the one process's
+            worst = {}
+            for name in evals:
+                got, ref = a[name]["reads"], one[name]["reads"]
+                check(len(got) == len(ref) > 0 and all(g.shape == w.shape for g, w in zip(got, ref)),
+                      f"25 {name}: rank 0 read back {[g.shape for g in got]}, one process "
+                      f"{[w.shape for w in ref]}")
+                rel = 0.0
+                for g, w in zip(got, ref):
+                    if np.issubdtype(w.dtype, np.floating):
+                        check(np.isfinite(g).all(), f"25 {name}: rank 0 read non-finite values")
+                        rel = max(rel, float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                                        1e-30))
+                    else:
+                        check(np.array_equal(g, w), f"25 {name}: the labels differ")
+                worst[name] = rel
+                limit = PHASE25_MC_REL_BOUND if name in PHASE25_DRAWS else LOGIT_REL_BOUND
+                check(rel <= limit,
+                      f"25 {name}: rank 0's arrays differ from one process's by {rel:.3e} of "
+                      f"their largest value (bound {limit})")
+                if name != "embedding":  # the dump's directory: below
+                    check(sorted(a[name]["result"]) == sorted(one[name]["result"]),
+                          f"25 {name}: rank 0's result {a[name]['result']}")
+            # -C draws its MC-dropout masks from the --seed stream (the plain
+            # --mc_dropout dispatch from seed 0, as the JAX driver's does)
+            other = max(float(np.abs(g - w).max()) / float(np.abs(w).max()) for g, w in zip(
+                one["corrupted_mc_seed1"]["reads"], one["corrupted_mc"]["reads"])
+                if np.issubdtype(w.dtype, np.floating))
+            check(other > PHASE25_MC_REL_BOUND,
+                  f"25: -C --mc_dropout from --seed 1 differs from --seed 0 by {other:.3e}, "
+                  f"within the ranks' bound {PHASE25_MC_REL_BOUND}: a rank's wrong masks "
+                  "would not show")
+            t_got = a["temp_scaling"]["result"]["temp_scaling"]["temperature"]
+            t_ref = one["temp_scaling"]["result"]["temp_scaling"]["temperature"]
+            check(abs(math.log(t_got / t_ref)) <= PHASE25_T_LOG_BOUND,
+                  f"25: T* {t_got} on the ranks, {t_ref} in one process")
+            p_got = a["laplace"]["result"]["laplace"]["prior_precision"]
+            p_ref = one["laplace"]["result"]["laplace"]["prior_precision"]
+            check(abs(math.log10(p_got / p_ref)) <= PHASE25_PRIOR_LOG10_BOUND,
+                  f"25: the Laplace prior {p_got} on the ranks, {p_ref} in one process")
+            for name, flat in a["corrupted_mc"]["result"]["corruption"]["per_distortion"].items():
+                check(all(math.isfinite(v) for v in flat.values()), f"25 -C {name}: {flat}")
+            losses = {}
+            for h in ("sngp", "het"):
+                with open(os.path.join(tmp, f"s2_{h}_train", "log.txt")) as f:
+                    two = [json.loads(line) for line in f]
+                with open(os.path.join(tmp, f"s1_{h}_train", "log.txt")) as f:
+                    single = [json.loads(line) for line in f]
+                losses[h] = (two[0]["train_loss"], single[0]["train_loss"])
+                check(len(two) == len(single) == 1, f"25 {h} epoch's log.txt")
+                check(abs(losses[h][0] - losses[h][1]) <= LOSS_REL_BOUND * abs(losses[h][1]),
+                      f"25 {h} epoch's loss on the ranks {losses[h][0]}, one process "
+                      f"{losses[h][1]}")
+            emb = os.path.join(tmp, "s2_embedding")
+            check(a["embedding"]["result"] == emb and sorted(os.listdir(emb))[:2] == [
+                "embeddings.tsv", "embeddings_labels.tsv"], "25: the embedding dump")
+            print(f"  25 rank 0 against one process, max|diff| / max|value| of the arrays read "
+                  f"back (bound {LOGIT_REL_BOUND}; {PHASE25_MC_REL_BOUND} for "
+                  f"{', '.join(PHASE25_DRAWS)}): "
+                  + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+                  + f"; -C --mc_dropout from --seed 1 against --seed 0: {other:.3e}; T* "
+                  f"{t_got:.4f} / "
+                  f"{t_ref:.4f}; Laplace prior {p_got:g} / {p_ref:g}; the epochs' losses "
+                  + ", ".join(f"{h} {x:.5f} / {y:.5f}" for h, (x, y) in losses.items()),
+                  flush=True)
+            mc2, mc1 = a["mc_folded"]["mc_s"], one["mc_folded"]["mc_s"]
+            print(f"  25 (information only; {card()}): MC-dropout K={k} folded over {n_test} "
+                  f"images, evaluate_mc_dropout {mc2:.3f} s on the ranks ({n_test / mc2:.1f} "
+                  f"img/s, {k * n_test / mc2:.1f} samples/s), {mc1:.3f} s in one process "
+                  f"({n_test / mc1:.1f} img/s); the whole run {a['mc_folded']['s']:.2f} s / "
+                  f"{one['mc_folded']['s']:.2f} s; one process's seconds a run: "
+                  + ", ".join(f"{n} {r['s']:.2f}" for n, r in one.items()), flush=True)
+            print("  25 (information only): rank 0's k/v gathers a run, count and seconds "
+                  "(host clock, the card synchronized before each): "
+                  + ", ".join(f"{n} {r['gathers']} {r['gather_s']:.3f} of {r['s']:.2f}"
+                              for n, r in a.items()), flush=True)
+    finally:
+        FA.BOUNDED_SCORES, R.PERTURBATIONS = bounded, perturbation_list
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -7307,6 +7722,10 @@ def main() -> int:
     mesh = run(24, "the device mesh over gloo ranks sharing the card: ViT-B/16 224 on data 2 x "
                    "model 2 (cyclical, finetune+mixup+SNGP, dist triplet) against one process; "
                    "the port's dryrun at --devices 8", phase24, torch, FA, dev)
+    cli15 = run(25, "slice 15 through the driver over two gloo ranks sharing the card at "
+                    "ViT-B/16 384: MC-dropout (K8's row window), the SNGP and het heads, -C, -P, "
+                    "--laplace, --temp_scaling, --visualize_embedding, against one process",
+                phase25, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -7421,6 +7840,16 @@ def main() -> int:
     ]
     for kern, key in ((kernels[0], "K1"), (kernels[1], "K2"), (kernels[7], "K5")):
         kern["launches_by_path"].update(mesh_k[key])
+    # and phase 25's ("cli15_seq2_": slice 15 over two ranks, summed over
+    # them; "cli15_": the same runs in one process)
+    kernels[7]["launches_by_path"].update({p: n["K5"] + n["K5_bwd"] for p, n in cli15.items()
+                                           if n["K5"]})
+    kernels[7]["launches_by_kernel"].update({p: {k: n[k] for k in ("K5", "K5_bwd")}
+                                             for p, n in cli15.items() if n["K5"]})
+    for kern, key in ((kernels[0], "K1"), (kernels[2], "K3"), (kernels[3], "K4"),
+                      (kernels[4], "K8")):
+        kern["launches_by_path"].update({p: n[key] for p, n in cli15.items() if n[key]})
+        kern["launches"] = sum(kern["launches_by_path"].values())
     # phase 13's ViT-H paths ("huge_", "cli14_huge_"), and each attention
     # kernel's numbers at head width 80 ("d80": phases 1, 3, 7, 8 and 14 at
     # D = 80, H = 16)

@@ -388,18 +388,21 @@ def test_resume_inside_an_accumulation_window_equals_the_uninterrupted_run(root,
 
 
 def test_seq_parallel_refusals(root, tmp_path):
-    """Under --seq_parallel, --mc_dropout raises naming ROADMAP item 21 and
-    attention dropout in training raises with the JAX package's words,
-    both before any rank starts."""
-    with pytest.raises(NotImplementedError, match="mc_dropout.*item 21"):
-        _port(_argv(root, tmp_path, "--eval", "--seq_parallel", "2", "--mc_dropout"))
+    """Under --seq_parallel, attention dropout raises with the JAX package's
+    words before any rank starts wherever a forward draws: in training and
+    under --mc_dropout. --mc_dropout alone runs there
+    (tests/test_torch_port_seq_eval.py)."""
+    with pytest.raises(ValueError, match="sequence-parallel attention requires attn_drop=0"):
+        _port(_argv(root, tmp_path, "--eval", "--seq_parallel", "2", "--mc_dropout",
+                    "--attn_drop_rate", "0.1"))
     with pytest.raises(ValueError, match="sequence-parallel attention requires attn_drop=0"):
         _port(_argv(root, tmp_path, "--seq_parallel", "2", "--attn_drop_rate", "0.1"))
-    # an evaluation has no attention dropout to refuse: the JAX driver's
-    # shared model builder takes the flag there too
-    args = TFT.get_args_parser().parse_args(
-        _argv(root, tmp_path, "--eval", "--seq_parallel", "2", "--attn_drop_rate", "0.1"))
-    TFT._check_seq_flags(args)
+    # a deterministic evaluation has no attention dropout to refuse: the JAX
+    # driver's shared model builder takes the flag there too
+    for extra in (["--attn_drop_rate", "0.1"], ["--mc_dropout"]):
+        args = TFT.get_args_parser().parse_args(
+            _argv(root, tmp_path, "--eval", "--seq_parallel", "2", *extra))
+        TFT._check_seq_flags(args)
 
 
 @pytest.fixture(scope="module")

@@ -236,36 +236,61 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
         TFT.load_variables(targs, TFT.build_model(targs, 100, device="cpu")[0])
 
 
-# the heads, the post-hoc evaluations and the attention variants under
-# --seq_parallel: ROADMAP.md item 21
-SEQ_NOT_PORTED = ["--sngp", "--gp_layer", "--het_layer", "--corrupted_data", "--perturbed_data",
-                  "--laplace", "--temp_scaling", "--visualize_embedding", "--sinkformer",
-                  "--gumbel_softmax", "--h_sto_trans"]
+# the attention variants under --seq_parallel: ROADMAP.md item 21 (the
+# evaluations, MC-dropout and the heads run there: test_torch_port_seq_eval.py)
+SEQ_NOT_PORTED = ["--sinkformer", "--gumbel_softmax", "--h_sto_trans"]
 NOT_PORTED = [
-    ["--seq_parallel", "2", "--mc_dropout"],
     *[["--seq_parallel", "2", flag] for flag in SEQ_NOT_PORTED],
     ["--ensembles", "--ensemble_checkpoints", "member_dir"],
 ]
 
 
 def _case_id(extra):
-    if extra[0] == "--seq_parallel" and extra[2] != "--mc_dropout":
+    if extra[0] == "--seq_parallel":
         return "seq_parallel_" + extra[2].lstrip("-")
-    return extra[0].lstrip("-") + ("_orbax" if extra[0] == "--ensembles" else "")
+    return extra[0].lstrip("-") + "_orbax"
 
 
 @pytest.mark.parametrize("extra", NOT_PORTED, ids=_case_id)
 def test_unported_flags_raise(files, extra):
     """Every flag whose feature is not ported raises NotImplementedError
     naming where the ROADMAP ports it; none is silently ignored. Under
-    --seq_parallel the heads and the post-hoc evaluations raise before the
-    ranks start, naming item 21."""
+    --seq_parallel the attention variants raise before the ranks start,
+    naming item 21."""
     args = TFT.get_args_parser().parse_args(_argv(files, *extra))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
         match = "ROADMAP.md item 21" if extra[0] == "--seq_parallel" else "ROADMAP.md"
         with pytest.raises(NotImplementedError, match=match):
             TFT.main(args, device="cpu")
+
+
+# what --seq_parallel still refuses, before the ranks start: (extra flags,
+# whether they train, the error and its words)
+SEQ_REFUSED = {
+    "mc_dropout_attn_drop": (["--mc_dropout", "--attn_drop_rate", "0.1"], False, ValueError,
+                             "sequence-parallel attention requires attn_drop=0"),
+    "adahessian_train": (["--opt", "adahessian"], True, NotImplementedError,
+                         "AdaHessian pass under --seq_parallel.*ROADMAP.md item 21"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEQ_REFUSED))
+def test_seq_parallel_refusals_before_the_ranks_start(files, case):
+    """Under --seq_parallel 2: MC-dropout with attention dropout raises the
+    JAX package's ValueError (its seq-sharded attention refuses a drawing
+    forward with attn_drop > 0, models/layers.py:353-358), and AdaHessian
+    training still raises, naming item 21. ``run_ranks`` is replaced by a
+    failure, so each raise comes before any rank starts."""
+    extra, trains, error, words = SEQ_REFUSED[case]
+    argv = _argv(files, "--seq_parallel", "2", *extra)
+    if trains:
+        argv.remove("--eval")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
+        mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: pytest.fail("the ranks started"))
+        with pytest.raises(error, match=words):
+            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu")
 
 
 def test_training_and_orbax_checkpoints_raise(files):

@@ -280,9 +280,12 @@ def test_jax_params_load_into_a_model_shard():
 def test_seq_parallel_trains_the_sngp_heads(flag):
     """--sngp / --gp_layer train under --seq_parallel (the engine sums the
     precision update over the data axis, and a seq group's ranks hold the
-    same pooled feature); their evaluation there still raises."""
+    same pooled feature), and evaluate there too (the ranks' results:
+    tests/test_torch_port_seq_eval.py); beside an attention variant they
+    still raise, naming item 21."""
     base = ["--model", "beit_test_patch16_32", "--data_path", "unused", "--seq_parallel", "2",
             flag]
     TFT._check_seq_flags(TFT.get_args_parser().parse_args(base))
+    TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval"]))
     with pytest.raises(NotImplementedError, match="item 21"):
-        TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval"]))
+        TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval", "--sinkformer"]))

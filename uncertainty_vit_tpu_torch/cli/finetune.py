@@ -63,17 +63,22 @@ another model (``--mc_dropout``, ``--ensembles``,
 ``--visualize_embedding``, ``--laplace``, ``--temp_scaling``);
 ``--seq_parallel`` raises as in JAX.
 
+Under ``--seq_parallel`` every evaluation runs: ``--mc_dropout`` (folded
+and split; each rank folds its rows and K8 draws the unsharded masks'
+rows), the heads (``--sngp``, ``--gp_layer``, ``--het_layer`` in training
+and evaluation: they take the pooled feature, whole on every rank, and
+every rank draws the same noise) and the post-hoc evaluations (-C, -P,
+``--laplace``, ``--temp_scaling``, ``--visualize_embedding``). Every rank
+holds every sample, so the fits sum over no group; rank 0 alone prints and
+writes, and each rank's result equals one process's.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: under ``--seq_parallel``
-(item 21) ``--mc_dropout``, the head flags (``--sngp`` and ``--gp_layer``
-train: the precision update and the spectral (u, v) take the pooled
-feature, the same on every rank; their evaluation raises) and the post-hoc
-evaluations;
-the attention variants, ``--opt adahessian`` in training, and under a
-gumbel or dual_sto attention ``--laplace`` and ``--visualize_embedding``;
-and a ``--finetune``, ``--resume`` or ensemble member that is not a
-``.pth``. Attention dropout in training under ``--seq_parallel`` raises
-``ValueError``, as the JAX package's attention does.
+that ports it: under ``--seq_parallel`` (item 21) the attention variants
+and ``--opt adahessian`` in training; under a gumbel or dual_sto attention
+``--laplace`` and ``--visualize_embedding``; and a ``--finetune``,
+``--resume`` or ensemble member that is not a ``.pth``. Attention dropout
+under ``--seq_parallel`` raises ``ValueError`` in training and under
+``--mc_dropout``, as the JAX package's attention does.
 """
 
 from __future__ import annotations
@@ -119,27 +124,15 @@ from uncertainty_vit_tpu_torch.train.engine_finetune_dist import (
 )
 from uncertainty_vit_tpu_torch.train.optim import freeze_all_except, needs_hessian
 from uncertainty_vit_tpu_torch.utils import checkpoint as C
-from uncertainty_vit_tpu_torch.utils.embeddings import visualize_embedding
+from uncertainty_vit_tpu_torch.utils import embeddings as EMB
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
 # what --seq_parallel does not run yet: flag → what it turns on (ROADMAP.md item 21)
-# (--sngp and --gp_layer only under --eval: SEQ_TRAINS)
 NOT_PORTED_UNDER_SEQ = {
-    "mc_dropout": "MC-dropout",
-    "sngp": "the SNGP head with the spectral-norm fc_norm",
-    "gp_layer": "the SNGP head",
-    "het_layer": "the heteroscedastic head",
-    "corrupted_data": "the corruption benchmark (-C)",
-    "perturbed_data": "the perturbation benchmark (-P)",
-    "laplace": "the last-layer Laplace posterior",
-    "temp_scaling": "temperature scaling",
-    "visualize_embedding": "the embedding dump",
     "sinkformer": "the sinkformer attention",
     "gumbel_softmax": "the Gumbel-softmax attention",
     "h_sto_trans": "the dual stochastic attention",
 }
-# what trains under --seq_parallel though its evaluation there does not run yet
-SEQ_TRAINS = ("mc_dropout", "sngp", "gp_layer")
 
 # what a model that draws Gumbel noise in every forward does not run yet:
 # their forwards take no generator (ROADMAP.md item 20's rest)
@@ -391,9 +384,10 @@ def _mc_eval_model(model: VisionTransformer) -> VisionTransformer:
     """The eval model with stochastic depth off for MC-dropout: the
     reference's enable_dropout turns only the dropouts on
     (uncertainty_evaluations.py:35-39), so the evaluation must not inherit
-    the training --drop_path rate. Same weights, a second module."""
+    the training --drop_path rate. Same weights and seq group, a second
+    module."""
     mc = VisionTransformer(model.cfg.replace(drop_path_rate=0.0), model.dtype,
-                           device=_device_of(model))
+                           device=_device_of(model), seq_group=model.seq_group)
     mc.load_state_dict(model.state_dict(), strict=True)
     return mc
 
@@ -444,14 +438,16 @@ def _ensemble_mean_forward(args, model: VisionTransformer) -> Callable[[torch.Te
     return lambda imgs: ensemble_mean_logits(efwd(stacked, imgs))
 
 
-def _fit_loader(args):
+def _fit_loader(args, model: VisionTransformer):
     """The train split for the post-hoc fits (Laplace, temperature): the
     whole split through the eval transform, unshuffled, no tail dropped,
     unpadded; the letterboxed decode is a train-augmentation matter, so it
-    is off (JAX :324-336)."""
+    is off (JAX :324-336). The ranks of a seq group read the whole split,
+    each the same batches: every sample counts once."""
     fit_args = argparse.Namespace(**{**vars(args), "decode_letterbox": False})
     loader, _ = B.build_loaders(fit_args, is_train=True, shuffle=False, drop_last=False,
-                                pad_shards=False)
+                                pad_shards=False,
+                                host=None if model.seq_group is None else (0, 1))
     return loader
 
 
@@ -467,7 +463,7 @@ def _fit_laplace(args, model: VisionTransformer):
     ffwd = LA.make_feature_forward(model)
     la = LA.fit_last_layer_laplace(
         ffwd, {"weight": model.head.weight.detach(), "bias": model.head.bias.detach()},
-        _eval_batches(_fit_loader(args), args, device))
+        _eval_batches(_fit_loader(args, model), args, device))
     la = LA.optimize_prior_precision(la)
     print(f"laplace: fit on {la.n} samples, prior precision {la.prior_precision:g}", flush=True)
     fresh = per_call_generator(args.seed, device)
@@ -597,7 +593,7 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
         results["laplace"] = LA.evaluate_laplace(la, ffwd, batches(), link=args.laplace_link,
                                                  seed=args.seed)
     elif args.temp_scaling:
-        fit_batches = (_eval_batches(_fit_loader(args), args, device)
+        fit_batches = (_eval_batches(_fit_loader(args, model), args, device)
                        if args.temp_scaling_split == "train" else None)
         results["temp_scaling"] = CAL.evaluate_temperature_scaled(
             _default_eval_forward(args, model), batches(), fit_batches=fit_batches,
@@ -614,15 +610,16 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
 
 def _check_seq_flags(args) -> None:
     """What --seq_parallel does not run raises before the ranks start: the
-    MC-dropout evaluation, the uncertainty heads and the post-hoc
-    evaluations (ROADMAP.md item 21), and attention dropout in training
-    (the JAX package's attention refuses it, models/layers.py:353-358)."""
+    attention variants and the AdaHessian pass (ROADMAP.md item 21), and
+    attention dropout wherever a forward draws, in training and under
+    --mc_dropout (the JAX package's attention refuses it,
+    models/layers.py:353-358)."""
     for flag, what in NOT_PORTED_UNDER_SEQ.items():
-        if getattr(args, flag, False) and (args.eval or flag not in SEQ_TRAINS):
+        if getattr(args, flag, False):
             raise B.not_ported(flag, f"{what} under --seq_parallel", "item 21")
     if not args.eval and needs_hessian(args.opt):
         raise B.not_ported("opt", "the AdaHessian pass under --seq_parallel", "item 21")
-    if not args.eval and args.attn_drop_rate > 0:
+    if (not args.eval or args.mc_dropout) and args.attn_drop_rate > 0:
         raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel dropout "
                          "seeds are not defined across re-sharded grids)")
 
@@ -817,9 +814,12 @@ def _run(args, device: torch.device, seq_group: Optional[seq.SeqGroup] = None):
         # the reference's dispatch: dump the embeddings and exit (:634-637)
         model, _ = build_model(args, nb_classes, device, seq_group)
         load_variables(args, model)
-        out = visualize_embedding(model, _eval_batches(val_loader, args, device),
-                                  args.output_dir or ".")
-        print(f"embeddings written to {out}", flush=True)
+        # every rank runs the forwards (their collectives); rank 0 alone writes
+        out = EMB.visualize_embedding(model, _eval_batches(val_loader, args, device),
+                                      args.output_dir or ".",
+                                      write=seq_group is None or seq_group.rank == 0)
+        if out is not None:
+            print(f"embeddings written to {out}", flush=True)
         return out
     if not args.eval:
         return train(args, device, val_loader, nb_classes, seq_group)

@@ -24,6 +24,18 @@
 // flat index, not on the block: any grid, vector width or split of the
 // tensor draws the same mask (the TPU reseeds per program, so its mask
 // follows its row blocks, :44).
+//
+// A row window (sequence parallelism): x is [G, rows, C], rows [start,
+// start + rows) of a sequence of n tokens, and element (g, r, c) takes the
+// bits of the unsharded flat index (g * n + start + r) * C + c, so a rank's
+// mask is the unsharded run's over its rows. Each slab g of rows * C
+// elements maps onto one contiguous range of unsharded indices starting at
+// g * n * C + start * C, so the grid's y (and z) dimensions walk the slabs
+// and the index map costs no division: a block's 64-bit multiply-add and a
+// thread's 32-bit offset. The flat call is the same kernel over one slab.
+// Where C is a multiple of the vector width (8 bf16 / 4 f32) a 16-byte chunk
+// never crosses a row and a slab starts a Philox group, so the vector path
+// stays; other windows go element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,57 +63,83 @@ __device__ __forceinline__ T drop_one(T x, uint32_t bits, uint32_t threshold, fl
   return bits >= threshold ? from_f32<T>(to_f32(x) * inv_keep) : from_f32<T>(0.0f);
 }
 
-// kVector: 16-byte accesses over the whole chunks, the tail element by
-// element; otherwise every element on its own.
+// Element (g, j) of x [groups, slab] takes the bits of the unsharded flat
+// index g * stride + base + j; the grid's y and z dimensions walk the slabs
+// (g = z * gridDim.y + y), its x dimension a slab's blocks of kThreads * kVec
+// elements. The flat call is one slab (groups = 1, stride = base = 0). All
+// 64-bit index arithmetic is per block (the uniform datapath); a thread adds
+// its 32-bit offset. kVector: 16-byte accesses, so base, stride are multiples
+// of 4 (a chunk starts a Philox group) and, with more than one slab, slab is
+// a whole number of 16-byte chunks; a chunk that runs past the end of its
+// slab goes element by element. Eight blocks an SM hold 32 registers a
+// thread (the whole register file, 2048 threads): the 16-byte path then
+// spills 36 bytes a thread (to L1), and is still ~4% faster than at nvcc's
+// own choice, 40 registers, six blocks an SM.
 template <typename T, bool kVector>
-__global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long numel,
-               const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
+__global__ void __launch_bounds__(kThreads, 8)
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long groups, long long slab,
+               long long stride, long long base, const long long* __restrict__ seed,
+               uint32_t threshold, float inv_keep) {
   constexpr int kVec = kVector ? 16 / int(sizeof(T)) : 4;  // elements per thread
+  constexpr int kBlock = kThreads * kVec;
+  const long long g = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const long long first = (long long)blockIdx.x * kBlock;  // the block's first element
+  if (g >= groups) return;
+  const int count = int(min((long long)kBlock, slab - first));  // the block's elements
+  const int j = int(threadIdx.x) * kVec;
+  if (j >= count) return;
   const philox::Key key = philox::load_key(seed);
-  const long long chunk = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long i0 = chunk * kVec;
-  if (i0 >= numel) return;
-  if (kVector && i0 + kVec <= numel) {
-    uint4 u = *reinterpret_cast<const uint4*>(x + i0);
+  const T* xb = x + (g * slab + first);
+  T* yb = y + (g * slab + first);
+  // the unsharded index of the block's first element
+  const unsigned long long u0 = (unsigned long long)(g * stride + base + first);
+  if (kVector && j + kVec <= count) {  // u0 % 4 == 0: j / 4 counts Philox groups
+    uint4 u = *reinterpret_cast<const uint4*>(xb + j);
     T* e = reinterpret_cast<T*>(&u);
 #pragma unroll
     for (int q = 0; q < kVec / 4; ++q) {
-      const uint4 w = philox::dropout_words(key, (unsigned long long)(i0 >> 2) + q);
+      const uint4 w = philox::dropout_words(key, (u0 >> 2) + (j >> 2) + q);
       e[4 * q + 0] = drop_one(e[4 * q + 0], w.x, threshold, inv_keep);
       e[4 * q + 1] = drop_one(e[4 * q + 1], w.y, threshold, inv_keep);
       e[4 * q + 2] = drop_one(e[4 * q + 2], w.z, threshold, inv_keep);
       e[4 * q + 3] = drop_one(e[4 * q + 3], w.w, threshold, inv_keep);
     }
-    *reinterpret_cast<uint4*>(y + i0) = u;
+    // one 16-byte store: written as `*(uint4*)p = u`, nvcc splits it into
+    // four 4-byte stores here, ~10% of the call
+    __stwb(reinterpret_cast<uint4*>(yb + j), u);
     return;
   }
-  // kVec is a multiple of 4, so i0 starts a Philox group
-  for (int j = 0; j < kVec && i0 + j < numel; j += 4) {
-    const uint4 w = philox::dropout_words(key, (unsigned long long)((i0 + j) >> 2));
-    for (int k = 0; k < 4 && i0 + j + k < numel; ++k) {
-      y[i0 + j + k] = drop_one(x[i0 + j + k], word_of(w, k), threshold, inv_keep);
-    }
+  // i0 may fall inside a Philox group: a new call where one starts
+  const unsigned long long i0 = u0 + j;
+  uint4 w = philox::dropout_words(key, i0 >> 2);
+  for (int k = 0; k < kVec && j + k < count; ++k) {
+    const unsigned long long i = i0 + k;
+    if (k > 0 && (i & 3) == 0) w = philox::dropout_words(key, i >> 2);
+    yb[j + k] = drop_one(xb[j + k], word_of(w, int(i & 3)), threshold, inv_keep);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* y, long long numel, const long long* seed,
-                   uint32_t threshold, float inv_keep, cudaStream_t stream) {
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int vec = aligned ? 16 / int(sizeof(T)) : 4;
-  const long long chunks = (numel + vec - 1) / vec;
-  const long long blocks = (chunks + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+cudaError_t launch(const void* x, void* y, long long groups, long long slab, long long stride,
+                   long long base, const long long* seed, uint32_t threshold, float inv_keep,
+                   cudaStream_t stream) {
+  const int vec = 16 / int(sizeof(T));
+  const bool vector = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(y) % 16 == 0 && stride % 4 == 0 &&
+                      base % 4 == 0 && (groups == 1 || slab % vec == 0);
+  const int per = vector ? vec : 4;
+  const long long blocks = ((slab + per - 1) / per + kThreads - 1) / kThreads;
+  const long long ys = groups < 65535 ? groups : 65535, zs = (groups + ys - 1) / ys;
+  if (blocks > 0x7fffffffLL || zs > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)ys, (unsigned)zs);
   const T* xs = static_cast<const T*>(x);
-  T* ys = static_cast<T*>(y);
-  if (aligned) {
-    dropout_kernel<T, true><<<dim3((unsigned)blocks), kThreads, 0, stream>>>(
-        xs, ys, numel, seed, threshold, inv_keep);
+  T* yo = static_cast<T*>(y);
+  if (vector) {
+    dropout_kernel<T, true><<<grid, kThreads, 0, stream>>>(xs, yo, groups, slab, stride, base,
+                                                            seed, threshold, inv_keep);
   } else {
-    dropout_kernel<T, false><<<dim3((unsigned)blocks), kThreads, 0, stream>>>(
-        xs, ys, numel, seed, threshold, inv_keep);
+    dropout_kernel<T, false><<<grid, kThreads, 0, stream>>>(xs, yo, groups, slab, stride, base,
+                                                             seed, threshold, inv_keep);
   }
   return cudaGetLastError();
 }
@@ -110,16 +148,26 @@ cudaError_t launch(const void* x, void* y, long long numel, const long long* see
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32. x and y hold numel contiguous elements; seed is
-// one int64 in device memory; threshold = min(int(rate * 2^32), 2^32 - 1);
-// inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
-int uvit_dropout(const void* x, void* y, long long numel, const void* seed, int dtype,
-                 unsigned int threshold, float inv_keep, void* stream) {
-  if (numel <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// dtype: 0 = bf16, 1 = f32. x and y hold groups * slab contiguous
+// elements; element (g, j) takes the bits of flat index g * stride + base +
+// j: the flat call is (1, numel, 0, 0), a row window of x [G, rows, C] over
+// a sequence of n tokens from row start is (G, rows * C, n * C, start * C).
+// seed is one int64 in device memory; threshold = min(int(rate * 2^32),
+// 2^32 - 1); inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
+int uvit_dropout(const void* x, void* y, long long groups, long long slab, long long stride,
+                 long long base, const void* seed, int dtype, unsigned int threshold,
+                 float inv_keep, void* stream) {
+  if (groups <= 0 || slab <= 0 || stride < 0 || base < 0 || (groups > 1 && stride < slab)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<bf16>(x, y, numel, sd, threshold, inv_keep, st);
-  if (dtype == 1) return launch<float>(x, y, numel, sd, threshold, inv_keep, st);
+  if (dtype == 0) {
+    return launch<bf16>(x, y, groups, slab, stride, base, sd, threshold, inv_keep, st);
+  }
+  if (dtype == 1) {
+    return launch<float>(x, y, groups, slab, stride, base, sd, threshold, inv_keep, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

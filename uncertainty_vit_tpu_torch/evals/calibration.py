@@ -15,7 +15,8 @@ permutation, the JAX package's indices to the bit), or the train split.
 Under a ``parallel.mesh.Mesh`` whose data axis splits the fit set, each
 rank's curve is weighted by its sample count and the curves and counts are
 summed over the axis, as the JAX package sums each host's
-(``_gather_weighted``, :51-61): every rank fits the same T.
+(``_gather_weighted``, :51-61): every rank fits the same T. The ranks of a
+seq group each hold every sample and sum over nothing.
 """
 
 from __future__ import annotations

@@ -21,8 +21,10 @@ column, W the [C, D+1] head):
 
 Eigenvectors are defined up to sign and, within ties, order: what is
 compared across packages is a reconstruction Q diag(λ) Qᵀ, a variance or a
-log-probability. The JAX package reduces the factor sums over hosts; the
-port runs one process (the multi-host reduction is ROADMAP.md item 21).
+log-probability. The factor sums are reduced over a mesh's data axis only,
+as the JAX package reduces them over hosts: the ranks of a seq group each
+hold every sample (the tokens are split, not the batch), so a sum over
+them would count each sample once a rank.
 """
 
 from __future__ import annotations

@@ -203,16 +203,16 @@ def site_dropout(
     (the MC-dropout evaluation) it is the fused kernel K8,
     ``ops.dropout.fused_dropout``, seeded from ``generator``; under grad
     mode, or inside ``flash_attention.plain_only()``, it is ``dropout``: K8
-    is forward only, as in the reference. K8's mask follows the position in
-    x, so under a ``shard`` it is not ported."""
+    is forward only, as in the reference. Under a ``shard`` K8 takes the
+    shard's rows as its window, so x [B, rows, C] draws the unsharded mask's
+    rows."""
     if not active or rate == 0.0:
         return x
     if torch.is_grad_enabled() or in_plain_only():
         return dropout(x, rate, True, generator, shard)
-    if shard is not None:
-        raise NotImplementedError("MC-dropout under a seq group is not ported yet")
     seed = philox.draw_seed(_require_generator(generator, "dropout"), x.device)
-    return fused_dropout(x.contiguous(), rate, seed)
+    window = None if shard is None else (shard.start, shard.n)
+    return fused_dropout(x.contiguous(), rate, seed, window)
 
 
 def _use_quant(quant: str, x: torch.Tensor, features: int,

@@ -32,7 +32,10 @@ rank embeds the whole image, keeps its token rows ``seq_group.rows(N)`` and
 runs the blocks on them (the attention gathers k/v over the group); the
 pooling sums over the group, and the head runs on every rank alike, so the
 logits come out equal on every rank. The train step sums the gradients of
-``token_parameters()`` over the group.
+``token_parameters()`` over the group. The MC-dropout forward folds the
+rank's rows K times; K8 draws each dropout mask's rows of the unsharded
+forward (``layers.site_dropout``), so every rank's logits are the unsharded
+model's given the same generator.
 
 ``mesh`` (a ``parallel.mesh.Mesh``; the JAX step's mesh with the param
 specs of parallel/mesh.py:130-148) takes the place of ``seq_group``: its
@@ -173,8 +176,6 @@ class ViTBackbone(nn.Module):
                gumbel_generator):
         active = _active(self, deterministic)
         shard = self.seq_shard
-        if shard is not None and mc_samples > 0:
-            raise NotImplementedError("MC-dropout under a seq group is not ported yet")
         x = self.patch_embed(images.to(self.dtype))
         b, n, c = x.shape
         if (self.mask_token is not None and bool_masked_pos is not None

@@ -136,9 +136,15 @@ def eval_resize_center_crop(img: torch.Tensor, out_size: int, crop_pct: float = 
     """Resize the shorter side to int(out_size / crop_pct) (torchvision's
     Resize(size)), centre-crop out_size × out_size and clip to [0, 1].
     img: [..., H, W, C] float in [0, 1], one image or a batch; only the
-    cropped rows and columns of the resize are computed."""
+    cropped rows and columns of the resize are computed. A crop larger than
+    the resize raises, as the JAX package's slice does (ops/augment.py:342):
+    CIFAR-P frames (``evals.robustness.process_p_frames``, resized to 256)
+    at an input size above 256."""
     h, w = img.shape[-3], img.shape[-2]
     size = int(out_size / crop_pct)
+    if out_size > size:
+        raise ValueError(f"a centre crop of {out_size} from a resize to {size} "
+                         f"(crop_pct {crop_pct} above 1)")
     if h <= w:
         nh, nw = size, max(int(round(size * w / h)), size)
     else:

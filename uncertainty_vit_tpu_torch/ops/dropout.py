@@ -14,7 +14,11 @@ keeps the framework's own dropout.
 
 Kernel and plain version draw the same mask: a pure function of the seed and
 of each element's flat index (``ops/philox.py``), so they agree to the bit,
-and a run is reproducible from its generator seed. The reference's 128-lane
+and a run is reproducible from its generator seed. Under sequence
+parallelism a rank holds rows [start, start + rows) of a sequence of n
+tokens: with ``window=(start, n)`` element (g, r, c) of x [G, rows, C]
+takes the bits of the unsharded index (g·n + start + r)·C + c, so the
+rank's mask is the unsharded run's over its rows. The reference's 128-lane
 gate and row-block budget (:54-75) are artifacts of the TPU compiler and
 have no counterpart.
 """
@@ -22,6 +26,7 @@ have no counterpart.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,46 +39,88 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_NUMEL = 2**40
 
 _P = ctypes.c_void_p
-# x, y, numel, seed, dtype, threshold, inv_keep, stream
-_ARGTYPES = [_P, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_uint, ctypes.c_float, _P]
+_LL = ctypes.c_longlong
+# x, y, groups, slab, stride, base, seed, dtype, threshold, inv_keep, stream
+_ARGTYPES = [_P, _P, _LL, _LL, _LL, _LL, _P, ctypes.c_int, ctypes.c_uint, ctypes.c_float, _P]
+
+Window = Optional[Tuple[int, int]]
 
 
-def fused_dropout_plain(x: torch.Tensor, rate: float, seed: torch.Tensor) -> torch.Tensor:
+def _window_shape(x: torch.Tensor, window: Window) -> Tuple[int, int, int]:
+    """(G, rows, C) of x [G, rows, ...] under ``window`` = (start, n): C is the
+    product of the trailing dimensions. Raises unless rows [start, start +
+    rows) lie in [0, n)."""
+    start, n = window
+    if x.dim() < 2 or x.numel() == 0:
+        raise ValueError(f"a dropout window takes a non-empty [G, rows, ...] tensor; got "
+                         f"{tuple(x.shape)}")
+    g, rows = x.shape[0], x.shape[1]
+    if not 0 <= start <= n - rows:
+        raise ValueError(f"rows [{start}, {start + rows}) do not lie in a sequence of {n}")
+    return g, rows, x.numel() // (g * rows)
+
+
+def fused_dropout_plain(x: torch.Tensor, rate: float, seed: torch.Tensor,
+                        window: Window = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same mask, the product in
-    f32, one rounding to x.dtype."""
-    bits = philox.dropout_bits(seed, x.numel()).reshape(x.shape)
+    f32, one rounding to x.dtype. Under ``window`` it draws the unsharded
+    [G, n, C] bits and keeps the window's rows."""
+    if window is None:
+        bits = philox.dropout_bits(seed, x.numel()).reshape(x.shape)
+    else:
+        g, rows, c = _window_shape(x, window)
+        start, n = window
+        bits = philox.dropout_bits(seed, g * n * c).reshape(g, n, c)[:, start:start + rows]
+        bits = bits.reshape(x.shape)
     return (x.float() * philox.keep_scale(bits, rate)).to(x.dtype)
 
 
-def supported(x: torch.Tensor) -> bool:
+def supported(x: torch.Tensor, window: Window = None) -> bool:
     """What the Hopper kernel takes: a contiguous, non-empty bfloat16 or
-    float32 CUDA tensor of any shape with fewer than 2⁴⁰ elements."""
-    return (x.is_cuda and x.dtype in _DTYPES and x.is_contiguous()
-            and 0 < x.numel() < MAX_NUMEL)
+    float32 CUDA tensor of any shape with fewer than 2⁴⁰ elements; under a
+    ``window`` one of at least two dimensions whose unsharded G · n · C is
+    below 2⁴⁰."""
+    if not (x.is_cuda and x.dtype in _DTYPES and x.is_contiguous()
+            and 0 < x.numel() < MAX_NUMEL):
+        return False
+    if window is None:
+        return True
+    g, _, c = _window_shape(x, window)
+    return g * window[1] * c < MAX_NUMEL
 
 
-def fused_dropout(x: torch.Tensor, rate: float, seed: torch.Tensor) -> torch.Tensor:
+def fused_dropout(x: torch.Tensor, rate: float, seed: torch.Tensor,
+                  window: Window = None) -> torch.Tensor:
     """Inverted dropout: keep probability 1 − rate, kept values scaled by
     1/(1 − rate). ``seed`` is a one-element int64 tensor on x's device
-    (``philox.draw_seed``); rate 0 returns x itself."""
+    (``philox.draw_seed``); rate 0 returns x itself. ``window`` = (start, n):
+    x [G, rows, ...] holds rows [start, start + rows) of n, and draws the
+    unsharded mask's rows (see the module doc)."""
     if rate <= 0.0:
         return x
     if not rate < 1.0:
         raise ValueError(f"the dropout rate must be below 1, got {rate}")
     philox.check_seed(seed, x.device)
     if x.device.type == "cpu":
-        return fused_dropout_plain(x, rate, seed)
-    if not supported(x):
+        return fused_dropout_plain(x, rate, seed, window)
+    if not supported(x, window):
         raise ValueError(
             "the dropout kernel takes a contiguous, non-empty bfloat16 or float32 CUDA tensor "
-            f"with fewer than 2^40 elements; got {x.dtype} {tuple(x.shape)} on {x.device}"
+            "with fewer than 2^40 elements (under a window, unsharded); got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
+    # x as [groups, slab]: element (g, j) draws flat index g·stride + base + j
+    groups, slab, stride, base = 1, x.numel(), 0, 0
+    if window is not None:
+        groups, rows, c = _window_shape(x, window)
+        start, n = window
+        slab, stride, base = rows * c, n * c, start * c
     y = torch.empty_like(x)
     lib = _native.typed("dropout", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = lib.uvit_dropout(
-            x.data_ptr(), y.data_ptr(), x.numel(), seed.data_ptr(), _DTYPES[x.dtype],
-            philox.threshold(rate), 1.0 / (1.0 - rate),
+            x.data_ptr(), y.data_ptr(), groups, slab, stride, base, seed.data_ptr(),
+            _DTYPES[x.dtype], philox.threshold(rate), 1.0 / (1.0 - rate),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, "dropout")

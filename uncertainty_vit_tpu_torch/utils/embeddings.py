@@ -48,13 +48,17 @@ def pca_2d(feats: np.ndarray) -> np.ndarray:
 
 
 def visualize_embedding(model: nn.Module, batches: Iterable, output_dir: str,
-                        max_items: int = 2000) -> str:
+                        max_items: int = 2000, write: bool = True) -> Optional[str]:
     """Write <output_dir>/embeddings.tsv and embeddings_labels.tsv (the
     TensorBoard projector's format), and embeddings_pca.png where matplotlib
-    imports. Returns the directory written."""
+    imports. Returns the directory written. With ``write`` False (a rank
+    other than 0 of a seq group) it runs the same forwards, their
+    collectives included, writes nothing and returns None."""
     tag = "embeddings"
-    os.makedirs(output_dir, exist_ok=True)
     feats, labels = extract_embeddings(model, batches, max_items)
+    if not write:
+        return None
+    os.makedirs(output_dir, exist_ok=True)
     np.savetxt(os.path.join(output_dir, f"{tag}.tsv"), feats, delimiter="\t", fmt="%.6f")
     np.savetxt(os.path.join(output_dir, f"{tag}_labels.tsv"), labels, fmt="%d")
     try:
