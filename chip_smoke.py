@@ -2091,6 +2091,7 @@ def phase9(torch, FA, dev):
 # and ViT-L's. The forward runs (K, N), the dgrad (N, K).
 TRUNK_B = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
 TRUNK_L = {"qkv": (1024, 3072), "proj": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+TRUNK_H = {"qkv": (1280, 3840), "proj": (1280, 1280), "fc1": (1280, 5120), "fc2": (5120, 1280)}
 # (K, N) past every trunk: beit_huge_patch16_224's fc2 contraction, and one
 # past the 6,272 that K6 took before it streamed the contraction.
 WIDE_K = ((5120, 1280), (6400, 384))
@@ -2098,6 +2099,16 @@ WIDE_K = ((5120, 1280), (6400, 384))
 # and of its eval forward at batch 128 (394 * 64).
 M_TRAIN = 160 * 197
 M_EVAL = 128 * 197
+# Tokens of the ViT-H/16 224 train step at batch 32 (98.5 row tiles of 64).
+M_HUGE = 32 * 197
+# Row windows (rows, start, n) of seq shards: ViT-B/16 384's N = 577 over two
+# ranks (289 | 288), ViT-L/16 512's 1025 (513 | 512), a window of 3 rows of 7,
+# and one of 98 of ViT-B/16 224's 197 tokens at 320 images (31,360 rows: the
+# window's time beside the unwindowed call on the same rows), each with its
+# image count.
+QUANT_WINDOWS = (((289, 0, 577), 8), ((288, 289, 577), 8), ((513, 0, 1025), 4),
+                 ((512, 513, 1025), 4), ((3, 2, 7), 5))
+TIMED_WINDOW = ((98, 99, 197), 320)
 
 
 def fenced(torch, t):
@@ -2129,13 +2140,13 @@ def phase10(torch, dev):
     worst = {"bfloat16": 0.0, "float32": 0.0}
     unequal = n_cases = 0
 
-    def held(tag, x, wq, ws, bias, sr, dtype):
+    def held(tag, x, wq, ws, bias, sr, dtype, window=None):
         nonlocal unequal, n_cases
         name = str(dtype)[6:]
         before = TQ.qmm.launches
-        got = TQ.qmm(x, wq, ws, bias, seed, sr, dtype)
+        got = TQ.qmm(x, wq, ws, bias, seed, sr, dtype, window)
         check(TQ.qmm.launches == before + 1, "qmm did not launch K6 once")
-        ref = TQ.qmm_plain(x, wq, ws, bias, seed, sr, dtype)
+        ref = TQ.qmm_plain(x, wq, ws, bias, seed, sr, dtype, window)
         torch.cuda.synchronize()
         check(got.dtype == dtype and got.shape == ref.shape, f"K6 dtype/shape ({tag})")
         check(torch.isfinite(got.float()).all().item(), f"K6 output is not finite ({tag})")
@@ -2216,47 +2227,90 @@ def phase10(torch, dev):
         return (y if bias is None else y + bias).to(x.dtype)
 
     times, main, eval_ms = {}, None, {}
+
+    def timed(key, m, k, n, sr, eval_m=None):
+        """Holds K6 at [m, k] x [k, n] (bf16; nearest with a bias, or
+        stochastic without) and times it in turns beside the yardsticks;
+        with eval_m also held and timed on the first eval_m rows. Returns
+        (the least ms of each, the bound and what bounds it)."""
+        nonlocal worst_abs
+        x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
+        w = torch.randn(n, k, generator=gen, device=dev) * 0.05
+        wq, ws = TQ.quantize_cols(w.t())
+        wb = w.to(torch.bfloat16)
+        bias = None if sr else torch.randn(n, generator=gen, device=dev) * 0.1
+        bias_b = None if bias is None else bias.to(torch.bfloat16)
+        tag = f"{key} M={m} K={k} N={n}"
+        worst_abs = max(worst_abs, held(tag, x, wq, ws, bias, sr, torch.bfloat16))
+        if eval_m is not None:  # evaluate() gives K6 the same layer at its batch
+            x_eval = fenced(torch, x[:eval_m])
+            worst_abs = max(worst_abs, held(f"{key} M={eval_m} K={k} N={n}", x_eval, wq, ws,
+                                            bias, False, torch.bfloat16))
+            eval_ms[key] = cuda_ms(
+                lambda: TQ.qmm(x_eval, wq, ws, bias, seed, False, torch.bfloat16), 5)
+            del x_eval
+        xq = TQ.quantize_rows(x, seed, sr)[0]
+        fns = {"plain": lambda: TQ.qmm_plain(x, wq, ws, bias, seed, sr, torch.bfloat16),
+               "kernel": lambda: TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16),
+               "bf16 F.linear": lambda: torch.nn.functional.linear(x, wb, bias_b),
+               "library": lambda: int_mm_library(x, wq.t(), ws, bias),
+               "torch._int_mm alone": lambda: torch._int_mm(xq, wq)}
+        best, runs = in_turns(fns, 5)
+        split = kernel_split(torch, fns["kernel"])
+        bound_ms, bound_by = bound(nbytes(x, wq, ws, bias) + m * n * 2, 2.0 * m * k * n, "int8")
+        print(f"  K6 {tag} bf16, ms per call: {runs}; K6's two kernels apart: "
+              f"{json.dumps(split)}; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        times[key] = {**{name: best[name] for name in fns}, "bound": bound_ms, "kernels": split}
+        return best, bound_ms, bound_by
+
     for layer, (k_in, n_out) in TRUNK_B.items():
         for what, (k, n), sr in (("forward", (k_in, n_out), False), ("dgrad", (n_out, k_in), True)):
-            x = fenced(torch, torch.randn(M_TRAIN, k, generator=gen, device=dev)
-                       .to(torch.bfloat16))
-            w = torch.randn(n, k, generator=gen, device=dev) * 0.05
-            wq, ws = TQ.quantize_cols(w.t())
-            wb = w.to(torch.bfloat16)
-            bias = None if sr else torch.randn(n, generator=gen, device=dev) * 0.1
-            bias_b = None if bias is None else bias.to(torch.bfloat16)
-            tag = f"{layer} {what} M={M_TRAIN} K={k} N={n}"
-            worst_abs = max(worst_abs, held(tag, x, wq, ws, bias, sr, torch.bfloat16))
-            if what == "forward":  # evaluate() gives K6 the same layers at batch 128
-                x_eval = fenced(torch, x[:M_EVAL])
-                worst_abs = max(worst_abs, held(f"{layer} forward M={M_EVAL} K={k} N={n}",
-                                                x_eval, wq, ws, bias, False, torch.bfloat16))
-                eval_ms[layer] = cuda_ms(
-                    lambda: TQ.qmm(x_eval, wq, ws, bias, seed, False, torch.bfloat16), 5)
-                del x_eval
-            xq = TQ.quantize_rows(x, seed, sr)[0]
-            fns = {"plain": lambda: TQ.qmm_plain(x, wq, ws, bias, seed, sr, torch.bfloat16),
-                   "kernel": lambda: TQ.qmm(x, wq, ws, bias, seed, sr, torch.bfloat16),
-                   "bf16 F.linear": lambda: torch.nn.functional.linear(x, wb, bias_b),
-                   "library": lambda: int_mm_library(x, wq.t(), ws, bias),
-                   "torch._int_mm alone": lambda: torch._int_mm(xq, wq)}
-            best, runs = in_turns(fns, 5)
-            split = kernel_split(torch, fns["kernel"])
-            bound_ms, bound_by = bound(nbytes(x, wq, ws, bias) + M_TRAIN * n * 2,
-                                        2.0 * M_TRAIN * k * n, "int8")
-            print(f"  K6 {tag} bf16, ms per call: {runs}; K6's two kernels apart: "
-                  f"{json.dumps(split)}; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-            times[f"{layer} {what}"] = {**{name: best[name] for name in fns},
-                                        "bound": bound_ms, "kernels": split}
+            best, bound_ms, bound_by = timed(f"{layer} {what}", M_TRAIN, k, n, sr,
+                                             M_EVAL if what == "forward" else None)
             if (layer, what) == ("qkv", "forward"):
                 main = {"ms": best["kernel"], "plain_ms": best["plain"],
                         "library_ms": best["library"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "int_mm_ms": best["torch._int_mm alone"]}
-            del x, w, wq, wb, xq
     print(f"  K6 at evaluate()'s shapes (M={M_EVAL}, bf16, nearest, bias): {n_cases} cases so "
           f"far, {unequal} not equal to the bit; ms per call: "
-          + ", ".join(f"{layer} {t:.4f}" for layer, t in eval_ms.items()), flush=True)
-    times.update({f"{layer} forward M={M_EVAL}": {"kernel": t} for layer, t in eval_ms.items()})
+          + ", ".join(f"{key} {t:.4f}" for key, t in eval_ms.items()), flush=True)
+    times.update({f"{key} M={M_EVAL}": {"kernel": t} for key, t in eval_ms.items()})
+    # ViT-H/16 224's trunk (width 1280, MLP 5120) at its train step's M =
+    # 6,304, forward and dgrad, beside the same yardsticks
+    for layer, (k_in, n_out) in TRUNK_H.items():
+        for what, (k, n), sr in (("forward", (k_in, n_out), False), ("dgrad", (n_out, k_in), True)):
+            timed(f"huge {layer} {what}", M_HUGE, k, n, sr)
+    # the dgrad's stochastic rounding through seq shards' row windows: the
+    # kernel against the plain version and the plain version against the
+    # unsharded matrix's rows, both to the bit
+    before = (n_cases, unequal)
+    # ViT-B's qkv weight [2304, 768] in torch's layout: dgrad is g [*, 2304] · w
+    w = torch.randn(2304, 768, generator=gen, device=dev) * 0.05
+    wq, ws = TQ.quantize_cols(w)
+    for (rows, start, n_tok), images in QUANT_WINDOWS:
+        whole = torch.randn(images, n_tok, 2304, generator=gen, device=dev).to(torch.bfloat16)
+        x = fenced(torch, whole[:, start:start + rows].reshape(-1, 2304))
+        window = (rows, start, n_tok)
+        worst_abs = max(worst_abs, held(f"window {window} of {images} images", x, wq, ws, None,
+                                        True, torch.bfloat16, window))
+        rows_of = TQ.qmm_plain(whole.reshape(-1, 2304), wq, ws, None, seed, True, torch.bfloat16)
+        rows_of = rows_of.reshape(images, n_tok, -1)[:, start:start + rows].reshape(x.shape[0], -1)
+        check(torch.equal(TQ.qmm(x, wq, ws, None, seed, True, torch.bfloat16, window), rows_of),
+              f"K6 through the window {window} is not the unsharded dgrad's rows")
+        del whole, x, rows_of
+    (rows, start, n_tok), images = TIMED_WINDOW
+    x = torch.randn(images * rows, 2304, generator=gen, device=dev).to(torch.bfloat16)
+    worst_abs = max(worst_abs, held(f"window {TIMED_WINDOW[0]} of {images} images", x, wq, ws,
+                                    None, True, torch.bfloat16, TIMED_WINDOW[0]))
+    best, runs = in_turns({
+        "none": lambda: TQ.qmm(x, wq, ws, None, seed, True, torch.bfloat16),
+        "window": lambda: TQ.qmm(x, wq, ws, None, seed, True, torch.bfloat16, TIMED_WINDOW[0])}, 5)
+    print(f"  K6 through row windows (ViT-B/16 384's and ViT-L/16 512's shards, a 3-of-7 one): "
+          f"{n_cases - before[0]} cases, {unequal - before[1]} not equal to the bit, each the "
+          f"unsharded dgrad's rows to the bit; qkv's dgrad at M={x.shape[0]} (bf16, stochastic), "
+          f"ms per call without / through the window {TIMED_WINDOW[0]}: {runs}", flush=True)
+    times["window qkv dgrad"] = dict(best)
+    del w, wq, x
     return {"max_abs_err": worst_abs, **main, "other_ms": times}
 
 
@@ -2316,11 +2370,16 @@ def phase11(torch, dev):
         return torch._int_mm(xq_t, gq).float() * sx.reshape(-1, 1) * sg
 
     times, main, worst = {}, None, 0.0
-    for layer, (k, n) in TRUNK_B.items():
-        x = fenced(torch, torch.randn(M_TRAIN, k, generator=gen, device=dev).to(torch.bfloat16))
-        g = fenced(torch, (torch.randn(M_TRAIN, n, generator=gen, device=dev) * 0.01)
+
+    def timed(key, m, k, n):
+        """Holds K7 at x [m, k], g [m, n] (bf16) and times it in turns beside
+        the yardsticks. Returns (the least ms of each, the bound and what
+        bounds it)."""
+        nonlocal worst
+        x = fenced(torch, torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
+        g = fenced(torch, (torch.randn(m, n, generator=gen, device=dev) * 0.01)
                    .to(torch.bfloat16))
-        tag = f"{layer} M={M_TRAIN} K={k} N={n}"
+        tag = f"{key} M={m} K={k} N={n}"
         worst = max(worst, held(tag, x, g))
         sx, sg = TQ._col_scales(x), TQ._col_scales(g)
         inv_x, inv_g = sx.reciprocal(), sg.reciprocal()
@@ -2335,19 +2394,69 @@ def phase11(torch, dev):
                "torch._int_mm alone": lambda: torch._int_mm(xq_t, gq)}
         best, runs = in_turns(fns, 5)
         split = kernel_split(torch, fns["launcher alone"])
-        bound_ms, bound_by = bound(nbytes(x, g, inv_x, inv_g) + k * n * 4,
-                                    2.0 * M_TRAIN * k * n, "int8")
+        bound_ms, bound_by = bound(nbytes(x, g, inv_x, inv_g) + k * n * 4, 2.0 * m * k * n,
+                                   "int8")
         print(f"  K7 {tag} bf16, ms per call (\"kernel\" is wgrad() with its column-scale and "
               f"dequantizing passes, \"launcher alone\" K7's two kernels): {runs}; the "
               f"launcher's kernels apart: {json.dumps(split)}; bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
-        times[layer] = {**{name: best[name] for name in fns}, "bound": bound_ms,
-                        "kernels": split}
+        times[key] = {**{name: best[name] for name in fns}, "bound": bound_ms, "kernels": split}
+        return best, bound_ms, bound_by
+
+    for layer, (k, n) in TRUNK_B.items():
+        best, bound_ms, bound_by = timed(layer, M_TRAIN, k, n)
         if layer == "qkv":
             main = {"ms": best["kernel"], "plain_ms": best["plain"],
                     "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
                     "int_mm_ms": best["torch._int_mm alone"]}
-        del x, g, xq_t, gq
+    # ViT-H/16 224's trunk at its train step's M = 6,304
+    for layer, (k, n) in TRUNK_H.items():
+        timed(f"huge {layer}", M_HUGE, k, n)
+    # g's stochastic rounding through seq shards' row windows (ViT-B's qkv
+    # shape): the kernel's int32 sums equal the plain version's, and the
+    # shards' sums of one sequence (with the whole trunk's column scales)
+    # add up to the unsharded call's exactly
+    k, n = TRUNK_B["qkv"]
+    wholes, sums, shards = {}, {}, {}
+    for (rows, start, n_tok), images in QUANT_WINDOWS:
+        if n_tok not in wholes:
+            x = torch.randn(images, n_tok, k, generator=gen, device=dev).to(torch.bfloat16)
+            g = (torch.randn(images, n_tok, n, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+            inv = (TQ._col_scales(x.reshape(-1, k)).reciprocal(),
+                   TQ._col_scales(g.reshape(-1, n)).reciprocal())
+            wholes[n_tok] = (x, g, inv)
+        x, g, (inv_x, inv_g) = wholes[n_tok]
+        window = (rows, start, n_tok)
+        xl = fenced(torch, x[:, start:start + rows].reshape(-1, k))
+        gl = fenced(torch, g[:, start:start + rows].reshape(-1, n))
+        acc = TQ.wgrad_acc(xl, gl, inv_x, inv_g, seed, window)
+        ref = TQ.wgrad_acc_plain(xl, gl, inv_x, inv_g, seed, window)
+        check(torch.equal(acc, ref), f"K7's sums through the window {window} differ from the "
+              "plain version's")
+        sums[n_tok] = sums.get(n_tok, 0) + acc.long()
+        shards[n_tok] = shards.get(n_tok, 0) + rows
+        n_cases += 1
+    for n_tok, (x, g, (inv_x, inv_g)) in wholes.items():
+        whole = TQ.wgrad_acc(x.reshape(-1, k), g.reshape(-1, n), inv_x, inv_g, seed)
+        if shards[n_tok] == n_tok:  # every rank's shard
+            check(torch.equal(sums[n_tok], whole.long()),
+                  f"two shards' int32 sums of N={n_tok} do not add up to the unsharded call's")
+    (rows, start, n_tok), images = TIMED_WINDOW
+    x = torch.randn(images * rows, k, generator=gen, device=dev).to(torch.bfloat16)
+    g = (torch.randn(images * rows, n, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    inv_x, inv_g = TQ._col_scales(x).reciprocal(), TQ._col_scales(g).reciprocal()
+    check(torch.equal(TQ.wgrad_acc(x, g, inv_x, inv_g, seed, TIMED_WINDOW[0]),
+                      TQ.wgrad_acc_plain(x, g, inv_x, inv_g, seed, TIMED_WINDOW[0])),
+          f"K7's sums through the window {TIMED_WINDOW[0]} differ from the plain version's")
+    best, runs = in_turns({
+        "none": lambda: TQ.wgrad_acc(x, g, inv_x, inv_g, seed),
+        "window": lambda: TQ.wgrad_acc(x, g, inv_x, inv_g, seed, TIMED_WINDOW[0])}, 5)
+    print(f"  K7 through row windows: {len(QUANT_WINDOWS) + 1} cases equal to the plain version's "
+          f"int32 sums, the two shards of N = 577 and of N = 1025 adding up to the unsharded "
+          f"call's; qkv at M={x.shape[0]}, K7's two kernels, ms per call without / through the "
+          f"window {TIMED_WINDOW[0]}: {runs}", flush=True)
+    times["window qkv"] = dict(best)
+    del wholes, x, g
     return {"max_abs_err": worst, **main, "other_ms": times}
 
 
@@ -7633,7 +7742,602 @@ def phase25(torch, FA, dev):
     return paths
 
 
+# Phase 26: the int8 trunk at the large presets, int8 training over two
+# ranks, the golden-weights tool. Per path: (preset, eval batch, eval
+# batches, train batch). Each model's head is drawn at std 0.5 and its
+# rel-pos table at 0.2, so that the logits stand clear of the int8 noise.
+PHASE26_MODELS = {"large": ("beit_large_patch16_512", 16, 2, 8),
+                  "huge": ("beit_huge_patch16_224", 64, 2, 32)}
+# The two-rank int8 step against one process, in f32 (--dtype float32: in
+# bf16 the ranks' partial dk, dv round to bf16 before the group sum, a last
+# bit that moves many rounding decisions). As
+# tests/test_torch_port_int8_large.py holds it on the CPU: the loss and the
+# gradient norm at rtol 1e-6 (SEQ_INT8_SUM_REL), the ranks' parameters
+# after the step equal, and the gradients within 1e-3 in norm, here all of
+# them together (SEQ_INT8_TOTAL_REL). The last-bit differences of the
+# group's f32 sums reach every token's gradient, and a stochastic rounding
+# decision within them of its threshold lands on the neighbouring int8
+# value. At ViT-B's twelve blocks and 4,616 rows such flips reach nearly
+# every entry of every gradient (the CPU test's narrow model had one), and
+# a flip in a dgrad moves a whole row of dx by a quantum, 1/127 of the
+# row's largest: the cls token's gradient sums 8 rows, so each tensor is
+# held within two quanta, 2/127 in norm (SEQ_INT8_TENSOR_REL; measured
+# 1.21e-2 on the cls token, 1.3e-3 and below elsewhere, 1.09e-4 over all).
+# The parameters' update against one process's is printed, not held:
+# Adam's first update is about lr·sign(g), so an entry whose gradient a
+# flip moves across 0 moves by 2·lr.
+SEQ_INT8_SUM_REL = 1e-6
+SEQ_INT8_TOTAL_REL, SEQ_INT8_TENSOR_REL = 1e-3, 2.0 / 127.0
+
+
+@contextlib.contextmanager
+def step0_capture(torch, FT, counts):
+    """Inside, the driver's first train step is recorded: its metrics and
+    launches, and by parameter name its gradients, the parameters before and
+    after it (on the card)."""
+    rec = {}
+    make_step = FT.make_finetune_train_step
+
+    def recording_make_step(model, *a, **k):
+        step = make_step(model, *a, **k)
+
+        def recorded(state, *args):
+            first = "metrics" not in rec
+            before_n = counts()
+            before = {n: p.detach().clone() for n, p in model.named_parameters()} if first \
+                else None
+            m = step(state, *args)
+            if first:
+                after = counts()
+                rec.update(metrics={k: float(v) for k, v in m.items()},
+                           launches={k: after[k] - before_n[k] for k in after}, before=before,
+                           grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                           after={n: p.detach().clone() for n, p in model.named_parameters()})
+            return m
+
+        return recorded
+
+    FT.make_finetune_train_step = recording_make_step
+    try:
+        yield rec
+    finally:
+        FT.make_finetune_train_step = make_step
+
+
+def seq_int8_held(torch, got, ref) -> dict:
+    """Each gradient and each parameter update of ``got`` (step-0 records of
+    step0_capture) against ``ref``, by parameter name: the share of entries
+    off by more than SEQ_INT8_SUM_REL of the tensor's largest, the norm of
+    the difference over the tensor's norm, and the largest difference of
+    the update; and the squared norms of all gradients and of their
+    differences ("total")."""
+    out, d2, g2 = {}, 0.0, 0.0
+    for name, g_ref in ref["grads"].items():
+        row = {}
+        pairs = (("grad", got["grads"][name], g_ref),
+                 ("update", got["after"][name] - got["before"][name],
+                  ref["after"][name] - ref["before"][name]))
+        for what, a, b in pairs:
+            a, b = a.double(), b.double()
+            d = (a - b).abs()
+            row[f"{what}_off"] = (d > SEQ_INT8_SUM_REL * b.abs().max()).double().mean().item()
+            row[f"{what}_rel"] = (d.norm() / b.norm().clamp_min(1e-30)).item()
+            row[f"{what}_max"] = d.max().item()
+            if what == "grad":
+                d2 += d.square().sum().item()
+                g2 += b.square().sum().item()
+        out[name] = row
+    out["total"] = {"diff_sq": d2, "grad_sq": g2}
+    return out
+
+
+def int8_seq_rank(group, device, argv, ref_path):
+    """One rank of phase 26c: the driver's body (``cli.finetune.run_rank``)
+    trains one int8 step with this rank's tokens on the one card. Returns
+    its launches, its step-0 metrics, and its gradients and update held
+    against one process's, saved at ref_path (seq_int8_held)."""
+    import torch
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    reset_kernel_counts(FA, TQ, DO)
+    t = time.perf_counter()
+    with step0_capture(torch, FT, counts) as rec:
+        FT.run_rank(group, FT.get_args_parser().parse_args(argv), device)
+    torch.cuda.synchronize()
+    out = {"launches": counts(), "step": rec["launches"], "metrics": rec["metrics"],
+           "s": time.perf_counter() - t}
+    ref = torch.load(ref_path, map_location=device)
+    out["held"] = seq_int8_held(torch, rec, ref)
+    out["digest"] = [float(p.double().sum()) for p in rec["after"].values()]
+    return out
+
+
+def phase26_model(torch, FA, dev, tag, init):
+    """(a), (b): the full-depth model of PHASE26_MODELS[tag] with the int8
+    trunk on the state ``init``: evaluate() over its eval batches (launches,
+    metrics finite), the logits against K6's plain version, 3 train steps
+    (launches, every parameter finite and moved), one step against K6's and
+    K7's plain versions (phase 4's bounds); the int8 forward and step beside
+    the bf16 trunk's in turns, and their peak memory (information only).
+    Returns the launches of each path."""
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.evals.classification import evaluate, make_eval_forward
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
+    )
+
+    preset, bs, nb, bs_t = PHASE26_MODELS[tag]
+    kw = dict(use_shared_rel_pos_bias=True, init_values=0.1)
+    cfg = get_preset(preset, quant="int8", **kw)
+    n_tok, depth, size = cfg.num_patches + 1, cfg.depth, cfg.img_size
+    for m in (bs * n_tok, bs_t * n_tok):
+        check(TQ.supported(m, cfg.embed_dim, 3 * cfg.embed_dim), f"{preset}'s trunk of {m} rows "
+              "is not int8")
+    stream = n_tok > 256
+    attn_eval = {"K3": depth * nb} if stream else {"K1": depth * nb}
+    attn_step = {"K3": depth, "K4": depth} if stream else {"K1": depth, "K2": depth}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    qmm, wgrad = TQ.qmm, TQ.wgrad  # the counting wrappers, also inside quant_on_plain()
+
+    def counts():
+        return {**attention_counts(FA), **cross_counts(FA), "K6": qmm.launches,
+                "K7": wgrad.launches, "K8": DO.fused_dropout.launches}
+
+    none = {k: 0 for k in counts()}
+    model = VisionTransformer(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(init)
+    bf16_model = VisionTransformer(cfg.replace(quant="none"), dtype=torch.bfloat16, device=dev)
+    bf16_model.load_state_dict(init)
+    images = [torch.randint(0, 256, (bs, size, size, 3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(nb)]
+    labels = [torch.randint(0, cfg.num_classes, (bs,), generator=gen, device=dev)
+              for _ in range(nb)]
+
+    def batches():
+        for u8, lbl in zip(images, labels):
+            yield normalize(to_float(u8), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD), lbl
+
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(FA, TQ, DO)
+    metrics = evaluate(model, batches())
+    torch.cuda.synchronize()
+    key = f"{tag}_int8_evaluate"
+    launches[key] = counts()
+    peak_eval = torch.cuda.max_memory_allocated() / 2**30
+    want = dict(none, K6=4 * depth * nb, **attn_eval)
+    print(f"  ({tag}) {preset} int8, N={n_tok}: evaluate() over {nb} batches of {bs}: launches "
+          f"{launches[key]}; {json.dumps(metrics)}", flush=True)
+    check(launches[key] == want, f"{tag} int8 evaluate() launched {launches[key]}, expected {want}")
+    check(all(math.isfinite(v) for v in metrics.values()), "non-finite metric")
+    fwd, bf16_fwd = make_eval_forward(model), make_eval_forward(bf16_model)
+    x0 = next(batches())[0]
+    logits = fwd(x0)
+    check(tuple(logits.shape) == (bs, cfg.num_classes) and torch.isfinite(logits).all().item(),
+          f"{tag} int8 logits are not finite")
+    with quant_on_plain(TQ):
+        before = counts()
+        ref = fwd(x0)
+        check(counts()["K6"] == before["K6"], "the plain reference forward launched K6")
+    diff, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
+    exact = bf16_fwd(x0)
+    print(f"  logits K6 vs its plain version: max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio "
+          f"{diff / scale:.3e} (bound {LOGIT_REL_BOUND}); int8 vs bf16 trunk on the same weights: "
+          f"ratio {(logits - exact).abs().max().item() / exact.abs().max().item():.3e}",
+          flush=True)
+    check(diff <= LOGIT_REL_BOUND * scale, f"{tag} int8 logits disagree with K6's plain version's")
+    _, runs = in_turns({"bf16": lambda: bf16_fwd(x0), "int8": lambda: fwd(x0)}, 3)
+    print(f"  eval forward img/s at batch {bs} (information only): int8 "
+          f"{[bs * 1000 / ms for ms in runs['int8']]}, bf16 trunk "
+          f"{[bs * 1000 / ms for ms in runs['bf16']]}; peak memory of evaluate() {peak_eval:.2f} "
+          "GiB", flush=True)
+    del model, bf16_model, fwd, bf16_fwd, logits, ref, exact, images, x0
+
+    # --- the finetune step (phase 9's: batch mixup, AdamW, layer decay 0.75)
+    def build(**overrides):
+        return large_512_model(torch, dev, init, train=True, preset=preset, quant="int8",
+                               **overrides)
+
+    x = torch.randn(bs_t, size, size, 3, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (bs_t,), generator=gen, device=dev)
+    tmodel, state, step = build()
+    n_steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(FA, TQ, DO)
+    ms = [step(state, x, y, *large_512_gens(torch, dev, 11 + i)) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    key = f"{tag}_int8_train_step"
+    launches[key] = counts()
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    want = dict(none, K6=8 * depth * n_steps, K7=4 * depth * n_steps,
+                **{k: v * n_steps for k, v in attn_step.items()})
+    print(f"  {n_steps} steps at batch {bs_t}: launches {launches[key]}; " + "; ".join(
+        f"loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}" for m in ms),
+        flush=True)
+    check(launches[key] == want, f"{tag} int8 steps launched {launches[key]}, expected {want}")
+    check(all(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+              for m in ms), "non-finite loss or grad norm")
+    moved = 0
+    for k, v in tmodel.state_dict().items():
+        check(torch.isfinite(v).all().item(), f"non-finite parameter {k}")
+        moved += int(not torch.equal(v, init[k]))
+    check(moved == len(init), f"only {moved} of {len(init)} parameter tensors changed")
+    del tmodel
+    # one step from the same weights and seeds on the kernels and on their
+    # plain versions (the same rounding bits)
+    _, st_k, step_k = build()
+    reset_kernel_counts(FA, TQ, DO)
+    m_k = step_k(st_k, x, y, *large_512_gens(torch, dev, 30))
+    torch.cuda.synchronize()
+    launches[f"{tag}_int8_train_step_held"] = counts()
+    del st_k, step_k
+    _, st_p, step_p = build()
+    before = counts()
+    with quant_on_plain(TQ):
+        m_p = step_p(st_p, x, y, *large_512_gens(torch, dev, 30))
+    torch.cuda.synchronize()
+    check(counts()["K6"] == before["K6"] and counts()["K7"] == before["K7"],
+          "the plain reference step launched K6 or K7")
+    del st_p, step_p
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    print(f"  one step, K6/K7 vs their plain versions: loss {loss_k:.6f} / {loss_p:.6f}, grad "
+          f"norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+    check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+          f"the {tag} int8 step's loss disagrees with the plain versions'")
+    check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+          f"the {tag} int8 step's grad norm disagrees with the plain versions'")
+    # the int8 step beside the bf16 trunk's, in turns
+    _, st_b, step_b = large_512_model(torch, dev, init, train=True, preset=preset)
+    rates = {"int8": [], "bf16": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        st, fn = (state, step) if name == "int8" else (st_b, step_b)
+        g = large_512_gens(torch, dev, 20)
+        rates[name].append(bs_t * 1000.0 / cuda_ms(lambda: fn(st, x, y, *g), 3))
+    print(f"  train step img/s at batch {bs_t} (information only): int8 {rates['int8']}, bf16 "
+          f"trunk {rates['bf16']}; peak memory of the {n_steps} int8 steps {peak_train:.2f} GiB",
+          flush=True)
+    return launches
+
+
+def phase26_init(torch, dev, tag):
+    """The weights of PHASE26_MODELS[tag]: ViT-L/16 512's carried from a 224
+    model of the same width by resize_state_dict (phase 9's carry); ViT-H's
+    drawn at 224. The rel-pos table at std 0.2, the head at 0.5."""
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.utils.checkpoint import resize_state_dict
+
+    preset = PHASE26_MODELS[tag][0]
+    kw = dict(use_shared_rel_pos_bias=True, init_values=0.1)
+    gen = torch.Generator(device=dev).manual_seed(260)
+    low_preset = "beit_large_patch16_224" if tag == "large" else preset
+    low = VisionTransformer(get_preset(low_preset, **kw), dtype=torch.bfloat16, device=dev,
+                            generator=gen)
+    trunc_normal(0.2, 2.0)(low.rel_pos_bias.relative_position_bias_table, gen)
+    trunc_normal(0.5, 2.0)(low.head.weight, gen)
+    if low_preset == preset:
+        return {k: v.detach().clone() for k, v in low.state_dict().items()}
+    model = VisionTransformer(get_preset(preset, **kw), dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(resize_state_dict(low.state_dict(), model), strict=True)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase26_driver(torch, FA, dev, tmp, tag, pth, images, train_images=None):
+    """(a), (b): cli.finetune --quant int8 at the preset of
+    PHASE26_MODELS[tag] from ``pth`` over CIFAR-100 images: --eval (launches,
+    the printed metrics against a CPU recomputation from the driver's own
+    logits, those logits against K6's plain version's), and with
+    ``train_images`` a 2-step epoch and its evaluation (launches per step).
+    Returns the launches of each run."""
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    preset, bs, _, bs_t = PHASE26_MODELS[tag]
+    size = 512 if tag == "large" else 224
+    depth = {"large": 24, "huge": 32}[tag]
+    n_tok = (size // 16) ** 2 + 1
+    stream = n_tok > 256
+    ev, tr = os.path.join(tmp, f"{tag}_eval"), os.path.join(tmp, f"{tag}_train")
+    n_test = len(images)
+    write_cifar100(ev, images, np.arange(n_test) % 100)
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    def args_of(root, batch, *extra):
+        return FT.get_args_parser().parse_args([
+            "--model", preset, "--input_size", str(size), "--data_set", "CIFAR100",
+            "--data_path", root, "--batch_size", str(batch), "--num_workers", "8",
+            "--finetune", pth, "--output_dir", os.path.join(tmp, f"{tag}_out"), "--quant", "int8",
+            *extra])
+
+    def attn(n_fwd, n_bwd=0):
+        return ({"K3": depth * n_fwd, "K4": depth * n_bwd} if stream
+                else {"K1": depth * n_fwd, "K2": depth * n_bwd})
+
+    args = args_of(ev, bs, "--eval")
+    reset_kernel_counts(FA, TQ, DO)
+    t0 = time.perf_counter()
+    res = FT.main(args)["eval"]
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    paths = {f"cli16_{tag}_int8_eval": counts()}
+    none = {k: 0 for k in counts()}
+    n_fwd = -(-n_test // bs)
+    want = dict(none, K6=4 * depth * n_fwd, **attn(n_fwd))
+    print(f"  ({tag}) cli.finetune --model {preset} --input_size {size} --quant int8 --eval "
+          f"({n_test} images at batch {bs}): launches {paths[f'cli16_{tag}_int8_eval']}; "
+          f"{json.dumps(res)}; main() {eval_s:.2f} s with the model build and the .pth import",
+          flush=True)
+    check(paths[f"cli16_{tag}_int8_eval"] == want,
+          f"the {tag} int8 --eval launched {paths[f'cli16_{tag}_int8_eval']}, expected {want}")
+    model, _ = FT.build_model(args, 100, dev)
+    FT.load_variables(args, model)
+    loader, _ = B.build_loaders(args, is_train=False)
+    fwd = make_eval_forward(model)
+    logits, lab = collect_logits(fwd, FT._eval_batches(loader, args, dev))
+    with quant_on_plain(TQ):
+        ref, _ = collect_logits(fwd, FT._eval_batches(loader, args, dev))
+    del model, fwd
+    check(logits.shape == (n_test, 100) and np.isfinite(logits).all(), f"logits {logits.shape}")
+    diff, scale = float(np.abs(logits - ref).max()), float(np.abs(ref).max())
+    print(f"  --eval logits vs K6's plain version's on the same transformed images: "
+          f"max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio {diff / scale:.3e} (bound "
+          f"{LOGIT_REL_BOUND})", flush=True)
+    check(diff <= LOGIT_REL_BOUND * scale, f"the driver's {tag} int8 logits disagree with K6's "
+          "plain version's")
+    on_cpu = {k: float(v) for k, v in M.classification_metrics(
+        torch.from_numpy(logits), torch.from_numpy(lab)).items()}
+    on_cpu["loss"] = on_cpu["nll"]
+    check(sorted(res) == sorted(on_cpu), f"--eval metric keys {sorted(res)}")
+    for k, v in on_cpu.items():
+        check(abs(res[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+              f"--eval printed {k} {res[k]}, recomputed on the CPU {v}")
+    if train_images is None:
+        return paths
+    # --- one train epoch of 2 steps and its evaluation of the first 2 batches
+    spe, n_eval_images = 2, 2 * bs_t
+    write_cifar100(tr, train_images, np.arange(len(train_images)) % 100, "train")
+    write_cifar100(tr, images[:n_eval_images], np.arange(n_eval_images) % 100)
+    reset_kernel_counts(FA, TQ, DO)
+    with watched_driver(torch, FT, counts) as rec:
+        t0 = time.perf_counter()
+        FT.main(args_of(tr, bs_t, "--epochs", "1", "--steps_per_epoch", str(spe),
+                        "--no_save_ckpt", "--no_auto_resume", "--layer_decay", "0.75",
+                        "--drop_path", "0.1"))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        rec.pop("model", None)
+    key = f"cli16_{tag}_int8_train"
+    paths[key] = counts()
+    n_eval = n_eval_images // bs_t
+    want = dict(none, K6=(8 * spe + 4 * n_eval) * depth, K7=4 * depth * spe,
+                **attn(spe + n_eval, spe))
+    print(f"  train epoch of {spe} steps at batch {bs_t} and its evaluation of {n_eval_images} "
+          f"images: launches {paths[key]}; losses "
+          + ", ".join(f"{float(r['metrics']['loss']):.5f}" for r in rec["steps"])
+          + f"; main() {train_s:.2f} s", flush=True)
+    check(paths[key] == want, f"the {tag} int8 epoch launched {paths[key]}, expected {want}")
+    step_want = dict(none, K6=8 * depth, K7=4 * depth, **attn(1, 1))
+    check(len(rec["steps"]) == spe and all(r["launches"] == step_want for r in rec["steps"]),
+          f"the driver's int8 steps launched {[r['launches'] for r in rec['steps']]}")
+    check(rec["steps"][1]["moved"], "the driver's int8 step 1 left the parameters")
+    for r in rec["steps"]:
+        for k in ("loss", "grad_norm"):
+            check(math.isfinite(float(r["metrics"][k])), f"step {r['step']} {k}")
+    gc.collect()  # the held optimizer sits in reference cycles
+    return paths
+
+
+def phase26_seq(torch, FA, dev, tmp):
+    """(c) cli.finetune --quant int8 --seq_parallel 2 at ViT-B/16 384 (N =
+    577, split 289 | 288; phase 18's flags without accumulation and masking)
+    from phase 18's 224 .pth, two gloo ranks sharing the card, one step at
+    --dtype float32 against the same step in one process: loss, gradient
+    norm and the gradients at the bounds SEQ_INT8_* says, the ranks equal.
+    Returns the launches of each run."""
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    depth, bs = 12, 8
+    rs = np.random.RandomState(18)
+    root = os.path.join(tmp, "seq")
+    write_cifar100(root, rs.randint(0, 256, (2 * bs, 32, 32, 3), dtype=np.uint8),
+                   np.arange(2 * bs) % 100, "train")
+    write_cifar100(root, rs.randint(0, 256, (bs, 32, 32, 3), dtype=np.uint8), np.arange(bs) % 100)
+    pth = os.path.join(tmp, "vitb224_seq.pth")
+    write_vitb_pth(torch, dev, get_preset("beit_base_patch16_224", num_classes=100,
+                                          use_shared_rel_pos_bias=True, use_abs_pos_emb=False,
+                                          init_values=0.1), pth, 180)
+
+    def argv(out_dir, dtype, *extra):
+        return ["--model", "beit_base_patch16_384", "--input_size", "384", "--data_set",
+                "CIFAR100", "--data_path", root, "--num_workers", "8", "--finetune", pth,
+                "--output_dir", os.path.join(tmp, out_dir), "--layer_decay", "0.65",
+                "--drop_path", "0.1", "--warmup_epochs", "0", "--no_auto_resume",
+                "--batch_size", str(bs), "--mixup", "0", "--cutmix", "0", "--quant", "int8",
+                "--dtype", dtype, "--epochs", "1", "--steps_per_epoch", "1",
+                "--disable_eval_during_finetuning", "--no_save_ckpt", *extra]
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    none = {k: 0 for k in counts()}
+    paths = {}
+    # the one process's step 0, its gradients and update saved for the ranks
+    reset_kernel_counts(FA, TQ, DO)
+    with step0_capture(torch, FT, counts) as one:
+        FT.main(FT.get_args_parser().parse_args(argv("one", "float32")))
+    torch.cuda.synchronize()
+    paths["cli16_int8_step_f32"] = counts()
+    check(one["launches"] == dict(none, K3=depth, K4=depth, K6=8 * depth, K7=4 * depth),
+          f"the one-process int8 step launched {one['launches']}")
+    ref_path = os.path.join(tmp, "int8_step0.pt")
+    torch.save({k: one[k] for k in ("grads", "before", "after")}, ref_path)
+    one_metrics = one["metrics"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = seq.run_ranks(int8_seq_rank, 2, str(dev), argv("seq", "float32", "--seq_parallel", "2"),
+                          ref_path, timeout=600.0)
+    secs = time.perf_counter() - t0
+    step_want = dict(none, K5=depth, K5_bwd=depth, K6=8 * depth, K7=4 * depth)
+    for r, res in enumerate(ranks):
+        held = res["held"]
+        total = held.pop("total")
+        rel = (total["diff_sq"] / total["grad_sq"]) ** 0.5
+        worst = sorted(held, key=lambda k: -held[k]["grad_rel"])[:8]
+        print(f"  (c) rank {r}: step launches {res['step']}; loss {res['metrics']['loss']:.7f}, "
+              f"grad norm {res['metrics']['grad_norm']:.7f} (one process: "
+              f"{one_metrics['loss']:.7f}, {one_metrics['grad_norm']:.7f}); all gradients' "
+              f"difference over their norm {rel:.3e}; the worst tensors: "
+              + "; ".join(f"{k} {json.dumps(held[k])}" for k in worst), flush=True)
+        res["total_rel"] = rel
+        check(res["step"] == step_want, f"rank {r}'s int8 step launched {res['step']}")
+    a, b = ranks
+    check(a["metrics"] == b["metrics"] and a["digest"] == b["digest"],
+          "the two ranks' int8 steps differ")
+    for k in ("loss", "grad_norm"):
+        check(abs(a["metrics"][k] - one_metrics[k]) <= SEQ_INT8_SUM_REL * abs(one_metrics[k]),
+              f"the two-rank int8 step's {k} disagrees with one process's")
+    check(a["total_rel"] <= SEQ_INT8_TOTAL_REL, f"the two-rank int8 gradients differ from one "
+          f"process's by {a['total_rel']:.3e} of their norm")
+    worst = max(a["held"], key=lambda k: a["held"][k]["grad_rel"])
+    check(a["held"][worst]["grad_rel"] <= SEQ_INT8_TENSOR_REL, f"the two-rank int8 gradient of "
+          f"{worst} differs from one process's by {a['held'][worst]['grad_rel']:.3e} of its norm")
+    paths["cli16_seq2_int8_step_f32"] = {k: a["launches"][k] + b["launches"][k]
+                                         for k in a["launches"]}
+    print(f"  (c) two ranks, f32: {secs:.1f} s from start to end (information only: the ranks "
+          "share one card over gloo)", flush=True)
+    return paths
+
+
+def phase26_golden(torch, FA, dev, tmp):
+    """(d) tools/torch_port_golden_eval.py on phase 16's .pth and images (the
+    same seeds): its line equals the driver's --eval result in this run,
+    printed as the reference prints it, and --expect of that triple passes
+    while a loss 0.02 off exits 1."""
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_port_golden_eval as GE
+
+    rs = np.random.RandomState(16)
+    images = rs.randint(0, 256, (1024, 32, 32, 3), dtype=np.uint8)
+    root = os.path.join(tmp, "golden")
+    write_cifar100(root, images, np.arange(1024) % 100)
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+    pth = os.path.join(tmp, "golden_a.pth")
+    write_vitb_pth(torch, dev, cfg, pth, 160)
+    argv = ["--pth", pth, "--model", "beit_base_patch16_224", "--data_path", root,
+            "--data_set", "CIFAR100", "--input_size", "224", "--batch_size", "128",
+            "--num_workers", "8", "--output_dir", os.path.join(tmp, "golden_out")]
+    a = GE.get_args_parser().parse_args(argv)
+    direct = FT.main(FT.get_args_parser().parse_args(GE.build_cli_argv(a)))["eval"]
+    reset_kernel_counts(FA, TQ, DO)
+    out = GE.run(a)
+    torch.cuda.synchronize()
+    paths = {"cli16_golden_eval": kernel_counts(FA, TQ, DO)}
+    line = (f"* Acc@1 {direct['acc1']:.3f} Acc@5 {direct['acc5']:.3f} "
+            f"loss {direct['nll']:.3f}")
+    print(f"  (d) tools/torch_port_golden_eval.py: {out['line']!r}; the driver's --eval in this "
+          f"run: {line!r}; launches {paths['cli16_golden_eval']}", flush=True)
+    check(out["line"] == line and (out["acc1"], out["acc5"], out["loss"]) == (
+        float(direct["acc1"]), float(direct["acc5"]), float(direct["nll"])),
+          "the golden tool's numbers differ from the driver's --eval")
+    check(paths["cli16_golden_eval"]["K1"] == 12 * 8, f"the golden tool launched "
+          f"{paths['cli16_golden_eval']}")
+    triple = f"{out['acc1']:.3f},{out['acc5']:.3f},{out['loss']:.3f}"
+    check(GE.main(argv + ["--expect", triple]) == 0, "--expect of the measured triple failed")
+    off = f"{out['acc1']:.3f},{out['acc5']:.3f},{out['loss'] + 0.02:.3f}"
+    check(GE.main(argv + ["--expect", off]) == 1, "--expect 0.02 off the loss passed")
+    return paths
+
+
+def phase26(torch, FA, dev):
+    """Slice 16 on the card: the int8 trunk of ViT-L/16 512 (K3/K4 with
+    K6/K7) and of ViT-H/16 224 (K1/K2 with K6/K7 at D = 80): their
+    evaluate(), train steps and the finetune driver (a, b); the int8 step
+    over two gloo ranks against one process (c); the golden-weights tool
+    (d). Returns the launches of each path."""
+    import tempfile
+
+    import numpy as np
+
+    bounded = FA.BOUNDED_SCORES
+    FA.BOUNDED_SCORES = True  # as cli/finetune.py trains and evaluates
+    paths = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rs = np.random.RandomState(26)
+            for tag, (n_test, n_train) in (("large", (32, 0)), ("huge", (128, 64))):
+                t0 = time.perf_counter()
+                init = phase26_init(torch, dev, tag)
+                paths.update(phase26_model(torch, FA, dev, tag, init))
+                gc.collect()
+                torch.cuda.empty_cache()
+                # the driver's .pth: the same weights with a 100-class head,
+                # ViT-L's at 224 (the driver's import carries it to 512)
+                from uncertainty_vit_tpu_torch.core.config import get_preset
+                low = "beit_large_patch16_224" if tag == "large" else PHASE26_MODELS[tag][0]
+                pth = os.path.join(tmp, f"{tag}.pth")
+                write_vitb_pth(torch, dev, get_preset(low, num_classes=100,
+                                                      use_shared_rel_pos_bias=True,
+                                                      use_abs_pos_emb=False, init_values=0.1),
+                               pth, 261)
+                del init
+                images = rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8)
+                train = rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8) if n_train \
+                    else None
+                paths.update(phase26_driver(torch, FA, dev, tmp, tag, pth, images, train))
+                os.remove(pth)
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"  ({tag}) took {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            paths.update(phase26_seq(torch, FA, dev, tmp))
+            print(f"  (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            paths.update(phase26_golden(torch, FA, dev, tmp))
+            print(f"  (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -7726,6 +8430,9 @@ def main() -> int:
                     "ViT-B/16 384: MC-dropout (K8's row window), the SNGP and het heads, -C, -P, "
                     "--laplace, --temp_scaling, --visualize_embedding, against one process",
                 phase25, torch, FA, dev)
+    cli16 = run(26, "slice 16: the int8 trunk of ViT-L/16 512 and ViT-H/16 224 (evaluate(), "
+                    "train steps, the driver), the int8 step over two gloo ranks against one "
+                    "process, the golden-weights tool", phase26, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -7858,8 +8565,20 @@ def main() -> int:
         kern["launches_by_path"].update({p: n[key] for p, n in huge.items() if n[key]})
         kern["launches"] = sum(kern["launches_by_path"].values())
         kern["d80"] = d80[key]
+    # and phase 26's ("large_int8_", "huge_int8_": the int8 trunk of ViT-L/16
+    # 512 and ViT-H/16 224; "cli16_": the driver's int8 runs at those presets,
+    # the int8 step at ViT-B/16 384 in one process and over two ranks (summed),
+    # the golden-weights tool)
+    for kern, keys in ((kernels[0], ("K1",)), (kernels[1], ("K2",)), (kernels[2], ("K3",)),
+                       (kernels[3], ("K4",)), (kernels[5], ("K6",)), (kernels[6], ("K7",)),
+                       (kernels[7], ("K5", "K5_bwd"))):
+        kern["launches_by_path"].update({p: sum(n[k] for k in keys) for p, n in cli16.items()
+                                         if any(n[k] for k in keys)})
+        kern["launches"] = sum(kern["launches_by_path"].values())
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
+    print(f"chip_smoke: every phase held; {time.perf_counter() - t_start:.1f} s in all, the "
+          "kernels' build included", flush=True)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

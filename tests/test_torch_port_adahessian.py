@@ -232,6 +232,78 @@ def test_finetune_step_matches_jax_engine(monkeypatch):
         step(state, torch.from_numpy(images), torch.from_numpy(labels), gens.model)
 
 
+def test_finetune_warmup_updates_match_jax_engine(monkeypatch):
+    """The smoke's AdaHessian recipe on the CPU in both engines (ROADMAP's
+    question of the loss rise in ``chip_smoke.py`` phase 23c): weights
+    seeded as the smoke seeds its .pth (the port's init, the rel-pos table
+    at std 0.2, the head at 0.5; carried into the JAX tree by its importer),
+    the lr warming up over 30 steps to 4e-3 (base·k/29 at step k), four
+    steps (three updates) on one batch with one injected z. The losses and
+    grad norms of both engines agree at rtol 1e-4 at every step (each
+    update carries D's own tolerance, rtol 1e-3 in a small D, through
+    lr·g/|D|: measured 2.8e-5 after two updates), and the loss does not rise
+    in either (measured, port / JAX: 12.93606 → 12.91943 / 12.91907 →
+    12.89811 / 12.89779; at ViT-B's width and depth, N = 5, another z,
+    20.71663 → 20.69807 / 20.69680 → 20.67876 / 20.67820, f32 on the CPU):
+    the port's step is not the rise's cause."""
+    import itertools
+
+    from uncertainty_vit_tpu.utils.checkpoint import import_torch_params
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+
+    cfg = JConfig(**SMALL, num_classes=10, use_flash_attention=False)
+    rs = np.random.RandomState(0)
+    images = rs.randn(4, 16, 16, 3).astype(np.float32)
+    labels = np.array([1, 3, 5, 7])
+    jmodel = JViT(cfg=cfg)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.asarray(images))["params"]
+    gen = torch.Generator().manual_seed(130)
+    model = VisionTransformer(ViTConfig(**SMALL, num_classes=10), device="cpu", generator=gen)
+    with torch.no_grad():
+        trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+        trunc_normal(0.5, 2.0)(model.head.weight, gen)
+    params, missing, unused = import_torch_params(
+        {k: v.numpy() for k, v in model.state_dict().items()},
+        jax.tree_util.tree_map(lambda t: np.zeros(t.shape, t.dtype), shapes))
+    assert missing == [] and unused == []
+    z_tree = jax.tree_util.tree_map(
+        lambda p: np.random.RandomState(9).choice([-1.0, 1.0], size=np.shape(p))
+        .astype(np.float32), params)
+    leaves = itertools.cycle(jax.tree_util.tree_leaves(z_tree))
+    monkeypatch.setattr(jax.random, "rademacher",
+                        lambda key, shape, dtype: jnp.asarray(next(leaves), dtype))
+    z = C.flax_to_state_dict(z_tree)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    monkeypatch.setattr(TO, "draw_rademacher", lambda ps, gen: [z[n] for n in names])
+    kw = dict(weight_decay=0.05, clip_grad=3.0, layer_decay=0.75, depth=2,
+              opt_name="adahessian")
+    hp = dict(num_classes=10, mixup_active=False, label_smoothing=0.1)
+    jlr = JS.cosine_schedule(4e-3, 1e-6, 3, warmup_steps=30)
+    tx = JO.make_optimizer(params, jlr, **kw)
+    jstate = JE.FinetuneState(params=params, opt_state=tx.init(params),
+                              step=jnp.zeros([], jnp.int32))
+    jstep = JE.make_finetune_train_step(jmodel, tx, JE.FinetuneHParams(**hp), jlr,
+                                        use_hessian=True)
+    opt = TO.make_optimizer(model, **kw)
+    state = TE.init_finetune_state(model, opt)
+    step = TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(**hp),
+                                       TS.cosine_schedule(4e-3, 1e-6, 3, warmup_steps=30),
+                                       use_hessian=True)
+    got, want = [], []
+    for i in range(4):
+        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(labels),
+                           jax.random.PRNGKey(i))
+        gens = TE.step_generators(0, i, "cpu", hessian=True)
+        m = step(state, torch.from_numpy(images), torch.from_numpy(labels), gens.model,
+                 hessian_generator=gens.hessian)
+        want.append((float(jm["loss"]), float(jm["grad_norm"])))
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        assert float(m["lr"]) == pytest.approx(4e-3 * i / 29, rel=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for losses in (got, want):
+        assert all(b[0] <= a[0] for a, b in zip(losses, losses[1:])), losses
+
+
 def test_cyclical_step_matches_jax_engine(monkeypatch):
     """One AdaHessian step of the cyclical engine (targets of layers 0 and
     1, the EMA teacher after it) against JAX's: loss, grad norm, the

@@ -64,6 +64,32 @@ __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
          (uint32_t(d) << 24);
 }
 
+// A row window: the matrix holds rows [start, start + rows) of each of its
+// M / rows sequences of n tokens (a seq shard's trunk), and its row
+// b * rows + r draws the rounding bits of the unsharded row b * n + start + r.
+// (rows, start, n) = (M, 0, M) is every row's own. A block locates its first
+// row once (one division) and steps from there, so a thread never divides.
+struct RowWindow {
+  int rows, start, n;
+  // (image, row of the shard) of matrix row `row`
+  __device__ __forceinline__ int2 locate(int row) const {
+    const int b = row / rows;
+    return make_int2(b, row - b * rows);
+  }
+  // `at` moved on by t >= 0 rows
+  __device__ __forceinline__ void step(int2& at, int t) const {
+    at.y += t;
+    while (at.y >= rows) at.y -= rows, ++at.x;
+  }
+  // the unsharded row at `at`
+  __device__ __forceinline__ int unsharded(int2 at) const { return at.x * n + start + at.y; }
+};
+
+// Whether (rows, start, n) lays out m matrix rows.
+inline bool window_ok(int m, int rows, int start, int n) {
+  return rows >= 1 && m % rows == 0 && start >= 0 && start <= n - rows;
+}
+
 // Elements in 16 bytes of T.
 template <typename T> struct Vec16 { static constexpr int kN = 16 / int(sizeof(T)); };
 

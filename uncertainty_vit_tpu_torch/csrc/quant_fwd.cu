@@ -11,7 +11,8 @@
 // saturated to [-128, 127] where floor(. + u) reaches 128, the sum exact in
 // int32, the products and the bias add in f32 in this order, one rounding to
 // the output type. The uniforms are those of csrc/philox.cuh's rounding
-// stream: a function of (seed, r, k), never of the tile.
+// stream: a function of (seed, r, k), never of the tile; under a row window
+// (quant_common.cuh: RowWindow, a seq shard's rows) r is the unsharded row.
 //
 // What bounds it on an H100: at the ViT-B/16 224 trunk shapes (M = 31,520
 // tokens at batch 160, bf16 in and out) qkv is 111.5 GOP and 195 MB, fc1 and
@@ -104,10 +105,12 @@ __device__ __forceinline__ void quantize_vec(const uint4& v, int8_t* dst, float 
 // x [m, k] -> xq int8 [m, k] and row_scale f32 [m] (= amax / 127). A lane
 // keeps kHeld 16-byte vectors of its row in registers, no more than the row
 // needs: registers held for nothing cost blocks an SM, and loads in flight.
+// Stochastic rounding draws the bits of the row's unsharded row under `win`.
 template <typename T, bool kSR, int kHeld>
 __global__ void __launch_bounds__(kRowThreads)
 quantize_rows_kernel(const T* __restrict__ x, const long long* __restrict__ seed,
-                     int8_t* __restrict__ xq, float* __restrict__ row_scale, int m, int k) {
+                     int8_t* __restrict__ xq, float* __restrict__ row_scale, int m, int k,
+                     RowWindow win) {
   constexpr int kVec = Vec16<T>::kN;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
@@ -133,14 +136,21 @@ quantize_rows_kernel(const T* __restrict__ x, const long long* __restrict__ seed
   const float inv = __fdiv_rn(127.0f, fmaxf(amax, 1e-30f));
   if (lane == 0) row_scale[row] = __fmul_rn(amax, kInv127);
   philox::Key key{0u, 0u};
-  if constexpr (kSR) key = philox::load_key(seed);
+  int bits_row = row;
+  if constexpr (kSR) {
+    key = philox::load_key(seed);
+    int2 at = win.locate(blockIdx.x * (kRowThreads / 32));  // the block's first row
+    win.step(at, threadIdx.x >> 5);
+    bits_row = win.unsharded(at);
+  }
 #pragma unroll
   for (int i = 0; i < kHeld; ++i) {
     const int c = (i * 32 + lane) * kVec;
-    if (c < k) quantize_vec<T, kSR>(v[i], dst + c, inv, key, row, c);
+    if (c < k) quantize_vec<T, kSR>(v[i], dst + c, inv, key, bits_row, c);
   }
   for (int c = (kHeld * 32 + lane) * kVec; c < k; c += 32 * kVec) {
-    quantize_vec<T, kSR>(*reinterpret_cast<const uint4*>(src + c), dst + c, inv, key, row, c);
+    quantize_vec<T, kSR>(*reinterpret_cast<const uint4*>(src + c), dst + c, inv, key, bits_row,
+                         c);
   }
 }
 
@@ -248,14 +258,14 @@ qmm_s8_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
 
 template <typename T, int kHeld>
 cudaError_t quantize_rows_held(const void* x, const long long* seed, int8_t* xq, float* row_scale,
-                               int m, int k, cudaStream_t stream) {
+                               int m, int k, RowWindow win, cudaStream_t stream) {
   const int blocks = (m + kRowThreads / 32 - 1) / (kRowThreads / 32);
   if (seed != nullptr) {
     quantize_rows_kernel<T, true, kHeld><<<blocks, kRowThreads, 0, stream>>>(
-        static_cast<const T*>(x), seed, xq, row_scale, m, k);
+        static_cast<const T*>(x), seed, xq, row_scale, m, k, win);
   } else {
     quantize_rows_kernel<T, false, kHeld><<<blocks, kRowThreads, 0, stream>>>(
-        static_cast<const T*>(x), nullptr, xq, row_scale, m, k);
+        static_cast<const T*>(x), nullptr, xq, row_scale, m, k, win);
   }
   return cudaGetLastError();
 }
@@ -264,18 +274,18 @@ cudaError_t quantize_rows_held(const void* x, const long long* seed, int8_t* xq,
 // twice that in 6, and 12 for every wider row (the rest read twice).
 template <typename T>
 cudaError_t quantize_rows(const void* x, const long long* seed, int8_t* xq, float* row_scale,
-                          int m, int k, cudaStream_t stream) {
+                          int m, int k, RowWindow win, cudaStream_t stream) {
   constexpr int kLane = 32 * Vec16<T>::kN;  // entries a warp's vector covers
-  if (k <= 3 * kLane) return quantize_rows_held<T, 3>(x, seed, xq, row_scale, m, k, stream);
-  if (k <= 6 * kLane) return quantize_rows_held<T, 6>(x, seed, xq, row_scale, m, k, stream);
-  return quantize_rows_held<T, 12>(x, seed, xq, row_scale, m, k, stream);
+  if (k <= 3 * kLane) return quantize_rows_held<T, 3>(x, seed, xq, row_scale, m, k, win, stream);
+  if (k <= 6 * kLane) return quantize_rows_held<T, 6>(x, seed, xq, row_scale, m, k, win, stream);
+  return quantize_rows_held<T, 12>(x, seed, xq, row_scale, m, k, win, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const int8_t* wq, const float* ws, const float* bias,
                    const long long* seed, void* y, int8_t* xq, float* row_scale, int m, int k,
-                   int n, int y_is_f32, cudaStream_t stream) {
-  cudaError_t err = quantize_rows<T>(x, seed, xq, row_scale, m, k, stream);
+                   int n, int y_is_f32, RowWindow win, cudaStream_t stream) {
+  cudaError_t err = quantize_rows<T>(x, seed, xq, row_scale, m, k, win, stream);
   if (err != cudaSuccess) return err;
 
   CUtensorMap map_x, map_w;
@@ -300,14 +310,17 @@ extern "C" {
 // int8 [n, k] (the contraction contiguous), 16-byte aligned; ws f32 [n];
 // bias f32 [n] or null; seed one int64 in device memory when sr, else
 // unused; y [m, n] (y_dtype likewise); xq int8 [m, k] (16-byte aligned) and
-// row_scale f32 [m] scratch. k and n are multiples of 128. Returns the
-// launches' cudaError_t.
+// row_scale f32 [m] scratch. k and n are multiples of 128. (win_rows,
+// win_start, win_n): the row window of the stochastic rounding's bits, (m, 0,
+// m) for none. Returns the launches' cudaError_t.
 int uvit_quant_fwd(const void* x, const void* wq, const void* ws, const void* bias,
                    const void* seed, void* y, void* xq, void* row_scale, int m, int k, int n,
-                   int x_dtype, int y_dtype, int sr, void* stream) {
+                   int x_dtype, int y_dtype, int sr, int win_rows, int win_start, int win_n,
+                   void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || k % 128 != 0 || n % 128 != 0 || (sr && seed == nullptr) ||
-      y_dtype < 0 || y_dtype > 1)
+      y_dtype < 0 || y_dtype > 1 || !window_ok(m, win_rows, win_start, win_n))
     return static_cast<int>(cudaErrorInvalidValue);
+  const RowWindow win{win_rows, win_start, win_n};
   const int8_t* w = static_cast<const int8_t*>(wq);
   const float* s = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);
@@ -315,8 +328,8 @@ int uvit_quant_fwd(const void* x, const void* wq, const void* ws, const void* bi
   int8_t* q = static_cast<int8_t*>(xq);
   float* rs = static_cast<float*>(row_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return launch<bf16>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, st);
-  if (x_dtype == 1) return launch<float>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, st);
+  if (x_dtype == 0) return launch<bf16>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, win, st);
+  if (x_dtype == 1) return launch<float>(x, w, s, b, sd, y, q, rs, m, k, n, y_dtype, win, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,7 +11,9 @@
 // column scales factor out of the token sum and are applied outside (:287).
 // The result is laid out [N, K], as a torch weight's gradient lies; the
 // wrapper hands out its transposed view. The uniforms are those of
-// csrc/philox.cuh's rounding stream: a function of (seed, m, n) only.
+// csrc/philox.cuh's rounding stream: a function of (seed, m, n) only, m the
+// unsharded row under a row window (quant_common.cuh: RowWindow); the pad
+// rows draw nothing.
 // |acc| <= 127 * 127 * M stays below 2^31 for M <= 133,152: the wrapper
 // stops at 131,072.
 //
@@ -72,12 +74,14 @@ __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
 // quantizes 4 tokens x 4 columns of the block's 64 x 64 tile and turns them
 // in registers: each of its columns' 4 tokens is one 32-bit word of the
 // transposed tile, whose rows (one column's 64 tokens) lie 17 words apart,
-// so that the warp's word stores and loads meet at most two to a bank.
+// so that the warp's word stores and loads meet at most two to a bank. The
+// stochastic rounding draws the bits of each token's unsharded row under
+// `win`, located once per block and stepped a token at a time.
 template <typename T, bool kSR>
 __global__ void __launch_bounds__(kThreads)
 quantize_transpose_kernel(const T* __restrict__ src, const float* __restrict__ inv,
                           const long long* __restrict__ seed, int8_t* __restrict__ dst, int m,
-                          int m_pad, int c) {
+                          int m_pad, int c, RowWindow win) {
   __shared__ uint32_t tile[kQT * kQWords];
   const int c0 = blockIdx.x * kQT, m0 = blockIdx.y * kQT;
   const int tid = threadIdx.x;
@@ -87,7 +91,12 @@ quantize_transpose_kernel(const T* __restrict__ src, const float* __restrict__ i
 #pragma unroll
   for (int j = 0; j < 4; ++j) iv[j] = inv[c0 + cq + j];
   philox::Key key{0u, 0u};
-  if (kSR) key = philox::load_key(seed);
+  int2 at = make_int2(0, 0);
+  if (kSR) {
+    key = philox::load_key(seed);
+    at = win.locate(m0);
+    win.step(at, tq);
+  }
   int q[4][4] = {};  // [token][column]
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
@@ -96,7 +105,8 @@ quantize_transpose_kernel(const T* __restrict__ src, const float* __restrict__ i
       float f[4];
       load4(src + size_t(row) * c + c0 + cq, f);
       if (kSR) {
-        const uint4 w = philox::quant_words(key, uint32_t(row), uint32_t((c0 + cq) >> 2));
+        const uint4 w = philox::quant_words(key, uint32_t(win.unsharded(at)),
+                                            uint32_t((c0 + cq) >> 2));
         q[p][0] = quant_sr(f[0], iv[0], philox::uniform24(w.x));
         q[p][1] = quant_sr(f[1], iv[1], philox::uniform24(w.y));
         q[p][2] = quant_sr(f[2], iv[2], philox::uniform24(w.z));
@@ -106,6 +116,7 @@ quantize_transpose_kernel(const T* __restrict__ src, const float* __restrict__ i
         for (int j = 0; j < 4; ++j) q[p][j] = quant_rn(f[j], iv[j]);
       }
     }
+    if (kSR) win.step(at, 1);
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -186,14 +197,14 @@ wgrad_s8_kernel(const __grid_constant__ CUtensorMap map_g,
 template <typename T>
 cudaError_t launch(const void* x, const void* g, const float* inv_x, const float* inv_g,
                    const long long* seed, int8_t* xq, int8_t* gq, int* acc, int m, int m_pad,
-                   int k, int n, cudaStream_t stream) {
+                   int k, int n, RowWindow win, cudaStream_t stream) {
   const dim3 grid_x(k / kQT, m_pad / kQT), grid_g(n / kQT, m_pad / kQT);
   quantize_transpose_kernel<T, false><<<grid_x, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), inv_x, nullptr, xq, m, m_pad, k);
+      static_cast<const T*>(x), inv_x, nullptr, xq, m, m_pad, k, win);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   quantize_transpose_kernel<T, true><<<grid_g, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), inv_g, seed, gq, m, m_pad, n);
+      static_cast<const T*>(g), inv_g, seed, gq, m, m_pad, n, win);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -238,13 +249,15 @@ extern "C" {
 // aligned; inv_x f32 [k], inv_g f32 [n]; seed one int64 in device memory; xq
 // int8 [k, m_pad] and gq int8 [n, m_pad] scratch (m_pad = m rounded up to
 // 128); acc int32 [n, k], zeroed by the caller. k and n are multiples of 128.
-// Returns the launches' cudaError_t.
+// (win_rows, win_start, win_n): the row window of g's rounding bits, (m, 0, m)
+// for none. Returns the launches' cudaError_t.
 int uvit_quant_wgrad(const void* x, const void* g, const void* inv_x, const void* inv_g,
                      const void* seed, void* xq, void* gq, void* acc, int m, int m_pad, int k,
-                     int n, int dtype, void* stream) {
+                     int n, int dtype, int win_rows, int win_start, int win_n, void* stream) {
   if (m <= 0 || m_pad < m || m_pad % kDepth != 0 || k <= 0 || n <= 0 || k % 128 != 0 ||
-      n % 128 != 0 || seed == nullptr)
+      n % 128 != 0 || seed == nullptr || !window_ok(m, win_rows, win_start, win_n))
     return static_cast<int>(cudaErrorInvalidValue);
+  const RowWindow win{win_rows, win_start, win_n};
   const float* ix = static_cast<const float*>(inv_x);
   const float* ig = static_cast<const float*>(inv_g);
   const long long* sd = static_cast<const long long*>(seed);
@@ -252,8 +265,8 @@ int uvit_quant_wgrad(const void* x, const void* g, const void* inv_x, const void
   int8_t* gq8 = static_cast<int8_t*>(gq);
   int* out = static_cast<int*>(acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<bf16>(x, g, ix, ig, sd, xq8, gq8, out, m, m_pad, k, n, st);
-  if (dtype == 1) return launch<float>(x, g, ix, ig, sd, xq8, gq8, out, m, m_pad, k, n, st);
+  if (dtype == 0) return launch<bf16>(x, g, ix, ig, sd, xq8, gq8, out, m, m_pad, k, n, win, st);
+  if (dtype == 1) return launch<float>(x, g, ix, ig, sd, xq8, gq8, out, m, m_pad, k, n, win, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

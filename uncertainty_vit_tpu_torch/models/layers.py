@@ -223,7 +223,9 @@ def _use_quant(quant: str, x: torch.Tensor, features: int,
     look at ``deterministic``: evaluation runs the int8 forward too). The
     reference decides on its whole [B·N, C] trunk, so under a ``shard``
     (x [B, rows, C] of n tokens) the token count is B·n, the same on every
-    rank, not this rank's rows. The reference's backend test has no
+    rank, not this rank's rows (and the layer takes the shard: its gradient
+    rounding draws the unsharded rows' bits, its wgrad scales span the
+    group). The reference's backend test has no
     counterpart: ``ops.quant``'s wrappers take the kernel or its plain
     version by the tensor's device. Inside ``flash_attention.plain_only()``
     every dense layer is the plain one (the reference's :58-59)."""
@@ -353,7 +355,8 @@ class _ScaledOutDense(_Params):
             w = w * scale[:, None]
             b = b * scale
         if _use_quant(self.quant, x, w.shape[0], self.seq_shard):
-            return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator))
+            return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator),
+                                        self.seq_shard)
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
 
@@ -552,7 +555,7 @@ class Attention(nn.Module):
             qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
         if _use_quant(self.quant, x, self.qkv.weight.shape[0], self.seq_shard):
             qkv = quant_ops.int8_dense(x, self.qkv.weight, qkv_bias,
-                                       _quant_seed(x, active, generator))
+                                       _quant_seed(x, active, generator), self.seq_shard)
         else:
             qkv = F.linear(x, self.qkv.weight.to(x.dtype),
                            None if qkv_bias is None else qkv_bias.to(x.dtype))

@@ -13,7 +13,10 @@ attention backward replays the forward's mask whatever tiles either uses.
 - stochastic rounding (``ops/quant.py``): entry (row, col) of an [M, N]
   matrix takes counter (col >> 2, row, 0, STREAM_QUANT), word col & 3, and
   its uniform is (bits >> 8) · 2⁻²⁴ in f32, in [0, 1): the top 24 bits, as
-  ``_sr_uniform`` of uncertainty_vit_tpu/ops/quant.py:94-99 makes it.
+  ``_sr_uniform`` of uncertainty_vit_tpu/ops/quant.py:94-99 makes it. Under
+  a row window (rows, start, n) the matrix holds rows [start, start + rows)
+  of every image of a sequence of n tokens, and its row b·rows + r counts as
+  the unsharded row b·n + start + r.
 
 ``keep = bits >= min(int(rate · 2³²), 2³² − 1)`` and kept values are scaled
 by 1/(1 − rate), the thresholding of the reference's TPU kernels
@@ -30,7 +33,7 @@ tensors with values in [0, 2³²).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -125,14 +128,41 @@ def attention_bits(seed: torch.Tensor, batch: int, num_heads: int, rows: int, co
     return full[:, r:r + rows, c:c + cols].reshape(batch, num_heads, rows, cols)
 
 
-def quant_bits(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0
-               ) -> torch.Tensor:
+# (rows, start, n): a matrix of [B·rows, C] holding rows [start, start + rows)
+# of each of B sequences of n tokens (a seq shard's trunk)
+RowWindow = Optional[Tuple[int, int, int]]
+
+
+def check_window(window: RowWindow, m: int) -> None:
+    """Raises unless ``window`` = (rows, start, n) can lay out a matrix of m
+    rows: m a multiple of rows, rows [start, start + rows) inside [0, n)."""
+    if window is None:
+        return
+    rows, start, n = window
+    if rows < 1 or m % rows != 0 or not 0 <= start <= n - rows:
+        raise ValueError(f"a row window (rows, start, n) = {tuple(window)} does not lay out "
+                         f"{m} rows")
+
+
+def window_rows(first: int, count: int, window: RowWindow, device) -> torch.Tensor:
+    """int64 [count]: the unsharded row of each matrix row first .. first +
+    count − 1 (the row itself without a window)."""
+    row = torch.arange(first, first + count, dtype=torch.int64, device=device)
+    if window is None:
+        return row
+    rows, start, n = window
+    return row // rows * n + start + row % rows
+
+
+def quant_bits(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0,
+               window: RowWindow = None) -> torch.Tensor:
     """The rounding bits of entries (row0 + r, col0 + c) of a matrix, r < rows,
     c < cols, as int64 [rows, cols] on the seed's device: a function of the
-    seed and of (row, col) only, whatever tile or thread rounds the entry."""
+    seed and of (row, col) only, whatever tile or thread rounds the entry.
+    Under ``window`` the row is the unsharded one (``window_rows``)."""
     dev = seed.device
     g0, g1 = col0 >> 2, (col0 + cols + 3) >> 2
-    row = torch.arange(row0, row0 + rows, dtype=torch.int64, device=dev)[:, None]
+    row = window_rows(row0, rows, window, dev)[:, None]
     group = torch.arange(g0, g1, dtype=torch.int64, device=dev)[None, :]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     words = philox4x32(group, row, zero, zero + STREAM_QUANT, *_key(seed))
@@ -141,11 +171,12 @@ def quant_bits(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0:
     return full[:, start:start + cols]
 
 
-def quant_uniform(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0
-                  ) -> torch.Tensor:
+def quant_uniform(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0,
+                  window: RowWindow = None) -> torch.Tensor:
     """The [0, 1) uniforms of stochastic rounding, f32 [rows, cols]: the top
     24 of each entry's ``quant_bits`` times 2⁻²⁴ (exact in f32)."""
-    return (quant_bits(seed, rows, cols, row0=row0, col0=col0) >> 8).float() * (1.0 / (1 << 24))
+    bits = quant_bits(seed, rows, cols, row0=row0, col0=col0, window=window)
+    return (bits >> 8).float() * (1.0 / (1 << 24))
 
 
 def keep_scale(bits: torch.Tensor, rate: float) -> torch.Tensor:

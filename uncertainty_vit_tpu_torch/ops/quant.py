@@ -29,6 +29,18 @@ every entry alike and agree to the last bit of the int32 sums. The TPU
 kernels seed a hardware generator per program: against the reference only
 distributions compare.
 
+Under sequence parallelism (``int8_dense(..., shard=...)``) each rank holds
+rows [start, start + rows) of every image's n tokens, and its layer equals
+one process's over the whole trunk: the stochastic rounding of dgrad and
+wgrad draws the bits of the unsharded row (a row window (rows, start, n),
+``philox.RowWindow``: local row b·rows + r is row b·n + start + r), and
+wgrad takes its column scales as a max over the group
+(``parallel.seq.all_reduce_max``), so that the ranks' int32 sums add up to
+one process's exactly and the gradient sum of the train step adds their
+dequantized shares. Forward and dgrad scale per row and need nothing more.
+The reference's kernels see the global trunk (no shard_map; its interpret
+mode computes the layer over all rows).
+
 Out of range: ``v · 127/amax`` can exceed 127 by an ulp, so ``floor(v + u)``
 can reach 128. The reference leaves that cast to XLA; here kernel and plain
 version both saturate to [-128, 127].
@@ -55,6 +67,8 @@ import torch
 
 from uncertainty_vit_tpu_torch.ops import _native, philox
 from uncertainty_vit_tpu_torch.ops.flash_attention import _refuse_in_plain_only
+from uncertainty_vit_tpu_torch.ops.philox import RowWindow
+from uncertainty_vit_tpu_torch.parallel import seq
 
 # The wgrad kernel sums raw int8 products in int32; |sum| <= 127 * 127 * M
 # stays below 2^31 only for M <= 133,152. The cap is the power of two below
@@ -63,10 +77,12 @@ _MAX_M_INT32_ACC = 131_072
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, wq, ws, bias, seed, y, xq, row scale; m, k, n, x dtype, y dtype, sr; stream
-_QMM_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
-# x, g, inv_x, inv_g, seed, xq, gq, acc; m, m_pad, k, n, dtype; stream
-_WGRAD_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
+# x, wq, ws, bias, seed, y, xq, row scale; m, k, n, x dtype, y dtype, sr,
+# window rows, start, n; stream
+_QMM_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
+# x, g, inv_x, inv_g, seed, xq, gq, acc; m, m_pad, k, n, dtype, window rows,
+# start, n; stream
+_WGRAD_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 # Token rows are padded with zeros to a multiple of this in K7's int8 copies.
 _WGRAD_M_ALIGN = 128
 
@@ -97,19 +113,19 @@ def _to_int8(t: torch.Tensor) -> torch.Tensor:
     return t.clamp(-128.0, 127.0).to(torch.int8)
 
 
-def quantize_rows(x: torch.Tensor, seed: Optional[torch.Tensor] = None, sr: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, seed: Optional[torch.Tensor] = None, sr: bool = False,
+                  window: RowWindow = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row quantization of [M, K] as K6 does it (``_quantize_rows_tile``
     :116-125): (xq int8, row scale f32 [M, 1]). The values are multiplied by
     inv = 127 / max(amax, 1e-30) (a true division, not a reciprocal), then
     rounded to nearest even, or ``floor(x · inv + u)`` with the uniforms of
-    ``seed`` when ``sr``."""
+    ``seed`` (those of the unsharded rows under ``window``) when ``sr``."""
     xf = x.float()
     amax = xf.abs().amax(dim=1, keepdim=True)
     inv = torch.full_like(amax, 127.0) / amax.clamp_min(1e-30)
     t = xf * inv
     if sr:
-        t = torch.floor(t + philox.quant_uniform(seed, *x.shape))
+        t = torch.floor(t + philox.quant_uniform(seed, *x.shape, window=window))
     else:
         t = torch.round(t)
     return _to_int8(t), amax * (1.0 / 127.0)
@@ -123,31 +139,52 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def qmm_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
               bias: Optional[torch.Tensor], seed: Optional[torch.Tensor], sr: bool,
-              out_dtype: torch.dtype) -> torch.Tensor:
+              out_dtype: torch.dtype, window: RowWindow = None) -> torch.Tensor:
     """Plain PyTorch version of K6: y[M, N] = (quant_rows(x) · wq) · row scale
     · ws (+ bias), the sum exact, converted to f32 (round to nearest), the
     two products and the bias add in f32 in this order, one rounding to
     ``out_dtype`` (``_fwd_kernel`` :128-141)."""
-    xq, sa = quantize_rows(x, seed, sr)
+    philox.check_window(window, x.shape[0])
+    xq, sa = quantize_rows(x, seed, sr, window)
     y = _int_mm(xq, wq).float() * sa * ws.reshape(1, -1)
     if bias is not None:
         y = y + bias.float().reshape(1, -1)
     return y.to(out_dtype)
 
 
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    return amax.float().clamp_min(1e-30) * (1.0 / 127.0)
+
+
 def _col_scales(t: torch.Tensor) -> torch.Tensor:
     """[1, C] f32: max(column amax, 1e-30) / 127 (:258-259). |.| and max are
     exact in the input type."""
-    return _col_amax(t).float().clamp_min(1e-30) * (1.0 / 127.0)
+    return _scale_of(_col_amax(t))
+
+
+def wgrad_scales(x: torch.Tensor, g: torch.Tensor, group: Optional[seq.SeqGroup] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sx [1, K], sg [1, N]): the column scales of x and g, under ``group``
+    over every rank's rows (one all-reduce of both amaxes: a max is exact,
+    so each rank holds one process's scales)."""
+    if group is None:
+        return _col_scales(x), _col_scales(g)
+    k = x.shape[1]
+    amax = seq.all_reduce_max(torch.cat([_col_amax(x).float(), _col_amax(g).float()], dim=1),
+                              group)
+    return _scale_of(amax[:, :k]), _scale_of(amax[:, k:])
 
 
 def wgrad_acc_plain(x: torch.Tensor, g: torch.Tensor, inv_x: torch.Tensor, inv_g: torch.Tensor,
-                    seed: torch.Tensor) -> torch.Tensor:
+                    seed: torch.Tensor, window: RowWindow = None) -> torch.Tensor:
     """Plain PyTorch version of K7: the raw int32 sums [K, N] of
     round(x · inv_x)ᵀ · floor(g · inv_g + u) over the tokens
-    (``_wgrad_kernel`` :216-246)."""
+    (``_wgrad_kernel`` :216-246), u those of the unsharded rows under
+    ``window``."""
+    philox.check_window(window, g.shape[0])
     xq = _to_int8(torch.round(x.float() * inv_x))
-    gq = _to_int8(torch.floor(g.float() * inv_g + philox.quant_uniform(seed, *g.shape)))
+    gq = _to_int8(torch.floor(g.float() * inv_g
+                              + philox.quant_uniform(seed, *g.shape, window=window)))
     return _int_mm(xq.t(), gq).to(torch.int32)
 
 
@@ -155,11 +192,13 @@ def _dequant_wgrad(acc: torch.Tensor, sx: torch.Tensor, sg: torch.Tensor) -> tor
     return acc.float() * sx.reshape(-1, 1) * sg
 
 
-def wgrad_plain(x: torch.Tensor, g: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+def wgrad_plain(x: torch.Tensor, g: torch.Tensor, seed: torch.Tensor, window: RowWindow = None,
+                group: Optional[seq.SeqGroup] = None) -> torch.Tensor:
     """dw[K, N] = xᵀ · g through per-column int8 quantization, f32: round to
-    nearest on x, stochastic on g, dequantized outside the sum (:249-287)."""
-    sx, sg = _col_scales(x), _col_scales(g)
-    acc = wgrad_acc_plain(x, g, sx.reciprocal(), sg.reciprocal(), seed)
+    nearest on x, stochastic on g, dequantized outside the sum (:249-287).
+    Under a seq shard (``window``, ``group``) this rank's share of it."""
+    sx, sg = wgrad_scales(x, g, group)
+    acc = wgrad_acc_plain(x, g, sx.reciprocal(), sg.reciprocal(), seed, window)
     return _dequant_wgrad(acc, sx, sg)
 
 
@@ -179,11 +218,18 @@ def _check_supported(m: int, k: int, n: int) -> None:
                          f"{_MAX_M_INT32_ACC}; got M={m}, K={k}, N={n}")
 
 
-def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype) -> torch.Tensor:
+def _window_args(window: RowWindow, m: int) -> Tuple[int, int, int]:
+    """The kernels' (rows, start, n): (m, 0, m) draws every row's own bits."""
+    philox.check_window(window, m)
+    return (m, 0, m) if window is None else tuple(window)
+
+
+def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype, window: RowWindow = None) -> torch.Tensor:
     x = _check_act("x", x)
     m, k = x.shape
     n = wq.shape[1]
     _check_supported(m, k, n)
+    win = _window_args(window, m)
     if out_dtype not in _DTYPES:
         raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
     if wq.dtype != torch.int8 or tuple(wq.shape) != (k, n) or wq.device != x.device:
@@ -210,7 +256,7 @@ def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype) -> torch.Tensor:
         err = lib.uvit_quant_fwd(
             x.data_ptr(), wq_t.data_ptr(), ws.data_ptr(), _native.ptr(bias),
             seed.data_ptr() if sr else None, y.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
-            m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], int(sr),
+            m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], int(sr), *win,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, "int8 matmul")
@@ -219,24 +265,27 @@ def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype) -> torch.Tensor:
 
 
 def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bias: Optional[torch.Tensor],
-        seed: Optional[torch.Tensor], sr: bool, out_dtype: torch.dtype) -> torch.Tensor:
+        seed: Optional[torch.Tensor], sr: bool, out_dtype: torch.dtype,
+        window: RowWindow = None) -> torch.Tensor:
     """K6: y[M, N] = dequant(quant_rows(x) · wq) (+ bias) in ``out_dtype``.
 
     x [M, K] bf16 or f32; wq int8 [K, N] and ws f32 [1, N] from
     ``quantize_cols``; bias f32 [N] or None; ``sr`` rounds x stochastically
     with the uniforms of ``seed`` (a one-element int64 tensor on x's device),
-    else to nearest."""
+    else to nearest; ``window`` (rows, start, n): x holds a seq shard's rows,
+    which draw the unsharded rows' uniforms."""
     if x.device.type == "cpu":
         if sr:
             philox.check_seed(seed, x.device)
-        return qmm_plain(x, wq, ws, bias, seed, sr, out_dtype)
-    return _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype)
+        return qmm_plain(x, wq, ws, bias, seed, sr, out_dtype, window)
+    return _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype, window)
 
 
 def wgrad_acc(x: torch.Tensor, g: torch.Tensor, inv_x: torch.Tensor, inv_g: torch.Tensor,
-              seed: torch.Tensor) -> torch.Tensor:
+              seed: torch.Tensor, window: RowWindow = None) -> torch.Tensor:
     """K7's launcher: the raw int32 sums as a [K, N] view of an [N, K]
-    buffer (the layout of a torch weight's gradient)."""
+    buffer (the layout of a torch weight's gradient); g's rounding draws the
+    unsharded rows' uniforms under ``window``."""
     x, g = _check_act("x", x), _check_act("g", g)
     m, k = x.shape
     n = g.shape[1]
@@ -245,6 +294,7 @@ def wgrad_acc(x: torch.Tensor, g: torch.Tensor, inv_x: torch.Tensor, inv_g: torc
                          f"{tuple(g.shape)} on {g.device}")
     _check_supported(m, k, n)
     philox.check_seed(seed, x.device)
+    win = _window_args(window, m)
     inv_x = inv_x.reshape(-1).float().contiguous()
     inv_g = inv_g.reshape(-1).float().contiguous()
     if inv_x.numel() != k or inv_g.numel() != n:
@@ -260,22 +310,25 @@ def wgrad_acc(x: torch.Tensor, g: torch.Tensor, inv_x: torch.Tensor, inv_g: torc
         err = lib.uvit_quant_wgrad(
             x.data_ptr(), g.data_ptr(), inv_x.data_ptr(), inv_g.data_ptr(), seed.data_ptr(),
             xq.data_ptr(), gq.data_ptr(), acc.data_ptr(), m, m_pad, k, n, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            *win, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, "int8 wgrad")
     wgrad.launches += 1
     return acc.t()
 
 
-def wgrad(x: torch.Tensor, g: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+def wgrad(x: torch.Tensor, g: torch.Tensor, seed: torch.Tensor, window: RowWindow = None,
+          group: Optional[seq.SeqGroup] = None) -> torch.Tensor:
     """K7: dw[K, N] = xᵀ · g, f32, with x [M, K] and g [M, N] quantized per
     column (x to nearest, g stochastically from ``seed``). On a CUDA tensor
-    the result is a transposed view of an [N, K] buffer."""
+    the result is a transposed view of an [N, K] buffer. Under a seq shard
+    (``window`` and its ``group``) the column scales are the whole trunk's
+    and the result is this rank's share of one process's sums."""
     if x.device.type == "cpu":
         philox.check_seed(seed, x.device)
-        return wgrad_plain(x, g, seed)
-    sx, sg = _col_scales(x), _col_scales(g)
-    acc = wgrad_acc(x, g, sx.reciprocal(), sg.reciprocal(), seed)
+        return wgrad_plain(x, g, seed, window, group)
+    sx, sg = wgrad_scales(x, g, group)
+    acc = wgrad_acc(x, g, sx.reciprocal(), sg.reciprocal(), seed, window)
     return _dequant_wgrad(acc, sx, sg)
 
 
@@ -290,12 +343,15 @@ class _Int8Dense(torch.autograd.Function):
     of :359-421. Saves x and w, not their int8 copies."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, seed):
+    def forward(ctx, x, w, bias, seed, shard):
         x2d = x.reshape(-1, x.shape[-1])
         wq, ws = quantize_cols(w.t())
         y = qmm(x2d, wq, ws, bias, seed, False, x.dtype)
         ctx.save_for_backward(x2d, w, seed)
         ctx.shape, ctx.has_bias = x.shape, bias is not None
+        ctx.window = ctx.group = None
+        if shard is not None:  # x [B, rows, K]: rows [start, stop) of n tokens
+            ctx.window, ctx.group = (x.shape[1], shard.start, shard.n), shard.group
         return y.reshape(x.shape[:-1] + (w.shape[0],))
 
     @staticmethod
@@ -307,17 +363,17 @@ class _Int8Dense(torch.autograd.Function):
             # dx = g · w: the second int8 copy of w, scales per input feature
             # (constant along the new contraction), stochastic rounding on g
             wtq, wts = quantize_cols(w)
-            dx = qmm(g2d, wtq, wts, None, seed, True, g.dtype).reshape(ctx.shape)
+            dx = qmm(g2d, wtq, wts, None, seed, True, g.dtype, ctx.window).reshape(ctx.shape)
         if ctx.needs_input_grad[1]:
             # other bits than dgrad's: seed + 1, added on the device
-            dw = wgrad(x2d, g2d, seed + 1).t().to(w.dtype)
+            dw = wgrad(x2d, g2d, seed + 1, ctx.window, ctx.group).t().to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = g2d.sum(dim=0, dtype=torch.float32)  # summed in f32, no f32 copy of g
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-               seed: torch.Tensor) -> torch.Tensor:
+               seed: torch.Tensor, shard: Optional[seq.SeqShard] = None) -> torch.Tensor:
     """y = x · wᵀ (+ bias) with the forward, dgrad and wgrad matmuls in int8.
 
     x: [..., K] bf16 or f32; w: [N, K] f32 master weights in torch's
@@ -327,6 +383,13 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     tensor on x's device for the gradients' stochastic rounding (dgrad uses
     it, wgrad seed + 1). y has x's dtype. Gradients flow to x, w (in w's
     dtype) and bias (the f32 sum of the upstream gradient); seed gets none.
-    Refused inside ``flash_attention.plain_only()`` (no double backward)."""
+    Under a seq ``shard`` x is [B, rows, K], this rank's rows of the shard's
+    n tokens: the gradients' rounding draws the unsharded rows' bits and
+    wgrad's column scales span the group, so that the ranks' summed weight
+    gradients are one process's (see the module doc). Refused inside
+    ``flash_attention.plain_only()`` (no double backward)."""
     _refuse_in_plain_only("int8_dense")
-    return _Int8Dense.apply(x, w, bias, seed)
+    if shard is not None and (x.dim() != 3 or not 0 < x.shape[1] == shard.stop - shard.start):
+        raise ValueError(f"under a seq shard of rows [{shard.start}, {shard.stop}) x must be "
+                         f"[B, {shard.stop - shard.start}, K], got {tuple(x.shape)}")
+    return _Int8Dense.apply(x, w, bias, seed, shard)

@@ -6,8 +6,9 @@ group, and the ranks meet only in the attention's k/v all-gather
 (``ops.flash_attention.seq_sharded_qkv_attention``), in the pooling and in
 the gradient sum of the train step. Where JAX lets GSPMD place those
 collectives, the port names them: ``gather_tokens`` (its backward the
-reduce-scatter), ``all_reduce_sum`` (the pooling, identity backward) and
-``sum_in_place`` (the gradients); ``check_equal_on_ranks`` holds the
+reduce-scatter), ``all_reduce_sum`` (the pooling, identity backward),
+``all_reduce_max`` (the int8 wgrad's column scales) and ``sum_in_place``
+(the gradients); ``check_equal_on_ranks`` holds the
 ranks' copies of what must agree (the driver's parameters after each
 epoch).
 
@@ -131,6 +132,15 @@ def all_reduce_sum(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
     computes the same loss from the sum, so each passes its own cotangent
     on, and the gradient sum (``sum_in_place``) adds the ranks' shares."""
     return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
+    """The elementwise max of x over the ranks, a new tensor, outside
+    autograd (the int8 wgrad's column amaxes: a max is exact, so every rank
+    holds the scales of the whole trunk)."""
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.group)
+    return y
 
 
 # Elements of one all-reduce in sum_in_place: bounds the flat buffer (and
