@@ -396,8 +396,9 @@ kernels from the sources in this checkout, then:
            against a float64 copy with the same z (HVP_REL_BOUND).
   phase 24 the device mesh (data x seq x model) over gloo ranks that share the
            card (parallel.mesh, parallel.dryrun), kernels built here first:
-           24a full-width, full-depth ViT-B/16 224 (shared rel-pos bias,
-           layer scale 0.1, drop-path 0.1; 12 heads, 6 a rank) on a data 2 x
+           24a ViT-B/16 224 at full width and PHASE24_DEPTH (4) of its 12
+           blocks (shared rel-pos bias, layer scale 0.1, drop-path 0.1; 12
+           heads, 6 a rank) on a data 2 x
            model 2 mesh of 4 ranks at global batch PHASE24_BATCH in f32: one
            cyclical step, one finetune step with batch mixup and the SNGP
            head, one dist triplet step, each from the same seeded weights
@@ -406,8 +407,8 @@ kernels from the sources in this checkout, then:
            gradient's global norm at rtol 1e-4, the gathered parameters at
            rtol 1e-3 / atol 1e-4 where the unsharded gradient is above
            1e-6, within 2 lr elsewhere), the SNGP
-           precision moved, every rank's gathered parameters equal; K1 24 /
-           K2 12 (cyclical) and K1 12 / K2 12 (finetune) on each rank, none
+           precision moved, every rank's gathered parameters equal; K1 8 /
+           K2 4 (cyclical) and K1 4 / K2 4 (finetune) on each rank, none
            (dist); 24b python -m uncertainty_vit_tpu_torch.parallel.dryrun
            --devices 8 (the JAX dry run's 2 x 2 x 2 mesh and tiny trunk, 8
            ranks): the same holds, K5 on every rank of the seq axis. It
@@ -437,6 +438,22 @@ kernels from the sources in this checkout, then:
            each epoch's loss (LOSS_REL_BOUND); rank 0's dump. Prints the
            seconds of each run, the MC-dropout rate on the ranks and in one
            process, and rank 0's seconds in the k/v gathers of each run.
+  phase 27 slice 17, checkpoints of the JAX package: (a) phase 16's ViT-B/16
+           224 weights turned into the JAX package's FinetuneState tree
+           (utils.checkpoint.state_dict_to_flax) and written by the
+           converter's tree -> .pth half (tools/torch_port_orbax_to_pth.py
+           write_pth), then cli.finetune --eval --finetune that file over
+           phase 16's 1024 images: the logits and their metrics on the CPU
+           equal to phase 16's to the bit, the driver's printed metrics
+           within METRIC_RTOL / METRIC_ATOL (its calibration bins are a
+           scatter_add on the card), K1 96 and nothing else; (b) the committed golden
+           tests/golden_torch_port/orbax_vit64 (the converter's .pth of a
+           FinetuneState the JAX package wrote, width 64 in one head, depth
+           2; the JAX model's bf16 logits on 16 seeded images): the port's
+           forward within LOGIT_REL_BOUND of the largest logit, the argmax
+           wherever the top two stand further apart, K1 depth launches; (c)
+           without tensorstore on the card, read_orbax_tree and the
+           driver's --finetune DIR raise naming the converter.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -3567,7 +3584,9 @@ def phase16(torch, FA, dev, det_ms_per_128):
     """The finetune driver's evaluation from images on the card:
     cli.finetune.main under --eval, --mc_dropout, --ensembles and
     --quant int8, from CIFAR-100 pickles and .pth files written here.
-    det_ms_per_128: phase 2's forward at batch 128, for the rate beside."""
+    det_ms_per_128: phase 2's forward at batch 128, for the rate beside.
+    Returns the launches of each path, and the --eval run's metrics and
+    logits (phase 27 holds a converted checkpoint to them)."""
     import tempfile
 
     import numpy as np
@@ -3665,6 +3684,9 @@ def phase16(torch, FA, dev, det_ms_per_128):
             check(diff <= LOGIT_REL_BOUND * scale,
                   "the driver's logits disagree with the plain-attention model's")
             held_metrics(res, logits, lab, "--eval")
+            eval_ref = {"eval": dict(res), "logits": logits, "cpu": {
+                k: float(v) for k, v in M.classification_metrics(
+                    torch.from_numpy(logits), torch.from_numpy(lab)).items()}}
             first = torch.from_numpy(images[:bs])
             on_card = eval_transform_batch(first.to(dev), 224, 224 / 256).cpu()
             cpu = eval_transform_batch(first, 224, 224 / 256)
@@ -3801,7 +3823,7 @@ def phase16(torch, FA, dev, det_ms_per_128):
             del model
     finally:
         FA.BOUNDED_SCORES = bounded
-    return paths
+    return paths, eval_ref
 
 
 def phase17(torch, FA, dev, step_rates):
@@ -7325,11 +7347,15 @@ def phase23(torch, FA, dev, step_rates):
 # phase 24: the device mesh
 PHASE24_MESH = (2, 1, 2)  # data 2 x model 2
 PHASE24_BATCH = 32
+# ViT-B/16 224 widths at 4 of its 12 blocks: the four ranks' steps hold the
+# same sharding at a third of the time (the launch counts scale with it)
+PHASE24_DEPTH = 4
 
 
 def phase24(torch, FA, dev):
-    """24a: ViT-B/16 224 on a data 2 x model 2 mesh of 4 gloo ranks sharing
-    the card against one unsharded process; 24b: the port's dry run at
+    """24a: ViT-B/16 224's widths at PHASE24_DEPTH blocks on a data 2 x
+    model 2 mesh of 4 gloo ranks sharing the card against one unsharded
+    process; 24b: the port's dry run at
     --devices 8. Returns the launches of each path summed over the ranks."""
     import dataclasses
 
@@ -7338,7 +7364,8 @@ def phase24(torch, FA, dev):
 
     saved = FA.BOUNDED_SCORES
     cfg = dataclasses.asdict(get_preset("beit_base_patch16_224", use_shared_rel_pos_bias=True,
-                                        init_values=0.1, drop_path_rate=0.1))
+                                        init_values=0.1, drop_path_rate=0.1,
+                                        depth=PHASE24_DEPTH))
     depth = cfg["depth"]
     paths = {}
     try:
@@ -8336,6 +8363,160 @@ def phase26(torch, FA, dev):
     return paths
 
 
+def phase27(torch, FA, dev, phase16_eval):
+    """Slice 17: checkpoints written by the JAX package. (a) phase 16's
+    ViT-B/16 224 .pth through the JAX layout and the converter, evaluated by
+    the driver, against phase16_eval (its --eval metrics, its logits and
+    their metrics on the CPU); (b)
+    the committed golden of a JAX-written checkpoint; (c) the refusal where
+    tensorstore is absent. Returns the launches of (a) and (b)."""
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as B
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import make_eval_forward
+    from uncertainty_vit_tpu_torch.evals.collect import collect_logits
+    from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.utils import checkpoint as C
+    from uncertainty_vit_tpu_torch.utils import orbax as O
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import torch_port_orbax_to_pth as TOOL
+
+    n_images, bs, depth = 1024, 128, 12
+    rs = np.random.RandomState(16)
+    images = rs.randint(0, 256, (n_images, 32, 32, 3), dtype=np.uint8)
+    labels = np.arange(n_images) % 100
+    cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                     use_abs_pos_emb=False, init_values=0.1)
+    bounded = FA.BOUNDED_SCORES
+    paths = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # --- (a) phase 16's weights through the JAX layout and the converter
+            write_cifar100(tmp, images, labels)
+            pth, converted = os.path.join(tmp, "a.pth"), os.path.join(tmp, "from_jax.pth")
+            write_vitb_pth(torch, dev, cfg, pth, 160)
+            sd = C.load_torch_state_dict(pth)
+            variables = C.state_dict_to_flax(sd)
+            check(list(variables) == ["params"], f"collections {list(variables)}")
+            tree = {"params": variables["params"], "opt_state": [], "step": np.asarray(0),
+                    "model_ema": None, "sngp_state": None, "spectral_stats": None,
+                    "sngp_frozen": None}
+            out = TOOL.write_pth(tree, converted, family="finetune")
+            kept = [k for k in sd if "relative_position_index" not in k]
+            check(sorted(out) == sorted(kept) and all(torch.equal(out[k], sd[k]) for k in kept),
+                  "the converted .pth's tensors differ from the .pth's")
+            argv = ["--model", "beit_base_patch16_224", "--input_size", "224", "--data_set",
+                    "CIFAR100", "--data_path", tmp, "--batch_size", str(bs), "--num_workers",
+                    "8", "--finetune", converted, "--output_dir", os.path.join(tmp, "out"),
+                    "--eval"]
+            args = FT.get_args_parser().parse_args(argv)
+            reset_kernel_counts(FA, TQ, DO)
+            res = FT.main(args)["eval"]
+            torch.cuda.synchronize()
+            paths["cli17_orbax_eval"] = kernel_counts(FA, TQ, DO)
+            want = dict({k: 0 for k in paths["cli17_orbax_eval"]}, K1=depth * n_images // bs)
+            print(f"  (a) --eval from the converted .pth: launches {paths['cli17_orbax_eval']}",
+                  flush=True)
+            check(paths["cli17_orbax_eval"] == want,
+                  f"--eval launched {paths['cli17_orbax_eval']}, expected {want}")
+            model, _ = FT.build_model(args, 100, dev)
+            FT.load_variables(args, model)
+            loader, _ = B.build_loaders(args, is_train=False)
+            logits, lab = collect_logits(make_eval_forward(model),
+                                         FT._eval_batches(loader, args, dev))
+            check(np.array_equal(logits, phase16_eval["logits"]),
+                  "the converted .pth's logits differ from phase 16's")
+            # the metrics of those logits on the CPU are phase 16's to the bit;
+            # the driver's, summed on the card, may part in their last bits
+            # where a bin's sum is a scatter_add (atomics in any order)
+            ref = phase16_eval["eval"]
+            cpu = {k: float(v) for k, v in M.classification_metrics(
+                torch.from_numpy(logits), torch.from_numpy(lab)).items()}
+            check(cpu == phase16_eval["cpu"], "the CPU's metrics of the logits differ")
+            parted = {k: abs(res[k] - ref[k]) for k in ref if res[k] != ref[k]}
+            check(sorted(res) == sorted(ref) and all(
+                abs(res[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v) for k, v in ref.items()),
+                f"--eval from the converted .pth {res} against phase 16's {ref}")
+            print(f"  (a) {logits.shape} logits equal to phase 16's to the bit, and their "
+                  f"metrics on the CPU; the driver's metrics equal to phase 16's but for "
+                  f"{json.dumps(parted)} (rtol {METRIC_RTOL}, atol {METRIC_ATOL}: the card's "
+                  f"scatter_add bins)", flush=True)
+            del model, loader
+
+            # --- (c) no tensorstore here: the reader and the driver refuse a directory
+            jax_dir = os.path.join(tmp, "checkpoint-best")
+            os.makedirs(jax_dir)
+            with open(os.path.join(jax_dir, O.ORBAX_METADATA), "w") as f:
+                json.dump({"tree_metadata": {"('step',)": {
+                    "key_metadata": [{"key": "step", "key_type": 2}],
+                    "value_metadata": {"value_type": "jax.Array", "skip_deserialize": False,
+                                       "write_shape": []}}},
+                    "use_ocdbt": True, "use_zarr3": False}, f)
+            try:
+                import tensorstore  # noqa: F401
+                print("  (c) tensorstore is installed on this machine: the refusal does not "
+                      "apply", flush=True)
+            except ImportError:
+                for what, call in (
+                        ("read_orbax_tree", lambda: O.read_orbax_tree(jax_dir)),
+                        ("--finetune DIR", lambda: FT.main(FT.get_args_parser().parse_args(
+                            [jax_dir if a == converted else a for a in argv])))):
+                    try:
+                        call()
+                        check(False, f"(c) {what} read a directory without tensorstore")
+                    except RuntimeError as e:
+                        check(O.CONVERTER in str(e), f"(c) {what} raised {e!r}")
+                print(f"  (c) without tensorstore, read_orbax_tree and --finetune DIR raise "
+                      f"naming {O.CONVERTER}", flush=True)
+
+        # --- (b) the golden of a checkpoint the JAX package wrote
+        golden = os.path.join(here, "tests", "golden_torch_port", "orbax_vit64")
+        with open(os.path.join(golden, "meta.json")) as f:
+            meta = json.load(f)
+        gcfg = get_preset(meta["preset"], **meta["overrides"])
+        model = VisionTransformer(gcfg, dtype=torch.bfloat16, device=dev)
+        state, missing, unused = C.import_torch_state_dict(
+            C.load_torch_state_dict(os.path.join(golden, "model.pth")), model.state_dict())
+        check(not missing and not unused, f"golden import: missing {missing}, unused {unused}")
+        model.load_state_dict(state, strict=True)
+        grs = np.random.RandomState(meta["seeds"]["images"])
+        x = grs.randint(0, 256, (meta["n_images"], 32, 32, 3)).astype(np.float32) / 255.0
+        x = torch.from_numpy(((x - 0.5) / 0.5).astype(np.float32)).to(dev)
+        FA.BOUNDED_SCORES = False  # the JAX model's exact softmax
+        forward = make_eval_forward(model)
+        reset_kernel_counts(FA, TQ, DO)
+        got = forward(x).float().cpu().numpy()
+        torch.cuda.synchronize()
+        paths["cli17_golden"] = kernel_counts(FA, TQ, DO)
+        want_logits = np.load(os.path.join(golden, "logits.npy"))
+        scale = float(np.abs(want_logits).max())
+        diff = float(np.abs(got - want_logits).max())
+        top2 = np.sort(want_logits, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > LOGIT_REL_BOUND * scale
+        print(f"  (b) golden {meta['preset']} {meta['overrides']} (JAX {meta['versions']}): "
+              f"max|diff|={diff:.3e}, max|logit|={scale:.3e}, ratio {diff / scale:.3e} (bound "
+              f"{LOGIT_REL_BOUND}); argmax equal on {int(clear.sum())} of {len(clear)} images "
+              f"whose top two stand apart; launches {paths['cli17_golden']}", flush=True)
+        check(diff <= LOGIT_REL_BOUND * scale, "the golden's logits disagree with JAX's")
+        check(np.array_equal(got.argmax(1)[clear], want_logits.argmax(1)[clear]),
+              "the golden's argmax differs from JAX's where the top two stand apart")
+        gwant = dict({k: 0 for k in paths["cli17_golden"]}, K1=gcfg.depth)
+        check(paths["cli17_golden"] == gwant,
+              f"the golden forward launched {paths['cli17_golden']}, expected {gwant}")
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -8398,8 +8579,8 @@ def main() -> int:
     seq2 = run(15, "ViT-L/16 512 over two gloo ranks sharing the card: evaluate(), train steps",
                phase15, torch, FA, dev, init_512)
     del init_512
-    cli = run(16, "the finetune driver from images: --eval, --mc_dropout, --ensembles, "
-                  "--quant int8", phase16, torch, FA, dev, det_ms)
+    cli, cli_eval = run(16, "the finetune driver from images: --eval, --mc_dropout, "
+                            "--ensembles, --quant int8", phase16, torch, FA, dev, det_ms)
     cli_train = run(17, "the finetune driver's training from images: two epochs, a resumed "
                         "third, a step on the plain attention, an int8 epoch", phase17, torch, FA,
                     dev, step_rates)
@@ -8433,6 +8614,10 @@ def main() -> int:
     cli16 = run(26, "slice 16: the int8 trunk of ViT-L/16 512 and ViT-H/16 224 (evaluate(), "
                     "train steps, the driver), the int8 step over two gloo ranks against one "
                     "process, the golden-weights tool", phase26, torch, FA, dev)
+    cli17 = run(27, "slice 17: checkpoints of the JAX package: phase 16's weights through the "
+                    "JAX layout and the converter into the driver, the golden of a JAX-written "
+                    "checkpoint, the refusal without tensorstore", phase27, torch, FA, dev,
+                cli_eval)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -8575,6 +8760,10 @@ def main() -> int:
         kern["launches_by_path"].update({p: sum(n[k] for k in keys) for p, n in cli16.items()
                                          if any(n[k] for k in keys)})
         kern["launches"] = sum(kern["launches_by_path"].values())
+    # and phase 27's ("cli17_": the driver's --eval from a converted .pth over
+    # 1024 images, the golden's forward), which launch K1 alone
+    kernels[0]["launches_by_path"].update({p: n["K1"] for p, n in cli17.items()})
+    kernels[0]["launches"] = sum(kernels[0]["launches_by_path"].values())
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(f"chip_smoke: every phase held; {time.perf_counter() - t_start:.1f} s in all, the "

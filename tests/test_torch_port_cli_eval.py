@@ -30,6 +30,8 @@ from uncertainty_vit_tpu.cli import finetune as JFT
 from uncertainty_vit_tpu.models import registry as JREG
 from uncertainty_vit_tpu.models.dist_vit import DistCyclicalViT as JDistCyclical
 from uncertainty_vit_tpu.models.dist_vit import DistVisionTransformer as JDistViT
+from uncertainty_vit_tpu.train.engine_finetune import FinetuneState as JFinetuneState
+from uncertainty_vit_tpu.utils import checkpoint as JC
 from uncertainty_vit_tpu_torch.cli import common as TCOMMON
 from uncertainty_vit_tpu_torch.cli import finetune as TFT
 from uncertainty_vit_tpu_torch.core.config import get_preset
@@ -40,7 +42,8 @@ from uncertainty_vit_tpu_torch.models.dist_vit import DistCyclicalViT, DistVisio
 from uncertainty_vit_tpu_torch.models.mim import JointViT, MIMViT
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
-from uncertainty_vit_tpu_torch.utils.checkpoint import _torch_key_for, flax_to_state_dict
+from uncertainty_vit_tpu_torch.utils.checkpoint import (_torch_key_for, flax_to_state_dict,
+                                                      state_dict_to_flax)
 
 METRIC_ATOL = 1e-4
 N_TEST = 48
@@ -80,8 +83,14 @@ def files(tmp_path_factory):
         data = rs.randint(0, 256, (n, 3072), dtype=np.uint8)
         with open(base / name, "wb") as f:
             pickle.dump({b"data": data, b"fine_labels": (np.arange(n) % 100).tolist()}, f)
-    return {"root": str(root), "a": _pth(root / "a.pth", 1), "b": _pth(root / "b.pth", 2),
-            "out": str(root / "out")}
+    a = _pth(root / "a.pth", 1)
+    # a.pth's weights as the JAX package's finetune driver saves a model: an
+    # orbax checkpoint-best directory of a FinetuneState
+    params = state_dict_to_flax(torch.load(a)["model"])["params"]
+    jax_dir = JC.save_checkpoint(str(root / "jax"), "best", JFinetuneState(
+        params=params, opt_state=(), step=np.asarray(0, np.int32)))
+    return {"root": str(root), "a": a, "b": _pth(root / "b.pth", 2), "out": str(root / "out"),
+            "jax_dir": jax_dir}
 
 
 def _argv(files, *extra):
@@ -241,7 +250,7 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
 SEQ_NOT_PORTED = ["--sinkformer", "--gumbel_softmax", "--h_sto_trans"]
 NOT_PORTED = [
     *[["--seq_parallel", "2", flag] for flag in SEQ_NOT_PORTED],
-    ["--ensembles", "--ensemble_checkpoints", "member_dir"],
+    ["--ensembles", "--ensemble_checkpoints", "{jax_dir}", "{b}"],
 ]
 
 
@@ -252,14 +261,26 @@ def _case_id(extra):
 
 
 @pytest.mark.parametrize("extra", NOT_PORTED, ids=_case_id)
-def test_unported_flags_raise(files, extra):
+def test_unported_flags_raise(files, runs, extra):
     """Every flag whose feature is not ported raises NotImplementedError
     naming where the ROADMAP ports it; none is silently ignored. Under
     --seq_parallel the attention variants raise before the ranks start,
-    naming item 21."""
+    naming item 21. An orbax ensemble member of the JAX package, which
+    raised here before ROADMAP.md item 23, is read: a.pth's weights saved
+    by the JAX package give the .pth member's results to the bit, and the
+    JAX driver's on the same directory."""
     args = TFT.get_args_parser().parse_args(_argv(files, *extra))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
+        if extra[0] == "--ensembles":
+            mp.setattr(JFA, "BOUNDED_SCORES", JFA.BOUNDED_SCORES)
+            got = TFT.main(args, device="cpu")["ensembles"]
+            assert got == runs["ensembles"][1]["ensembles"]
+            want = JFT.main(JFT.get_args_parser().parse_args(_argv(files, *extra)))
+            for i, (g, w) in enumerate(zip(got["members"], want["ensembles"]["members"])):
+                _same_metrics(g, w, f"member {i}")
+            _same_metrics(got["ensemble"], want["ensembles"]["ensemble"], "ensemble")
+            return
         match = "ROADMAP.md item 21" if extra[0] == "--seq_parallel" else "ROADMAP.md"
         with pytest.raises(NotImplementedError, match=match):
             TFT.main(args, device="cpu")
@@ -293,11 +314,14 @@ def test_seq_parallel_refusals_before_the_ranks_start(files, case):
             TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu")
 
 
-def test_training_and_orbax_checkpoints_raise(files):
+def test_training_and_orbax_checkpoints_raise(files, runs):
     """Without --eval the driver trains (tests/test_torch_port_cli_train.py):
     attention dropout under --seq_parallel raises there before any rank
-    starts, with the JAX package's words. A --finetune or --resume that is
-    not a .pth is an orbax checkpoint of the JAX package."""
+    starts, with the JAX package's words. A --resume that is not a .pth is
+    an orbax train state of the JAX package, whose optax state does not
+    cross packages: it raises. A --finetune that is not a .pth is an orbax
+    checkpoint too, read since ROADMAP.md item 23: a.pth's weights saved by
+    the JAX package evaluate as a.pth does, to the bit."""
     argv = _argv(files)
     argv.remove("--eval")
     with pytest.MonkeyPatch.context() as mp:
@@ -310,9 +334,8 @@ def test_training_and_orbax_checkpoints_raise(files):
                 argv + ["--resume", files["root"] + "/checkpoint-3", "--epochs", "1"]),
                 device="cpu")
         argv = _argv(files)
-        argv[argv.index("--finetune") + 1] = files["root"] + "/checkpoint-best"
-        with pytest.raises(NotImplementedError, match=r"\.pth"):
-            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu")
+        argv[argv.index("--finetune") + 1] = files["jax_dir"]
+        assert TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu") == runs["eval"][1]
 
 
 def test_parsers_take_the_jax_flags():

@@ -387,10 +387,32 @@ def test_pretrain_beit_reads_dall_e_pickles(root, tmp_path, monkeypatch):
     (PJ, ["--mask_dropout_prob", "0.2"], ValueError, "mask dropout"),
     (PB, ["--stochastic"], ValueError, "not read by this driver"),
     (PJ, ["--stochastic"], ValueError, "not read by this driver"),
-    (PB, ["--discrete_vae_weight_path", "dvae_dir"], NotImplementedError, "orbax"),
+    (PB, ["--discrete_vae_weight_path", "dvae_dir"], None, None),
 ], ids=["beit_resume", "beit_finetune",
         "joint_mask_dropout", "beit_stochastic", "joint_stochastic", "beit_orbax_dir"])
-def test_unported_and_unknown_flags_raise(root, tmp_path, module, extra, error, match):
+def test_unported_and_unknown_flags_raise(root, tmp_path, module, extra, error, match,
+                                          monkeypatch):
+    """Each flag the port refuses raises with its words. An orbax
+    directory of the JAX dVAE trainer (``checkpoint-dvae-weights``), which
+    raised here before ROADMAP.md item 23, is read: the BEiT driver runs
+    its epoch with a tokenizer whose codes are the JAX DiscreteVAE's."""
+    if error is None:
+        vae = JDiscreteVAE(image_size=8, num_tokens=64, num_layers=2, hidden_dim=8)
+        variables = jax.jit(vae.init)(jax.random.PRNGKey(9), jnp.zeros((2, 8, 8, 3)))
+        path = JC.save_checkpoint(str(tmp_path / extra[1]), "dvae-weights", variables)
+        built = []
+        build = PB.B.build_discrete_vae
+        monkeypatch.setattr(PB.B, "build_discrete_vae",
+                            lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+        state, _ = _quiet(module.main, _pre_args(module.get_args_parser(), root, tmp_path,
+                                                 "--epochs", "1", "--no_save_ckpt",
+                                                 extra[0], path), device="cpu")
+        assert state.step == 2
+        images = np.random.RandomState(2).rand(4, 8, 8, 3).astype(np.float32)
+        want = vae.apply(variables, images, method=JDiscreteVAE.get_codebook_indices)
+        got = built[0].get_codebook_indices(torch.from_numpy(images))
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        return
     with pytest.raises(error, match=match):
         _quiet(module.main, _pre_args(module.get_args_parser(), root, tmp_path, "--epochs", "1",
                                       *extra), device="cpu")

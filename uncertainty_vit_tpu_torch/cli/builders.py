@@ -465,10 +465,14 @@ def build_discrete_vae(args, generator: Optional[torch.Generator] = None, device
     directory (``utils.checkpoint.load_dalle_pickle_state_dict``); a
     parameter they leave uncovered raises. "customized" / "none": the in-repo
     ``DiscreteVAE`` (codebook 512, --dvae_num_layers, --dvae_hidden_dim),
-    filled from the .pth at --discrete_vae_weight_path: the dVAE trainer's
-    ``checkpoint-dvae-weights.pth`` or a reference DiscreteVAE state dict
-    (the same keys), strictly. The JAX package's orbax directories are not
-    read. The tokenizer is frozen and in eval mode."""
+    filled from --discrete_vae_weight_path strictly: the dVAE trainer's
+    ``checkpoint-dvae-weights.pth``, a reference DiscreteVAE state dict (the
+    same keys), or an orbax directory of the JAX package's dVAE trainer, its
+    ``checkpoint-dvae-weights`` (the variables, as JAX cli/builders.py:457
+    restores them) or a per-epoch ``checkpoint-N`` (its variables; the JAX
+    restore refuses that layout, ROADMAP.md §3), read by
+    ``utils.checkpoint.read_weights``. The tokenizer is frozen and in eval
+    mode."""
     import os
 
     from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
@@ -490,12 +494,7 @@ def build_discrete_vae(args, generator: Optional[torch.Generator] = None, device
                           num_layers=args.dvae_num_layers, hidden_dim=args.dvae_hidden_dim,
                           device=device, generator=generator)
         if path:
-            if not path.endswith((".pth", ".pt")):
-                raise NotImplementedError(
-                    f"--discrete_vae_weight_path {path!r}: the port reads a DiscreteVAE .pth "
-                    "(cli.train_dvae's checkpoint-dvae-weights.pth or a reference state dict); "
-                    "an orbax checkpoint of the JAX package cannot be read")
-            vae.load_state_dict(C.load_torch_state_dict(path), strict=True)
+            vae.load_state_dict(C.read_weights(path), strict=True)
     return vae.eval().requires_grad_(False)
 
 

@@ -74,9 +74,12 @@ writes, and each rank's result equals one process's.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports it: under ``--seq_parallel`` (item 21) the attention variants
-and ``--opt adahessian`` in training; under a gumbel or dual_sto attention
-``--laplace`` and ``--visualize_embedding``; and a ``--finetune``,
-``--resume`` or ensemble member that is not a ``.pth``. Attention dropout
+and ``--opt adahessian`` in training; and under a gumbel or dual_sto
+attention ``--laplace`` and ``--visualize_embedding``. A ``--finetune`` or
+ensemble member that is not a ``.pth`` is an orbax checkpoint directory of
+the JAX package, read as the JAX driver reads it (``load_variables``); a
+``--resume`` or ``--auto_resume`` of one raises (ROADMAP.md item 23: its
+optax state does not cross packages). Attention dropout
 under ``--seq_parallel`` raises ``ValueError`` in training and under
 ``--mc_dropout``, as the JAX package's attention does.
 """
@@ -340,37 +343,55 @@ def _eval_batches(loader, args, device: torch.device):
 
 
 def _require_pth(path: str, what: str) -> None:
+    """A train state to resume from must be the port's own ``.pth``: the
+    JAX package's orbax train state holds an optax state, which does not
+    cross packages (ROADMAP.md item 23 carries its weights only, through
+    --finetune)."""
     if not path.endswith((".pth", ".pt")):
         raise NotImplementedError(
-            f"{what} {path!r}: the port reads torch .pth checkpoints only (its own are "
-            "checkpoint-N.pth files since ROADMAP.md slice 7b); an orbax checkpoint of the JAX "
-            "package cannot be read")
+            f"{what} {path!r}: the port resumes from its own checkpoint-N.pth files only; an "
+            "orbax train state of the JAX package holds an optax state that does not cross "
+            "packages (ROADMAP.md item 23 carries its weights: pass the directory to "
+            "--finetune)")
 
 
 def load_variables(args, model: VisionTransformer) -> List[str]:
     """Load --finetune into ``model`` (the surgery of run_class_finetuning.py:
-    400-540, ``utils.checkpoint.import_torch_state_dict``) after stripping
-    --model_prefix and, with --reinit_final_norm, dropping the final norms
-    (:413-417). Returns the model's parameters the checkpoint did not fill
-    (its buffers, such as the SNGP head's random features and precision
-    matrix, are counted apart, as the JAX driver counts its params alone;
-    a checkpoint's ``fc_norm.weight_u`` / ``weight_v`` fill the spectral
-    fc_norm's, as JAX ``import_torch_spectral_stats`` does)."""
+    400-540, ``utils.checkpoint.import_torch_state_dict``). A ``.pth`` is
+    imported after stripping --model_prefix and, with --reinit_final_norm,
+    dropping the final norms (:413-417). Returns the model's parameters the
+    checkpoint did not fill (its buffers, such as the SNGP head's random
+    features and precision matrix, are counted apart, as the JAX driver
+    counts its params alone; a checkpoint's ``fc_norm.weight_u`` /
+    ``weight_v`` fill the spectral fc_norm's, as JAX
+    ``import_torch_spectral_stats`` does).
+
+    Any other path is an orbax checkpoint directory of the JAX package
+    (``utils.checkpoint.read_weights``: its ``params`` and SNGP
+    buffers), taken as the JAX driver's orbax branch takes it
+    (cli/finetune.py:259-263): --model_prefix and --reinit_final_norm are
+    not applied, and the head counts as missing even where the checkpoint
+    filled it, so that --linear_classifier trains it. Where the JAX driver
+    cannot apply the tree (no ``head``, a head of another class count) the
+    surgery's rules hold, as for a ``.pth`` (ROADMAP.md §3)."""
     missing: List[str] = []
     if args.finetune:
-        _require_pth(args.finetune, "--finetune")
-        sd = C.load_torch_state_dict(args.finetune)
-        prefix = getattr(args, "model_prefix", "")
-        if prefix:
-            sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
-        if getattr(args, "reinit_final_norm", False):
-            sd = {k: v for k, v in sd.items()
-                  if k not in ("norm.weight", "norm.bias", "fc_norm.weight", "fc_norm.bias")}
+        orbax = not args.finetune.endswith((".pth", ".pt"))
+        sd = C.read_weights(args.finetune)
+        if not orbax:
+            prefix = getattr(args, "model_prefix", "")
+            if prefix:
+                sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+            if getattr(args, "reinit_final_norm", False):
+                sd = {k: v for k, v in sd.items()
+                      if k not in ("norm.weight", "norm.bias", "fc_norm.weight", "fc_norm.bias")}
         state, missing, unused = C.import_torch_state_dict(
             sd, model.state_dict(), keep_mismatched_head=getattr(args, "dual_finetune", False))
         model.load_state_dict(state, strict=True)
         params = dict(model.named_parameters())
         missing = [k for k in missing if k in params]
+        if orbax:
+            missing = sorted(set(missing) | {"head.weight", "head.bias"})
         print(f"imported {args.finetune}: {len(missing)} missing, {len(unused)} unused",
               flush=True)
     return missing
@@ -395,11 +416,11 @@ def _mc_eval_model(model: VisionTransformer) -> VisionTransformer:
 def _load_ensemble_members(args, model: VisionTransformer) -> List[Dict[str, torch.Tensor]]:
     """--ensemble_checkpoints → one state dict per member, each imported over
     the model's state (replaces the reference's path templates,
-    engine_for_finetuning.py:234-242)."""
+    engine_for_finetuning.py:234-242): a ``.pth``, or an orbax checkpoint
+    directory of the JAX package (``utils.checkpoint.read_weights``)."""
     members = []
     for path in args.ensemble_checkpoints:
-        _require_pth(path, "ensemble member")
-        state, _, _ = C.import_torch_state_dict(C.load_torch_state_dict(path), model.state_dict())
+        state, _, _ = C.import_torch_state_dict(C.read_weights(path), model.state_dict())
         members.append(state)
     return members
 

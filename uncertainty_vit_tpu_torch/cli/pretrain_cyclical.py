@@ -175,8 +175,15 @@ def hparams(args, steps_per_epoch: int) -> CyclicalHParams:
 
 def seed_from_pth(args, model: CyclicalViT) -> None:
     """--finetune / --seed_model: a reference or port ``.pth`` into the
-    student (``utils.checkpoint.import_torch_state_dict``'s rules)."""
-    _require_pth(args.finetune, "--finetune")
+    student (``utils.checkpoint.import_torch_state_dict``'s rules). Any
+    other path raises: the JAX pretrainers read a ``.pth`` there and
+    silently ignore anything else (uncertainty_vit_tpu/cli/
+    pretrain_cyclical.py:165, pretrain_joint.py:80; ROADMAP.md §3)."""
+    if not args.finetune.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"--finetune / --seed_model {args.finetune!r}: the pretrainers seed from a .pth only "
+            "(the JAX pretrainers ignore any other path); tools/torch_port_orbax_to_pth.py "
+            "turns an orbax checkpoint of the JAX package into one")
     state, missing, unused = C.import_torch_state_dict(C.load_torch_state_dict(args.finetune),
                                                        model.state_dict())
     model.load_state_dict(state, strict=True)

@@ -186,6 +186,155 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the inverse of _torch_key_for: the JAX tree's names for the port's keys
+_BACKBONE_TOP = ("cls_token", "mask_token", "pos_embed", "cov_cls_token", "cov_mask_token")
+_SNGP_PATHS = {key: path for path, (key, _) in _SNGP_KEYS.items()}
+_JOINT_PATHS = {key: name for name, key in _JOINT_HEADS.items()}
+# the SNGP leaves that are not parameters, by the JAX collection holding them
+_COLLECTION_OF = {"rf_kernel": "sngp_frozen", "rf_bias": "sngp_frozen",
+                  "precision_matrix": "sngp_state", "u": "spectral_stats",
+                  "v": "spectral_stats"}
+
+
+def _flax_path_for(key: str, spectral_fc_norm: bool) -> Tuple[str, ...]:
+    """A port key → its JAX path (the inverse of ``_torch_key_for``, the
+    ``backbone`` module put back). ``fc_norm.bias`` is the spectral
+    fc_norm's when the state dict holds ``fc_norm.weight_orig``."""
+    parts = key.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else "bias"
+    if key in _BACKBONE_TOP:
+        return ("backbone", key)
+    if key == "layer_log_weights":
+        return (key,)
+    if parts[0] in ("patch_embed", "cov_patch_embed"):
+        return ("backbone", parts[0], "proj", leaf)
+    if key == SHARED_REL_POS_TABLE:
+        return ("backbone", "rel_pos_bias", "relative_position_bias_table")
+    if parts[0] == "blocks":
+        pre, sub = ("backbone", f"blocks_{parts[1]}"), parts[2:]
+        if sub[0] in ("norm1", "norm2"):
+            return pre + (sub[0], "scale" if sub[1] == "weight" else "bias")
+        if sub[0] in ("gamma_1", "gamma_2"):
+            return pre + (sub[0],)
+        if sub[:2] in (["attn", "qkv"], ["attn", "cov_qkv"]):
+            return pre + ("attn", f"{sub[1]}_kernel")
+        return pre + tuple(sub[:2]) + ((leaf,) if len(sub) == 3 else ())
+    if ".".join(parts[:-1]) in _JOINT_PATHS:
+        return (_JOINT_PATHS[".".join(parts[:-1])], leaf)
+    if parts[0] in ("head", "lm_head"):
+        rest = ".".join(parts[1:])
+        if rest in _SNGP_PATHS:
+            return (parts[0],) + _SNGP_PATHS[rest]
+        return tuple(parts[:-1]) + (leaf,)
+    if parts[0] == "fc_norm" and spectral_fc_norm:
+        return ("fc_norm_sn", {"weight_orig": "kernel", "bias": "bias", "weight_u": "u",
+                               "weight_v": "v"}[parts[1]])
+    return (parts[0], "scale" if parts[1] == "weight" else "bias")
+
+
+def state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The port's state dict (a model's, or a reference ``.pth``'s) → the
+    JAX package's variables, {collection: nested dict of numpy arrays}:
+    "params" and, where the model has them, "spectral_stats", "sngp_state"
+    and "sngp_frozen". The counterpart of JAX ``import_torch_params``
+    (uncertainty_vit_tpu/utils/checkpoint.py:281) that needs no JAX: the
+    exact inverse of ``flax_to_state_dict`` (each key sent back through
+    ``_torch_key_for`` must give itself; the layouts transposed back), so
+    that a float32 tree comes back bit for bit. ``relative_position_index``
+    buffers, which the JAX tree does not hold, are dropped."""
+    spectral = "fc_norm.weight_orig" in state_dict
+    out: Dict[str, Dict[str, Any]] = {}
+    for key, value in state_dict.items():
+        if "relative_position_index" in key:
+            continue
+        path = _flax_path_for(key, spectral)
+        mapping = _torch_key_for(path)
+        if mapping is None or mapping[0] != key:
+            raise KeyError(f"no JAX param for port key {key}")
+        v = _numpy(value)
+        if mapping[1] == "linear_w":
+            v = v.T
+        elif mapping[1] == "conv_w":  # OIHW → HWIO
+            v = v.transpose(2, 3, 1, 0)
+        node = out.setdefault(_COLLECTION_OF.get(path[-1], "params"), {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's train states, as utils.orbax.read_orbax_tree reads them
+# ---------------------------------------------------------------------------
+
+# each state's fields (uncertainty_vit_tpu/train/engine_finetune.py:25-33,
+# engine_finetune_dist.py:26-30, engine_cyclical.py:26-35,
+# engine_mim.py:25-29: the joint pretrainer writes a CyclicalState), and the
+# dVAE trainer's two layouts (cli/train_dvae.py:193-200): its per-epoch
+# state and checkpoint-dvae-weights, the variables alone
+JAX_STATES = {
+    "finetune": ("params", "opt_state", "step", "model_ema", "sngp_state", "spectral_stats",
+                 "sngp_frozen"),
+    "dist": ("params", "opt_state", "step"),
+    "cyclical": ("params", "opt_state", "ema_params", "step", "sngp_state", "sngp_frozen"),
+    "mim": ("params", "opt_state", "step"),
+}
+DVAE_STATES = (("params",), ("variables", "opt_state", "step"))
+FAMILIES = (*JAX_STATES, "dvae")
+
+
+def jax_state_family(tree: Mapping) -> str:
+    """Which train state of the JAX package ``tree`` is, by its fields; a
+    DistFinetuneState and a MIMState have the same fields, and the dist
+    model's backbone holds ``cov_patch_embed``."""
+    fields = set(tree)
+    if any(fields == set(f) for f in DVAE_STATES):
+        params = tree["params"] if "params" in tree else tree["variables"]["params"]
+        if "codebook" in params:
+            return "dvae"
+    for family in ("finetune", "cyclical"):
+        if fields == set(JAX_STATES[family]):
+            return family
+    if fields == set(JAX_STATES["dist"]):
+        return "dist" if "cov_patch_embed" in tree["params"].get("backbone", {}) else "mim"
+    raise ValueError(f"not a train state of the JAX package: fields {sorted(fields)}")
+
+
+def jax_state_dict(tree: Mapping, family: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The weights of a JAX train state as the port's state dict, under the
+    reference's names: what the JAX drivers take from the state, its
+    ``params`` (the student's, for the pretraining states: JAX
+    cli/finetune.py:259-263, :288-289), and for a dVAE its variables'
+    params (cli/builders.py:456-457). The SNGP buffers (``spectral_stats``,
+    ``sngp_state``, ``sngp_frozen``) are carried where the state holds them,
+    as the port's ``.pth`` carries them. The optimizer's state and the EMA
+    are not read. ``family`` (one of ``FAMILIES``) must be the state's when
+    given; by default it is read from the tree."""
+    found = jax_state_family(tree)
+    if family is not None and family != found:
+        raise ValueError(f"the tree is a {found} state, not {family}")
+    if found == "dvae":
+        return dvae_state_dict(tree["params"] if "params" in tree else tree["variables"]["params"])
+    state = flax_to_state_dict(tree["params"])
+    for name in ("spectral_stats", "sngp_state", "sngp_frozen"):
+        if tree.get(name):
+            state.update(flax_to_state_dict(tree[name]))
+    return state
+
+
+def read_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The weights at ``path`` as a state dict: a ``.pth`` / ``.pt``
+    (``load_torch_state_dict``), anything else an orbax checkpoint
+    directory of the JAX package (``jax_state_dict`` of
+    ``utils.orbax.read_orbax_tree``, which needs tensorstore), as the JAX
+    drivers tell them apart."""
+    if path.endswith((".pth", ".pt")):
+        return load_torch_state_dict(path)
+    from uncertainty_vit_tpu_torch.utils.orbax import read_orbax_tree
+
+    return jax_state_dict(read_orbax_tree(path))
+
+
 def _dvae_key_for(path: Tuple[str, ...], num_layers: int) -> Tuple[str, str]:
     """A JAX DiscreteVAE param path → (torch key, transform) in the
     reference's Sequential layout (JAX :372-409); transform 'conv_w' (HWIO →
@@ -226,6 +375,13 @@ def _dalle_key_for(path: Tuple[str, ...]) -> Tuple[str, str]:
     return f"blocks.group_{m.group(1)}.block_{m.group(2)}.{inner}.{suffix}", tf
 
 
+def dvae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX DiscreteVAE's params as the port's DiscreteVAE's state dict;
+    its depth is the count of ``enc_conv_*`` layers in ``params``."""
+    num_layers = sum(1 for k in params if re.fullmatch(r"enc_conv_\d+", k))
+    return _tokenizer_leaves(params, lambda path: _dvae_key_for(path, num_layers))
+
+
 def _tokenizer_state_dict(model: nn.Module, params: Mapping) -> Optional[Dict[str, torch.Tensor]]:
     """A JAX tokenizer's params as the port's tokenizer's state dict, or None
     when ``model`` is no tokenizer."""
@@ -243,6 +399,10 @@ def _tokenizer_state_dict(model: nn.Module, params: Mapping) -> Optional[Dict[st
         key_for = _dalle_key_for
     else:
         return None
+    return _tokenizer_leaves(params, key_for)
+
+
+def _tokenizer_leaves(params: Mapping, key_for) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
         key, tf = key_for(path)
@@ -610,7 +770,20 @@ def restore_checkpoint(path: str, state):
 
 def auto_load(output_dir: str, state) -> Tuple[Any, int]:
     """Resume from the highest checkpoint-N.pth: (state, N + 1), or
-    (state, 0) untouched when there is none."""
+    (state, 0) untouched when there is none. An orbax ``checkpoint-N``
+    directory of the JAX package there raises: its optax state does not
+    cross packages (ROADMAP.md item 23), and a run that skipped it would
+    start afresh over it."""
+    from uncertainty_vit_tpu_torch.utils.orbax import is_orbax_checkpoint
+
+    if os.path.isdir(output_dir):
+        jax_states = sorted(n for n in os.listdir(output_dir) if re.fullmatch(r"checkpoint-\d+", n)
+                            and is_orbax_checkpoint(os.path.join(output_dir, n)))
+        if jax_states:
+            raise NotImplementedError(
+                f"--auto_resume: {output_dir} holds orbax train states of the JAX package "
+                f"({', '.join(jax_states)}); their optax state does not cross packages "
+                "(ROADMAP.md item 23): pass one to --finetune, or use another --output_dir")
     found = latest_checkpoint(output_dir)
     if found is None:
         return state, 0
