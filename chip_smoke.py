@@ -454,6 +454,32 @@ kernels from the sources in this checkout, then:
            wherever the top two stand further apart, K1 depth launches; (c)
            without tensorstore on the card, read_orbax_tree and the
            driver's --finetune DIR raise naming the converter.
+  phase 28 slice 18, the finetune driver on the data x seq mesh: four gloo
+           ranks sharing the card as the mesh (2, 2, 1) in one run_ranks call
+           (chip_smoke.mesh_driver_rank calls cli.finetune.run_rank in each),
+           at ViT-B/16 384's widths (768, 12 heads, N = 577) and 4 blocks
+           (--target_layer 3), PHASE28_SIZES seeded 32x32 CIFAR-100 images,
+           --batch_size 2 a data rank: (a) --eval in bf16, MC-dropout K=4
+           folded and split at 2 and --het_layer in f32; (b) two epochs of
+           training in f32 over an odd train split (padded shards), each
+           evaluated over the union of the shards; (c) --sinkformer, an
+           epoch of one step (f32) and --eval (bf16); (d) --opt adahessian
+           on each seq pair as a mesh of one data index (f32), and again
+           with the k/v gather's old backward. Then each run in one process
+           given the global batch (BatchLoader(hosts_per_batch=2), batch 4;
+           batch 2 for (d)). Holds every rank's launches (K5 a forward and
+           K5's backward a block, K8 two a block that drops) and one
+           process's (K3 / K4 in K5's place); every rank's logits against
+           one process's rows of each global batch (LOGIT_REL_BOUND of
+           max|logit| in bf16, PHASE28_F32_REL_BOUND in f32) and rank 0's
+           metrics; each rank's first K8 mask through the fold against its
+           plain version and one process's rows, to the bit; the steps'
+           losses and gradient norms and each epoch's loss
+           (PHASE28_F32_REL_BOUND), every rank's step count; D = z * Hz on
+           the pair against one process's (PHASE28_HESSIAN_REL_BOUND), and
+           the old backward's D outside that bound. Phase 5 also holds K8's
+           batch fold (FOLD_CASES) against its plain version and one
+           process's rows, and times it at [1024*197, 768].
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -555,6 +581,12 @@ AUG_FLIP_ATOL, AUG_FLIP_SHARE = 2 * 2.0**-8 / 0.224, 1e-4
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def bound(n_bytes: float, flops: float, dtype: str) -> tuple:
@@ -1245,6 +1277,13 @@ WINDOW_CASES = ((577, 2, 768, 16), (577, 2, 768, 64), (5, 2, 768, 6), (5, 2, 5, 
                 (13, 4, 768, 3), (7, 2, 6, 1))
 
 
+# K8's batch folds in phase 5: (K copies, b rows a data rank, D data ranks, n
+# tokens, C, seq ranks S); (4, 2, 2, 577, 768, 2) is phase 28's MC-dropout
+# fold at ViT-B/16 384, C = 5 the element path
+FOLD_CASES = ((4, 2, 2, 577, 768, 2), (8, 16, 2, 197, 768, 1), (3, 1, 3, 5, 5, 2),
+              (2, 3, 2, 7, 6, 1))
+
+
 def phase5(torch, dev):
     from uncertainty_vit_tpu_torch.ops import dropout as DO
 
@@ -1302,6 +1341,31 @@ def phase5(torch, dev):
         print(f"  K8 window {str(dtype)[6:]} rate {rate} [{g}, {n}, {c}] over {s} ranks: equal "
               "to the bit to its plain version and to the unsharded call's rows", flush=True)
 
+    # the batch fold of a data axis: rank d's rows of each of the K copies of a
+    # global batch of D·b (local group k·b + i is global k·D·b + d·b + i),
+    # under each seq rank's row window, draw one process's rows of the
+    # unfolded call
+    for (kk, bb, dd, n, c, s), dtype in itertools.product(FOLD_CASES,
+                                                         (torch.bfloat16, torch.float32)):
+        x = torch.randn(kk * dd * bb, n, c, generator=gen, device=dev).to(dtype)
+        whole = DO.fused_dropout(x, 0.3, seed)
+        for d, q in itertools.product(range(dd), range(s)):
+            fold = (bb, dd * bb, d * bb)
+            rows = DO.unsharded_groups(kk * bb, fold).to(dev)
+            start, stop = -(-n // s) * q, min(-(-n // s) * (q + 1), n)
+            part = x[rows, start:stop].contiguous()
+            window = (start, n) if s > 1 else None
+            got = DO.fused_dropout(part, 0.3, seed, window, fold)
+            ref = DO.fused_dropout_plain(part, 0.3, seed, window, fold)
+            torch.cuda.synchronize()
+            worst = max(worst, (got.float() - ref.float()).abs().max().item())
+            check(torch.equal(got, ref) and torch.equal(got, whole[rows, start:stop]),
+                  f"K8's fold {fold} of [{kk * dd * bb}, {n}, {c}] {dtype}, rows [{start}, "
+                  f"{stop}): not its plain version's or one process's rows")
+        print(f"  K8 fold {str(dtype)[6:]} [{kk}x{dd}x{bb}, {n}, {c}] over {dd} data x {s} seq "
+              "ranks: equal to the bit to its plain version and to one process's rows",
+              flush=True)
+
     # the MC-dropout shape: K=8 samples of batch 128 folded, N=197, C=768
     x = torch.randn(1024 * 197, 768, generator=gen, device=dev).to(torch.bfloat16)
     kern = lambda: DO.fused_dropout(x, 0.1, seed)
@@ -1311,6 +1375,9 @@ def phase5(torch, dev):
     # index map beside the flat index
     xw = x.view(1024, 197, 768)
     window = lambda: DO.fused_dropout(xw, 0.1, seed, (197, 394))
+    # and as data rank 1's 64 rows of each of 16 copies of a global batch of 128:
+    # the fold's index map (one division a block) beside the flat index
+    fold = lambda: DO.fused_dropout(xw, 0.1, seed, None, (64, 128, 64))
     got, ref = kern(), plain()
     worst = max(worst, (got.float() - ref.float()).abs().max().item())
     check(torch.equal(got, ref), "K8 differs from its plain version at the MC-dropout shape")
@@ -1319,14 +1386,19 @@ def phase5(torch, dev):
     got = window()
     check(torch.equal(got[:64], DO.fused_dropout_plain(xw[:64], 0.1, seed, (197, 394))),
           "K8's window differs from its plain version at [1024, 197 of 394, 768]")
+    got = fold()
+    check(torch.equal(got[:64], DO.fused_dropout_plain(xw[:64], 0.1, seed, None,
+                                                       (64, 128, 64))),
+          "K8's fold differs from its plain version at [1024, 197, 768]")
     del got, ref
-    best, runs = in_turns({"plain": plain, "kernel": kern, "window": window, "library": lib}, 10)
+    best, runs = in_turns({"plain": plain, "kernel": kern, "window": window, "fold": fold,
+                           "library": lib}, 10)
     bound_ms, bound_by = bound(2 * nbytes(x), float(x.numel()), "float32")
     print(f"  K8 at [1024*197, 768] bf16 rate 0.1, ms per call: {runs}; bound {bound_ms:.4f} ms",
           flush=True)
     return {"max_abs_err": worst, "ms": best["kernel"], "plain_ms": best["plain"],
             "library_ms": best["library"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "window_ms": best["window"]}
+            "window_ms": best["window"], "fold_ms": best["fold"]}
 
 
 def phase6(torch, FA, dev, det_ms_per_128):
@@ -8517,6 +8589,425 @@ def phase27(torch, FA, dev, phase16_eval):
     return paths
 
 
+# Phase 28: the finetune driver on the data x seq mesh (slice 18). The mesh
+# is (data, seq, model); sizes: (train images, test images, batch per data
+# rank, depth, MC samples). The train split's odd count pads the shards.
+# ViT-B/16 384's widths (768, 12 heads, N = 577) at 4 of its blocks
+# (--target_layer 3): the launch counts scale with the depth.
+PHASE28_MESH = (2, 2, 1)
+PHASE28_SIZES = (9, 8, 2, 4, 4)
+# f32 runs that draw masks or noise, and the training's losses: the arrays
+# read back within this of their largest value, each metric and loss within
+# this of max(1, |one process's|)
+PHASE28_F32_REL_BOUND = 1e-4
+# the AdaHessian update's D = z * Hz on the seq pair against one process:
+# max|diff| / max|D|; the pass with the old k/v gather backward must miss it
+PHASE28_HESSIAN_REL_BOUND = 1e-3
+
+
+def _old_gather_backward(ctx, grad):
+    """The k/v gather's backward before this slice: an all-reduce in place on
+    a clone, which a second backward cannot see through (phase 28d's
+    mutation)."""
+    import torch.distributed as dist
+
+    total = grad.contiguous().clone()
+    dist.all_reduce(total, group=ctx.group.group)
+    start, stop = ctx.group.rows(ctx.n)
+    return total[:, start:stop], None, None
+
+
+@contextlib.contextmanager
+def watched_mesh_driver(torch, np, FT):
+    """Inside, each driver run's host reads (``evals.collect._finish``), its
+    first K8 call's arguments, each train step's loss and gradient norm, and
+    each optimizer step's Hessian estimate after the step (summed over the
+    seq group there) are kept in rec; ``rec_reset`` empties it."""
+    from uncertainty_vit_tpu_torch.evals import collect
+    from uncertainty_vit_tpu_torch.models import layers as TL
+    from uncertainty_vit_tpu_torch.train import optim as TO
+
+    rec = {}
+
+    def reset():
+        rec.update(reads=[], k8=None, steps=[], hessians=[])
+
+    reset()
+    rec["reset"] = reset
+    finish, dropout, make_step, opt_step = (collect._finish, TL.fused_dropout,
+                                            FT.make_finetune_train_step, TO.ChainOptimizer.step)
+
+    def recorded(pending):
+        value = finish(pending)
+        rec["reads"].append(np.array(value))
+        return value
+
+    def first_k8(x, rate, seed, window=None, fold=None):
+        if rec["k8"] is None:
+            rec["k8"] = (tuple(x.shape), rate, int(seed.item()), window, fold)
+        return dropout(x, rate, seed, window, fold)
+
+    def watched_make(*a, **k):
+        step = make_step(*a, **k)
+
+        def watched(*sa, **sk):
+            m = step(*sa, **sk)
+            rec["steps"].append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+            return m
+
+        return watched
+
+    def kept_hessian(self, lr, wd, hessian=None):
+        norm = opt_step(self, lr, wd, hessian)
+        if hessian is not None:
+            rec["hessians"].append([h.detach().float().cpu().clone() for h in hessian])
+        return norm
+
+    collect._finish, TL.fused_dropout = recorded, first_k8
+    FT.make_finetune_train_step, TO.ChainOptimizer.step = watched_make, kept_hessian
+    try:
+        yield rec
+    finally:
+        collect._finish, TL.fused_dropout = finish, dropout
+        FT.make_finetune_train_step, TO.ChainOptimizer.step = make_step, opt_step
+
+
+def k8_mask(torch, DO, dev, k8):
+    """(kernel mask, plain mask) of a recorded K8 call: each applied to ones of
+    the call's shape with its seed, window and fold (bool, on the CPU)."""
+    shape, rate, seed, window, fold = k8
+    ones = torch.ones(shape, device=dev)
+    s = torch.tensor([seed], dtype=torch.int64, device=dev)
+    got = DO.fused_dropout(ones, rate, s, window, fold)
+    ref = DO.fused_dropout_plain(ones, rate, s, window, fold)
+    return (got != 0).cpu(), (ref != 0).cpu()
+
+
+def mesh_driver_rank(mesh, device, cases):
+    """One rank of phase 28: each case's driver body (``cli.finetune.run_rank``)
+    on the mesh, or with ``on_pair`` on its seq pair alone (a mesh of one data
+    index, its output directory apart), with the k/v gather's old backward
+    where ``mutated``. Returns {case: {"launches", "reads", "steps",
+    "hessians", "k8" (the first K8 call: its arguments, and its mask on ones
+    from the kernel, equal to the plain version's), "s" (host clock), "result"
+    (rank 0's; None for a training run)}} and the rank's (data, seq) index."""
+    import numpy as np
+    import torch
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    dev = torch.device(device)
+    pair = meshlib.Mesh((1, mesh.size("seq"), 1), mesh.index("seq"),
+                        (None, mesh.group("seq"), None), mesh.group("seq"))
+    out = {}
+    with watched_mesh_driver(torch, np, FT) as rec:
+        for name, argv, trains, on_pair, mutated in cases:
+            argv = list(argv)
+            if on_pair:
+                argv[argv.index("--output_dir") + 1] += f"_pair{mesh.index('data')}"
+            rec["reset"]()
+            backward = seq._GatherTokens.backward
+            if mutated:
+                seq._GatherTokens.backward = staticmethod(_old_gather_backward)
+            torch.cuda.synchronize()
+            reset_kernel_counts(FA, TQ, DO)
+            t = time.perf_counter()
+            try:
+                res = FT.run_rank(pair if on_pair else mesh, FT.get_args_parser().parse_args(argv),
+                                  device)
+                torch.cuda.synchronize()
+            finally:
+                seq._GatherTokens.backward = backward
+            run = {"launches": kernel_counts(FA, TQ, DO), "s": time.perf_counter() - t,
+                   "reads": rec["reads"], "steps": rec["steps"], "hessians": rec["hessians"],
+                   "result": None if trains else res, "k8": None}
+            if rec["k8"] is not None:
+                got, ref = k8_mask(torch, DO, dev, rec["k8"])
+                check(torch.equal(got, ref), f"28 {name}: K8's mask through the fold differs "
+                                             "from its plain version's")
+                run["k8"] = (rec["k8"], got)
+            out[name] = run
+            del res
+            gc.collect()
+    return out, (mesh.index("data"), mesh.index("seq"))
+
+
+def _held(got: float, want: float, rel: float) -> bool:
+    return math.isfinite(got) and abs(got - want) <= rel * max(1.0, abs(want))
+
+
+def phase28(torch, FA, dev):
+    """Slice 18 on the card: ``cli.finetune`` on a data 2 x seq 2 mesh of four
+    gloo ranks sharing the card (``main(args, mesh=(2, 2, 1))``'s layout, one
+    ``run_ranks`` call for every sub-phase), at ViT-B/16 384's widths from a
+    seeded ViT-B/16 224 .pth with a 100-class head, over seeded 32x32
+    CIFAR-100 images; each run then in one process given the global batch
+    (``BatchLoader(hosts_per_batch=2)`` reads the two data ranks' padded
+    shards as global batches). 28a: --eval in bf16, MC-dropout folded and
+    split, and the het head (f32); 28b: two epochs of training in f32 (the
+    odd train split padded; each epoch evaluated over the union of the
+    shards); 28c: --sinkformer, an epoch of one step (f32) and --eval (bf16);
+    28d: --opt adahessian on each seq pair (f32), and again with the k/v
+    gather's old backward. Returns the launches of each path, summed over
+    the ranks ("cli18_mesh_") and in one process ("cli18_one_")."""
+    import functools
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as TB
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    t_phase = time.perf_counter()
+    n_train, n_test, b, depth, k = PHASE28_SIZES
+    data, s_size, _ = PHASE28_MESH
+    split = depth // 2
+    fwd = -(-n_test // (data * b))  # eval batches a rank
+    steps = -(-n_train // data) // b  # train steps a rank and epoch (padded, tail dropped)
+    rs = np.random.RandomState(28)
+    want0 = {k_: 0 for k_ in kernel_counts(FA, TQ, DO)}
+    paths = {}
+    bounded = FA.BOUNDED_SCORES
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8),
+                           np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8),
+                           np.arange(n_test) % 100, "test")
+            pth = os.path.join(tmp, "vitb224.pth")
+            write_vitb_pth(torch, dev, get_preset(
+                "beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                use_abs_pos_emb=False, init_values=0.1, depth=depth), pth, 280)
+
+            def argv(name, batch, *extra, train=False, dtype="float32"):
+                return ["--model", "beit_base_patch16_384", "--input_size", "384",
+                        "--target_layer", str(depth - 1), "--data_set", "CIFAR100",
+                        "--data_path", tmp, "--num_workers", "4", "--batch_size", str(batch),
+                        "--finetune", pth, "--output_dir", os.path.join(tmp, name),
+                        "--dtype", dtype, "--no_auto_resume",
+                        *([] if train else ["--eval"]), *extra,
+                        "--seq_parallel", str(s_size)]
+
+            mc = ["--mc_dropout", "--mc_dropout_forwards", str(k), "--drop", "0.1"]
+            epoch = ["--warmup_epochs", "1", "--layer_decay", "0.65", "--save_ckpt_freq", "1"]
+            one_step = ["--epochs", "1", "--steps_per_epoch", "1",
+                        "--disable_eval_during_finetuning", "--no_save_ckpt"]
+            # name → (extra flags, trains, on a seq pair, mutated, dtype, the launches of a
+            # rank: K5 a forward and K5_bwd a backward a block, K8 two a block that drops)
+            cases = {
+                "eval": ([], False, False, False, "bfloat16", dict(K5=depth * fwd)),
+                "mc_folded": (mc, False, False, False, "float32",
+                              dict(K5=depth * fwd, K8=2 * depth * fwd)),
+                "mc_split": (mc + ["--mc_dropout_split_at", str(split), "--dropout_from_block",
+                                   str(split)], False, False, False, "float32",
+                             dict(K5=depth * fwd, K8=2 * (depth - split) * fwd)),
+                "het": (["--het_layer"], False, False, False, "float32", dict(K5=depth * fwd)),
+                "train": (["--epochs", "2", *epoch], True, False, False, "float32",
+                          dict(K5=depth * 2 * (steps + fwd), K5_bwd=depth * 2 * steps)),
+                "sinkformer_train": (["--sinkformer", *epoch, *one_step], True, False, False,
+                                     "float32", {}),
+                "sinkformer_eval": (["--sinkformer"], False, False, False, "bfloat16", {}),
+                "adahessian": (["--opt", "adahessian", "--lr", "1e-3", *epoch, *one_step], True,
+                               True, False, "float32", dict(K5=depth, K5_bwd=depth)),
+                "adahessian_old_gather": (["--opt", "adahessian", "--lr", "1e-3", *epoch,
+                                           *one_step], True, True, True, "float32",
+                                          dict(K5=depth, K5_bwd=depth)),
+            }
+
+            def case_argv(name, batch, s=s_size):
+                extra, trains, _, _, dtype, _ = cases[name]
+                a = argv(name, batch, *extra, train=trains, dtype=dtype)
+                return a[:-1] + [str(s)]
+
+            rank_cases = [(name, case_argv(name, b), c[1], c[2], c[3])
+                          for name, c in cases.items()]
+
+            # --- the four ranks
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = seq.run_ranks(mesh_driver_rank, data * s_size, str(dev), rank_cases,
+                                  timeout=900.0, mesh=PHASE28_MESH)
+            ranks_s = time.perf_counter() - t0
+            for r, (res, _) in enumerate(ranks):
+                for name, run in res.items():
+                    exp = dict(want0, **cases[name][5])
+                    check(run["launches"] == exp,
+                          f"28 rank {r} {name} launched {run['launches']}, expected {exp}")
+                    check((run["result"] is None) == (r != 0 or cases[name][1]),
+                          f"28 rank {r} {name} returned {type(run['result'])}")
+            for name in cases:
+                paths[f"cli18_mesh_{name}"] = {
+                    k_: sum(res[name]["launches"][k_] for res, _ in ranks) for k_ in want0}
+            print(f"  28 four ranks as mesh {PHASE28_MESH} ({card_line()}), launches a rank: "
+                  + "; ".join(f"{n}: {run['launches']}" for n, run in ranks[0][0].items()),
+                  flush=True)
+            print("  28 seconds a run on rank 0 (host clock, model build and .pth import "
+                  "included): " + ", ".join(f"{n} {run['s']:.2f}" for n, run in
+                                            ranks[0][0].items())
+                  + f"; the ranks ran {ranks_s:.1f} s from start to end", flush=True)
+            for res, _ in ranks:
+                n_steps = [len(res[name]["steps"]) for name in ("train",)]
+                check(n_steps == [2 * steps], f"28b a rank took {n_steps} steps, expected "
+                                             f"{2 * steps}: the padded shards hold every rank "
+                                             "to the same steps")
+
+            # --- one process given the global batch (the seq pair's cases: batch b)
+            one = {}
+            global_batches = functools.partial(BatchLoader, hosts_per_batch=data)
+            loader = TB.BatchLoader
+            with watched_mesh_driver(torch, np, FT) as rec:
+                for name, c in cases.items():
+                    on_pair = c[2]
+                    if c[3]:  # the mutation runs on the ranks alone
+                        continue
+                    rec["reset"]()
+                    a1 = case_argv(name, b if on_pair else data * b, s=1)
+                    a1[a1.index("--output_dir") + 1] += "_one"
+                    reset_kernel_counts(FA, TQ, DO)
+                    t = time.perf_counter()
+                    TB.BatchLoader = loader if on_pair else global_batches
+                    try:
+                        res = FT.main(FT.get_args_parser().parse_args(a1))
+                        torch.cuda.synchronize()
+                    finally:
+                        TB.BatchLoader = loader
+                    one[name] = {"launches": kernel_counts(FA, TQ, DO),
+                                 "s": time.perf_counter() - t, "reads": rec["reads"],
+                                 "steps": rec["steps"], "hessians": rec["hessians"],
+                                 "result": None if c[1] else res,
+                                 "k8": None if rec["k8"] is None
+                                 else (rec["k8"], k8_mask(torch, DO, dev, rec["k8"])[0])}
+                    del res
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            for name, run in one.items():
+                n = cases[name][5]
+                factor = 1 if cases[name][2] else data  # the pair's cases: batch b
+                # one process runs K3 / K4 (N = 577) where a rank runs K5; a rank's
+                # forwards are one process's
+                exp = dict(want0, K3=n.get("K5", 0), K4=n.get("K5_bwd", 0), K8=n.get("K8", 0))
+                check(run["launches"] == exp, f"28 one process {name} launched "
+                                              f"{run['launches']}, expected {exp} (batch "
+                                              f"{factor * b})")
+                paths[f"cli18_one_{name}"] = run["launches"]
+
+            # --- the holds
+            worst = {}
+            for name in ("eval", "mc_folded", "mc_split", "het", "sinkformer_eval"):
+                bound_ = LOGIT_REL_BOUND if cases[name][4] == "bfloat16" else PHASE28_F32_REL_BOUND
+                ref = one[name]["reads"]
+                rel = 0.0
+                for res, (d, _) in ranks:
+                    got = res[name]["reads"]
+                    check(len(got) == len(ref) > 0, f"28 {name}: {len(got)} reads on a rank, "
+                                                    f"{len(ref)} in one process")
+                    for g, w in zip(got, ref):
+                        # rank d holds rows [d·b', (d + 1)·b') of each global batch of D·b'
+                        part = w[d * len(g):(d + 1) * len(g)]
+                        check(g.shape == part.shape, f"28 {name}: shapes {g.shape} / {part.shape}")
+                        if np.issubdtype(w.dtype, np.floating):
+                            rel = max(rel, float(np.abs(g - part).max())
+                                      / max(float(np.abs(w).max()), 1e-30))
+                        else:
+                            check(np.array_equal(g, part), f"28 {name}: the labels differ")
+                worst[name] = rel
+                check(rel <= bound_, f"28 {name}: the ranks' arrays differ from one process's "
+                                     f"rows by {rel:.3e} of their largest value (bound {bound_})")
+                got, ref_res = ranks[0][0][name]["result"], one[name]["result"]
+                check(list(got) == list(ref_res), f"28 {name}: result keys {list(got)}")
+                for key, metrics in ref_res.items():
+                    for m, v in metrics.items():
+                        g = got[key][m]
+                        if m in ("acc1", "acc5"):
+                            ok = abs(g - v) * n_test / 100 <= (1 if bound_ > 1e-3 else 0) + 1e-6
+                        else:
+                            ok = _held(g, v, bound_)
+                        check(ok, f"28 {name}: {m} {g} on the mesh, {v} in one process")
+            # the MC masks: the first K8 call of each rank against its plain
+            # version (in the rank) and against one process's rows, to the bit
+            for name in ("mc_folded", "mc_split"):
+                (shape1, _, seed1, window1, fold1), mask1 = one[name]["k8"]
+                check(window1 is None and fold1 is None, f"28 {name}: one process's K8 call")
+                for res, (d, q) in ranks:
+                    (shape, _, seed, window, fold), mask = res[name]["k8"]
+                    check(seed == seed1, f"28 {name}: rank ({d}, {q}) drew seed {seed}, one "
+                                         f"process {seed1}")
+                    start, nn = window
+                    rows = DO.unsharded_groups(shape[0], fold)
+                    want_mask = mask1.reshape(shape1[0], nn, -1)[rows, start:start + shape[1]]
+                    check(torch.equal(mask.reshape(want_mask.shape), want_mask),
+                          f"28 {name}: rank ({d}, {q})'s K8 mask through the fold {fold} and "
+                          f"window {window} is not one process's rows")
+            # 28b / 28c / 28d: losses and gradient norms step by step
+            for name in ("train", "sinkformer_train", "adahessian"):
+                for res, _ in ranks:
+                    got, ref = res[name]["steps"], one[name]["steps"]
+                    check(len(got) == len(ref) > 0, f"28 {name}: {len(got)} / {len(ref)} steps")
+                    for i, (g, w) in enumerate(zip(got, ref)):
+                        for key in ("loss", "grad_norm"):
+                            check(_held(g[key], w[key], PHASE28_F32_REL_BOUND),
+                                  f"28 {name} step {i}: {key} {g[key]} on the mesh, "
+                                  f"{w[key]} in one process")
+            epochs = {}
+            for tag in ("train", "train_one"):
+                with open(os.path.join(tmp, tag, "log.txt")) as f:
+                    epochs[tag] = [json.loads(line) for line in f]
+            check(len(epochs["train"]) == len(epochs["train_one"]) == 2, "28b's log.txt")
+            for e, (g, w) in enumerate(zip(epochs["train"], epochs["train_one"])):
+                check(_held(g["train_loss"], w["train_loss"], PHASE28_F32_REL_BOUND),
+                      f"28b epoch {e}: loss {g['train_loss']} on the mesh, {w['train_loss']} "
+                      "in one process")
+            hz = {}
+            for name in ("adahessian", "adahessian_old_gather"):
+                rel = 0.0
+                ref = one["adahessian"]["hessians"]
+                for res, _ in ranks:
+                    got = res[name]["hessians"]
+                    check(len(got) == len(ref) == 1, f"28 {name}: Hessian estimates")
+                    top = max(float(w.abs().max()) for w in ref[0])
+                    rel = max(rel, max(float((g - w).abs().max()) for g, w in zip(got[0], ref[0]))
+                              / top)
+                hz[name] = rel
+            check(hz["adahessian"] <= PHASE28_HESSIAN_REL_BOUND,
+                  f"28d: D on the seq pair differs from one process's by {hz['adahessian']:.3e} "
+                  f"of max|D| (bound {PHASE28_HESSIAN_REL_BOUND})")
+            check(hz["adahessian_old_gather"] > PHASE28_HESSIAN_REL_BOUND,
+                  f"28d: with the old gather backward D differs by only "
+                  f"{hz['adahessian_old_gather']:.3e}: the hold would not see it")
+            print("  28 the ranks against one process, max|diff| / max|value| of the arrays "
+                  f"read back (bound {LOGIT_REL_BOUND} in bf16, {PHASE28_F32_REL_BOUND} in "
+                  "f32): " + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+                  + "; K8's masks through the fold equal to the bit to the plain version's and "
+                  "one process's rows; 28b epochs' losses "
+                  + ", ".join(f"{g['train_loss']:.6f} / {w['train_loss']:.6f}"
+                              for g, w in zip(epochs["train"], epochs["train_one"]))
+                  + f"; 28c step 0 loss {ranks[0][0]['sinkformer_train']['steps'][0]['loss']:.6f}"
+                  f" / {one['sinkformer_train']['steps'][0]['loss']:.6f}; 28d max|dD| / max|D| "
+                  f"{hz['adahessian']:.3e} (bound {PHASE28_HESSIAN_REL_BOUND}), with the old "
+                  f"gather backward {hz['adahessian_old_gather']:.3e}", flush=True)
+            print("  28 launches a path (K5 forward / backward, K8), summed over the ranks: "
+                  + "; ".join(f"{p}: K5 {n['K5']} / {n['K5_bwd']}, K8 {n['K8']}"
+                              for p, n in paths.items() if p.startswith("cli18_mesh_"))
+                  + f"; one process's seconds a run: "
+                  + ", ".join(f"{n} {r['s']:.2f}" for n, r in one.items()), flush=True)
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    print(f"  28 (information only; {card_line()}; four ranks sharing one card through host "
+          f"memory, not a multi-card rate): the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -8618,6 +9109,11 @@ def main() -> int:
                     "JAX layout and the converter into the driver, the golden of a JAX-written "
                     "checkpoint, the refusal without tensorstore", phase27, torch, FA, dev,
                 cli_eval)
+    cli18 = run(28, "slice 18: the finetune driver on a data 2 x seq 2 mesh of four gloo ranks "
+                    "sharing the card at ViT-B/16 384's widths: --eval, MC-dropout folded and "
+                    "split (K8 through the fold), the het head, two epochs of training, "
+                    "--sinkformer, --opt adahessian on the seq pairs, against one process with "
+                    "the global batch", phase28, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -8764,6 +9260,15 @@ def main() -> int:
     # 1024 images, the golden's forward), which launch K1 alone
     kernels[0]["launches_by_path"].update({p: n["K1"] for p, n in cli17.items()})
     kernels[0]["launches"] = sum(kernels[0]["launches_by_path"].values())
+    # and phase 28's ("cli18_mesh_": slice 18 on the data 2 x seq 2 mesh, summed
+    # over the four ranks; "cli18_one_": the same runs in one process)
+    for kern, keys in ((kernels[2], ("K3",)), (kernels[3], ("K4",)), (kernels[4], ("K8",)),
+                       (kernels[7], ("K5", "K5_bwd"))):
+        kern["launches_by_path"].update({p: sum(n[k] for k in keys) for p, n in cli18.items()
+                                         if any(n[k] for k in keys)})
+        kern["launches"] = sum(kern["launches_by_path"].values())
+    kernels[7]["launches_by_kernel"].update({p: {k: n[k] for k in ("K5", "K5_bwd")}
+                                             for p, n in cli18.items() if n["K5"]})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(f"chip_smoke: every phase held; {time.perf_counter() - t_start:.1f} s in all, the "

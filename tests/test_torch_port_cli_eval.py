@@ -245,7 +245,8 @@ def test_dual_finetune_raises_on_a_mismatched_head(tmp_path, files):
         TFT.load_variables(targs, TFT.build_model(targs, 100, device="cpu")[0])
 
 
-# the attention variants under --seq_parallel: ROADMAP.md item 21 (the
+# the attention variants under --seq_parallel: the Gumbel-drawing ones raise
+# naming ROADMAP.md item 20's rest; the sinkformer runs since slice 18 (the
 # evaluations, MC-dropout and the heads run there: test_torch_port_seq_eval.py)
 SEQ_NOT_PORTED = ["--sinkformer", "--gumbel_softmax", "--h_sto_trans"]
 NOT_PORTED = [
@@ -264,8 +265,10 @@ def _case_id(extra):
 def test_unported_flags_raise(files, runs, extra):
     """Every flag whose feature is not ported raises NotImplementedError
     naming where the ROADMAP ports it; none is silently ignored. Under
-    --seq_parallel the attention variants raise before the ranks start,
-    naming item 21. An orbax ensemble member of the JAX package, which
+    --seq_parallel the Gumbel-drawing attention variants raise before the
+    ranks start, naming item 20's rest; the sinkformer, ported there since
+    slice 18, gives one process's result (its column steps' logsumexp over
+    both ranks' query rows). An orbax ensemble member of the JAX package, which
     raised here before ROADMAP.md item 23, is read: a.pth's weights saved
     by the JAX package give the .pth member's results to the bit, and the
     JAX driver's on the same directory."""
@@ -281,7 +284,14 @@ def test_unported_flags_raise(files, runs, extra):
                 _same_metrics(g, w, f"member {i}")
             _same_metrics(got["ensemble"], want["ensembles"]["ensemble"], "ensemble")
             return
-        match = "ROADMAP.md item 21" if extra[0] == "--seq_parallel" else "ROADMAP.md"
+        if extra[2:] == ["--sinkformer"]:
+            got = TFT.main(args, device="cpu")["eval"]
+            one = _argv(files, "--sinkformer")
+            want = TFT.main(TFT.get_args_parser().parse_args(one), device="cpu")["eval"]
+            for k, v in want.items():
+                assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+            return
+        match = "ROADMAP.md item 20's rest" if extra[0] == "--seq_parallel" else "ROADMAP.md"
         with pytest.raises(NotImplementedError, match=match):
             TFT.main(args, device="cpu")
 
@@ -292,7 +302,7 @@ SEQ_REFUSED = {
     "mc_dropout_attn_drop": (["--mc_dropout", "--attn_drop_rate", "0.1"], False, ValueError,
                              "sequence-parallel attention requires attn_drop=0"),
     "adahessian_train": (["--opt", "adahessian"], True, NotImplementedError,
-                         "AdaHessian pass under --seq_parallel.*ROADMAP.md item 21"),
+                         "AdaHessian pass on a data axis.*ROADMAP.md item 21"),
 }
 
 
@@ -301,8 +311,10 @@ def test_seq_parallel_refusals_before_the_ranks_start(files, case):
     """Under --seq_parallel 2: MC-dropout with attention dropout raises the
     JAX package's ValueError (its seq-sharded attention refuses a drawing
     forward with attn_drop > 0, models/layers.py:353-358), and AdaHessian
-    training still raises, naming item 21. ``run_ranks`` is replaced by a
-    failure, so each raise comes before any rank starts."""
+    training, which runs on a seq group since slice 18, still raises on the
+    mesh's data axis (``main(..., mesh=(2, 2, 1))``), naming item 21.
+    ``run_ranks`` is replaced by a failure, so each raise comes before any
+    rank starts."""
     extra, trains, error, words = SEQ_REFUSED[case]
     argv = _argv(files, "--seq_parallel", "2", *extra)
     if trains:
@@ -311,7 +323,8 @@ def test_seq_parallel_refusals_before_the_ranks_start(files, case):
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
         mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: pytest.fail("the ranks started"))
         with pytest.raises(error, match=words):
-            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu")
+            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu",
+                     mesh=(2, 2, 1) if trains else None)
 
 
 def test_training_and_orbax_checkpoints_raise(files, runs):

@@ -156,7 +156,9 @@ def test_host_shard_under_a_mesh():
 
 def test_data_shard_draws_the_global_batchs_rows():
     """Under a data axis every mask is the global batch's, this rank's rows
-    kept: rand_rows, and dropout / drop-path inside batch_shard."""
+    kept: rand_rows, and dropout / drop-path inside batch_shard. A draw of
+    k times the shard's rows is k copies of them (the MC-dropout batch's
+    folds, parallel.mesh.fold_index); any other count raises."""
     want = torch.rand((4, 3), generator=torch.Generator().manual_seed(1))
     got = M.rand_rows((2, 3), torch.Generator().manual_seed(1), "cpu", M.data_rows(DATA2, 2))
     assert torch.equal(got, want[2:])
@@ -170,7 +172,7 @@ def test_data_shard_draws_the_global_batchs_rows():
     with TLY.batch_shard(DATA2, 2):
         part = TLY.drop_path(x[2:], 0.5, True, torch.Generator().manual_seed(3))
         with pytest.raises(RuntimeError, match="for a shard of 2"):
-            TLY.drop_path(x, 0.5, True, torch.Generator())
+            TLY.drop_path(x[:3], 0.5, True, torch.Generator())
     assert torch.equal(part, full[2:])
 
 
@@ -230,13 +232,19 @@ def test_element_wise_optimizers_run_under_a_model_axis(opt):
 
 
 def test_refused_under_any_mesh():
-    """The heteroscedastic head, the split-trunk MC-dropout forward, the
-    AdaHessian pass and a resumable checkpoint under a model axis."""
+    """What a mesh's data axis still refuses: the int8 trunk (its scales and
+    rounding bits would need the global batch's rows) and attention dropout
+    where a forward draws (K1's mask is keyed on the rank's rows; the
+    heteroscedastic head and the MC-dropout forwards run there since slice
+    18); the AdaHessian pass on a data axis; and a resumable checkpoint
+    under a model axis."""
     with pytest.raises(NotImplementedError, match="item 21"):
-        VisionTransformer(ViTConfig(**dict(SMALL, head_type="het")), device="cpu", mesh=DATA2)
+        VisionTransformer(ViTConfig(**dict(SMALL, quant="int8")), device="cpu", mesh=DATA2)
+    dropping = VisionTransformer(ViTConfig(**dict(SMALL, attn_drop_rate=0.1)), device="cpu",
+                                 mesh=DATA2).train()
+    with pytest.raises(NotImplementedError, match="attention dropout on a data axis"):
+        dropping(torch.zeros(2, 32, 32, 3), generator=torch.Generator())
     model = VisionTransformer(ViTConfig(**SMALL), device="cpu", mesh=DATA2).eval()
-    with pytest.raises(NotImplementedError, match="MC-dropout under a mesh"):
-        model(torch.zeros(2, 32, 32, 3), mc_samples=2)
     opt = TO.make_optimizer(model, opt_name="adahessian")
     with pytest.raises(NotImplementedError, match="item 21"):
         TE.make_finetune_train_step(model, opt, TE.FinetuneHParams(num_classes=5),
@@ -281,11 +289,14 @@ def test_seq_parallel_trains_the_sngp_heads(flag):
     """--sngp / --gp_layer train under --seq_parallel (the engine sums the
     precision update over the data axis, and a seq group's ranks hold the
     same pooled feature), and evaluate there too (the ranks' results:
-    tests/test_torch_port_seq_eval.py); beside an attention variant they
-    still raise, naming item 21."""
+    tests/test_torch_port_seq_eval.py), beside the sinkformer too since
+    slice 18; beside a Gumbel-drawing attention variant they still raise,
+    naming item 20's rest."""
     base = ["--model", "beit_test_patch16_32", "--data_path", "unused", "--seq_parallel", "2",
             flag]
     TFT._check_seq_flags(TFT.get_args_parser().parse_args(base))
     TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval"]))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval", "--sinkformer"]))
+    TFT._check_seq_flags(TFT.get_args_parser().parse_args(base + ["--eval", "--sinkformer"]))
+    with pytest.raises(NotImplementedError, match="item 20's rest"):
+        TFT._check_seq_flags(TFT.get_args_parser().parse_args(
+            base + ["--eval", "--gumbel_softmax"]))

@@ -421,7 +421,7 @@ def test_dropout_sites_take_the_fused_dropout_without_grad_and_the_plain_one_wit
     calls = []
     real = TL.fused_dropout
     monkeypatch.setattr(TL, "fused_dropout",
-                        lambda x, r, s, w=None: calls.append(r) or real(x, r, s, w))
+                        lambda x, r, s, w=None, f=None: calls.append(r) or real(x, r, s, w, f))
     gen = torch.Generator().manual_seed(0)
     block = TL.Block(C, H, drop=0.25, device="cpu", generator=gen)
     x = torch.randn(2, 5, C, generator=gen)

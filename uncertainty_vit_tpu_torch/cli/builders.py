@@ -360,17 +360,28 @@ def build_optimizer(args, model: torch.nn.Module, depth: int) -> Optimizer:
 def build_loaders(
     args, is_train: bool, triplet: bool = False, letterbox_ok: bool = False,
     pad_shards: bool | None = None, shuffle: bool | None = None,
-    drop_last: bool | None = None, host: Optional[Tuple[int, int]] = None,
+    drop_last: bool | None = None, host: Optional[Tuple[int, int]] = None, mesh=None,
 ) -> Tuple[BatchLoader, int]:
     """(loader, class count) of a split. letterbox_ok: only callers whose
     augmentation consumes the per-sample valid extents may enable
     --decode_letterbox; everywhere else the letterboxed canvas would be
     treated as fully valid, so the flag raises there. Each process loads
-    its shard: ``host`` = (host_id, num_hosts), by default ``host_shard()``'s.
-    The sequence-parallel driver passes (0, 1): its ranks split the tokens
-    of the same batches. The JAX package's forced shard padding under
-    --seq_parallel applies where a data axis spans processes, which the
-    port does not have yet (ROADMAP.md item 21)."""
+    its shard: ``host`` = (host_id, num_hosts), by default
+    ``host_shard(mesh)``'s: on a ``parallel.mesh.Mesh`` the data index and
+    the data axis's size (the seq ranks of one data index split the tokens
+    of the same batches); a caller that wants the whole split on every rank
+    passes (0, 1).
+
+    Where the shards span data ranks (num_hosts > 1), shards that would be
+    unpadded are padded, with the JAX package's message and its rule
+    (JAX cli/builders.py:336-352, which forces an explicit
+    ``pad_shards=False`` under --seq_parallel across processes): every data
+    rank then takes the same number of batches of the same sizes, so that
+    a batch of the global batch is the ranks' batches together and the
+    collectives over the data axis stay in lockstep. The port applies it to
+    every unpadded loader on a data axis, the evaluation's too (whose
+    padded duplicates ``evals.collect.DataShards`` leaves out of the
+    metrics)."""
     letterbox_requested = getattr(args, "decode_letterbox", False)
     if letterbox_requested and is_train and not letterbox_ok:
         raise ValueError(
@@ -392,11 +403,16 @@ def build_loaders(
         data_set_filter_file=getattr(args, "data_set_filter_file", None) if is_train else None,
         seed=args.seed,
     )
-    host_id, num_hosts = host or host_shard()
+    host_id, num_hosts = host or host_shard(mesh)
+    shuffle = is_train if shuffle is None else shuffle
+    drop_last = is_train if drop_last is None else drop_last
+    if num_hosts > 1 and not (shuffle or drop_last if pad_shards is None else pad_shards):
+        print("build_loaders: forcing pad_shards=True — unpadded shards would break "
+              "multi-host lockstep under --seq_parallel", flush=True)
+        pad_shards = True
     loader = BatchLoader(
         dataset, args.batch_size,
-        shuffle=is_train if shuffle is None else shuffle, seed=args.seed,
-        drop_last=is_train if drop_last is None else drop_last,
+        shuffle=shuffle, seed=args.seed, drop_last=drop_last,
         num_workers=args.num_workers,
         host_id=host_id, num_hosts=num_hosts,
         pad_shards=pad_shards,

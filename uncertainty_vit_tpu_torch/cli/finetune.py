@@ -32,13 +32,28 @@ train or a held-out split), printing the JAX driver's JSON dict;
 and evaluate: the SNGP precision matrix restarts at each epoch under
 ``--sngp_cov_momentum`` ≤ 0, and the heteroscedastic head draws its noise
 from the step's fourth generator in training and from a fresh generator a
-batch in evaluation. ``--seq_parallel S`` (JAX :185-197, context
-parallelism for 384/512 inputs) runs either on S ranks (``run_rank``
-through ``parallel.seq.run_ranks``, one gloo group) that share ``device``,
-each holding a slice of every image's tokens and reading the same batches;
-rank 0 alone prints, writes log.txt and the checkpoints, and returns its
-result. ``main`` takes ``device`` (the card by default; the tests pass
-"cpu"); the JAX driver has no such flag, and neither has this one.
+batch in evaluation. The driver's mesh (JAX :185-197, ``create_mesh``,
+uncertainty_vit_tpu/parallel/mesh.py:21-44) is data × seq × model ranks,
+model = 1: under a launcher (``parallel.distributed.probe_cluster``: RANK /
+WORLD_SIZE, SLURM, OpenMPI) each of its W processes is one rank of a mesh
+of data = W / --seq_parallel, seq = --seq_parallel, on the card of its
+local rank; without one, ``--seq_parallel S`` runs S ranks sharing
+``device`` (``parallel.seq.run_ranks``, one gloo group, one data index),
+and ``main(args, device, mesh=(D, S, 1))`` lays out D · S such ranks (the
+tests and the card's smoke; it is not a flag). The seq ranks of a data
+index split the tokens of each image and read the same batches; the data
+ranks read their shards of each split (``BatchLoader``'s host shards,
+padded on a data axis) with --batch_size a rank, so a mesh of D data ranks
+is one process given a batch of D · --batch_size: every draw (the train
+transform's, mixup's, drop-path, dropout and masking, K8's MC-dropout
+masks, the het head's noise) is the global batch's, the rank's rows kept,
+and each evaluation's metrics are those of the union of the ranks' logits,
+each sample once (``evals.collect.DataShards``). Rank 0 alone prints,
+writes log.txt and the checkpoints, and returns its result (a rank's train
+state is pickled back through a queue); the parameters are held equal on
+every rank after each epoch. ``main`` takes ``device`` (the card by
+default; the tests pass "cpu"); the JAX driver has no such flag, and
+neither has this one.
 
 ``--stochastic`` selects the dist (mean+covariance) model (JAX :193-196,
 ``models.dist_vit.DistVisionTransformer``; ``--model`` also takes
@@ -61,27 +76,31 @@ each, ROADMAP.md §3): ``--model_ema``, ``--quant int8``,
 0.001 (the dist head is drawn unscaled), and the dispatches that would run
 another model (``--mc_dropout``, ``--ensembles``,
 ``--visualize_embedding``, ``--laplace``, ``--temp_scaling``);
-``--seq_parallel`` raises as in JAX.
+``--seq_parallel`` raises as in JAX, and a launcher's data axis names
+ROADMAP.md item 21.
 
-Under ``--seq_parallel`` every evaluation runs: ``--mc_dropout`` (folded
-and split; each rank folds its rows and K8 draws the unsharded masks'
-rows), the heads (``--sngp``, ``--gp_layer``, ``--het_layer`` in training
-and evaluation: they take the pooled feature, whole on every rank, and
-every rank draws the same noise) and the post-hoc evaluations (-C, -P,
-``--laplace``, ``--temp_scaling``, ``--visualize_embedding``). Every rank
-holds every sample, so the fits sum over no group; rank 0 alone prints and
-writes, and each rank's result equals one process's.
+On the mesh every evaluation runs: ``--mc_dropout`` (folded and split;
+each rank folds its rows and K8 draws the one-process masks' rows), the
+heads (``--sngp``, ``--gp_layer``, ``--het_layer`` in training and
+evaluation) and the post-hoc evaluations (-C, -P, ``--laplace``,
+``--temp_scaling``, ``--visualize_embedding``), which read the whole
+split on every rank and draw as one process (``WHOLE_SPLIT_DISPATCHES``),
+so their fits sum over no group. ``--sinkformer`` and ``--opt
+adahessian`` run under --seq_parallel (the Hessian pass's double backward
+through the seq collectives' differentiable backwards, ``parallel.seq``).
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that ports it: under ``--seq_parallel`` (item 21) the attention variants
-and ``--opt adahessian`` in training; and under a gumbel or dual_sto
-attention ``--laplace`` and ``--visualize_embedding``. A ``--finetune`` or
-ensemble member that is not a ``.pth`` is an orbax checkpoint directory of
-the JAX package, read as the JAX driver reads it (``load_variables``); a
-``--resume`` or ``--auto_resume`` of one raises (ROADMAP.md item 23: its
-optax state does not cross packages). Attention dropout
-under ``--seq_parallel`` raises ``ValueError`` in training and under
-``--mc_dropout``, as the JAX package's attention does.
+that ports it, before any rank starts: on the mesh the Gumbel-drawing
+attention variants (item 20's rest); on its data axis --quant int8, the
+AdaHessian pass and attention dropout where a forward draws (item 21); and
+under a gumbel or dual_sto attention ``--laplace`` and
+``--visualize_embedding``. A ``--finetune`` or ensemble member that is not
+a ``.pth`` is an orbax checkpoint directory of the JAX package, read as
+the JAX driver reads it (``load_variables``); a ``--resume`` or
+``--auto_resume`` of one raises (ROADMAP.md item 23: its optax state does
+not cross packages). Attention dropout under ``--seq_parallel`` raises
+``ValueError`` in training and under ``--mc_dropout``, as the JAX
+package's attention does.
 """
 
 from __future__ import annotations
@@ -91,7 +110,7 @@ import collections
 import contextlib
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -105,18 +124,23 @@ from uncertainty_vit_tpu_torch.evals import calibration as CAL
 from uncertainty_vit_tpu_torch.evals import classification as E
 from uncertainty_vit_tpu_torch.evals import laplace as LA
 from uncertainty_vit_tpu_torch.evals import robustness as R
-from uncertainty_vit_tpu_torch.evals.collect import _finish, _start_readback, per_call_generator
+from uncertainty_vit_tpu_torch.evals.collect import (
+    DataShards, _finish, _start_readback, per_call_generator,
+)
 from uncertainty_vit_tpu_torch.evals.ensembles import (
     ensemble_mean_logits, make_ensemble_forward, stack_params,
 )
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
 from uncertainty_vit_tpu_torch.models.dist_vit import DistVisionTransformer
+from uncertainty_vit_tpu_torch.models.layers import whole_batch
 from uncertainty_vit_tpu_torch.models.registry import sngp_reset_cov
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops.augment import (
     IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, IMAGENET_INCEPTION_MEAN, IMAGENET_INCEPTION_STD,
     eval_transform_batch, make_finetune_train_augment, normalize, to_float,
 )
+from uncertainty_vit_tpu_torch.parallel import distributed as dist_boot
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train.engine_finetune import (
     FinetuneHParams, init_finetune_state, make_finetune_train_step, optional_streams,
@@ -130,11 +154,22 @@ from uncertainty_vit_tpu_torch.utils import checkpoint as C
 from uncertainty_vit_tpu_torch.utils import embeddings as EMB
 from uncertainty_vit_tpu_torch.utils.logging import JsonlLogger, MetricLogger, TensorboardLogger
 
-# what --seq_parallel does not run yet: flag → what it turns on (ROADMAP.md item 21)
+# what the driver's mesh (--seq_parallel, or a launcher's ranks) does not
+# run yet: flag → what it turns on. The Gumbel noise is drawn at the rank's
+# own shapes (ROADMAP.md item 20's rest)
 NOT_PORTED_UNDER_SEQ = {
-    "sinkformer": "the sinkformer attention",
     "gumbel_softmax": "the Gumbel-softmax attention",
     "h_sto_trans": "the dual stochastic attention",
+}
+
+# the --eval dispatches that run the whole split on every data rank (one
+# process's forwards, ``models.layers.whole_batch``): flag → whether it is set
+WHOLE_SPLIT_DISPATCHES = {
+    "corrupted_data": lambda a: a.corrupted_data,
+    "perturbed_data": lambda a: a.perturbed_data,
+    "laplace": lambda a: a.laplace,
+    "temp_scaling": lambda a: a.temp_scaling,
+    "visualize_embedding": lambda a: a.visualize_embedding,
 }
 
 # what a model that draws Gumbel noise in every forward does not run yet:
@@ -177,8 +212,9 @@ def get_args_parser():
     g.add_argument("--nb_classes", type=int, default=0, help="0 = infer from dataset")
     g.add_argument("--seq_parallel", type=int, default=1,
                    help="context-parallel factor: split the tokens of each "
-                        "image over that many ranks (384/512 scaling), gloo "
-                        "ranks sharing the one card")
+                        "image over that many ranks (384/512 scaling): the "
+                        "seq axis of a launcher's ranks, or without a "
+                        "launcher that many gloo ranks sharing the one card")
     g.add_argument("--mixup", type=float, default=0.8)
     g.add_argument("--cutmix", type=float, default=1.0)
     g.add_argument("--mixup_prob", type=float, default=1.0)
@@ -300,10 +336,11 @@ def _aa_kwargs(args) -> Dict:
     return {"auto_augment": True, "aa_magnitude": mag, "aa_magnitude_std": mstd}
 
 
-def build_model(args, nb_classes: int, device=None, seq_group: Optional[seq.SeqGroup] = None):
+def build_model(args, nb_classes: int, device=None, mesh: Optional[meshlib.Mesh] = None):
     """(model, config) of the flags, its parameters drawn from a generator
-    seeded with ``--seed`` on ``device`` (the card by default); with
-    ``seq_group`` (``--seq_parallel``) this rank's share of the tokens.
+    seeded with ``--seed`` on ``device`` (the card by default); on the
+    driver's ``mesh`` this rank's share of the tokens (its seq axis,
+    ``--seq_parallel``) and of the batch (its data axis).
     --stochastic: the ``DistVisionTransformer`` of the same config."""
     cfg = B.model_config_from_args(args, nb_classes)
     if getattr(args, "masked_position_prob", 0.0) > 0:
@@ -318,7 +355,7 @@ def build_model(args, nb_classes: int, device=None, seq_group: Optional[seq.SeqG
         return DistVisionTransformer(cfg, B.compute_dtype(args), device=device,
                                      generator=gen), cfg
     model = VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen,
-                              seq_group=seq_group)
+                              mesh=mesh)
     return model, cfg
 
 
@@ -405,10 +442,12 @@ def _mc_eval_model(model: VisionTransformer) -> VisionTransformer:
     """The eval model with stochastic depth off for MC-dropout: the
     reference's enable_dropout turns only the dropouts on
     (uncertainty_evaluations.py:35-39), so the evaluation must not inherit
-    the training --drop_path rate. Same weights and seq group, a second
-    module."""
+    the training --drop_path rate. Same weights and mesh (or seq group), a
+    second module."""
+    place = ({"mesh": model.mesh} if model.mesh is not None
+             else {"seq_group": model.seq_group})
     mc = VisionTransformer(model.cfg.replace(drop_path_rate=0.0), model.dtype,
-                           device=_device_of(model), seq_group=model.seq_group)
+                           device=_device_of(model), **place)
     mc.load_state_dict(model.state_dict(), strict=True)
     return mc
 
@@ -463,12 +502,13 @@ def _fit_loader(args, model: VisionTransformer):
     """The train split for the post-hoc fits (Laplace, temperature): the
     whole split through the eval transform, unshuffled, no tail dropped,
     unpadded; the letterboxed decode is a train-augmentation matter, so it
-    is off (JAX :324-336). The ranks of a seq group read the whole split,
-    each the same batches: every sample counts once."""
+    is off (JAX :324-336). The ranks of the driver's mesh read the whole
+    split, each the same batches (inside ``whole_batch``): every sample
+    counts once, no padded duplicate among them."""
     fit_args = argparse.Namespace(**{**vars(args), "decode_letterbox": False})
+    one_process = model.mesh is None and model.seq_group is None
     loader, _ = B.build_loaders(fit_args, is_train=True, shuffle=False, drop_last=False,
-                                pad_shards=False,
-                                host=None if model.seq_group is None else (0, 1))
+                                pad_shards=False, host=None if one_process else (0, 1))
     return loader
 
 
@@ -586,8 +626,26 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     """--eval dispatch (run_class_finetuning.py:638-677, JAX :374-548): -C,
     -P, MC-dropout, the ensemble, the dist model's evaluation, the Laplace
     posterior, temperature scaling or the plain evaluation; prints and
-    returns the results."""
+    returns the results.
+
+    On a mesh's data axis the plain evaluation, MC-dropout, the ensemble
+    and the heads take this rank's shard of ``val_loader`` and their
+    metrics the union of the ranks' logits (``evals.collect.DataShards``);
+    the other dispatches (``WHOLE_SPLIT_DISPATCHES``) run the whole split on
+    every rank as one process does (``models.layers.whole_batch``), so that
+    their fits and per-sample draws are one process's."""
     _check_eval_flags(args)
+    mesh = getattr(model, "mesh", None)
+    if meshlib.active(mesh, meshlib.DATA_AXIS) and any(
+            on(args) for on in WHOLE_SPLIT_DISPATCHES.values()):
+        whole, _ = B.build_loaders(args, is_train=False, host=(0, 1))
+        with whole_batch():
+            return _dispatch(args, model, whole, nb_classes, None)
+    return _dispatch(args, model, val_loader, nb_classes, DataShards.of(mesh, val_loader))
+
+
+def _dispatch(args, model: VisionTransformer, val_loader, nb_classes: int,
+              shards: Optional[DataShards]) -> Dict:
     device = _device_of(model)
     batches = lambda: _eval_batches(val_loader, args, device)  # noqa: E731
     results = {}
@@ -602,11 +660,12 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
     if args.mc_dropout:
         results["mc_dropout"] = E.evaluate_mc_dropout(
             _mc_eval_model(model), batches(), num_samples=args.mc_dropout_forwards,
-            split_at=args.mc_dropout_split_at,
+            split_at=args.mc_dropout_split_at, shards=shards,
         )
     elif args.ensembles:
         results["ensembles"] = E.evaluate_ensemble(
-            model, stack_params(_load_ensemble_members(args, model)), batches(), seed=args.seed)
+            model, stack_params(_load_ensemble_members(args, model)), batches(), seed=args.seed,
+            shards=shards)
     elif args.stochastic:
         results["dist_eval"] = E.evaluate_dist(model, batches())
     elif args.laplace:
@@ -624,25 +683,46 @@ def run_eval_dispatch(args, model: VisionTransformer, val_loader, nb_classes: in
         print(f"temperature scaling: T* = {results['temp_scaling']['temperature']:.4f}",
               flush=True)
     else:
-        results["eval"] = E.evaluate(model, batches(), het=args.het_layer, seed=args.seed)
+        results["eval"] = E.evaluate(model, batches(), het=args.het_layer, seed=args.seed,
+                                     shards=shards)
     print(json.dumps(results, indent=2, default=float), flush=True)
     return results
 
 
-def _check_seq_flags(args) -> None:
-    """What --seq_parallel does not run raises before the ranks start: the
-    attention variants and the AdaHessian pass (ROADMAP.md item 21), and
-    attention dropout wherever a forward draws, in training and under
-    --mc_dropout (the JAX package's attention refuses it,
-    models/layers.py:353-358)."""
+def _check_seq_flags(args, shape: Optional[Tuple[int, int, int]] = None) -> None:
+    """What the driver's mesh of ``shape`` (data, seq, model; by default
+    (1, --seq_parallel, 1)) does not run raises before the ranks start: the
+    Gumbel-drawing attention variants (ROADMAP.md item 20's rest), the dist
+    model, and on a data axis --quant int8 (its column scales and rounding
+    bits would need the global batch's rows, item 21), the AdaHessian pass
+    in training (the loss's collectives over the data axis are not twice
+    differentiable, item 21) and attention dropout where a forward draws
+    (K1 keys its mask on the rank's rows, item 21); under --seq_parallel
+    attention dropout where a forward draws (the JAX package's attention
+    refuses it, models/layers.py:353-358)."""
+    data, seq_size, _ = shape or (1, args.seq_parallel, 1)
     for flag, what in NOT_PORTED_UNDER_SEQ.items():
         if getattr(args, flag, False):
-            raise B.not_ported(flag, f"{what} under --seq_parallel", "item 21")
-    if not args.eval and needs_hessian(args.opt):
-        raise B.not_ported("opt", "the AdaHessian pass under --seq_parallel", "item 21")
-    if (not args.eval or args.mc_dropout) and args.attn_drop_rate > 0:
-        raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel dropout "
-                         "seeds are not defined across re-sharded grids)")
+            raise B.not_ported(flag, f"{what} on the driver's mesh (--seq_parallel or a "
+                               "launcher's ranks)", "item 20's rest")
+    draws_attention = (not args.eval or args.mc_dropout) and args.attn_drop_rate > 0
+    if seq_size > 1:
+        if args.stochastic:
+            raise ValueError("--seq_parallel is not wired for --stochastic")
+        if draws_attention:
+            raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel "
+                             "dropout seeds are not defined across re-sharded grids)")
+    if data > 1:
+        if args.stochastic:
+            raise B.not_ported("stochastic", "the dist model on a data axis", "item 21")
+        if getattr(args, "quant", "none") == "int8":
+            raise B.not_ported("quant", "int8 on a data axis (its column scales and rounding "
+                               "bits would need the global batch's rows)", "item 21")
+        if not args.eval and needs_hessian(args.opt):
+            raise B.not_ported("opt", "the AdaHessian pass on a data axis", "item 21")
+        if draws_attention:
+            raise B.not_ported("attn_drop_rate", "attention dropout on a data axis (K1 keys "
+                               "its mask on the rank's local rows)", "item 21")
 
 
 def _start_metrics_readback(metrics: Dict[str, object]):
@@ -662,19 +742,22 @@ def _finish_metrics(pending) -> Dict[str, float]:
 
 
 def train(args, device: torch.device, val_loader, nb_classes: int,
-          seq_group: Optional[seq.SeqGroup] = None):
+          mesh: Optional[meshlib.Mesh] = None):
     """The train loop (JAX cli/finetune.py:580-790): epochs of augmented
     steps from the train split, each followed by an evaluation, log.txt and
-    checkpoints. Returns the train state. Under ``seq_group`` every rank
-    runs it on the same batches and draws; rank 0 alone writes the files,
-    and the ranks' parameters are held equal after each epoch. Under
-    --stochastic the batches are triplets and the step the dist model's."""
-    model, cfg = build_model(args, nb_classes, device, seq_group)
-    writes = seq_group is None or seq_group.rank == 0
+    checkpoints. Returns the train state. On the driver's ``mesh`` each data
+    rank reads its shard of the train split (padded: every rank takes the
+    same steps) and the ranks of its seq axis the same batches; every draw
+    is the global batch's, this rank's rows kept, so the run is one
+    process's with a batch of data · --batch_size. Rank 0 alone writes the
+    files, and every rank's parameters are held equal after each epoch.
+    Under --stochastic the batches are triplets and the step the dist
+    model's."""
+    model, cfg = build_model(args, nb_classes, device, mesh)
+    writes = mesh is None or mesh.rank == 0
     triplet = args.stochastic
     train_loader, _ = B.build_loaders(args, is_train=True, triplet=triplet,
-                                      letterbox_ok=not triplet,
-                                      host=None if seq_group is None else (0, 1))
+                                      letterbox_ok=not triplet, mesh=mesh)
     steps_per_epoch = args.steps_per_epoch or len(train_loader)
     lr_schedule, wd_schedule, _ = B.build_lr_schedules(args, steps_per_epoch)
     missing = load_variables(args, model)
@@ -689,7 +772,7 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
     # ModelEma after the checkpoint surgery (run_class_finetuning.py:545-553)
     state = init_finetune_state(model, optimizer, use_model_ema=args.model_ema)
     aug_fn = make_finetune_train_augment(
-        args.input_size, color_jitter_strength=args.color_jitter, reprob=args.reprob,
+        args.input_size, mesh=mesh, color_jitter_strength=args.color_jitter, reprob=args.reprob,
         imagenet_default_mean_and_std=args.imagenet_default_mean_and_std,
         interpolation=B.interp_method(args.train_interpolation), re_mode=args.remode,
         re_count=args.recount, **_aa_kwargs(args))
@@ -783,8 +866,8 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
         while pending:
             drain_one()
 
-        if seq_group is not None:
-            seq.check_equal_on_ranks(model.parameters(), seq_group, "the parameters")
+        if mesh is not None:
+            seq.check_equal_on_ranks(model.parameters(), mesh.world_group, "the parameters")
         test = None
         if args.disable_eval_during_finetuning:
             pass
@@ -793,7 +876,8 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
                                    forward=eval_forward)
         else:
             test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
-                              het=args.het_layer, seed=args.seed + epoch)
+                              het=args.het_layer, seed=args.seed + epoch,
+                              shards=DataShards.of(mesh, val_loader))
         record = {"epoch": epoch, **{f"train_{k}": v for k, v in logger.epoch_summary().items()}}
         if test is not None:
             print(f"epoch {epoch}: " + ", ".join(
@@ -825,51 +909,91 @@ def _check_dist_flags(args) -> None:
     B.refuse_unread(args, DIST_UNREAD)
 
 
-def _run(args, device: torch.device, seq_group: Optional[seq.SeqGroup] = None):
-    """The driver's body on one process (one rank under ``seq_group``)."""
+def _run(args, device: torch.device, mesh: Optional[meshlib.Mesh] = None):
+    """The driver's body on one process (one rank of the driver's ``mesh``)."""
     print(f"device: {device}", flush=True)
-    host = None if seq_group is None else (0, 1)
-    val_loader, nb_classes = B.build_loaders(args, is_train=False, host=host)
+    val_loader, nb_classes = B.build_loaders(args, is_train=False, mesh=mesh)
     nb_classes = args.nb_classes or nb_classes
     if args.visualize_embedding:
         # the reference's dispatch: dump the embeddings and exit (:634-637)
-        model, _ = build_model(args, nb_classes, device, seq_group)
+        model, _ = build_model(args, nb_classes, device, mesh)
         load_variables(args, model)
-        # every rank runs the forwards (their collectives); rank 0 alone writes
-        out = EMB.visualize_embedding(model, _eval_batches(val_loader, args, device),
-                                      args.output_dir or ".",
-                                      write=seq_group is None or seq_group.rank == 0)
+        # every rank runs the forwards of the whole split (their
+        # collectives); rank 0 alone writes
+        if mesh is not None:
+            val_loader, _ = B.build_loaders(args, is_train=False, host=(0, 1))
+        with whole_batch():
+            out = EMB.visualize_embedding(model, _eval_batches(val_loader, args, device),
+                                          args.output_dir or ".",
+                                          write=mesh is None or mesh.rank == 0)
         if out is not None:
             print(f"embeddings written to {out}", flush=True)
         return out
     if not args.eval:
-        return train(args, device, val_loader, nb_classes, seq_group)
-    model, _ = build_model(args, nb_classes, device, seq_group)
+        return train(args, device, val_loader, nb_classes, mesh)
+    model, _ = build_model(args, nb_classes, device, mesh)
     load_variables(args, model)
     return run_eval_dispatch(args, model, val_loader, nb_classes)
 
 
-def run_rank(group: seq.SeqGroup, args, device: str):
-    """One rank of --seq_parallel (``parallel.seq.run_ranks`` calls it in
-    each process of the group): the driver's body on ``device`` with this
-    rank's share of the tokens. Rank 0 prints and returns its result; the
-    others print nothing and return None."""
+def run_rank(mesh, args, device: str):
+    """One rank of the driver's mesh (``parallel.seq.run_ranks`` calls it in
+    each process it starts, ``main`` under a launcher): the driver's body on
+    ``device`` with this rank's share of the tokens and of the batch.
+    ``mesh`` is a ``parallel.mesh.Mesh``, or a ``parallel.seq.SeqGroup`` of
+    the whole world (a mesh of one data index). Rank 0 prints and returns
+    its result; the others print nothing and return None."""
     setup(bounded_scores_default=True)
+    if isinstance(mesh, seq.SeqGroup):
+        mesh = meshlib.Mesh((1, mesh.size, 1), mesh.rank, (None, mesh.group, None), mesh.group)
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    if group.rank == 0:
-        return _run(args, device, group)
+    if mesh.rank == 0:
+        return _run(args, device, mesh)
     with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
-        _run(args, device, group)
+        _run(args, device, mesh)
     return None
 
 
-def main(args, device=None):
+def _launched(args, device: torch.device):
+    """The driver under a launcher (``parallel.distributed.probe_cluster``
+    finds its world W): this process is one rank of a mesh of data = W /
+    --seq_parallel, seq = --seq_parallel and model = 1, as JAX
+    ``create_mesh(seq_parallel=S)`` lays out every device
+    (uncertainty_vit_tpu/parallel/mesh.py:21-44; without --seq_parallel the
+    JAX driver builds no mesh, ROADMAP.md §3). Each rank takes the card of
+    its local rank; the backend is ``choose_backend``'s. Returns rank 0's
+    result, None on the others."""
+    cluster = dist_boot.probe_cluster()
+    s = args.seq_parallel
+    if cluster.world_size % s:
+        raise ValueError(f"a launcher's world of {cluster.world_size} ranks does not split into "
+                         f"--seq_parallel {s}")
+    shape = (cluster.world_size // s, s, 1)
+    _check_seq_flags(args, shape)
+    if device.type == "cuda":
+        device = torch.device("cuda", cluster.local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist_boot.init_distributed_mode(device=device.type)
+    try:
+        return run_rank(meshlib.Mesh.create(*shape), args, str(device))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def main(args, device=None, mesh: Optional[Tuple[int, int, int]] = None):
     """Run the driver on ``device`` (the card unless the caller asks for the
     CPU): with --eval the evaluation, returning its results dict; else the
-    train loop, returning the train state. --seq_parallel S runs it on S
-    ranks sharing ``device`` and returns rank 0's."""
+    train loop, returning the train state.
+
+    Under a launcher the process is one rank of the launcher's mesh
+    (``_launched``). Without one, --seq_parallel S runs S ranks sharing
+    ``device`` (a mesh of one data index), and ``mesh`` = (data, seq,
+    model), with seq = --seq_parallel and model = 1, lays out data · seq
+    gloo ranks sharing it (the tests and the card's smoke: a mesh of D data
+    ranks is one process given a batch of D · --batch_size). Either returns
+    rank 0's result."""
     # bounded-scores attention by default: finetuning starts from a trained
     # backbone (cli/common.py)
     setup(bounded_scores_default=True)
@@ -885,12 +1009,19 @@ def main(args, device=None):
             raise B.not_ported(flag, f"{what} of a model that draws Gumbel noise",
                                "item 20's rest")
     device = resolve_device(device)
-    if args.seq_parallel > 1:
-        if args.stochastic:
-            raise ValueError("--seq_parallel is not wired for --stochastic")
-        _check_seq_flags(args)
-        return seq.run_ranks(run_rank, args.seq_parallel, args, str(device))[0]
-    return _run(args, device)
+    if mesh is None and dist_boot.probe_cluster().world_size > 1:
+        return _launched(args, device)
+    if mesh is None and args.seq_parallel > 1:
+        mesh = (1, args.seq_parallel, 1)
+    if mesh is None:
+        return _run(args, device)
+    mesh = tuple(mesh)
+    if mesh[1] != args.seq_parallel or mesh[2] != 1:
+        raise ValueError(f"a driver mesh of {mesh} for --seq_parallel {args.seq_parallel}: "
+                         "its seq axis is --seq_parallel and its model axis 1")
+    _check_seq_flags(args, mesh)
+    size = mesh[0] * mesh[1] * mesh[2]
+    return seq.run_ranks(run_rank, size, args, str(device), mesh=mesh)[0]
 
 
 if __name__ == "__main__":

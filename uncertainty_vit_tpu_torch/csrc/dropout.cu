@@ -36,6 +36,13 @@
 // Where C is a multiple of the vector width (8 bf16 / 4 f32) a 16-byte chunk
 // never crosses a row and a slab starts a Philox group, so the vector path
 // stays; other windows go element by element.
+//
+// A batch fold (data parallelism): a data rank holds rows [off, off + b) of
+// each fold of B rows of the unsharded batch (the MC-dropout batch tiles the
+// global batch K times: local group g = k * b + i is unsharded k * B + off +
+// i). The slab index g then maps to (g / b) * B + off + g % b before the
+// window's map: one division a block, on the uniform datapath. Without a
+// data axis b = B = groups and off = 0, the identity.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +71,9 @@ __device__ __forceinline__ T drop_one(T x, uint32_t bits, uint32_t threshold, fl
 }
 
 // Element (g, j) of x [groups, slab] takes the bits of the unsharded flat
-// index g * stride + base + j; the grid's y and z dimensions walk the slabs
+// index G * stride + base + j, G = (g / fold_b) * fold_B + fold_off +
+// g % fold_b (the batch fold; the identity without one); the grid's y and z
+// dimensions walk the slabs
 // (g = z * gridDim.y + y), its x dimension a slab's blocks of kThreads * kVec
 // elements. The flat call is one slab (groups = 1, stride = base = 0). All
 // 64-bit index arithmetic is per block (the uniform datapath); a thread adds
@@ -78,8 +87,9 @@ __device__ __forceinline__ T drop_one(T x, uint32_t bits, uint32_t threshold, fl
 template <typename T, bool kVector>
 __global__ void __launch_bounds__(kThreads, 8)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long groups, long long slab,
-               long long stride, long long base, const long long* __restrict__ seed,
-               uint32_t threshold, float inv_keep) {
+               long long stride, long long base, long long fold_b, long long fold_B,
+               long long fold_off, const long long* __restrict__ seed, uint32_t threshold,
+               float inv_keep) {
   constexpr int kVec = kVector ? 16 / int(sizeof(T)) : 4;  // elements per thread
   constexpr int kBlock = kThreads * kVec;
   const long long g = (long long)blockIdx.z * gridDim.y + blockIdx.y;
@@ -91,8 +101,10 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long groups, lon
   const philox::Key key = philox::load_key(seed);
   const T* xb = x + (g * slab + first);
   T* yb = y + (g * slab + first);
-  // the unsharded index of the block's first element
-  const unsigned long long u0 = (unsigned long long)(g * stride + base + first);
+  // the unsharded slab of this one (the batch fold), and the unsharded index
+  // of the block's first element
+  const long long ug = (g / fold_b) * fold_B + fold_off + g % fold_b;
+  const unsigned long long u0 = (unsigned long long)(ug * stride + base + first);
   if (kVector && j + kVec <= count) {  // u0 % 4 == 0: j / 4 counts Philox groups
     uint4 u = *reinterpret_cast<const uint4*>(xb + j);
     T* e = reinterpret_cast<T*>(&u);
@@ -121,7 +133,8 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long groups, lon
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, long long groups, long long slab, long long stride,
-                   long long base, const long long* seed, uint32_t threshold, float inv_keep,
+                   long long base, long long fold_b, long long fold_B, long long fold_off,
+                   const long long* seed, uint32_t threshold, float inv_keep,
                    cudaStream_t stream) {
   const int vec = 16 / int(sizeof(T));
   const bool vector = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -135,11 +148,11 @@ cudaError_t launch(const void* x, void* y, long long groups, long long slab, lon
   const T* xs = static_cast<const T*>(x);
   T* yo = static_cast<T*>(y);
   if (vector) {
-    dropout_kernel<T, true><<<grid, kThreads, 0, stream>>>(xs, yo, groups, slab, stride, base,
-                                                            seed, threshold, inv_keep);
+    dropout_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        xs, yo, groups, slab, stride, base, fold_b, fold_B, fold_off, seed, threshold, inv_keep);
   } else {
-    dropout_kernel<T, false><<<grid, kThreads, 0, stream>>>(xs, yo, groups, slab, stride, base,
-                                                             seed, threshold, inv_keep);
+    dropout_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        xs, yo, groups, slab, stride, base, fold_b, fold_B, fold_off, seed, threshold, inv_keep);
   }
   return cudaGetLastError();
 }
@@ -149,24 +162,32 @@ cudaError_t launch(const void* x, void* y, long long groups, long long slab, lon
 extern "C" {
 
 // dtype: 0 = bf16, 1 = f32. x and y hold groups * slab contiguous
-// elements; element (g, j) takes the bits of flat index g * stride + base +
-// j: the flat call is (1, numel, 0, 0), a row window of x [G, rows, C] over
-// a sequence of n tokens from row start is (G, rows * C, n * C, start * C).
+// elements; element (g, j) takes the bits of flat index G * stride + base +
+// j with G = (g / fold_b) * fold_B + fold_off + g % fold_b: the flat call is
+// (1, numel, 0, 0) with the fold (1, 1, 0), a row window of x [G, rows, C]
+// over a sequence of n tokens from row start is (G, rows * C, n * C,
+// start * C), and a data rank's rows [off, off + b) of each fold of B rows
+// are the fold (b, B, off) (the identity fold is (G, G, 0)).
 // seed is one int64 in device memory; threshold = min(int(rate * 2^32),
 // 2^32 - 1); inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
 int uvit_dropout(const void* x, void* y, long long groups, long long slab, long long stride,
-                 long long base, const void* seed, int dtype, unsigned int threshold,
-                 float inv_keep, void* stream) {
-  if (groups <= 0 || slab <= 0 || stride < 0 || base < 0 || (groups > 1 && stride < slab)) {
+                 long long base, long long fold_b, long long fold_B, long long fold_off,
+                 const void* seed, int dtype, unsigned int threshold, float inv_keep,
+                 void* stream) {
+  if (groups <= 0 || slab <= 0 || stride < 0 || base < 0 ||
+      ((groups > 1 || fold_B > 1) && stride < slab) || fold_b <= 0 || fold_B < fold_b ||
+      fold_off < 0 || fold_off > fold_B - fold_b) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long* sd = static_cast<const long long*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<bf16>(x, y, groups, slab, stride, base, sd, threshold, inv_keep, st);
+    return launch<bf16>(x, y, groups, slab, stride, base, fold_b, fold_B, fold_off, sd,
+                        threshold, inv_keep, st);
   }
   if (dtype == 1) {
-    return launch<float>(x, y, groups, slab, stride, base, sd, threshold, inv_keep, st);
+    return launch<float>(x, y, groups, slab, stride, base, fold_b, fold_B, fold_off, sd,
+                         threshold, inv_keep, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,7 +28,9 @@ def host_shard(mesh=None) -> Tuple[int, int]:
     """(host_id, num_hosts) of this process: its rank and the world size
     when torch.distributed is started, else (0, 1). Under a
     ``parallel.mesh.Mesh`` the ranks of one data index read the same
-    images: (its data index, the data axis's size)."""
+    images (the seq ranks split their tokens): (its data index, the data
+    axis's size), the JAX loader's (process_index, process_count) of a
+    process that holds one data index (JAX cli/builders.py:353-361)."""
     if mesh is not None:
         return mesh.index("data"), mesh.size("data")
     if dist.is_available() and dist.is_initialized():
@@ -49,7 +51,12 @@ class BatchLoader:
         num_hosts: int = 1,
         prefetch: int = 4,
         pad_shards: bool | None = None,
+        hosts_per_batch: int = 1,
     ):
+        if hosts_per_batch > 1 and (num_hosts > 1 or batch_size % hosts_per_batch):
+            raise ValueError(f"hosts_per_batch {hosts_per_batch} reads one host's batches of "
+                             f"{batch_size}")
+        self.hosts_per_batch = hosts_per_batch
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -85,6 +92,8 @@ class BatchLoader:
             idx = rng.permutation(n)
         else:
             idx = np.arange(n)
+        if self.hosts_per_batch > 1:
+            return self._global_order(idx)
         # per-host shard (DistributedSampler semantics: pad to equal shards;
         # eval default is unpadded/uneven — see pad_shards in __init__)
         if self.num_hosts > 1:
@@ -95,6 +104,27 @@ class BatchLoader:
             else:
                 idx = idx[self.host_id :: self.num_hosts]
         return idx
+
+    def _global_order(self, idx: np.ndarray) -> np.ndarray:
+        """``hosts_per_batch`` = h: the order in which one host reads the
+        global batches of h hosts whose padded shards (``pad_shards``
+        forced, as on a data axis) each give batches of batch_size / h:
+        global batch k is host 0's batch k, then host 1's, .... One process
+        so reads what a mesh of h data ranks reads (the tests' and the
+        smoke's one-process reference)."""
+        h, b = self.hosts_per_batch, self.batch_size // self.hosts_per_batch
+        n = len(idx)
+        per_host = -(-n // h)
+        padded = np.concatenate([idx, idx[: per_host * h - n]])
+        shards = [padded[d::h] for d in range(h)]
+        return np.concatenate([s[k:k + b] for k in range(0, per_host, b) for s in shards])
+
+    def real_count(self) -> int:
+        """The samples of this host's shard that are not padding: a prefix
+        of the shard, since the wrapped duplicates close the last hosts'
+        shards (the dataset's own count on one host)."""
+        n = len(self.dataset)
+        return n if self.num_hosts == 1 else len(range(self.host_id, n, self.num_hosts))
 
     def __len__(self) -> int:
         n = len(self._indices())

@@ -14,6 +14,12 @@ same per-batch generator, as F.gumbel_softmax draws on every forward of the
 reference. ``evaluate_dist`` is the dist
 (mean+covariance) model's evaluation, the metrics of its logits (the JAX
 driver's ``dist_eval``, cli/finetune.py:509-518).
+
+On a mesh's data axis (``shards``, an ``evals.collect.DataShards``) each
+rank's forwards take its shard's batches, drawing what one process draws
+for the global batch (``models.layers.batch_shard``), and the metrics are
+computed on every rank from the union of the ranks' logits, each sample
+once.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch.nn as nn
 from uncertainty_vit_tpu_torch.core.config import draws_gumbel
 from uncertainty_vit_tpu_torch.evals import metrics as M
 from uncertainty_vit_tpu_torch.evals.collect import (
-    collect_logits, per_call_generator, pipelined_pairs,
+    DataShards, collect_logits, per_call_generator, pipelined_pairs,
 )
 from uncertainty_vit_tpu_torch.evals.ensembles import ensemble_mean_logits, make_ensemble_forward
 from uncertainty_vit_tpu_torch.evals.mc_dropout import make_mc_dropout_mean_forward
@@ -93,9 +99,10 @@ def evaluate(
     forward: Optional[Callable[..., torch.Tensor]] = None,
     het: bool = False,
     seed: int = 0,
+    shards: Optional[DataShards] = None,
 ) -> Dict[str, float]:
     """Deterministic eval: acc1/5 + the full calibration suite on the global
-    logits. ``batches`` yields (images, ..., labels) with images already on
+    logits (the union of the data ranks' with ``shards``). ``batches`` yields (images, ..., labels) with images already on
     the model's device; pass ``forward`` from make_eval_forward (built with
     the same ``het``) to reuse it. A forward that draws
     (``draws_in_eval``) gets a fresh generator for each batch, of the stream
@@ -104,10 +111,18 @@ def evaluate(
     if draws_in_eval(model, het):
         fresh = per_call_generator(seed, next(model.parameters()).device)
         call, fwd = fwd, lambda images: call(images, fresh())
-    logits, labels = collect_logits(fwd, batches)
+    logits, labels = _union(shards, *collect_logits(fwd, batches))
     out = _metrics(model, logits, labels)
     out["loss"] = out["nll"]  # CE == NLL for hard labels
     return out
+
+
+def _union(shards: Optional[DataShards], logits: np.ndarray, labels: np.ndarray, axis: int = 0):
+    """(logits, labels) of every data rank in the split's order (rows along
+    ``axis`` of the logits), or as they are without ``shards``."""
+    if shards is None:
+        return logits, labels
+    return shards.union(logits, axis), shards.union(labels)
 
 
 def _metrics(model: nn.Module, logits: np.ndarray, labels: np.ndarray) -> Dict[str, float]:
@@ -126,6 +141,7 @@ def evaluate_mc_dropout(
     num_samples: int = 8,
     seed: int = 0,
     split_at: int = 0,
+    shards: Optional[DataShards] = None,
 ) -> Dict[str, float]:
     """K-sample MC-dropout eval on the mean logits
     (uncertainty_evaluations.py:41-89).
@@ -140,8 +156,8 @@ def evaluate_mc_dropout(
     fresh = per_call_generator(seed, next(model.parameters()).device)
     pairs = ((mean_fwd(batch[0], fresh()), batch[-1]) for batch in batches)
     outs = list(pipelined_pairs(pairs))
-    return _metrics(model, np.concatenate([o[0] for o in outs]),
-                    np.concatenate([o[1] for o in outs]))
+    return _metrics(model, *_union(shards, np.concatenate([o[0] for o in outs]),
+                                   np.concatenate([o[1] for o in outs])))
 
 
 def evaluate_ensemble(
@@ -149,6 +165,7 @@ def evaluate_ensemble(
     stacked_params: Mapping[str, torch.Tensor],
     batches: Iterable,
     seed: int = 0,
+    shards: Optional[DataShards] = None,
 ) -> Dict[str, Any]:
     """Per-member metrics and the mean-logit ensemble's metrics
     (engine_for_finetuning.py:224-343). ``stacked_params`` comes from
@@ -161,8 +178,8 @@ def evaluate_ensemble(
         call, fwd = fwd, lambda stacked, images: call(stacked, images, fresh())
     pairs = ((fwd(stacked_params, b[0]), b[-1]) for b in batches)  # [M, B, C]
     outs = list(pipelined_pairs(pairs))
-    member_logits = np.concatenate([o[0] for o in outs], axis=1)
-    labels = np.concatenate([o[1] for o in outs])
+    member_logits, labels = _union(shards, np.concatenate([o[0] for o in outs], axis=1),
+                                   np.concatenate([o[1] for o in outs]), axis=1)
     return {
         "members": [_metrics(model, m, labels) for m in member_logits],
         "ensemble": _metrics(

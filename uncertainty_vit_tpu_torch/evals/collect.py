@@ -8,15 +8,21 @@ host queues the next forward. ``pipelined_pairs`` keeps a window of
 batch i to the host is queued right behind its forward (into pinned memory,
 without blocking), and the host waits for it only after batches i+1 ..
 i+depth have been queued.
+
+On a mesh's data axis each rank evaluates its shard of the split;
+``DataShards`` gathers the ranks' host logits into the split's own order,
+each sample once, so that every metric is the one process's of the union.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def per_call_generator(seed: int, device) -> Callable[[], torch.Generator]:
@@ -90,3 +96,43 @@ def collect_logits(
             return np.zeros((0, 0), np.float32), np.zeros((0,), np.int64)
         raise ValueError("collect_logits got an empty batch stream")
     return np.concatenate([o[0] for o in outs]), np.concatenate([o[1] for o in outs])
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShards:
+    """This data rank's shard of an evaluation split, which the ranks of the
+    data axis (``group``, a ``parallel.seq.SeqGroup``) read unshuffled as
+    ``data.pipeline.BatchLoader`` shards it: rank d holds the split's
+    samples d, d + D, d + 2D, ..., its first ``real`` rows (the loader's
+    ``real_count()``) not padding. ``union`` gathers every rank's real rows
+    into the split's order, on every rank: the padded duplicates are left
+    out, so each metric is the one-process metric of the split."""
+
+    group: Any
+    real: int
+
+    @classmethod
+    def of(cls, mesh, loader) -> Optional["DataShards"]:
+        """The shards of ``loader`` on ``mesh``'s data axis; None where the
+        axis has one rank."""
+        from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+
+        if not meshlib.active(mesh, meshlib.DATA_AXIS):
+            return None
+        if loader.shuffle:
+            raise ValueError("an evaluation's shards are read unshuffled")
+        return cls(mesh.axis_group(meshlib.DATA_AXIS), loader.real_count())
+
+    def union(self, x: np.ndarray, axis: int = 0) -> np.ndarray:
+        """Every rank's real rows of x (rows along ``axis``) in the split's
+        order: rank d's row j is sample d + D·j."""
+        mine = np.take(x, np.arange(self.real), axis=axis)
+        parts = [None] * self.group.size
+        dist.all_gather_object(parts, mine, group=self.group.group)
+        n = sum(p.shape[axis] for p in parts)
+        out = np.empty(mine.shape[:axis] + (n,) + mine.shape[axis + 1:], mine.dtype)
+        for d, part in enumerate(parts):
+            index = [slice(None)] * out.ndim
+            index[axis] = slice(d, None, self.group.size)
+            out[tuple(index)] = part
+        return out

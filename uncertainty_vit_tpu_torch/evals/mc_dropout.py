@@ -13,7 +13,9 @@ rates: the forwards here run it in eval mode with ``deterministic=False``,
 which switches on dropout and would switch on stochastic depth too. Under
 ``inference_mode`` the attention-projection and MLP-fc2 dropouts are the
 fused kernel K8 (``ops/dropout.py``) and any attention dropout runs inside
-K1; no backward is set up.
+K1; no backward is set up. On a mesh's data axis every mask is the one
+process's over the global batch: K8 keys each on the rank's rows of each
+fold (``models.layers.batch_shard``).
 
 ``_fast_dropout_key`` of the reference (:27-37) picks a cheaper bit
 generator of the TPU for the masks; it has no counterpart here, where every
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from uncertainty_vit_tpu_torch.core.config import draws_gumbel
+from uncertainty_vit_tpu_torch.models.layers import folded_batch
 
 MCForward = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
@@ -69,7 +72,8 @@ def make_mc_dropout_forward(
                 return model(images, mc_samples=num_samples, mc_split=split_at, **kw)
             if fold_into_batch:
                 big = images.repeat((num_samples,) + (1,) * (images.ndim - 1))
-                logits = model(big, **kw)
+                with folded_batch(num_samples):  # on a data axis: K copies of the rank's rows
+                    logits = model(big, **kw)
                 return logits.reshape(num_samples, images.shape[0], -1)
             return torch.stack([model(images, **kw) for _ in range(num_samples)])
 

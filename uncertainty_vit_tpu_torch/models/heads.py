@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from uncertainty_vit_tpu_torch.core import init as I
 from uncertainty_vit_tpu_torch.core.device import resolve as resolve_device
+from uncertainty_vit_tpu_torch.models import layers
 from uncertainty_vit_tpu_torch.models.layers import _param
 from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 
@@ -209,14 +210,22 @@ def het_noise_shapes(batch: int, num_classes: int, num_factors: int, num_samples
 
 
 def draw_het_noise(generator: torch.Generator, batch: int, num_classes: int, num_factors: int,
-                   num_samples: int, dtype: torch.dtype = torch.float32
+                   num_samples: int, dtype: torch.dtype = torch.float32,
+                   rows: Optional[Tuple[int, int, int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ε_K, ε_R) standard normal on the generator's device."""
-    k_shape, r_shape = het_noise_shapes(batch, num_classes, num_factors, num_samples)
+    """(ε_K, ε_R) standard normal on the generator's device. With ``rows``
+    (``models.layers.batch_rows``: a data rank's rows of the global batch)
+    both are drawn for the global batch and the rank's rows kept
+    (``parallel.mesh.fold_index``), as one process draws them."""
+    index, total = (None, batch) if rows is None else meshlib.fold_index(batch, rows)
+    k_shape, r_shape = het_noise_shapes(total, num_classes, num_factors, num_samples)
     device = generator.device
     eps_k = torch.randn(k_shape, generator=generator, device=device, dtype=dtype)
     eps_r = torch.randn(r_shape, generator=generator, device=device, dtype=dtype)
-    return eps_k, eps_r
+    if index is None:
+        return eps_k, eps_r
+    index = index.to(device)
+    return eps_k[:, index].contiguous(), eps_r[:, index].contiguous()
 
 
 class MCSoftmaxDenseFA(nn.Module):
@@ -256,7 +265,7 @@ class MCSoftmaxDenseFA(nn.Module):
             if generator is None:
                 raise ValueError("the heteroscedastic head draws its MC noise from an explicit "
                                  "torch.Generator; pass generator= (or noise=)")
-            noise = draw_het_noise(generator, *shape, dtype=x.dtype)
+            noise = draw_het_noise(generator, *shape, dtype=x.dtype, rows=layers.batch_rows())
         eps_k, eps_r = noise
         want = het_noise_shapes(*shape)
         if (tuple(eps_k.shape), tuple(eps_r.shape)) != want:

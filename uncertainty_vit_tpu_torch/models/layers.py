@@ -89,19 +89,71 @@ class DrawLog:
 _DRAW_LOG: Optional[DrawLog] = None
 # (start, stop, total): this rank's rows of the global batch, inside batch_shard
 _BATCH_ROWS: Optional[Tuple[int, int, int]] = None
+# the copies of the rank's rows a forward's batch holds (folded_batch)
+_FOLDS = 1
+# every data rank holds the whole batch (whole_batch)
+_WHOLE = False
+
+
+@contextlib.contextmanager
+def whole_batch() -> Iterator[None]:
+    """Inside, every data rank's batch is the whole batch, as one process's:
+    ``batch_shard`` splits nothing (the driver's post-hoc evaluations run
+    the whole split on every rank)."""
+    global _WHOLE
+    prev, _WHOLE = _WHOLE, True
+    try:
+        yield
+    finally:
+        _WHOLE = prev
+
+
+@contextlib.contextmanager
+def folded_batch(k: int) -> Iterator[None]:
+    """Inside, a model's batch is k copies of the rank's rows, one after the
+    other (the folded MC-dropout batch): ``batch_shard`` takes a batch of
+    k·b rows as this rank's b rows of the global batch, folded k times."""
+    global _FOLDS
+    prev, _FOLDS = _FOLDS, k
+    try:
+        yield
+    finally:
+        _FOLDS = prev
 
 
 @contextlib.contextmanager
 def batch_shard(mesh: Optional[meshlib.Mesh], rows: int) -> Iterator[None]:
-    """Inside, every dropout and drop-path mask of a forward on ``rows``
-    rows of a batch split over ``mesh``'s data axis is drawn for the global
-    batch and this rank's rows kept; nothing changes without a data axis."""
+    """Inside, every dropout and drop-path mask and the heteroscedastic
+    head's noise of a forward on ``rows`` rows of a batch split over
+    ``mesh``'s data axis are drawn for the global batch and this rank's rows
+    kept, K8's masks keyed on those rows; a batch of k copies of the rank's
+    rows (the folded MC-dropout forward's, ``folded_batch``, or the split
+    forward's tiling inside the trunk) keeps them in each copy
+    (``parallel.mesh.fold_index``). Nothing changes without a data axis or
+    inside ``whole_batch``."""
     global _BATCH_ROWS
-    prev, _BATCH_ROWS = _BATCH_ROWS, meshlib.data_rows(mesh, rows)
+    if rows % _FOLDS:
+        raise ValueError(f"a batch of {rows} rows is not {_FOLDS} folds of a shard")
+    prev, _BATCH_ROWS = _BATCH_ROWS, None if _WHOLE else meshlib.data_rows(mesh, rows // _FOLDS)
     try:
         yield
     finally:
         _BATCH_ROWS = prev
+
+
+def batch_rows() -> Optional[Tuple[int, int, int]]:
+    """(start, stop, total) of this rank's rows of the global batch inside
+    ``batch_shard`` over a data axis, else None."""
+    return _BATCH_ROWS
+
+
+def batch_fold() -> Optional[Tuple[int, int, int]]:
+    """K8's batch fold (b, B, off) of this rank's rows (``fused_dropout``),
+    or None: the rows of ``batch_rows``."""
+    if _BATCH_ROWS is None:
+        return None
+    start, stop, total = _BATCH_ROWS
+    return stop - start, total, start
 
 
 @contextlib.contextmanager
@@ -205,14 +257,15 @@ def site_dropout(
     mode, or inside ``flash_attention.plain_only()``, it is ``dropout``: K8
     is forward only, as in the reference. Under a ``shard`` K8 takes the
     shard's rows as its window, so x [B, rows, C] draws the unsharded mask's
-    rows."""
+    rows; on a data axis (``batch_shard``) the rank's rows of the global
+    batch, in each fold of a folded MC-dropout batch."""
     if not active or rate == 0.0:
         return x
     if torch.is_grad_enabled() or in_plain_only():
         return dropout(x, rate, True, generator, shard)
     seed = philox.draw_seed(_require_generator(generator, "dropout"), x.device)
     window = None if shard is None else (shard.start, shard.n)
-    return fused_dropout(x.contiguous(), rate, seed, window)
+    return fused_dropout(x.contiguous(), rate, seed, window, batch_fold())
 
 
 def _use_quant(quant: str, x: torch.Tensor, features: int,
@@ -502,6 +555,7 @@ class Attention(nn.Module):
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
         self.tp = _model_axis(mesh, quant)
+        self.data_split = meshlib.active(mesh, meshlib.DATA_AXIS)
         if self.tp is not None:
             if variant != "softmax":
                 raise NotImplementedError(f"the {variant} attention under a model axis is not "
@@ -544,6 +598,10 @@ class Attention(nn.Module):
                 gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         active = _active(self, deterministic)
         b, n, _ = x.shape
+        if active and self.attn_drop > 0.0 and self.data_split and _BATCH_ROWS is not None:
+            raise NotImplementedError("attention dropout on a data axis is not ported: its "
+                                      "masks are keyed on the rank's local rows, not the "
+                                      "global batch's (ROADMAP.md item 21)")
         if self.tp is not None:
             if active and self.attn_drop > 0.0:
                 raise NotImplementedError("attention dropout in training under a model axis is "
@@ -600,7 +658,8 @@ class Attention(nn.Module):
                                   query_rows=None if shard is None else (shard.start, shard.n),
                                   gumbel_generator=gumbel_generator,
                                   sinkformer_eps=self.sinkformer_eps,
-                                  sinkformer_iters=self.sinkformer_iters)
+                                  sinkformer_iters=self.sinkformer_iters,
+                                  group=None if shard is None else shard.group)
             out = out.transpose(1, 2).reshape(b, n, -1)
         out = self.proj(out, out_scale, generator, active)
         return site_dropout(out, self.proj_drop, active, generator, shard)

@@ -41,12 +41,14 @@ model's given the same generator.
 specs of parallel/mesh.py:130-148) takes the place of ``seq_group``: its
 seq axis splits the tokens as above, its model axis cuts every block
 (``models.layers``) and the shared rel-pos table by heads, and its data
-axis splits the batch: a forward draws its masks for the global batch and
-keeps this rank's rows. A model under a model axis is built at its shard's
-shapes; its weights come from the full state dict through
+axis splits the batch: a forward draws its masks, and the heteroscedastic
+head its noise, for the global batch and keeps this rank's rows (in each
+copy of them in an MC-dropout batch, folded or split; K8 keys its masks on
+those rows). A model under a model axis is built at its shard's shapes;
+its weights come from the full state dict through
 ``parallel.mesh.shard_state_dict``. The SNGP head's precision update sums
-over the data axis; the heteroscedastic head and the split-trunk
-MC-dropout forward raise under a mesh.
+over the data axis. ``quant="int8"`` on a data axis raises: its column
+scales and rounding bits would need the global batch's rows.
 """
 
 from __future__ import annotations
@@ -166,8 +168,6 @@ class ViTBackbone(nn.Module):
                 bool_masked_pos: Optional[torch.Tensor] = None,
                 gumbel_generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
-        if self.mesh is not None and mc_samples > 0:
-            raise NotImplementedError("MC-dropout under a mesh is not ported yet")
         with batch_shard(self.mesh, images.shape[0]):
             return self._trunk(images, generator, deterministic, mc_samples, mc_split,
                                bool_masked_pos, gumbel_generator)
@@ -220,9 +220,10 @@ class VisionTransformer(ViTBackbone):
                  mesh: Optional[meshlib.Mesh] = None):
         if cfg.head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type: {cfg.head_type}")
-        if mesh is not None and cfg.head_type == "het":
-            raise NotImplementedError("the heteroscedastic head under a mesh is not ported "
-                                      "(ROADMAP.md item 21)")
+        if meshlib.active(mesh, meshlib.DATA_AXIS) and cfg.quant == "int8":
+            raise NotImplementedError("--quant int8 on a data axis is not ported: its column "
+                                      "scales and rounding bits would need the global batch's "
+                                      "rows (ROADMAP.md item 21)")
         device = resolve_device(device)
         super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group,
                          mesh=mesh)
@@ -291,10 +292,11 @@ class VisionTransformer(ViTBackbone):
         if mc_samples > 0:
             assert not cfg.learn_layer_weights, "mc split incompatible with layer weights"
             assert not return_features, "return_features incompatible with mc_samples"
-        feat = self.forward_features(images, generator, deterministic, mc_samples, mc_split,
-                                     bool_masked_pos, update_sngp_cov=update_sngp_cov,
-                                     gumbel_generator=gumbel_generator)
-        out = self._head(feat, update_sngp_cov, return_gp_cov, mc_generator, het_noise)
+        with batch_shard(self.mesh, images.shape[0]):
+            feat = self.forward_features(images, generator, deterministic, mc_samples, mc_split,
+                                         bool_masked_pos, update_sngp_cov=update_sngp_cov,
+                                         gumbel_generator=gumbel_generator)
+            out = self._head(feat, update_sngp_cov, return_gp_cov, mc_generator, het_noise)
         if return_features:
             return out, feat
         if mc_samples > 0:

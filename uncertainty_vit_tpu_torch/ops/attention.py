@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
+from uncertainty_vit_tpu_torch.parallel import seq
 
 VARIANTS = ("softmax", "gumbel", "sinkformer")
 
@@ -67,7 +68,9 @@ def gumbel_softmax_probs(
     return (y_hard + y_soft - y_soft.detach()).to(scores.dtype)
 
 
-def sinkhorn_probs(scores: torch.Tensor, eps: float = 1.0, max_iter: int = 3) -> torch.Tensor:
+def sinkhorn_probs(scores: torch.Tensor, eps: float = 1.0, max_iter: int = 3,
+                   group: Optional[seq.SeqGroup] = None, n_rows: Optional[int] = None
+                   ) -> torch.Tensor:
     """Sinkformer attention: the Sinkhorn transport plan of the scores × N.
 
     sinkhorn.py:17-67 with C = −scores and uniform marginals, as the JAX
@@ -75,8 +78,15 @@ def sinkhorn_probs(scores: torch.Tensor, eps: float = 1.0, max_iter: int = 3) ->
     row potentials u, odd ones the column potentials v, in the log domain,
     for exactly ``max_iter`` iterations (the reference's early break on
     convergence is dropped there too). Computed in f32 (float64 for a
-    float64 model); the result is in scores' dtype."""
-    n_rows, n_cols = scores.shape[-2], scores.shape[-1]
+    float64 model); the result is in scores' dtype.
+
+    Under a seq ``group`` scores [..., rows, N] hold this rank's query rows
+    of ``n_rows``: the row marginal is 1/n_rows, the row steps stay local
+    and the column steps' logsumexp runs over every rank's rows
+    (``seq.logsumexp_over``), so the ranks' rows together are the plan of
+    the whole sequence."""
+    n_cols = scores.shape[-1]
+    n_rows = scores.shape[-2] if n_rows is None else n_rows
     s = scores.to(at_least_f32(scores.dtype))
     log_mu = -torch.log(torch.tensor(float(n_rows), dtype=s.dtype))
     log_nu = -torch.log(torch.tensor(float(n_cols), dtype=s.dtype))
@@ -84,13 +94,17 @@ def sinkhorn_probs(scores: torch.Tensor, eps: float = 1.0, max_iter: int = 3) ->
     def m(u, v):
         return (s + u[..., :, None] + v[..., None, :]) / eps
 
+    def column_lse(x):
+        return (torch.logsumexp(x, dim=-2) if group is None
+                else seq.logsumexp_over(x, -2, group))
+
     u = s.new_zeros(s.shape[:-1])
     v = s.new_zeros(s.shape[:-2] + (n_cols,))
     for i in range(max_iter):
         if i % 2 == 0:
             u = eps * (log_mu - torch.logsumexp(m(u, v), dim=-1)) + u
         else:
-            v = eps * (log_nu - torch.logsumexp(m(u, v), dim=-2)) + v
+            v = eps * (log_nu - column_lse(m(u, v))) + v
     return (torch.exp(m(u, v)) * n_cols).to(scores.dtype)
 
 
@@ -128,6 +142,7 @@ def naive_attention(
     gumbel_generator: Optional[torch.Generator] = None,
     sinkformer_eps: float = 1.0,
     sinkformer_iters: int = 3,
+    group: Optional[seq.SeqGroup] = None,
 ) -> torch.Tensor:
     """Unfused attention: the correctness reference and the variants' path.
 
@@ -138,14 +153,17 @@ def naive_attention(
     ``gumbel_generator``. The dropout mask comes from ``generator``, never
     from the global one; with ``query_rows`` = (start, n), q holds rows
     [start, start + Nq) of n queries, and the mask is drawn for all n rows
-    and those kept, as the unsharded attention draws it."""
+    and those kept, as the unsharded attention draws it; a sinkformer's
+    column steps then run over the rows of every rank of the seq ``group``
+    that holds the other rows (``sinkhorn_probs``)."""
     scores = attention_scores(q, k, scale, bias)
     if variant == "softmax":
         probs = softmax_probs(scores)
     elif variant == "gumbel":
         probs = gumbel_softmax_probs(scores, gumbel_generator)
     elif variant == "sinkformer":
-        probs = sinkhorn_probs(scores, eps=sinkformer_eps, max_iter=sinkformer_iters)
+        probs = sinkhorn_probs(scores, eps=sinkformer_eps, max_iter=sinkformer_iters,
+                               group=group, n_rows=None if query_rows is None else query_rows[1])
     else:
         raise ValueError(f"unknown attention variant: {variant}")
     if dropout_rate > 0.0 and not deterministic:

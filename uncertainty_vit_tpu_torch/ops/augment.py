@@ -464,6 +464,20 @@ def _erase_one(draws: EraseDraws, imgs: torch.Tensor, apply: torch.Tensor,
 
 # --- the finetune train transform --------------------------------------------
 
+def _rows_of(v, start: int, stop: int, total: int):
+    """Draws (a tensor, a list, a dataclass of them) made for a batch of
+    ``total`` rows, cut to rows [start, stop); a draw for the whole batch
+    (a 0-d tensor, an int) stays."""
+    if isinstance(v, torch.Tensor):
+        return v[start:stop] if v.dim() > 0 and v.shape[0] == total else v
+    if isinstance(v, list):
+        return [_rows_of(x, start, stop, total) for x in v]
+    if dataclasses.is_dataclass(v):
+        return type(v)(**{f.name: _rows_of(getattr(v, f.name), start, stop, total)
+                          for f in dataclasses.fields(v)})
+    return v
+
+
 def _moved(v, device):
     """Draws (a tensor, a list, a dataclass of them) on ``device``."""
     if isinstance(v, torch.Tensor):
@@ -555,17 +569,26 @@ def finetune_train_augment_batch(
     return from_planar(imgs)
 
 
-def make_finetune_train_augment(out_size: int, **flags) -> Callable[..., torch.Tensor]:
+def make_finetune_train_augment(out_size: int, mesh=None, **flags) -> Callable[..., torch.Tensor]:
     """aug_fn(generator, images_u8, valid_hw) of the train step: the draws of
     ``finetune_train_augment_batch`` with ``flags`` from ``generator``, then
-    the transform."""
+    the transform. Under a ``parallel.mesh.Mesh`` whose data axis splits the
+    batch the images are this rank's rows of the global batch: the draws are
+    made for the global batch and the rank's rows kept, as one process
+    draws them (the colour jitter's order is the batch's, the same on every
+    rank)."""
+    from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+
     draw_flags = {k: flags[k] for k in ("color_jitter_strength", "reprob", "auto_augment",
                                         "re_mode", "re_count") if k in flags}
 
     def aug_fn(generator: torch.Generator, images_u8: torch.Tensor,
                valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
-        draws = draw_finetune_train_augment(generator, images_u8.shape[0], out_size,
-                                            **draw_flags)
+        rows = meshlib.data_rows(mesh, images_u8.shape[0])
+        total = images_u8.shape[0] if rows is None else rows[2]
+        draws = draw_finetune_train_augment(generator, total, out_size, **draw_flags)
+        if rows is not None:
+            draws = _rows_of(draws, *rows)
         return finetune_train_augment_batch(draws, images_u8, out_size, valid_hw=valid_hw,
                                             **flags)
 

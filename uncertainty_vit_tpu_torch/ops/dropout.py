@@ -18,7 +18,12 @@ and a run is reproducible from its generator seed. Under sequence
 parallelism a rank holds rows [start, start + rows) of a sequence of n
 tokens: with ``window=(start, n)`` element (g, r, c) of x [G, rows, C]
 takes the bits of the unsharded index (g·n + start + r)·C + c, so the
-rank's mask is the unsharded run's over its rows. The reference's 128-lane
+rank's mask is the unsharded run's over its rows. Under data parallelism
+a rank holds rows [off, off + b) of each fold of B rows of the unsharded
+batch (the folded MC-dropout batch tiles the global batch K times): with
+``fold=(b, B, off)`` group g of x stands for the unsharded group
+(g // b)·B + off + g % b, before the window's map (without a window each
+group is one row of x [G, ...]). The reference's 128-lane
 gate and row-block budget (:54-75) are artifacts of the TPU compiler and
 have no counterpart.
 """
@@ -40,10 +45,33 @@ MAX_NUMEL = 2**40
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# x, y, groups, slab, stride, base, seed, dtype, threshold, inv_keep, stream
-_ARGTYPES = [_P, _P, _LL, _LL, _LL, _LL, _P, ctypes.c_int, ctypes.c_uint, ctypes.c_float, _P]
+# x, y, groups, slab, stride, base, fold_b, fold_B, fold_off, seed, dtype,
+# threshold, inv_keep, stream
+_ARGTYPES = [_P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P, ctypes.c_int, ctypes.c_uint,
+             ctypes.c_float, _P]
 
 Window = Optional[Tuple[int, int]]
+Fold = Optional[Tuple[int, int, int]]
+
+
+def _check_fold(groups: int, fold: Fold) -> Tuple[int, int, int]:
+    """(b, B, off) of a batch fold, checked against x's ``groups``; the
+    identity fold without one."""
+    if fold is None:
+        return groups, groups, 0
+    b, total, off = fold
+    if not (b > 0 and groups % b == 0 and 0 <= off <= total - b):
+        raise ValueError(f"a fold of rows [{off}, {off + b}) of {total} does not take "
+                         f"{groups} groups")
+    return b, total, off
+
+
+def unsharded_groups(groups: int, fold: Fold) -> torch.Tensor:
+    """The unsharded group index of each of x's ``groups`` groups under the
+    batch fold ``fold`` = (b, B, off): (g // b)·B + off + g % b."""
+    b, total, off = _check_fold(groups, fold)
+    g = torch.arange(groups)
+    return (g // b) * total + off + g % b
 
 
 def _window_shape(x: torch.Tensor, window: Window) -> Tuple[int, int, int]:
@@ -61,65 +89,72 @@ def _window_shape(x: torch.Tensor, window: Window) -> Tuple[int, int, int]:
 
 
 def fused_dropout_plain(x: torch.Tensor, rate: float, seed: torch.Tensor,
-                        window: Window = None) -> torch.Tensor:
+                        window: Window = None, fold: Fold = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same mask, the product in
     f32, one rounding to x.dtype. Under ``window`` it draws the unsharded
-    [G, n, C] bits and keeps the window's rows."""
-    if window is None:
+    [G, n, C] bits and keeps the window's rows; under the batch ``fold``
+    the unsharded groups' bits (``unsharded_groups``)."""
+    if window is None and fold is None:
         bits = philox.dropout_bits(seed, x.numel()).reshape(x.shape)
     else:
-        g, rows, c = _window_shape(x, window)
-        start, n = window
-        bits = philox.dropout_bits(seed, g * n * c).reshape(g, n, c)[:, start:start + rows]
-        bits = bits.reshape(x.shape)
+        g, r, c = _window_shape(x, window or (0, x.shape[1]))
+        start, n = window or (0, r)
+        index = unsharded_groups(g, fold).to(x.device)
+        total = int(index.max()) + 1
+        bits = philox.dropout_bits(seed, total * n * c).reshape(total, n, c)
+        bits = bits[index, start:start + r].reshape(x.shape)
     return (x.float() * philox.keep_scale(bits, rate)).to(x.dtype)
 
 
-def supported(x: torch.Tensor, window: Window = None) -> bool:
+def supported(x: torch.Tensor, window: Window = None, fold: Fold = None) -> bool:
     """What the Hopper kernel takes: a contiguous, non-empty bfloat16 or
     float32 CUDA tensor of any shape with fewer than 2⁴⁰ elements; under a
-    ``window`` one of at least two dimensions whose unsharded G · n · C is
-    below 2⁴⁰."""
+    ``window`` or a ``fold`` one of at least two dimensions whose
+    unsharded G · n · C is below 2⁴⁰."""
     if not (x.is_cuda and x.dtype in _DTYPES and x.is_contiguous()
             and 0 < x.numel() < MAX_NUMEL):
         return False
-    if window is None:
+    if window is None and fold is None:
         return True
-    g, _, c = _window_shape(x, window)
-    return g * window[1] * c < MAX_NUMEL
+    g, r, c = _window_shape(x, window or (0, x.shape[1]))
+    b, total, _ = _check_fold(g, fold)
+    return g // b * total * (window or (0, r))[1] * c < MAX_NUMEL
 
 
 def fused_dropout(x: torch.Tensor, rate: float, seed: torch.Tensor,
-                  window: Window = None) -> torch.Tensor:
+                  window: Window = None, fold: Fold = None) -> torch.Tensor:
     """Inverted dropout: keep probability 1 − rate, kept values scaled by
     1/(1 − rate). ``seed`` is a one-element int64 tensor on x's device
     (``philox.draw_seed``); rate 0 returns x itself. ``window`` = (start, n):
     x [G, rows, ...] holds rows [start, start + rows) of n, and draws the
-    unsharded mask's rows (see the module doc)."""
+    unsharded mask's rows; ``fold`` = (b, B, off): x's groups are a data
+    rank's rows of a batch folded by B (see the module doc)."""
     if rate <= 0.0:
         return x
     if not rate < 1.0:
         raise ValueError(f"the dropout rate must be below 1, got {rate}")
     philox.check_seed(seed, x.device)
     if x.device.type == "cpu":
-        return fused_dropout_plain(x, rate, seed, window)
-    if not supported(x, window):
+        return fused_dropout_plain(x, rate, seed, window, fold)
+    if not supported(x, window, fold):
         raise ValueError(
             "the dropout kernel takes a contiguous, non-empty bfloat16 or float32 CUDA tensor "
             "with fewer than 2^40 elements (under a window, unsharded); got "
             f"{x.dtype} {tuple(x.shape)} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
-    # x as [groups, slab]: element (g, j) draws flat index g·stride + base + j
+    # x as [groups, slab]: element (g, j) draws flat index G·stride + base + j,
+    # G the unsharded group of g under the fold
     groups, slab, stride, base = 1, x.numel(), 0, 0
-    if window is not None:
-        groups, rows, c = _window_shape(x, window)
-        start, n = window
-        slab, stride, base = rows * c, n * c, start * c
+    if window is not None or fold is not None:
+        groups, r, c = _window_shape(x, window or (0, x.shape[1]))
+        start, n = window or (0, r)
+        slab, stride, base = r * c, n * c, start * c
+    fold = _check_fold(groups, fold)
     y = torch.empty_like(x)
     lib = _native.typed("dropout", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = lib.uvit_dropout(
-            x.data_ptr(), y.data_ptr(), groups, slab, stride, base, seed.data_ptr(),
+            x.data_ptr(), y.data_ptr(), groups, slab, stride, base, *fold, seed.data_ptr(),
             _DTYPES[x.dtype], philox.threshold(rate), 1.0 / (1.0 - rate),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

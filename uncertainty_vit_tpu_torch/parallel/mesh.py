@@ -70,14 +70,21 @@ def axis_slices(shape: Sequence[int], axis: str) -> List[List[int]]:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """This rank's place in a (data, seq, model) mesh and the process
-    groups of its three slices (None for an axis of one rank)."""
+    groups of its three slices (None for an axis of one rank), and the
+    group of all its ranks (``world``; None: the default group)."""
 
     shape: Tuple[int, int, int]
     rank: int
     groups: Tuple[Any, Any, Any] = (None, None, None)
+    world: Any = None
 
     def __deepcopy__(self, memo):  # a model's copy (the EMA teacher) shares the groups
         return self
+
+    def __reduce__(self):
+        # a pickled copy (a rank's result handed to the parent) keeps the
+        # layout; process groups do not cross processes
+        return Mesh, (self.shape, self.rank)
 
     @classmethod
     def create(cls, data: Optional[int] = None, seq: int = 1, model: int = 1) -> "Mesh":
@@ -102,6 +109,11 @@ class Mesh:
 
     def size(self, axis: str) -> int:
         return self.shape[AXES.index(axis)]
+
+    @property
+    def world_group(self) -> seq.SeqGroup:
+        """Every rank of the mesh as a ``parallel.seq.SeqGroup``."""
+        return seq.SeqGroup(self.rank, self.shape[0] * self.shape[1] * self.shape[2], self.world)
 
     def index(self, axis: str) -> int:
         return coords(self.rank, self.shape)[AXES.index(axis)]
@@ -135,18 +147,34 @@ def data_rows(mesh: Optional[Mesh], rows: int) -> Optional[Tuple[int, int, int]]
     return mesh.batch_rows(rows) if active(mesh, DATA_AXIS) else None
 
 
+def fold_index(n: int, rows: Tuple[int, int, int]) -> Tuple[torch.Tensor, int]:
+    """(index, total): where the n local rows of a batch split over
+    ``data`` stand in the global batch, for rows (start, stop, total) of
+    this rank. n may be k·(stop − start): k folds of the rank's rows, one
+    after the other (the folded MC-dropout batch tiles the global batch k
+    times), so local row k·b + i is global k·total + start + i, of k·total."""
+    start, stop, total = rows
+    b = stop - start
+    if n % b:
+        raise RuntimeError(f"a draw of {n} rows for a shard of {b}")
+    g = torch.arange(n)
+    return (g // b) * total + start + g % b, n // b * total
+
+
 def rand_rows(shape: Sequence[int], generator: torch.Generator, device,
               rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """U[0, 1) of ``shape``; with ``rows`` (start, stop, total) its first dim
-    is rows [start, stop) of a batch of ``total``: drawn for the whole
-    batch, those rows kept (``data_rows``)."""
+    is this rank's rows [start, stop) of a batch of ``total``, or k folds of
+    them (``fold_index``): drawn for the whole batch, those rows kept
+    (``data_rows``)."""
     if rows is None:
         return torch.rand(tuple(shape), generator=generator, device=device)
-    start, stop, total = rows
-    if shape[0] != stop - start:
-        raise RuntimeError(f"a draw of {shape[0]} rows for a shard of {stop - start}")
+    index, total = fold_index(shape[0], rows)
     u = torch.rand((total,) + tuple(shape[1:]), generator=generator, device=device)
-    return u[start:stop]
+    start, stop, _ = rows
+    if shape[0] == stop - start:
+        return u[start:stop]
+    return u[index.to(u.device)]
 
 
 # ---------------------------------------------------------------------------
@@ -280,20 +308,6 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
-class _SharedSum(torch.autograd.Function):
-    """All-reduce forward and backward: a sum whose result every rank uses
-    on rows of its own."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_reduce(x, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduce(grad, ctx.group), None
-
-
 def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The input of a column-parallel layer: the identity forward; the
     backward sums the model ranks' cotangents."""
@@ -319,8 +333,8 @@ def sum_over(x: torch.Tensor, mesh: Optional[Mesh], axes: Iterable[str] = (DATA_
     the sum on rows of its own (a batch statistic)."""
     for axis in axes:
         if active(mesh, axis):
-            fn = _SharedSum if shared else _ReduceFrom
-            x = fn.apply(x, mesh.group(axis))
+            x = (seq.shared_sum(x, mesh.axis_group(axis)) if shared
+                 else _ReduceFrom.apply(x, mesh.group(axis)))
     return x
 
 

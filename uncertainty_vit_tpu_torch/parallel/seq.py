@@ -7,10 +7,11 @@ group, and the ranks meet only in the attention's k/v all-gather
 the gradient sum of the train step. Where JAX lets GSPMD place those
 collectives, the port names them: ``gather_tokens`` (its backward the
 reduce-scatter), ``all_reduce_sum`` (the pooling, identity backward),
-``all_reduce_max`` (the int8 wgrad's column scales) and ``sum_in_place``
-(the gradients); ``check_equal_on_ranks`` holds the
-ranks' copies of what must agree (the driver's parameters after each
-epoch).
+``logsumexp_over`` (the sinkformer's column steps), ``all_reduce_max`` (the
+int8 wgrad's column scales) and ``sum_in_place`` (the gradients);
+``check_equal_on_ranks`` holds the ranks' copies of what must agree (the
+driver's parameters after each epoch). The differentiable ones have
+backwards that are differentiable in turn (the AdaHessian pass's Hz).
 
 The collectives run on any backend ``torch.distributed`` was started with.
 On one card the ranks share it over gloo, whose process group carries CUDA
@@ -53,6 +54,11 @@ class SeqGroup:
     def __deepcopy__(self, memo):  # a copy of a model shares its process group
         return self
 
+    def __reduce__(self):
+        # a pickled copy (a rank's result handed to the parent) keeps the
+        # layout; a process group does not cross processes
+        return SeqGroup, (self.rank, self.size)
+
     @classmethod
     def of(cls, group: Optional[Any] = None) -> "SeqGroup":
         return cls(dist.get_rank(group), dist.get_world_size(group), group)
@@ -86,61 +92,151 @@ class SeqShard:
         return self
 
 
+def _gather(x: torch.Tensor, group: SeqGroup, n: int) -> torch.Tensor:
+    m = -(-n // group.size)
+    if x.shape[1] < m:  # the last rank's short shard, padded for the gather
+        x = torch.cat([x, x.new_zeros((x.shape[0], m - x.shape[1]) + x.shape[2:])], dim=1)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(group.size)]
+    dist.all_gather(parts, x, group=group.group)
+    return torch.cat([p[:, :stop - start] for p, (start, stop) in
+                      zip(parts, (group.rows(n, r) for r in range(group.size)))], dim=1)
+
+
+def _sum_rows(x: torch.Tensor, group: SeqGroup, n: int) -> torch.Tensor:
+    total = x.contiguous().clone()
+    dist.all_reduce(total, group=group.group)
+    start, stop = group.rows(n)
+    return total[:, start:stop].contiguous()
+
+
+# The collectives below are autograd Functions whose backwards are
+# Functions too (each the other's adjoint), so that a backward taken with
+# ``create_graph=True`` stays in the graph and a second backward (the
+# AdaHessian pass's Hz) meets the collectives it needs. A collective run in
+# place inside a backward would be cut off from that graph, and Hz would
+# lose every term that passes through it without an error.
+
 class _GatherTokens(torch.autograd.Function):
+    """All ranks' rows in token order; backward ``_SumTokenRows``."""
+
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.group, ctx.n = group, n
-        m = -(-n // group.size)
-        if x.shape[1] < m:  # the last rank's short shard, padded for the gather
-            x = torch.cat([x, x.new_zeros((x.shape[0], m - x.shape[1]) + x.shape[2:])], dim=1)
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(group.size)]
-        dist.all_gather(parts, x, group=group.group)
-        return torch.cat([p[:, :stop - start] for p, (start, stop) in
-                          zip(parts, (group.rows(n, r) for r in range(group.size)))], dim=1)
+        return _gather(x, group, n)
 
     @staticmethod
     def backward(ctx, grad):
-        total = grad.contiguous().clone()
-        dist.all_reduce(total, group=ctx.group.group)
-        start, stop = ctx.group.rows(ctx.n)
-        return total[:, start:stop], None, None
+        return _SumTokenRows.apply(grad, ctx.group, ctx.n), None, None
+
+
+class _SumTokenRows(torch.autograd.Function):
+    """The sum over the ranks of x [B, n, ...], this rank's rows kept (the
+    reduce-scatter); backward ``_GatherTokens``."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _sum_rows(x, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherTokens.apply(grad, ctx.group, ctx.n), None, None
 
 
 def gather_tokens(x: torch.Tensor, group: SeqGroup, n: int) -> torch.Tensor:
     """All ranks' rows of x [B, rows, ...] in token order: [B, n, ...],
     contiguous, the same on every rank (``all_gather(..., tiled=True)`` and
     the cut to n keys, flash_attention.py:1336-1340). Its backward sums the
-    cotangent over the ranks and keeps this rank's rows."""
+    cotangent over the ranks and keeps this rank's rows, and can itself be
+    differentiated (its backward is this gather)."""
     return _GatherTokens.apply(x, group, n)
 
 
+def _all_reduce(x: torch.Tensor, group: SeqGroup, op=None) -> torch.Tensor:
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op, group=group.group)
+    return y
+
+
 class _AllReduceSum(torch.autograd.Function):
+    """Sum forward; identity backward, written as ``_Replicated``."""
+
     @staticmethod
     def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group.group)
-        return y
+        ctx.group = group
+        return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return _Replicated.apply(grad, ctx.group), None
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; sum backward (``_AllReduceSum``): the cotangent of
+    a value every rank holds alike, whose second backward receives each
+    rank's share of a cotangent and must sum them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
     """The sum of x over the ranks. The backward is the identity: every rank
     computes the same loss from the sum, so each passes its own cotangent
-    on, and the gradient sum (``sum_in_place``) adds the ranks' shares."""
+    on, and the gradient sum (``sum_in_place``) adds the ranks' shares. That
+    identity is itself differentiable, as a sum: in a second backward each
+    rank holds its share of the cotangent of the first backward's value,
+    and the ranks' shares add (Megatron's f and g, each the other's
+    backward)."""
     return _AllReduceSum.apply(x, group)
+
+
+class _SharedSum(torch.autograd.Function):
+    """Sum forward and backward (self-adjoint): a sum every rank uses on
+    rows of its own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SharedSum.apply(grad, ctx.group), None
+
+
+def shared_sum(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
+    """The sum of x over the ranks, where every rank uses the sum on rows of
+    its own (a batch statistic, a sinkformer's column logsumexp): the
+    backward sums the ranks' cotangents, and is differentiable in turn."""
+    return _SharedSum.apply(x, group)
+
+
+def logsumexp_over(x: torch.Tensor, dim: int, group: SeqGroup) -> torch.Tensor:
+    """log Σ exp(x) over ``dim`` and over the ranks, whose rows of ``dim``
+    together make the whole (a max, then a sum of exponentials): the same
+    on every rank. Each rank uses it on rows of its own, so its gradient sums
+    the ranks' cotangents (``_SharedSum``) and hands each element its
+    softmax weight; twice differentiable."""
+    with torch.no_grad():
+        m = _all_reduce(x.detach().amax(dim=dim, keepdim=True), group, dist.ReduceOp.MAX)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    s = shared_sum(torch.exp(x - m).sum(dim=dim, keepdim=True), group)
+    return (torch.log(s) + m).squeeze(dim)
 
 
 def all_reduce_max(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
     """The elementwise max of x over the ranks, a new tensor, outside
     autograd (the int8 wgrad's column amaxes: a max is exact, so every rank
     holds the scales of the whole trunk)."""
-    y = x.detach().contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.group)
-    return y
+    return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
 
 
 # Elements of one all-reduce in sum_in_place: bounds the flat buffer (and

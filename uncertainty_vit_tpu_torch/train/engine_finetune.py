@@ -33,7 +33,9 @@ seeds on every rank: mixup draws for the global batch and exchanges the
 partners over the data axis, the masking draws for the global batch, the
 loss and the accuracy are the global batch's, and the optimizer sums the
 gradient shares (``parallel.mesh.grad_reducer``) before it reads them.
-The AdaHessian pass under a mesh raises.
+The AdaHessian pass runs under a seq group: each rank's share of D is
+summed over the group as its gradient is (``optim`` takes the sum); under
+a mesh's data or model axis it raises.
 """
 
 from __future__ import annotations
@@ -173,11 +175,20 @@ def hessian_context(replay: Optional[StepReplay]):
     return contextlib.nullcontext() if replay is None else replay.recording()
 
 
-def refuse_hessian_when_sharded(model: nn.Module, use_hessian: bool) -> None:
-    if use_hessian and (getattr(model, "seq_group", None) is not None
-                        or getattr(model, "mesh", None) is not None):
-        raise NotImplementedError("the AdaHessian pass under a seq group or a mesh is not "
-                                  "ported (ROADMAP.md item 21)")
+def refuse_hessian_when_sharded(model: nn.Module, use_hessian: bool, seq_ok: bool = False
+                                ) -> None:
+    """The AdaHessian pass raises on a sharded model; with ``seq_ok`` (the
+    finetune engine) a seq group runs it, and a mesh's data or model axis
+    raises (their losses' collectives are not twice differentiable)."""
+    if not use_hessian:
+        return
+    mesh = getattr(model, "mesh", None)
+    sharded = (meshlib.active(mesh, meshlib.DATA_AXIS) or meshlib.active(mesh, meshlib.MODEL_AXIS)
+               if seq_ok else getattr(model, "seq_group", None) is not None or mesh is not None)
+    if sharded:
+        what = "a mesh's data or model axis" if seq_ok else "a seq group or a mesh"
+        raise NotImplementedError(f"the AdaHessian pass under {what} is not ported "
+                                  "(ROADMAP.md item 21)")
 
 
 def global_accuracy(logits: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -238,11 +249,12 @@ def make_finetune_train_step(
     A gumbel or dual_sto attention draws from ``gumbel_generator``. With
     ``use_hessian`` the step runs the AdaHessian pass (see the module's
     docstring), its z and attention-dropout masks from
-    ``hessian_generator`` (required); not under a seq group or a mesh.
+    ``hessian_generator`` (required); under a seq group (the same z on every
+    rank), not under a mesh's data or model axis.
 
     A model built on a mesh takes this rank's rows of the global batch
     (see the module's docstring)."""
-    refuse_hessian_when_sharded(model, use_hessian)
+    refuse_hessian_when_sharded(model, use_hessian, seq_ok=True)
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")

@@ -812,6 +812,10 @@ class ChainOptimizer:
                              "mini-step; build the train step with use_hessian=True")
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         norm = _reduced_norm(self, grads)
+        if hessian is not None and self._reduce is not None:
+            # each seq rank's share of D, summed as its gradient is (z is
+            # the same on every rank)
+            self._reduce.sum_tokens(hessian)
         if self.update_freq > 1:
             self._acc = self._accumulate(self._acc, grads)
             if hessian is not None:
@@ -967,7 +971,13 @@ def hutchinson_hessian_diag(loss_fn: Callable[[], torch.Tensor], params: Tensors
     of the plain path has one, while ``torch.func``'s forward-over-reverse
     would need forward-mode rules of the same ops and a functional copy of
     the model's buffers (the SNGP statistics a forward updates). A parameter
-    the loss does not read gets D = 0, as its JAX gradient is constant."""
+    the loss does not read gets D = 0, as its JAX gradient is constant.
+
+    Under a seq group (the same z on every rank: replicated parameters, a
+    generator of one seed) each rank's double backward runs through the
+    collectives' own differentiable backwards (``parallel.seq``) and gives
+    its share of D for the token parameters and the whole of it for the
+    others; the optimizer sums the shares as it sums the gradient."""
     with plain_only(), torch.enable_grad():
         loss = loss_fn()
     grads = torch.autograd.grad(loss, params, create_graph=True, allow_unused=True)
