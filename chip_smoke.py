@@ -480,6 +480,41 @@ kernels from the sources in this checkout, then:
            the old backward's D outside that bound. Phase 5 also holds K8's
            batch fold (FOLD_CASES) against its plain version and one
            process's rows, and times it at [1024*197, 768].
+  phase 29 slice 19, the finetune driver's data axis with nothing refused:
+           four gloo ranks sharing the card as the mesh (2, 2, 1) in one
+           run_ranks call (chip_smoke.data_axis_rank calls
+           cli.finetune.run_rank in each, on the mesh or on its seq index's
+           data pair as a (2, 1, 1) mesh), ViT-B/16 at 4 blocks
+           (--target_layer 3) from seeded .pth files, PHASE29_SIZES seeded
+           32x32 CIFAR-100 images, --batch_size 2 a data rank: (a) --quant
+           int8 --seq_parallel 2 at 384 in f32: two epochs, step 0's
+           gradients, the same step with every int8 layer's image offset at
+           0 (the mutation), --eval in bf16, and a layer probe at the qkv
+           shape (K6's dgrad and K7's int32 sums through the row window
+           with the image offset, kernel against plain to the bit, the
+           four ranks' sums adding up to one process's, the dgrad rows
+           one process's); (b) --attn_drop_rate 0.05 on the data pairs: two
+           steps at 224 (K1 / K2), one at 384 (K3 / K4), --eval
+           --mc_dropout folded and split at 224 (K1, K8), f32; (c) --opt
+           adahessian on (2, 2, 1) in f32, and with each rank's Hz share
+           left unsummed over the data group; (d) --stochastic on the data
+           pairs at 224: two epochs and --eval --stochastic (no kernel).
+           Then each run in one process given the global batch
+           (BatchLoader(hosts_per_batch=2), batch 4). Holds every rank's
+           launches and one process's; the arrays read back and the
+           metrics (LOGIT_REL_BOUND in bf16, PHASE28_F32_REL_BOUND in f32);
+           the first K1 / K3 dropout mask of each run that draws, probed on
+           the kernel (q = k = 0, v one-hot on 64 keys at a time) against
+           its plain version in the rank and against one process's rows of
+           the fold, to the bit, and K8's; the steps' losses and gradient
+           norms and the epochs' losses (PHASE28_F32_REL_BOUND); step 0's
+           int8 gradients, all of them and the last block's int8 weights
+           (PHASE29_INT8_TOTAL_REL, PHASE29_INT8_LAST_REL), and the
+           mutation outside both; D against one process's (PHASE28_HESSIAN_REL_BOUND) and the
+           unsummed D outside it. Times K1 with dropout at B=128 N=197 flat
+           and through the fold (64, 128, 64), and K6's stochastic qkv
+           dgrad at M = 31,520 without a window and through the image
+           offset 160, each pair in turns.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -623,6 +658,13 @@ def sdpa_packed(torch, qkv, bias_cast, scale, h):
     return o.transpose(1, 2).reshape(b, n, c3 // 3)
 
 
+def slice_fold(start, step, batch):
+    """The batch fold (b, start + b, start) of images [start, start + step)
+    of a batch (b of them): the dropout mask of their place in the batch."""
+    b = min(step, batch - start)
+    return b, start + b, start
+
+
 @contextlib.contextmanager
 def attention_on_plain(torch, FA):
     """Inside, the attention wrappers compute with their plain versions on the
@@ -632,18 +674,24 @@ def attention_on_plain(torch, FA):
     the package never takes a plain version for a CUDA tensor."""
     fwd, bwd = FA._forward, FA.fused_qkv_attention_bwd
 
-    def plain_fwd(qkv, bias, qv_bias, scale, h, bounded, want_lse, seed, rate):
+    def plain_fwd(qkv, bias, qv_bias, scale, h, bounded, want_lse, seed, rate, fold=None):
+        if fold is not None:  # a data rank's images, keyed by their batch fold
+            return FA.fused_qkv_attention_plain(qkv, bias, qv_bias, scale, h,
+                                                bounded_scores=bounded, seed=seed,
+                                                dropout_rate=rate, fold=fold)
         step = 128 if qkv.shape[1] <= 256 else 4
         parts = [FA.fused_qkv_attention_plain(qkv[i:i + step], bias, qv_bias, scale, h,
                                               bounded_scores=bounded, seed=seed,
-                                              dropout_rate=rate, image0=i)
+                                              dropout_rate=rate,
+                                              fold=slice_fold(i, step, qkv.shape[0]))
                  for i in range(0, qkv.shape[0], step)]
         return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts])
 
     def plain_bwd(qkv, bias, qv_bias, lse, g, scale, h, *, out=None, want_dbias=True, seed=None,
-                  dropout_rate=0.0):
+                  dropout_rate=0.0, fold=None):
         dqkv, dbias, dqvb = FA.fused_qkv_attention_bwd_plain(
-            qkv, bias, qv_bias, lse, g, scale, h, out=out, seed=seed, dropout_rate=dropout_rate)
+            qkv, bias, qv_bias, lse, g, scale, h, out=out, seed=seed, dropout_rate=dropout_rate,
+            fold=fold)
         return dqkv, dbias if want_dbias else None, dqvb
 
     FA._forward, FA.fused_qkv_attention_bwd = plain_fwd, plain_bwd
@@ -814,7 +862,8 @@ def phase1(torch, FA, dev, h=12, d=64, train_b=160):
         of its place in the batch: (out, lse)."""
         parts = [FA.fused_qkv_attention_plain(
             x[i:i + 128], bias, None, scale, h, bounded_scores=True, seed=seed,
-            dropout_rate=rate, image0=i) for i in range(0, x.shape[0], 128)]
+            dropout_rate=rate, fold=slice_fold(i, 128, x.shape[0]))
+            for i in range(0, x.shape[0], 128)]
         return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts])
 
     def held_k1(what, got, want):
@@ -1286,6 +1335,7 @@ FOLD_CASES = ((4, 2, 2, 577, 768, 2), (8, 16, 2, 197, 768, 1), (3, 1, 3, 5, 5, 2
 
 def phase5(torch, dev):
     from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import philox
 
     gen = torch.Generator(device=dev).manual_seed(3)
     seed = torch.tensor([0x00C0FFEE12345678], dtype=torch.int64, device=dev)
@@ -1351,7 +1401,7 @@ def phase5(torch, dev):
         whole = DO.fused_dropout(x, 0.3, seed)
         for d, q in itertools.product(range(dd), range(s)):
             fold = (bb, dd * bb, d * bb)
-            rows = DO.unsharded_groups(kk * bb, fold).to(dev)
+            rows = philox.fold_images(kk * bb, fold).to(dev)
             start, stop = -(-n // s) * q, min(-(-n // s) * (q + 1), n)
             part = x[rows, start:stop].contiguous()
             window = (start, n) if s > 1 else None
@@ -1588,7 +1638,8 @@ def plain_fwd_sliced(torch, FA, qkv, bias, qvb, scale, h, bounded, seed, rate, s
     f32 tensor is 67 MB per image at N=1025, H=16), each slice with the mask
     of its place in the batch."""
     parts = [FA.stream_fwd_plain(qkv[i:i + step], bias, qvb, scale, h, bounded_scores=bounded,
-                                 seed=seed, dropout_rate=rate, image0=i)
+                                 seed=seed, dropout_rate=rate,
+                                 fold=slice_fold(i, step, qkv.shape[0]))
              for i in range(0, qkv.shape[0], step)]
     return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts])
 
@@ -1601,12 +1652,12 @@ def plain_bwd_sliced(torch, FA, qkv, bias, qvb, lse, out, g, scale, h, seed, rat
     slices, c)."""
     dq, dk, dv, cs, dbias = [], [], [], [], None
     for i in range(0, qkv.shape[0], step):
-        sl = slice(i, i + step)
+        sl, fold = slice(i, i + step), slice_fold(i, step, qkv.shape[0])
         dq_i, db_i, c_i = FA.stream_bwd_dq_plain(qkv[sl], bias, qvb, lse[sl], g[sl], scale, h,
                                                  out=None if out is None else out[sl], seed=seed,
-                                                 dropout_rate=rate, image0=i)
+                                                 dropout_rate=rate, fold=fold)
         dk_i, dv_i = FA.stream_bwd_dkv_plain(qkv[sl], bias, qvb, lse[sl], c_i, g[sl], scale, h,
-                                             seed=seed, dropout_rate=rate, image0=i)
+                                             seed=seed, dropout_rate=rate, fold=fold)
         dq.append(dq_i), dk.append(dk_i), dv.append(dv_i), cs.append(c_i)
         if db_i is not None:
             dbias = db_i if dbias is None else dbias + db_i
@@ -2190,14 +2241,14 @@ M_TRAIN = 160 * 197
 M_EVAL = 128 * 197
 # Tokens of the ViT-H/16 224 train step at batch 32 (98.5 row tiles of 64).
 M_HUGE = 32 * 197
-# Row windows (rows, start, n) of seq shards: ViT-B/16 384's N = 577 over two
+# Row windows (rows, start, n, image0 = 0) of seq shards: ViT-B/16 384's N = 577 over two
 # ranks (289 | 288), ViT-L/16 512's 1025 (513 | 512), a window of 3 rows of 7,
 # and one of 98 of ViT-B/16 224's 197 tokens at 320 images (31,360 rows: the
 # window's time beside the unwindowed call on the same rows), each with its
 # image count.
 QUANT_WINDOWS = (((289, 0, 577), 8), ((288, 289, 577), 8), ((513, 0, 1025), 4),
                  ((512, 513, 1025), 4), ((3, 2, 7), 5))
-TIMED_WINDOW = ((98, 99, 197), 320)
+TIMED_WINDOW = ((98, 99, 197, 0), 320)
 
 
 def fenced(torch, t):
@@ -2379,7 +2430,7 @@ def phase10(torch, dev):
     for (rows, start, n_tok), images in QUANT_WINDOWS:
         whole = torch.randn(images, n_tok, 2304, generator=gen, device=dev).to(torch.bfloat16)
         x = fenced(torch, whole[:, start:start + rows].reshape(-1, 2304))
-        window = (rows, start, n_tok)
+        window = (rows, start, n_tok, 0)
         worst_abs = max(worst_abs, held(f"window {window} of {images} images", x, wq, ws, None,
                                         True, torch.bfloat16, window))
         rows_of = TQ.qmm_plain(whole.reshape(-1, 2304), wq, ws, None, seed, True, torch.bfloat16)
@@ -2387,7 +2438,7 @@ def phase10(torch, dev):
         check(torch.equal(TQ.qmm(x, wq, ws, None, seed, True, torch.bfloat16, window), rows_of),
               f"K6 through the window {window} is not the unsharded dgrad's rows")
         del whole, x, rows_of
-    (rows, start, n_tok), images = TIMED_WINDOW
+    (rows, start, n_tok, _), images = TIMED_WINDOW
     x = torch.randn(images * rows, 2304, generator=gen, device=dev).to(torch.bfloat16)
     worst_abs = max(worst_abs, held(f"window {TIMED_WINDOW[0]} of {images} images", x, wq, ws,
                                     None, True, torch.bfloat16, TIMED_WINDOW[0]))
@@ -2515,7 +2566,7 @@ def phase11(torch, dev):
                    TQ._col_scales(g.reshape(-1, n)).reciprocal())
             wholes[n_tok] = (x, g, inv)
         x, g, (inv_x, inv_g) = wholes[n_tok]
-        window = (rows, start, n_tok)
+        window = (rows, start, n_tok, 0)
         xl = fenced(torch, x[:, start:start + rows].reshape(-1, k))
         gl = fenced(torch, g[:, start:start + rows].reshape(-1, n))
         acc = TQ.wgrad_acc(xl, gl, inv_x, inv_g, seed, window)
@@ -2530,7 +2581,7 @@ def phase11(torch, dev):
         if shards[n_tok] == n_tok:  # every rank's shard
             check(torch.equal(sums[n_tok], whole.long()),
                   f"two shards' int32 sums of N={n_tok} do not add up to the unsharded call's")
-    (rows, start, n_tok), images = TIMED_WINDOW
+    (rows, start, n_tok, _), images = TIMED_WINDOW
     x = torch.randn(images * rows, k, generator=gen, device=dev).to(torch.bfloat16)
     g = (torch.randn(images * rows, n, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
     inv_x, inv_g = TQ._col_scales(x).reciprocal(), TQ._col_scales(g).reciprocal()
@@ -7880,12 +7931,12 @@ def step0_capture(torch, FT, counts):
     def recording_make_step(model, *a, **k):
         step = make_step(model, *a, **k)
 
-        def recorded(state, *args):
+        def recorded(state, *args, **kwargs):
             first = "metrics" not in rec
             before_n = counts()
             before = {n: p.detach().clone() for n, p in model.named_parameters()} if first \
                 else None
-            m = step(state, *args)
+            m = step(state, *args, **kwargs)
             if first:
                 after = counts()
                 rec.update(metrics={k: float(v) for k, v in m.items()},
@@ -8765,6 +8816,7 @@ def phase28(torch, FA, dev):
     from uncertainty_vit_tpu_torch.core.config import get_preset
     from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader
     from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import philox
     from uncertainty_vit_tpu_torch.ops import quant as TQ
     from uncertainty_vit_tpu_torch.parallel import seq
 
@@ -8943,7 +8995,7 @@ def phase28(torch, FA, dev):
                     check(seed == seed1, f"28 {name}: rank ({d}, {q}) drew seed {seed}, one "
                                          f"process {seed1}")
                     start, nn = window
-                    rows = DO.unsharded_groups(shape[0], fold)
+                    rows = philox.fold_images(shape[0], fold)
                     want_mask = mask1.reshape(shape1[0], nn, -1)[rows, start:start + shape[1]]
                     check(torch.equal(mask.reshape(want_mask.shape), want_mask),
                           f"28 {name}: rank ({d}, {q})'s K8 mask through the fold {fold} and "
@@ -9006,6 +9058,666 @@ def phase28(torch, FA, dev):
           f"memory, not a multi-card rate): the phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return paths
+
+
+# Phase 29: the finetune driver's data axis with nothing refused (slice 19).
+# The mesh is (data, seq, model); sizes: (train images, test images, batch
+# per data rank, depth, MC samples); ViT-B/16 at 224 and 384 at 4 of its 12
+# blocks (--target_layer 3).
+PHASE29_MESH = (2, 2, 1)
+PHASE29_SIZES = (9, 8, 2, 4, 4)
+PHASE29_ATTN_DROP = 0.05
+# 29a: the int8 step 0's gradients on the mesh against one process's (norm
+# of the difference over the norm, f32). The last bits of the group's f32
+# sums flip a few stochastic rounding decisions, and the flips reach the
+# earlier layers through the backward: all tensors together read 2.85e-5,
+# the last block's int8 weights at most 5.2e-6 (phase 26c, the seq window
+# alone at twelve blocks, 1.09e-4 in all). With image0 = 0 on every data
+# rank (the mutation, which must miss both bounds) a data rank's rows
+# re-round: 2.49e-4 in all, 1.52e-3 in the last block (H100 80GB HBM3,
+# 700.00 W).
+PHASE29_INT8_TOTAL_REL, PHASE29_INT8_LAST_REL = 1e-4, 1e-4
+# 29a: the int8 layer probe at ViT-B/16 384's qkv (4 images of 577 tokens,
+# K = 768, N = 2304) on each rank's rows of the global trunk
+PHASE29_PROBE = (4, 577, 768, 2304)
+
+
+@contextlib.contextmanager
+def first_attention_dropout(FA, rec):
+    """Inside, the first K1 / K3 call that drops (its qkv shape and dtype,
+    heads, seed, rate and batch fold) is kept in rec["attn"]."""
+    forward = FA._forward
+
+    def watched(qkv, bias, qv_bias, scale, h, bounded, want_lse, seed, rate, fold=None):
+        if rate > 0.0 and rec.get("attn") is None:
+            rec["attn"] = (tuple(qkv.shape), qkv.dtype, h, int(seed.item()), rate, fold)
+        return forward(qkv, bias, qv_bias, scale, h, bounded, want_lse, seed, rate, fold)
+
+    FA._forward = watched
+    try:
+        yield rec
+    finally:
+        FA._forward = forward
+
+
+def attention_masks(torch, FA, call, dev):
+    """(kernel mask, plain mask), bool [B, H, N, N] on the CPU, of a recorded
+    K1 / K3 call (``first_attention_dropout``): with q = k = 0 every
+    probability is 1/N, and v one-hot on 64 keys at a time (each head's 64
+    columns) reads each key's keep bit off the kernel's output, exactly;
+    the plain mask is philox's bits of the same seed and fold."""
+    from uncertainty_vit_tpu_torch.ops import philox as P
+
+    (b, n, c3), dtype, h, seed, rate, fold = call
+    c = c3 // 3
+    d = c // h
+    s = torch.tensor([seed], dtype=torch.int64, device=dev)
+    got = torch.empty(b, h, n, n, dtype=torch.bool)
+    with torch.no_grad():
+        for k0 in range(0, n, d):
+            keys = torch.arange(k0, min(k0 + d, n), device=dev)
+            qkv = torch.zeros(b, n, c3, dtype=dtype, device=dev)
+            qkv[..., 2 * c:].view(b, n, h, d)[:, keys, :, keys - k0] = 1.0
+            out = FA.fused_qkv_attention(qkv, None, None, s, 1.0, h, rate, fold=fold)
+            got[..., k0:k0 + len(keys)] = (out.view(b, n, h, d)[..., :len(keys)] != 0
+                                           ).permute(0, 2, 1, 3).cpu()
+    bits = P.attention_bits(s, b, h, n, n, fold=fold)
+    return got, (bits >= P.threshold(rate)).cpu()
+
+
+def int8_probe(torch, dev, mesh=None, image0_zero=False):
+    """The int8 layer's pieces on a rank's rows of PHASE29_PROBE's global
+    trunk (the data rank's images, the seq rank's tokens; one process: all):
+    K6's stochastic dgrad and K7's int32 sums through the row window, the
+    wgrad column scales over the data x seq ranks, each kernel against its
+    plain version to the bit. Returns (dgrad, sums) on the CPU."""
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+
+    images, n, k, m_out = PHASE29_PROBE
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(images, n, k, generator=gen, device=dev)
+    g = torch.randn(images, n, m_out, generator=gen, device=dev) * 0.01
+    w = torch.randn(m_out, k, generator=gen, device=dev) * 0.05
+    seed = torch.tensor([0x1929], dtype=torch.int64, device=dev)
+    window = group = None
+    if mesh is not None:
+        b = images // mesh.size("data")
+        d = mesh.index("data")
+        shard = mesh.seq_group.shard(n) if mesh.seq_group is not None else None
+        start, stop = (0, n) if shard is None else (shard.start, shard.stop)
+        x, g = x[d * b:(d + 1) * b, start:stop], g[d * b:(d + 1) * b, start:stop]
+        window, group = (stop - start, start, n, 0 if image0_zero else d * b), mesh.trunk_group
+    x2, g2 = x.reshape(-1, k).contiguous(), g.reshape(-1, m_out).contiguous()
+    sx, sg = TQ.wgrad_scales(x2, g2, group)
+    acc = TQ.wgrad_acc(x2, g2, sx.reciprocal(), sg.reciprocal(), seed, window)
+    acc_plain = TQ.wgrad_acc_plain(x2, g2, sx.reciprocal(), sg.reciprocal(), seed, window)
+    check(torch.equal(acc, acc_plain), f"29a K7 through the window {window} differs from its "
+                                       "plain version")
+    wtq, wts = TQ.quantize_cols(w)
+    dx = TQ.qmm(g2, wtq, wts, None, seed, True, torch.float32, window)
+    check(torch.equal(dx, TQ.qmm_plain(g2, wtq, wts, None, seed, True, torch.float32, window)),
+          f"29a K6's dgrad through the window {window} differs from its plain version")
+    return dx.reshape(x.shape[0], x.shape[1], k).cpu(), acc.cpu()
+
+
+@contextlib.contextmanager
+def phase29_mutation(name):
+    """The mutations that phase 29's holds must see: "image0_zero", every
+    int8 layer's rounding bits drawn as if its images began the global
+    batch; "hz_unsummed", each rank's share of D left unsummed over the data
+    group."""
+    from uncertainty_vit_tpu_torch.models import layers as TL
+    from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+    from uncertainty_vit_tpu_torch.train import optim as TO
+
+    if name is None:
+        yield
+        return
+    if name == "image0_zero":
+        real = TL.quant_ops.int8_dense
+        TL.quant_ops.int8_dense = lambda *a, image0=0, **k: real(*a, image0=0, **k)
+        try:
+            yield
+        finally:
+            TL.quant_ops.int8_dense = real
+        return
+    real_est, real_sum = TO.hutchinson_hessian_diag, meshlib.GradReducer.sum_data
+    mine = []
+
+    def est(*a, **k):
+        mine.append(real_est(*a, **k))
+        return mine[-1]
+
+    def sum_data(self, tensors):
+        if not any(tensors is d for d in mine):
+            real_sum(self, tensors)
+
+    TO.hutchinson_hessian_diag, meshlib.GradReducer.sum_data = est, sum_data
+    try:
+        yield
+    finally:
+        TO.hutchinson_hessian_diag, meshlib.GradReducer.sum_data = real_est, real_sum
+
+
+def int8_grad_stats(torch, got, ref, depth) -> dict:
+    """Step 0's gradients ``got`` against one process's ``ref`` (by name, on
+    the CPU): the norm of the difference over the norm of all tensors
+    ("total"), the largest of that ratio over the tensors ("worst", its
+    name), and over the last block's four int8 weights ("last": the fewest
+    flips reach it from the layers after it)."""
+    d2 = n2 = 0.0
+    rel = {}
+    for name, v in ref.items():
+        d = (got[name].double() - v.double()).norm().item()
+        n_ = v.double().norm().item()
+        d2, n2 = d2 + d * d, n2 + n_ * n_
+        rel[name] = d / max(n_, 1e-30)
+    last = [f"blocks.{depth - 1}.{w}.weight" for w in ("attn.qkv", "attn.proj", "mlp.fc1",
+                                                        "mlp.fc2")]
+    worst = max(rel, key=rel.get)
+    return {"total": (d2 / n2) ** 0.5, "worst": rel[worst], "worst_name": worst,
+            "last": max(rel[n_] for n_ in last)}
+
+
+def phase29_run(torch, np, FT, FA, TQ, DO, dev, argv, mesh=None, ref=None):
+    """One driver run of phase 29 (``run_rank`` on ``mesh``; ``main`` in one
+    process): {"launches", "s", "reads", "steps", "hessians", "k8", "attn",
+    "step0", "result"}; the first K8 and K1 / K3 dropout masks probed
+    against their plain versions here. With ``ref`` (one process's "step0"
+    gradients and "hessian", loaded from a file) step 0's gradients and the
+    Hessian estimate are held against it here ("int8": int8_grad_stats,
+    "hz": max|dD| / max|D|) and not returned."""
+    torch.cuda.synchronize()
+    reset_kernel_counts(FA, TQ, DO)
+    t = time.perf_counter()
+    with watched_mesh_driver(torch, np, FT) as rec, first_attention_dropout(FA, rec), \
+            step0_capture(torch, FT, lambda: kernel_counts(FA, TQ, DO)) as cap:
+        rec["attn"] = None
+        args = FT.get_args_parser().parse_args(argv)
+        res = FT.run_rank(mesh, args, str(dev)) if mesh is not None else FT.main(args)
+        torch.cuda.synchronize()
+        run = {"launches": kernel_counts(FA, TQ, DO), "s": time.perf_counter() - t,
+               "reads": rec["reads"], "steps": rec["steps"], "hessians": rec["hessians"],
+               "result": None if not args.eval else res, "k8": None, "attn": None,
+               "step0": {k: {n: v.cpu() for n, v in cap[k].items()} for k in ("grads",)}
+               if "grads" in cap else None}
+        if rec["k8"] is not None:
+            got, plain = k8_mask(torch, DO, dev, rec["k8"])
+            check(torch.equal(got, plain), f"29 {argv}: K8's mask through the fold differs from "
+                                           "its plain version's")
+            run["k8"] = (rec["k8"], got)
+        if rec["attn"] is not None:
+            got, plain = attention_masks(torch, FA, rec["attn"], dev)
+            check(torch.equal(got, plain), f"29: the attention kernel's mask of {rec['attn']} "
+                                           "differs from its plain version's")
+            run["attn"] = (rec["attn"], np.packbits(got.numpy()), tuple(got.shape))
+    if ref is not None and run["step0"] is not None and "grads" in ref:
+        depth = int(args.target_layer) + 1
+        run["int8"] = int8_grad_stats(torch, run["step0"]["grads"], ref["grads"], depth)
+    if mesh is not None:  # a rank returns none of its gradients
+        run["step0"] = None
+    if ref is not None and run["hessians"] and "hessian" in ref:
+        got, want = run["hessians"], ref["hessian"]
+        top = max(float(w.abs().max()) for w in want)
+        run["hz"] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got[0], want)) / top
+        run["hessians"] = len(got)
+    del res
+    gc.collect()
+    return run
+
+
+def data_axis_rank(mesh, device, cases, refs):
+    """One rank of phase 29: each case's driver body on the mesh or on its
+    data pair (a (2, 1, 1) mesh of this rank's seq index, its output
+    directory apart), under its mutation, held against one process's
+    saved step 0 (``refs``: case → file) where given; and 29a's int8 layer
+    probe. Returns ({case: phase29_run's record}, the probe, (data, seq))."""
+    import numpy as np
+    import torch
+
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import flash_attention as FA
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    data_group = mesh.group(meshlib.DATA_AXIS)
+    pair = meshlib.Mesh((mesh.size("data"), 1, 1), mesh.index("data"), (data_group, None, None),
+                        data_group)
+    out = {}
+    for name, argv, layout, mutation in cases:
+        argv = list(argv)
+        if layout == "pair":
+            argv[argv.index("--output_dir") + 1] += f"_pair{mesh.index('seq')}"
+        ref = torch.load(refs[name]) if name in refs else None
+        with phase29_mutation(mutation):
+            out[name] = phase29_run(torch, np, FT, FA, TQ, DO, dev, argv,
+                                    pair if layout == "pair" else mesh, ref)
+        del ref
+    probe = int8_probe(torch, dev, mesh)
+    return out, probe, (mesh.index("data"), mesh.index("seq"))
+
+
+def phase29(torch, FA, dev):
+    """Slice 19 on the card: ``cli.finetune`` on the data axis with nothing
+    refused, four gloo ranks sharing the card as the mesh (2, 2, 1) in one
+    ``run_ranks`` call, each case on the mesh or on each seq index's data
+    pair (2, 1, 1), at ViT-B/16's widths and 4 blocks from seeded .pth files
+    over seeded 32x32 CIFAR-100 images; each run then in one process given
+    the global batch (``BatchLoader(hosts_per_batch=2)``). 29a --quant int8
+    --seq_parallel 2 at 384 (f32): two epochs, step 0's gradients, the same
+    step with image0 = 0, --eval (bf16), and the layer probe; 29b
+    --attn_drop_rate 0.05 on the pairs: two steps at 224, one at 384 (f32),
+    --eval --mc_dropout folded and split at 224 (f32); the kernels' masks
+    through the fold; 29c --opt adahessian on (2, 2, 1) (f32), and with Hz
+    unsummed over the data group; 29d --stochastic on the pairs at 224:
+    two epochs and --eval (f32). Then K1 with dropout and K6's dgrad timed
+    flat and through a fold / an image offset. Returns the launches of each
+    path, summed over the ranks ("cli19_mesh_") and in one process
+    ("cli19_one_"), and the two timings."""
+    import functools
+    import tempfile
+
+    import numpy as np
+
+    from uncertainty_vit_tpu_torch.cli import builders as TB
+    from uncertainty_vit_tpu_torch.cli import finetune as FT
+    from uncertainty_vit_tpu_torch.core.config import get_preset
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader
+    from uncertainty_vit_tpu_torch.models.dist_vit import DistVisionTransformer
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import philox as P
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.parallel import seq
+
+    t_phase = time.perf_counter()
+    n_train, n_test, b, depth, k = PHASE29_SIZES
+    data, s_size, _ = PHASE29_MESH
+    split = depth // 2
+    fwd = -(-n_test // (data * b))  # eval batches a rank
+    steps = -(-n_train // data) // b  # train steps a rank and epoch (padded, tail dropped)
+    rs = np.random.RandomState(29)
+    want0 = {k_: 0 for k_ in kernel_counts(FA, TQ, DO)}
+    paths = {}
+    bounded = FA.BOUNDED_SCORES
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_cifar100(tmp, rs.randint(0, 256, (n_train, 32, 32, 3), dtype=np.uint8),
+                           np.arange(n_train) % 100, "train")
+            write_cifar100(tmp, rs.randint(0, 256, (n_test, 32, 32, 3), dtype=np.uint8),
+                           np.arange(n_test) % 100, "test")
+            cfg = get_preset("beit_base_patch16_224", num_classes=100, use_shared_rel_pos_bias=True,
+                             use_abs_pos_emb=False, init_values=0.1, depth=depth)
+            pth = os.path.join(tmp, "vitb224.pth")
+            write_vitb_pth(torch, dev, cfg, pth, 290)
+            dist_pth = os.path.join(tmp, "dist.pth")
+            gen = torch.Generator(device=dev).manual_seed(291)
+            seeded = DistVisionTransformer(cfg, torch.bfloat16, device=dev, generator=gen)
+            trunc_normal(0.2, 2.0)(seeded.rel_pos_bias.relative_position_bias_table, gen)
+            trunc_normal(0.5, 2.0)(seeded.head.weight, gen)
+            torch.save({"model": {k_: v.cpu() for k_, v in seeded.state_dict().items()}},
+                       dist_pth)
+            del seeded
+
+            def argv(name, size, batch, *extra, train=False, dtype="float32", s=1,
+                     model="beit_base_patch16"):
+                return ["--model", f"{model}_{size}", "--input_size", str(size),
+                        "--target_layer", str(depth - 1), "--data_set", "CIFAR100",
+                        "--data_path", tmp, "--num_workers", "4", "--batch_size", str(batch),
+                        "--finetune", dist_pth if model.startswith("dist") else pth,
+                        "--output_dir", os.path.join(tmp, name), "--dtype", dtype,
+                        "--no_auto_resume", *([] if train else ["--eval"]), *extra,
+                        "--seq_parallel", str(s)]
+
+            epochs = ["--epochs", "2", "--warmup_epochs", "1", "--layer_decay", "0.65",
+                      "--save_ckpt_freq", "1", "--disable_eval_during_finetuning"]
+            one_step = ["--epochs", "1", "--steps_per_epoch", "1",
+                        "--disable_eval_during_finetuning", "--no_save_ckpt"]
+            drop = ["--attn_drop_rate", str(PHASE29_ATTN_DROP)]
+            mc = ["--mc_dropout", "--mc_dropout_forwards", str(k), "--drop", "0.1", *drop]
+            # name → (size, extra flags, trains, layout, mutation, dtype, a rank's launches)
+            int8 = ["--quant", "int8"]
+            cases = {
+                "int8_train": (384, int8 + epochs, True, "mesh", None, "float32",
+                               dict(K5=2 * steps * depth, K5_bwd=2 * steps * depth,
+                                    K6=2 * steps * 8 * depth, K7=2 * steps * 4 * depth)),
+                "int8_image0_zero": (384, int8 + one_step, True, "mesh", "image0_zero",
+                                     "float32", dict(K5=depth, K5_bwd=depth, K6=8 * depth,
+                                                     K7=4 * depth)),
+                "int8_eval": (384, int8, False, "mesh", None, "bfloat16",
+                              dict(K5=fwd * depth, K6=fwd * 4 * depth)),
+                "attn_drop_train": (224, drop + ["--epochs", "1", "--steps_per_epoch", "2",
+                                                 "--disable_eval_during_finetuning",
+                                                 "--no_save_ckpt"], True, "pair", None,
+                                    "float32", dict(K1=2 * depth, K2=2 * depth)),
+                "attn_drop_train_384": (384, drop + one_step, True, "pair", None, "float32",
+                                        dict(K3=depth, K4=depth)),
+                "mc_folded": (224, mc, False, "pair", None, "float32",
+                              dict(K1=fwd * depth, K8=2 * fwd * depth)),
+                "mc_split": (224, mc + ["--mc_dropout_split_at", str(split),
+                                        "--dropout_from_block", str(split)], False, "pair",
+                             None, "float32", dict(K1=fwd * depth, K8=2 * fwd * (depth - split))),
+                "adahessian": (384, ["--opt", "adahessian", "--lr", "1e-3", "--warmup_epochs",
+                                     "1", *one_step], True, "mesh", None, "float32",
+                               dict(K5=depth, K5_bwd=depth)),
+                "adahessian_unsummed": (384, ["--opt", "adahessian", "--lr", "1e-3",
+                                              "--warmup_epochs", "1", *one_step], True, "mesh",
+                                        "hz_unsummed", "float32", dict(K5=depth, K5_bwd=depth)),
+                "stochastic_train": (224, ["--stochastic", "--epochs", "2", "--warmup_epochs",
+                                           "1", "--save_ckpt_freq", "1", "--drop_path", "0.1"],
+                                     True, "pair", None, "float32", {}),
+                "stochastic_eval": (224, ["--stochastic"], False, "pair", None, "float32", {}),
+            }
+
+            def case_argv(name, batch, one=False):
+                size, extra, trains, layout, _, dtype, _ = cases[name]
+                model = "dist_beit_base_patch16" if name.startswith("stochastic") else \
+                    "beit_base_patch16"
+                s = 1 if one or layout == "pair" else s_size
+                return argv(name + ("_one" if one else ""), size, batch, *extra, train=trains,
+                            dtype=dtype, s=s, model=model)
+
+            rank_cases = [(name, case_argv(name, b), c[3], c[4]) for name, c in cases.items()]
+
+            # --- one process given the global batch
+            one = {}
+            loader = TB.BatchLoader
+
+            def one_process(name):
+                TB.BatchLoader = functools.partial(BatchLoader, hosts_per_batch=data)
+                try:
+                    one[name] = phase29_run(torch, np, FT, FA, TQ, DO, dev,
+                                            case_argv(name, data * b, one=True))
+                finally:
+                    TB.BatchLoader = loader
+                torch.cuda.empty_cache()
+
+            # the runs whose step 0 the ranks hold in place, saved for them
+            refs = {}
+            for name, mutated in (("int8_train", "int8_image0_zero"),
+                                  ("adahessian", "adahessian_unsummed")):
+                one_process(name)
+                path = os.path.join(tmp, f"{name}_step0.pt")
+                torch.save({"grads": one[name]["step0"]["grads"]} if name.startswith("int8")
+                           else {"hessian": [h.cpu() for h in one[name]["hessians"][0]]}, path)
+                refs[name] = refs[mutated] = path
+
+            # --- the four ranks
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = seq.run_ranks(data_axis_rank, data * s_size, str(dev), rank_cases, refs,
+                                  timeout=900.0, mesh=PHASE29_MESH)
+            ranks_s = time.perf_counter() - t0
+            for r, (res, _, _) in enumerate(ranks):
+                for name, run in res.items():
+                    exp = dict(want0, **cases[name][6])
+                    check(run["launches"] == exp,
+                          f"29 rank {r} {name} launched {run['launches']}, expected {exp}")
+            for name in cases:
+                paths[f"cli19_mesh_{name}"] = {
+                    k_: sum(res[name]["launches"][k_] for res, _, _ in ranks) for k_ in want0}
+            print(f"  29 four ranks as mesh {PHASE29_MESH} ({card_line()}), launches a rank: "
+                  + "; ".join(f"{n}: {run['launches']}" for n, run in ranks[0][0].items()),
+                  flush=True)
+            print("  29 seconds a run on rank 0 (host clock, model build and .pth import "
+                  "included): " + ", ".join(f"{n} {run['s']:.2f}" for n, run in
+                                            ranks[0][0].items())
+                  + f"; the ranks ran {ranks_s:.1f} s from start to end", flush=True)
+
+            for name, c in cases.items():
+                if c[4] is None and name not in one:  # the mutations run on the ranks alone
+                    one_process(name)
+            for name, run in one.items():
+                n = cases[name][6]
+                # one process runs K3 / K4 (N = 577) where a rank of the mesh runs K5
+                exp = dict(want0, **{k_: v for k_, v in n.items() if k_ not in ("K5", "K5_bwd")})
+                exp["K3"] += n.get("K5", 0)
+                exp["K4"] += n.get("K5_bwd", 0)
+                check(run["launches"] == exp, f"29 one process {name} launched "
+                                              f"{run['launches']}, expected {exp}")
+                paths[f"cli19_one_{name}"] = run["launches"]
+
+            # --- the holds
+            worst = {}
+            for name in ("int8_eval", "mc_folded", "mc_split"):
+                bound_ = LOGIT_REL_BOUND if cases[name][5] == "bfloat16" \
+                    else PHASE28_F32_REL_BOUND
+                ref, rel = one[name]["reads"], 0.0
+                for res, _, (d, _) in ranks:
+                    got = res[name]["reads"]
+                    check(len(got) == len(ref) > 0, f"29 {name}: {len(got)} reads on a rank, "
+                                                    f"{len(ref)} in one process")
+                    for g, w in zip(got, ref):
+                        part = w[d * len(g):(d + 1) * len(g)]
+                        check(g.shape == part.shape, f"29 {name}: shapes {g.shape} / {part.shape}")
+                        if np.issubdtype(w.dtype, np.floating):
+                            rel = max(rel, float(np.abs(g - part).max())
+                                      / max(float(np.abs(w).max()), 1e-30))
+                        else:
+                            check(np.array_equal(g, part), f"29 {name}: the labels differ")
+                worst[name] = rel
+                check(rel <= bound_, f"29 {name}: the ranks' arrays differ from one process's "
+                                     f"rows by {rel:.3e} of their largest value (bound {bound_})")
+                got, want = ranks[0][0][name]["result"], one[name]["result"]
+                for key, metrics in want.items():
+                    for m, v in metrics.items():
+                        if m in ("acc1", "acc5"):
+                            ok = abs(got[key][m] - v) * n_test / 100 <= \
+                                (1 if bound_ > 1e-3 else 0) + 1e-6
+                        else:
+                            ok = _held(got[key][m], v, bound_)
+                        check(ok, f"29 {name}: {m} {got[key][m]} on the mesh, {v} in one process")
+            # the kernels' masks through the fold against one process's rows, to the bit
+            masks = []
+            for name in ("attn_drop_train", "attn_drop_train_384", "mc_folded", "mc_split"):
+                (shape1, _, h1, seed1, _, fold1), bits1, full1 = one[name]["attn"]
+                check(fold1 is None, f"29 {name}: one process's attention call had a fold")
+                mask1 = torch.from_numpy(np.unpackbits(bits1)[:int(np.prod(full1))]
+                                         .reshape(full1).astype(bool))
+                for res, _, (d, q) in ranks:
+                    (shape, _, _, seed, _, fold), bits, full = res[name]["attn"]
+                    check(seed == seed1 and fold == (b, data * b, d * b),
+                          f"29 {name}: rank ({d}, {q}) drew seed {seed} (one process {seed1}), "
+                          f"fold {fold}")
+                    mask = torch.from_numpy(np.unpackbits(bits)[:int(np.prod(full))]
+                                            .reshape(full).astype(bool))
+                    rows = P.fold_images(shape[0], fold)
+                    check(torch.equal(mask, mask1[rows]), f"29 {name}: rank ({d}, {q})'s "
+                          f"attention mask through the fold {fold} is not one process's rows")
+                masks.append(f"{name} {tuple(full)}")
+                if name.startswith("mc"):
+                    (shape1, _, seed1, window1, fold1), k8_1 = one[name]["k8"]
+                    for res, _, (d, q) in ranks:
+                        (shape, _, seed, window, fold), k8 = res[name]["k8"]
+                        rows = P.fold_images(shape[0], fold)
+                        check(seed == seed1 and torch.equal(
+                            k8.reshape(shape[0], -1), k8_1.reshape(shape1[0], -1)[rows]),
+                            f"29 {name}: rank ({d}, {q})'s K8 mask is not one process's rows")
+            # the training runs: steps' losses and gradient norms, epochs' losses
+            for name in ("int8_train", "attn_drop_train", "attn_drop_train_384", "adahessian"):
+                for res, _, _ in ranks:
+                    got, ref = res[name]["steps"], one[name]["steps"]
+                    check(len(got) == len(ref) > 0, f"29 {name}: {len(got)} / {len(ref)} steps")
+                    for i, (g, w) in enumerate(zip(got, ref)):
+                        for key in ("loss", "grad_norm"):
+                            check(_held(g[key], w[key], PHASE28_F32_REL_BOUND),
+                                  f"29 {name} step {i}: {key} {g[key]} on the mesh, {w[key]} "
+                                  "in one process")
+            logs = {}
+            for name, tag in (("int8_train", ""), ("stochastic_train", "_pair0"),
+                              ("stochastic_train", "_pair1")):
+                pair = []
+                for which in (name + tag, name + "_one"):
+                    with open(os.path.join(tmp, which, "log.txt")) as f:
+                        pair.append([json.loads(line) for line in f])
+                check(len(pair[0]) == len(pair[1]) == 2, f"29 {name}{tag}: log.txt's epochs")
+                for e, (g, w) in enumerate(zip(*pair)):
+                    for key in [kk for kk in w if kk.startswith("train_") and "lr" not in kk]:
+                        check(_held(g[key], w[key], PHASE28_F32_REL_BOUND),
+                              f"29 {name}{tag} epoch {e}: {key} {g[key]} on the mesh, {w[key]} "
+                              "in one process")
+                logs[name] = [(g["train_loss"], w["train_loss"]) for g, w in zip(*pair)]
+            got, want = ranks[0][0]["stochastic_eval"]["result"], one["stochastic_eval"]["result"]
+            for m, v in want["dist_eval"].items():
+                check(_held(got["dist_eval"][m], v, PHASE28_F32_REL_BOUND) if m not in
+                      ("acc1", "acc5") else got["dist_eval"][m] == v,
+                      f"29d --eval --stochastic: {m} {got['dist_eval'][m]} on the mesh, {v} in "
+                      "one process")
+            # 29a: step 0's gradients, and the mutation's (held in each rank)
+            int8 = {name: {key: max(res[name]["int8"][key] for res, _, _ in ranks)
+                           for key in ("total", "worst", "last")}
+                    for name in ("int8_train", "int8_image0_zero")}
+            print(f"  29a step 0's int8 gradients against one process's, norm of the "
+                  f"difference over the norm (all tensors, the worst tensor, the last block's "
+                  f"worst int8 weight): {json.dumps(int8)}; the worst tensors "
+                  f"{ranks[0][0]['int8_train']['int8']['worst_name']} / "
+                  f"{ranks[0][0]['int8_image0_zero']['int8']['worst_name']}", flush=True)
+            int8_rel = {name: v["total"] for name, v in int8.items()}
+            for key, bound_ in (("total", PHASE29_INT8_TOTAL_REL),
+                                ("last", PHASE29_INT8_LAST_REL)):
+                check(int8["int8_train"][key] <= bound_,
+                      f"29a: the int8 step 0's gradients ({key}) differ from one process's by "
+                      f"{int8['int8_train'][key]:.3e} of their norm (bound {bound_})")
+                check(int8["int8_image0_zero"][key] > bound_,
+                      f"29a: with image0 = 0 the gradients ({key}) differ by only "
+                      f"{int8['int8_image0_zero'][key]:.3e}: the hold would not see it")
+            # 29a: the layer probe: K7's sums add up, K6's dgrad rows are one process's
+            dx1, acc1 = int8_probe(torch, dev)
+            total = sum(acc.long() for _, (_, acc), _ in ranks)
+            check(torch.equal(total, acc1.long()), "29a: the four ranks' K7 int32 sums do not "
+                                                   "add up to one process's")
+            images_, n_tok = PHASE29_PROBE[:2]
+            for res, (dx, _), (d, q) in ranks:
+                shard = seq.SeqGroup(q, s_size).shard(n_tok)
+                want_dx = dx1[d * b:(d + 1) * b, shard.start:shard.stop]
+                check(torch.equal(dx, want_dx), f"29a: rank ({d}, {q})'s K6 dgrad is not one "
+                                                "process's rows")
+            # 29c: D = z * Hz against one process's, and the mutation's (held in
+            # each rank)
+            hz = {name: max(res[name]["hz"] for res, _, _ in ranks)
+                  for name in ("adahessian", "adahessian_unsummed")}
+            for res, _, _ in ranks:
+                check(res["adahessian"]["hessians"] == 1, "29c: Hessian estimates")
+            check(hz["adahessian"] <= PHASE28_HESSIAN_REL_BOUND,
+                  f"29c: D on the mesh differs from one process's by {hz['adahessian']:.3e} of "
+                  f"max|D| (bound {PHASE28_HESSIAN_REL_BOUND})")
+            check(hz["adahessian_unsummed"] > PHASE28_HESSIAN_REL_BOUND,
+                  f"29c: with Hz unsummed over the data group D differs by only "
+                  f"{hz['adahessian_unsummed']:.3e}: the hold would not see it")
+            print("  29 the ranks against one process, max|diff| / max|value| of the arrays "
+                  f"read back (bound {LOGIT_REL_BOUND} in bf16, {PHASE28_F32_REL_BOUND} in f32): "
+                  + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+                  + "; the attention kernels' masks through the fold equal to the bit to their "
+                  "plain versions' and one process's rows (" + ", ".join(masks) + "), K8's too; "
+                  "epochs' losses (mesh / one process) "
+                  + "; ".join(f"{n} " + ", ".join(f"{g:.6f} / {w:.6f}" for g, w in v)
+                              for n, v in logs.items())
+                  + f"; 29a step 0's gradients {int8_rel['int8_train']:.3e} of their norm "
+                  f"({int8['int8_train']['last']:.3e} in the last block), with image0 = 0 "
+                  f"{int8_rel['int8_image0_zero']:.3e} ({int8['int8_image0_zero']['last']:.3e}; "
+                  f"bounds {PHASE29_INT8_TOTAL_REL}, {PHASE29_INT8_LAST_REL}); K7's sums of the "
+                  f"four ranks equal to one process's, K6's dgrad rows too; 29c max|dD| / "
+                  f"max|D| {hz['adahessian']:.3e}, with Hz unsummed "
+                  f"{hz['adahessian_unsummed']:.3e} (bound "
+                  f"{PHASE28_HESSIAN_REL_BOUND})", flush=True)
+            print("  29 launches a path, summed over the ranks: "
+                  + "; ".join(f"{p}: " + ", ".join(f"{k_} {v}" for k_, v in n.items() if v)
+                              for p, n in paths.items() if p.startswith("cli19_mesh_"))
+                  + "; one process's seconds a run: "
+                  + ", ".join(f"{n} {r['s']:.2f}" for n, r in one.items()), flush=True)
+    finally:
+        FA.BOUNDED_SCORES = bounded
+    # K1 with dropout through a fold and K6's dgrad through an image offset,
+    # each beside its flat call in one call of in_turns
+    gen = torch.Generator(device=dev).manual_seed(2900)
+    h, hd = 12, 64
+    qkv = torch.randn(128, 197, 3 * h * hd, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(h, 197, 197, generator=gen, device=dev) * 0.5
+    s = torch.tensor([291], dtype=torch.int64, device=dev)
+    k1_best, k1_runs = in_turns({
+        "flat": lambda: FA.fused_qkv_attention(qkv, bias, None, s, hd**-0.5, h, 0.1,
+                                               bounded_scores=True),
+        "fold": lambda: FA.fused_qkv_attention(qkv, bias, None, s, hd**-0.5, h, 0.1,
+                                               bounded_scores=True, fold=(64, 128, 64))}, 20)
+    del qkv, bias
+    x = torch.randn(M_TRAIN, 2304, generator=gen, device=dev).to(torch.bfloat16)
+    wq, ws = TQ.quantize_cols(torch.randn(768, 2304, generator=gen, device=dev).t())
+    k6_best, k6_runs = in_turns({
+        "flat": lambda: TQ.qmm(x, wq, ws, None, s, True, torch.bfloat16),
+        "offset": lambda: TQ.qmm(x, wq, ws, None, s, True, torch.bfloat16,
+                                 (197, 0, 197, 160))}, 20)
+    del x
+    # K1-K4 through a fold at the main path's widths: each of two data ranks
+    # holds 64 images of a batch of 128 as the MC-dropout fold (32, 64,
+    # 32·r) lays them out (two folds of 64, so the map's division counts);
+    # its forward and its K2 / K4 replay equal the unfolded call's rows to
+    # the bit, and its plain versions through the same fold within phase
+    # 1's and phase 3's bounds
+    folds_held = []
+    for n_tok, dtype in ((197, torch.bfloat16), (577, torch.float32)):
+        name = str(dtype).split(".")[1]
+        qkv = (torch.randn(128, n_tok, 3 * h * hd, generator=gen, device=dev) * 0.5).to(dtype)
+        bias = torch.randn(h, n_tok, n_tok, generator=gen, device=dev) * 0.5
+        g = torch.randn(128, n_tok, h * hd, generator=gen, device=dev).to(dtype)
+        out_w, lse_w = FA.fused_qkv_attention(qkv, bias, None, s, hd**-0.5, h, 0.1,
+                                              bounded_scores=True, want_lse=True)
+        dqkv_w, _, _ = FA.fused_qkv_attention_bwd(qkv, bias, None, lse_w, g, hd**-0.5, h,
+                                                  out=out_w, want_dbias=False, seed=s,
+                                                  dropout_rate=0.1)
+        errs = {"out": 0.0, "dqkv": 0.0, "dbias": 0.0}
+        for r in range(2):
+            fold = (32, 64, 32 * r)
+            rows = P.fold_images(64, fold, dev)
+            qkv_r, g_r = qkv[rows].contiguous(), g[rows].contiguous()
+            out, lse = FA.fused_qkv_attention(qkv_r, bias, None, s, hd**-0.5, h, 0.1,
+                                              bounded_scores=True, want_lse=True, fold=fold)
+            dqkv, dbias, _ = FA.fused_qkv_attention_bwd(qkv_r, bias, None, lse, g_r, hd**-0.5, h,
+                                                        out=out, seed=s, dropout_rate=0.1,
+                                                        fold=fold)
+            check(torch.equal(out, out_w[rows]) and torch.equal(dqkv, dqkv_w[rows]),
+                  f"29: K{1 if n_tok <= 256 else 3} / K{2 if n_tok <= 256 else 4} through the "
+                  f"fold {fold} at N={n_tok} are not the unfolded call's rows")
+            ref, _ = FA.fused_qkv_attention_plain(qkv_r, bias, None, hd**-0.5, h,
+                                                  bounded_scores=True, seed=s, dropout_rate=0.1,
+                                                  fold=fold)
+            check(torch.allclose(out.float(), ref.float(), atol=OUT_TOL[name],
+                                 rtol=OUT_TOL[name]),
+                  f"29: the forward through the fold {fold} at N={n_tok} disagrees with its "
+                  "plain version")
+            errs["out"] = max(errs["out"], (out.float() - ref.float()).abs().max().item())
+            del ref
+            ref_dqkv, ref_dbias, _ = FA.fused_qkv_attention_bwd_plain(
+                qkv_r, bias, None, lse, g_r, hd**-0.5, h, out=out, seed=s, dropout_rate=0.1,
+                fold=fold)
+            for what, got_, ref_ in (("dqkv", dqkv, ref_dqkv), ("dbias", dbias, ref_dbias)):
+                rel = ((got_.float() - ref_.float()).abs().max()
+                       / ref_.float().abs().max()).item()
+                errs[what] = max(errs[what], rel)
+                check(rel <= BWD_TOL[name][what],
+                      f"29: the backward's {what} through the fold {fold} at N={n_tok} is "
+                      f"{rel:.3e} of max|plain| off its plain version (bound "
+                      f"{BWD_TOL[name][what]})")
+            del ref_dqkv, ref_dbias, out, lse, dqkv, dbias
+        folds_held.append(f"N={n_tok} {name}: max|out-plain| {errs['out']:.3e}, dqkv "
+                          f"{errs['dqkv']:.3e}, dbias {errs['dbias']:.3e} of max|plain|")
+        del qkv, bias, g, out_w, lse_w, dqkv_w
+        torch.cuda.empty_cache()
+    print("  29 K1-K4 through the fold (32, 64, 32r) at B=128, H=12, dropout 0.1: forward and "
+          "dqkv equal to the unfolded call's rows to the bit; against the plain versions "
+          + "; ".join(folds_held), flush=True)
+    print(f"  29 ({card_line()}) K1 at B=128 N=197 H=12 bf16, bias, bounded, dropout 0.1: "
+          f"{k1_best['flat']:.4f} ms flat, {k1_best['fold']:.4f} through the fold (64, 128, 64) "
+          f"(both turns {k1_runs}); K6's stochastic qkv dgrad at M={M_TRAIN}: "
+          f"{k6_best['flat']:.4f} ms without a window, {k6_best['offset']:.4f} through the "
+          f"image offset 160 (both turns {k6_runs})", flush=True)
+    print(f"  29 (information only; {card_line()}; four ranks sharing one card through host "
+          f"memory, not a multi-card rate): the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths, {"k1_fold_ms": k1_best["fold"], "k1_flat_ms": k1_best["flat"],
+                   "k6_offset_ms": k6_best["offset"], "k6_flat_ms": k6_best["flat"]}
 
 
 def main() -> int:
@@ -9114,6 +9826,12 @@ def main() -> int:
                     "split (K8 through the fold), the het head, two epochs of training, "
                     "--sinkformer, --opt adahessian on the seq pairs, against one process with "
                     "the global batch", phase28, torch, FA, dev)
+    cli19, fold_times = run(29, "slice 19: the finetune driver's data axis with nothing refused, "
+                                "four gloo ranks sharing the card: --quant int8 on (2, 2, 1), "
+                                "attention dropout and --stochastic on the data pairs, --opt "
+                                "adahessian on (2, 2, 1), against one process with the global "
+                                "batch; the kernels' masks and bits through the fold and the "
+                                "image offset", phase29, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -9269,6 +9987,21 @@ def main() -> int:
         kern["launches"] = sum(kern["launches_by_path"].values())
     kernels[7]["launches_by_kernel"].update({p: {k: n[k] for k in ("K5", "K5_bwd")}
                                              for p, n in cli18.items() if n["K5"]})
+    # and phase 29's ("cli19_mesh_": slice 19 on the (2, 2, 1) mesh and its data
+    # pairs, summed over the four ranks; "cli19_one_": the same runs in one
+    # process), and K1's and K6's times through the fold and the image offset
+    for kern, keys in ((kernels[0], ("K1",)), (kernels[1], ("K2",)), (kernels[2], ("K3",)),
+                       (kernels[3], ("K4",)), (kernels[4], ("K8",)), (kernels[5], ("K6",)),
+                       (kernels[6], ("K7",)), (kernels[7], ("K5", "K5_bwd"))):
+        kern["launches_by_path"].update({p: sum(n[k] for k in keys) for p, n in cli19.items()
+                                         if any(n[k] for k in keys)})
+        kern["launches"] = sum(kern["launches_by_path"].values())
+    kernels[7]["launches_by_kernel"].update({p: {k: n[k] for k in ("K5", "K5_bwd")}
+                                             for p, n in cli19.items() if n["K5"]})
+    kernels[0].update(dropout_fold_ms=fold_times["k1_fold_ms"],
+                      dropout_flat_ms=fold_times["k1_flat_ms"])
+    kernels[5].update(dgrad_offset_ms=fold_times["k6_offset_ms"],
+                      dgrad_flat_ms=fold_times["k6_flat_ms"])
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(f"chip_smoke: every phase held; {time.perf_counter() - t_start:.1f} s in all, the "

@@ -210,11 +210,14 @@ def test_plain_halves_match_the_fused_plain_backward(dtype, rate):
     for got, r in ((dq, ref[0][..., :C]), (dk, ref[0][..., C:2 * C]), (dv, ref[0][..., 2 * C:]),
                    (dbias, ref[1])):
         assert (got.float() - r.float()).abs().max().item() <= tol * r.float().abs().max().item()
-    # a batch slice of either half is the slice of the batch (its mask by image0)
+    # a batch slice of either half is the slice of the batch (its mask by its
+    # fold (B - 1, B, 1))
     dq1, _, c1 = TFA.stream_bwd_dq_plain(qkv_t[1:], _t(bias), _t(qvb), lse[1:], g_t[1:], SCALE, H,
-                                         out=out[1:], seed=seed, dropout_rate=rate, image0=1)
+                                         out=out[1:], seed=seed, dropout_rate=rate,
+                                         fold=(len(qkv_t) - 1, len(qkv_t), 1))
     dk1, dv1 = TFA.stream_bwd_dkv_plain(qkv_t[1:], _t(bias), _t(qvb), lse[1:], c1, g_t[1:], SCALE,
-                                        H, seed=seed, dropout_rate=rate, image0=1)
+                                        H, seed=seed, dropout_rate=rate,
+                                        fold=(len(qkv_t) - 1, len(qkv_t), 1))
     for a, r in ((dq1, dq[1:]), (dk1, dk[1:]), (dv1, dv[1:]), (c1, c[1:])):
         torch.testing.assert_close(a, r, rtol=1e-6, atol=1e-6)
 

@@ -297,12 +297,11 @@ def test_unported_flags_raise(files, runs, extra):
 
 
 # what --seq_parallel still refuses, before the ranks start: (extra flags,
-# whether they train, the error and its words)
+# whether they train, the error and its words; None: it reaches the ranks)
 SEQ_REFUSED = {
     "mc_dropout_attn_drop": (["--mc_dropout", "--attn_drop_rate", "0.1"], False, ValueError,
                              "sequence-parallel attention requires attn_drop=0"),
-    "adahessian_train": (["--opt", "adahessian"], True, NotImplementedError,
-                         "AdaHessian pass on a data axis.*ROADMAP.md item 21"),
+    "adahessian_train": (["--opt", "adahessian"], True, None, None),
 }
 
 
@@ -310,21 +309,25 @@ SEQ_REFUSED = {
 def test_seq_parallel_refusals_before_the_ranks_start(files, case):
     """Under --seq_parallel 2: MC-dropout with attention dropout raises the
     JAX package's ValueError (its seq-sharded attention refuses a drawing
-    forward with attn_drop > 0, models/layers.py:353-358), and AdaHessian
-    training, which runs on a seq group since slice 18, still raises on the
-    mesh's data axis (``main(..., mesh=(2, 2, 1))``), naming item 21.
-    ``run_ranks`` is replaced by a failure, so each raise comes before any
-    rank starts."""
+    forward with attn_drop > 0, models/layers.py:353-358), before any rank
+    starts (``run_ranks`` is replaced by a failure). AdaHessian training,
+    which runs on a seq group since slice 18, runs on the mesh's data axis
+    too since slice 19 (``main(..., mesh=(2, 2, 1))`` reaches the ranks)."""
     extra, trains, error, words = SEQ_REFUSED[case]
     argv = _argv(files, "--seq_parallel", "2", *extra)
     if trains:
         argv.remove("--eval")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TFA, "BOUNDED_SCORES", TFA.BOUNDED_SCORES)
+        args = TFT.get_args_parser().parse_args(argv)
+        mesh = (2, 2, 1) if trains else None
+        if error is None:
+            mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: ["the ranks started"])
+            assert TFT.main(args, device="cpu", mesh=mesh) == "the ranks started"
+            return
         mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: pytest.fail("the ranks started"))
         with pytest.raises(error, match=words):
-            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu",
-                     mesh=(2, 2, 1) if trains else None)
+            TFT.main(args, device="cpu", mesh=mesh)
 
 
 def test_training_and_orbax_checkpoints_raise(files, runs):

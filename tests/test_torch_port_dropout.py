@@ -95,7 +95,8 @@ def test_attention_bits_of_a_slice_are_the_slice_of_the_bits():
     assert whole.shape == (3, H, 9, 11)
     for image0, row0, col0, b, r, c in ((1, 3, 1, 2, 4, 3), (0, 0, 0, 3, 9, 11), (2, 8, 10, 1, 1, 1),
                                         (0, 1, 2, 1, 7, 8)):
-        part = P.attention_bits(_seed(), b, H, r, c, image0=image0, row0=row0, col0=col0)
+        part = P.attention_bits(_seed(), b, H, r, c, row0=row0, col0=col0,
+                                fold=(b, image0 + b, image0))
         assert torch.equal(part, whole[image0:image0 + b, :, row0:row0 + r, col0:col0 + c])
 
 
@@ -361,9 +362,9 @@ def test_dropout_backward_replays_forward_mask():
 
 
 def test_plain_versions_of_a_batch_slice_are_the_slice_of_the_batch():
-    """``image0`` lets the plain forward and backward be computed a slice of
-    the batch at a time with the mask of the whole batch (how a large batch
-    is held against the kernel on the card)."""
+    """The fold (1, i + 1, i) of image i lets the plain forward and backward
+    be computed a slice of the batch at a time with the mask of the whole
+    batch (how a large batch is held against the kernel on the card)."""
     qkv, bias, qvb = _attention_inputs(4)
     g = torch.from_numpy(np.random.RandomState(5).randn(B, N, C).astype(np.float32))
     kw = dict(seed=_seed(), dropout_rate=0.3)
@@ -372,12 +373,14 @@ def test_plain_versions_of_a_batch_slice_are_the_slice_of_the_batch():
     assert B >= 2
     for i in range(B):
         out_i, _ = TFA.fused_qkv_attention_plain(qkv[i:i + 1], bias, qvb, SCALE, H,
-                                                 bounded_scores=False, image0=i, **kw)
+                                                 bounded_scores=False, fold=(1, i + 1, i),
+                                                 **kw)
         np.testing.assert_allclose(out_i.numpy(), out[i:i + 1].numpy(), rtol=1e-6, atol=1e-7)
         dqkv_i, _, _ = TFA.fused_qkv_attention_bwd_plain(qkv[i:i + 1], bias, qvb, lse[i:i + 1],
-                                                         g[i:i + 1], SCALE, H, image0=i, **kw)
+                                                         g[i:i + 1], SCALE, H,
+                                                         fold=(1, i + 1, i), **kw)
         np.testing.assert_allclose(dqkv_i.numpy(), dqkv[i:i + 1].numpy(), rtol=1e-6, atol=1e-7)
-    # without the offset the second image draws the first image's mask
+    # without the fold the second image draws the first image's mask
     wrong, _ = TFA.fused_qkv_attention_plain(qkv[1:2], bias, qvb, SCALE, H,
                                              bounded_scores=False, **kw)
     assert not torch.allclose(wrong, out[1:2], rtol=1e-3, atol=1e-4)

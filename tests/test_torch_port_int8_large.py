@@ -159,7 +159,7 @@ def _layer(x, g, w, b, shard=None):
     seed = torch.tensor([OP_SEED], dtype=torch.int64)
     window = group = None
     if shard is not None:
-        window, group = (x.shape[1], shard.start, shard.n), shard.group
+        window, group = (x.shape[1], shard.start, shard.n, 0), shard.group
     x2, g2 = x.reshape(-1, OP_K), g.reshape(-1, OP_OUT)
     sx, sg = TQ.wgrad_scales(x2, g2, group)
     acc = TQ.wgrad_acc_plain(x2, g2, sx.reciprocal(), sg.reciprocal(), seed, window)
@@ -208,7 +208,7 @@ def test_window_bits_are_the_unsharded_rows(rank):
     shard = seq.SeqGroup(rank, 2).shard(n)
     rows = shard.stop - shard.start
     assert rows == (289, 288)[rank]
-    window = (rows, shard.start, n)
+    window = (rows, shard.start, n, 0)
     seed = torch.tensor([OP_SEED], dtype=torch.int64)
     whole = P.quant_bits(seed, b * n, cols).reshape(b, n, cols)[:, shard.start:shard.stop]
     got = P.quant_bits(seed, b * rows, cols, window=window)
@@ -218,7 +218,7 @@ def test_window_bits_are_the_unsharded_rows(rank):
     for row0, col0, r, c in ((0, 0, 7, 5), (rows - 3, 6, 9, 11), (2 * rows - 1, 3, 2, 37)):
         assert torch.equal(P.quant_bits(seed, r, c, row0=row0, col0=col0, window=window),
                            got[row0:row0 + r, col0:col0 + c])
-    assert torch.equal(P.quant_bits(seed, b * n, cols, window=(n, 0, n)),
+    assert torch.equal(P.quant_bits(seed, b * n, cols, window=(n, 0, n, 0)),
                        P.quant_bits(seed, b * n, cols))
     # the rank's dgrad quantization is the unsharded one's rows
     x = torch.randn(b, n, 128, generator=torch.Generator().manual_seed(rank))

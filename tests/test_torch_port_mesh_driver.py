@@ -46,6 +46,7 @@ from uncertainty_vit_tpu_torch.data.pipeline import BatchLoader
 from uncertainty_vit_tpu_torch.models.vit import VisionTransformer
 from uncertainty_vit_tpu_torch.ops import dropout as DO
 from uncertainty_vit_tpu_torch.ops import flash_attention as TFA
+from uncertainty_vit_tpu_torch.ops import philox as P
 from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.parallel import seq
 from uncertainty_vit_tpu_torch.train import engine_finetune as TE
@@ -409,13 +410,13 @@ def test_k8_fold_bits_are_one_process_rows(k, b, d_size, n, c):
     """The plain version's bits under the fold (b, B, d·b): data rank d's
     groups of a batch tiled k times (local k'·b + i) draw one process's
     rows k'·B + d·b + i of the unfolded call, and under a seq window too;
-    ``unsharded_groups`` is ``parallel.mesh.fold_index``'s map."""
+    ``philox.fold_images`` is ``parallel.mesh.fold_index``'s map."""
     seed = torch.tensor([0x1234ABCD], dtype=torch.int64)
     x = torch.randn(k * d_size * b, n, c, generator=torch.Generator().manual_seed(n * c))
     whole = DO.fused_dropout(x, 0.3, seed)
     for d in range(d_size):
         fold = (b, d_size * b, d * b)
-        rows = DO.unsharded_groups(k * b, fold)
+        rows = P.fold_images(k * b, fold)
         index, total = meshlib.fold_index(k * b, (d * b, (d + 1) * b, d_size * b))
         assert torch.equal(rows, index) and total == k * d_size * b
         assert torch.equal(DO.fused_dropout(x[rows].contiguous(), 0.3, seed, None, fold),
@@ -439,7 +440,7 @@ def test_k8_fold_kernel_equals_plain_on_the_card():
         whole = DO.fused_dropout(x, 0.3, seed)
         for d in range(d_size):
             fold = (b, d_size * b, d * b)
-            rows = DO.unsharded_groups(k * b, fold).to(dev)
+            rows = P.fold_images(k * b, fold).to(dev)
             part = x[rows].contiguous()
             got = DO.fused_dropout(part, 0.3, seed, None, fold)
             assert torch.equal(got, DO.fused_dropout_plain(part, 0.3, seed, None, fold))
@@ -472,33 +473,37 @@ def test_mc_forward_on_a_data_axis_draws_the_global_masks():
                                   "attn_drop_data", "adahessian_data"])
 def test_mesh_refusals_before_the_ranks_start(files, case):
     """What the driver's mesh does not run raises before any rank starts:
-    --quant int8 on a data axis and AdaHessian training and attention
-    dropout there (ROADMAP.md item 21), the Gumbel-drawing variants on any
-    mesh (item 20's rest)."""
+    the Gumbel-drawing variants on any mesh (item 20's rest). Since slice
+    19 a data axis refuses nothing of its own: --quant int8, attention
+    dropout in training and AdaHessian training reach the ranks."""
     extra, train, mesh, words = {
-        "int8_data": (["--quant", "int8"], False, (2, 1, 1), "int8 on a data axis.*item 21"),
+        "int8_data": (["--quant", "int8"], False, (2, 1, 1), None),
         "gumbel_seq": (["--gumbel_softmax"], False, (1, 2, 1), "item 20's rest"),
         "dual_sto_seq": (["--h_sto_trans"], False, (2, 2, 1), "item 20's rest"),
         "gumbel_data": (["--gumbel_softmax"], True, (2, 1, 1), "item 20's rest"),
-        "attn_drop_data": (["--attn_drop_rate", "0.1"], True, (2, 1, 1),
-                           "attention dropout on a data axis.*item 21"),
-        "adahessian_data": (["--opt", "adahessian"], True, (2, 1, 1),
-                            "AdaHessian pass on a data axis.*item 21"),
+        "attn_drop_data": (["--attn_drop_rate", "0.1"], True, (2, 1, 1), None),
+        "adahessian_data": (["--opt", "adahessian"], True, (2, 1, 1), None),
     }[case]
     argv = _argv(files, case, BATCH, mesh[1], *extra, train=train)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: pytest.fail("the ranks started"))
-        with pytest.raises(NotImplementedError, match=words):
-            TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu", mesh=mesh)
+        if words is None:
+            mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: ["the ranks started"])
+            assert TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu",
+                            mesh=mesh) == "the ranks started"
+        else:
+            mp.setattr(TFT.seq, "run_ranks", lambda *a, **k: pytest.fail("the ranks started"))
+            with pytest.raises(NotImplementedError, match=words):
+                TFT.main(TFT.get_args_parser().parse_args(argv), device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="seq axis is --seq_parallel"):
         TFT.main(TFT.get_args_parser().parse_args(_argv(files, "bad", BATCH, 1)),
                  device="cpu", mesh=(2, 2, 1))
 
 
 def test_model_level_refusals_on_a_data_axis():
-    """The model itself refuses int8 on a data axis; the AdaHessian pass in
-    the cyclical and dist engines under a seq group or a mesh, and in the
-    finetune engine on a data axis, still raise."""
+    """On a data axis the model builds its int8 trunk, and the finetune and
+    dist engines take the AdaHessian pass (slice 19); the cyclical engine's
+    pass under a seq group or a mesh, and any engine's under a model axis,
+    still raise."""
     from uncertainty_vit_tpu_torch.models.cyclical import CyclicalViT
     from uncertainty_vit_tpu_torch.models.dist_vit import DistVisionTransformer
     from uncertainty_vit_tpu_torch.train import engine_cyclical as TEC
@@ -506,31 +511,40 @@ def test_model_level_refusals_on_a_data_axis():
 
     small = dict(img_size=32, patch_size=16, embed_dim=64, depth=1, num_heads=1,
                  num_classes=5)
+    tp = ViTConfig(**dict(small, embed_dim=128, num_heads=2))  # heads split over a model axis
     data2 = meshlib.Mesh((2, 1, 1), 0)
-    with pytest.raises(NotImplementedError, match="int8 on a data axis"):
-        VisionTransformer(ViTConfig(**small, quant="int8"), device="cpu", mesh=data2)
+    VisionTransformer(ViTConfig(**small, quant="int8"), device="cpu", mesh=data2)
     group = seq.SeqGroup(0, 2)
+
+    def cyclical(m, o):
+        return TEC.make_cyclical_train_step(m, o, TEC.CyclicalHParams(), constant_schedule(1e-3),
+                                            use_hessian=True)
+
+    def dist(m, o):
+        return TED.make_dist_finetune_train_step(m, o, TED.DistFinetuneHParams(num_classes=5),
+                                                 constant_schedule(1e-3), use_hessian=True)
+
+    def finetune(m, o):
+        return TE.make_finetune_train_step(m, o, TE.FinetuneHParams(num_classes=5),
+                                           constant_schedule(1e-3), use_hessian=True)
+
     for model, make in (
             (CyclicalViT(ViTConfig(**small), device="cpu", mesh=meshlib.Mesh((1, 2, 1), 0)),
-             lambda m, o: TEC.make_cyclical_train_step(m, o, TEC.CyclicalHParams(),
-                                                       constant_schedule(1e-3),
-                                                       use_hessian=True)),
-            (DistVisionTransformer(ViTConfig(**small), device="cpu", mesh=data2),
-             lambda m, o: TED.make_dist_finetune_train_step(
-                 m, o, TED.DistFinetuneHParams(num_classes=5), constant_schedule(1e-3),
-                 use_hessian=True)),
-            (VisionTransformer(ViTConfig(**small), device="cpu", mesh=data2),
-             lambda m, o: TE.make_finetune_train_step(m, o, TE.FinetuneHParams(num_classes=5),
-                                                      constant_schedule(1e-3),
-                                                      use_hessian=True))):
+             cyclical),
+            (CyclicalViT(ViTConfig(**small), device="cpu", mesh=data2), cyclical),
+            (DistVisionTransformer(tp, device="cpu", mesh=meshlib.Mesh((1, 1, 2), 0)), dist),
+            (VisionTransformer(tp, device="cpu", mesh=meshlib.Mesh((2, 1, 2), 0)), finetune)):
         opt = TO.make_optimizer(model, opt_name="adahessian")
         with pytest.raises(NotImplementedError, match="item 21"):
             make(model, opt)
-    # a seq group alone runs the finetune engine's pass
-    model = VisionTransformer(ViTConfig(**small), device="cpu", seq_group=group)
-    TE.make_finetune_train_step(model, TO.make_optimizer(model, opt_name="adahessian"),
-                                TE.FinetuneHParams(num_classes=5), constant_schedule(1e-3),
-                                use_hessian=True)
+    # a seq group, and a data axis, run the finetune and dist engines' pass
+    for model, make in ((VisionTransformer(ViTConfig(**small), device="cpu", seq_group=group),
+                         finetune),
+                        (VisionTransformer(ViTConfig(**small), device="cpu", mesh=data2),
+                         finetune),
+                        (DistVisionTransformer(ViTConfig(**small), device="cpu", mesh=data2),
+                         dist)):
+        make(model, TO.make_optimizer(model, opt_name="adahessian"))
 
 
 # --- a launcher's ranks --------------------------------------------------------

@@ -45,8 +45,8 @@ def test_rowsum_from_out_equals_the_recomputed_rowsum(with_bias, with_qvb, bound
         qvb = torch.from_numpy((rs.randn(3, C) * 0.3).astype(np.float32))
         qvb[1] = 0.0
     seed = _seed() if rate > 0.0 else None
-    out, lse = TFA._attention_plain(q, k, v, bias, qvb, SCALE, H, bounded, seed, rate, 0)
-    t = TFA._recompute(q, k, v, bias, qvb, lse, g, SCALE, H, seed, rate, 0)[5]
+    out, lse = TFA._attention_plain(q, k, v, bias, qvb, SCALE, H, bounded, seed, rate, None)
+    t = TFA._recompute(q, k, v, bias, qvb, lse, g, SCALE, H, seed, rate, None)[5]
     want = t.sum(dim=-1)
     got = TFA.rowsum_from_out(out, g, H)
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, nq)

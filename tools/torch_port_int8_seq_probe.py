@@ -31,7 +31,7 @@ if os.environ.get(_NO_WINDOW) == "1":
     from uncertainty_vit_tpu_torch.ops import quant as _TQ
 
     _real = _TQ.int8_dense
-    _TQ.int8_dense = lambda x, w, bias, seed, shard=None: _real(x, w, bias, seed, None)
+    _TQ.int8_dense = lambda x, w, bias, seed, shard=None, **_: _real(x, w, bias, seed, None)
 
 
 def run_once(torch, FA, dev) -> str:
@@ -64,7 +64,7 @@ def main() -> int:
     from uncertainty_vit_tpu_torch.ops import quant as TQ
 
     real = TQ.int8_dense
-    TQ.int8_dense = lambda x, w, bias, seed, shard=None: real(x, w, bias, seed, None)
+    TQ.int8_dense = lambda x, w, bias, seed, shard=None, **_: real(x, w, bias, seed, None)
     try:
         t = time.perf_counter()
         second = run_once(torch, FA, dev)

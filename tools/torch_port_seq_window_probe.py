@@ -30,8 +30,8 @@ def start_zero_rank(group, device, cases, perturbations):
 
     real = L.fused_dropout
 
-    def moved(x, rate, seed, window=None):
-        return real(x, rate, seed, None if window is None else (0, window[1]))
+    def moved(x, rate, seed, window=None, fold=None):
+        return real(x, rate, seed, None if window is None else (0, window[1]), fold)
 
     L.fused_dropout = moved
     return cs.seq_eval_rank(group, device, cases, perturbations)

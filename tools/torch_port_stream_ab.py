@@ -164,8 +164,12 @@ def _vit_b_224(torch, FA, dev):
         x, bias, None, kw.get("seed"), scale, h, kw.get("rate", 0.0), bounded_scores=True,
         want_lse=kw.get("lse", False)))
     if hasattr(FA, "_packed_bwd"):  # the streaming entries, uncounted
-        stream_fwd = lambda *args: FA._packed_fwd(*args, "stream")  # noqa: E731
-        stream_bwd = lambda *args: FA._packed_bwd(*args, "stream")  # noqa: E731
+        # a checkout whose entries take the batch fold: none here
+        fold = ("fold",) if "fold" in inspect.signature(FA._packed_fwd).parameters else ()
+        stream_fwd = lambda *args: FA._packed_fwd(*args, *(None,) * len(fold),  # noqa: E731
+                                                  "stream")
+        stream_bwd = lambda *args: FA._packed_bwd(*args, *(None,) * len(fold),  # noqa: E731
+                                                  "stream")
     else:  # a checkout from before K1 and K2 ran the streaming kernels
         stream_fwd, stream_bwd = FA._launch_stream, FA._launch_stream_bwd
     stream = lambda x, **kw: (lambda: stream_fwd(  # noqa: E731

@@ -78,7 +78,7 @@ def main() -> int:
         def call(fn):
             err = fn(x.data_ptr(), g.data_ptr(), inv_x.data_ptr(), inv_g.data_ptr(),
                      seed.data_ptr(), xq.data_ptr(), gq.data_ptr(), acc.data_ptr(), M, m_pad, k,
-                     n, 0, M, 0, M, stream)  # M, 0, M: no row window
+                     n, 0, M, 0, M, 0, stream)  # M, 0, M, 0: no row window
             if err != 0:
                 raise RuntimeError(f"K7 launch failed ({err})")
 

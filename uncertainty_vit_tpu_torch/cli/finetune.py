@@ -76,8 +76,11 @@ each, ROADMAP.md §3): ``--model_ema``, ``--quant int8``,
 0.001 (the dist head is drawn unscaled), and the dispatches that would run
 another model (``--mc_dropout``, ``--ensembles``,
 ``--visualize_embedding``, ``--laplace``, ``--temp_scaling``);
-``--seq_parallel`` raises as in JAX, and a launcher's data axis names
-ROADMAP.md item 21.
+``--seq_parallel`` raises as in JAX. On the mesh's data axis the dist
+model trains and evaluates as one process given the global batch: each
+anchor's negative is one process's draw at its read
+(``TripletDataset.plan``), the losses' maxima span the data ranks,
+and the evaluation's metrics are the union's.
 
 On the mesh every evaluation runs: ``--mc_dropout`` (folded and split;
 each rank folds its rows and K8 draws the one-process masks' rows), the
@@ -86,16 +89,22 @@ evaluation) and the post-hoc evaluations (-C, -P, ``--laplace``,
 ``--temp_scaling``, ``--visualize_embedding``), which read the whole
 split on every rank and draw as one process (``WHOLE_SPLIT_DISPATCHES``),
 so their fits sum over no group. ``--sinkformer`` and ``--opt
-adahessian`` run under --seq_parallel (the Hessian pass's double backward
-through the seq collectives' differentiable backwards, ``parallel.seq``).
+adahessian`` run on the data and seq axes (the Hessian pass's double
+backward through the collectives' differentiable backwards,
+``parallel.seq`` and ``parallel.mesh``; each rank's share of D summed as
+its gradient is). On the data axis ``--quant int8`` runs in training and
+evaluation (the gradients' rounding bits of the global batch's rows, K6 /
+K7's row window with the rank's first image, the wgrad scales over the
+data × seq ranks, the int8 decision on the global trunk) and so does
+attention dropout in training and under ``--mc_dropout`` (K1-K4 key the
+mask on the rank's images of the global batch, the batch fold).
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
 that ports it, before any rank starts: on the mesh the Gumbel-drawing
-attention variants (item 20's rest); on its data axis --quant int8, the
-AdaHessian pass and attention dropout where a forward draws (item 21); and
-under a gumbel or dual_sto attention ``--laplace`` and
-``--visualize_embedding``. A ``--finetune`` or ensemble member that is not
-a ``.pth`` is an orbax checkpoint directory of the JAX package, read as
+attention variants (item 20's rest); and under a gumbel or dual_sto
+attention ``--laplace`` and ``--visualize_embedding``. A ``--finetune``
+or ensemble member that is not a ``.pth`` is an orbax checkpoint
+directory of the JAX package, read as
 the JAX driver reads it (``load_variables``); a ``--resume`` or
 ``--auto_resume`` of one raises (ROADMAP.md item 23: its optax state does
 not cross packages). Attention dropout under ``--seq_parallel`` raises
@@ -353,7 +362,7 @@ def build_model(args, nb_classes: int, device=None, mesh: Optional[meshlib.Mesh]
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.stochastic:
         return DistVisionTransformer(cfg, B.compute_dtype(args), device=device,
-                                     generator=gen), cfg
+                                     generator=gen, mesh=mesh), cfg
     model = VisionTransformer(cfg, B.compute_dtype(args), device=device, generator=gen,
                               mesh=mesh)
     return model, cfg
@@ -667,7 +676,7 @@ def _dispatch(args, model: VisionTransformer, val_loader, nb_classes: int,
             model, stack_params(_load_ensemble_members(args, model)), batches(), seed=args.seed,
             shards=shards)
     elif args.stochastic:
-        results["dist_eval"] = E.evaluate_dist(model, batches())
+        results["dist_eval"] = E.evaluate_dist(model, batches(), shards=shards)
     elif args.laplace:
         la, ffwd, _ = _fit_laplace(args, model)
         results["laplace"] = LA.evaluate_laplace(la, ffwd, batches(), link=args.laplace_link,
@@ -692,15 +701,11 @@ def _dispatch(args, model: VisionTransformer, val_loader, nb_classes: int,
 def _check_seq_flags(args, shape: Optional[Tuple[int, int, int]] = None) -> None:
     """What the driver's mesh of ``shape`` (data, seq, model; by default
     (1, --seq_parallel, 1)) does not run raises before the ranks start: the
-    Gumbel-drawing attention variants (ROADMAP.md item 20's rest), the dist
-    model, and on a data axis --quant int8 (its column scales and rounding
-    bits would need the global batch's rows, item 21), the AdaHessian pass
-    in training (the loss's collectives over the data axis are not twice
-    differentiable, item 21) and attention dropout where a forward draws
-    (K1 keys its mask on the rank's rows, item 21); under --seq_parallel
-    attention dropout where a forward draws (the JAX package's attention
-    refuses it, models/layers.py:353-358)."""
-    data, seq_size, _ = shape or (1, args.seq_parallel, 1)
+    Gumbel-drawing attention variants on any mesh (ROADMAP.md item 20's
+    rest); under --seq_parallel the dist model and attention dropout where
+    a forward draws, as the JAX package refuses them (cli/finetune.py:193-195,
+    models/layers.py:353-358). A data axis refuses nothing of its own."""
+    _, seq_size, _ = shape or (1, args.seq_parallel, 1)
     for flag, what in NOT_PORTED_UNDER_SEQ.items():
         if getattr(args, flag, False):
             raise B.not_ported(flag, f"{what} on the driver's mesh (--seq_parallel or a "
@@ -712,17 +717,6 @@ def _check_seq_flags(args, shape: Optional[Tuple[int, int, int]] = None) -> None
         if draws_attention:
             raise ValueError("sequence-parallel attention requires attn_drop=0 (in-kernel "
                              "dropout seeds are not defined across re-sharded grids)")
-    if data > 1:
-        if args.stochastic:
-            raise B.not_ported("stochastic", "the dist model on a data axis", "item 21")
-        if getattr(args, "quant", "none") == "int8":
-            raise B.not_ported("quant", "int8 on a data axis (its column scales and rounding "
-                               "bits would need the global batch's rows)", "item 21")
-        if not args.eval and needs_hessian(args.opt):
-            raise B.not_ported("opt", "the AdaHessian pass on a data axis", "item 21")
-        if draws_attention:
-            raise B.not_ported("attn_drop_rate", "attention dropout on a data axis (K1 keys "
-                               "its mask on the rank's local rows)", "item 21")
 
 
 def _start_metrics_readback(metrics: Dict[str, object]):
@@ -873,7 +867,7 @@ def train(args, device: torch.device, val_loader, nb_classes: int,
             pass
         elif triplet:
             test = E.evaluate_dist(model, _eval_batches(val_loader, args, device),
-                                   forward=eval_forward)
+                                   forward=eval_forward, shards=DataShards.of(mesh, val_loader))
         else:
             test = E.evaluate(model, _eval_batches(val_loader, args, device), forward=eval_forward,
                               het=args.het_layer, seed=args.seed + epoch,

@@ -210,4 +210,24 @@ __device__ __forceinline__ void block_coords(int& b, int& tile, int& h) {
 }
 inline dim3 block_grid(int batch, int tiles, int heads) { return dim3(tiles, batch, heads); }
 
+// A batch fold (data parallelism): the call's images are a data rank's rows
+// [off, off + per) of each fold of `total` images of the batch whose dropout
+// mask is drawn (the folded MC-dropout batch tiles the global batch), so its
+// image b keys the mask as image (b / per) * total + off + b % per. A block
+// maps its image once, on the uniform datapath; (B, B, 0) is the identity.
+struct BatchFold {
+  int per, total, off;
+  __device__ __forceinline__ uint32_t image(int b) const {
+    const int f = b / per;
+    return uint32_t(f) * uint32_t(total) + uint32_t(off + (b - f * per));
+  }
+};
+
+// Whether (per, total, off) folds a batch of `batch` images whose keys
+// (image * num_heads + head) fit the 32-bit counter word.
+inline bool fold_ok(int batch, int per, int total, int off, int num_heads) {
+  return per >= 1 && batch % per == 0 && off >= 0 && off <= total - per &&
+         (long long)(batch / per) * total * num_heads <= 0xffffffffLL;
+}
+
 }  // namespace

@@ -94,7 +94,8 @@
 // shape (B=32, N=197, H=16, D=80, bf16, a bias) the work is 10 B H N^2 D =
 // 15.9 GFLOP, ~0.016 ms, against 118 MB, ~0.035 ms: the bytes bound it.
 // The mask replay is philox::fragment_bits, query-major in kernel 1 and
-// key-major in kernel 2, in separate instantiations (kDrop).
+// key-major in kernel 2, in separate instantiations (kDrop), each keyed on
+// the image the forward keyed (the call's BatchFold, mapped once a block).
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
@@ -120,6 +121,7 @@ struct BwdArgs {
   int nq, nk, ldb, num_heads;
   float scale, inv_keep;
   uint32_t threshold;
+  BatchFold fold;        // the images' keys of the dropout mask, the forward's
 };
 
 // Stores a warp's 16 x D f32 accumulator, times `mul`, as bf16 into rows
@@ -305,8 +307,11 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
   float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * a.ldb : nullptr;
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(a.seed);
-  const uint32_t bh = uint32_t(b) * a.num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(a.seed);
+    bh = a.fold.image(b) * a.num_heads + h;  // the forward's key of this image
+  }
 
   // lse (log2 units) and c = rowsum(p_d * (g v^T)) = g . out (out = p_d v)
   // of this thread's two rows: the four threads of a row sum D / 4 columns
@@ -540,8 +545,11 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
   const int keys[2] = {jb + k_local, jb + k_local + 8};
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(a.seed);
-  const uint32_t bh = uint32_t(b) * a.num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(a.seed);
+    bh = a.fold.image(b) * a.num_heads + h;  // the forward's key of this image
+  }
 
   const uint64_t d_k = T::desc(smem + wg * kTileBytes);
   const uint64_t d_v = T::desc(smem + (kWg + wg) * kTileBytes);
@@ -683,8 +691,11 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   float* dbias_h = a.dbias ? a.dbias + size_t(h) * nq * ldb : nullptr;
   const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(a.seed);
-  const uint32_t bh = uint32_t(b) * a.num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(a.seed);
+    bh = a.fold.image(b) * a.num_heads + h;  // the forward's key of this image
+  }
 
   float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * ldS;  // scores, then ds
   float* dp_w = s_w + kRowsF * ldS;                                        // g v^T
@@ -789,8 +800,11 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
   const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(a.seed);
-  const uint32_t bh = uint32_t(b) * a.num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(a.seed);
+    bh = a.fold.image(b) * a.num_heads + h;  // the forward's key of this image
+  }
 
   float* s_w = reinterpret_cast<float*>(smem) + warp * 4 * kRowsF * ldS;  // p_d^T
   float* dp_w = s_w + kRowsF * ldS;                                        // v g^T, then ds^T
@@ -934,18 +948,21 @@ extern "C" {
 // dbias ([H, Nq, ldb] f32 with a pitch ldb >= Nk, a multiple of 4, zeroed by the
 // caller) may be null and is then not computed. qv_bias ([3, C] f32) may be
 // null. seed (one int64 in device memory, the forward's) null means no
-// dropout; otherwise threshold and inv_keep are the forward's. Returns the
-// first failing launch's cudaError_t.
+// dropout; otherwise threshold, inv_keep and the batch fold (fold_per,
+// fold_total, fold_off) are the forward's. Returns the first failing launch's
+// cudaError_t.
 int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v, const void* g,
                                     const void* o, const void* bias, const void* qv_bias,
                                     const void* lse, void* c, void* dq, void* dk, void* dv,
                                     void* dbias, const void* seed, long long ldq, long long ldkv,
                                     long long ldg, long long ldo, long long lddq, long long lddkv,
                                     int batch, int nq, int nk, int ldb, int num_heads,
-                                    int head_dim, int dtype, float scale, unsigned int threshold,
+                                    int head_dim, int dtype, int fold_per, int fold_total,
+                                    int fold_off, float scale, unsigned int threshold,
                                     float inv_keep, void* stream) {
   if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || ldb < nk || ldb % 4 != 0 ||
-      num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 || (nk + 63) / 64 > 65535) {
+      num_heads < 1 || num_heads > 65535 || (nq + 63) / 64 > 65535 || (nk + 63) / 64 > 65535 ||
+      !fold_ok(batch, fold_per, fold_total, fold_off, num_heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdArgs a;
@@ -960,6 +977,7 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
   a.seed = static_cast<const long long*>(seed);
   a.nq = nq, a.nk = nk, a.ldb = ldb, a.num_heads = num_heads;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
+  a.fold = BatchFold{fold_per, fold_total, fold_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(a, batch, dtype, st);
   if (head_dim == 80) return launch<80>(a, batch, dtype, st);

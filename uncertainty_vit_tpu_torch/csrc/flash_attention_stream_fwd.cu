@@ -78,9 +78,11 @@
 // Dropout: the keep bit of (image * H + head, row, column) from
 // csrc/philox.cuh, a function of the seed and the position alone, so this
 // kernel, the streaming backward's two kernels and the plain PyTorch version
-// draw one mask: a wgmma m64n64 accumulator gives each thread the pairs an
-// mma.sync m16n8 tile does, so philox::fragment_bits serves unchanged. A
-// separate instantiation (kDrop).
+// draw one mask; on a data axis the image is the unsharded one of the call's
+// batch fold (attention_common.cuh: BatchFold), mapped once a block. A wgmma
+// m64n64 accumulator gives each thread the pairs an mma.sync m16n8 tile
+// does, so philox::fragment_bits serves unchanged. A separate instantiation
+// (kDrop).
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
@@ -120,7 +122,8 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                 const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
                 const float* __restrict__ qv_bias, bf16* __restrict__ out, int ldo,
                 float* __restrict__ lse, int nq, int nk, int num_heads, float scale, int bounded,
-                const long long* __restrict__ seed, uint32_t threshold, float inv_keep) {
+                const long long* __restrict__ seed, uint32_t threshold, float inv_keep,
+                const BatchFold fold) {
   using T = HeadTile<D>;
   using S = FwdSmem<D>;
   constexpr uint32_t kTileBytes = S::kTileBytes, kStageBytes = S::kStageBytes;
@@ -190,8 +193,11 @@ stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(seed);
-  const uint32_t bh = uint32_t(b) * num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(seed);
+    bh = fold.image(b) * num_heads + h;
+  }
   const int r_local = warp * 16 + g;  // this thread's first row in the q tile
   const int rows[2] = {q0 + r_local, q0 + r_local + 8};
   const uint64_t dq = T::desc(smem);
@@ -351,6 +357,7 @@ struct FwdArgs {
   int nq, nk, num_heads, bounded;
   float scale, inv_keep;
   uint32_t threshold;
+  BatchFold fold;          // the images' keys of the dropout mask
 };
 
 template <int D, bool kDrop>
@@ -369,8 +376,11 @@ __global__ void __launch_bounds__(kThreadsF) stream_fwd_f32(const FwdArgs a) {
   const float* k_img = static_cast<const float*>(a.k) + size_t(b) * nk * a.ldkv + hc;
   const float* v_img = static_cast<const float*>(a.v) + size_t(b) * nk * a.ldkv + hc;
   philox::Key pkey{0u, 0u};
-  if constexpr (kDrop) pkey = philox::load_key(a.seed);
-  const uint32_t bh = uint32_t(b) * a.num_heads + h;
+  uint32_t bh = 0;
+  if constexpr (kDrop) {
+    pkey = philox::load_key(a.seed);
+    bh = a.fold.image(b) * a.num_heads + h;
+  }
 
   float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * ldS;  // scores
   float* p_w = s_w + kRowsF * ldS;                                         // probabilities
@@ -484,7 +494,7 @@ cudaError_t launch_bf16(const FwdArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid = block_grid(batch, (a.nq + 63) / 64, a.num_heads);
   kernel<<<grid, kThreadsBf16, smem, stream>>>(
       tm_q, tm_k, tm_v, a.bias, a.qv_bias, static_cast<bf16*>(a.out), a.ldo, a.lse, a.nq, a.nk,
-      a.num_heads, a.scale, a.bounded, a.seed, a.threshold, a.inv_keep);
+      a.num_heads, a.scale, a.bounded, a.seed, a.threshold, a.inv_keep, a.fold);
   return cudaGetLastError();
 }
 
@@ -525,15 +535,19 @@ extern "C" {
 // ldq = C, ldkv = 2C. bias ([H, Nq, Nk] f32), qv_bias ([3, C] f32) and lse
 // ([B, H, Nq] f32) may be null. seed (one int64 in
 // device memory) null means no dropout; otherwise threshold = min(int(rate * 2^32),
-// 2^32 - 1) and inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t.
+// 2^32 - 1) and inv_keep = 1 / (1 - rate), and (fold_per, fold_total, fold_off)
+// is the batch fold of the mask's images (BatchFold; (batch, batch, 0) for
+// none). Returns the launch's cudaError_t.
 int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* qv_bias, void* out, void* lse,
                                     const void* seed, long long ldq, long long ldkv,
                                     long long ldo, int batch, int nq, int nk, int num_heads,
-                                    int head_dim, int dtype, float scale, int bounded,
+                                    int head_dim, int dtype, int fold_per, int fold_total,
+                                    int fold_off, float scale, int bounded,
                                     unsigned int threshold, float inv_keep, void* stream) {
   if (batch < 1 || batch > 65535 || nq < 1 || nk < 1 || (nq + 63) / 64 > 65535 || num_heads < 1 ||
-      num_heads > 65535 || ldq > 0x7fffffffLL || ldkv > 0x7fffffffLL || ldo > 0x7fffffffLL) {
+      num_heads > 65535 || ldq > 0x7fffffffLL || ldkv > 0x7fffffffLL || ldo > 0x7fffffffLL ||
+      !fold_ok(batch, fold_per, fold_total, fold_off, num_heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs a;
@@ -545,6 +559,7 @@ int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
   a.seed = static_cast<const long long*>(seed);
   a.nq = nq, a.nk = nk, a.num_heads = num_heads, a.bounded = bounded;
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
+  a.fold = BatchFold{fold_per, fold_total, fold_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64>(a, batch, dtype, st);
   if (head_dim == 80) return launch<80>(a, batch, dtype, st);

@@ -65,12 +65,14 @@ __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
 }
 
 // A row window: the matrix holds rows [start, start + rows) of each of its
-// M / rows sequences of n tokens (a seq shard's trunk), and its row
-// b * rows + r draws the rounding bits of the unsharded row b * n + start + r.
-// (rows, start, n) = (M, 0, M) is every row's own. A block locates its first
-// row once (one division) and steps from there, so a thread never divides.
+// M / rows sequences of n tokens (a seq shard's trunk), and those sequences
+// are images image0, image0 + 1, ... of the unsharded batch (a data rank's
+// shard of the global batch), so its row b * rows + r draws the rounding
+// bits of the unsharded row (image0 + b) * n + start + r. (rows, start, n,
+// image0) = (M, 0, M, 0) is every row's own. A block locates its first row
+// once (one division) and steps from there, so a thread never divides.
 struct RowWindow {
-  int rows, start, n;
+  int rows, start, n, image0;
   // (image, row of the shard) of matrix row `row`
   __device__ __forceinline__ int2 locate(int row) const {
     const int b = row / rows;
@@ -82,12 +84,16 @@ struct RowWindow {
     while (at.y >= rows) at.y -= rows, ++at.x;
   }
   // the unsharded row at `at`
-  __device__ __forceinline__ int unsharded(int2 at) const { return at.x * n + start + at.y; }
+  __device__ __forceinline__ int unsharded(int2 at) const {
+    return (image0 + at.x) * n + start + at.y;
+  }
 };
 
-// Whether (rows, start, n) lays out m matrix rows.
-inline bool window_ok(int m, int rows, int start, int n) {
-  return rows >= 1 && m % rows == 0 && start >= 0 && start <= n - rows;
+// Whether (rows, start, n, image0) lays out m matrix rows whose unsharded
+// rows stay below 2^31.
+inline bool window_ok(int m, int rows, int start, int n, int image0) {
+  return rows >= 1 && m % rows == 0 && start >= 0 && start <= n - rows && image0 >= 0 &&
+         (long long)(image0 + m / rows) * n <= 0x7fffffffLL;
 }
 
 // Elements in 16 bytes of T.

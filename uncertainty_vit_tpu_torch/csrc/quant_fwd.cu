@@ -12,7 +12,8 @@
 // int32, the products and the bias add in f32 in this order, one rounding to
 // the output type. The uniforms are those of csrc/philox.cuh's rounding
 // stream: a function of (seed, r, k), never of the tile; under a row window
-// (quant_common.cuh: RowWindow, a seq shard's rows) r is the unsharded row.
+// (quant_common.cuh: RowWindow, a seq shard's rows of a data rank's images)
+// r is the unsharded row.
 //
 // What bounds it on an H100: at the ViT-B/16 224 trunk shapes (M = 31,520
 // tokens at batch 160, bf16 in and out) qkv is 111.5 GOP and 195 MB, fc1 and
@@ -311,16 +312,16 @@ extern "C" {
 // bias f32 [n] or null; seed one int64 in device memory when sr, else
 // unused; y [m, n] (y_dtype likewise); xq int8 [m, k] (16-byte aligned) and
 // row_scale f32 [m] scratch. k and n are multiples of 128. (win_rows,
-// win_start, win_n): the row window of the stochastic rounding's bits, (m, 0,
-// m) for none. Returns the launches' cudaError_t.
+// win_start, win_n, win_image0): the row window of the stochastic rounding's
+// bits, (m, 0, m, 0) for none. Returns the launches' cudaError_t.
 int uvit_quant_fwd(const void* x, const void* wq, const void* ws, const void* bias,
                    const void* seed, void* y, void* xq, void* row_scale, int m, int k, int n,
                    int x_dtype, int y_dtype, int sr, int win_rows, int win_start, int win_n,
-                   void* stream) {
+                   int win_image0, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || k % 128 != 0 || n % 128 != 0 || (sr && seed == nullptr) ||
-      y_dtype < 0 || y_dtype > 1 || !window_ok(m, win_rows, win_start, win_n))
+      y_dtype < 0 || y_dtype > 1 || !window_ok(m, win_rows, win_start, win_n, win_image0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RowWindow win{win_rows, win_start, win_n};
+  const RowWindow win{win_rows, win_start, win_n, win_image0};
   const int8_t* w = static_cast<const int8_t*>(wq);
   const float* s = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);

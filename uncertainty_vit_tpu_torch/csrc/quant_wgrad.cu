@@ -12,7 +12,8 @@
 // The result is laid out [N, K], as a torch weight's gradient lies; the
 // wrapper hands out its transposed view. The uniforms are those of
 // csrc/philox.cuh's rounding stream: a function of (seed, m, n) only, m the
-// unsharded row under a row window (quant_common.cuh: RowWindow); the pad
+// unsharded row under a row window (quant_common.cuh: RowWindow: a seq
+// shard's rows of a data rank's images); the pad
 // rows draw nothing.
 // |acc| <= 127 * 127 * M stays below 2^31 for M <= 133,152: the wrapper
 // stops at 131,072.
@@ -249,15 +250,17 @@ extern "C" {
 // aligned; inv_x f32 [k], inv_g f32 [n]; seed one int64 in device memory; xq
 // int8 [k, m_pad] and gq int8 [n, m_pad] scratch (m_pad = m rounded up to
 // 128); acc int32 [n, k], zeroed by the caller. k and n are multiples of 128.
-// (win_rows, win_start, win_n): the row window of g's rounding bits, (m, 0, m)
-// for none. Returns the launches' cudaError_t.
+// (win_rows, win_start, win_n, win_image0): the row window of g's rounding
+// bits, (m, 0, m, 0) for none. Returns the launches' cudaError_t.
 int uvit_quant_wgrad(const void* x, const void* g, const void* inv_x, const void* inv_g,
                      const void* seed, void* xq, void* gq, void* acc, int m, int m_pad, int k,
-                     int n, int dtype, int win_rows, int win_start, int win_n, void* stream) {
+                     int n, int dtype, int win_rows, int win_start, int win_n,
+                     int win_image0, void* stream) {
   if (m <= 0 || m_pad < m || m_pad % kDepth != 0 || k <= 0 || n <= 0 || k % 128 != 0 ||
-      n % 128 != 0 || seed == nullptr || !window_ok(m, win_rows, win_start, win_n))
+      n % 128 != 0 || seed == nullptr ||
+      !window_ok(m, win_rows, win_start, win_n, win_image0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RowWindow win{win_rows, win_start, win_n};
+  const RowWindow win{win_rows, win_start, win_n, win_image0};
   const float* ix = static_cast<const float*>(inv_x);
   const float* ig = static_cast<const float*>(inv_g);
   const long long* sd = static_cast<const long long*>(seed);

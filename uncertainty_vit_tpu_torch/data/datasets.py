@@ -392,34 +392,63 @@ class TripletDataset:
     """(img, pos_img, neg_img, label): pos is the same image (the eval
     transform applies to it on the device), neg an image of another class
     drawn from ``random.Random(seed)`` (dist_datasets.py:31-44, 143-148). The
-    index of every other class's items is built once. The draws follow the
-    order of the calls, so a loader with worker threads interleaves them as
-    its threads run, as the JAX package's does.
+    index of every other class's items is built once. ``__getitem__`` draws
+    the stream's next negative at each call, as the JAX dataset does (whose
+    loader threads so interleave the draws as they run).
 
     ``set_epoch`` (which ``BatchLoader.set_epoch`` calls) restarts the
     stream: at epoch 0 it is ``random.Random(seed)``, the JAX dataset's, and
     at epoch e > 0 one seeded from (seed, e), so that a run resumed at an
     epoch draws the negatives an uninterrupted run draws there (the JAX
     dataset's one stream restarts from its seed at a resume, ROADMAP.md
-    §3)."""
+    §3).
+
+    ``BatchLoader`` keys the negatives on one process's reads rather than
+    on the order of its calls: at each epoch it hands ``plan`` the indices
+    one process reads, in order (on a data axis every data rank's batches of
+    each global batch), read p takes the epoch stream's draw p, and the
+    loader loads each item through ``item_at`` with its read's place. So
+    the draws do not depend on which thread loads an item, and a data
+    rank's triplets are one process's."""
 
     def __init__(self, base, seed: int = 0):
         self.base = base
         self.seed = seed
         self.labels = np.asarray(base.labels)
         self.rng = random.Random(seed)
+        self._stream_seed = seed
         self._by_label = {int(c): np.where(self.labels != c)[0] for c in np.unique(self.labels)}
+        self._negatives: Optional[np.ndarray] = None
 
     def set_epoch(self, epoch: int) -> None:
         seed = self.seed if epoch == 0 else int(
             np.random.SeedSequence([self.seed, epoch]).generate_state(1, np.uint64)[0])
+        self._stream_seed = seed
         self.rng = random.Random(seed)
+
+    def _negative(self, rng: random.Random, label) -> int:
+        others = self._by_label[int(label)]
+        return int(others[rng.randrange(len(others))])
+
+    def plan(self, order: np.ndarray) -> None:
+        """The negatives of one process's reads ``order`` (dataset indices in
+        reading order) from the epoch's stream, each read's the next draw,
+        for ``item_at``."""
+        rng = random.Random(self._stream_seed)
+        self._negatives = np.array([self._negative(rng, label) for label in self.labels[order]],
+                                   np.int64)
+
+    def item_at(self, idx: int, position: int):
+        """Item ``idx`` read at ``position`` of the planned order: its
+        negative is that read's (``plan``)."""
+        img, label = self.base[idx]
+        neg_img, _ = self.base[int(self._negatives[position])]
+        return img, img.copy(), neg_img, label
 
     def __len__(self):
         return len(self.base)
 
     def __getitem__(self, idx: int):
         img, label = self.base[idx]
-        others = self._by_label[int(label)]
-        neg_img, _ = self.base[int(others[self.rng.randrange(len(others))])]
+        neg_img, _ = self.base[self._negative(self.rng, label)]
         return img, img.copy(), neg_img, label

@@ -24,6 +24,20 @@ import torch
 import torch.distributed as dist
 
 
+def global_order(idx: np.ndarray, hosts: int, batch: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(indices, slots): the order in which one process reads the global
+    batches of ``hosts`` hosts whose padded shards of ``idx`` each give
+    batches of ``batch``: global batch k is host 0's batch k, then host
+    1's, .... ``slots`` holds each read's place in the padded ``idx``, where
+    host d's shard is slots d, d + hosts, d + 2·hosts, ...."""
+    n = len(idx)
+    per_host = -(-n // hosts)
+    padded = np.concatenate([idx, idx[: per_host * hosts - n]])
+    shards = [np.arange(d, per_host * hosts, hosts) for d in range(hosts)]
+    slots = np.concatenate([s[k:k + batch] for k in range(0, per_host, batch) for s in shards])
+    return padded[slots], slots
+
+
 def host_shard(mesh=None) -> Tuple[int, int]:
     """(host_id, num_hosts) of this process: its rank and the world size
     when torch.distributed is started, else (0, 1). Under a
@@ -108,16 +122,31 @@ class BatchLoader:
     def _global_order(self, idx: np.ndarray) -> np.ndarray:
         """``hosts_per_batch`` = h: the order in which one host reads the
         global batches of h hosts whose padded shards (``pad_shards``
-        forced, as on a data axis) each give batches of batch_size / h:
-        global batch k is host 0's batch k, then host 1's, .... One process
-        so reads what a mesh of h data ranks reads (the tests' and the
-        smoke's one-process reference)."""
-        h, b = self.hosts_per_batch, self.batch_size // self.hosts_per_batch
-        n = len(idx)
-        per_host = -(-n // h)
-        padded = np.concatenate([idx, idx[: per_host * h - n]])
-        shards = [padded[d::h] for d in range(h)]
-        return np.concatenate([s[k:k + b] for k in range(0, per_host, b) for s in shards])
+        forced, as on a data axis) each give batches of batch_size / h
+        (``global_order``). One process so reads what a mesh of h data
+        ranks reads (the tests' and the smoke's one-process reference)."""
+        return global_order(idx, self.hosts_per_batch,
+                            self.batch_size // self.hosts_per_batch)[0]
+
+    def _read_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(order, positions): the dataset indices that one process reads
+        in this epoch, in order, where this host's padded shard of them is
+        its data rank's share (``global_order``: one process's global
+        batches of every host's batches), and the place in ``order`` of each
+        of this host's indices, in its reading order. One host reads order
+        itself."""
+        if self.num_hosts == 1:
+            order = self._indices()
+            return order, np.arange(len(order))
+        if not self.pad_shards:
+            raise ValueError("reads keyed on one process's order need padded shards")
+        n = len(self.dataset)
+        idx = np.random.RandomState(self.seed + self.epoch).permutation(n) if self.shuffle \
+            else np.arange(n)
+        order, slots = global_order(idx, self.num_hosts, self.batch_size)
+        place = np.empty_like(slots)
+        place[slots] = np.arange(len(slots))
+        return order, place[self.host_id::self.num_hosts]
 
     def real_count(self) -> int:
         """The samples of this host's shard that are not padding: a prefix
@@ -130,7 +159,13 @@ class BatchLoader:
         n = len(self._indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _load_batch(self, batch_idx: np.ndarray):
+    def _load_batch(self, batch_idx: np.ndarray, positions=None):
+        """One batch of the dataset's items; with ``positions`` (a dataset
+        whose draws are keyed on one process's reads, one with ``plan``)
+        item i is ``dataset.item_at(i, its read position)``."""
+        if positions is not None:
+            items = [self.dataset.item_at(int(i), int(p)) for i, p in zip(batch_idx, positions)]
+            return self._assemble(items)
         # fast path: GIL-free batched decode in the C++ IO runtime
         if hasattr(self.dataset, "native_batch_decode") and getattr(
             self.dataset, "decode_size", None
@@ -139,7 +174,10 @@ class BatchLoader:
                 batch_idx, num_threads=max(self.num_workers, 1)
             )
 
-        items = [self.dataset[int(i)] for i in batch_idx]
+        return self._assemble([self.dataset[int(i)] for i in batch_idx])
+
+    @staticmethod
+    def _assemble(items):
         cols = list(zip(*items))
         from uncertainty_vit_tpu_torch.utils import native
 
@@ -152,11 +190,19 @@ class BatchLoader:
     def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
         idx = self._indices()
         nb = len(self)
-        batches = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
+        cut = [slice(i * self.batch_size, (i + 1) * self.batch_size) for i in range(nb)]
+        if hasattr(self.dataset, "plan"):
+            # the dataset's draws keyed on one process's reads (the triplet
+            # negatives): whatever host or thread loads an item
+            order, positions = self._read_plan()
+            self.dataset.plan(order)
+            batches = [(idx[c], positions[c]) for c in cut]
+        else:
+            batches = [(idx[c], None) for c in cut]
 
         if self.num_workers <= 0:
             for b in batches:
-                yield self._load_batch(b)
+                yield self._load_batch(*b)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -171,7 +217,7 @@ class BatchLoader:
                     for b in batches:
                         if stop.is_set():
                             return
-                        futures.append(pool.submit(self._load_batch, b))
+                        futures.append(pool.submit(self._load_batch, *b))
                         # keep a bounded window of in-flight batches
                         while len(futures) > self.prefetch:
                             q.put(("ok", futures.pop(0).result()))

@@ -84,12 +84,14 @@ def make_dist_eval_forward(model: nn.Module) -> Callable[[torch.Tensor], torch.T
 
 
 def evaluate_dist(model: nn.Module, batches: Iterable,
-                  forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-                  ) -> Dict[str, float]:
+                  forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                  shards: Optional[DataShards] = None) -> Dict[str, float]:
     """The dist model's evaluation: ``metrics.classification_metrics`` of its
     logits over ``batches`` (no "loss" key, as the JAX driver's dict has
-    none). ``forward``: one from ``make_dist_eval_forward``, to reuse it."""
-    logits, labels = collect_logits(forward or make_dist_eval_forward(model), batches)
+    none; the union of the data ranks' logits with ``shards``). ``forward``:
+    one from ``make_dist_eval_forward``, to reuse it."""
+    logits, labels = _union(shards, *collect_logits(forward or make_dist_eval_forward(model),
+                                                    batches))
     return _metrics(model, logits, labels)
 
 

@@ -32,7 +32,10 @@ double backward runs through the step's own graph).
 Under a ``parallel.mesh.Mesh`` (``mesh``) the batch is split over its data
 axis: a model's forward runs inside ``batch_shard``, so that each dropout
 and drop-path mask is drawn for the global batch and this rank's rows kept
-(the draws of the unsharded model). Its model axis cuts the trunk as
+(the draws of the unsharded model): attention dropout's masks too, the
+kernels' keyed on the rank's images of the global batch (``batch_fold``),
+and the int8 layers' gradient rounding on the global trunk's rows, their
+wgrad scales over the data × seq ranks. Its model axis cuts the trunk as
 Megatron does (the reference's tensor-parallel specs, parallel/mesh.py:
 130-148): ``Attention`` holds H/T of the heads (its qkv rows, q / v biases
 and rel-pos table columns) and runs the attention kernels on them,
@@ -148,12 +151,23 @@ def batch_rows() -> Optional[Tuple[int, int, int]]:
 
 
 def batch_fold() -> Optional[Tuple[int, int, int]]:
-    """K8's batch fold (b, B, off) of this rank's rows (``fused_dropout``),
-    or None: the rows of ``batch_rows``."""
+    """The batch fold (b, B, off) of this rank's rows, which K8
+    (``fused_dropout``) and the attention kernels (``fused_qkv_attention``)
+    key their masks on, or None: the rows of ``batch_rows``."""
     if _BATCH_ROWS is None:
         return None
     start, stop, total = _BATCH_ROWS
     return stop - start, total, start
+
+
+def global_images(images: int) -> int:
+    """The images of the global batch that a forward on ``images`` rows of
+    this rank stands for: each fold's rows are the rank's share of ``total``
+    (``batch_shard``); the count itself without a data axis."""
+    if _BATCH_ROWS is None:
+        return images
+    start, stop, total = _BATCH_ROWS
+    return images // (stop - start) * total
 
 
 @contextlib.contextmanager
@@ -275,17 +289,44 @@ def _use_quant(quant: str, x: torch.Tensor, features: int,
     (``_use_quant`` of the reference's models/layers.py:51-63, which does not
     look at ``deterministic``: evaluation runs the int8 forward too). The
     reference decides on its whole [B·N, C] trunk, so under a ``shard``
-    (x [B, rows, C] of n tokens) the token count is B·n, the same on every
-    rank, not this rank's rows (and the layer takes the shard: its gradient
-    rounding draws the unsharded rows' bits, its wgrad scales span the
-    group). The reference's backend test has no
+    (x [B, rows, C] of n tokens) the token count counts n tokens an image,
+    and on a data axis the images of the global batch (``global_images``):
+    the same count on every rank, not this rank's rows (and the layer takes
+    the shard and the rank's first image: its gradient rounding draws the
+    unsharded rows' bits, its wgrad scales span the data × seq ranks). The
+    reference's backend test has no
     counterpart: ``ops.quant``'s wrappers take the kernel or its plain
     version by the tensor's device. Inside ``flash_attention.plain_only()``
     every dense layer is the plain one (the reference's :58-59)."""
     if quant != "int8" or in_plain_only():
         return False
-    m = x.numel() // x.shape[-1] if shard is None else x.shape[0] * shard.n
+    m = x.numel() // x.shape[-1]
+    if shard is not None or _BATCH_ROWS is not None:
+        m = global_images(x.shape[0]) * (x.shape[1] if shard is None else shard.n)
     return quant_ops.supported(m, x.shape[-1], features)
+
+
+def _int8(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], seed: torch.Tensor,
+          shard: Optional[seq.SeqShard], group: Optional[seq.SeqGroup]) -> torch.Tensor:
+    """``quant_ops.int8_dense`` on this rank's rows of the global trunk: its
+    seq ``shard``'s rows of its images, the first of which is image
+    ``batch_rows()[0]`` of the global batch on a data axis, the wgrad
+    scales over ``group`` (the data × seq ranks, ``trunk_group``)."""
+    image0 = 0 if _BATCH_ROWS is None else _BATCH_ROWS[0]
+    return quant_ops.int8_dense(x, w, bias, seed, shard, image0=image0, group=group)
+
+
+def trunk_group(mesh: Optional[meshlib.Mesh], seq_shard: Optional[seq.SeqShard],
+                quant: str) -> Optional[seq.SeqGroup]:
+    """The ranks whose rows make one process's trunk, over which an int8
+    layer takes its wgrad column scales: a mesh's data × seq ranks
+    (``Mesh.trunk_group``), or a seq group's; None in one process or
+    without the int8 trunk."""
+    if quant != "int8":
+        return None
+    if meshlib.active(mesh, meshlib.DATA_AXIS) or meshlib.active(mesh, meshlib.SEQ_AXIS):
+        return mesh.trunk_group
+    return None if seq_shard is None else seq_shard.group
 
 
 def _quant_seed(x: torch.Tensor, active: bool,
@@ -389,10 +430,12 @@ class _ScaledOutDense(_Params):
 
     def __init__(self, in_features: int, out_features: int, weight_init: I.Init,
                  quant: str = "none", seq_shard: Optional[seq.SeqShard] = None, *,
-                 row_parallel: Optional[meshlib.Mesh] = None, device=None, generator=None):
+                 row_parallel: Optional[meshlib.Mesh] = None,
+                 group: Optional[seq.SeqGroup] = None, device=None, generator=None):
         super().__init__((out_features, in_features), weight_init, (out_features,),
                          device=device, generator=generator)
         self.quant, self.seq_shard, self.row_parallel = quant, seq_shard, row_parallel
+        self.group = group  # the int8 trunk's ranks (``trunk_group``)
 
     def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -408,8 +451,7 @@ class _ScaledOutDense(_Params):
             w = w * scale[:, None]
             b = b * scale
         if _use_quant(self.quant, x, w.shape[0], self.seq_shard):
-            return quant_ops.int8_dense(x, w, b, _quant_seed(x, active, generator),
-                                        self.seq_shard)
+            return _int8(x, w, b, _quant_seed(x, active, generator), self.seq_shard, self.group)
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
 
@@ -459,10 +501,11 @@ class Mlp(nn.Module):
         self.tp = _model_axis(mesh, quant)
         if self.tp is not None:
             hidden_dim = _local(hidden_dim, self.tp, "the MLP's hidden width")
-        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, seq_shard, device=device,
-                                   generator=generator)
+        group = trunk_group(mesh, seq_shard, quant)
+        self.fc1 = _ScaledOutDense(in_dim, hidden_dim, tn, quant, seq_shard, group=group,
+                                   device=device, generator=generator)
         self.fc2 = _ScaledOutDense(hidden_dim, out_dim, _fix_init(tn, layer_id), quant,
-                                   seq_shard, row_parallel=self.tp, device=device,
+                                   seq_shard, row_parallel=self.tp, group=group, device=device,
                                    generator=generator)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
@@ -529,6 +572,11 @@ class Attention(nn.Module):
     forward's generator; otherwise ``naive_attention`` runs, the Gumbel
     variant's noise drawn from the forward's ``gumbel_generator``.
 
+    On a mesh's data axis the kernels key attention dropout's masks on this
+    rank's images of the global batch (``batch_fold``) and the plain route
+    draws the global batch's masks and keeps this rank's rows, so that the
+    ranks draw one process's masks.
+
     With ``seq_shard`` x holds this rank's query rows and a ``rel_pos_bias``
     those rows of the bias; the kernel route runs
     ``seq_sharded_qkv_attention`` (:352-366; attention dropout raises in
@@ -555,7 +603,6 @@ class Attention(nn.Module):
         device = resolve_device(device)
         head_dim = attn_head_dim or dim // num_heads
         self.tp = _model_axis(mesh, quant)
-        self.data_split = meshlib.active(mesh, meshlib.DATA_AXIS)
         if self.tp is not None:
             if variant != "softmax":
                 raise NotImplementedError(f"the {variant} attention under a model axis is not "
@@ -581,9 +628,10 @@ class Attention(nn.Module):
             _register_relpos_index(self, window_size, device)
         else:
             self.relative_position_bias_table = None
+        self.group = trunk_group(mesh, seq_shard, quant)
         self.proj = _ScaledOutDense(all_head_dim, dim, _fix_init(tn, layer_id), quant,
-                                    seq_shard, row_parallel=self.tp, device=device,
-                                    generator=generator)
+                                    seq_shard, row_parallel=self.tp, group=self.group,
+                                    device=device, generator=generator)
 
     @property
     def use_kernel(self) -> bool:
@@ -598,10 +646,6 @@ class Attention(nn.Module):
                 gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         active = _active(self, deterministic)
         b, n, _ = x.shape
-        if active and self.attn_drop > 0.0 and self.data_split and _BATCH_ROWS is not None:
-            raise NotImplementedError("attention dropout on a data axis is not ported: its "
-                                      "masks are keyed on the rank's local rows, not the "
-                                      "global batch's (ROADMAP.md item 21)")
         if self.tp is not None:
             if active and self.attn_drop > 0.0:
                 raise NotImplementedError("attention dropout in training under a model axis is "
@@ -612,8 +656,8 @@ class Attention(nn.Module):
         if self.q_bias is not None:
             qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
         if _use_quant(self.quant, x, self.qkv.weight.shape[0], self.seq_shard):
-            qkv = quant_ops.int8_dense(x, self.qkv.weight, qkv_bias,
-                                       _quant_seed(x, active, generator), self.seq_shard)
+            qkv = _int8(x, self.qkv.weight, qkv_bias, _quant_seed(x, active, generator),
+                        self.seq_shard, self.group)
         else:
             qkv = F.linear(x, self.qkv.weight.to(x.dtype),
                            None if qkv_bias is None else qkv_bias.to(x.dtype))
@@ -641,7 +685,8 @@ class Attention(nn.Module):
             if drop > 0.0:
                 seed = philox.draw_seed(_require_generator(generator, "attention dropout"),
                                         x.device)
-            out = fused_qkv_attention(qkv, bias, None, seed, self.scale, self.num_heads, drop)
+            out = fused_qkv_attention(qkv, bias, None, seed, self.scale, self.num_heads, drop,
+                                      fold=batch_fold())
         else:
             c = qkv.shape[-1] // 3
             kv = qkv[..., c:] if shard is None else seq.gather_tokens(qkv[..., c:], shard.group,
@@ -656,7 +701,7 @@ class Attention(nn.Module):
                                   generator=_attention_generator(generator),
                                   deterministic=not active,
                                   query_rows=None if shard is None else (shard.start, shard.n),
-                                  gumbel_generator=gumbel_generator,
+                                  batch_rows=_BATCH_ROWS, gumbel_generator=gumbel_generator,
                                   sinkformer_eps=self.sinkformer_eps,
                                   sinkformer_iters=self.sinkformer_iters,
                                   group=None if shard is None else shard.group)

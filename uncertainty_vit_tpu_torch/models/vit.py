@@ -47,8 +47,10 @@ copy of them in an MC-dropout batch, folded or split; K8 keys its masks on
 those rows). A model under a model axis is built at its shard's shapes;
 its weights come from the full state dict through
 ``parallel.mesh.shard_state_dict``. The SNGP head's precision update sums
-over the data axis. ``quant="int8"`` on a data axis raises: its column
-scales and rounding bits would need the global batch's rows.
+over the data axis. ``quant="int8"`` on a data axis is one process's int8
+trunk: each layer's gradient rounding draws the bits of the global batch's
+rows and its wgrad column scales span the data × seq ranks, and a layer is
+int8 where the global batch's trunk is (``layers._use_quant``).
 """
 
 from __future__ import annotations
@@ -220,10 +222,6 @@ class VisionTransformer(ViTBackbone):
                  mesh: Optional[meshlib.Mesh] = None):
         if cfg.head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type: {cfg.head_type}")
-        if meshlib.active(mesh, meshlib.DATA_AXIS) and cfg.quant == "int8":
-            raise NotImplementedError("--quant int8 on a data axis is not ported: its column "
-                                      "scales and rounding bits would need the global batch's "
-                                      "rows (ROADMAP.md item 21)")
         device = resolve_device(device)
         super().__init__(cfg, dtype, device=device, generator=generator, seq_group=seq_group,
                          mesh=mesh)

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
+from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
 from uncertainty_vit_tpu_torch.parallel import seq
 
 VARIANTS = ("softmax", "gumbel", "sinkformer")
@@ -139,6 +140,7 @@ def naive_attention(
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     query_rows: Optional[Tuple[int, int]] = None,
+    batch_rows: Optional[Tuple[int, int, int]] = None,
     gumbel_generator: Optional[torch.Generator] = None,
     sinkformer_eps: float = 1.0,
     sinkformer_iters: int = 3,
@@ -153,9 +155,13 @@ def naive_attention(
     ``gumbel_generator``. The dropout mask comes from ``generator``, never
     from the global one; with ``query_rows`` = (start, n), q holds rows
     [start, start + Nq) of n queries, and the mask is drawn for all n rows
-    and those kept, as the unsharded attention draws it; a sinkformer's
-    column steps then run over the rows of every rank of the seq ``group``
-    that holds the other rows (``sinkhorn_probs``)."""
+    and those kept, as the unsharded attention draws it; with
+    ``batch_rows`` = (start, stop, total) q's images are a data rank's rows
+    of a global batch of ``total`` (or folds of them,
+    ``parallel.mesh.rand_rows``), and the mask is drawn for the global batch
+    and those rows kept. A sinkformer's column steps run over the rows of
+    every rank of the seq ``group`` that holds the other rows
+    (``sinkhorn_probs``)."""
     scores = attention_scores(q, k, scale, bias)
     if variant == "softmax":
         probs = softmax_probs(scores)
@@ -172,11 +178,11 @@ def naive_attention(
                              "pass generator=")
         b, h, nq, nk = probs.shape
         if query_rows is None:
-            u = torch.rand(probs.shape, generator=generator, device=probs.device)
+            u = meshlib.rand_rows(probs.shape, generator, probs.device, batch_rows)
         else:
             start, n = query_rows
-            u = torch.rand((b, h, n, nk), generator=generator,
-                           device=probs.device)[:, :, start:start + nq]
+            u = meshlib.rand_rows((b, h, n, nk), generator, probs.device,
+                                  batch_rows)[:, :, start:start + nq]
         keep = u < 1.0 - dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     work = at_least_f32(v.dtype)

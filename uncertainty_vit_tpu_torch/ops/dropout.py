@@ -51,27 +51,6 @@ _ARGTYPES = [_P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P, ctypes.c_int, ctypes
              ctypes.c_float, _P]
 
 Window = Optional[Tuple[int, int]]
-Fold = Optional[Tuple[int, int, int]]
-
-
-def _check_fold(groups: int, fold: Fold) -> Tuple[int, int, int]:
-    """(b, B, off) of a batch fold, checked against x's ``groups``; the
-    identity fold without one."""
-    if fold is None:
-        return groups, groups, 0
-    b, total, off = fold
-    if not (b > 0 and groups % b == 0 and 0 <= off <= total - b):
-        raise ValueError(f"a fold of rows [{off}, {off + b}) of {total} does not take "
-                         f"{groups} groups")
-    return b, total, off
-
-
-def unsharded_groups(groups: int, fold: Fold) -> torch.Tensor:
-    """The unsharded group index of each of x's ``groups`` groups under the
-    batch fold ``fold`` = (b, B, off): (g // b)·B + off + g % b."""
-    b, total, off = _check_fold(groups, fold)
-    g = torch.arange(groups)
-    return (g // b) * total + off + g % b
 
 
 def _window_shape(x: torch.Tensor, window: Window) -> Tuple[int, int, int]:
@@ -89,24 +68,24 @@ def _window_shape(x: torch.Tensor, window: Window) -> Tuple[int, int, int]:
 
 
 def fused_dropout_plain(x: torch.Tensor, rate: float, seed: torch.Tensor,
-                        window: Window = None, fold: Fold = None) -> torch.Tensor:
+                        window: Window = None, fold: philox.Fold = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same mask, the product in
     f32, one rounding to x.dtype. Under ``window`` it draws the unsharded
     [G, n, C] bits and keeps the window's rows; under the batch ``fold``
-    the unsharded groups' bits (``unsharded_groups``)."""
+    the unsharded groups' bits (``philox.fold_images``)."""
     if window is None and fold is None:
         bits = philox.dropout_bits(seed, x.numel()).reshape(x.shape)
     else:
         g, r, c = _window_shape(x, window or (0, x.shape[1]))
         start, n = window or (0, r)
-        index = unsharded_groups(g, fold).to(x.device)
+        index = philox.fold_images(g, fold).to(x.device)
         total = int(index.max()) + 1
         bits = philox.dropout_bits(seed, total * n * c).reshape(total, n, c)
         bits = bits[index, start:start + r].reshape(x.shape)
     return (x.float() * philox.keep_scale(bits, rate)).to(x.dtype)
 
 
-def supported(x: torch.Tensor, window: Window = None, fold: Fold = None) -> bool:
+def supported(x: torch.Tensor, window: Window = None, fold: philox.Fold = None) -> bool:
     """What the Hopper kernel takes: a contiguous, non-empty bfloat16 or
     float32 CUDA tensor of any shape with fewer than 2⁴⁰ elements; under a
     ``window`` or a ``fold`` one of at least two dimensions whose
@@ -117,12 +96,12 @@ def supported(x: torch.Tensor, window: Window = None, fold: Fold = None) -> bool
     if window is None and fold is None:
         return True
     g, r, c = _window_shape(x, window or (0, x.shape[1]))
-    b, total, _ = _check_fold(g, fold)
+    b, total, _ = philox.check_fold(g, fold)
     return g // b * total * (window or (0, r))[1] * c < MAX_NUMEL
 
 
 def fused_dropout(x: torch.Tensor, rate: float, seed: torch.Tensor,
-                  window: Window = None, fold: Fold = None) -> torch.Tensor:
+                  window: Window = None, fold: philox.Fold = None) -> torch.Tensor:
     """Inverted dropout: keep probability 1 − rate, kept values scaled by
     1/(1 − rate). ``seed`` is a one-element int64 tensor on x's device
     (``philox.draw_seed``); rate 0 returns x itself. ``window`` = (start, n):
@@ -149,7 +128,7 @@ def fused_dropout(x: torch.Tensor, rate: float, seed: torch.Tensor,
         groups, r, c = _window_shape(x, window or (0, x.shape[1]))
         start, n = window or (0, r)
         slab, stride, base = r * c, n * c, start * c
-    fold = _check_fold(groups, fold)
+    fold = philox.check_fold(groups, fold)
     y = torch.empty_like(x)
     lib = _native.typed("dropout", _ARGTYPES)
     with torch.cuda.device(x.device):

@@ -50,7 +50,11 @@ Attention dropout (``dropout_rate > 0``) runs inside both kernels
 the keep mask is a pure function of the seed and of each entry's (image,
 head, row, column) (``ops/philox.py``), so K2 replays K1's mask whatever
 tiles either uses (K3 and K4's two kernels likewise), and the plain
-versions draw the very same mask. The
+versions draw the very same mask. On a data axis a rank's images are its
+rows of the global batch: ``fold=(b, B, off)`` keys image g's mask as the
+unsharded image (g // b)·B + off + g % b (its rows [off, off + b) of each
+fold of B images; ``philox.fold_images``), in the forward and in the
+backward's replay alike, so that a rank draws one process's masks. The
 reference's TPU kernels seed a hardware generator per program instead, so
 against it only distributions compare.
 """
@@ -135,12 +139,13 @@ def fused_qkv_attention_plain(
     bounded_scores: bool,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    image0: int = 0,
+    fold: philox.Fold = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: returns (out [B, N, C] in
-    qkv.dtype, lse [B, H, N] f32). ``image0`` is the index of qkv's first
-    image in the batch whose dropout mask is drawn, so that a large batch
-    can be computed in slices.
+    qkv.dtype, lse [B, H, N] f32). ``fold`` = (b, B, off) places qkv's
+    images in the batch whose dropout mask is drawn (see the module doc): a
+    data rank's batch fold, or (b, i + b, i) for a slice of b images from
+    image i, so that a large batch can be computed in slices.
 
     Mirrors ``_fwd_kernel``: q/v bias added in the input dtype; scores,
     softmax and the row sums in f32 from the (exactly upcast) inputs; with
@@ -149,7 +154,7 @@ def fused_qkv_attention_plain(
     are rounded to the input dtype before the product with v; the output
     scaled by 1/Σe."""
     return _attention_plain(*_split_qkv(qkv), bias, qv_bias, scale, num_heads, bounded_scores,
-                            seed, dropout_rate, image0)
+                            seed, dropout_rate, fold)
 
 
 def _split_qkv(qkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -170,7 +175,7 @@ def _qv_biased(q, v, qv_bias):
 
 
 def _attention_plain(q, k, v, bias, qv_bias, scale, num_heads, bounded_scores, seed,
-                     dropout_rate, image0):
+                     dropout_rate, fold):
     """The forward's plain version on q [B, Nq, C] and k, v [B, Nk, C]:
     (out [B, Nq, C], lse [B, H, Nq] f32). One function for K1, K3 (Nq = Nk)
     and K5."""
@@ -192,16 +197,16 @@ def _attention_plain(q, k, v, bias, qv_bias, scale, num_heads, bounded_scores, s
         r = 1.0 / e.sum(dim=-1, keepdim=True)
         lse = m - torch.log(r)
     if dropout_rate > 0.0:
-        e = e * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, image0)
+        e = e * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, fold)
     out = torch.matmul(e.to(dt).float(), v) * r
     return out.transpose(1, 2).reshape(b, nq, c).to(dt), lse[..., 0]
 
 
 def _keep_scale(seed: torch.Tensor, rate: float, b: int, num_heads: int, nq: int, nk: int,
-                image0: int = 0) -> torch.Tensor:
-    """[B, H, Nq, Nk] f32: 1/(1 − rate) where the attention entry of images
-    [image0, image0 + B) is kept, 0 where it is dropped."""
-    bits = philox.attention_bits(seed, b, num_heads, nq, nk, image0=image0)
+                fold: philox.Fold) -> torch.Tensor:
+    """[B, H, Nq, Nk] f32: 1/(1 − rate) where the attention entry of the
+    unsharded images of the batch ``fold`` is kept, 0 where it is dropped."""
+    bits = philox.attention_bits(seed, b, num_heads, nq, nk, fold=fold)
     return philox.keep_scale(bits, rate)
 
 
@@ -214,7 +219,7 @@ def reduce_qv_bias_grad(dqkv: torch.Tensor) -> torch.Tensor:
     return dqvb * torch.tensor([1.0, 0.0, 1.0], device=dqkv.device)[:, None]
 
 
-def _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, image0):
+def _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_rate, fold):
     """What every backward kernel recomputes from the saved lse (``_bwd_kernel``
     :291-303, ``_stream_recompute_tile`` :719-741), for whole rows of q
     [B, Nq, C] against k, v [B, Nk, C]: the f32 head slabs q, g [B, H, Nq, D]
@@ -231,7 +236,7 @@ def _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed, dropout_r
     if bias is not None:
         s = s + bias.float()
     p = torch.exp(s - lse.float()[..., None])
-    p_d = (p * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, image0)
+    p_d = (p * _keep_scale(seed, dropout_rate, b, num_heads, nq, nk, fold)
            if dropout_rate > 0.0 else p)
     t = torch.matmul(gh, v.transpose(-1, -2)) * p_d
     return q, k, gh, p, p_d, t
@@ -255,11 +260,11 @@ def fused_qkv_attention_bwd_plain(
     out: Optional[torch.Tensor] = None,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    image0: int = 0,
+    fold: philox.Fold = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Plain PyTorch version of the backward kernel: returns (dqkv [B, N, 3C]
     in qkv.dtype, dbias [H, N, N] f32 or None, dqvb [3, C] f32 or None).
-    ``image0`` as in the forward's plain version.
+    ``fold`` as in the forward's plain version.
 
     Mirrors ``_bwd_kernel`` (:291-326): p = exp(s − lse) from the saved
     row log-sum-exp (no max or row-sum recompute); p_d = p·mask, the
@@ -273,7 +278,7 @@ def fused_qkv_attention_bwd_plain(
     (exactly upcast) operands in f32."""
     dt = qkv.dtype
     q, k, gh, p, p_d, t = _recompute(*_split_qkv(qkv), bias, qv_bias, lse, g, scale, num_heads,
-                                     seed, dropout_rate, image0)
+                                     seed, dropout_rate, fold)
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
     c = t.sum(dim=-1) if out is None else rowsum_from_out(out, g, num_heads)
     ds = t - p * c[..., None]
@@ -298,7 +303,7 @@ def stream_bwd_dq_plain(
     out: Optional[torch.Tensor] = None,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    image0: int = 0,
+    fold: philox.Fold = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of the streaming backward's first kernel
     (``_stream_bwd_dq_kernel``, :744-790): returns (dq [B, N, C] in
@@ -309,9 +314,9 @@ def stream_bwd_dq_plain(
     forms it (``rowsum_from_out``), or without ``out`` as rowsum(t) over the
     keys, as the JAX kernel and ``fused_qkv_attention_bwd_plain`` form it;
     ds = t − p·c, dq = ds_c·k·scale with ds_c = ds rounded to the input
-    dtype. ``image0`` as in the forward's plain version."""
+    dtype. ``fold`` as in the forward's plain version."""
     return _bwd_dq_plain(*_split_qkv(qkv), bias, qv_bias, lse, out, g, scale, num_heads, seed,
-                         dropout_rate, image0)
+                         dropout_rate, fold)
 
 
 def rowsum_from_out(out: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -325,12 +330,12 @@ def rowsum_from_out(out: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch
 
 
 def _bwd_dq_plain(q, k, v, bias, qv_bias, lse, out, g, scale, num_heads, seed, dropout_rate,
-                  image0):
+                  fold):
     """The first backward kernel's plain version on q [B, Nq, C] and k, v
     [B, Nk, C]: (dq [B, Nq, C], dbias [H, Nq, Nk] or None, c [B, H, Nq]),
     c from ``out`` or, when it is None, recomputed as rowsum(t)."""
     _, kh, _, p, _, t = _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed,
-                                   dropout_rate, image0)
+                                   dropout_rate, fold)
     c = t.sum(dim=-1) if out is None else rowsum_from_out(out, g, num_heads)
     ds = t - p * c[..., None]
     dq = torch.matmul(ds.to(q.dtype).float(), kh) * scale
@@ -349,37 +354,38 @@ def stream_bwd_dkv_plain(
     *,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    image0: int = 0,
+    fold: philox.Fold = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the streaming backward's second kernel
     (``_stream_bwd_dkv_kernel``, :793-852): returns (dk, dv), each [B, N, C]
     in qkv.dtype, from the lse and the first kernel's row sums c. dk =
     ds_cᵀ·q·scale and dv = p_dᵀ·g (p_d and ds rounded to the input dtype)
     are summed over all query rows in f32 and cast once at the end
-    (:1032-1033)."""
+    (:1032-1033). ``fold`` as in the forward's plain version."""
     return _bwd_dkv_plain(*_split_qkv(qkv), bias, qv_bias, lse, c, g, scale, num_heads, seed,
-                          dropout_rate, image0)
+                          dropout_rate, fold)
 
 
 def _bwd_dkv_plain(q, k, v, bias, qv_bias, lse, c, g, scale, num_heads, seed, dropout_rate,
-                   image0):
+                   fold):
     """The second backward kernel's plain version on q [B, Nq, C] and k, v
     [B, Nk, C]: (dk, dv), each [B, Nk, C]."""
     dt = q.dtype
     qh, _, gh, p, p_d, t = _recompute(q, k, v, bias, qv_bias, lse, g, scale, num_heads, seed,
-                                      dropout_rate, image0)
+                                      dropout_rate, fold)
     ds = t - p * c.float()[..., None]
     dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), qh) * scale
     dv = torch.matmul(p_d.to(dt).float().transpose(-1, -2), gh)
     return _tokens(dk, dt), _tokens(dv, dt)
 
 
-def _stream_bwd_plain(qkv, bias, qv_bias, lse, out, g, scale, num_heads, seed, dropout_rate):
+def _stream_bwd_plain(qkv, bias, qv_bias, lse, out, g, scale, num_heads, seed, dropout_rate,
+                      fold=None):
     """The two plain halves put together as the streaming route returns them."""
     dq, dbias, c = stream_bwd_dq_plain(qkv, bias, qv_bias, lse, g, scale, num_heads, out=out,
-                                       seed=seed, dropout_rate=dropout_rate)
+                                       seed=seed, dropout_rate=dropout_rate, fold=fold)
     dk, dv = stream_bwd_dkv_plain(qkv, bias, qv_bias, lse, c, g, scale, num_heads, seed=seed,
-                                  dropout_rate=dropout_rate)
+                                  dropout_rate=dropout_rate, fold=fold)
     dqkv = torch.cat([dq, dk, dv], dim=-1)
     return dqkv, dbias, reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
 
@@ -399,7 +405,7 @@ def cross_fwd_plain(
     f32). The function K3 computes, with the query and key counts apart."""
     k, v = kv.split(q.shape[-1], dim=-1)
     return _attention_plain(q, k, v, bias, qv_bias, scale, num_heads, bounded_scores, None, 0.0,
-                            0)
+                            None)
 
 
 def cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads, *, out=None
@@ -409,7 +415,7 @@ def cross_bwd_dq_plain(q, kv, bias, qv_bias, lse, g, scale, num_heads, *, out=No
     [B, H, Nq] f32, formed from the forward's output ``out`` or, without
     it, recomputed as rowsum(t)), as ``stream_bwd_dq_plain``."""
     k, v = kv.split(q.shape[-1], dim=-1)
-    return _bwd_dq_plain(q, k, v, bias, qv_bias, lse, out, g, scale, num_heads, None, 0.0, 0)
+    return _bwd_dq_plain(q, k, v, bias, qv_bias, lse, out, g, scale, num_heads, None, 0.0, None)
 
 
 def cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads) -> torch.Tensor:
@@ -419,7 +425,7 @@ def cross_bwd_dkv_plain(q, kv, bias, qv_bias, lse, c, g, scale, num_heads) -> to
     and cast once (:1234, :1241-1242)."""
     k, v = kv.split(q.shape[-1], dim=-1)
     return torch.cat(_bwd_dkv_plain(q, k, v, bias, qv_bias, lse, c, g, scale, num_heads, None,
-                                    0.0, 0), dim=-1)
+                                    0.0, None), dim=-1)
 
 
 def cross_qv_bias_grad(dq: torch.Tensor, dkv: torch.Tensor) -> torch.Tensor:
@@ -436,12 +442,12 @@ _P, _I, _F, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ui
 # threshold and 1/(1 − rate), then the stream
 _ARGTYPES = {
     # q, k, v, bias, qv_bias, out, lse, seed; ldq, ldkv, ldo; batch, nq, nk, num_heads,
-    # head_dim, dtype; scale, bounded, threshold, inv_keep; stream
-    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 6 + [_F, _I, _U, _F, _P],
+    # head_dim, dtype, the batch fold (b, B, off); scale, bounded, threshold, inv_keep; stream
+    "flash_attention_stream_fwd": [_P] * 8 + [_L] * 3 + [_I] * 9 + [_F, _I, _U, _F, _P],
     # q, k, v, g, out, bias, qv_bias, lse, c, dq, dk, dv, dbias, seed; ldq, ldkv, ldg, ldo,
-    # lddq, lddkv; batch, nq, nk, ldb, num_heads, head_dim, dtype; scale, threshold, inv_keep;
-    # stream
-    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 6 + [_I] * 7 + [_F, _U, _F, _P],
+    # lddq, lddkv; batch, nq, nk, ldb, num_heads, head_dim, dtype, the batch fold (b, B,
+    # off); scale, threshold, inv_keep; stream
+    "flash_attention_stream_bwd": [_P] * 14 + [_L] * 6 + [_I] * 10 + [_F, _U, _F, _P],
 }
 _ptr = _native.ptr
 
@@ -460,6 +466,12 @@ def _dropout_args(seed: Optional[torch.Tensor], rate: float, device: torch.devic
         raise ValueError(f"the attention dropout rate must be below 1, got {rate}")
     philox.check_seed(seed, device)
     return seed.data_ptr(), philox.threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _fold_args(batch: int, fold: philox.Fold, rate: float) -> Tuple[int, int, int]:
+    """The kernels' batch fold (b, B, off) of a call on ``batch`` images:
+    ``fold`` where a mask is drawn, else the identity (batch, batch, 0)."""
+    return philox.check_fold(batch, fold if rate > 0.0 else None)
 
 
 def _check_aux(name: str, t: Optional[torch.Tensor], shape, device) -> None:
@@ -522,11 +534,12 @@ def _check_g(g: torch.Tensor, like: torch.Tensor, shape) -> None:
 
 
 def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_heads, bounded,
-                want_lse, dropout, what):
+                want_lse, dropout, fold, what):
     """The streaming forward's entry on q, k, v given as base pointers
     ``qkv_ptrs`` with row pitches ``pitches`` = (ldq, ldkv) and Nq query rows
     against Nk keys, for the tensor x they lie in: (out [B, Nq, C], lse
-    [B, H, Nq] or None). ``dropout`` is ``_dropout_args``'s triple."""
+    [B, H, Nq] or None). ``dropout`` is ``_dropout_args``'s triple, ``fold``
+    ``_fold_args``'s."""
     out = torch.empty((b, nq, c), dtype=x.dtype, device=x.device)
     lse = torch.empty((b, num_heads, nq), dtype=torch.float32, device=x.device) \
         if want_lse else None
@@ -535,15 +548,15 @@ def _stream_fwd(x, qkv_ptrs, pitches, b, nq, nk, c, bias, qv_bias, scale, num_he
     with torch.cuda.device(x.device):
         err = lib.uvit_flash_attention_stream_fwd(
             *qkv_ptrs, _ptr(bias), _ptr(qv_bias), out.data_ptr(), _ptr(lse), seed_ptr, *pitches,
-            c, b, nq, nk, num_heads, c // num_heads, _DTYPES[x.dtype], float(scale), int(bounded),
-            threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
+            c, b, nq, nk, num_heads, c // num_heads, _DTYPES[x.dtype], *fold, float(scale),
+            int(bounded), threshold, inv_keep, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, what)
     return out, lse
 
 
 def _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
-                dropout_rate, what):
+                dropout_rate, fold, what):
     """The streaming forward on packed qkv: (out, lse or None)."""
     b, n, c = _check_qkv(qkv, num_heads)
     _check_aux("bias", bias, (num_heads, n, n), qkv.device)
@@ -552,17 +565,18 @@ def _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, 
     # the packed layout as three base pointers and one row pitch
     q, slab = qkv.data_ptr(), c * qkv.element_size()
     return _stream_fwd(qkv, (q, q + slab, q + 2 * slab), (3 * c, 3 * c), b, n, n, c, bias,
-                       qv_bias, scale, num_heads, bounded_scores, want_lse, dropout, what)
+                       qv_bias, scale, num_heads, bounded_scores, want_lse, dropout,
+                       _fold_args(b, fold, dropout_rate), what)
 
 
 def _launch(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
-            seed=None, dropout_rate=0.0):
+            seed=None, dropout_rate=0.0, fold=None):
     """K1 (``route(N)`` "fused") or K3 ("stream"): the streaming forward's
     kernel on packed qkv, counted on ``fused_qkv_attention.launches`` or
     ``.stream_launches``."""
     fused = route(qkv.shape[1]) == "fused"
     got = _packed_fwd(qkv, bias, qv_bias, scale, num_heads, bounded_scores, want_lse, seed,
-                      dropout_rate, "attention forward")
+                      dropout_rate, fold, "attention forward")
     if fused:
         fused_qkv_attention.launches += 1
     else:
@@ -578,7 +592,7 @@ def _launch_cross(q, kv, bias, qv_bias, scale, num_heads, bounded_scores, want_l
     k = kv.data_ptr()
     out, lse = _stream_fwd(q, (q.data_ptr(), k, k + c * kv.element_size()), (c, 2 * c), b, nq,
                            nk, c, bias, qv_bias, scale, num_heads, bounded_scores, want_lse,
-                           (None, 0, 1.0), "cross attention forward")
+                           (None, 0, 1.0), (b, b, 0), "cross attention forward")
     cross_qkv_attention.launches += 1
     return out, lse
 
@@ -608,7 +622,7 @@ def _bias_buffers(bias, num_heads, nq, nk, want_dbias, device):
 
 
 def _stream_bwd(x, ptrs, pitches, b, nq, nk, c, bias, qv_bias, lse, scale, num_heads,
-                want_dbias, dropout, what):
+                want_dbias, dropout, fold, what):
     """The streaming backward's two kernels on q, k, v, g, the forward's
     output o and dq, dk, dv given as base pointers ``ptrs`` with row pitches
     ``pitches`` = (ldq, ldkv, ldg, ldo, lddq, lddkv), Nq query rows against
@@ -624,7 +638,7 @@ def _stream_bwd(x, ptrs, pitches, b, nq, nk, c, bias, qv_bias, lse, scale, num_h
         err = lib.uvit_flash_attention_stream_bwd(
             q, k, v, g, o, _ptr(bias), _ptr(qv_bias), lse.data_ptr(), rowsum.data_ptr(), dq, dk,
             dv, _ptr(dbias), seed_ptr, *pitches, b, nq, nk, ldb, num_heads, c // num_heads,
-            _DTYPES[x.dtype], float(scale), threshold, inv_keep,
+            _DTYPES[x.dtype], *fold, float(scale), threshold, inv_keep,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _native.raise_on(lib, err, what)
@@ -633,7 +647,7 @@ def _stream_bwd(x, ptrs, pitches, b, nq, nk, c, bias, qv_bias, lse, scale, num_h
 
 
 def _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
-                dropout_rate, what):
+                dropout_rate, fold, what):
     """The streaming backward's two kernels on packed qkv and dqkv: (dqkv,
     dbias, dqvb)."""
     b, n, c = _check_bwd(qkv, bias, qv_bias, lse, g, num_heads)
@@ -644,7 +658,8 @@ def _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, s
     q, dq = qkv.data_ptr(), dqkv.data_ptr()
     dbias = _stream_bwd(qkv, (q, q + slab, q + 2 * slab, g.data_ptr(), out.data_ptr(), dq,
                               dq + slab, dq + 2 * slab), (3 * c, 3 * c, c, c, 3 * c, 3 * c), b, n,
-                        n, c, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout, what)
+                        n, c, bias, qv_bias, lse, scale, num_heads, want_dbias, dropout,
+                        _fold_args(b, fold, dropout_rate), what)
     dqvb = reduce_qv_bias_grad(dqkv) if qv_bias is not None else None
     return dqkv, dbias, dqvb
 
@@ -664,20 +679,20 @@ def _launch_cross_bwd(q, kv, bias, qv_bias, lse, out, g, scale, num_heads, want_
     dbias = _stream_bwd(q, (q.data_ptr(), k, k + slab, g.data_ptr(), out.data_ptr(),
                             dq.data_ptr(), dk, dk + slab), (c, 2 * c, c, c, c, 2 * c), b, nq, nk,
                         c, bias, qv_bias, lse, scale, num_heads, want_dbias, (None, 0, 1.0),
-                        "cross attention backward")
+                        (b, b, 0), "cross attention backward")
     cross_qkv_attention_bwd.launches += 1
     dqvb = cross_qv_bias_grad(dq, dkv) if qv_bias is not None else None
     return dq, dkv, dbias, dqvb
 
 
 def _launch_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias,
-                seed=None, dropout_rate=0.0):
+                seed=None, dropout_rate=0.0, fold=None):
     """K2 (``route(N)`` "fused") or K4 ("stream"): the streaming backward's
     two kernels on packed qkv and dqkv, counted on
     ``fused_qkv_attention_bwd.launches`` or ``.stream_launches``."""
     fused = route(qkv.shape[1]) == "fused"
     got = _packed_bwd(qkv, bias, qv_bias, lse, out, g, scale, num_heads, want_dbias, seed,
-                      dropout_rate, "attention backward")
+                      dropout_rate, fold, "attention backward")
     if fused:
         fused_qkv_attention_bwd.launches += 1
     else:
@@ -698,11 +713,12 @@ def fused_qkv_attention_bwd(
     want_dbias: bool = True,
     seed: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
+    fold: philox.Fold = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Backward of the fused attention from the forward's row log-sum-exp.
 
-    qkv, bias, qv_bias, seed and dropout_rate as given to the forward (the
-    dropout mask is replayed from the seed); lse [B, H, N] f32 from it; g
+    qkv, bias, qv_bias, seed, dropout_rate and fold as given to the forward
+    (the dropout mask is replayed from the seed); lse [B, H, N] f32 from it; g
     [B, N, C] the output's cotangent, in qkv.dtype; out [B, N, C] the
     forward's output, from which both routes form the row sums of the
     softmax vjp (``rowsum_from_out``): required, the call raises without it.
@@ -718,14 +734,14 @@ def fused_qkv_attention_bwd(
             philox.check_seed(seed, qkv.device)
         if stream:
             dqkv, dbias, dqvb = _stream_bwd_plain(qkv, bias, qv_bias, lse, out, g, scale,
-                                                  num_heads, seed, dropout_rate)
+                                                  num_heads, seed, dropout_rate, fold)
         else:
             dqkv, dbias, dqvb = fused_qkv_attention_bwd_plain(
                 qkv, bias, qv_bias, lse, g, scale, num_heads, out=out, seed=seed,
-                dropout_rate=dropout_rate)
+                dropout_rate=dropout_rate, fold=fold)
         return dqkv, dbias if want_dbias else None, dqvb
     return _launch_bwd(qkv, bias, qv_bias, lse, out, g.contiguous(), scale, num_heads,
-                       want_dbias, seed, dropout_rate)
+                       want_dbias, seed, dropout_rate, fold)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
@@ -737,11 +753,12 @@ class _FusedQKVAttention(torch.autograd.Function):
     saves the same tensor, so it costs no memory there."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, qv_bias, scale, num_heads, bounded, seed, dropout_rate):
+    def forward(ctx, qkv, bias, qv_bias, scale, num_heads, bounded, seed, dropout_rate, fold):
         out, lse = _forward(qkv, bias, qv_bias, scale, num_heads, bounded, True, seed,
-                            dropout_rate)
+                            dropout_rate, fold)
         ctx.save_for_backward(qkv, bias, qv_bias, lse, seed, out)
         ctx.scale, ctx.num_heads, ctx.dropout_rate = scale, num_heads, dropout_rate
+        ctx.fold = fold
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -751,11 +768,13 @@ class _FusedQKVAttention(torch.autograd.Function):
         dqkv, dbias, dqvb = fused_qkv_attention_bwd(
             qkv, bias, qv_bias, lse, g, ctx.scale, ctx.num_heads, out=out,
             want_dbias=ctx.needs_input_grad[1], seed=seed, dropout_rate=ctx.dropout_rate,
+            fold=ctx.fold,
         )
-        return dqkv, dbias, dqvb, None, None, None, None, None
+        return dqkv, dbias, dqvb, None, None, None, None, None, None
 
 
-def _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate):
+def _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate,
+             fold=None):
     """The plain version for a CPU tensor (the streaming forward computes
     the same function, so it is ``stream_fwd_plain`` too); for a CUDA tensor
     the kernel ``route(N)`` names."""
@@ -764,8 +783,9 @@ def _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, drop
             philox.check_seed(seed, qkv.device)
         return fused_qkv_attention_plain(qkv, bias, qv_bias, scale, num_heads,
                                          bounded_scores=bounded, seed=seed,
-                                         dropout_rate=dropout_rate)
-    return _launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate)
+                                         dropout_rate=dropout_rate, fold=fold)
+    return _launch(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed, dropout_rate,
+                   fold)
 
 
 # K3 computes the function K1 computes: one plain version serves both.
@@ -783,6 +803,7 @@ def fused_qkv_attention(
     *,
     bounded_scores: Optional[bool] = None,
     want_lse: bool = False,
+    fold: philox.Fold = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Fused multi-head attention over packed qkv activations.
 
@@ -794,20 +815,25 @@ def fused_qkv_attention(
     that rate inside the kernel and the kept ones scaled by 1/(1 − rate).
     Returns out [B, N, C] in qkv.dtype, and with ``want_lse`` also the row
     log-sum-exp [B, H, N] f32 of the undropped softmax. ``bounded_scores``
-    defaults to the module's BOUNDED_SCORES. Under grad mode with an input
-    that requires grad, the output carries the K2 or K4 backward."""
+    defaults to the module's BOUNDED_SCORES. ``fold`` = (b, B, off): qkv's
+    images are a data rank's batch fold, and the mask is keyed on their
+    unsharded images (see the module doc). Under grad mode with an input
+    that requires grad, the output carries the K2 or K4 backward, which
+    replays the same mask."""
     bounded = BOUNDED_SCORES if bounded_scores is None else bool(bounded_scores)
     dropout_rate = float(dropout_rate)
     if dropout_rate <= 0.0:
-        seed, dropout_rate = None, 0.0
+        seed, dropout_rate, fold = None, 0.0, None
+    if fold is not None:
+        fold = philox.check_fold(qkv.shape[0], fold)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (qkv, bias, qv_bias)):
         _refuse_in_plain_only("fused_qkv_attention")
         out, lse = _FusedQKVAttention.apply(qkv, bias, qv_bias, scale, num_heads, bounded,
-                                            seed, dropout_rate)
+                                            seed, dropout_rate, fold)
     else:
         out, lse = _forward(qkv, bias, qv_bias, scale, num_heads, bounded, want_lse, seed,
-                            dropout_rate)
+                            dropout_rate, fold)
     return (out, lse) if want_lse else out
 
 

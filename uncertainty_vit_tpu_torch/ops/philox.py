@@ -9,14 +9,19 @@ attention backward replays the forward's mask whatever tiles either uses.
 - dropout (``ops/dropout.py``): counter (i >> 2 low, i >> 2 high, 0,
   STREAM_DROPOUT), word i & 3, for the flat element index i;
 - attention (``ops/flash_attention.py``): counter (col >> 1, row >> 1,
-  image · H + head, STREAM_ATTENTION), word 2 · (row & 1) + (col & 1);
+  image · H + head, STREAM_ATTENTION), word 2 · (row & 1) + (col & 1); on
+  a data axis a rank's image g is the unsharded image of its batch fold
+  (b, B, off): (g // b)·B + off + g % b, its rows [off, off + b) of each
+  fold of B images (``fold_images``);
 - stochastic rounding (``ops/quant.py``): entry (row, col) of an [M, N]
   matrix takes counter (col >> 2, row, 0, STREAM_QUANT), word col & 3, and
   its uniform is (bits >> 8) · 2⁻²⁴ in f32, in [0, 1): the top 24 bits, as
   ``_sr_uniform`` of uncertainty_vit_tpu/ops/quant.py:94-99 makes it. Under
-  a row window (rows, start, n) the matrix holds rows [start, start + rows)
-  of every image of a sequence of n tokens, and its row b·rows + r counts as
-  the unsharded row b·n + start + r.
+  a row window (rows, start, n, image0) the matrix holds rows [start,
+  start + rows) of a sequence of n tokens of each of the images image0,
+  image0 + 1, ... of the unsharded batch (a seq shard's rows of a data
+  rank's images), and its row b·rows + r counts as the unsharded row
+  (image0 + b)·n + start + r.
 
 ``keep = bits >= min(int(rate · 2³²), 2³² − 1)`` and kept values are scaled
 by 1/(1 − rate), the thresholding of the reference's TPU kernels
@@ -105,17 +110,45 @@ def dropout_bits(seed: torch.Tensor, numel: int, offset: int = 0) -> torch.Tenso
     return flat[start:start + numel]
 
 
+# (b, B, off): a data rank's rows [off, off + b) of each fold of B images of
+# the unsharded batch; None is the identity
+Fold = Optional[Tuple[int, int, int]]
+
+
+def check_fold(batch: int, fold: Fold) -> Tuple[int, int, int]:
+    """(b, B, off) of a batch fold of ``batch`` images, checked; the
+    identity fold (batch, batch, 0) without one."""
+    if fold is None:
+        return batch, batch, 0
+    b, total, off = fold
+    if not (b > 0 and batch % b == 0 and 0 <= off <= total - b):
+        raise ValueError(f"a fold of rows [{off}, {off + b}) of {total} does not take a batch "
+                         f"of {batch}")
+    return b, total, off
+
+
+def fold_images(batch: int, fold: Fold, device=None) -> torch.Tensor:
+    """int64 [batch]: the unsharded image of each of a call's images under
+    the batch ``fold`` (b, B, off): (g // b)·B + off + g % b."""
+    b, total, off = check_fold(batch, fold)
+    g = torch.arange(batch, dtype=torch.int64, device=device)
+    return (g // b) * total + off + g % b
+
+
 def attention_bits(seed: torch.Tensor, batch: int, num_heads: int, rows: int, cols: int,
-                   *, image0: int = 0, row0: int = 0, col0: int = 0) -> torch.Tensor:
-    """The bits of the attention mask entries (image0 + b, h, row0 + r,
-    col0 + c) for b < batch, h < num_heads, r < rows, c < cols, as int64
-    [batch, num_heads, rows, cols] on the seed's device. The head count
-    enters the position (image · num_heads + head)."""
+                   *, row0: int = 0, col0: int = 0, fold: Fold = None) -> torch.Tensor:
+    """The bits of the attention mask entries (image b, h, row0 + r, col0 + c)
+    for b < batch, h < num_heads, r < rows, c < cols, as int64 [batch,
+    num_heads, rows, cols] on the seed's device, image b being the unsharded
+    image that the batch ``fold`` gives it (``fold_images``; b itself
+    without a fold, and (batch, i + batch, i) for the images from i). The
+    head count enters the position (image · num_heads + head)."""
     dev = seed.device
     rb0, rb1 = row0 >> 1, (row0 + rows + 1) >> 1
     cb0, cb1 = col0 >> 1, (col0 + cols + 1) >> 1
-    bh = torch.arange(image0 * num_heads, (image0 + batch) * num_heads, dtype=torch.int64,
-                      device=dev)[:, None, None]
+    images = fold_images(batch, fold, dev)
+    bh = (images[:, None] * num_heads
+          + torch.arange(num_heads, dtype=torch.int64, device=dev)).reshape(-1)[:, None, None]
     rb = torch.arange(rb0, rb1, dtype=torch.int64, device=dev)[None, :, None]
     cb = torch.arange(cb0, cb1, dtype=torch.int64, device=dev)[None, None, :]
     stream = torch.full((), STREAM_ATTENTION, dtype=torch.int64, device=dev)
@@ -128,20 +161,27 @@ def attention_bits(seed: torch.Tensor, batch: int, num_heads: int, rows: int, co
     return full[:, r:r + rows, c:c + cols].reshape(batch, num_heads, rows, cols)
 
 
-# (rows, start, n): a matrix of [B·rows, C] holding rows [start, start + rows)
-# of each of B sequences of n tokens (a seq shard's trunk)
-RowWindow = Optional[Tuple[int, int, int]]
+# (rows, start, n, image0): a matrix of [B·rows, C] holding rows [start,
+# start + rows) of each of B sequences of n tokens (a seq shard's trunk),
+# the images image0 .. image0 + B − 1 of the unsharded batch (a data rank's
+# shard of it)
+RowWindow = Optional[Tuple[int, int, int, int]]
 
 
 def check_window(window: RowWindow, m: int) -> None:
-    """Raises unless ``window`` = (rows, start, n) can lay out a matrix of m
-    rows: m a multiple of rows, rows [start, start + rows) inside [0, n)."""
+    """Raises unless ``window`` = (rows, start, n, image0) can lay out a
+    matrix of m rows: m a multiple of rows, rows [start, start + rows) inside
+    [0, n), image0 ≥ 0, every unsharded row below 2³¹."""
     if window is None:
         return
-    rows, start, n = window
-    if rows < 1 or m % rows != 0 or not 0 <= start <= n - rows:
-        raise ValueError(f"a row window (rows, start, n) = {tuple(window)} does not lay out "
-                         f"{m} rows")
+    if len(window) != 4:
+        raise ValueError(f"a row window has four fields (rows, start, n, image0), got "
+                         f"{tuple(window)}")
+    rows, start, n, image0 = window
+    if (rows < 1 or m % rows != 0 or not 0 <= start <= n - rows or image0 < 0
+            or (image0 + m // rows) * n > 2**31 - 1):
+        raise ValueError(f"a row window (rows, start, n, image0) = {tuple(window)} does not "
+                         f"lay out {m} rows")
 
 
 def window_rows(first: int, count: int, window: RowWindow, device) -> torch.Tensor:
@@ -150,8 +190,8 @@ def window_rows(first: int, count: int, window: RowWindow, device) -> torch.Tens
     row = torch.arange(first, first + count, dtype=torch.int64, device=device)
     if window is None:
         return row
-    rows, start, n = window
-    return row // rows * n + start + row % rows
+    rows, start, n, image0 = window
+    return (image0 + row // rows) * n + start + row % rows
 
 
 def quant_bits(seed: torch.Tensor, rows: int, cols: int, *, row0: int = 0, col0: int = 0,

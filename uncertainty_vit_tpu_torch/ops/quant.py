@@ -30,14 +30,17 @@ kernels seed a hardware generator per program: against the reference only
 distributions compare.
 
 Under sequence parallelism (``int8_dense(..., shard=...)``) each rank holds
-rows [start, start + rows) of every image's n tokens, and its layer equals
-one process's over the whole trunk: the stochastic rounding of dgrad and
-wgrad draws the bits of the unsharded row (a row window (rows, start, n),
-``philox.RowWindow``: local row b·rows + r is row b·n + start + r), and
-wgrad takes its column scales as a max over the group
-(``parallel.seq.all_reduce_max``), so that the ranks' int32 sums add up to
-one process's exactly and the gradient sum of the train step adds their
-dequantized shares. Forward and dgrad scale per row and need nothing more.
+rows [start, start + rows) of every image's n tokens, and on a data axis
+(``image0``, ``group``) its images are images image0, image0 + 1, ... of
+the global batch; either way its layer equals one process's over the whole
+trunk: the stochastic rounding of dgrad and wgrad draws the bits of the
+unsharded row (a row window (rows, start, n, image0), ``philox.RowWindow``:
+local row b·rows + r is row (image0 + b)·n + start + r), and wgrad takes
+its column scales as a max over the ranks that hold the trunk's rows (the
+data × seq group, ``parallel.seq.all_reduce_max``), so that the ranks'
+int32 sums add up to one process's exactly and the gradient sum of the
+train step adds their dequantized shares. Forward and dgrad scale per row
+and need nothing more.
 The reference's kernels see the global trunk (no shard_map; its interpret
 mode computes the layer over all rows).
 
@@ -78,11 +81,11 @@ _MAX_M_INT32_ACC = 131_072
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, wq, ws, bias, seed, y, xq, row scale; m, k, n, x dtype, y dtype, sr,
-# window rows, start, n; stream
-_QMM_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
+# window rows, start, n, image0; stream
+_QMM_ARGTYPES = [_P] * 8 + [_I] * 10 + [_P]
 # x, g, inv_x, inv_g, seed, xq, gq, acc; m, m_pad, k, n, dtype, window rows,
-# start, n; stream
-_WGRAD_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+# start, n, image0; stream
+_WGRAD_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 # Token rows are padded with zeros to a multiple of this in K7's int8 copies.
 _WGRAD_M_ALIGN = 128
 
@@ -218,10 +221,11 @@ def _check_supported(m: int, k: int, n: int) -> None:
                          f"{_MAX_M_INT32_ACC}; got M={m}, K={k}, N={n}")
 
 
-def _window_args(window: RowWindow, m: int) -> Tuple[int, int, int]:
-    """The kernels' (rows, start, n): (m, 0, m) draws every row's own bits."""
+def _window_args(window: RowWindow, m: int) -> Tuple[int, int, int, int]:
+    """The kernels' (rows, start, n, image0): (m, 0, m, 0) draws every
+    row's own bits."""
     philox.check_window(window, m)
-    return (m, 0, m) if window is None else tuple(window)
+    return (m, 0, m, 0) if window is None else tuple(window)
 
 
 def _launch_qmm(x, wq, ws, bias, seed, sr, out_dtype, window: RowWindow = None) -> torch.Tensor:
@@ -272,8 +276,9 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bias: Optional[torc
     x [M, K] bf16 or f32; wq int8 [K, N] and ws f32 [1, N] from
     ``quantize_cols``; bias f32 [N] or None; ``sr`` rounds x stochastically
     with the uniforms of ``seed`` (a one-element int64 tensor on x's device),
-    else to nearest; ``window`` (rows, start, n): x holds a seq shard's rows,
-    which draw the unsharded rows' uniforms."""
+    else to nearest; ``window`` (rows, start, n, image0): x holds a seq
+    shard's rows of a data rank's images, which draw the unsharded rows'
+    uniforms."""
     if x.device.type == "cpu":
         if sr:
             philox.check_seed(seed, x.device)
@@ -343,15 +348,13 @@ class _Int8Dense(torch.autograd.Function):
     of :359-421. Saves x and w, not their int8 copies."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, seed, shard):
+    def forward(ctx, x, w, bias, seed, window, group):
         x2d = x.reshape(-1, x.shape[-1])
         wq, ws = quantize_cols(w.t())
         y = qmm(x2d, wq, ws, bias, seed, False, x.dtype)
         ctx.save_for_backward(x2d, w, seed)
         ctx.shape, ctx.has_bias = x.shape, bias is not None
-        ctx.window = ctx.group = None
-        if shard is not None:  # x [B, rows, K]: rows [start, stop) of n tokens
-            ctx.window, ctx.group = (x.shape[1], shard.start, shard.n), shard.group
+        ctx.window, ctx.group = window, group
         return y.reshape(x.shape[:-1] + (w.shape[0],))
 
     @staticmethod
@@ -369,11 +372,12 @@ class _Int8Dense(torch.autograd.Function):
             dw = wgrad(x2d, g2d, seed + 1, ctx.window, ctx.group).t().to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = g2d.sum(dim=0, dtype=torch.float32)  # summed in f32, no f32 copy of g
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-               seed: torch.Tensor, shard: Optional[seq.SeqShard] = None) -> torch.Tensor:
+               seed: torch.Tensor, shard: Optional[seq.SeqShard] = None, *, image0: int = 0,
+               group: Optional[seq.SeqGroup] = None) -> torch.Tensor:
     """y = x · wᵀ (+ bias) with the forward, dgrad and wgrad matmuls in int8.
 
     x: [..., K] bf16 or f32; w: [N, K] f32 master weights in torch's
@@ -384,12 +388,23 @@ def int8_dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     it, wgrad seed + 1). y has x's dtype. Gradients flow to x, w (in w's
     dtype) and bias (the f32 sum of the upstream gradient); seed gets none.
     Under a seq ``shard`` x is [B, rows, K], this rank's rows of the shard's
-    n tokens: the gradients' rounding draws the unsharded rows' bits and
-    wgrad's column scales span the group, so that the ranks' summed weight
-    gradients are one process's (see the module doc). Refused inside
+    n tokens; on a data axis x [B, rows, K] holds images image0 .. image0 +
+    B − 1 of the global batch (``image0``), and ``group`` (by default the
+    shard's) is every rank that holds rows of the global trunk (data × seq):
+    the gradients' rounding draws the unsharded rows' bits and wgrad's
+    column scales span ``group``, so that the ranks' summed weight gradients
+    are one process's (see the module doc). Refused inside
     ``flash_attention.plain_only()`` (no double backward)."""
     _refuse_in_plain_only("int8_dense")
     if shard is not None and (x.dim() != 3 or not 0 < x.shape[1] == shard.stop - shard.start):
         raise ValueError(f"under a seq shard of rows [{shard.start}, {shard.stop}) x must be "
                          f"[B, {shard.stop - shard.start}, K], got {tuple(x.shape)}")
-    return _Int8Dense.apply(x, w, bias, seed, shard)
+    window = None
+    if shard is not None:  # x [B, rows, K]: rows [start, stop) of n tokens
+        window = (x.shape[1], shard.start, shard.n, image0)
+        group = shard.group if group is None else group
+    elif image0 or group is not None:  # x [B, n, K]: whole images of the global batch
+        if x.dim() != 3:
+            raise ValueError(f"on a data axis x must be [B, N, K], got {tuple(x.shape)}")
+        window = (x.shape[1], 0, x.shape[1], image0)
+    return _Int8Dense.apply(x, w, bias, seed, window, group)

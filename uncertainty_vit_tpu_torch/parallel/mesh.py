@@ -126,6 +126,16 @@ class Mesh:
         return seq.SeqGroup(self.index(axis), self.size(axis), self.group(axis))
 
     @property
+    def trunk_group(self) -> seq.SeqGroup:
+        """The data × seq ranks of this rank's model index, whose rows make
+        the trunk of the global batch (the int8 layers' wgrad scales span
+        them): every rank of a mesh whose model axis has one rank."""
+        if self.size(MODEL_AXIS) > 1:
+            raise NotImplementedError("the data x seq group under a model axis is not built "
+                                      "(ROADMAP.md item 21)")
+        return self.world_group
+
+    @property
     def seq_group(self) -> Optional[seq.SeqGroup]:
         """The seq axis, where it splits the tokens; None for one rank."""
         return self.axis_group(SEQ_AXIS) if self.size(SEQ_AXIS) > 1 else None
@@ -353,20 +363,23 @@ class _GlobalMax(torch.autograd.Function):
     def forward(ctx, x, groups):
         m = x.amax()
         for g in groups:
-            m = _all_reduce(m, g, dist.ReduceOp.MAX)
+            m = seq.all_reduce_max(m, g)
         hit = (x == m)
         ties = hit.sum().to(x.dtype)
         for g in groups:
-            ties = _all_reduce(ties, g)
+            ties = _all_reduce(ties, g.group)
         ctx.groups = groups
         ctx.save_for_backward(hit, ties)
         return m
 
     @staticmethod
     def backward(ctx, grad):
+        # the ranks' cotangents summed by an autograd Function: the AdaHessian
+        # pass differentiates this backward, and the second backward must sum
+        # over the ranks in turn
         hit, ties = ctx.saved_tensors
         for g in ctx.groups:
-            grad = _all_reduce(grad, g)
+            grad = seq.shared_sum(grad, g)
         return hit.to(grad.dtype) * (grad / ties), None
 
 
@@ -375,8 +388,11 @@ def global_max(x: torch.Tensor, mesh: Optional[Mesh], axes: Iterable[str] = (DAT
     """The largest element of x over the ranks of ``axes`` (an all-reduce
     MAX). Every rank scales rows of its own by it, so the backward sums the
     ranks' cotangents and hands them to the elements that hold the maximum,
-    split evenly over the ties of all ranks, as ``jnp.max`` splits them."""
-    groups = tuple(mesh.group(a) for a in axes if active(mesh, a)) if mesh is not None else ()
+    split evenly over the ties of all ranks, as ``jnp.max`` splits them;
+    that backward is twice differentiable (the AdaHessian pass of the dist
+    loss)."""
+    groups = tuple(mesh.axis_group(a) for a in axes if active(mesh, a)) if mesh is not None \
+        else ()
     if not groups:
         return torch.amax(x)
     return _GlobalMax.apply(x, groups)

@@ -33,9 +33,10 @@ seeds on every rank: mixup draws for the global batch and exchanges the
 partners over the data axis, the masking draws for the global batch, the
 loss and the accuracy are the global batch's, and the optimizer sums the
 gradient shares (``parallel.mesh.grad_reducer``) before it reads them.
-The AdaHessian pass runs under a seq group: each rank's share of D is
-summed over the group as its gradient is (``optim`` takes the sum); under
-a mesh's data or model axis it raises.
+The AdaHessian pass runs on a mesh's data and seq axes: z is the same on
+every rank (replicated parameters, a generator of one seed), and each
+rank's share of D is summed over the groups as its gradient is (``optim``
+takes the sums); under a model axis it raises.
 """
 
 from __future__ import annotations
@@ -175,18 +176,19 @@ def hessian_context(replay: Optional[StepReplay]):
     return contextlib.nullcontext() if replay is None else replay.recording()
 
 
-def refuse_hessian_when_sharded(model: nn.Module, use_hessian: bool, seq_ok: bool = False
+def refuse_hessian_when_sharded(model: nn.Module, use_hessian: bool, mesh_ok: bool = False
                                 ) -> None:
-    """The AdaHessian pass raises on a sharded model; with ``seq_ok`` (the
-    finetune engine) a seq group runs it, and a mesh's data or model axis
-    raises (their losses' collectives are not twice differentiable)."""
+    """The AdaHessian pass raises on a sharded model; with ``mesh_ok`` (the
+    finetune and dist engines) a mesh's data and seq axes run it (every
+    collective of their losses is twice differentiable) and a model axis
+    raises."""
     if not use_hessian:
         return
     mesh = getattr(model, "mesh", None)
-    sharded = (meshlib.active(mesh, meshlib.DATA_AXIS) or meshlib.active(mesh, meshlib.MODEL_AXIS)
-               if seq_ok else getattr(model, "seq_group", None) is not None or mesh is not None)
+    sharded = (meshlib.active(mesh, meshlib.MODEL_AXIS) if mesh_ok
+               else getattr(model, "seq_group", None) is not None or mesh is not None)
     if sharded:
-        what = "a mesh's data or model axis" if seq_ok else "a seq group or a mesh"
+        what = "a mesh's model axis" if mesh_ok else "a seq group or a mesh"
         raise NotImplementedError(f"the AdaHessian pass under {what} is not ported "
                                   "(ROADMAP.md item 21)")
 
@@ -249,12 +251,12 @@ def make_finetune_train_step(
     A gumbel or dual_sto attention draws from ``gumbel_generator``. With
     ``use_hessian`` the step runs the AdaHessian pass (see the module's
     docstring), its z and attention-dropout masks from
-    ``hessian_generator`` (required); under a seq group (the same z on every
-    rank), not under a mesh's data or model axis.
+    ``hessian_generator`` (required); on a mesh's data and seq axes too (the
+    same z on every rank), not under its model axis.
 
     A model built on a mesh takes this rank's rows of the global batch
     (see the module's docstring)."""
-    refuse_hessian_when_sharded(model, use_hessian, seq_ok=True)
+    refuse_hessian_when_sharded(model, use_hessian, mesh_ok=True)
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")

@@ -18,7 +18,9 @@ A model built on a ``parallel.mesh.Mesh`` (``model.mesh``: data and model
 axes) takes this rank's rows of the global triplet batch: mixup as the
 finetune step's, the cross-entropy over the global batch, the Wasserstein
 maxima over every data rank (an all-reduce MAX, its gradient to the ranks
-that hold it), and the gradient shares summed by the optimizer.
+that hold it, twice differentiable), and the gradient shares summed by the
+optimizer; the AdaHessian pass runs there too, each rank's share of D
+summed as its gradient is.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def make_dist_finetune_train_step(
     if hp.update_freq != optimizer.update_freq:
         raise ValueError(f"update_freq {hp.update_freq} is not the optimizer's "
                          f"{optimizer.update_freq}")
-    refuse_hessian_when_sharded(model, use_hessian)
+    refuse_hessian_when_sharded(model, use_hessian, mesh_ok=True)
     wd_schedule = wd_schedule or constant_schedule(optimizer.weight_decay)
     mesh = getattr(model, "mesh", None)
 

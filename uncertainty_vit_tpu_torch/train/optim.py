@@ -813,9 +813,12 @@ class ChainOptimizer:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         norm = _reduced_norm(self, grads)
         if hessian is not None and self._reduce is not None:
-            # each seq rank's share of D, summed as its gradient is (z is
-            # the same on every rank)
+            # each rank's share of D, summed as its gradient is (z is the
+            # same on every rank): over seq every mini-step, over data with
+            # the gradient, at the end of the window under accumulation
             self._reduce.sum_tokens(hessian)
+            if self.update_freq == 1:
+                self._reduce.sum_data(hessian)
         if self.update_freq > 1:
             self._acc = self._accumulate(self._acc, grads)
             if hessian is not None:
@@ -828,6 +831,8 @@ class ChainOptimizer:
             summed = _window_sum(self, grads)
             if summed is not None:
                 norm = summed
+                if hessian is not None:
+                    self._reduce.sum_data(hessian)
         updates = [g.to(at_least_f32(g.dtype)) for g in grads]
         if self.clip_grad is not None and self.clip_grad > 0:
             # optax.clip_by_global_norm: g · max/‖g‖ where ‖g‖ ≥ max
@@ -973,11 +978,12 @@ def hutchinson_hessian_diag(loss_fn: Callable[[], torch.Tensor], params: Tensors
     the model's buffers (the SNGP statistics a forward updates). A parameter
     the loss does not read gets D = 0, as its JAX gradient is constant.
 
-    Under a seq group (the same z on every rank: replicated parameters, a
-    generator of one seed) each rank's double backward runs through the
-    collectives' own differentiable backwards (``parallel.seq``) and gives
-    its share of D for the token parameters and the whole of it for the
-    others; the optimizer sums the shares as it sums the gradient."""
+    On a mesh's data and seq axes (the same z on every rank: replicated
+    parameters, a generator of one seed) each rank's double backward runs
+    through the collectives' own differentiable backwards (``parallel.seq``,
+    ``parallel.mesh``) and gives its share of D: over seq for the token
+    parameters (the whole of it for the others), over data for all; the
+    optimizer sums the shares as it sums the gradient."""
     with plain_only(), torch.enable_grad():
         loss = loss_fn()
     grads = torch.autograd.grad(loss, params, create_graph=True, allow_unused=True)
