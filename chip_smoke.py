@@ -515,6 +515,28 @@ kernels from the sources in this checkout, then:
            and through the fold (64, 128, 64), and K6's stochastic qkv
            dgrad at M = 31,520 without a window and through the image
            offset 160, each pair in turns.
+  phase 30 the attention kernels at every head width they are built for
+           beyond 64 and 80 (D = 32, 48, 96, 112, 128; PHASE30_WIDTHS):
+           (a) phases 1, 3, 7, 8 and 14 at each D, their cases, checks and
+           tolerances in bf16 and f32, with H so that C = H D is a preset's
+           width where one is (24 x 32, 16 x 48, 8 x 96 = 768; 8 x 112 =
+           896; 6 x 128 = 768 for K1 / K2, 8 x 128 = 1024 for K3-K5), each
+           kernel timed beside its bound and the library call at ViT-B/16
+           224's and ViT-L/16 512's shapes; (b) full-width models through
+           models.registry.create_model's num_heads override
+           (PHASE30_MODELS): beit_base_patch16_224 with 6 heads of 128
+           (evaluate() over 4 x 128, K1 12 a forward; 3 finetune steps at
+           160, K1 / K2 12 a step), beit_large_patch16_512 with 8 heads of
+           128 (evaluate() over 2 x 16, K3 24 a forward; 3 steps at 8, K3 /
+           K4 24 a step), and ViT-B/16 224 with 24 heads of 32, 16 of 48 and
+           8 of 96 (one eval batch of 128, one step at 160); each model's
+           logits against the same weights on the plain attention
+           (LOGIT_REL_BOUND), its evaluate() metrics against a CPU
+           recomputation, and one step against the plain attention's
+           (LOSS_REL_BOUND, GRAD_NORM_REL_BOUND; at 512 at batch 2); (c) a
+           width the kernels are not built for: 16 heads of 72 (where the
+           reference takes its kernels) raise NotImplementedError on the
+           card, 8 heads of 72 (where it runs plain attention) run plain.
 
 Prints the card's name and power limit first, a JSON line describing each
 kernel second to last, and {"ok": true, "device": {...}} last. Any failed
@@ -1664,11 +1686,10 @@ def plain_bwd_sliced(torch, FA, qkv, bias, qvb, lse, out, g, scale, h, seed, rat
     return torch.cat(dq), torch.cat(dk), torch.cat(dv), dbias, torch.cat(cs)
 
 
-def phase7(torch, FA, dev, d=64):
-    """K3 at head width d (ViT-L's 64 unless given), 16 heads: the case grid,
-    then ViT-L/16 512's shapes."""
+def phase7(torch, FA, dev, d=64, h=16):
+    """K3 at head width d with h heads (ViT-L's 16 x 64 unless given): the
+    case grid, then ViT-L/16 512's shapes."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    h = 16
     c, scale = h * d, d**-0.5
     seed = torch.tensor([0x0123456789ABCDEF], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
@@ -1812,11 +1833,10 @@ def held_bwd(torch, kernel, tag, got, ref, tol):
     return abs_err, ", ".join(msg)
 
 
-def phase8(torch, FA, dev, d=64):
-    """K4 at head width d (ViT-L's 64 unless given), 16 heads: the case grid
-    and its checks, then ViT-L/16 512's train shape."""
+def phase8(torch, FA, dev, d=64, h=16):
+    """K4 at head width d with h heads (ViT-L's 16 x 64 unless given): the
+    case grid and its checks, then ViT-L/16 512's train shape."""
     gen = torch.Generator(device=dev).manual_seed(8)
-    h = 16
     c, scale = h * d, d**-0.5
     seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64, device=dev)
     worst, n_cases = 0.0, 0
@@ -3193,12 +3213,11 @@ def reset_cross_counts(FA) -> None:
     FA.cross_qkv_attention.launches = FA.cross_qkv_attention_bwd.launches = 0
 
 
-def phase14(torch, FA, dev, d=64):
-    """K5 at head width d (ViT-L's 64 unless given), 16 heads: the case
-    grid, its checks and the shards against K3/K4; at d = 64 the shapes
+def phase14(torch, FA, dev, d=64, h=16):
+    """K5 at head width d with h heads (ViT-L's 16 x 64 unless given): the
+    case grid, its checks and the shards against K3/K4; at d = 64 the shapes
     phase 15 gives K5; then one shard of ViT-L/16 512's train shape."""
     gen = torch.Generator(device=dev).manual_seed(14)
-    h = 16
     c, scale = h * d, d**-0.5
     worst, n_cases = 0.0, 0
     for dtype, nq, nk in itertools.product((torch.bfloat16, torch.float32), CROSS_NQ, CROSS_NK):
@@ -9720,6 +9739,243 @@ def phase29(torch, FA, dev):
                    "k6_offset_ms": k6_best["offset"], "k6_flat_ms": k6_best["flat"]}
 
 
+# Phase 30's head widths beyond 64 and 80, each (D, H of K1 / K2 at ViT-B/16
+# 224's shapes, H of K3-K5 at ViT-L/16 512's): C = H D is a preset's width
+# where one is (768 ViT-B's, 1024 ViT-L's; 8 x 112 = 896 is none).
+PHASE30_WIDTHS = ((32, 24, 24), (48, 16, 16), (96, 8, 8), (112, 8, 8), (128, 6, 8))
+# Its full-width models through create_model's num_heads override: (registry
+# name, heads, (eval batches, eval batch), (train steps, train batch)); the
+# first two are the ViT-B and ViT-L presets with heads of 128.
+PHASE30_MODELS = (("beit_base_patch16_224", 6, (4, 128), (3, 160)),
+                  ("beit_large_patch16_512", 8, (2, 16), (3, 8)),
+                  ("beit_base_patch16_224", 24, (1, 128), (1, 160)),
+                  ("beit_base_patch16_224", 16, (1, 128), (1, 160)),
+                  ("beit_base_patch16_224", 8, (1, 128), (1, 160)))
+
+
+def phase30(torch, FA, dev):
+    """The head widths slice: (a) K1-K5 at each D of PHASE30_WIDTHS through
+    phases 1, 3, 7, 8 and 14; (b) the PHASE30_MODELS. Returns ({kernel:
+    {"d<D>": its entry}}, the launches of each path)."""
+    by_width = {key: {} for key in ("K1", "K2", "K3", "K4", "K5")}
+    for d, h_b, h_l in PHASE30_WIDTHS:
+        for key, title, fn, h in (
+                ("K1", "phase 1's cases; B=128 and the train step's B=160", phase1, h_b),
+                ("K2", "phase 3's cases; the train step's B=160", phase3, h_b),
+                ("K3", "phase 7's cases; ViT-L/16 512's shapes", phase7, h_l),
+                ("K4", "phase 8's cases; ViT-L/16 512's train shape", phase8, h_l),
+                ("K5", "phase 14's cases and shards; one shard at B=8, N=1025", phase14, h_l)):
+            print(f"  (a) {key} at head width {d}, {h} heads: {title}", flush=True)
+            by_width[key][f"d{d}"] = {"heads": h, **fn(torch, FA, dev, d=d, h=h)}
+    paths = {}
+    for name, heads, evals, steps in PHASE30_MODELS:
+        paths.update(phase30_model(torch, FA, dev, name, heads, evals, steps))
+    phase30_unbuilt(torch, dev)
+    return by_width, paths
+
+
+def phase30_unbuilt(torch, dev):
+    """(c) Head width 72, which the kernels are not built for: a module of
+    16 heads (the reference's head group 16 takes its kernels) refuses the
+    card, one of 8 (no head group does: the reference runs plain attention)
+    runs the plain attention, finite."""
+    from uncertainty_vit_tpu_torch.models.layers import Attention
+
+    for heads, refused in ((16, True), (8, False)):
+        attn = Attention(heads * 72, heads, device=dev)
+        x = torch.randn(2, 197, heads * 72, device=dev)
+        try:
+            with torch.no_grad():
+                out = attn(x)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        check(raised == refused and attn.unbuilt_kernel == refused,
+              f"{heads} heads of 72: refused {raised}, wanted {refused}")
+        if not refused:
+            check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+                  f"{heads} heads of 72: the plain attention's output is not finite")
+        print(f"  (c) {heads} heads of 72: {'refused' if raised else 'plain attention'}",
+              flush=True)
+
+
+def phase30_model(torch, FA, dev, name, heads, evals, steps):
+    """(b) One registry model with ``heads`` heads at its preset's width
+    (``create_model(name, num_heads=heads)``; shared rel-pos bias, layer
+    scale 0.1, seeded weights, the rel-pos table at std 0.2, bf16 on f32
+    parameters, the bounded softmax as cli/finetune.py runs): evaluate() over
+    ``evals`` = (batches, batch) of uint8 images (K1 or K3 a block a forward
+    and nothing else; batch 0's logits against the plain attention's, the
+    metrics against a CPU recomputation), ``steps`` = (steps, batch) finetune
+    steps (phase 4's step: batch mixup, AdamW with layer decay 0.65 at 224,
+    phase 9's 0.75 at 512, drop-path 0.1, the state halfway up the warm-up so
+    that every step moves every parameter; K1 / K2 or K3 / K4 a block a step)
+    and one step against the same step on the plain attention (at 512 at
+    batch 2). Returns the launches of each path, named
+    "<b|l><res>_<H>x<D>_"."""
+    from uncertainty_vit_tpu_torch.core.init import trunc_normal
+    from uncertainty_vit_tpu_torch.evals import metrics as M
+    from uncertainty_vit_tpu_torch.evals.classification import evaluate, make_eval_forward
+    from uncertainty_vit_tpu_torch.models.registry import create_model
+    from uncertainty_vit_tpu_torch.ops import dropout as DO
+    from uncertainty_vit_tpu_torch.ops import quant as TQ
+    from uncertainty_vit_tpu_torch.ops.augment import (
+        IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, normalize, to_float,
+    )
+    from uncertainty_vit_tpu_torch.train.engine_finetune import (
+        FinetuneHParams, init_finetune_state, make_finetune_train_step,
+    )
+    from uncertainty_vit_tpu_torch.train.optim import make_optimizer
+    from uncertainty_vit_tpu_torch.train.schedules import cosine_schedule
+
+    FA.BOUNDED_SCORES = True
+    kw = dict(num_heads=heads, use_shared_rel_pos_bias=True, init_values=0.1)
+    gen = torch.Generator(device=dev).manual_seed(30 + heads)
+    model, cfg = create_model(name, dtype=torch.bfloat16, device=dev, generator=gen, **kw)
+    d, n, res = cfg.head_dim, cfg.num_patches + 1, cfg.img_size
+    route = FA.route(n)
+    fwd_key, bwd_key = ("K1", "K2") if route == "fused" else ("K3", "K4")
+    tag = f"{name.split('_')[1][0]}{res}_{heads}x{d}"
+    check(cfg.num_heads == heads and d * heads == cfg.embed_dim and d in FA.KERNEL_HEAD_DIMS,
+          f"{name} with num_heads={heads} is not {heads} heads of a built width: {cfg}")
+    check(all(blk.attn.use_kernel for blk in model.blocks),
+          f"a block of {tag} does not take the attention kernels")
+    trunc_normal(0.2, 2.0)(model.rel_pos_bias.relative_position_bias_table, gen)
+    trunc_normal(0.5, 2.0)(model.head.weight, gen)  # the logits stand apart: stable ranks
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    print(f"  (b) {name} with {heads} heads of {d} ({tag}): "
+          f"{sum(p.numel() for p in model.parameters())} params, depth {cfg.depth}, width "
+          f"{cfg.embed_dim}, N={n} on the {route} route ({fwd_key} / {bwd_key})", flush=True)
+
+    def counts():
+        return kernel_counts(FA, TQ, DO)
+
+    none = {k: 0 for k in counts()}
+    # --- evaluate()
+    nb, bs = evals
+    images = [torch.randint(0, 256, (bs, res, res, 3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(nb)]
+    labels = [torch.randint(0, cfg.num_classes, (bs,), generator=gen, device=dev)
+              for _ in range(nb)]
+
+    def batches():
+        for u8, lbl in zip(images, labels):
+            yield normalize(to_float(u8), IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD), lbl
+
+    reset_kernel_counts(FA, TQ, DO)
+    metrics = evaluate(model, batches())
+    torch.cuda.synchronize()
+    launches = {f"{tag}_evaluate": counts()}
+    want = dict(none, **{fwd_key: cfg.depth * nb})
+    print(f"  evaluate() over {nb} x {bs}: launches {launches[f'{tag}_evaluate']}; "
+          f"{json.dumps(metrics)}", flush=True)
+    check(launches[f"{tag}_evaluate"] == want,
+          f"{tag} evaluate() launched {launches[f'{tag}_evaluate']}, expected {want}")
+    fwd = make_eval_forward(model)
+    logits = torch.cat([fwd(x) for x, _ in batches()])
+    check(tuple(logits.shape) == (bs * nb, cfg.num_classes) and logits.dtype == torch.float32
+          and torch.isfinite(logits).all().item(), f"{tag} logits are not finite f32")
+    on_cpu = {k: float(v) for k, v in
+              M.classification_metrics(logits.cpu(), torch.cat(labels).cpu()).items()}
+    on_cpu["loss"] = on_cpu["nll"]
+    check(sorted(metrics) == sorted(on_cpu), f"evaluate()'s metric keys {sorted(metrics)}")
+    for k, v in on_cpu.items():
+        check(abs(metrics[k] - v) <= METRIC_ATOL + METRIC_RTOL * abs(v),
+              f"{tag} evaluate()'s {k} {metrics[k]} against the CPU's {v} from the same logits")
+    x0 = next(batches())[0]
+    with attention_on_plain(torch, FA):
+        ref = fwd(x0)
+    diff, scale = (logits[:bs] - ref).abs().max().item(), ref.abs().max().item()
+    print(f"  logits {fwd_key} vs plain attention: max|diff|={diff:.3e}, max|logit|={scale:.3e}, "
+          f"ratio {diff / scale:.3e} (bound {LOGIT_REL_BOUND}); evaluate()'s metrics equal the "
+          f"CPU's from the same logits", flush=True)
+    check(diff <= LOGIT_REL_BOUND * scale, f"{tag} logits disagree with the plain attention")
+    eval_ms = [cuda_ms(lambda: fwd(x0), 3) for _ in range(2)] if nb > 1 else []
+    del logits, ref, images, model
+
+    # --- the finetune train step
+    def build():
+        m, c = create_model(name, dtype=torch.bfloat16, device=dev, drop_path_rate=0.1,
+                            generator=torch.Generator(device=dev).manual_seed(0), **kw)
+        m.load_state_dict(init)
+        opt = make_optimizer(m, weight_decay=0.05, layer_decay=0.65 if res == 224 else 0.75,
+                             depth=c.depth)
+        state = init_finetune_state(m, opt)
+        state.step = 250
+        step = make_finetune_train_step(m, opt, FinetuneHParams(num_classes=c.num_classes),
+                                        cosine_schedule(4e-3, 1e-6, 10_000, warmup_steps=500))
+        return m, state, step
+
+    def gens(seed):
+        return large_512_gens(torch, dev, seed)
+
+    n_steps, bt = steps
+    x = torch.randn(bt, res, res, 3, generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (bt,), generator=gen, device=dev)
+    tmodel, state, step = build()
+    reset_kernel_counts(FA, TQ, DO)
+    ms = [step(state, x, y, *gens(11 + i)) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    launches[f"{tag}_train_step"] = counts()
+    want = dict(none, **{fwd_key: cfg.depth * n_steps, bwd_key: cfg.depth * n_steps})
+    print(f"  {n_steps} steps at batch {bt}: launches {launches[f'{tag}_train_step']}; "
+          + "; ".join(f"loss {float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f}"
+                      for m in ms), flush=True)
+    check(launches[f"{tag}_train_step"] == want,
+          f"{tag}'s {n_steps} steps launched {launches[f'{tag}_train_step']}, expected {want}")
+    check(all(math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+              for m in ms), f"{tag}: non-finite loss or grad norm")
+    moved = 0
+    for k, v in tmodel.state_dict().items():
+        check(torch.isfinite(v).all().item(), f"{tag}: non-finite parameter {k}")
+        moved += int(not torch.equal(v, init[k]))
+    check(moved == len(init), f"{tag}: only {moved} of {len(init)} parameter tensors changed")
+    if n_steps > 1:
+        g = gens(20)
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        train_ms = [cuda_ms(lambda: step(state, x, y, *g), 3) for _ in range(2)]
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                 "--format=csv,noheader"], capture_output=True, text=True,
+                                timeout=60).stdout.strip()
+        print(f"  information only: eval forward at batch {bs} "
+              f"{[bs * 1000 / t for t in eval_ms]} img/s ({eval_ms} ms); train step at batch "
+              f"{bt} {[bt * 1000 / t for t in train_ms]} img/s ({train_ms} ms); while timing "
+              f"the steps {retries} allocator retries, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; after them "
+              f"SM clock, power {clocks}", flush=True)
+    del tmodel, state, step
+
+    # one step from the same weights and seeds on the kernels and on the plain
+    # attention (at 512 at batch 2: the plain path saves [B, H, N, N] tensors)
+    bh = bt if res == 224 else 2
+    _, st_k, step_k = build()
+    reset_kernel_counts(FA, TQ, DO)
+    m_k = step_k(st_k, x[:bh], y[:bh], *gens(30))
+    torch.cuda.synchronize()
+    launches[f"{tag}_train_step_held"] = counts()
+    want = dict(none, **{fwd_key: cfg.depth, bwd_key: cfg.depth})
+    check(launches[f"{tag}_train_step_held"] == want,
+          f"{tag}'s held step launched {launches[f'{tag}_train_step_held']}")
+    del st_k, step_k
+    _, st_p, step_p = build()
+    with attention_on_plain(torch, FA):
+        m_p = step_p(st_p, x[:bh], y[:bh], *gens(30))
+    torch.cuda.synchronize()
+    check(counts() == launches[f"{tag}_train_step_held"],
+          "the plain-attention reference step launched a kernel")
+    del st_p, step_p
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    print(f"  one step at batch {bh}, {fwd_key}/{bwd_key} vs their plain versions: loss "
+          f"{loss_k:.6f} / {loss_p:.6f}, grad norm {gn_k:.6f} / {gn_p:.6f}", flush=True)
+    check(abs(loss_k - loss_p) <= LOSS_REL_BOUND * abs(loss_p),
+          f"{tag}'s step loss disagrees with the plain versions'")
+    check(abs(gn_k - gn_p) <= GRAD_NORM_REL_BOUND * abs(gn_p),
+          f"{tag}'s step grad norm disagrees with the plain versions'")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -9832,6 +10088,10 @@ def main() -> int:
                                 "adahessian on (2, 2, 1), against one process with the global "
                                 "batch; the kernels' masks and bits through the fold and the "
                                 "image offset", phase29, torch, FA, dev)
+    widths, width_paths = run(30, "the attention kernels at head widths 32, 48, 96, 112 and 128: "
+                                  "K1-K5 at each, ViT-B/16 224 with 6 heads of 128 and ViT-L/16 "
+                                  "512 with 8, ViT-B/16 224 with 24 heads of 32, 16 of 48 and 8 "
+                                  "of 96", phase30, torch, FA, dev)
 
     # one count per run of a path, each read after its own reset: evaluate()
     # over 4 batches, 3 train steps, 1 train step with attention dropout, and
@@ -10002,6 +10262,13 @@ def main() -> int:
                       dropout_flat_ms=fold_times["k1_flat_ms"])
     kernels[5].update(dgrad_offset_ms=fold_times["k6_offset_ms"],
                       dgrad_flat_ms=fold_times["k6_flat_ms"])
+    # and phase 30's ("<b|l><res>_<H>x<D>_": the models with other head widths),
+    # and each attention kernel's numbers at those widths ("by_head_dim")
+    for kern, key in ((kernels[0], "K1"), (kernels[1], "K2"), (kernels[2], "K3"),
+                      (kernels[3], "K4"), (kernels[7], "K5")):
+        kern["launches_by_path"].update({p: n[key] for p, n in width_paths.items() if n[key]})
+        kern["launches"] = sum(kern["launches_by_path"].values())
+        kern["by_head_dim"] = widths[key]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was launched no time on the main paths")
     print(f"chip_smoke: every phase held; {time.perf_counter() - t_start:.1f} s in all, the "

@@ -5,8 +5,10 @@
 // nothing is launched from this file. The bf16 kernels' Hopper pieces (TMA,
 // mbarriers, wgmma) are in hopper_common.cuh.
 //
-// The head width D is a template parameter of every kernel: 64 (ViT-B,
-// ViT-L) and 80 (ViT-H) are built, and the entry points pick one at launch.
+// The head width D is a template parameter of every kernel: every multiple
+// of 16 from 32 to 128 is built (kHeadDimMin .. kHeadDimMax: ViT-B and ViT-L
+// are 64, ViT-H 80), and the entry points pick one at launch
+// (with_head_dim).
 
 #pragma once
 
@@ -15,11 +17,38 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// f32 shared-memory row of one head: an odd number of words (65, 81), so
+// The head widths the kernels are built for: kHeadDimMin, + kHeadDimStep, ...,
+// kHeadDimMax (ops/flash_attention.py:KERNEL_HEAD_DIMS states the same rule,
+// and a CPU test reads it here). A wgmma step is 16 deep, so D % 16 == 0.
+constexpr int kHeadDimMin = 32, kHeadDimMax = 128, kHeadDimStep = 16;
+
+// fn(std::integral_constant<int, D>{}) for the built width D == head_dim;
+// cudaErrorInvalidValue for any other width.
+template <int D = kHeadDimMin, typename Fn>
+cudaError_t with_head_dim(int head_dim, Fn&& fn) {
+  if constexpr (D > kHeadDimMax) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (head_dim == D) return fn(std::integral_constant<int, D>{});
+    return with_head_dim<D + kHeadDimStep>(head_dim, fn);
+  }
+}
+
+// The bytes of shared memory a block may take on an H100 (227 KiB), and an
+// SM's (228 KiB, of which the runtime reserves 1 KiB a block).
+constexpr size_t kSmemBlockMax = 232448, kSmemSm = 233472, kSmemReserved = 1024;
+// How many blocks of `bytes` of dynamic shared memory an SM holds (at most 2).
+constexpr int blocks_per_sm(size_t bytes) {
+  return 2 * (bytes + kSmemReserved) <= kSmemSm ? 2 : 1;
+}
+
+// f32 shared-memory row of one head: an odd number of words (D + 1), so
 // column reads are conflict-free.
 template <int D>
 constexpr int kLdF = D + 1;
@@ -131,12 +160,14 @@ __device__ __forceinline__ void cp_async_bias_tile(float* dst, int ld, const flo
 }
 
 // Per-warp f32 tiles of the FMA kernels: a warp owns kRowsF rows; its score
-// and accumulator tiles have rows of kLdS<D> words (64 keys or D columns).
+// and accumulator tiles have rows of kLdS<D> words (64 keys or D columns,
+// the wider of the two, + 4).
 constexpr int kRowsF = 16;
 template <int D>
-constexpr int kLdS = D + 4;
+constexpr int kLdS = (D > 64 ? D : 64) + 4;
 // The output columns a lane owns in a D-wide f32 tile: lane + 32 i for i <
-// kColsF<D> (at D = 80 the third only for lanes below 16).
+// kColsF<D> (where 32 does not divide D, the last only for lanes below
+// 16).
 template <int D>
 constexpr int kColsF = (D + 31) / 32;
 template <int D>

@@ -85,14 +85,22 @@
 //     made by the caller (see PERF.md).
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row tiles; kernel
 //     1 still forms c by a pass over the keys and does not read o.
-// Head widths (a template parameter D, picked at launch): 64 and 80, the
-// tiles of HeadTile<D> (hopper_common.cuh). At 80, s and dp are five k16
-// steps, one a 16-column box in the 32-byte swizzle, and dq += ds k, dv +=
-// p_d^T g and dk += ds^T q are wgmma m64n80 (k, g and q read MN-major across
-// the five boxes); the accumulators grow from 32 to 40 f32 a thread, and
-// kernel 2 spills a few words at 168 registers (PERF.md). At ViT-H's train
-// shape (B=32, N=197, H=16, D=80, bf16, a bias) the work is 10 B H N^2 D =
-// 15.9 GFLOP, ~0.016 ms, against 118 MB, ~0.035 ms: the bytes bound it.
+// Head widths (a template parameter D, picked at launch): every multiple of
+// 16 from 32 to 128 (attention_common.cuh:with_head_dim), the tiles of
+// HeadTile<D> (hopper_common.cuh). s and dp are D / 16 k16 steps, and dq +=
+// ds k, dv += p_d^T g and dk += ds^T q are wgmma m64nD (k, g and q read
+// MN-major across the tile's boxes); an accumulator is D / 2 f32 a thread.
+// Kernel 1 holds one (dq); kernel 2 two (dk, dv), which with s, dp and their
+// packed copies outgrow a thread's 168 registers (three warpgroups an SM)
+// above D = 80 (at 80 it spills a few words; PERF.md). So above 80 kernel 2
+// splits (DkvPlan): a block owns 64 keys, and its two consumer warpgroups
+// take the same keys, one forming s and summing dv (two products a tile),
+// the other forming s and dp and summing dk (three), where one warpgroup of
+// a block of 128 keys ran four. The ring is three stages deep where
+// the shared memory takes it and two where it does not (kernel 1 at D >= 96;
+// BwdSmem). At D = 80 and ViT-H's train shape (B=32, N=197, H=16, bf16, a
+// bias) the work is 10 B H N^2 D = 15.9 GFLOP, ~0.016 ms, against 118 MB,
+// ~0.035 ms: the bytes bound it.
 // The mask replay is philox::fragment_bits, query-major in kernel 1 and
 // key-major in kernel 2, in separate instantiations (kDrop), each keyed on
 // the image the forward keyed (the call's BatchFold, mapped once a block).
@@ -104,9 +112,27 @@
 namespace {
 
 constexpr int kTile = 64;              // rows of a streamed tile
-constexpr int kWarpsF = 4;             // f32
-constexpr int kThreadsF = kWarpsF * 32;
-constexpr int kOwnF = kWarpsF * kRowsF;
+// f32: warps a block of head width D (a warp owns kRowsF rows): four, or two
+// where four warps' tiles exceed a block's shared memory (D >= 112)
+template <int D>
+constexpr size_t smem_dq_f32(int warps) {
+  const int own = warps * kRowsF;
+  return (size_t(warps) * 3 * kRowsF * kLdS<D> + size_t(2 * own + 2 * kTile) * kLdF<D>) *
+         sizeof(float);
+}
+template <int D>
+constexpr size_t smem_dkv_f32(int warps) {
+  const int own = warps * kRowsF;
+  return (size_t(warps) * 4 * kRowsF * kLdS<D> + size_t(2 * own + 2 * kTile) * kLdF<D> +
+          2 * kTile) * sizeof(float);
+}
+template <int D>
+constexpr int kWarpsF =
+    smem_dkv_f32<D>(4) <= kSmemBlockMax && smem_dq_f32<D>(4) <= kSmemBlockMax ? 4 : 2;
+template <int D>
+constexpr int kThreadsF = kWarpsF<D> * 32;
+template <int D>
+constexpr int kOwnF = kWarpsF<D> * kRowsF;
 
 struct BwdArgs {
   const void *q, *k, *v, *g, *o;  // each at column 0 of head 0 in row 0 of image 0
@@ -171,32 +197,55 @@ __device__ __forceinline__ void store_rows_f32(float* dst, size_t ld, const floa
 // registers)
 // ---------------------------------------------------------------------------
 
-constexpr int kWg = 2;                // consumer warpgroups: a block owns 64 * kWg rows
-constexpr int kStages = 3;            // ring depth
+constexpr int kWg = 2;                // consumer warpgroups
 constexpr int kThreadsW = (kWg + 1) * 128;
 // kernel 1's bias tile: [64 kWg query rows][64 keys], pitch 72 words (float2
-// reads in fragment order conflict-free); kernel 2's: [64 query rows][64 kWg
-// keys], pitch 64 kWg + 4 words, read transposed (a column per fragment row:
-// the 2t * pitch + g offsets of a warp hit 32 distinct banks)
+// reads in fragment order conflict-free)
 constexpr int kLdBiasQ = kTile + 8;
-constexpr int kLdBiasK = 64 * kWg + 4;
 constexpr uint32_t kRound = 1024;
 constexpr uint32_t round_up(uint32_t x) { return (x + kRound - 1) / kRound * kRound; }
-// Shared memory of head width D: the resident tiles (kernel 1: q, g; kernel
-// 2: k, v), then the ring of stages (a streamed pair of tiles, the bias tile
-// and in kernel 2 the tile's lse and c), then the barriers. At D = 80 kernel
-// 1 takes 209 KiB, kernel 2 203 KiB.
+
+// Kernel 2's plan at head width D. Up to D = 80 a block owns 64 kWg keys and
+// consumer warpgroup w sums both dk and dv of its 64; above (kSplit) a block
+// owns 64 keys, warpgroup 0 sums their dv and warpgroup 1 their dk. Its bias
+// tile is [64 query rows][kKeys keys], pitch kKeys + 4 words, read
+// transposed (a column per fragment row: the 2t * pitch + g offsets of a
+// warp hit 32 distinct banks).
+template <int D>
+struct DkvPlan {
+  static constexpr bool kSplit = D > 80;
+  static constexpr int kKeys = kSplit ? 64 : 64 * kWg;  // keys a block owns
+  static constexpr int kResident = kKeys / 64;           // resident k (and v) tiles
+  static constexpr int kLdBias = kKeys + 4;
+};
+
+// Shared memory of head width D: the resident tiles (kernel 1: q, g of 64 kWg
+// query rows; kernel 2: k, v of its keys), then the ring of stages (a
+// streamed pair of tiles, the bias tile and in kernel 2 the tile's lse and
+// c), then the barriers; three stages where they fit a block, else two. At
+// D = 80 kernel 1 takes 209 KiB, kernel 2 203 KiB; at 128 (two stages in
+// kernel 1) 201 and 184.
 template <int D>
 struct BwdSmem {
   static constexpr uint32_t kTileBytes = HeadTile<D>::kBytes;
-  static constexpr uint32_t kResidentBytes = 2 * kWg * kTileBytes;
+  static constexpr uint32_t kResidentDq = 2 * kWg * kTileBytes;
+  static constexpr uint32_t kResidentDkv = 2 * DkvPlan<D>::kResident * kTileBytes;
   static constexpr uint32_t kStageDq =
       round_up(2 * kTileBytes + 64 * kWg * kLdBiasQ * sizeof(float));
   static constexpr uint32_t kStageDkv =
-      round_up(2 * kTileBytes + (64 * kLdBiasK + 2 * 64) * sizeof(float));  // + lse, c
-  static constexpr size_t bytes(uint32_t stage) {
-    return kResidentBytes + kStages * stage + (3 * kStages + 1) * sizeof(uint64_t) + 1024;
+      round_up(2 * kTileBytes + (64 * DkvPlan<D>::kLdBias + 2 * 64) * sizeof(float));  // + lse, c
+  static constexpr size_t bytes(uint32_t resident, uint32_t stage, int stages) {
+    return resident + stages * stage + (3 * stages + 1) * sizeof(uint64_t) + 1024;
   }
+  static constexpr int stages(uint32_t resident, uint32_t stage) {
+    return bytes(resident, stage, 3) <= kSmemBlockMax ? 3 : 2;
+  }
+  static constexpr int kStagesDq = stages(kResidentDq, kStageDq);
+  static constexpr int kStagesDkv = stages(kResidentDkv, kStageDkv);
+  static constexpr size_t kBytesDq = bytes(kResidentDq, kStageDq, kStagesDq);
+  static constexpr size_t kBytesDkv = bytes(kResidentDkv, kStageDkv, kStagesDkv);
+  static_assert(kBytesDq <= kSmemBlockMax && kBytesDkv <= kSmemBlockMax,
+                "the backward's shared memory exceeds a block's");
 };
 
 // The block's barriers after its tiles: full[], empty[], landed[] (with a
@@ -206,6 +255,7 @@ struct Ring {
   unsigned char* smem;
   uint64_t *full, *empty, *landed, *resident;
 };
+template <int kStages>
 __device__ __forceinline__ Ring ring_init(unsigned char* smem_raw, uint32_t resident,
                                           uint32_t stage, uint32_t full_count) {
   Ring r;
@@ -247,11 +297,13 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
   using T = HeadTile<D>;
   using S = BwdSmem<D>;
-  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentBytes;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentDq;
   constexpr uint32_t kStageDq = S::kStageDq;
+  constexpr int kStages = S::kStagesDq;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const float* bias_h = a.bias ? a.bias + size_t(blockIdx.z) * a.nq * a.nk : nullptr;
-  const Ring ring = ring_init(smem_raw, kResidentBytes, kStageDq, bias_h != nullptr ? 129 : 1);
+  const Ring ring =
+      ring_init<kStages>(smem_raw, kResidentBytes, kStageDq, bias_h != nullptr ? 129 : 1);
   unsigned char* smem = ring.smem;  // q tiles [kWg], g tiles [kWg], then the ring
   const int wg = threadIdx.x >> 7;
   int b, tile, h;
@@ -316,7 +368,8 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
   // lse (log2 units) and c = rowsum(p_d * (g v^T)) = g . out (out = p_d v)
   // of this thread's two rows: the four threads of a row sum D / 4 columns
   // each in f32, in 16-byte chunks of 8 (at D = 64 chunks 2t and 2t + 1, at
-  // D = 80 chunks t, t + 4 and, for t < 2, t + 8)
+  // every other width chunks t, t + 4, ... below D / 8: at D = 80 t, t + 4
+  // and, for t < 2, t + 8)
   float lrow[2], csum[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -466,82 +519,31 @@ stream_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
 // kernel 2, bf16: dk, dv. Key-major; q/g streamed once, c and lse read.
 // ---------------------------------------------------------------------------
 
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreadsW, 1)
-stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+// A consumer warpgroup of kernel 2 (number `wg`, meeting its threads at named
+// barrier 2 + wg) on the block's 64 keys kw (keys jb + 64 kw + [0, 64)):
+// from each streamed q/g tile it sums dk (kDk) and / or dv (kDv) and stores
+// them at the end. Whichever sums dk reads v, and adds the q/v bias's v row
+// to the resident v tile.
+template <int D, bool kDrop, bool kDk, bool kDv>
+__device__ __forceinline__ void dkv_consume(const BwdArgs& a, const Ring& ring, int b, int h,
+                                            int jb, int kw, int wg, bool has_bias) {
   using T = HeadTile<D>;
   using S = BwdSmem<D>;
-  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentBytes;
+  using P = DkvPlan<D>;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentDkv;
   constexpr uint32_t kStageDkv = S::kStageDkv;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // every producer thread arrives once a stage: its lse / c and bias copies
-  const Ring ring = ring_init(smem_raw, kResidentBytes, kStageDkv, 129);
-  unsigned char* smem = ring.smem;  // k tiles [kWg], v tiles [kWg], then the ring
-  const int wg = threadIdx.x >> 7;
-  int b, tile, h;
-  block_coords(b, tile, h);
+  constexpr int kStages = S::kStagesDkv;
+  constexpr uint32_t kBiasOff = 2 * kTileBytes;
+  constexpr uint32_t kLseOff = kBiasOff + 64 * P::kLdBias * sizeof(float);
+  unsigned char* smem = ring.smem;
   const int nq = a.nq, nk = a.nk;
   const int hc = h * D;
-  const int jb = tile * 64 * kWg;  // the block's first key
   const int n_tiles = (nq + kTile - 1) / kTile;
-  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
-  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
-  constexpr uint32_t kBiasOff = 2 * kTileBytes;
-  constexpr uint32_t kLseOff = kBiasOff + 64 * kLdBiasK * sizeof(float);
-
-  if (wg == kWg) {  // producer
-    const int ptid = threadIdx.x - kWg * 128;
-    const float* qvb_q = a.qv_bias != nullptr ? a.qv_bias + hc : nullptr;
-    if (ptid == 0) {
-      mbar_arrive_expect_tx(ring.resident, kResidentBytes);
-      for (int w = 0; w < kWg; ++w) {
-        tma_load_head<D>(smem + w * kTileBytes, &tm_k, ring.resident, hc, jb + 64 * w, b);
-        tma_load_head<D>(smem + (kWg + w) * kTileBytes, &tm_v, ring.resident, hc, jb + 64 * w, b);
-      }
-    }
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kStages;
-      const int q0 = j * kTile;
-      unsigned char* st = smem + kResidentBytes + s * kStageDkv;
-      mbar_wait(&ring.empty[s], ((j / kStages) & 1) ^ 1);
-      if (ptid == 0) {
-        // with a q/v bias the pair lands for the hand-over first
-        uint64_t* bar = qvb_q != nullptr ? &ring.landed[s] : &ring.full[s];
-        mbar_arrive_expect_tx(bar, 2 * kTileBytes);
-        tma_load_head<D>(st, &tm_q, bar, hc, q0, b);
-        tma_load_head<D>(st + kTileBytes, &tm_g, bar, hc, q0, b);
-      }
-      if (bias_h != nullptr) {
-#pragma unroll
-        for (int w = 0; w < kWg; ++w) {
-          cp_async_bias_tile(reinterpret_cast<float*>(st + kBiasOff) + 64 * w, kLdBiasK, bias_h, nq,
-                             nk, q0, 64, jb + 64 * w, ptid, 128);
-        }
-      }
-      {  // lse (threads 0-63) and c (64-127) of the tile's rows, zero past Nq
-        const int r = ptid & 63, row = q0 + r;
-        const bool ok = row < nq;
-        const float* src = (ptid < 64 ? a.lse : a.c) + bhn + (ok ? row : 0);
-        cp_async4(smem_u32(reinterpret_cast<float*>(st + kLseOff) + ptid), src, ok ? 4 : 0);
-      }
-      mbar_arrive_cp_async(&ring.full[s]);
-      if (qvb_q != nullptr) {
-        hand_over_biased<D>(st, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_q, ptid);
-      }
-    }
-    cp_async_wait<0>();
-    return;
-  }
-
-  // consumer warpgroup wg: keys jb + 64 wg + [0, 64)
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int k_local = wg * 64 + warp * 16 + g;
+  const int k_local = kw * 64 + warp * 16 + g;
   const int keys[2] = {jb + k_local, jb + k_local + 8};
   const float sl2 = a.scale * kLog2e;
   philox::Key pkey{0u, 0u};
@@ -551,17 +553,22 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     bh = a.fold.image(b) * a.num_heads + h;  // the forward's key of this image
   }
 
-  const uint64_t d_k = T::desc(smem + wg * kTileBytes);
-  const uint64_t d_v = T::desc(smem + (kWg + wg) * kTileBytes);
+  const uint64_t d_k = T::desc(smem + kw * kTileBytes);
+  const uint64_t d_v = T::desc(smem + (P::kResident + kw) * kTileBytes);
   float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (kDk) dk[i] = 0.0f;
+    if constexpr (kDv) dv[i] = 0.0f;
+  }
   mbar_wait(ring.resident, 0);
-  if (a.qv_bias != nullptr) {  // the q/v bias's v row, in bf16, on this warpgroup's v tile
-    T::add_qv_bias(smem + (kWg + wg) * kTileBytes, a.qv_bias + 2 * a.num_heads * D + hc,
-                   threadIdx.x & 127);
-    fence_proxy_async();
-    named_barrier(2 + wg, 128);
+  if constexpr (kDk) {
+    if (a.qv_bias != nullptr) {  // the q/v bias's v row, in bf16, on this warpgroup's v tile
+      T::add_qv_bias(smem + (P::kResident + kw) * kTileBytes,
+                     a.qv_bias + 2 * a.num_heads * D + hc, threadIdx.x & 127);
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+    }
   }
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -579,14 +586,16 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < D / 16; ++kk) {
       wgmma_ss<0>(sc, T::k_step(d_k, kk), T::k_step(d_qt, kk), kk > 0);
     }
+    if constexpr (kDk) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<0>(dp, T::k_step(d_v, kk), T::k_step(d_gt, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<0>(dp, T::k_step(d_v, kk), T::k_step(d_gt, kk), kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
     wgmma_hold(sc);
-    wgmma_hold(dp);
+    if constexpr (kDk) wgmma_hold(dp);
 
     // p = exp(s + bias - lse): element 4 nb + e is key keys[e >> 1], query
     // q0 + nb*8 + 2t + (e & 1); its bias is bias[query][key], a column of the
@@ -598,10 +607,10 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int ql = (e >> 2) * 8 + 2 * t + (e & 1);  // query within the tile
-      const float bv = bias_h != nullptr ? bst[ql * kLdBiasK + ((e >> 1) & 1) * 8] : 0.0f;
+      const float bv = has_bias ? bst[ql * P::kLdBias + ((e >> 1) & 1) * 8] : 0.0f;
       sc[e] = exp2_approx(fmaf(bv, kLog2e, sc[e] * sl2) - lse_t[ql] * kLog2e);
     }
-    if (q0 + kTile > nq || jb + 64 * kWg > nk) {
+    if (q0 + kTile > nq || jb + P::kKeys > nk) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         if (q0 + (e >> 2) * 8 + 2 * t + (e & 1) >= nq || keys[(e >> 1) & 1] >= nk) sc[e] = 0.0f;
@@ -616,13 +625,13 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float c_q = c_t[nb * 8 + 2 * t + (e & 1)];
+        const float c_q = c_t[nb * 8 + 2 * t + (e & 1)];  // read only where dk is summed
         const float p = sc[4 * nb + e];
         if constexpr (kDrop) {
           const float pd = p * philox::keep_scale(bits[e], a.threshold, a.inv_keep);
-          dp[4 * nb + e] = pd * dp[4 * nb + e] - p * c_q;
+          if constexpr (kDk) dp[4 * nb + e] = pd * dp[4 * nb + e] - p * c_q;
           sc[4 * nb + e] = pd;
-        } else {
+        } else if constexpr (kDk) {
           dp[4 * nb + e] = p * (dp[4 * nb + e] - c_q);
         }
       }
@@ -631,29 +640,124 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     // dv += p_d^T g and dk += ds^T q (p_d and ds rounded to bf16; g and q
     // read MN-major, m64nD)
     uint32_t pa[kTile / 16][4], da[kTile / 16][4];
-    pack_a(pa, sc);
-    pack_a(da, dp);
-    wgmma_hold(dv);
-    wgmma_hold(dk);
+    if constexpr (kDv) pack_a(pa, sc);
+    if constexpr (kDk) pack_a(da, dp);
+    if constexpr (kDv) wgmma_hold(dv);
+    if constexpr (kDk) wgmma_hold(dk);
     wgmma_fence();
+    if constexpr (kDv) {
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dv, pa[kk], T::mn_step(d_gt, kk));
+      for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dv, pa[kk], T::mn_step(d_gt, kk));
+    }
+    if constexpr (kDk) {
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dk, da[kk], T::mn_step(d_qt, kk));
+      for (int kk = 0; kk < kTile / 16; ++kk) wgmma_rs<1>(dk, da[kk], T::mn_step(d_qt, kk));
+    }
     wgmma_commit();
     wgmma_wait_all();
-    wgmma_hold(dv);
-    wgmma_hold(dk);
-    wgmma_hold(pa);
-    wgmma_hold(da);
+    if constexpr (kDv) {
+      wgmma_hold(dv);
+      wgmma_hold(pa);
+    }
+    if constexpr (kDk) {
+      wgmma_hold(dk);
+      wgmma_hold(da);
+    }
     mbar_arrive(&ring.empty[s]);
   }
   // the f32 sums over all query rows, rounded once
-  const int row0 = jb + wg * 64 + warp * 16;
-  store_acc_bf16<D>(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk, a.scale,
-                    nk, row0);
-  store_acc_bf16<D>(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f,
-                    nk, row0);
+  const int row0 = jb + kw * 64 + warp * 16;
+  if constexpr (kDk) {
+    store_acc_bf16<D>(static_cast<bf16*>(a.dk) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dk,
+                      a.scale, nk, row0);
+  }
+  if constexpr (kDv) {
+    store_acc_bf16<D>(static_cast<bf16*>(a.dv) + size_t(b) * nk * a.lddkv + hc, a.lddkv, dv, 1.0f,
+                      nk, row0);
+  }
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreadsW, 1)
+stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g, const BwdArgs a) {
+  using S = BwdSmem<D>;
+  using P = DkvPlan<D>;
+  constexpr uint32_t kTileBytes = S::kTileBytes, kResidentBytes = S::kResidentDkv;
+  constexpr uint32_t kStageDkv = S::kStageDkv;
+  constexpr int kStages = S::kStagesDkv;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // every producer thread arrives once a stage: its lse / c and bias copies
+  const Ring ring = ring_init<kStages>(smem_raw, kResidentBytes, kStageDkv, 129);
+  unsigned char* smem = ring.smem;  // k tiles [kResident], v tiles [kResident], then the ring
+  const int wg = threadIdx.x >> 7;
+  int b, tile, h;
+  block_coords(b, tile, h);
+  const int nq = a.nq, nk = a.nk;
+  const int hc = h * D;
+  const int jb = tile * P::kKeys;  // the block's first key
+  const int n_tiles = (nq + kTile - 1) / kTile;
+  const float* bias_h = a.bias ? a.bias + size_t(h) * nq * nk : nullptr;
+  const size_t bhn = (size_t(b) * a.num_heads + h) * nq;
+  constexpr uint32_t kBiasOff = 2 * kTileBytes;
+  constexpr uint32_t kLseOff = kBiasOff + 64 * P::kLdBias * sizeof(float);
+
+  if (wg == kWg) {  // producer
+    const int ptid = threadIdx.x - kWg * 128;
+    const float* qvb_q = a.qv_bias != nullptr ? a.qv_bias + hc : nullptr;
+    if (ptid == 0) {
+      mbar_arrive_expect_tx(ring.resident, kResidentBytes);
+      for (int w = 0; w < P::kResident; ++w) {
+        tma_load_head<D>(smem + w * kTileBytes, &tm_k, ring.resident, hc, jb + 64 * w, b);
+        tma_load_head<D>(smem + (P::kResident + w) * kTileBytes, &tm_v, ring.resident, hc,
+                         jb + 64 * w, b);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int q0 = j * kTile;
+      unsigned char* st = smem + kResidentBytes + s * kStageDkv;
+      mbar_wait(&ring.empty[s], ((j / kStages) & 1) ^ 1);
+      if (ptid == 0) {
+        // with a q/v bias the pair lands for the hand-over first
+        uint64_t* bar = qvb_q != nullptr ? &ring.landed[s] : &ring.full[s];
+        mbar_arrive_expect_tx(bar, 2 * kTileBytes);
+        tma_load_head<D>(st, &tm_q, bar, hc, q0, b);
+        tma_load_head<D>(st + kTileBytes, &tm_g, bar, hc, q0, b);
+      }
+      if (bias_h != nullptr) {
+#pragma unroll
+        for (int w = 0; w < P::kResident; ++w) {
+          cp_async_bias_tile(reinterpret_cast<float*>(st + kBiasOff) + 64 * w, P::kLdBias, bias_h,
+                             nq, nk, q0, 64, jb + 64 * w, ptid, 128);
+        }
+      }
+      {  // lse (threads 0-63) and c (64-127) of the tile's rows, zero past Nq
+        const int r = ptid & 63, row = q0 + r;
+        const bool ok = row < nq;
+        const float* src = (ptid < 64 ? a.lse : a.c) + bhn + (ok ? row : 0);
+        cp_async4(smem_u32(reinterpret_cast<float*>(st + kLseOff) + ptid), src, ok ? 4 : 0);
+      }
+      mbar_arrive_cp_async(&ring.full[s]);
+      if (qvb_q != nullptr) {
+        hand_over_biased<D>(st, &ring.landed[s], (j / kStages) & 1, &ring.full[s], qvb_q, ptid);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  if constexpr (P::kSplit) {  // both warpgroups on the block's 64 keys: dv, then dk
+    if (wg == 0) {
+      dkv_consume<D, kDrop, false, true>(a, ring, b, h, jb, 0, wg, bias_h != nullptr);
+    } else {
+      dkv_consume<D, kDrop, true, false>(a, ring, b, h, jb, 0, wg, bias_h != nullptr);
+    }
+  } else {  // warpgroup wg: keys jb + 64 wg + [0, 64)
+    dkv_consume<D, kDrop, true, true>(a, ring, b, h, jb, wg, wg, bias_h != nullptr);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -661,15 +765,16 @@ stream_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 
 template <int D>
-constexpr size_t kSmemDqF = (size_t(kWarpsF) * 3 * kRowsF * kLdS<D> +
-                             size_t(2 * kOwnF + 2 * kTile) * kLdF<D>) * sizeof(float);
+constexpr size_t kSmemDqF = smem_dq_f32<D>(kWarpsF<D>);
 template <int D>
-constexpr size_t kSmemDkvF = (size_t(kWarpsF) * 4 * kRowsF * kLdS<D> +
-                              size_t(2 * kOwnF + 2 * kTile) * kLdF<D> + 2 * kTile) * sizeof(float);
+constexpr size_t kSmemDkvF = smem_dkv_f32<D>(kWarpsF<D>);
+static_assert(kSmemDqF<kHeadDimMax> <= kSmemBlockMax && kSmemDkvF<kHeadDimMax> <= kSmemBlockMax,
+              "the f32 backward's tiles exceed a block's shared memory");
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) {
+__global__ void __launch_bounds__(kThreadsF<D>) stream_bwd_dq_f32(const BwdArgs a) {
   constexpr int ldS = kLdS<D>, ldF = kLdF<D>;
+  constexpr int kWarps = kWarpsF<D>, kThreads = kThreadsF<D>, kOwn = kOwnF<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -678,7 +783,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   const int nq = a.nq, nk = a.nk, ldb = a.ldb;
   const int c = a.num_heads * D;
   const int hc = h * D;
-  const int q0 = tile * kOwnF;
+  const int q0 = tile * kOwn;
   const int r0 = q0 + warp * kRowsF;
   const bool active = r0 < nq;
   const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
@@ -700,15 +805,15 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
   float* s_w = reinterpret_cast<float*>(smem) + warp * 3 * kRowsF * ldS;  // scores, then ds
   float* dp_w = s_w + kRowsF * ldS;                                        // g v^T
   float* o_w = dp_w + kRowsF * ldS;                                        // dq
-  float* qs = reinterpret_cast<float*>(smem) + kWarpsF * 3 * kRowsF * ldS;
-  float* gs = qs + kOwnF * ldF;
-  float* ks = gs + kOwnF * ldF;
+  float* qs = reinterpret_cast<float*>(smem) + kWarps * 3 * kRowsF * ldS;
+  float* gs = qs + kOwn * ldF;
+  float* ks = gs + kOwn * ldF;
   float* vs = ks + kTile * ldF;
   const float* q_w = qs + warp * kRowsF * ldF;
   const float* g_w = gs + warp * kRowsF * ldF;
 
-  load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kOwn, threadIdx.x, kThreads);
+  load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kOwn, threadIdx.x, kThreads);
   for (int i = lane; i < kRowsF * ldS; i += 32) o_w[i] = 0.0f;
 
   float lrow[kRowsF], csum[kRowsF];
@@ -722,9 +827,9 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
     for (int k0 = 0; k0 < nk; k0 += kTile) {
       __syncthreads();  // every warp is done with the previous k/v tile
       load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, k0, kTile, threadIdx.x,
-                               kThreadsF);
+                               kThreads);
       load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, qvb_v, nk, k0, kTile, threadIdx.x,
-                               kThreadsF);
+                               kThreads);
       __syncthreads();
       if (!active) continue;
 
@@ -778,8 +883,9 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dq_f32(const BwdArgs a) 
 }
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a) {
+__global__ void __launch_bounds__(kThreadsF<D>) stream_bwd_dkv_f32(const BwdArgs a) {
   constexpr int ldS = kLdS<D>, ldF = kLdF<D>;
+  constexpr int kWarps = kWarpsF<D>, kThreads = kThreadsF<D>, kOwn = kOwnF<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -788,7 +894,7 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   const int nq = a.nq, nk = a.nk;
   const int c = a.num_heads * D;
   const int hc = h * D;
-  const int jb = tile * kOwnF;
+  const int jb = tile * kOwn;
   const int j0 = jb + warp * kRowsF;  // this warp's first key row
   const bool active = j0 < nk;
   const float* q_img = static_cast<const float*>(a.q) + size_t(b) * nq * a.ldq + hc;
@@ -810,23 +916,23 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   float* dp_w = s_w + kRowsF * ldS;                                        // v g^T, then ds^T
   float* dk_w = dp_w + kRowsF * ldS;
   float* dv_w = dk_w + kRowsF * ldS;
-  float* ks = reinterpret_cast<float*>(smem) + kWarpsF * 4 * kRowsF * ldS;
-  float* vs = ks + kOwnF * ldF;
-  float* qs = vs + kOwnF * ldF;
+  float* ks = reinterpret_cast<float*>(smem) + kWarps * 4 * kRowsF * ldS;
+  float* vs = ks + kOwn * ldF;
+  float* qs = vs + kOwn * ldF;
   float* gs = qs + kTile * ldF;
   float* lse_s = gs + kTile * ldF;  // [kTile]
   float* c_s = lse_s + kTile;       // [kTile]
   const float* k_w = ks + warp * kRowsF * ldF;
   const float* v_w = vs + warp * kRowsF * ldF;
 
-  load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, jb, kOwnF, threadIdx.x, kThreadsF);
-  load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, qvb_v, nk, jb, kOwnF, threadIdx.x, kThreadsF);
+  load_slab_rows<D, float>(ks, ldF, k_img, a.ldkv, nullptr, nk, jb, kOwn, threadIdx.x, kThreads);
+  load_slab_rows<D, float>(vs, ldF, v_img, a.ldkv, qvb_v, nk, jb, kOwn, threadIdx.x, kThreads);
   for (int i = lane; i < 2 * kRowsF * ldS; i += 32) dk_w[i] = 0.0f;  // dk_w and dv_w
 
   for (int q0 = 0; q0 < nq; q0 += kTile) {
     __syncthreads();  // every warp is done with the previous q/g tile
-    load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kTile, threadIdx.x, kThreadsF);
-    load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kTile, threadIdx.x, kThreadsF);
+    load_slab_rows<D, float>(qs, ldF, q_img, a.ldq, qvb_q, nq, q0, kTile, threadIdx.x, kThreads);
+    load_slab_rows<D, float>(gs, ldF, g_img, a.ldg, nullptr, nq, q0, kTile, threadIdx.x, kThreads);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = row < nq ? a.lse[bhn + row] : 0.0f;
@@ -871,30 +977,31 @@ __global__ void __launch_bounds__(kThreadsF) stream_bwd_dkv_f32(const BwdArgs a)
   }
 }
 
-// Kernel 1 (blocks over the Nq query rows, `own` a block) then kernel 2
-// (over the Nk keys) on one stream, with the kernels' arguments `args...`.
+// Kernel 1 (blocks over the Nq query rows, `own_dq` a block) then kernel 2
+// (over the Nk keys, `own_dkv` a block) on one stream, with the kernels'
+// arguments `args...`.
 template <typename K1, typename K2, typename... Args>
-cudaError_t launch_pair(K1 dq_kernel, K2 dkv_kernel, int threads, int own, size_t smem_dq,
-                        size_t smem_dkv, const BwdArgs& a, int batch, cudaStream_t stream,
-                        const Args&... args) {
+cudaError_t launch_pair(K1 dq_kernel, K2 dkv_kernel, int threads, int own_dq, int own_dkv,
+                        size_t smem_dq, size_t smem_dkv, const BwdArgs& a, int batch,
+                        cudaStream_t stream, const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkv));
   if (err != cudaSuccess) return err;
-  dq_kernel<<<block_grid(batch, (a.nq + own - 1) / own, a.num_heads), threads, smem_dq, stream>>>(
-      args...);
+  dq_kernel<<<block_grid(batch, (a.nq + own_dq - 1) / own_dq, a.num_heads), threads, smem_dq,
+              stream>>>(args...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<block_grid(batch, (a.nk + own - 1) / own, a.num_heads), threads, smem_dkv,
-               stream>>>(args...);
+  dkv_kernel<<<block_grid(batch, (a.nk + own_dkv - 1) / own_dkv, a.num_heads), threads,
+               smem_dkv, stream>>>(args...);
   return cudaGetLastError();
 }
 
 // The bf16 pair: the tensor maps of q, k, v and g (per image, 64-row
-// boxes of HeadTile<D>), then kernel 1 over the Nq query rows and kernel 2
-// over the Nk keys, 64 * kWg rows a block.
+// boxes of HeadTile<D>), then kernel 1 over the Nq query rows, 64 kWg a
+// block, and kernel 2 over the Nk keys, DkvPlan<D>::kKeys a block.
 template <int D, bool kDrop>
 cudaError_t launch_bf16(const BwdArgs& a, int batch, cudaStream_t stream) {
   const int c = a.num_heads * D;
@@ -907,14 +1014,14 @@ cudaError_t launch_bf16(const BwdArgs& a, int batch, cudaStream_t stream) {
   }
   using S = BwdSmem<D>;
   return launch_pair(stream_bwd_dq_bf16<D, kDrop>, stream_bwd_dkv_bf16<D, kDrop>, kThreadsW,
-                     64 * kWg, S::bytes(S::kStageDq), S::bytes(S::kStageDkv), a, batch, stream,
+                     64 * kWg, DkvPlan<D>::kKeys, S::kBytesDq, S::kBytesDkv, a, batch, stream,
                      tm_q, tm_k, tm_v, tm_g, a);
 }
 
 template <int D, bool kDrop>
 cudaError_t launch_f32(const BwdArgs& a, int batch, cudaStream_t stream) {
-  return launch_pair(stream_bwd_dq_f32<D, kDrop>, stream_bwd_dkv_f32<D, kDrop>, kThreadsF, kOwnF,
-                     kSmemDqF<D>, kSmemDkvF<D>, a, batch, stream, a);
+  return launch_pair(stream_bwd_dq_f32<D, kDrop>, stream_bwd_dkv_f32<D, kDrop>, kThreadsF<D>,
+                     kOwnF<D>, kOwnF<D>, kSmemDqF<D>, kSmemDkvF<D>, a, batch, stream, a);
 }
 
 // The instantiation of head width D, dtype (0 bf16, 1 f32) and dropout.
@@ -934,7 +1041,8 @@ cudaError_t launch(const BwdArgs& a, int batch, int dtype, cudaStream_t stream) 
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32; head_dim 64 or 80 (C = num_heads * head_dim).
+// dtype: 0 = bf16, 1 = f32; head_dim a multiple of 16 from 32 to 128 (C =
+// num_heads * head_dim; with_head_dim).
 // q, k, v, g, o and dq, dk, dv point at column 0 of head 0 in row 0 of
 // image 0; rows lie ldq, ldkv (k and v), ldg, ldo,
 // lddq, lddkv (dk and dv) elements apart, and an image is nq consecutive rows
@@ -979,9 +1087,8 @@ int uvit_flash_attention_stream_bwd(const void* q, const void* k, const void* v,
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   a.fold = BatchFold{fold_per, fold_total, fold_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(a, batch, dtype, st);
-  if (head_dim == 80) return launch<80>(a, batch, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(
+      head_dim, [&](auto d) { return launch<decltype(d)::value>(a, batch, dtype, st); }));
 }
 
 const char* uvit_cuda_error_string(int err) {

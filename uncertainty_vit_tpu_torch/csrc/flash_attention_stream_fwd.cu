@@ -66,15 +66,17 @@
 //     zeros (and stale bias words) and never stored; keys beyond Nk get
 //     e = 0.
 //   f32: FMA loops over shared-memory tiles (no TF32), 64-row q tiles.
-// Head widths (a template parameter D, picked at launch): 64 (ViT-B, ViT-L)
-// and 80 (ViT-H/16: 16 heads, N = 197). At 80 a head's row is 160 bytes, more
-// than a 128-byte swizzle takes in one TMA box, so a tile is five 16-column
-// boxes in the 32-byte swizzle (hopper_common.cuh:HeadTile<80>): s = q k^T is
-// five k16 steps, one a box, and o += p v one wgmma m64n80 a step across all
-// five (the accumulator 40 f32 a thread; 38 KiB a stage, two blocks an SM
-// still). At ViT-H's eval shape (B=128, N=197, H=16, D=80, bf16, a bias) the
-// call moves 261 MB, ~0.078 ms at 3.35 TB/s, and does 25.4 GFLOP, ~0.026 ms:
-// the bytes bound it.
+// Head widths (a template parameter D, picked at launch): every multiple of
+// 16 from 32 to 128 (attention_common.cuh:with_head_dim); 64 is ViT-B's and
+// ViT-L's, 80 ViT-H/16's (16 heads, N = 197). A tile is HeadTile<D>'s boxes
+// (hopper_common.cuh): s = q k^T is D / 16 k16 steps, o += p v one wgmma
+// m64nD a step across the boxes (the accumulator D / 2 f32 a thread). A
+// stage is 2 * 128 D + 18,432 bytes: two blocks an SM fit up to D = 112, one
+// at D = 128 (FwdSmem::kBlocks; the launch bounds follow it). At D = 80 and
+// ViT-H's eval shape (B=128, N=197, H=16, bf16, a bias) the call moves 261
+// MB, ~0.078 ms at 3.35 TB/s, and does 25.4 GFLOP, ~0.026 ms: the bytes
+// bound it; at a preset's width C = H D neither the operations (4 B H N^2 D)
+// nor the bytes but the bias's H N^2 depend on D.
 // Dropout: the keep bit of (image * H + head, row, column) from
 // csrc/philox.cuh, a function of the seed and the position alone, so this
 // kernel, the streaming backward's two kernels and the plain PyTorch version
@@ -103,7 +105,7 @@ constexpr int kLdBias = kTileK + 8;   // f32 bias tile row: float2 reads conflic
 constexpr uint32_t kBiasBytes = 64 * kLdBias * sizeof(float);
 // Shared memory of head width D: the q tile, then the ring of stages (k, v,
 // bias), then the barriers full[], empty[], landed[], q. A stage is 36 KiB
-// at D = 64 and 38 KiB at D = 80.
+// at D = 64, 38 KiB at D = 80, 50 KiB at D = 128.
 template <int D>
 struct FwdSmem {
   static constexpr uint32_t kTileBytes = HeadTile<D>::kBytes;
@@ -113,11 +115,13 @@ struct FwdSmem {
   static constexpr uint32_t kBarOff = kRingOff + kStages * kStageBytes;
   static constexpr size_t kBytes =
       kBarOff + (3 * kStages + 1) * sizeof(uint64_t) + 1024;  // + alignment
+  static_assert(kBytes <= kSmemBlockMax, "the forward's shared memory exceeds a block's");
+  static constexpr int kBlocks = blocks_per_sm(kBytes);  // blocks an SM holds
 };
 constexpr int kThreadsBf16 = 2 * 128;
 
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreadsBf16, 2)
+__global__ void __launch_bounds__(kThreadsBf16, FwdSmem<D>::kBlocks)
 stream_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
                 const float* __restrict__ qv_bias, bf16* __restrict__ out, int ldo,
@@ -345,6 +349,7 @@ constexpr int kTileQF = kWarpsF * kRowsF;
 template <int D>
 constexpr size_t kSmemF32 = (size_t(kWarpsF) * 3 * kRowsF * kLdS<D> +
                              size_t(kTileQF + 2 * kTileK) * kLdF<D>) * sizeof(float);
+static_assert(kSmemF32<kHeadDimMax> <= kSmemBlockMax, "the f32 forward's tiles exceed a block's");
 
 struct FwdArgs {
   const void *q, *k, *v;   // each at column 0 of head 0 in row 0 of image 0
@@ -526,9 +531,9 @@ cudaError_t launch(const FwdArgs& a, int batch, int dtype, cudaStream_t stream) 
 
 extern "C" {
 
-// dtype: 0 = bf16, 1 = f32; head_dim 64 or 80 (C = num_heads * head_dim).
-// q, k, v point at column 0 of head 0 in row 0 of
-// image 0; rows lie ldq (q) and ldkv (k, v) elements apart, and an image is nq
+// dtype: 0 = bf16, 1 = f32; head_dim a multiple of 16 from 32 to 128 (C =
+// num_heads * head_dim; with_head_dim). q, k, v point at column 0 of head 0
+// in row 0 of image 0; rows lie ldq (q) and ldkv (k, v) elements apart, and an image is nq
 // consecutive rows of q and nk of k and v; out likewise with ldo and nq. For
 // packed qkv [B, N, 3C]: q = qkv, k = qkv + C, v = qkv + 2C, ldq = ldkv = 3C,
 // nq = nk = N; for q [B, Nq, C] and packed kv [B, Nk, 2C]: k = kv, v = kv + C,
@@ -561,9 +566,8 @@ int uvit_flash_attention_stream_fwd(const void* q, const void* k, const void* v,
   a.scale = scale, a.inv_keep = inv_keep, a.threshold = threshold;
   a.fold = BatchFold{fold_per, fold_total, fold_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(a, batch, dtype, st);
-  if (head_dim == 80) return launch<80>(a, batch, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(
+      head_dim, [&](auto d) { return launch<decltype(d)::value>(a, batch, dtype, st); }));
 }
 
 const char* uvit_cuda_error_string(int err) {

@@ -5,27 +5,32 @@
 // 64-row tile at each head width. Everything here is inlined into its
 // caller; nothing is launched from this file.
 //
-// D = 64: a tile is 64 rows of one head's 64 bf16 (128 bytes a row), one TMA
-// box written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
-// lands at chunk c ^ (r % 8), rows 128 bytes apart, so 8 rows make one
-// 1024-byte swizzle atom. wgmma reads such a tile through a descriptor of
-// the same swizzle whose stride between 8-row groups (SBO) is 1024 bytes:
-//   - K-major (the 64 contiguous elements are the product's depth: q or k
-//     in s = q k^T): step kk of 16 deep starts 32 * kk bytes in;
-//   - MN-major (the 64 contiguous elements are the output's columns: v in
-//     o += p v): step kk starts 16 rows, 2048 * kk bytes, in.
-// D = 80: a row of one head is 160 bytes, more than a 128-byte swizzle takes
-// in a box's inner dimension. The tile is five boxes of 64 rows x 16 columns
-// (32 bytes a row, 2 KiB a box) side by side, written with
-// CU_TENSOR_MAP_SWIZZLE_32B: chunk c (0 or 1) of row r lands at c ^ ((r / 4)
-// % 2), and 8 rows make one 256-byte atom. One descriptor of that swizzle
-// (SBO 256 bytes between 8-row groups, LBO 2048 bytes between the boxes)
-// reads it both ways:
-//   - K-major: step kk of 16 deep is box kk, 2048 * kk bytes in (a box is
-//     exactly one step deep; LBO is not used);
-//   - MN-major: step kk starts 16 rows, 512 * kk bytes, into every box, and
-//     one wgmma m64n80 takes the 80 columns of all five boxes, box j at
-//     LBO * j.
+// A tile is 64 rows of one head's D bf16 columns (every D % 16 == 0 from 32
+// to 128), written by TMA as kBoxes boxes of 64 rows x W columns side by
+// side, all of one width W:
+//   - W = 64 where 64 divides D (D = 64: one box, 128: two), in
+//     CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes, 16-byte chunk c of row
+//     r at chunk c ^ (r % 8), 8 rows one 1024-byte swizzle atom;
+//   - else W = 32 where 32 divides D (32: one box, 96: three), in
+//     CU_TENSOR_MAP_SWIZZLE_64B: rows of 64 bytes, chunk c (0-3) of row r at
+//     c ^ ((r / 2) % 4), 8 rows one 512-byte atom;
+//   - else W = 16 (48: three boxes, 80: five, 112: seven), in
+//     CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes, chunk c (0 or 1) of row r
+//     at c ^ ((r / 4) % 2), 8 rows one 256-byte atom.
+// In each the chunk's place is c ^ ((row bytes * r / 128) % (chunks a row)):
+// the TMA's swizzle of a W-column box, which a box exactly one swizzle wide
+// takes. One wgmma descriptor of that swizzle (SBO: 8 rows, one atom, between
+// 8-row groups; LBO: one box between the boxes) reads the tile both ways:
+//   - K-major (the D contiguous elements are the product's depth: q or k in
+//     s = q k^T): step kk of 16 deep lies in box kk / (W / 16), 32 * (kk %
+//     (W / 16)) bytes into its rows; LBO is not used (a step never crosses a
+//     box);
+//   - MN-major (the D contiguous elements are the output's columns: v in o
+//     += p v): step kk starts 16 rows, 16 * 2W * kk bytes, into every box,
+//     and one wgmma m64nD takes the D columns of all boxes, box j at LBO * j.
+// D = 64 and 80 keep the layouts of their first kernels (one 128-byte box;
+// five 32-byte ones) bit for bit; the rule takes the widest swizzle that
+// divides D, so a tile's boxes are as few as they can be.
 // The accumulator of wgmma m64nN gives warp w of the warpgroup rows 16w + g
 // and 16w + g + 8 (lane = 4g + t), columns 8n + 2t and 8n + 2t + 1 in
 // d[4n .. 4n + 3], as an mma.sync m16n8 tile does; two neighbouring
@@ -162,11 +167,8 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// One thread's share of a q/v bias row (one head's 64 f32 columns) for
-// add_qv_bias_sw128, rounded to bf16 as `_qv_biased` rounds it and packed in
-// pairs: the 8 columns of every 16-byte chunk that thread `tid` of 128 adds
-// to. They are fixed: chunk i of a tile lies in row i / 8 at logical chunk
-// (i % 8) ^ (row % 8), and both stay as i steps by 128.
+// Eight bias columns, rounded to bf16 as `_qv_biased` rounds them and
+// packed in pairs.
 struct QvBiasChunk {
   uint32_t bf2[4];
 };
@@ -175,9 +177,6 @@ __device__ __forceinline__ QvBiasChunk qv_bias_pack(const float* b) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) c.bf2[j] = pack_bf16(b[2 * j], b[2 * j + 1]);
   return c;
-}
-__device__ __forceinline__ QvBiasChunk qv_bias_chunk(const float* bias_row, int tid) {
-  return qv_bias_pack(bias_row + ((tid & 7) ^ ((tid >> 3) & 7)) * 8);
 }
 
 // Adds 8 packed bias columns to one 16-byte chunk of bf16 in shared memory,
@@ -195,27 +194,29 @@ __device__ __forceinline__ void add_qv_bias_to_chunk(unsigned char* p, const QvB
   *chunk = u;
 }
 
-// Adds a thread's QvBiasChunk to its four 16-byte chunks (tid, tid + 128,
-// ...) of a 64 x 64 bf16 tile in the 128-byte swizzle, in place. The caller
-// then calls fence_proxy_async and meets every thread that reads the tile
-// at a barrier before a wgmma reads it.
-__device__ __forceinline__ void add_qv_bias_sw128(unsigned char* tile, const QvBiasChunk& c,
+// Adds one head's bias row (D f32 columns) to a tile of kBoxes boxes of 64
+// rows x kBoxCols columns in their swizzle (HeadTile), in place. Thread
+// `tid` of 128 takes physical chunk tid % P of rows tid / P, tid / P + 128 /
+// P, ... of every box (P chunks a row, 64 P / 128 of them a thread a box);
+// 128 / P rows is a multiple of 8, so each of those holds the same logical
+// chunk and one packed bias chunk a box serves them all. The caller then
+// calls fence_proxy_async and meets every thread that reads the tile at a
+// barrier before a wgmma reads it.
+template <int kBoxCols, int kBoxes>
+__device__ __forceinline__ void add_qv_bias_boxes(unsigned char* tile, const float* bias_row,
                                                   int tid) {
+  constexpr int kChunks = kBoxCols / 8, kRowBytes = 2 * kBoxCols;
+  constexpr int kPerThread = 64 * kChunks / 128;
+  // shifts and masks (P is a power of 2, tid is not negative)
+  const unsigned row = unsigned(tid) / kChunks;
+  const int chunk = int((unsigned(tid) % kChunks) ^ ((row * kRowBytes >> 7) & (kChunks - 1)));
 #pragma unroll
-  for (int i = tid; i < 64 * 8; i += 128) add_qv_bias_to_chunk(tile + 16 * i, c);
-}
-
-// The same for the five 64 x 16 boxes of a D = 80 tile in the 32-byte
-// swizzle: thread `tid` of 128 adds to chunk tid of each box, which lies in
-// row tid / 2 at logical chunk (tid % 2) ^ ((row / 4) % 2), columns 16 * box
-// + 8 * that chunk of the head's bias row.
-__device__ __forceinline__ void add_qv_bias_sw32(unsigned char* tile, const float* bias_row,
-                                                 int tid) {
-  const int chunk = (tid & 1) ^ ((tid >> 3) & 1);
+  for (int box = 0; box < kBoxes; ++box) {
+    const QvBiasChunk c = qv_bias_pack(bias_row + kBoxCols * box + 8 * chunk);
 #pragma unroll
-  for (int box = 0; box < 5; ++box) {
-    add_qv_bias_to_chunk(tile + 2048 * box + 16 * tid,
-                         qv_bias_pack(bias_row + 16 * box + 8 * chunk));
+    for (int k = 0; k < kPerThread; ++k) {
+      add_qv_bias_to_chunk(tile + 64 * kRowBytes * box + 16 * (tid + 128 * k), c);
+    }
   }
 }
 
@@ -231,20 +232,21 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // device: wgmma
 // ---------------------------------------------------------------------------
 
-// The descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned
-// rows groups, SBO 1024 bytes; LBO unused by these layouts).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// The descriptor of a tile at `p` in the swizzle of `kRowBytes`-byte rows
+// (32, 64 or 128; `p` aligned to its 8-row atom): SBO one atom between 8-row
+// groups, LBO `lbo` bytes between boxes (16 where a tile is one box; only
+// MN-major reads across boxes use it).
+template <uint32_t kRowBytes>
+__device__ __forceinline__ uint64_t desc_swizzled(const void* p, uint32_t lbo) {
+  static_assert(kRowBytes == 32 || kRowBytes == 64 || kRowBytes == 128, "no such swizzle");
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+  return ((addr & 0x3FFFFull) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(8 * kRowBytes >> 4) << 32) | (kLayout << 62);
 }
-// The descriptor of a D = 80 tile at `p` in the 32-byte swizzle (256-byte
-// aligned; SBO 256 bytes between 8-row groups, LBO 2048 bytes between the
-// 16-column boxes, which only MN-major reads use).
-__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFFull) >> 4) | (uint64_t(2048 >> 4) << 16) | (uint64_t(256 >> 4) << 32) |
-         (3ull << 62);
-}
+// The descriptor of a one-box tile in the 128-byte swizzle (1024-byte
+// aligned row groups, SBO 1024 bytes; LBO unused).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) { return desc_swizzled<128>(p, 16); }
 // The same descriptor `bytes` further on (a multiple of 16).
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
@@ -313,54 +315,84 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
-// d (64 x 64, f32) += A B with A (64 x 16 bf16) in registers, in the
+// d (64 x N, f32) += A B with A (64 x 16 bf16) in registers, in the
 // m16n8k16 A-fragment layout per warp (rows 16 * warp + g, + 8 of the
-// warpgroup's 64), and B read from shared memory; kTransB as for wgmma_ss.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
-}
-
-// d (64 x 80, f32) += A B as wgmma_rs, with B 16 deep by 80 columns (the
-// m64n80 product of a D = 80 head's output columns).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
-}
+// warpgroup's 64), and B 16 deep by N columns read from shared memory;
+// kTransB as for wgmma_ss. One overload per N = D of the head widths built
+// (N / 2 accumulator registers a thread), all from UVIT_WGMMA_RS: the
+// accumulators are operands %0 .. %(N/2 - 1), A's four words, B's
+// descriptor, the scale-d predicate's word and kTransB the next seven.
+#define UVIT_ACC8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define UVIT_REGS8_0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define UVIT_REGS8_1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define UVIT_REGS8_2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define UVIT_REGS8_3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define UVIT_REGS8_4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define UVIT_REGS8_5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define UVIT_REGS8_6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define UVIT_REGS8_7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define UVIT_REGS16 UVIT_REGS8_0 UVIT_REGS8_1
+#define UVIT_REGS24 UVIT_REGS16 UVIT_REGS8_2
+#define UVIT_REGS32 UVIT_REGS24 UVIT_REGS8_3
+#define UVIT_REGS40 UVIT_REGS32 UVIT_REGS8_4
+#define UVIT_REGS48 UVIT_REGS40 UVIT_REGS8_5
+#define UVIT_REGS56 UVIT_REGS48 UVIT_REGS8_6
+#define UVIT_REGS64 UVIT_REGS56 UVIT_REGS8_7
+#define UVIT_OPS16 UVIT_ACC8(0), UVIT_ACC8(8)
+#define UVIT_OPS24 UVIT_OPS16, UVIT_ACC8(16)
+#define UVIT_OPS32 UVIT_OPS24, UVIT_ACC8(24)
+#define UVIT_OPS40 UVIT_OPS32, UVIT_ACC8(32)
+#define UVIT_OPS48 UVIT_OPS40, UVIT_ACC8(40)
+#define UVIT_OPS56 UVIT_OPS48, UVIT_ACC8(48)
+#define UVIT_OPS64 UVIT_OPS56, UVIT_ACC8(56)
+#define UVIT_WGMMA_RS(N, REGS, OPS, A0, A1, A2, A3, DESC, SCALE, TRANS)                        \
+  template <int kTransB>                                                                      \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2], const uint32_t(&a)[4],           \
+                                           uint64_t desc_b) {                                 \
+    asm volatile(                                                                             \
+        "{\n"                                                                                 \
+        ".reg .pred p;\n"                                                                     \
+        "setp.ne.b32 p, %" #SCALE ", 0;\n"                                                    \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "                           \
+        "{" REGS "}, "                                                                        \
+        "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DESC ", p, 1, 1, %" #TRANS ";\n"        \
+        "}\n"                                                                                 \
+        : OPS                                                                                 \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));      \
+  }
+UVIT_WGMMA_RS(32, UVIT_REGS16, UVIT_OPS16, 16, 17, 18, 19, 20, 21, 22)
+UVIT_WGMMA_RS(48, UVIT_REGS24, UVIT_OPS24, 24, 25, 26, 27, 28, 29, 30)
+UVIT_WGMMA_RS(64, UVIT_REGS32, UVIT_OPS32, 32, 33, 34, 35, 36, 37, 38)
+UVIT_WGMMA_RS(80, UVIT_REGS40, UVIT_OPS40, 40, 41, 42, 43, 44, 45, 46)
+UVIT_WGMMA_RS(96, UVIT_REGS48, UVIT_OPS48, 48, 49, 50, 51, 52, 53, 54)
+UVIT_WGMMA_RS(112, UVIT_REGS56, UVIT_OPS56, 56, 57, 58, 59, 60, 61, 62)
+UVIT_WGMMA_RS(128, UVIT_REGS64, UVIT_OPS64, 64, 65, 66, 67, 68, 69, 70)
+#undef UVIT_WGMMA_RS
+#undef UVIT_ACC8
+#undef UVIT_REGS8_0
+#undef UVIT_REGS8_1
+#undef UVIT_REGS8_2
+#undef UVIT_REGS8_3
+#undef UVIT_REGS8_4
+#undef UVIT_REGS8_5
+#undef UVIT_REGS8_6
+#undef UVIT_REGS8_7
+#undef UVIT_REGS16
+#undef UVIT_REGS24
+#undef UVIT_REGS32
+#undef UVIT_REGS40
+#undef UVIT_REGS48
+#undef UVIT_REGS56
+#undef UVIT_REGS64
+#undef UVIT_OPS16
+#undef UVIT_OPS24
+#undef UVIT_OPS32
+#undef UVIT_OPS40
+#undef UVIT_OPS48
+#undef UVIT_OPS56
+#undef UVIT_OPS64
 
 // ---------------------------------------------------------------------------
 // HeadTile<D>: one head's 64-row tile at head width D (see the top of this
@@ -368,31 +400,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
 // ---------------------------------------------------------------------------
 
 template <int D>
-struct HeadTile;
-
-template <>
-struct HeadTile<64> {
-  static constexpr int kBoxCols = 64, kBoxes = 1;
-  static constexpr uint32_t kBoxBytes = 64 * 64 * sizeof(bf16), kBytes = kBoxBytes;
-  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
-  __device__ static uint64_t desc(const void* tile) { return desc_sw128(tile); }
-  __device__ static uint64_t k_step(uint64_t desc, int kk) { return desc_add(desc, 32 * kk); }
-  __device__ static uint64_t mn_step(uint64_t desc, int kk) { return desc_add(desc, 2048 * kk); }
-  __device__ static void add_qv_bias(unsigned char* tile, const float* bias_row, int tid) {
-    add_qv_bias_sw128(tile, qv_bias_chunk(bias_row, tid), tid);
+struct HeadTile {
+  static_assert(D % 16 == 0 && D >= 32 && D <= 128, "head widths 32, 48, ..., 128");
+  // the widest swizzle whose box width divides D (the top of this file)
+  static constexpr int kBoxCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kStepsPerBox = kBoxCols / 16;  // 16-deep K-major steps in a box
+  static constexpr uint32_t kRowBytes = kBoxCols * sizeof(bf16);
+  static constexpr uint32_t kBoxBytes = 64 * kRowBytes, kBytes = kBoxes * kBoxBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kBoxCols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : kBoxCols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  __device__ static uint64_t desc(const void* tile) {
+    return desc_swizzled<kRowBytes>(tile, kBoxes > 1 ? kBoxBytes : 16);
   }
-};
-
-template <>
-struct HeadTile<80> {
-  static constexpr int kBoxCols = 16, kBoxes = 5;
-  static constexpr uint32_t kBoxBytes = 64 * 16 * sizeof(bf16), kBytes = kBoxes * kBoxBytes;
-  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_32B;
-  __device__ static uint64_t desc(const void* tile) { return desc_sw32(tile); }
-  __device__ static uint64_t k_step(uint64_t desc, int kk) { return desc_add(desc, 2048 * kk); }
-  __device__ static uint64_t mn_step(uint64_t desc, int kk) { return desc_add(desc, 512 * kk); }
+  __device__ static uint64_t k_step(uint64_t desc, int kk) {
+    return desc_add(desc, (kk / kStepsPerBox) * kBoxBytes + (kk % kStepsPerBox) * 32);
+  }
+  __device__ static uint64_t mn_step(uint64_t desc, int kk) {
+    return desc_add(desc, 16 * kRowBytes * kk);
+  }
   __device__ static void add_qv_bias(unsigned char* tile, const float* bias_row, int tid) {
-    add_qv_bias_sw32(tile, bias_row, tid);
+    add_qv_bias_boxes<kBoxCols, kBoxes>(tile, bias_row, tid);
   }
 };
 

@@ -63,7 +63,8 @@ from uncertainty_vit_tpu_torch.ops import quant as quant_ops
 from uncertainty_vit_tpu_torch.ops.attention import VARIANTS, gumbel_softmax_probs, naive_attention
 from uncertainty_vit_tpu_torch.ops.dropout import fused_dropout
 from uncertainty_vit_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS, fused_qkv_attention, in_plain_only, seq_sharded_qkv_attention,
+    KERNEL_HEAD_DIMS, fused_qkv_attention, in_plain_only, reference_takes_kernels,
+    seq_sharded_qkv_attention,
 )
 from uncertainty_vit_tpu_torch.ops.losses import at_least_f32
 from uncertainty_vit_tpu_torch.parallel import mesh as meshlib
@@ -564,13 +565,20 @@ class Attention(nn.Module):
     ``F.linear``, or in the int8 kernel's f32 epilogue with ``quant="int8"``.
     ``use_kernel``, decided at each call as the reference decides it
     (:332-338): ``use_flash=True``, the softmax variant, a head width the
-    attention kernels take (``KERNEL_HEAD_DIMS``: 64 and 80, every preset's
-    width, where the reference's ``kernel_supported`` holds too) and no
+    attention kernels take (``KERNEL_HEAD_DIMS``: every multiple of 16 from 32
+    to 128, every preset's width among them, where the reference's
+    ``kernel_supported`` holds too) and no
     ``flash_attention.plain_only()`` context route through
     ``fused_qkv_attention`` (the kernel on a CUDA tensor, its plain version
     on CPU), attention dropout included, from a seed drawn from the
     forward's generator; otherwise ``naive_attention`` runs, the Gumbel
-    variant's noise drawn from the forward's ``gumbel_generator``.
+    variant's noise drawn from the forward's ``gumbel_generator``. At a
+    width outside ``KERNEL_HEAD_DIMS`` the plain attention runs where the
+    reference runs plain attention too (no head group g dividing H with g·D a
+    multiple of 128); where the reference takes its kernels there (D ≡ 8 mod 16, 16,
+    above 128: ``unbuilt_kernel``) the forward on a tensor off the CPU raises
+    ``NotImplementedError`` (ROADMAP.md §2) and the CPU runs the plain
+    attention.
 
     On a mesh's data axis the kernels key attention dropout's masks on this
     rank's images of the global batch (``batch_fold``) and the plain route
@@ -639,11 +647,25 @@ class Attention(nn.Module):
         return (self.use_flash and self.variant == "softmax"
                 and self.head_dim in KERNEL_HEAD_DIMS and not in_plain_only())
 
+    @property
+    def unbuilt_kernel(self) -> bool:
+        """Whether the reference takes its attention kernels at this call's
+        head width and the port's kernels are not built for it (read per
+        call)."""
+        return (self.use_flash and self.variant == "softmax"
+                and self.head_dim not in KERNEL_HEAD_DIMS and not in_plain_only()
+                and reference_takes_kernels(self.num_heads, self.head_dim))
+
     def forward(self, x: torch.Tensor, rel_pos_bias: Optional[torch.Tensor] = None,
                 out_scale: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: Optional[bool] = None,
                 gumbel_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if x.device.type != "cpu" and self.unbuilt_kernel:
+            raise NotImplementedError(
+                f"the attention kernels are not built for head width {self.head_dim} "
+                f"({self.num_heads} heads), where the reference takes its kernels; they take "
+                "every multiple of 16 from 32 to 128 (ROADMAP.md §2)")
         active = _active(self, deterministic)
         b, n, _ = x.shape
         if self.tp is not None:

@@ -108,8 +108,23 @@ def _refuse_in_plain_only(what: str) -> None:
 # it on for training and evaluation (cli/common.py:34-44 of the reference
 # package). Read at call time when ``bounded_scores`` is not given.
 BOUNDED_SCORES = False
-# The head widths the kernels are built for: ViT-B and ViT-L (64), ViT-H (80).
-KERNEL_HEAD_DIMS = (64, 80)
+# The head widths the kernels are built for: every multiple of 16 from 32 to
+# 128 (ViT-B and ViT-L 64, ViT-H 80; a wgmma step is 16 deep). The same rule
+# picks the instantiation at launch (csrc/attention_common.cuh:kHeadDimMin,
+# kHeadDimMax, kHeadDimStep; a CPU test holds the two to each other).
+HEAD_DIM_MIN, HEAD_DIM_MAX, HEAD_DIM_STEP = 32, 128, 16
+KERNEL_HEAD_DIMS = tuple(range(HEAD_DIM_MIN, HEAD_DIM_MAX + 1, HEAD_DIM_STEP))
+# The reference's kernels keep a head group's lanes 128-aligned
+# (ops/flash_attention.py:_group_candidates of the reference package).
+_LANE = 128
+
+
+def reference_takes_kernels(num_heads: int, head_dim: int) -> bool:
+    """Whether the reference's head-group rule admits its attention kernels
+    at H heads of D: some head group g dividing H with g·D a multiple of 128
+    (its ``kernel_supported`` holds there at N = 197, 577 and 1025)."""
+    return any(num_heads % g == 0 and (g * head_dim) % _LANE == 0
+               for g in range(1, num_heads + 1))
 # The fused route (K1, K2: the TPU's whole-row kernels) takes N up to this
 # (ViT 224 and below), the streaming route (K3, K4) above it (N=577/1025),
 # forward and backward alike. On the card both routes run the streaming
@@ -501,8 +516,8 @@ def _check_tokens(name: str, x: torch.Tensor, sections: int, num_heads: int
     c = cs // sections
     head_dim = c // num_heads
     if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim {KERNEL_HEAD_DIMS[0]} or "
-                         f"{KERNEL_HEAD_DIMS[1]}, got {head_dim}")
+        raise ValueError(f"the attention kernels take a head_dim that is a multiple of "
+                         f"{HEAD_DIM_STEP} from {HEAD_DIM_MIN} to {HEAD_DIM_MAX}, got {head_dim}")
     if not x.is_contiguous() or x.data_ptr() % 16 != 0:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     return b, n, c
